@@ -1,0 +1,129 @@
+"""The slice as a whole: port WhisperMedusaModel.generate vs the JAX one.
+
+tiny_test_config(vocab_size=51865, medusa_num_heads=3) with nonzero head
+weights, the JAX weights bridged into the port, float32 on the CPU.  Tokens,
+lengths, accepted drafts, steps and mean_accept_length are equal; token
+log-probs agree to 1e-4.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from whisper_medusa_tpu.config import tiny_test_config
+from whisper_medusa_tpu.models.api import WhisperMedusaModel as JModel
+from whisper_medusa_tpu_torch.models import bridge
+from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel as TModel
+
+
+@pytest.fixture(scope="module")
+def models():
+    cfg = tiny_test_config(vocab_size=51865, medusa_num_heads=3)
+    jm = JModel.from_random(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    w = jm.params["medusa"]["heads"]["w"]
+    jm.params["medusa"]["heads"]["w"] = jnp.asarray(
+        0.3 * rng.standard_normal(w.shape), jnp.float32)
+    tm = TModel(cfg, bridge.params_from_numpy(jax.tree.map(np.asarray, jm.params)))
+    return jm, tm
+
+
+def _feats(cfg, seed=0):
+    return np.random.default_rng(seed).standard_normal(
+        (1, cfg.dims.num_mel_bins, cfg.dims.num_frames)).astype(np.float32)
+
+
+def _assert_same(a, b):
+    np.testing.assert_array_equal(b.sequences, np.asarray(a.sequences))
+    np.testing.assert_array_equal(b.lengths, np.asarray(a.lengths))
+    np.testing.assert_array_equal(b.accepted, np.asarray(a.accepted))
+    assert b.steps == a.steps
+    assert b.mean_accept_length == pytest.approx(a.mean_accept_length, abs=1e-12)
+    np.testing.assert_allclose(b.token_logprobs, a.token_logprobs, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(b.avg_logprobs, a.avg_logprobs, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(b.no_speech_probs, a.no_speech_probs, rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("decay", [None, (5, 1.4)])
+def test_generate_matches_jax(models, decay):
+    jm, tm = models
+    f = _feats(jm.config, seed=1)
+    kw = dict(language="en", max_length=24, exponential_decay_length_penalty=decay)
+    a, b = jm.generate(f, **kw), tm.generate(f, **kw)
+    assert a.steps > 0 and int(np.asarray(a.accepted).sum()) > 0
+    _assert_same(a, b)
+
+
+def test_detect_language_and_max_new_tokens_match_jax(models):
+    jm, tm = models
+    f = _feats(jm.config, seed=2)
+    a = jm.generate(f, max_new_tokens=10)
+    b = tm.generate(f, max_new_tokens=10)
+    assert b.detected_language == a.detected_language
+    _assert_same(a, b)
+
+
+def test_tokens_invariant_under_draft_corruption(models):
+    _, tm = models
+    f = _feats(tm.config, seed=1)
+    outs = [tm.generate(f, language="en", max_length=24, draft_corruption=c)
+            for c in (None, 0.5, 1.0)]
+    for o in outs[1:]:
+        # The finish rule may stop the loops a few tokens apart.
+        n = int(min(o.lengths[0], outs[0].lengths[0]))
+        np.testing.assert_array_equal(o.sequences[0, :n], outs[0].sequences[0, :n])
+        assert o.steps >= outs[0].steps
+    assert outs[0].accepted.sum() > 0 and outs[2].accepted.sum() == 0
+
+
+def test_from_pretrained_loads_framework_checkpoint(models, tmp_path):
+    jm, tm = models
+    jm.save_pretrained(str(tmp_path))
+    loaded = TModel.from_pretrained(str(tmp_path))
+    assert loaded.special == tm.special
+    assert dataclasses.asdict(loaded.generation_config) == dataclasses.asdict(
+        jm.generation_config)
+    for (k, a), (_, b) in zip(_leaves(loaded.params), _leaves(tm.params)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
+    f = _feats(tm.config, seed=3)
+    np.testing.assert_array_equal(
+        loaded.generate(f, language="en", max_length=16).sequences,
+        tm.generate(f, language="en", max_length=16).sequences)
+
+
+def _leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(num_beams=2), "beam search"),
+    (dict(return_timestamps=True), "timestamps"),
+    (dict(disable_medusa=True), "vanilla"),
+    (dict(temperature=(0.0, 0.2)), "decode modes"),
+    (dict(return_scores="full"), "capture"),
+])
+def test_unported_options_raise(models, kwargs, match):
+    _, tm = models
+    with pytest.raises(NotImplementedError, match=match):
+        tm.generate(_feats(tm.config), language="en", **kwargs)
+
+
+def test_batch_and_longform_raise(models):
+    _, tm = models
+    cfg = tm.config
+    with pytest.raises(NotImplementedError, match="batch"):
+        tm.generate(np.zeros((2, cfg.dims.num_mel_bins, cfg.dims.num_frames),
+                             np.float32), language="en")
+    with pytest.raises(NotImplementedError, match="longform"):
+        tm.generate(np.zeros((1, cfg.dims.num_mel_bins, 2 * cfg.dims.num_frames),
+                             np.float32), language="en")
+    with pytest.raises(TypeError, match="unexpected"):
+        tm.generate(_feats(cfg), language="en", no_such_option=1)

@@ -1,0 +1,70 @@
+"""Guards of the PyTorch port: it imports no JAX, refuses to run on the CPU
+when CUDA was asked for, and has no stub when the kernels cannot be built."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import whisper_medusa_tpu_torch
+from whisper_medusa_tpu.config import tiny_test_config
+from whisper_medusa_tpu_torch.models import bridge
+from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+from whisper_medusa_tpu_torch.ops import cuda_lib
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    pkg = whisper_medusa_tpu_torch
+    return sorted(m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."))
+
+
+def test_port_imports_no_jax():
+    mods = _port_modules()
+    assert "whisper_medusa_tpu_torch.models.api" in mods and len(mods) >= 15
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+            "assert not bad, bad\n"
+            "print('ok', len(sys.modules))")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_cuda_request_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the request is legitimate here")
+    with pytest.raises(RuntimeError, match="does not fall back"):
+        WhisperMedusaModel.from_random(tiny_test_config(), device="cuda")
+    with pytest.raises(RuntimeError, match="does not fall back"):
+        bridge.params_from_numpy({"w": [1.0]}, device="cuda")
+
+
+def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
+    import torch.utils.cpp_extension as cpp_ext
+
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
+    monkeypatch.setattr(cuda_lib, "_LIB", None)
+    assert cuda_lib.find_nvcc() is None
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_lib.lib()
+    assert cuda_lib._LIB is None
+
+
+def test_kernel_sources_are_packaged():
+    names = sorted(os.listdir(cuda_lib.CSRC_DIR))
+    assert {"attention.cu", "megastep.cu", "logits.cu", "verify.cu",
+            "common.cuh"} <= set(names)
+    for entry in cuda_lib._SIGNATURES:
+        assert any(f"int {entry}(" in open(os.path.join(cuda_lib.CSRC_DIR, n)).read()
+                   for n in names if n.endswith(".cu")), entry

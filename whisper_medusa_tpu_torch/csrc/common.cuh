@@ -1,0 +1,241 @@
+// Shared device code of the port's Hopper kernels (sm_90a).
+//
+// Two building blocks are used by more than one kernel:
+//
+//  * skinny_gemm_kernel: Y[M, N] = epilogue(A[M, K] @ W[K, N] + bias) for
+//    M <= 16 rows (the decode chunk, or the verification source rows), W
+//    stored (in, out) as in the JAX package.  One CTA of 16 warps per
+//    16-column output tile; each warp owns a K/16 slice and loads its weight
+//    fragments in batches of five before the tensor-core products, so a whole
+//    weight matrix is in flight at once; the 16 per-warp partial tiles are
+//    summed in a fixed order in shared memory (deterministic, no atomics).
+//    At decode sizes this is bound by the weight stream: every weight element
+//    is read once per call.
+//
+//  * vocab_tile: C[128, 64] = X[rows, D] @ E[v0 : v0 + 64, D]^T for the tied
+//    embedding E (V, D), both staged through shared memory in 64-wide K
+//    slices (zero-filled past the last row and the last vocab entry) and
+//    multiplied with WMMA, f32 accumulation.  Bound by the embedding stream
+//    (133 MB at large-v2) plus one L2 read of the rows per vocab tile.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace wm {
+namespace {   // internal linkage: every .cu gets its own copy
+
+using bf16 = __nv_bfloat16;
+using namespace nvcuda;
+
+// Mask constants copied from the JAX package, one per site.
+constexpr float NEG_SELF = -1e30f;                    // megastep.py NEG_SELF
+constexpr float NEG_VERIFY = -3.4028234663852886e38f / 2.0f;  // verify.py NEG
+
+__device__ __forceinline__ float bf2f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ bf16 f2bf(float x) { return __float2bfloat16(x); }
+// Round a float to the nearest bf16 and back (the JAX ``.astype(bf16)``).
+__device__ __forceinline__ float bfr(float x) { return bf2f(f2bf(x)); }
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
+}
+
+// ---------------------------------------------------------------------------
+// Skinny GEMM
+// ---------------------------------------------------------------------------
+
+enum Epi : int {
+  EPI_BIAS = 0,          // out = bf16(acc + b)
+  EPI_BIAS_SCALE = 1,    // out = bf16(bf16(acc + b) * scale)   (q projections)
+  EPI_BIAS_GELU = 2,     // out = bf16(gelu(acc + b))            (fc1)
+  EPI_BIAS_RESID = 3,    // out = bf16(res + bf16(acc + b))      (o, fc2; res may be out)
+  EPI_SILU_RESID = 4,    // out = bf16(res + bf16(silu(acc + b))) (Medusa res block)
+};
+
+struct SkinnyJob {
+  const bf16* w;      // (K, N) row-major
+  const bf16* bias;   // (N,) or nullptr
+  const bf16* res;    // residual rows (ld = ldres) or nullptr
+  bf16* out;          // output rows (ld = ldo)
+  int epi;
+  float scale;
+};
+
+struct SkinnyJobs {
+  SkinnyJob j[3];
+};
+
+constexpr int SK_WARPS = 16;   // K is split over 16 warps: K % 256 == 0
+constexpr int SK_BATCH = 5;    // weight fragments loaded per batch
+
+// grid: (N / 16, njobs or batch).  With njobs == 1 the y index is a batch
+// index that offsets W, bias and the output by the given strides (the
+// per-head Medusa blocks); otherwise it selects one of up to three jobs that
+// share A (the q/k/v projections).
+__global__ void __launch_bounds__(SK_WARPS * 32)
+skinny_gemm_kernel(const bf16* __restrict__ a, int lda, int m_rows, int k_dim,
+                   int n_dim, int ldo, int ldres, SkinnyJobs jobs, int njobs,
+                   long long w_stride, long long b_stride, long long o_stride) {
+  const int y = blockIdx.y;
+  // Select without a dynamic index into the parameter array (which would
+  // spill the jobs to local memory).
+  const SkinnyJob jb = (njobs == 1 || y == 0) ? jobs.j[0] : (y == 1 ? jobs.j[1] : jobs.j[2]);
+  const long long batch = njobs == 1 ? y : 0;
+  const bf16* w = jb.w + batch * w_stride;
+  const int n0 = blockIdx.x * 16;
+  const int warp = threadIdx.x >> 5;
+  const int kper = k_dim / SK_WARPS;
+  const int kbeg = warp * kper;
+  const int nsteps = kper / 16;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+  wmma::fill_fragment(acc, 0.0f);
+  for (int s0 = 0; s0 < nsteps; s0 += SK_BATCH) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[SK_BATCH];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[SK_BATCH];
+#pragma unroll
+    for (int i = 0; i < SK_BATCH; ++i) {
+      if (s0 + i < nsteps) {
+        const int k = kbeg + (s0 + i) * 16;
+        wmma::load_matrix_sync(fb[i], w + (size_t)k * n_dim + n0, n_dim);
+        wmma::load_matrix_sync(fa[i], a + k, lda);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < SK_BATCH; ++i)
+      if (s0 + i < nsteps) wmma::mma_sync(acc, fa[i], fb[i], acc);
+  }
+
+  __shared__ __align__(32) float red[SK_WARPS][256];
+  wmma::store_matrix_sync(red[warp], acc, 16, wmma::mem_row_major);
+  __syncthreads();
+  if (threadIdx.x >= 256) return;
+  const int m = threadIdx.x >> 4;
+  const int n = n0 + (threadIdx.x & 15);
+  if (m >= m_rows) return;
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < SK_WARPS; ++i) s += red[i][threadIdx.x];
+  if (jb.bias) s += bf2f(jb.bias[batch * b_stride + n]);
+  float r;
+  switch (jb.epi) {
+    case EPI_BIAS_SCALE: r = bfr(s) * jb.scale; break;
+    case EPI_BIAS_GELU: r = gelu_erf(s); break;
+    case EPI_BIAS_RESID: r = bf2f(jb.res[(size_t)m * ldres + n]) + bfr(s); break;
+    case EPI_SILU_RESID:
+      r = bf2f(jb.res[(size_t)m * ldres + n]) + bfr(s / (1.0f + expf(-s)));
+      break;
+    default: r = s;
+  }
+  jb.out[batch * o_stride + (size_t)m * ldo + n] = f2bf(r);
+}
+
+// Launch helper: a has 16 rows allocated (rows >= m_rows are ignored).
+inline void skinny_gemm(const bf16* a, int lda, int m_rows, int k_dim, int n_dim,
+                        int ldo, int ldres, const SkinnyJobs& jobs, int njobs,
+                        int grid_y, long long w_stride, long long b_stride,
+                        long long o_stride, cudaStream_t stream) {
+  dim3 grid(n_dim / 16, grid_y);
+  skinny_gemm_kernel<<<grid, SK_WARPS * 32, 0, stream>>>(
+      a, lda, m_rows, k_dim, n_dim, ldo, ldres, jobs, njobs, w_stride,
+      b_stride, o_stride);
+}
+
+inline SkinnyJob job(const bf16* w, const bf16* bias, bf16* out, int epi,
+                     const bf16* res = nullptr, float scale = 1.0f) {
+  SkinnyJob j;
+  j.w = w;
+  j.bias = bias;
+  j.res = res;
+  j.out = out;
+  j.epi = epi;
+  j.scale = scale;
+  return j;
+}
+
+// ---------------------------------------------------------------------------
+// Vocab tile: rows x 64 embedding rows on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int VT = 64;          // vocab entries per CTA
+constexpr int VKC = 64;         // K slice staged per step
+constexpr int VRB = 128;        // rows per block (8 warps x 16)
+constexpr int VLDS = VKC + 8;   // bf16 smem pitch (bank-conflict pad)
+constexpr int VLDC = VT + 4;    // f32 smem pitch
+constexpr int VTHREADS = 256;
+constexpr int VOCAB_SMEM =
+    VRB * VLDS * 2 + VT * VLDS * 2 + VRB * VLDC * 4;   // 62464 bytes
+
+// Fills cs[VRB][VLDC] with rows [row0, row0 + 128) x vocab [v0, v0 + 64).
+// Rows >= n_rows and vocab entries >= v_dim read as zero.  Ends synchronized.
+__device__ __forceinline__ void vocab_tile(const bf16* __restrict__ x, int n_rows,
+                                           int row0, const bf16* __restrict__ e,
+                                           int v_dim, int d_dim, int v0,
+                                           char* smem) {
+  bf16* as = reinterpret_cast<bf16*>(smem);
+  bf16* bs = as + VRB * VLDS;
+  float* cs = reinterpret_cast<float*>(bs + VT * VLDS);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const bool live = row0 + warp * 16 < n_rows;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[VT / 16];
+#pragma unroll
+  for (int j = 0; j < VT / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
+
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int k0 = 0; k0 < d_dim; k0 += VKC) {
+    for (int i = tid; i < VRB * (VKC / 8); i += VTHREADS) {
+      const int r = i / (VKC / 8), c = (i % (VKC / 8)) * 8;
+      uint4 val = zero;
+      if (row0 + r < n_rows)
+        val = *reinterpret_cast<const uint4*>(x + (size_t)(row0 + r) * d_dim + k0 + c);
+      *reinterpret_cast<uint4*>(as + r * VLDS + c) = val;
+    }
+    for (int i = tid; i < VT * (VKC / 8); i += VTHREADS) {
+      const int r = i / (VKC / 8), c = (i % (VKC / 8)) * 8;
+      uint4 val = zero;
+      if (v0 + r < v_dim)
+        val = *reinterpret_cast<const uint4*>(e + (size_t)(v0 + r) * d_dim + k0 + c);
+      *reinterpret_cast<uint4*>(bs + r * VLDS + c) = val;
+    }
+    __syncthreads();
+    if (live) {
+#pragma unroll
+      for (int kk = 0; kk < VKC; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, as + warp * 16 * VLDS + kk, VLDS);
+#pragma unroll
+        for (int j = 0; j < VT / 16; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+          wmma::load_matrix_sync(fb, bs + j * 16 * VLDS + kk, VLDS);
+          wmma::mma_sync(acc[j], fa, fb, acc[j]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < VT / 16; ++j)
+    wmma::store_matrix_sync(cs + warp * 16 * VLDC + j * 16, acc[j], VLDC,
+                            wmma::mem_row_major);
+  __syncthreads();
+}
+
+}  // namespace
+}  // namespace wm

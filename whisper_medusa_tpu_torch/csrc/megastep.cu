@@ -1,0 +1,389 @@
+// K2 — the whole decoder stack over one decode chunk (T <= 16 tokens, B*T <= 16).
+//
+// Replaces whisper_medusa_tpu/ops/megastep.py::_kernel (TPU, launched by
+// fused_decoder_layers), one pallas_call whose grid walks (layers, phases)
+// with the hidden state carried in VMEM while Mosaic streams the next phase's
+// weights.  On Hopper the same work is a fixed sequence of small kernels per
+// layer, launched back to back on one stream by one C entry (one ctypes call
+// per decode step):
+//
+//   LN -> q/k/v (one skinny launch, 3 jobs) -> self-attention + in-place
+//   K/V commit -> o + residual -> LN -> cross q -> cross-attention partials
+//   over 128-key chunks -> combine -> cross o + residual -> LN -> fc1 + GELU
+//   -> fc2 + residual
+//
+// The hidden state stays in a 16-row bf16 buffer in device memory (L2
+// resident) between kernels.  Bound on H100: bytes.  At large-v2, B=1, one
+// step reads 32 x (6 x 1280^2 + 2 x 1280 x 5120) bf16 weights = 1.47 GB plus
+// 32 x 2 x 1500 x 1280 bf16 cross K/V = 246 MB (counted from the shapes).
+// The skinny GEMM reads each weight once with the whole matrix in flight;
+// cross-attention splits the 1500 keys into 128-key chunks so a B=1 step
+// spreads over 12 x 20 CTAs instead of 20.
+//
+// Numerics follow models/whisper.py::decoder_layer_step: f32 layernorm
+// statistics, softmax and accumulation; bf16 operands and activations;
+// exact erf GELU (erff).  Self-attention masks: history key j < offset is
+// visible; chunk key offset + c is visible to query t iff mask[t][c];
+// masked scores take NEG_SELF = -1e30 (megastep.py:134).  Cross keys
+// >= cross_len are excluded (the JAX path gives them NEG_CROSS, i.e. zero
+// probability).  The chunk's K/V rows are written into the self slabs in
+// place (the JAX kernel aliases its slab outputs to its inputs).
+#include "common.cuh"
+
+namespace wm {
+namespace {
+
+constexpr int DH = 64;        // head dim
+constexpr int CS = 128;       // cross-attention keys per chunk
+constexpr int MAXT = 16;      // chunk rows
+constexpr int AT = 512;       // threads of the attention kernels
+constexpr int RG = AT / DH;   // row groups in the PV loops (rows g, g + RG)
+
+// y[row] = LN(x[row]) in bf16; f32 statistics; one CTA per row.
+__global__ void __launch_bounds__(256)
+ln_rows_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
+               const bf16* __restrict__ scale, const bf16* __restrict__ bias, int d) {
+  __shared__ float red[8];
+  const bf16* xr = x + (size_t)blockIdx.x * d;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float s = 0.0f;
+  for (int i = threadIdx.x; i < d; i += 256) s += bf2f(xr[i]);
+  s = warp_sum(s);
+  if (lane == 0) red[warp] = s;
+  __syncthreads();
+  float tot = 0.0f;
+  for (int i = 0; i < 8; ++i) tot += red[i];
+  const float mean = tot / d;
+  __syncthreads();
+  float v = 0.0f;
+  for (int i = threadIdx.x; i < d; i += 256) {
+    const float c = bf2f(xr[i]) - mean;
+    v += c * c;
+  }
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  tot = 0.0f;
+  for (int i = 0; i < 8; ++i) tot += red[i];
+  const float rstd = rsqrtf(tot / d + 1e-5f);
+  for (int i = threadIdx.x; i < d; i += 256)
+    y[(size_t)blockIdx.x * d + i] =
+        f2bf((bf2f(xr[i]) - mean) * rstd * bf2f(scale[i]) + bf2f(bias[i]));
+}
+
+// Self-attention over [0, offset + T) with the chunk's K/V committed first.
+// One CTA (512 threads) per (head, example).  Dynamic smem: q (T x 64) and
+// the score/probability rows (T x S), float; the head's V rows (S x 64), bf16,
+// staged with 16-byte loads so the PV loop reads shared memory.
+__global__ void __launch_bounds__(AT)
+self_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ out,
+                 bf16* __restrict__ slab_k, bf16* __restrict__ slab_v,
+                 const int* __restrict__ offsets, const uint8_t* __restrict__ mask,
+                 int t_len, int s_len, int d) {
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm;                    // [T][64]
+  float* sc = sm + t_len * DH;       // [T][s_len]
+  // [s_len][64], 16-byte aligned for the uint4 stores
+  bf16* vs = reinterpret_cast<bf16*>(sm + ((t_len * (DH + s_len) + 3) & ~3));
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int off = offsets[b];
+  const size_t slab0 = (size_t)b * s_len * d + (size_t)h * DH;
+
+  for (int i = tid; i < t_len * DH; i += AT) {
+    const int t = i / DH, c = i % DH;
+    const size_t src = (size_t)(b * t_len + t) * d + h * DH + c;
+    if (off + t < s_len) {
+      slab_k[slab0 + (size_t)(off + t) * d + c] = k[src];
+      slab_v[slab0 + (size_t)(off + t) * d + c] = v[src];
+    }
+    qs[t * DH + c] = bf2f(q[src]);
+  }
+  __syncthreads();
+
+  const int nk = min(off + t_len, s_len);
+  for (int i = tid; i < nk * (DH / 8); i += AT) {
+    const int j = i / (DH / 8), c8 = (i % (DH / 8)) * 8;
+    *reinterpret_cast<uint4*>(vs + j * DH + c8) =
+        *reinterpret_cast<const uint4*>(slab_v + slab0 + (size_t)j * d + c8);
+  }
+  for (int j = tid; j < nk; j += AT) {
+    float acc[MAXT];
+#pragma unroll
+    for (int t = 0; t < MAXT; ++t) acc[t] = 0.0f;
+    const bf16* kr = slab_k + slab0 + (size_t)j * d;
+#pragma unroll
+    for (int c8 = 0; c8 < DH; c8 += 8) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(kr + c8);
+      const bf16* kv8 = reinterpret_cast<const bf16*>(&raw);
+      float kf[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) kf[e] = bf2f(kv8[e]);
+#pragma unroll
+      for (int t = 0; t < MAXT; ++t) {
+        if (t < t_len) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[t] += qs[t * DH + c8 + e] * kf[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < MAXT; ++t) {
+      if (t < t_len) {
+        const bool vis = j < off || mask[t * t_len + (j - off)] != 0;
+        sc[t * s_len + j] = vis ? acc[t] : acc[t] + NEG_SELF;
+      }
+    }
+  }
+  __syncthreads();
+
+  // Softmax per row, probabilities rounded to bf16 (as the JAX path does
+  // before its PV product).
+  for (int t = warp; t < t_len; t += AT / 32) {
+    float* row = sc + t * s_len;
+    float m = -INFINITY;
+    for (int j = lane; j < nk; j += 32) m = fmaxf(m, row[j]);
+    m = warp_max(m);
+    float s = 0.0f;
+    for (int j = lane; j < nk; j += 32) s += expf(row[j] - m);
+    s = warp_sum(s);
+    const float inv = 1.0f / s;
+    for (int j = lane; j < nk; j += 32) row[j] = bfr(expf(row[j] - m) * inv);
+  }
+  __syncthreads();
+
+  // PV: thread (group g, column c) accumulates rows t = g, g + RG, ...
+  const int c = tid & 63, g = tid >> 6;
+  float acc[MAXT / RG];
+#pragma unroll
+  for (int i = 0; i < MAXT / RG; ++i) acc[i] = 0.0f;
+  for (int j = 0; j < nk; ++j) {
+    const float vv = bf2f(vs[j * DH + c]);
+#pragma unroll
+    for (int i = 0; i < MAXT / RG; ++i) {
+      const int t = g + RG * i;
+      if (t < t_len) acc[i] += sc[t * s_len + j] * vv;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MAXT / RG; ++i) {
+    const int t = g + RG * i;
+    if (t < t_len) out[(size_t)(b * t_len + t) * d + h * DH + c] = f2bf(acc[i]);
+  }
+}
+
+// Cross-attention partials: one CTA (512 threads; one per key in the score
+// phase) per (chunk, head, example).  The chunk's K tile (64 x 128, head-major rows of
+// S) and V tile (128 x 64, head-flat rows) are staged in shared memory with
+// 8- and 16-byte loads.  Writes the chunk-normalized output o_c, the chunk
+// max m_c and the chunk sum l_c for every query row.  s_enc % 4 == 0.
+__global__ void __launch_bounds__(AT)
+cross_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
+                     const bf16* __restrict__ cv, float* __restrict__ part_o,
+                     float* __restrict__ part_ml, int t_len, int n_heads, int d,
+                     int s_enc, int cross_len, int nch) {
+  __shared__ float qs[MAXT][DH];
+  __shared__ __align__(16) bf16 ks[DH][CS + 8];
+  __shared__ __align__(16) bf16 vs[CS][DH + 8];
+  __shared__ float ps[MAXT][CS];
+  const int ch = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int s0 = ch * CS;
+  const int nkeys = min(CS, cross_len - s0);
+  for (int i = tid; i < t_len * DH; i += AT) {
+    const int t = i / DH, c = i % DH;
+    qs[t][c] = bf2f(q[(size_t)(b * t_len + t) * d + h * DH + c]);
+  }
+  const bf16* kh = ck + ((size_t)b * n_heads + h) * DH * s_enc + s0;
+  for (int i = tid; i < DH * (CS / 4); i += AT) {
+    const int c = i / (CS / 4), j4 = (i % (CS / 4)) * 4;
+    uint2 val = make_uint2(0, 0);
+    if (j4 + 4 <= nkeys) {
+      val = *reinterpret_cast<const uint2*>(kh + (size_t)c * s_enc + j4);
+    } else {
+      bf16* e = reinterpret_cast<bf16*>(&val);
+      for (int x = 0; x < 4; ++x)
+        if (j4 + x < nkeys) e[x] = kh[(size_t)c * s_enc + j4 + x];
+    }
+    *reinterpret_cast<uint2*>(&ks[c][j4]) = val;
+  }
+  const bf16* vh = cv + ((size_t)b * s_enc + s0) * d + h * DH;
+  for (int i = tid; i < CS * (DH / 8); i += AT) {
+    const int j = i / (DH / 8), c8 = (i % (DH / 8)) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (j < nkeys) val = *reinterpret_cast<const uint4*>(vh + (size_t)j * d + c8);
+    *reinterpret_cast<uint4*>(&vs[j][c8]) = val;
+  }
+  __syncthreads();
+
+  if (tid < CS) {
+    const bool valid = tid < nkeys;
+    float acc[MAXT];
+#pragma unroll
+    for (int t = 0; t < MAXT; ++t) acc[t] = 0.0f;
+#pragma unroll 8
+    for (int c = 0; c < DH; ++c) {
+      const float kd = bf2f(ks[c][tid]);
+#pragma unroll
+      for (int t = 0; t < MAXT; ++t)
+        if (t < t_len) acc[t] += qs[t][c] * kd;
+    }
+#pragma unroll
+    for (int t = 0; t < MAXT; ++t)
+      if (t < t_len) ps[t][tid] = valid ? acc[t] : -INFINITY;
+  }
+  __syncthreads();
+
+  const size_t row0 = ((size_t)b * n_heads + h) * t_len;
+  for (int t = warp; t < t_len; t += AT / 32) {
+    float m = -INFINITY;
+    for (int j = lane; j < CS; j += 32) m = fmaxf(m, ps[t][j]);
+    m = warp_max(m);
+    float l = 0.0f;
+    for (int j = lane; j < nkeys; j += 32) l += expf(ps[t][j] - m);
+    l = warp_sum(l);
+    const float inv = 1.0f / l;
+    for (int j = lane; j < CS; j += 32)
+      ps[t][j] = j < nkeys ? bfr(expf(ps[t][j] - m) * inv) : 0.0f;
+    if (lane == 0) {
+      part_ml[((row0 + t) * nch + ch) * 2] = m;
+      part_ml[((row0 + t) * nch + ch) * 2 + 1] = l;
+    }
+  }
+  __syncthreads();
+
+  const int c = tid & 63, g = tid >> 6;
+  float o[MAXT / RG];
+#pragma unroll
+  for (int i = 0; i < MAXT / RG; ++i) o[i] = 0.0f;
+  for (int j = 0; j < nkeys; ++j) {
+    const float vv = bf2f(vs[j][c]);
+#pragma unroll
+    for (int i = 0; i < MAXT / RG; ++i) {
+      const int t = g + RG * i;
+      if (t < t_len) o[i] += ps[t][j] * vv;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MAXT / RG; ++i) {
+    const int t = g + RG * i;
+    if (t < t_len) part_o[((row0 + t) * nch + ch) * DH + c] = o[i];
+  }
+}
+
+// Combine the chunk partials: one CTA per (head, example).
+__global__ void __launch_bounds__(256)
+cross_combine_kernel(const float* __restrict__ part_o, const float* __restrict__ part_ml,
+                     bf16* __restrict__ out, int t_len, int n_heads, int d, int nch) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t row0 = ((size_t)b * n_heads + h) * t_len;
+  for (int i = threadIdx.x; i < t_len * DH; i += 256) {
+    const int t = i / DH, c = i % DH;
+    const float* ml = part_ml + (row0 + t) * nch * 2;
+    float m = -INFINITY;
+    for (int x = 0; x < nch; ++x) m = fmaxf(m, ml[2 * x]);
+    float l = 0.0f, o = 0.0f;
+    for (int x = 0; x < nch; ++x) {
+      const float w = ml[2 * x + 1] * expf(ml[2 * x] - m);
+      l += w;
+      o += w * part_o[((row0 + t) * nch + x) * DH + c];
+    }
+    out[(size_t)(b * t_len + t) * d + h * DH + c] = f2bf(o / l);
+  }
+}
+
+inline void ln_rows(const bf16* x, bf16* y, const bf16* s, const bf16* b, int m,
+                    int d, cudaStream_t st) {
+  ln_rows_kernel<<<m, 256, 0, st>>>(x, y, s, b, d);
+}
+
+}  // namespace
+}  // namespace wm
+
+// Pointer table of wm_megastep_step (ops/megastep.py builds the same list).
+enum MegastepPtr {
+  P_X = 0,        // (16, D) bf16 hidden: embedded chunk in, pre_norm out
+  P_XA,           // (16, D) bf16 scratch: layernorm output
+  P_Q, P_K, P_V,  // (16, D) bf16 scratch: projections
+  P_ATTN,         // (16, D) bf16 scratch: attention output
+  P_H,            // (16, F) bf16 scratch: fc1 output
+  P_PART,         // f32 scratch: cross partials (B*H*T*nch*(64 + 2))
+  P_SELF_K, P_SELF_V,    // (L, B, S, D) bf16 slabs, updated in place
+  P_CROSS_K,             // (L, B, H, 64, Se) bf16
+  P_CROSS_V,             // (L, B, Se, D) bf16
+  P_OFFSETS,             // (B,) int32
+  P_MASK,                // (T, T) uint8 chunk mask
+  P_SELF_LN_S, P_SELF_LN_B, P_Q_W, P_Q_B, P_K_W, P_V_W, P_V_B, P_O_W, P_O_B,
+  P_CROSS_LN_S, P_CROSS_LN_B, P_CQ_W, P_CQ_B, P_CO_W, P_CO_B,
+  P_FFN_LN_S, P_FFN_LN_B, P_FC1_W, P_FC1_B, P_FC2_W, P_FC2_B,
+  P_COUNT
+};
+
+// ints: L, B, T, D, H, F, S (self slab rows), Se (cross rows), cross_len.
+extern "C" int wm_megastep_step(void** p, const int* ints, void* stream) {
+  using namespace wm;
+  const int L = ints[0], B = ints[1], T = ints[2], D = ints[3], H = ints[4];
+  const int F = ints[5], S = ints[6], SE = ints[7], cross_len = ints[8];
+  const int M = B * T;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (M > MAXT || D != H * DH || D % 256 || F % 256 || SE % 4)
+    return (int)cudaErrorInvalidValue;
+  const int nch = (cross_len + CS - 1) / CS;
+  const size_t self_smem =
+      (size_t)T * (DH + S) * sizeof(float) + 16 + (size_t)S * DH * sizeof(bf16);
+  if (self_smem > 48 * 1024) {
+    if (self_smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+    cudaFuncSetAttribute(self_attn_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)self_smem);
+  }
+
+  auto P = [&](int i) { return static_cast<bf16*>(p[i]); };
+  bf16 *x = P(P_X), *xa = P(P_XA), *qb = P(P_Q), *kb = P(P_K), *vb = P(P_V);
+  bf16 *attn = P(P_ATTN), *hb = P(P_H);
+  float* part_o = static_cast<float*>(p[P_PART]);
+  float* part_ml = part_o + (size_t)B * H * T * nch * DH;
+  const int* offsets = static_cast<const int*>(p[P_OFFSETS]);
+  const uint8_t* mask = static_cast<const uint8_t*>(p[P_MASK]);
+  const float scale = 0.125f;   // DH ** -0.5
+  const size_t DD = (size_t)D * D, DF = (size_t)D * F;
+
+  for (int l = 0; l < L; ++l) {
+    const size_t lD = (size_t)l * D, lF = (size_t)l * F;
+    // --- self-attention
+    ln_rows(x, xa, P(P_SELF_LN_S) + lD, P(P_SELF_LN_B) + lD, M, D, st);
+    SkinnyJobs qkv;
+    qkv.j[0] = job(P(P_Q_W) + l * DD, P(P_Q_B) + lD, qb, EPI_BIAS_SCALE, nullptr, scale);
+    qkv.j[1] = job(P(P_K_W) + l * DD, nullptr, kb, EPI_BIAS);
+    qkv.j[2] = job(P(P_V_W) + l * DD, P(P_V_B) + lD, vb, EPI_BIAS);
+    skinny_gemm(xa, D, M, D, D, D, D, qkv, 3, 3, 0, 0, 0, st);
+    self_attn_kernel<<<dim3(H, B), AT, self_smem, st>>>(
+        qb, kb, vb, attn, P(P_SELF_K) + (size_t)l * B * S * D,
+        P(P_SELF_V) + (size_t)l * B * S * D, offsets, mask, T, S, D);
+    SkinnyJobs o;
+    o.j[0] = job(P(P_O_W) + l * DD, P(P_O_B) + lD, x, EPI_BIAS_RESID, x);
+    skinny_gemm(attn, D, M, D, D, D, D, o, 1, 1, 0, 0, 0, st);
+    // --- cross-attention
+    ln_rows(x, xa, P(P_CROSS_LN_S) + lD, P(P_CROSS_LN_B) + lD, M, D, st);
+    SkinnyJobs cq;
+    cq.j[0] = job(P(P_CQ_W) + l * DD, P(P_CQ_B) + lD, qb, EPI_BIAS_SCALE, nullptr, scale);
+    skinny_gemm(xa, D, M, D, D, D, D, cq, 1, 1, 0, 0, 0, st);
+    cross_partial_kernel<<<dim3(nch, H, B), AT, 0, st>>>(
+        qb, P(P_CROSS_K) + (size_t)l * B * H * DH * SE,
+        P(P_CROSS_V) + (size_t)l * B * SE * D, part_o, part_ml, T, H, D, SE,
+        cross_len, nch);
+    cross_combine_kernel<<<dim3(H, B), 256, 0, st>>>(part_o, part_ml, attn, T, H, D, nch);
+    SkinnyJobs co;
+    co.j[0] = job(P(P_CO_W) + l * DD, P(P_CO_B) + lD, x, EPI_BIAS_RESID, x);
+    skinny_gemm(attn, D, M, D, D, D, D, co, 1, 1, 0, 0, 0, st);
+    // --- FFN
+    ln_rows(x, xa, P(P_FFN_LN_S) + lD, P(P_FFN_LN_B) + lD, M, D, st);
+    SkinnyJobs f1;
+    f1.j[0] = job(P(P_FC1_W) + l * DF, P(P_FC1_B) + lF, hb, EPI_BIAS_GELU);
+    skinny_gemm(xa, D, M, D, F, F, F, f1, 1, 1, 0, 0, 0, st);
+    SkinnyJobs f2;
+    f2.j[0] = job(P(P_FC2_W) + l * DF, P(P_FC2_B) + lD, x, EPI_BIAS_RESID, x);
+    skinny_gemm(hb, F, M, F, D, D, D, f2, 1, 1, 0, 0, 0, st);
+  }
+  return (int)cudaGetLastError();
+}

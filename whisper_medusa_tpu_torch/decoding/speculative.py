@@ -1,0 +1,221 @@
+"""Speculative (Medusa) greedy decoding — counterpart of
+whisper_medusa_tpu/decoding/speculative.py.
+
+Ported: the chain + greedy ``base_head`` path of ``speculative_generate`` —
+one decoder forward per iteration over the (heads + 1)-node chain, fused
+verification (kernel K4 on CUDA tensors) that yields the greedy tokens, the
+accepted drafts' log-probs and the next drafts in one embedding stream,
+longest-prefix acceptance, the window commit, the finish rule and the EOS
+backfill.  State lives in device tensors; the loop reads ``finished`` on the
+host once per iteration.  Branching trees, sampling, typical acceptance,
+timestamp rules, the medusa_block variant and vanilla decoding are not ported
+yet (they raise NotImplementedError).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from whisper_medusa_tpu.config import GenerationConfig, WhisperDims
+from whisper_medusa_tpu.decoding.buffers import MedusaBuffers
+from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig, apply_processors
+from whisper_medusa_tpu_torch.models import medusa as medusa_mod
+from whisper_medusa_tpu_torch.models import whisper
+from whisper_medusa_tpu_torch.ops import verify as verify_mod
+
+Params = Dict[str, Any]
+
+CORRUPTION_SEED = 0x5EED
+
+
+@dataclasses.dataclass
+class SpecResult:
+    tokens: torch.Tensor        # (B, max_length) padded, EOS-backfilled
+    lengths: torch.Tensor       # (B,) committed lengths (clipped to max_length)
+    steps: int                  # decoder iterations (prefill excluded)
+    accepted: torch.Tensor      # (B,) accepted draft tokens
+    first_logits: torch.Tensor  # (B, V) unprocessed base logits at the first position
+    logprobs: torch.Tensor      # (B, max_length) processed log-prob of each token
+
+
+def _head_slice(medusa_params: Params, lo: int, hi: Optional[int]) -> Params:
+    h = medusa_params["heads"]
+    return {"heads": {"w": h["w"][lo:hi], "b": h["b"][lo:hi]}}
+
+
+def _base_logits_fn(params: Params, medusa_params: Params):
+    """base_head: logits = proj(head0(hidden)) — head 0 is the base head."""
+    head0 = _head_slice(medusa_params, 0, 1)
+
+    def fn(hidden):
+        return whisper.project_logits(params, medusa_mod.apply_heads(head0, hidden)[0])
+    return fn
+
+
+def _greedy_accept(chunk, proc_argmax, retrieve):
+    """Greedy longest-prefix-match acceptance over the candidate paths."""
+    ptok = chunk[:, retrieve]                        # (B, P, Lv)
+    pnxt = proc_argmax[:, retrieve]
+    match = (ptok[:, :, 1:] == pnxt[:, :, :-1]).to(torch.int32)
+    acc_len = torch.cumprod(match, dim=-1).sum(-1)   # (B, P)
+    best = torch.argmax(acc_len, dim=-1)             # ties -> first path
+    accept = acc_len.max(dim=-1).values
+    return best, accept, ptok, pnxt
+
+
+def _corrupt(drafts, draft_corruption, gen_rng, vocab_size):
+    """Replace each draft by (draft + 1) % V with probability draft_corruption."""
+    if draft_corruption is None:
+        return drafts
+    u = torch.rand(drafts.shape, generator=gen_rng, device=drafts.device)
+    return torch.where(u < draft_corruption, (drafts + 1) % vocab_size, drafts)
+
+
+def speculative_generate(params: Params, medusa_params: Params, dims: WhisperDims,
+                         buffers: MedusaBuffers, pcfg: ProcessorConfig,
+                         gen: GenerationConfig, enc_out: torch.Tensor,
+                         prompt: torch.Tensor, variant: str = "base_head",
+                         draft_corruption: Optional[float] = None) -> SpecResult:
+    if variant != "base_head" or medusa_params is None:
+        raise NotImplementedError(
+            f"variant {variant!r}: only base_head is ported (ROADMAP queue 1: "
+            "vanilla, medusa_block)")
+    if not buffers.is_chain:
+        raise NotImplementedError("branching medusa_choices trees are not ported "
+                                  "yet (ROADMAP queue 1: remaining decode modes)")
+    if gen.temperature != 0.0:
+        raise NotImplementedError("sampling is not ported yet (ROADMAP queue 1: "
+                                  "remaining decode modes)")
+    hw = medusa_params["heads"]["w"]
+    if hw.shape[1] != 1 or hw.shape[0] < 2:
+        raise NotImplementedError("fused verification takes single-layer heads "
+                                  "and at least one draft head")
+    dev = enc_out.device
+    b, t0 = prompt.shape
+    eos, pad, max_length = gen.eos_token_id, gen.pad_token_id, gen.max_length
+    num_heads = buffers.num_levels - 1
+    n_nodes = buffers.num_nodes
+    lv = buffers.num_levels
+    kp1 = num_heads + 1
+    vocab = dims.vocab_size
+    embed = params["decoder"]["embed_tokens"]
+
+    tree_idx = torch.as_tensor(buffers.tree_indices, dtype=torch.long, device=dev)
+    pos_ids = torch.as_tensor(buffers.position_ids, dtype=torch.int32, device=dev)
+    retrieve = torch.as_tensor(buffers.retrieve_indices, dtype=torch.long, device=dev)
+    draft_params = _head_slice(medusa_params, 1, None)
+    heads_w = hw[:, 0]
+    heads_b = medusa_params["heads"]["b"][:, 0]
+    sup_masks = verify_mod.masks_for(pcfg, dev)
+    gen_rng = torch.Generator(device=dev)
+    gen_rng.manual_seed(CORRUPTION_SEED)
+    arange_lv = torch.arange(lv, device=dev)[None, :]
+    kp1_rows = torch.arange(kp1, dtype=torch.int32, device=dev)[:, None, None]
+
+    buf_len = max_length + lv + 1
+    cache_len = max_length + n_nodes + 1
+
+    def drafts_to_chunk(root, hidden_acc, new_len):
+        head_out = medusa_mod.apply_heads(draft_params, hidden_acc)   # (K, B, D)
+        head_logits = whisper.project_logits(params, head_out).transpose(0, 1)
+        draft_pos = new_len[:, None] + torch.arange(num_heads, device=dev)[None, :]
+        dproc = apply_processors(head_logits, draft_pos, pcfg)        # (B, K, V)
+        drafts = torch.argmax(dproc, dim=-1).to(torch.int32)
+        drafts = _corrupt(drafts, draft_corruption, gen_rng, vocab)
+        return torch.cat([root[:, None], drafts], dim=1)[:, tree_idx]
+
+    # ---------------- prefill ----------------
+    prompt = prompt.to(device=dev, dtype=torch.int32)
+    cache = whisper.init_cache(params, dims, enc_out, cache_len)
+    out = whisper.decode_step(params, dims, prompt, cache,
+                              torch.zeros((b,), dtype=torch.int32, device=dev))
+    h_last = out.hidden[:, -1]
+    base = _base_logits_fn(params, medusa_params)(h_last)             # (B, V) f32
+    proc = apply_processors(base, torch.full((b,), t0, device=dev), pcfg)
+    root0 = torch.argmax(proc, dim=-1).to(torch.int32)
+    tokens = torch.full((b, buf_len), pad, dtype=torch.int32, device=dev)
+    tokens[:, :t0] = prompt
+    tokens[:, t0] = root0
+    cur_len = torch.full((b,), t0 + 1, dtype=torch.int32, device=dev)
+    finished = (root0 == eos) | (cur_len + num_heads >= max_length)
+    chunk = drafts_to_chunk(root0, h_last, cur_len)
+    logprobs = torch.zeros((b, buf_len), dtype=torch.float32, device=dev)
+    logprobs[:, t0] = torch.log_softmax(proc, dim=-1).gather(
+        1, root0.long()[:, None])[:, 0]
+    accepted = torch.zeros((b,), dtype=torch.int32, device=dev)
+    steps = 0
+
+    # ---------------- loop ----------------
+    while not bool(finished.all()):
+        offsets = cur_len - 1
+        out = whisper.decode_step(params, dims, chunk, cache, offsets,
+                                  rel_positions=pos_ids)
+        hidden = out.hidden                                           # (B, N, D)
+        # Row (k, e, n) predicts absolute position cur_len[e] + n + k.
+        pos_rows = (cur_len[None, :, None] + pos_ids[None, None, :]
+                    + kp1_rows).reshape(-1)
+        gcol_nodes = torch.cat([chunk[:, 1:], torch.zeros_like(chunk[:, :1])], dim=1)
+        gcol_rows = torch.cat([
+            gcol_nodes.reshape(-1),
+            torch.zeros(((kp1 - 1) * b * n_nodes,), dtype=torch.int32, device=dev)])
+        am, mx, lse, gth = verify_mod.verify_hidden(
+            hidden, hidden, heads_w, heads_b, embed, pos_rows,
+            gcol_rows, sup_masks, identity0=False,
+            begin_index=pcfg.begin_index, eos_id=pcfg.eos_token_id,
+            decay=pcfg.exponential_decay_length_penalty)
+        am = am.reshape(kp1, b, n_nodes)
+        mx, lse, gth = (a.reshape(kp1, b, n_nodes) for a in (mx, lse, gth))
+
+        best, accept, ptok, pnxt = _greedy_accept(chunk, am[0], retrieve)
+        rows = torch.arange(b, device=dev)
+        best_tok = ptok[rows, best]                                   # (B, Lv)
+        best_nxt = pnxt[rows, best]
+        acc_col = accept[:, None].long()
+        bonus = best_nxt.gather(1, acc_col)[:, 0]
+
+        shifted = torch.cat([best_tok[:, 1:], torch.zeros_like(best_tok[:, :1])], dim=1)
+        window = torch.where(arange_lv < acc_col, shifted,
+                             torch.where(arange_lv == acc_col, bonus[:, None],
+                                         torch.full_like(shifted, pad)))
+        cols = (cur_len[:, None].long() + arange_lv).clamp(max=buf_len - 1)
+        tokens = torch.where(finished[:, None], tokens, tokens.scatter(1, cols, window))
+
+        node_base = gth[0] - lse[0]                                   # (B, N)
+        node_bonus = mx[0] - lse[0]
+        bonus_lp = node_bonus.gather(1, acc_col)
+        win_lp = torch.where(arange_lv < acc_col, node_base, bonus_lp)
+        win_lp = torch.where(arange_lv <= acc_col, win_lp, torch.zeros_like(win_lp))
+        logprobs = torch.where(finished[:, None], logprobs,
+                               logprobs.scatter(1, cols, win_lp))
+
+        ncommit = torch.where(finished, torch.zeros_like(accept), accept + 1)
+        new_len = (cur_len + ncommit).to(torch.int32)
+        eos_hit = ((window == eos) & (arange_lv <= acc_col)).any(-1)
+        accepted = accepted + torch.where(finished, torch.zeros_like(accept), accept)
+
+        # Next drafts: the accepted node's head rows, already scored by K4.
+        drafts = am[1:].permute(1, 0, 2).gather(
+            2, acc_col[:, None, :].expand(b, num_heads, 1))[:, :, 0]
+        drafts = _corrupt(drafts, draft_corruption, gen_rng, vocab)
+        chunk = torch.cat([bonus[:, None].to(torch.int32), drafts], dim=1)[:, tree_idx]
+
+        finished = finished | eos_hit | (new_len + num_heads >= max_length)
+        cur_len = new_len
+        steps += 1
+
+    # ---------------- finalize ----------------
+    pos = torch.arange(max_length, device=dev)[None, :]
+    lengths = cur_len.clamp(max=max_length)
+    out_tokens = torch.where(pos < lengths[:, None], tokens[:, :max_length],
+                             torch.full_like(tokens[:, :max_length], pad))
+    is_eos = out_tokens == eos
+    first = torch.argmax(is_eos.to(torch.int32), dim=-1)
+    backfill = is_eos.any(-1)[:, None] & (pos > first[:, None])
+    out_tokens = torch.where(backfill, torch.full_like(out_tokens, eos), out_tokens)
+    out_lp = torch.where(pos < lengths[:, None], logprobs[:, :max_length],
+                         torch.zeros_like(logprobs[:, :max_length]))
+    return SpecResult(tokens=out_tokens, lengths=lengths, steps=steps,
+                      accepted=accepted, first_logits=base, logprobs=out_lp)

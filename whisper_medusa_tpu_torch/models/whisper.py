@@ -1,0 +1,301 @@
+"""Whisper encoder and KV-cached decoder — counterpart of
+whisper_medusa_tpu/models/whisper.py.
+
+Layouts are the JAX package's, so parameters bridge without reshaping:
+weights are stored (in, out), the transformer layers are stacked (L, ...), the
+self-KV slabs are head-flat (L, B, S, D), cross K is head-major
+(L, B, H, Dh, S_enc) and cross V head-flat (L, B, S_enc, D).  Unlike the TPU
+package the slabs carry no alignment slack: ``max_len`` rows exactly, and the
+cross cache is never padded.
+
+Decode runs through ``ops/megastep.py`` (kernel K2 on CUDA tensors, the
+:func:`decoder_layer_step` loop on CPU tensors); the cache slabs are updated
+in place.  Encoder self-attention runs through ``ops/attention.py`` (K1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from whisper_medusa_tpu.config import WhisperDims
+from whisper_medusa_tpu_torch.ops import attention as attn_mod
+from whisper_medusa_tpu_torch.ops import decode_ops
+from whisper_medusa_tpu_torch.ops import gelu as gelu_mod
+from whisper_medusa_tpu_torch.ops import logits as logits_mod
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Primitive blocks
+# ---------------------------------------------------------------------------
+
+def sinusoidal_positions(length: int, channels: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal encoder positional embedding (float32)."""
+    inc = math.log(10000.0) / (channels // 2 - 1)
+    inv = torch.exp(-inc * torch.arange(channels // 2, dtype=torch.float32,
+                                        device=device))
+    t = torch.arange(length, dtype=torch.float32, device=device)[:, None] * inv[None]
+    return torch.cat([torch.sin(t), torch.cos(t)], dim=1)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm with float32 statistics, returned in ``x.dtype``."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + 1e-5)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w as float32.  On the GPU a bf16 product runs on the tensor cores
+    (f32 accumulation, one bf16 rounding of the product); elsewhere in f32."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        return torch.matmul(x, w).float()
+    return x.float() @ w.float()
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = _mm_f32(x, w)
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+def dense_exact(x: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ w + b with exact f32 products and one rounding to ``x.dtype`` on
+    every device — the JAX ``preferred_element_type=f32`` semantics, used by
+    the plain decoder step that the megastep kernel is held against."""
+    y = x.float() @ w.float()
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:-1], num_heads, x.shape[-1] // num_heads)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+
+def attention(q, k, v, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain attention, q/k/v (B, T, H, Dh), mask broadcastable to
+    (B, H, Tq, Tk) with True = keep.  Float32 softmax; (B, Tq, H, Dh) out."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.tensor(-1e30, device=q.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def _proj_bhsd(x: torch.Tensor, w, b, num_heads: int) -> torch.Tensor:
+    """(B, S, Din) -> head-major (B, H, S, Dh)."""
+    y = _mm_f32(x, w)
+    if b is not None:
+        y = y + b.float()
+    y = _split_heads(y.to(x.dtype), num_heads)
+    return y.permute(0, 2, 1, 3).contiguous()
+
+
+def _out_proj_bhsd(out: torch.Tensor, w, b, num_heads: int) -> torch.Tensor:
+    """(B, H, S, Dh) @ o_w -> (B, S, D)."""
+    flat = _merge_heads(out.permute(0, 2, 1, 3))
+    return dense(flat, w, b)
+
+
+def self_attn_full(lp: Params, x: torch.Tensor, num_heads: int, causal: bool,
+                   kv_len: Optional[int] = None) -> torch.Tensor:
+    head_dim = x.shape[-1] // num_heads
+    q = _proj_bhsd(x, lp["q_w"], lp["q_b"], num_heads) * (head_dim ** -0.5)
+    k = _proj_bhsd(x, lp["k_w"], None, num_heads)
+    v = _proj_bhsd(x, lp["v_w"], lp["v_b"], num_heads)
+    out = attn_mod.full_attention_bhsd(q, k, v, kv_len=kv_len, causal=causal)
+    return _out_proj_bhsd(out, lp["o_w"], lp["o_b"], num_heads)
+
+
+def ffn(lp: Params, x: torch.Tensor) -> torch.Tensor:
+    h = gelu_mod.gelu(dense(x, lp["fc1_w"], lp["fc1_b"]))
+    return dense(h, lp["fc2_w"], lp["fc2_b"])
+
+
+def layer_params(stacked: Params, index: int) -> Params:
+    """Slice layer ``index`` out of a stacked (L, ...) parameter tree."""
+    return {k: (layer_params(v, index) if isinstance(v, dict) else v[index])
+            for k, v in stacked.items()}
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+def conv1d_stem(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                stride: int) -> torch.Tensor:
+    """k=3, pad=1 1-D convolution as an im2col matmul, then GELU.
+    x: (B, T, C_in); w: (3, C_in, C_out); -> (B, ceil(T/stride), C_out)."""
+    t = x.shape[1]
+    t_out = -(-t // stride)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1))
+    taps = []
+    for w0 in range(3):
+        s = xp[:, w0:w0 + stride * (t_out - 1) + 1:stride]
+        if s.shape[1] < t_out:
+            s = torch.nn.functional.pad(s, (0, 0, 0, t_out - s.shape[1]))
+        taps.append(s[:, :t_out])
+    cat = torch.cat(taps, dim=-1)                          # (B, T_out, 3*C_in)
+    y = _mm_f32(cat, w.reshape(-1, w.shape[-1])) + b.float()
+    return gelu_mod.gelu(y.to(x.dtype))
+
+
+def encode(params: Params, dims: WhisperDims, mel: torch.Tensor) -> torch.Tensor:
+    """mel (B, num_mel_bins, num_frames) -> (B, max_source_positions, D)."""
+    enc = params["encoder"]
+    x = mel.transpose(1, 2).to(enc["conv1_w"].dtype)
+    x = conv1d_stem(x, enc["conv1_w"], enc["conv1_b"], stride=1)
+    x = conv1d_stem(x, enc["conv2_w"], enc["conv2_b"], stride=2)
+    x = x + enc["pos_embed"][None, :x.shape[1]]
+    nh = dims.encoder_attention_heads
+    for i in range(dims.encoder_layers):
+        lp = layer_params(enc["layers"], i)
+        a = self_attn_full(lp["self"], layer_norm(
+            x, lp["self_ln"]["scale"], lp["self_ln"]["bias"]), nh, causal=False)
+        x = x + a
+        x = x + ffn(lp, layer_norm(x, lp["ffn_ln"]["scale"], lp["ffn_ln"]["bias"]))
+    return layer_norm(x, enc["ln_post"]["scale"], enc["ln_post"]["bias"])
+
+
+# ---------------------------------------------------------------------------
+# Decoder — incremental with a static KV cache
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KVCache:
+    """Decoder cache.  self_k/self_v: (L, B, max_len, D) head-flat, written in
+    place at per-example offsets.  cross_k: (L, B, H, Dh, S) head-major;
+    cross_v: (L, B, S, D) head-flat — both computed once per utterance."""
+
+    self_k: torch.Tensor
+    self_v: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.self_k.shape[2]
+
+
+def init_cache(params: Params, dims: WhisperDims, enc_out: torch.Tensor,
+               max_len: int) -> KVCache:
+    """Allocate the self slabs (``max_len`` rows, no slack) and precompute the
+    cross K/V of every layer."""
+    b, s, d = enc_out.shape
+    nh = dims.decoder_attention_heads
+    layers = params["decoder"]["layers"]["cross"]
+    ks, vs = [], []
+    for i in range(dims.decoder_layers):
+        k = _split_heads(dense(enc_out, layers["k_w"][i]), nh)   # (B, S, H, Dh)
+        ks.append(k.permute(0, 2, 3, 1))                          # (B, H, Dh, S)
+        vs.append(dense(enc_out, layers["v_w"][i], layers["v_b"][i]))
+    nl = dims.decoder_layers
+    zeros = dict(dtype=enc_out.dtype, device=enc_out.device)
+    return KVCache(
+        self_k=torch.zeros((nl, b, max_len, d), **zeros),
+        self_v=torch.zeros((nl, b, max_len, d), **zeros),
+        cross_k=torch.stack(ks).contiguous(),
+        cross_v=torch.stack(vs).contiguous(),
+    )
+
+
+def make_step_mask(offsets: torch.Tensor, chunk_len: int, max_len: int,
+                   chunk_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, 1, T, max_len) bool: key j is visible to query i of example b iff
+    j < offsets[b], or j - offsets[b] in [0, T) and chunk_mask[i, j - off]."""
+    dev = offsets.device
+    if chunk_mask is None:
+        chunk_mask = torch.tril(torch.ones((chunk_len, chunk_len), dtype=torch.bool,
+                                           device=dev))
+    key = torch.arange(max_len, device=dev)[None, None, None, :]
+    off = offsets[:, None, None, None]
+    rel = key - off
+    in_chunk = (rel >= 0) & (rel < chunk_len)
+    q_idx = torch.arange(chunk_len, device=dev)[None, None, :, None]
+    intra = chunk_mask[q_idx, rel.clamp(0, chunk_len - 1)] & in_chunk
+    return (key < off) | intra
+
+
+def write_rows(buf: torch.Tensor, rows: torch.Tensor, offsets: torch.Tensor) -> None:
+    """In place: buf (B, S, D)[b, offsets[b] + t] = rows[b, t]."""
+    b, t = rows.shape[:2]
+    idx = offsets[:, None] + torch.arange(t, device=rows.device)[None]
+    buf[torch.arange(b, device=rows.device)[:, None], idx] = rows
+
+
+def decoder_layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
+                       v_buf: torch.Tensor, cross_k: torch.Tensor,
+                       cross_v: torch.Tensor, offsets: torch.Tensor,
+                       self_mask: torch.Tensor, num_heads: int,
+                       cross_len: int) -> torch.Tensor:
+    """One decoder layer over a T-token chunk; writes the chunk's K/V rows into
+    ``k_buf``/``v_buf`` (B, max_len, D) in place.  Returns the new hidden."""
+    head_dim = h.shape[-1] // num_heads
+    sx = layer_norm(h, lp["self_ln"]["scale"], lp["self_ln"]["bias"])
+    q = _split_heads(dense_exact(sx, lp["self"]["q_w"], lp["self"]["q_b"]), num_heads)
+    q = q * (head_dim ** -0.5)
+    write_rows(k_buf, dense_exact(sx, lp["self"]["k_w"]), offsets)
+    write_rows(v_buf, dense_exact(sx, lp["self"]["v_w"], lp["self"]["v_b"]), offsets)
+    out = attention(q, _split_heads(k_buf, num_heads),
+                    _split_heads(v_buf, num_heads), self_mask)
+    h = h + dense_exact(_merge_heads(out), lp["self"]["o_w"], lp["self"]["o_b"])
+    cx = layer_norm(h, lp["cross_ln"]["scale"], lp["cross_ln"]["bias"])
+    cq = _split_heads(dense_exact(cx, lp["cross"]["q_w"], lp["cross"]["q_b"]), num_heads)
+    cq = cq * (head_dim ** -0.5)
+    co = decode_ops.cross_attention_decode(cq.transpose(1, 2), cross_k, cross_v,
+                                           cross_len)
+    h = h + dense_exact(_merge_heads(co.transpose(1, 2)), lp["cross"]["o_w"],
+                  lp["cross"]["o_b"])
+    fx = layer_norm(h, lp["ffn_ln"]["scale"], lp["ffn_ln"]["bias"])
+    return h + decode_ops.ffn_decode(fx, lp["fc1_w"], lp["fc1_b"],
+                                     lp["fc2_w"], lp["fc2_b"])
+
+
+@dataclasses.dataclass
+class DecoderOutput:
+    hidden: torch.Tensor      # (B, T, D) after the final layer norm
+    pre_norm: torch.Tensor    # (B, T, D) before it
+
+
+def decode_step(params: Params, dims: WhisperDims, tokens: torch.Tensor,
+                cache: KVCache, offsets: torch.Tensor,
+                rel_positions: Optional[torch.Tensor] = None,
+                chunk_mask: Optional[torch.Tensor] = None) -> DecoderOutput:
+    """Incremental decoder pass over T new tokens (B, T) at per-example
+    ``offsets``; updates ``cache``'s self slabs in place."""
+    from whisper_medusa_tpu_torch.ops import megastep
+
+    dec = params["decoder"]
+    t = tokens.shape[1]
+    if rel_positions is None:
+        rel_positions = torch.arange(t, device=tokens.device)
+    abs_pos = (offsets[:, None] + rel_positions[None, :]).clamp(
+        0, dims.max_target_positions - 1)
+    x = dec["embed_tokens"][tokens] + dec["pos_embed"][abs_pos]
+    pre_norm = megastep.fused_decoder_layers(
+        dec["layers"], x, cache.self_k, cache.self_v, cache.cross_k,
+        cache.cross_v, offsets.to(torch.int32), chunk_mask,
+        cross_len=min(dims.max_source_positions, cache.cross_k.shape[4]),
+        num_heads=dims.decoder_attention_heads)
+    hidden = layer_norm(pre_norm, dec["ln_post"]["scale"], dec["ln_post"]["bias"])
+    return DecoderOutput(hidden=hidden, pre_norm=pre_norm)
+
+
+def project_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    """Vocab projection through the tied embedding, float32 (kernel K3 on CUDA)."""
+    return logits_mod.project_logits_stream(hidden, params["decoder"]["embed_tokens"])

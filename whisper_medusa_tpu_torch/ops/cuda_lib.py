@@ -1,0 +1,143 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) for Hopper.
+
+The kernels are compiled by nvcc at first use, for ``sm_90a``, into one shared
+library with a plain C interface, and loaded with ``ctypes``.  Every pointer
+and the stream are passed as ``c_void_p``; every C entry returns
+``cudaGetLastError()`` and :func:`launch` raises when that is not 0.
+
+The library goes to ``build/whisper_medusa_tpu_torch/`` under the checkout,
+named by a hash of the sources and flags, so an edited source rebuilds and a
+second process reuses the first one's build.  There is no fallback: without
+nvcc, or when the build fails, :func:`lib` raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Optional
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
+                         "whisper_medusa_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+
+_vp = ctypes.c_void_p
+_ci = ctypes.c_int
+_ptrs = ctypes.POINTER(ctypes.c_void_p)
+_ints = ctypes.POINTER(ctypes.c_int)
+
+# C signatures of every entry (see csrc/*.cu).
+_SIGNATURES = {
+    "wm_attention_fwd": [_vp] * 4 + [_ci] * 7 + [_vp],
+    "wm_megastep_step": [_ptrs, _ints, _vp],
+    "wm_logits": [_vp] * 3 + [_ci] * 3 + [_vp],
+    "wm_verify_hidden": [_ptrs, _ints, ctypes.c_float, _vp],
+}
+
+
+def find_nvcc() -> Optional[str]:
+    """nvcc from $CUDA_HOME / $CUDA_PATH, $PATH, or torch's CUDA_HOME."""
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    try:
+        from torch.utils.cpp_extension import CUDA_HOME
+    except Exception:                                    # pragma: no cover
+        CUDA_HOME = None
+    if CUDA_HOME and os.path.isfile(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    return None
+
+
+def _sources():
+    names = sorted(n for n in os.listdir(CSRC_DIR)
+                   if n.endswith((".cu", ".cuh")))
+    return [os.path.join(CSRC_DIR, n) for n in names]
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _build() -> str:
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's "
+            "Hopper kernels are built from whisper_medusa_tpu_torch/csrc at "
+            "first use and have no substitute")
+    out = os.path.join(BUILD_DIR, f"libwm_kernels_{_digest()}.so")
+    if os.path.isfile(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cus = [p for p in _sources() if p.endswith(".cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cus]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}) building {out}:\n"
+                           f"{res.stdout}{res.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library; builds it on first call."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            handle = ctypes.CDLL(_build())
+            for name, args in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _LIB = handle
+    return _LIB
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call C entry ``entry`` with ``args`` and the current stream of
+    ``device`` (made the current device for the call); raise when it reports
+    a CUDA error."""
+    import torch
+
+    with torch.cuda.device(device):
+        err = getattr(lib(), entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err}")
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """Shared wrapper checks: CUDA, bf16, contiguous, 16-byte aligned."""
+    import torch
+
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: all operands must be on one CUDA device")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: operands must be bfloat16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be 16-byte aligned")

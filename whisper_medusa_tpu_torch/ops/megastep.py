@@ -1,0 +1,126 @@
+"""The whole decoder stack over one decode chunk — kernel K2.
+
+Replaces the TPU kernel ``whisper_medusa_tpu/ops/megastep.py::_kernel``
+(launched by ``fused_decoder_layers``): one pallas_call over a (layers,
+phases) grid that streams every decoder weight through VMEM while the hidden
+state stays resident.
+
+The Hopper version (``csrc/megastep.cu``) is one C entry, ``wm_megastep_step``,
+that launches twelve small kernels per layer on the current stream — layernorm,
+a skinny tensor-core GEMM for q/k/v (and o, cross q/o, fc1, fc2) with fused
+bias / scale / GELU / residual epilogues, self-attention with the in-place
+K/V commit, and cross-attention split over 128-key chunks plus a combine —
+so Python makes one ctypes call per decode step.  It is bound by bytes: at
+large-v2, B=1, a step reads 1.47 GB of bf16 weights and 246 MB of cross K/V
+(counted from the shapes).  The skinny GEMM reads each weight once with the
+whole matrix in flight; splitting cross-attention over the keys spreads a
+B=1 step over 240 CTAs instead of 20.
+
+The plain version is the ``models/whisper.py::decoder_layer_step`` loop.
+Both update the self slabs in place and return ``pre_norm``; ``ln_post`` is
+applied by the caller, as in the JAX package.  Scope of the kernel: bf16,
+B*T <= 16, Dh = 64, d_model and ffn_dim multiples of 256.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Any, Dict, Optional
+
+import torch
+
+from whisper_medusa_tpu_torch.ops import cuda_lib
+
+Params = Dict[str, Any]
+
+MAX_ROWS = 16
+CROSS_CHUNK = 128        # csrc/megastep.cu CS
+
+launches = 0
+
+# Weight order of the C pointer table (csrc/megastep.cu MegastepPtr, from
+# P_SELF_LN_S on).
+_WEIGHTS = (("self_ln", "scale"), ("self_ln", "bias"), ("self", "q_w"),
+            ("self", "q_b"), ("self", "k_w"), ("self", "v_w"), ("self", "v_b"),
+            ("self", "o_w"), ("self", "o_b"), ("cross_ln", "scale"),
+            ("cross_ln", "bias"), ("cross", "q_w"), ("cross", "q_b"),
+            ("cross", "o_w"), ("cross", "o_b"), ("ffn_ln", "scale"),
+            ("ffn_ln", "bias"), ("fc1_w",), ("fc1_b",), ("fc2_w",), ("fc2_b",))
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def megastep_plain(dec_layers: Params, x, self_k, self_v, cross_k, cross_v,
+                   offsets, chunk_mask, cross_len: int, num_heads: int):
+    """The decoder_layer_step loop (models/whisper.py)."""
+    from whisper_medusa_tpu_torch.models import whisper
+
+    mask = whisper.make_step_mask(offsets, x.shape[1], self_k.shape[2], chunk_mask)
+    h = x
+    for layer in range(self_k.shape[0]):
+        h = whisper.decoder_layer_step(
+            whisper.layer_params(dec_layers, layer), h, self_k[layer],
+            self_v[layer], cross_k[layer], cross_v[layer], offsets, mask,
+            num_heads, cross_len)
+    return h
+
+
+def megastep_kernel(dec_layers: Params, x, self_k, self_v, cross_k, cross_v,
+                    offsets, chunk_mask, cross_len: int, num_heads: int):
+    """Launch K2 over all layers; returns pre_norm (B, T, D)."""
+    global launches
+    b, t, d = x.shape
+    nl, _, s_len, _ = self_k.shape
+    s_enc = cross_k.shape[4]
+    weights = [_leaf(dec_layers, p) for p in _WEIGHTS]
+    f = dec_layers["fc1_w"].shape[2]
+    cuda_lib.require_cuda("megastep", x, self_k, self_v, cross_k, cross_v, *weights)
+    dh = d // num_heads
+    if (b * t > MAX_ROWS or dh != 64 or d % 256 or f % 256
+            or self_k.shape != (nl, b, s_len, d) or self_v.shape != self_k.shape
+            or cross_k.shape != (nl, b, num_heads, dh, s_enc)
+            or cross_v.shape != (nl, b, s_enc, d)
+            or s_enc % 4 or not 1 <= cross_len <= s_enc):
+        raise ValueError(
+            f"megastep kernel takes B*T <= {MAX_ROWS}, Dh=64, D and F multiples "
+            f"of 256, S_enc % 4 == 0 and KVCache layouts; got x {tuple(x.shape)}, self "
+            f"{tuple(self_k.shape)}, cross_k {tuple(cross_k.shape)}, F={f}")
+    if offsets.dtype != torch.int32 or offsets.shape != (b,) or offsets.device != x.device:
+        raise ValueError("offsets must be int32 (B,) on the kernel's device")
+    dev = x.device
+    if chunk_mask is None:
+        chunk_mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=dev))
+    mask = chunk_mask.to(device=dev, dtype=torch.uint8).contiguous()
+    nch = -(-cross_len // CROSS_CHUNK)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    xbuf = torch.zeros((MAX_ROWS, d), **bf)
+    xbuf[:b * t] = x.reshape(b * t, d)
+    scratch = [torch.zeros((MAX_ROWS, d), **bf) for _ in range(5)]
+    hbuf = torch.zeros((MAX_ROWS, f), **bf)
+    part = torch.empty((b * num_heads * t * nch * (dh + 2),), dtype=torch.float32,
+                       device=dev)
+    tensors = [xbuf, *scratch, hbuf, part, self_k, self_v, cross_k, cross_v,
+               offsets, mask, *weights]
+    ptrs = (ctypes.c_void_p * len(tensors))(*[tt.data_ptr() for tt in tensors])
+    ints = (ctypes.c_int * 9)(nl, b, t, d, num_heads, f, s_len, s_enc, cross_len)
+    cuda_lib.launch("wm_megastep_step", dev, ptrs, ints)
+    launches += 1
+    return xbuf[:b * t].reshape(b, t, d)
+
+
+def fused_decoder_layers(dec_layers: Params, x: torch.Tensor, self_k: torch.Tensor,
+                         self_v: torch.Tensor, cross_k: torch.Tensor,
+                         cross_v: torch.Tensor, offsets: torch.Tensor,
+                         chunk_mask: Optional[torch.Tensor], cross_len: int,
+                         num_heads: int) -> torch.Tensor:
+    """All decoder layers over a (B, T, D) chunk at per-example ``offsets``.
+
+    Writes the chunk's K/V rows into ``self_k``/``self_v`` in place and
+    returns pre_norm (B, T, D).  CUDA tensors launch K2; CPU tensors run the
+    plain layer loop."""
+    fn = megastep_kernel if x.is_cuda else megastep_plain
+    return fn(dec_layers, x, self_k, self_v, cross_k, cross_v, offsets,
+              chunk_mask, cross_len, num_heads)

@@ -1,0 +1,108 @@
+"""Whisper log-mel frontend — counterpart of whisper_medusa_tpu/ops/mel.py.
+
+Same math: reflect-padded 400-sample Hann frames at hop 160, the DFT as two
+matmuls against windowed cos/sin bases, the Slaney mel filter bank, log10,
+clamp to (max - 8) and (x + 4) / 4.  The JAX package has no kernel on this
+path (its Pallas frontend is opt-in), so this is plain PyTorch.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Tuple
+
+import numpy as np
+import torch
+
+SAMPLE_RATE = 16000
+N_FFT = 400
+HOP_LENGTH = 160
+CHUNK_LENGTH = 30
+N_SAMPLES = SAMPLE_RATE * CHUNK_LENGTH       # 480_000
+N_FRAMES = N_SAMPLES // HOP_LENGTH           # 3000
+
+
+def _hz_to_mel_slaney(freq) -> np.ndarray:
+    freq = np.asarray(freq, np.float64)
+    f_sp = 200.0 / 3
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    mel = freq / f_sp
+    log_part = min_log_mel + np.log(np.maximum(freq, 1e-10) / min_log_hz) / logstep
+    return np.where(freq >= min_log_hz, log_part, mel)
+
+
+def _mel_to_hz_slaney(mel) -> np.ndarray:
+    mel = np.asarray(mel, np.float64)
+    f_sp = 200.0 / 3
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    hz = mel * f_sp
+    return np.where(mel >= min_log_mel,
+                    min_log_hz * np.exp(logstep * (mel - min_log_mel)), hz)
+
+
+@lru_cache(maxsize=4)
+def mel_filter_bank(n_freqs: int = N_FFT // 2 + 1, n_mels: int = 80,
+                    f_min: float = 0.0, f_max: float = 8000.0,
+                    sample_rate: int = SAMPLE_RATE) -> np.ndarray:
+    """(n_mels, n_freqs) triangular Slaney-normalized filterbank."""
+    fft_freqs = np.linspace(0, sample_rate / 2, n_freqs)
+    mel_pts = np.linspace(_hz_to_mel_slaney(f_min), _hz_to_mel_slaney(f_max),
+                          n_mels + 2)
+    hz_pts = _mel_to_hz_slaney(mel_pts)
+    fdiff = np.diff(hz_pts)
+    slopes = hz_pts[None, :] - fft_freqs[:, None]          # (n_freqs, n_mels+2)
+    down = -slopes[:, :-2] / fdiff[:-1]
+    up = slopes[:, 2:] / fdiff[1:]
+    fb = np.maximum(0.0, np.minimum(down, up)).T           # (n_mels, n_freqs)
+    enorm = 2.0 / (hz_pts[2:n_mels + 2] - hz_pts[:n_mels])
+    return (fb * enorm[:, None]).astype(np.float32)
+
+
+@lru_cache(maxsize=2)
+def dft_mel_basis(n_mels: int = 80) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(cos (N_FFT, n_freqs), sin (N_FFT, n_freqs), mel_fb (n_freqs, n_mels)),
+    with the periodic Hann window folded into the DFT bases."""
+    n_freqs = N_FFT // 2 + 1
+    window = 0.5 * (1 - np.cos(2 * np.pi * np.arange(N_FFT) / N_FFT))
+    ang = 2.0 * np.pi * np.arange(N_FFT)[:, None] * np.arange(n_freqs)[None, :] / N_FFT
+    cos_b = (np.cos(ang) * window[:, None]).astype(np.float32)
+    sin_b = (-np.sin(ang) * window[:, None]).astype(np.float32)
+    return cos_b, sin_b, mel_filter_bank(n_freqs, n_mels).T.astype(np.float32)
+
+
+def frame_audio(audio: torch.Tensor) -> torch.Tensor:
+    """(B, N) -> (B, N // HOP_LENGTH, N_FFT) reflect-padded centered frames."""
+    pad = N_FFT // 2
+    x = torch.nn.functional.pad(audio[:, None], (pad, pad), mode="reflect")[:, 0]
+    n_frames = audio.shape[-1] // HOP_LENGTH
+    return x.unfold(-1, N_FFT, HOP_LENGTH)[:, :n_frames]
+
+
+def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
+    """(B, N_SAMPLES) float32 -> (B, n_mels, N_FRAMES) float32 log-mel."""
+    dev = audio.device
+    cos_b, sin_b, mel_fb = (torch.from_numpy(a).to(dev) for a in dft_mel_basis(n_mels))
+    frames = frame_audio(audio.float())                    # (B, F, N_FFT)
+    re = frames @ cos_b
+    im = frames @ sin_b
+    mel = (re * re + im * im) @ mel_fb                     # (B, F, n_mels)
+    log_spec = torch.log10(torch.clamp(mel, min=1e-10))
+    max_val = log_spec.amax(dim=(1, 2), keepdim=True)
+    log_spec = torch.maximum(log_spec, max_val - 8.0)
+    return ((log_spec + 4.0) / 4.0).transpose(1, 2).contiguous()
+
+
+def pad_or_trim(audio, length: int = N_SAMPLES) -> np.ndarray:
+    """Host-side pad/trim to exactly 30 s."""
+    audio = np.asarray(audio, np.float32)
+    if audio.ndim == 1:
+        audio = audio[None]
+    if audio.shape[-1] >= length:
+        return audio[..., :length]
+    out = np.zeros(audio.shape[:-1] + (length,), np.float32)
+    out[..., :audio.shape[-1]] = audio
+    return out

@@ -1,0 +1,52 @@
+"""WhisperProcessor equivalent — counterpart of whisper_medusa_tpu/processor.py.
+
+Audio -> log-mel features on a chosen device; ids -> text through the
+reference package's jax-free tokenizer gateway.  Resampling is not ported yet:
+``sampling_rate`` other than 16 kHz raises.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from whisper_medusa_tpu.data.tokenizer import CharTokenizer, load_tokenizer
+from whisper_medusa_tpu_torch.ops import mel as mel_mod
+
+
+class WhisperMedusaProcessor:
+    def __init__(self, tokenizer=None, n_mels: int = 80, device="cpu"):
+        self.tokenizer = tokenizer
+        self.n_mels = n_mels
+        self.device = torch.device(device)
+
+    @classmethod
+    def from_pretrained(cls, name_or_path: str, language: Optional[str] = None,
+                        n_mels: int = 80, device="cpu") -> "WhisperMedusaProcessor":
+        try:
+            tok = load_tokenizer(name_or_path, language=language)
+        except Exception:
+            tok = CharTokenizer()
+        return cls(tokenizer=tok, n_mels=n_mels, device=device)
+
+    def __call__(self, audio: Union[np.ndarray, Sequence[np.ndarray]],
+                 sampling_rate: int = 16000) -> torch.Tensor:
+        """Waveform(s) at 16 kHz -> (B, n_mels, 3000) float32 log-mel."""
+        if sampling_rate != 16000:
+            raise NotImplementedError(
+                "resampling is not ported yet (ROADMAP queue 1, slice 7); "
+                "pass 16 kHz audio")
+        if isinstance(audio, np.ndarray) and audio.ndim == 1:
+            audio = [audio]
+        batch = np.stack([mel_mod.pad_or_trim(np.asarray(a))[0] for a in audio])
+        return mel_mod.log_mel_spectrogram(
+            torch.from_numpy(batch).to(self.device), n_mels=self.n_mels)
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        return self.tokenizer.decode(np.asarray(ids).tolist(),
+                                     skip_special_tokens=skip_special_tokens)
+
+    def batch_decode(self, ids_batch, skip_special_tokens: bool = True) -> List[str]:
+        return [self.decode(ids, skip_special_tokens) for ids in ids_batch]
