@@ -6,16 +6,23 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
   1. versions, and the card's name and power limit from nvidia-smi;
-  2. build the four Hopper kernels from whisper_medusa_tpu_torch/csrc;
+  2. build the Hopper kernels from whisper_medusa_tpu_torch/csrc (one nvcc
+     per source, in parallel);
   3. hold each kernel against its plain PyTorch version at the shapes the
-     greedy base_head decode path gives it (bf16), and time both with CUDA
-     events (3 warm-ups, median of 20);
-  4. the main path at full whisper-large-v2 width with random bf16 weights:
-     WhisperMedusaProcessor on three seeded synthetic waveforms, then
-     ``generate(features, language="en", max_new_tokens=128)`` for each, with
-     every kernel's launch counter read around the three requests; a full
-     32-layer decode step is also checked against the plain layer loop;
-  5. the output is unchanged when every draft is corrupted.
+     decode paths give it (bf16), and time the kernel, the plain version and,
+     where one PyTorch call computes the same function, that call, with CUDA
+     events (3 warm-ups, median of 20); each kernel's bound is computed from
+     the bytes and operations of the same call;
+  4. the main paths at full whisper-large-v2 width with random bf16 weights,
+     each driven with every launch counter set to 0 just before and read
+     just after: three Medusa requests at B=1; one vanilla request
+     (``disable_medusa=True``) at B=1; one batched Medusa request and one
+     batched vanilla request of eight waveforms;
+  5. the output is unchanged when every draft is corrupted;
+  6. decode batch invariance: speculative_generate at B=8 gives every example
+     exactly the tokens of its B=1 decode, for Medusa and for vanilla
+     (accepted counts are printed, not held equal); whether generate at B=8
+     gives each example its B=1 tokens end to end is printed, not required.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -35,6 +42,11 @@ import torch  # noqa: E402
 
 SEED = 0
 MAX_NEW_TOKENS = 128
+BATCH = 8
+PROMPT_LEN = 4
+# NVIDIA H100 SXM data sheet: HBM rate and dense bf16 rate (at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
 
 
 def log(msg):
@@ -56,6 +68,18 @@ def cuda_ms(fn, warmup=3, iters=20):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move ``nbytes`` and do ``flops`` bf16 operations."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / BF16_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def max_err(a, b):
@@ -82,6 +106,17 @@ def require(cond, what):
         raise AssertionError(what)
 
 
+def kernel_record(name, source, replaces, counter, err, ms, plain_ms, bound_ms_by,
+                  library_ms):
+    b_ms, b_by = bound_ms_by
+    log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}), library "
+        + ("none" if library_ms is None else f"{library_ms:.4f} ms"))
+    return dict(name=name, source=source, replaces=replaces, counter=counter,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+
+
 def phase_env():
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}")
@@ -105,6 +140,10 @@ def phase_build():
     log(f"build + load: {time.perf_counter() - t0:.1f} s -> {cuda_lib.BUILD_DIR}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
 def check_attention(g):
     from whisper_medusa_tpu_torch.ops import attention as A
 
@@ -126,60 +165,85 @@ def check_attention(g):
     err = max_err(got, ref)
     log(f"K1 attention (1,20,1500,64): max_abs_err {err:.3e}")
     require(err <= 2e-2, f"K1 err {err} > 2e-2")
+    # The batched request's encoder: (8, 20, 1500, 64).
+    q8, k8, v8 = (torch.randn((8, 20, 1500, 64), generator=g, device=dev)
+                  .to(torch.bfloat16) for _ in range(3))
+    q8 = (q8.float() * 0.25).to(torch.bfloat16)
+    err8 = max_err(A.attention_kernel(q8, k8, v8, 1500, False),
+                   A.attention_plain(q8, k8, v8, 1500, False))
+    ms8 = cuda_ms(lambda: A.attention_kernel(q8, k8, v8, 1500, False))
+    log(f"K1 attention (8,20,1500,64): max_abs_err {err8:.3e}, kernel {ms8:.4f} ms")
+    require(err8 <= 2e-2, f"K1 B=8 err {err8} > 2e-2")
+    del q8, k8, v8
+    err = max(err, err8)
     ms = cuda_ms(lambda: A.attention_kernel(q, k, v, 1500, False))
     plain_ms = cuda_ms(lambda: A.attention_plain(q, k, v, 1500, False))
-    return dict(name="attention", source="whisper_medusa_tpu_torch/csrc/attention.cu",
-                replaces="whisper_medusa_tpu/ops/attention.py:71",
-                module=A, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = cuda_ms(lambda: sdpa(q, k, v, scale=1.0))
+    b, h, s, dh = q.shape
+    return kernel_record("attention", "whisper_medusa_tpu_torch/csrc/attention.cu",
+                         "whisper_medusa_tpu/ops/attention.py:71", (A, "launches"),
+                         err, ms, plain_ms,
+                         bound(4 * nbytes(q), 4 * b * h * s * s * dh), lib_ms)
 
 
-def check_megastep_2layer(g, t, off):
-    from whisper_medusa_tpu.config import WhisperDims
-    from whisper_medusa_tpu_torch.ops import megastep as MS
-
-    dev = "cuda"
-    dims = WhisperDims(decoder_layers=2)
-    d, f, h, s_enc = dims.d_model, dims.decoder_ffn_dim, 20, 1500
+def _random_layers(g, dims, nl):
+    d, f = dims.d_model, dims.decoder_ffn_dim
 
     def rnd(*shape, scale=0.02):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
 
     def attn():
-        return {"q_w": rnd(2, d, d), "q_b": rnd(2, d), "k_w": rnd(2, d, d),
-                "v_w": rnd(2, d, d), "v_b": rnd(2, d), "o_w": rnd(2, d, d),
-                "o_b": rnd(2, d)}
+        return {"q_w": rnd(nl, d, d), "q_b": rnd(nl, d), "k_w": rnd(nl, d, d),
+                "v_w": rnd(nl, d, d), "v_b": rnd(nl, d), "o_w": rnd(nl, d, d),
+                "o_b": rnd(nl, d)}
 
-    def ln():
-        return {"scale": (1 + rnd(2, d, scale=0.1).float()).to(torch.bfloat16),
-                "bias": rnd(2, d, scale=0.1)}
+    def ln(*lead):
+        return {"scale": (1 + rnd(*lead, d, scale=0.1).float()).to(torch.bfloat16),
+                "bias": rnd(*lead, d, scale=0.1)}
 
-    layers = {"self_ln": ln(), "self": attn(), "cross_ln": ln(), "cross": attn(),
-              "ffn_ln": ln(), "fc1_w": rnd(2, d, f), "fc1_b": rnd(2, f),
-              "fc2_w": rnd(2, f, d), "fc2_b": rnd(2, d)}
-    s_len = 460
-    self_k = rnd(2, 1, s_len, d, scale=1.0)
-    self_v = rnd(2, 1, s_len, d, scale=1.0)
-    cross_k = rnd(2, 1, h, 64, s_enc, scale=1.0)
-    cross_v = rnd(2, 1, s_enc, d, scale=1.0)
-    x = rnd(1, t, d, scale=1.0)
-    offsets = torch.full((1,), off, dtype=torch.int32, device=dev)
+    layers = {"self_ln": ln(nl), "self": attn(), "cross_ln": ln(nl), "cross": attn(),
+              "ffn_ln": ln(nl), "fc1_w": rnd(nl, d, f), "fc1_b": rnd(nl, f),
+              "fc2_w": rnd(nl, f, d), "fc2_b": rnd(nl, d)}
+    return layers, ln(), rnd
+
+
+def check_megastep_2layer(g, t, offs):
+    """Two layers at per-example offsets ``offs`` (B = len(offs)): pre_norm,
+    hidden and the written cache rows elementwise within 3e-2; every other
+    row untouched."""
+    from whisper_medusa_tpu_torch.config import WhisperDims
+    from whisper_medusa_tpu_torch.ops import megastep as MS
+
+    dims = WhisperDims(decoder_layers=2)
+    b, d, h, s_enc, s_len = len(offs), dims.d_model, 20, 1500, 460
+    layers, ln_post, rnd = _random_layers(g, dims, 2)
+    self_k = rnd(2, b, s_len, d, scale=1.0)
+    self_v = rnd(2, b, s_len, d, scale=1.0)
+    cross_k = rnd(2, b, h, 64, s_enc, scale=1.0)
+    cross_v = rnd(2, b, s_enc, d, scale=1.0)
+    x = rnd(b, t, d, scale=1.0)
+    offsets = torch.tensor(offs, dtype=torch.int32, device="cuda")
     sk2, sv2 = self_k.clone(), self_v.clone()
-    got = MS.megastep_kernel(layers, x, self_k, self_v, cross_k, cross_v, offsets,
-                             None, s_enc, h)
-    ref = MS.megastep_plain(layers, x, sk2, sv2, cross_k, cross_v, offsets, None,
-                            s_enc, h)
-    err = max_err(got, ref)
-    rows = slice(off, off + t)
-    cerr = max(max_err(self_k[:, :, rows], sk2[:, :, rows]),
-               max_err(self_v[:, :, rows], sv2[:, :, rows]))
-    untouched = (torch.equal(self_k[:, :, :off], sk2[:, :, :off])
-                 and torch.equal(self_k[:, :, off + t:], sk2[:, :, off + t:]))
-    log(f"K2 megastep 2-layer T={t} off={off}: pre_norm err {err:.3e}, "
-        f"written rows err {cerr:.3e}, other rows equal {untouched}")
-    ok = (close(got, ref, 3e-2) and close(self_k[:, :, rows], sk2[:, :, rows], 3e-2)
-          and close(self_v[:, :, rows], sv2[:, :, rows], 3e-2))
+    got = MS.megastep_kernel(layers, ln_post, x, self_k, self_v, cross_k, cross_v,
+                             offsets, None, s_enc, h)
+    ref = MS.megastep_plain(layers, ln_post, x, sk2, sv2, cross_k, cross_v, offsets,
+                            None, s_enc, h)
+    err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+    written = torch.zeros((b, s_len), dtype=torch.bool, device="cuda")
+    for e, off in enumerate(offs):
+        written[e, off:off + t] = True
+    rows_ok, cerr = True, 0.0
+    for a, c in ((self_k, sk2), (self_v, sv2)):
+        rows_ok &= close(a[:, written], c[:, written], 3e-2)
+        cerr = max(cerr, max_err(a[:, written], c[:, written]))
+    untouched = (torch.equal(self_k[:, ~written], sk2[:, ~written])
+                 and torch.equal(self_v[:, ~written], sv2[:, ~written]))
+    log(f"K2 megastep 2-layer B={b} T={t} offsets {offs}: pre_norm/hidden err "
+        f"{err:.3e}, written rows err {cerr:.3e}, other rows equal {untouched}")
+    ok = close(got[0], ref[0], 3e-2) and close(got[1], ref[1], 3e-2) and rows_ok
     require(ok and untouched,
-            f"K2 2-layer T={t}: err {err}, rows {cerr}, untouched {untouched}")
+            f"K2 2-layer B={b} T={t}: err {err}, rows {cerr}, untouched {untouched}")
     return err
 
 
@@ -187,168 +251,384 @@ def check_logits(g, embed):
     from whisper_medusa_tpu_torch.ops import logits as LG
 
     out = {}
-    for m in (1, 10):
+    for m in (1, 10, 80):
         x = torch.randn((m, embed.shape[1]), generator=g, device="cuda").to(torch.bfloat16)
         got = LG.project_kernel(x, embed)
         ref = LG.project_plain(x, embed)
         err = max_err(got, ref)
-        bound = 1e-3 * float(ref.abs().max())
-        log(f"K3 logits M={m}: max_abs_err {err:.3e} (bound {bound:.3e})")
-        require(err <= bound, f"K3 M={m}: err {err} > {bound}")
+        tol = 1e-3 * float(ref.abs().max())
+        log(f"K3 logits M={m}: max_abs_err {err:.3e} (bound {tol:.3e})")
+        require(err <= tol, f"K3 M={m}: err {err} > {tol}")
         out[m] = (x, err)
-    x10, err10 = out[10]
+    x80 = out[80][0]
+    log(f"K3 logits M=80 (pass B at B=8): kernel "
+        f"{cuda_ms(lambda: LG.project_kernel(x80, embed)):.4f} ms")
+    x10 = out[10][0]
     ms = cuda_ms(lambda: LG.project_kernel(x10, embed))
     plain_ms = cuda_ms(lambda: LG.project_plain(x10, embed))
-    return dict(name="logits", source="whisper_medusa_tpu_torch/csrc/logits.cu",
-                replaces="whisper_medusa_tpu/ops/logits.py:55", module=LG,
-                max_abs_err=max(out[1][1], err10), ms=ms, plain_ms=plain_ms)
+    lib_ms = cuda_ms(lambda: x10 @ embed.T)
+    m, d, v = x10.shape[0], embed.shape[1], embed.shape[0]
+    return kernel_record("logits", "whisper_medusa_tpu_torch/csrc/logits.cu",
+                         "whisper_medusa_tpu/ops/logits.py:55", (LG, "launches"),
+                         max(e for _, e in out.values()), ms, plain_ms,
+                         bound(nbytes(x10, embed) + m * v * 4, 2 * m * v * d), lib_ms)
 
 
-def check_verify(g, model):
+def _verify_inputs(g, model, r):
+    """Processor masks, positions and gathered columns for R rows, with
+    begin-suppress (begin_index 4) and the EOS decay (from position 9) hit."""
     from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig
     from whisper_medusa_tpu_torch.ops import verify as VF
 
-    dev = "cuda"
     embed = model.params["whisper"]["decoder"]["embed_tokens"]
-    heads = model.params["medusa"]["heads"]
-    hw, hb = heads["w"][:, 0], heads["b"][:, 0]
-    n_nodes, kp1, d = 11, 11, embed.shape[1]
-    hid = torch.randn((1, n_nodes, d), generator=g, device=dev).to(torch.bfloat16)
     st = model.special
-    pcfg = ProcessorConfig(vocab_size=embed.shape[0],
-                           suppress_tokens=model.generation_config.suppress_tokens,
-                           begin_suppress_tokens=model.generation_config.begin_suppress_tokens,
+    gd = model.generation_config
+    pcfg = ProcessorConfig(vocab_size=embed.shape[0], suppress_tokens=gd.suppress_tokens,
+                           begin_suppress_tokens=gd.begin_suppress_tokens,
                            begin_index=4, exponential_decay_length_penalty=(9, 1.2),
                            eos_token_id=st.eos)
-    masks = VF.masks_for(pcfg, dev)
-    cur_len = 5
-    pos = (cur_len + torch.arange(n_nodes, device=dev)[None, :]
-           + torch.arange(kp1, device=dev)[:, None]).reshape(-1).to(torch.int32)
-    gcol = torch.randint(0, embed.shape[0], (kp1 * n_nodes,), generator=g,
-                         device=dev).to(torch.int32)
-    gcol[:n_nodes] = st.eos
-    kw = dict(identity0=False, begin_index=4, eos_id=st.eos, decay=(9, 1.2))
-    am, mx, lse, gth = VF.verify_hidden_kernel(hid, hid, hw, hb, embed, pos, gcol,
-                                               masks, **kw)
-    ram, rmx, rlse, rgth = VF.verify_hidden_plain(hid, hid, hw, hb, embed, pos, gcol,
-                                                  masks, **kw)
-    rows = VF.build_rows(hid, hid, hw, hb, False)
-    proc = VF.process_rows(rows.float() @ embed.float().T, pos, masks,
-                           begin_index=4, eos_id=st.eos, decay=(9, 1.2))
+    masks = VF.masks_for(pcfg, "cuda")
+    pos = (3 + torch.arange(r, device="cuda") % 12).to(torch.int32)
+    gcol = torch.randint(0, embed.shape[0], (r,), generator=g,
+                         device="cuda").to(torch.int32)
+    gcol[: min(r, 2)] = st.eos
+    kw = dict(begin_index=4, eos_id=st.eos, decay=(9, 1.2))
+    return embed, masks, pos, gcol, kw
+
+
+def _clear_argmax(rows, embed, pos, masks, kw, am, ram, gap):
+    """Argmax equal on every row whose plain top-2 gap exceeds ``gap``."""
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    proc = VF.process_rows(rows.float() @ embed.float().T, pos, masks, **kw)
     top2 = proc.topk(2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 1e-2
-    arg_ok = bool(torch.equal(am[clear], ram[clear]))
+    clear = (top2[:, 0] - top2[:, 1]) > gap
+    return bool(torch.equal(am[clear], ram[clear])), int(clear.sum())
+
+
+def check_verify(g, model):
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    heads = model.params["medusa"]["heads"]
+    hw, hb = heads["w"][:, 0], heads["b"][:, 0]
+    n_nodes, kp1 = 11, 11
+    embed, masks, pos, gcol, kw = _verify_inputs(g, model, kp1 * n_nodes)
+    d = embed.shape[1]
+    # Row (k, n) predicts position cur_len + n + k (cur_len 5).
+    pos = (5 + torch.arange(n_nodes, device="cuda")[None, :]
+           + torch.arange(kp1, device="cuda")[:, None]).reshape(-1).to(torch.int32)
+    hid = torch.randn((1, n_nodes, d), generator=g, device="cuda").to(torch.bfloat16)
+    kw4 = dict(identity0=False, **kw)
+    am, mx, lse, gth = VF.verify_hidden_kernel(hid, hid, hw, hb, embed, pos, gcol,
+                                               masks, **kw4)
+    ram, rmx, rlse, rgth = VF.verify_hidden_plain(hid, hid, hw, hb, embed, pos, gcol,
+                                                  masks, **kw4)
+    rows = VF.build_rows(hid, hid, hw, hb, False)
+    arg_ok, n_clear = _clear_argmax(rows, embed, pos, masks, kw, am, ram, 1e-2)
     err = max(max_err(mx, rmx), max_err(lse, rlse), max_err(gth, rgth))
-    log(f"K4 verify_hidden R={kp1 * n_nodes}: argmax equal on {int(clear.sum())} "
-        f"clear rows: {arg_ok}; max/lse/gathered max_abs_err {err:.3e}")
+    log(f"K4 verify_hidden R={kp1 * n_nodes}: argmax equal on {n_clear} clear rows: "
+        f"{arg_ok}; max/lse/gathered max_abs_err {err:.3e}")
     require(arg_ok and err <= 1e-2, f"K4: argmax {arg_ok}, err {err}")
     ms = cuda_ms(lambda: VF.verify_hidden_kernel(hid, hid, hw, hb, embed, pos, gcol,
-                                                 masks, **kw))
+                                                 masks, **kw4))
     plain_ms = cuda_ms(lambda: VF.verify_hidden_plain(hid, hid, hw, hb, embed, pos,
-                                                      gcol, masks, **kw))
-    return dict(name="verify_hidden", source="whisper_medusa_tpu_torch/csrc/verify.cu",
-                replaces="whisper_medusa_tpu/ops/verify.py:309", module=VF,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                                                      gcol, masks, **kw4))
+    r, v = kp1 * n_nodes, embed.shape[0]
+    moved = nbytes(hid, hw, hb, embed, pos, gcol, masks) + 4 * r * 4
+    ops = 2 * r * v * d + 2 * kp1 * n_nodes * d * d
+    return kernel_record("verify_hidden", "whisper_medusa_tpu_torch/csrc/verify.cu",
+                         "whisper_medusa_tpu/ops/verify.py:309", (VF, "launches"),
+                         err, ms, plain_ms, bound(moved, ops), None)
 
 
-def check_megastep_full(model, feats, err2):
-    """The full 32-layer step (prefill T=4, then the T=11 chain) against the
-    plain layer loop on copies of one cache."""
+def check_head_rows(g, model):
+    """K4's stage A alone (wm_head_rows) at the shapes the loop gives it,
+    elementwise within 3e-2: head 0 at M = 88 (the two-pass loop's head-0
+    rows at B=8, 11 nodes), and the 10 draft heads at M = 8 (prefill and
+    pass B at B=8) and M = 1 (prefill at B=1)."""
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    heads = model.params["medusa"]["heads"]
+    w, b = heads["w"][:, 0], heads["b"][:, 0]
+    d = w.shape[1]
+    err, timed = 0.0, None
+    for m, lo, hi in ((88, 0, 1), (8, 1, None), (1, 1, None)):
+        hw, hb = w[lo:hi], b[lo:hi]
+        src = torch.randn((m, d), generator=g, device="cuda").to(torch.bfloat16)
+        got = VF.head_rows_kernel(src, hw, hb)
+        ref = VF.head_rows_plain(src, hw, hb)
+        e = max_err(got, ref)
+        log(f"head_rows M={m} heads={hw.shape[0]}: max_abs_err {e:.3e}")
+        require(got.shape == ref.shape and close(got, ref, 3e-2),
+                f"head_rows M={m} heads={hw.shape[0]}: err {e}")
+        err = max(err, e)
+        if timed is None:
+            timed = (src, hw, hb, got)
+    src, hw, hb, got = timed
+    ms = cuda_ms(lambda: VF.head_rows_kernel(src, hw, hb))
+    plain_ms = cuda_ms(lambda: VF.head_rows_plain(src, hw, hb))
+    m, d = src.shape
+    return kernel_record("head_rows", "whisper_medusa_tpu_torch/csrc/verify.cu",
+                         "whisper_medusa_tpu/ops/verify.py:309", (VF, "head_launches"),
+                         err, ms, plain_ms,
+                         bound(nbytes(src, hw, hb, got), 2 * m * d * d), None)
+
+
+def check_verify_rows(g, model):
+    """K5 at R in {1, 8, 88, 1024}: argmax equal on rows whose plain top-2 gap
+    exceeds 1e-2; max / lse / gathered within 1e-2."""
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    worst = 0.0
+    timed = {}
+    for r in (1, 8, 88, 1024):
+        embed, masks, pos, gcol, kw = _verify_inputs(g, model, r)
+        hs = torch.randn((r, embed.shape[1]), generator=g, device="cuda").to(torch.bfloat16)
+        am, mx, lse, gth = VF.verify_rows_kernel(hs, embed, pos, gcol, masks, **kw)
+        ram, rmx, rlse, rgth = VF.verify_rows_plain(hs, embed, pos, gcol, masks, **kw)
+        arg_ok, n_clear = _clear_argmax(hs, embed, pos, masks, kw, am, ram, 1e-2)
+        err = max(max_err(mx, rmx), max_err(lse, rlse), max_err(gth, rgth))
+        log(f"K5 verify_rows R={r}: argmax equal on {n_clear} clear rows: {arg_ok}; "
+            f"max/lse/gathered max_abs_err {err:.3e}")
+        require(arg_ok and err <= 1e-2, f"K5 R={r}: argmax {arg_ok}, err {err}")
+        worst = max(worst, err)
+        if r in (8, 88):
+            args = (hs, embed, pos, gcol, masks)
+            ms = cuda_ms(lambda: VF.verify_rows_kernel(*args, **kw))
+            plain_ms = cuda_ms(lambda: VF.verify_rows_plain(*args, **kw))
+            d, v = embed.shape[1], embed.shape[0]
+            b = bound(nbytes(*args) + 4 * r * 4, 2 * r * v * d)
+            log(f"K5 verify_rows R={r}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {b[0]:.4f} ms ({b[1]})")
+            timed[r] = (ms, plain_ms, b)
+    ms, plain_ms, b = timed[88]       # the batched Medusa path's pass A
+    return kernel_record("verify_rows", "whisper_medusa_tpu_torch/csrc/verify.cu",
+                         "whisper_medusa_tpu/ops/verify.py:183", (VF, "rows_launches"),
+                         worst, ms, plain_ms, b, None)
+
+
+def _megastep_cost(dec_layers, ln_post, cache, offs, t, cross_len):
+    """(bytes, flops) of one K2 call: every weight the kernel takes (not the
+    cross k/v projections, which init_cache applies), the cross K/V and the
+    self K/V history read once; the chunk's K/V rows and the outputs written."""
+    from whisper_medusa_tpu_torch.ops import megastep as MS
+
+    weights = [MS._leaf(dec_layers, path) for path in MS._WEIGHTS]
+    nl, _, _, d = cache.self_k.shape
+    m = len(offs) * t
+    hist = sum(off + t for off in offs)
+    moved = (nbytes(*weights, ln_post["scale"], ln_post["bias"], cache.cross_k,
+                    cache.cross_v)
+             + 2 * nl * hist * d * 2 + 2 * nl * m * d * 2 + 3 * m * d * 2)
+    ops = (2 * m * sum(w[0].numel() for w in weights if w.dim() == 3) * nl
+           + nl * 4 * t * hist * d + nl * 4 * m * cross_len * d)
+    return moved, ops
+
+
+def check_megastep_full(model, enc1, enc8):
+    """The full 32-layer step against the plain layer loop on copies of one
+    cache: at B=1 prefill T=4 then the T=11 chain, at B=8 prefill T=4, then
+    T=11 and T=1 at per-example offsets that differ."""
     from whisper_medusa_tpu_torch.models import whisper
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
     p = model.params["whisper"]
     dims = model.config.dims
     dec = p["decoder"]
-    enc = model.encode(feats)
-    # The longest cache generate() builds (max_length 448 + 12 rows): its
-    # self-attention scores and V rows need more than 48 KB of shared memory.
-    cache = whisper.init_cache(p, dims, enc, dims.max_target_positions + 12)
     nh = dims.decoder_attention_heads
     st = model.special
-    worst_cos, worst_rows = 1.0, 0.0
-    for t, off in ((4, 0), (11, 4)):
-        toks = (torch.tensor([[st.sot, st.first_language, st.transcribe, st.no_timestamps]])
-                if t == 4 else torch.arange(100, 100 + t)[None]).to("cuda", torch.int32)
-        offsets = torch.full((1,), off, dtype=torch.int32, device="cuda")
-        pos = (offsets[:, None] + torch.arange(t, device="cuda")[None]).long()
-        x = dec["embed_tokens"][toks.long()] + dec["pos_embed"][pos]
-        sk, sv = cache.self_k.clone(), cache.self_v.clone()
-        got = MS.megastep_kernel(dec["layers"], x, cache.self_k, cache.self_v,
-                                 cache.cross_k, cache.cross_v, offsets, None,
-                                 dims.max_source_positions, nh)
-        ref = MS.megastep_plain(dec["layers"], x, sk, sv, cache.cross_k,
-                                cache.cross_v, offsets, None,
-                                dims.max_source_positions, nh)
-        # An f32 run of the same step (weights, cache and input upcast): how far
-        # each bf16 path lies from it.
-        f32 = lambda tree: {k: f32(v) if isinstance(v, dict) else v.float()
-                            for k, v in tree.items()}
-        ref32 = MS.megastep_plain(f32(dec["layers"]), x.float(), sk.float(),
-                                  sv.float(), cache.cross_k.float(),
-                                  cache.cross_v.float(), offsets, None,
-                                  dims.max_source_positions, nh)
-        cos = cosine(got, ref)
-        ln = lambda h: whisper.layer_norm(h, dec["ln_post"]["scale"], dec["ln_post"]["bias"])
-        lg_k = whisper.project_logits(p, ln(got))
-        lg_p = whisper.project_logits(p, ln(ref))
-        top2 = lg_p.float().topk(2, dim=-1).values
-        clear = (top2[..., 0] - top2[..., 1]) > 5e-2
-        arg_ok = bool(torch.equal(lg_k.argmax(-1)[clear], lg_p.argmax(-1)[clear]))
-        rows = slice(off, off + t)
-        # Written rows per layer, as a relative Frobenius error: over 32
-        # layers bf16 rounding differences compound (the 2-layer check above
-        # holds the elementwise bound), so the deep stack is held to a norm.
-        per_layer = [max(rel_err(cache.self_k[i, :, rows], sk[i, :, rows]),
-                         rel_err(cache.self_v[i, :, rows], sv[i, :, rows]))
-                     for i in range(dims.decoder_layers)]
-        rerr = max(per_layer)
-        aerr = max(max_err(cache.self_k[:, :, rows], sk[:, :, rows]),
-                   max_err(cache.self_v[:, :, rows], sv[:, :, rows]))
-        log(f"K2 megastep 32-layer T={t} off={off}: pre_norm cosine {cos:.6f} "
-            f"(kernel vs f32 {cosine(got, ref32):.6f}, plain bf16 vs f32 "
-            f"{cosine(ref, ref32):.6f}); argmax equal on {int(clear.sum())}/{t} rows "
-            f"with top-2 gap > 5e-2: {arg_ok}; written rows relative error by "
-            f"layer 0/1/4/16/31: " + " ".join(f"{per_layer[i]:.2e}" for i in
-                                              (0, 1, 4, 16, 31))
-            + f", max_abs_err {aerr:.3e}")
-        require(cos >= 0.999 and arg_ok and rerr <= 3e-2,
-                f"K2 32-layer T={t}: cos {cos}, argmax {arg_ok}, rows {rerr}")
-        worst_cos, worst_rows = min(worst_cos, cos), max(worst_rows, rerr)
-        cache.self_k.copy_(sk)      # continue from the plain path's cache
-        cache.self_v.copy_(sv)
-    t, off = 11, 4
-    toks = torch.arange(100, 111, device="cuda", dtype=torch.int32)[None]
-    offsets = torch.full((1,), off, dtype=torch.int32, device="cuda")
-    x = dec["embed_tokens"][toks.long()] + dec["pos_embed"][
-        (off + torch.arange(t, device="cuda"))[None]]
-    args = (dec["layers"], x, cache.self_k, cache.self_v, cache.cross_k, cache.cross_v,
-            offsets, None, dims.max_source_positions, nh)
-    ms = cuda_ms(lambda: MS.megastep_kernel(*args))
-    plain_ms = cuda_ms(lambda: MS.megastep_plain(*args))
-    return dict(name="megastep", source="whisper_medusa_tpu_torch/csrc/megastep.cu",
-                replaces="whisper_medusa_tpu/ops/megastep.py:342", module=MS,
-                max_abs_err=err2, ms=ms, plain_ms=plain_ms,
-                cosine_32_layers=worst_cos, cache_rows_err_32_layers=worst_rows)
+    f32 = lambda tree: {k: f32(v) if isinstance(v, dict) else v.float()
+                        for k, v in tree.items()}
+    worst_cos = 1.0
+    timings = {}
+    for enc, steps in ((enc1, ((4, [0]), (11, [4]))),
+                       (enc8, ((4, [0] * 8), (11, [4, 2, 4, 3, 1, 4, 0, 2]),
+                               (1, [15, 9, 13, 14, 5, 11, 2, 7])))):
+        b = enc.shape[0]
+        # The longest cache generate() builds (max_length 448 + 12 rows): its
+        # self-attention scores and V rows need more than 48 KB of shared memory.
+        cache = whisper.init_cache(p, dims, enc, dims.max_target_positions + 12)
+        for t, offs in steps:
+            toks = (torch.tensor([[st.sot, st.first_language, st.transcribe,
+                                   st.no_timestamps]] * b) if t == 4 else
+                    torch.arange(100, 100 + b * t).reshape(b, t)).to("cuda", torch.int32)
+            offsets = torch.tensor(offs, dtype=torch.int32, device="cuda")
+            pos = (offsets[:, None] + torch.arange(t, device="cuda")[None]).long()
+            x = dec["embed_tokens"][toks.long()] + dec["pos_embed"][pos]
+            sk, sv = cache.self_k.clone(), cache.self_v.clone()
+            args = (x, cache.self_k, cache.self_v, cache.cross_k, cache.cross_v,
+                    offsets, None, dims.max_source_positions, nh)
+            got, hid = MS.megastep_kernel(dec["layers"], dec["ln_post"], *args)
+            ref, rhid = MS.megastep_plain(dec["layers"], dec["ln_post"], x, sk, sv,
+                                          *args[3:])
+            cos = cosine(got, ref)
+            extra = ""
+            if b == 1:
+                # An f32 run of the same step (weights, cache and input
+                # upcast): how far each bf16 path lies from it.
+                ref32, _ = MS.megastep_plain(
+                    f32(dec["layers"]), f32(dec["ln_post"]), x.float(), sk.float(),
+                    sv.float(), cache.cross_k.float(), cache.cross_v.float(), offsets,
+                    None, dims.max_source_positions, nh)
+                extra = (f" (kernel vs f32 {cosine(got, ref32):.6f}, plain bf16 vs f32 "
+                         f"{cosine(ref, ref32):.6f})")
+            lg_k = whisper.project_logits(p, hid)
+            lg_p = whisper.project_logits(p, rhid)
+            top2 = lg_p.float().topk(2, dim=-1).values
+            clear = (top2[..., 0] - top2[..., 1]) > 5e-2
+            arg_ok = bool(torch.equal(lg_k.argmax(-1)[clear], lg_p.argmax(-1)[clear]))
+            written = torch.zeros(cache.self_k.shape[1:3], dtype=torch.bool, device="cuda")
+            for e, off in enumerate(offs):
+                written[e, off:off + t] = True
+            # Written rows per layer, as a relative Frobenius error: over 32
+            # layers bf16 rounding differences compound (the 2-layer check
+            # holds the elementwise bound), so the deep stack is held to a norm.
+            nl = dims.decoder_layers
+            per_layer = [max(rel_err(cache.self_k[i][written], sk[i][written]),
+                             rel_err(cache.self_v[i][written], sv[i][written]))
+                         for i in range(nl)]
+            rerr = max(per_layer)
+            shown = sorted({0, 1, nl // 8, nl // 2, nl - 1})
+            log(f"K2 megastep {nl}-layer B={b} T={t} offsets {offs}: pre_norm cosine "
+                f"{cos:.6f}{extra}; argmax equal on {int(clear.sum())}/{b * t} rows with "
+                f"top-2 gap > 5e-2: {arg_ok}; written rows relative error by layer "
+                + " ".join(f"{i}:{per_layer[i]:.2e}" for i in shown))
+            require(cos >= 0.999 and arg_ok and rerr <= 3e-2,
+                    f"K2 {nl}-layer B={b} T={t}: cos {cos}, argmax {arg_ok}, rows {rerr}")
+            worst_cos = min(worst_cos, cos)
+            if t != 4:
+                run = lambda: MS.megastep_kernel(dec["layers"], dec["ln_post"], *args)
+                ms = cuda_ms(run)
+                plain_ms = cuda_ms(lambda: MS.megastep_plain(dec["layers"], dec["ln_post"],
+                                                             *args))
+                cost = _megastep_cost(dec["layers"], dec["ln_post"], cache, offs, t,
+                                      dims.max_source_positions)
+                b_ms = bound(*cost)
+                log(f"K2 megastep {nl}-layer B={b} T={t}: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {b_ms[0]:.4f} ms ({b_ms[1]}; "
+                    f"{cost[0] / 1e9:.3f} GB, {cost[1] / 1e9:.1f} GFLOP)")
+                timings[(b, t)] = (ms, plain_ms, b_ms)
+            cache.self_k.copy_(sk)      # continue from the plain path's cache
+            cache.self_v.copy_(sv)
+    ms, plain_ms, b_ms = timings[(1, 11)]
+    return kernel_record("megastep", "whisper_medusa_tpu_torch/csrc/megastep.cu",
+                         "whisper_medusa_tpu/ops/megastep.py:342", (MS, "launches"),
+                         None, ms, plain_ms, b_ms, None), worst_cos
 
 
-def waveforms(n=3):
+# ---------------------------------------------------------------------------
+# Phases 4-6: the main paths
+# ---------------------------------------------------------------------------
+
+def waveforms(seconds):
     rng = np.random.default_rng(SEED)
     out = []
-    for i, secs in enumerate((8.0, 17.5, 29.0)[:n]):
+    for i, secs in enumerate(seconds):
         t = np.arange(int(secs * 16000)) / 16000.0
-        f0 = 110.0 * (i + 1) * (1 + 0.1 * np.sin(2 * np.pi * 0.5 * t))
+        f0 = 110.0 * (i % 4 + 1) * (1 + 0.1 * np.sin(2 * np.pi * 0.5 * t))
         wave = 0.3 * np.sin(2 * np.pi * np.cumsum(f0) / 16000.0)
         wave += 0.05 * rng.standard_normal(t.shape)
         out.append(wave.astype(np.float32))
     return out
 
 
+def drive(name, kernels, fn, needs):
+    """Run one main path with every launch counter set to 0 just before and
+    read just after; the kernels in ``needs`` must have launched."""
+    for k in kernels:
+        setattr(*k["counter"], 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k["name"]: getattr(*k["counter"]) for k in kernels}
+    log(f"launches [{name}]: " + ", ".join(f"{n} {c}" for n, c in counts.items()))
+    for k in kernels:
+        k["launches"] = k.get("launches", 0) + counts[k["name"]]
+    for n in needs:
+        require(counts[n] > 0, f"{n} never launched on the path {name}")
+    return result, wall
+
+
+def check_output(out, b, vocab):
+    n_gen = out.lengths - PROMPT_LEN
+    require(out.sequences.shape == (b, PROMPT_LEN + MAX_NEW_TOKENS), "sequence shape")
+    require((n_gen >= 1).all() and (out.sequences >= 0).all()
+            and (out.sequences < vocab).all(), "token range")
+    require(np.isfinite(out.token_logprobs).all() and np.isfinite(out.no_speech_probs).all()
+            and np.isfinite(out.avg_logprobs).all(), "finite outputs")
+    require(out.steps_per_example.shape == (b,) and out.accepted.shape == (b,),
+            "per-example metrics")
+    return int(n_gen.sum())
+
+
+def report(name, out, wall, n_gen):
+    log(f"{name}: {wall * 1e3:.1f} ms, {n_gen} generated tokens, {n_gen / wall:.1f} tok/s, "
+        f"{out.steps} steps, mean_accept_length {out.mean_accept_length:.3f}")
+
+
+def check_batch_invariance(model, enc8):
+    """speculative_generate at B=8 on the batched encoder output gives every
+    example exactly the tokens of a B=1 decode of its encoder row."""
+    from whisper_medusa_tpu_torch.config import GenerationConfig
+    from whisper_medusa_tpu_torch.decoding.buffers import generate_medusa_buffers
+    from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig
+    from whisper_medusa_tpu_torch.decoding.speculative import speculative_generate
+
+    st, gd, cfg = model.special, model.generation_config, model.config
+    b = enc8.shape[0]
+    prompt = torch.tensor([[st.sot, st.first_language, st.transcribe,
+                            st.no_timestamps]] * b, dtype=torch.int32, device="cuda")
+    pcfg = ProcessorConfig(vocab_size=cfg.dims.vocab_size,
+                           suppress_tokens=gd.suppress_tokens,
+                           begin_suppress_tokens=gd.begin_suppress_tokens,
+                           begin_index=PROMPT_LEN, eos_token_id=st.eos)
+    gen = GenerationConfig(max_length=PROMPT_LEN + MAX_NEW_TOKENS, eos_token_id=st.eos,
+                           pad_token_id=gd.pad_token_id)
+    for variant, choices, med in (("base_head", cfg.medusa.medusa_choices,
+                                   model.params["medusa"]),
+                                  ("vanilla", (1,), None)):
+        buffers = generate_medusa_buffers(choices)
+        run = lambda e, p: speculative_generate(model.params["whisper"], med, cfg.dims,
+                                                buffers, pcfg, gen, e, p, variant=variant)
+        batched = run(enc8, prompt)
+        same, acc1 = [], []
+        for e in range(b):
+            alone = run(enc8[e:e + 1], prompt[e:e + 1])
+            same.append(bool(torch.equal(batched.tokens[e], alone.tokens[0]))
+                        and int(batched.lengths[e]) == int(alone.lengths[0]))
+            acc1.append(int(alone.accepted[0]))
+        # Accepted drafts are not held equal: at B=1 the drafts come from K4's
+        # head rows, at B=8 from pass B (K3), which round differently.
+        log(f"batch invariance [{variant}]: B=8 tokens equal to the B=1 decode for "
+            f"{sum(same)}/{b} examples; lengths {batched.lengths.tolist()}, "
+            f"B=8 steps {batched.steps}; accepted at B=8 "
+            f"{batched.accepted.tolist()}, alone {acc1}")
+        require(all(same), f"decode batch invariance [{variant}]: {same}")
+
+
+def report_generate_invariance(model, feats8, batched):
+    """Reported, not required: whether generate at B=8 gives each example
+    its B=1 tokens end to end.  The decode is batch-invariant for a given
+    encoder output (check_batch_invariance); the encoder's cuBLAS GEMMs may
+    round another way at another batch size."""
+    same, enc_err = [], 0.0
+    enc8 = model.encode(feats8)
+    for e in range(feats8.shape[0]):
+        enc_err = max(enc_err, max_err(model.encode(feats8[e:e + 1])[0], enc8[e]))
+        alone = model.generate(feats8[e:e + 1], language="en",
+                               max_new_tokens=MAX_NEW_TOKENS)
+        same.append(bool(np.array_equal(alone.sequences[0], batched.sequences[e])))
+    log(f"generate B={feats8.shape[0]} vs B=1 (medusa): encoder output max_abs_err "
+        f"{enc_err:.3e}; tokens equal for {sum(same)}/{len(same)} examples {same}")
+
+
 def main():
     smi = phase_env()
     phase_build()
-    from whisper_medusa_tpu.config import MedusaConfig, ModelConfig, WHISPER_PRESETS
-    from whisper_medusa_tpu.data.tokenizer import CharTokenizer
+    from whisper_medusa_tpu_torch.config import WHISPER_PRESETS, MedusaConfig, ModelConfig
+    from whisper_medusa_tpu_torch.data.tokenizer import CharTokenizer
     from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
     from whisper_medusa_tpu_torch.processor import WhisperMedusaProcessor
 
@@ -357,53 +637,81 @@ def main():
 
     # ---- phase 3: kernels vs plain versions
     k1 = check_attention(g)
-    err2 = max(check_megastep_2layer(g, t, off) for t, off in ((4, 0), (11, 7)))
+    err2 = max(check_megastep_2layer(g, t, offs) for t, offs in (
+        (4, [0]), (11, [7]), (1, [0, 17, 100, 5, 300, 440, 2, 63]),
+        (11, [7, 0, 120, 33, 448, 5, 260, 90])))
     cfg = ModelConfig(dims=WHISPER_PRESETS["large-v2"], medusa=MedusaConfig(),
                       param_dtype="bfloat16", compute_dtype="bfloat16")
     t0 = time.perf_counter()
-    model = WhisperMedusaModel.from_random(cfg, seed=SEED, device="cuda")
-    model.params["medusa"]["heads"]["w"].normal_(0.0, 0.02, generator=g)
+    model = WhisperMedusaModel.from_random(cfg, seed=SEED)
+    # The heads from a generator of their own, so that they do not depend on
+    # how many draws the kernel checks above made.
+    hg = torch.Generator(device="cuda")
+    hg.manual_seed(SEED + 1)
+    model.params["medusa"]["heads"]["w"].normal_(0.0, 0.02, generator=hg)
     torch.cuda.synchronize()
     log(f"model: whisper-large-v2 + 10 base_head heads, bf16, random (seed {SEED}), "
         f"{time.perf_counter() - t0:.1f} s")
     k3 = check_logits(g, model.params["whisper"]["decoder"]["embed_tokens"])
     k4 = check_verify(g, model)
+    k4a = check_head_rows(g, model)
+    k5 = check_verify_rows(g, model)
 
-    proc = WhisperMedusaProcessor(tokenizer=CharTokenizer(), device="cuda")
-    waves = waveforms()
+    proc = WhisperMedusaProcessor(tokenizer=CharTokenizer())
+    waves = waveforms((8.0, 17.5, 29.0))
     feats = [proc(w) for w in waves]
     for f in feats:
         require(f.shape == (1, 80, 3000) and bool(torch.isfinite(f).all()),
                 "processor output")
-    k2 = check_megastep_full(model, feats[0], err2)
-    kernels = [k1, k2, k3, k4]
+    batch_secs = tuple(float(s) for s in np.linspace(4.0, 30.0, BATCH))
+    batch_waves = waveforms(batch_secs)
+    feats8 = proc(batch_waves)
+    require(feats8.shape == (BATCH, 80, 3000) and bool(torch.isfinite(feats8).all()),
+            "batched processor output")
+    enc8 = model.encode(feats8)
+    k2, worst_cos = check_megastep_full(model, model.encode(feats[0]), enc8)
+    k2["max_abs_err"] = err2
+    kernels = [k1, k2, k3, k4, k4a, k5]
 
-    # ---- phase 4: the main path, three requests
-    model.generate(feats[0], language="en", max_new_tokens=8)      # warm-up
-    for k in kernels:
-        k["module"].launches = 0
-    outs = []
+    # ---- phase 4: the main paths
+    vocab = cfg.dims.vocab_size
+    for f, kw in ((feats[0], {}), (feats[0], dict(disable_medusa=True)),
+                  (feats8, {}), (feats8, dict(disable_medusa=True))):
+        model.generate(f, language="en", max_new_tokens=8, **kw)      # warm-up
+    outs, medusa1_ms = [], []
     for i, f in enumerate(feats):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = model.generate(f, language="en", max_new_tokens=MAX_NEW_TOKENS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n_gen = int(out.lengths[0]) - 4
-        require(out.sequences.shape == (1, 4 + MAX_NEW_TOKENS), "sequence shape")
-        require(n_gen >= 1 and (out.sequences >= 0).all()
-                and (out.sequences < cfg.dims.vocab_size).all(), "token range")
-        require(np.isfinite(out.token_logprobs).all()
-                and np.isfinite(out.no_speech_probs).all(), "finite outputs")
-        log(f"request {i}: {waves[i].shape[0] / 16000:.1f} s audio, {n_gen} tokens, "
-            f"{out.steps} steps, mean_accept_length {out.mean_accept_length:.3f}, "
-            f"{wall * 1e3:.1f} ms, {n_gen / wall:.1f} tok/s")
+        out, wall = drive(f"medusa B=1 request {i}", kernels,
+                          lambda: model.generate(f, language="en",
+                                                 max_new_tokens=MAX_NEW_TOKENS),
+                          ("attention", "megastep", "logits", "head_rows",
+                           "verify_hidden"))
+        report(f"request {i} (medusa, B=1, {waves[i].shape[0] / 16000:.1f} s audio)", out,
+               wall, check_output(out, 1, vocab))
         outs.append(out)
+        medusa1_ms.append(wall * 1e3)
+    out, wall = drive("vanilla B=1", kernels,
+                      lambda: model.generate(feats[0], language="en",
+                                             max_new_tokens=MAX_NEW_TOKENS,
+                                             disable_medusa=True),
+                      ("attention", "megastep", "logits", "verify_rows"))
+    report(f"request 0 (vanilla, B=1, {waves[0].shape[0] / 16000:.1f} s audio; medusa "
+           f"B=1 requests took {', '.join(f'{m:.1f}' for m in medusa1_ms)} ms)", out, wall,
+           check_output(out, 1, vocab))
+    batched = {}
+    for name, kw, needs in (("medusa", {}, ("head_rows",)),
+                            ("vanilla", dict(disable_medusa=True), ())):
+        out, wall = drive(f"{name} B={BATCH}", kernels,
+                          lambda: model.generate(feats8, language="en",
+                                                 max_new_tokens=MAX_NEW_TOKENS, **kw),
+                          ("attention", "megastep", "logits", "verify_rows") + needs)
+        batched[name] = out
+        report(f"batched request ({name}, B={BATCH}, audio "
+               f"{', '.join(f'{s:.1f}' for s in batch_secs)} s)", out, wall,
+               check_output(out, BATCH, vocab))
+        log(f"  per-example steps {out.steps_per_example.tolist()}, accepted "
+            f"{out.accepted.tolist()}, lengths {out.lengths.tolist()}")
     for k in kernels:
-        log(f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms")
-        k["launches"] = k["module"].launches
-        log(f"launches {k['name']}: {k['launches']}")
-        require(k["launches"] > 0, f"{k['name']} never launched on the main path")
+        log(f"launches {k['name']} (all main paths): {k['launches']}")
 
     # ---- phase 5: invariance under corrupted drafts.  Every draft is wrong, so
     # the loop commits one token per step (vanilla decoding); the finish rule
@@ -417,10 +725,17 @@ def main():
     require(same and bad.steps >= outs[0].steps,
             "tokens changed under draft_corruption=1.0")
 
+    # ---- phase 6: decode batch invariance
+    check_batch_invariance(model, enc8)
+    report_generate_invariance(model, feats8, batched["medusa"])
+
     rows = [{"name": k["name"], "route": "cuda", "source": k["source"],
              "replaces": k["replaces"], "launches": k["launches"],
-             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"]}
+             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+             "library_ms": k["library_ms"]}
             for k in kernels]
+    log(f"K2 32-layer worst pre_norm cosine {worst_cos:.6f}")
     log(f"gpu: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

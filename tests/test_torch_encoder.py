@@ -32,7 +32,7 @@ def _params(dtype, seed=0):
     wp["encoder"] = jax.tree.map(
         lambda a: (a + 0.05 * rng.standard_normal(a.shape)).astype(dtype)
         if a.ndim <= 2 else a, wp["encoder"])
-    return dims, wp, bridge.params_from_numpy(jax.tree.map(np.asarray, wp))
+    return dims, wp, bridge.params_from_numpy(jax.tree.map(np.asarray, wp), device="cpu")
 
 
 @pytest.mark.parametrize("dtype,tol", [(jnp.float32, 1e-4), (jnp.bfloat16, 3e-2)])
@@ -82,9 +82,22 @@ def test_log_mel_matches_numpy_reference():
 def test_processor_matches_jax_processor():
     wave = (0.2 * np.sin(np.arange(16000 * 2) / 7.0)).astype(np.float32)
     ref = np.asarray(JProcessor()(wave))
-    got = TProcessor()(wave)
+    got = TProcessor(device="cpu")(wave)
     assert got.shape == (1, 80, 3000) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(tmel.pad_or_trim(wave), jmel.pad_or_trim(wave))
     with pytest.raises(NotImplementedError, match="resampling"):
-        TProcessor()(wave, sampling_rate=8000)
+        TProcessor(device="cpu")(wave, sampling_rate=8000)
+
+
+def test_processor_batches_waveforms_like_jax():
+    """A list of up to 8 waveforms of different lengths (one over 30 s) gives
+    one (B, 80, 3000) batch, row for row the JAX processor's."""
+    rng = np.random.default_rng(8)
+    waves = [(0.1 * rng.standard_normal(int(16000 * s))).astype(np.float32)
+             for s in (1.5, 4.0, 12.25, 29.9, 31.0, 0.5, 7.0, 20.0)]
+    ref = np.asarray(JProcessor()(waves))
+    got = TProcessor(device="cpu")(waves)
+    assert got.shape == (8, 80, 3000) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(got[2:3].numpy(), TProcessor(device="cpu")(waves[2]).numpy())

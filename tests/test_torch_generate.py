@@ -3,7 +3,8 @@
 tiny_test_config(vocab_size=51865, medusa_num_heads=3) with nonzero head
 weights, the JAX weights bridged into the port, float32 on the CPU.  Tokens,
 lengths, accepted drafts, steps and mean_accept_length are equal; token
-log-probs agree to 1e-4.
+log-probs agree to 1e-4.  B = 1 here; batches of 2 and 3 (the JAX package's
+two-pass verification) and vanilla decoding are in test_torch_generate_batch.py.
 """
 
 import dataclasses
@@ -16,6 +17,7 @@ import torch
 
 from whisper_medusa_tpu.config import tiny_test_config
 from whisper_medusa_tpu.models.api import WhisperMedusaModel as JModel
+from whisper_medusa_tpu_torch import config as tconfig
 from whisper_medusa_tpu_torch.models import bridge
 from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel as TModel
 
@@ -28,13 +30,15 @@ def models():
     w = jm.params["medusa"]["heads"]["w"]
     jm.params["medusa"]["heads"]["w"] = jnp.asarray(
         0.3 * rng.standard_normal(w.shape), jnp.float32)
-    tm = TModel(cfg, bridge.params_from_numpy(jax.tree.map(np.asarray, jm.params)))
+    tm = TModel(tconfig.ModelConfig.from_dict(cfg.to_dict()),
+                bridge.params_from_numpy(jax.tree.map(np.asarray, jm.params), device="cpu"),
+                device="cpu")
     return jm, tm
 
 
-def _feats(cfg, seed=0):
+def _feats(cfg, seed=0, b=1):
     return np.random.default_rng(seed).standard_normal(
-        (1, cfg.dims.num_mel_bins, cfg.dims.num_frames)).astype(np.float32)
+        (b, cfg.dims.num_mel_bins, cfg.dims.num_frames)).astype(np.float32)
 
 
 def _assert_same(a, b):
@@ -83,7 +87,7 @@ def test_tokens_invariant_under_draft_corruption(models):
 def test_from_pretrained_loads_framework_checkpoint(models, tmp_path):
     jm, tm = models
     jm.save_pretrained(str(tmp_path))
-    loaded = TModel.from_pretrained(str(tmp_path))
+    loaded = TModel.from_pretrained(str(tmp_path), device="cpu")
     assert loaded.special == tm.special
     assert dataclasses.asdict(loaded.generation_config) == dataclasses.asdict(
         jm.generation_config)
@@ -106,7 +110,7 @@ def _leaves(tree, prefix=""):
 @pytest.mark.parametrize("kwargs,match", [
     (dict(num_beams=2), "beam search"),
     (dict(return_timestamps=True), "timestamps"),
-    (dict(disable_medusa=True), "vanilla"),
+    (dict(prompt_ids=[50361, 220]), "timestamps"),
     (dict(temperature=(0.0, 0.2)), "decode modes"),
     (dict(return_scores="full"), "capture"),
 ])
@@ -119,8 +123,8 @@ def test_unported_options_raise(models, kwargs, match):
 def test_batch_and_longform_raise(models):
     _, tm = models
     cfg = tm.config
-    with pytest.raises(NotImplementedError, match="batch"):
-        tm.generate(np.zeros((2, cfg.dims.num_mel_bins, cfg.dims.num_frames),
+    with pytest.raises(NotImplementedError, match="batching, B > 8"):
+        tm.generate(np.zeros((9, cfg.dims.num_mel_bins, cfg.dims.num_frames),
                              np.float32), language="en")
     with pytest.raises(NotImplementedError, match="longform"):
         tm.generate(np.zeros((1, cfg.dims.num_mel_bins, 2 * cfg.dims.num_frames),

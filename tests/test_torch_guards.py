@@ -1,6 +1,8 @@
-"""Guards of the PyTorch port: it imports no JAX, refuses to run on the CPU
-when CUDA was asked for, and has no stub when the kernels cannot be built."""
+"""Guards of the PyTorch port: it imports neither JAX nor the JAX package,
+runs on the card unless asked for the CPU and refuses to run on the CPU when
+CUDA was asked for, and has no stub when the kernels cannot be built."""
 
+import ast
 import os
 import pkgutil
 import subprocess
@@ -10,10 +12,11 @@ import pytest
 import torch
 
 import whisper_medusa_tpu_torch
-from whisper_medusa_tpu.config import tiny_test_config
+from whisper_medusa_tpu_torch.config import tiny_test_config
 from whisper_medusa_tpu_torch.models import bridge
 from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
 from whisper_medusa_tpu_torch.ops import cuda_lib
+from whisper_medusa_tpu_torch.processor import WhisperMedusaProcessor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -23,12 +26,28 @@ def _port_modules():
     return sorted(m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."))
 
 
+def _chip_smoke_imports():
+    """Every module chip_smoke.py imports, at top level or inside a function."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+    return sorted(mods)
+
+
 def test_port_imports_no_jax():
     mods = _port_modules()
-    assert "whisper_medusa_tpu_torch.models.api" in mods and len(mods) >= 15
+    assert "whisper_medusa_tpu_torch.models.api" in mods and len(mods) >= 19
+    smoke = _chip_smoke_imports()
+    assert "whisper_medusa_tpu_torch.models.api" in smoke
     code = ("import importlib, sys\n"
-            f"for m in {mods!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+            f"for m in {mods + smoke!r}: importlib.import_module(m)\n"
+            "import chip_smoke\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'whisper_medusa_tpu')\n"
+            "             or m.startswith(('jax.', 'whisper_medusa_tpu.')))\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -45,6 +64,21 @@ def test_cuda_request_without_gpu_raises():
         WhisperMedusaModel.from_random(tiny_test_config(), device="cuda")
     with pytest.raises(RuntimeError, match="does not fall back"):
         bridge.params_from_numpy({"w": [1.0]}, device="cuda")
+
+
+def test_entry_points_default_to_the_card():
+    """With no device argument every entry point asks for CUDA, so on a host
+    without a GPU it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is legitimate here")
+    for make in (lambda: WhisperMedusaModel.from_random(tiny_test_config()),
+                 lambda: WhisperMedusaModel(tiny_test_config(), {}),
+                 lambda: bridge.from_random(tiny_test_config()),
+                 lambda: bridge.params_from_numpy({"w": [1.0]}),
+                 lambda: WhisperMedusaProcessor(),
+                 lambda: WhisperMedusaProcessor.from_pretrained("/nonexistent")):
+        with pytest.raises(RuntimeError, match="does not fall back"):
+            make()
 
 
 def test_loader_raises_without_nvcc(monkeypatch, tmp_path):

@@ -1,9 +1,11 @@
-"""Port ops/verify.py (plain version of kernel K4) and decoding/processors.py
-vs the JAX fused verification kernel and processors.
+"""Port ops/verify.py (plain versions of kernels K4 and K5) and
+decoding/processors.py vs the JAX fused verification kernels and processors.
 
 verify_hidden: the JAX ``_kernel_hidden`` in interpret mode at d=128 with 3
 heads, suppress / begin-suppress / EOS decay on.  Argmax is exact; max, lse
-and the gathered value within 3e-2 (bf16 row construction).  Processors:
+and the gathered value within 3e-2 (bf16 row construction).  verify_rows: the
+JAX ``_kernel`` in interpret mode at d=128, R in {1, 8, 40}, in f32, the same
+processors on; argmax exact, max / lse / gathered within 1e-4.  Processors:
 f32, 1e-5.
 """
 
@@ -58,6 +60,55 @@ def test_plain_matches_kernel_hidden(v):
     for name, a, b in zip(("max", "lse", "gathered"), got[1:], ref[1:]):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=3e-2, atol=3e-2,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("r", [1, 8, 40])
+@pytest.mark.parametrize("v", [8192, 8192 + 665])
+def test_verify_rows_plain_matches_jax_kernel(v, r):
+    d = 128
+    rng = np.random.default_rng(v + r)
+    hs = rng.standard_normal((r, d)).astype(np.float32)
+    emb = (rng.standard_normal((v, d)) * 0.2).astype(np.float32)
+    pos = (3 + rng.integers(0, 4, (r,))).astype(np.int32)   # begin_index 4 and decay start 3 hit
+    gcol = rng.integers(0, v, (r,)).astype(np.int32)
+    gcol[: min(r, 3)] = (5, 3, 2)[: min(r, 3)]   # the EOS column, and suppressed ones
+    kw = dict(begin_index=4, eos_id=5, decay=(3, 1.2))
+    jm = jverify.masks_for(_pcfg(v, jproc))
+    ref = jverify.verify_rows(jnp.asarray(hs), jnp.asarray(emb), jnp.asarray(pos),
+                              jnp.asarray(gcol), jm, **kw)
+    tm = tverify.masks_for(_pcfg(v, tproc))
+    got = tverify.verify_rows(torch.from_numpy(hs), torch.from_numpy(emb),
+                              torch.from_numpy(pos), torch.from_numpy(gcol), tm, **kw)
+    assert tverify.rows_launches == 0
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+    for name, a, b in zip(("max", "lse", "gathered"), got[1:], ref[1:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
+def test_head_rows_plain_is_k4_row_construction():
+    """head_rows (the two-pass loop's head-0 rows) equals K4's row block 0."""
+    rng = np.random.default_rng(3)
+    hid = torch.from_numpy(rng.standard_normal((2, 4, 64)).astype(np.float32)).bfloat16()
+    hw = torch.from_numpy(rng.standard_normal((3, 64, 64)).astype(np.float32) * 0.05)
+    hb = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32) * 0.1)
+    rows = tverify.build_rows(hid, hid, hw, hb, identity0=False)
+    got = tverify.head_rows(hid.reshape(8, 64), hw[:1], hb[:1])[0]
+    torch.testing.assert_close(got, rows[:8], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("what,match", [("quant", "item 11"), ("ts_cfg", "item 12")])
+def test_verify_rows_unported_modes_raise(what, match):
+    hs = torch.zeros((2, 64))
+    emb = torch.zeros((10, 64))
+    if what == "quant":
+        emb = {"q": emb.to(torch.int8), "s": torch.ones(10)}
+    kw = dict(ts_cfg=(8, 7, None)) if what == "ts_cfg" else {}
+    with pytest.raises(NotImplementedError, match=match):
+        tverify.verify_rows(hs, emb, torch.zeros(2, dtype=torch.int32),
+                            torch.zeros(2, dtype=torch.int32),
+                            torch.zeros(2, 10, dtype=torch.int8), begin_index=0,
+                            eos_id=0, decay=None, **kw)
 
 
 @pytest.mark.parametrize("decay", [None, (3, 1.2)])

@@ -3,14 +3,18 @@
 // Two building blocks are used by more than one kernel:
 //
 //  * skinny_gemm_kernel: Y[M, N] = epilogue(A[M, K] @ W[K, N] + bias) for
-//    M <= 16 rows (the decode chunk, or the verification source rows), W
-//    stored (in, out) as in the JAX package.  One CTA of 16 warps per
-//    16-column output tile; each warp owns a K/16 slice and loads its weight
-//    fragments in batches of five before the tensor-core products, so a whole
-//    weight matrix is in flight at once; the 16 per-warp partial tiles are
-//    summed in a fixed order in shared memory (deterministic, no atomics).
-//    At decode sizes this is bound by the weight stream: every weight element
-//    is read once per call.
+//    M <= 128 rows (the decode chunk of up to 8 examples, or the
+//    verification source rows), W stored (in, out) as in the JAX package.
+//    One CTA of 16 warps per 16-column output tile; each warp owns a K/16
+//    slice and loads its weight fragments in batches of five, then runs the
+//    tensor-core products of every 16-row tile of A against them, so each
+//    weight element is read once per call whatever M is and a whole weight
+//    matrix is in flight at once.  The 16 per-warp partial tiles of each row
+//    tile are summed in a fixed order in shared memory, one row tile after
+//    the other (deterministic, no atomics).  A row's arithmetic — its K split,
+//    its product order and its reduction order — is the same for every M, so
+//    an example's result does not depend on what it is batched with.  At
+//    decode sizes this is bound by the weight stream.
 //
 //  * vocab_tile: C[128, 64] = X[rows, D] @ E[v0 : v0 + 64, D]^T for the tied
 //    embedding E (V, D), both staged through shared memory in 64-wide K
@@ -82,11 +86,14 @@ struct SkinnyJobs {
 
 constexpr int SK_WARPS = 16;   // K is split over 16 warps: K % 256 == 0
 constexpr int SK_BATCH = 5;    // weight fragments loaded per batch
+constexpr int SK_MAX_ROWS = 128;   // 8 row tiles of 16
 
 // grid: (N / 16, njobs or batch).  With njobs == 1 the y index is a batch
 // index that offsets W, bias and the output by the given strides (the
 // per-head Medusa blocks); otherwise it selects one of up to three jobs that
-// share A (the q/k/v projections).
+// share A (the q/k/v projections).  MT = ceil(M / 16) row tiles; A must have
+// MT * 16 rows allocated (rows >= m_rows are computed and dropped).
+template <int MT>
 __global__ void __launch_bounds__(SK_WARPS * 32)
 skinny_gemm_kernel(const bf16* __restrict__ a, int lda, int m_rows, int k_dim,
                    int n_dim, int ldo, int ldres, SkinnyJobs jobs, int njobs,
@@ -103,57 +110,78 @@ skinny_gemm_kernel(const bf16* __restrict__ a, int lda, int m_rows, int k_dim,
   const int kbeg = warp * kper;
   const int nsteps = kper / 16;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.0f);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) wmma::fill_fragment(acc[mt], 0.0f);
   for (int s0 = 0; s0 < nsteps; s0 += SK_BATCH) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[SK_BATCH];
     wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[SK_BATCH];
+#pragma unroll
+    for (int i = 0; i < SK_BATCH; ++i) {
+      if (s0 + i < nsteps)
+        wmma::load_matrix_sync(fb[i], w + (size_t)(kbeg + (s0 + i) * 16) * n_dim + n0,
+                               n_dim);
+    }
 #pragma unroll
     for (int i = 0; i < SK_BATCH; ++i) {
       if (s0 + i < nsteps) {
         const int k = kbeg + (s0 + i) * 16;
-        wmma::load_matrix_sync(fb[i], w + (size_t)k * n_dim + n0, n_dim);
-        wmma::load_matrix_sync(fa[i], a + k, lda);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+          wmma::load_matrix_sync(fa, a + (size_t)mt * 16 * lda + k, lda);
+          wmma::mma_sync(acc[mt], fa, fb[i], acc[mt]);
+        }
       }
     }
-#pragma unroll
-    for (int i = 0; i < SK_BATCH; ++i)
-      if (s0 + i < nsteps) wmma::mma_sync(acc, fa[i], fb[i], acc);
   }
 
   __shared__ __align__(32) float red[SK_WARPS][256];
-  wmma::store_matrix_sync(red[warp], acc, 16, wmma::mem_row_major);
-  __syncthreads();
-  if (threadIdx.x >= 256) return;
-  const int m = threadIdx.x >> 4;
-  const int n = n0 + (threadIdx.x & 15);
-  if (m >= m_rows) return;
-  float s = 0.0f;
 #pragma unroll
-  for (int i = 0; i < SK_WARPS; ++i) s += red[i][threadIdx.x];
-  if (jb.bias) s += bf2f(jb.bias[batch * b_stride + n]);
-  float r;
-  switch (jb.epi) {
-    case EPI_BIAS_SCALE: r = bfr(s) * jb.scale; break;
-    case EPI_BIAS_GELU: r = gelu_erf(s); break;
-    case EPI_BIAS_RESID: r = bf2f(jb.res[(size_t)m * ldres + n]) + bfr(s); break;
-    case EPI_SILU_RESID:
-      r = bf2f(jb.res[(size_t)m * ldres + n]) + bfr(s / (1.0f + expf(-s)));
-      break;
-    default: r = s;
+  for (int mt = 0; mt < MT; ++mt) {
+    if (mt > 0) __syncthreads();   // the previous tile's sums are read
+    wmma::store_matrix_sync(red[warp], acc[mt], 16, wmma::mem_row_major);
+    __syncthreads();
+    const int m = mt * 16 + (threadIdx.x >> 4);
+    if (threadIdx.x < 256 && m < m_rows) {
+      const int n = n0 + (threadIdx.x & 15);
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < SK_WARPS; ++i) s += red[i][threadIdx.x];
+      if (jb.bias) s += bf2f(jb.bias[batch * b_stride + n]);
+      float r;
+      switch (jb.epi) {
+        case EPI_BIAS_SCALE: r = bfr(s) * jb.scale; break;
+        case EPI_BIAS_GELU: r = gelu_erf(s); break;
+        case EPI_BIAS_RESID: r = bf2f(jb.res[(size_t)m * ldres + n]) + bfr(s); break;
+        case EPI_SILU_RESID:
+          r = bf2f(jb.res[(size_t)m * ldres + n]) + bfr(s / (1.0f + expf(-s)));
+          break;
+        default: r = s;
+      }
+      jb.out[batch * o_stride + (size_t)m * ldo + n] = f2bf(r);
+    }
   }
-  jb.out[batch * o_stride + (size_t)m * ldo + n] = f2bf(r);
 }
 
-// Launch helper: a has 16 rows allocated (rows >= m_rows are ignored).
+// Launch helper: m_rows <= SK_MAX_ROWS; a has ceil(m_rows / 16) * 16 rows
+// allocated (rows >= m_rows are ignored).
 inline void skinny_gemm(const bf16* a, int lda, int m_rows, int k_dim, int n_dim,
                         int ldo, int ldres, const SkinnyJobs& jobs, int njobs,
                         int grid_y, long long w_stride, long long b_stride,
                         long long o_stride, cudaStream_t stream) {
   dim3 grid(n_dim / 16, grid_y);
-  skinny_gemm_kernel<<<grid, SK_WARPS * 32, 0, stream>>>(
-      a, lda, m_rows, k_dim, n_dim, ldo, ldres, jobs, njobs, w_stride,
-      b_stride, o_stride);
+#define WM_SKINNY(MT)                                                          \
+  case MT:                                                                     \
+    skinny_gemm_kernel<MT><<<grid, SK_WARPS * 32, 0, stream>>>(                \
+        a, lda, m_rows, k_dim, n_dim, ldo, ldres, jobs, njobs, w_stride,       \
+        b_stride, o_stride);                                                   \
+    break;
+  switch ((m_rows + 15) / 16) {
+    WM_SKINNY(1) WM_SKINNY(2) WM_SKINNY(3) WM_SKINNY(4)
+    WM_SKINNY(5) WM_SKINNY(6) WM_SKINNY(7) WM_SKINNY(8)
+    default: break;   // callers check m_rows <= SK_MAX_ROWS
+  }
+#undef WM_SKINNY
 }
 
 inline SkinnyJob job(const bf16* w, const bf16* bias, bf16* out, int epi,

@@ -1,4 +1,5 @@
-// K2 — the whole decoder stack over one decode chunk (T <= 16 tokens, B*T <= 16).
+// K2 — the whole decoder stack over one decode chunk (T <= 16 tokens per
+// example, B <= 8 examples, B*T <= 128 rows), plus the final layer norm.
 //
 // Replaces whisper_medusa_tpu/ops/megastep.py::_kernel (TPU, launched by
 // fused_decoder_layers), one pallas_call whose grid walks (layers, phases)
@@ -12,13 +13,18 @@
 //   over 128-key chunks -> combine -> cross o + residual -> LN -> fc1 + GELU
 //   -> fc2 + residual
 //
-// The hidden state stays in a 16-row bf16 buffer in device memory (L2
-// resident) between kernels.  Bound on H100: bytes.  At large-v2, B=1, one
-// step reads 32 x (6 x 1280^2 + 2 x 1280 x 5120) bf16 weights = 1.47 GB plus
-// 32 x 2 x 1500 x 1280 bf16 cross K/V = 246 MB (counted from the shapes).
-// The skinny GEMM reads each weight once with the whole matrix in flight;
-// cross-attention splits the 1500 keys into 128-key chunks so a B=1 step
-// spreads over 12 x 20 CTAs instead of 20.
+// and after the last layer ln_post into a second buffer (hidden), so the
+// whole decoder output comes from kernels whose per-row arithmetic does not
+// depend on the number of rows (batch invariance).
+//
+// The hidden state stays in a bf16 buffer of ceil(B*T / 16) * 16 rows in
+// device memory (L2 resident) between kernels.  Bound on H100: bytes.  At
+// large-v2 one step reads 32 x (6 x 1280^2 + 2 x 1280 x 5120) bf16 weights =
+// 1.47 GB, whatever B is, plus B x 32 x 2 x 1500 x 1280 bf16 cross K/V =
+// B x 246 MB (counted from the shapes).  The skinny GEMM reads each weight
+// once per step with the whole matrix in flight, for all B*T rows;
+// cross-attention splits the 1500 keys into 128-key chunks, a grid of
+// 12 x 20 x B CTAs; self-attention runs 20 x B CTAs.
 //
 // Numerics follow models/whisper.py::decoder_layer_step: f32 layernorm
 // statistics, softmax and accumulation; bf16 operands and activations;
@@ -35,7 +41,7 @@ namespace {
 
 constexpr int DH = 64;        // head dim
 constexpr int CS = 128;       // cross-attention keys per chunk
-constexpr int MAXT = 16;      // chunk rows
+constexpr int MAXT = 16;      // chunk rows per example
 constexpr int AT = 512;       // threads of the attention kernels
 constexpr int RG = AT / DH;   // row groups in the PV loops (rows g, g + RG)
 
@@ -303,11 +309,11 @@ inline void ln_rows(const bf16* x, bf16* y, const bf16* s, const bf16* b, int m,
 
 // Pointer table of wm_megastep_step (ops/megastep.py builds the same list).
 enum MegastepPtr {
-  P_X = 0,        // (16, D) bf16 hidden: embedded chunk in, pre_norm out
-  P_XA,           // (16, D) bf16 scratch: layernorm output
-  P_Q, P_K, P_V,  // (16, D) bf16 scratch: projections
-  P_ATTN,         // (16, D) bf16 scratch: attention output
-  P_H,            // (16, F) bf16 scratch: fc1 output
+  P_X = 0,        // (M16, D) bf16 hidden: embedded chunk in, pre_norm out
+  P_XA,           // (M16, D) bf16 scratch: layernorm output
+  P_Q, P_K, P_V,  // (M16, D) bf16 scratch: projections
+  P_ATTN,         // (M16, D) bf16 scratch: attention output
+  P_H,            // (M16, F) bf16 scratch: fc1 output
   P_PART,         // f32 scratch: cross partials (B*H*T*nch*(64 + 2))
   P_SELF_K, P_SELF_V,    // (L, B, S, D) bf16 slabs, updated in place
   P_CROSS_K,             // (L, B, H, 64, Se) bf16
@@ -317,17 +323,21 @@ enum MegastepPtr {
   P_SELF_LN_S, P_SELF_LN_B, P_Q_W, P_Q_B, P_K_W, P_V_W, P_V_B, P_O_W, P_O_B,
   P_CROSS_LN_S, P_CROSS_LN_B, P_CQ_W, P_CQ_B, P_CO_W, P_CO_B,
   P_FFN_LN_S, P_FFN_LN_B, P_FC1_W, P_FC1_B, P_FC2_W, P_FC2_B,
+  P_LN_POST_S, P_LN_POST_B,   // (D,) bf16 final layer norm
+  P_HIDDEN,                   // (M, D) bf16 out: ln_post(pre_norm)
   P_COUNT
 };
 
 // ints: L, B, T, D, H, F, S (self slab rows), Se (cross rows), cross_len.
+// M16 = ceil(B * T / 16) * 16 rows are allocated in every row buffer.
 extern "C" int wm_megastep_step(void** p, const int* ints, void* stream) {
   using namespace wm;
   const int L = ints[0], B = ints[1], T = ints[2], D = ints[3], H = ints[4];
   const int F = ints[5], S = ints[6], SE = ints[7], cross_len = ints[8];
   const int M = B * T;
   cudaStream_t st = (cudaStream_t)stream;
-  if (M > MAXT || D != H * DH || D % 256 || F % 256 || SE % 4)
+  if (T > MAXT || B > 8 || M > SK_MAX_ROWS || D != H * DH || D % 256 || F % 256 ||
+      SE % 4)
     return (int)cudaErrorInvalidValue;
   const int nch = (cross_len + CS - 1) / CS;
   const size_t self_smem =
@@ -385,5 +395,6 @@ extern "C" int wm_megastep_step(void** p, const int* ints, void* stream) {
     f2.j[0] = job(P(P_FC2_W) + l * DF, P(P_FC2_B) + lD, x, EPI_BIAS_RESID, x);
     skinny_gemm(hb, F, M, F, D, D, D, f2, 1, 1, 0, 0, 0, st);
   }
+  ln_rows(x, P(P_HIDDEN), P(P_LN_POST_S), P(P_LN_POST_B), M, D, st);
   return (int)cudaGetLastError();
 }

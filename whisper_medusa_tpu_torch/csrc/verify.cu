@@ -1,4 +1,5 @@
-// K4 — fused verification with in-kernel row construction (verify_hidden).
+// K4 — fused verification with in-kernel row construction (verify_hidden),
+// and K5 — fused verification of prebuilt rows (verify_rows).
 //
 // Replaces whisper_medusa_tpu/ops/verify.py::_kernel_hidden (TPU, launched
 // by verify_hidden).  The TPU kernel builds the (R, D) rows in VMEM at grid
@@ -24,6 +25,23 @@
 // The logits never exist in device memory.  Bound on H100: stage B's 16
 // GFLOP of bf16 products at R = 121 (tensor cores) plus the 133 MB
 // embedding stream; stage A streams the 11 heads (36 MB).
+//
+// K5 replaces whisper_medusa_tpu/ops/verify.py::_kernel (TPU, launched by
+// verify_rows): the same vocab stream and row statistics over R <= 1024 rows
+// that the caller built — the B vanilla rows hidden[None], or the B*N head-0
+// verification rows of the two-pass loop at batch.  It is stages B and C
+// above with a second grid dimension over 128-row blocks (vocab_tile holds
+// 128 rows): grid (ceil(V / 64), ceil(R / 128)), partial statistics
+// (3, R, ntiles).  Bound on H100: the 133 MB embedding stream (40 us at
+// 3.35 TB/s) up to R ~ 250 rows, then the 2 * R * V * D products (R = 1024:
+// 136 GFLOP, 0.14 ms at 989 TFLOP/s; counted from the shapes).  Each
+// 128-row block re-reads the embedding tile, from L2 when the blocks of one
+// tile run together; a row's arithmetic does not depend on R.
+//
+// wm_head_rows is stage A alone: rows[k * M + m] = src[m] +
+// bf16(SiLU(src[m] @ W_k + b_k)) for M <= 128 source rows, the same skinny
+// GEMM and epilogue as K4's stage A, so a head row has the same bits whether
+// K4 builds it or the two-pass loop does.
 #include "common.cuh"
 
 namespace wm {
@@ -39,12 +57,14 @@ verify_tile_kernel(const bf16* __restrict__ rows, int n_rows, const bf16* __rest
   extern __shared__ __align__(128) char smem[];
   const float* cs = reinterpret_cast<const float*>(smem + VRB * VLDS * 2 + VT * VLDS * 2);
   const int v0 = blockIdx.x * VT;
-  vocab_tile(rows, n_rows, 0, e, v_dim, d_dim, v0, smem);
+  const int row0 = blockIdx.y * VRB;
+  vocab_tile(rows, n_rows, row0, e, v_dim, d_dim, v0, smem);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t ntile_rows = (size_t)gridDim.x * n_rows;
   for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr;
+    const int rl = warp * 16 + rr;
+    const int r = row0 + rl;
     if (r >= n_rows) break;
     const int p = pos[r];
     const int gc = gcol[r];
@@ -54,7 +74,7 @@ verify_tile_kernel(const bf16* __restrict__ rows, int n_rows, const bf16* __rest
     for (int hh = 0; hh < 2; ++hh) {
       const int c = lane + 32 * hh;
       col[hh] = v0 + c;
-      float val = cs[r * VLDC + c];
+      float val = cs[rl * VLDC + c];
       if (col[hh] >= v_dim) {
         val = NEG_VERIFY;
       } else {
@@ -131,6 +151,24 @@ verify_combine_kernel(const float* __restrict__ part_f, const int* __restrict__ 
   }
 }
 
+// Stages B and C over rows (n_rows, D): every 128-row block of every vocab
+// tile, then the per-row combine.
+inline void score_rows(const bf16* rows, int n_rows, const bf16* e, int v_dim,
+                       int d_dim, const int* pos, const int* gcol, const int8_t* sup,
+                       int begin_index, int eos_id, int has_decay, int decay_start,
+                       float log_factor, float* part_f, int* part_a, float* o_max,
+                       float* o_lse, int* o_arg, float* o_gth, cudaStream_t st) {
+  // Per launch: the attribute belongs to the current device's context.
+  cudaFuncSetAttribute(verify_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       VOCAB_SMEM);
+  const int ntiles = (v_dim + VT - 1) / VT;
+  verify_tile_kernel<<<dim3(ntiles, (n_rows + VRB - 1) / VRB), VTHREADS, VOCAB_SMEM, st>>>(
+      rows, n_rows, e, v_dim, d_dim, pos, gcol, sup, begin_index, eos_id, has_decay,
+      decay_start, log_factor, part_f, part_a);
+  verify_combine_kernel<<<(n_rows + 7) / 8, 256, 0, st>>>(
+      part_f, part_a, ntiles, n_rows, o_max, o_lse, o_arg, o_gth);
+}
+
 }  // namespace
 }  // namespace wm
 
@@ -162,9 +200,6 @@ extern "C" int wm_verify_hidden(void** p, const int* ints, float log_factor,
   const int R = (NH + id0) * BN;
   cudaStream_t st = (cudaStream_t)stream;
   if (BN > 16 || R > VRB || D % 256) return (int)cudaErrorInvalidValue;
-  // Per launch: the attribute belongs to the current device's context.
-  cudaFuncSetAttribute(verify_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       VOCAB_SMEM);
   bf16* rows = static_cast<bf16*>(p[V_ROWS]);
   // (A) row construction.
   if (id0)
@@ -177,19 +212,59 @@ extern "C" int wm_verify_hidden(void** p, const int* ints, float log_factor,
                    rows + (size_t)id0 * BN * D, EPI_SILU_RESID, src);
   skinny_gemm(src, D, BN, D, D, D, D, heads, 1, NH, (long long)D * D, D,
               (long long)BN * D, st);
-  // (B) vocab tiles.
-  const int ntiles = (V + VT - 1) / VT;
-  float* part_f = static_cast<float*>(p[V_PART_F]);
-  int* part_a = static_cast<int*>(p[V_PART_A]);
-  verify_tile_kernel<<<ntiles, VTHREADS, VOCAB_SMEM, st>>>(
-      rows, R, static_cast<const bf16*>(p[V_EMBED]), V, D,
-      static_cast<const int*>(p[V_POS]), static_cast<const int*>(p[V_GCOL]),
-      static_cast<const int8_t*>(p[V_SUP]), begin_index, eos_id, has_decay,
-      decay_start, log_factor, part_f, part_a);
-  // (C) combine.
-  verify_combine_kernel<<<(R + 7) / 8, 256, 0, st>>>(
-      part_f, part_a, ntiles, R, static_cast<float*>(p[V_MAX]),
-      static_cast<float*>(p[V_LSE]), static_cast<int*>(p[V_ARG]),
-      static_cast<float*>(p[V_GTH]));
+  // (B) vocab tiles, (C) combine.
+  score_rows(rows, R, static_cast<const bf16*>(p[V_EMBED]), V, D,
+             static_cast<const int*>(p[V_POS]), static_cast<const int*>(p[V_GCOL]),
+             static_cast<const int8_t*>(p[V_SUP]), begin_index, eos_id, has_decay,
+             decay_start, log_factor, static_cast<float*>(p[V_PART_F]),
+             static_cast<int*>(p[V_PART_A]), static_cast<float*>(p[V_MAX]),
+             static_cast<float*>(p[V_LSE]), static_cast<int*>(p[V_ARG]),
+             static_cast<float*>(p[V_GTH]), st);
+  return (int)cudaGetLastError();
+}
+
+// Pointer table of wm_verify_rows (ops/verify.py builds the same list).
+enum VerifyRowsPtr {
+  VR_ROWS = 0,   // (R, D) bf16 rows to score
+  VR_EMBED,      // (V, D) bf16
+  VR_POS,        // (R,) int32
+  VR_GCOL,       // (R,) int32
+  VR_SUP,        // (2, V) int8 [suppress; begin-suppress]
+  VR_PART_F,     // (3, R, ntiles) f32 scratch
+  VR_PART_A,     // (R, ntiles) int32 scratch
+  VR_MAX, VR_LSE, VR_ARG, VR_GTH,   // (R,) outputs
+  VR_COUNT
+};
+
+constexpr int VR_MAX_ROWS = 1024;   // the JAX kernel's _MAX_R
+
+// ints: R, D, V, begin_index, eos_id, has_decay, decay_start.
+extern "C" int wm_verify_rows(void** p, const int* ints, float log_factor,
+                              void* stream) {
+  using namespace wm;
+  const int R = ints[0], D = ints[1], V = ints[2], begin_index = ints[3];
+  const int eos_id = ints[4], has_decay = ints[5], decay_start = ints[6];
+  if (R < 1 || R > VR_MAX_ROWS || D % VKC) return (int)cudaErrorInvalidValue;
+  score_rows(static_cast<const bf16*>(p[VR_ROWS]), R, static_cast<const bf16*>(p[VR_EMBED]),
+             V, D, static_cast<const int*>(p[VR_POS]), static_cast<const int*>(p[VR_GCOL]),
+             static_cast<const int8_t*>(p[VR_SUP]), begin_index, eos_id, has_decay,
+             decay_start, log_factor, static_cast<float*>(p[VR_PART_F]),
+             static_cast<int*>(p[VR_PART_A]), static_cast<float*>(p[VR_MAX]),
+             static_cast<float*>(p[VR_LSE]), static_cast<int*>(p[VR_ARG]),
+             static_cast<float*>(p[VR_GTH]), (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// out (NH, M, D) = src + bf16(SiLU(src @ W_k + b_k)) for each head k; src has
+// ceil(M / 16) * 16 rows allocated, w (NH, D, D), b (NH, D), all bf16.
+extern "C" int wm_head_rows(const void* src, const void* w, const void* b, void* out,
+                            int m, int d, int nh, void* stream) {
+  using namespace wm;
+  if (m < 1 || m > SK_MAX_ROWS || d % 256 || nh < 1) return (int)cudaErrorInvalidValue;
+  SkinnyJobs heads;
+  heads.j[0] = job(static_cast<const bf16*>(w), static_cast<const bf16*>(b),
+                   static_cast<bf16*>(out), EPI_SILU_RESID, static_cast<const bf16*>(src));
+  skinny_gemm(static_cast<const bf16*>(src), d, m, d, d, d, d, heads, 1, nh,
+              (long long)d * d, d, (long long)m * d, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

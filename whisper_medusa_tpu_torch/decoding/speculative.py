@@ -1,15 +1,25 @@
 """Speculative (Medusa) greedy decoding — counterpart of
 whisper_medusa_tpu/decoding/speculative.py.
 
-Ported: the chain + greedy ``base_head`` path of ``speculative_generate`` —
-one decoder forward per iteration over the (heads + 1)-node chain, fused
-verification (kernel K4 on CUDA tensors) that yields the greedy tokens, the
-accepted drafts' log-probs and the next drafts in one embedding stream,
+Ported: the chain + greedy path of ``speculative_generate`` at B <= 8 for the
+``base_head`` and ``vanilla`` variants — one decoder forward per iteration
+over the (heads + 1)-node chain (one node for vanilla), fused verification,
 longest-prefix acceptance, the window commit, the finish rule and the EOS
-backfill.  State lives in device tensors; the loop reads ``finished`` on the
-host once per iteration.  Branching trees, sampling, typical acceptance,
-timestamp rules, the medusa_block variant and vanilla decoding are not ported
-yet (they raise NotImplementedError).
+backfill.  Verification follows the JAX package's ``auto`` rule:
+
+  * base_head, B = 1: one pass of kernel K4 (``verify_hidden``) scores every
+    (head, node) row, so the greedy tokens, the accepted drafts' log-probs
+    and the next drafts come out of one embedding stream;
+  * base_head, B >= 2 (two-pass): pass A scores only the B*N head-0 rows
+    through K5 (``verify_rows``); pass B runs the draft heads at the accepted
+    node's hidden state and projects them through K3, as prefill does;
+  * vanilla: no draft heads, the B hidden rows through K5, one token per
+    iteration.
+
+State lives in device tensors; the loop reads ``finished`` on the host once
+per iteration.  Branching trees, sampling, typical acceptance, timestamp
+rules and the medusa_block variant are not ported yet (they raise
+NotImplementedError).
 """
 
 from __future__ import annotations
@@ -19,8 +29,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from whisper_medusa_tpu.config import GenerationConfig, WhisperDims
-from whisper_medusa_tpu.decoding.buffers import MedusaBuffers
+from whisper_medusa_tpu_torch.config import GenerationConfig, WhisperDims
+from whisper_medusa_tpu_torch.decoding.buffers import MedusaBuffers
 from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig, apply_processors
 from whisper_medusa_tpu_torch.models import medusa as medusa_mod
 from whisper_medusa_tpu_torch.models import whisper
@@ -29,6 +39,7 @@ from whisper_medusa_tpu_torch.ops import verify as verify_mod
 Params = Dict[str, Any]
 
 CORRUPTION_SEED = 0x5EED
+MAX_BATCH = 8
 
 
 @dataclasses.dataclass
@@ -46,8 +57,11 @@ def _head_slice(medusa_params: Params, lo: int, hi: Optional[int]) -> Params:
     return {"heads": {"w": h["w"][lo:hi], "b": h["b"][lo:hi]}}
 
 
-def _base_logits_fn(params: Params, medusa_params: Params):
-    """base_head: logits = proj(head0(hidden)) — head 0 is the base head."""
+def _base_logits_fn(params: Params, medusa_params: Optional[Params]):
+    """base_head: logits = proj(head0(hidden)) — head 0 is the base head.
+    vanilla (no Medusa params): logits = proj(hidden)."""
+    if medusa_params is None:
+        return lambda hidden: whisper.project_logits(params, hidden)
     head0 = _head_slice(medusa_params, 0, 1)
 
     def fn(hidden):
@@ -74,51 +88,69 @@ def _corrupt(drafts, draft_corruption, gen_rng, vocab_size):
     return torch.where(u < draft_corruption, (drafts + 1) % vocab_size, drafts)
 
 
-def speculative_generate(params: Params, medusa_params: Params, dims: WhisperDims,
-                         buffers: MedusaBuffers, pcfg: ProcessorConfig,
+def speculative_generate(params: Params, medusa_params: Optional[Params],
+                         dims: WhisperDims, buffers: MedusaBuffers, pcfg: ProcessorConfig,
                          gen: GenerationConfig, enc_out: torch.Tensor,
                          prompt: torch.Tensor, variant: str = "base_head",
                          draft_corruption: Optional[float] = None) -> SpecResult:
-    if variant != "base_head" or medusa_params is None:
+    if variant not in ("base_head", "vanilla"):
         raise NotImplementedError(
-            f"variant {variant!r}: only base_head is ported (ROADMAP queue 1: "
-            "vanilla, medusa_block)")
+            f"variant {variant!r}: only base_head and vanilla are ported "
+            "(ROADMAP queue 1, item 9: medusa_block)")
+    vanilla = variant == "vanilla" or medusa_params is None
     if not buffers.is_chain:
         raise NotImplementedError("branching medusa_choices trees are not ported "
                                   "yet (ROADMAP queue 1: remaining decode modes)")
     if gen.temperature != 0.0:
         raise NotImplementedError("sampling is not ported yet (ROADMAP queue 1: "
                                   "remaining decode modes)")
-    hw = medusa_params["heads"]["w"]
-    if hw.shape[1] != 1 or hw.shape[0] < 2:
-        raise NotImplementedError("fused verification takes single-layer heads "
-                                  "and at least one draft head")
     dev = enc_out.device
     b, t0 = prompt.shape
+    if b > MAX_BATCH:
+        raise NotImplementedError(f"batch size {b} is not ported yet "
+                                  "(ROADMAP queue 1: batching, B > 8)")
     eos, pad, max_length = gen.eos_token_id, gen.pad_token_id, gen.max_length
     num_heads = buffers.num_levels - 1
     n_nodes = buffers.num_nodes
     lv = buffers.num_levels
-    kp1 = num_heads + 1
     vocab = dims.vocab_size
     embed = params["decoder"]["embed_tokens"]
+    if vanilla:
+        if num_heads:
+            raise ValueError("vanilla decoding has no draft heads: medusa_choices (1,)")
+        medusa_params = None
+    else:
+        hw = medusa_params["heads"]["w"]
+        if hw.shape[1] != 1 or hw.shape[0] != num_heads + 1 or num_heads < 1:
+            raise NotImplementedError(
+                "fused verification takes single-layer heads, at least one draft "
+                "head and a chain over every head")
+        heads_w = hw[:, 0]
+        heads_b = medusa_params["heads"]["b"][:, 0]
+        draft_params = _head_slice(medusa_params, 1, None)
+    # The JAX package's auto rule: two passes at B >= 2, one K4 pass at B = 1.
+    two_pass = not vanilla and b >= 2
+    kp1 = 1 if vanilla or two_pass else num_heads + 1
 
     tree_idx = torch.as_tensor(buffers.tree_indices, dtype=torch.long, device=dev)
     pos_ids = torch.as_tensor(buffers.position_ids, dtype=torch.int32, device=dev)
     retrieve = torch.as_tensor(buffers.retrieve_indices, dtype=torch.long, device=dev)
-    draft_params = _head_slice(medusa_params, 1, None)
-    heads_w = hw[:, 0]
-    heads_b = medusa_params["heads"]["b"][:, 0]
     sup_masks = verify_mod.masks_for(pcfg, dev)
+    vkw = dict(begin_index=pcfg.begin_index, eos_id=pcfg.eos_token_id,
+               decay=pcfg.exponential_decay_length_penalty)
     gen_rng = torch.Generator(device=dev)
     gen_rng.manual_seed(CORRUPTION_SEED)
     arange_lv = torch.arange(lv, device=dev)[None, :]
     kp1_rows = torch.arange(kp1, dtype=torch.int32, device=dev)[:, None, None]
+    batch_rows = torch.arange(b, device=dev)
 
     buf_len = max_length + lv + 1
     cache_len = max_length + n_nodes + 1
 
     def drafts_to_chunk(root, hidden_acc, new_len):
+        """Next chunk from the draft heads at one position's hidden state."""
+        if vanilla:
+            return root[:, None]
         head_out = medusa_mod.apply_heads(draft_params, hidden_acc)   # (K, B, D)
         head_logits = whisper.project_logits(params, head_out).transpose(0, 1)
         draft_pos = new_len[:, None] + torch.arange(num_heads, device=dev)[None, :]
@@ -161,20 +193,27 @@ def speculative_generate(params: Params, medusa_params: Params, dims: WhisperDim
         gcol_rows = torch.cat([
             gcol_nodes.reshape(-1),
             torch.zeros(((kp1 - 1) * b * n_nodes,), dtype=torch.int32, device=dev)])
-        am, mx, lse, gth = verify_mod.verify_hidden(
-            hidden, hidden, heads_w, heads_b, embed, pos_rows,
-            gcol_rows, sup_masks, identity0=False,
-            begin_index=pcfg.begin_index, eos_id=pcfg.eos_token_id,
-            decay=pcfg.exponential_decay_length_penalty)
-        am = am.reshape(kp1, b, n_nodes)
-        mx, lse, gth = (a.reshape(kp1, b, n_nodes) for a in (mx, lse, gth))
+        flat = hidden.reshape(b * n_nodes, -1)
+        if vanilla:
+            am, mx, lse, gth = verify_mod.verify_rows(
+                flat, embed, pos_rows, gcol_rows, sup_masks, **vkw)
+        elif two_pass:
+            # Pass A: the head-0 verification rows only, built by the same
+            # skinny GEMM as K4's stage A.
+            rows = verify_mod.head_rows(flat, heads_w[:1], heads_b[:1])[0]
+            am, mx, lse, gth = verify_mod.verify_rows(
+                rows, embed, pos_rows, gcol_rows, sup_masks, **vkw)
+        else:
+            am, mx, lse, gth = verify_mod.verify_hidden(
+                hidden, hidden, heads_w, heads_b, embed, pos_rows, gcol_rows,
+                sup_masks, identity0=False, **vkw)
+        am, mx, lse, gth = (a.reshape(kp1, b, n_nodes) for a in (am, mx, lse, gth))
 
         best, accept, ptok, pnxt = _greedy_accept(chunk, am[0], retrieve)
-        rows = torch.arange(b, device=dev)
-        best_tok = ptok[rows, best]                                   # (B, Lv)
-        best_nxt = pnxt[rows, best]
+        best_tok = ptok[batch_rows, best]                             # (B, Lv)
+        best_nxt = pnxt[batch_rows, best]
         acc_col = accept[:, None].long()
-        bonus = best_nxt.gather(1, acc_col)[:, 0]
+        bonus = best_nxt.gather(1, acc_col)[:, 0].to(torch.int32)
 
         shifted = torch.cat([best_tok[:, 1:], torch.zeros_like(best_tok[:, :1])], dim=1)
         window = torch.where(arange_lv < acc_col, shifted,
@@ -196,11 +235,18 @@ def speculative_generate(params: Params, medusa_params: Params, dims: WhisperDim
         eos_hit = ((window == eos) & (arange_lv <= acc_col)).any(-1)
         accepted = accepted + torch.where(finished, torch.zeros_like(accept), accept)
 
-        # Next drafts: the accepted node's head rows, already scored by K4.
-        drafts = am[1:].permute(1, 0, 2).gather(
-            2, acc_col[:, None, :].expand(b, num_heads, 1))[:, :, 0]
-        drafts = _corrupt(drafts, draft_corruption, gen_rng, vocab)
-        chunk = torch.cat([bonus[:, None].to(torch.int32), drafts], dim=1)[:, tree_idx]
+        if vanilla:
+            chunk = bonus[:, None]
+        elif two_pass:
+            # Pass B: the draft heads at the accepted node's hidden state
+            # (chain: the accepted node is node `accept`), as in prefill.
+            chunk = drafts_to_chunk(bonus, hidden[batch_rows, accept.long()], new_len)
+        else:
+            # The accepted node's head rows, already scored by K4.
+            drafts = am[1:].permute(1, 0, 2).gather(
+                2, acc_col[:, None, :].expand(b, num_heads, 1))[:, :, 0]
+            drafts = _corrupt(drafts, draft_corruption, gen_rng, vocab)
+            chunk = torch.cat([bonus[:, None], drafts], dim=1)[:, tree_idx]
 
         finished = finished | eos_hit | (new_len + num_heads >= max_length)
         cur_len = new_len

@@ -1,0 +1,207 @@
+"""Where the device time goes, on one CUDA card.
+
+    python -m whisper_medusa_tpu_torch.device_profile
+
+Three parts, all at full whisper-large-v2 width with bf16 weights drawn from a
+seed:
+
+  1. one K2 call (all 32 decoder layers) at (B, T) in (1, 11), (8, 1) and
+     (8, 11): device time per call by kernel (torch.profiler), beside the
+     CUDA-event time of the call;
+  2. one verification step at B=8 on the 11-node chain: the loop's two
+     passes (K5 over the head-0 rows, then the draft heads through K3)
+     against one pass of every (head, node) row through K5 (R = 968);
+  3. whole requests of ``max_new_tokens=128`` from seeded random features:
+     Medusa and vanilla (``disable_medusa=True``) at B=1 and B=8.  For each,
+     the wall time without the profiler, then the device time by kernel
+     under it, and the device's idle share: 1 - (device time) / (wall time
+     without the profiler).
+
+Kernels are listed by name without their template arguments, so PyTorch's
+elementwise kernels of one kind share a line.  The Medusa heads are drawn as
+``chip_smoke.py`` draws them.
+"""
+
+from __future__ import annotations
+
+import collections
+import re
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+SEED = 0
+MAX_NEW_TOKENS = 128
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its argument list and template arguments (the
+    port's kernels keep their row-tile count, e.g. skinny_gemm_kernel<6>)."""
+    m = re.search(r"wm::\(anonymous namespace\)::(\w+(?:<\d+>)?)\(", name)
+    if m:
+        return m.group(1)
+    if "Memcpy" in name or "Memset" in name:
+        return "memcpy / memset"
+    return re.split(r"[<(]", name.removeprefix("void "), maxsplit=1)[0][:70]
+
+
+def _by_kernel(fn, reps: int = 1):
+    """Run ``fn`` ``reps`` times under torch.profiler (CUDA activity only);
+    {kernel: (us per run, launches per run)}."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    acc = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.key_averages():
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = e.self_cuda_time_total
+        if dt > 0:
+            k = acc[_short(e.key)]
+            k[0] += dt / reps
+            k[1] += e.count / reps
+    return dict(acc)
+
+
+def _table(title, rows, extra=""):
+    total = sum(us for us, _ in rows.values())
+    print(f"=== {title}: device time by kernel{extra}")
+    for name, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:16]:
+        print(f"  {us:11.1f} us  {n:8.1f} launches  {100 * us / total:5.1f} %  {name}")
+    print(f"  total {total:.1f} us of device time")
+    return total
+
+
+def _cuda_ms(fn, warmup=3, iters=20):
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def profile_megastep(model):
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import megastep as MS
+
+    p, dims = model.params["whisper"], model.config.dims
+    dec = p["decoder"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    for b, t in ((1, 11), (8, 1), (8, 11)):
+        enc = torch.randn((b, dims.max_source_positions, dims.d_model), generator=g,
+                          device="cuda").to(torch.bfloat16)
+        cache = whisper.init_cache(p, dims, enc, dims.max_target_positions + 12)
+        offsets = torch.full((b,), 20, dtype=torch.int32, device="cuda")
+        x = torch.randn((b, t, dims.d_model), generator=g, device="cuda").to(torch.bfloat16)
+        run = lambda: MS.megastep_kernel(dec["layers"], dec["ln_post"], x, cache.self_k,
+                                         cache.self_v, cache.cross_k, cache.cross_v,
+                                         offsets, None, dims.max_source_positions,
+                                         dims.decoder_attention_heads)
+        ms = _cuda_ms(run)
+        _table(f"K2, {dims.decoder_layers} layers, B={b} T={t}, per call", _by_kernel(run, 5),
+               f" (CUDA events: {ms:.4f} ms per call)")
+        del cache
+
+
+def profile_verify_passes(model, b=8):
+    """One verification step at B=8 on the default 11-node chain, two ways,
+    CUDA-event ms and device time by kernel: the two passes the loop runs at
+    B >= 2 (head-0 rows through K5 at R = B*N, then the draft heads at the
+    accepted node through K3 and the processors), against one pass that
+    scores every (head, node) row through K5 at R = (K+1)*B*N."""
+    from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig, apply_processors
+    from whisper_medusa_tpu_torch.models import medusa, whisper
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    p, dims, gd = model.params["whisper"], model.config.dims, model.generation_config
+    heads = model.params["medusa"]["heads"]
+    hw, hb = heads["w"][:, 0], heads["b"][:, 0]
+    drafts = {"heads": {"w": heads["w"][1:], "b": heads["b"][1:]}}
+    kp1, d = hw.shape[0], dims.d_model
+    n = kp1                # the default chain: one node per head
+    embed = p["decoder"]["embed_tokens"]
+    pcfg = ProcessorConfig(vocab_size=dims.vocab_size, suppress_tokens=gd.suppress_tokens,
+                           begin_suppress_tokens=gd.begin_suppress_tokens, begin_index=4,
+                           eos_token_id=model.special.eos)
+    masks = VF.masks_for(pcfg, "cuda")
+    kw = dict(begin_index=4, eos_id=model.special.eos, decay=None)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    flat = torch.randn((b * n, d), generator=g, device="cuda").to(torch.bfloat16)
+    pos = 20 + torch.arange(kp1 * b * n, device="cuda", dtype=torch.int32) % 32
+    gcol = torch.zeros_like(pos)
+    accepted = flat.reshape(b, n, d)[:, 0]
+
+    def two_pass():
+        rows = VF.head_rows(flat, hw[:1], hb[:1])[0]
+        VF.verify_rows(rows, embed, pos[:b * n], gcol[:b * n], masks, **kw)
+        lg = whisper.project_logits(p, medusa.apply_heads(drafts, accepted))
+        apply_processors(lg.transpose(0, 1), pos[:b * (kp1 - 1)].reshape(b, kp1 - 1),
+                         pcfg).argmax(-1)
+
+    def one_pass():
+        rows = VF.head_rows(flat, hw, hb).reshape(-1, d)
+        VF.verify_rows(rows, embed, pos, gcol, masks, **kw)
+
+    for name, fn in (("two passes", two_pass), ("one pass", one_pass)):
+        _table(f"verification, B={b}, {n} nodes, {name}", _by_kernel(fn, 5),
+               f" (CUDA events: {_cuda_ms(fn):.4f} ms per step)")
+
+
+def profile_requests(model):
+    rng = np.random.default_rng(SEED)
+    dims = model.config.dims
+    for b in (1, 8):
+        feats = torch.from_numpy(rng.standard_normal(
+            (b, dims.num_mel_bins, dims.num_frames)).astype(np.float32)).cuda()
+        for name, kw in (("medusa", {}), ("vanilla", dict(disable_medusa=True))):
+            run = lambda: model.generate(feats, language="en",
+                                         max_new_tokens=MAX_NEW_TOKENS, **kw)
+            run()                                             # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            rows = _by_kernel(run)
+            n_gen = int((out.lengths - 4).sum())
+            total = _table(
+                f"request ({name}, B={b}, {n_gen} generated tokens, {out.steps} steps, "
+                f"mean_accept_length {out.mean_accept_length:.3f})", rows,
+                f" (wall without the profiler {wall_ms:.1f} ms)")
+            print(f"  device idle share {1 - total / 1e3 / wall_ms:.3f}")
+
+
+def main():
+    from whisper_medusa_tpu_torch.config import WHISPER_PRESETS, MedusaConfig, ModelConfig
+    from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+
+    if not torch.cuda.is_available():
+        raise SystemExit("device_profile needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"gpu: {smi.stdout.strip()}; torch {torch.__version__}")
+    cfg = ModelConfig(dims=WHISPER_PRESETS["large-v2"], medusa=MedusaConfig(),
+                      param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = WhisperMedusaModel.from_random(cfg, seed=SEED)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 1)
+    model.params["medusa"]["heads"]["w"].normal_(0.0, 0.02, generator=g)
+    profile_megastep(model)
+    profile_verify_passes(model)
+    profile_requests(model)
+
+
+if __name__ == "__main__":
+    main()

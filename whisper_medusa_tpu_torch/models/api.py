@@ -2,10 +2,13 @@
 
 ``WhisperMedusaModel`` with ``from_random``, ``from_pretrained``, ``encode``,
 ``detect_language`` and ``generate`` for the shortform, single-temperature,
-greedy ``base_head`` path at batch 1: ``language`` given or detected,
-``max_length`` / ``max_new_tokens``, the suppress lists, the exponential
-decay length penalty and the no-speech probability.  Every other option of
-the JAX ``generate`` raises NotImplementedError naming its ROADMAP item.
+greedy ``base_head`` path and vanilla decoding (``disable_medusa=True``) at
+1 <= B <= 8: ``language`` given (one code, or one per example) or detected
+per example, ``max_length`` / ``max_new_tokens``, the suppress lists, the
+exponential decay length penalty and the no-speech probability.  Every other
+option of the JAX ``generate`` raises NotImplementedError naming its ROADMAP
+item.  Everything runs on the card unless the model was made with
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -16,12 +19,12 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from whisper_medusa_tpu.config import (GenerationConfig, ModelConfig, SpecialTokens,
+from whisper_medusa_tpu_torch.config import (GenerationConfig, ModelConfig, SpecialTokens,
                                        default_begin_suppress_tokens,
                                        default_suppress_tokens, language_token_id)
-from whisper_medusa_tpu.decoding.buffers import generate_medusa_buffers
+from whisper_medusa_tpu_torch.decoding.buffers import generate_medusa_buffers
 from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig
-from whisper_medusa_tpu_torch.decoding.speculative import speculative_generate
+from whisper_medusa_tpu_torch.decoding.speculative import MAX_BATCH, speculative_generate
 from whisper_medusa_tpu_torch.models import bridge, whisper
 
 
@@ -45,7 +48,6 @@ _TIMESTAMPS = "timestamps + longform"
 _UNPORTED = {
     "num_beams": (1, "beam search"),
     "length_penalty": (1.0, "beam search"),
-    "disable_medusa": (False, "vanilla decoding"),
     "temperature": (0.0, "remaining decode modes"),
     "seed": (0, "remaining decode modes"),
     "compression_ratio_threshold": (None, "remaining decode modes"),
@@ -75,7 +77,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class WhisperMedusaModel:
-    def __init__(self, config: ModelConfig, params, device="cpu",
+    def __init__(self, config: ModelConfig, params, device="cuda",
                  generation_config: Optional[GenerationConfig] = None,
                  special_tokens: Optional[SpecialTokens] = None):
         self.config = config
@@ -93,7 +95,7 @@ class WhisperMedusaModel:
 
     # ------------------------------------------------------------------ loading
     @classmethod
-    def from_random(cls, config: ModelConfig, seed: int = 0, device="cpu",
+    def from_random(cls, config: ModelConfig, seed: int = 0, device="cuda",
                     dtype=None) -> "WhisperMedusaModel":
         """Random Whisper + identity-init Medusa heads, drawn on ``device``."""
         if dtype is not None:
@@ -102,7 +104,7 @@ class WhisperMedusaModel:
         return cls(config, params, device=device)
 
     @classmethod
-    def from_pretrained(cls, path: str, device="cpu", dtype=None) -> "WhisperMedusaModel":
+    def from_pretrained(cls, path: str, device="cuda", dtype=None) -> "WhisperMedusaModel":
         """Load a framework checkpoint directory (config.json + params.safetensors)."""
         config, params = bridge.load_checkpoint(path, device=device, dtype=dtype)
         gen_cfg, special = bridge.generation_metadata(path, config)
@@ -139,6 +141,7 @@ class WhisperMedusaModel:
         max_new_tokens: Optional[int] = None,
         medusa_choices: Optional[Sequence[int]] = None,
         exponential_decay_length_penalty: Optional[Tuple[int, float]] = None,
+        disable_medusa: bool = False,
         suppress_tokens: Optional[Sequence[int]] = "default",
         begin_suppress_tokens: Optional[Sequence[int]] = "default",
         logprob_threshold: Optional[float] = None,
@@ -146,9 +149,11 @@ class WhisperMedusaModel:
         draft_corruption: Optional[float] = None,
         **options,
     ) -> GenerateOutput:
-        """Transcribe one 30 s mel segment (1, n_mels, <= 3000).
+        """Transcribe a batch of up to 8 mel segments (B, n_mels, <= 3000).
 
-        With one temperature ``logprob_threshold`` only gates no-speech
+        ``disable_medusa=True`` decodes vanilla: one token per decoder
+        forward, verification logits straight from the hidden state.  With
+        one temperature ``logprob_threshold`` only gates no-speech
         blanking, as in the JAX package.  ``draft_corruption`` replaces each draft token
         with probability p (a benchmarking knob: the emitted tokens do not
         change, only the accept counts)."""
@@ -160,7 +165,7 @@ class WhisperMedusaModel:
                                          and tuple(np.atleast_1d(value)) == (0.0,)):
                 raise _not_ported(f"generate({name}={value!r})", item)
         cfg = self.config
-        if cfg.medusa.medusa_heads_type != "base_head":
+        if cfg.medusa.medusa_heads_type != "base_head" and not disable_medusa:
             raise _not_ported("medusa_block", "medusa_block variant")
         feats = torch.as_tensor(input_features, dtype=torch.float32,
                                 device=self.device)
@@ -169,8 +174,8 @@ class WhisperMedusaModel:
         b, n_mels, n_frames = feats.shape
         if n_mels != cfg.dims.num_mel_bins:
             raise ValueError(f"expected {cfg.dims.num_mel_bins} mel bins, got {n_mels}")
-        if b != 1:
-            raise _not_ported(f"batch size {b}", "batching, B <= 8")
+        if b > MAX_BATCH:
+            raise _not_ported(f"batch size {b}", "batching, B > 8")
         if n_frames > cfg.dims.num_frames:
             raise _not_ported("longform (> 30 s) input", _TIMESTAMPS)
         if n_frames < cfg.dims.num_frames:
@@ -218,11 +223,16 @@ class WhisperMedusaModel:
                                eos_token_id=st.eos, pad_token_id=gd.pad_token_id,
                                decoder_start_token_id=st.sot, suppress_tokens=sup,
                                begin_suppress_tokens=bsup)
-        buffers = generate_medusa_buffers(tuple(medusa_choices or cfg.medusa.medusa_choices))
+        if disable_medusa:
+            choices, variant, medusa_params = (1,), "vanilla", None
+        else:
+            choices = tuple(medusa_choices or cfg.medusa.medusa_choices)
+            variant, medusa_params = "base_head", self.params["medusa"]
         result = speculative_generate(
-            self.params["whisper"], self.params["medusa"], cfg.dims, buffers, pcfg,
-            gen, enc_out, torch.as_tensor(prompt, device=self.device),
-            variant="base_head", draft_corruption=draft_corruption)
+            self.params["whisper"], medusa_params, cfg.dims,
+            generate_medusa_buffers(choices), pcfg, gen, enc_out,
+            torch.as_tensor(prompt, device=self.device), variant=variant,
+            draft_corruption=draft_corruption)
 
         tokens = result.tokens.cpu().numpy()
         lengths = result.lengths.cpu().numpy()

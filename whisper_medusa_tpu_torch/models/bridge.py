@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from whisper_medusa_tpu.config import ModelConfig
+from whisper_medusa_tpu_torch.config import ModelConfig
 from whisper_medusa_tpu_torch.models.whisper import sinusoidal_positions
 
 Params = Dict[str, Any]
@@ -49,7 +49,7 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def params_from_numpy(tree: Params, device="cpu", dtype=None) -> Params:
+def params_from_numpy(tree: Params, device="cuda", dtype=None) -> Params:
     """Nested dict of numpy arrays -> same tree of torch tensors."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype) if dtype is not None else None
@@ -67,7 +67,7 @@ def params_from_numpy(tree: Params, device="cpu", dtype=None) -> Params:
     return conv(tree)
 
 
-def from_random(config: ModelConfig, seed: int = 0, device="cpu",
+def from_random(config: ModelConfig, seed: int = 0, device="cuda",
                 dtype=None) -> Params:
     """Random Whisper + identity-init Medusa params on ``device``.
 
@@ -149,7 +149,7 @@ def _unflatten(flat: Dict[str, torch.Tensor]) -> Params:
     return tree
 
 
-def load_checkpoint(path: str, device="cpu", dtype=None) -> Tuple[ModelConfig, Params]:
+def load_checkpoint(path: str, device="cuda", dtype=None) -> Tuple[ModelConfig, Params]:
     """Read a framework checkpoint directory (config.json + params.safetensors)."""
     from safetensors.torch import load_file
 
@@ -173,7 +173,7 @@ def generation_metadata(path: str, config: ModelConfig) -> Tuple[Optional[Any], 
     """(GenerationConfig, SpecialTokens) from a checkpoint's
     ``generation_config.json`` in the framework's own save format, or
     (None, None) when absent."""
-    from whisper_medusa_tpu.config import GenerationConfig, SpecialTokens
+    from whisper_medusa_tpu_torch.config import GenerationConfig, SpecialTokens
 
     p = os.path.join(path, "generation_config.json")
     if not os.path.isfile(p):

@@ -16,15 +16,21 @@ Params = Dict[str, Any]
 
 
 def apply_heads(medusa_params: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: (..., D) -> (n_heads, ..., D), float32 accumulation per layer."""
+    """x: (..., D) -> (n_heads, ..., D), float32 accumulation per layer.
+
+    Each layer goes through ``ops/verify.py::head_rows``: on CUDA tensors the
+    skinny GEMM of kernel K4's stage A (so a head row has the same bits for
+    every batch size), on CPU tensors its plain version."""
+    from whisper_medusa_tpu_torch.ops import verify as verify_mod
+
     w = medusa_params["heads"]["w"]
     b = medusa_params["heads"]["b"]
     n_heads, n_layers = w.shape[:2]
-    h = x.unsqueeze(0).expand((n_heads,) + tuple(x.shape))
-    bshape = (n_heads,) + (1,) * (h.dim() - 2) + (-1,)
-    for layer in range(n_layers):
-        flat = h.reshape(n_heads, -1, h.shape[-1]).float()
-        pre = torch.bmm(flat, w[:, layer].float()).reshape(h.shape)
-        pre = pre + b[:, layer].float().reshape(bshape)
-        h = h + torch.nn.functional.silu(pre).to(h.dtype)
-    return h
+    d = x.shape[-1]
+    h = verify_mod.head_rows(x.reshape(-1, d).contiguous(), w[:, 0].contiguous(),
+                             b[:, 0].contiguous())                # (K, M, D)
+    for layer in range(1, n_layers):
+        h = torch.stack([verify_mod.head_rows(h[k], w[k:k + 1, layer].contiguous(),
+                                              b[k:k + 1, layer].contiguous())[0]
+                         for k in range(n_heads)])
+    return h.reshape((n_heads,) + tuple(x.shape))

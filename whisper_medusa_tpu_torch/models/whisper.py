@@ -9,8 +9,11 @@ package the slabs carry no alignment slack: ``max_len`` rows exactly, and the
 cross cache is never padded.
 
 Decode runs through ``ops/megastep.py`` (kernel K2 on CUDA tensors, the
-:func:`decoder_layer_step` loop on CPU tensors); the cache slabs are updated
-in place.  Encoder self-attention runs through ``ops/attention.py`` (K1).
+:func:`decoder_layer_step` loop on CPU tensors) at B <= 8; the cache slabs
+are updated in place.  Encoder self-attention runs through
+``ops/attention.py`` (K1).  An example's decoder state does not depend on
+the batch it is in: the cross K/V are projected one example at a time and
+K2's per-row arithmetic is independent of the row count.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from whisper_medusa_tpu.config import WhisperDims
+from whisper_medusa_tpu_torch.config import WhisperDims
 from whisper_medusa_tpu_torch.ops import attention as attn_mod
 from whisper_medusa_tpu_torch.ops import decode_ops
 from whisper_medusa_tpu_torch.ops import gelu as gelu_mod
@@ -195,15 +198,18 @@ class KVCache:
 def init_cache(params: Params, dims: WhisperDims, enc_out: torch.Tensor,
                max_len: int) -> KVCache:
     """Allocate the self slabs (``max_len`` rows, no slack) and precompute the
-    cross K/V of every layer."""
+    cross K/V of every layer.  Each example is projected on its own, so its
+    cache does not depend on the batch (a library GEMM may pick another
+    algorithm, and round differently, for another row count)."""
     b, s, d = enc_out.shape
     nh = dims.decoder_attention_heads
     layers = params["decoder"]["layers"]["cross"]
     ks, vs = [], []
     for i in range(dims.decoder_layers):
-        k = _split_heads(dense(enc_out, layers["k_w"][i]), nh)   # (B, S, H, Dh)
-        ks.append(k.permute(0, 2, 3, 1))                          # (B, H, Dh, S)
-        vs.append(dense(enc_out, layers["v_w"][i], layers["v_b"][i]))
+        k = torch.cat([dense(e[None], layers["k_w"][i]) for e in enc_out])
+        ks.append(_split_heads(k, nh).permute(0, 2, 3, 1))        # (B, H, Dh, S)
+        vs.append(torch.cat([dense(e[None], layers["v_w"][i], layers["v_b"][i])
+                             for e in enc_out]))
     nl = dims.decoder_layers
     zeros = dict(dtype=enc_out.dtype, device=enc_out.device)
     return KVCache(
@@ -287,12 +293,11 @@ def decode_step(params: Params, dims: WhisperDims, tokens: torch.Tensor,
     abs_pos = (offsets[:, None] + rel_positions[None, :]).clamp(
         0, dims.max_target_positions - 1)
     x = dec["embed_tokens"][tokens] + dec["pos_embed"][abs_pos]
-    pre_norm = megastep.fused_decoder_layers(
-        dec["layers"], x, cache.self_k, cache.self_v, cache.cross_k,
-        cache.cross_v, offsets.to(torch.int32), chunk_mask,
+    pre_norm, hidden = megastep.fused_decoder_layers(
+        dec["layers"], dec["ln_post"], x, cache.self_k, cache.self_v,
+        cache.cross_k, cache.cross_v, offsets.to(torch.int32), chunk_mask,
         cross_len=min(dims.max_source_positions, cache.cross_k.shape[4]),
         num_heads=dims.decoder_attention_heads)
-    hidden = layer_norm(pre_norm, dec["ln_post"]["scale"], dec["ln_post"]["bias"])
     return DecoderOutput(hidden=hidden, pre_norm=pre_norm)
 
 

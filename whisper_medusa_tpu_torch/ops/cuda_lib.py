@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) for Hopper.
 
-The kernels are compiled by nvcc at first use, for ``sm_90a``, into one shared
+The kernels are compiled by nvcc at first use, for ``sm_90a`` — one nvcc
+process per source, all started together, then one link — into one shared
 library with a plain C interface, and loaded with ``ctypes``.  Every pointer
 and the stream are passed as ``c_void_p``; every C entry returns
 ``cudaGetLastError()`` and :func:`launch` raises when that is not 0.
@@ -25,8 +26,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "whisper_medusa_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
+LINK_FLAGS = (*_ARCH, "-shared")
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -42,6 +44,8 @@ _SIGNATURES = {
     "wm_megastep_step": [_ptrs, _ints, _vp],
     "wm_logits": [_vp] * 3 + [_ci] * 3 + [_vp],
     "wm_verify_hidden": [_ptrs, _ints, ctypes.c_float, _vp],
+    "wm_verify_rows": [_ptrs, _ints, ctypes.c_float, _vp],
+    "wm_head_rows": [_vp] * 4 + [_ci] * 3 + [_vp],
 }
 
 
@@ -75,7 +79,7 @@ def _digest() -> str:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -92,11 +96,24 @@ def _build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cus = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}) building {out}:\n"
-                           f"{res.stdout}{res.stderr}")
+    objs = [f"{tmp}.{os.path.basename(cu)}.o" for cu in cus]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", obj, cu],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cu, obj in zip(cus, objs)]
+    outs = [p.communicate() for p in procs]
+    failed = [(cu, p.returncode, so, se) for cu, p, (so, se) in zip(cus, procs, outs)
+              if p.returncode != 0]
+    if not failed:
+        res = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            failed = [("link", res.returncode, res.stdout, res.stderr)]
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed building {out}:\n" + "\n".join(
+            f"{os.path.basename(what)} ({rc}):\n{so}{se}" for what, rc, so, se in failed))
     os.replace(tmp, out)
     return out
 

@@ -10,22 +10,25 @@ that launches twelve small kernels per layer on the current stream — layernorm
 a skinny tensor-core GEMM for q/k/v (and o, cross q/o, fc1, fc2) with fused
 bias / scale / GELU / residual epilogues, self-attention with the in-place
 K/V commit, and cross-attention split over 128-key chunks plus a combine —
-so Python makes one ctypes call per decode step.  It is bound by bytes: at
-large-v2, B=1, a step reads 1.47 GB of bf16 weights and 246 MB of cross K/V
-(counted from the shapes).  The skinny GEMM reads each weight once with the
-whole matrix in flight; splitting cross-attention over the keys spreads a
-B=1 step over 240 CTAs instead of 20.
+so Python makes one ctypes call per decode step; the entry ends with the
+final layer norm (``ln_post``) into a second buffer.  It is bound by bytes:
+at large-v2 a step reads 1.47 GB of bf16 weights whatever B is, and
+B x 246 MB of cross K/V (counted from the shapes).  The skinny GEMM reads each
+weight once per step for all B*T rows, with the whole matrix in flight;
+splitting cross-attention over the keys spreads a step over 240 x B CTAs.
+Every kernel's per-row arithmetic is independent of B*T, so an example
+decodes to the same bits alone or in a batch of eight.
 
-The plain version is the ``models/whisper.py::decoder_layer_step`` loop.
-Both update the self slabs in place and return ``pre_norm``; ``ln_post`` is
-applied by the caller, as in the JAX package.  Scope of the kernel: bf16,
-B*T <= 16, Dh = 64, d_model and ffn_dim multiples of 256.
+The plain version is the ``models/whisper.py::decoder_layer_step`` loop
+followed by ``layer_norm``.  Both update the self slabs in place and return
+``(pre_norm, hidden)``.  Scope of the kernel: bf16, B <= 8, T <= 16 (so
+B*T <= 128), Dh = 64, d_model and ffn_dim multiples of 256.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -33,7 +36,9 @@ from whisper_medusa_tpu_torch.ops import cuda_lib
 
 Params = Dict[str, Any]
 
-MAX_ROWS = 16
+MAX_B = 8
+MAX_T = 16               # csrc/megastep.cu MAXT
+MAX_ROWS = 128           # csrc/common.cuh SK_MAX_ROWS
 CROSS_CHUNK = 128        # csrc/megastep.cu CS
 
 launches = 0
@@ -53,9 +58,9 @@ def _leaf(tree, path):
     return tree
 
 
-def megastep_plain(dec_layers: Params, x, self_k, self_v, cross_k, cross_v,
-                   offsets, chunk_mask, cross_len: int, num_heads: int):
-    """The decoder_layer_step loop (models/whisper.py)."""
+def megastep_plain(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross_k,
+                   cross_v, offsets, chunk_mask, cross_len: int, num_heads: int):
+    """The decoder_layer_step loop (models/whisper.py), then ln_post."""
     from whisper_medusa_tpu_torch.models import whisper
 
     mask = whisper.make_step_mask(offsets, x.shape[1], self_k.shape[2], chunk_mask)
@@ -65,27 +70,28 @@ def megastep_plain(dec_layers: Params, x, self_k, self_v, cross_k, cross_v,
             whisper.layer_params(dec_layers, layer), h, self_k[layer],
             self_v[layer], cross_k[layer], cross_v[layer], offsets, mask,
             num_heads, cross_len)
-    return h
+    return h, whisper.layer_norm(h, ln_post["scale"], ln_post["bias"])
 
 
-def megastep_kernel(dec_layers: Params, x, self_k, self_v, cross_k, cross_v,
-                    offsets, chunk_mask, cross_len: int, num_heads: int):
-    """Launch K2 over all layers; returns pre_norm (B, T, D)."""
+def megastep_kernel(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross_k,
+                    cross_v, offsets, chunk_mask, cross_len: int, num_heads: int):
+    """Launch K2 over all layers; returns (pre_norm, hidden), each (B, T, D)."""
     global launches
     b, t, d = x.shape
     nl, _, s_len, _ = self_k.shape
     s_enc = cross_k.shape[4]
     weights = [_leaf(dec_layers, p) for p in _WEIGHTS]
+    ln = [ln_post["scale"], ln_post["bias"]]
     f = dec_layers["fc1_w"].shape[2]
-    cuda_lib.require_cuda("megastep", x, self_k, self_v, cross_k, cross_v, *weights)
+    cuda_lib.require_cuda("megastep", x, self_k, self_v, cross_k, cross_v, *weights, *ln)
     dh = d // num_heads
-    if (b * t > MAX_ROWS or dh != 64 or d % 256 or f % 256
+    if (b > MAX_B or t > MAX_T or dh != 64 or d % 256 or f % 256
             or self_k.shape != (nl, b, s_len, d) or self_v.shape != self_k.shape
             or cross_k.shape != (nl, b, num_heads, dh, s_enc)
             or cross_v.shape != (nl, b, s_enc, d)
             or s_enc % 4 or not 1 <= cross_len <= s_enc):
         raise ValueError(
-            f"megastep kernel takes B*T <= {MAX_ROWS}, Dh=64, D and F multiples "
+            f"megastep kernel takes B <= {MAX_B}, T <= {MAX_T}, Dh=64, D and F multiples "
             f"of 256, S_enc % 4 == 0 and KVCache layouts; got x {tuple(x.shape)}, self "
             f"{tuple(self_k.shape)}, cross_k {tuple(cross_k.shape)}, F={f}")
     if offsets.dtype != torch.int32 or offsets.shape != (b,) or offsets.device != x.device:
@@ -96,31 +102,35 @@ def megastep_kernel(dec_layers: Params, x, self_k, self_v, cross_k, cross_v,
     mask = chunk_mask.to(device=dev, dtype=torch.uint8).contiguous()
     nch = -(-cross_len // CROSS_CHUNK)
     bf = dict(dtype=torch.bfloat16, device=dev)
-    xbuf = torch.zeros((MAX_ROWS, d), **bf)
+    m16 = -(-(b * t) // 16) * 16          # the skinny GEMM reads 16-row tiles
+    xbuf = torch.zeros((m16, d), **bf)
     xbuf[:b * t] = x.reshape(b * t, d)
-    scratch = [torch.zeros((MAX_ROWS, d), **bf) for _ in range(5)]
-    hbuf = torch.zeros((MAX_ROWS, f), **bf)
+    scratch = [torch.zeros((m16, d), **bf) for _ in range(5)]
+    hbuf = torch.zeros((m16, f), **bf)
+    hidden = torch.empty((b * t, d), **bf)
     part = torch.empty((b * num_heads * t * nch * (dh + 2),), dtype=torch.float32,
                        device=dev)
     tensors = [xbuf, *scratch, hbuf, part, self_k, self_v, cross_k, cross_v,
-               offsets, mask, *weights]
+               offsets, mask, *weights, *ln, hidden]
     ptrs = (ctypes.c_void_p * len(tensors))(*[tt.data_ptr() for tt in tensors])
     ints = (ctypes.c_int * 9)(nl, b, t, d, num_heads, f, s_len, s_enc, cross_len)
     cuda_lib.launch("wm_megastep_step", dev, ptrs, ints)
     launches += 1
-    return xbuf[:b * t].reshape(b, t, d)
+    return xbuf[:b * t].reshape(b, t, d), hidden.reshape(b, t, d)
 
 
-def fused_decoder_layers(dec_layers: Params, x: torch.Tensor, self_k: torch.Tensor,
+def fused_decoder_layers(dec_layers: Params, ln_post: Params, x: torch.Tensor,
+                         self_k: torch.Tensor,
                          self_v: torch.Tensor, cross_k: torch.Tensor,
                          cross_v: torch.Tensor, offsets: torch.Tensor,
                          chunk_mask: Optional[torch.Tensor], cross_len: int,
-                         num_heads: int) -> torch.Tensor:
-    """All decoder layers over a (B, T, D) chunk at per-example ``offsets``.
+                         num_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All decoder layers over a (B, T, D) chunk at per-example ``offsets``,
+    then ``ln_post`` ({"scale", "bias"}).
 
     Writes the chunk's K/V rows into ``self_k``/``self_v`` in place and
-    returns pre_norm (B, T, D).  CUDA tensors launch K2; CPU tensors run the
-    plain layer loop."""
+    returns (pre_norm, hidden), each (B, T, D).  CUDA tensors launch K2; CPU
+    tensors run the plain layer loop."""
     fn = megastep_kernel if x.is_cuda else megastep_plain
-    return fn(dec_layers, x, self_k, self_v, cross_k, cross_v, offsets,
+    return fn(dec_layers, ln_post, x, self_k, self_v, cross_k, cross_v, offsets,
               chunk_mask, cross_len, num_heads)

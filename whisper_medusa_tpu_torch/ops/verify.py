@@ -1,11 +1,13 @@
-"""Fused verification: head rows + vocab projection + processors + row
-statistics — kernel K4.
+"""Fused verification: vocab projection + processors + row statistics —
+kernels K4 (``verify_hidden``, rows built in the kernel) and K5
+(``verify_rows``, rows given).
 
-Replaces the TPU kernel ``whisper_medusa_tpu/ops/verify.py::_kernel_hidden``
+K4 replaces the TPU kernel ``whisper_medusa_tpu/ops/verify.py::_kernel_hidden``
 (launched by ``verify_hidden``): grid step 0 builds the (R, D) rows
 ``src + SiLU(src @ W_k + b_k)`` in VMEM, later steps stream the tied
 embedding and fold per-row max / argmax / logsumexp / gathered value across
-the sequential grid.
+the sequential grid.  K5 replaces ``whisper_medusa_tpu/ops/verify.py::_kernel``
+(launched by ``verify_rows``), the same stream over rows the caller built.
 
 On Hopper the CTAs of a grid run in parallel, so ``csrc/verify.cu`` splits the
 work into three launches behind one C entry: (A) the rows, by the skinny
@@ -14,18 +16,23 @@ that scores all rows on the tensor cores, applies the processors and writes
 per-(tile, row) partial statistics; (C) a per-row combine over the tiles
 with argmax ties broken to the lowest column.  The logits never reach device
 memory.  Stage B is the bound at R = 121: 16 GFLOP of bf16 products plus the
-133 MB embedding stream.
+133 MB embedding stream.  K5 is stages B and C alone, with a second grid
+dimension over 128-row blocks, for R <= 1024: the vanilla loop's B rows and
+the two-pass loop's B*N head-0 rows.  Its bound is the 133 MB embedding
+stream (40 us at 3.35 TB/s) for R up to ~250, the 2*R*V*D products beyond.
+``head_rows`` (C entry ``wm_head_rows``) is K4's stage A alone, so that the
+two-pass loop's head-0 rows carry the same bits as K4's.
 
 Rows are ordered (k, e, n): head-major over flattened (batch, node).  Scope:
-chain + greedy, R <= 128; the fused timestamp rules (``ts_cfg``) are not
-ported yet.
+chain + greedy, K4 at B*N <= 16 and R <= 128, K5 at R <= 1024; the fused
+timestamp rules (``ts_cfg``) and the int8 embedding are not ported yet.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -33,10 +40,14 @@ import torch
 from whisper_medusa_tpu_torch.ops import cuda_lib
 
 NEG = -float(np.finfo(np.float32).max) / 2
-MAX_R = 128
+MAX_R = 128              # K4
+MAX_ROWS_R = 1024        # K5 (csrc/verify.cu VR_MAX_ROWS, the JAX _MAX_R)
+MAX_SRC_ROWS = 128       # head_rows (csrc/common.cuh SK_MAX_ROWS)
 TILE = 64                # csrc/common.cuh VT
 
-launches = 0
+launches = 0             # K4 (verify_hidden) kernel launches
+rows_launches = 0        # K5 (verify_rows) kernel launches
+head_launches = 0        # wm_head_rows launches
 
 
 def masks_for(pcfg, device="cpu") -> torch.Tensor:
@@ -69,20 +80,58 @@ def process_rows(x: torch.Tensor, pos: torch.Tensor, sup_masks: torch.Tensor, *,
     return x
 
 
+def head_rows_plain(src: torch.Tensor, heads_w: torch.Tensor,
+                    heads_b: torch.Tensor) -> torch.Tensor:
+    """(K, M, D) rows ``src + SiLU(src @ W_k + b_k)`` of src (M, D)."""
+    out = []
+    for k in range(heads_w.shape[0]):
+        pre = src.float() @ heads_w[k].float() + heads_b[k].float()
+        out.append(src + torch.nn.functional.silu(pre).to(src.dtype))
+    return torch.stack(out)
+
+
+def head_rows_kernel(src: torch.Tensor, heads_w: torch.Tensor,
+                     heads_b: torch.Tensor) -> torch.Tensor:
+    """Launch ``wm_head_rows`` (K4's stage A alone): src (M <= 128, D) bf16,
+    heads (K, D, D) / (K, D) bf16 -> (K, M, D)."""
+    global head_launches
+    cuda_lib.require_cuda("head_rows", src, heads_w, heads_b)
+    m, d = src.shape
+    nh = heads_w.shape[0]
+    if (not 1 <= m <= MAX_SRC_ROWS or d % 256 or heads_w.shape != (nh, d, d)
+            or heads_b.shape != (nh, d)):
+        raise ValueError(f"head_rows kernel takes M <= {MAX_SRC_ROWS} rows, D % 256 "
+                         f"== 0; got src {tuple(src.shape)}, heads {tuple(heads_w.shape)}")
+    src16 = torch.zeros((-(-m // 16) * 16, d), dtype=src.dtype, device=src.device)
+    src16[:m] = src
+    out = torch.empty((nh, m, d), dtype=src.dtype, device=src.device)
+    cuda_lib.launch("wm_head_rows", src.device, src16.data_ptr(), heads_w.data_ptr(),
+                    heads_b.data_ptr(), out.data_ptr(), m, d, nh)
+    head_launches += 1
+    return out
+
+
+def head_rows(src: torch.Tensor, heads_w: torch.Tensor,
+              heads_b: torch.Tensor) -> torch.Tensor:
+    """Single-layer Medusa heads on the rows of ``src`` (M, D): (K, M, D).
+    CUDA tensors launch the skinny GEMM of K4's stage A; CPU tensors take
+    the plain version."""
+    fn = head_rows_kernel if src.is_cuda else head_rows_plain
+    return fn(src, heads_w, heads_b)
+
+
 def build_rows(hver, hsrc, heads_w, heads_b, identity0: bool) -> torch.Tensor:
     """(R, D) rows ``src + SiLU(src @ W_k + b_k)``, head-major."""
     b, n, d = hver.shape
-    src = hsrc.reshape(b * n, d)
-    blocks = [hver.reshape(b * n, d)] if identity0 else []
-    for k in range(heads_w.shape[0]):
-        pre = src.float() @ heads_w[k].float() + heads_b[k].float()
-        blocks.append(src + torch.nn.functional.silu(pre).to(src.dtype))
-    return torch.cat(blocks, dim=0)
+    rows = head_rows_plain(hsrc.reshape(b * n, d), heads_w, heads_b).reshape(-1, d)
+    if identity0:
+        rows = torch.cat([hver.reshape(b * n, d), rows], dim=0)
+    return rows
 
 
-def verify_hidden_plain(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_masks,
-                        *, identity0: bool, begin_index: int, eos_id: int, decay):
-    rows = build_rows(hver, hsrc, heads_w, heads_b, identity0)
+def _row_stats(rows, embed, pos, gcol, sup_masks, *, begin_index: int, eos_id: int,
+               decay):
+    """Materialized logits of ``rows``, processed; (argmax, max, lse, gathered)."""
     x = rows.float() @ embed.float().T
     x = process_rows(x, pos, sup_masks, begin_index=begin_index, eos_id=eos_id,
                      decay=decay)
@@ -90,6 +139,83 @@ def verify_hidden_plain(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mask
     lse = torch.logsumexp(x, dim=-1)
     gth = x.gather(1, gcol.long()[:, None])[:, 0]
     return am.to(torch.int32), mx, lse, gth
+
+
+def verify_hidden_plain(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_masks,
+                        *, identity0: bool, begin_index: int, eos_id: int, decay):
+    rows = build_rows(hver, hsrc, heads_w, heads_b, identity0)
+    return _row_stats(rows, embed, pos, gcol, sup_masks, begin_index=begin_index,
+                      eos_id=eos_id, decay=decay)
+
+
+def verify_rows_plain(hs, embed, pos, gcol, sup_masks, *, begin_index: int,
+                      eos_id: int, decay):
+    """K5's plain version: logits materialized, then the same processors and
+    statistics."""
+    return _row_stats(hs, embed, pos, gcol, sup_masks, begin_index=begin_index,
+                      eos_id=eos_id, decay=decay)
+
+
+def _check_meta(dev, r, v, pos, gcol, sup_masks):
+    for name, t, dt in (("pos", pos, torch.int32), ("gcol", gcol, torch.int32),
+                        ("sup_masks", sup_masks, torch.int8)):
+        if t.dtype != dt or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"verify kernel: {name} must be contiguous {dt} on {dev}")
+    if pos.shape != (r,) or gcol.shape != (r,) or sup_masks.shape != (2, v):
+        raise ValueError("verify kernel: pos/gcol must have R rows, masks (2, V)")
+
+
+def _stat_outputs(r, ntiles, dev):
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((3, r, ntiles), **f32),
+            torch.empty((r, ntiles), dtype=torch.int32, device=dev),
+            torch.empty((r,), **f32), torch.empty((r,), **f32),
+            torch.empty((r,), dtype=torch.int32, device=dev), torch.empty((r,), **f32))
+
+
+def verify_rows_kernel(hs, embed, pos, gcol, sup_masks, *, begin_index: int,
+                       eos_id: int, decay):
+    """Launch K5 over rows hs (R <= 1024, D) bf16."""
+    global rows_launches
+    cuda_lib.require_cuda("verify_rows", hs, embed)
+    r, d = hs.shape
+    v = embed.shape[0]
+    if not 1 <= r <= MAX_ROWS_R or d % TILE or embed.shape[1] != d:
+        raise ValueError(f"verify_rows kernel takes 1 <= R <= {MAX_ROWS_R} rows and "
+                         f"D % {TILE} == 0; got rows {tuple(hs.shape)}, embed "
+                         f"{tuple(embed.shape)}")
+    dev = hs.device
+    _check_meta(dev, r, v, pos, gcol, sup_masks)
+    part_f, part_a, mx, lse, am, gth = _stat_outputs(r, -(-v // TILE), dev)
+    tensors = [hs, embed, pos, gcol, sup_masks, part_f, part_a, mx, lse, am, gth]
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    start, factor = decay if decay is not None else (0, 1.0)
+    ints = (ctypes.c_int * 7)(r, d, v, begin_index, eos_id, int(decay is not None),
+                              int(start))
+    cuda_lib.launch("wm_verify_rows", dev, ptrs, ints, float(math.log(factor)))
+    rows_launches += 1
+    return am, mx, lse, gth
+
+
+def verify_rows(hs: torch.Tensor, embed, pos: torch.Tensor, gcol: torch.Tensor,
+                sup_masks: torch.Tensor, *, begin_index: int, eos_id: int, decay,
+                ts_cfg=None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(argmax (R,) int32, max, lse, gathered) of the processed logits of the
+    rows ``hs`` (R, D) against the tied embedding (V, D), without
+    materializing them.  CUDA tensors launch K5; CPU tensors take the plain
+    version."""
+    if isinstance(embed, dict):
+        raise NotImplementedError(
+            "the int8 embedding of verify_rows is not ported yet "
+            "(ROADMAP queue 1, item 11: int8 serving)")
+    if ts_cfg is not None:
+        raise NotImplementedError(
+            "fused timestamp rules in verify_rows are not ported yet "
+            "(ROADMAP queue 1, item 12: timestamps + longform)")
+    fn = verify_rows_kernel if hs.is_cuda else verify_rows_plain
+    return fn(hs, embed, pos, gcol, sup_masks, begin_index=begin_index,
+              eos_id=eos_id, decay=decay)
 
 
 def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_masks,
@@ -108,22 +234,11 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
             f"verify kernel takes B*N <= 16, R <= {MAX_R}, D % 256 == 0; got "
             f"hidden {tuple(hver.shape)}, heads {tuple(heads_w.shape)}, R={r}")
     dev = hver.device
-    for name, t, dt in (("pos", pos, torch.int32), ("gcol", gcol, torch.int32),
-                        ("sup_masks", sup_masks, torch.int8)):
-        if t.dtype != dt or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"verify kernel: {name} must be contiguous {dt} on {dev}")
-    if pos.shape != (r,) or gcol.shape != (r,) or sup_masks.shape != (2, v):
-        raise ValueError("verify kernel: pos/gcol must have R rows, masks (2, V)")
-    ntiles = -(-v // TILE)
+    _check_meta(dev, r, v, pos, gcol, sup_masks)
     src16 = torch.zeros((16, d), dtype=torch.bfloat16, device=dev)
     src16[:bn] = hsrc.reshape(bn, d)
     rows = torch.empty((r, d), dtype=torch.bfloat16, device=dev)
-    part_f = torch.empty((3, r, ntiles), dtype=torch.float32, device=dev)
-    part_a = torch.empty((r, ntiles), dtype=torch.int32, device=dev)
-    mx = torch.empty((r,), dtype=torch.float32, device=dev)
-    lse = torch.empty_like(mx)
-    am = torch.empty((r,), dtype=torch.int32, device=dev)
-    gth = torch.empty_like(mx)
+    part_f, part_a, mx, lse, am, gth = _stat_outputs(r, -(-v // TILE), dev)
     tensors = [hver, src16, heads_w, heads_b, embed, pos, gcol, sup_masks, rows,
                part_f, part_a, mx, lse, am, gth]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
@@ -138,10 +253,7 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
 def verify_hidden(hver: torch.Tensor, hsrc: torch.Tensor, heads_w: torch.Tensor,
                   heads_b: torch.Tensor, embed: torch.Tensor, pos: torch.Tensor,
                   gcol: torch.Tensor, sup_masks: torch.Tensor, *, identity0: bool,
-                  begin_index: int, eos_id: int, decay, ts_cfg=None,
-                  n_verif: int = 0, last: Optional[torch.Tensor] = None,
-                  penult: Optional[torch.Tensor] = None,
-                  maxts: Optional[torch.Tensor] = None
+                  begin_index: int, eos_id: int, decay, ts_cfg=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(argmax (R,) int32, max, lse, gathered) of the processed logits of the
     rows built from ``hver``/``hsrc`` (B, N, D) and the stacked single-layer
@@ -150,7 +262,7 @@ def verify_hidden(hver: torch.Tensor, hsrc: torch.Tensor, heads_w: torch.Tensor,
     if ts_cfg is not None:
         raise NotImplementedError(
             "fused timestamp rules in verify_hidden are not ported yet "
-            "(ROADMAP queue 1: timestamps + longform)")
+            "(ROADMAP queue 1, item 12: timestamps + longform)")
     fn = verify_hidden_kernel if hver.is_cuda else verify_hidden_plain
     return fn(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_masks,
               identity0=identity0, begin_index=begin_index, eos_id=eos_id,

@@ -1,8 +1,9 @@
 """WhisperProcessor equivalent — counterpart of whisper_medusa_tpu/processor.py.
 
-Audio -> log-mel features on a chosen device; ids -> text through the
-reference package's jax-free tokenizer gateway.  Resampling is not ported yet:
-``sampling_rate`` other than 16 kHz raises.
+Audio -> log-mel features on the card (or on the CPU when asked for); ids ->
+text through the port's own tokenizers (``data/tokenizer.py``).  A list of up
+to 8 waveforms gives one (B, n_mels, 3000) batch.  Resampling is not ported
+yet: ``sampling_rate`` other than 16 kHz raises.
 """
 
 from __future__ import annotations
@@ -12,19 +13,20 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from whisper_medusa_tpu.data.tokenizer import CharTokenizer, load_tokenizer
+from whisper_medusa_tpu_torch.data.tokenizer import CharTokenizer, load_tokenizer
+from whisper_medusa_tpu_torch.models.bridge import resolve_device
 from whisper_medusa_tpu_torch.ops import mel as mel_mod
 
 
 class WhisperMedusaProcessor:
-    def __init__(self, tokenizer=None, n_mels: int = 80, device="cpu"):
+    def __init__(self, tokenizer=None, n_mels: int = 80, device="cuda"):
         self.tokenizer = tokenizer
         self.n_mels = n_mels
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     @classmethod
     def from_pretrained(cls, name_or_path: str, language: Optional[str] = None,
-                        n_mels: int = 80, device="cpu") -> "WhisperMedusaProcessor":
+                        n_mels: int = 80, device="cuda") -> "WhisperMedusaProcessor":
         try:
             tok = load_tokenizer(name_or_path, language=language)
         except Exception:
