@@ -9,20 +9,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   2. build the Hopper kernels from whisper_medusa_tpu_torch/csrc (one nvcc
      per source, in parallel);
   3. hold each kernel against its plain PyTorch version at the shapes the
-     decode paths give it (bf16), and time the kernel, the plain version and,
-     where one PyTorch call computes the same function, that call, with CUDA
-     events (3 warm-ups, median of 20); each kernel's bound is computed from
-     the bytes and operations of the same call;
+     decode paths give it, bf16 and int8 (the int8 modes of K2, K4, K5 and
+     head_rows; K6 qmm and K7 qmm_nt), and time the kernel, the plain version
+     and, where one PyTorch call computes the same function, that call, with
+     CUDA events (3 warm-ups, median of 20); each kernel's bound is computed
+     from the bytes and operations of the same call;
   4. the main paths at full whisper-large-v2 width with random bf16 weights,
      each driven with every launch counter set to 0 just before and read
      just after: three Medusa requests at B=1; one vanilla request
      (``disable_medusa=True``) at B=1; one batched Medusa request and one
-     batched vanilla request of eight waveforms;
-  5. the output is unchanged when every draft is corrupted;
-  6. decode batch invariance: speculative_generate at B=8 gives every example
-     exactly the tokens of its B=1 decode, for Medusa and for vanilla
-     (accepted counts are printed, not held equal); whether generate at B=8
-     gives each example its B=1 tokens end to end is printed, not required.
+     batched vanilla request of eight waveforms; then the same four requests
+     (one at B=1) on ``model.quantize()``, the int8 serving copy, with the
+     share of its tokens equal to the bf16 ones printed, not held;
+  5. the output is unchanged when every draft is corrupted, bf16 and int8;
+  6. decode batch invariance, bf16 and int8: speculative_generate at B=8
+     gives every example exactly the tokens of its B=1 decode, for Medusa
+     and for vanilla (accepted counts are printed, not held equal); whether
+     generate at B=8 gives each example its B=1 tokens end to end is
+     printed, not required.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -208,6 +212,55 @@ def _random_layers(g, dims, nl):
     return layers, ln(), rnd
 
 
+def check_megastep_2layer_int8(g, t, offs):
+    """K2's int8 mode, two layers, at per-example offsets ``offs``: pre_norm,
+    hidden and the written self rows (dequantized) within 3e-2 + 3e-2 |x|;
+    every other row and scale untouched."""
+    from whisper_medusa_tpu_torch.config import WhisperDims
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import megastep as MS
+    from whisper_medusa_tpu_torch.ops import qmm as QM
+
+    dims = WhisperDims(decoder_layers=2)
+    b, d, h, s_enc, s_len = len(offs), dims.d_model, 20, 1500, 460
+    layers, ln_post, rnd = _random_layers(g, dims, 2)
+    layers = QM.quantize_layers(layers)
+    i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                      dtype=torch.int8)
+    scl = lambda *shape: 0.004 + 0.012 * torch.rand(shape, generator=g, device="cuda")
+    self_k, self_v = i8(2, b, s_len, d), i8(2, b, s_len, d)
+    self_s = scl(2, b, s_len, 2 * h).to(torch.bfloat16)
+    cross_k, cross_v = i8(2, b, h, 64, s_enc), i8(2, b, s_enc, d)
+    cks, cvs = scl(2, b, h, s_enc), scl(2, b, h, s_enc)
+    x = rnd(b, t, d, scale=1.0)
+    offsets = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    sk2, sv2, ss2 = self_k.clone(), self_v.clone(), self_s.clone()
+    kw = dict(cross_k_s=cks, cross_v_s=cvs)
+    got = MS.megastep_kernel(layers, ln_post, x, self_k, self_v, cross_k, cross_v,
+                             offsets, None, s_enc, h, self_s=self_s, **kw)
+    ref = MS.megastep_plain(layers, ln_post, x, sk2, sv2, cross_k, cross_v, offsets,
+                            None, s_enc, h, self_s=ss2, **kw)
+    err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+    written = torch.zeros((b, s_len), dtype=torch.bool, device="cuda")
+    for e, off in enumerate(offs):
+        written[e, off:off + t] = True
+    rows_ok, cerr = True, 0.0
+    for a, c, lanes in ((self_k, sk2, slice(0, h)), (self_v, sv2, slice(h, 2 * h))):
+        ra = whisper.dequant_self(a[:, written], self_s[:, written][..., lanes], h)
+        rc = whisper.dequant_self(c[:, written], ss2[:, written][..., lanes], h)
+        rows_ok &= close(ra, rc, 3e-2)
+        cerr = max(cerr, max_err(ra, rc))
+    untouched = all(torch.equal(a[:, ~written], c[:, ~written])
+                    for a, c in ((self_k, sk2), (self_v, sv2), (self_s, ss2)))
+    log(f"K2 int8 megastep 2-layer B={b} T={t} offsets {offs}: pre_norm/hidden err "
+        f"{err:.3e}, written rows (dequantized) err {cerr:.3e}, other rows equal "
+        f"{untouched}")
+    ok = close(got[0], ref[0], 3e-2) and close(got[1], ref[1], 3e-2) and rows_ok
+    require(ok and untouched,
+            f"K2 int8 2-layer B={b} T={t}: err {err}, rows {cerr}, untouched {untouched}")
+    return err
+
+
 def check_megastep_2layer(g, t, offs):
     """Two layers at per-example offsets ``offs`` (B = len(offs)): pre_norm,
     hidden and the written cache rows elementwise within 3e-2; every other
@@ -251,7 +304,7 @@ def check_logits(g, embed):
     from whisper_medusa_tpu_torch.ops import logits as LG
 
     out = {}
-    for m in (1, 10, 80):
+    for m in (1, 8, 10, 80):
         x = torch.randn((m, embed.shape[1]), generator=g, device="cuda").to(torch.bfloat16)
         got = LG.project_kernel(x, embed)
         ref = LG.project_plain(x, embed)
@@ -281,16 +334,16 @@ def _verify_inputs(g, model, r):
     from whisper_medusa_tpu_torch.ops import verify as VF
 
     embed = model.params["whisper"]["decoder"]["embed_tokens"]
+    v = model.config.dims.vocab_size
     st = model.special
     gd = model.generation_config
-    pcfg = ProcessorConfig(vocab_size=embed.shape[0], suppress_tokens=gd.suppress_tokens,
+    pcfg = ProcessorConfig(vocab_size=v, suppress_tokens=gd.suppress_tokens,
                            begin_suppress_tokens=gd.begin_suppress_tokens,
                            begin_index=4, exponential_decay_length_penalty=(9, 1.2),
                            eos_token_id=st.eos)
     masks = VF.masks_for(pcfg, "cuda")
     pos = (3 + torch.arange(r, device="cuda") % 12).to(torch.int32)
-    gcol = torch.randint(0, embed.shape[0], (r,), generator=g,
-                         device="cuda").to(torch.int32)
+    gcol = torch.randint(0, v, (r,), generator=g, device="cuda").to(torch.int32)
     gcol[: min(r, 2)] = st.eos
     kw = dict(begin_index=4, eos_id=st.eos, decay=(9, 1.2))
     return embed, masks, pos, gcol, kw
@@ -300,45 +353,69 @@ def _clear_argmax(rows, embed, pos, masks, kw, am, ram, gap):
     """Argmax equal on every row whose plain top-2 gap exceeds ``gap``."""
     from whisper_medusa_tpu_torch.ops import verify as VF
 
-    proc = VF.process_rows(rows.float() @ embed.float().T, pos, masks, **kw)
+    proc = VF.process_rows(VF.row_logits(rows, embed), pos, masks, **kw)
     top2 = proc.topk(2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > gap
     return bool(torch.equal(am[clear], ram[clear])), int(clear.sum())
 
 
+def _int8(model):
+    from whisper_medusa_tpu_torch.ops import qmm as QM
+
+    return QM.is_quantized(model.params["whisper"]["decoder"]["embed_tokens"])
+
+
+def _stats_ok(model, got, ref):
+    """(ok, err): bf16 max / lse / gathered within 1e-2; int8 within
+    1e-3 + 1e-3 |x|."""
+    err = max(max_err(a, b) for a, b in zip(got[1:], ref[1:]))
+    if _int8(model):
+        return all(close(a, b, 1e-3) for a, b in zip(got[1:], ref[1:])), err
+    return err <= 1e-2, err
+
+
 def check_verify(g, model):
+    from whisper_medusa_tpu_torch.ops import qmm as QM
     from whisper_medusa_tpu_torch.ops import verify as VF
 
+    q = _int8(model)
     heads = model.params["medusa"]["heads"]
-    hw, hb = heads["w"][:, 0], heads["b"][:, 0]
+    hw, hb = QM.wmap(heads["w"], lambda a: a[:, 0]), heads["b"][:, 0]
     n_nodes, kp1 = 11, 11
     embed, masks, pos, gcol, kw = _verify_inputs(g, model, kp1 * n_nodes)
-    d = embed.shape[1]
+    d = model.config.dims.d_model
     # Row (k, n) predicts position cur_len + n + k (cur_len 5).
     pos = (5 + torch.arange(n_nodes, device="cuda")[None, :]
            + torch.arange(kp1, device="cuda")[:, None]).reshape(-1).to(torch.int32)
     hid = torch.randn((1, n_nodes, d), generator=g, device="cuda").to(torch.bfloat16)
     kw4 = dict(identity0=False, **kw)
-    am, mx, lse, gth = VF.verify_hidden_kernel(hid, hid, hw, hb, embed, pos, gcol,
-                                               masks, **kw4)
-    ram, rmx, rlse, rgth = VF.verify_hidden_plain(hid, hid, hw, hb, embed, pos, gcol,
-                                                  masks, **kw4)
+    got = VF.verify_hidden_kernel(hid, hid, hw, hb, embed, pos, gcol, masks, **kw4)
+    ref = VF.verify_hidden_plain(hid, hid, hw, hb, embed, pos, gcol, masks, **kw4)
     rows = VF.build_rows(hid, hid, hw, hb, False)
-    arg_ok, n_clear = _clear_argmax(rows, embed, pos, masks, kw, am, ram, 1e-2)
-    err = max(max_err(mx, rmx), max_err(lse, rlse), max_err(gth, rgth))
-    log(f"K4 verify_hidden R={kp1 * n_nodes}: argmax equal on {n_clear} clear rows: "
+    arg_ok, n_clear = _clear_argmax(rows, embed, pos, masks, kw, got[0], ref[0], 1e-2)
+    ok, err = _stats_ok(model, got, ref)
+    name = "verify_hidden_int8" if q else "verify_hidden"
+    log(f"K4 {name} R={kp1 * n_nodes}: argmax equal on {n_clear} clear rows: "
         f"{arg_ok}; max/lse/gathered max_abs_err {err:.3e}")
-    require(arg_ok and err <= 1e-2, f"K4: argmax {arg_ok}, err {err}")
+    require(arg_ok and ok, f"K4 {name}: argmax {arg_ok}, err {err}")
     ms = cuda_ms(lambda: VF.verify_hidden_kernel(hid, hid, hw, hb, embed, pos, gcol,
                                                  masks, **kw4))
     plain_ms = cuda_ms(lambda: VF.verify_hidden_plain(hid, hid, hw, hb, embed, pos,
                                                       gcol, masks, **kw4))
-    r, v = kp1 * n_nodes, embed.shape[0]
-    moved = nbytes(hid, hw, hb, embed, pos, gcol, masks) + 4 * r * 4
+    r, v = kp1 * n_nodes, model.config.dims.vocab_size
+    moved = nbytes(hid, *_tensors(hw), hb, *_tensors(embed), pos, gcol, masks) + 4 * r * 4
     ops = 2 * r * v * d + 2 * kp1 * n_nodes * d * d
-    return kernel_record("verify_hidden", "whisper_medusa_tpu_torch/csrc/verify.cu",
-                         "whisper_medusa_tpu/ops/verify.py:309", (VF, "launches"),
+    return kernel_record(name, "whisper_medusa_tpu_torch/csrc/verify.cu",
+                         "whisper_medusa_tpu/ops/verify.py:309",
+                         (VF, "q_launches" if q else "launches"),
                          err, ms, plain_ms, bound(moved, ops), None)
+
+
+def _tensors(w):
+    """The tensors of a bf16 weight, or both of an int8 one."""
+    from whisper_medusa_tpu_torch.ops import qmm as QM
+
+    return [w["q"], w["s"]] if QM.is_quantized(w) else [w]
 
 
 def check_head_rows(g, model):
@@ -346,21 +423,24 @@ def check_head_rows(g, model):
     elementwise within 3e-2: head 0 at M = 88 (the two-pass loop's head-0
     rows at B=8, 11 nodes), and the 10 draft heads at M = 8 (prefill and
     pass B at B=8) and M = 1 (prefill at B=1)."""
+    from whisper_medusa_tpu_torch.ops import qmm as QM
     from whisper_medusa_tpu_torch.ops import verify as VF
 
+    q = _int8(model)
+    name = "head_rows_int8" if q else "head_rows"
     heads = model.params["medusa"]["heads"]
-    w, b = heads["w"][:, 0], heads["b"][:, 0]
-    d = w.shape[1]
+    w, b = QM.wmap(heads["w"], lambda a: a[:, 0]), heads["b"][:, 0]
+    d = model.config.dims.d_model
     err, timed = 0.0, None
     for m, lo, hi in ((88, 0, 1), (8, 1, None), (1, 1, None)):
-        hw, hb = w[lo:hi], b[lo:hi]
+        hw, hb = QM.wmap(w, lambda a: a[lo:hi]), b[lo:hi]
         src = torch.randn((m, d), generator=g, device="cuda").to(torch.bfloat16)
         got = VF.head_rows_kernel(src, hw, hb)
         ref = VF.head_rows_plain(src, hw, hb)
         e = max_err(got, ref)
-        log(f"head_rows M={m} heads={hw.shape[0]}: max_abs_err {e:.3e}")
+        log(f"{name} M={m} heads={hb.shape[0]}: max_abs_err {e:.3e}")
         require(got.shape == ref.shape and close(got, ref, 3e-2),
-                f"head_rows M={m} heads={hw.shape[0]}: err {e}")
+                f"{name} M={m} heads={hb.shape[0]}: err {e}")
         err = max(err, e)
         if timed is None:
             timed = (src, hw, hb, got)
@@ -368,59 +448,123 @@ def check_head_rows(g, model):
     ms = cuda_ms(lambda: VF.head_rows_kernel(src, hw, hb))
     plain_ms = cuda_ms(lambda: VF.head_rows_plain(src, hw, hb))
     m, d = src.shape
-    return kernel_record("head_rows", "whisper_medusa_tpu_torch/csrc/verify.cu",
-                         "whisper_medusa_tpu/ops/verify.py:309", (VF, "head_launches"),
+    return kernel_record(name, "whisper_medusa_tpu_torch/csrc/verify.cu",
+                         "whisper_medusa_tpu/ops/verify.py:309",
+                         (VF, "q_head_launches" if q else "head_launches"),
                          err, ms, plain_ms,
-                         bound(nbytes(src, hw, hb, got), 2 * m * d * d), None)
+                         bound(nbytes(src, *_tensors(hw), hb, got), 2 * m * d * d), None)
 
 
-def check_verify_rows(g, model):
-    """K5 at R in {1, 8, 88, 1024}: argmax equal on rows whose plain top-2 gap
-    exceeds 1e-2; max / lse / gathered within 1e-2."""
+def check_verify_rows(g, model, sizes=(1, 8, 88, 1024)):
+    """K5 at R in ``sizes``: argmax equal on rows whose plain top-2 gap
+    exceeds 1e-2; max / lse / gathered as _stats_ok holds them."""
     from whisper_medusa_tpu_torch.ops import verify as VF
 
+    q = _int8(model)
+    name = "verify_rows_int8" if q else "verify_rows"
     worst = 0.0
     timed = {}
-    for r in (1, 8, 88, 1024):
+    for r in sizes:
         embed, masks, pos, gcol, kw = _verify_inputs(g, model, r)
-        hs = torch.randn((r, embed.shape[1]), generator=g, device="cuda").to(torch.bfloat16)
-        am, mx, lse, gth = VF.verify_rows_kernel(hs, embed, pos, gcol, masks, **kw)
-        ram, rmx, rlse, rgth = VF.verify_rows_plain(hs, embed, pos, gcol, masks, **kw)
-        arg_ok, n_clear = _clear_argmax(hs, embed, pos, masks, kw, am, ram, 1e-2)
-        err = max(max_err(mx, rmx), max_err(lse, rlse), max_err(gth, rgth))
-        log(f"K5 verify_rows R={r}: argmax equal on {n_clear} clear rows: {arg_ok}; "
+        d = model.config.dims.d_model
+        hs = torch.randn((r, d), generator=g, device="cuda").to(torch.bfloat16)
+        got = VF.verify_rows_kernel(hs, embed, pos, gcol, masks, **kw)
+        ref = VF.verify_rows_plain(hs, embed, pos, gcol, masks, **kw)
+        arg_ok, n_clear = _clear_argmax(hs, embed, pos, masks, kw, got[0], ref[0], 1e-2)
+        ok, err = _stats_ok(model, got, ref)
+        log(f"K5 {name} R={r}: argmax equal on {n_clear} clear rows: {arg_ok}; "
             f"max/lse/gathered max_abs_err {err:.3e}")
-        require(arg_ok and err <= 1e-2, f"K5 R={r}: argmax {arg_ok}, err {err}")
+        require(arg_ok and ok, f"K5 {name} R={r}: argmax {arg_ok}, err {err}")
         worst = max(worst, err)
         if r in (8, 88):
             args = (hs, embed, pos, gcol, masks)
             ms = cuda_ms(lambda: VF.verify_rows_kernel(*args, **kw))
             plain_ms = cuda_ms(lambda: VF.verify_rows_plain(*args, **kw))
-            d, v = embed.shape[1], embed.shape[0]
-            b = bound(nbytes(*args) + 4 * r * 4, 2 * r * v * d)
-            log(f"K5 verify_rows R={r}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            v = model.config.dims.vocab_size
+            b = bound(nbytes(hs, *_tensors(embed), pos, gcol, masks) + 4 * r * 4,
+                      2 * r * v * d)
+            log(f"K5 {name} R={r}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {b[0]:.4f} ms ({b[1]})")
             timed[r] = (ms, plain_ms, b)
     ms, plain_ms, b = timed[88]       # the batched Medusa path's pass A
-    return kernel_record("verify_rows", "whisper_medusa_tpu_torch/csrc/verify.cu",
-                         "whisper_medusa_tpu/ops/verify.py:183", (VF, "rows_launches"),
+    return kernel_record(name, "whisper_medusa_tpu_torch/csrc/verify.cu",
+                         "whisper_medusa_tpu/ops/verify.py:183",
+                         (VF, "q_rows_launches" if q else "rows_launches"),
                          worst, ms, plain_ms, b, None)
+
+
+def check_qmm(g, qmodel, enc):
+    """K6 at the main path's shape, one example's encoder output (1500, 1280)
+    through layer 0's int8 cross k projection: within 1e-3 of max |y|."""
+    from whisper_medusa_tpu_torch.ops import qmm as QM
+
+    w = qmodel.params["whisper"]["decoder"]["layers"]["cross"]["k_w"]
+    wq, s = w["q"][0], w["s"][0]
+    x = enc[0].contiguous()
+    got, ref = QM.qmm_kernel(x, wq, s), QM.qmm_plain(x, wq, s)
+    err, tol = max_err(got, ref), 1e-3 * float(ref.abs().max())
+    m, k = x.shape
+    n = wq.shape[1]
+    log(f"K6 qmm ({m},{k},{n}): max_abs_err {err:.3e} (bound {tol:.3e})")
+    require(err <= tol, f"K6 qmm: err {err} > {tol}")
+    ms = cuda_ms(lambda: QM.qmm_kernel(x, wq, s))
+    plain_ms = cuda_ms(lambda: QM.qmm_plain(x, wq, s))
+    w16 = wq.to(torch.bfloat16)        # the library yardstick's weight, cast beforehand
+    lib_ms = cuda_ms(lambda: torch.matmul(x, w16))
+    return kernel_record("qmm", "whisper_medusa_tpu_torch/csrc/qmm.cu",
+                         "whisper_medusa_tpu/ops/qmm.py:43", (QM, "launches"), err, ms,
+                         plain_ms, bound(nbytes(x, wq, s) + m * n * 4, 2 * m * k * n),
+                         lib_ms)
+
+
+def check_qmm_nt(g, qmodel):
+    """K7 at M = 1 and 8 (prefill base logits, B=1 and B=8), M = 10 (prefill
+    draft heads, B=1) and M = 80 (pass B, B=8): within 1e-3 of max |y|."""
+    from whisper_medusa_tpu_torch.ops import qmm as QM
+
+    e = qmodel.params["whisper"]["decoder"]["embed_tokens"]
+    eq, es = e["q"], e["s"]
+    worst, xs = 0.0, {}
+    for m in (1, 8, 10, 80):
+        x = torch.randn((m, eq.shape[1]), generator=g, device="cuda").to(torch.bfloat16)
+        got, ref = QM.qmm_nt_kernel(x, eq, es), QM.qmm_nt_plain(x, eq, es)
+        err, tol = max_err(got, ref), 1e-3 * float(ref.abs().max())
+        log(f"K7 qmm_nt M={m}: max_abs_err {err:.3e} (bound {tol:.3e})")
+        require(err <= tol, f"K7 qmm_nt M={m}: err {err} > {tol}")
+        worst, xs[m] = max(worst, err), x
+    log(f"K7 qmm_nt M=80: kernel {cuda_ms(lambda: QM.qmm_nt_kernel(xs[80], eq, es)):.4f} ms")
+    x = xs[10]
+    ms = cuda_ms(lambda: QM.qmm_nt_kernel(x, eq, es))
+    plain_ms = cuda_ms(lambda: QM.qmm_nt_plain(x, eq, es))
+    e16 = eq.to(torch.bfloat16)        # the library yardstick's table, cast beforehand
+    lib_ms = cuda_ms(lambda: x @ e16.T)
+    m, d, v = x.shape[0], eq.shape[1], eq.shape[0]
+    return kernel_record("qmm_nt", "whisper_medusa_tpu_torch/csrc/qmm.cu",
+                         "whisper_medusa_tpu/ops/qmm.py:90", (QM, "nt_launches"), worst,
+                         ms, plain_ms, bound(nbytes(x, eq, es) + m * v * 4, 2 * m * v * d),
+                         lib_ms)
 
 
 def _megastep_cost(dec_layers, ln_post, cache, offs, t, cross_len):
     """(bytes, flops) of one K2 call: every weight the kernel takes (not the
-    cross k/v projections, which init_cache applies), the cross K/V and the
-    self K/V history read once; the chunk's K/V rows and the outputs written."""
+    cross k/v projections, which init_cache applies) with its scales, the
+    cross K/V (and scales) and the self K/V history read once; the chunk's
+    K/V rows and the outputs written.  A self row is D elements plus, in
+    int8, its head's bf16 scale."""
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
     weights = [MS._leaf(dec_layers, path) for path in MS._WEIGHTS]
     nl, _, _, d = cache.self_k.shape
+    h = cache.cross_k.shape[2]
+    scales = [] if cache.self_s is None else [cache.cross_k_s, cache.cross_v_s]
+    row = d * cache.self_k.element_size() + (0 if cache.self_s is None else 2 * h)
     m = len(offs) * t
     hist = sum(off + t for off in offs)
-    moved = (nbytes(*weights, ln_post["scale"], ln_post["bias"], cache.cross_k,
-                    cache.cross_v)
-             + 2 * nl * hist * d * 2 + 2 * nl * m * d * 2 + 3 * m * d * 2)
-    ops = (2 * m * sum(w[0].numel() for w in weights if w.dim() == 3) * nl
+    moved = (nbytes(*[x for w in weights for x in _tensors(w)], ln_post["scale"],
+                    ln_post["bias"], cache.cross_k, cache.cross_v, *scales)
+             + 2 * nl * hist * row + 2 * nl * m * row + 3 * m * d * 2)
+    mats = [_tensors(w)[0] for w in weights if _tensors(w)[0].dim() == 3]
+    ops = (2 * m * sum(w[0].numel() for w in mats) * nl
            + nl * 4 * t * hist * d + nl * 4 * m * cross_len * d)
     return moved, ops
 
@@ -428,10 +572,14 @@ def _megastep_cost(dec_layers, ln_post, cache, offs, t, cross_len):
 def check_megastep_full(model, enc1, enc8):
     """The full 32-layer step against the plain layer loop on copies of one
     cache: at B=1 prefill T=4 then the T=11 chain, at B=8 prefill T=4, then
-    T=11 and T=1 at per-example offsets that differ."""
+    T=11 and T=1 at per-example offsets that differ.  bf16: pre_norm cosine
+    >= 0.999; int8 (a quantized model): >= 0.9998, its written rows
+    dequantized."""
     from whisper_medusa_tpu_torch.models import whisper
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
+    q = _int8(model)
+    name = "megastep_int8" if q else "megastep"
     p = model.params["whisper"]
     dims = model.config.dims
     dec = p["decoder"]
@@ -448,22 +596,26 @@ def check_megastep_full(model, enc1, enc8):
         # The longest cache generate() builds (max_length 448 + 12 rows): its
         # self-attention scores and V rows need more than 48 KB of shared memory.
         cache = whisper.init_cache(p, dims, enc, dims.max_target_positions + 12)
+        sc = {} if not q else dict(cross_k_s=cache.cross_k_s, cross_v_s=cache.cross_v_s)
         for t, offs in steps:
             toks = (torch.tensor([[st.sot, st.first_language, st.transcribe,
                                    st.no_timestamps]] * b) if t == 4 else
                     torch.arange(100, 100 + b * t).reshape(b, t)).to("cuda", torch.int32)
             offsets = torch.tensor(offs, dtype=torch.int32, device="cuda")
             pos = (offsets[:, None] + torch.arange(t, device="cuda")[None]).long()
-            x = dec["embed_tokens"][toks.long()] + dec["pos_embed"][pos]
+            x = whisper.embed_lookup(dec["embed_tokens"], toks.long()) + dec["pos_embed"][pos]
             sk, sv = cache.self_k.clone(), cache.self_v.clone()
+            ss = None if cache.self_s is None else cache.self_s.clone()
             args = (x, cache.self_k, cache.self_v, cache.cross_k, cache.cross_v,
                     offsets, None, dims.max_source_positions, nh)
-            got, hid = MS.megastep_kernel(dec["layers"], dec["ln_post"], *args)
+            kkw = dict(sc, self_s=cache.self_s) if q else {}
+            pkw = dict(sc, self_s=ss) if q else {}
+            got, hid = MS.megastep_kernel(dec["layers"], dec["ln_post"], *args, **kkw)
             ref, rhid = MS.megastep_plain(dec["layers"], dec["ln_post"], x, sk, sv,
-                                          *args[3:])
+                                          *args[3:], **pkw)
             cos = cosine(got, ref)
             extra = ""
-            if b == 1:
+            if b == 1 and not q:
                 # An f32 run of the same step (weights, cache and input
                 # upcast): how far each bf16 path lies from it.
                 ref32, _ = MS.megastep_plain(
@@ -484,35 +636,48 @@ def check_megastep_full(model, enc1, enc8):
             # layers bf16 rounding differences compound (the 2-layer check
             # holds the elementwise bound), so the deep stack is held to a norm.
             nl = dims.decoder_layers
-            per_layer = [max(rel_err(cache.self_k[i][written], sk[i][written]),
-                             rel_err(cache.self_v[i][written], sv[i][written]))
+
+            def rows(slab, scales, i, lanes):
+                if scales is None:
+                    return slab[i][written]
+                return whisper.dequant_self(slab[i], scales[i][..., lanes], nh)[written]
+
+            per_layer = [max(rel_err(rows(cache.self_k, cache.self_s, i, slice(0, nh)),
+                                     rows(sk, ss, i, slice(0, nh))),
+                             rel_err(rows(cache.self_v, cache.self_s, i, slice(nh, None)),
+                                     rows(sv, ss, i, slice(nh, None))))
                          for i in range(nl)]
             rerr = max(per_layer)
             shown = sorted({0, 1, nl // 8, nl // 2, nl - 1})
-            log(f"K2 megastep {nl}-layer B={b} T={t} offsets {offs}: pre_norm cosine "
+            log(f"K2 {name} {nl}-layer B={b} T={t} offsets {offs}: pre_norm cosine "
                 f"{cos:.6f}{extra}; argmax equal on {int(clear.sum())}/{b * t} rows with "
                 f"top-2 gap > 5e-2: {arg_ok}; written rows relative error by layer "
                 + " ".join(f"{i}:{per_layer[i]:.2e}" for i in shown))
-            require(cos >= 0.999 and arg_ok and rerr <= 3e-2,
-                    f"K2 {nl}-layer B={b} T={t}: cos {cos}, argmax {arg_ok}, rows {rerr}")
+            require(cos >= (0.9998 if q else 0.999) and arg_ok and rerr <= 3e-2,
+                    f"K2 {name} {nl}-layer B={b} T={t}: cos {cos}, argmax {arg_ok}, "
+                    f"rows {rerr}")
             worst_cos = min(worst_cos, cos)
             if t != 4:
-                run = lambda: MS.megastep_kernel(dec["layers"], dec["ln_post"], *args)
+                run = lambda: MS.megastep_kernel(dec["layers"], dec["ln_post"], *args,
+                                                 **kkw)
                 ms = cuda_ms(run)
                 plain_ms = cuda_ms(lambda: MS.megastep_plain(dec["layers"], dec["ln_post"],
-                                                             *args))
+                                                             *args, **kkw))
                 cost = _megastep_cost(dec["layers"], dec["ln_post"], cache, offs, t,
                                       dims.max_source_positions)
                 b_ms = bound(*cost)
-                log(f"K2 megastep {nl}-layer B={b} T={t}: kernel {ms:.4f} ms, plain "
+                log(f"K2 {name} {nl}-layer B={b} T={t}: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, bound {b_ms[0]:.4f} ms ({b_ms[1]}; "
                     f"{cost[0] / 1e9:.3f} GB, {cost[1] / 1e9:.1f} GFLOP)")
                 timings[(b, t)] = (ms, plain_ms, b_ms)
             cache.self_k.copy_(sk)      # continue from the plain path's cache
             cache.self_v.copy_(sv)
+            if q:
+                cache.self_s.copy_(ss)
     ms, plain_ms, b_ms = timings[(1, 11)]
-    return kernel_record("megastep", "whisper_medusa_tpu_torch/csrc/megastep.cu",
-                         "whisper_medusa_tpu/ops/megastep.py:342", (MS, "launches"),
+    return kernel_record(name, "whisper_medusa_tpu_torch/csrc/megastep.cu",
+                         "whisper_medusa_tpu/ops/megastep.py:342",
+                         (MS, "q_launches" if q else "launches"),
                          None, ms, plain_ms, b_ms, None), worst_cos
 
 
@@ -586,6 +751,7 @@ def check_batch_invariance(model, enc8):
                            begin_index=PROMPT_LEN, eos_token_id=st.eos)
     gen = GenerationConfig(max_length=PROMPT_LEN + MAX_NEW_TOKENS, eos_token_id=st.eos,
                            pad_token_id=gd.pad_token_id)
+    mode = "int8" if _int8(model) else "bf16"
     for variant, choices, med in (("base_head", cfg.medusa.medusa_choices,
                                    model.params["medusa"]),
                                   ("vanilla", (1,), None)):
@@ -601,11 +767,11 @@ def check_batch_invariance(model, enc8):
             acc1.append(int(alone.accepted[0]))
         # Accepted drafts are not held equal: at B=1 the drafts come from K4's
         # head rows, at B=8 from pass B (K3), which round differently.
-        log(f"batch invariance [{variant}]: B=8 tokens equal to the B=1 decode for "
+        log(f"{mode} batch invariance [{variant}]: B=8 tokens equal to the B=1 decode for "
             f"{sum(same)}/{b} examples; lengths {batched.lengths.tolist()}, "
             f"B=8 steps {batched.steps}; accepted at B=8 "
             f"{batched.accepted.tolist()}, alone {acc1}")
-        require(all(same), f"decode batch invariance [{variant}]: {same}")
+        require(all(same), f"{mode} decode batch invariance [{variant}]: {same}")
 
 
 def report_generate_invariance(model, feats8, batched):
@@ -624,6 +790,86 @@ def report_generate_invariance(model, feats8, batched):
         f"{enc_err:.3e}; tokens equal for {sum(same)}/{len(same)} examples {same}")
 
 
+# Kernels each main path must launch, bf16 and int8.
+NEEDS = {
+    "bf16": {"medusa B=1": ("attention", "megastep", "logits", "head_rows",
+                            "verify_hidden"),
+             "vanilla B=1": ("attention", "megastep", "logits", "verify_rows"),
+             "medusa B=8": ("attention", "megastep", "logits", "head_rows",
+                            "verify_rows"),
+             "vanilla B=8": ("attention", "megastep", "logits", "verify_rows")},
+    "int8": {"medusa B=1": ("attention", "megastep_int8", "qmm", "qmm_nt",
+                            "head_rows_int8", "verify_hidden_int8"),
+             "vanilla B=1": ("attention", "megastep_int8", "qmm", "qmm_nt",
+                             "verify_rows_int8"),
+             "medusa B=8": ("attention", "megastep_int8", "qmm", "qmm_nt",
+                            "head_rows_int8", "verify_rows_int8"),
+             "vanilla B=8": ("attention", "megastep_int8", "qmm", "qmm_nt",
+                             "verify_rows_int8")},
+}
+
+
+def phase_requests(mode, model, kernels, feats, waves, feats8, batch_secs):
+    """Phase 4 for one model: Medusa at B=1 on each of ``feats``, vanilla at
+    B=1 on the first, Medusa and vanilla at B=8; {path: outputs}."""
+    vocab = model.config.dims.vocab_size
+    needs = NEEDS[mode]
+    for f, kw in ((feats[0], {}), (feats[0], dict(disable_medusa=True)),
+                  (feats8, {}), (feats8, dict(disable_medusa=True))):
+        model.generate(f, language="en", max_new_tokens=8, **kw)      # warm-up
+    outs, medusa1_ms = {"medusa B=1": []}, []
+    for i, f in enumerate(feats):
+        out, wall = drive(f"{mode} medusa B=1 request {i}", kernels,
+                          lambda: model.generate(f, language="en",
+                                                 max_new_tokens=MAX_NEW_TOKENS),
+                          needs["medusa B=1"])
+        report(f"{mode} request {i} (medusa, B=1, {waves[i].shape[0] / 16000:.1f} s audio)",
+               out, wall, check_output(out, 1, vocab))
+        outs["medusa B=1"].append(out)
+        medusa1_ms.append(wall * 1e3)
+    out, wall = drive(f"{mode} vanilla B=1", kernels,
+                      lambda: model.generate(feats[0], language="en",
+                                             max_new_tokens=MAX_NEW_TOKENS,
+                                             disable_medusa=True),
+                      needs["vanilla B=1"])
+    report(f"{mode} request 0 (vanilla, B=1, {waves[0].shape[0] / 16000:.1f} s audio; "
+           f"medusa B=1 requests took {', '.join(f'{m:.1f}' for m in medusa1_ms)} ms)",
+           out, wall, check_output(out, 1, vocab))
+    outs["vanilla B=1"] = out
+    for name, kw in (("medusa", {}), ("vanilla", dict(disable_medusa=True))):
+        path = f"{name} B={BATCH}"
+        out, wall = drive(f"{mode} {path}", kernels,
+                          lambda: model.generate(feats8, language="en",
+                                                 max_new_tokens=MAX_NEW_TOKENS, **kw),
+                          needs[path])
+        outs[path] = out
+        report(f"{mode} batched request ({name}, B={BATCH}, audio "
+               f"{', '.join(f'{s:.1f}' for s in batch_secs)} s)", out, wall,
+               check_output(out, BATCH, vocab))
+        log(f"  per-example steps {out.steps_per_example.tolist()}, accepted "
+            f"{out.accepted.tolist()}, lengths {out.lengths.tolist()}")
+    return outs
+
+
+def token_share(a, b):
+    """Share of generated positions where two outputs hold the same token."""
+    return float((a.sequences[:, PROMPT_LEN:] == b.sequences[:, PROMPT_LEN:]).mean())
+
+
+def check_corruption(mode, model, feat, clean):
+    """Phase 5: every draft is wrong, so the loop commits one token per step
+    (vanilla decoding); the finish rule may stop it a few tokens apart, so
+    the common prefix is compared."""
+    bad = model.generate(feat, language="en", max_new_tokens=MAX_NEW_TOKENS,
+                         draft_corruption=1.0)
+    n = int(min(bad.lengths[0], clean.lengths[0]))
+    same = np.array_equal(bad.sequences[0, :n], clean.sequences[0, :n])
+    log(f"{mode} draft_corruption=1.0: first {n} tokens identical {same}, steps "
+        f"{bad.steps} (clean {clean.steps}), accepted {int(bad.accepted.sum())}")
+    require(same and bad.steps >= clean.steps,
+            f"{mode}: tokens changed under draft_corruption=1.0")
+
+
 def main():
     smi = phase_env()
     phase_build()
@@ -637,9 +883,10 @@ def main():
 
     # ---- phase 3: kernels vs plain versions
     k1 = check_attention(g)
-    err2 = max(check_megastep_2layer(g, t, offs) for t, offs in (
-        (4, [0]), (11, [7]), (1, [0, 17, 100, 5, 300, 440, 2, 63]),
-        (11, [7, 0, 120, 33, 448, 5, 260, 90])))
+    steps2 = ((4, [0]), (11, [7]), (1, [0, 17, 100, 5, 300, 440, 2, 63]),
+              (11, [7, 0, 120, 33, 448, 5, 260, 90]))
+    err2 = max(check_megastep_2layer(g, t, offs) for t, offs in steps2)
+    err2q = max(check_megastep_2layer_int8(g, t, offs) for t, offs in steps2)
     cfg = ModelConfig(dims=WHISPER_PRESETS["large-v2"], medusa=MedusaConfig(),
                       param_dtype="bfloat16", compute_dtype="bfloat16")
     t0 = time.perf_counter()
@@ -652,10 +899,19 @@ def main():
     torch.cuda.synchronize()
     log(f"model: whisper-large-v2 + 10 base_head heads, bf16, random (seed {SEED}), "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    qmodel = model.quantize()
+    torch.cuda.synchronize()
+    log(f"int8 serving copy (model.quantize()): {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated with both models")
     k3 = check_logits(g, model.params["whisper"]["decoder"]["embed_tokens"])
     k4 = check_verify(g, model)
     k4a = check_head_rows(g, model)
     k5 = check_verify_rows(g, model)
+    k7 = check_qmm_nt(g, qmodel)
+    k4q = check_verify(g, qmodel)
+    k4aq = check_head_rows(g, qmodel)
+    k5q = check_verify_rows(g, qmodel, sizes=(1, 8, 88))
 
     proc = WhisperMedusaProcessor(tokenizer=CharTokenizer())
     waves = waveforms((8.0, 17.5, 29.0))
@@ -668,66 +924,33 @@ def main():
     feats8 = proc(batch_waves)
     require(feats8.shape == (BATCH, 80, 3000) and bool(torch.isfinite(feats8).all()),
             "batched processor output")
-    enc8 = model.encode(feats8)
-    k2, worst_cos = check_megastep_full(model, model.encode(feats[0]), enc8)
+    enc1, enc8 = model.encode(feats[0]), model.encode(feats8)
+    k6 = check_qmm(g, qmodel, enc1)
+    k2, worst_cos = check_megastep_full(model, enc1, enc8)
     k2["max_abs_err"] = err2
-    kernels = [k1, k2, k3, k4, k4a, k5]
+    k2q, worst_cos_q = check_megastep_full(qmodel, enc1, enc8)
+    k2q["max_abs_err"] = err2q
+    kernels = [k1, k2, k2q, k3, k4, k4q, k4a, k4aq, k5, k5q, k6, k7]
 
-    # ---- phase 4: the main paths
-    vocab = cfg.dims.vocab_size
-    for f, kw in ((feats[0], {}), (feats[0], dict(disable_medusa=True)),
-                  (feats8, {}), (feats8, dict(disable_medusa=True))):
-        model.generate(f, language="en", max_new_tokens=8, **kw)      # warm-up
-    outs, medusa1_ms = [], []
-    for i, f in enumerate(feats):
-        out, wall = drive(f"medusa B=1 request {i}", kernels,
-                          lambda: model.generate(f, language="en",
-                                                 max_new_tokens=MAX_NEW_TOKENS),
-                          ("attention", "megastep", "logits", "head_rows",
-                           "verify_hidden"))
-        report(f"request {i} (medusa, B=1, {waves[i].shape[0] / 16000:.1f} s audio)", out,
-               wall, check_output(out, 1, vocab))
-        outs.append(out)
-        medusa1_ms.append(wall * 1e3)
-    out, wall = drive("vanilla B=1", kernels,
-                      lambda: model.generate(feats[0], language="en",
-                                             max_new_tokens=MAX_NEW_TOKENS,
-                                             disable_medusa=True),
-                      ("attention", "megastep", "logits", "verify_rows"))
-    report(f"request 0 (vanilla, B=1, {waves[0].shape[0] / 16000:.1f} s audio; medusa "
-           f"B=1 requests took {', '.join(f'{m:.1f}' for m in medusa1_ms)} ms)", out, wall,
-           check_output(out, 1, vocab))
-    batched = {}
-    for name, kw, needs in (("medusa", {}, ("head_rows",)),
-                            ("vanilla", dict(disable_medusa=True), ())):
-        out, wall = drive(f"{name} B={BATCH}", kernels,
-                          lambda: model.generate(feats8, language="en",
-                                                 max_new_tokens=MAX_NEW_TOKENS, **kw),
-                          ("attention", "megastep", "logits", "verify_rows") + needs)
-        batched[name] = out
-        report(f"batched request ({name}, B={BATCH}, audio "
-               f"{', '.join(f'{s:.1f}' for s in batch_secs)} s)", out, wall,
-               check_output(out, BATCH, vocab))
-        log(f"  per-example steps {out.steps_per_example.tolist()}, accepted "
-            f"{out.accepted.tolist()}, lengths {out.lengths.tolist()}")
+    # ---- phase 4: the main paths, bf16 then int8
+    outs = phase_requests("bf16", model, kernels, feats, waves, feats8, batch_secs)
+    qouts = phase_requests("int8", qmodel, kernels, feats[:1], waves, feats8, batch_secs)
+    for path, qout in qouts.items():
+        out = outs[path][0] if path == "medusa B=1" else outs[path]
+        qo = qout[0] if path == "medusa B=1" else qout
+        log(f"int8 vs bf16 [{path}]: {token_share(qo, out):.3f} of the generated "
+            f"positions hold the same token (printed, not held)")
     for k in kernels:
         log(f"launches {k['name']} (all main paths): {k['launches']}")
 
-    # ---- phase 5: invariance under corrupted drafts.  Every draft is wrong, so
-    # the loop commits one token per step (vanilla decoding); the finish rule
-    # may stop it a few tokens apart, so the common prefix is compared.
-    bad = model.generate(feats[0], language="en", max_new_tokens=MAX_NEW_TOKENS,
-                         draft_corruption=1.0)
-    n = int(min(bad.lengths[0], outs[0].lengths[0]))
-    same = np.array_equal(bad.sequences[0, :n], outs[0].sequences[0, :n])
-    log(f"draft_corruption=1.0: first {n} tokens identical {same}, steps {bad.steps} "
-        f"(clean {outs[0].steps}), accepted {int(bad.accepted.sum())}")
-    require(same and bad.steps >= outs[0].steps,
-            "tokens changed under draft_corruption=1.0")
+    # ---- phase 5: invariance under corrupted drafts
+    check_corruption("bf16", model, feats[0], outs["medusa B=1"][0])
+    check_corruption("int8", qmodel, feats[0], qouts["medusa B=1"][0])
 
-    # ---- phase 6: decode batch invariance
+    # ---- phase 6: decode batch invariance (the encoder is shared: the same rows)
     check_batch_invariance(model, enc8)
-    report_generate_invariance(model, feats8, batched["medusa"])
+    check_batch_invariance(qmodel, enc8)
+    report_generate_invariance(model, feats8, outs["medusa B=8"])
 
     rows = [{"name": k["name"], "route": "cuda", "source": k["source"],
              "replaces": k["replaces"], "launches": k["launches"],
@@ -735,7 +958,7 @@ def main():
              "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
              "library_ms": k["library_ms"]}
             for k in kernels]
-    log(f"K2 32-layer worst pre_norm cosine {worst_cos:.6f}")
+    log(f"K2 32-layer worst pre_norm cosine: bf16 {worst_cos:.6f}, int8 {worst_cos_q:.6f}")
     log(f"gpu: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

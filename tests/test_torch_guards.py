@@ -40,7 +40,8 @@ def _chip_smoke_imports():
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    assert "whisper_medusa_tpu_torch.models.api" in mods and len(mods) >= 19
+    assert {"whisper_medusa_tpu_torch.models.api", "whisper_medusa_tpu_torch.ops.qmm"} <= set(mods)
+    assert len(mods) >= 20
     smoke = _chip_smoke_imports()
     assert "whisper_medusa_tpu_torch.models.api" in smoke
     code = ("import importlib, sys\n"
@@ -81,6 +82,25 @@ def test_entry_points_default_to_the_card():
             make()
 
 
+def test_quantize_stays_on_the_model_device():
+    """quantize() quantizes on the model's device and keeps the copy there:
+    a CPU model gives a CPU int8 model, and a model made without a device
+    asks for the card, so on a host without a GPU it raises."""
+    model = WhisperMedusaModel.from_random(tiny_test_config(), device="cpu")
+    q = model.quantize()
+    assert q.device == torch.device("cpu") and q.config is model.config
+    dec = q.params["whisper"]["decoder"]
+    assert dec["embed_tokens"]["q"].dtype == torch.int8
+    assert dec["layers"]["fc1_w"]["s"].dtype == torch.float32
+    assert q.params["medusa"]["heads"]["w"]["q"].device.type == "cpu"
+    assert q.params["whisper"]["encoder"] is not dec and \
+        q.params["whisper"]["encoder"] is model.params["whisper"]["encoder"]
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is legitimate here")
+    with pytest.raises(RuntimeError, match="does not fall back"):
+        WhisperMedusaModel.from_random(tiny_test_config()).quantize()
+
+
 def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
     import torch.utils.cpp_extension as cpp_ext
 
@@ -97,8 +117,9 @@ def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_packaged():
     names = sorted(os.listdir(cuda_lib.CSRC_DIR))
-    assert {"attention.cu", "megastep.cu", "logits.cu", "verify.cu",
+    assert {"attention.cu", "megastep.cu", "logits.cu", "verify.cu", "qmm.cu",
             "common.cuh"} <= set(names)
+    assert {"wm_qmm", "wm_qmm_nt"} <= set(cuda_lib._SIGNATURES)
     for entry in cuda_lib._SIGNATURES:
         assert any(f"int {entry}(" in open(os.path.join(cuda_lib.CSRC_DIR, n)).read()
                    for n in names if n.endswith(".cu")), entry

@@ -97,13 +97,14 @@ def test_head_rows_plain_is_k4_row_construction():
     torch.testing.assert_close(got, rows[:8], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("what,match", [("quant", "item 11"), ("ts_cfg", "item 12")])
+@pytest.mark.parametrize("what,match", [("quant_ts_cfg", "item 12"), ("ts_cfg", "item 12")])
 def test_verify_rows_unported_modes_raise(what, match):
+    """The fused timestamp rules raise, with a bf16 or an int8 embedding."""
     hs = torch.zeros((2, 64))
     emb = torch.zeros((10, 64))
-    if what == "quant":
+    if what == "quant_ts_cfg":
         emb = {"q": emb.to(torch.int8), "s": torch.ones(10)}
-    kw = dict(ts_cfg=(8, 7, None)) if what == "ts_cfg" else {}
+    kw = dict(ts_cfg=(8, 7, None))
     with pytest.raises(NotImplementedError, match=match):
         tverify.verify_rows(hs, emb, torch.zeros(2, dtype=torch.int32),
                             torch.zeros(2, dtype=torch.int32),

@@ -34,7 +34,24 @@
 // >= cross_len are excluded (the JAX path gives them NEG_CROSS, i.e. zero
 // probability).  The chunk's K/V rows are written into the self slabs in
 // place (the JAX kernel aliases its slab outputs to its inputs).
+//
+// int8 serving (the JAX kernel's quant / kv_quant / skv_quant mode), chosen
+// by non-null scale pointers: the eight streamed weights are int8 with f32
+// per-column scales (the skinny GEMM's W8A16 form, scale before the bias,
+// megastep.py:433-457); the cross K/V are int8 with f32 (B, H, S) scales,
+// converted to bf16 as they are staged, each score multiplied by its key's
+// scale before the max and exp and each probability by its value's scale
+// before the PV product, the softmax denominator unscaled
+// (megastep.py:1053-1066); the self slabs are int8 with a bf16 scale slab
+// (L, B, S, 2H): the commit quantizes each (position, head) row of 64 lanes
+// with sc = max(amax, 1e-30) / 127 and rintf (half to even), clipped to
+// +-127, and stores bf16(sc) (megastep.py:619-644); attention reads history
+// rows j < offset as bf16(q * f32(bf16 scale)) and the chunk's own rows as
+// the fresh bf16 K/V (models/whisper.py:943-950, :1006-1012).  One step then
+// streams 0.73 GB of weights and B x 123 MB of cross K/V at large-v2.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace wm {
 namespace {
@@ -77,16 +94,34 @@ ln_rows_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
         f2bf((bf2f(xr[i]) - mean) * rstd * bf2f(scale[i]) + bf2f(bias[i]));
 }
 
+__device__ __forceinline__ int8_t quant8(float x, float sc) {
+  return (int8_t)fminf(fmaxf(rintf(x / sc), -127.0f), 127.0f);
+}
+
+// 8 int8 values times a scale, each rounded to bf16 (the dequantized row).
+__device__ __forceinline__ uint4 dequant8(uint2 raw, float sc) {
+  return make_uint4(pack_bf2(i8_at(raw.x, 0) * sc, i8_at(raw.x, 1) * sc),
+                    pack_bf2(i8_at(raw.x, 2) * sc, i8_at(raw.x, 3) * sc),
+                    pack_bf2(i8_at(raw.y, 0) * sc, i8_at(raw.y, 1) * sc),
+                    pack_bf2(i8_at(raw.y, 2) * sc, i8_at(raw.y, 3) * sc));
+}
+
 // Self-attention over [0, offset + T) with the chunk's K/V committed first.
 // One CTA (512 threads) per (head, example).  Dynamic smem: q (T x 64) and
 // the score/probability rows (T x S), float; the head's V rows (S x 64), bf16,
-// staged with 16-byte loads so the PV loop reads shared memory.
+// staged with 16-byte loads so the PV loop reads shared memory.  Q: int8
+// slabs with the layer's (B, S, 2H) bf16 scale slab (see the file comment).
+template <bool Q>
 __global__ void __launch_bounds__(AT)
 self_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
-                 bf16* __restrict__ slab_k, bf16* __restrict__ slab_v,
-                 const int* __restrict__ offsets, const uint8_t* __restrict__ mask,
-                 int t_len, int s_len, int d) {
+                 void* __restrict__ slab_k, void* __restrict__ slab_v,
+                 bf16* __restrict__ slab_s, const int* __restrict__ offsets,
+                 const uint8_t* __restrict__ mask, int t_len, int s_len, int d,
+                 int n_heads) {
+  using ST = typename std::conditional<Q, int8_t, bf16>::type;
+  ST* sk = static_cast<ST*>(slab_k);
+  ST* sv = static_cast<ST*>(slab_v);
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                    // [T][64]
   float* sc = sm + t_len * DH;       // [T][s_len]
@@ -96,36 +131,91 @@ self_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int off = offsets[b];
   const size_t slab0 = (size_t)b * s_len * d + (size_t)h * DH;
+  // (position j, lane) of the scale slab: K scale of head h, V at + n_heads.
+  const size_t srow0 = (size_t)b * s_len * 2 * n_heads + h;
 
-  for (int i = tid; i < t_len * DH; i += AT) {
-    const int t = i / DH, c = i % DH;
-    const size_t src = (size_t)(b * t_len + t) * d + h * DH + c;
-    if (off + t < s_len) {
-      slab_k[slab0 + (size_t)(off + t) * d + c] = k[src];
-      slab_v[slab0 + (size_t)(off + t) * d + c] = v[src];
+  if constexpr (Q) {
+    // One warp per chunk row: lanes hold columns lane and lane + 32.
+    for (int t = warp; t < t_len; t += AT / 32) {
+      const size_t src = (size_t)(b * t_len + t) * d + h * DH;
+      const float k0 = bf2f(k[src + lane]), k1 = bf2f(k[src + lane + 32]);
+      const float v0 = bf2f(v[src + lane]), v1 = bf2f(v[src + lane + 32]);
+      const float ksc = fmaxf(warp_max(fmaxf(fabsf(k0), fabsf(k1))), 1e-30f) / 127.0f;
+      const float vsc = fmaxf(warp_max(fmaxf(fabsf(v0), fabsf(v1))), 1e-30f) / 127.0f;
+      if (off + t < s_len) {
+        const size_t dst = slab0 + (size_t)(off + t) * d;
+        sk[dst + lane] = quant8(k0, ksc);
+        sk[dst + lane + 32] = quant8(k1, ksc);
+        sv[dst + lane] = quant8(v0, vsc);
+        sv[dst + lane + 32] = quant8(v1, vsc);
+        if (lane == 0) {
+          slab_s[srow0 + (size_t)(off + t) * 2 * n_heads] = f2bf(ksc);
+          slab_s[srow0 + (size_t)(off + t) * 2 * n_heads + n_heads] = f2bf(vsc);
+        }
+      }
     }
-    qs[t * DH + c] = bf2f(q[src]);
+    for (int i = tid; i < t_len * DH; i += AT) {
+      const int t = i / DH, c = i % DH;
+      qs[t * DH + c] = bf2f(q[(size_t)(b * t_len + t) * d + h * DH + c]);
+    }
+  } else {
+    for (int i = tid; i < t_len * DH; i += AT) {
+      const int t = i / DH, c = i % DH;
+      const size_t src = (size_t)(b * t_len + t) * d + h * DH + c;
+      if (off + t < s_len) {
+        sk[slab0 + (size_t)(off + t) * d + c] = k[src];
+        sv[slab0 + (size_t)(off + t) * d + c] = v[src];
+      }
+      qs[t * DH + c] = bf2f(q[src]);
+    }
   }
   __syncthreads();
 
   const int nk = min(off + t_len, s_len);
   for (int i = tid; i < nk * (DH / 8); i += AT) {
     const int j = i / (DH / 8), c8 = (i % (DH / 8)) * 8;
-    *reinterpret_cast<uint4*>(vs + j * DH + c8) =
-        *reinterpret_cast<const uint4*>(slab_v + slab0 + (size_t)j * d + c8);
+    uint4 val;
+    if constexpr (Q) {
+      if (j < off)
+        val = dequant8(*reinterpret_cast<const uint2*>(sv + slab0 + (size_t)j * d + c8),
+                       bf2f(slab_s[srow0 + (size_t)j * 2 * n_heads + n_heads]));
+      else
+        val = load8(v + (size_t)(b * t_len + j - off) * d + h * DH + c8);
+    } else {
+      val = load8(sv + slab0 + (size_t)j * d + c8);
+    }
+    *reinterpret_cast<uint4*>(vs + j * DH + c8) = val;
   }
   for (int j = tid; j < nk; j += AT) {
     float acc[MAXT];
 #pragma unroll
     for (int t = 0; t < MAXT; ++t) acc[t] = 0.0f;
-    const bf16* kr = slab_k + slab0 + (size_t)j * d;
+    // History rows from the slab; with int8 slabs the chunk's rows come
+    // fresh from k.
+    const bool hist = !Q || j < off;
+    const ST* kr = sk + slab0 + (size_t)j * d;
+    const bf16* kf16 = k + ((size_t)b * t_len + (hist ? 0 : j - off)) * d + h * DH;
+    const float ksc = (Q && hist) ? bf2f(slab_s[srow0 + (size_t)j * 2 * n_heads]) : 1.0f;
 #pragma unroll
     for (int c8 = 0; c8 < DH; c8 += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(kr + c8);
-      const bf16* kv8 = reinterpret_cast<const bf16*>(&raw);
       float kf[8];
+      if constexpr (Q) {
+        if (hist) {
+          const uint2 raw = *reinterpret_cast<const uint2*>(kr + c8);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) kf[e] = bf2f(kv8[e]);
+          for (int e = 0; e < 8; ++e) kf[e] = bfr(i8_at(e < 4 ? raw.x : raw.y, e & 3) * ksc);
+        } else {
+          const uint4 raw = load8(kf16 + c8);
+          const bf16* kv8 = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) kf[e] = bf2f(kv8[e]);
+        }
+      } else {
+        const uint4 raw = load8(kr + c8);
+        const bf16* kv8 = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) kf[e] = bf2f(kv8[e]);
+      }
 #pragma unroll
       for (int t = 0; t < MAXT; ++t) {
         if (t < t_len) {
@@ -184,14 +274,19 @@ self_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // S) and V tile (128 x 64, head-flat rows) are staged in shared memory with
 // 8- and 16-byte loads.  Writes the chunk-normalized output o_c, the chunk
 // max m_c and the chunk sum l_c for every query row.  s_enc % 4 == 0.
+// KT int8: K/V converted to bf16 on staging, scores times ks, probabilities
+// times vs (the layer's (B, H, S_enc) f32 scales).
+template <typename KT>
 __global__ void __launch_bounds__(AT)
-cross_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
-                     const bf16* __restrict__ cv, float* __restrict__ part_o,
+cross_partial_kernel(const bf16* __restrict__ q, const KT* __restrict__ ck,
+                     const KT* __restrict__ cv, const float* __restrict__ ks,
+                     const float* __restrict__ vs_g, float* __restrict__ part_o,
                      float* __restrict__ part_ml, int t_len, int n_heads, int d,
                      int s_enc, int cross_len, int nch) {
+  constexpr bool Q = sizeof(KT) == 1;
   __shared__ float qs[MAXT][DH];
-  __shared__ __align__(16) bf16 ks[DH][CS + 8];
-  __shared__ __align__(16) bf16 vs[CS][DH + 8];
+  __shared__ __align__(16) bf16 kt[DH][CS + 8];
+  __shared__ __align__(16) bf16 vt[CS][DH + 8];
   __shared__ float ps[MAXT][CS];
   const int ch = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -201,26 +296,29 @@ cross_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
     const int t = i / DH, c = i % DH;
     qs[t][c] = bf2f(q[(size_t)(b * t_len + t) * d + h * DH + c]);
   }
-  const bf16* kh = ck + ((size_t)b * n_heads + h) * DH * s_enc + s0;
+  const KT* kh = ck + ((size_t)b * n_heads + h) * DH * s_enc + s0;
   for (int i = tid; i < DH * (CS / 4); i += AT) {
     const int c = i / (CS / 4), j4 = (i % (CS / 4)) * 4;
     uint2 val = make_uint2(0, 0);
     if (j4 + 4 <= nkeys) {
-      val = *reinterpret_cast<const uint2*>(kh + (size_t)c * s_enc + j4);
+      val = load4(kh + (size_t)c * s_enc + j4);
     } else {
       bf16* e = reinterpret_cast<bf16*>(&val);
       for (int x = 0; x < 4; ++x)
-        if (j4 + x < nkeys) e[x] = kh[(size_t)c * s_enc + j4 + x];
+        if (j4 + x < nkeys) e[x] = to_bf(kh[(size_t)c * s_enc + j4 + x]);
     }
-    *reinterpret_cast<uint2*>(&ks[c][j4]) = val;
+    *reinterpret_cast<uint2*>(&kt[c][j4]) = val;
   }
-  const bf16* vh = cv + ((size_t)b * s_enc + s0) * d + h * DH;
+  const KT* vh = cv + ((size_t)b * s_enc + s0) * d + h * DH;
   for (int i = tid; i < CS * (DH / 8); i += AT) {
     const int j = i / (DH / 8), c8 = (i % (DH / 8)) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (j < nkeys) val = *reinterpret_cast<const uint4*>(vh + (size_t)j * d + c8);
-    *reinterpret_cast<uint4*>(&vs[j][c8]) = val;
+    if (j < nkeys) val = load8(vh + (size_t)j * d + c8);
+    *reinterpret_cast<uint4*>(&vt[j][c8]) = val;
   }
+  // This (example, head)'s scales of the chunk's keys (int8 only).
+  const float* ksr = Q ? ks + ((size_t)b * n_heads + h) * s_enc + s0 : nullptr;
+  const float* vsr = Q ? vs_g + ((size_t)b * n_heads + h) * s_enc + s0 : nullptr;
   __syncthreads();
 
   if (tid < CS) {
@@ -230,14 +328,15 @@ cross_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
     for (int t = 0; t < MAXT; ++t) acc[t] = 0.0f;
 #pragma unroll 8
     for (int c = 0; c < DH; ++c) {
-      const float kd = bf2f(ks[c][tid]);
+      const float kd = bf2f(kt[c][tid]);
 #pragma unroll
       for (int t = 0; t < MAXT; ++t)
         if (t < t_len) acc[t] += qs[t][c] * kd;
     }
+    const float ksc = (Q && valid) ? ksr[tid] : 1.0f;
 #pragma unroll
     for (int t = 0; t < MAXT; ++t)
-      if (t < t_len) ps[t][tid] = valid ? acc[t] : -INFINITY;
+      if (t < t_len) ps[t][tid] = valid ? acc[t] * ksc : -INFINITY;
   }
   __syncthreads();
 
@@ -251,7 +350,7 @@ cross_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
     l = warp_sum(l);
     const float inv = 1.0f / l;
     for (int j = lane; j < CS; j += 32)
-      ps[t][j] = j < nkeys ? bfr(expf(ps[t][j] - m) * inv) : 0.0f;
+      ps[t][j] = j < nkeys ? bfr(expf(ps[t][j] - m) * inv * (Q ? vsr[j] : 1.0f)) : 0.0f;
     if (lane == 0) {
       part_ml[((row0 + t) * nch + ch) * 2] = m;
       part_ml[((row0 + t) * nch + ch) * 2 + 1] = l;
@@ -264,7 +363,7 @@ cross_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
 #pragma unroll
   for (int i = 0; i < MAXT / RG; ++i) o[i] = 0.0f;
   for (int j = 0; j < nkeys; ++j) {
-    const float vv = bf2f(vs[j][c]);
+    const float vv = bf2f(vt[j][c]);
 #pragma unroll
     for (int i = 0; i < MAXT / RG; ++i) {
       const int t = g + RG * i;
@@ -315,9 +414,9 @@ enum MegastepPtr {
   P_ATTN,         // (M16, D) bf16 scratch: attention output
   P_H,            // (M16, F) bf16 scratch: fc1 output
   P_PART,         // f32 scratch: cross partials (B*H*T*nch*(64 + 2))
-  P_SELF_K, P_SELF_V,    // (L, B, S, D) bf16 slabs, updated in place
-  P_CROSS_K,             // (L, B, H, 64, Se) bf16
-  P_CROSS_V,             // (L, B, Se, D) bf16
+  P_SELF_K, P_SELF_V,    // (L, B, S, D) bf16 (int8) slabs, updated in place
+  P_CROSS_K,             // (L, B, H, 64, Se) bf16 (int8)
+  P_CROSS_V,             // (L, B, Se, D) bf16 (int8)
   P_OFFSETS,             // (B,) int32
   P_MASK,                // (T, T) uint8 chunk mask
   P_SELF_LN_S, P_SELF_LN_B, P_Q_W, P_Q_B, P_K_W, P_V_W, P_V_B, P_O_W, P_O_B,
@@ -325,6 +424,11 @@ enum MegastepPtr {
   P_FFN_LN_S, P_FFN_LN_B, P_FC1_W, P_FC1_B, P_FC2_W, P_FC2_B,
   P_LN_POST_S, P_LN_POST_B,   // (D,) bf16 final layer norm
   P_HIDDEN,                   // (M, D) bf16 out: ln_post(pre_norm)
+  // int8 serving (all null in bf16 mode): the streamed weights above are
+  // int8 and these are their f32 per-column scales, (L, D) or (L, F) ...
+  P_Q_S, P_K_S, P_V_S, P_O_S, P_CQ_S, P_CO_S, P_FC1_S, P_FC2_S,
+  P_CROSS_K_S, P_CROSS_V_S,   // (L, B, H, Se) f32 cross scales
+  P_SELF_S,                   // (L, B, S, 2H) bf16 self scales, updated in place
   P_COUNT
 };
 
@@ -339,16 +443,34 @@ extern "C" int wm_megastep_step(void** p, const int* ints, void* stream) {
   if (T > MAXT || B > 8 || M > SK_MAX_ROWS || D != H * DH || D % 256 || F % 256 ||
       SE % 4)
     return (int)cudaErrorInvalidValue;
+  const bool quant = p[P_Q_S] != nullptr;
+  if (quant && (!p[P_K_S] || !p[P_V_S] || !p[P_O_S] || !p[P_CQ_S] || !p[P_CO_S] ||
+                !p[P_FC1_S] || !p[P_FC2_S] || !p[P_CROSS_K_S] || !p[P_CROSS_V_S] ||
+                !p[P_SELF_S]))
+    return (int)cudaErrorInvalidValue;
   const int nch = (cross_len + CS - 1) / CS;
   const size_t self_smem =
       (size_t)T * (DH + S) * sizeof(float) + 16 + (size_t)S * DH * sizeof(bf16);
+  if (self_smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (self_smem > 48 * 1024) {
-    if (self_smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-    cudaFuncSetAttribute(self_attn_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)self_smem);
+    if (quant)
+      cudaFuncSetAttribute(self_attn_kernel<true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)self_smem);
+    else
+      cudaFuncSetAttribute(self_attn_kernel<false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)self_smem);
   }
 
   auto P = [&](int i) { return static_cast<bf16*>(p[i]); };
+  // A streamed weight of layer l (element offset off): bf16 or int8.
+  auto W = [&](int i, size_t off) -> const void* {
+    return quant ? static_cast<const void*>(static_cast<const int8_t*>(p[i]) + off)
+                 : static_cast<const void*>(static_cast<const bf16*>(p[i]) + off);
+  };
+  // Its per-column scales (null in bf16 mode).
+  auto WS = [&](int i, size_t off) -> const float* {
+    return quant ? static_cast<const float*>(p[i]) + off : nullptr;
+  };
   bf16 *x = P(P_X), *xa = P(P_XA), *qb = P(P_Q), *kb = P(P_K), *vb = P(P_V);
   bf16 *attn = P(P_ATTN), *hb = P(P_H);
   float* part_o = static_cast<float*>(p[P_PART]);
@@ -360,39 +482,63 @@ extern "C" int wm_megastep_step(void** p, const int* ints, void* stream) {
 
   for (int l = 0; l < L; ++l) {
     const size_t lD = (size_t)l * D, lF = (size_t)l * F;
+    const size_t slab = (size_t)l * B * S * D;
     // --- self-attention
     ln_rows(x, xa, P(P_SELF_LN_S) + lD, P(P_SELF_LN_B) + lD, M, D, st);
     SkinnyJobs qkv;
-    qkv.j[0] = job(P(P_Q_W) + l * DD, P(P_Q_B) + lD, qb, EPI_BIAS_SCALE, nullptr, scale);
-    qkv.j[1] = job(P(P_K_W) + l * DD, nullptr, kb, EPI_BIAS);
-    qkv.j[2] = job(P(P_V_W) + l * DD, P(P_V_B) + lD, vb, EPI_BIAS);
+    qkv.j[0] = job(W(P_Q_W, l * DD), P(P_Q_B) + lD, qb, EPI_BIAS_SCALE, nullptr, scale,
+                   WS(P_Q_S, lD));
+    qkv.j[1] = job(W(P_K_W, l * DD), nullptr, kb, EPI_BIAS, nullptr, 1.0f, WS(P_K_S, lD));
+    qkv.j[2] = job(W(P_V_W, l * DD), P(P_V_B) + lD, vb, EPI_BIAS, nullptr, 1.0f,
+                   WS(P_V_S, lD));
     skinny_gemm(xa, D, M, D, D, D, D, qkv, 3, 3, 0, 0, 0, st);
-    self_attn_kernel<<<dim3(H, B), AT, self_smem, st>>>(
-        qb, kb, vb, attn, P(P_SELF_K) + (size_t)l * B * S * D,
-        P(P_SELF_V) + (size_t)l * B * S * D, offsets, mask, T, S, D);
+    if (quant)
+      self_attn_kernel<true><<<dim3(H, B), AT, self_smem, st>>>(
+          qb, kb, vb, attn, static_cast<int8_t*>(p[P_SELF_K]) + slab,
+          static_cast<int8_t*>(p[P_SELF_V]) + slab,
+          P(P_SELF_S) + (size_t)l * B * S * 2 * H, offsets, mask, T, S, D, H);
+    else
+      self_attn_kernel<false><<<dim3(H, B), AT, self_smem, st>>>(
+          qb, kb, vb, attn, P(P_SELF_K) + slab, P(P_SELF_V) + slab, nullptr, offsets,
+          mask, T, S, D, H);
     SkinnyJobs o;
-    o.j[0] = job(P(P_O_W) + l * DD, P(P_O_B) + lD, x, EPI_BIAS_RESID, x);
+    o.j[0] = job(W(P_O_W, l * DD), P(P_O_B) + lD, x, EPI_BIAS_RESID, x, 1.0f,
+                 WS(P_O_S, lD));
     skinny_gemm(attn, D, M, D, D, D, D, o, 1, 1, 0, 0, 0, st);
     // --- cross-attention
     ln_rows(x, xa, P(P_CROSS_LN_S) + lD, P(P_CROSS_LN_B) + lD, M, D, st);
     SkinnyJobs cq;
-    cq.j[0] = job(P(P_CQ_W) + l * DD, P(P_CQ_B) + lD, qb, EPI_BIAS_SCALE, nullptr, scale);
+    cq.j[0] = job(W(P_CQ_W, l * DD), P(P_CQ_B) + lD, qb, EPI_BIAS_SCALE, nullptr, scale,
+                  WS(P_CQ_S, lD));
     skinny_gemm(xa, D, M, D, D, D, D, cq, 1, 1, 0, 0, 0, st);
-    cross_partial_kernel<<<dim3(nch, H, B), AT, 0, st>>>(
-        qb, P(P_CROSS_K) + (size_t)l * B * H * DH * SE,
-        P(P_CROSS_V) + (size_t)l * B * SE * D, part_o, part_ml, T, H, D, SE,
-        cross_len, nch);
+    const size_t ck = (size_t)l * B * H * DH * SE, cv = (size_t)l * B * SE * D;
+    if (quant) {
+      const size_t cs = (size_t)l * B * H * SE;
+      cross_partial_kernel<int8_t><<<dim3(nch, H, B), AT, 0, st>>>(
+          qb, static_cast<const int8_t*>(p[P_CROSS_K]) + ck,
+          static_cast<const int8_t*>(p[P_CROSS_V]) + cv,
+          static_cast<const float*>(p[P_CROSS_K_S]) + cs,
+          static_cast<const float*>(p[P_CROSS_V_S]) + cs, part_o, part_ml, T, H, D, SE,
+          cross_len, nch);
+    } else {
+      cross_partial_kernel<bf16><<<dim3(nch, H, B), AT, 0, st>>>(
+          qb, P(P_CROSS_K) + ck, P(P_CROSS_V) + cv, nullptr, nullptr, part_o, part_ml, T,
+          H, D, SE, cross_len, nch);
+    }
     cross_combine_kernel<<<dim3(H, B), 256, 0, st>>>(part_o, part_ml, attn, T, H, D, nch);
     SkinnyJobs co;
-    co.j[0] = job(P(P_CO_W) + l * DD, P(P_CO_B) + lD, x, EPI_BIAS_RESID, x);
+    co.j[0] = job(W(P_CO_W, l * DD), P(P_CO_B) + lD, x, EPI_BIAS_RESID, x, 1.0f,
+                  WS(P_CO_S, lD));
     skinny_gemm(attn, D, M, D, D, D, D, co, 1, 1, 0, 0, 0, st);
     // --- FFN
     ln_rows(x, xa, P(P_FFN_LN_S) + lD, P(P_FFN_LN_B) + lD, M, D, st);
     SkinnyJobs f1;
-    f1.j[0] = job(P(P_FC1_W) + l * DF, P(P_FC1_B) + lF, hb, EPI_BIAS_GELU);
+    f1.j[0] = job(W(P_FC1_W, l * DF), P(P_FC1_B) + lF, hb, EPI_BIAS_GELU, nullptr, 1.0f,
+                  WS(P_FC1_S, lF));
     skinny_gemm(xa, D, M, D, F, F, F, f1, 1, 1, 0, 0, 0, st);
     SkinnyJobs f2;
-    f2.j[0] = job(P(P_FC2_W) + l * DF, P(P_FC2_B) + lD, x, EPI_BIAS_RESID, x);
+    f2.j[0] = job(W(P_FC2_W, l * DF), P(P_FC2_B) + lD, x, EPI_BIAS_RESID, x, 1.0f,
+                  WS(P_FC2_S, lD));
     skinny_gemm(hb, F, M, F, D, D, D, f2, 1, 1, 0, 0, 0, st);
   }
   ln_rows(x, P(P_HIDDEN), P(P_LN_POST_S), P(P_LN_POST_B), M, D, st);

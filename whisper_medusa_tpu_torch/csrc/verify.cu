@@ -42,14 +42,23 @@
 // bf16(SiLU(src[m] @ W_k + b_k)) for M <= 128 source rows, the same skinny
 // GEMM and epilogue as K4's stage A, so a head row has the same bits whether
 // K4 builds it or the two-pass loop does.
+//
+// int8 serving (the JAX kernels' quant / hquant modes) rides the same three
+// entries: an int8 embedding (V, D) with f32 scales (V,) is converted to bf16
+// as vocab_tile stages it and column v's sum is multiplied by s[v] before the
+// processors (66 MB stream instead of 133 MB); int8 heads (nh, D, D) with
+// f32 scales (nh, D) take the skinny GEMM's W8A16 form.  A null scale
+// pointer selects the bf16 form.
 #include "common.cuh"
 
 namespace wm {
 namespace {
 
+template <typename ET>
 __global__ void __launch_bounds__(VTHREADS)
-verify_tile_kernel(const bf16* __restrict__ rows, int n_rows, const bf16* __restrict__ e,
-                   int v_dim, int d_dim, const int* __restrict__ pos,
+verify_tile_kernel(const bf16* __restrict__ rows, int n_rows, const ET* __restrict__ e,
+                   const float* __restrict__ escale, int v_dim, int d_dim,
+                   const int* __restrict__ pos,
                    const int* __restrict__ gcol, const int8_t* __restrict__ sup,
                    int begin_index, int eos_id, int has_decay, int decay_start,
                    float log_factor, float* __restrict__ part_f,
@@ -78,6 +87,7 @@ verify_tile_kernel(const bf16* __restrict__ rows, int n_rows, const bf16* __rest
       if (col[hh] >= v_dim) {
         val = NEG_VERIFY;
       } else {
+        if constexpr (sizeof(ET) == 1) val *= escale[col[hh]];
         if (sup[col[hh]]) val = NEG_VERIFY;
         if (sup[v_dim + col[hh]] && p == begin_index) val = NEG_VERIFY;
         if (has_decay && col[hh] == eos_id && p > decay_start) {
@@ -151,20 +161,38 @@ verify_combine_kernel(const float* __restrict__ part_f, const int* __restrict__ 
   }
 }
 
-// Stages B and C over rows (n_rows, D): every 128-row block of every vocab
-// tile, then the per-row combine.
-inline void score_rows(const bf16* rows, int n_rows, const bf16* e, int v_dim,
-                       int d_dim, const int* pos, const int* gcol, const int8_t* sup,
-                       int begin_index, int eos_id, int has_decay, int decay_start,
-                       float log_factor, float* part_f, int* part_a, float* o_max,
-                       float* o_lse, int* o_arg, float* o_gth, cudaStream_t st) {
+template <typename ET>
+inline void launch_tiles(dim3 grid, const bf16* rows, int n_rows, const void* e,
+                         const float* escale, int v_dim, int d_dim, const int* pos,
+                         const int* gcol, const int8_t* sup, int begin_index, int eos_id,
+                         int has_decay, int decay_start, float log_factor, float* part_f,
+                         int* part_a, cudaStream_t st) {
   // Per launch: the attribute belongs to the current device's context.
-  cudaFuncSetAttribute(verify_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(verify_tile_kernel<ET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        VOCAB_SMEM);
+  verify_tile_kernel<ET><<<grid, VTHREADS, VOCAB_SMEM, st>>>(
+      rows, n_rows, static_cast<const ET*>(e), escale, v_dim, d_dim, pos, gcol, sup,
+      begin_index, eos_id, has_decay, decay_start, log_factor, part_f, part_a);
+}
+
+// Stages B and C over rows (n_rows, D): every 128-row block of every vocab
+// tile, then the per-row combine.  e is bf16, or int8 when escale is set.
+inline void score_rows(const bf16* rows, int n_rows, const void* e, const float* escale,
+                       int v_dim, int d_dim, const int* pos, const int* gcol,
+                       const int8_t* sup, int begin_index, int eos_id, int has_decay,
+                       int decay_start, float log_factor, float* part_f, int* part_a,
+                       float* o_max, float* o_lse, int* o_arg, float* o_gth,
+                       cudaStream_t st) {
   const int ntiles = (v_dim + VT - 1) / VT;
-  verify_tile_kernel<<<dim3(ntiles, (n_rows + VRB - 1) / VRB), VTHREADS, VOCAB_SMEM, st>>>(
-      rows, n_rows, e, v_dim, d_dim, pos, gcol, sup, begin_index, eos_id, has_decay,
-      decay_start, log_factor, part_f, part_a);
+  const dim3 grid(ntiles, (n_rows + VRB - 1) / VRB);
+  if (escale)
+    launch_tiles<int8_t>(grid, rows, n_rows, e, escale, v_dim, d_dim, pos, gcol, sup,
+                         begin_index, eos_id, has_decay, decay_start, log_factor, part_f,
+                         part_a, st);
+  else
+    launch_tiles<bf16>(grid, rows, n_rows, e, nullptr, v_dim, d_dim, pos, gcol, sup,
+                       begin_index, eos_id, has_decay, decay_start, log_factor, part_f,
+                       part_a, st);
   verify_combine_kernel<<<(n_rows + 7) / 8, 256, 0, st>>>(
       part_f, part_a, ntiles, n_rows, o_max, o_lse, o_arg, o_gth);
 }
@@ -176,9 +204,9 @@ inline void score_rows(const bf16* rows, int n_rows, const bf16* e, int v_dim,
 enum VerifyPtr {
   V_HVER = 0,   // (BN, D) bf16 row-block-0 source (identity0 only)
   V_HSRC16,     // (16, D) bf16 draft-row source, zero-padded to 16 rows
-  V_HEADS_W,    // (nh, D, D) bf16
+  V_HEADS_W,    // (nh, D, D) bf16, or int8 with V_HEADS_S
   V_HEADS_B,    // (nh, D) bf16
-  V_EMBED,      // (V, D) bf16
+  V_EMBED,      // (V, D) bf16, or int8 with V_EMBED_S
   V_POS,        // (R,) int32
   V_GCOL,       // (R,) int32
   V_SUP,        // (2, V) int8 [suppress; begin-suppress]
@@ -186,6 +214,8 @@ enum VerifyPtr {
   V_PART_F,     // (3, R, ntiles) f32 scratch
   V_PART_A,     // (R, ntiles) int32 scratch
   V_MAX, V_LSE, V_ARG, V_GTH,   // (R,) outputs
+  V_EMBED_S,    // (V,) f32 int8-embedding scales, or null (bf16 embedding)
+  V_HEADS_S,    // (nh, D) f32 int8-head scales, or null (bf16 heads)
   V_COUNT
 };
 
@@ -207,13 +237,13 @@ extern "C" int wm_verify_hidden(void** p, const int* ints, float log_factor,
                     cudaMemcpyDeviceToDevice, st);
   const bf16* src = static_cast<const bf16*>(p[V_HSRC16]);
   SkinnyJobs heads;
-  heads.j[0] = job(static_cast<const bf16*>(p[V_HEADS_W]),
-                   static_cast<const bf16*>(p[V_HEADS_B]),
-                   rows + (size_t)id0 * BN * D, EPI_SILU_RESID, src);
+  heads.j[0] = job(p[V_HEADS_W], static_cast<const bf16*>(p[V_HEADS_B]),
+                   rows + (size_t)id0 * BN * D, EPI_SILU_RESID, src, 1.0f,
+                   static_cast<const float*>(p[V_HEADS_S]));
   skinny_gemm(src, D, BN, D, D, D, D, heads, 1, NH, (long long)D * D, D,
               (long long)BN * D, st);
   // (B) vocab tiles, (C) combine.
-  score_rows(rows, R, static_cast<const bf16*>(p[V_EMBED]), V, D,
+  score_rows(rows, R, p[V_EMBED], static_cast<const float*>(p[V_EMBED_S]), V, D,
              static_cast<const int*>(p[V_POS]), static_cast<const int*>(p[V_GCOL]),
              static_cast<const int8_t*>(p[V_SUP]), begin_index, eos_id, has_decay,
              decay_start, log_factor, static_cast<float*>(p[V_PART_F]),
@@ -226,13 +256,14 @@ extern "C" int wm_verify_hidden(void** p, const int* ints, float log_factor,
 // Pointer table of wm_verify_rows (ops/verify.py builds the same list).
 enum VerifyRowsPtr {
   VR_ROWS = 0,   // (R, D) bf16 rows to score
-  VR_EMBED,      // (V, D) bf16
+  VR_EMBED,      // (V, D) bf16, or int8 with VR_EMBED_S
   VR_POS,        // (R,) int32
   VR_GCOL,       // (R,) int32
   VR_SUP,        // (2, V) int8 [suppress; begin-suppress]
   VR_PART_F,     // (3, R, ntiles) f32 scratch
   VR_PART_A,     // (R, ntiles) int32 scratch
   VR_MAX, VR_LSE, VR_ARG, VR_GTH,   // (R,) outputs
+  VR_EMBED_S,    // (V,) f32 int8-embedding scales, or null (bf16 embedding)
   VR_COUNT
 };
 
@@ -245,8 +276,8 @@ extern "C" int wm_verify_rows(void** p, const int* ints, float log_factor,
   const int R = ints[0], D = ints[1], V = ints[2], begin_index = ints[3];
   const int eos_id = ints[4], has_decay = ints[5], decay_start = ints[6];
   if (R < 1 || R > VR_MAX_ROWS || D % VKC) return (int)cudaErrorInvalidValue;
-  score_rows(static_cast<const bf16*>(p[VR_ROWS]), R, static_cast<const bf16*>(p[VR_EMBED]),
-             V, D, static_cast<const int*>(p[VR_POS]), static_cast<const int*>(p[VR_GCOL]),
+  score_rows(static_cast<const bf16*>(p[VR_ROWS]), R, p[VR_EMBED],
+             static_cast<const float*>(p[VR_EMBED_S]), V, D, static_cast<const int*>(p[VR_POS]), static_cast<const int*>(p[VR_GCOL]),
              static_cast<const int8_t*>(p[VR_SUP]), begin_index, eos_id, has_decay,
              decay_start, log_factor, static_cast<float*>(p[VR_PART_F]),
              static_cast<int*>(p[VR_PART_A]), static_cast<float*>(p[VR_MAX]),
@@ -256,14 +287,15 @@ extern "C" int wm_verify_rows(void** p, const int* ints, float log_factor,
 }
 
 // out (NH, M, D) = src + bf16(SiLU(src @ W_k + b_k)) for each head k; src has
-// ceil(M / 16) * 16 rows allocated, w (NH, D, D), b (NH, D), all bf16.
+// ceil(M / 16) * 16 rows allocated, w (NH, D, D), b (NH, D), all bf16; or w
+// int8 with f32 scales ws (NH, D) (null for bf16 heads).
 extern "C" int wm_head_rows(const void* src, const void* w, const void* b, void* out,
-                            int m, int d, int nh, void* stream) {
+                            const void* ws, int m, int d, int nh, void* stream) {
   using namespace wm;
   if (m < 1 || m > SK_MAX_ROWS || d % 256 || nh < 1) return (int)cudaErrorInvalidValue;
   SkinnyJobs heads;
-  heads.j[0] = job(static_cast<const bf16*>(w), static_cast<const bf16*>(b),
-                   static_cast<bf16*>(out), EPI_SILU_RESID, static_cast<const bf16*>(src));
+  heads.j[0] = job(w, static_cast<const bf16*>(b), static_cast<bf16*>(out), EPI_SILU_RESID,
+                   static_cast<const bf16*>(src), 1.0f, static_cast<const float*>(ws));
   skinny_gemm(static_cast<const bf16*>(src), d, m, d, d, d, d, heads, 1, nh,
               (long long)d * d, d, (long long)m * d, (cudaStream_t)stream);
   return (int)cudaGetLastError();

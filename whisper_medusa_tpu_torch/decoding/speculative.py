@@ -34,6 +34,7 @@ from whisper_medusa_tpu_torch.decoding.buffers import MedusaBuffers
 from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig, apply_processors
 from whisper_medusa_tpu_torch.models import medusa as medusa_mod
 from whisper_medusa_tpu_torch.models import whisper
+from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
 from whisper_medusa_tpu_torch.ops import verify as verify_mod
 
 Params = Dict[str, Any]
@@ -53,8 +54,10 @@ class SpecResult:
 
 
 def _head_slice(medusa_params: Params, lo: int, hi: Optional[int]) -> Params:
+    """Heads lo..hi; int8 heads ({"q", "s"}) are sliced alike."""
     h = medusa_params["heads"]
-    return {"heads": {"w": h["w"][lo:hi], "b": h["b"][lo:hi]}}
+    return {"heads": {"w": qmm_mod.wmap(h["w"], lambda a: a[lo:hi]),
+                      "b": h["b"][lo:hi]}}
 
 
 def _base_logits_fn(params: Params, medusa_params: Optional[Params]):
@@ -121,11 +124,12 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
         medusa_params = None
     else:
         hw = medusa_params["heads"]["w"]
-        if hw.shape[1] != 1 or hw.shape[0] != num_heads + 1 or num_heads < 1:
+        shape = (hw["q"] if qmm_mod.is_quantized(hw) else hw).shape
+        if shape[1] != 1 or shape[0] != num_heads + 1 or num_heads < 1:
             raise NotImplementedError(
                 "fused verification takes single-layer heads, at least one draft "
                 "head and a chain over every head")
-        heads_w = hw[:, 0]
+        heads_w = qmm_mod.wmap(hw, lambda a: a[:, 0])
         heads_b = medusa_params["heads"]["b"][:, 0]
         draft_params = _head_slice(medusa_params, 1, None)
     # The JAX package's auto rule: two passes at B >= 2, one K4 pass at B = 1.
@@ -200,7 +204,8 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
         elif two_pass:
             # Pass A: the head-0 verification rows only, built by the same
             # skinny GEMM as K4's stage A.
-            rows = verify_mod.head_rows(flat, heads_w[:1], heads_b[:1])[0]
+            rows = verify_mod.head_rows(flat, qmm_mod.wmap(heads_w, lambda a: a[:1]),
+                                        heads_b[:1])[0]
             am, mx, lse, gth = verify_mod.verify_rows(
                 rows, embed, pos_rows, gcol_rows, sup_masks, **vkw)
         else:

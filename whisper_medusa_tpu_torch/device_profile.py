@@ -3,16 +3,18 @@
     python -m whisper_medusa_tpu_torch.device_profile
 
 Three parts, all at full whisper-large-v2 width with bf16 weights drawn from a
-seed:
+seed, and the same again on ``model.quantize()`` (int8 serving) for parts 1
+and 3:
 
   1. one K2 call (all 32 decoder layers) at (B, T) in (1, 11), (8, 1) and
-     (8, 11): device time per call by kernel (torch.profiler), beside the
-     CUDA-event time of the call;
+     (8, 11), bf16 and int8: device time per call by kernel (torch.profiler),
+     beside the CUDA-event time of the call;
   2. one verification step at B=8 on the 11-node chain: the loop's two
      passes (K5 over the head-0 rows, then the draft heads through K3)
      against one pass of every (head, node) row through K5 (R = 968);
   3. whole requests of ``max_new_tokens=128`` from seeded random features:
-     Medusa and vanilla (``disable_medusa=True``) at B=1 and B=8.  For each,
+     Medusa and vanilla (``disable_medusa=True``) at B=1 and B=8, bf16 and
+     int8.  For each,
      the wall time without the profiler, then the device time by kernel
      under it, and the device's idle share: 1 - (device time) / (wall time
      without the profiler).
@@ -38,8 +40,9 @@ MAX_NEW_TOKENS = 128
 
 def _short(name: str) -> str:
     """A kernel's name without its argument list and template arguments (the
-    port's kernels keep their row-tile count, e.g. skinny_gemm_kernel<6>)."""
-    m = re.search(r"wm::\(anonymous namespace\)::(\w+(?:<\d+>)?)\(", name)
+    port's kernels keep theirs: row tiles and int8 form, e.g.
+    skinny_gemm_kernel<6, true>, cross_partial_kernel<signed char>)."""
+    m = re.search(r"wm::\(anonymous namespace\)::(\w+(?:<[^>]*>)?)\(", name)
     if m:
         return m.group(1)
     if "Memcpy" in name or "Memset" in name:
@@ -90,7 +93,7 @@ def _cuda_ms(fn, warmup=3, iters=20):
     return float(np.median(times))
 
 
-def profile_megastep(model):
+def profile_megastep(model, mode):
     from whisper_medusa_tpu_torch.models import whisper
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
@@ -107,10 +110,12 @@ def profile_megastep(model):
         run = lambda: MS.megastep_kernel(dec["layers"], dec["ln_post"], x, cache.self_k,
                                          cache.self_v, cache.cross_k, cache.cross_v,
                                          offsets, None, dims.max_source_positions,
-                                         dims.decoder_attention_heads)
+                                         dims.decoder_attention_heads,
+                                         cross_k_s=cache.cross_k_s,
+                                         cross_v_s=cache.cross_v_s, self_s=cache.self_s)
         ms = _cuda_ms(run)
-        _table(f"K2, {dims.decoder_layers} layers, B={b} T={t}, per call", _by_kernel(run, 5),
-               f" (CUDA events: {ms:.4f} ms per call)")
+        _table(f"K2 {mode}, {dims.decoder_layers} layers, B={b} T={t}, per call",
+               _by_kernel(run, 5), f" (CUDA events: {ms:.4f} ms per call)")
         del cache
 
 
@@ -159,7 +164,7 @@ def profile_verify_passes(model, b=8):
                f" (CUDA events: {_cuda_ms(fn):.4f} ms per step)")
 
 
-def profile_requests(model):
+def profile_requests(model, mode):
     rng = np.random.default_rng(SEED)
     dims = model.config.dims
     for b in (1, 8):
@@ -177,7 +182,7 @@ def profile_requests(model):
             rows = _by_kernel(run)
             n_gen = int((out.lengths - 4).sum())
             total = _table(
-                f"request ({name}, B={b}, {n_gen} generated tokens, {out.steps} steps, "
+                f"{mode} request ({name}, B={b}, {n_gen} generated tokens, {out.steps} steps, "
                 f"mean_accept_length {out.mean_accept_length:.3f})", rows,
                 f" (wall without the profiler {wall_ms:.1f} ms)")
             print(f"  device idle share {1 - total / 1e3 / wall_ms:.3f}")
@@ -198,9 +203,12 @@ def main():
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 1)
     model.params["medusa"]["heads"]["w"].normal_(0.0, 0.02, generator=g)
-    profile_megastep(model)
+    qmodel = model.quantize()
+    for m, mode in ((model, "bf16"), (qmodel, "int8")):
+        profile_megastep(m, mode)
     profile_verify_passes(model)
-    profile_requests(model)
+    for m, mode in ((model, "bf16"), (qmodel, "int8")):
+        profile_requests(m, mode)
 
 
 if __name__ == "__main__":

@@ -7,8 +7,9 @@ greedy ``base_head`` path and vanilla decoding (``disable_medusa=True``) at
 per example, ``max_length`` / ``max_new_tokens``, the suppress lists, the
 exponential decay length penalty and the no-speech probability.  Every other
 option of the JAX ``generate`` raises NotImplementedError naming its ROADMAP
-item.  Everything runs on the card unless the model was made with
-``device="cpu"``.
+item.  ``quantize()`` gives the int8 serving copy (W8A16 decoder, embedding
+and heads; int8 caches).  Everything runs on the card unless the model was
+made with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -110,6 +111,22 @@ class WhisperMedusaModel:
         gen_cfg, special = bridge.generation_metadata(path, config)
         return cls(config, params, device=device, generation_config=gen_cfg,
                    special_tokens=special)
+
+    def quantize(self) -> "WhisperMedusaModel":
+        """The int8 weight-only serving copy (ops/qmm.py::quantize_decoder):
+        decoder layer weights, the tied embedding and the Medusa heads stored
+        int8 with per-output-channel f32 scales, quantized on the model's
+        device, where the copy stays; the encoder, layer norms, biases and
+        positional embeddings are shared with this model.  ``generate``,
+        ``detect_language`` and ``encode`` run on it unchanged, with int8
+        cross and self caches."""
+        from whisper_medusa_tpu_torch.ops.qmm import quantize_decoder
+
+        wp, mp = quantize_decoder(self.params["whisper"], self.params.get("medusa"))
+        return WhisperMedusaModel(self.config, {"whisper": wp, "medusa": mp},
+                                  device=self.device,
+                                  generation_config=self.generation_config,
+                                  special_tokens=self.special)
 
     # ----------------------------------------------------------------- encoding
     def encode(self, input_features) -> torch.Tensor:

@@ -50,19 +50,25 @@ def resolve_device(device) -> torch.device:
 
 
 def params_from_numpy(tree: Params, device="cuda", dtype=None) -> Params:
-    """Nested dict of numpy arrays -> same tree of torch tensors."""
+    """Nested dict of numpy arrays -> same tree of torch tensors.
+
+    ``dtype`` casts the floating weights only: integer leaves, and both
+    tensors of an int8 weight ``{"q": int8, "s": float32}`` (ops/qmm.py),
+    keep their dtypes."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype) if dtype is not None else None
 
-    def conv(x):
+    def conv(x, keep=False):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            keep = set(x) == {"q", "s"}
+            return {k: conv(v, keep) for k, v in x.items()}
         arr = np.asarray(x)
         if arr.dtype.name == "bfloat16":           # ml_dtypes bf16 from JAX
             t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(arr))
-        return t.to(device=dev, dtype=dt if dt is not None else t.dtype)
+        cast = dt is not None and t.is_floating_point() and not keep
+        return t.to(device=dev, dtype=dt if cast else t.dtype)
 
     return conv(tree)
 

@@ -2,8 +2,10 @@
 
 All heads live in one stacked tensor ``w`` (n_heads, n_layers, D, D) stored
 (in, out), with biases ``b`` (n_heads, n_layers, D); each layer of a head is
-``x + SiLU(x @ W + b)`` (the reference's MedusaResBlock).  Initialization
-lives in models/bridge.py::from_random.
+``x + SiLU(x @ W + b)`` (the reference's MedusaResBlock).  In int8 serving
+``w`` is ``{"q": int8 (n_heads, n_layers, D, D), "s": f32 (n_heads,
+n_layers, D)}`` and a layer is ``x + SiLU((x @ bf16(q)) * s + b)``.
+Initialization lives in models/bridge.py::from_random.
 """
 
 from __future__ import annotations
@@ -21,16 +23,20 @@ def apply_heads(medusa_params: Params, x: torch.Tensor) -> torch.Tensor:
     Each layer goes through ``ops/verify.py::head_rows``: on CUDA tensors the
     skinny GEMM of kernel K4's stage A (so a head row has the same bits for
     every batch size), on CPU tensors its plain version."""
+    from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
     from whisper_medusa_tpu_torch.ops import verify as verify_mod
 
     w = medusa_params["heads"]["w"]
     b = medusa_params["heads"]["b"]
-    n_heads, n_layers = w.shape[:2]
+    n_heads, n_layers = (w["q"] if qmm_mod.is_quantized(w) else w).shape[:2]
     d = x.shape[-1]
-    h = verify_mod.head_rows(x.reshape(-1, d).contiguous(), w[:, 0].contiguous(),
-                             b[:, 0].contiguous())                # (K, M, D)
+
+    def layer_of(sl):
+        return qmm_mod.wmap(w, lambda a: a[sl].contiguous()), b[sl].contiguous()
+
+    h = verify_mod.head_rows(x.reshape(-1, d).contiguous(),
+                             *layer_of((slice(None), 0)))         # (K, M, D)
     for layer in range(1, n_layers):
-        h = torch.stack([verify_mod.head_rows(h[k], w[k:k + 1, layer].contiguous(),
-                                              b[k:k + 1, layer].contiguous())[0]
+        h = torch.stack([verify_mod.head_rows(h[k], *layer_of((slice(k, k + 1), layer)))[0]
                          for k in range(n_heads)])
     return h.reshape((n_heads,) + tuple(x.shape))

@@ -14,6 +14,13 @@ are updated in place.  Encoder self-attention runs through
 ``ops/attention.py`` (K1).  An example's decoder state does not depend on
 the batch it is in: the cross K/V are projected one example at a time and
 K2's per-row arithmetic is independent of the row count.
+
+int8 serving (``ops/qmm.py::quantize_decoder``): a weight may be the dict
+``{"q": int8, "s": float32}``; :func:`dense` then runs ``qmm`` (K6), the
+embedding gathers dequantized rows and :func:`project_logits` runs
+``qmm_nt`` (K7).  The cache then holds int8 cross K/V with f32
+per-(head, position) scales and int8 self slabs with bf16 per-(position,
+head) scales (``KVCache``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from whisper_medusa_tpu_torch.ops import attention as attn_mod
 from whisper_medusa_tpu_torch.ops import decode_ops
 from whisper_medusa_tpu_torch.ops import gelu as gelu_mod
 from whisper_medusa_tpu_torch.ops import logits as logits_mod
+from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
 
 Params = Dict[str, Any]
 
@@ -57,28 +65,44 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torc
 
 def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w as float32.  On the GPU a bf16 product runs on the tensor cores
-    (f32 accumulation, one bf16 rounding of the product); elsewhere in f32."""
+    (f32 accumulation, one bf16 rounding of the product); elsewhere in f32.
+    Unlike ``qmm.matmul_plain`` (exact f32 products on every device), it keeps
+    the encoder's GEMMs on the bf16 tensor cores."""
     if x.is_cuda and x.dtype == torch.bfloat16:
         return torch.matmul(x, w).float()
     return x.float() @ w.float()
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    y = _mm_f32(x, w)
+def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ w + b rounded once to ``x.dtype``; an int8 ``w`` goes through
+    ``qmm`` (its scale multiplies the f32 sum before the bias)."""
+    if qmm_mod.is_quantized(w):
+        y = qmm_mod.qmm(x.reshape(-1, x.shape[-1]), w["q"], w["s"])
+        y = y.reshape(*x.shape[:-1], y.shape[-1])
+    else:
+        y = _mm_f32(x, w)
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype)
 
 
-def dense_exact(x: torch.Tensor, w: torch.Tensor,
-                b: Optional[torch.Tensor] = None) -> torch.Tensor:
+def dense_exact(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ w + b with exact f32 products and one rounding to ``x.dtype`` on
     every device — the JAX ``preferred_element_type=f32`` semantics, used by
     the plain decoder step that the megastep kernel is held against."""
-    y = x.float() @ w.float()
+    y = qmm_mod.matmul_plain(x, w)
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype)
+
+
+def embed_lookup(embed, tokens: torch.Tensor) -> torch.Tensor:
+    """Token-embedding gather; an int8 embedding gives
+    ``bf16(q[tok]) * bf16(s[tok])``."""
+    if qmm_mod.is_quantized(embed):
+        rows = embed["q"][tokens].to(torch.bfloat16)
+        return rows * embed["s"][tokens][..., None].to(torch.bfloat16)
+    return embed[tokens]
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -183,12 +207,20 @@ def encode(params: Params, dims: WhisperDims, mel: torch.Tensor) -> torch.Tensor
 class KVCache:
     """Decoder cache.  self_k/self_v: (L, B, max_len, D) head-flat, written in
     place at per-example offsets.  cross_k: (L, B, H, Dh, S) head-major;
-    cross_v: (L, B, S, D) head-flat — both computed once per utterance."""
+    cross_v: (L, B, S, D) head-flat — both computed once per utterance.
+
+    int8 serving: cross_k / cross_v are int8 with f32 scales cross_k_s /
+    cross_v_s (L, B, H, S), one per (head, position); self_k / self_v are
+    int8 and self_s (L, B, max_len, 2H) bf16 holds one scale per
+    (position, head), K in lanes [0, H), V in [H, 2H) (ones until written)."""
 
     self_k: torch.Tensor
     self_v: torch.Tensor
     cross_k: torch.Tensor
     cross_v: torch.Tensor
+    cross_k_s: Optional[torch.Tensor] = None
+    cross_v_s: Optional[torch.Tensor] = None
+    self_s: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
@@ -200,24 +232,67 @@ def init_cache(params: Params, dims: WhisperDims, enc_out: torch.Tensor,
     """Allocate the self slabs (``max_len`` rows, no slack) and precompute the
     cross K/V of every layer.  Each example is projected on its own, so its
     cache does not depend on the batch (a library GEMM may pick another
-    algorithm, and round differently, for another row count)."""
+    algorithm, and round differently, for another row count).
+
+    With int8 cross projections (int8 serving) the cross K/V are quantized
+    per (head, position) over the head dim and the self slabs are int8 with
+    a bf16 scale slab of ones."""
     b, s, d = enc_out.shape
     nh = dims.decoder_attention_heads
-    layers = params["decoder"]["layers"]["cross"]
-    ks, vs = [], []
-    for i in range(dims.decoder_layers):
-        k = torch.cat([dense(e[None], layers["k_w"][i]) for e in enc_out])
-        ks.append(_split_heads(k, nh).permute(0, 2, 3, 1))        # (B, H, Dh, S)
-        vs.append(torch.cat([dense(e[None], layers["v_w"][i], layers["v_b"][i])
-                             for e in enc_out]))
     nl = dims.decoder_layers
-    zeros = dict(dtype=enc_out.dtype, device=enc_out.device)
-    return KVCache(
-        self_k=torch.zeros((nl, b, max_len, d), **zeros),
-        self_v=torch.zeros((nl, b, max_len, d), **zeros),
+    layers = params["decoder"]["layers"]["cross"]
+    quant = qmm_mod.is_quantized(layers["k_w"])
+    ks, vs, kss, vss = [], [], [], []
+    for i in range(nl):
+        kw = qmm_mod.wmap(layers["k_w"], lambda a: a[i])
+        vw = qmm_mod.wmap(layers["v_w"], lambda a: a[i])
+        k = torch.cat([dense(e[None], kw) for e in enc_out])
+        k = _split_heads(k, nh).permute(0, 2, 3, 1)                # (B, H, Dh, S)
+        v = torch.cat([dense(e[None], vw, layers["v_b"][i]) for e in enc_out])
+        if quant:
+            k, k_s = qmm_mod.quantize_array(k, axis=2)            # scales (B, H, S)
+            # V: one scale per (position, head) chunk of Dh lanes.
+            v, v_s = qmm_mod.quantize_array(_split_heads(v, nh), axis=-1)
+            v = _merge_heads(v)
+            kss.append(k_s)
+            vss.append(v_s.permute(0, 2, 1))                      # (B, H, S)
+        ks.append(k)
+        vs.append(v)
+    dev = enc_out.device
+    slab_dt = torch.int8 if quant else enc_out.dtype
+    cache = KVCache(
+        self_k=torch.zeros((nl, b, max_len, d), dtype=slab_dt, device=dev),
+        self_v=torch.zeros((nl, b, max_len, d), dtype=slab_dt, device=dev),
         cross_k=torch.stack(ks).contiguous(),
         cross_v=torch.stack(vs).contiguous(),
     )
+    if quant:
+        cache.cross_k_s = torch.stack(kss).contiguous()
+        cache.cross_v_s = torch.stack(vss).contiguous()
+        cache.self_s = torch.ones((nl, b, max_len, 2 * nh), dtype=torch.bfloat16,
+                                  device=dev)
+    return cache
+
+
+def _quantize(x32: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+
+
+def quantize_self_rows(x: torch.Tensor, num_heads: int):
+    """Per-(position, head) int8 quantization of head-flat (B, T, D) self K/V
+    rows, the math K2 applies when it commits: ``sc = max(amax, 1e-30) /
+    127``; (int8 rows, f32 scales (B, T, H))."""
+    b, t, d = x.shape
+    x32 = x.float().reshape(b, t, num_heads, d // num_heads)
+    sc = x32.abs().amax(dim=-1, keepdim=True).clamp(min=1e-30) / 127.0
+    return _quantize(x32, sc).reshape(b, t, d), sc[..., 0]
+
+
+def dequant_self(buf: torch.Tensor, scales: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, S, D) int8 slab x (B, S, H) bf16 scales -> bf16 head-flat slab."""
+    b, s, d = buf.shape
+    x = buf.float().reshape(b, s, num_heads, d // num_heads)
+    return (x * scales.float()[..., None]).reshape(b, s, d).to(torch.bfloat16)
 
 
 def make_step_mask(offsets: torch.Tensor, chunk_len: int, max_len: int,
@@ -248,23 +323,44 @@ def decoder_layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
                        v_buf: torch.Tensor, cross_k: torch.Tensor,
                        cross_v: torch.Tensor, offsets: torch.Tensor,
                        self_mask: torch.Tensor, num_heads: int,
-                       cross_len: int) -> torch.Tensor:
+                       cross_len: int, cross_k_s: Optional[torch.Tensor] = None,
+                       cross_v_s: Optional[torch.Tensor] = None,
+                       self_s: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decoder layer over a T-token chunk; writes the chunk's K/V rows into
-    ``k_buf``/``v_buf`` (B, max_len, D) in place.  Returns the new hidden."""
+    ``k_buf``/``v_buf`` (B, max_len, D) in place.  Returns the new hidden.
+
+    int8 self slabs (``self_s`` (B, max_len, 2H) given): the chunk's rows are
+    committed quantized per (position, head) with their scales; attention
+    then reads the history rows dequantized to bf16 but the chunk's own rows
+    as the fresh bf16 K/V."""
     head_dim = h.shape[-1] // num_heads
     sx = layer_norm(h, lp["self_ln"]["scale"], lp["self_ln"]["bias"])
     q = _split_heads(dense_exact(sx, lp["self"]["q_w"], lp["self"]["q_b"]), num_heads)
     q = q * (head_dim ** -0.5)
-    write_rows(k_buf, dense_exact(sx, lp["self"]["k_w"]), offsets)
-    write_rows(v_buf, dense_exact(sx, lp["self"]["v_w"], lp["self"]["v_b"]), offsets)
-    out = attention(q, _split_heads(k_buf, num_heads),
-                    _split_heads(v_buf, num_heads), self_mask)
+    k_new = dense_exact(sx, lp["self"]["k_w"])
+    v_new = dense_exact(sx, lp["self"]["v_w"], lp["self"]["v_b"])
+    if self_s is None:
+        write_rows(k_buf, k_new, offsets)
+        write_rows(v_buf, v_new, offsets)
+        k_att, v_att = k_buf, v_buf
+    else:
+        kq, k_sc = quantize_self_rows(k_new, num_heads)
+        vq, v_sc = quantize_self_rows(v_new, num_heads)
+        write_rows(k_buf, kq, offsets)
+        write_rows(v_buf, vq, offsets)
+        write_rows(self_s, torch.cat([k_sc, v_sc], dim=-1).to(self_s.dtype), offsets)
+        k_att = dequant_self(k_buf, self_s[..., :num_heads], num_heads)
+        v_att = dequant_self(v_buf, self_s[..., num_heads:], num_heads)
+        write_rows(k_att, k_new.to(torch.bfloat16), offsets)
+        write_rows(v_att, v_new.to(torch.bfloat16), offsets)
+    out = attention(q, _split_heads(k_att, num_heads),
+                    _split_heads(v_att, num_heads), self_mask)
     h = h + dense_exact(_merge_heads(out), lp["self"]["o_w"], lp["self"]["o_b"])
     cx = layer_norm(h, lp["cross_ln"]["scale"], lp["cross_ln"]["bias"])
     cq = _split_heads(dense_exact(cx, lp["cross"]["q_w"], lp["cross"]["q_b"]), num_heads)
     cq = cq * (head_dim ** -0.5)
     co = decode_ops.cross_attention_decode(cq.transpose(1, 2), cross_k, cross_v,
-                                           cross_len)
+                                           cross_len, cross_k_s, cross_v_s)
     h = h + dense_exact(_merge_heads(co.transpose(1, 2)), lp["cross"]["o_w"],
                   lp["cross"]["o_b"])
     fx = layer_norm(h, lp["ffn_ln"]["scale"], lp["ffn_ln"]["bias"])
@@ -292,15 +388,22 @@ def decode_step(params: Params, dims: WhisperDims, tokens: torch.Tensor,
         rel_positions = torch.arange(t, device=tokens.device)
     abs_pos = (offsets[:, None] + rel_positions[None, :]).clamp(
         0, dims.max_target_positions - 1)
-    x = dec["embed_tokens"][tokens] + dec["pos_embed"][abs_pos]
+    x = embed_lookup(dec["embed_tokens"], tokens) + dec["pos_embed"][abs_pos]
     pre_norm, hidden = megastep.fused_decoder_layers(
         dec["layers"], dec["ln_post"], x, cache.self_k, cache.self_v,
         cache.cross_k, cache.cross_v, offsets.to(torch.int32), chunk_mask,
         cross_len=min(dims.max_source_positions, cache.cross_k.shape[4]),
-        num_heads=dims.decoder_attention_heads)
+        num_heads=dims.decoder_attention_heads, cross_k_s=cache.cross_k_s,
+        cross_v_s=cache.cross_v_s, self_s=cache.self_s)
     return DecoderOutput(hidden=hidden, pre_norm=pre_norm)
 
 
 def project_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """Vocab projection through the tied embedding, float32 (kernel K3 on CUDA)."""
-    return logits_mod.project_logits_stream(hidden, params["decoder"]["embed_tokens"])
+    """Vocab projection through the tied embedding, float32: kernel K3 on
+    CUDA, or K7 (``qmm_nt``) for an int8 embedding."""
+    w = params["decoder"]["embed_tokens"]
+    if qmm_mod.is_quantized(w):
+        d = hidden.shape[-1]
+        y = qmm_mod.qmm_nt(hidden.reshape(-1, d), w["q"], w["s"])
+        return y.reshape(*hidden.shape[:-1], y.shape[-1])
+    return logits_mod.project_logits_stream(hidden, w)

@@ -45,7 +45,9 @@ _SIGNATURES = {
     "wm_logits": [_vp] * 3 + [_ci] * 3 + [_vp],
     "wm_verify_hidden": [_ptrs, _ints, ctypes.c_float, _vp],
     "wm_verify_rows": [_ptrs, _ints, ctypes.c_float, _vp],
-    "wm_head_rows": [_vp] * 4 + [_ci] * 3 + [_vp],
+    "wm_head_rows": [_vp] * 5 + [_ci] * 3 + [_vp],
+    "wm_qmm": [_vp] * 4 + [_ci] * 3 + [_vp],
+    "wm_qmm_nt": [_vp] * 4 + [_ci] * 3 + [_vp],
 }
 
 
@@ -144,16 +146,18 @@ def launch(entry: str, device, *args) -> None:
         raise RuntimeError(f"{entry}: CUDA error {err}")
 
 
-def require_cuda(name: str, *tensors) -> None:
-    """Shared wrapper checks: CUDA, bf16, contiguous, 16-byte aligned."""
+def require_cuda(name: str, *tensors, dtype=None, device=None) -> None:
+    """Shared wrapper checks: one CUDA device (``device``, else the first
+    operand's), ``dtype`` (default bf16), contiguous, 16-byte aligned."""
     import torch
 
-    dev = tensors[0].device
+    dtype = dtype or torch.bfloat16
+    dev = device if device is not None else tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all operands must be on one CUDA device")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: operands must be bfloat16, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: operands must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
         if t.data_ptr() % 16:

@@ -1,0 +1,195 @@
+"""Weight-only int8 serving — kernels K6 (``qmm``) and K7 (``qmm_nt``), and
+the quantization of a parameter tree (counterpart of
+whisper_medusa_tpu/ops/qmm.py).
+
+Scheme (the JAX package's): symmetric per-output-channel int8,
+``w ≈ q * s`` with ``s = max|w| / 127`` over the contraction axis (1.0 where
+the column is all zero), ``q = clip(round_half_even(w / s), ±127)``.
+Activations stay bf16; the int8 values convert to bf16 exactly on the way
+into the tensor cores (W8A16) and the f32 sum is multiplied by the column's
+scale.  An int8 weight is the dict ``{"q": int8, "s": float32}``.
+
+K6 replaces ``whisper_medusa_tpu/ops/qmm.py::_qmm_kernel`` (``qmm``):
+``(bf16(x) @ bf16(wq)) * s`` -> f32 (M, N).  On the decode path it projects
+each example's encoder output (1500, 1280) into the int8 cross K/V in
+``init_cache``.  ``csrc/qmm.cu::wm_qmm``: one CTA of 8 warps per 64x64
+output tile, the bf16 x tile and the int8 weight tile (converted to bf16)
+staged through shared memory in 64-wide K slices, WMMA with f32
+accumulation, ``acc * s[n]`` written as f32.  Bound at (1500, 1280, 1280):
+the 4.9 GFLOP of products (5 us at 989 TFLOP/s) over its 13.2 MB.
+
+K7 replaces ``_qmm_nt_kernel`` (``qmm_nt``): ``(bf16(x) @ bf16(wq)^T) * s``
+for the int8 tied embedding (V, D), the vocab projection of the prefill, the
+draft heads at B >= 2 and ``detect_language``.  ``csrc/qmm.cu::wm_qmm_nt``:
+one CTA per 64 vocab rows (``common.cuh::vocab_tile`` with an int8 loader),
+zero-filled past the last row.  Bound by bytes: the 66 MB int8 embedding
+plus the f32 output.
+
+Both wrappers cast ``x`` to bf16 first, as the JAX functions do; CUDA
+tensors then launch the kernel, CPU tensors take the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from whisper_medusa_tpu_torch.ops import cuda_lib
+
+Params = Dict[str, Any]
+
+TILE = 64                # csrc/qmm.cu QT, csrc/common.cuh VT
+MAX_NT_ROWS = 192        # as K3 (ops/logits.py MAX_M): rows in 128-row blocks
+
+launches = 0             # K6 (wm_qmm) launches
+nt_launches = 0          # K7 (wm_qmm_nt) launches
+
+
+def is_quantized(w) -> bool:
+    return isinstance(w, dict)
+
+
+def wmap(w, fn):
+    """Apply ``fn`` to a weight, or to both tensors of an int8 weight (their
+    leading dims match, so slicing them alike keeps q and s paired)."""
+    if is_quantized(w):
+        return {"q": fn(w["q"]), "s": fn(w["s"])}
+    return fn(w)
+
+
+def quantize_array(w: torch.Tensor, axis: int = -2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize along the contraction ``axis``: (int8 values, f32 scales with
+    ``axis`` removed).  ``torch.round`` rounds half to even, as ``jnp.round``."""
+    w32 = w.float()
+    amax = w32.abs().amax(dim=axis, keepdim=True)
+    scale = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    return q, scale.squeeze(axis)
+
+
+def qmm_plain(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ dequant((K, N) int8) -> (M, N) f32: bf16 operands, exact
+    products, f32 sums, times the column scale."""
+    return (x.to(torch.bfloat16).float() @ wq.float()) * scale.float()
+
+
+def qmm_nt_plain(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ dequant((N, K) int8)^T -> (M, N) f32."""
+    return (x.to(torch.bfloat16).float() @ wq.float().T) * scale.float()
+
+
+def _check_weight(name, x, wq, scale, n):
+    cuda_lib.require_cuda(name, x)
+    cuda_lib.require_cuda(name, wq, dtype=torch.int8, device=x.device)
+    cuda_lib.require_cuda(name, scale, dtype=torch.float32, device=x.device)
+    if scale.shape != (n,):
+        raise ValueError(f"{name}: scales must be ({n},), got {tuple(scale.shape)}")
+
+
+def qmm_kernel(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Launch K6: x (M, K) bf16, wq (K, N) int8, scale (N,) f32 -> (M, N) f32."""
+    global launches
+    m, k = x.shape
+    n = wq.shape[1]
+    _check_weight("qmm", x, wq, scale, n)
+    if wq.shape[0] != k or k % TILE or n % TILE or m < 1:
+        raise ValueError(f"qmm kernel takes K and N multiples of {TILE}; got x "
+                         f"{tuple(x.shape)}, wq {tuple(wq.shape)}")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    cuda_lib.launch("wm_qmm", x.device, x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+                    out.data_ptr(), m, k, n)
+    launches += 1
+    return out
+
+
+def qmm_nt_kernel(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Launch K7: x (M <= 192, K) bf16, wq (N, K) int8, scale (N,) f32 ->
+    (M, N) f32."""
+    global nt_launches
+    m, k = x.shape
+    n = wq.shape[0]
+    _check_weight("qmm_nt", x, wq, scale, n)
+    if wq.shape[1] != k or k % TILE or not 1 <= m <= MAX_NT_ROWS:
+        raise ValueError(f"qmm_nt kernel takes M <= {MAX_NT_ROWS} rows and K % {TILE} "
+                         f"== 0; got x {tuple(x.shape)}, wq {tuple(wq.shape)}")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    cuda_lib.launch("wm_qmm_nt", x.device, x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+                    out.data_ptr(), m, n, k)
+    nt_launches += 1
+    return out
+
+
+def qmm(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``x @ dequant(wq)`` with f32 accumulation, (M, N) f32.  CUDA tensors
+    launch K6; CPU tensors take the plain version."""
+    x = x.to(torch.bfloat16).contiguous()
+    fn = qmm_kernel if x.is_cuda else qmm_plain
+    return fn(x, wq, scale)
+
+
+def qmm_nt(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``x @ dequant(wq).T`` (the int8 tied-embedding projection), (M, N)
+    f32.  CUDA tensors launch K7; CPU tensors take the plain version."""
+    x = x.to(torch.bfloat16).contiguous()
+    fn = qmm_nt_kernel if x.is_cuda else qmm_nt_plain
+    return fn(x, wq, scale)
+
+
+def matmul_plain(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` as float32 over the last axis of ``x`` in plain PyTorch on
+    any device: exact f32 products for a plain weight, :func:`qmm_plain`
+    for an int8 one (the plain decoder step that K2 is held against)."""
+    if not is_quantized(w):
+        return x.float() @ w.float()
+    k = w["q"].shape[0]
+    y = qmm_plain(x.reshape(-1, k), w["q"], w["s"])
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Parameter-tree quantization
+# ---------------------------------------------------------------------------
+
+_LAYER_WEIGHTS = ("q_w", "k_w", "v_w", "o_w", "fc1_w", "fc2_w")
+
+
+def quantize_layers(tree: Params) -> Params:
+    """Quantize every ``*_w`` leaf of a (stacked) decoder-layer tree on its
+    contraction axis; every other leaf is kept."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = quantize_layers(v)
+        elif k in _LAYER_WEIGHTS:
+            q, s = quantize_array(v, axis=-2)
+            out[k] = {"q": q, "s": s}
+        else:
+            out[k] = v
+    return out
+
+
+def quantize_decoder(params: Params, medusa_params: Optional[Params] = None
+                     ) -> Tuple[Params, Optional[Params]]:
+    """Int8-quantize the decode-path weights: every decoder layer weight and
+    the Medusa heads on their contraction axis (-2: heads (H, L, D, D) give
+    scales (H, L, D)), the tied embedding (V, D) on -1 (scales (V,)).  The
+    encoder, layer norms, biases and positional embeddings are shared with
+    the input tree, not copied."""
+    params = dict(params)
+    dec = dict(params["decoder"])
+    dec["layers"] = quantize_layers(dec["layers"])
+    q, s = quantize_array(dec["embed_tokens"], axis=-1)
+    dec["embed_tokens"] = {"q": q, "s": s}
+    params["decoder"] = dec
+    if medusa_params is not None:
+        if "block" in medusa_params:
+            raise NotImplementedError(
+                "int8 Medusa-Block is not ported yet (ROADMAP queue 1, item 9: "
+                "medusa_block variant)")
+        medusa_params = dict(medusa_params)
+        heads = dict(medusa_params["heads"])
+        hq, hs = quantize_array(heads["w"], axis=-2)
+        heads["w"] = {"q": hq, "s": hs}
+        medusa_params["heads"] = heads
+    return params, medusa_params

@@ -23,9 +23,17 @@ stream (40 us at 3.35 TB/s) for R up to ~250, the 2*R*V*D products beyond.
 ``head_rows`` (C entry ``wm_head_rows``) is K4's stage A alone, so that the
 two-pass loop's head-0 rows carry the same bits as K4's.
 
+int8 serving (the JAX ``quant`` / ``hquant`` modes) is a mode of the same
+three entries: an int8 embedding ``{"q": (V, D) int8, "s": (V,) f32}`` is
+converted to bf16 as it is staged and column v's f32 sum is multiplied by
+``s[v]`` before the processors; int8 heads ``{"q": (nh, D, D), "s": (nh,
+D)}`` go through the skinny GEMM's W8A16 form (scale before the bias).  The
+plain versions score ``bf16(rows)`` against an int8 embedding, as the JAX
+``qmm_nt`` does.
+
 Rows are ordered (k, e, n): head-major over flattened (batch, node).  Scope:
 chain + greedy, K4 at B*N <= 16 and R <= 128, K5 at R <= 1024; the fused
-timestamp rules (``ts_cfg``) and the int8 embedding are not ported yet.
+timestamp rules (``ts_cfg``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import numpy as np
 import torch
 
 from whisper_medusa_tpu_torch.ops import cuda_lib
+from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
 
 NEG = -float(np.finfo(np.float32).max) / 2
 MAX_R = 128              # K4
@@ -45,9 +54,12 @@ MAX_ROWS_R = 1024        # K5 (csrc/verify.cu VR_MAX_ROWS, the JAX _MAX_R)
 MAX_SRC_ROWS = 128       # head_rows (csrc/common.cuh SK_MAX_ROWS)
 TILE = 64                # csrc/common.cuh VT
 
-launches = 0             # K4 (verify_hidden) kernel launches
-rows_launches = 0        # K5 (verify_rows) kernel launches
-head_launches = 0        # wm_head_rows launches
+launches = 0             # K4 (verify_hidden) kernel launches, bf16 embedding
+rows_launches = 0        # K5 (verify_rows) kernel launches, bf16 embedding
+head_launches = 0        # wm_head_rows launches, bf16 heads
+q_launches = 0           # the same three with an int8 embedding / int8 heads
+q_rows_launches = 0
+q_head_launches = 0
 
 
 def masks_for(pcfg, device="cpu") -> torch.Tensor:
@@ -80,39 +92,62 @@ def process_rows(x: torch.Tensor, pos: torch.Tensor, sup_masks: torch.Tensor, *,
     return x
 
 
-def head_rows_plain(src: torch.Tensor, heads_w: torch.Tensor,
-                    heads_b: torch.Tensor) -> torch.Tensor:
-    """(K, M, D) rows ``src + SiLU(src @ W_k + b_k)`` of src (M, D)."""
+def head_rows_plain(src: torch.Tensor, heads_w, heads_b: torch.Tensor) -> torch.Tensor:
+    """(K, M, D) rows ``src + SiLU(src @ W_k + b_k)`` of src (M, D); int8
+    heads: ``(src @ bf16(q_k)) * s_k + b_k``."""
+    quant = qmm_mod.is_quantized(heads_w)
+    wq = heads_w["q"] if quant else heads_w
     out = []
-    for k in range(heads_w.shape[0]):
-        pre = src.float() @ heads_w[k].float() + heads_b[k].float()
+    for k in range(wq.shape[0]):
+        pre = src.float() @ wq[k].float()
+        if quant:
+            pre = pre * heads_w["s"][k].float()
+        pre = pre + heads_b[k].float()
         out.append(src + torch.nn.functional.silu(pre).to(src.dtype))
     return torch.stack(out)
 
 
-def head_rows_kernel(src: torch.Tensor, heads_w: torch.Tensor,
-                     heads_b: torch.Tensor) -> torch.Tensor:
+def _operand(name, w, dev, scale_dims):
+    """(values, scales-or-None) of a kernel's weight on ``dev``, checked: bf16,
+    or int8 with f32 scales over its first ``scale_dims`` dims (heads (nh, D),
+    embedding (V,))."""
+    if not qmm_mod.is_quantized(w):
+        cuda_lib.require_cuda(name, w, device=dev)
+        return w, None
+    cuda_lib.require_cuda(name, w["q"], dtype=torch.int8, device=dev)
+    cuda_lib.require_cuda(name, w["s"], dtype=torch.float32, device=dev)
+    if w["s"].shape != w["q"].shape[:scale_dims]:
+        raise ValueError(f"{name}: int8 scales must be {tuple(w['q'].shape[:scale_dims])}")
+    return w["q"], w["s"]
+
+
+def head_rows_kernel(src: torch.Tensor, heads_w, heads_b: torch.Tensor) -> torch.Tensor:
     """Launch ``wm_head_rows`` (K4's stage A alone): src (M <= 128, D) bf16,
-    heads (K, D, D) / (K, D) bf16 -> (K, M, D)."""
-    global head_launches
-    cuda_lib.require_cuda("head_rows", src, heads_w, heads_b)
+    heads (K, D, D) bf16 or int8 with (K, D) f32 scales, biases (K, D) bf16
+    -> (K, M, D)."""
+    global head_launches, q_head_launches
+    cuda_lib.require_cuda("head_rows", src, heads_b)
+    w, ws = _operand("head_rows", heads_w, src.device, 2)
     m, d = src.shape
-    nh = heads_w.shape[0]
-    if (not 1 <= m <= MAX_SRC_ROWS or d % 256 or heads_w.shape != (nh, d, d)
+    nh = w.shape[0]
+    if (not 1 <= m <= MAX_SRC_ROWS or d % 256 or w.shape != (nh, d, d)
             or heads_b.shape != (nh, d)):
         raise ValueError(f"head_rows kernel takes M <= {MAX_SRC_ROWS} rows, D % 256 "
-                         f"== 0; got src {tuple(src.shape)}, heads {tuple(heads_w.shape)}")
+                         f"== 0; got src {tuple(src.shape)}, heads {tuple(w.shape)}")
     src16 = torch.zeros((-(-m // 16) * 16, d), dtype=src.dtype, device=src.device)
     src16[:m] = src
     out = torch.empty((nh, m, d), dtype=src.dtype, device=src.device)
-    cuda_lib.launch("wm_head_rows", src.device, src16.data_ptr(), heads_w.data_ptr(),
-                    heads_b.data_ptr(), out.data_ptr(), m, d, nh)
-    head_launches += 1
+    cuda_lib.launch("wm_head_rows", src.device, src16.data_ptr(), w.data_ptr(),
+                    heads_b.data_ptr(), out.data_ptr(),
+                    None if ws is None else ws.data_ptr(), m, d, nh)
+    if ws is None:
+        head_launches += 1
+    else:
+        q_head_launches += 1
     return out
 
 
-def head_rows(src: torch.Tensor, heads_w: torch.Tensor,
-              heads_b: torch.Tensor) -> torch.Tensor:
+def head_rows(src: torch.Tensor, heads_w, heads_b: torch.Tensor) -> torch.Tensor:
     """Single-layer Medusa heads on the rows of ``src`` (M, D): (K, M, D).
     CUDA tensors launch the skinny GEMM of K4's stage A; CPU tensors take
     the plain version."""
@@ -129,12 +164,19 @@ def build_rows(hver, hsrc, heads_w, heads_b, identity0: bool) -> torch.Tensor:
     return rows
 
 
+def row_logits(rows: torch.Tensor, embed) -> torch.Tensor:
+    """Unprocessed f32 logits (R, V) of ``rows`` against a bf16 or int8 tied
+    embedding, in plain PyTorch."""
+    if qmm_mod.is_quantized(embed):
+        return qmm_mod.qmm_nt_plain(rows, embed["q"], embed["s"])
+    return rows.float() @ embed.float().T
+
+
 def _row_stats(rows, embed, pos, gcol, sup_masks, *, begin_index: int, eos_id: int,
                decay):
     """Materialized logits of ``rows``, processed; (argmax, max, lse, gathered)."""
-    x = rows.float() @ embed.float().T
-    x = process_rows(x, pos, sup_masks, begin_index=begin_index, eos_id=eos_id,
-                     decay=decay)
+    x = process_rows(row_logits(rows, embed), pos, sup_masks, begin_index=begin_index,
+                     eos_id=eos_id, decay=decay)
     mx, am = x.max(dim=-1)
     lse = torch.logsumexp(x, dim=-1)
     gth = x.gather(1, gcol.long()[:, None])[:, 0]
@@ -175,9 +217,11 @@ def _stat_outputs(r, ntiles, dev):
 
 def verify_rows_kernel(hs, embed, pos, gcol, sup_masks, *, begin_index: int,
                        eos_id: int, decay):
-    """Launch K5 over rows hs (R <= 1024, D) bf16."""
-    global rows_launches
-    cuda_lib.require_cuda("verify_rows", hs, embed)
+    """Launch K5 over rows hs (R <= 1024, D) bf16; the embedding (V, D) bf16
+    or int8."""
+    global rows_launches, q_rows_launches
+    cuda_lib.require_cuda("verify_rows", hs)
+    embed, escale = _operand("verify_rows", embed, hs.device, 1)
     r, d = hs.shape
     v = embed.shape[0]
     if not 1 <= r <= MAX_ROWS_R or d % TILE or embed.shape[1] != d:
@@ -188,12 +232,16 @@ def verify_rows_kernel(hs, embed, pos, gcol, sup_masks, *, begin_index: int,
     _check_meta(dev, r, v, pos, gcol, sup_masks)
     part_f, part_a, mx, lse, am, gth = _stat_outputs(r, -(-v // TILE), dev)
     tensors = [hs, embed, pos, gcol, sup_masks, part_f, part_a, mx, lse, am, gth]
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    ptrs = (ctypes.c_void_p * (len(tensors) + 1))(
+        *[t.data_ptr() for t in tensors], None if escale is None else escale.data_ptr())
     start, factor = decay if decay is not None else (0, 1.0)
     ints = (ctypes.c_int * 7)(r, d, v, begin_index, eos_id, int(decay is not None),
                               int(start))
     cuda_lib.launch("wm_verify_rows", dev, ptrs, ints, float(math.log(factor)))
-    rows_launches += 1
+    if escale is None:
+        rows_launches += 1
+    else:
+        q_rows_launches += 1
     return am, mx, lse, gth
 
 
@@ -204,11 +252,7 @@ def verify_rows(hs: torch.Tensor, embed, pos: torch.Tensor, gcol: torch.Tensor,
     """(argmax (R,) int32, max, lse, gathered) of the processed logits of the
     rows ``hs`` (R, D) against the tied embedding (V, D), without
     materializing them.  CUDA tensors launch K5; CPU tensors take the plain
-    version."""
-    if isinstance(embed, dict):
-        raise NotImplementedError(
-            "the int8 embedding of verify_rows is not ported yet "
-            "(ROADMAP queue 1, item 11: int8 serving)")
+    version.  ``embed`` may be int8 (``{"q", "s"}``)."""
     if ts_cfg is not None:
         raise NotImplementedError(
             "fused timestamp rules in verify_rows are not ported yet "
@@ -220,20 +264,22 @@ def verify_rows(hs: torch.Tensor, embed, pos: torch.Tensor, gcol: torch.Tensor,
 
 def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_masks,
                          *, identity0: bool, begin_index: int, eos_id: int, decay):
-    global launches
+    global launches, q_launches
     b, n, d = hver.shape
     bn = b * n
+    cuda_lib.require_cuda("verify_hidden", hver, hsrc, heads_b)
+    dev = hver.device
+    heads_w, hscale = _operand("verify_hidden", heads_w, dev, 2)
+    embed, escale = _operand("verify_hidden", embed, dev, 1)
     nh = heads_w.shape[0]
     v = embed.shape[0]
     r = (nh + int(identity0)) * bn
-    cuda_lib.require_cuda("verify_hidden", hver, hsrc, heads_w, heads_b, embed)
     if (bn > 16 or r > MAX_R or d % 256 or hsrc.shape != hver.shape
             or heads_w.shape != (nh, d, d) or heads_b.shape != (nh, d)
             or embed.shape[1] != d):
         raise ValueError(
             f"verify kernel takes B*N <= 16, R <= {MAX_R}, D % 256 == 0; got "
             f"hidden {tuple(hver.shape)}, heads {tuple(heads_w.shape)}, R={r}")
-    dev = hver.device
     _check_meta(dev, r, v, pos, gcol, sup_masks)
     src16 = torch.zeros((16, d), dtype=torch.bfloat16, device=dev)
     src16[:bn] = hsrc.reshape(bn, d)
@@ -241,12 +287,17 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
     part_f, part_a, mx, lse, am, gth = _stat_outputs(r, -(-v // TILE), dev)
     tensors = [hver, src16, heads_w, heads_b, embed, pos, gcol, sup_masks, rows,
                part_f, part_a, mx, lse, am, gth]
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    scales = [None if a is None else a.data_ptr() for a in (escale, hscale)]
+    ptrs = (ctypes.c_void_p * (len(tensors) + 2))(*[t.data_ptr() for t in tensors],
+                                                  *scales)
     start, factor = decay if decay is not None else (0, 1.0)
     ints = (ctypes.c_int * 9)(bn, d, v, nh, int(identity0), begin_index, eos_id,
                               int(decay is not None), int(start))
     cuda_lib.launch("wm_verify_hidden", dev, ptrs, ints, float(math.log(factor)))
-    launches += 1
+    if escale is None and hscale is None:
+        launches += 1
+    else:
+        q_launches += 1
     return am, mx, lse, gth
 
 
@@ -258,7 +309,7 @@ def verify_hidden(hver: torch.Tensor, hsrc: torch.Tensor, heads_w: torch.Tensor,
     """(argmax (R,) int32, max, lse, gathered) of the processed logits of the
     rows built from ``hver``/``hsrc`` (B, N, D) and the stacked single-layer
     heads (nh, D, D) / (nh, D).  CUDA tensors launch K4; CPU tensors take the
-    plain version."""
+    plain version.  The heads and the embedding may be int8."""
     if ts_cfg is not None:
         raise NotImplementedError(
             "fused timestamp rules in verify_hidden are not ported yet "
