@@ -9,23 +9,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   2. build the Hopper kernels from whisper_medusa_tpu_torch/csrc (one nvcc
      per source, in parallel);
   3. hold each kernel against its plain PyTorch version at the shapes the
-     decode paths give it, bf16 and int8 (the int8 modes of K2, K4, K5 and
-     head_rows; K6 qmm and K7 qmm_nt), and time the kernel, the plain version
-     and, where one PyTorch call computes the same function, that call, with
-     CUDA events (3 warm-ups, median of 20); each kernel's bound is computed
-     from the bytes and operations of the same call;
+     paths give it, bf16 and int8 (K8 log_mel on the frontend's audio; the
+     int8 modes of K2, K4, K5 and head_rows; K2's Medusa-Block mode and K4's
+     identity0 rows, bf16 and int8; K6 qmm and K7 qmm_nt), and time the
+     kernel, the plain version and, where one PyTorch call computes the same
+     function, that call, with CUDA events (3 warm-ups, median of 20); each
+     kernel's bound is computed from the bytes and operations of the same
+     call;
   4. the main paths at full whisper-large-v2 width with random bf16 weights,
      each driven with every launch counter set to 0 just before and read
      just after: three Medusa requests at B=1; one vanilla request
      (``disable_medusa=True``) at B=1; one batched Medusa request and one
      batched vanilla request of eight waveforms; then the same four requests
      (one at B=1) on ``model.quantize()``, the int8 serving copy, with the
-     share of its tokens equal to the bf16 ones printed, not held;
-  5. the output is unchanged when every draft is corrupted, bf16 and int8;
+     share of its tokens equal to the bf16 ones printed, not held; then
+     Medusa-Block requests (10 heads and a block layer, sharing the Whisper
+     weights) at B=1 and B=8, bf16 and int8, each from waveforms through
+     ``WhisperMedusaProcessor(use_kernel=True)`` (K8) inside the driven run;
+  5. the output is unchanged when every draft is corrupted, bf16 and int8,
+     base_head and Medusa-Block;
   6. decode batch invariance, bf16 and int8: speculative_generate at B=8
-     gives every example exactly the tokens of its B=1 decode, for Medusa
-     and for vanilla (accepted counts are printed, not held equal); whether
-     generate at B=8 gives each example its B=1 tokens end to end is
+     gives every example exactly the tokens of its B=1 decode, for Medusa,
+     vanilla and Medusa-Block (accepted counts are printed, not held equal);
+     whether generate at B=8 gives each example its B=1 tokens end to end is
      printed, not required.
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -48,9 +54,11 @@ SEED = 0
 MAX_NEW_TOKENS = 128
 BATCH = 8
 PROMPT_LEN = 4
-# NVIDIA H100 SXM data sheet: HBM rate and dense bf16 rate (at the 700 W limit).
+# NVIDIA H100 SXM data sheet: HBM rate, dense bf16 tensor-core rate and the
+# f32 rate of the CUDA cores (at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def log(msg):
@@ -74,11 +82,12 @@ def cuda_ms(fn, warmup=3, iters=20):
     return statistics.median(times)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=BF16_FLOPS):
     """(ms, "bytes" | "operations"): the least time the card could take to
-    move ``nbytes`` and do ``flops`` bf16 operations."""
+    move ``nbytes`` and do ``flops`` operations at ``peak`` (bf16 tensor
+    cores unless given)."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / BF16_FLOPS * 1e3
+    tf = flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -100,9 +109,15 @@ def rel_err(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
+def _within(a, b, tol):
+    """Elementwise |a - b| <= tol + tol * |b| (numpy's allclose at rtol =
+    atol), as a bool tensor."""
+    b = b.float()
+    return (a.float() - b).abs() <= tol + tol * b.abs()
+
+
 def close(a, b, tol):
-    """Elementwise |a - b| <= tol + tol * |b| (numpy's allclose at rtol = atol)."""
-    return bool(torch.allclose(a.float(), b.float(), rtol=tol, atol=tol))
+    return bool(_within(a, b, tol).all())
 
 
 def require(cond, what):
@@ -191,6 +206,79 @@ def check_attention(g):
                          bound(4 * nbytes(q), 4 * b * h * s * s * dh), lib_ms)
 
 
+def _log_mel_cost(x, n_mels):
+    """(bytes, operations, dense-DFT operations) of log-mel on audio ``x``
+    (B, N).  The bound counts what the function needs: the audio read once,
+    the filter bank's nonzeros, the features written once; per frame the
+    Hann window, a real FFT of 400 points (2.5 N log2 N, half a complex
+    FFT's 5 N log2 N), the power, the triangular filter bank at its
+    nonzeros (each bin feeds at most two mels) and the log.  The third
+    number is the dense DFT K8 does instead (cos and sin, 400 x 201 MACs
+    each, plus a dense 201 x n_mels projection): its design, not the
+    function's need."""
+    from whisper_medusa_tpu_torch.ops import mel as M
+
+    b, n = x.shape
+    frames = n // M.HOP_LENGTH
+    nf = M.N_FFT // 2 + 1
+    nnz = int((M.device_bases(x.device, n_mels)[2] != 0).sum())
+    fft = 2.5 * M.N_FFT * np.log2(M.N_FFT)
+    per_frame = M.N_FFT + fft + 3 * nf + 2 * nnz + n_mels
+    moved = nbytes(x) + 4 * nnz + 4 * b * frames * n_mels
+    dense = b * frames * (2 * 2 * M.N_FFT * nf + 3 * nf + 2 * nf * n_mels)
+    return moved, b * frames * per_frame, dense
+
+
+def check_mel(waves1, waves8):
+    """K8 against its plain version on the smoke's waveforms at B=1 and B=8
+    and on seeded white noise at B=2, n_mels 80 (and 128 on the noise): the
+    normalized features (what users get) within 1e-3 max abs, the JAX
+    package's bar for its kernel; the raw log10 error is printed.  Timed at
+    B=1 and B=8 against the plain version and, for the DFT part alone,
+    torch.stft ("stft only")."""
+    from whisper_medusa_tpu_torch.ops import mel as M
+    from whisper_medusa_tpu_torch.ops import mel_fused as MF
+
+    def batch(waves):
+        return torch.from_numpy(np.stack([M.pad_or_trim(w)[0] for w in waves])).cuda()
+
+    noise = np.random.default_rng(SEED + 4).standard_normal((2, M.N_SAMPLES))
+    inputs = {"B=1": (batch(waves1), 80), "B=8": (batch(waves8), 80),
+              "noise B=2": (torch.from_numpy(0.1 * noise).float().cuda(), 80),
+              "noise B=2, 128 mels": (torch.from_numpy(0.1 * noise).float().cuda(), 128)}
+    worst = 0.0
+    for name, (x, n_mels) in inputs.items():
+        raw, ref = MF.mel_kernel(x, n_mels), M.log_mel_plain(x, n_mels)
+        feats, rfeats = M.normalize_log_mel(raw), M.normalize_log_mel(ref)
+        err = max_err(feats, rfeats)
+        log(f"K8 log_mel {name}: features max_abs_err {err:.3e} (raw log10 "
+            f"{max_err(raw, ref):.3e}), shape {tuple(feats.shape)}")
+        require(feats.shape == rfeats.shape and bool(torch.isfinite(feats).all())
+                and err <= 1e-3, f"K8 log_mel {name}: err {err}")
+        worst = max(worst, err)
+    window = torch.hann_window(M.N_FFT, device="cuda")
+    timed = {}
+    for name in ("B=1", "B=8"):
+        x, n_mels = inputs[name]
+        ms = cuda_ms(lambda: MF.mel_kernel(x, n_mels))
+        plain_ms = cuda_ms(lambda: M.log_mel_plain(x, n_mels))
+        stft_ms = cuda_ms(lambda: torch.stft(x, M.N_FFT, M.HOP_LENGTH, window=window,
+                                             center=True, pad_mode="reflect",
+                                             return_complex=True))
+        moved, flops, dft_flops = _log_mel_cost(x, n_mels)
+        b_ms = bound(moved, flops, F32_FLOPS)
+        log(f"K8 log_mel {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, stft only "
+            f"{stft_ms:.4f} ms, bound {b_ms[0]:.4f} ms ({b_ms[1]}: {moved / 1e6:.2f} MB, "
+            f"{flops / 1e9:.4f} GFLOP by FFT and sparse filter bank; the dense DFT K8 "
+            f"does is {dft_flops / 1e9:.2f} GFLOP, {dft_flops / F32_FLOPS * 1e3:.4f} ms "
+            f"on the f32 CUDA cores)")
+        timed[name] = (ms, plain_ms, b_ms, stft_ms)
+    ms, plain_ms, b_ms, stft_ms = timed["B=1"]
+    return kernel_record("log_mel", "whisper_medusa_tpu_torch/csrc/mel.cu",
+                         "whisper_medusa_tpu/ops/mel_pallas.py:68", (MF, "launches"),
+                         worst, ms, plain_ms, b_ms, stft_ms)
+
+
 def _random_layers(g, dims, nl):
     d, f = dims.d_model, dims.decoder_ffn_dim
 
@@ -212,9 +300,44 @@ def _random_layers(g, dims, nl):
     return layers, ln(), rnd
 
 
-def check_megastep_2layer_int8(g, t, offs):
-    """K2's int8 mode, two layers, at per-example offsets ``offs``: pre_norm,
-    hidden and the written self rows (dequantized) within 3e-2 + 3e-2 |x|;
+def _block_layer(g, dims, int8):
+    """A random unstacked decoder layer (the Medusa-Block layer)."""
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import qmm as QM
+
+    layer = whisper.layer_params(_random_layers(g, dims, 1)[0], 0)
+    return QM.quantize_layers(layer) if int8 else layer
+
+
+def _plain_2layer(layers, ln_post, blk, got_hidden, x, sk, sv, ck, cv, offsets, s_enc,
+                  h, cks=None, cvs=None, ss=None):
+    """The plain reference of a 2-layer K2 call: the layer loop and ln_post
+    on slots 0 and 1; with a block, the plain block layer applied to the
+    kernel's own hidden (its hand-over input) on slot 2, so that
+    block_hidden is held to one layer's rounding as the other outputs are
+    to two layers'.  A block that read anything but ``hidden`` would still
+    disagree."""
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import megastep as MS
+
+    at = lambda a, i: None if a is None else a[i]
+    two = slice(0, 2)
+    pre, hid, _ = MS.megastep_plain(layers, ln_post, x, sk[two], sv[two], ck[two], cv[two],
+                                    offsets, None, s_enc, h, cross_k_s=at(cks, two),
+                                    cross_v_s=at(cvs, two), self_s=at(ss, two))
+    if blk is None:
+        return pre, hid, None
+    mask = whisper.make_step_mask(offsets, x.shape[1], sk.shape[2], None)
+    bh = whisper.decoder_layer_step(blk, got_hidden, sk[2], sv[2], ck[2], cv[2], offsets,
+                                    mask, h, s_enc, cross_k_s=at(cks, 2),
+                                    cross_v_s=at(cvs, 2), self_s=at(ss, 2))
+    return pre, hid, bh
+
+
+def check_megastep_2layer_int8(g, t, offs, block=False):
+    """K2's int8 mode, two layers (and the block on slot 2 when ``block``),
+    at per-example offsets ``offs``: pre_norm, hidden, block_hidden and the
+    written self rows of every slot (dequantized) within 3e-2 + 3e-2 |x|;
     every other row and scale untouched."""
     from whisper_medusa_tpu_torch.config import WhisperDims
     from whisper_medusa_tpu_torch.models import whisper
@@ -225,22 +348,26 @@ def check_megastep_2layer_int8(g, t, offs):
     b, d, h, s_enc, s_len = len(offs), dims.d_model, 20, 1500, 460
     layers, ln_post, rnd = _random_layers(g, dims, 2)
     layers = QM.quantize_layers(layers)
+    blk = _block_layer(g, dims, True) if block else None
+    n = 2 + block
     i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, device="cuda",
                                       dtype=torch.int8)
     scl = lambda *shape: 0.004 + 0.012 * torch.rand(shape, generator=g, device="cuda")
-    self_k, self_v = i8(2, b, s_len, d), i8(2, b, s_len, d)
-    self_s = scl(2, b, s_len, 2 * h).to(torch.bfloat16)
-    cross_k, cross_v = i8(2, b, h, 64, s_enc), i8(2, b, s_enc, d)
-    cks, cvs = scl(2, b, h, s_enc), scl(2, b, h, s_enc)
+    self_k, self_v = i8(n, b, s_len, d), i8(n, b, s_len, d)
+    self_s = scl(n, b, s_len, 2 * h).to(torch.bfloat16)
+    cross_k, cross_v = i8(n, b, h, 64, s_enc), i8(n, b, s_enc, d)
+    cks, cvs = scl(n, b, h, s_enc), scl(n, b, h, s_enc)
     x = rnd(b, t, d, scale=1.0)
     offsets = torch.tensor(offs, dtype=torch.int32, device="cuda")
     sk2, sv2, ss2 = self_k.clone(), self_v.clone(), self_s.clone()
-    kw = dict(cross_k_s=cks, cross_v_s=cvs)
     got = MS.megastep_kernel(layers, ln_post, x, self_k, self_v, cross_k, cross_v,
-                             offsets, None, s_enc, h, self_s=self_s, **kw)
-    ref = MS.megastep_plain(layers, ln_post, x, sk2, sv2, cross_k, cross_v, offsets,
-                            None, s_enc, h, self_s=ss2, **kw)
-    err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+                             offsets, None, s_enc, h, self_s=self_s, cross_k_s=cks,
+                             cross_v_s=cvs, block=blk)
+    ref = _plain_2layer(layers, ln_post, blk, got[1], x, sk2, sv2, cross_k, cross_v,
+                        offsets, s_enc, h, cks, cvs, ss2)
+    outs = [(a, c) for a, c in zip(got, ref) if c is not None]
+    require(len(outs) == 2 + block and (got[2] is None) != block, "K2 outputs")
+    err = max(max_err(a, c) for a, c in outs)
     written = torch.zeros((b, s_len), dtype=torch.bool, device="cuda")
     for e, off in enumerate(offs):
         written[e, off:off + t] = True
@@ -252,37 +379,75 @@ def check_megastep_2layer_int8(g, t, offs):
         cerr = max(cerr, max_err(ra, rc))
     untouched = all(torch.equal(a[:, ~written], c[:, ~written])
                     for a, c in ((self_k, sk2), (self_v, sv2), (self_s, ss2)))
-    log(f"K2 int8 megastep 2-layer B={b} T={t} offsets {offs}: pre_norm/hidden err "
-        f"{err:.3e}, written rows (dequantized) err {cerr:.3e}, other rows equal "
-        f"{untouched}")
-    ok = close(got[0], ref[0], 3e-2) and close(got[1], ref[1], 3e-2) and rows_ok
+    what = "block mode, 2 layers + block" if block else "2-layer"
+    log(f"K2 int8 megastep {what} B={b} T={t} offsets {offs}: pre_norm/hidden"
+        f"{'/block_hidden' if block else ''} err {err:.3e}, written rows (dequantized, "
+        f"{n} slots) err {cerr:.3e}, other rows equal {untouched}")
+    ok = all(close(a, c, 3e-2) for a, c in outs) and rows_ok
     require(ok and untouched,
-            f"K2 int8 2-layer B={b} T={t}: err {err}, rows {cerr}, untouched {untouched}")
+            f"K2 int8 {what} B={b} T={t}: err {err}, rows {cerr}, untouched {untouched}")
     return err
 
 
-def check_megastep_2layer(g, t, offs):
-    """Two layers at per-example offsets ``offs`` (B = len(offs)): pre_norm,
-    hidden and the written cache rows elementwise within 3e-2; every other
-    row untouched."""
+# In block mode, the output elements (of pre_norm, hidden and block_hidden
+# together) that may lie outside the elementwise bound of the plain bf16
+# value, each inside it of an f32 run (PERF.md section 6 gives the count seen
+# on the card).
+BLOCK_F32_HELD_MAX = 4
+
+
+def check_megastep_2layer(g, t, offs, block=False):
+    """Two layers (and the block on slot 2 when ``block``) at per-example
+    offsets ``offs`` (B = len(offs)): pre_norm, hidden, block_hidden and the
+    written cache rows of every slot elementwise within 3e-2 + 3e-2 |x|;
+    every other row untouched.  In block mode only, up to BLOCK_F32_HELD_MAX
+    output elements may lie outside that bound of the plain bf16 value, each
+    inside it of an f32 run of the same call: where the residual stream
+    cancels to a small value the two bf16 paths may round a few ulps of the
+    stream's scale apart, and the f32 run shows which one is off.  The plain
+    block takes the kernel's own ``hidden``, so block_hidden carries one
+    layer's rounding, not three."""
     from whisper_medusa_tpu_torch.config import WhisperDims
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
     dims = WhisperDims(decoder_layers=2)
     b, d, h, s_enc, s_len = len(offs), dims.d_model, 20, 1500, 460
     layers, ln_post, rnd = _random_layers(g, dims, 2)
-    self_k = rnd(2, b, s_len, d, scale=1.0)
-    self_v = rnd(2, b, s_len, d, scale=1.0)
-    cross_k = rnd(2, b, h, 64, s_enc, scale=1.0)
-    cross_v = rnd(2, b, s_enc, d, scale=1.0)
+    blk = _block_layer(g, dims, False) if block else None
+    n = 2 + block
+    self_k = rnd(n, b, s_len, d, scale=1.0)
+    self_v = rnd(n, b, s_len, d, scale=1.0)
+    cross_k = rnd(n, b, h, 64, s_enc, scale=1.0)
+    cross_v = rnd(n, b, s_enc, d, scale=1.0)
     x = rnd(b, t, d, scale=1.0)
     offsets = torch.tensor(offs, dtype=torch.int32, device="cuda")
     sk2, sv2 = self_k.clone(), self_v.clone()
+    # The f32 run's cache, copied before the kernel writes the slabs.
+    slabs32 = (self_k.float(), self_v.float()) if block else None
     got = MS.megastep_kernel(layers, ln_post, x, self_k, self_v, cross_k, cross_v,
-                             offsets, None, s_enc, h)
-    ref = MS.megastep_plain(layers, ln_post, x, sk2, sv2, cross_k, cross_v, offsets,
-                            None, s_enc, h)
-    err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+                             offsets, None, s_enc, h, block=blk)
+    ref = _plain_2layer(layers, ln_post, blk, got[1], x, sk2, sv2, cross_k, cross_v,
+                        offsets, s_enc, h)
+    require(all(a is not None for a in got[:2]) and (got[2] is None) != block,
+            "K2 outputs")
+    outs = [(a, c) for a, c in zip(got, ref) if c is not None]
+    err = max(max_err(a, c) for a, c in outs)
+    held = [0] * len(outs)
+    if not block:
+        ok = all(close(a, c, 3e-2) for a, c in outs)
+    else:
+        f32 = lambda tree: {k: f32(v) if isinstance(v, dict) else v.float()
+                            for k, v in tree.items()}
+        ref32 = _plain_2layer(f32(layers), f32(ln_post), f32(blk), got[1].float(),
+                              x.float(), *slabs32, cross_k.float(), cross_v.float(),
+                              offsets, s_enc, h)
+        del slabs32
+        ok = True
+        for i, ((a, c), c32) in enumerate(zip(outs, ref32)):
+            near, near32 = _within(a, c, 3e-2), _within(a, c32, 3e-2)
+            held[i] = int((near32 & ~near).sum())
+            ok &= bool((near | near32).all())
+        ok &= sum(held) <= BLOCK_F32_HELD_MAX
     written = torch.zeros((b, s_len), dtype=torch.bool, device="cuda")
     for e, off in enumerate(offs):
         written[e, off:off + t] = True
@@ -292,11 +457,16 @@ def check_megastep_2layer(g, t, offs):
         cerr = max(cerr, max_err(a[:, written], c[:, written]))
     untouched = (torch.equal(self_k[:, ~written], sk2[:, ~written])
                  and torch.equal(self_v[:, ~written], sv2[:, ~written]))
-    log(f"K2 megastep 2-layer B={b} T={t} offsets {offs}: pre_norm/hidden err "
-        f"{err:.3e}, written rows err {cerr:.3e}, other rows equal {untouched}")
-    ok = close(got[0], ref[0], 3e-2) and close(got[1], ref[1], 3e-2) and rows_ok
-    require(ok and untouched,
-            f"K2 2-layer B={b} T={t}: err {err}, rows {cerr}, untouched {untouched}")
+    what = "block mode, 2 layers + block" if block else "2-layer"
+    log(f"K2 megastep {what} B={b} T={t} offsets {offs}: pre_norm/hidden"
+        f"{'/block_hidden' if block else ''} err {err:.3e}"
+        + (f" (elements held by the f32 run: pre_norm {held[0]}, hidden {held[1]}, "
+           f"block_hidden {held[2]} of {got[2].numel()} each; at most "
+           f"{BLOCK_F32_HELD_MAX} in all)" if block else "")
+        + f", written rows ({n} slots) err {cerr:.3e}, other rows equal {untouched}")
+    require(ok and rows_ok and untouched,
+            f"K2 {what} B={b} T={t}: err {err}, held {held}, rows {cerr}, "
+            f"untouched {untouched}")
     return err
 
 
@@ -374,40 +544,50 @@ def _stats_ok(model, got, ref):
     return err <= 1e-2, err
 
 
-def check_verify(g, model):
+def check_verify(g, model, identity0=False):
+    """K4 at R = 121 on the 11-node chain: base_head (row block 0 is head 0
+    of the hidden rows; 11 heads) or, with ``identity0``, Medusa-Block (row
+    block 0 is the hidden state itself, the 10 heads draft from a second
+    source, the block's output).  Argmax equal on rows whose plain top-2
+    gap exceeds 1e-2; max / lse / gathered as _stats_ok holds them."""
     from whisper_medusa_tpu_torch.ops import qmm as QM
     from whisper_medusa_tpu_torch.ops import verify as VF
 
     q = _int8(model)
     heads = model.params["medusa"]["heads"]
     hw, hb = QM.wmap(heads["w"], lambda a: a[:, 0]), heads["b"][:, 0]
-    n_nodes, kp1 = 11, 11
+    n_nodes, kp1 = 11, hb.shape[0] + identity0
     embed, masks, pos, gcol, kw = _verify_inputs(g, model, kp1 * n_nodes)
     d = model.config.dims.d_model
     # Row (k, n) predicts position cur_len + n + k (cur_len 5).
     pos = (5 + torch.arange(n_nodes, device="cuda")[None, :]
            + torch.arange(kp1, device="cuda")[:, None]).reshape(-1).to(torch.int32)
     hid = torch.randn((1, n_nodes, d), generator=g, device="cuda").to(torch.bfloat16)
-    kw4 = dict(identity0=False, **kw)
-    got = VF.verify_hidden_kernel(hid, hid, hw, hb, embed, pos, gcol, masks, **kw4)
-    ref = VF.verify_hidden_plain(hid, hid, hw, hb, embed, pos, gcol, masks, **kw4)
-    rows = VF.build_rows(hid, hid, hw, hb, False)
+    src = (torch.randn((1, n_nodes, d), generator=g, device="cuda").to(torch.bfloat16)
+           if identity0 else hid)
+    kw4 = dict(identity0=identity0, **kw)
+    got = VF.verify_hidden_kernel(hid, src, hw, hb, embed, pos, gcol, masks, **kw4)
+    ref = VF.verify_hidden_plain(hid, src, hw, hb, embed, pos, gcol, masks, **kw4)
+    rows = VF.build_rows(hid, src, hw, hb, identity0)
     arg_ok, n_clear = _clear_argmax(rows, embed, pos, masks, kw, got[0], ref[0], 1e-2)
     ok, err = _stats_ok(model, got, ref)
-    name = "verify_hidden_int8" if q else "verify_hidden"
+    name = "verify_hidden" + ("_id0" if identity0 else "") + ("_int8" if q else "")
     log(f"K4 {name} R={kp1 * n_nodes}: argmax equal on {n_clear} clear rows: "
         f"{arg_ok}; max/lse/gathered max_abs_err {err:.3e}")
-    require(arg_ok and ok, f"K4 {name}: argmax {arg_ok}, err {err}")
-    ms = cuda_ms(lambda: VF.verify_hidden_kernel(hid, hid, hw, hb, embed, pos, gcol,
+    require(arg_ok and ok and got[0].shape == (kp1 * n_nodes,),
+            f"K4 {name}: argmax {arg_ok}, err {err}")
+    ms = cuda_ms(lambda: VF.verify_hidden_kernel(hid, src, hw, hb, embed, pos, gcol,
                                                  masks, **kw4))
-    plain_ms = cuda_ms(lambda: VF.verify_hidden_plain(hid, hid, hw, hb, embed, pos,
+    plain_ms = cuda_ms(lambda: VF.verify_hidden_plain(hid, src, hw, hb, embed, pos,
                                                       gcol, masks, **kw4))
     r, v = kp1 * n_nodes, model.config.dims.vocab_size
-    moved = nbytes(hid, *_tensors(hw), hb, *_tensors(embed), pos, gcol, masks) + 4 * r * 4
-    ops = 2 * r * v * d + 2 * kp1 * n_nodes * d * d
+    sources = (hid, src) if identity0 else (hid,)
+    moved = (nbytes(*sources, *_tensors(hw), hb, *_tensors(embed), pos, gcol, masks)
+             + 4 * r * 4)
+    ops = 2 * r * v * d + 2 * hb.shape[0] * n_nodes * d * d
+    counter = ("q_" if q else "") + ("id0_launches" if identity0 else "launches")
     return kernel_record(name, "whisper_medusa_tpu_torch/csrc/verify.cu",
-                         "whisper_medusa_tpu/ops/verify.py:309",
-                         (VF, "q_launches" if q else "launches"),
+                         "whisper_medusa_tpu/ops/verify.py:309", (VF, counter),
                          err, ms, plain_ms, bound(moved, ops), None)
 
 
@@ -545,16 +725,17 @@ def check_qmm_nt(g, qmodel):
                          lib_ms)
 
 
-def _megastep_cost(dec_layers, ln_post, cache, offs, t, cross_len):
+def _megastep_cost(dec_layers, ln_post, cache, offs, t, cross_len, block=None):
     """(bytes, flops) of one K2 call: every weight the kernel takes (not the
     cross k/v projections, which init_cache applies) with its scales, the
-    cross K/V (and scales) and the self K/V history read once; the chunk's
-    K/V rows and the outputs written.  A self row is D elements plus, in
-    int8, its head's bf16 scale."""
+    block's too, the cross K/V (and scales) and the self K/V history of
+    every slot read once; the chunk's K/V rows and the outputs written.  A
+    self row is D elements plus, in int8, its head's bf16 scale."""
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
-    weights = [MS._leaf(dec_layers, path) for path in MS._WEIGHTS]
-    nl, _, _, d = cache.self_k.shape
+    trees = [dec_layers] + ([] if block is None else [block])
+    weights = [MS._leaf(tree, path) for tree in trees for path in MS._WEIGHTS]
+    nl, _, _, d = cache.self_k.shape          # slots: the block's included
     h = cache.cross_k.shape[2]
     scales = [] if cache.self_s is None else [cache.cross_k_s, cache.cross_v_s]
     row = d * cache.self_k.element_size() + (0 if cache.self_s is None else 2 * h)
@@ -562,24 +743,35 @@ def _megastep_cost(dec_layers, ln_post, cache, offs, t, cross_len):
     hist = sum(off + t for off in offs)
     moved = (nbytes(*[x for w in weights for x in _tensors(w)], ln_post["scale"],
                     ln_post["bias"], cache.cross_k, cache.cross_v, *scales)
-             + 2 * nl * hist * row + 2 * nl * m * row + 3 * m * d * 2)
-    mats = [_tensors(w)[0] for w in weights if _tensors(w)[0].dim() == 3]
-    ops = (2 * m * sum(w[0].numel() for w in mats) * nl
+             + 2 * nl * hist * row + 2 * nl * m * row + (3 + len(trees) - 1) * m * d * 2)
+
+    def mat_elems(tree, stacked):
+        """Elements of one layer's weight matrices."""
+        mats = [_tensors(MS._leaf(tree, path))[0] for path in MS._WEIGHTS]
+        return sum((w[0] if stacked else w).numel() for w in mats
+                   if w.dim() == 2 + stacked)
+
+    n_main = nl - len(trees) + 1
+    ops = (2 * m * (mat_elems(dec_layers, True) * n_main
+                    + (0 if block is None else mat_elems(block, False)))
            + nl * 4 * t * hist * d + nl * 4 * m * cross_len * d)
     return moved, ops
 
 
-def check_megastep_full(model, enc1, enc8):
-    """The full 32-layer step against the plain layer loop on copies of one
-    cache: at B=1 prefill T=4 then the T=11 chain, at B=8 prefill T=4, then
-    T=11 and T=1 at per-example offsets that differ.  bf16: pre_norm cosine
-    >= 0.999; int8 (a quantized model): >= 0.9998, its written rows
-    dequantized."""
+def check_megastep_full(model, enc1, enc8, block=None):
+    """The full 32-layer step (and the block on slot 32, given ``block``)
+    against the plain layer loop on copies of one cache: at B=1 prefill T=4
+    then the T=11 chain, at B=8 prefill T=4, then T=11 and T=1 at
+    per-example offsets that differ.  bf16: pre_norm (and block_hidden)
+    cosine >= 0.999; int8 (a quantized model): >= 0.9998, its written rows
+    dequantized.  With the block, block_hidden also lies at least 4x closer
+    (in 1 - cosine) to the plain block_hidden than the plain hidden does, so
+    a kernel that skipped the block cannot pass."""
     from whisper_medusa_tpu_torch.models import whisper
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
     q = _int8(model)
-    name = "megastep_int8" if q else "megastep"
+    name = "megastep" + ("_block" if block is not None else "") + ("_int8" if q else "")
     p = model.params["whisper"]
     dims = model.config.dims
     dec = p["decoder"]
@@ -595,7 +787,10 @@ def check_megastep_full(model, enc1, enc8):
         b = enc.shape[0]
         # The longest cache generate() builds (max_length 448 + 12 rows): its
         # self-attention scores and V rows need more than 48 KB of shared memory.
-        cache = whisper.init_cache(p, dims, enc, dims.max_target_positions + 12)
+        cache = whisper.init_cache(p, dims, enc, dims.max_target_positions + 12,
+                                   extra_layers=int(block is not None))
+        if block is not None:
+            whisper.set_block_cross_kv(cache, block, enc, nh)
         sc = {} if not q else dict(cross_k_s=cache.cross_k_s, cross_v_s=cache.cross_v_s)
         for t, offs in steps:
             toks = (torch.tensor([[st.sot, st.first_language, st.transcribe,
@@ -608,22 +803,37 @@ def check_megastep_full(model, enc1, enc8):
             ss = None if cache.self_s is None else cache.self_s.clone()
             args = (x, cache.self_k, cache.self_v, cache.cross_k, cache.cross_v,
                     offsets, None, dims.max_source_positions, nh)
-            kkw = dict(sc, self_s=cache.self_s) if q else {}
-            pkw = dict(sc, self_s=ss) if q else {}
-            got, hid = MS.megastep_kernel(dec["layers"], dec["ln_post"], *args, **kkw)
-            ref, rhid = MS.megastep_plain(dec["layers"], dec["ln_post"], x, sk, sv,
-                                          *args[3:], **pkw)
+            kkw = dict(sc, self_s=cache.self_s, block=block) if q else dict(block=block)
+            pkw = dict(sc, self_s=ss, block=block) if q else dict(block=block)
+            got, hid, bh = MS.megastep_kernel(dec["layers"], dec["ln_post"], *args, **kkw)
+            ref, rhid, rbh = MS.megastep_plain(dec["layers"], dec["ln_post"], x, sk, sv,
+                                               *args[3:], **pkw)
             cos = cosine(got, ref)
+            bcos = 1.0 if block is None else cosine(bh, rbh)
+            # A kernel that skipped the block (block_hidden = hidden) must
+            # not pass: block_hidden lies at least 4x closer, in 1 - cosine,
+            # to the plain block_hidden than the plain hidden does.
+            skip = 0.0 if block is None else cosine(rhid, rbh)
+            applied = block is None or 4 * (1 - bcos) <= 1 - skip
             extra = ""
             if b == 1 and not q:
                 # An f32 run of the same step (weights, cache and input
                 # upcast): how far each bf16 path lies from it.
-                ref32, _ = MS.megastep_plain(
+                ref32, _, rbh32 = MS.megastep_plain(
                     f32(dec["layers"]), f32(dec["ln_post"]), x.float(), sk.float(),
                     sv.float(), cache.cross_k.float(), cache.cross_v.float(), offsets,
-                    None, dims.max_source_positions, nh)
+                    None, dims.max_source_positions, nh,
+                    block=None if block is None else f32(block))
                 extra = (f" (kernel vs f32 {cosine(got, ref32):.6f}, plain bf16 vs f32 "
                          f"{cosine(ref, ref32):.6f})")
+                if block is not None:
+                    extra += (f"; block_hidden cosine {bcos:.6f} (kernel vs f32 "
+                              f"{cosine(bh, rbh32):.6f}, plain bf16 vs f32 "
+                              f"{cosine(rbh, rbh32):.6f})")
+            elif block is not None:
+                extra = f"; block_hidden cosine {bcos:.6f}"
+            if block is not None:
+                extra += f"; plain hidden vs plain block_hidden cosine {skip:.6f}"
             lg_k = whisper.project_logits(p, hid)
             lg_p = whisper.project_logits(p, rhid)
             top2 = lg_p.float().topk(2, dim=-1).values
@@ -632,10 +842,10 @@ def check_megastep_full(model, enc1, enc8):
             written = torch.zeros(cache.self_k.shape[1:3], dtype=torch.bool, device="cuda")
             for e, off in enumerate(offs):
                 written[e, off:off + t] = True
-            # Written rows per layer, as a relative Frobenius error: over 32
+            # Written rows per slot, as a relative Frobenius error: over 32
             # layers bf16 rounding differences compound (the 2-layer check
             # holds the elementwise bound), so the deep stack is held to a norm.
-            nl = dims.decoder_layers
+            nl = cache.self_k.shape[0]
 
             def rows(slab, scales, i, lanes):
                 if scales is None:
@@ -649,14 +859,16 @@ def check_megastep_full(model, enc1, enc8):
                          for i in range(nl)]
             rerr = max(per_layer)
             shown = sorted({0, 1, nl // 8, nl // 2, nl - 1})
-            log(f"K2 {name} {nl}-layer B={b} T={t} offsets {offs}: pre_norm cosine "
+            log(f"K2 {name} {nl}-slot B={b} T={t} offsets {offs}: pre_norm cosine "
                 f"{cos:.6f}{extra}; argmax equal on {int(clear.sum())}/{b * t} rows with "
-                f"top-2 gap > 5e-2: {arg_ok}; written rows relative error by layer "
+                f"top-2 gap > 5e-2: {arg_ok}; written rows relative error by slot "
                 + " ".join(f"{i}:{per_layer[i]:.2e}" for i in shown))
-            require(cos >= (0.9998 if q else 0.999) and arg_ok and rerr <= 3e-2,
-                    f"K2 {name} {nl}-layer B={b} T={t}: cos {cos}, argmax {arg_ok}, "
-                    f"rows {rerr}")
-            worst_cos = min(worst_cos, cos)
+            floor = 0.9998 if q else 0.999
+            require(min(cos, bcos) >= floor and applied and arg_ok and rerr <= 3e-2
+                    and (bh is None) == (block is None),
+                    f"K2 {name} {nl}-slot B={b} T={t}: cos {cos}, block cos {bcos}, "
+                    f"hidden vs block_hidden {skip}, argmax {arg_ok}, rows {rerr}")
+            worst_cos = min(worst_cos, cos, bcos)
             if t != 4:
                 run = lambda: MS.megastep_kernel(dec["layers"], dec["ln_post"], *args,
                                                  **kkw)
@@ -664,9 +876,9 @@ def check_megastep_full(model, enc1, enc8):
                 plain_ms = cuda_ms(lambda: MS.megastep_plain(dec["layers"], dec["ln_post"],
                                                              *args, **kkw))
                 cost = _megastep_cost(dec["layers"], dec["ln_post"], cache, offs, t,
-                                      dims.max_source_positions)
+                                      dims.max_source_positions, block)
                 b_ms = bound(*cost)
-                log(f"K2 {name} {nl}-layer B={b} T={t}: kernel {ms:.4f} ms, plain "
+                log(f"K2 {name} {nl}-slot B={b} T={t}: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, bound {b_ms[0]:.4f} ms ({b_ms[1]}; "
                     f"{cost[0] / 1e9:.3f} GB, {cost[1] / 1e9:.1f} GFLOP)")
                 timings[(b, t)] = (ms, plain_ms, b_ms)
@@ -675,9 +887,9 @@ def check_megastep_full(model, enc1, enc8):
             if q:
                 cache.self_s.copy_(ss)
     ms, plain_ms, b_ms = timings[(1, 11)]
+    counter = ("q_" if q else "") + ("block_launches" if block is not None else "launches")
     return kernel_record(name, "whisper_medusa_tpu_torch/csrc/megastep.cu",
-                         "whisper_medusa_tpu/ops/megastep.py:342",
-                         (MS, "q_launches" if q else "launches"),
+                         "whisper_medusa_tpu/ops/megastep.py:342", (MS, counter),
                          None, ms, plain_ms, b_ms, None), worst_cos
 
 
@@ -733,9 +945,10 @@ def report(name, out, wall, n_gen):
         f"{out.steps} steps, mean_accept_length {out.mean_accept_length:.3f}")
 
 
-def check_batch_invariance(model, enc8):
+def check_batch_invariance(model, enc8, variants=("base_head", "vanilla")):
     """speculative_generate at B=8 on the batched encoder output gives every
-    example exactly the tokens of a B=1 decode of its encoder row."""
+    example exactly the tokens of a B=1 decode of its encoder row, for each
+    of ``variants``."""
     from whisper_medusa_tpu_torch.config import GenerationConfig
     from whisper_medusa_tpu_torch.decoding.buffers import generate_medusa_buffers
     from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig
@@ -752,9 +965,10 @@ def check_batch_invariance(model, enc8):
     gen = GenerationConfig(max_length=PROMPT_LEN + MAX_NEW_TOKENS, eos_token_id=st.eos,
                            pad_token_id=gd.pad_token_id)
     mode = "int8" if _int8(model) else "bf16"
-    for variant, choices, med in (("base_head", cfg.medusa.medusa_choices,
-                                   model.params["medusa"]),
-                                  ("vanilla", (1,), None)):
+    for variant in variants:
+        vanilla = variant == "vanilla"
+        choices = (1,) if vanilla else cfg.medusa.medusa_choices
+        med = None if vanilla else model.params["medusa"]
         buffers = generate_medusa_buffers(choices)
         run = lambda e, p: speculative_generate(model.params["whisper"], med, cfg.dims,
                                                 buffers, pcfg, gen, e, p, variant=variant)
@@ -766,7 +980,7 @@ def check_batch_invariance(model, enc8):
                         and int(batched.lengths[e]) == int(alone.lengths[0]))
             acc1.append(int(alone.accepted[0]))
         # Accepted drafts are not held equal: at B=1 the drafts come from K4's
-        # head rows, at B=8 from pass B (K3), which round differently.
+        # head rows, at B=8 from pass B (K3 or K7), which round differently.
         log(f"{mode} batch invariance [{variant}]: B=8 tokens equal to the B=1 decode for "
             f"{sum(same)}/{b} examples; lengths {batched.lengths.tolist()}, "
             f"B=8 steps {batched.steps}; accepted at B=8 "
@@ -806,6 +1020,15 @@ NEEDS = {
                             "head_rows_int8", "verify_rows_int8"),
              "vanilla B=8": ("attention", "megastep_int8", "qmm", "qmm_nt",
                              "verify_rows_int8")},
+}
+# Medusa-Block, from waveforms through the fused frontend (K8).
+NEEDS_BLOCK = {
+    "bf16": {1: ("log_mel", "attention", "megastep_block", "logits", "verify_hidden_id0"),
+             BATCH: ("log_mel", "attention", "megastep_block", "logits", "verify_rows")},
+    "int8": {1: ("log_mel", "attention", "megastep_block_int8", "qmm", "qmm_nt",
+                 "verify_hidden_id0_int8"),
+             BATCH: ("log_mel", "attention", "megastep_block_int8", "qmm", "qmm_nt",
+                     "verify_rows_int8")},
 }
 
 
@@ -851,6 +1074,27 @@ def phase_requests(mode, model, kernels, feats, waves, feats8, batch_secs):
     return outs
 
 
+def phase_block_requests(mode, bmodel, kernels, proc_k, wave, batch_waves):
+    """Phase 4 for a Medusa-Block model: one request at B=1 and one of eight
+    waveforms, each from the waveforms through ``proc_k`` (the processor
+    with ``use_kernel=True``) inside the driven run; {B: outputs}."""
+    vocab = bmodel.config.dims.vocab_size
+    outs = {}
+    for b, w in ((1, wave), (BATCH, batch_waves)):
+        bmodel.generate(proc_k(w), language="en", max_new_tokens=8)        # warm-up
+        out, wall = drive(f"{mode} medusa_block B={b}", kernels,
+                          lambda: bmodel.generate(proc_k(w), language="en",
+                                                  max_new_tokens=MAX_NEW_TOKENS),
+                          NEEDS_BLOCK[mode][b])
+        report(f"{mode} request (medusa_block, B={b}, fused frontend)", out, wall,
+               check_output(out, b, vocab))
+        if b > 1:
+            log(f"  per-example steps {out.steps_per_example.tolist()}, accepted "
+                f"{out.accepted.tolist()}, lengths {out.lengths.tolist()}")
+        outs[b] = out
+    return outs
+
+
 def token_share(a, b):
     """Share of generated positions where two outputs hold the same token."""
     return float((a.sequences[:, PROMPT_LEN:] == b.sequences[:, PROMPT_LEN:]).mean())
@@ -875,6 +1119,7 @@ def main():
     phase_build()
     from whisper_medusa_tpu_torch.config import WHISPER_PRESETS, MedusaConfig, ModelConfig
     from whisper_medusa_tpu_torch.data.tokenizer import CharTokenizer
+    from whisper_medusa_tpu_torch.models import bridge
     from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
     from whisper_medusa_tpu_torch.processor import WhisperMedusaProcessor
 
@@ -887,6 +1132,8 @@ def main():
               (11, [7, 0, 120, 33, 448, 5, 260, 90]))
     err2 = max(check_megastep_2layer(g, t, offs) for t, offs in steps2)
     err2q = max(check_megastep_2layer_int8(g, t, offs) for t, offs in steps2)
+    err2b = max(check_megastep_2layer(g, t, offs, block=True) for t, offs in steps2)
+    err2bq = max(check_megastep_2layer_int8(g, t, offs, block=True) for t, offs in steps2)
     cfg = ModelConfig(dims=WHISPER_PRESETS["large-v2"], medusa=MedusaConfig(),
                       param_dtype="bfloat16", compute_dtype="bfloat16")
     t0 = time.perf_counter()
@@ -904,6 +1151,13 @@ def main():
     torch.cuda.synchronize()
     log(f"int8 serving copy (model.quantize()): {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated with both models")
+    t0 = time.perf_counter()
+    bmodel = bridge.random_block_model(model, seed=SEED + 2)     # a generator of its own
+    bqmodel = bmodel.quantize()
+    torch.cuda.synchronize()
+    log(f"Medusa-Block model (10 heads + block layer, the same Whisper weights) and "
+        f"its int8 copy: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated with all four models")
     k3 = check_logits(g, model.params["whisper"]["decoder"]["embed_tokens"])
     k4 = check_verify(g, model)
     k4a = check_head_rows(g, model)
@@ -912,6 +1166,8 @@ def main():
     k4q = check_verify(g, qmodel)
     k4aq = check_head_rows(g, qmodel)
     k5q = check_verify_rows(g, qmodel, sizes=(1, 8, 88))
+    k4b = check_verify(g, bmodel, identity0=True)
+    k4bq = check_verify(g, bqmodel, identity0=True)
 
     proc = WhisperMedusaProcessor(tokenizer=CharTokenizer())
     waves = waveforms((8.0, 17.5, 29.0))
@@ -924,13 +1180,20 @@ def main():
     feats8 = proc(batch_waves)
     require(feats8.shape == (BATCH, 80, 3000) and bool(torch.isfinite(feats8).all()),
             "batched processor output")
+    k8 = check_mel(waves[:1], batch_waves)
     enc1, enc8 = model.encode(feats[0]), model.encode(feats8)
     k6 = check_qmm(g, qmodel, enc1)
     k2, worst_cos = check_megastep_full(model, enc1, enc8)
     k2["max_abs_err"] = err2
     k2q, worst_cos_q = check_megastep_full(qmodel, enc1, enc8)
     k2q["max_abs_err"] = err2q
-    kernels = [k1, k2, k2q, k3, k4, k4q, k4a, k4aq, k5, k5q, k6, k7]
+    k2b, worst_cos_b = check_megastep_full(bmodel, enc1, enc8, bmodel.params["medusa"]["block"])
+    k2b["max_abs_err"] = err2b
+    k2bq, worst_cos_bq = check_megastep_full(bqmodel, enc1, enc8,
+                                             bqmodel.params["medusa"]["block"])
+    k2bq["max_abs_err"] = err2bq
+    kernels = [k1, k2, k2q, k3, k4, k4q, k4a, k4aq, k5, k5q, k6, k7,
+               k8, k2b, k2bq, k4b, k4bq]
 
     # ---- phase 4: the main paths, bf16 then int8
     outs = phase_requests("bf16", model, kernels, feats, waves, feats8, batch_secs)
@@ -940,16 +1203,27 @@ def main():
         qo = qout[0] if path == "medusa B=1" else qout
         log(f"int8 vs bf16 [{path}]: {token_share(qo, out):.3f} of the generated "
             f"positions hold the same token (printed, not held)")
+    proc_k = WhisperMedusaProcessor(tokenizer=CharTokenizer(), use_kernel=True)
+    bouts = phase_block_requests("bf16", bmodel, kernels, proc_k, waves[0], batch_waves)
+    bqouts = phase_block_requests("int8", bqmodel, kernels, proc_k, waves[0], batch_waves)
+    for b in bouts:
+        log(f"int8 vs bf16 [medusa_block B={b}]: {token_share(bqouts[b], bouts[b]):.3f} of "
+            f"the generated positions hold the same token (printed, not held)")
     for k in kernels:
         log(f"launches {k['name']} (all main paths): {k['launches']}")
 
     # ---- phase 5: invariance under corrupted drafts
     check_corruption("bf16", model, feats[0], outs["medusa B=1"][0])
     check_corruption("int8", qmodel, feats[0], qouts["medusa B=1"][0])
+    feat_k = proc_k(waves[0])
+    check_corruption("bf16 medusa_block", bmodel, feat_k, bouts[1])
+    check_corruption("int8 medusa_block", bqmodel, feat_k, bqouts[1])
 
     # ---- phase 6: decode batch invariance (the encoder is shared: the same rows)
     check_batch_invariance(model, enc8)
     check_batch_invariance(qmodel, enc8)
+    check_batch_invariance(bmodel, enc8, ("medusa_block",))
+    check_batch_invariance(bqmodel, enc8, ("medusa_block",))
     report_generate_invariance(model, feats8, outs["medusa B=8"])
 
     rows = [{"name": k["name"], "route": "cuda", "source": k["source"],
@@ -958,7 +1232,9 @@ def main():
              "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
              "library_ms": k["library_ms"]}
             for k in kernels]
-    log(f"K2 32-layer worst pre_norm cosine: bf16 {worst_cos:.6f}, int8 {worst_cos_q:.6f}")
+    log(f"K2 32-layer worst pre_norm cosine: bf16 {worst_cos:.6f}, int8 {worst_cos_q:.6f}; "
+        f"block mode (pre_norm and block_hidden): bf16 {worst_cos_b:.6f}, int8 "
+        f"{worst_cos_bq:.6f}")
     log(f"gpu: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -86,8 +86,10 @@ def test_processor_matches_jax_processor():
     assert got.shape == (1, 80, 3000) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(tmel.pad_or_trim(wave), jmel.pad_or_trim(wave))
-    with pytest.raises(NotImplementedError, match="resampling"):
-        TProcessor(device="cpu")(wave, sampling_rate=8000)
+    # Audio at another rate is resampled on the host, as the JAX processor does.
+    np.testing.assert_allclose(TProcessor(device="cpu")(wave, sampling_rate=8000).numpy(),
+                               np.asarray(JProcessor()(wave, sampling_rate=8000)),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_processor_batches_waveforms_like_jax():

@@ -77,6 +77,7 @@ def test_entry_points_default_to_the_card():
                  lambda: bridge.from_random(tiny_test_config()),
                  lambda: bridge.params_from_numpy({"w": [1.0]}),
                  lambda: WhisperMedusaProcessor(),
+                 lambda: WhisperMedusaProcessor(use_kernel=True),
                  lambda: WhisperMedusaProcessor.from_pretrained("/nonexistent")):
         with pytest.raises(RuntimeError, match="does not fall back"):
             make()
@@ -118,8 +119,19 @@ def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
 def test_kernel_sources_are_packaged():
     names = sorted(os.listdir(cuda_lib.CSRC_DIR))
     assert {"attention.cu", "megastep.cu", "logits.cu", "verify.cu", "qmm.cu",
-            "common.cuh"} <= set(names)
-    assert {"wm_qmm", "wm_qmm_nt"} <= set(cuda_lib._SIGNATURES)
+            "mel.cu", "common.cuh"} <= set(names)
+    assert {"wm_qmm", "wm_qmm_nt", "wm_log_mel"} <= set(cuda_lib._SIGNATURES)
     for entry in cuda_lib._SIGNATURES:
         assert any(f"int {entry}(" in open(os.path.join(cuda_lib.CSRC_DIR, n)).read()
                    for n in names if n.endswith(".cu")), entry
+
+
+def test_mel_kernel_raises_on_cpu_tensors():
+    """K8's wrapper launches on the card or raises; only the dispatching
+    function takes the plain version, and only for a CPU tensor."""
+    from whisper_medusa_tpu_torch.ops import mel_fused
+
+    audio = torch.zeros((1, 16000), dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        mel_fused.mel_kernel(audio)
+    assert mel_fused.launches == 0

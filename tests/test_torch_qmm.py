@@ -80,9 +80,24 @@ def test_quantize_decoder_routes_are_bit_equal(dtype):
 
 
 def test_quantize_decoder_leaves_block_to_item_9():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tqmm.quantize_decoder({"decoder": {"layers": {}, "embed_tokens": torch.ones(4, 2)}},
-                              {"heads": {}, "block": {}})
+    """Item 9 (Medusa-Block) is done: the block layer is quantized like a
+    decoder layer, bit-equal to the JAX quantize_decoder, and once only."""
+    cfg = tiny_test_config(medusa_num_heads=3, medusa_heads_type="medusa_block")
+    r1, r2 = jax.random.split(jax.random.PRNGKey(4))
+    wp = jw.init_whisper_params(r1, cfg.dims, jnp.float32)
+    mp = jmedusa.init_medusa_params(r2, cfg.dims, cfg.medusa, wp, jnp.float32)
+    _, jmq = jqmm.quantize_decoder(wp, mp)
+    plain = bridge.params_from_numpy(jax.tree.map(np.asarray, {"whisper": wp, "medusa": mp}),
+                                     device="cpu")
+    _, tmq = tqmm.quantize_decoder(plain["whisper"], plain["medusa"])
+    a = dict(_leaves(bridge.params_from_numpy(jax.tree.map(np.asarray, jmq), device="cpu")))
+    b = dict(_leaves(tmq))
+    assert a.keys() == b.keys() and b["block/fc1_w/q"].dtype == torch.int8
+    assert b["block/fc1_w/s"].shape == (cfg.dims.decoder_ffn_dim,)
+    for k in a:
+        torch.testing.assert_close(b[k], a[k], rtol=0, atol=0, msg=k)
+    _, again = tqmm.quantize_decoder(plain["whisper"], tmq)
+    assert all(x is y for (_, x), (_, y) in zip(_leaves(again), _leaves(tmq)))
 
 
 @pytest.mark.parametrize("n", [640, 1000 + 25])

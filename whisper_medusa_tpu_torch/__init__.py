@@ -2,15 +2,17 @@
 
 The JAX package beside it is the reference; this package mirrors its module
 paths (``models/whisper.py``, ``ops/megastep.py``, ...) so each counterpart is
-found by name.  It imports ``torch`` and never ``jax``.  The jax-free modules
-of the reference (``config``, ``decoding.buffers``, ``data.tokenizer``) are
-imported as they are.
+found by name.  It imports ``torch`` and never ``jax``, and nothing of the
+JAX package: it keeps its own copies of the jax-free modules it needs
+(``config``, ``decoding.buffers``, ``data.tokenizer``, ``data.bpe``, the
+resampler in ``data.audio``).
 
-Plain tensor code is PyTorch.  The four kernels of the greedy ``base_head``
-decode path (encoder attention, the whole-decoder megastep, the prefill vocab
-projection and fused verification) are CUDA C++ for Hopper under ``csrc/``,
-built with nvcc at first use; on CPU tensors each wrapper runs its plain
-PyTorch version instead.
+Plain tensor code is PyTorch.  The eight kernels of the serving paths
+(encoder attention, the whole-decoder megastep with its int8 and
+Medusa-Block modes, the vocab projection, fused verification of built and
+given rows, the two int8 matmuls and the fused log-mel frontend) are CUDA
+C++ for Hopper under ``csrc/``, built with nvcc at first use; on CPU tensors
+each wrapper runs its plain PyTorch version instead.
 """
 
 __version__ = "0.1.0"

@@ -49,6 +49,16 @@
 // rows j < offset as bf16(q * f32(bf16 scale)) and the chunk's own rows as
 // the fresh bf16 K/V (models/whisper.py:943-950, :1006-1012).  One step then
 // streams 0.73 GB of weights and B x 123 MB of cross K/V at large-v2.
+//
+// Medusa-Block serving (the JAX kernel runs the block as grid layer L,
+// megastep.py:41-45, :562-571), chosen by a non-null P_BLOCK_HIDDEN: after
+// ln_post the entry copies hidden into that third row buffer and runs the
+// block layer on it through the same per-layer body (layer_step) with the
+// block's own weight table (21 pointers, 8 scales at int8; never stacked
+// onto the decoder's) and cache slot L of slabs holding L + 1 slots.  The
+// buffer ends as block_hidden, with no ln_post (models/whisper.py:1258-1279);
+// x keeps the main stack's pre_norm.  The block adds 46 MB of bf16 weights
+// (23 MB int8) and B x 7.7 MB of cross K/V to the step's bytes.
 #include "common.cuh"
 
 #include <type_traits>
@@ -403,6 +413,119 @@ inline void ln_rows(const bf16* x, bf16* y, const bf16* s, const bf16* b, int m,
   ln_rows_kernel<<<m, 256, 0, st>>>(x, y, s, b, d);
 }
 
+// One layer's weights, already offset to the layer: bf16, or int8 (the
+// eight streamed weights) with their f32 per-column scales.
+struct LayerW {
+  const bf16 *self_ln_s, *self_ln_b, *q_b, *v_b, *o_b, *cross_ln_s, *cross_ln_b, *cq_b,
+      *co_b, *ffn_ln_s, *ffn_ln_b, *fc1_b, *fc2_b;
+  const void *q_w, *k_w, *v_w, *o_w, *cq_w, *co_w, *fc1_w, *fc2_w;
+  const float *q_s, *k_s, *v_s, *o_s, *cq_s, *co_s, *fc1_s, *fc2_s;   // null: bf16
+};
+
+// The buffers, cache and shapes one decode step shares across its layers.
+struct StepCtx {
+  int B, T, D, H, F, S, SE, cross_len, nch, M;
+  bool quant;
+  size_t self_smem;
+  bf16 *xa, *qb, *kb, *vb, *attn, *hb;
+  float *part_o, *part_ml;
+  void *self_k, *self_v;
+  const void *cross_k, *cross_v;
+  const float *cross_k_s, *cross_v_s;
+  bf16* self_s;
+  const int* offsets;
+  const uint8_t* mask;
+  cudaStream_t st;
+};
+
+// The 21 weights of a layer table starting at pointer slot w0 (the order of
+// ops/megastep.py _WEIGHTS) and its 8 scales at slot s0 (_QUANT), at layer l
+// of (L, ...) stacks; a single layer (the block) is l = 0.
+LayerW layer_weights(void* const* p, int w0, int s0, size_t l, int D, int F, bool quant) {
+  const size_t lD = l * D, lF = l * F, DD = l * D * D, DF = l * D * F;
+  auto B16 = [&](int i, size_t off) { return static_cast<const bf16*>(p[w0 + i]) + off; };
+  auto W = [&](int i, size_t off) -> const void* {
+    return quant ? static_cast<const void*>(static_cast<const int8_t*>(p[w0 + i]) + off)
+                 : static_cast<const void*>(static_cast<const bf16*>(p[w0 + i]) + off);
+  };
+  auto S = [&](int i, size_t off) -> const float* {
+    return quant ? static_cast<const float*>(p[s0 + i]) + off : nullptr;
+  };
+  LayerW w;
+  w.self_ln_s = B16(0, lD);  w.self_ln_b = B16(1, lD);
+  w.q_w = W(2, DD);          w.q_b = B16(3, lD);
+  w.k_w = W(4, DD);          w.v_w = W(5, DD);        w.v_b = B16(6, lD);
+  w.o_w = W(7, DD);          w.o_b = B16(8, lD);
+  w.cross_ln_s = B16(9, lD); w.cross_ln_b = B16(10, lD);
+  w.cq_w = W(11, DD);        w.cq_b = B16(12, lD);
+  w.co_w = W(13, DD);        w.co_b = B16(14, lD);
+  w.ffn_ln_s = B16(15, lD);  w.ffn_ln_b = B16(16, lD);
+  w.fc1_w = W(17, DF);       w.fc1_b = B16(18, lF);
+  w.fc2_w = W(19, DF);       w.fc2_b = B16(20, lD);
+  w.q_s = S(0, lD);  w.k_s = S(1, lD);  w.v_s = S(2, lD);  w.o_s = S(3, lD);
+  w.cq_s = S(4, lD); w.co_s = S(5, lD); w.fc1_s = S(6, lF); w.fc2_s = S(7, lD);
+  return w;
+}
+
+// One decoder layer over the chunk's rows in x (residual stream, updated in
+// place), reading and writing cache slot `slot` of every slab.
+void layer_step(const LayerW& w, bf16* x, size_t slot, const StepCtx& c) {
+  const int B = c.B, T = c.T, D = c.D, H = c.H, F = c.F, S = c.S, SE = c.SE, M = c.M;
+  const float scale = 0.125f;   // DH ** -0.5
+  const size_t slab = slot * B * S * D;
+  cudaStream_t st = c.st;
+  // --- self-attention
+  ln_rows(x, c.xa, w.self_ln_s, w.self_ln_b, M, D, st);
+  SkinnyJobs qkv;
+  qkv.j[0] = job(w.q_w, w.q_b, c.qb, EPI_BIAS_SCALE, nullptr, scale, w.q_s);
+  qkv.j[1] = job(w.k_w, nullptr, c.kb, EPI_BIAS, nullptr, 1.0f, w.k_s);
+  qkv.j[2] = job(w.v_w, w.v_b, c.vb, EPI_BIAS, nullptr, 1.0f, w.v_s);
+  skinny_gemm(c.xa, D, M, D, D, D, D, qkv, 3, 3, 0, 0, 0, st);
+  if (c.quant)
+    self_attn_kernel<true><<<dim3(H, B), AT, c.self_smem, st>>>(
+        c.qb, c.kb, c.vb, c.attn, static_cast<int8_t*>(c.self_k) + slab,
+        static_cast<int8_t*>(c.self_v) + slab, c.self_s + slot * B * S * 2 * H, c.offsets,
+        c.mask, T, S, D, H);
+  else
+    self_attn_kernel<false><<<dim3(H, B), AT, c.self_smem, st>>>(
+        c.qb, c.kb, c.vb, c.attn, static_cast<bf16*>(c.self_k) + slab,
+        static_cast<bf16*>(c.self_v) + slab, nullptr, c.offsets, c.mask, T, S, D, H);
+  SkinnyJobs o;
+  o.j[0] = job(w.o_w, w.o_b, x, EPI_BIAS_RESID, x, 1.0f, w.o_s);
+  skinny_gemm(c.attn, D, M, D, D, D, D, o, 1, 1, 0, 0, 0, st);
+  // --- cross-attention
+  ln_rows(x, c.xa, w.cross_ln_s, w.cross_ln_b, M, D, st);
+  SkinnyJobs cq;
+  cq.j[0] = job(w.cq_w, w.cq_b, c.qb, EPI_BIAS_SCALE, nullptr, scale, w.cq_s);
+  skinny_gemm(c.xa, D, M, D, D, D, D, cq, 1, 1, 0, 0, 0, st);
+  const size_t ck = slot * B * H * DH * SE, cv = slot * B * SE * D;
+  if (c.quant) {
+    const size_t cs = slot * B * H * SE;
+    cross_partial_kernel<int8_t><<<dim3(c.nch, H, B), AT, 0, st>>>(
+        c.qb, static_cast<const int8_t*>(c.cross_k) + ck,
+        static_cast<const int8_t*>(c.cross_v) + cv, c.cross_k_s + cs, c.cross_v_s + cs,
+        c.part_o, c.part_ml, T, H, D, SE, c.cross_len, c.nch);
+  } else {
+    cross_partial_kernel<bf16><<<dim3(c.nch, H, B), AT, 0, st>>>(
+        c.qb, static_cast<const bf16*>(c.cross_k) + ck,
+        static_cast<const bf16*>(c.cross_v) + cv, nullptr, nullptr, c.part_o, c.part_ml, T,
+        H, D, SE, c.cross_len, c.nch);
+  }
+  cross_combine_kernel<<<dim3(H, B), 256, 0, st>>>(c.part_o, c.part_ml, c.attn, T, H, D,
+                                                    c.nch);
+  SkinnyJobs co;
+  co.j[0] = job(w.co_w, w.co_b, x, EPI_BIAS_RESID, x, 1.0f, w.co_s);
+  skinny_gemm(c.attn, D, M, D, D, D, D, co, 1, 1, 0, 0, 0, st);
+  // --- FFN
+  ln_rows(x, c.xa, w.ffn_ln_s, w.ffn_ln_b, M, D, st);
+  SkinnyJobs f1;
+  f1.j[0] = job(w.fc1_w, w.fc1_b, c.hb, EPI_BIAS_GELU, nullptr, 1.0f, w.fc1_s);
+  skinny_gemm(c.xa, D, M, D, F, F, F, f1, 1, 1, 0, 0, 0, st);
+  SkinnyJobs f2;
+  f2.j[0] = job(w.fc2_w, w.fc2_b, x, EPI_BIAS_RESID, x, 1.0f, w.fc2_s);
+  skinny_gemm(c.hb, F, M, F, D, D, D, f2, 1, 1, 0, 0, 0, st);
+}
+
 }  // namespace
 }  // namespace wm
 
@@ -414,9 +537,9 @@ enum MegastepPtr {
   P_ATTN,         // (M16, D) bf16 scratch: attention output
   P_H,            // (M16, F) bf16 scratch: fc1 output
   P_PART,         // f32 scratch: cross partials (B*H*T*nch*(64 + 2))
-  P_SELF_K, P_SELF_V,    // (L, B, S, D) bf16 (int8) slabs, updated in place
-  P_CROSS_K,             // (L, B, H, 64, Se) bf16 (int8)
-  P_CROSS_V,             // (L, B, Se, D) bf16 (int8)
+  P_SELF_K, P_SELF_V,    // (L', B, S, D) bf16 (int8) slabs, updated in place
+  P_CROSS_K,             // (L', B, H, 64, Se) bf16 (int8)
+  P_CROSS_V,             // (L', B, Se, D) bf16 (int8)
   P_OFFSETS,             // (B,) int32
   P_MASK,                // (T, T) uint8 chunk mask
   P_SELF_LN_S, P_SELF_LN_B, P_Q_W, P_Q_B, P_K_W, P_V_W, P_V_B, P_O_W, P_O_B,
@@ -427,12 +550,20 @@ enum MegastepPtr {
   // int8 serving (all null in bf16 mode): the streamed weights above are
   // int8 and these are their f32 per-column scales, (L, D) or (L, F) ...
   P_Q_S, P_K_S, P_V_S, P_O_S, P_CQ_S, P_CO_S, P_FC1_S, P_FC2_S,
-  P_CROSS_K_S, P_CROSS_V_S,   // (L, B, H, Se) f32 cross scales
-  P_SELF_S,                   // (L, B, S, 2H) bf16 self scales, updated in place
-  P_COUNT
+  P_CROSS_K_S, P_CROSS_V_S,   // (L', B, H, Se) f32 cross scales
+  P_SELF_S,                   // (L', B, S, 2H) bf16 self scales, updated in place
+  // Block mode (all null without a block): the Medusa-Block layer's
+  // residual stream, (M16, D) bf16, out: block_hidden ...
+  P_BLOCK_HIDDEN,
+  // ... its 21 weights, unstacked, in the order of P_SELF_LN_S .. P_FC2_B ...
+  P_B_W0,
+  // ... and, at int8, the 8 scales of its streamed weights.
+  P_B_S0 = P_B_W0 + 21,
+  P_COUNT = P_B_S0 + 8
 };
 
 // ints: L, B, T, D, H, F, S (self slab rows), Se (cross rows), cross_len.
+// L' = L slab slots, or L + 1 in block mode (slot L is the block's).
 // M16 = ceil(B * T / 16) * 16 rows are allocated in every row buffer.
 extern "C" int wm_megastep_step(void** p, const int* ints, void* stream) {
   using namespace wm;
@@ -444,103 +575,51 @@ extern "C" int wm_megastep_step(void** p, const int* ints, void* stream) {
       SE % 4)
     return (int)cudaErrorInvalidValue;
   const bool quant = p[P_Q_S] != nullptr;
-  if (quant && (!p[P_K_S] || !p[P_V_S] || !p[P_O_S] || !p[P_CQ_S] || !p[P_CO_S] ||
-                !p[P_FC1_S] || !p[P_FC2_S] || !p[P_CROSS_K_S] || !p[P_CROSS_V_S] ||
-                !p[P_SELF_S]))
-    return (int)cudaErrorInvalidValue;
-  const int nch = (cross_len + CS - 1) / CS;
-  const size_t self_smem =
-      (size_t)T * (DH + S) * sizeof(float) + 16 + (size_t)S * DH * sizeof(bf16);
-  if (self_smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (self_smem > 48 * 1024) {
+  const bool block = p[P_BLOCK_HIDDEN] != nullptr;
+  for (int i = P_K_S; quant && i <= P_SELF_S; ++i)
+    if (!p[i]) return (int)cudaErrorInvalidValue;
+  for (int i = P_B_W0; block && i < P_B_S0 + (quant ? 8 : 0); ++i)
+    if (!p[i]) return (int)cudaErrorInvalidValue;
+  StepCtx c;
+  c.B = B; c.T = T; c.D = D; c.H = H; c.F = F; c.S = S; c.SE = SE; c.M = M;
+  c.cross_len = cross_len;
+  c.nch = (cross_len + CS - 1) / CS;
+  c.quant = quant;
+  c.self_smem = (size_t)T * (DH + S) * sizeof(float) + 16 + (size_t)S * DH * sizeof(bf16);
+  if (c.self_smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (c.self_smem > 48 * 1024) {
     if (quant)
       cudaFuncSetAttribute(self_attn_kernel<true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)self_smem);
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.self_smem);
     else
       cudaFuncSetAttribute(self_attn_kernel<false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)self_smem);
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.self_smem);
   }
-
   auto P = [&](int i) { return static_cast<bf16*>(p[i]); };
-  // A streamed weight of layer l (element offset off): bf16 or int8.
-  auto W = [&](int i, size_t off) -> const void* {
-    return quant ? static_cast<const void*>(static_cast<const int8_t*>(p[i]) + off)
-                 : static_cast<const void*>(static_cast<const bf16*>(p[i]) + off);
-  };
-  // Its per-column scales (null in bf16 mode).
-  auto WS = [&](int i, size_t off) -> const float* {
-    return quant ? static_cast<const float*>(p[i]) + off : nullptr;
-  };
-  bf16 *x = P(P_X), *xa = P(P_XA), *qb = P(P_Q), *kb = P(P_K), *vb = P(P_V);
-  bf16 *attn = P(P_ATTN), *hb = P(P_H);
-  float* part_o = static_cast<float*>(p[P_PART]);
-  float* part_ml = part_o + (size_t)B * H * T * nch * DH;
-  const int* offsets = static_cast<const int*>(p[P_OFFSETS]);
-  const uint8_t* mask = static_cast<const uint8_t*>(p[P_MASK]);
-  const float scale = 0.125f;   // DH ** -0.5
-  const size_t DD = (size_t)D * D, DF = (size_t)D * F;
+  bf16* x = P(P_X);
+  c.xa = P(P_XA); c.qb = P(P_Q); c.kb = P(P_K); c.vb = P(P_V);
+  c.attn = P(P_ATTN); c.hb = P(P_H);
+  c.part_o = static_cast<float*>(p[P_PART]);
+  c.part_ml = c.part_o + (size_t)B * H * T * c.nch * DH;
+  c.self_k = p[P_SELF_K]; c.self_v = p[P_SELF_V];
+  c.cross_k = p[P_CROSS_K]; c.cross_v = p[P_CROSS_V];
+  c.cross_k_s = static_cast<const float*>(p[P_CROSS_K_S]);
+  c.cross_v_s = static_cast<const float*>(p[P_CROSS_V_S]);
+  c.self_s = P(P_SELF_S);
+  c.offsets = static_cast<const int*>(p[P_OFFSETS]);
+  c.mask = static_cast<const uint8_t*>(p[P_MASK]);
+  c.st = st;
 
-  for (int l = 0; l < L; ++l) {
-    const size_t lD = (size_t)l * D, lF = (size_t)l * F;
-    const size_t slab = (size_t)l * B * S * D;
-    // --- self-attention
-    ln_rows(x, xa, P(P_SELF_LN_S) + lD, P(P_SELF_LN_B) + lD, M, D, st);
-    SkinnyJobs qkv;
-    qkv.j[0] = job(W(P_Q_W, l * DD), P(P_Q_B) + lD, qb, EPI_BIAS_SCALE, nullptr, scale,
-                   WS(P_Q_S, lD));
-    qkv.j[1] = job(W(P_K_W, l * DD), nullptr, kb, EPI_BIAS, nullptr, 1.0f, WS(P_K_S, lD));
-    qkv.j[2] = job(W(P_V_W, l * DD), P(P_V_B) + lD, vb, EPI_BIAS, nullptr, 1.0f,
-                   WS(P_V_S, lD));
-    skinny_gemm(xa, D, M, D, D, D, D, qkv, 3, 3, 0, 0, 0, st);
-    if (quant)
-      self_attn_kernel<true><<<dim3(H, B), AT, self_smem, st>>>(
-          qb, kb, vb, attn, static_cast<int8_t*>(p[P_SELF_K]) + slab,
-          static_cast<int8_t*>(p[P_SELF_V]) + slab,
-          P(P_SELF_S) + (size_t)l * B * S * 2 * H, offsets, mask, T, S, D, H);
-    else
-      self_attn_kernel<false><<<dim3(H, B), AT, self_smem, st>>>(
-          qb, kb, vb, attn, P(P_SELF_K) + slab, P(P_SELF_V) + slab, nullptr, offsets,
-          mask, T, S, D, H);
-    SkinnyJobs o;
-    o.j[0] = job(W(P_O_W, l * DD), P(P_O_B) + lD, x, EPI_BIAS_RESID, x, 1.0f,
-                 WS(P_O_S, lD));
-    skinny_gemm(attn, D, M, D, D, D, D, o, 1, 1, 0, 0, 0, st);
-    // --- cross-attention
-    ln_rows(x, xa, P(P_CROSS_LN_S) + lD, P(P_CROSS_LN_B) + lD, M, D, st);
-    SkinnyJobs cq;
-    cq.j[0] = job(W(P_CQ_W, l * DD), P(P_CQ_B) + lD, qb, EPI_BIAS_SCALE, nullptr, scale,
-                  WS(P_CQ_S, lD));
-    skinny_gemm(xa, D, M, D, D, D, D, cq, 1, 1, 0, 0, 0, st);
-    const size_t ck = (size_t)l * B * H * DH * SE, cv = (size_t)l * B * SE * D;
-    if (quant) {
-      const size_t cs = (size_t)l * B * H * SE;
-      cross_partial_kernel<int8_t><<<dim3(nch, H, B), AT, 0, st>>>(
-          qb, static_cast<const int8_t*>(p[P_CROSS_K]) + ck,
-          static_cast<const int8_t*>(p[P_CROSS_V]) + cv,
-          static_cast<const float*>(p[P_CROSS_K_S]) + cs,
-          static_cast<const float*>(p[P_CROSS_V_S]) + cs, part_o, part_ml, T, H, D, SE,
-          cross_len, nch);
-    } else {
-      cross_partial_kernel<bf16><<<dim3(nch, H, B), AT, 0, st>>>(
-          qb, P(P_CROSS_K) + ck, P(P_CROSS_V) + cv, nullptr, nullptr, part_o, part_ml, T,
-          H, D, SE, cross_len, nch);
-    }
-    cross_combine_kernel<<<dim3(H, B), 256, 0, st>>>(part_o, part_ml, attn, T, H, D, nch);
-    SkinnyJobs co;
-    co.j[0] = job(W(P_CO_W, l * DD), P(P_CO_B) + lD, x, EPI_BIAS_RESID, x, 1.0f,
-                  WS(P_CO_S, lD));
-    skinny_gemm(attn, D, M, D, D, D, D, co, 1, 1, 0, 0, 0, st);
-    // --- FFN
-    ln_rows(x, xa, P(P_FFN_LN_S) + lD, P(P_FFN_LN_B) + lD, M, D, st);
-    SkinnyJobs f1;
-    f1.j[0] = job(W(P_FC1_W, l * DF), P(P_FC1_B) + lF, hb, EPI_BIAS_GELU, nullptr, 1.0f,
-                  WS(P_FC1_S, lF));
-    skinny_gemm(xa, D, M, D, F, F, F, f1, 1, 1, 0, 0, 0, st);
-    SkinnyJobs f2;
-    f2.j[0] = job(W(P_FC2_W, l * DF), P(P_FC2_B) + lD, x, EPI_BIAS_RESID, x, 1.0f,
-                  WS(P_FC2_S, lD));
-    skinny_gemm(hb, F, M, F, D, D, D, f2, 1, 1, 0, 0, 0, st);
-  }
+  for (int l = 0; l < L; ++l)
+    layer_step(layer_weights(p, P_SELF_LN_S, P_Q_S, l, D, F, quant), x, l, c);
   ln_rows(x, P(P_HIDDEN), P(P_LN_POST_S), P(P_LN_POST_B), M, D, st);
+  if (block) {
+    // The hand-over: the block starts from ln_post's output; x keeps the
+    // main stack's pre_norm.
+    bf16* bx = P(P_BLOCK_HIDDEN);
+    cudaMemcpyAsync(bx, P(P_HIDDEN), (size_t)M * D * sizeof(bf16),
+                    cudaMemcpyDeviceToDevice, st);
+    layer_step(layer_weights(p, P_B_W0, P_B_S0, 0, D, F, quant), bx, L, c);
+  }
   return (int)cudaGetLastError();
 }

@@ -2,24 +2,31 @@
 whisper_medusa_tpu/decoding/speculative.py.
 
 Ported: the chain + greedy path of ``speculative_generate`` at B <= 8 for the
-``base_head`` and ``vanilla`` variants — one decoder forward per iteration
-over the (heads + 1)-node chain (one node for vanilla), fused verification,
-longest-prefix acceptance, the window commit, the finish rule and the EOS
-backfill.  Verification follows the JAX package's ``auto`` rule:
+``base_head``, ``medusa_block`` and ``vanilla`` variants — one decoder
+forward per iteration over the (heads + 1)-node chain (one node for
+vanilla), fused verification, longest-prefix acceptance, the window commit,
+the finish rule and the EOS backfill.  Verification follows the JAX
+package's ``auto`` rule:
 
-  * base_head, B = 1: one pass of kernel K4 (``verify_hidden``) scores every
-    (head, node) row, so the greedy tokens, the accepted drafts' log-probs
-    and the next drafts come out of one embedding stream;
-  * base_head, B >= 2 (two-pass): pass A scores only the B*N head-0 rows
-    through K5 (``verify_rows``); pass B runs the draft heads at the accepted
-    node's hidden state and projects them through K3, as prefill does;
+  * B = 1: one pass of kernel K4 (``verify_hidden``) scores every (head,
+    node) row, so the greedy tokens, the accepted drafts' log-probs and the
+    next drafts come out of one embedding stream;
+  * B >= 2 (two-pass): pass A scores only the B*N verification rows through
+    K5 (``verify_rows``); pass B runs the draft heads at the accepted node
+    and projects them through K3 (K7 at int8), as prefill does;
   * vanilla: no draft heads, the B hidden rows through K5, one token per
     iteration.
 
+``base_head``: head 0 is the base head, so the verification rows are
+head 0 of ``hidden`` and heads 1..K draft from ``hidden``.
+``medusa_block``: the verification rows are ``hidden`` itself (K4's
+``identity0`` rows at B = 1, no head rows in pass A) and all K heads draft
+from ``block_hidden``, the output of the block layer that K2 runs after the
+decoder stack on the cache's last slot.
+
 State lives in device tensors; the loop reads ``finished`` on the host once
-per iteration.  Branching trees, sampling, typical acceptance, timestamp
-rules and the medusa_block variant are not ported yet (they raise
-NotImplementedError).
+per iteration.  Branching trees, sampling, typical acceptance and timestamp
+rules are not ported yet (they raise NotImplementedError).
 """
 
 from __future__ import annotations
@@ -60,10 +67,10 @@ def _head_slice(medusa_params: Params, lo: int, hi: Optional[int]) -> Params:
                       "b": h["b"][lo:hi]}}
 
 
-def _base_logits_fn(params: Params, medusa_params: Optional[Params]):
+def _base_logits_fn(params: Params, medusa_params: Optional[Params], variant: str):
     """base_head: logits = proj(head0(hidden)) — head 0 is the base head.
-    vanilla (no Medusa params): logits = proj(hidden)."""
-    if medusa_params is None:
+    medusa_block and vanilla: logits = proj(hidden)."""
+    if medusa_params is None or variant != "base_head":
         return lambda hidden: whisper.project_logits(params, hidden)
     head0 = _head_slice(medusa_params, 0, 1)
 
@@ -96,11 +103,13 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
                          gen: GenerationConfig, enc_out: torch.Tensor,
                          prompt: torch.Tensor, variant: str = "base_head",
                          draft_corruption: Optional[float] = None) -> SpecResult:
-    if variant not in ("base_head", "vanilla"):
-        raise NotImplementedError(
-            f"variant {variant!r}: only base_head and vanilla are ported "
-            "(ROADMAP queue 1, item 9: medusa_block)")
+    if variant not in ("base_head", "medusa_block", "vanilla"):
+        raise ValueError(f"unknown variant {variant!r}")
     vanilla = variant == "vanilla" or medusa_params is None
+    # Medusa-Block: base logits from the hidden state, every head drafts
+    # from the block layer's output.
+    block = None if vanilla or variant != "medusa_block" else medusa_params["block"]
+    first_head = 0 if block is not None else 1
     if not buffers.is_chain:
         raise NotImplementedError("branching medusa_choices trees are not ported "
                                   "yet (ROADMAP queue 1: remaining decode modes)")
@@ -125,13 +134,13 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
     else:
         hw = medusa_params["heads"]["w"]
         shape = (hw["q"] if qmm_mod.is_quantized(hw) else hw).shape
-        if shape[1] != 1 or shape[0] != num_heads + 1 or num_heads < 1:
+        if shape[1] != 1 or shape[0] != num_heads + first_head or num_heads < 1:
             raise NotImplementedError(
                 "fused verification takes single-layer heads, at least one draft "
                 "head and a chain over every head")
         heads_w = qmm_mod.wmap(hw, lambda a: a[:, 0])
         heads_b = medusa_params["heads"]["b"][:, 0]
-        draft_params = _head_slice(medusa_params, 1, None)
+        draft_params = _head_slice(medusa_params, first_head, None)
     # The JAX package's auto rule: two passes at B >= 2, one K4 pass at B = 1.
     two_pass = not vanilla and b >= 2
     kp1 = 1 if vanilla or two_pass else num_heads + 1
@@ -165,11 +174,14 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
 
     # ---------------- prefill ----------------
     prompt = prompt.to(device=dev, dtype=torch.int32)
-    cache = whisper.init_cache(params, dims, enc_out, cache_len)
+    cache = whisper.init_cache(params, dims, enc_out, cache_len,
+                               extra_layers=int(block is not None))
+    if block is not None:
+        whisper.set_block_cross_kv(cache, block, enc_out, dims.decoder_attention_heads)
     out = whisper.decode_step(params, dims, prompt, cache,
-                              torch.zeros((b,), dtype=torch.int32, device=dev))
+                              torch.zeros((b,), dtype=torch.int32, device=dev), block=block)
     h_last = out.hidden[:, -1]
-    base = _base_logits_fn(params, medusa_params)(h_last)             # (B, V) f32
+    base = _base_logits_fn(params, medusa_params, variant)(h_last)    # (B, V) f32
     proc = apply_processors(base, torch.full((b,), t0, device=dev), pcfg)
     root0 = torch.argmax(proc, dim=-1).to(torch.int32)
     tokens = torch.full((b, buf_len), pad, dtype=torch.int32, device=dev)
@@ -177,7 +189,8 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
     tokens[:, t0] = root0
     cur_len = torch.full((b,), t0 + 1, dtype=torch.int32, device=dev)
     finished = (root0 == eos) | (cur_len + num_heads >= max_length)
-    chunk = drafts_to_chunk(root0, h_last, cur_len)
+    draft_src = lambda o: o.hidden if block is None else o.block_hidden
+    chunk = drafts_to_chunk(root0, draft_src(out)[:, -1], cur_len)
     logprobs = torch.zeros((b, buf_len), dtype=torch.float32, device=dev)
     logprobs[:, t0] = torch.log_softmax(proc, dim=-1).gather(
         1, root0.long()[:, None])[:, 0]
@@ -188,7 +201,7 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
     while not bool(finished.all()):
         offsets = cur_len - 1
         out = whisper.decode_step(params, dims, chunk, cache, offsets,
-                                  rel_positions=pos_ids)
+                                  rel_positions=pos_ids, block=block)
         hidden = out.hidden                                           # (B, N, D)
         # Row (k, e, n) predicts absolute position cur_len[e] + n + k.
         pos_rows = (cur_len[None, :, None] + pos_ids[None, None, :]
@@ -202,16 +215,17 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
             am, mx, lse, gth = verify_mod.verify_rows(
                 flat, embed, pos_rows, gcol_rows, sup_masks, **vkw)
         elif two_pass:
-            # Pass A: the head-0 verification rows only, built by the same
-            # skinny GEMM as K4's stage A.
-            rows = verify_mod.head_rows(flat, qmm_mod.wmap(heads_w, lambda a: a[:1]),
-                                        heads_b[:1])[0]
+            # Pass A: the verification rows only — the hidden rows themselves
+            # (medusa_block), or head 0 of them built by the same skinny GEMM
+            # as K4's stage A (base_head).
+            rows = flat if block is not None else verify_mod.head_rows(
+                flat, qmm_mod.wmap(heads_w, lambda a: a[:1]), heads_b[:1])[0]
             am, mx, lse, gth = verify_mod.verify_rows(
                 rows, embed, pos_rows, gcol_rows, sup_masks, **vkw)
         else:
             am, mx, lse, gth = verify_mod.verify_hidden(
-                hidden, hidden, heads_w, heads_b, embed, pos_rows, gcol_rows,
-                sup_masks, identity0=False, **vkw)
+                hidden, draft_src(out), heads_w, heads_b, embed, pos_rows, gcol_rows,
+                sup_masks, identity0=block is not None, **vkw)
         am, mx, lse, gth = (a.reshape(kp1, b, n_nodes) for a in (am, mx, lse, gth))
 
         best, accept, ptok, pnxt = _greedy_accept(chunk, am[0], retrieve)
@@ -243,9 +257,11 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
         if vanilla:
             chunk = bonus[:, None]
         elif two_pass:
-            # Pass B: the draft heads at the accepted node's hidden state
-            # (chain: the accepted node is node `accept`), as in prefill.
-            chunk = drafts_to_chunk(bonus, hidden[batch_rows, accept.long()], new_len)
+            # Pass B: the draft heads at the accepted node's hidden state (or
+            # block output; chain: the accepted node is node `accept`), as in
+            # prefill.
+            chunk = drafts_to_chunk(bonus, draft_src(out)[batch_rows, accept.long()],
+                                    new_len)
         else:
             # The accepted node's head rows, already scored by K4.
             drafts = am[1:].permute(1, 0, 2).gather(

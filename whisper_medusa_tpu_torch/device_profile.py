@@ -2,25 +2,30 @@
 
     python -m whisper_medusa_tpu_torch.device_profile
 
-Three parts, all at full whisper-large-v2 width with bf16 weights drawn from a
-seed, and the same again on ``model.quantize()`` (int8 serving) for parts 1
-and 3:
+Four parts, all at full whisper-large-v2 width with bf16 weights drawn from
+a seed, and the same again on ``model.quantize()`` (int8 serving) for parts
+2 and 4:
 
-  1. one K2 call (all 32 decoder layers) at (B, T) in (1, 11), (8, 1) and
-     (8, 11), bf16 and int8: device time per call by kernel (torch.profiler),
-     beside the CUDA-event time of the call;
-  2. one verification step at B=8 on the 11-node chain: the loop's two
+  1. the log-mel frontend at B=1 and B=8 on seeded noise, the default plain
+     PyTorch path and the fused kernel K8: device time by kernel beside the
+     CUDA-event time of the call;
+  2. one K2 call (all 32 decoder layers) at (B, T) in (1, 11), (8, 1) and
+     (8, 11), bf16 and int8, and the same with the Medusa-Block layer (K2's
+     block mode): device time per call by kernel (torch.profiler), beside
+     the CUDA-event time of the call;
+  3. one verification step at B=8 on the 11-node chain: the loop's two
      passes (K5 over the head-0 rows, then the draft heads through K3)
      against one pass of every (head, node) row through K5 (R = 968);
-  3. whole requests of ``max_new_tokens=128`` from seeded random features:
-     Medusa and vanilla (``disable_medusa=True``) at B=1 and B=8, bf16 and
-     int8.  For each,
-     the wall time without the profiler, then the device time by kernel
-     under it, and the device's idle share: 1 - (device time) / (wall time
-     without the profiler).
+  4. whole requests of ``max_new_tokens=128`` from seeded random features:
+     Medusa and vanilla (``disable_medusa=True``) at B=1 and B=8, and
+     Medusa-Block at B=1 and B=8, bf16 and int8.  For each, the wall time
+     without the profiler, then the device time by kernel under it, and the
+     device's idle share: 1 - (device time) / (wall time without the
+     profiler).
 
 Kernels are listed by name without their template arguments, so PyTorch's
-elementwise kernels of one kind share a line.  The Medusa heads are drawn as
+elementwise kernels of one kind share a line.  The Medusa heads, and the
+Medusa-Block model (``models/bridge.py::random_block_model``), are drawn as
 ``chip_smoke.py`` draws them.
 """
 
@@ -93,7 +98,23 @@ def _cuda_ms(fn, warmup=3, iters=20):
     return float(np.median(times))
 
 
-def profile_megastep(model, mode):
+def profile_frontend():
+    """The log-mel frontend on seeded noise at B=1 and B=8: the default plain
+    path and K8 (the processor's ``use_kernel=True``)."""
+    from whisper_medusa_tpu_torch.ops import mel, mel_fused
+
+    rng = np.random.default_rng(SEED)
+    for b in (1, 8):
+        audio = torch.from_numpy((0.1 * rng.standard_normal((b, mel.N_SAMPLES)))
+                                 .astype(np.float32)).cuda()
+        for name, fn in (("plain", mel.log_mel_spectrogram),
+                         ("K8", mel_fused.log_mel_spectrogram_fused)):
+            run = lambda: fn(audio)
+            _table(f"frontend, {name}, B={b}", _by_kernel(run, 5),
+                   f" (CUDA events: {_cuda_ms(run):.4f} ms per call)")
+
+
+def profile_megastep(model, mode, block=None):
     from whisper_medusa_tpu_torch.models import whisper
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
@@ -101,10 +122,14 @@ def profile_megastep(model, mode):
     dec = p["decoder"]
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
+    what = f"{dims.decoder_layers} layers" + (" + the block" if block is not None else "")
     for b, t in ((1, 11), (8, 1), (8, 11)):
         enc = torch.randn((b, dims.max_source_positions, dims.d_model), generator=g,
                           device="cuda").to(torch.bfloat16)
-        cache = whisper.init_cache(p, dims, enc, dims.max_target_positions + 12)
+        cache = whisper.init_cache(p, dims, enc, dims.max_target_positions + 12,
+                                   extra_layers=int(block is not None))
+        if block is not None:
+            whisper.set_block_cross_kv(cache, block, enc, dims.decoder_attention_heads)
         offsets = torch.full((b,), 20, dtype=torch.int32, device="cuda")
         x = torch.randn((b, t, dims.d_model), generator=g, device="cuda").to(torch.bfloat16)
         run = lambda: MS.megastep_kernel(dec["layers"], dec["ln_post"], x, cache.self_k,
@@ -112,9 +137,10 @@ def profile_megastep(model, mode):
                                          offsets, None, dims.max_source_positions,
                                          dims.decoder_attention_heads,
                                          cross_k_s=cache.cross_k_s,
-                                         cross_v_s=cache.cross_v_s, self_s=cache.self_s)
+                                         cross_v_s=cache.cross_v_s, self_s=cache.self_s,
+                                         block=block)
         ms = _cuda_ms(run)
-        _table(f"K2 {mode}, {dims.decoder_layers} layers, B={b} T={t}, per call",
+        _table(f"K2 {mode}, {what}, B={b} T={t}, per call",
                _by_kernel(run, 5), f" (CUDA events: {ms:.4f} ms per call)")
         del cache
 
@@ -164,13 +190,14 @@ def profile_verify_passes(model, b=8):
                f" (CUDA events: {_cuda_ms(fn):.4f} ms per step)")
 
 
-def profile_requests(model, mode):
+def profile_requests(model, mode, paths=(("medusa", {}),
+                                          ("vanilla", dict(disable_medusa=True)))):
     rng = np.random.default_rng(SEED)
     dims = model.config.dims
     for b in (1, 8):
         feats = torch.from_numpy(rng.standard_normal(
             (b, dims.num_mel_bins, dims.num_frames)).astype(np.float32)).cuda()
-        for name, kw in (("medusa", {}), ("vanilla", dict(disable_medusa=True))):
+        for name, kw in paths:
             run = lambda: model.generate(feats, language="en",
                                          max_new_tokens=MAX_NEW_TOKENS, **kw)
             run()                                             # warm-up
@@ -190,6 +217,7 @@ def profile_requests(model, mode):
 
 def main():
     from whisper_medusa_tpu_torch.config import WHISPER_PRESETS, MedusaConfig, ModelConfig
+    from whisper_medusa_tpu_torch.models import bridge
     from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
 
     if not torch.cuda.is_available():
@@ -204,11 +232,18 @@ def main():
     g.manual_seed(SEED + 1)
     model.params["medusa"]["heads"]["w"].normal_(0.0, 0.02, generator=g)
     qmodel = model.quantize()
+    bmodel = bridge.random_block_model(model, seed=SEED + 2)
+    bqmodel = bmodel.quantize()
+    profile_frontend()
     for m, mode in ((model, "bf16"), (qmodel, "int8")):
         profile_megastep(m, mode)
+    for m, mode in ((bmodel, "bf16"), (bqmodel, "int8")):
+        profile_megastep(m, mode, block=m.params["medusa"]["block"])
     profile_verify_passes(model)
     for m, mode in ((model, "bf16"), (qmodel, "int8")):
         profile_requests(m, mode)
+    for m, mode in ((bmodel, "bf16"), (bqmodel, "int8")):
+        profile_requests(m, mode, (("medusa_block", {}),))
 
 
 if __name__ == "__main__":

@@ -2,14 +2,16 @@
 
 ``WhisperMedusaModel`` with ``from_random``, ``from_pretrained``, ``encode``,
 ``detect_language`` and ``generate`` for the shortform, single-temperature,
-greedy ``base_head`` path and vanilla decoding (``disable_medusa=True``) at
-1 <= B <= 8: ``language`` given (one code, or one per example) or detected
-per example, ``max_length`` / ``max_new_tokens``, the suppress lists, the
-exponential decay length penalty and the no-speech probability.  Every other
-option of the JAX ``generate`` raises NotImplementedError naming its ROADMAP
-item.  ``quantize()`` gives the int8 serving copy (W8A16 decoder, embedding
-and heads; int8 caches).  Everything runs on the card unless the model was
-made with ``device="cpu"``.
+greedy path of both Medusa variants (``base_head``, and ``medusa_block``,
+chosen by ``config.medusa.medusa_heads_type``) and vanilla decoding
+(``disable_medusa=True``) at 1 <= B <= 8: ``language`` given (one code, or
+one per example) or detected per example, ``max_length`` /
+``max_new_tokens``, the suppress lists, the exponential decay length penalty
+and the no-speech probability.  Every other option of the JAX ``generate``
+raises NotImplementedError naming its ROADMAP item.  ``quantize()`` gives
+the int8 serving copy (W8A16 decoder, embedding, heads and Medusa-Block
+layer; int8 caches).  Everything runs on the card unless the model was made
+with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -114,10 +116,11 @@ class WhisperMedusaModel:
 
     def quantize(self) -> "WhisperMedusaModel":
         """The int8 weight-only serving copy (ops/qmm.py::quantize_decoder):
-        decoder layer weights, the tied embedding and the Medusa heads stored
-        int8 with per-output-channel f32 scales, quantized on the model's
-        device, where the copy stays; the encoder, layer norms, biases and
-        positional embeddings are shared with this model.  ``generate``,
+        decoder layer weights, the tied embedding, the Medusa heads and the
+        Medusa-Block layer stored int8 with per-output-channel f32 scales,
+        quantized on the model's device, where the copy stays; the encoder,
+        layer norms, biases and positional embeddings are shared with this
+        model, and a weight that is int8 already is kept as it is.  ``generate``,
         ``detect_language`` and ``encode`` run on it unchanged, with int8
         cross and self caches."""
         from whisper_medusa_tpu_torch.ops.qmm import quantize_decoder
@@ -182,8 +185,6 @@ class WhisperMedusaModel:
                                          and tuple(np.atleast_1d(value)) == (0.0,)):
                 raise _not_ported(f"generate({name}={value!r})", item)
         cfg = self.config
-        if cfg.medusa.medusa_heads_type != "base_head" and not disable_medusa:
-            raise _not_ported("medusa_block", "medusa_block variant")
         feats = torch.as_tensor(input_features, dtype=torch.float32,
                                 device=self.device)
         if feats.dim() == 2:
@@ -244,7 +245,7 @@ class WhisperMedusaModel:
             choices, variant, medusa_params = (1,), "vanilla", None
         else:
             choices = tuple(medusa_choices or cfg.medusa.medusa_choices)
-            variant, medusa_params = "base_head", self.params["medusa"]
+            variant, medusa_params = cfg.medusa.medusa_heads_type, self.params["medusa"]
         result = speculative_generate(
             self.params["whisper"], medusa_params, cfg.dims,
             generate_medusa_buffers(choices), pcfg, gen, enc_out,

@@ -10,7 +10,11 @@ reshape:
   * :func:`from_random` mirrors ``init_whisper_params`` and
     ``init_medusa_params`` with a ``torch.Generator`` on the target device;
   * :func:`load_checkpoint` reads the framework format (``config.json`` +
-    ``params.safetensors``, keys ``whisper/decoder/layers/self/q_w``...).
+    ``params.safetensors``, keys ``whisper/decoder/layers/self/q_w``...,
+    ``medusa/block/...`` for the Medusa-Block layer).
+
+A Medusa-Block model's ``medusa`` tree holds ``heads`` (``medusa_num_heads``
+heads, all drafting) and ``block``, one unstacked decoder layer.
 """
 
 from __future__ import annotations
@@ -129,19 +133,87 @@ def from_random(config: ModelConfig, seed: int = 0, device="cuda",
             "ln_post": ln(),
         },
     }
+    return {"whisper": whisper, "medusa": init_medusa_params(config, whisper, g, dt)}
+
+
+def init_medusa_params(config: ModelConfig, whisper_params: Params,
+                       generator: torch.Generator, dtype) -> Params:
+    """Identity-init Medusa params, as the JAX ``init_medusa_params``:
+    ``medusa_num_heads`` heads (+1, the base head, for ``base_head``) with
+    zero weights and U(-1/sqrt(D), 1/sqrt(D)) biases drawn from
+    ``generator``; for ``medusa_block`` also ``block``, a copy of the last
+    decoder layer."""
     med = config.medusa
-    if med.medusa_heads_type != "base_head":
-        raise NotImplementedError("medusa_block is not ported yet "
-                                  "(ROADMAP queue 1: medusa_block variant)")
+    d = config.dims.d_model
+    if med.output_whisper_original:
+        raise NotImplementedError(
+            "output_whisper_original (the teacher layer) is a training option, not "
+            "ported yet (ROADMAP queue 1, item 16: training)")
     if med.medusa_hidden_size != d:
         raise ValueError("medusa_hidden_size must equal d_model")
-    n_heads = med.medusa_num_heads + 1
+    n_heads = med.medusa_num_heads + (1 if med.medusa_heads_type == "base_head" else 0)
+    dev = generator.device
     bound = 1.0 / (d ** 0.5)
-    bias = (torch.rand((n_heads, med.medusa_num_layers, d), generator=g, device=dev)
-            * (2 * bound) - bound)
-    medusa = {"heads": {"w": zeros(n_heads, med.medusa_num_layers, d, d),
-                        "b": bias.to(dt)}}
-    return {"whisper": whisper, "medusa": medusa}
+    bias = (torch.rand((n_heads, med.medusa_num_layers, d), generator=generator,
+                       device=dev) * (2 * bound) - bound)
+    medusa = {"heads": {"w": torch.zeros((n_heads, med.medusa_num_layers, d, d),
+                                         dtype=dtype, device=dev),
+                        "b": bias.to(dtype)}}
+    if med.medusa_heads_type == "medusa_block":
+        medusa["block"] = _last_layer(whisper_params["decoder"]["layers"], dtype)
+    return medusa
+
+
+# The block layer's output projections: they add its three residual branches.
+_BLOCK_OUTPUTS = (("self", "o_w"), ("self", "o_b"), ("cross", "o_w"), ("cross", "o_b"),
+                  ("fc2_w",), ("fc2_b",))
+
+
+def random_block_model(model, seed: int):
+    """A random Medusa-Block model on ``model``'s Whisper weights (shared,
+    not copied), for driving the block path without a checkpoint: 10 heads
+    with N(0, 0.02) weights and the block layer, the copy of the last decoder
+    layer that :func:`init_medusa_params` makes, perturbed (weights by
+    N(0, 0.02), norms and biases by N(0, 0.1)) from a generator seeded with
+    ``seed``, so that it differs from that layer.  Its output projections
+    are then scaled by 1/20, a stand-in chosen so that drafts get accepted:
+    a random layer at full scale adds residuals as large as its input, and
+    no draft from its output would ever be accepted.  It models no trained
+    block."""
+    import dataclasses
+
+    from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+
+    cfg = model.config.replace(medusa=dataclasses.replace(
+        model.config.medusa, medusa_heads_type="medusa_block"))
+    g = torch.Generator(device=model.device)
+    g.manual_seed(seed)
+    med = init_medusa_params(cfg, model.params["whisper"], g, torch_dtype(cfg.param_dtype))
+    med["heads"]["w"].normal_(0.0, 0.02, generator=g)
+
+    def perturb(tree):
+        for leaf in tree.values():
+            if isinstance(leaf, dict):
+                perturb(leaf)
+            else:
+                noise = torch.randn(leaf.shape, generator=g, device=model.device)
+                leaf.add_((noise * (0.02 if leaf.dim() == 2 else 0.1)).to(leaf.dtype))
+
+    perturb(med["block"])
+    for path in _BLOCK_OUTPUTS:
+        leaf = med["block"]
+        for k in path:
+            leaf = leaf[k]
+        leaf.mul_(0.05)
+    return WhisperMedusaModel(cfg, {"whisper": model.params["whisper"], "medusa": med},
+                              device=model.device,
+                              generation_config=model.generation_config,
+                              special_tokens=model.special)
+
+
+def _last_layer(stacked: Params, dtype) -> Params:
+    return {k: _last_layer(v, dtype) if isinstance(v, dict) else v[-1].to(dtype).clone()
+            for k, v in stacked.items()}
 
 
 def _unflatten(flat: Dict[str, torch.Tensor]) -> Params:

@@ -5,7 +5,8 @@ All heads live in one stacked tensor ``w`` (n_heads, n_layers, D, D) stored
 ``x + SiLU(x @ W + b)`` (the reference's MedusaResBlock).  In int8 serving
 ``w`` is ``{"q": int8 (n_heads, n_layers, D, D), "s": f32 (n_heads,
 n_layers, D)}`` and a layer is ``x + SiLU((x @ bf16(q)) * s + b)``.
-Initialization lives in models/bridge.py::from_random.
+Initialization lives in models/bridge.py::init_medusa_params, which also
+makes the Medusa-Block variant's ``block`` layer (run by K2, not here).
 """
 
 from __future__ import annotations

@@ -9,8 +9,9 @@ package the slabs carry no alignment slack: ``max_len`` rows exactly, and the
 cross cache is never padded.
 
 Decode runs through ``ops/megastep.py`` (kernel K2 on CUDA tensors, the
-:func:`decoder_layer_step` loop on CPU tensors) at B <= 8; the cache slabs
-are updated in place.  Encoder self-attention runs through
+:func:`decoder_layer_step` loop on CPU tensors) at B <= 8, with the
+Medusa-Block layer as one more layer on its own cache slot when given; the
+cache slabs are updated in place.  Encoder self-attention runs through
 ``ops/attention.py`` (K1).  An example's decoder state does not depend on
 the batch it is in: the cross K/V are projected one example at a time and
 K2's per-row arithmetic is independent of the row count.
@@ -227,12 +228,29 @@ class KVCache:
         return self.self_k.shape[2]
 
 
+def _cross_kv(cross: Params, enc_out: torch.Tensor, num_heads: int):
+    """One layer's cross K (B, H, Dh, S) and V (B, S, D), each example
+    projected on its own (a library GEMM may pick another algorithm, and
+    round differently, for another row count).  int8 projections give int8
+    K/V with f32 (B, H, S) scales, quantized per (head, position) over the
+    head dim; else the scales are None."""
+    k = torch.cat([dense(e[None], cross["k_w"]) for e in enc_out])
+    k = _split_heads(k, num_heads).permute(0, 2, 3, 1)
+    v = torch.cat([dense(e[None], cross["v_w"], cross["v_b"]) for e in enc_out])
+    if not qmm_mod.is_quantized(cross["k_w"]):
+        return k, v, None, None
+    k, k_s = qmm_mod.quantize_array(k, axis=2)
+    # V: one scale per (position, head) chunk of Dh lanes.
+    v, v_s = qmm_mod.quantize_array(_split_heads(v, num_heads), axis=-1)
+    return k, _merge_heads(v), k_s, v_s.permute(0, 2, 1)
+
+
 def init_cache(params: Params, dims: WhisperDims, enc_out: torch.Tensor,
-               max_len: int) -> KVCache:
+               max_len: int, extra_layers: int = 0) -> KVCache:
     """Allocate the self slabs (``max_len`` rows, no slack) and precompute the
-    cross K/V of every layer.  Each example is projected on its own, so its
-    cache does not depend on the batch (a library GEMM may pick another
-    algorithm, and round differently, for another row count).
+    cross K/V of every layer, each example on its own, so that its cache
+    does not depend on the batch.  ``extra_layers`` more slots (the
+    Medusa-Block layer's, filled by :func:`set_block_cross_kv`) start zero.
 
     With int8 cross projections (int8 serving) the cross K/V are quantized
     per (head, position) over the head dim and the self slabs are int8 with
@@ -242,35 +260,37 @@ def init_cache(params: Params, dims: WhisperDims, enc_out: torch.Tensor,
     nl = dims.decoder_layers
     layers = params["decoder"]["layers"]["cross"]
     quant = qmm_mod.is_quantized(layers["k_w"])
-    ks, vs, kss, vss = [], [], [], []
-    for i in range(nl):
-        kw = qmm_mod.wmap(layers["k_w"], lambda a: a[i])
-        vw = qmm_mod.wmap(layers["v_w"], lambda a: a[i])
-        k = torch.cat([dense(e[None], kw) for e in enc_out])
-        k = _split_heads(k, nh).permute(0, 2, 3, 1)                # (B, H, Dh, S)
-        v = torch.cat([dense(e[None], vw, layers["v_b"][i]) for e in enc_out])
-        if quant:
-            k, k_s = qmm_mod.quantize_array(k, axis=2)            # scales (B, H, S)
-            # V: one scale per (position, head) chunk of Dh lanes.
-            v, v_s = qmm_mod.quantize_array(_split_heads(v, nh), axis=-1)
-            v = _merge_heads(v)
-            kss.append(k_s)
-            vss.append(v_s.permute(0, 2, 1))                      # (B, H, S)
-        ks.append(k)
-        vs.append(v)
+    per_layer = [_cross_kv(layer_params(layers, i), enc_out, nh) for i in range(nl)]
+    per_layer += [tuple(None if a is None else torch.zeros_like(a) for a in per_layer[0])
+                  ] * extra_layers
+    ks, vs, kss, vss = zip(*per_layer)
     dev = enc_out.device
     slab_dt = torch.int8 if quant else enc_out.dtype
+    n = nl + extra_layers
     cache = KVCache(
-        self_k=torch.zeros((nl, b, max_len, d), dtype=slab_dt, device=dev),
-        self_v=torch.zeros((nl, b, max_len, d), dtype=slab_dt, device=dev),
+        self_k=torch.zeros((n, b, max_len, d), dtype=slab_dt, device=dev),
+        self_v=torch.zeros((n, b, max_len, d), dtype=slab_dt, device=dev),
         cross_k=torch.stack(ks).contiguous(),
         cross_v=torch.stack(vs).contiguous(),
     )
     if quant:
         cache.cross_k_s = torch.stack(kss).contiguous()
         cache.cross_v_s = torch.stack(vss).contiguous()
-        cache.self_s = torch.ones((nl, b, max_len, 2 * nh), dtype=torch.bfloat16,
+        cache.self_s = torch.ones((n, b, max_len, 2 * nh), dtype=torch.bfloat16,
                                   device=dev)
+    return cache
+
+
+def set_block_cross_kv(cache: KVCache, block: Params, enc_out: torch.Tensor,
+                       num_heads: int) -> KVCache:
+    """In place: fill the last cache slot's cross K/V (and int8 scales) from
+    the Medusa-Block layer's cross projections; returns ``cache``."""
+    k, v, k_s, v_s = _cross_kv(block["cross"], enc_out, num_heads)
+    cache.cross_k[-1] = k
+    cache.cross_v[-1] = v
+    if cache.cross_k_s is not None:
+        cache.cross_k_s[-1] = k_s
+        cache.cross_v_s[-1] = v_s
     return cache
 
 
@@ -372,14 +392,22 @@ def decoder_layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
 class DecoderOutput:
     hidden: torch.Tensor      # (B, T, D) after the final layer norm
     pre_norm: torch.Tensor    # (B, T, D) before it
+    block_hidden: Optional[torch.Tensor] = None   # (B, T, D) Medusa-Block layer output
 
 
 def decode_step(params: Params, dims: WhisperDims, tokens: torch.Tensor,
                 cache: KVCache, offsets: torch.Tensor,
                 rel_positions: Optional[torch.Tensor] = None,
-                chunk_mask: Optional[torch.Tensor] = None) -> DecoderOutput:
+                chunk_mask: Optional[torch.Tensor] = None,
+                block: Optional[Params] = None) -> DecoderOutput:
     """Incremental decoder pass over T new tokens (B, T) at per-example
-    ``offsets``; updates ``cache``'s self slabs in place."""
+    ``offsets``; updates ``cache``'s self slabs in place.
+
+    ``block`` (the Medusa-Block layer, one unstacked decoder layer) runs
+    after ``ln_post`` on ``hidden``, on the cache's last slot (init_cache
+    ``extra_layers=1``), and gives ``block_hidden`` (no ``ln_post``).  It
+    goes to K2 as a layer of its own, never concatenated onto the stacked
+    decoder weights (that would copy every decoder weight per call)."""
     from whisper_medusa_tpu_torch.ops import megastep
 
     dec = params["decoder"]
@@ -389,13 +417,13 @@ def decode_step(params: Params, dims: WhisperDims, tokens: torch.Tensor,
     abs_pos = (offsets[:, None] + rel_positions[None, :]).clamp(
         0, dims.max_target_positions - 1)
     x = embed_lookup(dec["embed_tokens"], tokens) + dec["pos_embed"][abs_pos]
-    pre_norm, hidden = megastep.fused_decoder_layers(
+    pre_norm, hidden, block_hidden = megastep.fused_decoder_layers(
         dec["layers"], dec["ln_post"], x, cache.self_k, cache.self_v,
         cache.cross_k, cache.cross_v, offsets.to(torch.int32), chunk_mask,
         cross_len=min(dims.max_source_positions, cache.cross_k.shape[4]),
         num_heads=dims.decoder_attention_heads, cross_k_s=cache.cross_k_s,
-        cross_v_s=cache.cross_v_s, self_s=cache.self_s)
-    return DecoderOutput(hidden=hidden, pre_norm=pre_norm)
+        cross_v_s=cache.cross_v_s, self_s=cache.self_s, block=block)
+    return DecoderOutput(hidden=hidden, pre_norm=pre_norm, block_hidden=block_hidden)
 
 
 def project_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "wm_head_rows": [_vp] * 5 + [_ci] * 3 + [_vp],
     "wm_qmm": [_vp] * 4 + [_ci] * 3 + [_vp],
     "wm_qmm_nt": [_vp] * 4 + [_ci] * 3 + [_vp],
+    "wm_log_mel": [_vp] * 5 + [_ci] * 3 + [_vp],
 }
 
 

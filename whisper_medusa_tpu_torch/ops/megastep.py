@@ -32,11 +32,21 @@ attention reads the history rows as ``bf16(q * sc)`` and the chunk's own
 rows as the fresh bf16 K/V.  At large-v2 the step then streams 0.73 GB of
 weights and B x 123 MB of cross K/V (counted from the shapes).
 
+Medusa-Block serving (the JAX kernel's block layer, grid layer L) is a
+mode of the same entry: after ``ln_post`` the entry copies ``hidden`` into
+a third row buffer and runs the block — its own weight table of 21
+pointers (and 8 scales at int8), never stacked onto the decoder's — as one
+more layer on cache slot L of slabs allocated with L + 1 slots; that buffer
+is ``block_hidden`` (no ``ln_post``), and ``pre_norm`` stays the main
+stack's output.  The block adds 46 MB of streamed bf16 weights (23 MB
+int8) and B x 7.7 MB of cross K/V to a step (counted from the shapes).
+
 The plain version is the ``models/whisper.py::decoder_layer_step`` loop
-followed by ``layer_norm``.  Both update the self slabs (and scales) in place
-and return ``(pre_norm, hidden)``.  Scope of the kernel: bf16 activations,
-bf16 or int8 weights and caches, B <= 8, T <= 16 (so B*T <= 128), Dh = 64,
-d_model and ffn_dim multiples of 256.
+followed by ``layer_norm`` (and the block's ``decoder_layer_step``).  Both
+update the self slabs (and scales) in place and return ``(pre_norm, hidden,
+block_hidden)``, ``block_hidden`` None without a block.  Scope of the
+kernel: bf16 activations, bf16 or int8 weights and caches, B <= 8, T <= 16
+(so B*T <= 128), Dh = 64, d_model and ffn_dim multiples of 256.
 """
 
 from __future__ import annotations
@@ -58,6 +68,8 @@ CROSS_CHUNK = 128        # csrc/megastep.cu CS
 
 launches = 0            # bf16 mode
 q_launches = 0          # int8 mode
+block_launches = 0      # bf16 block mode (the Medusa-Block layer as layer L)
+q_block_launches = 0    # int8 block mode
 
 # Weight order of the C pointer table (csrc/megastep.cu MegastepPtr, from
 # P_SELF_LN_S on).
@@ -77,66 +89,111 @@ def _leaf(tree, path):
     return tree
 
 
+def _check_slots(dec_layers: Params, self_k, block) -> int:
+    """The number of decoder layers L; the slabs must hold L slots, and one
+    more (slot L) for the block."""
+    nl = dec_layers["fc1_b"].shape[0]
+    want = nl + (block is not None)
+    if self_k.shape[0] != want:
+        raise ValueError(f"megastep: the caches must hold {want} layer slots "
+                         f"({nl} layers{' + the block' if block is not None else ''}), "
+                         f"got {self_k.shape[0]}")
+    return nl
+
+
 def megastep_plain(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross_k,
                    cross_v, offsets, chunk_mask, cross_len: int, num_heads: int,
-                   cross_k_s=None, cross_v_s=None, self_s=None):
-    """The decoder_layer_step loop (models/whisper.py), then ln_post."""
+                   cross_k_s=None, cross_v_s=None, self_s=None, block=None):
+    """The decoder_layer_step loop (models/whisper.py), then ln_post, then
+    the block (if given) on ln_post's output at slot L."""
     from whisper_medusa_tpu_torch.models import whisper
 
+    nl = _check_slots(dec_layers, self_k, block)
     mask = whisper.make_step_mask(offsets, x.shape[1], self_k.shape[2], chunk_mask)
     at = lambda a, i: None if a is None else a[i]
+
+    def step(lp, h, i):
+        return whisper.decoder_layer_step(
+            lp, h, self_k[i], self_v[i], cross_k[i], cross_v[i], offsets, mask,
+            num_heads, cross_len, cross_k_s=at(cross_k_s, i),
+            cross_v_s=at(cross_v_s, i), self_s=at(self_s, i))
+
     h = x
-    for layer in range(self_k.shape[0]):
-        h = whisper.decoder_layer_step(
-            whisper.layer_params(dec_layers, layer), h, self_k[layer],
-            self_v[layer], cross_k[layer], cross_v[layer], offsets, mask,
-            num_heads, cross_len, cross_k_s=at(cross_k_s, layer),
-            cross_v_s=at(cross_v_s, layer), self_s=at(self_s, layer))
-    return h, whisper.layer_norm(h, ln_post["scale"], ln_post["bias"])
+    for layer in range(nl):
+        h = step(whisper.layer_params(dec_layers, layer), h, layer)
+    hidden = whisper.layer_norm(h, ln_post["scale"], ln_post["bias"])
+    block_hidden = None if block is None else step(block, hidden, nl)
+    return h, hidden, block_hidden
+
+
+def _check_int8(name, layer_tree, ln, x):
+    """The int8 mode's weights: every streamed weight int8 with f32 scales,
+    every other leaf bf16; returns the streamed weights' scales."""
+    qw = [_leaf(layer_tree, p) for p in _QUANT]
+    if not all(qmm_mod.is_quantized(w) for w in qw):
+        raise ValueError(f"megastep kernel: int8 mode takes int8 streamed weights "
+                         f"({name})")
+    plain = [w for w in (_leaf(layer_tree, p) for p in _WEIGHTS)
+             if not qmm_mod.is_quantized(w)]
+    cuda_lib.require_cuda("megastep", x, *plain, *ln)
+    cuda_lib.require_cuda("megastep", *[w["q"] for w in qw], dtype=torch.int8,
+                          device=x.device)
+    cuda_lib.require_cuda("megastep", *[w["s"] for w in qw], dtype=torch.float32,
+                          device=x.device)
+    return [w["s"] for w in qw]
+
+
+def _values(layer_tree):
+    """The C table's weights of one layer tree: bf16 tensors or int8 values."""
+    return [w["q"] if qmm_mod.is_quantized(w) else w
+            for w in (_leaf(layer_tree, p) for p in _WEIGHTS)]
 
 
 def megastep_kernel(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross_k,
                     cross_v, offsets, chunk_mask, cross_len: int, num_heads: int,
-                    cross_k_s=None, cross_v_s=None, self_s=None):
-    """Launch K2 over all layers; returns (pre_norm, hidden), each (B, T, D).
-    int8 mode when the weights are int8 (then the caches must be too)."""
-    global launches, q_launches
+                    cross_k_s=None, cross_v_s=None, self_s=None, block=None):
+    """Launch K2 over all layers (and the block, if given); returns
+    (pre_norm, hidden, block_hidden or None), each (B, T, D).  int8 mode
+    when the weights are int8 (then the caches, and the block, must be too)."""
+    global launches, q_launches, block_launches, q_block_launches
     b, t, d = x.shape
-    nl, _, s_len, _ = self_k.shape
+    nl = _check_slots(dec_layers, self_k, block)
+    _, _, s_len, _ = self_k.shape
+    n_slots = self_k.shape[0]
     s_enc = cross_k.shape[4]
     quant = qmm_mod.is_quantized(dec_layers["self"]["q_w"])
-    leaves = [_leaf(dec_layers, p) for p in _WEIGHTS]
-    weights = [w["q"] if qmm_mod.is_quantized(w) else w for w in leaves]
     ln = [ln_post["scale"], ln_post["bias"]]
     f = dec_layers["fc1_b"].shape[-1]
     dev = x.device
     extra = [None] * (len(_QUANT) + 3)     # the int8 mode's scale slots, empty
+    block_scales = [None] * len(_QUANT)
     if not quant:
-        cuda_lib.require_cuda("megastep", x, self_k, self_v, cross_k, cross_v, *weights, *ln)
+        cuda_lib.require_cuda("megastep", x, self_k, self_v, cross_k, cross_v,
+                              *_values(dec_layers), *ln,
+                              *(_values(block) if block is not None else []))
     else:
-        qw = [_leaf(dec_layers, p) for p in _QUANT]
-        if (not all(qmm_mod.is_quantized(w) for w in qw) or self_s is None
-                or cross_k_s is None or cross_v_s is None):
-            raise ValueError("megastep kernel: int8 mode takes int8 streamed weights, "
-                             "an int8 cross cache with scales and int8 self slabs "
-                             "with self_s")
-        plain = [w for w in leaves if not qmm_mod.is_quantized(w)]
-        cuda_lib.require_cuda("megastep", x, *plain, *ln, self_s)
-        cuda_lib.require_cuda("megastep", *[w["q"] for w in qw], self_k, self_v,
-                              cross_k, cross_v, dtype=torch.int8, device=dev)
-        cuda_lib.require_cuda("megastep", *[w["s"] for w in qw], cross_k_s, cross_v_s,
-                              dtype=torch.float32, device=dev)
-        if (cross_k_s.shape != (nl, b, num_heads, s_enc)
+        if self_s is None or cross_k_s is None or cross_v_s is None:
+            raise ValueError("megastep kernel: int8 mode takes an int8 cross cache "
+                             "with scales and int8 self slabs with self_s")
+        scales = _check_int8("decoder layers", dec_layers, ln, x)
+        if block is not None:
+            block_scales = _check_int8("block", block, ln, x)
+        cuda_lib.require_cuda("megastep", self_s, device=dev)
+        cuda_lib.require_cuda("megastep", self_k, self_v, cross_k, cross_v,
+                              dtype=torch.int8, device=dev)
+        cuda_lib.require_cuda("megastep", cross_k_s, cross_v_s, dtype=torch.float32,
+                              device=dev)
+        if (cross_k_s.shape != (n_slots, b, num_heads, s_enc)
                 or cross_v_s.shape != cross_k_s.shape
-                or self_s.shape != (nl, b, s_len, 2 * num_heads)):
+                or self_s.shape != (n_slots, b, s_len, 2 * num_heads)):
             raise ValueError("megastep kernel: scales must be (L, B, H, S_enc), "
-                             "self_s (L, B, S, 2H)")
-        extra = [w["s"] for w in qw] + [cross_k_s, cross_v_s, self_s]
+                             "self_s (L, B, S, 2H), L counting the block's slot")
+        extra = scales + [cross_k_s, cross_v_s, self_s]
     dh = d // num_heads
     if (b > MAX_B or t > MAX_T or dh != 64 or d % 256 or f % 256
-            or self_k.shape != (nl, b, s_len, d) or self_v.shape != self_k.shape
-            or cross_k.shape != (nl, b, num_heads, dh, s_enc)
-            or cross_v.shape != (nl, b, s_enc, d)
+            or self_k.shape != (n_slots, b, s_len, d) or self_v.shape != self_k.shape
+            or cross_k.shape != (n_slots, b, num_heads, dh, s_enc)
+            or cross_v.shape != (n_slots, b, s_enc, d)
             or s_enc % 4 or not 1 <= cross_len <= s_enc):
         raise ValueError(
             f"megastep kernel takes B <= {MAX_B}, T <= {MAX_T}, Dh=64, D and F multiples "
@@ -157,17 +214,27 @@ def megastep_kernel(dec_layers: Params, ln_post: Params, x, self_k, self_v, cros
     hidden = torch.empty((b * t, d), **bf)
     part = torch.empty((b * num_heads * t * nch * (dh + 2),), dtype=torch.float32,
                        device=dev)
+    # Block mode: the block's residual stream, 16-row tiles like xbuf.
+    bbuf = None if block is None else torch.zeros((m16, d), **bf)
+    block_weights = _values(block) if block is not None else [None] * len(_WEIGHTS)
     tensors = [xbuf, *scratch, hbuf, part, self_k, self_v, cross_k, cross_v,
-               offsets, mask, *weights, *ln, hidden, *extra]
+               offsets, mask, *_values(dec_layers), *ln, hidden, *extra, bbuf,
+               *block_weights, *block_scales]
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[None if tt is None else tt.data_ptr() for tt in tensors])
     ints = (ctypes.c_int * 9)(nl, b, t, d, num_heads, f, s_len, s_enc, cross_len)
     cuda_lib.launch("wm_megastep_step", dev, ptrs, ints)
-    if quant:
+    if block is not None:
+        if quant:
+            q_block_launches += 1
+        else:
+            block_launches += 1
+    elif quant:
         q_launches += 1
     else:
         launches += 1
-    return xbuf[:b * t].reshape(b, t, d), hidden.reshape(b, t, d)
+    block_hidden = None if bbuf is None else bbuf[:b * t].reshape(b, t, d)
+    return xbuf[:b * t].reshape(b, t, d), hidden.reshape(b, t, d), block_hidden
 
 
 def fused_decoder_layers(dec_layers: Params, ln_post: Params, x: torch.Tensor,
@@ -177,16 +244,19 @@ def fused_decoder_layers(dec_layers: Params, ln_post: Params, x: torch.Tensor,
                          chunk_mask: Optional[torch.Tensor], cross_len: int,
                          num_heads: int, cross_k_s: Optional[torch.Tensor] = None,
                          cross_v_s: Optional[torch.Tensor] = None,
-                         self_s: Optional[torch.Tensor] = None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         self_s: Optional[torch.Tensor] = None,
+                         block: Optional[Params] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """All decoder layers over a (B, T, D) chunk at per-example ``offsets``,
-    then ``ln_post`` ({"scale", "bias"}).
+    then ``ln_post`` ({"scale", "bias"}), then the Medusa-Block layer
+    ``block`` (one unstacked decoder layer) on ln_post's output at cache
+    slot L, if given.
 
     Writes the chunk's K/V rows into ``self_k``/``self_v`` in place (and
     their scales into ``self_s`` in int8 serving) and returns (pre_norm,
-    hidden), each (B, T, D).  CUDA tensors launch K2; CPU tensors run the
-    plain layer loop."""
+    hidden, block_hidden or None), each (B, T, D).  CUDA tensors launch K2;
+    CPU tensors run the plain layer loop."""
     fn = megastep_kernel if x.is_cuda else megastep_plain
     return fn(dec_layers, ln_post, x, self_k, self_v, cross_k, cross_v, offsets,
               chunk_mask, cross_len, num_heads, cross_k_s=cross_k_s,
-              cross_v_s=cross_v_s, self_s=self_s)
+              cross_v_s=cross_v_s, self_s=self_s, block=block)

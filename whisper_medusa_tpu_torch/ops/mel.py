@@ -2,14 +2,16 @@
 
 Same math: reflect-padded 400-sample Hann frames at hop 160, the DFT as two
 matmuls against windowed cos/sin bases, the Slaney mel filter bank, log10,
-clamp to (max - 8) and (x + 4) / 4.  The JAX package has no kernel on this
-path (its Pallas frontend is opt-in), so this is plain PyTorch.
+clamp to (max - 8) and (x + 4) / 4.  The JAX package's default frontend runs
+no kernel, so this is plain PyTorch; :func:`log_mel_plain` (up to log10) is
+also the plain version of the opt-in fused kernel K8 (``ops/mel_fused.py``),
+and :func:`normalize_log_mel` the normalization both paths share.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +76,24 @@ def dft_mel_basis(n_mels: int = 80) -> Tuple[np.ndarray, np.ndarray, np.ndarray]
     return cos_b, sin_b, mel_filter_bank(n_freqs, n_mels).T.astype(np.float32)
 
 
+_DEVICE_BASES: Dict[Tuple[torch.device, int, int], Tuple[torch.Tensor, ...]] = {}
+
+
+def device_bases(device, n_mels: int = 80,
+                 pad_to: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`dft_mel_basis` as contiguous f32 tensors on ``device``, built
+    once per (device, ``n_mels``, ``pad_to``); ``pad_to`` > 0 zero-pads the
+    cos and sin bases' frequency columns to that count (K8's operands)."""
+    key = (torch.device(device), n_mels, pad_to)
+    if key not in _DEVICE_BASES:
+        cos_b, sin_b, mel_fb = (torch.from_numpy(a).to(key[0]) for a in dft_mel_basis(n_mels))
+        if pad_to:
+            pad = lambda a: torch.nn.functional.pad(a, (0, pad_to - a.shape[1]))
+            cos_b, sin_b = pad(cos_b), pad(sin_b)
+        _DEVICE_BASES[key] = tuple(a.contiguous() for a in (cos_b, sin_b, mel_fb))
+    return _DEVICE_BASES[key]
+
+
 def frame_audio(audio: torch.Tensor) -> torch.Tensor:
     """(B, N) -> (B, N // HOP_LENGTH, N_FFT) reflect-padded centered frames."""
     pad = N_FFT // 2
@@ -82,18 +102,28 @@ def frame_audio(audio: torch.Tensor) -> torch.Tensor:
     return x.unfold(-1, N_FFT, HOP_LENGTH)[:, :n_frames]
 
 
-def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
-    """(B, N_SAMPLES) float32 -> (B, n_mels, N_FRAMES) float32 log-mel."""
-    dev = audio.device
-    cos_b, sin_b, mel_fb = (torch.from_numpy(a).to(dev) for a in dft_mel_basis(n_mels))
+def log_mel_plain(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
+    """(B, N) float32 -> (B, N // HOP_LENGTH, n_mels) float32 log10 mel: the
+    function kernel K8 computes (``ops/mel_fused.py``), in plain PyTorch."""
+    cos_b, sin_b, mel_fb = device_bases(audio.device, n_mels)
     frames = frame_audio(audio.float())                    # (B, F, N_FFT)
     re = frames @ cos_b
     im = frames @ sin_b
     mel = (re * re + im * im) @ mel_fb                     # (B, F, n_mels)
-    log_spec = torch.log10(torch.clamp(mel, min=1e-10))
+    return torch.log10(torch.clamp(mel, min=1e-10))
+
+
+def normalize_log_mel(log_spec: torch.Tensor) -> torch.Tensor:
+    """(B, F, n_mels) log10 mel -> (B, n_mels, F) Whisper features: clamp to
+    each example's max - 8, then (x + 4) / 4."""
     max_val = log_spec.amax(dim=(1, 2), keepdim=True)
     log_spec = torch.maximum(log_spec, max_val - 8.0)
     return ((log_spec + 4.0) / 4.0).transpose(1, 2).contiguous()
+
+
+def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
+    """(B, N_SAMPLES) float32 -> (B, n_mels, N_FRAMES) float32 log-mel."""
+    return normalize_log_mel(log_mel_plain(audio, n_mels))
 
 
 def pad_or_trim(audio, length: int = N_SAMPLES) -> np.ndarray:

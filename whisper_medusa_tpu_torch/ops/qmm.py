@@ -155,41 +155,47 @@ _LAYER_WEIGHTS = ("q_w", "k_w", "v_w", "o_w", "fc1_w", "fc2_w")
 
 
 def quantize_layers(tree: Params) -> Params:
-    """Quantize every ``*_w`` leaf of a (stacked) decoder-layer tree on its
-    contraction axis; every other leaf is kept."""
+    """Quantize every ``*_w`` leaf of a (stacked, or single) decoder-layer
+    tree on its contraction axis; every other leaf, and a weight that is
+    int8 already, is kept."""
     out = {}
     for k, v in tree.items():
-        if isinstance(v, dict):
+        if k in _LAYER_WEIGHTS:
+            out[k] = _quantized(v, -2)
+        elif isinstance(v, dict):
             out[k] = quantize_layers(v)
-        elif k in _LAYER_WEIGHTS:
-            q, s = quantize_array(v, axis=-2)
-            out[k] = {"q": q, "s": s}
         else:
             out[k] = v
     return out
 
 
+def _quantized(w, axis: int):
+    """``w`` as an int8 weight; a weight that already is one is kept as it
+    is, so quantizing a quantized tree changes nothing."""
+    if is_quantized(w):
+        return w
+    q, s = quantize_array(w, axis=axis)
+    return {"q": q, "s": s}
+
+
 def quantize_decoder(params: Params, medusa_params: Optional[Params] = None
                      ) -> Tuple[Params, Optional[Params]]:
-    """Int8-quantize the decode-path weights: every decoder layer weight and
-    the Medusa heads on their contraction axis (-2: heads (H, L, D, D) give
+    """Int8-quantize the decode-path weights: every decoder layer weight,
+    the Medusa-Block layer's (``block``, like a decoder layer) and the
+    Medusa heads on their contraction axis (-2: heads (H, L, D, D) give
     scales (H, L, D)), the tied embedding (V, D) on -1 (scales (V,)).  The
     encoder, layer norms, biases and positional embeddings are shared with
-    the input tree, not copied."""
+    the input tree, not copied; weights that are int8 already are kept."""
     params = dict(params)
     dec = dict(params["decoder"])
     dec["layers"] = quantize_layers(dec["layers"])
-    q, s = quantize_array(dec["embed_tokens"], axis=-1)
-    dec["embed_tokens"] = {"q": q, "s": s}
+    dec["embed_tokens"] = _quantized(dec["embed_tokens"], -1)
     params["decoder"] = dec
     if medusa_params is not None:
-        if "block" in medusa_params:
-            raise NotImplementedError(
-                "int8 Medusa-Block is not ported yet (ROADMAP queue 1, item 9: "
-                "medusa_block variant)")
         medusa_params = dict(medusa_params)
         heads = dict(medusa_params["heads"])
-        hq, hs = quantize_array(heads["w"], axis=-2)
-        heads["w"] = {"q": hq, "s": hs}
+        heads["w"] = _quantized(heads["w"], -2)
         medusa_params["heads"] = heads
+        if "block" in medusa_params:
+            medusa_params["block"] = quantize_layers(medusa_params["block"])
     return params, medusa_params

@@ -31,6 +31,10 @@ D)}`` go through the skinny GEMM's W8A16 form (scale before the bias).  The
 plain versions score ``bf16(rows)`` against an int8 embedding, as the JAX
 ``qmm_nt`` does.
 
+``identity0`` (Medusa-Block): row block 0 is ``hver`` itself (the hidden
+state, scored as the verification rows) and the heads 0..K-1 build row
+blocks 1..K from ``hsrc`` (the block layer's output), so R = (K + 1) * B * N.
+
 Rows are ordered (k, e, n): head-major over flattened (batch, node).  Scope:
 chain + greedy, K4 at B*N <= 16 and R <= 128, K5 at R <= 1024; the fused
 timestamp rules (``ts_cfg``) are not ported yet.
@@ -60,6 +64,8 @@ head_launches = 0        # wm_head_rows launches, bf16 heads
 q_launches = 0           # the same three with an int8 embedding / int8 heads
 q_rows_launches = 0
 q_head_launches = 0
+id0_launches = 0         # K4 with identity0 (Medusa-Block), bf16 / int8
+q_id0_launches = 0
 
 
 def masks_for(pcfg, device="cpu") -> torch.Tensor:
@@ -264,7 +270,7 @@ def verify_rows(hs: torch.Tensor, embed, pos: torch.Tensor, gcol: torch.Tensor,
 
 def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_masks,
                          *, identity0: bool, begin_index: int, eos_id: int, decay):
-    global launches, q_launches
+    global launches, q_launches, id0_launches, q_id0_launches
     b, n, d = hver.shape
     bn = b * n
     cuda_lib.require_cuda("verify_hidden", hver, hsrc, heads_b)
@@ -294,10 +300,16 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
     ints = (ctypes.c_int * 9)(bn, d, v, nh, int(identity0), begin_index, eos_id,
                               int(decay is not None), int(start))
     cuda_lib.launch("wm_verify_hidden", dev, ptrs, ints, float(math.log(factor)))
-    if escale is None and hscale is None:
-        launches += 1
-    else:
+    quant = escale is not None or hscale is not None
+    if identity0:
+        if quant:
+            q_id0_launches += 1
+        else:
+            id0_launches += 1
+    elif quant:
         q_launches += 1
+    else:
+        launches += 1
     return am, mx, lse, gth
 
 
