@@ -32,7 +32,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      gives every example exactly the tokens of its B=1 decode, for Medusa,
      vanilla and Medusa-Block (accepted counts are printed, not held equal);
      whether generate at B=8 gives each example its B=1 tokens end to end is
-     printed, not required.
+     printed, not required;
+  7. training: the grad guard (a kernel without a backward refuses an
+     operand that requires grad); K9, the attention backward, against its
+     plain version off the path and at the three training shapes (timed
+     against the plain version and SDPA's backward); a 2-layer full-width
+     train step of each recipe on the card against a float32 CPU copy; then
+     at full large-v2 width, bf16, B=2, T=224, each driven with the launch
+     counters as in phase 4: 3 steps of the Medusa-Block recipe, 3 of the
+     Medusa-Linear recipe and one full fine-tune step, with their K9 launch
+     counts (2, 2 and 96 per step), frozen weights bit-identical and peak
+     memory; and the training CLI, whose saved model answers a generate.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -909,17 +919,33 @@ def waveforms(seconds):
     return out
 
 
+def _zero_count(k):
+    """Set a row's launch counter to 0: a wrapper's integer, or one key of
+    its per-shape Counter (K9)."""
+    obj, attr, *key = k["counter"]
+    if key:
+        getattr(obj, attr).pop(key[0], None)
+    else:
+        setattr(obj, attr, 0)
+
+
+def _read_count(k):
+    obj, attr, *key = k["counter"]
+    value = getattr(obj, attr)
+    return value.get(key[0], 0) if key else value
+
+
 def drive(name, kernels, fn, needs):
     """Run one main path with every launch counter set to 0 just before and
     read just after; the kernels in ``needs`` must have launched."""
     for k in kernels:
-        setattr(*k["counter"], 0)
+        _zero_count(k)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k["name"]: getattr(*k["counter"]) for k in kernels}
+    counts = {k["name"]: _read_count(k) for k in kernels}
     log(f"launches [{name}]: " + ", ".join(f"{n} {c}" for n, c in counts.items()))
     for k in kernels:
         k["launches"] = k.get("launches", 0) + counts[k["name"]]
@@ -1114,6 +1140,273 @@ def check_corruption(mode, model, feat, clean):
             f"{mode}: tokens changed under draft_corruption=1.0")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: training (K1 forward, K9 backward)
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_T = 2, 224
+# K9 at the training paths' shapes: (Sq, Skv, causal) -> kernels row.
+K9_SHAPES = {(TRAIN_T, TRAIN_T, True): "attention_bwd self",
+             (TRAIN_T, 1500, False): "attention_bwd cross",
+             (1500, 1500, False): "attention_bwd encoder"}
+K9_SOURCE = "whisper_medusa_tpu_torch/csrc/attention.cu"
+K9_REPLACES = "whisper_medusa_tpu/ops/attention.py:179"
+
+
+def _attn_bwd_cost(b, h, sq, skv, kv_len, causal, dh=64):
+    """(bytes, operations) of one attention backward: q, k, v and dO read
+    once, dq, dk and dv written once (bf16); five products of 2 Dh
+    operations over the (query, key) pairs this call's masks leave visible."""
+    pairs = sum(min(kv_len, i + 1) for i in range(sq)) if causal else sq * kv_len
+    return 2 * dh * b * h * (3 * sq + 4 * skv), 5 * 2 * dh * b * h * pairs
+
+
+def check_attention_bwd(g):
+    """K9 against attention_bwd_plain: off the path (ragged Sq, kv_len < Skv,
+    causal and not), then at the training paths' three shapes; dq, dk and dv
+    each within 1e-2 relative (Frobenius) and the dK/dV rows of keys past
+    kv_len exactly 0.  Each main-path shape is timed against the plain
+    version and SDPA's flash backward, and gives one kernels row.  The
+    library time is the one aten call that computes the backward from the
+    flash forward's saved outputs (scale 1.0), held to the plain version
+    like K9: timing SDPA's forward + backward through autograd, minus the
+    forward, measures the host's autograd launches at these sizes."""
+    from whisper_medusa_tpu_torch.ops import attention as A
+
+    flash = torch.ops.aten._scaled_dot_product_flash_attention
+    flash_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    cases = [((1, 4, 300, 300), 257, True), ((1, 3, 77, 300), 299, False)]
+    cases += [((TRAIN_B, 20, sq, skv), skv, causal) for sq, skv, causal in K9_SHAPES]
+    rows = []
+    for (b, h, sq, skv), kv_len, causal in cases:
+        rnd = lambda n, scale=1.0: (torch.randn((b, h, n, 64), generator=g, device="cuda")
+                                    * scale).to(torch.bfloat16)
+        q, k, v, do = rnd(sq, 0.25), rnd(skv), rnd(skv), rnd(sq)
+        got = A.attention_bwd_kernel(q, k, v, do, kv_len, causal)
+        ref = A.attention_bwd_plain(q, k, v, do, kv_len, causal)
+        rels = [rel_err(a, c) for a, c in zip(got, ref)]
+        err = max(max_err(a, c) for a, c in zip(got, ref))
+        zero = not (got[1][:, :, kv_len:].any() or got[2][:, :, kv_len:].any())
+        what = f"K9 attention_bwd ({b},{h},{sq}x{skv},64) kv_len {kv_len} causal {causal}"
+        log(f"{what}: relative error dq {rels[0]:.2e} dk {rels[1]:.2e} dv {rels[2]:.2e}, "
+            f"max_abs_err {err:.3e}, dK/dV past kv_len zero {zero}")
+        require(max(rels) <= 1e-2 and zero, f"{what}: {rels}, zero {zero}")
+        key = (sq, skv, causal)
+        if b != TRAIN_B or key not in K9_SHAPES:
+            continue
+        ms = cuda_ms(lambda: A.attention_bwd_kernel(q, k, v, do, kv_len, causal))
+        plain_ms = cuda_ms(lambda: A.attention_bwd_plain(q, k, v, do, kv_len, causal))
+        out, lse, cq, ck, mq, mk, seed, offset, _ = flash(q, k, v, 0.0, causal, False,
+                                                          scale=1.0)
+        lib = lambda: flash_bwd(do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, causal, seed,
+                                offset, scale=1.0)
+        lib_rel = max(rel_err(a, c) for a, c in zip(lib(), ref))
+        require(lib_rel <= 1e-2, f"{what}: SDPA's flash backward is {lib_rel} from the plain")
+        lib_ms = cuda_ms(lib)
+        cost = _attn_bwd_cost(b, h, sq, skv, kv_len, causal)
+        log(f"{what}: {cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.2f} GFLOP; SDPA's flash "
+            f"backward at relative error {lib_rel:.2e}")
+        rows.append(kernel_record(K9_SHAPES[key], K9_SOURCE, K9_REPLACES,
+                                  (A, "launches_bwd", key), err, ms, plain_ms,
+                                  bound(*cost), lib_ms))
+    return rows
+
+
+def _train_config(variant, **dims_kw):
+    from whisper_medusa_tpu_torch.config import WhisperDims, MedusaConfig, ModelConfig
+
+    return ModelConfig(dims=WhisperDims(**dims_kw),
+                       medusa=MedusaConfig(medusa_heads_type=variant),
+                       param_dtype="bfloat16", compute_dtype="bfloat16")
+
+
+def _train_batch(feats_b, seed):
+    """Seeded labels (B, 224) of text-token ids, the second row's last 24
+    positions padded with -100."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 50257, size=(feats_b.shape[0], TRAIN_T))
+    labels[1:, -24:] = -100
+    return feats_b, labels
+
+
+def _grads(params, cfg, feats, labels, policy):
+    """(loss, {trainable leaf: masked gradient}) of one train forward."""
+    from whisper_medusa_tpu_torch.training import train as TT
+
+    out, grads = TT.masked_grads(params, cfg, feats, labels, policy, remat=False)
+    return float(out.loss.detach()), grads
+
+
+def check_train_2layer(variant, policy, feats1):
+    """One train forward and backward at full width, 2 encoder and 2 decoder
+    layers, B=1, T=224, on the card (K1, K9) and on a float32 CPU copy of
+    the same bf16 weights and batch (the plain versions): loss within 1e-2
+    relative, every trainable leaf's gradient at cosine >= 0.999."""
+    from whisper_medusa_tpu_torch.models import bridge
+    from whisper_medusa_tpu_torch.ops import attention as A
+
+    cfg = _train_config(variant, encoder_layers=2, decoder_layers=2)
+    params = bridge.from_random(cfg, seed=SEED, device="cuda")
+    hg = torch.Generator(device="cuda")
+    hg.manual_seed(SEED + 5)
+    params["medusa"]["heads"]["w"].normal_(0.0, 0.02, generator=hg)   # off identity
+    f32 = lambda tree: {k: f32(v) if isinstance(v, dict) else v.float().cpu()
+                        for k, v in tree.items()}
+    cpu = f32(params)
+    feats, labels = _train_batch(feats1.float().cpu().numpy(), SEED + 6)
+    n9 = sum(A.launches_bwd.values())
+    loss, grads = _grads(params, cfg, feats, labels, policy)
+    torch.cuda.synchronize()
+    n9 = sum(A.launches_bwd.values()) - n9
+    loss_c, grads_c = _grads(cpu, cfg.replace(param_dtype="float32"), feats, labels, policy)
+    cos = {k: cosine(grads[k].cpu(), grads_c[k]) for k in grads}
+    worst = min(cos, key=cos.get)
+    rel = abs(loss - loss_c) / abs(loss_c)
+    log(f"train 2-layer {variant} / {policy} B=1 T={TRAIN_T}: loss card {loss:.6f}, CPU f32 "
+        f"{loss_c:.6f} (relative {rel:.2e}); K9 launches {n9}; gradient cosine over "
+        f"{len(cos)} trainable leaves: worst {cos[worst]:.6f} ({worst}), median "
+        f"{statistics.median(cos.values()):.6f}")
+    require(rel <= 1e-2 and cos[worst] >= 0.999 and n9 == 2,
+            f"train 2-layer {variant} / {policy}: loss {rel}, cosine {cos[worst]} at {worst}, "
+            f"K9 launches {n9}")
+
+
+# Training paths: (name, variant, policy, steps, K9 launches per step).
+TRAIN_RUNS = (("Medusa-Block recipe", "medusa_block", "whisper", 3, 2),
+              ("Medusa-Linear recipe", "base_head", "all_but_last", 3, 2),
+              ("full fine-tune", "base_head", None, 1, 96))
+
+
+def train_run(kernels, name, variant, policy, steps, k9_per_step, feats2):
+    """Train steps at full large-v2 width, bf16, B=2, T=224, random weights
+    from SEED, one repeated batch, Adafactor at lr 1e-3 (no warmup, constant
+    schedule), remat off.  Finite losses; for a recipe the third loss below
+    the first; frozen leaves and frozen slices bit-identical; every trained
+    leaf changed but those still at 1.0 (a layer-norm scale of 1.0 does not
+    move in bf16 at this lr: half a bf16 ulp of 1.0 is 3.9e-3, the step
+    1e-3); K9 launched ``k9_per_step`` times per step.  The weights' copy
+    for that comparison lives on the host, so the peak memory printed is the
+    training's own."""
+    from whisper_medusa_tpu_torch.models import bridge
+    from whisper_medusa_tpu_torch.ops import attention as A
+    from whisper_medusa_tpu_torch.training import train as TT
+
+    cfg = _train_config(variant)
+    params = bridge.from_random(cfg, seed=SEED, device="cuda")
+    before = {k: v.to("cpu", copy=True) for k, v in bridge.flatten(params).items()}
+    opt = TT.make_optimizer("adafactor", lr=1e-3, warmup_steps=0, schedule="constant")
+    state = TT.init_train_state(params, opt)
+    step = TT.make_train_step(cfg, opt, policy, remat=False)
+    feats, labels = _train_batch(feats2, SEED + 7)
+    needs = ["attention", "attention_bwd self", "attention_bwd cross"]
+    if policy is None:
+        needs.append("attention_bwd encoder")
+
+    def run():
+        losses, times = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            _, metrics = step(state, feats, labels)
+            losses.append(float(metrics["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        return losses, times
+
+    torch.cuda.reset_peak_memory_stats()
+    (losses, times), _ = drive(f"train {name}", kernels, run, needs)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k1, k9 = A.launches / steps, sum(A.launches_bwd[key] for key in K9_SHAPES) / steps
+    mask = bridge.flatten(TT.trainable_mask(params, policy))
+    frozen_ok, moved, still, ones = True, 0, [], []
+    for k, a in bridge.flatten(params).items():
+        a, b, m = a.cpu(), before[k], mask[k]
+        if TT.is_frozen(m):
+            frozen_ok &= torch.equal(a, b)
+            continue
+        if torch.is_tensor(m):           # all_but_last: only the last slice trains
+            frozen_ok &= torch.equal(a[:-1], b[:-1])
+            a, b = a[-1], b[-1]
+        if not torch.equal(a, b):
+            moved += 1
+        elif bool((b == 1).all()):
+            ones.append(k)               # a layer-norm scale at 1.0: see above
+        else:
+            still.append(k)
+    log(f"train {name} ({variant}, parts_to_freeze={policy}) B={TRAIN_B} T={TRAIN_T}: "
+        f"losses {', '.join(f'{x:.6f}' for x in losses)}; ms per step "
+        f"{', '.join(f'{t:.1f}' for t in times)}; peak memory {peak:.2f} GiB; per step "
+        f"K1 {k1:g}, K9 {k9:g}; trained leaves changed {moved}, unchanged at 1.0 "
+        f"{len(ones)}, otherwise unchanged {still or 'none'}; frozen leaves and slices "
+        f"identical {frozen_ok}")
+    require(all(np.isfinite(losses)) and (steps < 3 or losses[2] < losses[0])
+            and frozen_ok and not still and moved > 0 and k9 == k9_per_step,
+            f"train {name}: losses {losses}, frozen {frozen_ok}, unchanged {still}, "
+            f"K9 per step {k9}")
+    return params
+
+
+def check_grad_guard(params):
+    """project_logits (K3, no backward) refuses a hidden state that requires
+    grad under grad mode."""
+    from whisper_medusa_tpu_torch.models import whisper
+
+    x = torch.zeros((4, 1280), dtype=torch.bfloat16, device="cuda", requires_grad=True)
+    try:
+        whisper.project_logits(params["whisper"], x)
+    except RuntimeError as e:
+        require("no backward" in str(e), f"guard: {e}")
+        log(f"guard: project_logits on a hidden state that requires grad raises: {e}")
+        return
+    raise AssertionError("project_logits accepted a hidden state that requires grad")
+
+
+def check_cli():
+    """The training CLI in-process, on a temporary CSV of generated WAV
+    files, at --whisper-size base (the smallest preset whose width K2, K4
+    and head_rows take: d_model a multiple of 256), bf16, 2 steps, a
+    checkpoint every step; its model_components/ loads through
+    from_pretrained and answers a generate."""
+    import tempfile
+    import wave
+
+    from whisper_medusa_tpu_torch.cli import train as cli
+    from whisper_medusa_tpu_torch.data.tokenizer import CharTokenizer
+    from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+    from whisper_medusa_tpu_torch.processor import WhisperMedusaProcessor
+
+    with tempfile.TemporaryDirectory(prefix="wm_smoke_cli_") as tmp:
+        waves = waveforms((3.0, 5.5, 4.0, 7.0))
+        rows = ["audio,sentence,language"]
+        for i, w in enumerate(waves):
+            path = os.path.join(tmp, f"{i}.wav")
+            with wave.open(path, "wb") as f:
+                f.setnchannels(1)
+                f.setsampwidth(2)
+                f.setframerate(16000)
+                f.writeframes((np.clip(w, -1, 1) * 32767).astype(np.int16).tobytes())
+            rows.append(f"{path},utterance number {i},en")
+        data = os.path.join(tmp, "data.csv")
+        with open(data, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        out = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        summary = cli.main(["--train-data-path", data, "--validation-data-path", data,
+                            "--output-path", out, "--whisper-size", "base",
+                            "--param-dtype", "bfloat16", "--max-steps", "2",
+                            "--save-steps", "1", "--eval-steps", "2", "--warmup-steps", "0",
+                            "--batch-size", "2"])
+        cli_s = time.perf_counter() - t0
+        saved = sorted(os.listdir(os.path.join(out, "checkpoints")))
+        model = WhisperMedusaModel.from_pretrained(os.path.join(out, "model_components"))
+        proc = WhisperMedusaProcessor(tokenizer=CharTokenizer())
+        res = model.generate(proc(waves[0]), language="en", max_new_tokens=16)
+    n_gen = int(res.lengths[0]) - PROMPT_LEN
+    log(f"cli.train.main (base, bf16, 2 steps): {cli_s:.1f} s, {summary}; checkpoints "
+        f"{saved}; model_components loaded and generated {n_gen} tokens "
+        f"{res.sequences[0, :PROMPT_LEN + n_gen].tolist()}")
+    require(summary["final_step"] == 2 and "trainer_state.json" in saved and n_gen >= 1
+            and np.isfinite(res.token_logprobs).all(), "cli train / load / generate")
+
+
 def main():
     smi = phase_env()
     phase_build()
@@ -1225,6 +1518,21 @@ def main():
     check_batch_invariance(bmodel, enc8, ("medusa_block",))
     check_batch_invariance(bqmodel, enc8, ("medusa_block",))
     report_generate_invariance(model, feats8, outs["medusa B=8"])
+
+    # ---- phase 7: training (K9), on fresh models after the serving ones go
+    check_grad_guard(model.params)
+    del model, qmodel, bmodel, bqmodel, outs, qouts, bouts, bqouts, enc1, enc8
+    torch.cuda.empty_cache()
+    kernels += check_attention_bwd(g)
+    for variant, policy in (("medusa_block", "whisper"), ("base_head", "all_but_last")):
+        check_train_2layer(variant, policy, feats[0])
+    for run in TRAIN_RUNS:
+        train_run(kernels, *run, feats8[:TRAIN_B])
+        torch.cuda.empty_cache()
+    check_cli()
+    for k in kernels:
+        if k["name"].startswith("attention"):
+            log(f"launches {k['name']} (all main paths, training included): {k['launches']}")
 
     rows = [{"name": k["name"], "route": "cuda", "source": k["source"],
              "replaces": k["replaces"], "launches": k["launches"],

@@ -107,11 +107,15 @@ def test_block_from_random_mirrors_jax_init():
     for (k, a), (_, b) in zip(_leaves(med["block"]), _leaves(_last(layers))):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
     assert med["block"]["fc1_w"].data_ptr() != layers["fc1_w"][-1].data_ptr()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        TModel.from_random(tconfig.ModelConfig(
-            dims=cfg.dims, medusa=tconfig.MedusaConfig(
-                medusa_num_heads=3, medusa_hidden_size=32,
-                medusa_choices=(1, 1, 1, 1), output_whisper_original=True)), device="cpu")
+    # output_whisper_original (training's frozen teacher) adds teacher_layer,
+    # another copy of the last decoder layer, as the JAX initializer does.
+    tt = TModel.from_random(tconfig.ModelConfig(
+        dims=cfg.dims, medusa=tconfig.MedusaConfig(
+            medusa_num_heads=3, medusa_hidden_size=32,
+            medusa_choices=(1, 1, 1, 1), output_whisper_original=True)), device="cpu")
+    teacher, tlayers = tt.params["medusa"]["teacher_layer"], tt.params["whisper"]["decoder"]["layers"]
+    for (k, a), (_, b) in zip(_leaves(teacher), _leaves(_last(tlayers))):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
 
 
 def _last(tree):

@@ -40,15 +40,19 @@ def _chip_smoke_imports():
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    assert {"whisper_medusa_tpu_torch.models.api", "whisper_medusa_tpu_torch.ops.qmm"} <= set(mods)
-    assert len(mods) >= 20
+    assert {"whisper_medusa_tpu_torch.models.api", "whisper_medusa_tpu_torch.ops.qmm",
+            "whisper_medusa_tpu_torch.training.train", "whisper_medusa_tpu_torch.training.optim",
+            "whisper_medusa_tpu_torch.training.trainer", "whisper_medusa_tpu_torch.cli.train",
+            "whisper_medusa_tpu_torch.data.dataset"} <= set(mods)
+    assert len(mods) >= 30
     smoke = _chip_smoke_imports()
     assert "whisper_medusa_tpu_torch.models.api" in smoke
     code = ("import importlib, sys\n"
             f"for m in {mods + smoke!r}: importlib.import_module(m)\n"
             "import chip_smoke\n"
-            "bad = sorted(m for m in sys.modules if m in ('jax', 'whisper_medusa_tpu')\n"
-            "             or m.startswith(('jax.', 'whisper_medusa_tpu.')))\n"
+            "top = ('jax', 'optax', 'orbax', 'pandas', 'whisper_medusa_tpu')\n"
+            "bad = sorted(m for m in sys.modules if m in top\n"
+            "             or m.startswith(tuple(t + '.' for t in top)))\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -135,3 +139,38 @@ def test_mel_kernel_raises_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         mel_fused.mel_kernel(audio)
     assert mel_fused.launches == 0
+
+
+def test_forward_only_kernels_refuse_grad():
+    """A kernel without a backward refuses an operand that requires grad
+    under grad mode (its output would carry no gradient), before any device
+    check; under no_grad, or on tensors that do not require grad, the usual
+    checks apply."""
+    from whisper_medusa_tpu_torch.ops import logits, verify
+
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, requires_grad=True)
+    embed = torch.zeros((128, 64), dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        logits.project_kernel(x, embed)
+    with pytest.raises(RuntimeError, match="no backward"):
+        verify.head_rows_kernel(x, torch.zeros((1, 64, 64), dtype=torch.bfloat16),
+                                torch.zeros((1, 64), dtype=torch.bfloat16))
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        logits.project_kernel(x, embed)
+
+
+def test_training_on_cuda_takes_bf16():
+    """f32 parameters on a CUDA device raise NotImplementedError naming the
+    ROADMAP item, before anything runs (checked on the leaves' devices)."""
+    from whisper_medusa_tpu_torch.training import train as TT
+
+    class FakeCuda:
+        is_cuda, dtype = True, torch.float32
+        device = "cuda:0"
+
+        def is_floating_point(self):
+            return True
+
+    with pytest.raises(NotImplementedError, match="f32 modes of K1 and K9"):
+        TT.require_trainable_dtype({"w": FakeCuda()})
+    TT.require_trainable_dtype({"w": torch.zeros(2)})        # CPU f32 trains

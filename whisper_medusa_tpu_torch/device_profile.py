@@ -1,10 +1,10 @@
 """Where the device time goes, on one CUDA card.
 
-    python -m whisper_medusa_tpu_torch.device_profile
+    python -m whisper_medusa_tpu_torch.device_profile [--part serving|train|all]
 
-Four parts, all at full whisper-large-v2 width with bf16 weights drawn from
+Five parts, all at full whisper-large-v2 width with bf16 weights drawn from
 a seed, and the same again on ``model.quantize()`` (int8 serving) for parts
-2 and 4:
+2 and 4 (``--part serving`` runs parts 1-4, ``--part train`` part 5):
 
   1. the log-mel frontend at B=1 and B=8 on seeded noise, the default plain
      PyTorch path and the fused kernel K8: device time by kernel beside the
@@ -21,7 +21,12 @@ a seed, and the same again on ``model.quantize()`` (int8 serving) for parts
      Medusa-Block at B=1 and B=8, bf16 and int8.  For each, the wall time
      without the profiler, then the device time by kernel under it, and the
      device's idle share: 1 - (device time) / (wall time without the
-     profiler).
+     profiler);
+  5. training at B=2, T=224 (seeded features and labels, Adafactor, remat
+     off): one step of the Medusa-Block recipe and one full fine-tune step
+     of base_head, each after a warm-up step: the wall time of a step
+     without the profiler, the device time by kernel of the next (K1, K9,
+     cuBLAS, the elementwise kernels), the idle share and the peak memory.
 
 Kernels are listed by name without their template arguments, so PyTorch's
 elementwise kernels of one kind share a line.  The Medusa heads, and the
@@ -215,16 +220,61 @@ def profile_requests(model, mode, paths=(("medusa", {}),
             print(f"  device idle share {1 - total / 1e3 / wall_ms:.3f}")
 
 
-def main():
+def profile_training(b=2, t=224):
+    """Part 5: one Medusa-Block recipe step (parts_to_freeze="whisper") and
+    one full fine-tune step of base_head, each timed and profiled after a
+    warm-up step on the same batch."""
+    from whisper_medusa_tpu_torch.config import WHISPER_PRESETS, MedusaConfig, ModelConfig
+    from whisper_medusa_tpu_torch.models import bridge
+    from whisper_medusa_tpu_torch.training import train as TT
+
+    rng = np.random.default_rng(SEED)
+    dims = WHISPER_PRESETS["large-v2"]
+    feats = torch.from_numpy(rng.standard_normal(
+        (b, dims.num_mel_bins, dims.num_frames)).astype(np.float32)).cuda()
+    labels = rng.integers(0, 50257, size=(b, t))
+    for name, variant, policy in (("Medusa-Block recipe", "medusa_block", "whisper"),
+                                  ("full fine-tune", "base_head", None)):
+        cfg = ModelConfig(dims=dims, medusa=MedusaConfig(medusa_heads_type=variant),
+                          param_dtype="bfloat16", compute_dtype="bfloat16")
+        params = bridge.from_random(cfg, seed=SEED, device="cuda")
+        opt = TT.make_optimizer("adafactor", lr=1e-3, warmup_steps=0, schedule="constant")
+        state = TT.init_train_state(params, opt)
+        step = TT.make_train_step(cfg, opt, policy, remat=False)
+        run = lambda: step(state, feats, labels)
+        torch.cuda.reset_peak_memory_stats()
+        run()                                                 # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        total = _table(f"train step, {name} ({variant}, parts_to_freeze={policy}), B={b} "
+                       f"T={t}", _by_kernel(run), f" (wall without the profiler {wall_ms:.1f} ms)")
+        print(f"  device idle share {1 - total / 1e3 / wall_ms:.3f}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del params, state, step, run
+        torch.cuda.empty_cache()
+
+
+def main(argv=None):
+    import argparse
+
     from whisper_medusa_tpu_torch.config import WHISPER_PRESETS, MedusaConfig, ModelConfig
     from whisper_medusa_tpu_torch.models import bridge
     from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
 
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--part", choices=("all", "serving", "train"), default="all")
+    part = parser.parse_args(argv).part
     if not torch.cuda.is_available():
         raise SystemExit("device_profile needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(f"gpu: {smi.stdout.strip()}; torch {torch.__version__}")
+    if part == "train":
+        profile_training()
+        return
     cfg = ModelConfig(dims=WHISPER_PRESETS["large-v2"], medusa=MedusaConfig(),
                       param_dtype="bfloat16", compute_dtype="bfloat16")
     model = WhisperMedusaModel.from_random(cfg, seed=SEED)
@@ -244,6 +294,10 @@ def main():
         profile_requests(m, mode)
     for m, mode in ((bmodel, "bf16"), (bqmodel, "int8")):
         profile_requests(m, mode, (("medusa_block", {}),))
+    if part == "all":
+        del model, qmodel, bmodel, bqmodel
+        torch.cuda.empty_cache()
+        profile_training()
 
 
 if __name__ == "__main__":

@@ -131,6 +131,30 @@ class WhisperMedusaModel:
                                   generation_config=self.generation_config,
                                   special_tokens=self.special)
 
+    def save_pretrained(self, path: str) -> None:
+        """Write the framework checkpoint format the JAX package reads
+        (``config.json``, ``generation_config.json`` with ``special_tokens``,
+        ``params.safetensors`` with ``/``-joined keys), so a checkpoint
+        trained here loads there, and the other way round.  int8 serving
+        copies are not saved (the JAX package saves bf16 or f32 weights)."""
+        import json
+        import os
+
+        from safetensors.torch import save_file
+
+        flat = bridge.flatten(self.params)
+        if any(k.endswith(("/q", "/s")) for k in flat):
+            raise ValueError("save_pretrained saves bf16/f32 weights, not the int8 "
+                             "serving copy")
+        os.makedirs(path, exist_ok=True)
+        self.config.save(path)
+        gd = self.generation_config.to_dict()
+        gd["special_tokens"] = dataclasses.asdict(self.special)
+        with open(os.path.join(path, "generation_config.json"), "w") as f:
+            json.dump(gd, f, indent=2)
+        save_file({k: v.detach().contiguous().cpu() for k, v in flat.items()},
+                  os.path.join(path, "params.safetensors"))
+
     # ----------------------------------------------------------------- encoding
     def encode(self, input_features) -> torch.Tensor:
         feats = torch.as_tensor(input_features, dtype=torch.float32,

@@ -14,7 +14,9 @@ reshape:
     ``medusa/block/...`` for the Medusa-Block layer).
 
 A Medusa-Block model's ``medusa`` tree holds ``heads`` (``medusa_num_heads``
-heads, all drafting) and ``block``, one unstacked decoder layer.
+heads, all drafting) and ``block``, one unstacked decoder layer; a model
+made with ``output_whisper_original`` also holds ``teacher_layer``.
+:func:`flatten` gives the checkpoint's ``/``-joined keys (``save_pretrained``).
 """
 
 from __future__ import annotations
@@ -142,13 +144,10 @@ def init_medusa_params(config: ModelConfig, whisper_params: Params,
     ``medusa_num_heads`` heads (+1, the base head, for ``base_head``) with
     zero weights and U(-1/sqrt(D), 1/sqrt(D)) biases drawn from
     ``generator``; for ``medusa_block`` also ``block``, a copy of the last
-    decoder layer."""
+    decoder layer, and with ``output_whisper_original`` ``teacher_layer``,
+    another such copy that training keeps frozen."""
     med = config.medusa
     d = config.dims.d_model
-    if med.output_whisper_original:
-        raise NotImplementedError(
-            "output_whisper_original (the teacher layer) is a training option, not "
-            "ported yet (ROADMAP queue 1, item 16: training)")
     if med.medusa_hidden_size != d:
         raise ValueError("medusa_hidden_size must equal d_model")
     n_heads = med.medusa_num_heads + (1 if med.medusa_heads_type == "base_head" else 0)
@@ -161,6 +160,10 @@ def init_medusa_params(config: ModelConfig, whisper_params: Params,
                         "b": bias.to(dtype)}}
     if med.medusa_heads_type == "medusa_block":
         medusa["block"] = _last_layer(whisper_params["decoder"]["layers"], dtype)
+    if med.output_whisper_original:
+        # The frozen teacher: the last decoder layer's original weights,
+        # replayed on the penultimate hidden state for the KL target.
+        medusa["teacher_layer"] = _last_layer(whisper_params["decoder"]["layers"], dtype)
     return medusa
 
 
@@ -214,6 +217,18 @@ def random_block_model(model, seed: int):
 def _last_layer(stacked: Params, dtype) -> Params:
     return {k: _last_layer(v, dtype) if isinstance(v, dict) else v[-1].to(dtype).clone()
             for k, v in stacked.items()}
+
+
+def flatten(tree: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Nested parameter dict -> {"a/b/c": tensor}, the checkpoint keys."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(flatten(v, key))
+        else:
+            out[key] = v
+    return out
 
 
 def _unflatten(flat: Dict[str, torch.Tensor]) -> Params:

@@ -7,6 +7,9 @@ All heads live in one stacked tensor ``w`` (n_heads, n_layers, D, D) stored
 n_layers, D)}`` and a layer is ``x + SiLU((x @ bf16(q)) * s + b)``.
 Initialization lives in models/bridge.py::init_medusa_params, which also
 makes the Medusa-Block variant's ``block`` layer (run by K2, not here).
+
+:func:`apply_heads` serves (K4's stage A on CUDA, no backward);
+:func:`apply_heads_train` is the differentiable stack training runs.
 """
 
 from __future__ import annotations
@@ -40,4 +43,19 @@ def apply_heads(medusa_params: Params, x: torch.Tensor) -> torch.Tensor:
     for layer in range(1, n_layers):
         h = torch.stack([verify_mod.head_rows(h[k], *layer_of((slice(k, k + 1), layer)))[0]
                          for k in range(n_heads)])
+    return h.reshape((n_heads,) + tuple(x.shape))
+
+
+def apply_heads_train(medusa_params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable head stack for training, as JAX ``apply_heads`` runs
+    it: x (..., D) -> (n_heads, ..., D); per layer ``h + SiLU(h @ W + b)``
+    with the product and the bias in float32 (exact products of bf16
+    operands), the SiLU branch rounded once to ``x.dtype``."""
+    w = medusa_params["heads"]["w"]                     # (H, L, D, D)
+    b = medusa_params["heads"]["b"]                     # (H, L, D)
+    n_heads, n_layers, d = w.shape[0], w.shape[1], w.shape[-1]
+    h = x.reshape(1, -1, d).expand(n_heads, -1, -1)     # (H, M, D)
+    for layer in range(n_layers):
+        pre = torch.bmm(h.float(), w[:, layer].float()) + b[:, layer, None].float()
+        h = h + torch.nn.functional.silu(pre).to(h.dtype)
     return h.reshape((n_heads,) + tuple(x.shape))

@@ -150,6 +150,18 @@ def self_attn_full(lp: Params, x: torch.Tensor, num_heads: int, causal: bool,
     return _out_proj_bhsd(out, lp["o_w"], lp["o_b"], num_heads)
 
 
+def cross_attn_full(lp: Params, x: torch.Tensor, enc: torch.Tensor,
+                    num_heads: int) -> torch.Tensor:
+    """Teacher-forced cross-attention, T queries against the unpadded
+    encoder frames (K1, and K9 in the backward, take the ragged 1500)."""
+    head_dim = x.shape[-1] // num_heads
+    q = _proj_bhsd(x, lp["q_w"], lp["q_b"], num_heads) * (head_dim ** -0.5)
+    k = _proj_bhsd(enc, lp["k_w"], None, num_heads)
+    v = _proj_bhsd(enc, lp["v_w"], lp["v_b"], num_heads)
+    out = attn_mod.full_attention_bhsd(q, k, v, causal=False)
+    return _out_proj_bhsd(out, lp["o_w"], lp["o_b"], num_heads)
+
+
 def ffn(lp: Params, x: torch.Tensor) -> torch.Tensor:
     h = gelu_mod.gelu(dense(x, lp["fc1_w"], lp["fc1_b"]))
     return dense(h, lp["fc2_w"], lp["fc2_b"])
@@ -183,20 +195,64 @@ def conv1d_stem(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return gelu_mod.gelu(y.to(x.dtype))
 
 
-def encode(params: Params, dims: WhisperDims, mel: torch.Tensor) -> torch.Tensor:
-    """mel (B, num_mel_bins, num_frames) -> (B, max_source_positions, D)."""
+# ---------------------------------------------------------------------------
+# Rematerialization (training)
+# ---------------------------------------------------------------------------
+
+def _checkpointed(fn):
+    """``fn`` under ``torch.utils.checkpoint`` when a graph is being built."""
+    def run(*args):
+        if torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+    return run
+
+
+def _remat_plan(remat):
+    """(layer wrapper, residual-branch wrapper) for a JAX ``remat`` name.
+
+    The names change memory, never numbers.  ``False``/``None`` keeps every
+    activation; ``True``/``"full"`` checkpoints each layer (its input is
+    kept, the rest recomputed in the backward); ``"attn"`` checkpoints each
+    residual branch (self-attention, cross-attention, FFN) on its own, so the
+    residual stream at every attention output is kept and only the insides
+    of the branches are recomputed.  ``"dots"`` names an XLA save policy."""
+    keep = lambda fn: fn
+    if remat in (False, None):
+        return keep, keep
+    if remat in (True, "full"):
+        return _checkpointed, keep
+    if remat == "attn":
+        return keep, _checkpointed
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (XLA's dots_with_no_batch_dims_saveable policy) is not "
+            "ported to whisper_medusa_tpu_torch (ROADMAP queue 1, item 20: remat 'dots')")
+    raise ValueError(f"remat={remat!r}: expected bool, 'full', 'dots' or 'attn'")
+
+
+def _encoder_layer(lp: Params, x: torch.Tensor, nh: int, branch) -> torch.Tensor:
+    x = x + branch(lambda h: self_attn_full(lp["self"], layer_norm(
+        h, lp["self_ln"]["scale"], lp["self_ln"]["bias"]), nh, causal=False))(x)
+    return x + branch(lambda h: ffn(lp, layer_norm(
+        h, lp["ffn_ln"]["scale"], lp["ffn_ln"]["bias"])))(x)
+
+
+def encode(params: Params, dims: WhisperDims, mel: torch.Tensor,
+           remat=False) -> torch.Tensor:
+    """mel (B, num_mel_bins, num_frames) -> (B, max_source_positions, D).
+
+    ``remat`` (training) takes the JAX names; see :func:`_remat_plan`."""
     enc = params["encoder"]
     x = mel.transpose(1, 2).to(enc["conv1_w"].dtype)
     x = conv1d_stem(x, enc["conv1_w"], enc["conv1_b"], stride=1)
     x = conv1d_stem(x, enc["conv2_w"], enc["conv2_b"], stride=2)
     x = x + enc["pos_embed"][None, :x.shape[1]]
     nh = dims.encoder_attention_heads
+    layer, branch = _remat_plan(remat)
     for i in range(dims.encoder_layers):
         lp = layer_params(enc["layers"], i)
-        a = self_attn_full(lp["self"], layer_norm(
-            x, lp["self_ln"]["scale"], lp["self_ln"]["bias"]), nh, causal=False)
-        x = x + a
-        x = x + ffn(lp, layer_norm(x, lp["ffn_ln"]["scale"], lp["ffn_ln"]["bias"]))
+        x = layer(lambda h, lp=lp: _encoder_layer(lp, h, nh, branch))(x)
     return layer_norm(x, enc["ln_post"]["scale"], enc["ln_post"]["bias"])
 
 
@@ -393,6 +449,7 @@ class DecoderOutput:
     hidden: torch.Tensor      # (B, T, D) after the final layer norm
     pre_norm: torch.Tensor    # (B, T, D) before it
     block_hidden: Optional[torch.Tensor] = None   # (B, T, D) Medusa-Block layer output
+    penultimate: Optional[torch.Tensor] = None    # (B, T, D) input to the last layer
 
 
 def decode_step(params: Params, dims: WhisperDims, tokens: torch.Tensor,
@@ -424,6 +481,72 @@ def decode_step(params: Params, dims: WhisperDims, tokens: torch.Tensor,
         num_heads=dims.decoder_attention_heads, cross_k_s=cache.cross_k_s,
         cross_v_s=cache.cross_v_s, self_s=cache.self_s, block=block)
     return DecoderOutput(hidden=hidden, pre_norm=pre_norm, block_hidden=block_hidden)
+
+
+# ---------------------------------------------------------------------------
+# Decoder — teacher-forced (training)
+# ---------------------------------------------------------------------------
+
+def decoder_layer_full(lp: Params, x: torch.Tensor, enc_out: torch.Tensor,
+                       num_heads: int, branch=lambda fn: fn) -> torch.Tensor:
+    """One full-sequence decoder layer (causal self + cross + FFN): the
+    Medusa-Block layer, the frozen teacher replay and each layer of
+    :func:`decode_train`.  ``branch`` wraps each residual branch (remat)."""
+    h = x + branch(lambda y: self_attn_full(lp["self"], layer_norm(
+        y, lp["self_ln"]["scale"], lp["self_ln"]["bias"]), num_heads, causal=True))(x)
+    h = h + branch(lambda y: cross_attn_full(lp["cross"], layer_norm(
+        y, lp["cross_ln"]["scale"], lp["cross_ln"]["bias"]), enc_out, num_heads))(h)
+    return h + branch(lambda y: ffn(lp, layer_norm(
+        y, lp["ffn_ln"]["scale"], lp["ffn_ln"]["bias"])))(h)
+
+
+def decode_train(params: Params, dims: WhisperDims, tokens: torch.Tensor,
+                 enc_out: torch.Tensor, collect_penultimate: bool = False,
+                 remat=False, grad_last_only: bool = False) -> DecoderOutput:
+    """Teacher-forced decoder pass over a full token sequence (B, T).
+
+    Token ids are clamped into the vocabulary, as JAX's gather does (the
+    start id 50258 lies past a test vocabulary), and such a clamped row
+    gets no gradient, as in JAX.  ``collect_penultimate``
+    gives the hidden state entering the last layer (the teacher replay's
+    input).  ``grad_last_only`` (the ``all_but_last`` policy) runs the
+    embedding and layers 0..L-2 under ``torch.no_grad()`` and the last layer
+    on the live slice of the stacked leaves, whose gradient is then zero in
+    the frozen slices.  ``remat``: see :func:`_remat_plan`."""
+    dec = params["decoder"]
+    nh = dims.decoder_attention_heads
+    t = tokens.shape[1]
+    nl = dims.decoder_layers
+    vocab = dec["embed_tokens"].shape[0]
+    tokens = tokens.long()
+    layer, branch = _remat_plan(False if grad_last_only else remat)
+
+    def layer_fn(i):
+        lp = layer_params(dec["layers"], i)
+        return layer(lambda h: decoder_layer_full(lp, h, enc_out, nh, branch))
+
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not grad_last_only):
+        # JAX's gather clamps an out-of-range id in the forward and its
+        # transpose drops that row's gradient; so do these two lines.
+        rows = embed_lookup(dec["embed_tokens"], tokens.clamp(0, vocab - 1))
+        rows = torch.where(((tokens >= 0) & (tokens < vocab))[..., None], rows, rows.detach())
+        x = rows + dec["pos_embed"][None, :t]
+        for i in range(nl - 1):
+            x = layer_fn(i)(x)
+    penult = x
+    x = layer_fn(nl - 1)(x)
+    hidden = layer_norm(x, dec["ln_post"]["scale"], dec["ln_post"]["bias"])
+    return DecoderOutput(hidden=hidden, pre_norm=x,
+                         penultimate=penult if collect_penultimate else None)
+
+
+def project_logits_train(params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    """Differentiable vocab projection for training: ``hidden @ embed.T`` in
+    float32 through ``torch.matmul`` (exact products of bf16 operands, f32
+    sums — the JAX ``preferred_element_type=f32`` product).  Unlike
+    :func:`project_logits` (K3 / K7, serving) it has a backward."""
+    w = params["decoder"]["embed_tokens"]
+    return torch.matmul(hidden.float(), w.float().t())
 
 
 def project_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:

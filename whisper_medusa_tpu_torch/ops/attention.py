@@ -1,6 +1,7 @@
-"""Full-sequence attention in (B, H, S, Dh) layout — kernel K1.
+"""Full-sequence attention in (B, H, S, Dh) layout — kernel K1 and its
+backward, kernel K9.
 
-Replaces the TPU kernel ``whisper_medusa_tpu/ops/attention.py::_attention_kernel``
+K1 replaces the TPU kernel ``whisper_medusa_tpu/ops/attention.py::_attention_kernel``
 (launched by ``_attention_pallas``), which keeps a whole head's K/V resident in
 VMEM and runs a one-pass softmax.  That design does not carry over: 1536 x 64
 bf16 K plus V is 384 KB, more than an SM's 227 KB of shared memory.
@@ -13,10 +14,17 @@ the ragged sequence edge itself, so the encoder runs its 1500 frames unpadded.
 At the encoder's shapes (B=1, H=20, S=1500, Dh=64) it is bound by tensor-core
 throughput and the softmax's exp/shuffle work, not by bytes (11.5 GFLOP against
 15 MB of q/k/v/out per layer).
+
+K9 replaces ``_attention_bwd_kernel`` (launched by ``_attention_bwd_pallas``),
+the training backward: three kernels behind one C entry (row statistics, then
+dK/dV per key block, then dQ per query block; ``csrc/attention.cu`` says
+why).  :class:`AttentionFn` ties the two together for autograd; serving never
+builds a graph and calls K1 as before.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
@@ -25,7 +33,25 @@ from whisper_medusa_tpu_torch.ops import cuda_lib
 
 NEG_BIG = -0.7 * torch.finfo(torch.float32).max
 
-launches = 0     # kernel launches (not plain-version calls)
+launches = 0     # K1 launches (not plain-version calls)
+launches_bwd = collections.Counter()   # K9 launches by (Sq, Skv, causal)
+
+
+def _scores_mask(q, k, kv_len: int, causal: bool) -> torch.Tensor:
+    col = torch.arange(k.shape[2], device=q.device)
+    mask = col[None, :] < kv_len
+    if causal:
+        row = torch.arange(q.shape[2], device=q.device)
+        mask = mask & (col[None, :] <= row[:, None])
+    return mask
+
+
+def _probs(q, k, kv_len: int, causal: bool) -> torch.Tensor:
+    """f32 softmax of the masked f32 scores."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = torch.where(_scores_mask(q, k, kv_len, causal), s,
+                    torch.tensor(NEG_BIG, device=q.device))
+    return torch.softmax(s, dim=-1)
 
 
 def attention_plain(q, k, v, kv_len: int, causal: bool) -> torch.Tensor:
@@ -33,29 +59,44 @@ def attention_plain(q, k, v, kv_len: int, causal: bool) -> torch.Tensor:
 
     Mirrors ``_attention_xla``: f32 scores, masked to NEG_BIG, softmax, the
     probabilities cast to the value dtype before PV with f32 accumulation."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-    col = torch.arange(k.shape[2], device=q.device)
-    mask = col[None, :] < kv_len
-    if causal:
-        row = torch.arange(q.shape[2], device=q.device)
-        mask = mask & (col[None, :] <= row[:, None])
-    s = torch.where(mask, s, torch.tensor(NEG_BIG, device=q.device))
-    p = torch.softmax(s, dim=-1)
+    p = _probs(q, k, kv_len, causal)
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
     return o.to(v.dtype)
+
+
+def attention_bwd_plain(q, k, v, g, kv_len: int, causal: bool):
+    """Plain PyTorch version of K9: (dq, dk, dv) for upstream ``g``.
+
+    The arithmetic of ``_attention_bwd_kernel``: f32 scores and P, dP = dO V^T
+    and dsum = sum P * dP in f32, dS = P (dP - dsum) cast to the input dtype
+    before both of its products, P cast to dO's dtype for dV, every product
+    accumulated in f32."""
+    p = _probs(q, k, kv_len, causal)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g.float(), v.float())
+    dsum = (p * dp).sum(-1, keepdim=True)
+    ds = (p * (dp - dsum)).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()).to(q.dtype)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()).to(k.dtype)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(g.dtype).float(), g.float()).to(v.dtype)
+    return dq, dk, dv
+
+
+def _check_shapes(name, q, k, v, kv_len):
+    b, h, sq, dh = q.shape
+    skv = k.shape[2]
+    if dh != 64 or k.shape != (b, h, skv, dh) or v.shape != k.shape:
+        raise ValueError(f"{name} kernel takes Dh=64 and matching K/V, got "
+                         f"q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if not 1 <= kv_len <= skv:
+        raise ValueError(f"kv_len {kv_len} outside [1, {skv}]")
+    return b, h, sq, skv, dh
 
 
 def attention_kernel(q, k, v, kv_len: int, causal: bool) -> torch.Tensor:
     """Launch K1.  q: (B, H, Sq, 64), k/v: (B, H, Skv, 64), bf16, contiguous."""
     global launches
     cuda_lib.require_cuda("attention", q, k, v)
-    b, h, sq, dh = q.shape
-    skv = k.shape[2]
-    if dh != 64 or k.shape != (b, h, skv, dh) or v.shape != k.shape:
-        raise ValueError(f"attention kernel takes Dh=64 and matching K/V, got "
-                         f"q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if not 1 <= kv_len <= skv:
-        raise ValueError(f"kv_len {kv_len} outside [1, {skv}]")
+    b, h, sq, skv, dh = _check_shapes("attention", q, k, v, kv_len)
     out = torch.empty_like(q)
     cuda_lib.launch("wm_attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), out.data_ptr(), b, h, sq, skv, dh, kv_len,
@@ -64,13 +105,59 @@ def attention_kernel(q, k, v, kv_len: int, causal: bool) -> torch.Tensor:
     return out
 
 
+def attention_bwd_kernel(q, k, v, g, kv_len: int, causal: bool):
+    """Launch K9.  q, g: (B, H, Sq, 64), k/v: (B, H, Skv, 64), bf16,
+    contiguous; returns (dq, dk, dv), bf16."""
+    cuda_lib.require_cuda("attention_bwd", q, k, v, g)
+    b, h, sq, skv, dh = _check_shapes("attention_bwd", q, k, v, kv_len)
+    if g.shape != q.shape:
+        raise ValueError(f"attention_bwd: dO {tuple(g.shape)} != q {tuple(q.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # Scratch: per-row max, 1 / sum and dsum of the softmax, f32.
+    stats = torch.empty((3, b, h, sq), dtype=torch.float32, device=q.device)
+    cuda_lib.launch("wm_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), stats.data_ptr(), b, h, sq, skv, dh, kv_len,
+                    int(causal))
+    launches_bwd[(sq, skv, bool(causal))] += 1
+    return dq, dk, dv
+
+
+class AttentionFn(torch.autograd.Function):
+    """Differentiable attention: K1 forward and K9 backward on CUDA tensors,
+    the plain versions on CPU tensors.  Saves q, k and v, never P."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len: int, causal: bool):
+        q, k, v = (t.detach().contiguous() for t in (q, k, v))
+        ctx.save_for_backward(q, k, v)
+        ctx.kv_len, ctx.causal = kv_len, causal
+        if q.is_cuda:
+            return attention_kernel(q, k, v, kv_len, causal)
+        return attention_plain(q, k, v, kv_len, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        g = g.detach().to(q.dtype).contiguous()
+        if q.is_cuda:
+            grads = attention_bwd_kernel(q, k, v, g, ctx.kv_len, ctx.causal)
+        else:
+            grads = attention_bwd_plain(q, k, v, g, ctx.kv_len, ctx.causal)
+        return (*grads, None, None)
+
+
 def full_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_len: Optional[int] = None,
                         causal: bool = False) -> torch.Tensor:
     """Attention over (B, H, S, Dh) tensors, q pre-scaled.
 
-    CUDA tensors launch K1; CPU tensors take the plain version."""
+    Under grad mode with an input that requires grad it goes through
+    :class:`AttentionFn` (K1 and K9 on CUDA).  Otherwise CUDA tensors launch
+    K1 and CPU tensors take the plain version."""
     kv_len = k.shape[2] if kv_len is None else kv_len
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return AttentionFn.apply(q, k, v, kv_len, causal)
     if q.is_cuda:
         return attention_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
                                 kv_len, causal)

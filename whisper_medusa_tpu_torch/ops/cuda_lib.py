@@ -41,6 +41,7 @@ _ints = ctypes.POINTER(ctypes.c_int)
 # C signatures of every entry (see csrc/*.cu).
 _SIGNATURES = {
     "wm_attention_fwd": [_vp] * 4 + [_ci] * 7 + [_vp],
+    "wm_attention_bwd": [_vp] * 8 + [_ci] * 7 + [_vp],
     "wm_megastep_step": [_ptrs, _ints, _vp],
     "wm_logits": [_vp] * 3 + [_ci] * 3 + [_vp],
     "wm_verify_hidden": [_ptrs, _ints, ctypes.c_float, _vp],
@@ -148,10 +149,19 @@ def launch(entry: str, device, *args) -> None:
 
 
 def require_cuda(name: str, *tensors, dtype=None, device=None) -> None:
-    """Shared wrapper checks: one CUDA device (``device``, else the first
-    operand's), ``dtype`` (default bf16), contiguous, 16-byte aligned."""
+    """Shared wrapper checks: no operand that requires grad under grad mode
+    (a kernel's output has no ``grad_fn``, so a loss built on it would lose
+    its gradient silently; K1 and K9 are reached through
+    ``ops/attention.py::AttentionFn``, which passes detached tensors), one
+    CUDA device (``device``, else the first operand's), ``dtype`` (default
+    bf16), contiguous, 16-byte aligned."""
     import torch
 
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an operand requires grad, but this kernel has no backward; "
+            "training calls the differentiable functions (project_logits_train, "
+            "apply_heads_train, full_attention_bhsd) or runs under torch.no_grad()")
     dtype = dtype or torch.bfloat16
     dev = device if device is not None else tensors[0].device
     for t in tensors:
