@@ -11,11 +11,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   3. hold each kernel against its plain PyTorch version at the shapes the
      paths give it, bf16 and int8 (K8 log_mel on the frontend's audio; the
      int8 modes of K2, K4, K5 and head_rows; K2's Medusa-Block mode and K4's
-     identity0 rows, bf16 and int8; K6 qmm and K7 qmm_nt), and time the
-     kernel, the plain version and, where one PyTorch call computes the same
-     function, that call, with CUDA events (3 warm-ups, median of 20); each
-     kernel's bound is computed from the bytes and operations of the same
-     call;
+     identity0 rows, bf16 and int8; K6 qmm and K7 qmm_nt; K10 decode
+     cross-attention, bf16 and int8, and K11 decode FFN at the per-op
+     step's B=16 shapes and off them; head_rows, K3, K5 and K7 past one
+     launch's rows, blocked), and time the kernel, the plain version and,
+     where one PyTorch call computes the same function, that call, with
+     CUDA events (3 warm-ups, median of 20); each kernel's bound is
+     computed from the bytes and operations of the same call; then the
+     per-op decoder step (cuBLAS or K6 projections, K10, K11) against K2 on
+     the same inputs and caches at (B, T) = (8, 11) and (8, 1), bf16 and
+     int8, 32 layers, cosine >= 0.9998, with both timed;
   4. the main paths at full whisper-large-v2 width with random bf16 weights,
      each driven with every launch counter set to 0 just before and read
      just after: three Medusa requests at B=1; one vanilla request
@@ -26,13 +31,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      Medusa-Block requests (10 heads and a block layer, sharing the Whisper
      weights) at B=1 and B=8, bf16 and int8, each from waveforms through
      ``WhisperMedusaProcessor(use_kernel=True)`` (K8) inside the driven run;
+     then requests of 16 waveforms, past K2's batch (the per-op step, K2 at
+     0 launches): base_head bf16 and int8, vanilla bf16, Medusa-Block bf16;
   5. the output is unchanged when every draft is corrupted, bf16 and int8,
-     base_head and Medusa-Block;
+     base_head and Medusa-Block, and bf16 base_head at B=16;
   6. decode batch invariance, bf16 and int8: speculative_generate at B=8
      gives every example exactly the tokens of its B=1 decode, for Medusa,
      vanilla and Medusa-Block (accepted counts are printed, not held equal);
-     whether generate at B=8 gives each example its B=1 tokens end to end is
-     printed, not required;
+     whether generate at B=8 gives each example its B=1 tokens end to end,
+     and whether the decode at B=16 (per-op step) gives each example its B=1
+     tokens (K2), are printed, not required;
   7. training: the grad guard (a kernel without a backward refuses an
      operand that requires grad); K9, the attention backward, against its
      plain version off the path and at the three training shapes (timed
@@ -484,7 +492,7 @@ def check_logits(g, embed):
     from whisper_medusa_tpu_torch.ops import logits as LG
 
     out = {}
-    for m in (1, 8, 10, 80):
+    for m in (1, 8, 10, 80, 160, 240):   # 160: pass B at B=16; 240: two launches
         x = torch.randn((m, embed.shape[1]), generator=g, device="cuda").to(torch.bfloat16)
         got = LG.project_kernel(x, embed)
         ref = LG.project_plain(x, embed)
@@ -610,9 +618,10 @@ def _tensors(w):
 
 def check_head_rows(g, model):
     """K4's stage A alone (wm_head_rows) at the shapes the loop gives it,
-    elementwise within 3e-2: head 0 at M = 88 (the two-pass loop's head-0
-    rows at B=8, 11 nodes), and the 10 draft heads at M = 8 (prefill and
-    pass B at B=8) and M = 1 (prefill at B=1)."""
+    elementwise within 3e-2: head 0 at M = 88 and 176 (the two-pass loop's
+    head-0 rows at B=8 and B=16, 11 nodes; 176 in two launches), and the 10
+    draft heads at M = 8 and 16 (prefill and pass B at B=8 and 16) and M = 1
+    (prefill at B=1)."""
     from whisper_medusa_tpu_torch.ops import qmm as QM
     from whisper_medusa_tpu_torch.ops import verify as VF
 
@@ -622,7 +631,8 @@ def check_head_rows(g, model):
     w, b = QM.wmap(heads["w"], lambda a: a[:, 0]), heads["b"][:, 0]
     d = model.config.dims.d_model
     err, timed = 0.0, None
-    for m, lo, hi in ((88, 0, 1), (8, 1, None), (1, 1, None)):
+    # M = 176: pass A at B=16, two launches of the blocked wrapper.
+    for m, lo, hi in ((88, 0, 1), (8, 1, None), (1, 1, None), (176, 0, 1), (16, 1, None)):
         hw, hb = QM.wmap(w, lambda a: a[lo:hi]), b[lo:hi]
         src = torch.randn((m, d), generator=g, device="cuda").to(torch.bfloat16)
         got = VF.head_rows_kernel(src, hw, hb)
@@ -645,9 +655,10 @@ def check_head_rows(g, model):
                          bound(nbytes(src, *_tensors(hw), hb, got), 2 * m * d * d), None)
 
 
-def check_verify_rows(g, model, sizes=(1, 8, 88, 1024)):
-    """K5 at R in ``sizes``: argmax equal on rows whose plain top-2 gap
-    exceeds 1e-2; max / lse / gathered as _stats_ok holds them."""
+def check_verify_rows(g, model, sizes=(1, 8, 16, 88, 176, 1024, 1100)):
+    """K5 at R in ``sizes`` (16 and 176: vanilla and pass A at B=16; 1100:
+    two launches of the blocked wrapper): argmax equal on rows whose plain
+    top-2 gap exceeds 1e-2; max / lse / gathered as _stats_ok holds them."""
     from whisper_medusa_tpu_torch.ops import verify as VF
 
     q = _int8(model)
@@ -709,13 +720,14 @@ def check_qmm(g, qmodel, enc):
 
 def check_qmm_nt(g, qmodel):
     """K7 at M = 1 and 8 (prefill base logits, B=1 and B=8), M = 10 (prefill
-    draft heads, B=1) and M = 80 (pass B, B=8): within 1e-3 of max |y|."""
+    draft heads, B=1), M = 80 and 160 (pass B, B=8 and 16) and M = 240 (two
+    launches of the blocked wrapper): within 1e-3 of max |y|."""
     from whisper_medusa_tpu_torch.ops import qmm as QM
 
     e = qmodel.params["whisper"]["decoder"]["embed_tokens"]
     eq, es = e["q"], e["s"]
     worst, xs = 0.0, {}
-    for m in (1, 8, 10, 80):
+    for m in (1, 8, 10, 80, 160, 240):   # 160: pass B at B=16; 240: two launches
         x = torch.randn((m, eq.shape[1]), generator=g, device="cuda").to(torch.bfloat16)
         got, ref = QM.qmm_nt_kernel(x, eq, es), QM.qmm_nt_plain(x, eq, es)
         err, tol = max_err(got, ref), 1e-3 * float(ref.abs().max())
@@ -733,6 +745,181 @@ def check_qmm_nt(g, qmodel):
                          "whisper_medusa_tpu/ops/qmm.py:90", (QM, "nt_launches"), worst,
                          ms, plain_ms, bound(nbytes(x, eq, es) + m * v * 4, 2 * m * v * d),
                          lib_ms)
+
+
+# K10 at the per-op step's shapes: (B, T, S, kv_len), on the path (B=16:
+# the Medusa chain, vanilla) and off it (kv_len < S, a ragged tail of four
+# keys, T=16, another S).
+CROSS_PATH = ((16, 11, 1500, 1500), (16, 1, 1500, 1500))
+CROSS_OFF = ((2, 5, 1500, 1000), (1, 4, 1500, 1497), (3, 16, 640, 640))
+DECODE_OPS_SOURCE = "whisper_medusa_tpu_torch/csrc/decode_ops.cu"
+
+
+def _cross_inputs(g, b, t, s, int8, h=20):
+    """q (B, H, T, 64) bf16 (pre-scaled), K (B, H, 64, S), V (B, S, H * 64):
+    bf16, or int8 with f32 (B, H, S) scales in the range K2's checks use."""
+    q = (torch.randn((b, h, t, 64), generator=g, device="cuda") * 0.125).to(torch.bfloat16)
+    if not int8:
+        rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        return q, rnd(b, h, 64, s), rnd(b, s, h * 64), None, None
+    i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                      dtype=torch.int8)
+    scl = lambda *shape: 0.004 + 0.012 * torch.rand(shape, generator=g, device="cuda")
+    return q, i8(b, h, 64, s), i8(b, s, h * 64), scl(b, h, s), scl(b, h, s)
+
+
+def check_cross_decode(g):
+    """K10 against its plain version, bf16 and int8, off the path and at the
+    per-op step's shapes: elementwise within 1e-2 + 1e-2 |x| (both round P
+    to bf16 and the output once; sums in another order may move a value one
+    bf16 step).  Timed at (16, 20, 11, 64) x 1500 against the plain version
+    and, bf16, SDPA on the same q with K and V re-laid to (B, H, S, 64)
+    before timing (scale 1.0, q is pre-scaled); T=1 kernel times printed."""
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    rows = []
+    for int8 in (False, True):
+        name = "cross_decode" + ("_int8" if int8 else "")
+        worst, timed = 0.0, {}
+        for b, t, s, kv in CROSS_OFF + CROSS_PATH:
+            q, k, v, ks, vs = _cross_inputs(g, b, t, s, int8)
+            got = DO.cross_attention_decode_kernel(q, k, v, kv, ks, vs)
+            ref = DO.cross_attention_decode_plain(q, k, v, kv, ks, vs)
+            err = max_err(got, ref)
+            log(f"K10 {name} ({b},20,{t},64) x {s} kv_len {kv}: max_abs_err {err:.3e}")
+            require(got.shape == ref.shape and close(got, ref, 1e-2),
+                    f"K10 {name} ({b},{t},{s},{kv}): err {err}")
+            worst = max(worst, err)
+            if (b, t, s, kv) in CROSS_PATH:
+                timed[t] = (q, k, v, ks, vs, ref)
+        q1, k1, v1, ks1, vs1 = timed[1][:5]
+        t1_ms = cuda_ms(lambda: DO.cross_attention_decode_kernel(q1, k1, v1, 1500, ks1, vs1))
+        log(f"K10 {name} (16,20,1,64) x 1500: kernel {t1_ms:.4f} ms")
+        q, k, v, ks, vs, ref = timed[11]
+        ms = cuda_ms(lambda: DO.cross_attention_decode_kernel(q, k, v, 1500, ks, vs))
+        plain_ms = cuda_ms(lambda: DO.cross_attention_decode_plain(q, k, v, 1500, ks, vs))
+        lib_ms = None
+        if not int8:
+            b, h, t, _ = q.shape
+            kh = k.transpose(2, 3).contiguous()
+            vh = v.reshape(b, -1, h, 64).transpose(1, 2).contiguous()
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib_err = max_err(sdpa(q, kh, vh, scale=1.0), ref)
+            lib_ms = cuda_ms(lambda: sdpa(q, kh, vh, scale=1.0))
+            log(f"K10 {name}: SDPA on the re-laid K/V at max_abs_err {lib_err:.3e} from "
+                f"the plain version")
+        b, h, t, _ = q.shape
+        moved = nbytes(q, k, v, *([ks, vs] if int8 else [])) + nbytes(q)
+        rows.append(kernel_record(
+            name, DECODE_OPS_SOURCE, "tools/decode_kernels_experiment.py:48",
+            (DO, "q_cross_launches" if int8 else "cross_launches"), worst, ms, plain_ms,
+            bound(moved, 4 * b * h * t * 1500 * 64), lib_ms))
+    return rows
+
+
+def check_ffn_decode(g):
+    """K11 against its plain version at D=1280, F=5120: M = 176 (the Medusa
+    chain at B=16), 16 (vanilla at B=16), 1 and 130 (two row blocks, a
+    2-row tail) elementwise within 2e-2 + 2e-2 |x| (one bf16 rounding of
+    the GELU output and of y, sums in another order).  Timed at M=176
+    against the plain version; no one PyTorch call computes the FFN, so the
+    three-call cuBLAS + GELU time (addmm, gelu, addmm) is printed."""
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    d, f = 1280, 5120
+    rnd = lambda *shape, scale=0.02: (torch.randn(shape, generator=g, device="cuda")
+                                      * scale).to(torch.bfloat16)
+    w1, b1, w2, b2 = rnd(d, f), rnd(f), rnd(f, d), rnd(d)
+    worst, xs = 0.0, {}
+    for m in (176, 16, 1, 130):
+        x = rnd(m, d, scale=1.0)
+        got = DO.ffn_decode_kernel(x, w1, b1, w2, b2)
+        ref = DO.ffn_decode_plain(x, w1, b1, w2, b2)
+        err = max_err(got, ref)
+        log(f"K11 ffn_decode M={m} D={d} F={f}: max_abs_err {err:.3e}")
+        require(got.shape == ref.shape and close(got, ref, 2e-2), f"K11 M={m}: err {err}")
+        worst, xs[m] = max(worst, err), x
+    x16 = xs[16]
+    log(f"K11 ffn_decode M=16: kernel "
+        f"{cuda_ms(lambda: DO.ffn_decode_kernel(x16, w1, b1, w2, b2)):.4f} ms")
+    x = xs[176]
+    ms = cuda_ms(lambda: DO.ffn_decode_kernel(x, w1, b1, w2, b2))
+    plain_ms = cuda_ms(lambda: DO.ffn_decode_plain(x, w1, b1, w2, b2))
+    gelu = torch.nn.functional.gelu
+    three_ms = cuda_ms(lambda: torch.addmm(b2, gelu(torch.addmm(b1, x, w1)), w2))
+    log(f"K11 ffn_decode M=176: three PyTorch calls (addmm, gelu, addmm) {three_ms:.4f} ms")
+    m = x.shape[0]
+    return kernel_record("ffn_decode", DECODE_OPS_SOURCE,
+                         "tools/decode_kernels_experiment.py:110", (DO, "ffn_launches"),
+                         worst, ms, plain_ms,
+                         bound(nbytes(x, w1, b1, w2, b2) + m * d * 2, 4 * m * d * f), None)
+
+
+def _embedded(dec, toks, offsets):
+    from whisper_medusa_tpu_torch.models import whisper
+
+    pos = (offsets[:, None] + torch.arange(toks.shape[1], device="cuda")[None]).long()
+    return whisper.embed_lookup(dec["embed_tokens"], toks.long()) + dec["pos_embed"][pos]
+
+
+def check_per_op_step(models, enc8, enc16):
+    """The per-op step (whisper.decoder_layers_ops: cuBLAS or K6
+    projections, K10, K11) against K2 on the same inputs and copies of one
+    cache, at full large-v2 width, 32 layers: after a K2 prefill (T=4), (B,
+    T) = (8, 11) and (8, 1) at per-example offsets, bf16 and int8.
+    pre_norm and hidden cosine >= 0.9998 (the per-op step rounds each
+    cuBLAS product to bf16 before its bias; K2 does not).  Times the per-op
+    step and K2 at (8, 11), the per-op step at (16, 11); returns the worst
+    cosine."""
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import megastep as MS
+
+    worst = 1.0
+    for model in models:
+        q = _int8(model)
+        mode = "int8" if q else "bf16"
+        p, dims = model.params["whisper"], model.config.dims
+        dec, nh, st = p["decoder"], dims.decoder_attention_heads, model.special
+        cache = whisper.init_cache(p, dims, enc8, dims.max_target_positions + 12)
+
+        def run(fn, x, offsets, c):
+            kw = dict(cross_k_s=c.cross_k_s, cross_v_s=c.cross_v_s, self_s=c.self_s)
+            return fn(dec["layers"], dec["ln_post"], x, c.self_k, c.self_v, c.cross_k,
+                      c.cross_v, offsets, None, dims.max_source_positions, nh, **kw)
+
+        zero = torch.zeros((8,), dtype=torch.int32, device="cuda")
+        prompt = torch.tensor([[st.sot, st.first_language, st.transcribe,
+                                st.no_timestamps]] * 8, device="cuda")
+        run(MS.megastep_kernel, _embedded(dec, prompt, zero), zero, cache)
+        for t, offs in ((11, [4, 2, 4, 3, 1, 4, 0, 2]), (1, [15, 9, 13, 14, 5, 11, 2, 7])):
+            offsets = torch.tensor(offs, dtype=torch.int32, device="cuda")
+            toks = torch.arange(100, 100 + 8 * t, device="cuda").reshape(8, t)
+            x = _embedded(dec, toks, offsets)
+            copy = whisper.KVCache(
+                self_k=cache.self_k.clone(), self_v=cache.self_v.clone(),
+                cross_k=cache.cross_k, cross_v=cache.cross_v, cross_k_s=cache.cross_k_s,
+                cross_v_s=cache.cross_v_s,
+                self_s=None if cache.self_s is None else cache.self_s.clone())
+            k2 = run(MS.megastep_kernel, x, offsets, cache)
+            ops = run(whisper.decoder_layers_ops, x, offsets, copy)
+            cos = [cosine(a, b) for a, b in zip(k2[:2], ops[:2])]
+            log(f"per-op step vs K2, {mode}, 32 layers, B=8 T={t} offsets {offs}: pre_norm "
+                f"cosine {cos[0]:.6f}, hidden {cos[1]:.6f}")
+            require(min(cos) >= 0.9998, f"per-op step vs K2 {mode} T={t}: cosine {cos}")
+            worst = min(worst, *cos)
+            if t == 11:
+                k2_ms = cuda_ms(lambda: run(MS.megastep_kernel, x, offsets, cache))
+                ops_ms = cuda_ms(lambda: run(whisper.decoder_layers_ops, x, offsets, copy))
+        del copy
+        cache16 = whisper.init_cache(p, dims, enc16, dims.max_target_positions + 12)
+        off16 = torch.full((16,), 4, dtype=torch.int32, device="cuda")
+        x16 = _embedded(dec, torch.arange(100, 276, device="cuda").reshape(16, 11), off16)
+        ops16_ms = cuda_ms(lambda: run(whisper.decoder_layers_ops, x16, off16, cache16))
+        log(f"per-op step {mode}, 32 layers, T=11: B=8 {ops_ms:.4f} ms (K2 {k2_ms:.4f} ms), "
+            f"B=16 {ops16_ms:.4f} ms")
+        del cache, cache16
+        torch.cuda.empty_cache()
+    return worst
 
 
 def _megastep_cost(dec_layers, ln_post, cache, offs, t, cross_len, block=None):
@@ -935,9 +1122,10 @@ def _read_count(k):
     return value.get(key[0], 0) if key else value
 
 
-def drive(name, kernels, fn, needs):
+def drive(name, kernels, fn, needs, absent=()):
     """Run one main path with every launch counter set to 0 just before and
-    read just after; the kernels in ``needs`` must have launched."""
+    read just after; the kernels in ``needs`` must have launched, those in
+    ``absent`` must not have."""
     for k in kernels:
         _zero_count(k)
     torch.cuda.synchronize()
@@ -951,6 +1139,8 @@ def drive(name, kernels, fn, needs):
         k["launches"] = k.get("launches", 0) + counts[k["name"]]
     for n in needs:
         require(counts[n] > 0, f"{n} never launched on the path {name}")
+    for n in absent:
+        require(counts[n] == 0, f"{n} launched {counts[n]} times on the path {name}")
     return result, wall
 
 
@@ -1121,6 +1311,80 @@ def phase_block_requests(mode, bmodel, kernels, proc_k, wave, batch_waves):
     return outs
 
 
+BATCH16 = 16
+# Past K2's batch: the per-op step (K10, K11; K6 at int8) and never K2.
+K2_ROWS = ("megastep", "megastep_int8", "megastep_block", "megastep_block_int8")
+NEEDS_B16 = {
+    "bf16 medusa": ("attention", "cross_decode", "ffn_decode", "logits", "head_rows",
+                    "verify_rows"),
+    "int8 medusa": ("attention", "cross_decode_int8", "qmm", "qmm_nt", "head_rows_int8",
+                    "verify_rows_int8"),
+    "bf16 vanilla": ("attention", "cross_decode", "ffn_decode", "logits", "verify_rows"),
+    "bf16 medusa_block": ("log_mel", "attention", "cross_decode", "ffn_decode", "logits",
+                          "verify_rows"),
+}
+
+
+def phase_b16_requests(model, qmodel, bmodel, kernels, feats16, proc_k, waves16, secs16):
+    """Phase 4 past K2's batch: requests of 16 waveforms (base_head bf16 and
+    int8, vanilla bf16, Medusa-Block bf16 from the waveforms through the K8
+    processor inside the driven run), each with K2 at 0 launches;
+    {path: outputs}."""
+    vocab = model.config.dims.vocab_size
+    runs = {"bf16 medusa": (model, lambda: feats16, {}),
+            "int8 medusa": (qmodel, lambda: feats16, {}),
+            "bf16 vanilla": (model, lambda: feats16, dict(disable_medusa=True)),
+            "bf16 medusa_block": (bmodel, lambda: proc_k(waves16), {})}
+    outs = {}
+    for path, (m, feats, kw) in runs.items():
+        m.generate(feats(), language="en", max_new_tokens=8, **kw)       # warm-up
+        out, wall = drive(f"{path} B={BATCH16}", kernels,
+                          lambda: m.generate(feats(), language="en",
+                                             max_new_tokens=MAX_NEW_TOKENS, **kw),
+                          NEEDS_B16[path], absent=K2_ROWS)
+        report(f"{path} request (B={BATCH16}, per-op step, audio "
+               f"{', '.join(f'{s:.1f}' for s in secs16)} s)", out, wall,
+               check_output(out, BATCH16, vocab))
+        log(f"  per-example steps {out.steps_per_example.tolist()}, accepted "
+            f"{out.accepted.tolist()}, lengths {out.lengths.tolist()}")
+        outs[path] = out
+    return outs
+
+
+def report_b16_invariance(model, enc16):
+    """Printed, not held: whether speculative_generate at B=16 (the per-op
+    step) gives each example its B=1 tokens (K2) from the same encoder row;
+    cuBLAS and K2 round differently."""
+    from whisper_medusa_tpu_torch.config import GenerationConfig
+    from whisper_medusa_tpu_torch.decoding.buffers import generate_medusa_buffers
+    from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig
+    from whisper_medusa_tpu_torch.decoding.speculative import speculative_generate
+
+    st, gd, cfg = model.special, model.generation_config, model.config
+    b = enc16.shape[0]
+    prompt = torch.tensor([[st.sot, st.first_language, st.transcribe,
+                            st.no_timestamps]] * b, dtype=torch.int32, device="cuda")
+    pcfg = ProcessorConfig(vocab_size=cfg.dims.vocab_size,
+                           suppress_tokens=gd.suppress_tokens,
+                           begin_suppress_tokens=gd.begin_suppress_tokens,
+                           begin_index=PROMPT_LEN, eos_token_id=st.eos)
+    gen = GenerationConfig(max_length=PROMPT_LEN + MAX_NEW_TOKENS, eos_token_id=st.eos,
+                           pad_token_id=gd.pad_token_id)
+    buffers = generate_medusa_buffers(cfg.medusa.medusa_choices)
+    run = lambda e, p: speculative_generate(model.params["whisper"], model.params["medusa"],
+                                            cfg.dims, buffers, pcfg, gen, e, p)
+    batched = run(enc16, prompt)
+    same, share = [], []
+    for e in range(b):
+        alone = run(enc16[e:e + 1], prompt[e:e + 1])
+        same.append(bool(torch.equal(batched.tokens[e], alone.tokens[0])))
+        share.append(float((batched.tokens[e, PROMPT_LEN:]
+                            == alone.tokens[0, PROMPT_LEN:]).float().mean()))
+    log(f"bf16 B={b} (per-op step) vs B=1 (K2) decode, printed, not held: tokens equal for "
+        f"{sum(same)}/{b} examples; share of equal positions per example "
+        + " ".join(f"{x:.3f}" for x in share))
+
+
 def token_share(a, b):
     """Share of generated positions where two outputs hold the same token."""
     return float((a.sequences[:, PROMPT_LEN:] == b.sequences[:, PROMPT_LEN:]).mean())
@@ -1129,14 +1393,17 @@ def token_share(a, b):
 def check_corruption(mode, model, feat, clean):
     """Phase 5: every draft is wrong, so the loop commits one token per step
     (vanilla decoding); the finish rule may stop it a few tokens apart, so
-    the common prefix is compared."""
+    each example's common prefix is compared."""
     bad = model.generate(feat, language="en", max_new_tokens=MAX_NEW_TOKENS,
                          draft_corruption=1.0)
-    n = int(min(bad.lengths[0], clean.lengths[0]))
-    same = np.array_equal(bad.sequences[0, :n], clean.sequences[0, :n])
-    log(f"{mode} draft_corruption=1.0: first {n} tokens identical {same}, steps "
-        f"{bad.steps} (clean {clean.steps}), accepted {int(bad.accepted.sum())}")
-    require(same and bad.steps >= clean.steps,
+    same, n = [], []
+    for e in range(bad.sequences.shape[0]):
+        n.append(int(min(bad.lengths[e], clean.lengths[e])))
+        same.append(np.array_equal(bad.sequences[e, :n[-1]], clean.sequences[e, :n[-1]]))
+    log(f"{mode} draft_corruption=1.0: common prefixes ({min(n)}-{max(n)} tokens) identical "
+        f"for {sum(same)}/{len(same)} examples, steps {bad.steps} (clean {clean.steps}), "
+        f"accepted {int(bad.accepted.sum())}")
+    require(all(same) and bad.steps >= clean.steps,
             f"{mode}: tokens changed under draft_corruption=1.0")
 
 
@@ -1458,7 +1725,7 @@ def main():
     k7 = check_qmm_nt(g, qmodel)
     k4q = check_verify(g, qmodel)
     k4aq = check_head_rows(g, qmodel)
-    k5q = check_verify_rows(g, qmodel, sizes=(1, 8, 88))
+    k5q = check_verify_rows(g, qmodel, sizes=(1, 8, 16, 88, 176))
     k4b = check_verify(g, bmodel, identity0=True)
     k4bq = check_verify(g, bqmodel, identity0=True)
 
@@ -1485,8 +1752,17 @@ def main():
     k2bq, worst_cos_bq = check_megastep_full(bqmodel, enc1, enc8,
                                              bqmodel.params["medusa"]["block"])
     k2bq["max_abs_err"] = err2bq
+    k10, k10q = check_cross_decode(g)
+    k11 = check_ffn_decode(g)
+    secs16 = tuple(float(x) for x in np.linspace(4.0, 30.0, BATCH16))
+    waves16 = waveforms(secs16)
+    feats16 = proc(waves16)
+    require(feats16.shape == (BATCH16, 80, 3000) and bool(torch.isfinite(feats16).all()),
+            "B=16 processor output")
+    enc16 = model.encode(feats16)
+    worst_cos_ops = check_per_op_step((model, qmodel), enc8, enc16)
     kernels = [k1, k2, k2q, k3, k4, k4q, k4a, k4aq, k5, k5q, k6, k7,
-               k8, k2b, k2bq, k4b, k4bq]
+               k8, k2b, k2bq, k4b, k4bq, k10, k10q, k11]
 
     # ---- phase 4: the main paths, bf16 then int8
     outs = phase_requests("bf16", model, kernels, feats, waves, feats8, batch_secs)
@@ -1502,6 +1778,8 @@ def main():
     for b in bouts:
         log(f"int8 vs bf16 [medusa_block B={b}]: {token_share(bqouts[b], bouts[b]):.3f} of "
             f"the generated positions hold the same token (printed, not held)")
+    outs16 = phase_b16_requests(model, qmodel, bmodel, kernels, feats16, proc_k, waves16,
+                                secs16)
     for k in kernels:
         log(f"launches {k['name']} (all main paths): {k['launches']}")
 
@@ -1511,6 +1789,8 @@ def main():
     feat_k = proc_k(waves[0])
     check_corruption("bf16 medusa_block", bmodel, feat_k, bouts[1])
     check_corruption("int8 medusa_block", bqmodel, feat_k, bqouts[1])
+    check_corruption(f"bf16 B={BATCH16} (per-op step)", model, feats16,
+                     outs16["bf16 medusa"])
 
     # ---- phase 6: decode batch invariance (the encoder is shared: the same rows)
     check_batch_invariance(model, enc8)
@@ -1518,10 +1798,11 @@ def main():
     check_batch_invariance(bmodel, enc8, ("medusa_block",))
     check_batch_invariance(bqmodel, enc8, ("medusa_block",))
     report_generate_invariance(model, feats8, outs["medusa B=8"])
+    report_b16_invariance(model, enc16)
 
     # ---- phase 7: training (K9), on fresh models after the serving ones go
     check_grad_guard(model.params)
-    del model, qmodel, bmodel, bqmodel, outs, qouts, bouts, bqouts, enc1, enc8
+    del model, qmodel, bmodel, bqmodel, outs, qouts, bouts, bqouts, outs16, enc1, enc8, enc16
     torch.cuda.empty_cache()
     kernels += check_attention_bwd(g)
     for variant, policy in (("medusa_block", "whisper"), ("base_head", "all_but_last")):
@@ -1542,7 +1823,8 @@ def main():
             for k in kernels]
     log(f"K2 32-layer worst pre_norm cosine: bf16 {worst_cos:.6f}, int8 {worst_cos_q:.6f}; "
         f"block mode (pre_norm and block_hidden): bf16 {worst_cos_b:.6f}, int8 "
-        f"{worst_cos_bq:.6f}")
+        f"{worst_cos_bq:.6f}; per-op step vs K2 (pre_norm and hidden, bf16 and int8): "
+        f"{worst_cos_ops:.6f}")
     log(f"gpu: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

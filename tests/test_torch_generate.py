@@ -4,7 +4,8 @@ tiny_test_config(vocab_size=51865, medusa_num_heads=3) with nonzero head
 weights, the JAX weights bridged into the port, float32 on the CPU.  Tokens,
 lengths, accepted drafts, steps and mean_accept_length are equal; token
 log-probs agree to 1e-4.  B = 1 here; batches of 2 and 3 (the JAX package's
-two-pass verification) and vanilla decoding are in test_torch_generate_batch.py.
+two-pass verification) and vanilla decoding are in test_torch_generate_batch.py,
+B = 12 in test_torch_generate_b12.py.
 """
 
 import dataclasses
@@ -121,11 +122,13 @@ def test_unported_options_raise(models, kwargs, match):
 
 
 def test_batch_and_longform_raise(models):
+    """B=9 (past K2's batch) serves through the per-op step; longform and an
+    unknown option raise."""
     _, tm = models
     cfg = tm.config
-    with pytest.raises(NotImplementedError, match="batching, B > 8"):
-        tm.generate(np.zeros((9, cfg.dims.num_mel_bins, cfg.dims.num_frames),
-                             np.float32), language="en")
+    out = tm.generate(np.zeros((9, cfg.dims.num_mel_bins, cfg.dims.num_frames),
+                               np.float32), language="en", max_new_tokens=4)
+    assert out.sequences.shape[0] == 9 and out.lengths.shape == (9,)
     with pytest.raises(NotImplementedError, match="longform"):
         tm.generate(np.zeros((1, cfg.dims.num_mel_bins, 2 * cfg.dims.num_frames),
                              np.float32), language="en")

@@ -43,3 +43,25 @@ def test_disable_medusa_matches_jax_vanilla(models, b):
     assert c.accepted.sum() == 0 and c.mean_accept_length == 0.0
     # One token per iteration: every step commits exactly one token.
     assert c.steps == int(c.lengths.max()) - 5
+
+
+def test_no_speech_blanking_keeps_avg_logprobs_like_jax(models):
+    """A B=2 batch where the no-speech rule blanks one example: with
+    ``no_speech_threshold=0`` every example passes the probability test and
+    ``logprob_threshold``, set between the two examples' average log-probs,
+    picks the one below it.  The blanked example keeps its average log-prob
+    from before blanking, as the JAX package returns it; both packages blank
+    the same example."""
+    jm, tm = models
+    f = _feats(jm.config, seed=24, b=2)
+    kw = dict(language="en", max_length=16)
+    probe = tm.generate(f, **kw).avg_logprobs
+    # The random model's log-probs lie close together; the two packages'
+    # averages agree far inside this gap's half (f32).
+    assert abs(probe[0] - probe[1]) > 1e-4
+    kw.update(no_speech_threshold=0.0, logprob_threshold=float(probe.mean()))
+    a, c = jm.generate(f, **kw), tm.generate(f, **kw)
+    blanked = int(np.argmin(probe))
+    assert c.lengths[blanked] == 4 and c.lengths[1 - blanked] > 4
+    _assert_same(a, c)
+    np.testing.assert_allclose(c.avg_logprobs, probe, rtol=1e-6)

@@ -174,3 +174,20 @@ def test_training_on_cuda_takes_bf16():
     with pytest.raises(NotImplementedError, match="f32 modes of K1 and K9"):
         TT.require_trainable_dtype({"w": FakeCuda()})
     TT.require_trainable_dtype({"w": torch.zeros(2)})        # CPU f32 trains
+
+
+def test_serving_on_cuda_takes_bf16():
+    """generate's dtype check: f32 weights on a CUDA device raise
+    NotImplementedError naming ROADMAP item 19 and the bf16 load, before
+    anything runs; the int8 copy's f32 scales and CPU f32 serving pass."""
+    from whisper_medusa_tpu_torch.models.api import require_servable_dtype
+
+    params = {"whisper": {"w": torch.zeros(2, dtype=torch.float32)}}
+    with pytest.raises(NotImplementedError, match="item 19") as err:
+        require_servable_dtype(params, device="cuda")
+    assert 'dtype="bfloat16"' in str(err.value)
+    require_servable_dtype(params, device="cpu")
+    int8 = {"whisper": {"w": {"q": torch.zeros(2, dtype=torch.int8),
+                              "s": torch.ones(2, dtype=torch.float32)},
+                        "b": torch.zeros(2, dtype=torch.bfloat16)}}
+    require_servable_dtype(int8, device="cuda")

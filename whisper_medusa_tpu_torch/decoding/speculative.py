@@ -1,8 +1,8 @@
 """Speculative (Medusa) greedy decoding — counterpart of
 whisper_medusa_tpu/decoding/speculative.py.
 
-Ported: the chain + greedy path of ``speculative_generate`` at B <= 8 for the
-``base_head``, ``medusa_block`` and ``vanilla`` variants — one decoder
+Ported: the chain + greedy path of ``speculative_generate`` at any batch
+size for the ``base_head``, ``medusa_block`` and ``vanilla`` variants — one decoder
 forward per iteration over the (heads + 1)-node chain (one node for
 vanilla), fused verification, longest-prefix acceptance, the window commit,
 the finish rule and the EOS backfill.  Verification follows the JAX
@@ -22,7 +22,8 @@ head 0 of ``hidden`` and heads 1..K draft from ``hidden``.
 ``medusa_block``: the verification rows are ``hidden`` itself (K4's
 ``identity0`` rows at B = 1, no head rows in pass A) and all K heads draft
 from ``block_hidden``, the output of the block layer that K2 runs after the
-decoder stack on the cache's last slot.
+decoder stack on the cache's last slot.  The decoder forward is K2 at
+B <= 8 and the per-op step (K10, K11) beyond (``whisper.decode_step``).
 
 State lives in device tensors; the loop reads ``finished`` on the host once
 per iteration.  Branching trees, sampling, typical acceptance and timestamp
@@ -47,7 +48,6 @@ from whisper_medusa_tpu_torch.ops import verify as verify_mod
 Params = Dict[str, Any]
 
 CORRUPTION_SEED = 0x5EED
-MAX_BATCH = 8
 
 
 @dataclasses.dataclass
@@ -118,9 +118,6 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
                                   "remaining decode modes)")
     dev = enc_out.device
     b, t0 = prompt.shape
-    if b > MAX_BATCH:
-        raise NotImplementedError(f"batch size {b} is not ported yet "
-                                  "(ROADMAP queue 1: batching, B > 8)")
     eos, pad, max_length = gen.eos_token_id, gen.pad_token_id, gen.max_length
     num_heads = buffers.num_levels - 1
     n_nodes = buffers.num_nodes

@@ -1,10 +1,11 @@
 """Where the device time goes, on one CUDA card.
 
-    python -m whisper_medusa_tpu_torch.device_profile [--part serving|train|all]
+    python -m whisper_medusa_tpu_torch.device_profile [--part serving|per_op|train|all]
 
-Five parts, all at full whisper-large-v2 width with bf16 weights drawn from
+Six parts, all at full whisper-large-v2 width with bf16 weights drawn from
 a seed, and the same again on ``model.quantize()`` (int8 serving) for parts
-2 and 4 (``--part serving`` runs parts 1-4, ``--part train`` part 5):
+2, 4 and 6 (``--part serving`` runs parts 1-4 and 6, ``--part per_op`` part
+6, ``--part train`` part 5):
 
   1. the log-mel frontend at B=1 and B=8 on seeded noise, the default plain
      PyTorch path and the fused kernel K8: device time by kernel beside the
@@ -26,7 +27,14 @@ a seed, and the same again on ``model.quantize()`` (int8 serving) for parts
      off): one step of the Medusa-Block recipe and one full fine-tune step
      of base_head, each after a warm-up step: the wall time of a step
      without the profiler, the device time by kernel of the next (K1, K9,
-     cuBLAS, the elementwise kernels), the idle share and the peak memory.
+     cuBLAS, the elementwise kernels), the idle share and the peak memory;
+  6. past K2's batch: one per-op decoder step
+     (``models/whisper.py::decoder_layers_ops``: cuBLAS or K6 projections,
+     PyTorch self-attention, K10, K11) over all 32 layers at (B, T) in
+     (8, 11), (16, 1) and (16, 11), bf16 and int8 — the host wall of a call
+     ending in a synchronize, the device time by kernel and the idle share —
+     and whole requests at B=16 as in part 4 (Medusa and vanilla bf16,
+     Medusa int8, Medusa-Block bf16).
 
 Kernels are listed by name without their template arguments, so PyTorch's
 elementwise kernels of one kind share a line.  The Medusa heads, and the
@@ -196,10 +204,11 @@ def profile_verify_passes(model, b=8):
 
 
 def profile_requests(model, mode, paths=(("medusa", {}),
-                                          ("vanilla", dict(disable_medusa=True)))):
+                                          ("vanilla", dict(disable_medusa=True))),
+                     batches=(1, 8)):
     rng = np.random.default_rng(SEED)
     dims = model.config.dims
-    for b in (1, 8):
+    for b in batches:
         feats = torch.from_numpy(rng.standard_normal(
             (b, dims.num_mel_bins, dims.num_frames)).astype(np.float32)).cuda()
         for name, kw in paths:
@@ -218,6 +227,39 @@ def profile_requests(model, mode, paths=(("medusa", {}),
                 f"mean_accept_length {out.mean_accept_length:.3f})", rows,
                 f" (wall without the profiler {wall_ms:.1f} ms)")
             print(f"  device idle share {1 - total / 1e3 / wall_ms:.3f}")
+
+
+def profile_per_op_step(model, mode):
+    """Part 6: one per-op decoder step over all layers at (8, 11), (16, 1)
+    and (16, 11), from seeded encoder states and inputs, offsets 20."""
+    from whisper_medusa_tpu_torch.models import whisper
+
+    p, dims = model.params["whisper"], model.config.dims
+    dec = p["decoder"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    for b, t in ((8, 11), (16, 1), (16, 11)):
+        enc = torch.randn((b, dims.max_source_positions, dims.d_model), generator=g,
+                          device="cuda").to(torch.bfloat16)
+        cache = whisper.init_cache(p, dims, enc, dims.max_target_positions + 12)
+        offsets = torch.full((b,), 20, dtype=torch.int32, device="cuda")
+        x = torch.randn((b, t, dims.d_model), generator=g, device="cuda").to(torch.bfloat16)
+        run = lambda: whisper.decoder_layers_ops(
+            dec["layers"], dec["ln_post"], x, cache.self_k, cache.self_v, cache.cross_k,
+            cache.cross_v, offsets, None, dims.max_source_positions,
+            dims.decoder_attention_heads, cross_k_s=cache.cross_k_s,
+            cross_v_s=cache.cross_v_s, self_s=cache.self_s)
+        ms = _cuda_ms(run)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        total = _table(f"per-op step {mode}, {dims.decoder_layers} layers, B={b} T={t}, per "
+                       f"call", _by_kernel(run, 3),
+                       f" (CUDA events: {ms:.4f} ms per call; wall {wall_ms:.1f} ms)")
+        print(f"  device idle share {1 - total / 1e3 / wall_ms:.3f}")
+        del cache
 
 
 def profile_training(b=2, t=224):
@@ -257,6 +299,20 @@ def profile_training(b=2, t=224):
         torch.cuda.empty_cache()
 
 
+def profile_serving(model, qmodel, bmodel, bqmodel):
+    """Parts 1-4."""
+    profile_frontend()
+    for m, mode in ((model, "bf16"), (qmodel, "int8")):
+        profile_megastep(m, mode)
+    for m, mode in ((bmodel, "bf16"), (bqmodel, "int8")):
+        profile_megastep(m, mode, block=m.params["medusa"]["block"])
+    profile_verify_passes(model)
+    for m, mode in ((model, "bf16"), (qmodel, "int8")):
+        profile_requests(m, mode)
+    for m, mode in ((bmodel, "bf16"), (bqmodel, "int8")):
+        profile_requests(m, mode, (("medusa_block", {}),))
+
+
 def main(argv=None):
     import argparse
 
@@ -265,7 +321,8 @@ def main(argv=None):
     from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--part", choices=("all", "serving", "train"), default="all")
+    parser.add_argument("--part", choices=("all", "serving", "per_op", "train"),
+                        default="all")
     part = parser.parse_args(argv).part
     if not torch.cuda.is_available():
         raise SystemExit("device_profile needs a CUDA card")
@@ -284,16 +341,13 @@ def main(argv=None):
     qmodel = model.quantize()
     bmodel = bridge.random_block_model(model, seed=SEED + 2)
     bqmodel = bmodel.quantize()
-    profile_frontend()
+    if part != "per_op":
+        profile_serving(model, qmodel, bmodel, bqmodel)
     for m, mode in ((model, "bf16"), (qmodel, "int8")):
-        profile_megastep(m, mode)
-    for m, mode in ((bmodel, "bf16"), (bqmodel, "int8")):
-        profile_megastep(m, mode, block=m.params["medusa"]["block"])
-    profile_verify_passes(model)
-    for m, mode in ((model, "bf16"), (qmodel, "int8")):
-        profile_requests(m, mode)
-    for m, mode in ((bmodel, "bf16"), (bqmodel, "int8")):
-        profile_requests(m, mode, (("medusa_block", {}),))
+        profile_per_op_step(m, mode)
+    profile_requests(model, "bf16", batches=(16,))
+    profile_requests(qmodel, "int8", (("medusa", {}),), batches=(16,))
+    profile_requests(bmodel, "bf16", (("medusa_block", {}),), batches=(16,))
     if part == "all":
         del model, qmodel, bmodel, bqmodel
         torch.cuda.empty_cache()

@@ -4,7 +4,7 @@
 ``detect_language`` and ``generate`` for the shortform, single-temperature,
 greedy path of both Medusa variants (``base_head``, and ``medusa_block``,
 chosen by ``config.medusa.medusa_heads_type``) and vanilla decoding
-(``disable_medusa=True``) at 1 <= B <= 8: ``language`` given (one code, or
+(``disable_medusa=True``) at any batch size: ``language`` given (one code, or
 one per example) or detected per example, ``max_length`` /
 ``max_new_tokens``, the suppress lists, the exponential decay length penalty
 and the no-speech probability.  Every other option of the JAX ``generate``
@@ -27,7 +27,7 @@ from whisper_medusa_tpu_torch.config import (GenerationConfig, ModelConfig, Spec
                                        default_suppress_tokens, language_token_id)
 from whisper_medusa_tpu_torch.decoding.buffers import generate_medusa_buffers
 from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig
-from whisper_medusa_tpu_torch.decoding.speculative import MAX_BATCH, speculative_generate
+from whisper_medusa_tpu_torch.decoding.speculative import speculative_generate
 from whisper_medusa_tpu_torch.models import bridge, whisper
 
 
@@ -193,7 +193,8 @@ class WhisperMedusaModel:
         draft_corruption: Optional[float] = None,
         **options,
     ) -> GenerateOutput:
-        """Transcribe a batch of up to 8 mel segments (B, n_mels, <= 3000).
+        """Transcribe a batch of mel segments (B, n_mels, <= 3000); K2 runs
+        the decoder at B <= 8, the per-op step (K10, K11) beyond.
 
         ``disable_medusa=True`` decodes vanilla: one token per decoder
         forward, verification logits straight from the hidden state.  With
@@ -209,6 +210,7 @@ class WhisperMedusaModel:
                                          and tuple(np.atleast_1d(value)) == (0.0,)):
                 raise _not_ported(f"generate({name}={value!r})", item)
         cfg = self.config
+        require_servable_dtype(self.params, self.device)
         feats = torch.as_tensor(input_features, dtype=torch.float32,
                                 device=self.device)
         if feats.dim() == 2:
@@ -216,8 +218,6 @@ class WhisperMedusaModel:
         b, n_mels, n_frames = feats.shape
         if n_mels != cfg.dims.num_mel_bins:
             raise ValueError(f"expected {cfg.dims.num_mel_bins} mel bins, got {n_mels}")
-        if b > MAX_BATCH:
-            raise _not_ported(f"batch size {b}", "batching, B > 8")
         if n_frames > cfg.dims.num_frames:
             raise _not_ported("longform (> 30 s) input", _TIMESTAMPS)
         if n_frames < cfg.dims.num_frames:
@@ -285,6 +285,8 @@ class WhisperMedusaModel:
         fl = result.first_logits.float().cpu().numpy()
         p = np.exp(fl - fl.max(-1, keepdims=True))
         no_speech_probs = (p / p.sum(-1, keepdims=True))[:, st.no_speech]
+        # The average from before no-speech blanking, as the JAX package
+        # returns it.
         avg_lp = _avg_from_captured(logprobs, lengths, prompt.shape[1])
         if no_speech_threshold is not None:
             silent = no_speech_probs > no_speech_threshold
@@ -297,9 +299,24 @@ class WhisperMedusaModel:
             sequences=tokens, lengths=lengths, steps=result.steps,
             accepted=accepted, mean_accept_length=mean_acc,
             detected_language=detected, no_speech_probs=no_speech_probs,
-            token_logprobs=logprobs,
-            avg_logprobs=_avg_from_captured(logprobs, lengths, prompt.shape[1]),
-            steps_per_example=steps)
+            token_logprobs=logprobs, avg_logprobs=avg_lp, steps_per_example=steps)
+
+
+def require_servable_dtype(params, device) -> None:
+    """Serving on the card takes bf16 weights (or the int8 copy): K1, K2, K10
+    and K11 have no f32 mode, so f32 floating-point weights on a CUDA
+    ``device`` raise NotImplementedError naming the ROADMAP item.  CPU
+    serving takes any dtype."""
+    if torch.device(device).type != "cuda":
+        return
+    flat = bridge.flatten(params)
+    # An int8 weight's f32 scales ({"q", "s"}) belong to the int8 copy.
+    if any(a.dtype == torch.float32 and not (k.endswith("/s") and f"{k[:-2]}/q" in flat)
+           for k, a in flat.items()):
+        raise NotImplementedError(
+            "f32 weights are not served on the card yet (ROADMAP queue 1, item 19: "
+            "f32 modes of K1 and K9, and f32 serving); load the checkpoint with "
+            "from_pretrained(path, dtype=\"bfloat16\")")
 
 
 def _avg_from_captured(logprobs: np.ndarray, lengths: np.ndarray,

@@ -9,9 +9,11 @@ package the slabs carry no alignment slack: ``max_len`` rows exactly, and the
 cross cache is never padded.
 
 Decode runs through ``ops/megastep.py`` (kernel K2 on CUDA tensors, the
-:func:`decoder_layer_step` loop on CPU tensors) at B <= 8, with the
-Medusa-Block layer as one more layer on its own cache slot when given; the
-cache slabs are updated in place.  Encoder self-attention runs through
+:func:`decoder_layer_step` loop on CPU tensors) where K2 takes the call
+(B <= 8, T <= 16, ``megastep.fits``), else through the per-op step
+:func:`decoder_layers_ops` (cuBLAS projections, K10 cross-attention, K11
+FFN), with the Medusa-Block layer as one more layer on its own cache slot
+when given; the cache slabs are updated in place.  Encoder self-attention runs through
 ``ops/attention.py`` (K1).  An example's decoder state does not depend on
 the batch it is in: the cross K/V are projected one example at a time and
 K2's per-row arithmetic is independent of the row count.
@@ -395,26 +397,20 @@ def write_rows(buf: torch.Tensor, rows: torch.Tensor, offsets: torch.Tensor) -> 
     buf[torch.arange(b, device=rows.device)[:, None], idx] = rows
 
 
-def decoder_layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
-                       v_buf: torch.Tensor, cross_k: torch.Tensor,
-                       cross_v: torch.Tensor, offsets: torch.Tensor,
-                       self_mask: torch.Tensor, num_heads: int,
-                       cross_len: int, cross_k_s: Optional[torch.Tensor] = None,
-                       cross_v_s: Optional[torch.Tensor] = None,
-                       self_s: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One decoder layer over a T-token chunk; writes the chunk's K/V rows into
-    ``k_buf``/``v_buf`` (B, max_len, D) in place.  Returns the new hidden.
-
-    int8 self slabs (``self_s`` (B, max_len, 2H) given): the chunk's rows are
-    committed quantized per (position, head) with their scales; attention
-    then reads the history rows dequantized to bf16 but the chunk's own rows
-    as the fresh bf16 K/V."""
+def _layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.Tensor,
+                cross_k: torch.Tensor, cross_v: torch.Tensor, offsets: torch.Tensor,
+                self_mask: torch.Tensor, num_heads: int, cross_len: int,
+                cross_k_s: Optional[torch.Tensor], cross_v_s: Optional[torch.Tensor],
+                self_s: Optional[torch.Tensor], proj, cross_fn, ffn_fn) -> torch.Tensor:
+    """One decoder layer (JAX ``decoder_layer_step``, whisper.py:953-1042)
+    with its projections through ``proj``, cross-attention through
+    ``cross_fn`` and the FFN branch through ``ffn_fn(lp, x)``."""
     head_dim = h.shape[-1] // num_heads
     sx = layer_norm(h, lp["self_ln"]["scale"], lp["self_ln"]["bias"])
-    q = _split_heads(dense_exact(sx, lp["self"]["q_w"], lp["self"]["q_b"]), num_heads)
+    q = _split_heads(proj(sx, lp["self"]["q_w"], lp["self"]["q_b"]), num_heads)
     q = q * (head_dim ** -0.5)
-    k_new = dense_exact(sx, lp["self"]["k_w"])
-    v_new = dense_exact(sx, lp["self"]["v_w"], lp["self"]["v_b"])
+    k_new = proj(sx, lp["self"]["k_w"])
+    v_new = proj(sx, lp["self"]["v_w"], lp["self"]["v_b"])
     if self_s is None:
         write_rows(k_buf, k_new, offsets)
         write_rows(v_buf, v_new, offsets)
@@ -431,17 +427,113 @@ def decoder_layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
         write_rows(v_att, v_new.to(torch.bfloat16), offsets)
     out = attention(q, _split_heads(k_att, num_heads),
                     _split_heads(v_att, num_heads), self_mask)
-    h = h + dense_exact(_merge_heads(out), lp["self"]["o_w"], lp["self"]["o_b"])
+    h = h + proj(_merge_heads(out), lp["self"]["o_w"], lp["self"]["o_b"])
     cx = layer_norm(h, lp["cross_ln"]["scale"], lp["cross_ln"]["bias"])
-    cq = _split_heads(dense_exact(cx, lp["cross"]["q_w"], lp["cross"]["q_b"]), num_heads)
+    cq = _split_heads(proj(cx, lp["cross"]["q_w"], lp["cross"]["q_b"]), num_heads)
     cq = cq * (head_dim ** -0.5)
-    co = decode_ops.cross_attention_decode(cq.transpose(1, 2), cross_k, cross_v,
-                                           cross_len, cross_k_s, cross_v_s)
-    h = h + dense_exact(_merge_heads(co.transpose(1, 2)), lp["cross"]["o_w"],
-                  lp["cross"]["o_b"])
+    co = cross_fn(cq.transpose(1, 2), cross_k, cross_v, cross_len, cross_k_s, cross_v_s)
+    h = h + proj(_merge_heads(co.transpose(1, 2)), lp["cross"]["o_w"], lp["cross"]["o_b"])
     fx = layer_norm(h, lp["ffn_ln"]["scale"], lp["ffn_ln"]["bias"])
-    return h + decode_ops.ffn_decode(fx, lp["fc1_w"], lp["fc1_b"],
-                                     lp["fc2_w"], lp["fc2_b"])
+    return h + ffn_fn(lp, fx)
+
+
+def _ffn_plain(lp: Params, x: torch.Tensor) -> torch.Tensor:
+    return decode_ops.ffn_decode_plain(x, lp["fc1_w"], lp["fc1_b"], lp["fc2_w"], lp["fc2_b"])
+
+
+def _ffn_ops(lp: Params, x: torch.Tensor) -> torch.Tensor:
+    """The per-op step's FFN, as the JAX scan path (whisper.py:1036-1041):
+    int8 weights through :func:`ffn` (K6), bf16 through ``ffn_decode`` (K11)."""
+    if qmm_mod.is_quantized(lp["fc1_w"]):
+        return ffn(lp, x)
+    return decode_ops.ffn_decode(x, lp["fc1_w"], lp["fc1_b"], lp["fc2_w"], lp["fc2_b"])
+
+
+def decoder_layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
+                       v_buf: torch.Tensor, cross_k: torch.Tensor,
+                       cross_v: torch.Tensor, offsets: torch.Tensor,
+                       self_mask: torch.Tensor, num_heads: int,
+                       cross_len: int, cross_k_s: Optional[torch.Tensor] = None,
+                       cross_v_s: Optional[torch.Tensor] = None,
+                       self_s: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decoder layer over a T-token chunk in plain PyTorch on every
+    device — the plain version of K2 (exact f32 products, the plain
+    cross-attention and FFN); writes the chunk's K/V rows into
+    ``k_buf``/``v_buf`` (B, max_len, D) in place.  Returns the new hidden.
+
+    int8 self slabs (``self_s`` (B, max_len, 2H) given): the chunk's rows are
+    committed quantized per (position, head) with their scales; attention
+    then reads the history rows dequantized to bf16 but the chunk's own rows
+    as the fresh bf16 K/V."""
+    return _layer_step(lp, h, k_buf, v_buf, cross_k, cross_v, offsets, self_mask,
+                       num_heads, cross_len, cross_k_s, cross_v_s, self_s,
+                       proj=dense_exact, cross_fn=decode_ops.cross_attention_decode_plain,
+                       ffn_fn=_ffn_plain)
+
+
+def decoder_layer_ops(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
+                      v_buf: torch.Tensor, cross_k: torch.Tensor, cross_v: torch.Tensor,
+                      offsets: torch.Tensor, self_mask: torch.Tensor, num_heads: int,
+                      cross_len: int, cross_k_s: Optional[torch.Tensor] = None,
+                      cross_v_s: Optional[torch.Tensor] = None,
+                      self_s: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decoder layer of the per-op step (the JAX scan path): the
+    projections through :func:`dense` (cuBLAS, or K6 at int8), the
+    self-attention in PyTorch, cross-attention through K10 and the bf16 FFN
+    through K11 (ops/decode_ops.py); on CPU tensors the wrappers run their
+    plain versions."""
+    return _layer_step(lp, h, k_buf, v_buf, cross_k, cross_v, offsets, self_mask,
+                       num_heads, cross_len, cross_k_s, cross_v_s, self_s,
+                       proj=dense, cross_fn=decode_ops.cross_attention_decode,
+                       ffn_fn=_ffn_ops)
+
+
+def run_layers(layer_fn, dec_layers: Params, ln_post: Params, x: torch.Tensor,
+               self_k: torch.Tensor, self_v: torch.Tensor, cross_k: torch.Tensor,
+               cross_v: torch.Tensor, offsets: torch.Tensor,
+               chunk_mask: Optional[torch.Tensor], cross_len: int, num_heads: int,
+               cross_k_s: Optional[torch.Tensor] = None,
+               cross_v_s: Optional[torch.Tensor] = None,
+               self_s: Optional[torch.Tensor] = None, block: Optional[Params] = None):
+    """``layer_fn`` over every stacked decoder layer (slot i of each cache
+    slab), then ``ln_post``, then the block (if given) on ln_post's output
+    at slot L; (pre_norm, hidden, block_hidden or None), the self slabs
+    (and scales) updated in place."""
+    from whisper_medusa_tpu_torch.ops import megastep
+
+    nl = megastep.check_slots(dec_layers, self_k, block)
+    mask = make_step_mask(offsets, x.shape[1], self_k.shape[2], chunk_mask)
+    at = lambda a, i: None if a is None else a[i]
+
+    def step(lp, h, i):
+        return layer_fn(lp, h, self_k[i], self_v[i], cross_k[i], cross_v[i], offsets, mask,
+                        num_heads, cross_len, cross_k_s=at(cross_k_s, i),
+                        cross_v_s=at(cross_v_s, i), self_s=at(self_s, i))
+
+    h = x
+    for layer in range(nl):
+        h = step(layer_params(dec_layers, layer), h, layer)
+    hidden = layer_norm(h, ln_post["scale"], ln_post["bias"])
+    block_hidden = None if block is None else step(block, hidden, nl)
+    return h, hidden, block_hidden
+
+
+def decoder_layers_ops(dec_layers: Params, ln_post: Params, x: torch.Tensor,
+                       self_k: torch.Tensor, self_v: torch.Tensor, cross_k: torch.Tensor,
+                       cross_v: torch.Tensor, offsets: torch.Tensor,
+                       chunk_mask: Optional[torch.Tensor], cross_len: int, num_heads: int,
+                       cross_k_s: Optional[torch.Tensor] = None,
+                       cross_v_s: Optional[torch.Tensor] = None,
+                       self_s: Optional[torch.Tensor] = None,
+                       block: Optional[Params] = None):
+    """The per-op decoder step — the JAX ``lax.scan`` over
+    ``decoder_layer_step`` (whisper.py:1223-1279) that serves what K2 does
+    not take: :func:`decoder_layer_ops` over every layer, ``ln_post``, then
+    the Medusa-Block layer on slot L.  Same arguments and outputs as
+    ``ops/megastep.py::fused_decoder_layers``."""
+    return run_layers(decoder_layer_ops, dec_layers, ln_post, x, self_k, self_v, cross_k,
+                      cross_v, offsets, chunk_mask, cross_len, num_heads,
+                      cross_k_s=cross_k_s, cross_v_s=cross_v_s, self_s=self_s, block=block)
 
 
 @dataclasses.dataclass
@@ -464,21 +556,28 @@ def decode_step(params: Params, dims: WhisperDims, tokens: torch.Tensor,
     after ``ln_post`` on ``hidden``, on the cache's last slot (init_cache
     ``extra_layers=1``), and gives ``block_hidden`` (no ``ln_post``).  It
     goes to K2 as a layer of its own, never concatenated onto the stacked
-    decoder weights (that would copy every decoder weight per call)."""
+    decoder weights (that would copy every decoder weight per call).
+
+    Dispatch, as the JAX package's: K2 (``fused_decoder_layers``) where
+    ``megastep.fits`` the call, else the per-op step
+    (:func:`decoder_layers_ops`): B > 8, T > 16, widths off K2's scope."""
     from whisper_medusa_tpu_torch.ops import megastep
 
     dec = params["decoder"]
     t = tokens.shape[1]
+    nh = dims.decoder_attention_heads
     if rel_positions is None:
         rel_positions = torch.arange(t, device=tokens.device)
     abs_pos = (offsets[:, None] + rel_positions[None, :]).clamp(
         0, dims.max_target_positions - 1)
     x = embed_lookup(dec["embed_tokens"], tokens) + dec["pos_embed"][abs_pos]
-    pre_norm, hidden, block_hidden = megastep.fused_decoder_layers(
+    fused = megastep.fits(dec["layers"], x, cache.self_k, cache.cross_k, nh)
+    fn = megastep.fused_decoder_layers if fused else decoder_layers_ops
+    pre_norm, hidden, block_hidden = fn(
         dec["layers"], dec["ln_post"], x, cache.self_k, cache.self_v,
         cache.cross_k, cache.cross_v, offsets.to(torch.int32), chunk_mask,
         cross_len=min(dims.max_source_positions, cache.cross_k.shape[4]),
-        num_heads=dims.decoder_attention_heads, cross_k_s=cache.cross_k_s,
+        num_heads=nh, cross_k_s=cache.cross_k_s,
         cross_v_s=cache.cross_v_s, self_s=cache.self_s, block=block)
     return DecoderOutput(hidden=hidden, pre_norm=pre_norm, block_hidden=block_hidden)
 

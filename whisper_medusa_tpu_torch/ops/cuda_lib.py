@@ -50,6 +50,8 @@ _SIGNATURES = {
     "wm_qmm": [_vp] * 4 + [_ci] * 3 + [_vp],
     "wm_qmm_nt": [_vp] * 4 + [_ci] * 3 + [_vp],
     "wm_log_mel": [_vp] * 5 + [_ci] * 3 + [_vp],
+    "wm_cross_decode": [_vp] * 6 + [_ci] * 5 + [_vp],
+    "wm_ffn_decode": [_vp] * 7 + [_ci] * 3 + [_vp],
 }
 
 

@@ -45,8 +45,10 @@ The plain version is the ``models/whisper.py::decoder_layer_step`` loop
 followed by ``layer_norm`` (and the block's ``decoder_layer_step``).  Both
 update the self slabs (and scales) in place and return ``(pre_norm, hidden,
 block_hidden)``, ``block_hidden`` None without a block.  Scope of the
-kernel: bf16 activations, bf16 or int8 weights and caches, B <= 8, T <= 16
-(so B*T <= 128), Dh = 64, d_model and ffn_dim multiples of 256.
+kernel (:func:`fits`): bf16 activations, bf16 or int8 weights and caches,
+B <= 8, T <= 16 (so B*T <= 128), Dh = 64, d_model and ffn_dim multiples of
+256; ``models/whisper.py::decode_step`` sends every other call to the
+per-op step (kernels K10 and K11, ops/decode_ops.py).
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ MAX_B = 8
 MAX_T = 16               # csrc/megastep.cu MAXT
 MAX_ROWS = 128           # csrc/common.cuh SK_MAX_ROWS
 CROSS_CHUNK = 128        # csrc/megastep.cu CS
+SMEM_MAX = 227 * 1024    # an H100 CTA's shared memory
 
 launches = 0            # bf16 mode
 q_launches = 0          # int8 mode
@@ -89,16 +92,33 @@ def _leaf(tree, path):
     return tree
 
 
-def _check_slots(dec_layers: Params, self_k, block) -> int:
+def check_slots(dec_layers: Params, self_k, block) -> int:
     """The number of decoder layers L; the slabs must hold L slots, and one
     more (slot L) for the block."""
     nl = dec_layers["fc1_b"].shape[0]
     want = nl + (block is not None)
     if self_k.shape[0] != want:
-        raise ValueError(f"megastep: the caches must hold {want} layer slots "
+        raise ValueError(f"the caches must hold {want} layer slots "
                          f"({nl} layers{' + the block' if block is not None else ''}), "
                          f"got {self_k.shape[0]}")
     return nl
+
+
+def fits(dec_layers: Params, x: torch.Tensor, self_k: torch.Tensor,
+         cross_k: torch.Tensor, num_heads: int) -> bool:
+    """Whether K2 takes this decode call — the counterpart of JAX
+    ``megastep.available``: B <= 8, T <= 16, heads of 64, d_model and
+    ffn_dim multiples of 256, a cross length that is a multiple of 4 and a
+    self slab whose attention rows fit an SM's shared memory.  It reads only
+    shapes, so it routes a call alike on the CPU and on the card;
+    ``models/whisper.py::decode_step`` runs the per-op step where it is
+    False."""
+    b, t, d = x.shape
+    f = dec_layers["fc1_b"].shape[-1]
+    s_len = self_k.shape[2]
+    self_smem = t * (64 + s_len) * 4 + 16 + s_len * 64 * 2    # megastep.cu self_smem
+    return (1 <= b <= MAX_B and 1 <= t <= MAX_T and d == 64 * num_heads and d % 256 == 0
+            and f % 256 == 0 and cross_k.shape[-1] % 4 == 0 and self_smem <= SMEM_MAX)
 
 
 def megastep_plain(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross_k,
@@ -108,22 +128,10 @@ def megastep_plain(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross
     the block (if given) on ln_post's output at slot L."""
     from whisper_medusa_tpu_torch.models import whisper
 
-    nl = _check_slots(dec_layers, self_k, block)
-    mask = whisper.make_step_mask(offsets, x.shape[1], self_k.shape[2], chunk_mask)
-    at = lambda a, i: None if a is None else a[i]
-
-    def step(lp, h, i):
-        return whisper.decoder_layer_step(
-            lp, h, self_k[i], self_v[i], cross_k[i], cross_v[i], offsets, mask,
-            num_heads, cross_len, cross_k_s=at(cross_k_s, i),
-            cross_v_s=at(cross_v_s, i), self_s=at(self_s, i))
-
-    h = x
-    for layer in range(nl):
-        h = step(whisper.layer_params(dec_layers, layer), h, layer)
-    hidden = whisper.layer_norm(h, ln_post["scale"], ln_post["bias"])
-    block_hidden = None if block is None else step(block, hidden, nl)
-    return h, hidden, block_hidden
+    return whisper.run_layers(whisper.decoder_layer_step, dec_layers, ln_post, x, self_k,
+                              self_v, cross_k, cross_v, offsets, chunk_mask, cross_len,
+                              num_heads, cross_k_s=cross_k_s, cross_v_s=cross_v_s,
+                              self_s=self_s, block=block)
 
 
 def _check_int8(name, layer_tree, ln, x):
@@ -157,7 +165,7 @@ def megastep_kernel(dec_layers: Params, ln_post: Params, x, self_k, self_v, cros
     when the weights are int8 (then the caches, and the block, must be too)."""
     global launches, q_launches, block_launches, q_block_launches
     b, t, d = x.shape
-    nl = _check_slots(dec_layers, self_k, block)
+    nl = check_slots(dec_layers, self_k, block)
     _, _, s_len, _ = self_k.shape
     n_slots = self_k.shape[0]
     s_enc = cross_k.shape[4]
@@ -190,15 +198,18 @@ def megastep_kernel(dec_layers: Params, ln_post: Params, x, self_k, self_v, cros
                              "self_s (L, B, S, 2H), L counting the block's slot")
         extra = scales + [cross_k_s, cross_v_s, self_s]
     dh = d // num_heads
-    if (b > MAX_B or t > MAX_T or dh != 64 or d % 256 or f % 256
-            or self_k.shape != (n_slots, b, s_len, d) or self_v.shape != self_k.shape
-            or cross_k.shape != (n_slots, b, num_heads, dh, s_enc)
-            or cross_v.shape != (n_slots, b, s_enc, d)
-            or s_enc % 4 or not 1 <= cross_len <= s_enc):
+    if not fits(dec_layers, x, self_k, cross_k, num_heads):
         raise ValueError(
             f"megastep kernel takes B <= {MAX_B}, T <= {MAX_T}, Dh=64, D and F multiples "
-            f"of 256, S_enc % 4 == 0 and KVCache layouts; got x {tuple(x.shape)}, self "
-            f"{tuple(self_k.shape)}, cross_k {tuple(cross_k.shape)}, F={f}")
+            f"of 256 and S_enc % 4 == 0; got x {tuple(x.shape)}, cross_k "
+            f"{tuple(cross_k.shape)}, F={f}")
+    if (self_k.shape != (n_slots, b, s_len, d) or self_v.shape != self_k.shape
+            or cross_k.shape != (n_slots, b, num_heads, dh, s_enc)
+            or cross_v.shape != (n_slots, b, s_enc, d) or not 1 <= cross_len <= s_enc):
+        raise ValueError(
+            f"megastep kernel takes KVCache layouts and 1 <= cross_len <= S_enc; got x "
+            f"{tuple(x.shape)}, self {tuple(self_k.shape)}, cross_k "
+            f"{tuple(cross_k.shape)}, cross_v {tuple(cross_v.shape)}, cross_len {cross_len}")
     if offsets.dtype != torch.int32 or offsets.shape != (b,) or offsets.device != x.device:
         raise ValueError("offsets must be int32 (B,) on the kernel's device")
     if chunk_mask is None:

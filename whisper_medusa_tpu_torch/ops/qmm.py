@@ -40,7 +40,7 @@ from whisper_medusa_tpu_torch.ops import cuda_lib
 Params = Dict[str, Any]
 
 TILE = 64                # csrc/qmm.cu QT, csrc/common.cuh VT
-MAX_NT_ROWS = 192        # as K3 (ops/logits.py MAX_M): rows in 128-row blocks
+MAX_NT_ROWS = 192        # rows per K7 launch, as K3 (ops/logits.py MAX_M)
 
 launches = 0             # K6 (wm_qmm) launches
 nt_launches = 0          # K7 (wm_qmm_nt) launches
@@ -104,19 +104,21 @@ def qmm_kernel(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.
 
 
 def qmm_nt_kernel(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Launch K7: x (M <= 192, K) bf16, wq (N, K) int8, scale (N,) f32 ->
-    (M, N) f32."""
+    """Launch K7: x (M, K) bf16, wq (N, K) int8, scale (N,) f32 -> (M, N)
+    f32; rows in blocks of up to 192, one launch each."""
     global nt_launches
     m, k = x.shape
     n = wq.shape[0]
     _check_weight("qmm_nt", x, wq, scale, n)
-    if wq.shape[1] != k or k % TILE or not 1 <= m <= MAX_NT_ROWS:
-        raise ValueError(f"qmm_nt kernel takes M <= {MAX_NT_ROWS} rows and K % {TILE} "
-                         f"== 0; got x {tuple(x.shape)}, wq {tuple(wq.shape)}")
+    if wq.shape[1] != k or k % TILE or m < 1:
+        raise ValueError(f"qmm_nt kernel takes K % {TILE} == 0; got x {tuple(x.shape)}, "
+                         f"wq {tuple(wq.shape)}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    cuda_lib.launch("wm_qmm_nt", x.device, x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-                    out.data_ptr(), m, n, k)
-    nt_launches += 1
+    for r0 in range(0, m, MAX_NT_ROWS):
+        rows = min(MAX_NT_ROWS, m - r0)
+        cuda_lib.launch("wm_qmm_nt", x.device, x[r0:].data_ptr(), wq.data_ptr(),
+                        scale.data_ptr(), out[r0:].data_ptr(), rows, n, k)
+        nt_launches += 1
     return out
 
 

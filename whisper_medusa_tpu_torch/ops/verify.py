@@ -36,8 +36,10 @@ state, scored as the verification rows) and the heads 0..K-1 build row
 blocks 1..K from ``hsrc`` (the block layer's output), so R = (K + 1) * B * N.
 
 Rows are ordered (k, e, n): head-major over flattened (batch, node).  Scope:
-chain + greedy, K4 at B*N <= 16 and R <= 128, K5 at R <= 1024; the fused
-timestamp rules (``ts_cfg``) are not ported yet.
+chain + greedy, K4 at B*N <= 16 and R <= 128; K5 launches take R <= 1024
+and ``head_rows`` launches M <= 128, so their wrappers send more rows in
+blocks (pass A at B > 8); the fused timestamp rules (``ts_cfg``) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -54,8 +56,8 @@ from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
 
 NEG = -float(np.finfo(np.float32).max) / 2
 MAX_R = 128              # K4
-MAX_ROWS_R = 1024        # K5 (csrc/verify.cu VR_MAX_ROWS, the JAX _MAX_R)
-MAX_SRC_ROWS = 128       # head_rows (csrc/common.cuh SK_MAX_ROWS)
+MAX_ROWS_R = 1024        # rows per K5 launch (csrc/verify.cu VR_MAX_ROWS, the JAX _MAX_R)
+MAX_SRC_ROWS = 128       # rows per head_rows launch (csrc/common.cuh SK_MAX_ROWS)
 TILE = 64                # csrc/common.cuh VT
 
 launches = 0             # K4 (verify_hidden) kernel launches, bf16 embedding
@@ -128,28 +130,34 @@ def _operand(name, w, dev, scale_dims):
 
 
 def head_rows_kernel(src: torch.Tensor, heads_w, heads_b: torch.Tensor) -> torch.Tensor:
-    """Launch ``wm_head_rows`` (K4's stage A alone): src (M <= 128, D) bf16,
-    heads (K, D, D) bf16 or int8 with (K, D) f32 scales, biases (K, D) bf16
-    -> (K, M, D)."""
+    """Launch ``wm_head_rows`` (K4's stage A alone): src (M, D) bf16, heads
+    (K, D, D) bf16 or int8 with (K, D) f32 scales, biases (K, D) bf16 ->
+    (K, M, D); rows in blocks of up to 128, one launch each (a row's
+    arithmetic does not depend on the others)."""
     global head_launches, q_head_launches
     cuda_lib.require_cuda("head_rows", src, heads_b)
     w, ws = _operand("head_rows", heads_w, src.device, 2)
     m, d = src.shape
     nh = w.shape[0]
-    if (not 1 <= m <= MAX_SRC_ROWS or d % 256 or w.shape != (nh, d, d)
-            or heads_b.shape != (nh, d)):
-        raise ValueError(f"head_rows kernel takes M <= {MAX_SRC_ROWS} rows, D % 256 "
-                         f"== 0; got src {tuple(src.shape)}, heads {tuple(w.shape)}")
-    src16 = torch.zeros((-(-m // 16) * 16, d), dtype=src.dtype, device=src.device)
-    src16[:m] = src
+    if m < 1 or d % 256 or w.shape != (nh, d, d) or heads_b.shape != (nh, d):
+        raise ValueError(f"head_rows kernel takes D % 256 == 0; got src "
+                         f"{tuple(src.shape)}, heads {tuple(w.shape)}")
     out = torch.empty((nh, m, d), dtype=src.dtype, device=src.device)
-    cuda_lib.launch("wm_head_rows", src.device, src16.data_ptr(), w.data_ptr(),
-                    heads_b.data_ptr(), out.data_ptr(),
-                    None if ws is None else ws.data_ptr(), m, d, nh)
-    if ws is None:
-        head_launches += 1
-    else:
-        q_head_launches += 1
+    for r0 in range(0, m, MAX_SRC_ROWS):
+        n = min(MAX_SRC_ROWS, m - r0)
+        src16 = torch.zeros((-(-n // 16) * 16, d), dtype=src.dtype, device=src.device)
+        src16[:n] = src[r0:r0 + n]
+        blk = out if n == m else torch.empty((nh, n, d), dtype=src.dtype,
+                                             device=src.device)
+        cuda_lib.launch("wm_head_rows", src.device, src16.data_ptr(), w.data_ptr(),
+                        heads_b.data_ptr(), blk.data_ptr(),
+                        None if ws is None else ws.data_ptr(), n, d, nh)
+        if n != m:
+            out[:, r0:r0 + n] = blk
+        if ws is None:
+            head_launches += 1
+        else:
+            q_head_launches += 1
     return out
 
 
@@ -223,32 +231,39 @@ def _stat_outputs(r, ntiles, dev):
 
 def verify_rows_kernel(hs, embed, pos, gcol, sup_masks, *, begin_index: int,
                        eos_id: int, decay):
-    """Launch K5 over rows hs (R <= 1024, D) bf16; the embedding (V, D) bf16
-    or int8."""
+    """Launch K5 over rows hs (R, D) bf16, in blocks of up to 1024 rows; the
+    embedding (V, D) bf16 or int8."""
     global rows_launches, q_rows_launches
     cuda_lib.require_cuda("verify_rows", hs)
     embed, escale = _operand("verify_rows", embed, hs.device, 1)
     r, d = hs.shape
     v = embed.shape[0]
-    if not 1 <= r <= MAX_ROWS_R or d % TILE or embed.shape[1] != d:
-        raise ValueError(f"verify_rows kernel takes 1 <= R <= {MAX_ROWS_R} rows and "
-                         f"D % {TILE} == 0; got rows {tuple(hs.shape)}, embed "
-                         f"{tuple(embed.shape)}")
+    if r < 1 or d % TILE or embed.shape[1] != d:
+        raise ValueError(f"verify_rows kernel takes D % {TILE} == 0; got rows "
+                         f"{tuple(hs.shape)}, embed {tuple(embed.shape)}")
     dev = hs.device
     _check_meta(dev, r, v, pos, gcol, sup_masks)
-    part_f, part_a, mx, lse, am, gth = _stat_outputs(r, -(-v // TILE), dev)
-    tensors = [hs, embed, pos, gcol, sup_masks, part_f, part_a, mx, lse, am, gth]
-    ptrs = (ctypes.c_void_p * (len(tensors) + 1))(
-        *[t.data_ptr() for t in tensors], None if escale is None else escale.data_ptr())
     start, factor = decay if decay is not None else (0, 1.0)
-    ints = (ctypes.c_int * 7)(r, d, v, begin_index, eos_id, int(decay is not None),
-                              int(start))
-    cuda_lib.launch("wm_verify_rows", dev, ptrs, ints, float(math.log(factor)))
-    if escale is None:
-        rows_launches += 1
-    else:
-        q_rows_launches += 1
-    return am, mx, lse, gth
+    outs = []
+    for r0 in range(0, r, MAX_ROWS_R):
+        n = min(MAX_ROWS_R, r - r0)
+        part_f, part_a, mx, lse, am, gth = _stat_outputs(n, -(-v // TILE), dev)
+        tensors = [hs[r0:], embed, pos[r0:], gcol[r0:], sup_masks, part_f, part_a, mx,
+                   lse, am, gth]
+        ptrs = (ctypes.c_void_p * (len(tensors) + 1))(
+            *[t.data_ptr() for t in tensors],
+            None if escale is None else escale.data_ptr())
+        ints = (ctypes.c_int * 7)(n, d, v, begin_index, eos_id, int(decay is not None),
+                                  int(start))
+        cuda_lib.launch("wm_verify_rows", dev, ptrs, ints, float(math.log(factor)))
+        if escale is None:
+            rows_launches += 1
+        else:
+            q_rows_launches += 1
+        outs.append((am, mx, lse, gth))
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def verify_rows(hs: torch.Tensor, embed, pos: torch.Tensor, gcol: torch.Tensor,
