@@ -9,7 +9,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   2. build the Hopper kernels from whisper_medusa_tpu_torch/csrc (one nvcc
      per source, in parallel);
   3. hold each kernel against its plain PyTorch version at the shapes the
-     paths give it, bf16 and int8 (K8 log_mel on the frontend's audio; the
+     paths give it, bf16 and int8 (K1's log-sum-exp output; K8 log_mel on
+     the frontend's audio; the
      int8 modes of K2, K4, K5 and head_rows; K2's Medusa-Block mode and K4's
      identity0 rows, bf16 and int8; K6 qmm and K7 qmm_nt; K10 decode
      cross-attention, bf16 and int8, and K11 decode FFN at the per-op
@@ -40,17 +41,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      vanilla and Medusa-Block (accepted counts are printed, not held equal);
      whether generate at B=8 gives each example its B=1 tokens end to end,
      and whether the decode at B=16 (per-op step) gives each example its B=1
-     tokens (K2), are printed, not required;
+     tokens (K2), are printed, not required; then whisper tiny (d_model
+     384, the per-op step, K2 at 0 launches): K11, head_rows and K4 at
+     D=384 against their plain versions (three kernels rows), Medusa at B=1
+     and B=8, vanilla at B=1, int8 Medusa and Medusa-Block at B=1 driven as
+     in phase 4, and its decode at B=8 held to its B=1 tokens;
   7. training: the grad guard (a kernel without a backward refuses an
-     operand that requires grad); K9, the attention backward, against its
-     plain version off the path and at the three training shapes (timed
-     against the plain version and SDPA's backward); a 2-layer full-width
+     operand that requires grad); K9, the one-pass attention backward from
+     K1's output and log-sum-exp, against both plain versions off the path
+     and at the three training shapes (dK and dV bitwise equal over two
+     runs; timed against the plain version and SDPA's backward); a 2-layer full-width
      train step of each recipe on the card against a float32 CPU copy; then
      at full large-v2 width, bf16, B=2, T=224, each driven with the launch
      counters as in phase 4: 3 steps of the Medusa-Block recipe, 3 of the
      Medusa-Linear recipe and one full fine-tune step, with their K9 launch
      counts (2, 2 and 96 per step), frozen weights bit-identical and peak
-     memory; and the training CLI, whose saved model answers a generate.
+     memory; and the training CLI at whisper tiny, whose saved model
+     answers a generate.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -515,6 +522,31 @@ def check_logits(g, embed):
                          bound(nbytes(x10, embed) + m * v * 4, 2 * m * v * d), lib_ms)
 
 
+def check_attention_lse(g):
+    """K1's log-sum-exp output (``return_lse=True``, what training saves for
+    K9) against attention_lse_plain, within 1e-3 absolute (an f32 log of f32
+    sums; the kernel's __expf against torch.exp): at (1, 4, 300, 64) causal
+    with kv_len 257, and at (2, 20, 1500, 64).  The output beside it is
+    bitwise the output without it (serving's launch)."""
+    from whisper_medusa_tpu_torch.ops import attention as A
+
+    worst = 0.0
+    for (b, h, s), kv_len, causal in (((1, 4, 300), 257, True), ((2, 20, 1500), 1500, False)):
+        q, k, v = (torch.randn((b, h, s, 64), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        q = (q.float() * 0.25).to(torch.bfloat16)
+        out, lse = A.attention_kernel(q, k, v, kv_len, causal, return_lse=True)
+        ref = A.attention_lse_plain(q, k, kv_len, causal)
+        err = max_err(lse, ref)
+        same = torch.equal(out, A.attention_kernel(q, k, v, kv_len, causal))
+        log(f"K1 log-sum-exp ({b},{h},{s},64) kv_len {kv_len} causal {causal}: "
+            f"max_abs_err {err:.3e}; output bitwise the serving launch's {same}")
+        require(lse.shape == (b, h, s) and err <= 1e-3 and same,
+                f"K1 log-sum-exp ({b},{h},{s}): err {err}, same output {same}")
+        worst = max(worst, err)
+    return worst
+
+
 def _verify_inputs(g, model, r):
     """Processor masks, positions and gathered columns for R rows, with
     begin-suppress (begin_index 4) and the EOS decay (from position 9) hit."""
@@ -562,12 +594,13 @@ def _stats_ok(model, got, ref):
     return err <= 1e-2, err
 
 
-def check_verify(g, model, identity0=False):
+def check_verify(g, model, identity0=False, name=None):
     """K4 at R = 121 on the 11-node chain: base_head (row block 0 is head 0
     of the hidden rows; 11 heads) or, with ``identity0``, Medusa-Block (row
     block 0 is the hidden state itself, the 10 heads draft from a second
     source, the block's output).  Argmax equal on rows whose plain top-2
-    gap exceeds 1e-2; max / lse / gathered as _stats_ok holds them."""
+    gap exceeds 1e-2; max / lse / gathered as _stats_ok holds them.  The
+    row is called ``name`` where given."""
     from whisper_medusa_tpu_torch.ops import qmm as QM
     from whisper_medusa_tpu_torch.ops import verify as VF
 
@@ -589,7 +622,7 @@ def check_verify(g, model, identity0=False):
     rows = VF.build_rows(hid, src, hw, hb, identity0)
     arg_ok, n_clear = _clear_argmax(rows, embed, pos, masks, kw, got[0], ref[0], 1e-2)
     ok, err = _stats_ok(model, got, ref)
-    name = "verify_hidden" + ("_id0" if identity0 else "") + ("_int8" if q else "")
+    name = name or ("verify_hidden" + ("_id0" if identity0 else "") + ("_int8" if q else ""))
     log(f"K4 {name} R={kp1 * n_nodes}: argmax equal on {n_clear} clear rows: "
         f"{arg_ok}; max/lse/gathered max_abs_err {err:.3e}")
     require(arg_ok and ok and got[0].shape == (kp1 * n_nodes,),
@@ -616,17 +649,17 @@ def _tensors(w):
     return [w["q"], w["s"]] if QM.is_quantized(w) else [w]
 
 
-def check_head_rows(g, model):
+def check_head_rows(g, model, name=None):
     """K4's stage A alone (wm_head_rows) at the shapes the loop gives it,
     elementwise within 3e-2: head 0 at M = 88 and 176 (the two-pass loop's
     head-0 rows at B=8 and B=16, 11 nodes; 176 in two launches), and the 10
     draft heads at M = 8 and 16 (prefill and pass B at B=8 and 16) and M = 1
-    (prefill at B=1)."""
+    (prefill at B=1); the row is called ``name`` where given."""
     from whisper_medusa_tpu_torch.ops import qmm as QM
     from whisper_medusa_tpu_torch.ops import verify as VF
 
     q = _int8(model)
-    name = "head_rows_int8" if q else "head_rows"
+    name = name or ("head_rows_int8" if q else "head_rows")
     heads = model.params["medusa"]["heads"]
     w, b = QM.wmap(heads["w"], lambda a: a[:, 0]), heads["b"][:, 0]
     d = model.config.dims.d_model
@@ -817,16 +850,18 @@ def check_cross_decode(g):
     return rows
 
 
-def check_ffn_decode(g):
-    """K11 against its plain version at D=1280, F=5120: M = 176 (the Medusa
-    chain at B=16), 16 (vanilla at B=16), 1 and 130 (two row blocks, a
-    2-row tail) elementwise within 2e-2 + 2e-2 |x| (one bf16 rounding of
-    the GELU output and of y, sums in another order).  Timed at M=176
-    against the plain version; no one PyTorch call computes the FFN, so the
-    three-call cuBLAS + GELU time (addmm, gelu, addmm) is printed."""
+def check_ffn_decode(g, d=1280, f=5120, timed_m=176, name="ffn_decode"):
+    """K11 against its plain version at (D, F) (large-v2's 1280, 5120 by
+    default; tiny's 384, 1536, whose fc1 splits 24 K-steps unevenly over
+    the skinny GEMM's 16 warps): M = 176 (the Medusa chain at B=16), 16
+    (vanilla at B=16; the Medusa chain's pass at B=1 is 11), 1 and 130 (two
+    row blocks, a 2-row tail) elementwise within 2e-2 + 2e-2 |x| (one bf16
+    rounding of the GELU output and of y, sums in another order).  Timed at
+    ``timed_m`` against the plain version; no one PyTorch call computes the
+    FFN, so the three-call cuBLAS + GELU time (addmm, gelu, addmm) is
+    printed."""
     from whisper_medusa_tpu_torch.ops import decode_ops as DO
 
-    d, f = 1280, 5120
     rnd = lambda *shape, scale=0.02: (torch.randn(shape, generator=g, device="cuda")
                                       * scale).to(torch.bfloat16)
     w1, b1, w2, b2 = rnd(d, f), rnd(f), rnd(f, d), rnd(d)
@@ -836,20 +871,24 @@ def check_ffn_decode(g):
         got = DO.ffn_decode_kernel(x, w1, b1, w2, b2)
         ref = DO.ffn_decode_plain(x, w1, b1, w2, b2)
         err = max_err(got, ref)
-        log(f"K11 ffn_decode M={m} D={d} F={f}: max_abs_err {err:.3e}")
-        require(got.shape == ref.shape and close(got, ref, 2e-2), f"K11 M={m}: err {err}")
+        log(f"K11 {name} M={m} D={d} F={f}: max_abs_err {err:.3e}")
+        require(got.shape == ref.shape and close(got, ref, 2e-2),
+                f"K11 {name} M={m}: err {err}")
         worst, xs[m] = max(worst, err), x
-    x16 = xs[16]
-    log(f"K11 ffn_decode M=16: kernel "
-        f"{cuda_ms(lambda: DO.ffn_decode_kernel(x16, w1, b1, w2, b2)):.4f} ms")
-    x = xs[176]
+    for m in (16, 176):
+        if m != timed_m:
+            xm = xs[m]
+            log(f"K11 {name} M={m}: kernel "
+                f"{cuda_ms(lambda: DO.ffn_decode_kernel(xm, w1, b1, w2, b2)):.4f} ms")
+    x = xs[timed_m]
     ms = cuda_ms(lambda: DO.ffn_decode_kernel(x, w1, b1, w2, b2))
     plain_ms = cuda_ms(lambda: DO.ffn_decode_plain(x, w1, b1, w2, b2))
     gelu = torch.nn.functional.gelu
     three_ms = cuda_ms(lambda: torch.addmm(b2, gelu(torch.addmm(b1, x, w1)), w2))
-    log(f"K11 ffn_decode M=176: three PyTorch calls (addmm, gelu, addmm) {three_ms:.4f} ms")
+    log(f"K11 {name} M={timed_m}: three PyTorch calls (addmm, gelu, addmm) "
+        f"{three_ms:.4f} ms")
     m = x.shape[0]
-    return kernel_record("ffn_decode", DECODE_OPS_SOURCE,
+    return kernel_record(name, DECODE_OPS_SOURCE,
                          "tools/decode_kernels_experiment.py:110", (DO, "ffn_launches"),
                          worst, ms, plain_ms,
                          bound(nbytes(x, w1, b1, w2, b2) + m * d * 2, 4 * m * d * f), None)
@@ -1164,7 +1203,7 @@ def report(name, out, wall, n_gen):
 def check_batch_invariance(model, enc8, variants=("base_head", "vanilla")):
     """speculative_generate at B=8 on the batched encoder output gives every
     example exactly the tokens of a B=1 decode of its encoder row, for each
-    of ``variants``."""
+    of ``variants`` (whisper tiny: both through the per-op step)."""
     from whisper_medusa_tpu_torch.config import GenerationConfig
     from whisper_medusa_tpu_torch.decoding.buffers import generate_medusa_buffers
     from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig
@@ -1180,7 +1219,7 @@ def check_batch_invariance(model, enc8, variants=("base_head", "vanilla")):
                            begin_index=PROMPT_LEN, eos_token_id=st.eos)
     gen = GenerationConfig(max_length=PROMPT_LEN + MAX_NEW_TOKENS, eos_token_id=st.eos,
                            pad_token_id=gd.pad_token_id)
-    mode = "int8" if _int8(model) else "bf16"
+    mode = ("int8" if _int8(model) else "bf16") + f" d_model {cfg.dims.d_model}"
     for variant in variants:
         vanilla = variant == "vanilla"
         choices = (1,) if vanilla else cfg.medusa.medusa_choices
@@ -1351,6 +1390,70 @@ def phase_b16_requests(model, qmodel, bmodel, kernels, feats16, proc_k, waves16,
     return outs
 
 
+# Whisper tiny (d_model 384): every decode call takes the per-op step (K2
+# takes d_model % 256 == 0), whose K11, head_rows and K4 split 24 K-steps
+# over the skinny GEMM's 16 warps.
+TINY_D = 384
+TINY_ROWS = ("ffn_decode d384", "head_rows d384", "verify d384")
+NEEDS_TINY = {
+    "bf16 medusa B=1": ("attention", "cross_decode", "ffn_decode d384", "logits",
+                        "head_rows d384", "verify d384"),
+    "bf16 vanilla B=1": ("attention", "cross_decode", "ffn_decode d384", "logits",
+                         "verify_rows"),
+    f"bf16 medusa B={BATCH}": ("attention", "cross_decode", "ffn_decode d384", "logits",
+                               "head_rows d384", "verify_rows"),
+    "int8 medusa B=1": ("attention", "cross_decode_int8", "qmm", "qmm_nt",
+                        "head_rows_int8", "verify_hidden_int8"),
+    "bf16 medusa_block B=1": ("attention", "cross_decode", "ffn_decode d384", "logits",
+                              "verify_hidden_id0"),
+}
+
+
+def tiny_models():
+    """Whisper tiny at full width (d_model 384, 4 + 4 layers, 6 heads),
+    random bf16 weights from SEED, 10 base_head heads with N(0, 0.02)
+    weights; its int8 copy; a Medusa-Block model on its Whisper weights."""
+    from whisper_medusa_tpu_torch.config import WHISPER_PRESETS, MedusaConfig, ModelConfig
+    from whisper_medusa_tpu_torch.models import bridge
+    from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+
+    cfg = ModelConfig(dims=WHISPER_PRESETS["tiny"],
+                      medusa=MedusaConfig(medusa_hidden_size=TINY_D),
+                      param_dtype="bfloat16", compute_dtype="bfloat16")
+    require(cfg.dims.d_model == TINY_D, "tiny preset width")
+    model = WhisperMedusaModel.from_random(cfg, seed=SEED)
+    hg = torch.Generator(device="cuda")
+    hg.manual_seed(SEED + 1)
+    model.params["medusa"]["heads"]["w"].normal_(0.0, 0.02, generator=hg)
+    return model, model.quantize(), bridge.random_block_model(model, seed=SEED + 2)
+
+
+def phase_tiny_requests(models, kernels, feats, feats8):
+    """Whisper tiny served on the card: Medusa at B=1 and B=8, vanilla at
+    B=1, int8 Medusa at B=1 and Medusa-Block at B=1, each driven as in
+    phase 4 with K2 at 0 launches (the per-op step serves d_model 384);
+    then speculative_generate at B=8 gives every example its B=1 tokens
+    (held, as check_batch_invariance holds K2's)."""
+    model, qmodel, bmodel = models
+    vocab = model.config.dims.vocab_size
+    runs = {"bf16 medusa B=1": (model, feats[0], {}),
+            "bf16 vanilla B=1": (model, feats[0], dict(disable_medusa=True)),
+            f"bf16 medusa B={BATCH}": (model, feats8, {}),
+            "int8 medusa B=1": (qmodel, feats[0], {}),
+            "bf16 medusa_block B=1": (bmodel, feats[0], {})}
+    outs = {}
+    for path, (m, f, kw) in runs.items():
+        m.generate(f, language="en", max_new_tokens=8, **kw)       # warm-up
+        out, wall = drive(f"tiny {path}", kernels,
+                          lambda: m.generate(f, language="en",
+                                             max_new_tokens=MAX_NEW_TOKENS, **kw),
+                          NEEDS_TINY[path], absent=K2_ROWS)
+        report(f"tiny {path} request", out, wall, check_output(out, f.shape[0], vocab))
+        outs[path] = out
+    check_batch_invariance(model, model.encode(feats8), ("base_head",))
+    return outs
+
+
 def report_b16_invariance(model, enc16):
     """Printed, not held: whether speculative_generate at B=16 (the per-op
     step) gives each example its B=1 tokens (K2) from the same encoder row;
@@ -1421,24 +1524,33 @@ K9_REPLACES = "whisper_medusa_tpu/ops/attention.py:179"
 
 
 def _attn_bwd_cost(b, h, sq, skv, kv_len, causal, dh=64):
-    """(bytes, operations) of one attention backward: q, k, v and dO read
-    once, dq, dk and dv written once (bf16); five products of 2 Dh
-    operations over the (query, key) pairs this call's masks leave visible."""
+    """(bytes, operations) of one attention backward from the forward's
+    statistics: q, k, v, dO and O read once (bf16) with the f32 log-sum-exp,
+    dq, dk and dv written once (bf16); five products of 2 Dh operations over
+    the (query, key) pairs this call's masks leave visible."""
     pairs = sum(min(kv_len, i + 1) for i in range(sq)) if causal else sq * kv_len
-    return 2 * dh * b * h * (3 * sq + 4 * skv), 5 * 2 * dh * b * h * pairs
+    return (2 * dh * b * h * (4 * sq + 4 * skv) + 4 * b * h * sq,
+            5 * 2 * dh * b * h * pairs)
 
 
 def check_attention_bwd(g):
-    """K9 against attention_bwd_plain: off the path (ragged Sq, kv_len < Skv,
-    causal and not), then at the training paths' three shapes; dq, dk and dv
-    each within 1e-2 relative (Frobenius) and the dK/dV rows of keys past
-    kv_len exactly 0.  Each main-path shape is timed against the plain
-    version and SDPA's flash backward, and gives one kernels row.  The
-    library time is the one aten call that computes the backward from the
-    flash forward's saved outputs (scale 1.0), held to the plain version
-    like K9: timing SDPA's forward + backward through autograd, minus the
-    forward, measures the host's autograd launches at these sizes."""
+    """K9 (the one-pass backward) from K1's output and log-sum-exp: off the
+    path (ragged Sq, kv_len < Skv, causal and not), then at the training
+    paths' three shapes.  dq, dk and dv each within 1e-2 relative
+    (Frobenius) of both plain versions, attention_bwd_plain (the TPU
+    kernel's arithmetic: row sums of P dP) and attention_bwd_lse_plain (the
+    new kernel's: P from the log-sum-exp, Dsum = dO . O), and the dK/dV rows
+    of keys past kv_len exactly 0.  Each main-path shape runs twice on the
+    same inputs: dK and dV must be bitwise equal, dQ's largest difference
+    (atomics in another order) is printed.  K9 alone (O and the log-sum-exp
+    given) is timed against the plain version and SDPA's flash backward,
+    and gives one kernels row.  The library time is the one aten call that
+    computes the backward from the flash forward's saved outputs (scale
+    1.0), held to the plain version like K9: timing SDPA's forward +
+    backward through autograd, minus the forward, measures the host's
+    autograd launches at these sizes."""
     from whisper_medusa_tpu_torch.ops import attention as A
+    from whisper_medusa_tpu_torch.ops import cuda_lib
 
     flash = torch.ops.aten._scaled_dot_product_flash_attention
     flash_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
@@ -1449,30 +1561,53 @@ def check_attention_bwd(g):
         rnd = lambda n, scale=1.0: (torch.randn((b, h, n, 64), generator=g, device="cuda")
                                     * scale).to(torch.bfloat16)
         q, k, v, do = rnd(sq, 0.25), rnd(skv), rnd(skv), rnd(sq)
-        got = A.attention_bwd_kernel(q, k, v, do, kv_len, causal)
+        o, lse = A.attention_kernel(q, k, v, kv_len, causal, return_lse=True)
+        got = A.attention_bwd_kernel(q, k, v, do, kv_len, causal, o=o, lse=lse)
         ref = A.attention_bwd_plain(q, k, v, do, kv_len, causal)
+        ref2 = A.attention_bwd_lse_plain(q, k, v, o, lse, do, kv_len, causal)
         rels = [rel_err(a, c) for a, c in zip(got, ref)]
-        err = max(max_err(a, c) for a, c in zip(got, ref))
+        rels2 = [rel_err(a, c) for a, c in zip(got, ref2)]
+        err = max(max_err(a, c) for a, c in zip(got, ref2))
         zero = not (got[1][:, :, kv_len:].any() or got[2][:, :, kv_len:].any())
         what = f"K9 attention_bwd ({b},{h},{sq}x{skv},64) kv_len {kv_len} causal {causal}"
-        log(f"{what}: relative error dq {rels[0]:.2e} dk {rels[1]:.2e} dv {rels[2]:.2e}, "
-            f"max_abs_err {err:.3e}, dK/dV past kv_len zero {zero}")
-        require(max(rels) <= 1e-2 and zero, f"{what}: {rels}, zero {zero}")
+        log(f"{what}: relative error to attention_bwd_plain dq {rels[0]:.2e} dk "
+            f"{rels[1]:.2e} dv {rels[2]:.2e}, to attention_bwd_lse_plain dq {rels2[0]:.2e} "
+            f"dk {rels2[1]:.2e} dv {rels2[2]:.2e}, max_abs_err {err:.3e}, dK/dV past "
+            f"kv_len zero {zero}")
+        require(max(rels + rels2) <= 1e-2 and zero, f"{what}: {rels}, {rels2}, zero {zero}")
         key = (sq, skv, causal)
         if b != TRAIN_B or key not in K9_SHAPES:
             continue
-        ms = cuda_ms(lambda: A.attention_bwd_kernel(q, k, v, do, kv_len, causal))
-        plain_ms = cuda_ms(lambda: A.attention_bwd_plain(q, k, v, do, kv_len, causal))
-        out, lse, cq, ck, mq, mk, seed, offset, _ = flash(q, k, v, 0.0, causal, False,
-                                                          scale=1.0)
-        lib = lambda: flash_bwd(do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, causal, seed,
-                                offset, scale=1.0)
+        again = A.attention_bwd_kernel(q, k, v, do, kv_len, causal, o=o, lse=lse)
+        dq_diff = max_err(again[0], got[0])
+        same = torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+        log(f"{what}: a second run on the same inputs: dQ max difference {dq_diff:.3e}, "
+            f"dK and dV bitwise equal {same}")
+        require(same, f"{what}: dK / dV changed between two runs")
+        ms = cuda_ms(lambda: A.attention_bwd_kernel(q, k, v, do, kv_len, causal, o=o,
+                                                    lse=lse))
+        # The C entry alone on buffers allocated once: the wrapper's checks and
+        # allocations are host time that the events above include.
+        bufs = [torch.empty_like(t) for t in (q, k, v)] + [
+            torch.empty((b, h, sq), dtype=torch.float32, device="cuda"),
+            torch.empty((b, h, sq, 64), dtype=torch.float32, device="cuda")]
+        entry_ms = cuda_ms(lambda: cuda_lib.launch(
+            "wm_attention_bwd", q.device, *(t.data_ptr() for t in (q, k, v, o, lse, do)),
+            *(t.data_ptr() for t in bufs), b, h, sq, skv, 64, kv_len, int(causal)))
+        plain_ms = cuda_ms(lambda: A.attention_bwd_lse_plain(q, k, v, o, lse, do, kv_len,
+                                                             causal))
+        tpu_plain_ms = cuda_ms(lambda: A.attention_bwd_plain(q, k, v, do, kv_len, causal))
+        out, lse_f, cq, ck, mq, mk, seed, offset, _ = flash(q, k, v, 0.0, causal, False,
+                                                            scale=1.0)
+        lib = lambda: flash_bwd(do, q, k, v, out, lse_f, cq, ck, mq, mk, 0.0, causal,
+                                seed, offset, scale=1.0)
         lib_rel = max(rel_err(a, c) for a, c in zip(lib(), ref))
         require(lib_rel <= 1e-2, f"{what}: SDPA's flash backward is {lib_rel} from the plain")
         lib_ms = cuda_ms(lib)
         cost = _attn_bwd_cost(b, h, sq, skv, kv_len, causal)
         log(f"{what}: {cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.2f} GFLOP; SDPA's flash "
-            f"backward at relative error {lib_rel:.2e}")
+            f"backward at relative error {lib_rel:.2e}; attention_bwd_plain "
+            f"{tpu_plain_ms:.4f} ms; K9's C entry alone {entry_ms:.4f} ms")
         rows.append(kernel_record(K9_SHAPES[key], K9_SOURCE, K9_REPLACES,
                                   (A, "launches_bwd", key), err, ms, plain_ms,
                                   bound(*cost), lib_ms))
@@ -1628,10 +1763,10 @@ def check_grad_guard(params):
 
 def check_cli():
     """The training CLI in-process, on a temporary CSV of generated WAV
-    files, at --whisper-size base (the smallest preset whose width K2, K4
-    and head_rows take: d_model a multiple of 256), bf16, 2 steps, a
-    checkpoint every step; its model_components/ loads through
-    from_pretrained and answers a generate."""
+    files, at --whisper-size tiny (d_model 384: the generate decodes through
+    the per-op step, K11, head_rows and K4), bf16, 2 steps, a checkpoint
+    every step; its model_components/ loads through from_pretrained and
+    answers a generate."""
     import tempfile
     import wave
 
@@ -1657,7 +1792,7 @@ def check_cli():
         out = os.path.join(tmp, "run")
         t0 = time.perf_counter()
         summary = cli.main(["--train-data-path", data, "--validation-data-path", data,
-                            "--output-path", out, "--whisper-size", "base",
+                            "--output-path", out, "--whisper-size", "tiny",
                             "--param-dtype", "bfloat16", "--max-steps", "2",
                             "--save-steps", "1", "--eval-steps", "2", "--warmup-steps", "0",
                             "--batch-size", "2"])
@@ -1667,7 +1802,7 @@ def check_cli():
         proc = WhisperMedusaProcessor(tokenizer=CharTokenizer())
         res = model.generate(proc(waves[0]), language="en", max_new_tokens=16)
     n_gen = int(res.lengths[0]) - PROMPT_LEN
-    log(f"cli.train.main (base, bf16, 2 steps): {cli_s:.1f} s, {summary}; checkpoints "
+    log(f"cli.train.main (tiny, bf16, 2 steps): {cli_s:.1f} s, {summary}; checkpoints "
         f"{saved}; model_components loaded and generated {n_gen} tokens "
         f"{res.sequences[0, :PROMPT_LEN + n_gen].tolist()}")
     require(summary["final_step"] == 2 and "trainer_state.json" in saved and n_gen >= 1
@@ -1688,6 +1823,7 @@ def main():
 
     # ---- phase 3: kernels vs plain versions
     k1 = check_attention(g)
+    check_attention_lse(g)
     steps2 = ((4, [0]), (11, [7]), (1, [0, 17, 100, 5, 300, 440, 2, 63]),
               (11, [7, 0, 120, 33, 448, 5, 260, 90]))
     err2 = max(check_megastep_2layer(g, t, offs) for t, offs in steps2)
@@ -1799,6 +1935,18 @@ def main():
     check_batch_invariance(bqmodel, enc8, ("medusa_block",))
     report_generate_invariance(model, feats8, outs["medusa B=8"])
     report_b16_invariance(model, enc16)
+
+    # ---- phase 4 at whisper tiny (d_model 384): the per-op step, K2 at 0
+    tiny = tiny_models()
+    kernels += [check_ffn_decode(g, d=TINY_D, f=4 * TINY_D, timed_m=16,
+                                 name="ffn_decode d384"),
+                check_head_rows(g, tiny[0], name="head_rows d384"),
+                check_verify(g, tiny[0], name="verify d384")]
+    phase_tiny_requests(tiny, kernels, feats, feats8)
+    for k in kernels:
+        if k["name"] in TINY_ROWS:
+            log(f"launches {k['name']} (whisper tiny paths): {k['launches']}")
+    del tiny
 
     # ---- phase 7: training (K9), on fresh models after the serving ones go
     check_grad_guard(model.params)

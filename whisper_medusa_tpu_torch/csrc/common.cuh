@@ -5,11 +5,14 @@
 //  * skinny_gemm_kernel: Y[M, N] = epilogue(A[M, K] @ W[K, N] + bias) for
 //    M <= 128 rows (the decode chunk of up to 8 examples, or the
 //    verification source rows), W stored (in, out) as in the JAX package.
-//    One CTA of 16 warps per 16-column output tile; each warp owns a K/16
-//    slice and loads its weight fragments in batches of five, then runs the
-//    tensor-core products of every 16-row tile of A against them, so each
-//    weight element is read once per call whatever M is and a whole weight
-//    matrix is in flight at once.  The 16 per-warp partial tiles of each row
+//    One CTA of 16 warps per 16-column output tile; the K/16 steps of 16
+//    are split over the warps as evenly as they go, in fixed contiguous
+//    ranges (K % 64 == 0; at K % 256 == 0 every warp takes K/256 steps at
+//    offset warp * K/16, and at K = 384 warps 0-7 take two steps, 8-15
+//    one); each warp loads its weight fragments in batches of five, then
+//    runs the tensor-core products of every 16-row tile of A against them,
+//    so each weight element is read once per call whatever M is and a
+//    whole weight matrix is in flight at once.  The 16 per-warp partial tiles of each row
 //    tile are summed in a fixed order in shared memory, one row tile after
 //    the other (deterministic, no atomics).  A row's arithmetic — its K split,
 //    its product order and its reduction order — is the same for every M, so
@@ -125,7 +128,7 @@ struct SkinnyJobs {
   SkinnyJob j[3];
 };
 
-constexpr int SK_WARPS = 16;   // K is split over 16 warps: K % 256 == 0
+constexpr int SK_WARPS = 16;   // K's 16-wide steps are split over 16 warps
 constexpr int SK_BATCH = 5;    // weight fragments loaded per batch
 constexpr int SK_MAX_ROWS = 128;   // 8 row tiles of 16
 
@@ -147,9 +150,12 @@ skinny_gemm_kernel(const bf16* __restrict__ a, int lda, int m_rows, int k_dim,
   const long long batch = njobs == 1 ? y : 0;
   const int n0 = blockIdx.x * 16;
   const int warp = threadIdx.x >> 5;
-  const int kper = k_dim / SK_WARPS;
-  const int kbeg = warp * kper;
-  const int nsteps = kper / 16;
+  // Warp w takes steps [w * base + min(w, extra), + base + (w < extra)) of
+  // the K / 16: contiguous, fixed for a given K, and independent of M.
+  const int ksteps = k_dim / 16;
+  const int base = ksteps / SK_WARPS, extra = ksteps % SK_WARPS;
+  const int kbeg = (warp * base + min(warp, extra)) * 16;
+  const int nsteps = base + (warp < extra ? 1 : 0);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT];
 #pragma unroll

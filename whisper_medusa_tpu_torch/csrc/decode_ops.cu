@@ -230,13 +230,13 @@ extern "C" int wm_cross_decode(const void* q, const void* k, const void* v,
 
 // x (ceil(M / 16) * 16, D) bf16 rows (rows >= M ignored), w1 (D, F), b1 (F,),
 // w2 (F, D), b2 (D,) bf16; h (ceil(M / 16) * 16, F) bf16 scratch; y (M, D)
-// bf16 out.  M <= 128; D, F multiples of 256.
+// bf16 out.  M <= 128; D, F multiples of 64.
 extern "C" int wm_ffn_decode(const void* x, const void* w1, const void* b1, const void* w2,
                              const void* b2, void* h, void* y, int M, int D, int F,
                              void* stream) {
   using namespace wm;
   cudaStream_t st = (cudaStream_t)stream;
-  if (M < 1 || M > SK_MAX_ROWS || D % 256 || F % 256) return (int)cudaErrorInvalidValue;
+  if (M < 1 || M > SK_MAX_ROWS || D % 64 || F % 64) return (int)cudaErrorInvalidValue;
   SkinnyJobs fc1;
   fc1.j[0] = job(w1, static_cast<const bf16*>(b1), static_cast<bf16*>(h), EPI_BIAS_GELU);
   skinny_gemm(static_cast<const bf16*>(x), D, M, D, F, F, F, fc1, 1, 1, 0, 0, 0, st);

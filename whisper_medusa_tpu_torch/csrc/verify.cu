@@ -229,7 +229,7 @@ extern "C" int wm_verify_hidden(void** p, const int* ints, float log_factor,
   const int decay_start = ints[8];
   const int R = (NH + id0) * BN;
   cudaStream_t st = (cudaStream_t)stream;
-  if (BN > 16 || R > VRB || D % 256) return (int)cudaErrorInvalidValue;
+  if (BN > 16 || R > VRB || D % 64) return (int)cudaErrorInvalidValue;
   bf16* rows = static_cast<bf16*>(p[V_ROWS]);
   // (A) row construction.
   if (id0)
@@ -292,7 +292,7 @@ extern "C" int wm_verify_rows(void** p, const int* ints, float log_factor,
 extern "C" int wm_head_rows(const void* src, const void* w, const void* b, void* out,
                             const void* ws, int m, int d, int nh, void* stream) {
   using namespace wm;
-  if (m < 1 || m > SK_MAX_ROWS || d % 256 || nh < 1) return (int)cudaErrorInvalidValue;
+  if (m < 1 || m > SK_MAX_ROWS || d % 64 || nh < 1) return (int)cudaErrorInvalidValue;
   SkinnyJobs heads;
   heads.j[0] = job(w, static_cast<const bf16*>(b), static_cast<bf16*>(out), EPI_SILU_RESID,
                    static_cast<const bf16*>(src), 1.0f, static_cast<const float*>(ws));

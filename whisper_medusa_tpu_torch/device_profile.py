@@ -262,6 +262,9 @@ def profile_per_op_step(model, mode):
         del cache
 
 
+K9_KERNELS = ("bwd_rows_kernel", "bwd_main_kernel", "bwd_cast_kernel")
+
+
 def profile_training(b=2, t=224):
     """Part 5: one Medusa-Block recipe step (parts_to_freeze="whisper") and
     one full fine-tune step of base_head, each timed and profiled after a
@@ -291,8 +294,14 @@ def profile_training(b=2, t=224):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = _by_kernel(run)
         total = _table(f"train step, {name} ({variant}, parts_to_freeze={policy}), B={b} "
-                       f"T={t}", _by_kernel(run), f" (wall without the profiler {wall_ms:.1f} ms)")
+                       f"T={t}", rows, f" (wall without the profiler {wall_ms:.1f} ms)")
+        # K9 is three kernels behind one entry: the row pass, the main pass, the cast.
+        k9 = [rows.get(k, (0.0, 0)) for k in K9_KERNELS]
+        k9_us = sum(us for us, _ in k9)
+        print(f"  K9 ({' + '.join(K9_KERNELS)}): {k9_us:.1f} us, {100 * k9_us / total:.1f} % "
+              f"of device time, {k9[1][1]:g} launches")
         print(f"  device idle share {1 - total / 1e3 / wall_ms:.3f}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del params, state, step, run

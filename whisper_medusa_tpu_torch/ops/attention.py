@@ -16,10 +16,17 @@ throughput and the softmax's exp/shuffle work, not by bytes (11.5 GFLOP against
 15 MB of q/k/v/out per layer).
 
 K9 replaces ``_attention_bwd_kernel`` (launched by ``_attention_bwd_pallas``),
-the training backward: three kernels behind one C entry (row statistics, then
-dK/dV per key block, then dQ per query block; ``csrc/attention.cu`` says
-why).  :class:`AttentionFn` ties the two together for autograd; serving never
-builds a graph and calls K1 as before.
+the training backward, as one pass from the forward's statistics: K1 writes
+each query row's f32 log-sum-exp when asked (``return_lse=True``); a row pass
+computes Dsum = dO . O from the forward's output; one kernel per (batch,
+head, 128-key block) recomputes P from the log-sum-exp and runs the five
+products on the tensor cores (``mma.sync`` from registers, ``cp.async`` tile
+ring), adding dQ into an f32 accumulator with float4 atomics; a cast pass
+rounds dQ.  dK and dV are written once and are bitwise deterministic; dQ is
+summed in f32 with atomics in an order that changes from run to run, so its
+last bits may differ between two runs on the same inputs.  :class:`AttentionFn` ties the two together for autograd: on CUDA
+its forward saves O and the log-sum-exp for the backward; serving never
+builds a graph and calls K1 without the log-sum-exp as before.
 """
 
 from __future__ import annotations
@@ -54,6 +61,15 @@ def _probs(q, k, kv_len: int, causal: bool) -> torch.Tensor:
     return torch.softmax(s, dim=-1)
 
 
+def attention_lse_plain(q, k, kv_len: int, causal: bool) -> torch.Tensor:
+    """Plain version of K1's log-sum-exp output: (B, H, Sq) f32 log-sum-exp
+    of the masked f32 scores (the scores ``_probs`` uses)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = torch.where(_scores_mask(q, k, kv_len, causal), s,
+                    torch.tensor(NEG_BIG, device=q.device))
+    return torch.logsumexp(s, dim=-1)
+
+
 def attention_plain(q, k, v, kv_len: int, causal: bool) -> torch.Tensor:
     """Plain PyTorch version: same layout and masks, float32 softmax.
 
@@ -81,6 +97,27 @@ def attention_bwd_plain(q, k, v, g, kv_len: int, causal: bool):
     return dq, dk, dv
 
 
+def attention_bwd_lse_plain(q, k, v, o, lse, g, kv_len: int, causal: bool):
+    """Plain version of the one-pass K9: (dq, dk, dv) from the forward's
+    output ``o`` and log-sum-exp ``lse`` (B, H, Sq) f32.
+
+    P = exp(S - lse) in f32 on the visible pairs (0 elsewhere), Dsum = sum_d
+    dO * O in f32 (the identity sum_k P dP = dO . O), and the casts of
+    :func:`attention_bwd_plain`: dS rounded to the input dtype before both of
+    its products, P to dO's dtype for dV, every product in f32."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    mask = _scores_mask(q, k, kv_len, causal)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]),
+                    torch.zeros((), device=q.device))
+    dp = torch.einsum("bhqd,bhkd->bhqk", g.float(), v.float())
+    dsum = (g.float() * o.float()).sum(-1, keepdim=True)
+    ds = (p * (dp - dsum)).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()).to(q.dtype)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()).to(k.dtype)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(g.dtype).float(), g.float()).to(v.dtype)
+    return dq, dk, dv
+
+
 def _check_shapes(name, q, k, v, kv_len):
     b, h, sq, dh = q.shape
     skv = k.shape[2]
@@ -92,56 +129,74 @@ def _check_shapes(name, q, k, v, kv_len):
     return b, h, sq, skv, dh
 
 
-def attention_kernel(q, k, v, kv_len: int, causal: bool) -> torch.Tensor:
-    """Launch K1.  q: (B, H, Sq, 64), k/v: (B, H, Skv, 64), bf16, contiguous."""
+def attention_kernel(q, k, v, kv_len: int, causal: bool, return_lse: bool = False):
+    """Launch K1.  q: (B, H, Sq, 64), k/v: (B, H, Skv, 64), bf16, contiguous.
+    Returns the output, or (output, log-sum-exp (B, H, Sq) f32) with
+    ``return_lse``."""
     global launches
     cuda_lib.require_cuda("attention", q, k, v)
     b, h, sq, skv, dh = _check_shapes("attention", q, k, v, kv_len)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     cuda_lib.launch("wm_attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), out.data_ptr(), b, h, sq, skv, dh, kv_len,
-                    int(causal))
+                    v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+                    b, h, sq, skv, dh, kv_len, int(causal))
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-def attention_bwd_kernel(q, k, v, g, kv_len: int, causal: bool):
+def attention_bwd_kernel(q, k, v, g, kv_len: int, causal: bool, o=None, lse=None):
     """Launch K9.  q, g: (B, H, Sq, 64), k/v: (B, H, Skv, 64), bf16,
-    contiguous; returns (dq, dk, dv), bf16."""
+    contiguous; ``o`` (bf16, q's shape) and ``lse`` ((B, H, Sq) f32) are the
+    forward's output and log-sum-exp, from K1 with ``return_lse=True`` (run
+    here first when either is None).  Returns (dq, dk, dv), bf16."""
     cuda_lib.require_cuda("attention_bwd", q, k, v, g)
     b, h, sq, skv, dh = _check_shapes("attention_bwd", q, k, v, kv_len)
     if g.shape != q.shape:
         raise ValueError(f"attention_bwd: dO {tuple(g.shape)} != q {tuple(q.shape)}")
+    if o is None or lse is None:
+        o, lse = attention_kernel(q, k, v, kv_len, causal, return_lse=True)
+    cuda_lib.require_cuda("attention_bwd", o, device=q.device)
+    cuda_lib.require_cuda("attention_bwd", lse, dtype=torch.float32, device=q.device)
+    if o.shape != q.shape or lse.shape != (b, h, sq):
+        raise ValueError(f"attention_bwd: O {tuple(o.shape)} and LSE {tuple(lse.shape)} "
+                         f"do not match q {tuple(q.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # Scratch: per-row max, 1 / sum and dsum of the softmax, f32.
-    stats = torch.empty((3, b, h, sq), dtype=torch.float32, device=q.device)
+    # Scratch: Dsum = dO . O per row, and the f32 dQ that the key blocks add into.
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((b, h, sq, dh), dtype=torch.float32, device=q.device)
     cuda_lib.launch("wm_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                    dv.data_ptr(), stats.data_ptr(), b, h, sq, skv, dh, kv_len,
-                    int(causal))
+                    v.data_ptr(), o.data_ptr(), lse.data_ptr(), g.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
+                    dq_acc.data_ptr(), b, h, sq, skv, dh, kv_len, int(causal))
     launches_bwd[(sq, skv, bool(causal))] += 1
     return dq, dk, dv
 
 
 class AttentionFn(torch.autograd.Function):
-    """Differentiable attention: K1 forward and K9 backward on CUDA tensors,
-    the plain versions on CPU tensors.  Saves q, k and v, never P."""
+    """Differentiable attention: K1 forward and K9 backward on CUDA tensors
+    (the forward saves q, k, v, its output and its log-sum-exp), the plain
+    versions on CPU tensors (saving q, k and v).  Never saves P."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len: int, causal: bool):
         q, k, v = (t.detach().contiguous() for t in (q, k, v))
-        ctx.save_for_backward(q, k, v)
         ctx.kv_len, ctx.causal = kv_len, causal
         if q.is_cuda:
-            return attention_kernel(q, k, v, kv_len, causal)
+            out, lse = attention_kernel(q, k, v, kv_len, causal, return_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+        ctx.save_for_backward(q, k, v)
         return attention_plain(q, k, v, kv_len, causal)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
+        q, k, v, *fwd = ctx.saved_tensors
         g = g.detach().to(q.dtype).contiguous()
         if q.is_cuda:
-            grads = attention_bwd_kernel(q, k, v, g, ctx.kv_len, ctx.causal)
+            o, lse = fwd
+            grads = attention_bwd_kernel(q, k, v, g, ctx.kv_len, ctx.causal, o=o, lse=lse)
         else:
             grads = attention_bwd_plain(q, k, v, g, ctx.kv_len, ctx.causal)
         return (*grads, None, None)

@@ -40,8 +40,8 @@ _ints = ctypes.POINTER(ctypes.c_int)
 
 # C signatures of every entry (see csrc/*.cu).
 _SIGNATURES = {
-    "wm_attention_fwd": [_vp] * 4 + [_ci] * 7 + [_vp],
-    "wm_attention_bwd": [_vp] * 8 + [_ci] * 7 + [_vp],
+    "wm_attention_fwd": [_vp] * 5 + [_ci] * 7 + [_vp],
+    "wm_attention_bwd": [_vp] * 11 + [_ci] * 7 + [_vp],
     "wm_megastep_step": [_ptrs, _ints, _vp],
     "wm_logits": [_vp] * 3 + [_ci] * 3 + [_vp],
     "wm_verify_hidden": [_ptrs, _ints, ctypes.c_float, _vp],

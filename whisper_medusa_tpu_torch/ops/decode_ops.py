@@ -135,7 +135,7 @@ def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 def ffn_decode_kernel(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                       w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """Launch K11: x (M, D) bf16, w1 (D, F), b1 (F,), w2 (F, D), b2 (D,) bf16,
-    D and F multiples of 256 -> (M, D) bf16.  Rows go in blocks of 128, one
+    D and F multiples of 64 -> (M, D) bf16.  Rows go in blocks of 128, one
     launch each."""
     global ffn_launches
     if qmm_mod.is_quantized(w1) or qmm_mod.is_quantized(w2):
@@ -144,9 +144,9 @@ def ffn_decode_kernel(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     cuda_lib.require_cuda("ffn_decode", x, w1, b1, w2, b2)
     m, d = x.shape
     f = w1.shape[1]
-    if (m < 1 or d % 256 or f % 256 or w1.shape != (d, f) or w2.shape != (f, d)
+    if (m < 1 or d % 64 or f % 64 or w1.shape != (d, f) or w2.shape != (f, d)
             or b1.shape != (f,) or b2.shape != (d,)):
-        raise ValueError(f"ffn_decode kernel takes D and F multiples of 256; got x "
+        raise ValueError(f"ffn_decode kernel takes D and F multiples of 64; got x "
                          f"{tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
     bf = dict(dtype=torch.bfloat16, device=x.device)
     out = torch.empty((m, d), **bf)

@@ -139,8 +139,8 @@ def head_rows_kernel(src: torch.Tensor, heads_w, heads_b: torch.Tensor) -> torch
     w, ws = _operand("head_rows", heads_w, src.device, 2)
     m, d = src.shape
     nh = w.shape[0]
-    if m < 1 or d % 256 or w.shape != (nh, d, d) or heads_b.shape != (nh, d):
-        raise ValueError(f"head_rows kernel takes D % 256 == 0; got src "
+    if m < 1 or d % 64 or w.shape != (nh, d, d) or heads_b.shape != (nh, d):
+        raise ValueError(f"head_rows kernel takes D % 64 == 0; got src "
                          f"{tuple(src.shape)}, heads {tuple(w.shape)}")
     out = torch.empty((nh, m, d), dtype=src.dtype, device=src.device)
     for r0 in range(0, m, MAX_SRC_ROWS):
@@ -295,11 +295,11 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
     nh = heads_w.shape[0]
     v = embed.shape[0]
     r = (nh + int(identity0)) * bn
-    if (bn > 16 or r > MAX_R or d % 256 or hsrc.shape != hver.shape
+    if (bn > 16 or r > MAX_R or d % 64 or hsrc.shape != hver.shape
             or heads_w.shape != (nh, d, d) or heads_b.shape != (nh, d)
             or embed.shape[1] != d):
         raise ValueError(
-            f"verify kernel takes B*N <= 16, R <= {MAX_R}, D % 256 == 0; got "
+            f"verify kernel takes B*N <= 16, R <= {MAX_R}, D % 64 == 0; got "
             f"hidden {tuple(hver.shape)}, heads {tuple(heads_w.shape)}, R={r}")
     _check_meta(dev, r, v, pos, gcol, sup_masks)
     src16 = torch.zeros((16, d), dtype=torch.bfloat16, device=dev)
