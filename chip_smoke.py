@@ -9,15 +9,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   2. build the Hopper kernels from whisper_medusa_tpu_torch/csrc (one nvcc
      per source, in parallel);
   3. hold each kernel against its plain PyTorch version at the shapes the
-     paths give it, bf16 and int8 (K1's log-sum-exp output; K8 log_mel on
+     paths give it, bf16 and int8 (K1 at the encoder's shapes at B=1 and
+     B=8 and whisper tiny's, training's 224 x 224 causal and 224 x 1500, and
+     off the paths, with every example of the B=8 call bitwise its B=1
+     call; the TMA guards of K1 and K6: a misaligned operand raises, and so
+     does a failed tensor-map encode; K1's log-sum-exp output; K8 log_mel on
      the frontend's audio; the
      int8 modes of K2, K4, K5 and head_rows; K2's Medusa-Block mode and K4's
-     identity0 rows, bf16 and int8; K6 qmm and K7 qmm_nt; K10 decode
+     identity0 rows, bf16 and int8; K6 qmm at init_cache's (1500, 1280,
+     1280), the per-op step's B=16 shapes and whisper tiny's fc1, its first
+     16 rows bitwise an M=16 call's, and K7 qmm_nt; K10 decode
      cross-attention, bf16 and int8, and K11 decode FFN at the per-op
      step's B=16 shapes and off them; head_rows, K3, K5 and K7 past one
      launch's rows, blocked), and time the kernel, the plain version and,
      where one PyTorch call computes the same function, that call, with
-     CUDA events (3 warm-ups, median of 20); each kernel's bound is
+     CUDA events (3 warm-ups, median of 20; K1 and K6 also by device time
+     under torch.profiler, beside SDPA's and matmul's); each kernel's bound is
      computed from the bytes and operations of the same call; then the
      per-op decoder step (cuBLAS or K6 projections, K10, K11) against K2 on
      the same inputs and caches at (B, T) = (8, 11) and (8, 1), bf16 and
@@ -188,47 +195,102 @@ def phase_build():
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# K1 at the paths' shapes: ((B, H, Sq, Skv), kv_len, causal): the encoder at
+# B=1 and B=8 (large-v2) and B=1 (whisper tiny, 6 heads), training's decoder
+# self-attention (causal) and cross-attention (224 queries, 1500 keys); then
+# off the paths: causal with a ragged edge, kv_len < Skv, a short ragged Sq.
+K1_PATH = (((1, 20, 1500, 1500), 1500, False), ((8, 20, 1500, 1500), 1500, False),
+           ((1, 6, 1500, 1500), 1500, False), ((2, 20, 224, 224), 224, True),
+           ((2, 20, 224, 1500), 1500, False))
+K1_OFF = (((1, 4, 300, 300), 300, True), ((1, 4, 300, 300), 257, False),
+          ((1, 3, 77, 300), 299, False))
+K1_SOURCE = "whisper_medusa_tpu_torch/csrc/attention.cu"
+K1_REPLACES = "whisper_medusa_tpu/ops/attention.py:71"
+
+
+def device_ms(fn, reps=20):
+    """Device milliseconds per call of fn(): the kernels' time under
+    torch.profiler (device_profile._by_kernel) after one warm-up call, so
+    that host time between launches does not count."""
+    from whisper_medusa_tpu_torch.device_profile import _by_kernel
+
+    fn()
+    return sum(us for us, _ in _by_kernel(fn, reps).values()) / 1e3
+
+
 def check_attention(g):
+    """K1 against attention_plain (2e-2 max abs) at every shape of K1_PATH
+    and K1_OFF; at B=8 every example's output bitwise its B=1 call's (the
+    batch invariance the decode checks rely on).  Timed at (1, 20, 1500, 64)
+    and (8, 20, 1500, 64) against the plain version and SDPA (scale 1.0, q
+    pre-scaled), with the device time of K1 and SDPA under the profiler
+    printed beside; two kernels rows."""
     from whisper_medusa_tpu_torch.ops import attention as A
 
-    dev = "cuda"
-    # Off-path coverage first: causal, ragged kv_len, rectangular tail.
-    q, k, v = (torch.randn((1, 4, 300, 64), generator=g, device=dev)
-               .to(torch.bfloat16) for _ in range(3))
-    q = (q.float() * 0.25).to(torch.bfloat16)
-    for causal, kv_len in ((True, 300), (False, 257)):
-        err = max_err(A.attention_kernel(q, k, v, kv_len, causal),
-                      A.attention_plain(q, k, v, kv_len, causal))
-        require(err <= 2e-2, f"K1 causal={causal} kv_len={kv_len}: err {err}")
-    # Main-path shape: encoder self-attention, (1, 20, 1500, 64), unpadded.
-    q, k, v = (torch.randn((1, 20, 1500, 64), generator=g, device=dev)
-               .to(torch.bfloat16) for _ in range(3))
-    q = (q.float() * 0.25).to(torch.bfloat16)
-    got = A.attention_kernel(q, k, v, 1500, False)
-    ref = A.attention_plain(q, k, v, 1500, False)
-    err = max_err(got, ref)
-    log(f"K1 attention (1,20,1500,64): max_abs_err {err:.3e}")
-    require(err <= 2e-2, f"K1 err {err} > 2e-2")
-    # The batched request's encoder: (8, 20, 1500, 64).
-    q8, k8, v8 = (torch.randn((8, 20, 1500, 64), generator=g, device=dev)
-                  .to(torch.bfloat16) for _ in range(3))
-    q8 = (q8.float() * 0.25).to(torch.bfloat16)
-    err8 = max_err(A.attention_kernel(q8, k8, v8, 1500, False),
-                   A.attention_plain(q8, k8, v8, 1500, False))
-    ms8 = cuda_ms(lambda: A.attention_kernel(q8, k8, v8, 1500, False))
-    log(f"K1 attention (8,20,1500,64): max_abs_err {err8:.3e}, kernel {ms8:.4f} ms")
-    require(err8 <= 2e-2, f"K1 B=8 err {err8} > 2e-2")
-    del q8, k8, v8
-    err = max(err, err8)
-    ms = cuda_ms(lambda: A.attention_kernel(q, k, v, 1500, False))
-    plain_ms = cuda_ms(lambda: A.attention_plain(q, k, v, 1500, False))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = cuda_ms(lambda: sdpa(q, k, v, scale=1.0))
-    b, h, s, dh = q.shape
-    return kernel_record("attention", "whisper_medusa_tpu_torch/csrc/attention.cu",
-                         "whisper_medusa_tpu/ops/attention.py:71", (A, "launches"),
-                         err, ms, plain_ms,
-                         bound(4 * nbytes(q), 4 * b * h * s * s * dh), lib_ms)
+    rows = []
+    for (b, h, sq, skv), kv_len, causal in K1_OFF + K1_PATH:
+        rnd = lambda n, scale=1.0: (torch.randn((b, h, n, 64), generator=g, device="cuda")
+                                    * scale).to(torch.bfloat16)
+        q, k, v = rnd(sq, 0.25), rnd(skv), rnd(skv)
+        got = A.attention_kernel(q, k, v, kv_len, causal)
+        err = max_err(got, A.attention_plain(q, k, v, kv_len, causal))
+        what = f"K1 attention ({b},{h},{sq}x{skv},64) kv_len {kv_len} causal {causal}"
+        log(f"{what}: max_abs_err {err:.3e}")
+        require(err <= 2e-2, f"{what}: err {err} > 2e-2")
+        if b > 1 and sq == skv == 1500:
+            same = [torch.equal(got[i:i + 1], A.attention_kernel(
+                q[i:i + 1].contiguous(), k[i:i + 1].contiguous(), v[i:i + 1].contiguous(),
+                kv_len, causal)) for i in range(b)]
+            log(f"{what}: each example bitwise its B=1 output: {sum(same)}/{b}")
+            require(all(same), f"{what}: a B=1 call differs from its row of the B={b} call")
+        if h != 20 or sq != 1500:
+            continue
+        ms = cuda_ms(lambda: A.attention_kernel(q, k, v, kv_len, causal))
+        plain_ms = cuda_ms(lambda: A.attention_plain(q, k, v, kv_len, causal))
+        lib_ms = cuda_ms(lambda: sdpa(q, k, v, scale=1.0))
+        log(f"{what}: device time K1 {device_ms(lambda: A.attention_kernel(q, k, v, kv_len, causal)):.4f} "
+            f"ms, SDPA {device_ms(lambda: sdpa(q, k, v, scale=1.0)):.4f} ms")
+        rows.append(kernel_record("attention" if b == 1 else f"attention B={b}", K1_SOURCE,
+                                  K1_REPLACES, (A, "launches"), err, ms, plain_ms,
+                                  bound(4 * nbytes(q), 4 * b * h * sq * skv * 64), lib_ms))
+        del q, k, v, got
+    return rows
+
+
+def check_tma_guards():
+    """K1 and K6 load through TMA tensor maps, which take 16-byte-aligned
+    addresses: the wrappers refuse a tensor that is not (ValueError), and a C
+    entry handed such an address returns the CUDA driver's refusal to encode the
+    map, on which cuda_lib.launch raises.  No plain version stands in."""
+    from whisper_medusa_tpu_torch.ops import attention as A
+    from whisper_medusa_tpu_torch.ops import cuda_lib
+    from whisper_medusa_tpu_torch.ops import qmm as QM
+
+    buf = torch.zeros(64 * 64 * 3 + 8, dtype=torch.bfloat16, device="cuda")
+    q = buf[1:1 + 64 * 64].view(1, 1, 64, 64)          # 2 bytes past an aligned address
+    ok = buf[64 * 64 + 8:2 * 64 * 64 + 8].view(1, 1, 64, 64)
+    for name, fn in (("attention", lambda: A.attention_kernel(q, ok, ok, 64, False)),
+                     ("qmm", lambda: QM.qmm_kernel(
+                         q.view(64, 64), torch.zeros((64, 64), dtype=torch.int8, device="cuda"),
+                         torch.ones(64, device="cuda")))):
+        try:
+            fn()
+        except ValueError as e:
+            require("aligned" in str(e), f"{name}: {e}")
+        else:
+            raise AssertionError(f"{name}: a misaligned operand was accepted")
+    out = torch.empty((1, 1, 64, 64), dtype=torch.bfloat16, device="cuda")
+    try:
+        cuda_lib.launch("wm_attention_fwd", q.device, q.data_ptr(), ok.data_ptr(),
+                        ok.data_ptr(), out.data_ptr(), None, 1, 1, 64, 64, 64, 64, 0)
+    except RuntimeError as e:
+        require("tensor-map" in str(e), f"wm_attention_fwd: {e}")
+    else:
+        raise AssertionError("wm_attention_fwd took a misaligned address")
+    torch.cuda.synchronize()
+    log("TMA guards: misaligned operands raise in the wrappers (K1, K6); a failed "
+        "tensor-map encode raises from the C entry")
 
 
 def _log_mel_cost(x, n_mels):
@@ -728,27 +790,54 @@ def check_verify_rows(g, model, sizes=(1, 8, 16, 88, 176, 1024, 1100)):
 
 
 def check_qmm(g, qmodel, enc):
-    """K6 at the main path's shape, one example's encoder output (1500, 1280)
-    through layer 0's int8 cross k projection: within 1e-3 of max |y|."""
+    """K6 against qmm_plain (1e-3 of max |y|) at the paths' shapes: one
+    example's encoder output (1500, 1280) through layer 0's int8 cross k
+    projection (init_cache), the per-op step's int8 projections at B=16
+    (M = 176 Medusa rows, 16 vanilla: q (1280, 1280), fc1 (1280, 5120), fc2
+    (5120, 1280) of layer 0) and whisper tiny's fc1 at its decode rows (11,
+    384, 1536) on a seeded weight.  Bitwise: the first 16 rows of the M=176
+    call (one K slice per CTA, summed by a second kernel) and of the M=1500
+    call (the slices summed in registers) equal an M=16 call on those rows.
+    Each shape is timed against the plain version and torch.matmul on a bf16
+    copy of the weight, with both device times under the profiler printed;
+    one kernels row each."""
     from whisper_medusa_tpu_torch.ops import qmm as QM
 
-    w = qmodel.params["whisper"]["decoder"]["layers"]["cross"]["k_w"]
-    wq, s = w["q"][0], w["s"][0]
-    x = enc[0].contiguous()
-    got, ref = QM.qmm_kernel(x, wq, s), QM.qmm_plain(x, wq, s)
-    err, tol = max_err(got, ref), 1e-3 * float(ref.abs().max())
-    m, k = x.shape
-    n = wq.shape[1]
-    log(f"K6 qmm ({m},{k},{n}): max_abs_err {err:.3e} (bound {tol:.3e})")
-    require(err <= tol, f"K6 qmm: err {err} > {tol}")
-    ms = cuda_ms(lambda: QM.qmm_kernel(x, wq, s))
-    plain_ms = cuda_ms(lambda: QM.qmm_plain(x, wq, s))
-    w16 = wq.to(torch.bfloat16)        # the library yardstick's weight, cast beforehand
-    lib_ms = cuda_ms(lambda: torch.matmul(x, w16))
-    return kernel_record("qmm", "whisper_medusa_tpu_torch/csrc/qmm.cu",
-                         "whisper_medusa_tpu/ops/qmm.py:43", (QM, "launches"), err, ms,
-                         plain_ms, bound(nbytes(x, wq, s) + m * n * 4, 2 * m * k * n),
-                         lib_ms)
+    layers = qmodel.params["whisper"]["decoder"]["layers"]
+    tiny_q, tiny_s = QM.quantize_array(
+        torch.randn((384, 1536), generator=g, device="cuda") * 0.05)
+    cases = [("qmm", enc[0].contiguous(), layers["cross"]["k_w"], None),
+             ("qmm (176,1280,1280)", None, layers["self"]["q_w"], 176),
+             ("qmm (176,1280,5120)", None, layers["fc1_w"], 176),
+             ("qmm (176,5120,1280)", None, layers["fc2_w"], 176),
+             ("qmm (16,1280,1280)", None, layers["self"]["q_w"], 16),
+             ("qmm tiny (11,384,1536)", None, {"q": tiny_q[None], "s": tiny_s[None]}, 11)]
+    rows = []
+    for name, x, w, m in cases:
+        wq, s = w["q"][0], w["s"][0]
+        if x is None:
+            x = torch.randn((m, wq.shape[0]), generator=g, device="cuda").to(torch.bfloat16)
+        m, k = x.shape
+        n = wq.shape[1]
+        got, ref = QM.qmm_kernel(x, wq, s), QM.qmm_plain(x, wq, s)
+        err, tol = max_err(got, ref), 1e-3 * float(ref.abs().max())
+        log(f"K6 {name} ({m},{k},{n}): max_abs_err {err:.3e} (bound {tol:.3e})")
+        require(err <= tol, f"K6 {name}: err {err} > {tol}")
+        if m > 16:
+            same = torch.equal(got[:16], QM.qmm_kernel(x[:16].contiguous(), wq, s))
+            log(f"K6 {name}: its first 16 rows bitwise an M=16 call's: {same}")
+            require(same, f"K6 {name}: rows differ from an M=16 call on the same rows")
+        w16 = wq.to(torch.bfloat16)    # the library yardstick's weight, cast beforehand
+        ms = cuda_ms(lambda: QM.qmm_kernel(x, wq, s))
+        plain_ms = cuda_ms(lambda: QM.qmm_plain(x, wq, s))
+        lib_ms = cuda_ms(lambda: torch.matmul(x, w16))
+        log(f"K6 {name}: device time K6 {device_ms(lambda: QM.qmm_kernel(x, wq, s)):.4f} ms, "
+            f"matmul {device_ms(lambda: torch.matmul(x, w16)):.4f} ms")
+        rows.append(kernel_record(name, "whisper_medusa_tpu_torch/csrc/qmm.cu",
+                                  "whisper_medusa_tpu/ops/qmm.py:43", (QM, "launches"), err,
+                                  ms, plain_ms,
+                                  bound(nbytes(x, wq, s) + m * n * 4, 2 * m * k * n), lib_ms))
+    return rows
 
 
 def check_qmm_nt(g, qmodel):
@@ -1823,6 +1912,7 @@ def main():
 
     # ---- phase 3: kernels vs plain versions
     k1 = check_attention(g)
+    check_tma_guards()
     check_attention_lse(g)
     steps2 = ((4, [0]), (11, [7]), (1, [0, 17, 100, 5, 300, 440, 2, 63]),
               (11, [7, 0, 120, 33, 448, 5, 260, 90]))
@@ -1897,7 +1987,7 @@ def main():
             "B=16 processor output")
     enc16 = model.encode(feats16)
     worst_cos_ops = check_per_op_step((model, qmodel), enc8, enc16)
-    kernels = [k1, k2, k2q, k3, k4, k4q, k4a, k4aq, k5, k5q, k6, k7,
+    kernels = [*k1, k2, k2q, k3, k4, k4q, k4a, k4aq, k5, k5q, *k6, k7,
                k8, k2b, k2bq, k4b, k4bq, k10, k10q, k11]
 
     # ---- phase 4: the main paths, bf16 then int8

@@ -4,169 +4,218 @@
 // launched by _attention_pallas).  The TPU kernel keeps a head's whole K/V
 // resident and runs a one-pass softmax; on Hopper 1536 x 64 bf16 K plus V
 // (384 KB) exceeds an SM's 227 KB of shared memory, so this is a flash-style
-// forward instead:
+// forward on wgmma fed by a TMA ring (hopper.cuh), close to FlashAttention-3's:
 //
-//  * one CTA (4 warps) per (batch, head, 64-query block); each warp owns 16
-//    query rows, whose Q fragments stay in registers;
-//  * K/V stream through shared memory in 64-key tiles; S = QK^T and the
-//    P.V product run on the tensor cores (WMMA m16n16k16, bf16 in, f32 out);
-//  * online softmax in f32: each lane keeps the running max, sum and two
-//    output columns of every row of its warp;
+//  * one CTA per (batch, head, 128-query block): two consumer warpgroups of
+//    64 query rows each (warps 0-7) and one producer warp (warp 8);
+//  * the producer issues TMA loads from 3-D tensor maps over (B*H, S, 64),
+//    so rows past S read as zeros and never as the next head's rows: the
+//    CTA's 128 Q rows once, then 64-key tiles of K and V through a ring of
+//    A_STAGES stages, each stage a "full" mbarrier (TMA bytes) and an "empty"
+//    one (one arrival per consumer warp once its products have read it);
+//  * per key tile a consumer warpgroup runs S = Q K^T as wgmma m64n64k16
+//    with both operands in shared memory (128-byte swizzle, K K-major), the
+//    online softmax in f32 on the accumulator registers (a row lives in the
+//    4 lanes of a quad: 2 shuffles for its max; the row sums stay per lane
+//    until the end), P rounded to bf16 in registers as the A operand of
+//    O += P V (wgmma with V from shared memory, MN-major);
 //  * masks: key < kv_len, plus key <= query when causal; key tiles past the
-//    last visible key are skipped; the ragged sequence edge is zero-filled on
-//    load and never stored;
-//  * where ``lse`` is not null (training), each query row below Sq also
-//    writes its f32 log-sum-exp m + log(l) from the online softmax's running
-//    max m and sum l, which K9 reads instead of recomputing the softmax.
-//    Serving passes null and runs the same arithmetic as before.
+//    last visible key are not loaded, and a warpgroup skips the tiles past
+//    its own last query;
+//  * O is normalised by 1/l, rounded to bf16 and stored from registers,
+//    rows past Sq dropped; where ``lse`` is not null (training), each row
+//    also writes its f32 log-sum-exp m + log(l), which K9 reads.
 //
-// Bound on H100: tensor-core throughput plus the softmax's exp/shuffle work, not
-// bytes: one encoder layer (20 heads of 1500 x 1500 x 64) is 11.5 GFLOP
-// against 15 MB of q/k/v/out.
+// A (b, h, query block)'s arithmetic does not depend on B or on any other
+// block: no split over keys, no atomics, so two runs give the same bits and
+// example i of a batch gets its batch-of-one output.
+//
+// Waves: at (1, 20, 1500, 64) 12 x 20 = 240 CTAs; two fit on an SM (288
+// threads at <= 112 registers, 83 KB of shared memory each), so the grid is
+// one wave of 264 slots on 132 SMs; at B = 8, 1920 CTAs in 7.3 waves.
+//
+// Bound on H100: tensor-core operations, not bytes: one encoder layer (20
+// heads of 1500 x 1500 x 64, QK^T and PV) is 11.5 GFLOP against 15 MB of
+// q/k/v/out.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace wm {
 namespace {
 
-constexpr int AQ = 64;        // queries per CTA
-constexpr int AK = 64;        // keys per tile
-constexpr int ADH = 64;       // head dim
-constexpr int ALD = ADH + 8;  // bf16 smem pitch
-constexpr int ALDS = AK + 4;  // f32 smem pitch
-constexpr int ATTN_SMEM = 3 * AQ * ALD * 2 + AQ * ALDS * 4 + AQ * ALD * 2;
+constexpr int AQ = 128;                  // queries per CTA (2 warpgroups x 64)
+constexpr int AK = 64;                   // keys per tile
+constexpr int ADH = 64;                  // head dim: one 128-byte row
+constexpr int A_STAGES = 4;              // K/V ring depth
+constexpr int A_THREADS = 288;           // 8 consumer warps + 1 producer warp
+constexpr int A_TILE = 64 * ADH * 2;     // one 64-row bf16 tile, bytes
+constexpr int ATTN_SMEM = 1024 + 2 * A_TILE + A_STAGES * 2 * A_TILE + 8 * (2 * A_STAGES + 1);
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
-                                          int n_rows) {
-  // 64 rows x 64 bf16 = 512 uint4, 128 threads.
-  for (int i = threadIdx.x; i < 64 * 8; i += 128) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n_rows)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ADH + c);
-    *reinterpret_cast<uint4*>(dst + r * ALD + c) = v;
-  }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__global__ void __launch_bounds__(128)
-attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int n_heads, int sq, int skv, int kv_len,
-                 int causal) {
-  extern __shared__ __align__(128) char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + AQ * ALD;
-  bf16* vs = ks + AK * ALD;
-  float* ss = reinterpret_cast<float*>(vs + AK * ALD);
-  bf16* ps = reinterpret_cast<bf16*>(ss + AQ * ALDS);
+__global__ void __launch_bounds__(A_THREADS, 2)
+attention_kernel(const __grid_constant__ CUtensorMap mq,
+                 const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+                 float* __restrict__ lse, int sq, int kv_len, int causal) {
+  extern __shared__ char smem_raw[];
+  char* smem = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  char* qs = smem;                               // 128 rows: 2 x A_TILE
+  char* kv = smem + 2 * A_TILE;                  // stage s: K, then V
+  uint64_t* full = reinterpret_cast<uint64_t*>(kv + A_STAGES * 2 * A_TILE);
+  uint64_t* empty = full + A_STAGES;
+  uint64_t* qbar = empty + A_STAGES;
 
   const int q0 = blockIdx.x * AQ;
-  const size_t bh = (size_t)blockIdx.z * n_heads + blockIdx.y;
-  const bf16* qh = q + bh * sq * ADH;
-  const bf16* kh = k + bh * skv * ADH;
-  const bf16* vh = v + bh * skv * ADH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wrow = warp * 16;
-
-  load_tile(qs, qh, q0, sq);
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[ADH / 16];
-#pragma unroll
-  for (int kk = 0; kk < ADH / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], qs + wrow * ALD + kk * 16, ALD);
-
-  float m_run[16], l_run[16], acc0[16], acc1[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.0f;
-    acc0[r] = 0.0f;
-    acc1[r] = 0.0f;
-  }
-
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
   const int kend = causal ? min(kv_len, q0 + AQ) : kv_len;
-  for (int k0 = 0; k0 < kend; k0 += AK) {
-    load_tile(ks, kh, k0, skv);
-    load_tile(vs, vh, k0, skv);
-    __syncthreads();
+  const int ntiles = (kend + AK - 1) / AK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-#pragma unroll
-    for (int j = 0; j < AK / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc;
-      wmma::fill_fragment(sacc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < ADH / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, ks + j * 16 * ALD + kk * 16, ALD);
-        wmma::mma_sync(sacc, qa[kk], kb, sacc);
-      }
-      wmma::store_matrix_sync(ss + wrow * ALDS + j * 16, sacc, ALDS,
-                              wmma::mem_row_major);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < A_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
     }
-    __syncwarp();
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    // Online softmax; lane holds key columns lane and lane + 32.
-    const int j0 = k0 + lane, j1 = k0 + lane + 32;
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int qi = q0 + wrow + r;
-      const bool ok0 = j0 < kv_len && (!causal || j0 <= qi);
-      const bool ok1 = j1 < kv_len && (!causal || j1 <= qi);
-      const float s0 = ss[(wrow + r) * ALDS + lane];
-      const float s1 = ss[(wrow + r) * ALDS + lane + 32];
-      const float tmax = warp_max(fmaxf(ok0 ? s0 : -INFINITY, ok1 ? s1 : -INFINITY));
-      const float m_new = fmaxf(m_run[r], tmax);
-      float p0 = 0.0f, p1 = 0.0f, alpha = 1.0f;
-      if (m_new != -INFINITY) {
-        p0 = ok0 ? __expf(s0 - m_new) : 0.0f;
-        p1 = ok1 ? __expf(s1 - m_new) : 0.0f;
-        alpha = m_run[r] == -INFINITY ? 0.0f : __expf(m_run[r] - m_new);
+  if (warp == 8) {   // producer
+    if (lane == 0) {
+      mbar_arrive_tx(qbar, 2 * A_TILE);
+      tma_load_3d(qs, &mq, qbar, 0, q0, bh);
+      for (int t = 0; t < ntiles; ++t) {
+        const int st = t % A_STAGES;
+        if (t >= A_STAGES) mbar_wait(&empty[st], ((t / A_STAGES) & 1) ^ 1);
+        char* kt = kv + st * 2 * A_TILE;
+        mbar_arrive_tx(&full[st], 2 * A_TILE);
+        tma_load_3d(kt, &mk, &full[st], 0, t * AK, bh);
+        tma_load_3d(kt + A_TILE, &mv, &full[st], 0, t * AK, bh);
       }
-      l_run[r] = l_run[r] * alpha + warp_sum(p0 + p1);
-      m_run[r] = m_new;
-      acc0[r] *= alpha;
-      acc1[r] *= alpha;
-      ps[(wrow + r) * ALD + lane] = f2bf(p0);
-      ps[(wrow + r) * ALD + lane + 32] = f2bf(p1);
     }
-    __syncwarp();
-
-    // O += P V for this warp's rows (partial tile staged through ss).
-#pragma unroll
-    for (int j = 0; j < ADH / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
-      wmma::fill_fragment(oacc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < AK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(pa, ps + wrow * ALD + kk * 16, ALD);
-        wmma::load_matrix_sync(vb, vs + kk * 16 * ALD + j * 16, ALD);
-        wmma::mma_sync(oacc, pa, vb, oacc);
-      }
-      wmma::store_matrix_sync(ss + wrow * ALDS + j * 16, oacc, ALDS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      acc0[r] += ss[(wrow + r) * ALDS + lane];
-      acc1[r] += ss[(wrow + r) * ALDS + lane + 32];
-    }
-    __syncthreads();
+    return;
   }
 
-  bf16* oh = o + bh * sq * ADH;
+  // Consumers: warpgroup wg owns queries qw .. qw + 63; this lane holds rows
+  // r0 and r1 = r0 + 8 of them, and columns 8 j + 2 (lane % 4) (+ 1).
+  const int wg = warp >> 2;
+  const int qw = q0 + 64 * wg;
+  const int r0 = qw + 16 * (warp & 3) + (lane >> 2), r1 = r0 + 8;
+  const int cq = 2 * (lane & 3);
+  float oacc[32], s[32];
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int qi = q0 + wrow + r;
-    if (qi < sq) {
-      const float inv = l_run[r] > 0.0f ? 1.0f / l_run[r] : 0.0f;
-      oh[(size_t)qi * ADH + lane] = f2bf(acc0[r] * inv);
-      oh[(size_t)qi * ADH + lane + 32] = f2bf(acc1[r] * inv);
-      // m_run and l_run are warp-uniform (warp_max / warp_sum).
-      if (lse != nullptr && lane == 0) lse[bh * sq + qi] = m_run[r] + logf(l_run[r]);
+  for (int i = 0; i < 32; ++i) oacc[i] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  const uint64_t qdesc = sw128_desc(smem_addr(qs + wg * A_TILE));
+
+  mbar_wait(qbar, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t % A_STAGES, k0 = t * AK;
+    mbar_wait(&full[st], (t / A_STAGES) & 1);
+    if (!causal || k0 <= qw + 63) {     // warpgroup-uniform
+      const uint32_t kaddr = smem_addr(kv + st * 2 * A_TILE);
+      const uint64_t kdesc = sw128_desc(kaddr), vdesc = sw128_desc(kaddr + A_TILE);
+      // S = Q K^T: four k16 steps of 32 bytes along the swizzled rows.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < ADH / 16; ++kk)
+        wgmma_ss<0, 0>(s, qdesc + 2 * kk, kdesc + 2 * kk, kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(s);
+
+      if (k0 + AK > kv_len || (causal && k0 + AK - 1 > qw)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int key = k0 + 8 * (i >> 2) + cq + (i & 1);
+          const int row = (i & 2) ? r1 : r0;
+          if (key >= kv_len || (causal && key > row)) s[i] = -INFINITY;
+        }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (i & 2) mx1 = fmaxf(mx1, s[i]);
+        else mx0 = fmaxf(mx0, s[i]);
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      // A row with no visible key yet keeps m = -inf, p = 0 and alpha = 1.
+      const float b0 = mn0 == -INFINITY ? 0.0f : mn0 * LOG2E;
+      const float b1 = mn1 == -INFINITY ? 0.0f : mn1 * LOG2E;
+      const float a0 = mn0 == -INFINITY ? 1.0f : ex2(m0 * LOG2E - b0);
+      const float a1 = mn1 == -INFINITY ? 1.0f : ex2(m1 * LOG2E - b1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (i & 2) {
+          s[i] = ex2(fmaf(s[i], LOG2E, -b1));
+          ps1 += s[i];
+        } else {
+          s[i] = ex2(fmaf(s[i], LOG2E, -b0));
+          ps0 += s[i];
+        }
+      }
+      l0 = l0 * a0 + ps0;
+      l1 = l1 * a1 + ps1;
+      reg_fence(oacc);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oacc[i] *= (i & 2) ? a1 : a0;
+
+      // O += P V: P as bf16 A fragments, keys 16 c .. 16 c + 15 per step;
+      // V rows advance 16 x 128 bytes per step.
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        pa[c][0] = pack_bf2(s[8 * c + 0], s[8 * c + 1]);
+        pa[c][1] = pack_bf2(s[8 * c + 2], s[8 * c + 3]);
+        pa[c][2] = pack_bf2(s[8 * c + 4], s[8 * c + 5]);
+        pa[c][3] = pack_bf2(s[8 * c + 6], s[8 * c + 7]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wgmma_rs<1>(oacc, pa[c], vdesc + 128 * c, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(oacc);
     }
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // Row sums across the quad, then the normalised output.
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = l0 > 0.0f ? 1.0f / l0 : 0.0f;
+  const float inv1 = l1 > 0.0f ? 1.0f / l1 : 0.0f;
+  bf16* oh = o + (size_t)bh * sq * ADH;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + cq;
+    if (r0 < sq)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r0 * ADH + col) =
+          pack_bf2(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
+    if (r1 < sq)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r1 * ADH + col) =
+          pack_bf2(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
+  }
+  if (lse != nullptr && (lane & 3) == 0) {
+    if (r0 < sq) lse[(size_t)bh * sq + r0] = m0 + logf(l0);
+    if (r1 < sq) lse[(size_t)bh * sq + r1] = m1 + logf(l1);
   }
 }
 
@@ -219,8 +268,8 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // 224 x 224 by bytes (q, k, v, dO, O and the log-sum-exp read once, dq, dk,
 // dv written once), at
 // the encoder's 1500 x 1500 by tensor-core operations (5 products of
-// 2 Sq Skv Dh per head).  Next, for K1 and K9 together: wgmma on 64-row
-// warpgroup tiles and a TMA ring with mbarriers in place of mma.sync and
+// 2 Sq Skv Dh per head).  Next: K1's pieces (hopper.cuh: wgmma on 64-row
+// warpgroup tiles, a TMA ring with mbarriers) in place of mma.sync and
 // cp.async.
 // ---------------------------------------------------------------------------
 
@@ -234,17 +283,13 @@ constexpr int BTILE = 64 * BLD;         // one 64-row bf16 tile, in elements
 // of LSE and Dsum (f32).
 constexpr int BWD_SMEM = (3 * BKB * BLD + 4 * BTILE) * 2 + 4 * BQT * 4;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(in ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(in ? 4 : 0));
 }
 
@@ -260,14 +305,14 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
+               : "r"(smem_addr(p))
                : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
+               : "r"(smem_addr(p))
                : "memory");
 }
 
@@ -589,18 +634,35 @@ extern "C" int wm_attention_bwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// lse: (B, H, Sq) f32, or null (serving).
+
+// lse: (B, H, Sq) f32, or null (serving).  q (B, H, Sq, 64), k and v (B, H,
+// Skv, 64) bf16, each 16-byte aligned (the tensor-map encoder refuses
+// another address: the entry then returns TENSOR_MAP_ERROR + its error).
 extern "C" int wm_attention_fwd(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int b, int h, int sq, int skv,
                                 int dh, int kv_len, int causal, void* stream) {
   using namespace wm;
-  if (dh != ADH) return (int)cudaErrorInvalidValue;
+  if (dh != ADH || sq < 1 || kv_len < 1 || kv_len > skv) return (int)cudaErrorInvalidValue;
+  const cuuint64_t row = ADH * sizeof(bf16);
+  const cuuint64_t qdims[3] = {(cuuint64_t)ADH, (cuuint64_t)sq, (cuuint64_t)b * h};
+  const cuuint64_t kdims[3] = {(cuuint64_t)ADH, (cuuint64_t)skv, (cuuint64_t)b * h};
+  const cuuint64_t qstrides[2] = {row, row * sq}, kstrides[2] = {row, row * skv};
+  const cuuint32_t qbox[3] = {ADH, AQ, 1}, kbox[3] = {ADH, AK, 1};
+  CUtensorMap mq, mk, mv;
+  int err = encode_map(&mq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, q, qdims, qstrides, qbox,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = encode_map(&mk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, k, kdims, kstrides, kbox,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = encode_map(&mv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v, kdims, kstrides, kbox,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
   // Per launch: the attribute belongs to the current device's context.
   cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        ATTN_SMEM);
   dim3 grid((sq + AQ - 1) / AQ, h, b);
-  attention_kernel<<<grid, 128, ATTN_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, h, sq,
-      skv, kv_len, causal);
+  attention_kernel<<<grid, A_THREADS, ATTN_SMEM, (cudaStream_t)stream>>>(
+      mq, mk, mv, (bf16*)o, (float*)lse, sq, kv_len, causal);
   return (int)cudaGetLastError();
 }

@@ -33,6 +33,7 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from whisper_medusa_tpu_torch.config import WhisperDims
 from whisper_medusa_tpu_torch.ops import attention as attn_mod
@@ -58,7 +59,16 @@ def sinusoidal_positions(length: int, channels: int, device=None) -> torch.Tenso
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """LayerNorm with float32 statistics, returned in ``x.dtype``."""
+    """LayerNorm with float32 statistics, returned in ``x.dtype``.
+
+    On the card (x, scale and bias of one dtype) it is ``F.layer_norm``, whose
+    kernel reduces each row in one block: a row's statistics do not depend on
+    how many rows the call has.  The two-pass ``mean`` below does not promise
+    that on the card (PyTorch splits a reduction over more CTAs when it has
+    few rows), and the per-op decoder step must give an example the same
+    bits at B=1 as in a batch."""
+    if x.is_cuda and scale.dtype == bias.dtype == x.dtype:
+        return F.layer_norm(x, (x.shape[-1],), scale, bias, 1e-5)
     x32 = x.float()
     mean = x32.mean(-1, keepdim=True)
     var = (x32 - mean).square().mean(-1, keepdim=True)

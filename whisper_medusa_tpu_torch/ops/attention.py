@@ -6,14 +6,20 @@ K1 replaces the TPU kernel ``whisper_medusa_tpu/ops/attention.py::_attention_ker
 VMEM and runs a one-pass softmax.  That design does not carry over: 1536 x 64
 bf16 K plus V is 384 KB, more than an SM's 227 KB of shared memory.
 
-The Hopper kernel (``csrc/attention.cu``) is a flash-style forward: one CTA
-per (batch, head, 64-query block), K/V streamed through shared memory in
-64-key tiles, QK^T and PV on the tensor cores (WMMA, bf16 in, f32 out), online
-softmax in f32, bf16 output.  It masks ``key < kv_len`` (and causality) and
-the ragged sequence edge itself, so the encoder runs its 1500 frames unpadded.
-At the encoder's shapes (B=1, H=20, S=1500, Dh=64) it is bound by tensor-core
-throughput and the softmax's exp/shuffle work, not by bytes (11.5 GFLOP against
-15 MB of q/k/v/out per layer).
+The Hopper kernel (``csrc/attention.cu``) is a flash-style forward on
+``wgmma`` fed by a TMA ring: one CTA per (batch, head, 128-query block), two
+consumer warpgroups of 64 query rows and one producer warp that streams
+64-key tiles of K and V through a four-stage ring of shared-memory tiles
+(``mbarrier``s, 3-D tensor maps over (B*H, S, 64), so rows past S read as
+zeros); QK^T with both operands in shared memory, the online softmax in f32
+on the accumulator registers, P as bf16 register operands of PV, bf16
+output.  It masks ``key < kv_len`` (and causality) and the ragged sequence
+edge itself, so the encoder runs its 1500 frames unpadded.  No split over
+keys and no atomics: a (batch, head, query block) computes the same bits
+whatever B is.  At the encoder's shapes (B=1, H=20, S=1500, Dh=64) it is
+bound by tensor-core throughput, not by bytes (11.5 GFLOP against 15 MB of
+q/k/v/out per layer).  The TMA maps need 16-byte-aligned tensors: the
+wrapper checks and raises.
 
 K9 replaces ``_attention_bwd_kernel`` (launched by ``_attention_bwd_pallas``),
 the training backward, as one pass from the forward's statistics: K1 writes

@@ -5,6 +5,12 @@ process per source, all started together, then one link — into one shared
 library with a plain C interface, and loaded with ``ctypes``.  Every pointer
 and the stream are passed as ``c_void_p``; every C entry returns
 ``cudaGetLastError()`` and :func:`launch` raises when that is not 0.
+K1 and K6 load their tiles through TMA tensor maps, encoded on the host by
+the CUDA driver's ``cuTensorMapEncodeTiled``; the library links only the CUDA
+runtime and fetches that function through ``cudaGetDriverEntryPoint*``
+(``csrc/hopper.cuh``), so no ``-lcuda`` is needed.  A map the CUDA driver
+refuses (an address or stride not 16-byte aligned) makes the entry return
+``TENSOR_MAP_ERROR`` + the CUDA driver's error, and :func:`launch` raises.
 
 The library goes to ``build/whisper_medusa_tpu_torch/`` under the checkout,
 named by a hash of the sources and flags, so an edited source rebuilds and a
@@ -30,6 +36,8 @@ _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 LINK_FLAGS = (*_ARCH, "-shared")
 
+TENSOR_MAP_ERROR = 100000   # csrc/hopper.cuh: + the CUDA driver's CUresult
+
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -47,7 +55,8 @@ _SIGNATURES = {
     "wm_verify_hidden": [_ptrs, _ints, ctypes.c_float, _vp],
     "wm_verify_rows": [_ptrs, _ints, ctypes.c_float, _vp],
     "wm_head_rows": [_vp] * 5 + [_ci] * 3 + [_vp],
-    "wm_qmm": [_vp] * 4 + [_ci] * 3 + [_vp],
+    "wm_qmm": [_vp] * 5 + [_ci] * 3 + [_vp],
+    "wm_qmm_scratch": [_ci] * 3,
     "wm_qmm_nt": [_vp] * 4 + [_ci] * 3 + [_vp],
     "wm_log_mel": [_vp] * 5 + [_ci] * 3 + [_vp],
     "wm_cross_decode": [_vp] * 6 + [_ci] * 5 + [_vp],
@@ -146,6 +155,9 @@ def launch(entry: str, device, *args) -> None:
 
     with torch.cuda.device(device):
         err = getattr(lib(), entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{entry}: TMA tensor-map encode failed (CUresult "
+                           f"{err - TENSOR_MAP_ERROR})")
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err}")
 

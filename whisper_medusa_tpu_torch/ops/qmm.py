@@ -12,11 +12,18 @@ scale.  An int8 weight is the dict ``{"q": int8, "s": float32}``.
 K6 replaces ``whisper_medusa_tpu/ops/qmm.py::_qmm_kernel`` (``qmm``):
 ``(bf16(x) @ bf16(wq)) * s`` -> f32 (M, N).  On the decode path it projects
 each example's encoder output (1500, 1280) into the int8 cross K/V in
-``init_cache``.  ``csrc/qmm.cu::wm_qmm``: one CTA of 8 warps per 64x64
-output tile, the bf16 x tile and the int8 weight tile (converted to bf16)
-staged through shared memory in 64-wide K slices, WMMA with f32
-accumulation, ``acc * s[n]`` written as f32.  Bound at (1500, 1280, 1280):
-the 4.9 GFLOP of products (5 us at 989 TFLOP/s) over its 13.2 MB.
+``init_cache`` and runs the int8 projections and FFN of the per-op step
+(M = B T <= 176).  ``csrc/qmm.cu::wm_qmm`` computes Y^T = W^T x^T on
+``wgmma`` (the weight gives its 64-row side, the batch rows its N side) from
+a TMA ring: one producer warp loads the bf16 x tile and the int8 weight
+tile, one consumer warpgroup converts the weight exactly to bf16 and runs
+the products.  K is cut into slices chosen from (K, N) only, summed in a
+fixed order: in registers when the grid is large (M = 1500), else one slice
+per CTA into f32 scratch that this wrapper allocates
+(``wm_qmm_scratch``) and a second kernel adds, with the same bits, so a
+row's result never depends on M.  Bound at (1500, 1280, 1280): the 4.9
+GFLOP of products (5 us at 989 TFLOP/s) over its 13.2 MB; at decode sizes
+the weight stream.
 
 K7 replaces ``_qmm_nt_kernel`` (``qmm_nt``): ``(bf16(x) @ bf16(wq)^T) * s``
 for the int8 tied embedding (V, D), the vocab projection of the prefill, the
@@ -97,8 +104,13 @@ def qmm_kernel(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.
         raise ValueError(f"qmm kernel takes K and N multiples of {TILE}; got x "
                          f"{tuple(x.shape)}, wq {tuple(wq.shape)}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    floats = cuda_lib.lib().wm_qmm_scratch(m, k, n)
+    if floats < 0:
+        raise ValueError(f"qmm kernel: no plan for (M, K, N) = ({m}, {k}, {n})")
+    scratch = torch.empty((floats,), dtype=torch.float32, device=x.device) if floats else None
     cuda_lib.launch("wm_qmm", x.device, x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-                    out.data_ptr(), m, k, n)
+                    out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                    m, k, n)
     launches += 1
     return out
 
