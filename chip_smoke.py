@@ -14,21 +14,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      off the paths, with every example of the B=8 call bitwise its B=1
      call; the TMA guards of K1 and K6: a misaligned operand raises, and so
      does a failed tensor-map encode; K1's log-sum-exp output; K8 log_mel on
-     the frontend's audio; the
+     the frontend's audio, every example of the B=8 call bitwise its B=1
+     call; the
      int8 modes of K2, K4, K5 and head_rows; K2's Medusa-Block mode and K4's
      identity0 rows, bf16 and int8; K6 qmm at init_cache's (1500, 1280,
      1280), the per-op step's B=16 shapes and whisper tiny's fc1, its first
      16 rows bitwise an M=16 call's, and K7 qmm_nt; K10 decode
-     cross-attention, bf16 and int8, and K11 decode FFN at the per-op
+     cross-attention, bf16 and int8 (the (16, 20, 11, 64) call bitwise its
+     B=1 calls), K10's mask mode (the per-op step's self-attention) against
+     ``attention`` under ``make_step_mask`` at large-v2's B=16 (causal and a
+     tree chunk mask, T=11 and T=1) and whisper tiny's B=8, B=8 and B=16
+     bitwise B=1, and K11 decode FFN at the per-op
      step's B=16 shapes and off them; head_rows, K3, K5 and K7 past one
      launch's rows, blocked), and time the kernel, the plain version and,
      where one PyTorch call computes the same function, that call, with
-     CUDA events (3 warm-ups, median of 20; K1 and K6 also by device time
-     under torch.profiler, beside SDPA's and matmul's); each kernel's bound is
+     CUDA events (3 warm-ups, median of 20; K1, K6, K8 and K10 also by device
+     time under torch.profiler, beside SDPA's, matmul's and torch.stft's);
+     each kernel's bound is
      computed from the bytes and operations of the same call; then the
      per-op decoder step (cuBLAS or K6 projections, K10, K11) against K2 on
      the same inputs and caches at (B, T) = (8, 11) and (8, 1), bf16 and
-     int8, 32 layers, cosine >= 0.9998, with both timed;
+     int8, 32 layers, cosine >= 0.9998, with both timed; P3 end to end: one
+     per-op step at B=8 against each example's B=1 step, large-v2 bf16 and
+     int8 and whisper tiny, every layer's self-attention (K10's mask mode)
+     and the step's hidden output bitwise;
   4. the main paths at full whisper-large-v2 width with random bf16 weights,
      each driven with every launch counter set to 0 just before and read
      just after: three Medusa requests at B=1; one vanilla request
@@ -300,9 +309,9 @@ def _log_mel_cost(x, n_mels):
     Hann window, a real FFT of 400 points (2.5 N log2 N, half a complex
     FFT's 5 N log2 N), the power, the triangular filter bank at its
     nonzeros (each bin feeds at most two mels) and the log.  The third
-    number is the dense DFT K8 does instead (cos and sin, 400 x 201 MACs
-    each, plus a dense 201 x n_mels projection): its design, not the
-    function's need."""
+    number is a dense DFT's (cos and sin, 400 x 201 MACs each, plus a dense
+    201 x n_mels projection), the plain version's and the TPU kernel's
+    design."""
     from whisper_medusa_tpu_torch.ops import mel as M
 
     b, n = x.shape
@@ -320,9 +329,11 @@ def check_mel(waves1, waves8):
     """K8 against its plain version on the smoke's waveforms at B=1 and B=8
     and on seeded white noise at B=2, n_mels 80 (and 128 on the noise): the
     normalized features (what users get) within 1e-3 max abs, the JAX
-    package's bar for its kernel; the raw log10 error is printed.  Timed at
-    B=1 and B=8 against the plain version and, for the DFT part alone,
-    torch.stft ("stft only")."""
+    package's bar for its kernel; the raw log10 error is printed.  Every
+    example of the B=8 call is bitwise its B=1 call.  Timed at B=1 and B=8
+    against the plain version and, for the DFT part alone, torch.stft
+    ("stft only"), with the device time of K8 and torch.stft under the
+    profiler printed beside."""
     from whisper_medusa_tpu_torch.ops import mel as M
     from whisper_medusa_tpu_torch.ops import mel_fused as MF
 
@@ -343,22 +354,30 @@ def check_mel(waves1, waves8):
         require(feats.shape == rfeats.shape and bool(torch.isfinite(feats).all())
                 and err <= 1e-3, f"K8 log_mel {name}: err {err}")
         worst = max(worst, err)
+    x8 = inputs["B=8"][0]
+    raw8 = MF.mel_kernel(x8, 80)
+    same = [torch.equal(raw8[i:i + 1], MF.mel_kernel(x8[i:i + 1].contiguous(), 80))
+            for i in range(x8.shape[0])]
+    log(f"K8 log_mel B=8: each example bitwise its B=1 output: {sum(same)}/{len(same)}")
+    require(all(same), "K8 log_mel: a B=1 call differs from its row of the B=8 call")
     window = torch.hann_window(M.N_FFT, device="cuda")
     timed = {}
     for name in ("B=1", "B=8"):
         x, n_mels = inputs[name]
+        stft = lambda: torch.stft(x, M.N_FFT, M.HOP_LENGTH, window=window, center=True,
+                                  pad_mode="reflect", return_complex=True)
         ms = cuda_ms(lambda: MF.mel_kernel(x, n_mels))
         plain_ms = cuda_ms(lambda: M.log_mel_plain(x, n_mels))
-        stft_ms = cuda_ms(lambda: torch.stft(x, M.N_FFT, M.HOP_LENGTH, window=window,
-                                             center=True, pad_mode="reflect",
-                                             return_complex=True))
+        stft_ms = cuda_ms(stft)
         moved, flops, dft_flops = _log_mel_cost(x, n_mels)
         b_ms = bound(moved, flops, F32_FLOPS)
-        log(f"K8 log_mel {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, stft only "
-            f"{stft_ms:.4f} ms, bound {b_ms[0]:.4f} ms ({b_ms[1]}: {moved / 1e6:.2f} MB, "
-            f"{flops / 1e9:.4f} GFLOP by FFT and sparse filter bank; the dense DFT K8 "
-            f"does is {dft_flops / 1e9:.2f} GFLOP, {dft_flops / F32_FLOPS * 1e3:.4f} ms "
-            f"on the f32 CUDA cores)")
+        log(f"K8 log_mel {name}: kernel {ms:.4f} ms (device "
+            f"{device_ms(lambda: MF.mel_kernel(x, n_mels)):.4f}), plain {plain_ms:.4f} ms, "
+            f"stft only {stft_ms:.4f} ms (device {device_ms(stft):.4f}), bound "
+            f"{b_ms[0]:.4f} ms ({b_ms[1]}: {moved / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP "
+            f"by FFT and sparse filter bank; a dense DFT would be "
+            f"{dft_flops / 1e9:.2f} GFLOP, {dft_flops / F32_FLOPS * 1e3:.4f} ms on the f32 "
+            f"CUDA cores)")
         timed[name] = (ms, plain_ms, b_ms, stft_ms)
     ms, plain_ms, b_ms, stft_ms = timed["B=1"]
     return kernel_record("log_mel", "whisper_medusa_tpu_torch/csrc/mel.cu",
@@ -894,9 +913,11 @@ def check_cross_decode(g):
     """K10 against its plain version, bf16 and int8, off the path and at the
     per-op step's shapes: elementwise within 1e-2 + 1e-2 |x| (both round P
     to bf16 and the output once; sums in another order may move a value one
-    bf16 step).  Timed at (16, 20, 11, 64) x 1500 against the plain version
+    bf16 step).  Every example of the (16, 20, 11, 64) call is bitwise its
+    B=1 call.  Timed at (16, 20, 11, 64) x 1500 against the plain version
     and, bf16, SDPA on the same q with K and V re-laid to (B, H, S, 64)
-    before timing (scale 1.0, q is pre-scaled); T=1 kernel times printed."""
+    before timing (scale 1.0, q is pre-scaled), the device times of K10 and
+    SDPA under the profiler printed beside; T=1 kernel times printed."""
     from whisper_medusa_tpu_torch.ops import decode_ops as DO
 
     rows = []
@@ -914,13 +935,24 @@ def check_cross_decode(g):
             worst = max(worst, err)
             if (b, t, s, kv) in CROSS_PATH:
                 timed[t] = (q, k, v, ks, vs, ref)
+            if (b, t) == (16, 11):
+                one = lambda a, i: None if a is None else a[i:i + 1].contiguous()
+                same = [torch.equal(got[i:i + 1], DO.cross_attention_decode_kernel(
+                    one(q, i), one(k, i), one(v, i), kv, one(ks, i), one(vs, i)))
+                    for i in range(b)]
+                log(f"K10 {name} ({b},20,{t},64): each example bitwise its B=1 output: "
+                    f"{sum(same)}/{b}")
+                require(all(same), f"K10 {name}: a B=1 call differs from its row of the "
+                                   f"B={b} call")
         q1, k1, v1, ks1, vs1 = timed[1][:5]
         t1_ms = cuda_ms(lambda: DO.cross_attention_decode_kernel(q1, k1, v1, 1500, ks1, vs1))
         log(f"K10 {name} (16,20,1,64) x 1500: kernel {t1_ms:.4f} ms")
         q, k, v, ks, vs, ref = timed[11]
-        ms = cuda_ms(lambda: DO.cross_attention_decode_kernel(q, k, v, 1500, ks, vs))
+        kern = lambda: DO.cross_attention_decode_kernel(q, k, v, 1500, ks, vs)
+        ms = cuda_ms(kern)
         plain_ms = cuda_ms(lambda: DO.cross_attention_decode_plain(q, k, v, 1500, ks, vs))
         lib_ms = None
+        log(f"K10 {name} (16,20,11,64) x 1500: device time {device_ms(kern):.4f} ms")
         if not int8:
             b, h, t, _ = q.shape
             kh = k.transpose(2, 3).contiguous()
@@ -929,7 +961,8 @@ def check_cross_decode(g):
             lib_err = max_err(sdpa(q, kh, vh, scale=1.0), ref)
             lib_ms = cuda_ms(lambda: sdpa(q, kh, vh, scale=1.0))
             log(f"K10 {name}: SDPA on the re-laid K/V at max_abs_err {lib_err:.3e} from "
-                f"the plain version")
+                f"the plain version, device time "
+                f"{device_ms(lambda: sdpa(q, kh, vh, scale=1.0)):.4f} ms")
         b, h, t, _ = q.shape
         moved = nbytes(q, k, v, *([ks, vs] if int8 else [])) + nbytes(q)
         rows.append(kernel_record(
@@ -937,6 +970,153 @@ def check_cross_decode(g):
             (DO, "q_cross_launches" if int8 else "cross_launches"), worst, ms, plain_ms,
             bound(moved, 4 * b * h * t * 1500 * 64), lib_ms))
     return rows
+
+
+# K10's mask mode at the per-op step's shapes: (name, B, T, H, chunk mask),
+# max_len 460 (the cache of init_cache(..., max_target_positions + 12)),
+# offsets spread over 3-400.
+SELF_SHAPES = (("large-v2", 16, 11, 20, "causal"), ("large-v2 vanilla", 16, 1, 20, "causal"),
+               ("large-v2 tree", 16, 11, 20, "tree"), ("tiny", 8, 11, 6, "causal"))
+SELF_MAX_LEN = 460
+
+
+def tree_mask(t):
+    """A chunk mask other than the causal one: node i sees itself, node 0
+    and the even nodes before it."""
+    m = torch.eye(t, dtype=torch.bool, device="cuda")
+    m[:, 0] = True
+    for i in range(t):
+        m[i, :i:2] = True
+    return m
+
+
+def check_self_decode(g):
+    """K10's mask mode (the per-op step's self-attention) against its plain
+    version, ``models/whisper.py::attention`` under ``make_step_mask``
+    (``decode_ops.self_attention_decode_plain``), at SELF_SHAPES: elementwise
+    within 1e-2 + 1e-2 |x|; every example of the call, and of a B=8 call on
+    its first eight, bitwise its B=1 call.  Timed at large-v2's (16, 11)
+    against the plain version and SDPA with the step's boolean mask on q, K
+    and V re-laid head-major before timing; the bound counts the keys each
+    example sees (offset + T)."""
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    worst, row = 0.0, None
+    for name, b, t, h, chunk in SELF_SHAPES:
+        rnd = lambda *shape, scale=1.0: (torch.randn(shape, generator=g, device="cuda")
+                                         * scale).to(torch.bfloat16)
+        q = rnd(b, t, h, 64, scale=0.125)
+        k, v = rnd(b, SELF_MAX_LEN, h * 64), rnd(b, SELF_MAX_LEN, h * 64)
+        off = torch.linspace(3, 400, b, device="cuda").round().to(torch.int32)
+        cm = tree_mask(t) if chunk == "tree" else None
+        bits = DO.chunk_bits(cm, t, "cuda")
+        got = DO.self_attention_decode_kernel(q, k, v, off, bits)
+        ref = DO.self_attention_decode_plain(q, k, v, off, cm)
+        err = max_err(got, ref)
+        what = f"K10 mask mode {name} (B={b}, T={t}, H={h}) x {SELF_MAX_LEN}, {chunk}"
+        log(f"{what}: max_abs_err {err:.3e}")
+        require(got.shape == ref.shape and close(got, ref, 1e-2), f"{what}: err {err}")
+        worst = max(worst, err)
+        one = lambda a, i: a[i:i + 1].contiguous()
+        for sub in sorted({b, 8}):
+            part = got if sub == b else DO.self_attention_decode_kernel(
+                q[:sub].contiguous(), k[:sub].contiguous(), v[:sub].contiguous(),
+                off[:sub].contiguous(), bits)
+            same = [torch.equal(part[i:i + 1], DO.self_attention_decode_kernel(
+                one(q, i), one(k, i), one(v, i), one(off, i), bits)) for i in range(sub)]
+            log(f"{what}: B={sub}, each example bitwise its B=1 output: {sum(same)}/{sub}")
+            require(all(same), f"{what}: a B=1 call differs from its row of the B={sub} call")
+        if name != "large-v2":
+            continue
+        kern = lambda: DO.self_attention_decode_kernel(q, k, v, off, bits)
+        ms = cuda_ms(kern)
+        plain_ms = cuda_ms(lambda: DO.self_attention_decode_plain(q, k, v, off, cm))
+        from whisper_medusa_tpu_torch.models import whisper
+
+        mask = whisper.make_step_mask(off, t, SELF_MAX_LEN, cm)
+        qh = q.transpose(1, 2).contiguous()
+        kh = k.reshape(b, -1, h, 64).transpose(1, 2).contiguous()
+        vh = v.reshape(b, -1, h, 64).transpose(1, 2).contiguous()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=1.0)
+        lib_err = max_err(lib().transpose(1, 2), ref)
+        lib_ms = cuda_ms(lib)
+        log(f"{what}: device time {device_ms(kern):.4f} ms; SDPA with the step's mask at "
+            f"max_abs_err {lib_err:.3e} from the plain version, {lib_ms:.4f} ms, device "
+            f"{device_ms(lib):.4f} ms")
+        keys = int((off.long() + t).sum())
+        moved = nbytes(q) * 2 + 2 * keys * h * 64 * 2 + nbytes(off, bits)
+        row = (ms, plain_ms, bound(moved, 4 * h * t * keys * 64), lib_ms)
+    ms, plain_ms, b_ms, lib_ms = row
+    return kernel_record("self_decode", DECODE_OPS_SOURCE,
+                         "tools/decode_kernels_experiment.py:48", (DO, "self_launches"),
+                         worst, ms, plain_ms, b_ms, lib_ms)
+
+
+def check_step_invariance(model, enc8, name):
+    """P3 end to end: one per-op step (``whisper.decoder_layers_ops``, all
+    layers) at B=8, T=11, per-example offsets after a T=4 prompt step, and
+    the same two steps for each example alone at B=1 on its encoder row.
+    Every layer's self-attention (K10's mask mode) is recorded: its output
+    for an example at B=8 is bitwise the kernel's output on that example's
+    inputs alone; every layer hands it bitwise the B=1 step's inputs, its
+    output is bitwise the B=1 step's, and so is the step's hidden output."""
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    p, dims = model.params["whisper"], model.config.dims
+    dec, nh, st = p["decoder"], dims.decoder_attention_heads, model.special
+    real = DO.self_attention_decode_kernel
+    offs = torch.tensor([4, 2, 4, 3, 1, 4, 0, 2], dtype=torch.int32, device="cuda")
+
+    def two_steps(enc, offsets):
+        b = enc.shape[0]
+        cache = whisper.init_cache(p, dims, enc, dims.max_target_positions + 12)
+        zero = torch.zeros((b,), dtype=torch.int32, device="cuda")
+
+        def run(x, o):
+            return whisper.decoder_layers_ops(
+                dec["layers"], dec["ln_post"], x, cache.self_k, cache.self_v,
+                cache.cross_k, cache.cross_v, o, None, dims.max_source_positions, nh,
+                cross_k_s=cache.cross_k_s, cross_v_s=cache.cross_v_s, self_s=cache.self_s)
+
+        prompt = torch.tensor([[st.sot, st.first_language, st.transcribe,
+                                st.no_timestamps]] * b, device="cuda")
+        run(_embedded(dec, prompt, zero), zero)
+        rec = []
+        DO.self_attention_decode_kernel = lambda *a: rec.append(
+            ([x.clone() for x in a], real(*a))) or rec[-1][1]
+        try:
+            toks = (100 + torch.arange(11, device="cuda")[None] * 7
+                    + offsets[:, None].long()) % dims.vocab_size
+            hidden = run(_embedded(dec, toks, offsets), offsets)[1]
+        finally:
+            DO.self_attention_decode_kernel = real
+        return rec, hidden
+
+    rec8, hid8 = two_steps(enc8, offs)
+    same_in, hid_same = 0, []
+    for i in range(enc8.shape[0]):
+        rec1, hid1 = two_steps(enc8[i:i + 1], offs[i:i + 1])
+        hid_same.append(torch.equal(hid8[i:i + 1], hid1))
+        for (args8, out8), (args1, out1) in zip(rec8, rec1):
+            # (q, k, v, offsets) are per example; the chunk bits are shared.
+            mine = [a[i:i + 1].contiguous() for a in args8[:4]] + args8[4:]
+            require(torch.equal(out8[i:i + 1], real(*mine)),
+                    f"P3 {name}: example {i}'s self-attention in the B=8 step differs from "
+                    f"the kernel on its inputs alone")
+            if all(torch.equal(a, b) for a, b in zip(mine, args1)):
+                same_in += 1
+                require(torch.equal(out8[i:i + 1], out1),
+                        f"P3 {name}: example {i}'s self-attention differs from its B=1 "
+                        f"step's on the same inputs")
+    n = len(rec8) * enc8.shape[0]
+    log(f"P3 {name}, per-op step B=8 vs B=1 ({len(rec8)} layers): every self-attention "
+        f"output bitwise the kernel's on its own inputs; {same_in}/{n} (layer, example) "
+        f"pairs got bitwise the B=1 step's inputs and gave bitwise its output; hidden "
+        f"bitwise equal for {sum(hid_same)}/{len(hid_same)} examples")
+    require(same_in == n and all(hid_same),
+            f"P3 {name}: the per-op step at B=8 is not bitwise its B=1 steps")
 
 
 def check_ffn_decode(g, d=1280, f=5120, timed_m=176, name="ffn_decode"):
@@ -1443,13 +1623,14 @@ BATCH16 = 16
 # Past K2's batch: the per-op step (K10, K11; K6 at int8) and never K2.
 K2_ROWS = ("megastep", "megastep_int8", "megastep_block", "megastep_block_int8")
 NEEDS_B16 = {
-    "bf16 medusa": ("attention", "cross_decode", "ffn_decode", "logits", "head_rows",
-                    "verify_rows"),
-    "int8 medusa": ("attention", "cross_decode_int8", "qmm", "qmm_nt", "head_rows_int8",
-                    "verify_rows_int8"),
-    "bf16 vanilla": ("attention", "cross_decode", "ffn_decode", "logits", "verify_rows"),
-    "bf16 medusa_block": ("log_mel", "attention", "cross_decode", "ffn_decode", "logits",
-                          "verify_rows"),
+    "bf16 medusa": ("attention", "self_decode", "cross_decode", "ffn_decode", "logits",
+                    "head_rows", "verify_rows"),
+    "int8 medusa": ("attention", "self_decode", "cross_decode_int8", "qmm", "qmm_nt",
+                    "head_rows_int8", "verify_rows_int8"),
+    "bf16 vanilla": ("attention", "self_decode", "cross_decode", "ffn_decode", "logits",
+                     "verify_rows"),
+    "bf16 medusa_block": ("log_mel", "attention", "self_decode", "cross_decode",
+                          "ffn_decode", "logits", "verify_rows"),
 }
 
 
@@ -1485,16 +1666,16 @@ def phase_b16_requests(model, qmodel, bmodel, kernels, feats16, proc_k, waves16,
 TINY_D = 384
 TINY_ROWS = ("ffn_decode d384", "head_rows d384", "verify d384")
 NEEDS_TINY = {
-    "bf16 medusa B=1": ("attention", "cross_decode", "ffn_decode d384", "logits",
-                        "head_rows d384", "verify d384"),
-    "bf16 vanilla B=1": ("attention", "cross_decode", "ffn_decode d384", "logits",
-                         "verify_rows"),
-    f"bf16 medusa B={BATCH}": ("attention", "cross_decode", "ffn_decode d384", "logits",
-                               "head_rows d384", "verify_rows"),
-    "int8 medusa B=1": ("attention", "cross_decode_int8", "qmm", "qmm_nt",
+    "bf16 medusa B=1": ("attention", "self_decode", "cross_decode", "ffn_decode d384",
+                        "logits", "head_rows d384", "verify d384"),
+    "bf16 vanilla B=1": ("attention", "self_decode", "cross_decode", "ffn_decode d384",
+                         "logits", "verify_rows"),
+    f"bf16 medusa B={BATCH}": ("attention", "self_decode", "cross_decode", "ffn_decode d384",
+                               "logits", "head_rows d384", "verify_rows"),
+    "int8 medusa B=1": ("attention", "self_decode", "cross_decode_int8", "qmm", "qmm_nt",
                         "head_rows_int8", "verify_hidden_int8"),
-    "bf16 medusa_block B=1": ("attention", "cross_decode", "ffn_decode d384", "logits",
-                              "verify_hidden_id0"),
+    "bf16 medusa_block B=1": ("attention", "self_decode", "cross_decode", "ffn_decode d384",
+                              "logits", "verify_hidden_id0"),
 }
 
 
@@ -1979,6 +2160,7 @@ def main():
                                              bqmodel.params["medusa"]["block"])
     k2bq["max_abs_err"] = err2bq
     k10, k10q = check_cross_decode(g)
+    k10m = check_self_decode(g)
     k11 = check_ffn_decode(g)
     secs16 = tuple(float(x) for x in np.linspace(4.0, 30.0, BATCH16))
     waves16 = waveforms(secs16)
@@ -1987,8 +2169,10 @@ def main():
             "B=16 processor output")
     enc16 = model.encode(feats16)
     worst_cos_ops = check_per_op_step((model, qmodel), enc8, enc16)
+    for m, name in ((model, "large-v2 bf16"), (qmodel, "large-v2 int8")):
+        check_step_invariance(m, enc8, name)
     kernels = [*k1, k2, k2q, k3, k4, k4q, k4a, k4aq, k5, k5q, *k6, k7,
-               k8, k2b, k2bq, k4b, k4bq, k10, k10q, k11]
+               k8, k2b, k2bq, k4b, k4bq, k10, k10q, k10m, k11]
 
     # ---- phase 4: the main paths, bf16 then int8
     outs = phase_requests("bf16", model, kernels, feats, waves, feats8, batch_secs)
@@ -2032,6 +2216,7 @@ def main():
                                  name="ffn_decode d384"),
                 check_head_rows(g, tiny[0], name="head_rows d384"),
                 check_verify(g, tiny[0], name="verify d384")]
+    check_step_invariance(tiny[0], tiny[0].encode(feats8), "tiny bf16")
     phase_tiny_requests(tiny, kernels, feats, feats8)
     for k in kernels:
         if k["name"] in TINY_ROWS:

@@ -1,11 +1,14 @@
 """Where the device time goes, on one CUDA card.
 
-    python -m whisper_medusa_tpu_torch.device_profile [--part serving|per_op|train|all]
+    python -m whisper_medusa_tpu_torch.device_profile [--part serving|per_op|step|train|all]
 
 Six parts, all at full whisper-large-v2 width with bf16 weights drawn from
 a seed, and the same again on ``model.quantize()`` (int8 serving) for parts
 2, 4 and 6 (``--part serving`` runs parts 1-4 and 6, ``--part per_op`` part
-6, ``--part train`` part 5):
+6, ``--part step`` part 6's per-op steps alone, ``--part train`` part 5).
+Run with another checkout's package first on ``PYTHONPATH`` (``PYTHONPATH=DIR
+python path/to/this/device_profile.py ...``), it profiles that checkout's
+code the same way:
 
   1. the log-mel frontend at B=1 and B=8 on seeded noise, the default plain
      PyTorch path and the fused kernel K8: device time by kernel beside the
@@ -30,9 +33,11 @@ a seed, and the same again on ``model.quantize()`` (int8 serving) for parts
      cuBLAS, the elementwise kernels), the idle share and the peak memory;
   6. past K2's batch: one per-op decoder step
      (``models/whisper.py::decoder_layers_ops``: cuBLAS or K6 projections,
-     PyTorch self-attention, K10, K11) over all 32 layers at (B, T) in
+     K10's mask mode for the self-attention, K10, K11) over all 32 layers at
+     (B, T) in
      (8, 11), (16, 1) and (16, 11), bf16 and int8 — the host wall of a call
-     ending in a synchronize, the device time by kernel and the idle share —
+     ending in a synchronize, the device time by kernel, the idle share and
+     the launches per layer —
      and whole requests at B=16 as in part 4 (Medusa and vanilla bf16,
      Medusa int8, Medusa-Block bf16).
 
@@ -255,10 +260,13 @@ def profile_per_op_step(model, mode):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = _by_kernel(run, 3)
         total = _table(f"per-op step {mode}, {dims.decoder_layers} layers, B={b} T={t}, per "
-                       f"call", _by_kernel(run, 3),
+                       f"call", rows,
                        f" (CUDA events: {ms:.4f} ms per call; wall {wall_ms:.1f} ms)")
-        print(f"  device idle share {1 - total / 1e3 / wall_ms:.3f}")
+        launches = sum(n for _, n in rows.values())
+        print(f"  device idle share {1 - total / 1e3 / wall_ms:.3f}; {launches:.0f} launches, "
+              f"{launches / dims.decoder_layers:.1f} a layer")
         del cache
 
 
@@ -330,7 +338,7 @@ def main(argv=None):
     from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--part", choices=("all", "serving", "per_op", "train"),
+    parser.add_argument("--part", choices=("all", "serving", "per_op", "step", "train"),
                         default="all")
     part = parser.parse_args(argv).part
     if not torch.cuda.is_available():
@@ -350,10 +358,12 @@ def main(argv=None):
     qmodel = model.quantize()
     bmodel = bridge.random_block_model(model, seed=SEED + 2)
     bqmodel = bmodel.quantize()
-    if part != "per_op":
+    if part not in ("per_op", "step"):
         profile_serving(model, qmodel, bmodel, bqmodel)
     for m, mode in ((model, "bf16"), (qmodel, "int8")):
         profile_per_op_step(m, mode)
+    if part == "step":
+        return
     profile_requests(model, "bf16", batches=(16,))
     profile_requests(qmodel, "int8", (("medusa", {}),), batches=(16,))
     profile_requests(bmodel, "bf16", (("medusa_block", {}),), batches=(16,))

@@ -1,5 +1,5 @@
-"""Time this checkout's K1 and K6 against another checkout's build of them, on
-one CUDA card, in turns.
+"""Time this checkout's K1, K6, K8 and K10 against another checkout's build of
+them, on one CUDA card, in turns.
 
     python -m whisper_medusa_tpu_torch.kernel_ab --other DIR
 
@@ -16,14 +16,22 @@ times exclude the wrappers' checks and allocations:
     K/V projection) and the per-op step's (176, 1280, 5120), (176, 5120,
     1280), (176, 1280, 1280) and (16, 1280, 1280), and whisper tiny's
     (11, 384, 1536).  A build whose ``wm_qmm`` takes a scratch buffer gets
-    one of the size its ``wm_qmm_scratch`` asks for.
+    one of the size its ``wm_qmm_scratch`` asks for;
+  * K8, ``wm_log_mel``, on 30 s of seeded noise at B=1 and B=8, 80 mels.
+    Each build gets its own operands: a build whose entry takes the dense
+    windowed bases (nine arguments) gets cos and sin zero-padded to 256
+    frequencies and the dense filter bank, one that takes the factored
+    DFT's tables gets ``ops/mel.py::device_fft_tables``;
+  * K10, ``wm_cross_decode``, at (16, 20, 11, 64) x 1500, bf16 and int8 K/V
+    (the per-op step's cross-attention at B=16 on the Medusa chain).
 
 Each shape runs in the order other, this, this, other; each turn prints the
 median of 20 calls between CUDA events (``device_profile._cuda_ms``) and the
 device time per call under torch.profiler (``device_profile._by_kernel``:
 the kernels' own time, which the events exceed where the host's launch
 overhead is the longer).  The two builds' outputs are compared first (K1
-within 2e-2, K6 within 1e-3 of max |y|).
+within 2e-2, K6 within 1e-3 of max |y|, K8's normalized features within
+1e-3, K10 within 1e-2 + 1e-2 |x|).
 """
 
 from __future__ import annotations
@@ -33,10 +41,12 @@ import importlib.util
 import os
 import subprocess
 
+import numpy as np
 import torch
 
 from whisper_medusa_tpu_torch.device_profile import _by_kernel, _cuda_ms
 from whisper_medusa_tpu_torch.ops import cuda_lib
+from whisper_medusa_tpu_torch.ops import mel as M
 from whisper_medusa_tpu_torch.ops import qmm as QM
 
 SEED = 0
@@ -74,6 +84,20 @@ def _qmm_call(mod, x, wq, s, y, m, k, n):
     scratch = torch.empty((max(floats, 1),), dtype=torch.float32, device=x.device)
     return lambda: mod.launch("wm_qmm", x.device, x.data_ptr(), wq.data_ptr(),
                               s.data_ptr(), y.data_ptr(), scratch.data_ptr(), m, k, n)
+
+
+def _mel_call(mod, x, out, n_mels=80):
+    b, n = x.shape
+    if len(mod._SIGNATURES["wm_log_mel"]) == 9:      # the dense windowed bases
+        cos_b, sin_b, fb = (torch.from_numpy(a).to(x.device) for a in M.dft_mel_basis(n_mels))
+        pad = lambda a: torch.nn.functional.pad(a, (0, 256 - a.shape[1])).contiguous()
+        ops = (pad(cos_b), pad(sin_b), fb.contiguous())
+        return lambda: mod.launch("wm_log_mel", x.device, x.data_ptr(),
+                                  *[o.data_ptr() for o in ops], out.data_ptr(), b, n, n_mels)
+    tab = M.device_fft_tables(x.device, n_mels)
+    ptrs = [tab[k].data_ptr() for k in ("window", "dft20", "twiddle", "mel_span", "mel_w")]
+    return lambda: mod.launch("wm_log_mel", x.device, x.data_ptr(), *ptrs, out.data_ptr(),
+                              b, n, n_mels, tab["mel_w"].numel())
 
 
 def main(argv=None):
@@ -118,6 +142,45 @@ def main(argv=None):
         if diff > tol:
             raise AssertionError(f"K6 ({m},{k},{n}): the builds differ by {diff} > {tol}")
         _turns(f"K6 ({m},{k},{n}), builds differ by {diff:.3e}", calls)
+
+    rng = np.random.default_rng(SEED)
+    for b in (1, 8):
+        x = torch.from_numpy((0.1 * rng.standard_normal((b, M.N_SAMPLES)))
+                             .astype(np.float32)).cuda()
+        outs = {who: torch.empty((b, M.N_FRAMES, 80), device="cuda") for who in libs}
+        calls = {who: _mel_call(mod, x, outs[who]) for who, mod in libs.items()}
+        for fn in calls.values():
+            fn()
+        diff = float((M.normalize_log_mel(outs["this"])
+                      - M.normalize_log_mel(outs["other"])).abs().max())
+        if diff > 1e-3:
+            raise AssertionError(f"K8 B={b}: the builds' features differ by {diff}")
+        _turns(f"K8 B={b}, features differ by {diff:.3e}", calls)
+
+    b, h, t, s_len = 16, 20, 11, 1500
+    for int8 in (False, True):
+        q = (torch.randn((b, h, t, 64), generator=g, device="cuda") * 0.125).to(torch.bfloat16)
+        if int8:
+            i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                              dtype=torch.int8)
+            scl = lambda: 0.004 + 0.012 * torch.rand((b, h, s_len), generator=g, device="cuda")
+            k, v, ks, vs = i8(b, h, 64, s_len), i8(b, s_len, h * 64), scl(), scl()
+        else:
+            rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+            k, v, ks, vs = rnd(b, h, 64, s_len), rnd(b, s_len, h * 64), None, None
+        outs = {who: torch.empty_like(q) for who in libs}
+        calls = {who: (lambda mod=mod, o=outs[who]: mod.launch(
+            "wm_cross_decode", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
+            o.data_ptr(), b, h, t, s_len, s_len)) for who, mod in libs.items()}
+        for fn in calls.values():
+            fn()
+        a, o = outs["this"].float(), outs["other"].float()
+        if not bool(((a - o).abs() <= 1e-2 + 1e-2 * o.abs()).all()):
+            raise AssertionError(f"K10 int8={int8}: the builds differ by "
+                                 f"{float((a - o).abs().max())}")
+        _turns(f"K10 ({b},{h},{t},64) x {s_len} {'int8' if int8 else 'bf16'}, builds "
+               f"differ by {float((a - o).abs().max()):.3e}", calls)
 
 
 if __name__ == "__main__":

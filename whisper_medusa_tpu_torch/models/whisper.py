@@ -11,12 +11,13 @@ cross cache is never padded.
 Decode runs through ``ops/megastep.py`` (kernel K2 on CUDA tensors, the
 :func:`decoder_layer_step` loop on CPU tensors) where K2 takes the call
 (B <= 8, T <= 16, ``megastep.fits``), else through the per-op step
-:func:`decoder_layers_ops` (cuBLAS projections, K10 cross-attention, K11
-FFN), with the Medusa-Block layer as one more layer on its own cache slot
-when given; the cache slabs are updated in place.  Encoder self-attention runs through
-``ops/attention.py`` (K1).  An example's decoder state does not depend on
-the batch it is in: the cross K/V are projected one example at a time and
-K2's per-row arithmetic is independent of the row count.
+:func:`decoder_layers_ops` (cuBLAS projections, K10's mask mode for the
+self-attention, K10 cross-attention, K11 FFN), with the Medusa-Block layer
+as one more layer on its own cache slot when given; the cache slabs are
+updated in place.  Encoder self-attention runs through ``ops/attention.py``
+(K1).  An example's decoder state does not depend on the batch it is in:
+the cross K/V are projected one example at a time, and K2's and K10's
+per-row arithmetic is independent of the row count.
 
 int8 serving (``ops/qmm.py::quantize_decoder``): a weight may be the dict
 ``{"q": int8, "s": float32}``; :func:`dense` then runs ``qmm`` (K6), the
@@ -411,9 +412,10 @@ def _layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.T
                 cross_k: torch.Tensor, cross_v: torch.Tensor, offsets: torch.Tensor,
                 self_mask: torch.Tensor, num_heads: int, cross_len: int,
                 cross_k_s: Optional[torch.Tensor], cross_v_s: Optional[torch.Tensor],
-                self_s: Optional[torch.Tensor], proj, cross_fn, ffn_fn) -> torch.Tensor:
+                self_s: Optional[torch.Tensor], proj, attend, cross_fn, ffn_fn) -> torch.Tensor:
     """One decoder layer (JAX ``decoder_layer_step``, whisper.py:953-1042)
-    with its projections through ``proj``, cross-attention through
+    with its projections through ``proj``, self-attention through
+    ``attend(q, k_slab, v_slab, self_mask)``, cross-attention through
     ``cross_fn`` and the FFN branch through ``ffn_fn(lp, x)``."""
     head_dim = h.shape[-1] // num_heads
     sx = layer_norm(h, lp["self_ln"]["scale"], lp["self_ln"]["bias"])
@@ -435,8 +437,7 @@ def _layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.T
         v_att = dequant_self(v_buf, self_s[..., num_heads:], num_heads)
         write_rows(k_att, k_new.to(torch.bfloat16), offsets)
         write_rows(v_att, v_new.to(torch.bfloat16), offsets)
-    out = attention(q, _split_heads(k_att, num_heads),
-                    _split_heads(v_att, num_heads), self_mask)
+    out = attend(q, k_att, v_att, self_mask)
     h = h + proj(_merge_heads(out), lp["self"]["o_w"], lp["self"]["o_b"])
     cx = layer_norm(h, lp["cross_ln"]["scale"], lp["cross_ln"]["bias"])
     cq = _split_heads(proj(cx, lp["cross"]["q_w"], lp["cross"]["q_b"]), num_heads)
@@ -445,6 +446,32 @@ def _layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.T
     h = h + proj(_merge_heads(co.transpose(1, 2)), lp["cross"]["o_w"], lp["cross"]["o_b"])
     fx = layer_norm(h, lp["ffn_ln"]["scale"], lp["ffn_ln"]["bias"])
     return h + ffn_fn(lp, fx)
+
+
+def _attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Self-attention of a decode chunk over the head-flat slabs k, v (B,
+    max_len, D) under ``make_step_mask``'s mask."""
+    h = q.shape[2]
+    return attention(q, _split_heads(k, h), _split_heads(v, h), mask)
+
+
+def _step_mask_ops(offsets: torch.Tensor, chunk_len: int, max_len: int,
+                   chunk_mask: Optional[torch.Tensor]):
+    """The per-op step's self mask: on the card K10's mask-mode operands
+    (offsets, chunk bits), elsewhere :func:`make_step_mask`."""
+    if offsets.is_cuda:
+        return offsets, decode_ops.chunk_bits(chunk_mask, chunk_len, offsets.device)
+    return make_step_mask(offsets, chunk_len, max_len, chunk_mask)
+
+
+def _attend_ops(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask) -> torch.Tensor:
+    """The per-op step's self-attention: K10's mask mode on CUDA tensors
+    (batch-invariant: each example's sums in an order fixed by max_len),
+    :func:`_attend_plain` on CPU tensors."""
+    if q.is_cuda:
+        return decode_ops.self_attention_decode_kernel(q, k, v, *mask)
+    return _attend_plain(q, k, v, mask)
 
 
 def _ffn_plain(lp: Params, x: torch.Tensor) -> torch.Tensor:
@@ -477,8 +504,8 @@ def decoder_layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
     as the fresh bf16 K/V."""
     return _layer_step(lp, h, k_buf, v_buf, cross_k, cross_v, offsets, self_mask,
                        num_heads, cross_len, cross_k_s, cross_v_s, self_s,
-                       proj=dense_exact, cross_fn=decode_ops.cross_attention_decode_plain,
-                       ffn_fn=_ffn_plain)
+                       proj=dense_exact, attend=_attend_plain,
+                       cross_fn=decode_ops.cross_attention_decode_plain, ffn_fn=_ffn_plain)
 
 
 def decoder_layer_ops(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
@@ -489,13 +516,14 @@ def decoder_layer_ops(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
                       self_s: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decoder layer of the per-op step (the JAX scan path): the
     projections through :func:`dense` (cuBLAS, or K6 at int8), the
-    self-attention in PyTorch, cross-attention through K10 and the bf16 FFN
-    through K11 (ops/decode_ops.py); on CPU tensors the wrappers run their
-    plain versions."""
+    self-attention through K10's mask mode (``self_mask`` is then
+    :func:`_step_mask_ops`'s (offsets, chunk bits)), cross-attention through
+    K10 and the bf16 FFN through K11 (ops/decode_ops.py); on CPU tensors the
+    wrappers run their plain versions."""
     return _layer_step(lp, h, k_buf, v_buf, cross_k, cross_v, offsets, self_mask,
                        num_heads, cross_len, cross_k_s, cross_v_s, self_s,
-                       proj=dense, cross_fn=decode_ops.cross_attention_decode,
-                       ffn_fn=_ffn_ops)
+                       proj=dense, attend=_attend_ops,
+                       cross_fn=decode_ops.cross_attention_decode, ffn_fn=_ffn_ops)
 
 
 def run_layers(layer_fn, dec_layers: Params, ln_post: Params, x: torch.Tensor,
@@ -504,15 +532,17 @@ def run_layers(layer_fn, dec_layers: Params, ln_post: Params, x: torch.Tensor,
                chunk_mask: Optional[torch.Tensor], cross_len: int, num_heads: int,
                cross_k_s: Optional[torch.Tensor] = None,
                cross_v_s: Optional[torch.Tensor] = None,
-               self_s: Optional[torch.Tensor] = None, block: Optional[Params] = None):
+               self_s: Optional[torch.Tensor] = None, block: Optional[Params] = None,
+               mask_fn=make_step_mask):
     """``layer_fn`` over every stacked decoder layer (slot i of each cache
     slab), then ``ln_post``, then the block (if given) on ln_post's output
     at slot L; (pre_norm, hidden, block_hidden or None), the self slabs
-    (and scales) updated in place."""
+    (and scales) updated in place.  ``mask_fn(offsets, T, max_len,
+    chunk_mask)`` gives the self mask the layers take, once per step."""
     from whisper_medusa_tpu_torch.ops import megastep
 
     nl = megastep.check_slots(dec_layers, self_k, block)
-    mask = make_step_mask(offsets, x.shape[1], self_k.shape[2], chunk_mask)
+    mask = mask_fn(offsets, x.shape[1], self_k.shape[2], chunk_mask)
     at = lambda a, i: None if a is None else a[i]
 
     def step(lp, h, i):
@@ -543,7 +573,8 @@ def decoder_layers_ops(dec_layers: Params, ln_post: Params, x: torch.Tensor,
     ``ops/megastep.py::fused_decoder_layers``."""
     return run_layers(decoder_layer_ops, dec_layers, ln_post, x, self_k, self_v, cross_k,
                       cross_v, offsets, chunk_mask, cross_len, num_heads,
-                      cross_k_s=cross_k_s, cross_v_s=cross_v_s, self_s=self_s, block=block)
+                      cross_k_s=cross_k_s, cross_v_s=cross_v_s, self_s=self_s, block=block,
+                      mask_fn=_step_mask_ops)
 
 
 @dataclasses.dataclass

@@ -58,8 +58,9 @@ _SIGNATURES = {
     "wm_qmm": [_vp] * 5 + [_ci] * 3 + [_vp],
     "wm_qmm_scratch": [_ci] * 3,
     "wm_qmm_nt": [_vp] * 4 + [_ci] * 3 + [_vp],
-    "wm_log_mel": [_vp] * 5 + [_ci] * 3 + [_vp],
+    "wm_log_mel": [_vp] * 7 + [_ci] * 4 + [_vp],
     "wm_cross_decode": [_vp] * 6 + [_ci] * 5 + [_vp],
+    "wm_self_decode": [_vp] * 6 + [_ci] * 4 + [_vp],
     "wm_ffn_decode": [_vp] * 7 + [_ci] * 3 + [_vp],
 }
 
@@ -162,13 +163,14 @@ def launch(entry: str, device, *args) -> None:
         raise RuntimeError(f"{entry}: CUDA error {err}")
 
 
-def require_cuda(name: str, *tensors, dtype=None, device=None) -> None:
+def require_cuda(name: str, *tensors, dtype=None, device=None, aligned=True) -> None:
     """Shared wrapper checks: no operand that requires grad under grad mode
     (a kernel's output has no ``grad_fn``, so a loss built on it would lose
     its gradient silently; K1 and K9 are reached through
     ``ops/attention.py::AttentionFn``, which passes detached tensors), one
     CUDA device (``device``, else the first operand's), ``dtype`` (default
-    bf16), contiguous, 16-byte aligned."""
+    bf16), contiguous, 16-byte aligned (unless ``aligned`` is False: small
+    operands a kernel reads element by element)."""
     import torch
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
@@ -185,5 +187,5 @@ def require_cuda(name: str, *tensors, dtype=None, device=None) -> None:
             raise ValueError(f"{name}: operands must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-        if t.data_ptr() % 16:
+        if aligned and t.data_ptr() % 16:
             raise ValueError(f"{name}: operands must be 16-byte aligned")

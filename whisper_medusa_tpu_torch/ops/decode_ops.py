@@ -11,14 +11,31 @@ position) scales.
 K10 replaces the TPU kernel
 ``tools/decode_kernels_experiment.py::_cross_kernel`` (launched by
 ``_cross_pallas``), one program per example with the head loop unrolled.
-``csrc/decode_ops.cu::wm_cross_decode`` runs one CTA of 512 threads per
-(example, head): the (T, S) f32 score block lives in shared memory (66 KB at
-T = 11, S = 1500), so the softmax is taken over the whole row and P is
-rounded to bf16 once, as in the TPU kernel and the plain version; keys are
-read with 8-byte loads of four K columns, V rows by one warp each.  int8
-mode: scores times ``k_s`` before the max, probabilities times ``v_s``
-before the bf16 rounding, the denominator unscaled.  Bound by bytes: at
-large-v2 a call reads B x 7.68 MB of bf16 cross K/V (half that in int8).
+``csrc/decode_ops.cu::wm_cross_decode`` runs one thread-block cluster per
+(example, head): its C CTAs (C = min(8, ceil(S / 192)), from S alone:
+:func:`cluster_split`) each take a contiguous slice of the keys, load it
+with ``cp.async`` (K as one group, V as a second still in flight while the
+scores run), compute their scores and later their partial PV on the tensor
+cores (``mma.sync`` m16n8k16: the T <= 16 queries are one m16 tile, bf16
+operands, f32 sums; int8 K/V converted exactly to bf16 on the way in),
+exchange the row maxima and then the row sums through distributed shared
+memory, normalise and round P to bf16 once, and add the C partials in
+rank order: the whole-row softmax and the single rounding of P as in the
+TPU kernel and the plain version, and each (example, head)'s sums in an
+order that depends on S only, so an example's bits do not depend on the
+batch.  int8 mode: scores times ``k_s`` before the max, probabilities times
+``v_s`` before the bf16 rounding, the denominator unscaled.  Bound by
+bytes: at large-v2 a call reads B x 7.68 MB of bf16 cross K/V (half that in
+int8).
+
+K10's mask mode, ``csrc/decode_ops.cu::wm_self_decode``, is the per-op
+step's self-attention on the card (``models/whisper.py::decoder_layer_ops``):
+the same kernel over the head-flat bf16 self slabs (B, max_len, D), with the
+offsets and the chunk mask of ``models/whisper.py::make_step_mask`` in
+place of ``kv_len``; keys at or past ``offsets[b] + T`` are neither read nor
+counted, and the key slices come from ``max_len`` alone.  Its plain version
+is ``models/whisper.py::attention`` with ``make_step_mask``
+(:func:`self_attention_decode_plain`), which the step runs on the CPU.
 
 K11 replaces ``tools/decode_kernels_experiment.py::_ffn_kernel`` (launched
 by ``_ffn_pallas``), whose grid walks F / 512 column blocks sequentially
@@ -40,6 +57,8 @@ from __future__ import annotations
 
 import torch
 
+from typing import Optional, Tuple
+
 from whisper_medusa_tpu_torch.ops import cuda_lib
 from whisper_medusa_tpu_torch.ops import gelu as gelu_mod
 from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
@@ -48,11 +67,13 @@ NEG_BIG = -0.7 * torch.finfo(torch.float32).max
 HEAD_DIM = 64            # csrc/decode_ops.cu CD_DH
 MAX_T = 16               # csrc/decode_ops.cu CD_MAXT
 FFN_ROWS = 128           # csrc/common.cuh SK_MAX_ROWS: K11's rows per block
-
-SMEM_MAX = 227 * 1024    # an H100 CTA's shared memory
+CLUSTER_KEYS = 192       # csrc/decode_ops.cu CD_KEYS: keys a CTA takes before C grows
+MAX_CLUSTER = 8          # csrc/decode_ops.cu CD_MAXC
+MAX_SLICE = 384          # csrc/decode_ops.cu CD_MAXSLICE: keys a CTA holds at most
 
 cross_launches = 0       # K10, bf16 K/V
 q_cross_launches = 0     # K10, int8 K/V
+self_launches = 0        # K10's mask mode (the per-op step's self-attention)
 ffn_launches = 0         # K11 (bf16 weights)
 
 
@@ -86,10 +107,49 @@ def ffn_decode_plain(x: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
     return (y + b2.float()).to(x.dtype)
 
 
-def cross_smem(t: int, s: int) -> int:
-    """Shared memory of one K10 CTA (csrc/decode_ops.cu cross_decode_smem):
-    q (16 x 64), the (T, S) scores and the PV tree's 8 x T x 64, all f32."""
-    return 4 * (MAX_T * HEAD_DIM + t * s + 8 * t * HEAD_DIM)
+def cluster_split(s: int) -> Tuple[int, int]:
+    """K10's key split of S keys (csrc/decode_ops.cu ``cd_split``): (C, SC),
+    C = min(8, ceil(S / 192)) CTAs of a cluster, rank r taking keys
+    [r * SC, (r + 1) * SC), SC = ceil(S / C) rounded up to 16."""
+    c = min(MAX_CLUSTER, -(-s // CLUSTER_KEYS))
+    return c, -(-(-(-s // c)) // 16) * 16
+
+
+def self_attention_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                offsets: torch.Tensor,
+                                chunk_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The function of K10's mask mode: q (B, T, H, Dh) pre-scaled; k, v the
+    head-flat self slabs (B, max_len, H * Dh) -> (B, T, H, Dh), exactly
+    ``models/whisper.py::attention`` with ``make_step_mask``."""
+    from whisper_medusa_tpu_torch.models import whisper
+
+    b, t, h, dh = q.shape
+    mask = whisper.make_step_mask(offsets, t, k.shape[1], chunk_mask)
+    split = lambda x: x.reshape(b, x.shape[1], h, dh)
+    return whisper.attention(q, split(k), split(v), mask)
+
+
+_CAUSAL_BITS = {}
+
+
+def chunk_bits(chunk_mask: Optional[torch.Tensor], t: int, device) -> torch.Tensor:
+    """(T,) int32 rows of a (T, T) chunk mask as bits (bit j of row i: query
+    i sees chunk key j), K10's mask-mode operand; ``None`` is the causal
+    mask.  A given mask must have its diagonal set (every query sees
+    itself), so that no query row is left without a key."""
+    device = torch.device(device)
+    if chunk_mask is None:
+        key = (t, device)
+        if key not in _CAUSAL_BITS:
+            _CAUSAL_BITS[key] = torch.tensor([(1 << (i + 1)) - 1 for i in range(t)],
+                                             dtype=torch.int32, device=device)
+        return _CAUSAL_BITS[key]
+    if chunk_mask.shape != (t, t) or not bool(chunk_mask.diagonal().all()):
+        raise ValueError(f"K10's mask mode takes a ({t}, {t}) chunk mask with its "
+                         "diagonal set")
+    weights = 1 << torch.arange(t, device=chunk_mask.device, dtype=torch.int32)
+    return (chunk_mask.to(torch.int32) * weights).sum(1).to(device=device,
+                                                           dtype=torch.int32)
 
 
 def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,15 +172,13 @@ def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
         if k_s.shape != (b, h, s) or v_s.shape != (b, h, s):
             raise ValueError("cross_attention_decode kernel: scales must be (B, H, S)")
     if (dh != HEAD_DIM or not 1 <= t <= MAX_T or k.shape != (b, h, dh, s)
-            or v.shape != (b, s, h * dh) or s % 4 or not 1 <= kv_len <= s):
+            or v.shape != (b, s, h * dh) or s % 4 or not 1 <= kv_len <= s
+            or cluster_split(s)[1] > MAX_SLICE):
         raise ValueError(
             f"cross_attention_decode kernel takes q (B, H, T <= {MAX_T}, {HEAD_DIM}), K "
-            f"(B, H, {HEAD_DIM}, S), V (B, S, H*{HEAD_DIM}), S % 4 == 0, 1 <= kv_len <= S; "
-            f"got q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
-            f"kv_len {kv_len}")
-    if cross_smem(t, s) > SMEM_MAX:
-        raise ValueError(f"cross_attention_decode kernel: T={t} x S={s} scores exceed "
-                         f"an SM's {SMEM_MAX} bytes of shared memory")
+            f"(B, H, {HEAD_DIM}, S), V (B, S, H*{HEAD_DIM}), S % 4 == 0, "
+            f"S <= {MAX_CLUSTER * MAX_SLICE}, 1 <= kv_len <= S; got q {tuple(q.shape)}, "
+            f"k {tuple(k.shape)}, v {tuple(v.shape)}, kv_len {kv_len}")
     out = torch.empty_like(q)
     cuda_lib.launch("wm_cross_decode", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     k_s.data_ptr() if quant else None, v_s.data_ptr() if quant else None,
@@ -129,6 +187,32 @@ def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
         q_cross_launches += 1
     else:
         cross_launches += 1
+    return out
+
+
+def self_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 offsets: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """Launch K10's mask mode: q (B, T <= 16, H, 64) bf16, pre-scaled; k, v
+    (B, max_len, H * 64) bf16 self slabs; ``offsets`` (B,) int32; ``bits``
+    (T,) int32 (:func:`chunk_bits`) -> (B, T, H, 64) bf16."""
+    global self_launches
+    b, t, h, dh = q.shape
+    cuda_lib.require_cuda("self_attention_decode", q, k, v)
+    cuda_lib.require_cuda("self_attention_decode", offsets, bits, dtype=torch.int32,
+                          device=q.device, aligned=False)
+    s = k.shape[1]
+    if (dh != HEAD_DIM or not 1 <= t <= MAX_T or k.shape != (b, s, h * dh)
+            or v.shape != k.shape or s < t or cluster_split(s)[1] > MAX_SLICE
+            or offsets.shape != (b,) or bits.shape != (t,)):
+        raise ValueError(
+            f"self_attention_decode kernel takes q (B, T <= {MAX_T}, H, {HEAD_DIM}), K "
+            f"and V (B, T <= S <= {MAX_CLUSTER * MAX_SLICE}, H*{HEAD_DIM}), offsets (B,) "
+            f"and bits (T,); got q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, offsets {tuple(offsets.shape)}, bits {tuple(bits.shape)}")
+    out = torch.empty_like(q)
+    cuda_lib.launch("wm_self_decode", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    offsets.data_ptr(), bits.data_ptr(), out.data_ptr(), b, h, t, s)
+    self_launches += 1
     return out
 
 

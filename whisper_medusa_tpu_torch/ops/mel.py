@@ -76,22 +76,67 @@ def dft_mel_basis(n_mels: int = 80) -> Tuple[np.ndarray, np.ndarray, np.ndarray]
     return cos_b, sin_b, mel_filter_bank(n_freqs, n_mels).T.astype(np.float32)
 
 
-_DEVICE_BASES: Dict[Tuple[torch.device, int, int], Tuple[torch.Tensor, ...]] = {}
+_DEVICE_BASES: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, ...]] = {}
 
 
-def device_bases(device, n_mels: int = 80,
-                 pad_to: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def device_bases(device, n_mels: int = 80) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`dft_mel_basis` as contiguous f32 tensors on ``device``, built
-    once per (device, ``n_mels``, ``pad_to``); ``pad_to`` > 0 zero-pads the
-    cos and sin bases' frequency columns to that count (K8's operands)."""
-    key = (torch.device(device), n_mels, pad_to)
+    once per (device, ``n_mels``)."""
+    key = (torch.device(device), n_mels)
     if key not in _DEVICE_BASES:
-        cos_b, sin_b, mel_fb = (torch.from_numpy(a).to(key[0]) for a in dft_mel_basis(n_mels))
-        if pad_to:
-            pad = lambda a: torch.nn.functional.pad(a, (0, pad_to - a.shape[1]))
-            cos_b, sin_b = pad(cos_b), pad(sin_b)
-        _DEVICE_BASES[key] = tuple(a.contiguous() for a in (cos_b, sin_b, mel_fb))
+        _DEVICE_BASES[key] = tuple(torch.from_numpy(a).to(key[0]).contiguous()
+                                   for a in dft_mel_basis(n_mels))
     return _DEVICE_BASES[key]
+
+
+# K8's factored DFT: n = FFT_R * n1 + n2 and k = k1 + FFT_R * k2, 400 = 20 x 20.
+FFT_R = 20
+
+
+@lru_cache(maxsize=2)
+def fft_mel_tables(n_mels: int = 80) -> Dict[str, np.ndarray]:
+    """The tables kernel K8 (``csrc/mel.cu``) computes log-mel from:
+
+    * ``window`` (400,): the periodic Hann window;
+    * ``dft20`` (2, 20): cos and -sin of 2 pi m / 20, the 20-point DFT of
+      the first stage (over n1, for each n2);
+    * ``twiddle`` (2, 400): cos and -sin of 2 pi m / 400; bin k is
+      sum_n2 Y_n2[k % 20] * twiddle[(n2 * k) % 400] (the second stage with
+      the twiddle folded in);
+    * ``mel_span`` (n_mels, 3) int32: each mel's first bin, its number of
+      nonzero weights (contiguous bins) and their offset in ``mel_w``;
+    * ``mel_w`` (nnz,) float32: the filter bank's nonzeros, mel by mel.
+
+    Built in float64 and rounded once to float32."""
+    m = np.arange(N_FFT)
+    window = 0.5 * (1 - np.cos(2 * np.pi * m / N_FFT))
+    ang20 = 2 * np.pi * np.arange(FFT_R) / FFT_R
+    ang = 2 * np.pi * m / N_FFT
+    fb = mel_filter_bank(N_FFT // 2 + 1, n_mels)
+    span, weights = [], []
+    for row in fb:
+        nz = np.flatnonzero(row)
+        first, count = (int(nz[0]), int(nz[-1]) - int(nz[0]) + 1) if nz.size else (0, 0)
+        span.append((first, count, sum(len(w) for w in weights)))
+        weights.append(row[first:first + count])
+    return {"window": window.astype(np.float32),
+            "dft20": np.stack([np.cos(ang20), -np.sin(ang20)]).astype(np.float32),
+            "twiddle": np.stack([np.cos(ang), -np.sin(ang)]).astype(np.float32),
+            "mel_span": np.asarray(span, np.int32).reshape(n_mels, 3),
+            "mel_w": np.concatenate(weights).astype(np.float32)}
+
+
+_DEVICE_TABLES: Dict[Tuple[torch.device, int], Dict[str, torch.Tensor]] = {}
+
+
+def device_fft_tables(device, n_mels: int = 80) -> Dict[str, torch.Tensor]:
+    """:func:`fft_mel_tables` as contiguous tensors on ``device``, built once
+    per (device, ``n_mels``): K8's operands."""
+    key = (torch.device(device), n_mels)
+    if key not in _DEVICE_TABLES:
+        _DEVICE_TABLES[key] = {name: torch.from_numpy(a).to(key[0]).contiguous()
+                               for name, a in fft_mel_tables(n_mels).items()}
+    return _DEVICE_TABLES[key]
 
 
 def frame_audio(audio: torch.Tensor) -> torch.Tensor:

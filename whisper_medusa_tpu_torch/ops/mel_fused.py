@@ -8,29 +8,28 @@ neither the frames nor the spectrum reach device memory.  The per-example
 max, the clamp to max - 8, ``(x + 4) / 4`` and the transpose stay outside the
 kernel, as in the JAX function (``ops/mel.py::normalize_log_mel``).
 
-On the TPU the kernel splits each frame into three 160-lane row buffers and
-three zero-padded basis blocks aligned with ``pltpu.roll``; that exists only
-for Mosaic's tiling.  ``csrc/mel.cu::wm_log_mel`` keeps what it computes:
-one CTA of 4 warps per (example, 32 frames) stages the 5,360 samples its
-frames span in shared memory, mirroring the reflect padding at both ends of
-the signal itself (the padded copy of the audio never exists); the windowed
-bases, zero-padded to 256 frequencies, stream from L2 in 16-tap slices
-double-buffered with ``cp.async``; each thread accumulates 8 frames x 8
-frequencies of ``re`` and ``im`` in full f32 on the CUDA cores (no TF32: a
-frame's DFT cancels strongly in its low-power bins); the power goes to
-shared memory, then each thread projects 8 frames x up to 4 mel bins and
-stores ``log10(max(mel, 1e-10))``.  Bound on H100: bytes, 2.9 MB of audio
-and features per 30 s example (0.86 us at 3.35 TB/s), since log-mel by a
-real FFT and the sparse filter bank needs only about 10.5 kFLOP a frame
-(32 MFLOP an example, 0.47 us at 67 TFLOP/s; ``chip_smoke.py::_log_mel_cost``).
-The design limit is the dense O(N^2) DFT: K8 does 1.06 GFLOP an example,
-34x the FFT's count, 16 us on the f32 CUDA cores alone.  At B=1 an
-example's 94 CTAs fill 94 of the 132 SMs.
+On the TPU the kernel multiplies each frame by dense windowed cos and sin
+bases, split into three 160-lane blocks aligned with ``pltpu.roll`` for
+Mosaic's tiling.  ``csrc/mel.cu::wm_log_mel`` keeps what it computes and
+factors the DFT instead, 400 = 20 x 20: for each n2 a real 20-point DFT of
+the windowed samples x[20 n1 + n2] (its 11 non-redundant outputs), then
+each of bins 0..200 as one 20-term complex sum of those outputs times the
+twiddles W^(n2 k).  That is about 26 k real MACs a frame against the dense
+DFT's 161 k; the mel projection reads only the filter bank's nonzeros (391
+at 80 mels: each bin feeds at most two mels).  One CTA of 5 warps takes 16
+frames of one example, lane = frame, in full f32 on the CUDA cores (no
+TF32: a frame's spectrum cancels strongly in its low-power bins); each
+output is one thread's sum in a fixed order, so a frame's bits do not
+depend on B.  188 CTAs at B=1, 1500 at B=8, four to an SM (49.6 KB of
+shared memory each).  Bound on H100: bytes, 2.9 MB of audio and features
+per 30 s example (0.86 us at 3.35 TB/s); the FFT and the sparse filter bank
+are about 32 MFLOP an example (0.47 us at 67 TFLOP/s;
+``chip_smoke.py::_log_mel_cost``).
 
-The bases come from ``ops/mel.py::device_bases`` (``dft_mel_basis``, built
-once per device and ``n_mels``), as the plain version's do, with the DFT
-bases zero-padded to 256 columns for the kernel.  CUDA
-tensors launch the kernel; CPU tensors take the plain version
+The tables (window, the 20 roots, the 400 twiddles, each mel's first bin,
+count and weights) come from ``ops/mel.py::device_fft_tables``
+(``fft_mel_tables``, built once per device and ``n_mels``).  CUDA tensors
+launch the kernel; CPU tensors take the plain version
 ``ops/mel.py::log_mel_plain``.
 """
 
@@ -41,8 +40,8 @@ import torch
 from whisper_medusa_tpu_torch.ops import cuda_lib
 from whisper_medusa_tpu_torch.ops import mel as mel_mod
 
-MAX_MELS = 128           # csrc/mel.cu: 4 mel bins per lane
-PADDED_FREQS = 256       # csrc/mel.cu MEL_KP
+MAX_MELS = 128           # csrc/mel.cu MEL_MAXMELS
+MAX_NNZ = 512            # csrc/mel.cu MEL_MAXNNZ: the filter bank's nonzeros
 
 launches = 0
 
@@ -55,11 +54,16 @@ def mel_kernel(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
         raise ValueError(f"log_mel kernel takes (B, N >= {mel_mod.N_FFT}) audio and "
                          f"n_mels <= {MAX_MELS}; got {tuple(audio.shape)}, n_mels {n_mels}")
     b, n = audio.shape
-    cos_b, sin_b, mel_fb = mel_mod.device_bases(audio.device, n_mels, PADDED_FREQS)
+    tab = mel_mod.device_fft_tables(audio.device, n_mels)
+    nnz = tab["mel_w"].numel()
+    if nnz > MAX_NNZ:
+        raise ValueError(f"log_mel kernel takes <= {MAX_NNZ} filter-bank nonzeros; got {nnz}")
     out = torch.empty((b, n // mel_mod.HOP_LENGTH, n_mels), dtype=torch.float32,
                       device=audio.device)
-    cuda_lib.launch("wm_log_mel", audio.device, audio.data_ptr(), cos_b.data_ptr(),
-                    sin_b.data_ptr(), mel_fb.data_ptr(), out.data_ptr(), b, n, n_mels)
+    cuda_lib.launch("wm_log_mel", audio.device, audio.data_ptr(), tab["window"].data_ptr(),
+                    tab["dft20"].data_ptr(), tab["twiddle"].data_ptr(),
+                    tab["mel_span"].data_ptr(), tab["mel_w"].data_ptr(), out.data_ptr(), b,
+                    n, n_mels, nnz)
     launches += 1
     return out
 
