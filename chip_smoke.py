@@ -17,14 +17,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the frontend's audio, every example of the B=8 call bitwise its B=1
      call; the
      int8 modes of K2, K4, K5 and head_rows; K2's Medusa-Block mode and K4's
-     identity0 rows, bf16 and int8; K6 qmm at init_cache's (1500, 1280,
-     1280), the per-op step's B=16 shapes and whisper tiny's fc1, its first
-     16 rows bitwise an M=16 call's, and K7 qmm_nt; K10 decode
-     cross-attention, bf16 and int8 (the (16, 20, 11, 64) call bitwise its
-     B=1 calls), K10's mask mode (the per-op step's self-attention) against
-     ``attention`` under ``make_step_mask`` at large-v2's B=16 (causal and a
-     tree chunk mask, T=11 and T=1) and whisper tiny's B=8, B=8 and B=16
-     bitwise B=1, and K11 decode FFN at the per-op
+     identity0 rows, bf16 and int8 (K2's six projections on its
+     weight-streaming GEMM, launched with programmatic dependent launch; at
+     (1, 11), (8, 11) and (8, 1) its device time, the projections' share
+     and the C entry's host time printed); K6 qmm at init_cache's (1500,
+     1280, 1280), the per-op step's B=16 shapes and whisper tiny's fc1, its
+     first 16 rows bitwise an M=16 call's, and K7 qmm_nt (the TMA-fed weight
+     stream; the first 10 rows of its M=80 call bitwise an M=10 call's, its
+     device time at M=10 and 80 beside ``x @ E.T`` on a bf16 copy); K10
+     decode cross-attention, bf16 and int8 (the (16, 20, 11, 64) call
+     bitwise its B=1 calls; T = 17 and 31 in 16-row launches), K10's mask
+     mode (the per-op step's self-attention) against ``attention`` under
+     ``make_step_mask`` at large-v2's B=16 (causal and a tree chunk mask,
+     T=11 and T=1), B=8 at T = 17, 24 (tree) and 31, and whisper tiny's B=8,
+     B=8 and B=16 bitwise B=1, and K11 decode FFN at the per-op
      step's B=16 shapes and off them; head_rows, K3, K5 and K7 past one
      launch's rows, blocked), and time the kernel, the plain version and,
      where one PyTorch call computes the same function, that call, with
@@ -50,6 +56,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``WhisperMedusaProcessor(use_kernel=True)`` (K8) inside the driven run;
      then requests of 16 waveforms, past K2's batch (the per-op step, K2 at
      0 launches): base_head bf16 and int8, vanilla bf16, Medusa-Block bf16;
+     then B=1 requests past K4's rows and K2's chunk (P4): 11 base_head
+     heads (verification in two passes, K4 at 0 launches) and a 16-head
+     chain (T = 17: K2 only for the prefill, K10 in two 16-row launches a
+     layer on every step), each held to its run under
+     ``draft_corruption=1.0``;
   5. the output is unchanged when every draft is corrupted, bf16 and int8,
      base_head and Medusa-Block, and bf16 base_head at B=16;
   6. decode batch invariance, bf16 and int8: speculative_generate at B=8
@@ -65,7 +76,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   7. training: the grad guard (a kernel without a backward refuses an
      operand that requires grad); K9, the one-pass attention backward from
      K1's output and log-sum-exp, against both plain versions off the path
-     and at the three training shapes (dK and dV bitwise equal over two
+     and at the three training shapes (dQ, dK and dV bitwise equal over two
      runs; timed against the plain version and SDPA's backward); a 2-layer full-width
      train step of each recipe on the card against a float32 CPU copy; then
      at full large-v2 width, bf16, B=2, T=224, each driven with the launch
@@ -862,24 +873,34 @@ def check_qmm(g, qmodel, enc):
 def check_qmm_nt(g, qmodel):
     """K7 at M = 1 and 8 (prefill base logits, B=1 and B=8), M = 10 (prefill
     draft heads, B=1), M = 80 and 160 (pass B, B=8 and 16) and M = 240 (two
-    launches of the blocked wrapper): within 1e-3 of max |y|."""
+    launches of the blocked wrapper): within 1e-3 of max |y|; the first 10
+    rows of the M = 80 call bitwise the M = 10 call's; at M = 10 and 80 its
+    time and device time beside ``x @ E.T`` on a bf16 copy."""
     from whisper_medusa_tpu_torch.ops import qmm as QM
 
     e = qmodel.params["whisper"]["decoder"]["embed_tokens"]
     eq, es = e["q"], e["s"]
-    worst, xs = 0.0, {}
+    worst, xs, ys = 0.0, {}, {}
     for m in (1, 8, 10, 80, 160, 240):   # 160: pass B at B=16; 240: two launches
         x = torch.randn((m, eq.shape[1]), generator=g, device="cuda").to(torch.bfloat16)
         got, ref = QM.qmm_nt_kernel(x, eq, es), QM.qmm_nt_plain(x, eq, es)
         err, tol = max_err(got, ref), 1e-3 * float(ref.abs().max())
         log(f"K7 qmm_nt M={m}: max_abs_err {err:.3e} (bound {tol:.3e})")
         require(err <= tol, f"K7 qmm_nt M={m}: err {err} > {tol}")
-        worst, xs[m] = max(worst, err), x
-    log(f"K7 qmm_nt M=80: kernel {cuda_ms(lambda: QM.qmm_nt_kernel(xs[80], eq, es)):.4f} ms")
+        worst, xs[m], ys[m] = max(worst, err), x, got
+    same = torch.equal(QM.qmm_nt_kernel(xs[80][:10].contiguous(), eq, es), ys[80][:10])
+    log(f"K7 qmm_nt: the first 10 rows of the M=80 call bitwise an M=10 call: {same}")
+    require(same, "K7 qmm_nt: a row's bits depend on M")
+    e16 = eq.to(torch.bfloat16)        # the library yardstick's table, cast beforehand
+    for m in (10, 80):
+        x = xs[m]
+        log(f"K7 qmm_nt M={m}: kernel {cuda_ms(lambda: QM.qmm_nt_kernel(x, eq, es)):.4f} ms, "
+            f"device {device_ms(lambda: QM.qmm_nt_kernel(x, eq, es)):.4f} ms; x @ E.T on a "
+            f"bf16 copy {cuda_ms(lambda: x @ e16.T):.4f} ms, device "
+            f"{device_ms(lambda: x @ e16.T):.4f} ms")
     x = xs[10]
     ms = cuda_ms(lambda: QM.qmm_nt_kernel(x, eq, es))
     plain_ms = cuda_ms(lambda: QM.qmm_nt_plain(x, eq, es))
-    e16 = eq.to(torch.bfloat16)        # the library yardstick's table, cast beforehand
     lib_ms = cuda_ms(lambda: x @ e16.T)
     m, d, v = x.shape[0], eq.shape[1], eq.shape[0]
     return kernel_record("qmm_nt", "whisper_medusa_tpu_torch/csrc/qmm.cu",
@@ -890,9 +911,10 @@ def check_qmm_nt(g, qmodel):
 
 # K10 at the per-op step's shapes: (B, T, S, kv_len), on the path (B=16:
 # the Medusa chain, vanilla) and off it (kv_len < S, a ragged tail of four
-# keys, T=16, another S).
+# keys, T=16, another S; T = 17 and 31, two 16-row launches).
 CROSS_PATH = ((16, 11, 1500, 1500), (16, 1, 1500, 1500))
-CROSS_OFF = ((2, 5, 1500, 1000), (1, 4, 1500, 1497), (3, 16, 640, 640))
+CROSS_OFF = ((2, 5, 1500, 1000), (1, 4, 1500, 1497), (3, 16, 640, 640), (2, 17, 1500, 1500),
+             (1, 31, 1500, 1400))
 DECODE_OPS_SOURCE = "whisper_medusa_tpu_torch/csrc/decode_ops.cu"
 
 
@@ -976,7 +998,9 @@ def check_cross_decode(g):
 # max_len 460 (the cache of init_cache(..., max_target_positions + 12)),
 # offsets spread over 3-400.
 SELF_SHAPES = (("large-v2", 16, 11, 20, "causal"), ("large-v2 vanilla", 16, 1, 20, "causal"),
-               ("large-v2 tree", 16, 11, 20, "tree"), ("tiny", 8, 11, 6, "causal"))
+               ("large-v2 tree", 16, 11, 20, "tree"), ("tiny", 8, 11, 6, "causal"),
+               ("large-v2 T=17", 8, 17, 20, "causal"), ("large-v2 T=24 tree", 8, 24, 20, "tree"),
+               ("large-v2 T=31", 8, 31, 20, "causal"))
 SELF_MAX_LEN = 460
 
 
@@ -1272,6 +1296,7 @@ def check_megastep_full(model, enc1, enc8, block=None):
     dequantized.  With the block, block_hidden also lies at least 4x closer
     (in 1 - cosine) to the plain block_hidden than the plain hidden does, so
     a kernel that skipped the block cannot pass."""
+    from whisper_medusa_tpu_torch.device_profile import _by_kernel, _entry_host_ms, _overlap_ms
     from whisper_medusa_tpu_torch.models import whisper
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
@@ -1386,6 +1411,15 @@ def check_megastep_full(model, enc1, enc8, block=None):
                 log(f"K2 {name} {nl}-slot B={b} T={t}: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, bound {b_ms[0]:.4f} ms ({b_ms[1]}; "
                     f"{cost[0] / 1e9:.3f} GB, {cost[1] / 1e9:.1f} GFLOP)")
+                rows = _by_kernel(run, 5)
+                gemm = sum(us for k, (us, _) in rows.items() if k.startswith("wgemm_kernel"))
+                durations, busy = _overlap_ms(run, 5)
+                log(f"K2 {name} {nl}-slot B={b} T={t}: device "
+                    f"{sum(us for us, _ in rows.values()) / 1e3:.4f} ms (the projections "
+                    f"{gemm / 1e3:.4f} ms), the C entry's host time "
+                    f"{_entry_host_ms(run, 'wm_megastep_step'):.4f} ms; the kernels' "
+                    f"durations add up to {durations:.4f} ms in {busy:.4f} ms of busy time "
+                    f"(programmatic dependent launch overlaps them)")
                 timings[(b, t)] = (ms, plain_ms, b_ms)
             cache.self_k.copy_(sk)      # continue from the plain path's cache
             cache.self_v.copy_(sv)
@@ -1430,10 +1464,10 @@ def _read_count(k):
     return value.get(key[0], 0) if key else value
 
 
-def drive(name, kernels, fn, needs, absent=()):
+def drive(name, kernels, fn, needs, absent=(), seen=None):
     """Run one main path with every launch counter set to 0 just before and
     read just after; the kernels in ``needs`` must have launched, those in
-    ``absent`` must not have."""
+    ``absent`` must not have.  ``seen``, when given, receives the counts."""
     for k in kernels:
         _zero_count(k)
     torch.cuda.synchronize()
@@ -1449,12 +1483,14 @@ def drive(name, kernels, fn, needs, absent=()):
         require(counts[n] > 0, f"{n} never launched on the path {name}")
     for n in absent:
         require(counts[n] == 0, f"{n} launched {counts[n]} times on the path {name}")
+    if seen is not None:
+        seen.update(counts)
     return result, wall
 
 
-def check_output(out, b, vocab):
+def check_output(out, b, vocab, new_tokens=MAX_NEW_TOKENS):
     n_gen = out.lengths - PROMPT_LEN
-    require(out.sequences.shape == (b, PROMPT_LEN + MAX_NEW_TOKENS), "sequence shape")
+    require(out.sequences.shape == (b, PROMPT_LEN + new_tokens), "sequence shape")
     require((n_gen >= 1).all() and (out.sequences >= 0).all()
             and (out.sequences < vocab).all(), "token range")
     require(np.isfinite(out.token_logprobs).all() and np.isfinite(out.no_speech_probs).all()
@@ -1660,6 +1696,70 @@ def phase_b16_requests(model, qmodel, bmodel, kernels, feats16, proc_k, waves16,
     return outs
 
 
+# P4: B=1 requests past K4's rows and K2's chunk (the JAX package serves
+# both).  (heads, kernels that must launch, kernels that must not.)
+P4_NEW_TOKENS = 24
+P4_RUNS = ((11, ("attention", "megastep", "logits", "head_rows", "verify_rows"),
+            ("verify_hidden",)),
+           (16, ("attention", "megastep", "self_decode", "cross_decode", "ffn_decode",
+                 "logits", "head_rows", "verify_rows"), ("verify_hidden",)))
+
+
+def wide_head_model(model, heads, seed):
+    """``model``'s Whisper weights (shared, not copied) with ``heads``
+    base_head draft heads on a chain of heads + 1 nodes: N(0, 0.02) weights
+    and the identity-init biases, from a generator seeded with ``seed``."""
+    import dataclasses
+
+    from whisper_medusa_tpu_torch.models import bridge
+    from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+
+    cfg = model.config.replace(medusa=dataclasses.replace(
+        model.config.medusa, medusa_num_heads=heads, medusa_choices=tuple([1] * (heads + 1))))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    med = bridge.init_medusa_params(cfg, model.params["whisper"], g,
+                                    bridge.torch_dtype(cfg.param_dtype))
+    med["heads"]["w"].normal_(0.0, 0.02, generator=g)
+    return WhisperMedusaModel(cfg, {"whisper": model.params["whisper"], "medusa": med},
+                              device=model.device, generation_config=model.generation_config,
+                              special_tokens=model.special)
+
+
+def phase_p4_requests(model, kernels, feat):
+    """P4 on the card, bf16, B=1, ``P4_NEW_TOKENS`` new tokens: an 11-head
+    base_head model (12 x 12 = 144 verification rows, past K4's 128: the
+    loop verifies in two passes, head_rows + K5, and K4 never launches) and
+    a 16-head chain (T = 17: the 4-token prefill runs on K2, every decode
+    step on the per-op step, whose K10 calls take two 16-row blocks a layer:
+    K2 launches once and K10 2 x 32 times a step, in both modes).  Each is
+    driven with the launch counters and its tokens held to those of its own
+    run with every draft corrupted (``draft_corruption=1.0``)."""
+    vocab, nl = model.config.dims.vocab_size, model.config.dims.decoder_layers
+    for heads, needs, absent in P4_RUNS:
+        m = wide_head_model(model, heads, SEED + 10 + heads)
+        m.generate(feat, language="en", max_new_tokens=8)                 # warm-up
+        seen = {}
+        out, wall = drive(f"bf16 {heads}-head chain B=1", kernels,
+                          lambda: m.generate(feat, language="en",
+                                             max_new_tokens=P4_NEW_TOKENS),
+                          needs, absent, seen)
+        report(f"bf16 request ({heads} base_head heads, B=1)", out, wall,
+               check_output(out, 1, vocab, P4_NEW_TOKENS))
+        require(seen["verify_rows"] == out.steps,
+                f"{heads} heads: {seen['verify_rows']} K5 launches in {out.steps} steps")
+        if heads == 16:
+            per_op = 2 * nl * out.steps
+            log(f"  16 heads: K2 {seen['megastep']} launch (the prefill), K10 "
+                f"{seen['cross_decode']} and its mask mode {seen['self_decode']} launches in "
+                f"{out.steps} steps of T = 17 ({per_op} expected each)")
+            require(seen["megastep"] == 1 and seen["cross_decode"] == per_op
+                    and seen["self_decode"] == per_op,
+                    "16 heads: a T = 17 step did not take the per-op step's 16-row blocks")
+        check_corruption(f"bf16 {heads}-head chain B=1", m, feat, out, P4_NEW_TOKENS)
+        del m
+
+
 # Whisper tiny (d_model 384): every decode call takes the per-op step (K2
 # takes d_model % 256 == 0), whose K11, head_rows and K4 split 24 K-steps
 # over the skinny GEMM's 16 warps.
@@ -1763,11 +1863,11 @@ def token_share(a, b):
     return float((a.sequences[:, PROMPT_LEN:] == b.sequences[:, PROMPT_LEN:]).mean())
 
 
-def check_corruption(mode, model, feat, clean):
+def check_corruption(mode, model, feat, clean, new_tokens=MAX_NEW_TOKENS):
     """Phase 5: every draft is wrong, so the loop commits one token per step
     (vanilla decoding); the finish rule may stop it a few tokens apart, so
     each example's common prefix is compared."""
-    bad = model.generate(feat, language="en", max_new_tokens=MAX_NEW_TOKENS,
+    bad = model.generate(feat, language="en", max_new_tokens=new_tokens,
                          draft_corruption=1.0)
     same, n = [], []
     for e in range(bad.sequences.shape[0]):
@@ -1811,8 +1911,8 @@ def check_attention_bwd(g):
     kernel's arithmetic: row sums of P dP) and attention_bwd_lse_plain (the
     new kernel's: P from the log-sum-exp, Dsum = dO . O), and the dK/dV rows
     of keys past kv_len exactly 0.  Each main-path shape runs twice on the
-    same inputs: dK and dV must be bitwise equal, dQ's largest difference
-    (atomics in another order) is printed.  K9 alone (O and the log-sum-exp
+    same inputs: dQ, dK and dV must be bitwise equal (dQ is one fixed-order
+    sum of the key blocks' partials).  K9 alone (O and the log-sum-exp
     given) is timed against the plain version and SDPA's flash backward,
     and gives one kernels row.  The library time is the one aten call that
     computes the backward from the flash forward's saved outputs (scale
@@ -1849,18 +1949,17 @@ def check_attention_bwd(g):
         if b != TRAIN_B or key not in K9_SHAPES:
             continue
         again = A.attention_bwd_kernel(q, k, v, do, kv_len, causal, o=o, lse=lse)
-        dq_diff = max_err(again[0], got[0])
-        same = torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
-        log(f"{what}: a second run on the same inputs: dQ max difference {dq_diff:.3e}, "
-            f"dK and dV bitwise equal {same}")
-        require(same, f"{what}: dK / dV changed between two runs")
+        same = all(torch.equal(a, c) for a, c in zip(again, got))
+        log(f"{what}: a second run on the same inputs: dQ, dK and dV bitwise equal {same}")
+        require(same, f"{what}: dQ / dK / dV changed between two runs")
         ms = cuda_ms(lambda: A.attention_bwd_kernel(q, k, v, do, kv_len, causal, o=o,
                                                     lse=lse))
         # The C entry alone on buffers allocated once: the wrapper's checks and
         # allocations are host time that the events above include.
         bufs = [torch.empty_like(t) for t in (q, k, v)] + [
             torch.empty((b, h, sq), dtype=torch.float32, device="cuda"),
-            torch.empty((b, h, sq, 64), dtype=torch.float32, device="cuda")]
+            torch.empty((-(-skv // A.BWD_KEYS), b, h, sq, 64), dtype=torch.float32,
+                        device="cuda")]
         entry_ms = cuda_ms(lambda: cuda_lib.launch(
             "wm_attention_bwd", q.device, *(t.data_ptr() for t in (q, k, v, o, lse, do)),
             *(t.data_ptr() for t in bufs), b, h, sq, skv, 64, kv_len, int(causal)))
@@ -2190,6 +2289,7 @@ def main():
             f"the generated positions hold the same token (printed, not held)")
     outs16 = phase_b16_requests(model, qmodel, bmodel, kernels, feats16, proc_k, waves16,
                                 secs16)
+    phase_p4_requests(model, kernels, feats[0])
     for k in kernels:
         log(f"launches {k['name']} (all main paths): {k['launches']}")
 

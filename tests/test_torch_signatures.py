@@ -4,7 +4,8 @@
 ``extern "C" int wm_*(...)`` in ``csrc/*.cu``.  A count that differs passes
 every CPU test (the plain versions never call C) and then hands the kernel
 wrong arguments on the card, so each entry is parsed from its source and
-its parameters counted, one case per entry.
+its parameters counted, one case per entry.  The entries whose arguments
+changed with a kernel's redesign are also held to their counts by name.
 """
 
 import os
@@ -40,3 +41,14 @@ def test_argument_count_matches_signature(entry):
     assert entries[entry] == len(cuda_lib._SIGNATURES[entry]), (
         f"{entry}: {entries[entry]} C parameters, {len(cuda_lib._SIGNATURES[entry])} "
         "in ops/cuda_lib.py::_SIGNATURES")
+
+
+# Entries whose argument lists changed: K10's mask mode takes the chunk's
+# width beside a block's rows; K9's dQ scratch is now one partial per
+# 128-key block (same count, larger buffer); K2 keeps its table and ints;
+# K7 keeps (x, e, s, y, m, v, d, stream).
+@pytest.mark.parametrize("entry,count", [("wm_self_decode", 12), ("wm_attention_bwd", 19),
+                                         ("wm_megastep_step", 3), ("wm_qmm_nt", 8)])
+def test_changed_entries_keep_their_counts(entry, count):
+    assert _entries()[entry] == count
+    assert len(cuda_lib._SIGNATURES[entry]) == count

@@ -247,22 +247,23 @@ attention_kernel(const __grid_constant__ CUtensorMap mq,
 //      S^T and dP^T come out in accumulator layout and become P^T and dS^T
 //      in registers, which feed dV and dK as A operands; only dS^T goes to
 //      shared memory, once per tile, for dQ: each warp sums 16 queries x 32
-//      head columns over the block's 128 keys and adds them into the f32
-//      accumulator with float4 atomicAdd (vector reductions).  The dQ
-//      atomics, not the products, take most of this kernel's time, hence
-//      128 keys a CTA (one read-modify-write of dQ per 128 keys) and four
-//      floats an atomic.  dK and dV stay in registers for the whole loop
-//      and are written once;
-//  (c) bwd_cast_kernel: dQ f32 -> bf16.
+//      head columns over the block's 128 keys and stores them, four floats
+//      a lane, as this key block's f32 dQ partial (one slot per 128-key
+//      block: (Skv / 128, B, H, Sq, 64) f32 of scratch, 184 MB at the
+//      encoder's (2, 20, 1500^2)).  dK and dV stay in registers for the
+//      whole loop and are written once;
+//  (c) bwd_cast_kernel: dQ = the partials of the key blocks that reach the
+//      row (below kv_len, and at or below the row when causal) added in
+//      key-block order, then rounded to bf16.
 //
 // The casts are the TPU kernel's: dS to bf16 before both of its products, P
 // to bf16 for dV, every product accumulated in f32.  Masks (key < kv_len,
 // causality, the ragged edges of both sequences) are applied in-kernel; dK
 // and dV rows at keys >= kv_len come out exactly 0, and key blocks wholly
 // past kv_len write zeros and compute nothing.  Determinism: dK and dV are
-// written once each and are bitwise the same from run to run; dQ is summed
-// with atomics in an order that changes from run to run, so its last bits
-// may differ between two runs on the same inputs.
+// written once each, and dQ is one fixed-order sum of partials each written
+// once, so all three are bitwise the same from run to run (the JAX kernel
+// writes dQ once per query block); no atomics.
 //
 // Bound on H100: at the cross-attention's 224 x 1500 and the decoder's
 // 224 x 224 by bytes (q, k, v, dO, O and the log-sum-exp read once, dq, dk,
@@ -402,10 +403,10 @@ __device__ __forceinline__ void zero(float (&acc)[8][4]) {
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
 }
 
-// (a) Dsum = sum_d dO * O per row (8 lanes a row), and dq_acc rows zeroed.
+// (a) Dsum = sum_d dO * O per row (8 lanes a row).
 __global__ void __launch_bounds__(256)
 bwd_rows_kernel(const bf16* __restrict__ o, const bf16* __restrict__ g,
-                float* __restrict__ dsum, float* __restrict__ dq_acc, int rows) {
+                float* __restrict__ dsum, int rows) {
   const int row = blockIdx.x * 32 + (threadIdx.x >> 3), part = threadIdx.x & 7;
   float s = 0.0f;
   if (row < rows) {
@@ -416,21 +417,18 @@ bwd_rows_kernel(const bf16* __restrict__ o, const bf16* __restrict__ g,
     const bf16* gb = reinterpret_cast<const bf16*>(&gv);
 #pragma unroll
     for (int i = 0; i < 8; ++i) s += bf2f(ob[i]) * bf2f(gb[i]);
-    float4* z = reinterpret_cast<float4*>(dq_acc + at);
-    z[0] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    z[1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 #pragma unroll
   for (int off = 4; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (row < rows && part == 0) dsum[row] = s;
 }
 
-// (b) one CTA per (b, h, BKB keys).
+// (b) one CTA per (b, h, BKB keys); dq_part (Skv / BKB, B, H, Sq, 64) f32.
 __global__ void __launch_bounds__(BTHREADS)
 bwd_main_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ g,
                 const float* __restrict__ lse, const float* __restrict__ dsum,
-                float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                float* __restrict__ dq_part, bf16* __restrict__ dk, bf16* __restrict__ dv,
                 int n_heads, int sq, int skv, int kv_len, int causal) {
   extern __shared__ __align__(128) char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
@@ -474,7 +472,8 @@ bwd_main_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       ldsm_x4(kf[kk], ks + r * BLD + c);
       ldsm_x4(vf[kk], vs + r * BLD + c);
     }
-    float* dqh = dq_acc + bh * sq * ADH;
+    // This key block's dQ partial of head bh.
+    float* dqh = dq_part + ((size_t)blockIdx.x * gridDim.z * n_heads + bh) * sq * ADH;
 
     for (int it = 0; it < ntiles; ++it) {
       const int q0 = q_begin + it * BQT, st = it & 1;
@@ -523,9 +522,9 @@ bwd_main_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       to_a(fa, dp);                          // bf16(dS^T)
       warp_ab(acc_dk, fa, qt, lane);         // dK += dS^T Q
 
-      // dS^T to shared memory (this warp's 16 key rows), then dQ += dS K: warp
+      // dS^T to shared memory (this warp's 16 key rows), then dQ = dS K: warp
       // w takes queries 16 (w % 4).. and NT n-tiles of 8 head columns over
-      // all BKB keys, and adds them into the f32 accumulator four floats a
+      // all BKB keys, and stores them into the block's partial four floats a
       // lane (lane pairs swap halves so that each holds 4 adjacent columns).
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -568,7 +567,7 @@ bwd_main_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int col = c0 + 8 * n + 2 * (tq & 2);
         const float4 val = odd ? make_float4(r0, r1, dq[n][2], dq[n][3])
                                : make_float4(dq[n][0], dq[n][1], r0, r1);
-        if (row < sq) atomicAdd(reinterpret_cast<float4*>(dqh + (size_t)row * ADH + col), val);
+        if (row < sq) *reinterpret_cast<float4*>(dqh + (size_t)row * ADH + col) = val;
       }
       __syncthreads();     // this stage and dS^T are free for the next tiles
     }
@@ -593,12 +592,27 @@ bwd_main_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// (c) dQ f32 -> bf16, four values a thread.
+// (c) dQ = the key blocks' partials in key-block order, f32 -> bf16, four
+// values a thread.  Row r (query r % sq) has partials from the blocks below
+// kv_len, and when causal from those at or below the query; every other
+// slot was never written.
 __global__ void __launch_bounds__(256)
-bwd_cast_kernel(const float* __restrict__ src, bf16* __restrict__ out, int n4) {
+bwd_cast_kernel(const float* __restrict__ part, bf16* __restrict__ out, int n4, int sq,
+                int kv_len, int causal) {
   const int i = blockIdx.x * 256 + threadIdx.x;
   if (i < n4) {
-    const float4 x = reinterpret_cast<const float4*>(src)[i];
+    const int qi = (i / (ADH / 4)) % sq;
+    int nb = (kv_len + BKB - 1) / BKB;
+    if (causal) nb = min(nb, qi / BKB + 1);
+    const float4* p = reinterpret_cast<const float4*>(part);
+    float4 x = p[i];
+    for (int kb = 1; kb < nb; ++kb) {
+      const float4 y = p[(size_t)kb * n4 + i];
+      x.x += y.x;
+      x.y += y.y;
+      x.z += y.z;
+      x.w += y.w;
+    }
     reinterpret_cast<uint2*>(out)[i] = make_uint2(pack_bf2(x.x, x.y), pack_bf2(x.z, x.w));
   }
 }
@@ -607,10 +621,11 @@ bwd_cast_kernel(const float* __restrict__ src, bf16* __restrict__ out, int n4) {
 }  // namespace wm
 
 // q, g, o, dq (B, H, Sq, 64) and k, v, dk, dv (B, H, Skv, 64) bf16; lse (B, H,
-// Sq) f32 from K1; scratch dsum (B, H, Sq) and dq_acc (B, H, Sq, 64) f32.
+// Sq) f32 from K1; scratch dsum (B, H, Sq) and dq_part (ceil(Skv / 128), B, H,
+// Sq, 64) f32.
 extern "C" int wm_attention_bwd(const void* q, const void* k, const void* v,
                                 const void* o, const void* lse, const void* g, void* dq,
-                                void* dk, void* dv, void* dsum, void* dq_acc, int b, int h,
+                                void* dk, void* dv, void* dsum, void* dq_part, int b, int h,
                                 int sq, int skv, int dh, int kv_len, int causal,
                                 void* stream) {
   using namespace wm;
@@ -618,7 +633,7 @@ extern "C" int wm_attention_bwd(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = b * h * sq;
   bwd_rows_kernel<<<(rows + 31) / 32, 256, 0, st>>>((const bf16*)o, (const bf16*)g,
-                                                   (float*)dsum, (float*)dq_acc, rows);
+                                                   (float*)dsum, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // Per launch: the attribute belongs to the current device's context.
@@ -626,11 +641,12 @@ extern "C" int wm_attention_bwd(const void* q, const void* k, const void* v,
                        BWD_SMEM);
   bwd_main_kernel<<<dim3((skv + BKB - 1) / BKB, h, b), BTHREADS, BWD_SMEM, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)lse,
-      (const float*)dsum, (float*)dq_acc, (bf16*)dk, (bf16*)dv, h, sq, skv, kv_len, causal);
+      (const float*)dsum, (float*)dq_part, (bf16*)dk, (bf16*)dv, h, sq, skv, kv_len, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n4 = rows * (ADH / 4);
-  bwd_cast_kernel<<<(n4 + 255) / 256, 256, 0, st>>>((const float*)dq_acc, (bf16*)dq, n4);
+  bwd_cast_kernel<<<(n4 + 255) / 256, 256, 0, st>>>((const float*)dq_part, (bf16*)dq, n4, sq,
+                                                    kv_len, causal);
   return (int)cudaGetLastError();
 }
 

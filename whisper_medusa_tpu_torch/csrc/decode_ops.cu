@@ -47,10 +47,18 @@
 // slabs, head-flat K and V (B, S = max_len, H * 64), q and out (B, T, H,
 // 64), with models/whisper.py::make_step_mask's mask in place of kv_len: key
 // j is visible to query t of example b iff j < off[b], or 0 <= j - off[b] <
-// T and bit j - off[b] of chunk_bits[t].  Keys at or past off[b] + T are
-// neither read nor counted (a masked logit gives an exact 0 after the
-// softmax); the slices come from max_len alone, so each example's bits are
-// its B=1 bits (the per-op step's self-attention is batch-invariant).
+// TC and bit j - off[b] of chunk_bits[t], TC the chunk's width.  Keys at or
+// past off[b] + TC are neither read nor counted (a masked logit gives an
+// exact 0 after the softmax); the slices come from max_len alone, so each
+// example's bits are its B=1 bits (the per-op step's self-attention is
+// batch-invariant).
+//
+// Chunks past 16 rows (T > 16: a chain of 16 or more heads): a launch takes
+// one m16 tile of queries, so ops/decode_ops.py blocks the rows into 16-row
+// launches.  Cross-attention rows are independent: each block is one more
+// launch on the same K/V.  In mask mode block j passes its own rows of
+// chunk bits over all TC columns at the same offsets (TC <= 32, the bits of
+// one int32).
 //
 // K11, wm_ffn_decode, replaces tools/decode_kernels_experiment.py::
 // _ffn_kernel (a sequential grid over F / 512 column blocks accumulating
@@ -131,6 +139,7 @@ struct CdArgs {
   bf16* out;             // q's layout
   long long q_b, q_h, q_t;   // element strides of q and out
   int heads, t_len, s_len, kv_len, slice;
+  int t_chunk;           // mask mode: the chunk's width (>= t_len, <= 32)
 };
 
 __device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, bool in) {
@@ -181,13 +190,13 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
 }
 
 template <bool SELF>
-__device__ __forceinline__ bool cd_visible(int t, int jg, int t_len, int s_len, int kv_len,
-                                           int off, uint32_t bits) {
+__device__ __forceinline__ bool cd_visible(int t, int jg, int t_len, int t_chunk, int s_len,
+                                           int kv_len, int off, uint32_t bits) {
   if (t >= t_len) return false;
   if (!SELF) return jg < kv_len;
   if (jg < off) return true;
   const int r = jg - off;
-  return r < t_len && jg < s_len && ((bits >> r) & 1u);
+  return r < t_chunk && jg < s_len && ((bits >> r) & 1u);
 }
 
 // grid (C, H, B), clusters of (C, 1, 1): one cluster per (head, example),
@@ -204,7 +213,7 @@ __global__ void __launch_bounds__(CD_THREADS, 4) cross_decode_kernel(const CdArg
   const int sc = a.slice, j_start = rank * sc, s_len = a.s_len, t_len = a.t_len;
   const int d_model = a.heads * CD_DH;
   const int off = SELF ? a.off[b] : 0;
-  const int kv_end = SELF ? min(off + t_len, s_len) : a.kv_len;
+  const int kv_end = SELF ? min(off + a.t_chunk, s_len) : a.kv_len;
   const int n_load = max(0, min(sc, kv_end - j_start));   // keys of the slice read
   const uint32_t bits0 = SELF && g < t_len ? (uint32_t)a.bits[g] : 0u;
   const uint32_t bits1 = SELF && g + 8 < t_len ? (uint32_t)a.bits[g + 8] : 0u;
@@ -337,8 +346,8 @@ __global__ void __launch_bounds__(CD_THREADS, 4) cross_decode_kernel(const CdArg
         const int t = g + 8 * (e >> 1), j = j0 + 8 * hh + 2 * c + (e & 1);
         const bool vis =
             all ? (e < 2 ? row0 : row1)
-                : j < n_load && cd_visible<SELF>(t, j_start + j, t_len, s_len, a.kv_len, off,
-                                                 e < 2 ? bits0 : bits1);
+                : j < n_load && cd_visible<SELF>(t, j_start + j, t_len, a.t_chunk, s_len,
+                                                 a.kv_len, off, e < 2 ? bits0 : bits1);
         s[i][hh][e] = vis ? s[i][hh][e] * (Q ? ksc[j] : 1.0f) : -INFINITY;
       }
 #pragma unroll
@@ -529,20 +538,24 @@ extern "C" int wm_cross_decode(const void* q, const void* k, const void* v,
   a.q_t = CD_DH;
   a.heads = H;
   a.t_len = T;
+  a.t_chunk = T;
   a.s_len = S;
   a.kv_len = kv_len;
   cudaStream_t st = (cudaStream_t)stream;
   return ks ? cd_launch<int8_t, false>(a, B, st) : cd_launch<bf16, false>(a, B, st);
 }
 
-// Mask mode: q (B, T, H, 64) bf16, pre-scaled; k, v (B, S, H * 64) bf16 (the
-// self slabs, S = max_len); offsets (B,) int32; chunk_bits (T,) int32 (bit j
-// of row t: query t sees chunk key j); out (B, T, H, 64) bf16.
+// Mask mode: q (B, T, H, 64) bf16, pre-scaled, T <= 16 query rows of a chunk
+// of TC <= 32 tokens (a block of its rows); k, v (B, S, H * 64) bf16 (the
+// self slabs, S = max_len); offsets (B,) int32; chunk_bits (T,) int32, the
+// block's rows (bit j of row t: query t sees chunk key j < TC); out (B, T, H,
+// 64) bf16.
 extern "C" int wm_self_decode(const void* q, const void* k, const void* v,
                               const void* offsets, const void* chunk_bits, void* out, int B,
-                              int H, int T, int S, void* stream) {
+                              int H, int T, int S, int TC, void* stream) {
   using namespace wm;
-  if (B < 1 || H < 1 || T < 1 || T > CD_MAXT || S < T) return (int)cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || T < 1 || T > CD_MAXT || TC < T || TC > 32 || S < TC)
+    return (int)cudaErrorInvalidValue;
   CdArgs a = {};
   a.q = static_cast<const bf16*>(q);
   a.k = k;
@@ -555,6 +568,7 @@ extern "C" int wm_self_decode(const void* q, const void* k, const void* v,
   a.q_t = (long long)H * CD_DH;
   a.heads = H;
   a.t_len = T;
+  a.t_chunk = TC;
   a.s_len = S;
   a.kv_len = S;
   return cd_launch<bf16, true>(a, B, (cudaStream_t)stream);

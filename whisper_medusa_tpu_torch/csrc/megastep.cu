@@ -8,7 +8,7 @@
 // layer, launched back to back on one stream by one C entry (one ctypes call
 // per decode step):
 //
-//   LN -> q/k/v (one skinny launch, 3 jobs) -> self-attention + in-place
+//   LN -> q/k/v (one GEMM launch, 3 jobs) -> self-attention + in-place
 //   K/V commit -> o + residual -> LN -> cross q -> cross-attention partials
 //   over 128-key chunks -> combine -> cross o + residual -> LN -> fc1 + GELU
 //   -> fc2 + residual
@@ -21,10 +21,44 @@
 // device memory (L2 resident) between kernels.  Bound on H100: bytes.  At
 // large-v2 one step reads 32 x (6 x 1280^2 + 2 x 1280 x 5120) bf16 weights =
 // 1.47 GB, whatever B is, plus B x 32 x 2 x 1500 x 1280 bf16 cross K/V =
-// B x 246 MB (counted from the shapes).  The skinny GEMM reads each weight
-// once per step with the whole matrix in flight, for all B*T rows;
-// cross-attention splits the 1500 keys into 128-key chunks, a grid of
-// 12 x 20 x B CTAs; self-attention runs 20 x B CTAs.
+// B x 246 MB (counted from the shapes); cross-attention splits the 1500 keys
+// into 128-key chunks, a grid of 12 x 20 x B CTAs; self-attention runs
+// 20 x B CTAs.
+//
+// The six projections of a layer run on one weight-streaming GEMM
+// (wgemm_kernel), Y^T = W^T X^T on wgmma:
+//
+//  * a CTA takes 64 W columns (wgmma's 64-row A side, MN-major, 128-byte
+//    swizzle) over one K slice; one producer warp streams the W tiles (64 K
+//    x 64 columns, bf16 as TMA writes them, int8 raw and converted exactly
+//    to bf16 in shared memory) and the matching X tiles (ceil(M / 16) * 16
+//    rows x 64 K, rows past M zero-filled, from L2) through a TMA ring deep
+//    enough for the CTA's whole slice at B = 1 (up to 96 KB; 4 stages past
+//    32 rows); one consumer warpgroup runs one m64nNk16 product per 16-deep
+//    step, N = ceil(M / 16) * 16 (WgmmaN); a row's products are one chain in
+//    K order whatever M is (on the H100 an element of wgmma does not depend
+//    on N: chip_smoke.py holds B = 8 bitwise B = 1);
+//  * K is cut into slices from (K, N, jobs) alone (gemm_slices), enough for
+//    132 CTAs and at most 8: q/k/v 3 slices x 60 tiles, o / cross q / cross
+//    o and fc2 7 x 20, fc1 2 x 80.  The slices of a column tile are one
+//    thread-block cluster; each CTA leaves its f32 partial in shared memory
+//    and rank r adds the slices for its share of the rows in rank order
+//    through distributed shared memory, then runs the epilogue (bias, the
+//    q scale, exact-erf GELU or the residual, rounded where the plain
+//    version rounds).  One fixed order, no atomics, no scratch: B = 8 gives
+//    each example its B = 1 bits;
+//  * the weights come from tensor maps over the (L, K, N) stacks, encoded
+//    once a step (the layer is a coordinate).
+//
+// Every kernel of the step is launched with programmatic dependent launch
+// (cudaLaunchAttributeProgrammaticStreamSerialization): each lets the next
+// kernel launch at its start (griddepcontrol.launch_dependents) and waits
+// for the previous one (griddepcontrol.wait) before it touches what that
+// one writes.  Rule, kept by every kernel here: before its wait a kernel
+// reads only weights and writes only its own shared memory.  A GEMM's
+// producer issues its first ring of weight loads before the wait, so the
+// next projection's weights are in flight while the kernels before it
+// finish: the Hopper counterpart of the TPU kernel's cross-phase prefetch.
 //
 // Numerics follow models/whisper.py::decoder_layer_step: f32 layernorm
 // statistics, softmax and accumulation; bf16 operands and activations;
@@ -37,8 +71,8 @@
 //
 // int8 serving (the JAX kernel's quant / kv_quant / skv_quant mode), chosen
 // by non-null scale pointers: the eight streamed weights are int8 with f32
-// per-column scales (the skinny GEMM's W8A16 form, scale before the bias,
-// megastep.py:433-457); the cross K/V are int8 with f32 (B, H, S) scales,
+// per-column scales (W8A16: the summed column times its scale, then the
+// bias, megastep.py:433-457); the cross K/V are int8 with f32 (B, H, S) scales,
 // converted to bf16 as they are staged, each score multiplied by its key's
 // scale before the max and exp and each probability by its value's scale
 // before the PV product, the softmax denominator unscaled
@@ -51,20 +85,26 @@
 // streams 0.73 GB of weights and B x 123 MB of cross K/V at large-v2.
 //
 // Medusa-Block serving (the JAX kernel runs the block as grid layer L,
-// megastep.py:41-45, :562-571), chosen by a non-null P_BLOCK_HIDDEN: after
-// ln_post the entry copies hidden into that third row buffer and runs the
+// megastep.py:41-45, :562-571), chosen by a non-null P_BLOCK_HIDDEN: ln_post
+// writes hidden into that third row buffer too and the entry runs the
 // block layer on it through the same per-layer body (layer_step) with the
 // block's own weight table (21 pointers, 8 scales at int8; never stacked
 // onto the decoder's) and cache slot L of slabs holding L + 1 slots.  The
 // buffer ends as block_hidden, with no ln_post (models/whisper.py:1258-1279);
 // x keeps the main stack's pre_norm.  The block adds 46 MB of bf16 weights
 // (23 MB int8) and B x 7.7 MB of cross K/V to the step's bytes.
-#include "common.cuh"
+#include <cooperative_groups.h>
 
 #include <type_traits>
+#include <utility>
+
+#include "common.cuh"
+#include "hopper.cuh"
 
 namespace wm {
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int DH = 64;        // head dim
 constexpr int CS = 128;       // cross-attention keys per chunk
@@ -72,10 +112,14 @@ constexpr int MAXT = 16;      // chunk rows per example
 constexpr int AT = 512;       // threads of the attention kernels
 constexpr int RG = AT / DH;   // row groups in the PV loops (rows g, g + RG)
 
-// y[row] = LN(x[row]) in bf16; f32 statistics; one CTA per row.
+// y[row] = LN(x[row]) in bf16 (and into y2 too, when given: the block's
+// residual stream starts from ln_post's output); f32 statistics; one CTA per
+// row.
 __global__ void __launch_bounds__(256)
-ln_rows_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
+ln_rows_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, bf16* __restrict__ y2,
                const bf16* __restrict__ scale, const bf16* __restrict__ bias, int d) {
+  griddep_launch();
+  griddep_wait();
   __shared__ float red[8];
   const bf16* xr = x + (size_t)blockIdx.x * d;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -99,9 +143,11 @@ ln_rows_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
   tot = 0.0f;
   for (int i = 0; i < 8; ++i) tot += red[i];
   const float rstd = rsqrtf(tot / d + 1e-5f);
-  for (int i = threadIdx.x; i < d; i += 256)
-    y[(size_t)blockIdx.x * d + i] =
-        f2bf((bf2f(xr[i]) - mean) * rstd * bf2f(scale[i]) + bf2f(bias[i]));
+  for (int i = threadIdx.x; i < d; i += 256) {
+    const bf16 r = f2bf((bf2f(xr[i]) - mean) * rstd * bf2f(scale[i]) + bf2f(bias[i]));
+    y[(size_t)blockIdx.x * d + i] = r;
+    if (y2) y2[(size_t)blockIdx.x * d + i] = r;
+  }
 }
 
 __device__ __forceinline__ int8_t quant8(float x, float sc) {
@@ -129,6 +175,8 @@ self_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  bf16* __restrict__ slab_s, const int* __restrict__ offsets,
                  const uint8_t* __restrict__ mask, int t_len, int s_len, int d,
                  int n_heads) {
+  griddep_launch();
+  griddep_wait();
   using ST = typename std::conditional<Q, int8_t, bf16>::type;
   ST* sk = static_cast<ST*>(slab_k);
   ST* sv = static_cast<ST*>(slab_v);
@@ -293,6 +341,8 @@ cross_partial_kernel(const bf16* __restrict__ q, const KT* __restrict__ ck,
                      const float* __restrict__ vs_g, float* __restrict__ part_o,
                      float* __restrict__ part_ml, int t_len, int n_heads, int d,
                      int s_enc, int cross_len, int nch) {
+  griddep_launch();
+  griddep_wait();
   constexpr bool Q = sizeof(KT) == 1;
   __shared__ float qs[MAXT][DH];
   __shared__ __align__(16) bf16 kt[DH][CS + 8];
@@ -391,6 +441,8 @@ cross_partial_kernel(const bf16* __restrict__ q, const KT* __restrict__ ck,
 __global__ void __launch_bounds__(256)
 cross_combine_kernel(const float* __restrict__ part_o, const float* __restrict__ part_ml,
                      bf16* __restrict__ out, int t_len, int n_heads, int d, int nch) {
+  griddep_launch();
+  griddep_wait();
   const int h = blockIdx.x, b = blockIdx.y;
   const size_t row0 = ((size_t)b * n_heads + h) * t_len;
   for (int i = threadIdx.x; i < t_len * DH; i += 256) {
@@ -408,23 +460,292 @@ cross_combine_kernel(const float* __restrict__ part_o, const float* __restrict__
   }
 }
 
-inline void ln_rows(const bf16* x, bf16* y, const bf16* s, const bf16* b, int m,
-                    int d, cudaStream_t st) {
-  ln_rows_kernel<<<m, 256, 0, st>>>(x, y, s, b, d);
+// ---------------------------------------------------------------------------
+// The projections: a weight-streaming GEMM on wgmma, Y^T = W^T X^T
+// ---------------------------------------------------------------------------
+
+constexpr int G_TILE = 64;             // W columns per CTA (wgmma's M side), K chunk
+constexpr int G_RING = 96 * 1024;      // ring bytes a CTA may hold at M <= 32
+constexpr int G_RING_STAGES = 4;       // ring stages past 32 rows
+constexpr int G_THREADS = 160;         // 4 consumer warps + 1 producer warp
+constexpr int G_WTILE = G_TILE * G_TILE * 2;   // bf16 W tile (64 K x 64 N), bytes
+constexpr int G_WRAW = G_TILE * G_TILE;        // int8 W tile, bytes
+constexpr int G_XT = 16 * G_TILE * 2;          // one 16-row X tile (64 K), bytes
+constexpr int G_WBUF = 3;              // converted bf16 W tiles (int8)
+constexpr int G_CTAS = 132;            // CTAs a projection aims for (the H100's SMs)
+constexpr int G_MAX_SLICES = 8;        // K slices: the CTAs of one portable cluster
+constexpr int G_RP = G_TILE + 4;       // f32 pitch of a CTA's partial in shared memory
+
+// The K slices of a projection: their number from (K, N, jobs) alone, never
+// from M (ops/megastep.py::gemm_slices is the same rule).
+__host__ __device__ inline int gemm_slices(int k, int n, int jobs) {
+  const int chunks = k / G_TILE, tiles = jobs * (n / G_TILE);
+  int want = (G_CTAS + tiles - 1) / tiles;
+  if (want > G_MAX_SLICES) want = G_MAX_SLICES;
+  if (want > chunks) want = chunks;
+  return want < 1 ? 1 : want;
+}
+// Slice i covers 64-wide chunks [begin, end): fixed contiguous ranges.
+__host__ __device__ inline int gemm_slice_begin(int chunks, int slices, int i) {
+  const int base = chunks / slices, extra = chunks % slices;
+  return i * base + (i < extra ? i : extra);
 }
 
+// The deepest ring a CTA may hold at mt row tiles: G_RING bytes at up to
+// two row tiles (a B = 1 chunk), G_RING_STAGES stages past them, where a
+// deeper ring measured slower (fewer CTAs of the next kernels fit beside
+// the running one, so less of their weights is in flight early).
+inline int gemm_max_stages(int mt, bool w8) {
+  return mt <= 2 ? G_RING / (mt * G_XT + (w8 ? G_WRAW : G_WTILE)) : G_RING_STAGES;
+}
+
+// Ring stages of a projection: room for its longest K slice (so a CTA can
+// hold all its weights before its wait), within gemm_max_stages, at least 2.
+inline int gemm_stages(int k, int n, int jobs, int mt, bool w8) {
+  const int slices = gemm_slices(k, n, jobs), chunks = k / G_TILE;
+  const int longest = (chunks + slices - 1) / slices;
+  const int fit = gemm_max_stages(mt, w8);
+  const int s = longest < fit ? longest : fit;
+  return s < 2 ? 2 : s;
+}
+
+inline int gemm_smem(int mt, bool w8, int stages) {
+  return 1024 + stages * (mt * G_XT + (w8 ? G_WRAW : G_WTILE)) + (w8 ? G_WBUF * G_WTILE : 0) +
+         16 * stages + 16 * mt * G_TILE * 2;
+}
+
+// One output of a GEMM launch (up to three share X: q/k/v).
+struct GemmJob {
+  const bf16* bias;      // (N,) or null
+  const float* wscale;   // (N,) f32 per-column scales (int8 W), or null
+  const bf16* res;       // residual rows (ld = ldres) or null; may be out
+  bf16* out;             // output rows (ld = ldo)
+  int epi;
+  float scale;
+};
+struct GemmJobs {
+  GemmJob j[3];
+};
+
+// grid (slices, N / 64, jobs), clusters of (slices, 1, 1): the cluster's
+// CTA of rank r computes W columns [64 y, + 64) of job z over K slice r;
+// then rank r adds the slices' partials, in rank order, for its share of
+// the rows and runs the epilogue.  The W tile is wgmma's A side (64 columns
+// x 16 K, MN-major, 128-byte swizzle as TMA writes it: the bf16 tile
+// directly, an int8 tile after an exact conversion in shared memory); the
+// X tile (16 MT rows, K-major) its N side, one m64nNk16 product a 16-deep
+// step.  mx: X (M rows, K) bf16, box (64,
+// 16 MT), rows past M zero-filled; mw0..2: the jobs' W stacks (L, K, N),
+// box (64, 64, 1), at layer ``layer``.
+//
+// Programmatic dependent launch: before griddep_wait a kernel reads only
+// weights and writes only its own shared memory.  The producer issues its
+// first ring of W loads before the wait, so the weights stream while the
+// previous kernel finishes; X, biases, residuals and outputs come after.
+template <int MT, bool W8>
+__global__ void __launch_bounds__(G_THREADS)
+wgemm_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw0,
+             const __grid_constant__ CUtensorMap mw1, const __grid_constant__ CUtensorMap mw2,
+             const GemmJobs jobs, int layer, int m_rows, int chunks, int stages, int ldo,
+             int ldres) {
+  griddep_launch();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int slices = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int z = blockIdx.z, n0 = blockIdx.y * G_TILE;
+  const CUtensorMap* mw = z == 0 ? &mw0 : (z == 1 ? &mw1 : &mw2);
+  const GemmJob jb = z == 0 ? jobs.j[0] : (z == 1 ? jobs.j[1] : jobs.j[2]);
+  const int c_first = gemm_slice_begin(chunks, slices, rank);
+  const int nch = gemm_slice_begin(chunks, slices, rank + 1) - c_first;
+  constexpr int WB = W8 ? G_WRAW : G_WTILE;   // W bytes a stage
+
+  extern __shared__ char smem_raw[];
+  char* smem = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  char* xs = smem;                                   // stages x MT X tiles
+  char* ws = xs + stages * MT * G_XT;                // stages W tiles (raw at int8)
+  char* wb = ws + stages * WB;                       // G_WBUF converted tiles (int8)
+  uint64_t* full = reinterpret_cast<uint64_t*>(wb + (W8 ? G_WBUF * G_WTILE : 0));
+  uint64_t* empty = full + stages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // The epilogue's per-column operands (weights: loaded before the wait)
+  // and this rank's residual rows (after it).
+  __shared__ float col_bias[G_TILE], col_scale[G_TILE];
+  bf16* res_rows = reinterpret_cast<bf16*>(empty + stages);   // <= 16 MT rows x 64
+  const int per = (m_rows + slices - 1) / slices, r0 = rank * per;
+  const int r1 = r0 + per < m_rows ? r0 + per : m_rows;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int pre = nch < stages ? nch : stages;
+  if (warp == 4 && lane == 0) {   // the weights of the first stages: no wait
+    for (int it = 0; it < pre; ++it) {
+      mbar_arrive_tx(&full[it], WB + MT * G_XT);
+      tma_load_3d(ws + it * WB, mw, &full[it], n0, (c_first + it) * G_TILE, layer);
+    }
+  }
+  if (threadIdx.x < G_TILE) {
+    col_bias[threadIdx.x] = jb.bias ? bf2f(jb.bias[n0 + threadIdx.x]) : 0.0f;
+    col_scale[threadIdx.x] = W8 ? jb.wscale[n0 + threadIdx.x] : 1.0f;
+  }
+  griddep_wait();
+
+  float acc[MT * 8];
+  if (warp == 4) {   // producer; lanes 1-31 stage the residual rows meanwhile
+    if (lane != 0 && jb.epi == EPI_BIAS_RESID) {
+      for (int i = lane - 1; i < (r1 - r0) * (G_TILE / 8); i += 31) {
+        const int m = r0 + i / (G_TILE / 8), c8 = (i % (G_TILE / 8)) * 8;
+        *reinterpret_cast<uint4*>(&res_rows[(m - r0) * G_TILE + c8]) =
+            *reinterpret_cast<const uint4*>(jb.res + (size_t)m * ldres + n0 + c8);
+      }
+    }
+    if (lane == 0) {
+      for (int it = 0; it < pre; ++it)
+        tma_load_2d(xs + it * MT * G_XT, &mx, &full[it], (c_first + it) * G_TILE, 0);
+      for (int it = pre; it < nch; ++it) {
+        const int st = it % stages, c = c_first + it;
+        mbar_wait(&empty[st], ((it / stages) & 1) ^ 1);
+        mbar_arrive_tx(&full[st], WB + MT * G_XT);
+        tma_load_3d(ws + st * WB, mw, &full[st], n0, c * G_TILE, layer);
+        tma_load_2d(xs + st * MT * G_XT, &mx, &full[st], c * G_TILE, 0);
+      }
+    }
+  } else {
+    int pend = -1;
+    for (int it = 0; it < nch; ++it) {
+      const int st = it % stages;
+      mbar_wait(&full[st], (it / stages) & 1);
+      char* wt = ws + st * WB;
+      if constexpr (W8) {
+        // int8 (k, n) rows of 64 bytes -> bf16 rows of 128 bytes, chunk j of
+        // row k stored at chunk j ^ (k % 8) (the 128-byte swizzle).
+        char* cv = wb + (it % G_WBUF) * G_WTILE;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int idx = threadIdx.x + 128 * h, kr = idx >> 2, q = idx & 3;
+          const uint4 raw = *reinterpret_cast<const uint4*>(wt + kr * 64 + q * 16);
+          char* rowp = cv + kr * 128;
+          *reinterpret_cast<uint4*>(rowp + (((2 * q) ^ (kr & 7)) * 16)) =
+              i8x8_to_bf16(make_uint2(raw.x, raw.y));
+          *reinterpret_cast<uint4*>(rowp + (((2 * q + 1) ^ (kr & 7)) * 16)) =
+              i8x8_to_bf16(make_uint2(raw.z, raw.w));
+        }
+        fence_proxy_async();
+        named_sync(1, 128);
+        wt = cv;
+      }
+      const uint64_t adesc = sw128_desc(smem_addr(wt));
+      const uint64_t bdesc = sw128_desc(smem_addr(xs + st * MT * G_XT));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < G_TILE / 16; ++kk)
+        WgmmaN<MT, 1, 0>::run(acc, adesc + 128 * kk, bdesc + 2 * kk, it > 0 || kk > 0);
+      wgmma_commit();
+      // The previous chunk's products are done: its stage goes back to the
+      // producer (at int8 the raw tile was read by the conversion already).
+      wgmma_wait<1>();
+      if (lane == 0 && pend >= 0) mbar_arrive(&empty[pend]);
+      pend = st;
+    }
+    wgmma_wait<0>();
+    reg_fence(acc);
+  }
+  __syncthreads();   // every product has read its tiles: the ring is free
+
+  // This slice's partial (X rows x 64 W columns, f32) over the ring.
+  float* red = reinterpret_cast<float*>(smem);
+  if (warp < 4) {
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = 16 * t + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        red[row * G_RP + 16 * warp + (lane >> 2) + ((i & 2) ? 8 : 0)] = acc[8 * t + i];
+      }
+  }
+  cluster.sync();    // the partials, and the staged residual rows, are visible
+  // Rank r: rows [r * per, + per); the slices added in rank order, every
+  // rank's value read before the first add.
+  const float* part[G_MAX_SLICES];
+#pragma unroll
+  for (int q = 0; q < G_MAX_SLICES; ++q)
+    part[q] = cluster.map_shared_rank(red, q < slices ? q : 0);
+  for (int e = threadIdx.x; e < (r1 - r0) * G_TILE; e += G_THREADS) {
+    const int m = r0 + e / G_TILE, col = e % G_TILE;
+    float v[G_MAX_SLICES];
+#pragma unroll
+    for (int q = 0; q < G_MAX_SLICES; ++q) v[q] = q < slices ? part[q][m * G_RP + col] : 0.0f;
+    float sum = v[0];
+#pragma unroll
+    for (int q = 1; q < G_MAX_SLICES; ++q)
+      if (q < slices) sum += v[q];
+    if constexpr (W8) sum *= col_scale[col];
+    if (jb.bias) sum += col_bias[col];
+    float r;
+    switch (jb.epi) {
+      case EPI_BIAS_SCALE: r = bfr(sum) * jb.scale; break;
+      case EPI_BIAS_GELU: r = gelu_erf(sum); break;
+      case EPI_BIAS_RESID: r = bf2f(res_rows[(m - r0) * G_TILE + col]) + bfr(sum); break;
+      default: r = sum;
+    }
+    jb.out[(size_t)m * ldo + n0 + col] = f2bf(r);
+  }
+  cluster.sync();    // every rank's partial stays until the others have read it
+}
+
+// Launches one kernel of the step after the previous one in the stream with
+// programmatic stream serialization (its CTAs may start early and run up to
+// their griddep_wait), in clusters of ``cluster`` CTAs along x when > 0.
+template <typename... KArgs, typename... Args>
+int launch_pdl(void (*kern)(KArgs...), dim3 grid, dim3 block, size_t smem, int cluster,
+               cudaStream_t st, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  int n = 1;
+  if (cluster > 0) {
+    attr[1].id = cudaLaunchAttributeClusterDimension;
+    attr[1].val.clusterDim.x = cluster;
+    attr[1].val.clusterDim.y = 1;
+    attr[1].val.clusterDim.z = 1;
+    n = 2;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = n;
+  return (int)cudaLaunchKernelEx(&cfg, kern, std::forward<Args>(args)...);
+}
+
+// The eight streamed weights of a layer table as tensor maps over their
+// (L, K, N) stacks (one layer: L = 1), in the order of _QUANT.
+struct LayerMaps {
+  CUtensorMap q, k, v, o, cq, co, fc1, fc2;
+};
+
 // One layer's weights, already offset to the layer: bf16, or int8 (the
-// eight streamed weights) with their f32 per-column scales.
+// eight streamed weights) with their f32 per-column scales; the streamed
+// weights themselves are read through ``maps`` at layer ``layer``.
 struct LayerW {
   const bf16 *self_ln_s, *self_ln_b, *q_b, *v_b, *o_b, *cross_ln_s, *cross_ln_b, *cq_b,
       *co_b, *ffn_ln_s, *ffn_ln_b, *fc1_b, *fc2_b;
-  const void *q_w, *k_w, *v_w, *o_w, *cq_w, *co_w, *fc1_w, *fc2_w;
   const float *q_s, *k_s, *v_s, *o_s, *cq_s, *co_s, *fc1_s, *fc2_s;   // null: bf16
+  const LayerMaps* maps;
+  int layer;
 };
 
 // The buffers, cache and shapes one decode step shares across its layers.
 struct StepCtx {
-  int B, T, D, H, F, S, SE, cross_len, nch, M;
+  int B, T, D, H, F, S, SE, cross_len, nch, M, MT;
   bool quant;
   size_t self_smem;
   bf16 *xa, *qb, *kb, *vb, *attn, *hb;
@@ -435,95 +756,197 @@ struct StepCtx {
   bf16* self_s;
   const int* offsets;
   const uint8_t* mask;
+  CUtensorMap x_xa, x_attn, x_h;   // the GEMMs' X operands (M rows)
   cudaStream_t st;
 };
 
 // The 21 weights of a layer table starting at pointer slot w0 (the order of
 // ops/megastep.py _WEIGHTS) and its 8 scales at slot s0 (_QUANT), at layer l
 // of (L, ...) stacks; a single layer (the block) is l = 0.
-LayerW layer_weights(void* const* p, int w0, int s0, size_t l, int D, int F, bool quant) {
-  const size_t lD = l * D, lF = l * F, DD = l * D * D, DF = l * D * F;
+LayerW layer_weights(void* const* p, int w0, int s0, size_t l, int D, int F, bool quant,
+                     const LayerMaps* maps) {
+  const size_t lD = l * D, lF = l * F;
   auto B16 = [&](int i, size_t off) { return static_cast<const bf16*>(p[w0 + i]) + off; };
-  auto W = [&](int i, size_t off) -> const void* {
-    return quant ? static_cast<const void*>(static_cast<const int8_t*>(p[w0 + i]) + off)
-                 : static_cast<const void*>(static_cast<const bf16*>(p[w0 + i]) + off);
-  };
   auto S = [&](int i, size_t off) -> const float* {
     return quant ? static_cast<const float*>(p[s0 + i]) + off : nullptr;
   };
   LayerW w;
   w.self_ln_s = B16(0, lD);  w.self_ln_b = B16(1, lD);
-  w.q_w = W(2, DD);          w.q_b = B16(3, lD);
-  w.k_w = W(4, DD);          w.v_w = W(5, DD);        w.v_b = B16(6, lD);
-  w.o_w = W(7, DD);          w.o_b = B16(8, lD);
+  w.q_b = B16(3, lD);        w.v_b = B16(6, lD);      w.o_b = B16(8, lD);
   w.cross_ln_s = B16(9, lD); w.cross_ln_b = B16(10, lD);
-  w.cq_w = W(11, DD);        w.cq_b = B16(12, lD);
-  w.co_w = W(13, DD);        w.co_b = B16(14, lD);
+  w.cq_b = B16(12, lD);      w.co_b = B16(14, lD);
   w.ffn_ln_s = B16(15, lD);  w.ffn_ln_b = B16(16, lD);
-  w.fc1_w = W(17, DF);       w.fc1_b = B16(18, lF);
-  w.fc2_w = W(19, DF);       w.fc2_b = B16(20, lD);
+  w.fc1_b = B16(18, lF);     w.fc2_b = B16(20, lD);
   w.q_s = S(0, lD);  w.k_s = S(1, lD);  w.v_s = S(2, lD);  w.o_s = S(3, lD);
   w.cq_s = S(4, lD); w.co_s = S(5, lD); w.fc1_s = S(6, lF); w.fc2_s = S(7, lD);
+  w.maps = maps;
+  w.layer = (int)l;
   return w;
 }
 
+// Tensor maps of the eight streamed weights of the table at slot w0: (L, K,
+// N) stacks of L layers, bf16 (128-byte swizzle) or int8 (raw).
+int encode_layer_maps(LayerMaps* m, void* const* p, int w0, int L, int D, int F, bool quant) {
+  const CUtensorMapDataType dt =
+      quant ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle sw = quant ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B;
+  const cuuint64_t es = quant ? 1 : 2;
+  const cuuint32_t box[3] = {G_TILE, G_TILE, 1};
+  struct { CUtensorMap* map; int slot, k, n; } w[8] = {
+      {&m->q, 2, D, D},   {&m->k, 4, D, D},   {&m->v, 5, D, D},    {&m->o, 7, D, D},
+      {&m->cq, 11, D, D}, {&m->co, 13, D, D}, {&m->fc1, 17, D, F}, {&m->fc2, 19, F, D}};
+  for (auto& x : w) {
+    const cuuint64_t dims[3] = {(cuuint64_t)x.n, (cuuint64_t)x.k, (cuuint64_t)L};
+    const cuuint64_t strides[2] = {x.n * es, (cuuint64_t)x.k * x.n * es};
+    const int err = encode_map(x.map, dt, 3, p[w0 + x.slot], dims, strides, box, sw);
+    if (err) return err;
+  }
+  return 0;
+}
+
+// The X operand of a GEMM: M rows of k bf16 columns, 16 MT-row boxes.
+int encode_x_map(CUtensorMap* map, const bf16* x, int m, int k, int mt) {
+  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)m};
+  const cuuint64_t strides[1] = {(cuuint64_t)k * sizeof(bf16)};
+  const cuuint32_t box[2] = {G_TILE, (cuuint32_t)(16 * mt)};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+inline GemmJob gjob(const bf16* bias, bf16* out, int epi, const bf16* res = nullptr,
+                    float scale = 1.0f, const float* wscale = nullptr) {
+  GemmJob j;
+  j.bias = bias;
+  j.wscale = wscale;
+  j.res = res;
+  j.out = out;
+  j.epi = epi;
+  j.scale = scale;
+  return j;
+}
+
+// One projection of the step: Y (M, N) = epilogue(X (M, K) @ W[layer]) for
+// ``njobs`` jobs sharing X.
+int gemm(const StepCtx& c, const CUtensorMap& mx, const CUtensorMap* w0, const CUtensorMap* w1,
+         const CUtensorMap* w2, int njobs, const GemmJobs& jobs, int layer, int k, int n,
+         int ldo) {
+  const int slices = gemm_slices(k, n, njobs);
+  const dim3 grid(slices, n / G_TILE, njobs);
+  const int stages = gemm_stages(k, n, njobs, c.MT, c.quant);
+  const size_t smem = gemm_smem(c.MT, c.quant, stages);
+  const int chunks = k / G_TILE;
+#define WM_GEMM(MT)                                                                      \
+  case MT:                                                                               \
+    return c.quant ? launch_pdl(wgemm_kernel<MT, true>, grid, dim3(G_THREADS), smem,    \
+                                slices, c.st, mx, *w0, *w1, *w2, jobs, layer, c.M,       \
+                                chunks, stages, ldo, ldo)                                \
+                   : launch_pdl(wgemm_kernel<MT, false>, grid, dim3(G_THREADS), smem,   \
+                                slices, c.st, mx, *w0, *w1, *w2, jobs, layer, c.M,       \
+                                chunks, stages, ldo, ldo);
+  switch (c.MT) {
+    WM_GEMM(1) WM_GEMM(2) WM_GEMM(3) WM_GEMM(4)
+    WM_GEMM(5) WM_GEMM(6) WM_GEMM(7) WM_GEMM(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef WM_GEMM
+}
+
+// Shared memory of the GEMM instantiation a step uses (above 48 KB needs
+// the attribute; per call: it belongs to the current device's context):
+// room for the deepest ring a projection takes.
+void gemm_set_smem(int mt, bool w8) {
+  const int smem = gemm_smem(mt, w8, gemm_max_stages(mt, w8));
+#define WM_GSMEM(MT)                                                                   \
+  case MT:                                                                             \
+    if (w8)                                                                            \
+      cudaFuncSetAttribute(wgemm_kernel<MT, true>,                                     \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);         \
+    else                                                                               \
+      cudaFuncSetAttribute(wgemm_kernel<MT, false>,                                    \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);         \
+    break;
+  switch (mt) {
+    WM_GSMEM(1) WM_GSMEM(2) WM_GSMEM(3) WM_GSMEM(4)
+    WM_GSMEM(5) WM_GSMEM(6) WM_GSMEM(7) WM_GSMEM(8)
+    default: break;
+  }
+#undef WM_GSMEM
+}
+
+int ln_rows(const bf16* x, bf16* y, bf16* y2, const bf16* s, const bf16* b, int m, int d,
+            cudaStream_t st) {
+  return launch_pdl(ln_rows_kernel, dim3(m), dim3(256), 0, 0, st, x, y, y2, s, b, d);
+}
+
+#define WM_TRY(call)             \
+  do {                           \
+    const int err_ = (call);     \
+    if (err_) return err_;       \
+  } while (0)
+
 // One decoder layer over the chunk's rows in x (residual stream, updated in
 // place), reading and writing cache slot `slot` of every slab.
-void layer_step(const LayerW& w, bf16* x, size_t slot, const StepCtx& c) {
+int layer_step(const LayerW& w, bf16* x, size_t slot, const StepCtx& c) {
   const int B = c.B, T = c.T, D = c.D, H = c.H, F = c.F, S = c.S, SE = c.SE, M = c.M;
+  const int l = w.layer;
+  const LayerMaps& mp = *w.maps;
   const float scale = 0.125f;   // DH ** -0.5
   const size_t slab = slot * B * S * D;
   cudaStream_t st = c.st;
   // --- self-attention
-  ln_rows(x, c.xa, w.self_ln_s, w.self_ln_b, M, D, st);
-  SkinnyJobs qkv;
-  qkv.j[0] = job(w.q_w, w.q_b, c.qb, EPI_BIAS_SCALE, nullptr, scale, w.q_s);
-  qkv.j[1] = job(w.k_w, nullptr, c.kb, EPI_BIAS, nullptr, 1.0f, w.k_s);
-  qkv.j[2] = job(w.v_w, w.v_b, c.vb, EPI_BIAS, nullptr, 1.0f, w.v_s);
-  skinny_gemm(c.xa, D, M, D, D, D, D, qkv, 3, 3, 0, 0, 0, st);
+  WM_TRY(ln_rows(x, c.xa, nullptr, w.self_ln_s, w.self_ln_b, M, D, st));
+  GemmJobs qkv;
+  qkv.j[0] = gjob(w.q_b, c.qb, EPI_BIAS_SCALE, nullptr, scale, w.q_s);
+  qkv.j[1] = gjob(nullptr, c.kb, EPI_BIAS, nullptr, 1.0f, w.k_s);
+  qkv.j[2] = gjob(w.v_b, c.vb, EPI_BIAS, nullptr, 1.0f, w.v_s);
+  WM_TRY(gemm(c, c.x_xa, &mp.q, &mp.k, &mp.v, 3, qkv, l, D, D, D));
   if (c.quant)
-    self_attn_kernel<true><<<dim3(H, B), AT, c.self_smem, st>>>(
-        c.qb, c.kb, c.vb, c.attn, static_cast<int8_t*>(c.self_k) + slab,
-        static_cast<int8_t*>(c.self_v) + slab, c.self_s + slot * B * S * 2 * H, c.offsets,
-        c.mask, T, S, D, H);
+    WM_TRY(launch_pdl(self_attn_kernel<true>, dim3(H, B), dim3(AT), c.self_smem, 0, st,
+                      c.qb, c.kb, c.vb, c.attn, static_cast<int8_t*>(c.self_k) + slab,
+                      static_cast<int8_t*>(c.self_v) + slab, c.self_s + slot * B * S * 2 * H,
+                      c.offsets, c.mask, T, S, D, H));
   else
-    self_attn_kernel<false><<<dim3(H, B), AT, c.self_smem, st>>>(
-        c.qb, c.kb, c.vb, c.attn, static_cast<bf16*>(c.self_k) + slab,
-        static_cast<bf16*>(c.self_v) + slab, nullptr, c.offsets, c.mask, T, S, D, H);
-  SkinnyJobs o;
-  o.j[0] = job(w.o_w, w.o_b, x, EPI_BIAS_RESID, x, 1.0f, w.o_s);
-  skinny_gemm(c.attn, D, M, D, D, D, D, o, 1, 1, 0, 0, 0, st);
+    WM_TRY(launch_pdl(self_attn_kernel<false>, dim3(H, B), dim3(AT), c.self_smem, 0, st,
+                      c.qb, c.kb, c.vb, c.attn, static_cast<bf16*>(c.self_k) + slab,
+                      static_cast<bf16*>(c.self_v) + slab, (bf16*)nullptr, c.offsets, c.mask,
+                      T, S, D, H));
+  GemmJobs o;
+  o.j[0] = gjob(w.o_b, x, EPI_BIAS_RESID, x, 1.0f, w.o_s);
+  WM_TRY(gemm(c, c.x_attn, &mp.o, &mp.o, &mp.o, 1, o, l, D, D, D));
   // --- cross-attention
-  ln_rows(x, c.xa, w.cross_ln_s, w.cross_ln_b, M, D, st);
-  SkinnyJobs cq;
-  cq.j[0] = job(w.cq_w, w.cq_b, c.qb, EPI_BIAS_SCALE, nullptr, scale, w.cq_s);
-  skinny_gemm(c.xa, D, M, D, D, D, D, cq, 1, 1, 0, 0, 0, st);
+  WM_TRY(ln_rows(x, c.xa, nullptr, w.cross_ln_s, w.cross_ln_b, M, D, st));
+  GemmJobs cq;
+  cq.j[0] = gjob(w.cq_b, c.qb, EPI_BIAS_SCALE, nullptr, scale, w.cq_s);
+  WM_TRY(gemm(c, c.x_xa, &mp.cq, &mp.cq, &mp.cq, 1, cq, l, D, D, D));
   const size_t ck = slot * B * H * DH * SE, cv = slot * B * SE * D;
   if (c.quant) {
     const size_t cs = slot * B * H * SE;
-    cross_partial_kernel<int8_t><<<dim3(c.nch, H, B), AT, 0, st>>>(
-        c.qb, static_cast<const int8_t*>(c.cross_k) + ck,
-        static_cast<const int8_t*>(c.cross_v) + cv, c.cross_k_s + cs, c.cross_v_s + cs,
-        c.part_o, c.part_ml, T, H, D, SE, c.cross_len, c.nch);
+    WM_TRY(launch_pdl(cross_partial_kernel<int8_t>, dim3(c.nch, H, B), dim3(AT), 0, 0, st,
+                      c.qb, static_cast<const int8_t*>(c.cross_k) + ck,
+                      static_cast<const int8_t*>(c.cross_v) + cv, c.cross_k_s + cs,
+                      c.cross_v_s + cs, c.part_o, c.part_ml, T, H, D, SE, c.cross_len,
+                      c.nch));
   } else {
-    cross_partial_kernel<bf16><<<dim3(c.nch, H, B), AT, 0, st>>>(
-        c.qb, static_cast<const bf16*>(c.cross_k) + ck,
-        static_cast<const bf16*>(c.cross_v) + cv, nullptr, nullptr, c.part_o, c.part_ml, T,
-        H, D, SE, c.cross_len, c.nch);
+    WM_TRY(launch_pdl(cross_partial_kernel<bf16>, dim3(c.nch, H, B), dim3(AT), 0, 0, st,
+                      c.qb, static_cast<const bf16*>(c.cross_k) + ck,
+                      static_cast<const bf16*>(c.cross_v) + cv, (const float*)nullptr,
+                      (const float*)nullptr, c.part_o, c.part_ml, T, H, D, SE, c.cross_len,
+                      c.nch));
   }
-  cross_combine_kernel<<<dim3(H, B), 256, 0, st>>>(c.part_o, c.part_ml, c.attn, T, H, D,
-                                                    c.nch);
-  SkinnyJobs co;
-  co.j[0] = job(w.co_w, w.co_b, x, EPI_BIAS_RESID, x, 1.0f, w.co_s);
-  skinny_gemm(c.attn, D, M, D, D, D, D, co, 1, 1, 0, 0, 0, st);
+  WM_TRY(launch_pdl(cross_combine_kernel, dim3(H, B), dim3(256), 0, 0, st, c.part_o,
+                    c.part_ml, c.attn, T, H, D, c.nch));
+  GemmJobs co;
+  co.j[0] = gjob(w.co_b, x, EPI_BIAS_RESID, x, 1.0f, w.co_s);
+  WM_TRY(gemm(c, c.x_attn, &mp.co, &mp.co, &mp.co, 1, co, l, D, D, D));
   // --- FFN
-  ln_rows(x, c.xa, w.ffn_ln_s, w.ffn_ln_b, M, D, st);
-  SkinnyJobs f1;
-  f1.j[0] = job(w.fc1_w, w.fc1_b, c.hb, EPI_BIAS_GELU, nullptr, 1.0f, w.fc1_s);
-  skinny_gemm(c.xa, D, M, D, F, F, F, f1, 1, 1, 0, 0, 0, st);
-  SkinnyJobs f2;
-  f2.j[0] = job(w.fc2_w, w.fc2_b, x, EPI_BIAS_RESID, x, 1.0f, w.fc2_s);
-  skinny_gemm(c.hb, F, M, F, D, D, D, f2, 1, 1, 0, 0, 0, st);
+  WM_TRY(ln_rows(x, c.xa, nullptr, w.ffn_ln_s, w.ffn_ln_b, M, D, st));
+  GemmJobs f1;
+  f1.j[0] = gjob(w.fc1_b, c.hb, EPI_BIAS_GELU, nullptr, 1.0f, w.fc1_s);
+  WM_TRY(gemm(c, c.x_xa, &mp.fc1, &mp.fc1, &mp.fc1, 1, f1, l, D, F, F));
+  GemmJobs f2;
+  f2.j[0] = gjob(w.fc2_b, x, EPI_BIAS_RESID, x, 1.0f, w.fc2_s);
+  WM_TRY(gemm(c, c.x_h, &mp.fc2, &mp.fc2, &mp.fc2, 1, f2, l, F, D, D));
+  return 0;
 }
 
 }  // namespace
@@ -582,6 +1005,7 @@ extern "C" int wm_megastep_step(void** p, const int* ints, void* stream) {
     if (!p[i]) return (int)cudaErrorInvalidValue;
   StepCtx c;
   c.B = B; c.T = T; c.D = D; c.H = H; c.F = F; c.S = S; c.SE = SE; c.M = M;
+  c.MT = (M + 15) / 16;
   c.cross_len = cross_len;
   c.nch = (cross_len + CS - 1) / CS;
   c.quant = quant;
@@ -595,6 +1019,7 @@ extern "C" int wm_megastep_step(void** p, const int* ints, void* stream) {
       cudaFuncSetAttribute(self_attn_kernel<false>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.self_smem);
   }
+  gemm_set_smem(c.MT, quant);
   auto P = [&](int i) { return static_cast<bf16*>(p[i]); };
   bf16* x = P(P_X);
   c.xa = P(P_XA); c.qb = P(P_Q); c.kb = P(P_K); c.vb = P(P_V);
@@ -609,17 +1034,25 @@ extern "C" int wm_megastep_step(void** p, const int* ints, void* stream) {
   c.offsets = static_cast<const int*>(p[P_OFFSETS]);
   c.mask = static_cast<const uint8_t*>(p[P_MASK]);
   c.st = st;
+  // Tensor maps: the GEMMs' X operands, then the streamed weights of the
+  // stack and of the block, each over its whole stack (the layer is a
+  // coordinate).
+  LayerMaps stack_maps, block_maps;
+  WM_TRY(encode_x_map(&c.x_xa, c.xa, M, D, c.MT));
+  WM_TRY(encode_x_map(&c.x_attn, c.attn, M, D, c.MT));
+  WM_TRY(encode_x_map(&c.x_h, c.hb, M, F, c.MT));
+  WM_TRY(encode_layer_maps(&stack_maps, p, P_SELF_LN_S, L, D, F, quant));
+  if (block) WM_TRY(encode_layer_maps(&block_maps, p, P_B_W0, 1, D, F, quant));
 
   for (int l = 0; l < L; ++l)
-    layer_step(layer_weights(p, P_SELF_LN_S, P_Q_S, l, D, F, quant), x, l, c);
-  ln_rows(x, P(P_HIDDEN), P(P_LN_POST_S), P(P_LN_POST_B), M, D, st);
-  if (block) {
-    // The hand-over: the block starts from ln_post's output; x keeps the
-    // main stack's pre_norm.
-    bf16* bx = P(P_BLOCK_HIDDEN);
-    cudaMemcpyAsync(bx, P(P_HIDDEN), (size_t)M * D * sizeof(bf16),
-                    cudaMemcpyDeviceToDevice, st);
-    layer_step(layer_weights(p, P_B_W0, P_B_S0, 0, D, F, quant), bx, L, c);
-  }
+    WM_TRY(layer_step(layer_weights(p, P_SELF_LN_S, P_Q_S, l, D, F, quant, &stack_maps), x,
+                      l, c));
+  // ln_post; in block mode also into the block's residual stream, which
+  // starts from ln_post's output while x keeps the main stack's pre_norm.
+  bf16* bx = block ? P(P_BLOCK_HIDDEN) : nullptr;
+  WM_TRY(ln_rows(x, P(P_HIDDEN), bx, P(P_LN_POST_S), P(P_LN_POST_B), M, D, st));
+  if (block)
+    WM_TRY(layer_step(layer_weights(p, P_B_W0, P_B_S0, 0, D, F, quant, &block_maps), bx, L,
+                      c));
   return (int)cudaGetLastError();
 }

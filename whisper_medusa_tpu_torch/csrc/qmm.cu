@@ -45,11 +45,32 @@
 // K slices spread over the whole card.
 //
 // K7 replaces whisper_medusa_tpu/ops/qmm.py::_qmm_nt_kernel (TPU, launched
-// by qmm_nt), the int8 tied-embedding projection: K3's kernel with an int8
-// loader — one CTA per 64 vocab rows (common.cuh::vocab_tile<int8_t>), rows
-// in blocks of 128, the ragged last tile (51865 = 810 x 64 + 25) zero-filled
-// on load and masked on store.  Bound on H100: bytes, the 66 MB int8
-// embedding plus M x 207 KB of f32 output.
+// by qmm_nt), the int8 tied-embedding projection of the prefill, the draft
+// heads at B >= 2 and language detection: M = 10 rows at B = 1, 80 at B = 8.
+// Bound on H100: bytes, the 66 MB int8 embedding (51865 x 1280) plus M x
+// 207 KB of f32 output (20.5 us at M = 10).  It is a weight stream:
+//
+//  * a persistent grid (as many CTAs as fit, an SM holding two to four at
+//    M <= 32) walks the 811 vocab tiles of 64 entries; one producer warp
+//    keeps a ring of 4-8 mbarrier stages in flight through TMA, each the raw
+//    int8 E tile (64 entries x 64 K, 4 KB) and the x tile of the same K
+//    chunk (ceil(M / 16) * 16 rows, rows past M zero-filled: never 128 rows
+//    for ten), 32-48 KB of E in flight an SM at M <= 32;
+//  * tensor cores from shared memory: there is no int8 x bf16 wgmma, so the
+//    consumer warpgroup converts each E tile once, exactly (|q| <= 127),
+//    into a K-major 128-byte-swizzled bf16 tile and runs wgmma with E as
+//    the 64-row A side and the x tile as its N side, N = ceil(M / 16) * 16:
+//    one m64nNk16 product a 16-deep step (MT m64n16k16 products instead read
+//    the E tile from shared memory MT times, and measured slower at M = 80
+//    on the H100).
+//    wgmma rather than mma.sync on register-converted fragments: the
+//    products run asynchronously, so the next tile's conversion overlaps
+//    them, and the conversion, ring and descriptors are K6's, already held
+//    against their plain versions on the card;
+//  * the epilogue multiplies by s[v] and writes straight from the
+//    accumulators.  Each output is one chain of products over K in order,
+//    the same instruction for every 16-row tile, so a row's bits do not
+//    depend on M (B = 8 gives each example its B = 1 drafts).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -245,21 +266,125 @@ qmm_reduce_kernel(const float* __restrict__ part, const float* __restrict__ scal
   reinterpret_cast<float4*>(y)[i] = make_float4(v.x * sc.x, v.y * sc.y, v.z * sc.z, v.w * sc.w);
 }
 
-__global__ void __launch_bounds__(VTHREADS)
-qmm_nt_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ e,
-              const float* __restrict__ s, float* __restrict__ y, int m_rows, int v_dim,
-              int d_dim) {
-  extern __shared__ __align__(128) char smem[];
-  const float* cs = reinterpret_cast<const float*>(smem + VRB * VLDS * 2 + VT * VLDS * 2);
-  const int v0 = blockIdx.x * VT;
-  for (int row0 = 0; row0 < m_rows; row0 += VRB) {
-    vocab_tile(x, m_rows, row0, e, v_dim, d_dim, v0, smem);
-    for (int i = threadIdx.x; i < VRB * VT; i += VTHREADS) {
-      const int r = i / VT, c = i % VT;
-      if (row0 + r < m_rows && v0 + c < v_dim)
-        y[(size_t)(row0 + r) * v_dim + v0 + c] = cs[r * VLDC + c] * s[v0 + c];
+// ---------------------------------------------------------------------------
+// K7: the int8 vocab projection as a weight stream
+// ---------------------------------------------------------------------------
+
+constexpr int NT_VT = 64;              // vocab rows per tile: wgmma's M side
+constexpr int NT_KC = 64;              // K a ring stage holds (QT)
+constexpr int NT_ERAW = NT_VT * NT_KC; // raw int8 E tile (64 entries x 64 K), bytes
+constexpr int NT_XT = 16 * NT_KC * 2;  // one 16-row x tile (64 K), bytes
+constexpr int NT_WBUF = 3;             // converted bf16 E tiles
+constexpr int NT_MAX_MT = 12;          // 16-row tiles a launch takes (192 rows)
+
+// Ring depth by row tiles: 8 stages (48 KB, three CTAs an SM) at one or two
+// row tiles; 3 at three to six (two CTAs an SM, measured faster at M = 80 on
+// the H100 than one CTA with 6 stages); 4 (112 KB) at seven to twelve.
+__host__ __device__ constexpr int nt_stages(int mt) { return mt <= 2 ? 8 : (mt <= 6 ? 3 : 4); }
+
+inline int nt_smem(int mt) {
+  return 1024 + nt_stages(mt) * (mt * NT_XT + NT_ERAW) + NT_WBUF * Q_WTILE +
+         16 * nt_stages(mt);
+}
+
+// Persistent grid: CTA b takes vocab tiles b, b + grid, ...; for each, the
+// 64-wide K chunks in order.  The producer warp streams (x tile, int8 E tile)
+// pairs through the ring without a break between vocab tiles; the consumer
+// warpgroup converts each E tile exactly to bf16 (K-major, 128-byte
+// swizzle), runs one m64nNk16 product per 16-deep step (A the E tile, B
+// the 16 MT-row x tile; both K-major; N = 16 MT), and at a tile's
+// last chunk writes y = sum * s[v] straight from them.  Each output's sum
+// is the same chain of products whatever M or the grid is.
+template <int MT>
+__global__ void __launch_bounds__(Q_THREADS)
+qmm_nt_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap me,
+              const float* __restrict__ scale, float* __restrict__ y, int m, int v, int chunks,
+              int tiles) {
+  constexpr int S = nt_stages(MT);
+  extern __shared__ char smem_raw[];
+  char* smem = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  char* xs = smem;                                  // S x MT x tiles of 16 rows
+  char* wb = xs + S * MT * NT_XT;                   // NT_WBUF converted tiles
+  char* eraw = wb + NT_WBUF * Q_WTILE;              // S raw int8 tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(eraw + S * NT_ERAW);
+  uint64_t* empty = full + S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mine = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int total = mine * chunks;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);
     }
-    __syncthreads();
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {   // producer
+    if (lane == 0) {
+      for (int it = 0; it < total; ++it) {
+        const int st = it % S, c = it % chunks;
+        const int tile = blockIdx.x + (it / chunks) * gridDim.x;
+        if (it >= S) mbar_wait(&empty[st], ((it / S) & 1) ^ 1);
+        mbar_arrive_tx(&full[st], MT * NT_XT + NT_ERAW);
+        tma_load_2d(xs + st * MT * NT_XT, &mx, &full[st], c * NT_KC, 0);
+        tma_load_2d(eraw + st * NT_ERAW, &me, &full[st], c * NT_KC, tile * NT_VT);
+      }
+    }
+    return;
+  }
+
+  float acc[MT * 8];
+  int pend = -1;
+  for (int it = 0; it < total; ++it) {
+    const int st = it % S, c = it % chunks;
+    mbar_wait(&full[st], (it / S) & 1);
+    // int8 (v, k) rows of 64 bytes -> bf16 rows of 128 bytes, chunk j of row
+    // v stored at chunk j ^ (v % 8) (the 128-byte swizzle).
+    char* wt = wb + (it % NT_WBUF) * Q_WTILE;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int idx = threadIdx.x + 128 * h, vr = idx >> 2, q = idx & 3;
+      const uint4 raw = *reinterpret_cast<const uint4*>(eraw + st * NT_ERAW + vr * 64 + q * 16);
+      char* rowp = wt + vr * 128;
+      *reinterpret_cast<uint4*>(rowp + (((2 * q) ^ (vr & 7)) * 16)) =
+          i8x8_to_bf16(make_uint2(raw.x, raw.y));
+      *reinterpret_cast<uint4*>(rowp + (((2 * q + 1) ^ (vr & 7)) * 16)) =
+          i8x8_to_bf16(make_uint2(raw.z, raw.w));
+    }
+    fence_proxy_async();
+    named_sync(1, 128);
+    const uint64_t adesc = sw128_desc(smem_addr(wt));
+    const uint64_t bdesc = sw128_desc(smem_addr(xs + st * MT * NT_XT));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NT_KC / 16; ++kk)
+      WgmmaN<MT, 0, 0>::run(acc, adesc + 2 * kk, bdesc + 2 * kk, c > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (lane == 0 && pend >= 0) mbar_arrive(&empty[pend]);
+    pend = st;
+    if (c == chunks - 1) {     // the tile's sums are complete: write them
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&empty[pend]);
+      pend = -1;
+      reg_fence(acc);
+      // Element i of tile t: vocab row v0 + 16 warp + lane / 4 (+ 8), x row
+      // 16 t + 8 (i / 4) + 2 (lane % 4) + i % 2.
+      const int va = (blockIdx.x + (it / chunks) * gridDim.x) * NT_VT + 16 * warp + (lane >> 2);
+      const float sa = va < v ? scale[va] : 0.0f;
+      const float sb = va + 8 < v ? scale[va + 8] : 0.0f;
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int row = 16 * t + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          const int col = va + ((i & 2) ? 8 : 0);
+          if (row < m && col < v) y[(size_t)row * v + col] = acc[8 * t + i] * ((i & 2) ? sb : sa);
+        }
+    }
   }
 }
 
@@ -322,15 +447,60 @@ extern "C" int wm_qmm(const void* x, const void* wq, const void* s, void* y, voi
   return (int)cudaGetLastError();
 }
 
-// x (m, d) bf16, e (v, d) int8, s (v,) f32 -> y (m, v) f32; d % 64 == 0.
+// x (m, d) bf16, m <= 192, e (v, d) int8, s (v,) f32 -> y (m, v) f32; d % 64
+// == 0; x and e 16-byte aligned (the tensor-map encoder refuses another
+// address: the entry then returns TENSOR_MAP_ERROR + its error).  The vocab
+// tiles (ceil(v / 64)) and K chunks (d / 64) come from the shapes alone
+// (ops/qmm.py::nt_plan); the grid (CTAs an SM times the SMs) changes no sum.
 extern "C" int wm_qmm_nt(const void* x, const void* e, const void* s, void* y, int m,
                          int v, int d, void* stream) {
   using namespace wm;
-  if (m < 1 || d % VKC) return (int)cudaErrorInvalidValue;
+  if (m < 1 || m > 16 * NT_MAX_MT || v < 1 || d < NT_KC || d % NT_KC)
+    return (int)cudaErrorInvalidValue;
+  const int mt = (m + 15) / 16, tiles = (v + NT_VT - 1) / NT_VT;
+  const cuuint64_t xdims[2] = {(cuuint64_t)d, (cuuint64_t)m};
+  const cuuint64_t xstrides[1] = {(cuuint64_t)d * sizeof(bf16)};
+  const cuuint32_t xbox[2] = {QT, (cuuint32_t)(16 * mt)};
+  const cuuint64_t edims[2] = {(cuuint64_t)d, (cuuint64_t)v};
+  const cuuint64_t estrides[1] = {(cuuint64_t)d};
+  const cuuint32_t ebox[2] = {NT_KC, NT_VT};
+  CUtensorMap mx, me;
+  int err = encode_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xdims, xstrides, xbox,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = encode_map(&me, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, e, edims, estrides, ebox,
+                     CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  // The grid: as many CTAs as fit on the card, found once per device and row
+  // tiles (the occupancy query costs host time on every call otherwise).
+  constexpr int MAX_DEV = 16;
+  static int fits[MAX_DEV][NT_MAX_MT + 1] = {};
+  if (dev >= MAX_DEV) return (int)cudaErrorInvalidDevice;
+  const int smem = nt_smem(mt);
   // Per launch: the attribute belongs to the current device's context.
-  cudaFuncSetAttribute(qmm_nt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       VOCAB_SMEM);
-  qmm_nt_kernel<<<(v + VT - 1) / VT, VTHREADS, VOCAB_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const int8_t*)e, (const float*)s, (float*)y, m, v, d);
+#define WM_NT(MT)                                                                        \
+  case MT: {                                                                             \
+    cudaFuncSetAttribute(qmm_nt_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                         smem);                                                          \
+    if (fits[dev][MT] == 0) {                                                            \
+      int sms = 0, per_sm = 0;                                                           \
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);                 \
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qmm_nt_kernel<MT>,         \
+                                                    Q_THREADS, smem);                    \
+      fits[dev][MT] = (per_sm > 1 ? per_sm : 1) * sms;                                   \
+    }                                                                                    \
+    const int grid = tiles < fits[dev][MT] ? tiles : fits[dev][MT];                      \
+    qmm_nt_kernel<MT><<<grid, Q_THREADS, smem, (cudaStream_t)stream>>>(                  \
+        mx, me, (const float*)s, (float*)y, m, v, d / NT_KC, tiles);                     \
+    break;                                                                               \
+  }
+  switch (mt) {
+    WM_NT(1) WM_NT(2) WM_NT(3) WM_NT(4) WM_NT(5) WM_NT(6)
+    WM_NT(7) WM_NT(8) WM_NT(9) WM_NT(10) WM_NT(11) WM_NT(12)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef WM_NT
   return (int)cudaGetLastError();
 }

@@ -138,8 +138,10 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
         heads_w = qmm_mod.wmap(hw, lambda a: a[:, 0])
         heads_b = medusa_params["heads"]["b"][:, 0]
         draft_params = _head_slice(medusa_params, first_head, None)
-    # The JAX package's auto rule: two passes at B >= 2, one K4 pass at B = 1.
-    two_pass = not vanilla and b >= 2
+    # The JAX package's auto rule: two passes at B >= 2, one K4 pass at B = 1
+    # where K4 takes the rows (verify.hidden_available), else two passes.
+    two_pass = not vanilla and (b >= 2 or not verify_mod.hidden_available(
+        b, n_nodes, shape[0], block is not None, vocab, dims.d_model))
     kp1 = 1 if vanilla or two_pass else num_heads + 1
 
     tree_idx = torch.as_tensor(buffers.tree_indices, dtype=torch.long, device=dev)

@@ -16,7 +16,11 @@ code the same way:
   2. one K2 call (all 32 decoder layers) at (B, T) in (1, 11), (8, 1) and
      (8, 11), bf16 and int8, and the same with the Medusa-Block layer (K2's
      block mode): device time per call by kernel (torch.profiler), beside
-     the CUDA-event time of the call;
+     the CUDA-event time of the call, the C entry's host time (CPU clock
+     around the ctypes call, no synchronize), the projections' (the
+     weight-streaming GEMM's) share and the kernels' durations added up
+     (above the busy time by as much as programmatic dependent launch
+     overlaps them);
   3. one verification step at B=8 on the 11-node chain: the loop's two
      passes (K5 over the head-0 rows, then the draft heads through K3)
      against one pass of every (head, node) row through K5 (R = 968);
@@ -42,7 +46,10 @@ code the same way:
      Medusa int8, Medusa-Block bf16).
 
 Kernels are listed by name without their template arguments, so PyTorch's
-elementwise kernels of one kind share a line.  The Medusa heads, and the
+elementwise kernels of one kind share a line.  A kernel's device time is
+its share of the device's busy time (``_by_kernel``): K2's kernels start
+early under programmatic dependent launch and wait for the previous one,
+and only the stretch past the previous kernels' end counts as theirs.  The Medusa heads, and the
 Medusa-Block model (``models/bridge.py::random_block_model``), are drawn as
 ``chip_smoke.py`` draws them.
 """
@@ -50,8 +57,11 @@ Medusa-Block model (``models/bridge.py::random_block_model``), are drawn as
 from __future__ import annotations
 
 import collections
+import json
+import os
 import re
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -73,24 +83,86 @@ def _short(name: str) -> str:
     return re.split(r"[<(]", name.removeprefix("void "), maxsplit=1)[0][:70]
 
 
-def _by_kernel(fn, reps: int = 1):
-    """Run ``fn`` ``reps`` times under torch.profiler (CUDA activity only);
-    {kernel: (us per run, launches per run)}."""
+def _device_events(fn, reps: int = 1):
+    """(name, start us, end us) of every kernel, memcpy and memset that
+    ``reps`` runs of ``fn`` put on the card, in start order (torch.profiler,
+    CUDA activity only, read from its trace)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    acc = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.key_averages():
-        dt = getattr(e, "self_device_time_total", None)
-        if dt is None:
-            dt = e.self_cuda_time_total
-        if dt > 0:
-            k = acc[_short(e.key)]
-            k[0] += dt / reps
-            k[1] += e.count / reps
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    out = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+           for e in events
+           if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return sorted(out, key=lambda e: e[1])
+
+
+def _by_kernel(fn, reps: int = 1):
+    """Run ``fn`` ``reps`` times under torch.profiler; {kernel: (us per run,
+    launches per run)}: each kernel's share of the device's busy time, the
+    stretch by which it extends the union of the intervals of the kernels
+    that started before it.  A kernel that overlaps no other gets its
+    duration; under programmatic dependent launch (K2's step) a kernel
+    starts before the previous one ends and waits for it, and only what it
+    runs past the previous kernels' end is its own.  The values add up to
+    the time the device was busy."""
+    acc = collections.defaultdict(lambda: [0.0, 0.0])
+    last = None
+    for name, t0, t1 in _device_events(fn, reps):
+        k = acc[_short(name)]
+        k[0] += max(0.0, t1 - (t0 if last is None else max(t0, last))) / reps
+        k[1] += 1.0 / reps
+        last = t1 if last is None else max(last, t1)
     return dict(acc)
+
+
+def _overlap_ms(fn, reps: int = 1):
+    """(the kernels' durations added up, the device's busy time), ms per run
+    of ``fn``: the first exceeds the second by the time kernels spent
+    running beside the one before them (programmatic dependent launch: a
+    kernel's CTAs start early and wait)."""
+    events = _device_events(fn, reps)
+    total = sum(t1 - t0 for _, t0, t1 in events)
+    busy, last = 0.0, None
+    for _, t0, t1 in events:
+        busy += max(0.0, t1 - (t0 if last is None else max(t0, last)))
+        last = t1 if last is None else max(last, t1)
+    return total / reps / 1e3, busy / reps / 1e3
+
+
+def _entry_host_ms(run, entry: str, iters: int = 10, lib=None) -> float:
+    """Median host milliseconds of the ctypes call of C entry ``entry`` in
+    ``run()`` (CPU clock around ``launch`` of ``lib``, by default
+    ``ops/cuda_lib.py``, no synchronize): the time the host takes to issue
+    the entry's launches."""
+    if lib is None:
+        from whisper_medusa_tpu_torch.ops import cuda_lib as lib
+    cuda_lib = lib
+    times, orig = [], cuda_lib.launch
+
+    def timed(name, *args):
+        t0 = time.perf_counter()
+        orig(name, *args)
+        if name == entry:
+            times.append((time.perf_counter() - t0) * 1e3)
+
+    cuda_lib.launch = timed
+    try:
+        for _ in range(iters):
+            run()
+            torch.cuda.synchronize()
+    finally:
+        cuda_lib.launch = orig
+    return float(np.median(times))
 
 
 def _table(title, rows, extra=""):
@@ -158,8 +230,14 @@ def profile_megastep(model, mode, block=None):
                                          cross_v_s=cache.cross_v_s, self_s=cache.self_s,
                                          block=block)
         ms = _cuda_ms(run)
-        _table(f"K2 {mode}, {what}, B={b} T={t}, per call",
-               _by_kernel(run, 5), f" (CUDA events: {ms:.4f} ms per call)")
+        rows = _by_kernel(run, 5)
+        gemm = sum(us for k, (us, _) in rows.items() if k.startswith("wgemm_kernel"))
+        durations, busy = _overlap_ms(run, 5)
+        _table(f"K2 {mode}, {what}, B={b} T={t}, per call", rows,
+               f" (CUDA events: {ms:.4f} ms per call; the C entry's host time "
+               f"{_entry_host_ms(run, 'wm_megastep_step'):.4f} ms; the projections "
+               f"{gemm / 1e3:.4f} ms of device time; kernel durations add up to "
+               f"{durations:.4f} ms in {busy:.4f} ms of busy time)")
         del cache
 
 

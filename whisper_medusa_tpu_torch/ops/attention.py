@@ -27,10 +27,12 @@ each query row's f32 log-sum-exp when asked (``return_lse=True``); a row pass
 computes Dsum = dO . O from the forward's output; one kernel per (batch,
 head, 128-key block) recomputes P from the log-sum-exp and runs the five
 products on the tensor cores (``mma.sync`` from registers, ``cp.async`` tile
-ring), adding dQ into an f32 accumulator with float4 atomics; a cast pass
-rounds dQ.  dK and dV are written once and are bitwise deterministic; dQ is
-summed in f32 with atomics in an order that changes from run to run, so its
-last bits may differ between two runs on the same inputs.  :class:`AttentionFn` ties the two together for autograd: on CUDA
+ring), storing each key block's f32 dQ partial (one slot per 128 keys:
+(ceil(Skv / 128), B, H, Sq, 64) f32 of scratch, 184 MB at the encoder's
+(2, 20, 1500^2)); a cast pass adds the partials in key-block order and
+rounds dQ.  dK and dV are written once and dQ is one fixed-order sum, so all
+three are bitwise the same from run to run, as the JAX kernel's (no
+atomics).  :class:`AttentionFn` ties the two together for autograd: on CUDA
 its forward saves O and the log-sum-exp for the backward; serving never
 builds a graph and calls K1 without the log-sum-exp as before.
 """
@@ -45,6 +47,8 @@ import torch
 from whisper_medusa_tpu_torch.ops import cuda_lib
 
 NEG_BIG = -0.7 * torch.finfo(torch.float32).max
+
+BWD_KEYS = 128   # keys of one K9 CTA (csrc/attention.cu BKB): one dQ partial each
 
 launches = 0     # K1 launches (not plain-version calls)
 launches_bwd = collections.Counter()   # K9 launches by (Sq, Skv, causal)
@@ -169,13 +173,15 @@ def attention_bwd_kernel(q, k, v, g, kv_len: int, causal: bool, o=None, lse=None
         raise ValueError(f"attention_bwd: O {tuple(o.shape)} and LSE {tuple(lse.shape)} "
                          f"do not match q {tuple(q.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # Scratch: Dsum = dO . O per row, and the f32 dQ that the key blocks add into.
+    # Scratch: Dsum = dO . O per row, and one f32 dQ partial per 128-key block
+    # (csrc/attention.cu BKB), added in key-block order by the cast pass.
     dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    dq_acc = torch.empty((b, h, sq, dh), dtype=torch.float32, device=q.device)
+    dq_part = torch.empty((-(-skv // BWD_KEYS), b, h, sq, dh), dtype=torch.float32,
+                          device=q.device)
     cuda_lib.launch("wm_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), o.data_ptr(), lse.data_ptr(), g.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
-                    dq_acc.data_ptr(), b, h, sq, skv, dh, kv_len, int(causal))
+                    dq_part.data_ptr(), b, h, sq, skv, dh, kv_len, int(causal))
     launches_bwd[(sq, skv, bool(causal))] += 1
     return dq, dk, dv
 

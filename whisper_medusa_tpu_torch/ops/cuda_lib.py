@@ -60,7 +60,7 @@ _SIGNATURES = {
     "wm_qmm_nt": [_vp] * 4 + [_ci] * 3 + [_vp],
     "wm_log_mel": [_vp] * 7 + [_ci] * 4 + [_vp],
     "wm_cross_decode": [_vp] * 6 + [_ci] * 5 + [_vp],
-    "wm_self_decode": [_vp] * 6 + [_ci] * 4 + [_vp],
+    "wm_self_decode": [_vp] * 6 + [_ci] * 5 + [_vp],
     "wm_ffn_decode": [_vp] * 7 + [_ci] * 3 + [_vp],
 }
 

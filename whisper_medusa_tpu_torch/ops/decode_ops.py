@@ -26,7 +26,10 @@ order that depends on S only, so an example's bits do not depend on the
 batch.  int8 mode: scores times ``k_s`` before the max, probabilities times
 ``v_s`` before the bf16 rounding, the denominator unscaled.  Bound by
 bytes: at large-v2 a call reads B x 7.68 MB of bf16 cross K/V (half that in
-int8).
+int8).  A launch takes T <= 16 queries (one m16 tile); the wrappers send a
+longer chunk (a chain of 16 or more heads) in 16-row blocks, one launch
+each on the same K/V (:func:`cross_attention_blocked`,
+:func:`self_attention_blocked`).
 
 K10's mask mode, ``csrc/decode_ops.cu::wm_self_decode``, is the per-op
 step's self-attention on the card (``models/whisper.py::decoder_layer_ops``):
@@ -35,7 +38,10 @@ offsets and the chunk mask of ``models/whisper.py::make_step_mask`` in
 place of ``kv_len``; keys at or past ``offsets[b] + T`` are neither read nor
 counted, and the key slices come from ``max_len`` alone.  Its plain version
 is ``models/whisper.py::attention`` with ``make_step_mask``
-(:func:`self_attention_decode_plain`), which the step runs on the CPU.
+(:func:`self_attention_decode_plain`), which the step runs on the CPU; a
+16-row block of a longer chunk keeps its own rows of chunk bits over all T
+columns at the same offsets (:func:`self_attention_block_plain` is one
+launch's function), T <= 32 (a row of bits is one int32).
 
 K11 replaces ``tools/decode_kernels_experiment.py::_ffn_kernel`` (launched
 by ``_ffn_pallas``), whose grid walks F / 512 column blocks sequentially
@@ -65,7 +71,8 @@ from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
 
 NEG_BIG = -0.7 * torch.finfo(torch.float32).max
 HEAD_DIM = 64            # csrc/decode_ops.cu CD_DH
-MAX_T = 16               # csrc/decode_ops.cu CD_MAXT
+MAX_T = 16               # csrc/decode_ops.cu CD_MAXT: query rows of one launch
+MAX_CHUNK_BITS = 32      # a chunk-bit row is one int32: the mask mode's widest chunk
 FFN_ROWS = 128           # csrc/common.cuh SK_MAX_ROWS: K11's rows per block
 CLUSTER_KEYS = 192       # csrc/decode_ops.cu CD_KEYS: keys a CTA takes before C grows
 MAX_CLUSTER = 8          # csrc/decode_ops.cu CD_MAXC
@@ -129,35 +136,89 @@ def self_attention_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return whisper.attention(q, split(k), split(v), mask)
 
 
+def self_attention_block_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               offsets: torch.Tensor, bits: torch.Tensor,
+                               t_chunk: int) -> torch.Tensor:
+    """The function of one K10 mask-mode launch: q (B, Tb, H, Dh), a block
+    of a chunk's query rows, pre-scaled; ``bits`` (Tb,) those rows' chunk
+    bits over the chunk's ``t_chunk`` columns; key j is visible to a row iff
+    j < offsets[b], or 0 <= j - offsets[b] < t_chunk and its bit is set."""
+    from whisper_medusa_tpu_torch.models import whisper
+
+    b, t, h, dh = q.shape
+    key = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+    rel = key - offsets.to(q.device)[:, None, None, None].long()
+    bit = (bits.to(device=q.device, dtype=torch.int64)[None, None, :, None]
+           >> rel.clamp(0, t_chunk - 1)) & 1
+    mask = (rel < 0) | ((rel < t_chunk) & (bit == 1))
+    split = lambda x: x.reshape(b, x.shape[1], h, dh)
+    return whisper.attention(q, split(k), split(v), mask)
+
+
+def row_blocks(t: int):
+    """The (first row, rows) of each launch of a T-row chunk: 16-row blocks."""
+    return [(r0, min(MAX_T, t - r0)) for r0 in range(0, t, MAX_T)]
+
+
+def cross_attention_blocked(q: torch.Tensor, block_fn) -> torch.Tensor:
+    """Cross-attention of q (B, H, T, Dh) as ``block_fn(q_block)`` over
+    16-row blocks of T (the rows are independent), concatenated."""
+    t = q.shape[2]
+    if t <= MAX_T:
+        return block_fn(q)
+    return torch.cat([block_fn(q[:, :, r0:r0 + n].contiguous()) for r0, n in row_blocks(t)],
+                     dim=2)
+
+
+def self_attention_blocked(q: torch.Tensor, bits: torch.Tensor, block_fn) -> torch.Tensor:
+    """The mask mode over q (B, T, H, Dh) as ``block_fn(q_block, bits_block,
+    T)`` over 16-row blocks of T: each block keeps its own rows of chunk bits
+    over all T chunk columns, at the same offsets."""
+    t = q.shape[1]
+    if t <= MAX_T:
+        return block_fn(q, bits, t)
+    return torch.cat([block_fn(q[:, r0:r0 + n].contiguous(), bits[r0:r0 + n].contiguous(), t)
+                      for r0, n in row_blocks(t)], dim=1)
+
+
 _CAUSAL_BITS = {}
+
+
+def _as_int32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) as the int32 of the same 32 bits."""
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
 
 
 def chunk_bits(chunk_mask: Optional[torch.Tensor], t: int, device) -> torch.Tensor:
     """(T,) int32 rows of a (T, T) chunk mask as bits (bit j of row i: query
     i sees chunk key j), K10's mask-mode operand; ``None`` is the causal
     mask.  A given mask must have its diagonal set (every query sees
-    itself), so that no query row is left without a key."""
+    itself), so that no query row is left without a key.  A row is one
+    int32: T <= 32."""
+    if t > MAX_CHUNK_BITS:
+        raise ValueError(
+            f"K10's mask mode packs a chunk-mask row into one int32: T <= "
+            f"{MAX_CHUNK_BITS}, got T = {t} (wider chunks: ROADMAP queue 1, item 14)")
     device = torch.device(device)
     if chunk_mask is None:
         key = (t, device)
         if key not in _CAUSAL_BITS:
-            _CAUSAL_BITS[key] = torch.tensor([(1 << (i + 1)) - 1 for i in range(t)],
-                                             dtype=torch.int32, device=device)
+            rows = torch.tensor([(1 << (i + 1)) - 1 for i in range(t)], dtype=torch.int64)
+            _CAUSAL_BITS[key] = _as_int32_bits(rows).to(device)
         return _CAUSAL_BITS[key]
     if chunk_mask.shape != (t, t) or not bool(chunk_mask.diagonal().all()):
         raise ValueError(f"K10's mask mode takes a ({t}, {t}) chunk mask with its "
                          "diagonal set")
-    weights = 1 << torch.arange(t, device=chunk_mask.device, dtype=torch.int32)
-    return (chunk_mask.to(torch.int32) * weights).sum(1).to(device=device,
-                                                           dtype=torch.int32)
+    weights = 1 << torch.arange(t, device=chunk_mask.device, dtype=torch.int64)
+    return _as_int32_bits((chunk_mask.to(torch.int64) * weights).sum(1)).to(device)
 
 
 def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   kv_len: int, k_s=None, v_s=None) -> torch.Tensor:
-    """Launch K10: q (B, H, T <= 16, 64) bf16; k (B, H, 64, S) and v (B, S,
-    H * 64) bf16, or int8 with f32 (B, H, S) scales ``k_s`` and ``v_s``;
-    S % 4 == 0, 1 <= kv_len <= S -> (B, H, T, 64) bf16."""
-    global cross_launches, q_cross_launches
+    """Launch K10: q (B, H, T, 64) bf16; k (B, H, 64, S) and v (B, S, H * 64)
+    bf16, or int8 with f32 (B, H, S) scales ``k_s`` and ``v_s``; S % 4 == 0,
+    1 <= kv_len <= S -> (B, H, T, 64) bf16.  One launch takes 16 query rows:
+    past T = 16 the rows go in 16-row blocks, one launch each."""
     b, h, t, dh = q.shape
     s = k.shape[3]
     quant = k_s is not None
@@ -171,49 +232,62 @@ def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
                               device=q.device)
         if k_s.shape != (b, h, s) or v_s.shape != (b, h, s):
             raise ValueError("cross_attention_decode kernel: scales must be (B, H, S)")
-    if (dh != HEAD_DIM or not 1 <= t <= MAX_T or k.shape != (b, h, dh, s)
+    if (dh != HEAD_DIM or t < 1 or k.shape != (b, h, dh, s)
             or v.shape != (b, s, h * dh) or s % 4 or not 1 <= kv_len <= s
             or cluster_split(s)[1] > MAX_SLICE):
         raise ValueError(
-            f"cross_attention_decode kernel takes q (B, H, T <= {MAX_T}, {HEAD_DIM}), K "
+            f"cross_attention_decode kernel takes q (B, H, T, {HEAD_DIM}), K "
             f"(B, H, {HEAD_DIM}, S), V (B, S, H*{HEAD_DIM}), S % 4 == 0, "
             f"S <= {MAX_CLUSTER * MAX_SLICE}, 1 <= kv_len <= S; got q {tuple(q.shape)}, "
             f"k {tuple(k.shape)}, v {tuple(v.shape)}, kv_len {kv_len}")
-    out = torch.empty_like(q)
-    cuda_lib.launch("wm_cross_decode", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    k_s.data_ptr() if quant else None, v_s.data_ptr() if quant else None,
-                    out.data_ptr(), b, h, t, s, kv_len)
-    if quant:
-        q_cross_launches += 1
-    else:
-        cross_launches += 1
-    return out
+
+    def launch(qb):
+        global cross_launches, q_cross_launches
+        out = torch.empty_like(qb)
+        cuda_lib.launch("wm_cross_decode", q.device, qb.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), k_s.data_ptr() if quant else None,
+                        v_s.data_ptr() if quant else None, out.data_ptr(), b, h,
+                        qb.shape[2], s, kv_len)
+        if quant:
+            q_cross_launches += 1
+        else:
+            cross_launches += 1
+        return out
+
+    return cross_attention_blocked(q, launch)
 
 
 def self_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  offsets: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """Launch K10's mask mode: q (B, T <= 16, H, 64) bf16, pre-scaled; k, v
+    """Launch K10's mask mode: q (B, T <= 32, H, 64) bf16, pre-scaled; k, v
     (B, max_len, H * 64) bf16 self slabs; ``offsets`` (B,) int32; ``bits``
-    (T,) int32 (:func:`chunk_bits`) -> (B, T, H, 64) bf16."""
-    global self_launches
+    (T,) int32 (:func:`chunk_bits`) -> (B, T, H, 64) bf16.  Past T = 16 the
+    rows go in 16-row blocks, one launch each, every block over the whole
+    chunk's T columns."""
     b, t, h, dh = q.shape
     cuda_lib.require_cuda("self_attention_decode", q, k, v)
     cuda_lib.require_cuda("self_attention_decode", offsets, bits, dtype=torch.int32,
                           device=q.device, aligned=False)
     s = k.shape[1]
-    if (dh != HEAD_DIM or not 1 <= t <= MAX_T or k.shape != (b, s, h * dh)
+    if (dh != HEAD_DIM or not 1 <= t <= MAX_CHUNK_BITS or k.shape != (b, s, h * dh)
             or v.shape != k.shape or s < t or cluster_split(s)[1] > MAX_SLICE
             or offsets.shape != (b,) or bits.shape != (t,)):
         raise ValueError(
-            f"self_attention_decode kernel takes q (B, T <= {MAX_T}, H, {HEAD_DIM}), K "
-            f"and V (B, T <= S <= {MAX_CLUSTER * MAX_SLICE}, H*{HEAD_DIM}), offsets (B,) "
-            f"and bits (T,); got q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"self_attention_decode kernel takes q (B, T <= {MAX_CHUNK_BITS}, H, "
+            f"{HEAD_DIM}), K and V (B, T <= S <= {MAX_CLUSTER * MAX_SLICE}, H*{HEAD_DIM}), "
+            f"offsets (B,) and bits (T,); got q {tuple(q.shape)}, k {tuple(k.shape)}, v "
             f"{tuple(v.shape)}, offsets {tuple(offsets.shape)}, bits {tuple(bits.shape)}")
-    out = torch.empty_like(q)
-    cuda_lib.launch("wm_self_decode", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    offsets.data_ptr(), bits.data_ptr(), out.data_ptr(), b, h, t, s)
-    self_launches += 1
-    return out
+
+    def launch(qb, bb, t_chunk):
+        global self_launches
+        out = torch.empty_like(qb)
+        cuda_lib.launch("wm_self_decode", q.device, qb.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), offsets.data_ptr(), bb.data_ptr(), out.data_ptr(), b,
+                        h, qb.shape[1], s, t_chunk)
+        self_launches += 1
+        return out
+
+    return self_attention_blocked(q, bits, launch)
 
 
 def ffn_decode_kernel(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,

@@ -7,23 +7,30 @@ state stays resident.
 
 The Hopper version (``csrc/megastep.cu``) is one C entry, ``wm_megastep_step``,
 that launches twelve small kernels per layer on the current stream — layernorm,
-a skinny tensor-core GEMM for q/k/v (and o, cross q/o, fc1, fc2) with fused
+a weight-streaming GEMM for q/k/v (and o, cross q/o, fc1, fc2) with fused
 bias / scale / GELU / residual epilogues, self-attention with the in-place
 K/V commit, and cross-attention split over 128-key chunks plus a combine —
 so Python makes one ctypes call per decode step; the entry ends with the
 final layer norm (``ln_post``) into a second buffer.  It is bound by bytes:
 at large-v2 a step reads 1.47 GB of bf16 weights whatever B is, and
-B x 246 MB of cross K/V (counted from the shapes).  The skinny GEMM reads each
-weight once per step for all B*T rows, with the whole matrix in flight;
-splitting cross-attention over the keys spreads a step over 240 x B CTAs.
-Every kernel's per-row arithmetic is independent of B*T, so an example
-decodes to the same bits alone or in a batch of eight.
+B x 246 MB of cross K/V (counted from the shapes).  The GEMM computes
+Y^T = W^T X^T on ``wgmma``: a CTA streams 64 weight columns of one K slice
+through a TMA ring (the weight tile wgmma's 64-row side, the chunk's rows,
+rounded up to 16, its N side), the K slices of a column tile
+are one thread-block cluster whose partials are added in rank order
+through distributed shared memory (:func:`gemm_slices`: from (K, N, jobs)
+alone, enough slices for the 132 SMs), and every kernel of the step is
+launched with programmatic dependent launch, so a GEMM's first weight
+tiles load while the kernels before it finish.  Splitting cross-attention
+over the keys spreads a step over 240 x B CTAs.  Every kernel's per-row
+arithmetic is independent of B*T, so an example decodes to the same bits
+alone or in a batch of eight.
 
 int8 serving (the JAX kernel's ``quant`` / ``kv_quant`` / ``skv_quant``
 mode) is a mode of the same entry: the eight streamed weights are int8 with
-f32 per-column scales (W8A16: the skinny GEMM converts each 16x16 int8
-fragment to bf16 through shared memory, multiplies the f32 sum by the
-column's scale before the bias), the cross K/V are int8 with f32 per-(head,
+f32 per-column scales (W8A16: the GEMM converts each int8 weight tile
+exactly to bf16 in shared memory and multiplies the f32 sum by the column's
+scale before the bias), the cross K/V are int8 with f32 per-(head,
 position) scales (scores times the K scale before the softmax,
 probabilities times the V scale before the PV product), and the self slabs
 are int8 with bf16 per-(position, head) scales: the commit quantizes each
@@ -67,6 +74,9 @@ MAX_B = 8
 MAX_T = 16               # csrc/megastep.cu MAXT
 MAX_ROWS = 128           # csrc/common.cuh SK_MAX_ROWS
 CROSS_CHUNK = 128        # csrc/megastep.cu CS
+GEMM_TILE = 64           # csrc/megastep.cu G_TILE: weight columns a CTA, K chunk
+GEMM_CTAS = 132          # csrc/megastep.cu G_CTAS: the CTAs a projection aims for
+GEMM_MAX_SLICES = 8      # csrc/megastep.cu G_MAX_SLICES: one portable cluster
 SMEM_MAX = 227 * 1024    # an H100 CTA's shared memory
 
 launches = 0            # bf16 mode
@@ -85,6 +95,27 @@ _WEIGHTS = (("self_ln", "scale"), ("self_ln", "bias"), ("self", "q_w"),
 # The streamed weights, in the order of their scale slots (P_Q_S ... P_FC2_S).
 _QUANT = (("self", "q_w"), ("self", "k_w"), ("self", "v_w"), ("self", "o_w"),
           ("cross", "q_w"), ("cross", "o_w"), ("fc1_w",), ("fc2_w",))
+
+def gemm_slices(k: int, n: int, jobs: int = 1) -> int:
+    """K slices of one K2 projection (csrc/megastep.cu ``gemm_slices``):
+    enough for ``GEMM_CTAS`` CTAs over the (N / 64) x jobs column tiles, at
+    most a cluster's 8 and one per 64-wide K chunk.  It reads K, N and the
+    job count only, never the rows."""
+    chunks, tiles = k // GEMM_TILE, jobs * (n // GEMM_TILE)
+    return max(1, min(-(-GEMM_CTAS // tiles), GEMM_MAX_SLICES, chunks))
+
+
+def gemm_plan(m: int, k: int, n: int, jobs: int = 1):
+    """The K2 GEMM's plan at M rows: (slices, the 64-wide K chunks
+    [begin, end) of each slice, the 16-row tiles of the rows).  Each
+    output's sum — its slices, their chunks and their order — comes from
+    (K, N, jobs) alone; only the number of 16-row tiles follows M."""
+    slices = gemm_slices(k, n, jobs)
+    chunks = k // GEMM_TILE
+    base, extra = divmod(chunks, slices)
+    begin = [i * base + min(i, extra) for i in range(slices + 1)]
+    return slices, list(zip(begin[:-1], begin[1:])), -(-m // 16)
+
 
 def _leaf(tree, path):
     for k in path:

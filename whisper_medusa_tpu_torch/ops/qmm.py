@@ -27,10 +27,16 @@ the weight stream.
 
 K7 replaces ``_qmm_nt_kernel`` (``qmm_nt``): ``(bf16(x) @ bf16(wq)^T) * s``
 for the int8 tied embedding (V, D), the vocab projection of the prefill, the
-draft heads at B >= 2 and ``detect_language``.  ``csrc/qmm.cu::wm_qmm_nt``:
-one CTA per 64 vocab rows (``common.cuh::vocab_tile`` with an int8 loader),
-zero-filled past the last row.  Bound by bytes: the 66 MB int8 embedding
-plus the f32 output.
+draft heads at B >= 2 and ``detect_language``.  ``csrc/qmm.cu::wm_qmm_nt``
+is a weight stream: a persistent grid walks the 64-entry vocab tiles, a
+producer warp keeps a TMA ring of int8 E tiles and the matching
+``ceil(M / 16) * 16``-row x tiles in flight, a consumer warpgroup converts
+each E tile exactly to bf16 in shared memory and runs ``wgmma`` (E the
+64-row side, the rows rounded up to 16 its N side), and the epilogue
+writes ``sum * s[v]`` from the accumulators.  The tiles and K chunks come
+from (V, D) alone (:func:`nt_plan`), and every x tile runs the same
+instruction, so a row's bits do not depend on M.  Bound by bytes: the 66 MB
+int8 embedding plus the f32 output.
 
 Both wrappers cast ``x`` to bf16 first, as the JAX functions do; CUDA
 tensors then launch the kernel, CPU tensors take the plain version.
@@ -47,7 +53,8 @@ from whisper_medusa_tpu_torch.ops import cuda_lib
 Params = Dict[str, Any]
 
 TILE = 64                # csrc/qmm.cu QT, csrc/common.cuh VT
-MAX_NT_ROWS = 192        # rows per K7 launch, as K3 (ops/logits.py MAX_M)
+MAX_NT_ROWS = 192        # rows per K7 launch (csrc/qmm.cu NT_MAX_MT x 16), as K3
+NT_CHUNK = 64            # K7's K chunk (csrc/qmm.cu NT_KC): D % 64 == 0
 
 launches = 0             # K6 (wm_qmm) launches
 nt_launches = 0          # K7 (wm_qmm_nt) launches
@@ -94,6 +101,19 @@ def _check_weight(name, x, wq, scale, n):
         raise ValueError(f"{name}: scales must be ({n},), got {tuple(scale.shape)}")
 
 
+def nt_plan(m: int, v: int, d: int) -> Dict[str, int]:
+    """K7's tiling at (M, V, D) (csrc/qmm.cu ``wm_qmm_nt``): ``tiles``
+    64-entry vocab tiles, each summed over ``chunks`` 64-wide K chunks in
+    order, for every launch of up to ``MAX_NT_ROWS`` rows; ``row_tiles``
+    16-row x tiles of the first launch.  What decides an output's sum —
+    tiles and chunks — reads V and D only."""
+    if m < 1 or d % NT_CHUNK or d < NT_CHUNK or v < 1:
+        raise ValueError(f"qmm_nt takes M >= 1, V >= 1 and D % {NT_CHUNK} == 0")
+    return {"tiles": -(-v // TILE), "chunks": d // NT_CHUNK,
+            "row_tiles": -(-min(m, MAX_NT_ROWS) // 16),
+            "launches": -(-m // MAX_NT_ROWS)}
+
+
 def qmm_kernel(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Launch K6: x (M, K) bf16, wq (K, N) int8, scale (N,) f32 -> (M, N) f32."""
     global launches
@@ -117,13 +137,13 @@ def qmm_kernel(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.
 
 def qmm_nt_kernel(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Launch K7: x (M, K) bf16, wq (N, K) int8, scale (N,) f32 -> (M, N)
-    f32; rows in blocks of up to 192, one launch each."""
+    f32; rows in blocks of up to 192, one launch each (:func:`nt_plan`)."""
     global nt_launches
     m, k = x.shape
     n = wq.shape[0]
     _check_weight("qmm_nt", x, wq, scale, n)
-    if wq.shape[1] != k or k % TILE or m < 1:
-        raise ValueError(f"qmm_nt kernel takes K % {TILE} == 0; got x {tuple(x.shape)}, "
+    if wq.shape[1] != k or k % NT_CHUNK or m < 1:
+        raise ValueError(f"qmm_nt kernel takes K % {NT_CHUNK} == 0; got x {tuple(x.shape)}, "
                          f"wq {tuple(wq.shape)}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     for r0 in range(0, m, MAX_NT_ROWS):

@@ -36,7 +36,9 @@ state, scored as the verification rows) and the heads 0..K-1 build row
 blocks 1..K from ``hsrc`` (the block layer's output), so R = (K + 1) * B * N.
 
 Rows are ordered (k, e, n): head-major over flattened (batch, node).  Scope:
-chain + greedy, K4 at B*N <= 16 and R <= 128; K5 launches take R <= 1024
+chain + greedy, K4 at B*N <= 16 and R <= 128 (:func:`hidden_available`;
+the decode loop verifies in two passes where it is False, as the JAX
+package does); K5 launches take R <= 1024
 and ``head_rows`` launches M <= 128, so their wrappers send more rows in
 blocks (pass A at B > 8); the fused timestamp rules (``ts_cfg``) are not
 ported yet.
@@ -98,6 +100,19 @@ def process_rows(x: torch.Tensor, pos: torch.Tensor, sup_masks: torch.Tensor, *,
         x = x.clone()
         x[:, eos_id] = torch.where(pos > start, eos + pen, eos)
     return x
+
+
+def hidden_available(b: int, n: int, n_heads: int, identity0: bool, v: int, d: int) -> bool:
+    """Whether K4 (:func:`verify_hidden`) takes a step of B examples of N
+    nodes with ``n_heads`` stacked heads (and the hidden rows themselves
+    with ``identity0``): R = (n_heads + identity0) * B * N <= MAX_R rows,
+    B * N <= 16 source rows, D % 64 == 0 — the counterpart of the JAX
+    package's ``verify.hidden_available``.  It reads only shapes (``v`` is
+    kept for the JAX signature); ``decoding/speculative.py`` takes the
+    two-pass verification where it is False, on every device."""
+    del v
+    return (n_heads >= 1 and b * n <= 16 and (n_heads + int(identity0)) * b * n <= MAX_R
+            and d % 64 == 0)
 
 
 def head_rows_plain(src: torch.Tensor, heads_w, heads_b: torch.Tensor) -> torch.Tensor:
@@ -295,7 +310,7 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
     nh = heads_w.shape[0]
     v = embed.shape[0]
     r = (nh + int(identity0)) * bn
-    if (bn > 16 or r > MAX_R or d % 64 or hsrc.shape != hver.shape
+    if (not hidden_available(b, n, nh, identity0, v, d) or hsrc.shape != hver.shape
             or heads_w.shape != (nh, d, d) or heads_b.shape != (nh, d)
             or embed.shape[1] != d):
         raise ValueError(
