@@ -30,8 +30,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      mode (the per-op step's self-attention) against ``attention`` under
      ``make_step_mask`` at large-v2's B=16 (causal and a tree chunk mask,
      T=11 and T=1), B=8 at T = 17, 24 (tree) and 31, and whisper tiny's B=8,
-     B=8 and B=16 bitwise B=1, and K11 decode FFN at the per-op
-     step's B=16 shapes and off them; head_rows, K3, K5 and K7 past one
+     B=8 and B=16 bitwise B=1, and K11 decode FFN (on K2's weight-streaming
+     GEMM) at M = 1, 16, 130, 176, 192 and 300 (one full launch, then a
+     launch and a tail), its M=176 rows bitwise an M=11 call's, its device
+     time at M = 16 and 176 beside the three-call addmm / gelu / addmm
+     yardstick's, and the device times of K4 at R=121 and K5 at R = 8, 88,
+     176 and 1024 (the vocab stream); head_rows, K3, K5 and K7 past one
      launch's rows, blocked), and time the kernel, the plain version and,
      where one PyTorch call computes the same function, that call, with
      CUDA events (3 warm-ups, median of 20; K1, K6, K8 and K10 also by device
@@ -111,6 +115,9 @@ PROMPT_LEN = 4
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+
+
+SMI = "not read"          # nvidia-smi's name and power limit (phase_env)
 
 
 def log(msg):
@@ -198,6 +205,8 @@ def phase_env():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(smi)
+    global SMI
+    SMI = smi
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return smi
@@ -719,8 +728,8 @@ def check_verify(g, model, identity0=False, name=None):
         f"{arg_ok}; max/lse/gathered max_abs_err {err:.3e}")
     require(arg_ok and ok and got[0].shape == (kp1 * n_nodes,),
             f"K4 {name}: argmax {arg_ok}, err {err}")
-    ms = cuda_ms(lambda: VF.verify_hidden_kernel(hid, src, hw, hb, embed, pos, gcol,
-                                                 masks, **kw4))
+    kern = lambda: VF.verify_hidden_kernel(hid, src, hw, hb, embed, pos, gcol, masks, **kw4)
+    ms = cuda_ms(kern)
     plain_ms = cuda_ms(lambda: VF.verify_hidden_plain(hid, src, hw, hb, embed, pos,
                                                       gcol, masks, **kw4))
     r, v = kp1 * n_nodes, model.config.dims.vocab_size
@@ -728,10 +737,13 @@ def check_verify(g, model, identity0=False, name=None):
     moved = (nbytes(*sources, *_tensors(hw), hb, *_tensors(embed), pos, gcol, masks)
              + 4 * r * 4)
     ops = 2 * r * v * d + 2 * hb.shape[0] * n_nodes * d * d
+    b = bound(moved, ops)
+    log(f"K4 {name} R={r}: kernel {ms:.4f} ms events, {device_ms(kern):.4f} ms device; "
+        f"plain {plain_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}); {SMI}")
     counter = ("q_" if q else "") + ("id0_launches" if identity0 else "launches")
     return kernel_record(name, "whisper_medusa_tpu_torch/csrc/verify.cu",
                          "whisper_medusa_tpu/ops/verify.py:309", (VF, counter),
-                         err, ms, plain_ms, bound(moved, ops), None)
+                         err, ms, plain_ms, b, None)
 
 
 def _tensors(w):
@@ -802,15 +814,17 @@ def check_verify_rows(g, model, sizes=(1, 8, 16, 88, 176, 1024, 1100)):
             f"max/lse/gathered max_abs_err {err:.3e}")
         require(arg_ok and ok, f"K5 {name} R={r}: argmax {arg_ok}, err {err}")
         worst = max(worst, err)
-        if r in (8, 88):
+        if r in (8, 88, 176, 1024):
             args = (hs, embed, pos, gcol, masks)
-            ms = cuda_ms(lambda: VF.verify_rows_kernel(*args, **kw))
+            kern = lambda: VF.verify_rows_kernel(*args, **kw)
+            ms = cuda_ms(kern)
             plain_ms = cuda_ms(lambda: VF.verify_rows_plain(*args, **kw))
             v = model.config.dims.vocab_size
             b = bound(nbytes(hs, *_tensors(embed), pos, gcol, masks) + 4 * r * 4,
                       2 * r * v * d)
-            log(f"K5 {name} R={r}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {b[0]:.4f} ms ({b[1]})")
+            log(f"K5 {name} R={r}: kernel {ms:.4f} ms events, {device_ms(kern):.4f} ms "
+                f"device; plain {plain_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}); no one "
+                f"PyTorch call computes it; {SMI}")
             timed[r] = (ms, plain_ms, b)
     ms, plain_ms, b = timed[88]       # the batched Medusa path's pass A
     return kernel_record(name, "whisper_medusa_tpu_torch/csrc/verify.cu",
@@ -1145,21 +1159,22 @@ def check_step_invariance(model, enc8, name):
 
 def check_ffn_decode(g, d=1280, f=5120, timed_m=176, name="ffn_decode"):
     """K11 against its plain version at (D, F) (large-v2's 1280, 5120 by
-    default; tiny's 384, 1536, whose fc1 splits 24 K-steps unevenly over
-    the skinny GEMM's 16 warps): M = 176 (the Medusa chain at B=16), 16
-    (vanilla at B=16; the Medusa chain's pass at B=1 is 11), 1 and 130 (two
-    row blocks, a 2-row tail) elementwise within 2e-2 + 2e-2 |x| (one bf16
-    rounding of the GELU output and of y, sums in another order).  Timed at
-    ``timed_m`` against the plain version; no one PyTorch call computes the
-    FFN, so the three-call cuBLAS + GELU time (addmm, gelu, addmm) is
-    printed."""
+    default; tiny's 384, 1536): M = 176 (the Medusa chain at B=16), 16
+    (vanilla at B=16; the Medusa chain's pass at B=1 is 11), 1, 130, 192
+    (one full launch) and 300 (a 192-row launch and a 108-row tail)
+    elementwise within 2e-2 + 2e-2 |x| (one bf16 rounding of the GELU output
+    and of y, sums in another order); the first 11 rows of the M=176 call
+    bitwise an M=11 call on them.  Timed at ``timed_m`` against the plain
+    version; no one PyTorch call computes the FFN, so the three-call cuBLAS
+    + GELU time (addmm, gelu, addmm) is printed beside the kernel's, CUDA
+    events and device time, at M = 16 and 176."""
     from whisper_medusa_tpu_torch.ops import decode_ops as DO
 
     rnd = lambda *shape, scale=0.02: (torch.randn(shape, generator=g, device="cuda")
                                       * scale).to(torch.bfloat16)
     w1, b1, w2, b2 = rnd(d, f), rnd(f), rnd(f, d), rnd(d)
     worst, xs = 0.0, {}
-    for m in (176, 16, 1, 130):
+    for m in (176, 16, 1, 130, 192, 300):
         x = rnd(m, d, scale=1.0)
         got = DO.ffn_decode_kernel(x, w1, b1, w2, b2)
         ref = DO.ffn_decode_plain(x, w1, b1, w2, b2)
@@ -1167,19 +1182,24 @@ def check_ffn_decode(g, d=1280, f=5120, timed_m=176, name="ffn_decode"):
         log(f"K11 {name} M={m} D={d} F={f}: max_abs_err {err:.3e}")
         require(got.shape == ref.shape and close(got, ref, 2e-2),
                 f"K11 {name} M={m}: err {err}")
-        worst, xs[m] = max(worst, err), x
+        worst, xs[m] = max(worst, err), (x, got)
+    x176, y176 = xs[176]
+    y11 = DO.ffn_decode_kernel(x176[:11].contiguous(), w1, b1, w2, b2)
+    log(f"K11 {name}: the first 11 rows of the M=176 call bitwise an M=11 call: "
+        f"{torch.equal(y176[:11], y11)}")
+    require(torch.equal(y176[:11], y11), f"K11 {name}: M=176 rows differ from an M=11 call")
+    gelu = torch.nn.functional.gelu
     for m in (16, 176):
-        if m != timed_m:
-            xm = xs[m]
-            log(f"K11 {name} M={m}: kernel "
-                f"{cuda_ms(lambda: DO.ffn_decode_kernel(xm, w1, b1, w2, b2)):.4f} ms")
-    x = xs[timed_m]
+        xm = xs[m][0]
+        kern = lambda: DO.ffn_decode_kernel(xm, w1, b1, w2, b2)
+        three = lambda: torch.addmm(b2, gelu(torch.addmm(b1, xm, w1)), w2)
+        b_ms, b_by = bound(nbytes(xm, w1, b1, w2, b2) + m * d * 2, 4 * m * d * f)
+        log(f"K11 {name} M={m}: kernel {cuda_ms(kern):.4f} ms events, {device_ms(kern):.4f} "
+            f"ms device; three PyTorch calls (addmm, gelu, addmm) {cuda_ms(three):.4f} ms "
+            f"events, {device_ms(three):.4f} ms device; bound {b_ms:.4f} ms ({b_by}); {SMI}")
+    x = xs[timed_m][0]
     ms = cuda_ms(lambda: DO.ffn_decode_kernel(x, w1, b1, w2, b2))
     plain_ms = cuda_ms(lambda: DO.ffn_decode_plain(x, w1, b1, w2, b2))
-    gelu = torch.nn.functional.gelu
-    three_ms = cuda_ms(lambda: torch.addmm(b2, gelu(torch.addmm(b1, x, w1)), w2))
-    log(f"K11 {name} M={timed_m}: three PyTorch calls (addmm, gelu, addmm) "
-        f"{three_ms:.4f} ms")
     m = x.shape[0]
     return kernel_record(name, DECODE_OPS_SOURCE,
                          "tools/decode_kernels_experiment.py:110", (DO, "ffn_launches"),

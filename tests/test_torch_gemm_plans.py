@@ -3,7 +3,7 @@ weight shapes, never of the rows.
 
 A row's bits on the card depend on how its sums are cut and ordered: K2's
 GEMM cuts K into slices (``ops/megastep.py::gemm_slices``, mirroring
-``csrc/megastep.cu::gemm_slices``) and adds them in rank order; K7 sums each
+``csrc/wgemm.cuh::gemm_slices``) and adds them in rank order; K7 sums each
 64-entry vocab tile over the 64-wide K chunks in order
 (``ops/qmm.py::nt_plan``, mirroring ``csrc/qmm.cu::wm_qmm_nt``).  Here the
 plans are held equal for every M from 1 to the kernels' rows, at
@@ -34,7 +34,7 @@ def _constants(source):
 
 
 def test_python_constants_match_the_sources():
-    ms, qm = _constants("megastep.cu"), _constants("qmm.cu")
+    ms, qm = _constants("wgemm.cuh"), _constants("qmm.cu")
     assert ms["G_TILE"] == MS.GEMM_TILE
     assert ms["G_CTAS"] == MS.GEMM_CTAS
     assert ms["G_MAX_SLICES"] == MS.GEMM_MAX_SLICES

@@ -1,10 +1,11 @@
-// Shared device code of the port's Hopper kernels (sm_90a).
+// Shared device code of the port's Hopper kernels (sm_90a): conversions,
+// warp reductions, the epilogue codes, and two older building blocks (the
+// weight-streaming GEMM of K2 and K11 is wgemm.cuh; the vocab stream of K4
+// and K5 is verify.cu's):
 //
-// Two building blocks are used by more than one kernel:
-//
-//  * skinny_gemm_kernel: Y[M, N] = epilogue(A[M, K] @ W[K, N] + bias) for
-//    M <= 128 rows (the decode chunk of up to 8 examples, or the
-//    verification source rows), W stored (in, out) as in the JAX package.
+//  * skinny_gemm_kernel, K4's stage A and wm_head_rows: Y[M, N] =
+//    epilogue(A[M, K] @ W[K, N] + bias) for M <= 128 rows (the verification
+//    source rows), W stored (in, out) as in the JAX package.
 //    One CTA of 16 warps per 16-column output tile; the K/16 steps of 16
 //    are split over the warps as evenly as they go, in fixed contiguous
 //    ranges (K % 64 == 0; at K % 256 == 0 every warp takes K/256 steps at
@@ -25,12 +26,12 @@
 //    K split and reduction order, and multiplies the summed column by its
 //    scale before the bias.
 //
-//  * vocab_tile: C[128, 64] = X[rows, D] @ E[v0 : v0 + 64, D]^T for the tied
-//    embedding E (V, D), both staged through shared memory in 64-wide K
-//    slices (zero-filled past the last row and the last vocab entry) and
-//    multiplied with WMMA, f32 accumulation.  Bound by the embedding stream
-//    (133 MB at large-v2) plus one L2 read of the rows per vocab tile.  An
-//    int8 embedding is converted to bf16 as it is staged (66 MB stream).
+//  * vocab_tile, K3 alone (logits.cu): C[128, 64] = X[rows, D] @ E[v0 : v0 +
+//    64, D]^T for the tied embedding E (V, D), both staged through shared
+//    memory in 64-wide K slices (zero-filled past the last row and the last
+//    vocab entry) by synchronous 16-byte loads and multiplied with WMMA,
+//    f32 accumulation.  Bound by the embedding stream (133 MB at large-v2)
+//    plus one L2 read of the rows per vocab tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -293,11 +294,8 @@ constexpr int VOCAB_SMEM =
 
 // Fills cs[VRB][VLDC] with rows [row0, row0 + 128) x vocab [v0, v0 + 64).
 // Rows >= n_rows and vocab entries >= v_dim read as zero.  Ends synchronized.
-// ET: bf16, or int8 (converted to bf16 as it is staged; the caller applies
-// the per-entry scales).
-template <typename ET>
 __device__ __forceinline__ void vocab_tile(const bf16* __restrict__ x, int n_rows,
-                                           int row0, const ET* __restrict__ e,
+                                           int row0, const bf16* __restrict__ e,
                                            int v_dim, int d_dim, int v0,
                                            char* smem) {
   bf16* as = reinterpret_cast<bf16*>(smem);

@@ -62,15 +62,28 @@
 //
 // K11, wm_ffn_decode, replaces tools/decode_kernels_experiment.py::
 // _ffn_kernel (a sequential grid over F / 512 column blocks accumulating
-// into an f32 VMEM scratch).  A GPU's CTAs run in parallel, so the entry
-// runs two launches of the skinny tensor-core GEMM of common.cuh over up to
-// 128 rows: h = bf16(gelu_erf(x @ W1 + b1)) (exact erf, not the TPU
-// kernel's A&S 7.1.26), then y = bf16(h @ W2 + b2), the f32 sum plus the
-// bias rounded once.  Each weight is read once per call, K is split over 16
-// warps and summed in a fixed order, so a row's result does not depend on M.
+// into an f32 VMEM scratch): h = bf16(gelu_erf(x @ W1 + b1)) (exact erf, not
+// the TPU kernel's A&S 7.1.26), then y = bf16(h @ W2 + b2), the f32 sums
+// plus the bias rounded once.  Bound by bytes: the 26.2 MB of bf16 weights
+// at large-v2 (7.8 us at 3.35 TB/s), whatever M is.  The entry launches
+// K2's weight-streaming GEMM (wgemm.cuh) twice under programmatic dependent
+// launch, fc1 with EPI_BIAS_GELU into the (M, F) scratch h and fc2 with
+// EPI_BIAS, so fc2's CTAs stream W2 while fc1 finishes:
+//   * up to 192 rows a call (one m64nNk16 of N = ceil(M / 16) * 16 a step,
+//     the rows TMA-loaded from a tensor map over exactly M rows and
+//     zero-filled past them), so B = 16's 176-row chunk reads each weight
+//     once; the wrapper blocks rows past 192 (ops/decode_ops.py);
+//   * K slices from (K, N) alone (gemm_slices: large-v2 fc1 2 x 80 CTAs, fc2
+//     7 x 20) and ring stages from (K, N) alone (ffn_stages: the longest
+//     slice, at most 3, so two CTAs of 192 rows fit an SM), added in rank
+//     order across a cluster: a row's result does not depend on M;
+//   * the weights' 3-D tensor maps (L = 1, layer 0) are encoded once per
+//     weight and kept (encode_map_cached); only x's and h's maps are
+//     encoded per call.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "wgemm.cuh"
 
 namespace wm {
 namespace {
@@ -514,6 +527,26 @@ int cd_launch(CdArgs a, int batch, cudaStream_t stream) {
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
+constexpr int FFN_MAX_STAGES = 3;   // ring stages: two CTAs of 192 rows fit an SM
+
+// Ring stages of K11's GEMM over a (K, N) weight, from (K, N) alone: its
+// longest K slice, within [2, FFN_MAX_STAGES] (ops/decode_ops.py::ffn_plan).
+inline int ffn_stages(int k, int n) {
+  const int slices = gemm_slices(k, n, 1), chunks = k / G_TILE;
+  const int longest = (chunks + slices - 1) / slices;
+  return longest < 2 ? 2 : (longest > FFN_MAX_STAGES ? FFN_MAX_STAGES : longest);
+}
+
+// A (K, N) bf16 weight as a 3-D (1, K, N) map, box (64, 64, 1), 128-byte
+// swizzle: wgemm_kernel's W operand at layer 0.  Kept after the first call.
+int ffn_weight_map(CUtensorMap* map, const void* w, int k, int n) {
+  const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)k, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)n * sizeof(bf16), (cuuint64_t)k * n * sizeof(bf16)};
+  const cuuint32_t box[3] = {G_TILE, G_TILE, 1};
+  return encode_map_cached(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, w, dims, strides, box,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 }  // namespace
 }  // namespace wm
 
@@ -574,20 +607,34 @@ extern "C" int wm_self_decode(const void* q, const void* k, const void* v,
   return cd_launch<bf16, true>(a, B, (cudaStream_t)stream);
 }
 
-// x (ceil(M / 16) * 16, D) bf16 rows (rows >= M ignored), w1 (D, F), b1 (F,),
-// w2 (F, D), b2 (D,) bf16; h (ceil(M / 16) * 16, F) bf16 scratch; y (M, D)
-// bf16 out.  M <= 128; D, F multiples of 64.
+// x (M, D), w1 (D, F), b1 (F,), w2 (F, D), b2 (D,) bf16; h (M, F) bf16
+// scratch; y (M, D) bf16 out.  1 <= M <= 192; D, F multiples of 64; x, w1,
+// w2 and h 16-byte aligned (the tensor-map encoder refuses another address:
+// the entry then returns TENSOR_MAP_ERROR + its error).
 extern "C" int wm_ffn_decode(const void* x, const void* w1, const void* b1, const void* w2,
                              const void* b2, void* h, void* y, int M, int D, int F,
                              void* stream) {
   using namespace wm;
   cudaStream_t st = (cudaStream_t)stream;
-  if (M < 1 || M > SK_MAX_ROWS || D % 64 || F % 64) return (int)cudaErrorInvalidValue;
-  SkinnyJobs fc1;
-  fc1.j[0] = job(w1, static_cast<const bf16*>(b1), static_cast<bf16*>(h), EPI_BIAS_GELU);
-  skinny_gemm(static_cast<const bf16*>(x), D, M, D, F, F, F, fc1, 1, 1, 0, 0, 0, st);
-  SkinnyJobs fc2;
-  fc2.j[0] = job(w2, static_cast<const bf16*>(b2), static_cast<bf16*>(y), EPI_BIAS);
-  skinny_gemm(static_cast<const bf16*>(h), F, M, F, D, D, D, fc2, 1, 1, 0, 0, 0, st);
-  return (int)cudaGetLastError();
+  if (M < 1 || M > 16 * G_MAX_MT || D < G_TILE || F < G_TILE || D % G_TILE || F % G_TILE)
+    return (int)cudaErrorInvalidValue;
+  const int mt = (M + 15) / 16;
+  CUtensorMap mx, mh, mw1, mw2;
+  int err = encode_x_map(&mx, static_cast<const bf16*>(x), M, D, mt);
+  if (err == 0) err = encode_x_map(&mh, static_cast<const bf16*>(h), M, F, mt);
+  if (err == 0) err = ffn_weight_map(&mw1, w1, D, F);
+  if (err == 0) err = ffn_weight_map(&mw2, w2, F, D);
+  if (err != 0) return err;
+  GemmJobs fc1, fc2;
+  fc1.j[0] = gjob(static_cast<const bf16*>(b1), static_cast<bf16*>(h), EPI_BIAS_GELU);
+  fc2.j[0] = gjob(static_cast<const bf16*>(b2), static_cast<bf16*>(y), EPI_BIAS);
+  const int s1 = ffn_stages(D, F), s2 = ffn_stages(F, D);
+  const int smem1 = gemm_smem(mt, false, s1, false), smem2 = gemm_smem(mt, false, s2, false);
+  wgemm_set_smem<G_MAX_MT, false>(mt, smem1 > smem2 ? smem1 : smem2);
+  err = wgemm_launch<G_MAX_MT, false>(mt, s1, smem1, st, mx, mw1, mw1, mw1, 1, fc1, 0, M, D, F,
+                                      F, F);
+  if (err == 0)
+    err = wgemm_launch<G_MAX_MT, false>(mt, s2, smem2, st, mh, mw2, mw2, mw2, 1, fc2, 0, M, F,
+                                        D, D, D);
+  return err != 0 ? err : (int)cudaGetLastError();
 }

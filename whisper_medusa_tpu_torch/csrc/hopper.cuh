@@ -1,5 +1,6 @@
-// Hopper building blocks shared by K1 (attention.cu), K2's GEMMs
-// (megastep.cu), K6 and K7 (qmm.cu), in inline PTX for sm_90a:
+// Hopper building blocks shared by K1 (attention.cu), the weight-streaming
+// GEMM of K2 and K11 (wgemm.cuh), K4 / K5's vocab stream (verify.cu), K6 and
+// K7 (qmm.cu), in inline PTX for sm_90a:
 //
 //  * mbarriers: init, arrive, arrive with an expected transaction count,
 //    and a wait on a phase parity;
@@ -11,7 +12,7 @@
 //    m64n64k16 bf16 product with both operands in shared memory or with A
 //    in registers, and the m64nNk16 products from shared memory for N =
 //    16, 32, ..., 192 (WgmmaN: the skinny operand's rows, rounded up to 16,
-//    as one instruction's N side in K2's GEMMs and K7);
+//    as one instruction's N side in the GEMM of K2 and K11, K5 and K7);
 //  * programmatic dependent launch: griddepcontrol.wait (the previous
 //    kernel in the stream has completed and its memory is visible) and
 //    griddepcontrol.launch_dependents (the next kernel may start).
@@ -24,12 +25,17 @@
 // Encoding a tensor map is a driver call (cuTensorMapEncodeTiled in
 // libcuda).  The library links only the runtime, so the function is fetched
 // once through the runtime's driver entry point (cudaGetDriverEntryPoint*)
-// and called through a pointer; <cuda.h> provides the types alone.
+// and called through a pointer; <cuda.h> provides the types alone.  The maps
+// of weights are encoded once and kept (encode_map_cached).
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cstring>
+#include <mutex>
+#include <vector>
 
 namespace wm {
 namespace {   // internal linkage: every .cu gets its own copy
@@ -160,6 +166,51 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
+}
+
+// encode_map for an operand that outlives the call (a weight): a map is a
+// function of its arguments alone, so each distinct argument list is encoded
+// once and copied from a table after that (exact whatever tensor now lives
+// at the address; encoding costs host time on a host-bound step).  The table
+// is cleared when it holds 1024 maps.
+inline int encode_map_cached(CUtensorMap* map, CUtensorMapDataType dtype, int rank,
+                             const void* ptr, const cuuint64_t* dims,
+                             const cuuint64_t* strides, const cuuint32_t* box,
+                             CUtensorMapSwizzle swizzle) {
+  struct Key {
+    const void* ptr;
+    cuuint64_t dims[5], strides[4];
+    cuuint32_t box[5];
+    int dtype, rank, swizzle;
+  };
+  struct Entry {
+    Key key;
+    CUtensorMap map;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> table;
+  Key key;
+  std::memset(&key, 0, sizeof(key));
+  key.ptr = ptr;
+  for (int i = 0; i < rank; ++i) {
+    key.dims[i] = dims[i];
+    key.box[i] = box[i];
+    if (i > 0) key.strides[i - 1] = strides[i - 1];
+  }
+  key.dtype = (int)dtype;
+  key.rank = rank;
+  key.swizzle = (int)swizzle;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : table)
+    if (std::memcmp(&e.key, &key, sizeof(key)) == 0) {
+      *map = e.map;
+      return 0;
+    }
+  const int err = encode_map(map, dtype, rank, ptr, dims, strides, box, swizzle);
+  if (err) return err;
+  if (table.size() >= 1024) table.clear();
+  table.push_back(Entry{key, *map});
+  return 0;
 }
 
 // ---------------------------------------------------------------------------

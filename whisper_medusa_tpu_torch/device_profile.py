@@ -39,9 +39,10 @@ code the same way:
      (``models/whisper.py::decoder_layers_ops``: cuBLAS or K6 projections,
      K10's mask mode for the self-attention, K10, K11) over all 32 layers at
      (B, T) in
-     (8, 11), (16, 1) and (16, 11), bf16 and int8 — the host wall of a call
-     ending in a synchronize, the device time by kernel, the idle share and
-     the launches per layer —
+     (8, 11), (16, 1) and (16, 11), bf16 and int8, and the same steps of
+     whisper tiny (bf16, 4 layers) — the host wall of a call ending in a
+     synchronize, the device time by kernel, the idle share and the
+     launches per layer —
      and whole requests at B=16 as in part 4 (Medusa and vanilla bf16,
      Medusa int8, Medusa-Block bf16).
 
@@ -140,29 +141,31 @@ def _overlap_ms(fn, reps: int = 1):
 
 
 def _entry_host_ms(run, entry: str, iters: int = 10, lib=None) -> float:
-    """Median host milliseconds of the ctypes call of C entry ``entry`` in
+    """Median host milliseconds of the ctypes calls of C entry ``entry`` in
     ``run()`` (CPU clock around ``launch`` of ``lib``, by default
-    ``ops/cuda_lib.py``, no synchronize): the time the host takes to issue
-    the entry's launches."""
+    ``ops/cuda_lib.py``, no synchronize), summed over the entry's calls in
+    one run: the time the host takes to issue the entry's launches."""
     if lib is None:
         from whisper_medusa_tpu_torch.ops import cuda_lib as lib
     cuda_lib = lib
-    times, orig = [], cuda_lib.launch
+    runs, cur, orig = [], [0.0], cuda_lib.launch
 
     def timed(name, *args):
         t0 = time.perf_counter()
         orig(name, *args)
         if name == entry:
-            times.append((time.perf_counter() - t0) * 1e3)
+            cur[0] += (time.perf_counter() - t0) * 1e3
 
     cuda_lib.launch = timed
     try:
         for _ in range(iters):
+            cur[0] = 0.0
             run()
             torch.cuda.synchronize()
+            runs.append(cur[0])
     finally:
         cuda_lib.launch = orig
-    return float(np.median(times))
+    return float(np.median(runs))
 
 
 def _table(title, rows, extra=""):
@@ -440,6 +443,11 @@ def main(argv=None):
         profile_serving(model, qmodel, bmodel, bqmodel)
     for m, mode in ((model, "bf16"), (qmodel, "int8")):
         profile_per_op_step(m, mode)
+    tiny = WhisperMedusaModel.from_random(
+        ModelConfig(dims=WHISPER_PRESETS["tiny"], medusa=MedusaConfig(medusa_hidden_size=384),
+                    param_dtype="bfloat16", compute_dtype="bfloat16"), seed=SEED)
+    profile_per_op_step(tiny, "tiny bf16")
+    del tiny
     if part == "step":
         return
     profile_requests(model, "bf16", batches=(16,))

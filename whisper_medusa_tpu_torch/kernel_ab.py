@@ -1,5 +1,5 @@
-"""Time this checkout's K1, K6, K8, K10, K7 and K2 against another checkout's
-build of them, on one CUDA card, in turns.
+"""Time this checkout's K1, K6, K8, K10, K7, K2, K11, K5 and K4 against
+another checkout's build of them, on one CUDA card, in turns.
 
     python -m whisper_medusa_tpu_torch.kernel_ab --other DIR
 
@@ -32,7 +32,19 @@ times exclude the wrappers' checks and allocations:
     (1, 11), called through ``ops/megastep.py`` with each build's library
     (the entry's pointer table is the same in both), with the C entry's
     host time (CPU clock around the ctypes call, no synchronize) beside its
-    CUDA-event and device times.
+    CUDA-event and device times;
+  * K11, ``wm_ffn_decode``, at large-v2's (D, F) = (1280, 5120) for M = 16,
+    88 and 176 rows and whisper tiny's (384, 1536) for M = 11 and 88; K5,
+    ``wm_verify_rows``, at R = 8, 88, 176 and 1024 against large-v2's bf16
+    and int8 tied embedding; K4, ``wm_verify_hidden``, at R = 121 (11 heads
+    x 11 nodes, or 10 heads and the ``identity0`` rows), bf16 and int8
+    (``quant``: int8 embedding and heads), and bf16 at whisper tiny's D =
+    384.  Each is
+    called through its checkout's own wrapper (``ops/decode_ops.py``,
+    ``ops/verify.py`` loaded from that checkout, calling that checkout's
+    library), so a build's row blocking and staging copies count, and the C
+    entry's host time (summed over its calls in one wrapper call) is printed
+    beside the events and device times.
 
 Each shape runs in the order other, this, this, other; each turn prints the
 median of 20 calls between CUDA events (``device_profile._cuda_ms``) and the
@@ -41,7 +53,9 @@ the time the device is busy with the call's kernels, which the events
 exceed where the host's launch overhead is the longer).  The two builds'
 outputs are compared first (K1 within 2e-2, K6 and K7 within 1e-3 of max
 |y|, K8's normalized features within 1e-3, K10 within 1e-2 + 1e-2 |x|, K2's
-hidden states at cosine >= 0.999).
+hidden states at cosine >= 0.999, K11 within 2e-2 + 2e-2 |x|, K5's and
+K4's max / lse / gathered within 1e-2 and their argmax on all but 1 % of
+the rows: the builds sum in other orders).
 """
 
 from __future__ import annotations
@@ -65,6 +79,8 @@ K6_SHAPES = ((1500, 1280, 1280), (176, 1280, 5120), (176, 5120, 1280), (176, 128
              (16, 1280, 1280), (11, 384, 1536))
 K7_ROWS = (10, 80)
 K2_ROWS = ((1, 11), (8, 11), (8, 1))
+K11_SHAPES = ((1280, 5120, (16, 88, 176)), (384, 1536, (11, 88)))
+K5_ROWS = (8, 88, 176, 1024)
 
 
 def _other_lib(root: str):
@@ -78,14 +94,33 @@ def _other_lib(root: str):
     return mod
 
 
-def _turns(what, calls):
-    """calls: {"other": fn, "this": fn}; run other, this, this, other."""
+def _turns(what, calls, entry=None, libs=None):
+    """calls: {"other": fn, "this": fn}; run other, this, this, other.  With
+    ``entry``, also the host time of that C entry of each build
+    (``device_profile._entry_host_ms`` on ``libs[who]``)."""
+    from whisper_medusa_tpu_torch.device_profile import _entry_host_ms
+
     out = []
     for who in ("other", "this", "this", "other"):
         ev = _cuda_ms(calls[who])
         dev = sum(us for us, _ in _by_kernel(calls[who], 20).values()) / 1e3
-        out.append(f"{who} {ev:.4f} / {dev:.4f}")
-    print(f"{what}: events / device ms: " + ", ".join(out), flush=True)
+        cell = f"{who} {ev:.4f} / {dev:.4f}"
+        if entry is not None:
+            cell += f" / {_entry_host_ms(calls[who], entry, lib=libs[who]):.4f}"
+        out.append(cell)
+    kind = "events / device / C-entry host ms" if entry else "events / device ms"
+    print(f"{what}: {kind}: " + ", ".join(out), flush=True)
+
+
+def _other_ops(root: str, name: str, lib):
+    """The other checkout's ``ops/<name>.py`` as a module of its own whose
+    kernels launch through ``lib`` (that checkout's library)."""
+    path = os.path.join(root, "whisper_medusa_tpu_torch", "ops", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"other_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.cuda_lib = lib
+    return mod
 
 
 def _qmm_call(mod, x, wq, s, y, m, k, n):
@@ -197,6 +232,96 @@ def main(argv=None):
 
     _k7(libs, g)
     _k2(libs, g)
+    _k11(root, libs, g)
+    _verify(root, libs, g)
+
+
+def _k11(root, libs, g):
+    """K11 through each checkout's ``ffn_decode_kernel`` on seeded weights
+    (N(0, 0.02)) and rows (N(0, 1)) at K11_SHAPES."""
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    mods = {"other": _other_ops(root, "decode_ops", libs["other"]), "this": DO}
+    rnd = lambda *shape, scale=0.02: (torch.randn(shape, generator=g, device="cuda")
+                                      * scale).to(torch.bfloat16)
+    for d, f, rows in K11_SHAPES:
+        w1, b1, w2, b2 = rnd(d, f), rnd(f), rnd(f, d), rnd(d)
+        for m in rows:
+            x = rnd(m, d, scale=1.0)
+            calls = {who: (lambda mod=mod: mod.ffn_decode_kernel(x, w1, b1, w2, b2))
+                     for who, mod in mods.items()}
+            a, o = calls["this"]().float(), calls["other"]().float()
+            diff = float((a - o).abs().max())
+            if not bool(((a - o).abs() <= 2e-2 + 2e-2 * o.abs()).all()):
+                raise AssertionError(f"K11 ({m}, {d}, {f}): the builds differ by {diff}")
+            _turns(f"K11 ffn_decode M={m} D={d} F={f}, builds differ by {diff:.3e}", calls,
+                   "wm_ffn_decode", libs)
+
+
+def _agree(what, got, ref):
+    """K4 / K5 outputs of the two builds: max / lse / gathered within 1e-2,
+    argmax equal on at least 99 % of the rows."""
+    same = float((got[0] == ref[0]).float().mean())
+    err = max(float((a - b).abs().max()) for a, b in zip(got[1:], ref[1:]))
+    if err > 1e-2 or same < 0.99:
+        raise AssertionError(f"{what}: the builds differ: argmax equal on {same:.4f} of the "
+                             f"rows, stats by {err}")
+    return f"argmax equal on {same:.4f}, stats differ by {err:.3e}"
+
+
+def _verify(root, libs, g):
+    """K5 at K5_ROWS and K4 at R = 121 (bf16, int8, identity0 rows, and
+    whisper tiny's width) through each checkout's ``ops/verify.py``, on a
+    seeded tied embedding (N(0, 0.05), and its int8 copy), suppress /
+    begin-suppress masks and the EOS decay on."""
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    mods = {"other": _other_ops(root, "verify", libs["other"]), "this": VF}
+    v, d, eos = 51865, 1280, 50257
+    rnd = lambda *shape, scale=0.02: (torch.randn(shape, generator=g, device="cuda")
+                                      * scale).to(torch.bfloat16)
+    emb = rnd(v, d, scale=0.05)
+    q, s = QM.quantize_array(emb, axis=-1)
+    embeds = {"bf16": emb, "int8": {"q": q.contiguous(), "s": s.contiguous()}}
+    masks = torch.zeros((2, v), dtype=torch.int8, device="cuda")
+    masks[0, torch.randint(0, v, (300,), generator=g, device="cuda")] = 1
+    masks[1, torch.randint(0, v, (40,), generator=g, device="cuda")] = 1
+    kw = dict(begin_index=4, eos_id=eos, decay=(9, 1.2))
+    meta = lambda r: ((3 + torch.arange(r, device="cuda") % 12).to(torch.int32),
+                      torch.randint(0, v, (r,), generator=g, device="cuda").to(torch.int32))
+    for mode, e in embeds.items():
+        for r in K5_ROWS:
+            hs = rnd(r, d, scale=1.0)
+            pos, gcol = meta(r)
+            calls = {who: (lambda mod=mod: mod.verify_rows_kernel(hs, e, pos, gcol, masks, **kw))
+                     for who, mod in mods.items()}
+            note = _agree(f"K5 {mode} R={r}", calls["this"](), calls["other"]())
+            _turns(f"K5 verify_rows {mode} R={r}, {note}", calls, "wm_verify_rows", libs)
+    n = 11
+    for width, mode, id0 in ((d, "bf16", False), (d, "int8", False), (d, "bf16", True),
+                             (d, "int8", True), (384, "bf16", False)):
+        nh = 11 - id0
+        hw, hb = rnd(nh, width, width), rnd(nh, width)
+        e = embeds[mode]
+        if width != d:
+            e = rnd(v, width, scale=0.05)
+        if mode == "int8":
+            q, s = QM.quantize_array(hw, axis=-2)
+            hw = {"q": q.contiguous(), "s": s.contiguous()}
+        hid, src = rnd(1, n, width, scale=1.0), rnd(1, n, width, scale=1.0)
+        if not id0:
+            src = hid
+        r = (nh + id0) * n
+        pos = (5 + torch.arange(n, device="cuda")[None, :]
+               + torch.arange(nh + id0, device="cuda")[:, None]).reshape(-1).to(torch.int32)
+        gcol = meta(r)[1]
+        calls = {who: (lambda mod=mod: mod.verify_hidden_kernel(
+            hid, src, hw, hb, e, pos, gcol, masks, identity0=id0, **kw))
+            for who, mod in mods.items()}
+        what = (f"K4 verify_hidden {'quant' if mode == 'int8' else 'bf16'}"
+                f"{' identity0' if id0 else ''}{f' D={width}' if width != d else ''} R={r}")
+        note = _agree(what, calls["this"](), calls["other"]())
+        _turns(f"{what}, {note}", calls, "wm_verify_hidden", libs)
 
 
 def _k7(libs, g):

@@ -45,13 +45,20 @@ launch's function), T <= 32 (a row of bits is one int32).
 
 K11 replaces ``tools/decode_kernels_experiment.py::_ffn_kernel`` (launched
 by ``_ffn_pallas``), whose grid walks F / 512 column blocks sequentially
-into an f32 scratch.  ``csrc/decode_ops.cu::wm_ffn_decode`` runs fc1 with
-its exact-erf GELU epilogue and then fc2 with its bias, each through the
-skinny tensor-core GEMM of ``csrc/common.cuh`` (each weight read once per
-128-row block, K split over 16 warps and summed in a fixed order), so every
+into an f32 scratch.  ``csrc/decode_ops.cu::wm_ffn_decode`` runs K2's
+weight-streaming ``wgmma`` GEMM (``csrc/wgemm.cuh``, shared with
+``csrc/megastep.cu``) twice under programmatic dependent launch: fc1 with
+its exact-erf GELU epilogue into an (M, F) bf16 scratch, then fc2 with its
+bias, so fc2's weights stream while fc1 finishes.  A launch takes up to 192
+rows (one m64nNk16 product of N = the rows rounded up to 16 a step), read
+through a TMA tensor map over exactly M rows and zero-filled past them, so
+the wrapper copies nothing and B = 16's 176-row chunk reads each weight
+once; rows past 192 go in blocks (:func:`ffn_decode_blocked`).  K is cut
+into slices and the ring into stages from (K, N) alone (:func:`ffn_plan`),
+the slices added in rank order across a thread-block cluster, so every
 row's arithmetic is independent of the others and of M.  bf16 weights
-only: int8 serving runs the FFN through ``models/whisper.py::ffn`` (K6),
-as the JAX package does.  Bound: 26.2 MB of weights per call at large-v2.
+only: int8 serving runs the FFN through ``models/whisper.py::ffn`` (K6), as
+the JAX package does.  Bound: 26.2 MB of weights per call at large-v2.
 
 The plain versions (``*_plain``) are the math the megastep's plain version
 (``models/whisper.py::decoder_layer_step``) runs on every device; the
@@ -67,13 +74,15 @@ from typing import Optional, Tuple
 
 from whisper_medusa_tpu_torch.ops import cuda_lib
 from whisper_medusa_tpu_torch.ops import gelu as gelu_mod
+from whisper_medusa_tpu_torch.ops import megastep as megastep_mod
 from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
 
 NEG_BIG = -0.7 * torch.finfo(torch.float32).max
 HEAD_DIM = 64            # csrc/decode_ops.cu CD_DH
 MAX_T = 16               # csrc/decode_ops.cu CD_MAXT: query rows of one launch
 MAX_CHUNK_BITS = 32      # a chunk-bit row is one int32: the mask mode's widest chunk
-FFN_ROWS = 128           # csrc/common.cuh SK_MAX_ROWS: K11's rows per block
+FFN_ROWS = 192           # csrc/wgemm.cuh G_MAX_MT * 16: K11's rows per launch
+FFN_MAX_STAGES = 3       # csrc/decode_ops.cu FFN_MAX_STAGES
 CLUSTER_KEYS = 192       # csrc/decode_ops.cu CD_KEYS: keys a CTA takes before C grows
 MAX_CLUSTER = 8          # csrc/decode_ops.cu CD_MAXC
 MAX_SLICE = 384          # csrc/decode_ops.cu CD_MAXSLICE: keys a CTA holds at most
@@ -157,7 +166,7 @@ def self_attention_block_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def row_blocks(t: int):
     """The (first row, rows) of each launch of a T-row chunk: 16-row blocks."""
-    return [(r0, min(MAX_T, t - r0)) for r0 in range(0, t, MAX_T)]
+    return row_blocks_of(t, MAX_T)
 
 
 def cross_attention_blocked(q: torch.Tensor, block_fn) -> torch.Tensor:
@@ -290,12 +299,41 @@ def self_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     return self_attention_blocked(q, bits, launch)
 
 
+def ffn_plan(m: int, d: int, f: int):
+    """K11's plan at M rows of width D through (D, F) and (F, D) weights
+    (csrc/decode_ops.cu ``wm_ffn_decode``): the row blocks of up to 192
+    rows, one call each, and for fc1 and fc2 the GEMM's plan (K slices,
+    their 64-wide chunk ranges, ``megastep.gemm_plan``) and ring stages.
+    Only the blocks and the 16-row tiles of a block follow M; every sum's
+    slices, chunks and order come from the weight's (K, N) alone."""
+    def gemm(k, n):
+        slices, ranges, _ = megastep_mod.gemm_plan(1, k, n)
+        longest = max(e - b for b, e in ranges)
+        return dict(slices=slices, ranges=ranges, stages=min(max(longest, 2), FFN_MAX_STAGES))
+
+    return dict(blocks=row_blocks_of(m, FFN_ROWS), fc1=gemm(d, f), fc2=gemm(f, d))
+
+
+def row_blocks_of(m: int, rows: int):
+    """The (first row, rows) of each launch over M rows, ``rows`` a launch."""
+    return [(r0, min(rows, m - r0)) for r0 in range(0, m, rows)]
+
+
+def ffn_decode_blocked(x: torch.Tensor, block_fn) -> torch.Tensor:
+    """The FFN of x (M, D) as ``block_fn(x_block, y_block)`` over K11's row
+    blocks (:func:`ffn_plan`), each writing its rows of the output in place;
+    a block of a contiguous x and of the output is a view, never a copy."""
+    out = torch.empty_like(x)
+    for r0, n in row_blocks_of(x.shape[0], FFN_ROWS):
+        block_fn(x[r0:r0 + n], out[r0:r0 + n])
+    return out
+
+
 def ffn_decode_kernel(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                       w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """Launch K11: x (M, D) bf16, w1 (D, F), b1 (F,), w2 (F, D), b2 (D,) bf16,
-    D and F multiples of 64 -> (M, D) bf16.  Rows go in blocks of 128, one
-    launch each."""
-    global ffn_launches
+    D and F multiples of 64 -> (M, D) bf16.  Rows go in blocks of up to 192,
+    one launch each, straight from x into the output (no staging copies)."""
     if qmm_mod.is_quantized(w1) or qmm_mod.is_quantized(w2):
         raise ValueError("ffn_decode kernel takes bf16 weights (int8 serving runs the "
                          "FFN through models/whisper.py::ffn, K6)")
@@ -306,22 +344,16 @@ def ffn_decode_kernel(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             or b1.shape != (f,) or b2.shape != (d,)):
         raise ValueError(f"ffn_decode kernel takes D and F multiples of 64; got x "
                          f"{tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
-    bf = dict(dtype=torch.bfloat16, device=x.device)
-    out = torch.empty((m, d), **bf)
-    rows = min(m, FFN_ROWS)
-    m16 = -(-rows // 16) * 16             # the skinny GEMM reads 16-row tiles
-    xbuf = torch.zeros((m16, d), **bf)
-    hbuf = torch.empty((m16, f), **bf)
-    ybuf = torch.empty((m16, d), **bf)
-    for r0 in range(0, m, FFN_ROWS):
-        n = min(FFN_ROWS, m - r0)
-        xbuf[:n] = x[r0:r0 + n]
-        cuda_lib.launch("wm_ffn_decode", x.device, xbuf.data_ptr(), w1.data_ptr(),
-                        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), hbuf.data_ptr(),
-                        ybuf.data_ptr(), n, d, f)
+    h = torch.empty((min(m, FFN_ROWS), f), dtype=torch.bfloat16, device=x.device)
+
+    def launch(xb, yb):
+        global ffn_launches
+        cuda_lib.launch("wm_ffn_decode", x.device, xb.data_ptr(), w1.data_ptr(),
+                        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), h.data_ptr(),
+                        yb.data_ptr(), xb.shape[0], d, f)
         ffn_launches += 1
-        out[r0:r0 + n] = ybuf[:n]
-    return out
+
+    return ffn_decode_blocked(x, launch)
 
 
 def cross_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,10 +14,11 @@ so Python makes one ctypes call per decode step; the entry ends with the
 final layer norm (``ln_post``) into a second buffer.  It is bound by bytes:
 at large-v2 a step reads 1.47 GB of bf16 weights whatever B is, and
 B x 246 MB of cross K/V (counted from the shapes).  The GEMM computes
-Y^T = W^T X^T on ``wgmma``: a CTA streams 64 weight columns of one K slice
-through a TMA ring (the weight tile wgmma's 64-row side, the chunk's rows,
-rounded up to 16, its N side), the K slices of a column tile
-are one thread-block cluster whose partials are added in rank order
+Y^T = W^T X^T on ``wgmma`` (``csrc/wgemm.cuh``, shared with K11): a CTA
+streams 64 weight columns of one K slice through a TMA ring (the weight
+tile wgmma's 64-row side, the chunk's rows, rounded up to 16, its N side),
+the K slices of a column tile are one thread-block cluster whose partials
+are added in rank order
 through distributed shared memory (:func:`gemm_slices`: from (K, N, jobs)
 alone, enough slices for the 132 SMs), and every kernel of the step is
 launched with programmatic dependent launch, so a GEMM's first weight
@@ -74,9 +75,9 @@ MAX_B = 8
 MAX_T = 16               # csrc/megastep.cu MAXT
 MAX_ROWS = 128           # csrc/common.cuh SK_MAX_ROWS
 CROSS_CHUNK = 128        # csrc/megastep.cu CS
-GEMM_TILE = 64           # csrc/megastep.cu G_TILE: weight columns a CTA, K chunk
-GEMM_CTAS = 132          # csrc/megastep.cu G_CTAS: the CTAs a projection aims for
-GEMM_MAX_SLICES = 8      # csrc/megastep.cu G_MAX_SLICES: one portable cluster
+GEMM_TILE = 64           # csrc/wgemm.cuh G_TILE: weight columns a CTA, K chunk
+GEMM_CTAS = 132          # csrc/wgemm.cuh G_CTAS: the CTAs a projection aims for
+GEMM_MAX_SLICES = 8      # csrc/wgemm.cuh G_MAX_SLICES: one portable cluster
 SMEM_MAX = 227 * 1024    # an H100 CTA's shared memory
 
 launches = 0            # bf16 mode
@@ -97,7 +98,7 @@ _QUANT = (("self", "q_w"), ("self", "k_w"), ("self", "v_w"), ("self", "o_w"),
           ("cross", "q_w"), ("cross", "o_w"), ("fc1_w",), ("fc2_w",))
 
 def gemm_slices(k: int, n: int, jobs: int = 1) -> int:
-    """K slices of one K2 projection (csrc/megastep.cu ``gemm_slices``):
+    """K slices of one K2 projection (csrc/wgemm.cuh ``gemm_slices``):
     enough for ``GEMM_CTAS`` CTAs over the (N / 64) x jobs column tiles, at
     most a cluster's 8 and one per 64-wide K chunk.  It reads K, N and the
     job count only, never the rows."""

@@ -11,23 +11,31 @@ the sequential grid.  K5 replaces ``whisper_medusa_tpu/ops/verify.py::_kernel``
 
 On Hopper the CTAs of a grid run in parallel, so ``csrc/verify.cu`` splits the
 work into three launches behind one C entry: (A) the rows, by the skinny
-tensor-core GEMM batched over the heads; (B) one CTA per 64-entry vocab tile
-that scores all rows on the tensor cores, applies the processors and writes
-per-(tile, row) partial statistics; (C) a per-row combine over the tiles
-with argmax ties broken to the lowest column.  The logits never reach device
-memory.  Stage B is the bound at R = 121: 16 GFLOP of bf16 products plus the
-133 MB embedding stream.  K5 is stages B and C alone, with a second grid
-dimension over 128-row blocks, for R <= 1024: the vanilla loop's B rows and
-the two-pass loop's B*N head-0 rows.  Its bound is the 133 MB embedding
-stream (40 us at 3.35 TB/s) for R up to ~250, the 2*R*V*D products beyond.
-``head_rows`` (C entry ``wm_head_rows``) is K4's stage A alone, so that the
-two-pass loop's head-0 rows carry the same bits as K4's.
+tensor-core GEMM batched over the heads; (B) the vocab stream, which scores
+the rows against every 64-entry vocab tile on the tensor cores, applies the
+processors and writes per-(tile, row) partial statistics; (C) a per-row
+combine over the tiles with argmax ties broken to the lowest column.  The
+logits never reach device memory.  Stage B is a persistent TMA-fed stream
+in the manner of K7: one producer warp keeps a ring of (two E tiles, rows
+tile) stages in flight, two consumer warpgroups run ``wgmma``, each with
+its E tile as the 64-row side and the shared rows (up to 192 a pass,
+zero-filled past R) as the other, and stage each tile's sums in shared
+memory for the statistics, so a row's partials do not depend on R or on
+the rows beside it.  K5 is stages
+B and C alone, for R <= 1024 rows a call (the vanilla loop's B rows and the
+two-pass loop's B*N head-0 rows; past 192 rows the stream takes passes of
+192); K4's stage B is the same function over its R <= 128 rows.  The bound
+is the 133 MB embedding stream (40 us at 3.35 TB/s) for R up to ~250, the
+2*R*V*D products beyond.  ``head_rows`` (C entry ``wm_head_rows``) is K4's
+stage A alone, so that the two-pass loop's head-0 rows carry the same bits
+as K4's.
 
 int8 serving (the JAX ``quant`` / ``hquant`` modes) is a mode of the same
-three entries: an int8 embedding ``{"q": (V, D) int8, "s": (V,) f32}`` is
-converted to bf16 as it is staged and column v's f32 sum is multiplied by
-``s[v]`` before the processors; int8 heads ``{"q": (nh, D, D), "s": (nh,
-D)}`` go through the skinny GEMM's W8A16 form (scale before the bias).  The
+three entries: an int8 embedding ``{"q": (V, D) int8, "s": (V,) f32}``
+streams as raw int8 tiles converted exactly to bf16 in shared memory, and
+column v's f32 sum is multiplied by ``s[v]`` before the processors; int8
+heads ``{"q": (nh, D, D), "s": (nh, D)}`` go through the skinny GEMM's
+W8A16 form (scale before the bias).  The
 plain versions score ``bf16(rows)`` against an int8 embedding, as the JAX
 ``qmm_nt`` does.
 
@@ -60,7 +68,8 @@ NEG = -float(np.finfo(np.float32).max) / 2
 MAX_R = 128              # K4
 MAX_ROWS_R = 1024        # rows per K5 launch (csrc/verify.cu VR_MAX_ROWS, the JAX _MAX_R)
 MAX_SRC_ROWS = 128       # rows per head_rows launch (csrc/common.cuh SK_MAX_ROWS)
-TILE = 64                # csrc/common.cuh VT
+TILE = 64                # csrc/verify.cu VS_VT: vocab entries a tile (partials' columns)
+PASS_ROWS = 192          # csrc/verify.cu VS_MAX_MT * 16: rows the vocab stream takes a pass
 
 launches = 0             # K4 (verify_hidden) kernel launches, bf16 embedding
 rows_launches = 0        # K5 (verify_rows) kernel launches, bf16 embedding
