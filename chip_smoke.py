@@ -18,9 +18,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      call; the
      int8 modes of K2, K4, K5 and head_rows; K2's Medusa-Block mode and K4's
      identity0 rows, bf16 and int8 (K2's six projections on its
-     weight-streaming GEMM, launched with programmatic dependent launch; at
-     (1, 11), (8, 11) and (8, 1) its device time, the projections' share
-     and the C entry's host time printed); K6 qmm at init_cache's (1500,
+     weight-streaming GEMM, its self- and cross-attention on K10's cluster
+     body, all launched with programmatic dependent launch; its 2-layer
+     checks include chunks that straddle the self-attention's 160-key
+     slices; at (1, 11), (8, 11) and (8, 1) its device time, the
+     projections' share, the C entry's host time and each attention
+     kernel's device time a launch beside its byte bound, SDPA's device time
+     on the same work, its launches a layer, how early it starts under
+     programmatic dependent launch and how many of its clusters fit the
+     card printed); K6 qmm at init_cache's (1500,
      1280, 1280), the per-op step's B=16 shapes and whisper tiny's fc1, its
      first 16 rows bitwise an M=16 call's, and K7 qmm_nt (the TMA-fed weight
      stream; the first 10 rows of its M=80 call bitwise an M=10 call's, its
@@ -44,7 +50,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      computed from the bytes and operations of the same call; then the
      per-op decoder step (cuBLAS or K6 projections, K10, K11) against K2 on
      the same inputs and caches at (B, T) = (8, 11) and (8, 1), bf16 and
-     int8, 32 layers, cosine >= 0.9998, with both timed; P3 end to end: one
+     int8, 32 layers, cosine >= 0.9998 (printed beside the previous K2
+     attention's), with both timed; P3 end to end: one
      per-op step at B=8 against each example's B=1 step, large-v2 bf16 and
      int8 and whisper tiny, every layer's self-attention (K10's mask mode)
      and the step's hidden output bitwise;
@@ -1214,15 +1221,23 @@ def _embedded(dec, toks, offsets):
     return whisper.embed_lookup(dec["embed_tokens"], toks.long()) + dec["pos_embed"][pos]
 
 
+# The cosines check_per_op_step printed against the previous K2 attention
+# (commit c6bde6f: cross-attention as 128-key chunk partials and a combine
+# kernel, a scalar self-attention kernel), on an NVIDIA H100 80GB HBM3 at
+# 700 W: {(mode, T): (pre_norm, hidden)}.
+PER_OP_COS_BEFORE = {("bf16", 11): (0.999894, 0.999892), ("bf16", 1): (0.999905, 0.999902),
+                     ("int8", 11): (0.999892, 0.999890), ("int8", 1): (0.999901, 0.999899)}
+
+
 def check_per_op_step(models, enc8, enc16):
     """The per-op step (whisper.decoder_layers_ops: cuBLAS or K6
     projections, K10, K11) against K2 on the same inputs and copies of one
     cache, at full large-v2 width, 32 layers: after a K2 prefill (T=4), (B,
     T) = (8, 11) and (8, 1) at per-example offsets, bf16 and int8.
     pre_norm and hidden cosine >= 0.9998 (the per-op step rounds each
-    cuBLAS product to bf16 before its bias; K2 does not).  Times the per-op
-    step and K2 at (8, 11), the per-op step at (16, 11); returns the worst
-    cosine."""
+    cuBLAS product to bf16 before its bias; K2 does not), printed beside
+    PER_OP_COS_BEFORE.  Times the per-op step and K2 at (8, 11), the per-op
+    step at (16, 11); returns the worst cosine."""
     from whisper_medusa_tpu_torch.models import whisper
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
@@ -1255,8 +1270,10 @@ def check_per_op_step(models, enc8, enc16):
             k2 = run(MS.megastep_kernel, x, offsets, cache)
             ops = run(whisper.decoder_layers_ops, x, offsets, copy)
             cos = [cosine(a, b) for a, b in zip(k2[:2], ops[:2])]
+            old = PER_OP_COS_BEFORE[(mode, t)]
             log(f"per-op step vs K2, {mode}, 32 layers, B=8 T={t} offsets {offs}: pre_norm "
-                f"cosine {cos[0]:.6f}, hidden {cos[1]:.6f}")
+                f"cosine {cos[0]:.6f}, hidden {cos[1]:.6f} (against the previous K2 "
+                f"attention: {old[0]:.6f}, {old[1]:.6f})")
             require(min(cos) >= 0.9998, f"per-op step vs K2 {mode} T={t}: cosine {cos}")
             worst = min(worst, *cos)
             if t == 11:
@@ -1305,6 +1322,67 @@ def _megastep_cost(dec_layers, ln_post, cache, offs, t, cross_len, block=None):
                     + (0 if block is None else mat_elems(block, False)))
            + nl * 4 * t * hist * d + nl * 4 * m * cross_len * d)
     return moved, ops
+
+
+def k2_attention_times(name, run, rows, cache, offsets, offs, t, quant):
+    """K2's self- and cross-attention (the cluster body's K2 instantiations)
+    in the profile ``rows`` of one step ``run`` (device_profile._by_kernel):
+    device ms a launch and launches a layer, beside the byte bound of one
+    launch (the self-attention's history, fresh and committed rows; all
+    cross K/V) and, on bf16 caches, SDPA's device time on the same work:
+    slot 0's cross K/V re-laid head-major, and its self slab under the
+    step's mask.  Also how early each starts under programmatic dependent
+    launch (the kernel before it still running: its CTAs found room), from
+    the trace, and how many of its clusters the card holds at once."""
+    import ctypes
+
+    from whisper_medusa_tpu_torch.device_profile import _device_events, _short
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import cuda_lib
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nl, b, s_len, d = cache.self_k.shape
+    nh, s_enc = cache.cross_k.shape[2], cache.cross_k.shape[4]
+    es, row_s = cache.self_k.element_size(), 2 * nh if quant else 0
+    qo = 2 * b * t * d * 2                       # q read and out written, bf16
+    hist = sum(offs)
+    self_cost = (2 * hist * (d * es + row_s) + 2 * b * t * d * 2
+                 + 2 * b * t * (d * es + row_s) + qo,
+                 4 * nh * 64 * sum(t * (off + t) for off in offs))
+    cross_cost = (2 * b * s_enc * d * cache.cross_k.element_size()
+                  + (2 * b * nh * s_enc * 4 if quant else 0) + qo,
+                  4 * b * nh * t * s_enc * 64)
+    yard = {"self": None, "cross": None}
+    if not quant:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED)
+        q = (torch.randn((b, nh, t, 64), generator=g, device="cuda") * 0.125).to(torch.bfloat16)
+        heads = lambda x: x.reshape(b, -1, nh, 64).transpose(1, 2).contiguous()
+        kh, vh = cache.cross_k[0].transpose(2, 3).contiguous(), heads(cache.cross_v[0])
+        yard["cross"] = device_ms(lambda: sdpa(q, kh, vh, scale=1.0))
+        sk, sv = heads(cache.self_k[0]), heads(cache.self_v[0])
+        mask = whisper.make_step_mask(offsets, t, s_len, None)
+        yard["self"] = device_ms(lambda: sdpa(q, sk, sv, attn_mask=mask, scale=1.0))
+        del kh, vh, sk, sv
+    events = _device_events(run, 2)
+    clusters = (ctypes.c_int * 2)()
+    require(cuda_lib.lib().wm_megastep_clusters(b, nh, s_len, s_enc, int(quant), clusters) == 0,
+            "wm_megastep_clusters")
+    for i, (kind, tag, cost) in enumerate((("self", ", true, true>", self_cost),
+                                           ("cross", ", false, true>", cross_cost))):
+        match = lambda k: k.startswith("cross_decode_kernel<") and k.endswith(tag)
+        found = [(us, n) for k, (us, n) in rows.items() if match(k)]
+        require(len(found) == 1, f"K2 {name}: one {kind}-attention kernel in the profile")
+        us, n = found[0]
+        lead = [events[j - 1][2] - events[j][1] for j in range(1, len(events))
+                if match(_short(events[j][0]))]
+        b_ms, b_by = bound(*cost)
+        log(f"K2 {name} B={b} T={t} {kind}-attention (cluster body): device "
+            f"{us / n / 1e3:.4f} ms a launch, {n / nl:.0f} a layer ({us / 1e3:.4f} ms a "
+            f"step); bound {b_ms:.4f} ms ({b_by}); SDPA "
+            + ("none (int8 caches)" if yard[kind] is None else f"{yard[kind]:.4f} ms device")
+            + f"; starts {statistics.mean(lead):.2f} us before the kernel before it ends "
+            f"(min {min(lead):.2f}); {clusters[i]} clusters fit the card at once; {SMI}")
 
 
 def check_megastep_full(model, enc1, enc8, block=None):
@@ -1432,6 +1510,7 @@ def check_megastep_full(model, enc1, enc8, block=None):
                     f"{plain_ms:.4f} ms, bound {b_ms[0]:.4f} ms ({b_ms[1]}; "
                     f"{cost[0] / 1e9:.3f} GB, {cost[1] / 1e9:.1f} GFLOP)")
                 rows = _by_kernel(run, 5)
+                k2_attention_times(name, run, rows, cache, offsets, offs, t, q)
                 gemm = sum(us for k, (us, _) in rows.items() if k.startswith("wgemm_kernel"))
                 durations, busy = _overlap_ms(run, 5)
                 log(f"K2 {name} {nl}-slot B={b} T={t}: device "
@@ -2214,8 +2293,10 @@ def main():
     k1 = check_attention(g)
     check_tma_guards()
     check_attention_lse(g)
+    # The last shape's chunks straddle the 160-key slices of K2's self-
+    # attention over S = 460 (each committed by two cluster ranks).
     steps2 = ((4, [0]), (11, [7]), (1, [0, 17, 100, 5, 300, 440, 2, 63]),
-              (11, [7, 0, 120, 33, 448, 5, 260, 90]))
+              (11, [7, 0, 120, 33, 448, 5, 260, 90]), (11, [155, 315, 150, 0]))
     err2 = max(check_megastep_2layer(g, t, offs) for t, offs in steps2)
     err2q = max(check_megastep_2layer_int8(g, t, offs) for t, offs in steps2)
     err2b = max(check_megastep_2layer(g, t, offs, block=True) for t, offs in steps2)

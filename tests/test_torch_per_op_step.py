@@ -111,4 +111,5 @@ def test_fits_is_k2_scope():
     assert not tmegastep.fits(layers, x(1, 17), sk, ck, 20)         # T > 16
     assert not tmegastep.fits(layers, x(1, 1, 384), sk, ck, 6)      # tiny: D % 256
     assert not tmegastep.fits(layers, x(1, 1), sk, ck, 10)          # heads of 128
-    assert not tmegastep.fits(layers, x(1, 1), torch.zeros((2, 1, 2048, 1280)), ck, 20)
+    # A self slab past the attention's cluster split (8 CTAs of 384 keys).
+    assert not tmegastep.fits(layers, x(1, 1), torch.zeros((2, 1, 3088, 1280)), ck, 20)

@@ -75,7 +75,7 @@ MAX_NEW_TOKENS = 128
 def _short(name: str) -> str:
     """A kernel's name without its argument list and template arguments (the
     port's kernels keep theirs: row tiles and int8 form, e.g.
-    skinny_gemm_kernel<6, true>, cross_partial_kernel<signed char>)."""
+    wgemm_kernel<6, true>, cross_decode_kernel<signed char, false, true>)."""
     m = re.search(r"wm::\(anonymous namespace\)::(\w+(?:<[^>]*>)?)\(", name)
     if m:
         return m.group(1)

@@ -23,16 +23,19 @@ times exclude the wrappers' checks and allocations:
     frequencies and the dense filter bank, one that takes the factored
     DFT's tables gets ``ops/mel.py::device_fft_tables``;
   * K10, ``wm_cross_decode``, at (16, 20, 11, 64) x 1500, bf16 and int8 K/V
-    (the per-op step's cross-attention at B=16 on the Medusa chain);
+    (the per-op step's cross-attention at B=16 on the Medusa chain), and its
+    mask mode, ``wm_self_decode``, at (16, T=11, 20 heads) x 460 (the per-op
+    step's self-attention);
   * K7, ``wm_qmm_nt``, at M = 10 and 80 rows against large-v2's int8 tied
     embedding (the B=1 and B=8 draft projections), with ``x @ E.T`` on a
     bf16 copy timed beside it;
   * K2, ``wm_megastep_step``, over 32 seeded large-v2 layers at (B, T) =
-    (1, 11), (8, 11) and (8, 1), bf16 and int8, and in block mode at
-    (1, 11), called through ``ops/megastep.py`` with each build's library
-    (the entry's pointer table is the same in both), with the C entry's
-    host time (CPU clock around the ctypes call, no synchronize) beside its
-    CUDA-event and device times;
+    (1, 11), (8, 11) and (8, 1), bf16, int8 and bf16 block mode, called
+    through each checkout's own ``ops/megastep.py`` (its pointer table may
+    differ) with that checkout's library, with the C entry's host time (CPU
+    clock around the ctypes call, no synchronize) beside its CUDA-event and
+    device times, and the device time a step of its attention kernels by
+    name;
   * K11, ``wm_ffn_decode``, at large-v2's (D, F) = (1280, 5120) for M = 16,
     88 and 176 rows and whisper tiny's (384, 1536) for M = 11 and 88; K5,
     ``wm_verify_rows``, at R = 8, 88, 176 and 1024 against large-v2's bf16
@@ -52,7 +55,7 @@ device time per call under torch.profiler (``device_profile._by_kernel``:
 the time the device is busy with the call's kernels, which the events
 exceed where the host's launch overhead is the longer).  The two builds'
 outputs are compared first (K1 within 2e-2, K6 and K7 within 1e-3 of max
-|y|, K8's normalized features within 1e-3, K10 within 1e-2 + 1e-2 |x|, K2's
+|y|, K8's normalized features within 1e-3, K10 and its mask mode bitwise, K2's
 hidden states at cosine >= 0.999, K11 within 2e-2 + 2e-2 |x|, K5's and
 K4's max / lse / gathered within 1e-2 and their argmax on all but 1 % of
 the rows: the builds sum in other orders).
@@ -222,18 +225,42 @@ def main(argv=None):
             o.data_ptr(), b, h, t, s_len, s_len)) for who, mod in libs.items()}
         for fn in calls.values():
             fn()
-        a, o = outs["this"].float(), outs["other"].float()
-        if not bool(((a - o).abs() <= 1e-2 + 1e-2 * o.abs()).all()):
+        if not torch.equal(outs["this"], outs["other"]):
             raise AssertionError(f"K10 int8={int8}: the builds differ by "
-                                 f"{float((a - o).abs().max())}")
+                                 f"{float((outs['this'].float() - outs['other'].float()).abs().max())}")
         _turns(f"K10 ({b},{h},{t},64) x {s_len} {'int8' if int8 else 'bf16'}, builds "
-               f"differ by {float((a - o).abs().max()):.3e}", calls)
+               f"bitwise equal", calls)
     del q, k, v, outs
+    _k10_mask(libs, g)
 
     _k7(libs, g)
-    _k2(libs, g)
+    _k2(root, libs, g)
     _k11(root, libs, g)
     _verify(root, libs, g)
+
+
+def _k10_mask(libs, g):
+    """K10's mask mode, ``wm_self_decode``, at (16, T=11, 20 heads) x 460
+    (the per-op step's self-attention at B=16) at offsets 3-400, causal
+    chunk bits; the builds' outputs must be bitwise equal."""
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    b, h, t, s_len = 16, 20, 11, 460
+    rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    q = (torch.randn((b, t, h, 64), generator=g, device="cuda") * 0.125).to(torch.bfloat16)
+    k, v = rnd(b, s_len, h * 64), rnd(b, s_len, h * 64)
+    offs = torch.tensor([3 + (37 * e) % (s_len - t - 3) for e in range(b)], dtype=torch.int32,
+                        device="cuda")
+    bits = DO.chunk_bits(None, t, "cuda")
+    outs = {who: torch.empty_like(q) for who in libs}
+    calls = {who: (lambda mod=mod, o=outs[who]: mod.launch(
+        "wm_self_decode", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), offs.data_ptr(),
+        bits.data_ptr(), o.data_ptr(), b, h, t, s_len, t)) for who, mod in libs.items()}
+    for fn in calls.values():
+        fn()
+    if not torch.equal(outs["this"], outs["other"]):
+        raise AssertionError("K10 mask mode: the builds differ")
+    _turns(f"K10 mask mode ({b}, T={t}, {h} heads) x {s_len}, builds bitwise equal", calls)
 
 
 def _k11(root, libs, g):
@@ -363,64 +390,81 @@ def _random_layers(g, nl, d=1280, f=5120):
             "fc2_w": rnd(nl, f, d), "fc2_b": rnd(nl, d)}, ln()
 
 
-def _k2(libs, g):
-    """K2, ``wm_megastep_step``, through ``ops/megastep.py::megastep_kernel``
-    with each build's library in turn: 32 seeded large-v2 layers, bf16 and
-    int8 (``quantize_layers``), at (B, T) in K2_ROWS, offsets 20 on a
-    460-row cache; the block mode once, bf16 at (1, 11).  Besides events
-    and device ms, each turn prints the C entry's host time
-    (``device_profile._entry_host_ms``).  The builds' hidden states must
-    agree at cosine >= 0.999 (their K sums differ in order, and 32 layers
+def _attention_ms(rows):
+    """K2's attention kernels in a profile (``_by_kernel`` rows): {name: ms
+    a step}, by their names in either build (the cluster body's
+    ``cross_decode_kernel``, or the chunked cross partials, their combine
+    and the self-attention kernel)."""
+    keep = ("cross_decode_kernel", "cross_partial_kernel", "cross_combine_kernel",
+            "self_attn_kernel")
+    return {k: us / 1e3 for k, (us, _) in rows.items() if k.startswith(keep)}
+
+
+def _k2(root, libs, g):
+    """K2, ``wm_megastep_step``, through each checkout's own
+    ``ops/megastep.py::megastep_kernel`` (loaded from that checkout, calling
+    its library: the pointer tables differ) on the same inputs: 32 seeded
+    large-v2 layers, bf16, int8 (``quantize_layers``) and the bf16 block
+    mode, at (B, T) in K2_ROWS, offsets 20 on a 460-row cache.  Besides
+    events, device ms and the C entry's host time
+    (``device_profile._entry_host_ms``), each turn prints its attention
+    kernels' device ms a step by name.  The builds' hidden states must
+    agree at cosine >= 0.999 (their sums differ in order, and 32 layers
     compound the roundings)."""
     from whisper_medusa_tpu_torch.device_profile import _entry_host_ms
     from whisper_medusa_tpu_torch.models import whisper
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
+    mods = {"other": _other_ops(root, "megastep", libs["other"]), "this": MS}
     nl, h, s_enc, s_len, d = 32, 20, 1500, 460, 1280
     layers, ln_post = _random_layers(g, nl)
     qlayers = QM.quantize_layers(layers)
     block = whisper.layer_params(_random_layers(g, 1)[0], 0)
-    for quant, b, t, blk in [(q, b, t, None) for q in (False, True) for b, t in K2_ROWS] + [
-            (False, 1, 11, block)]:
-        n = nl + (blk is not None)
-        if quant:
-            i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, device="cuda",
-                                              dtype=torch.int8)
-            scl = lambda *shape: 0.004 + 0.012 * torch.rand(shape, generator=g, device="cuda")
-            sk, sv, ck, cv = i8(n, b, s_len, d), i8(n, b, s_len, d), i8(n, b, h, 64, s_enc), \
-                i8(n, b, s_enc, d)
-            kw = dict(self_s=scl(n, b, s_len, 2 * h).to(torch.bfloat16),
-                      cross_k_s=scl(n, b, h, s_enc), cross_v_s=scl(n, b, h, s_enc))
-        else:
-            rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(
-                torch.bfloat16)
-            sk, sv, ck, cv = rnd(n, b, s_len, d), rnd(n, b, s_len, d), rnd(n, b, h, 64, s_enc), \
-                rnd(n, b, s_enc, d)
-            kw = {}
-        x = torch.randn((b, t, d), generator=g, device="cuda").to(torch.bfloat16)
-        offs = torch.full((b,), 20, dtype=torch.int32, device="cuda")
-        lay = qlayers if quant else layers
-        run = lambda: MS.megastep_kernel(lay, ln_post, x, sk, sv, ck, cv, offs, None, s_enc, h,
-                                         block=blk, **kw)
-        outs, cells = {}, []
-        try:
+    for quant, blk in ((False, None), (True, None), (False, block)):
+        for b, t in K2_ROWS:
+            n = nl + (blk is not None)
+            if quant:
+                i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g,
+                                                  device="cuda", dtype=torch.int8)
+                scl = lambda *shape: 0.004 + 0.012 * torch.rand(shape, generator=g,
+                                                                device="cuda")
+                sk, sv = i8(n, b, s_len, d), i8(n, b, s_len, d)
+                ck, cv = i8(n, b, h, 64, s_enc), i8(n, b, s_enc, d)
+                kw = dict(self_s=scl(n, b, s_len, 2 * h).to(torch.bfloat16),
+                          cross_k_s=scl(n, b, h, s_enc), cross_v_s=scl(n, b, h, s_enc))
+            else:
+                rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(
+                    torch.bfloat16)
+                sk, sv = rnd(n, b, s_len, d), rnd(n, b, s_len, d)
+                ck, cv = rnd(n, b, h, 64, s_enc), rnd(n, b, s_enc, d)
+                kw = {}
+            x = torch.randn((b, t, d), generator=g, device="cuda").to(torch.bfloat16)
+            offs = torch.full((b,), 20, dtype=torch.int32, device="cuda")
+            lay = qlayers if quant else layers
+            outs, cells, attn = {}, [], []
             for who in ("other", "this", "this", "other"):
-                MS.cuda_lib = libs[who]
+                mod = mods[who]
+                run = lambda mod=mod: mod.megastep_kernel(lay, ln_post, x, sk, sv, ck, cv, offs,
+                                                          None, s_enc, h, block=blk, **kw)
                 outs.setdefault(who, run()[1].float())
                 ev = _cuda_ms(run)
-                dev = sum(us for us, _ in _by_kernel(run, 5).values()) / 1e3
+                rows = _by_kernel(run, 5)
+                dev = sum(us for us, _ in rows.values()) / 1e3
                 host = _entry_host_ms(run, "wm_megastep_step", lib=libs[who])
                 cells.append(f"{who} {ev:.4f} / {dev:.4f} / {host:.4f}")
-        finally:
-            MS.cuda_lib = cuda_lib
-        cos = float(torch.nn.functional.cosine_similarity(
-            outs["this"].reshape(1, -1), outs["other"].reshape(1, -1)))
-        if cos < 0.999:
-            raise AssertionError(f"K2 ({b},{t}): the builds' hidden states at cosine {cos}")
-        mode = ("int8" if quant else "bf16") + (" block" if blk is not None else "")
-        print(f"K2 megastep {mode} (B, T) = ({b}, {t}), 32 layers, builds at cosine "
-              f"{cos:.6f}: events / device / C-entry host ms: " + ", ".join(cells), flush=True)
-        del sk, sv, ck, cv
+                attn.append(f"{who} " + ", ".join(
+                    f"{k} {ms:.4f}" for k, ms in sorted(_attention_ms(rows).items())))
+            cos = float(torch.nn.functional.cosine_similarity(
+                outs["this"].reshape(1, -1), outs["other"].reshape(1, -1)))
+            if cos < 0.999:
+                raise AssertionError(f"K2 ({b},{t}): the builds' hidden states at cosine {cos}")
+            mode = ("int8" if quant else "bf16") + (" block" if blk is not None else "")
+            print(f"K2 megastep {mode} (B, T) = ({b}, {t}), {n} slots, builds at cosine "
+                  f"{cos:.6f}: events / device / C-entry host ms: " + ", ".join(cells),
+                  flush=True)
+            print(f"K2 megastep {mode} (B, T) = ({b}, {t}): attention kernels, device ms a "
+                  "step: " + "; ".join(attn), flush=True)
+            del sk, sv, ck, cv
 
 
 if __name__ == "__main__":

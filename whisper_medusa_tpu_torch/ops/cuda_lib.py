@@ -51,6 +51,7 @@ _SIGNATURES = {
     "wm_attention_fwd": [_vp] * 5 + [_ci] * 7 + [_vp],
     "wm_attention_bwd": [_vp] * 11 + [_ci] * 7 + [_vp],
     "wm_megastep_step": [_ptrs, _ints, _vp],
+    "wm_megastep_clusters": [_ci] * 5 + [_ints],
     "wm_logits": [_vp] * 3 + [_ci] * 3 + [_vp],
     "wm_verify_hidden": [_ptrs, _ints, ctypes.c_float, _vp],
     "wm_verify_rows": [_ptrs, _ints, ctypes.c_float, _vp],

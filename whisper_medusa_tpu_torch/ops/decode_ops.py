@@ -12,7 +12,8 @@ K10 replaces the TPU kernel
 ``tools/decode_kernels_experiment.py::_cross_kernel`` (launched by
 ``_cross_pallas``), one program per example with the head loop unrolled.
 ``csrc/decode_ops.cu::wm_cross_decode`` runs one thread-block cluster per
-(example, head): its C CTAs (C = min(8, ceil(S / 192)), from S alone:
+(example, head) (the body in ``csrc/cluster_attn.cuh``, which K2's
+attention shares): its C CTAs (C = min(8, ceil(S / 192)), from S alone:
 :func:`cluster_split`) each take a contiguous slice of the keys, load it
 with ``cp.async`` (K as one group, V as a second still in flight while the
 scores run), compute their scores and later their partial PV on the tensor
@@ -78,14 +79,14 @@ from whisper_medusa_tpu_torch.ops import megastep as megastep_mod
 from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
 
 NEG_BIG = -0.7 * torch.finfo(torch.float32).max
-HEAD_DIM = 64            # csrc/decode_ops.cu CD_DH
-MAX_T = 16               # csrc/decode_ops.cu CD_MAXT: query rows of one launch
+HEAD_DIM = 64            # csrc/cluster_attn.cuh CD_DH
+MAX_T = 16               # csrc/cluster_attn.cuh CD_MAXT: query rows of one launch
 MAX_CHUNK_BITS = 32      # a chunk-bit row is one int32: the mask mode's widest chunk
 FFN_ROWS = 192           # csrc/wgemm.cuh G_MAX_MT * 16: K11's rows per launch
 FFN_MAX_STAGES = 3       # csrc/decode_ops.cu FFN_MAX_STAGES
-CLUSTER_KEYS = 192       # csrc/decode_ops.cu CD_KEYS: keys a CTA takes before C grows
-MAX_CLUSTER = 8          # csrc/decode_ops.cu CD_MAXC
-MAX_SLICE = 384          # csrc/decode_ops.cu CD_MAXSLICE: keys a CTA holds at most
+CLUSTER_KEYS = 192       # csrc/cluster_attn.cuh CD_KEYS: keys a CTA takes before C grows
+MAX_CLUSTER = 8          # csrc/cluster_attn.cuh CD_MAXC
+MAX_SLICE = 384          # csrc/cluster_attn.cuh CD_MAXSLICE: keys a CTA holds at most
 
 cross_launches = 0       # K10, bf16 K/V
 q_cross_launches = 0     # K10, int8 K/V
@@ -124,9 +125,9 @@ def ffn_decode_plain(x: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
 
 
 def cluster_split(s: int) -> Tuple[int, int]:
-    """K10's key split of S keys (csrc/decode_ops.cu ``cd_split``): (C, SC),
-    C = min(8, ceil(S / 192)) CTAs of a cluster, rank r taking keys
-    [r * SC, (r + 1) * SC), SC = ceil(S / C) rounded up to 16."""
+    """K10's key split of S keys (csrc/cluster_attn.cuh ``cd_split``, K2's
+    too): (C, SC), C = min(8, ceil(S / 192)) CTAs of a cluster, rank r
+    taking keys [r * SC, (r + 1) * SC), SC = ceil(S / C) rounded up to 16."""
     c = min(MAX_CLUSTER, -(-s // CLUSTER_KEYS))
     return c, -(-(-(-s // c)) // 16) * 16
 

@@ -6,12 +6,12 @@ phases) grid that streams every decoder weight through VMEM while the hidden
 state stays resident.
 
 The Hopper version (``csrc/megastep.cu``) is one C entry, ``wm_megastep_step``,
-that launches twelve small kernels per layer on the current stream — layernorm,
-a weight-streaming GEMM for q/k/v (and o, cross q/o, fc1, fc2) with fused
-bias / scale / GELU / residual epilogues, self-attention with the in-place
-K/V commit, and cross-attention split over 128-key chunks plus a combine —
-so Python makes one ctypes call per decode step; the entry ends with the
-final layer norm (``ln_post``) into a second buffer.  It is bound by bytes:
+that launches eleven small kernels per layer on the current stream —
+layernorm, a weight-streaming GEMM for q/k/v (and o, cross q/o, fc1, fc2)
+with fused bias / scale / GELU / residual epilogues, self-attention with
+the in-place K/V commit, and cross-attention — so Python makes one ctypes
+call per decode step; the entry ends with the final layer norm
+(``ln_post``) into a second buffer.  It is bound by bytes:
 at large-v2 a step reads 1.47 GB of bf16 weights whatever B is, and
 B x 246 MB of cross K/V (counted from the shapes).  The GEMM computes
 Y^T = W^T X^T on ``wgmma`` (``csrc/wgemm.cuh``, shared with K11): a CTA
@@ -22,10 +22,20 @@ are added in rank order
 through distributed shared memory (:func:`gemm_slices`: from (K, N, jobs)
 alone, enough slices for the 132 SMs), and every kernel of the step is
 launched with programmatic dependent launch, so a GEMM's first weight
-tiles load while the kernels before it finish.  Splitting cross-attention
-over the keys spreads a step over 240 x B CTAs.  Every kernel's per-row
-arithmetic is independent of B*T, so an example decodes to the same bits
-alone or in a batch of eight.
+tiles load while the kernels before it finish.  The self- and
+cross-attention run K10's thread-block-cluster body
+(``csrc/cluster_attn.cuh``, shared with ``csrc/decode_ops.cu``): one
+cluster per (head, example) whose CTAs take slices of the keys chosen from
+the key count alone (:func:`attention_plan`: 8 x 192 of large-v2's 1500
+cross keys, 3 x 160 of a 460-row self slab), ``mma.sync`` scores and PV,
+row statistics merged in rank order through distributed shared memory and P
+rounded to bf16 once after the whole-row softmax, as the plain version
+rounds it.  The cross-attention issues its K/V copies before it waits for
+the cross-q projection; the self-attention (the body's mask mode) commits
+the chunk's K/V rows, each by the rank whose slice holds its position, and
+attends the chunk's own keys from the fresh projection rows.  Every
+kernel's per-row arithmetic is independent of B*T, so an example decodes
+to the same bits alone or in a batch of eight.
 
 int8 serving (the JAX kernel's ``quant`` / ``kv_quant`` / ``skv_quant``
 mode) is a mode of the same entry: the eight streamed weights are int8 with
@@ -36,8 +46,9 @@ position) scales (scores times the K scale before the softmax,
 probabilities times the V scale before the PV product), and the self slabs
 are int8 with bf16 per-(position, head) scales: the commit quantizes each
 64-lane row with ``sc = max(amax, 1e-30) / 127`` and round-half-even,
-attention reads the history rows as ``bf16(q * sc)`` and the chunk's own
-rows as the fresh bf16 K/V.  At large-v2 the step then streams 0.73 GB of
+attention reads the history rows as ``bf16(q * sc)`` (dequantized as they
+are staged, then the bf16 path) and the chunk's own rows as the fresh bf16
+K/V.  At large-v2 the step then streams 0.73 GB of
 weights and B x 123 MB of cross K/V (counted from the shapes).
 
 Medusa-Block serving (the JAX kernel's block layer, grid layer L) is a
@@ -55,8 +66,11 @@ update the self slabs (and scales) in place and return ``(pre_norm, hidden,
 block_hidden)``, ``block_hidden`` None without a block.  Scope of the
 kernel (:func:`fits`): bf16 activations, bf16 or int8 weights and caches,
 B <= 8, T <= 16 (so B*T <= 128), Dh = 64, d_model and ffn_dim multiples of
-256; ``models/whisper.py::decode_step`` sends every other call to the
-per-op step (kernels K10 and K11, ops/decode_ops.py).
+256, self and cross key counts whose cluster slices fit a CTA (at most 8 x
+384 keys); ``models/whisper.py::decode_step`` sends every other call to the
+per-op step (kernels K10 and K11, ops/decode_ops.py).  The chunk mask must
+have its diagonal set (every query sees itself), as the decoding loop's
+masks do.
 """
 
 from __future__ import annotations
@@ -72,13 +86,11 @@ from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
 Params = Dict[str, Any]
 
 MAX_B = 8
-MAX_T = 16               # csrc/megastep.cu MAXT
+MAX_T = 16               # csrc/cluster_attn.cuh CD_MAXT
 MAX_ROWS = 128           # csrc/common.cuh SK_MAX_ROWS
-CROSS_CHUNK = 128        # csrc/megastep.cu CS
 GEMM_TILE = 64           # csrc/wgemm.cuh G_TILE: weight columns a CTA, K chunk
 GEMM_CTAS = 132          # csrc/wgemm.cuh G_CTAS: the CTAs a projection aims for
 GEMM_MAX_SLICES = 8      # csrc/wgemm.cuh G_MAX_SLICES: one portable cluster
-SMEM_MAX = 227 * 1024    # an H100 CTA's shared memory
 
 launches = 0            # bf16 mode
 q_launches = 0          # int8 mode
@@ -118,6 +130,19 @@ def gemm_plan(m: int, k: int, n: int, jobs: int = 1):
     return slices, list(zip(begin[:-1], begin[1:])), -(-m // 16)
 
 
+def attention_plan(s_enc: int, max_len: int):
+    """The launch geometry of K2's attention (``csrc/megastep.cu``
+    ``attention_plans``): {"cross": (C, SC), "self": (C, SC)}, clusters of C
+    CTAs taking SC keys each of the S_enc cross keys and of the max_len rows
+    of a self slab (``decode_ops.cluster_split``, K10's rule).  Each reads
+    its key count alone, never B, T or the data; a launch is a grid of (C,
+    H, B) CTAs."""
+    from whisper_medusa_tpu_torch.ops import decode_ops
+
+    return {"cross": decode_ops.cluster_split(s_enc),
+            "self": decode_ops.cluster_split(max_len)}
+
+
 def _leaf(tree, path):
     for k in path:
         tree = tree[k]
@@ -140,17 +165,20 @@ def fits(dec_layers: Params, x: torch.Tensor, self_k: torch.Tensor,
          cross_k: torch.Tensor, num_heads: int) -> bool:
     """Whether K2 takes this decode call — the counterpart of JAX
     ``megastep.available``: B <= 8, T <= 16, heads of 64, d_model and
-    ffn_dim multiples of 256, a cross length that is a multiple of 4 and a
-    self slab whose attention rows fit an SM's shared memory.  It reads only
-    shapes, so it routes a call alike on the CPU and on the card;
-    ``models/whisper.py::decode_step`` runs the per-op step where it is
-    False."""
+    ffn_dim multiples of 256, a cross length that is a multiple of 4, and
+    self and cross key counts whose cluster slices (:func:`attention_plan`)
+    fit a CTA.  It reads only shapes, so it routes a call alike on the CPU
+    and on the card; ``models/whisper.py::decode_step`` runs the per-op step
+    where it is False."""
+    from whisper_medusa_tpu_torch.ops import decode_ops
+
     b, t, d = x.shape
     f = dec_layers["fc1_b"].shape[-1]
     s_len = self_k.shape[2]
-    self_smem = t * (64 + s_len) * 4 + 16 + s_len * 64 * 2    # megastep.cu self_smem
-    return (1 <= b <= MAX_B and 1 <= t <= MAX_T and d == 64 * num_heads and d % 256 == 0
-            and f % 256 == 0 and cross_k.shape[-1] % 4 == 0 and self_smem <= SMEM_MAX)
+    plan = attention_plan(cross_k.shape[-1], s_len)
+    return (1 <= b <= MAX_B and 1 <= t <= MAX_T and d == 64 * num_heads
+            and d % 256 == 0 and f % 256 == 0 and cross_k.shape[-1] % 4 == 0
+            and all(sc <= decode_ops.MAX_SLICE for _, sc in plan.values()))
 
 
 def megastep_plain(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross_k,
@@ -233,7 +261,8 @@ def megastep_kernel(dec_layers: Params, ln_post: Params, x, self_k, self_v, cros
     if not fits(dec_layers, x, self_k, cross_k, num_heads):
         raise ValueError(
             f"megastep kernel takes B <= {MAX_B}, T <= {MAX_T}, Dh=64, D and F multiples "
-            f"of 256 and S_enc % 4 == 0; got x {tuple(x.shape)}, cross_k "
+            f"of 256, S_enc % 4 == 0 and key counts of at most 8 x 384; got x "
+            f"{tuple(x.shape)}, self_k {tuple(self_k.shape)}, cross_k "
             f"{tuple(cross_k.shape)}, F={f}")
     if (self_k.shape != (n_slots, b, s_len, d) or self_v.shape != self_k.shape
             or cross_k.shape != (n_slots, b, num_heads, dh, s_enc)
@@ -247,7 +276,6 @@ def megastep_kernel(dec_layers: Params, ln_post: Params, x, self_k, self_v, cros
     if chunk_mask is None:
         chunk_mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=dev))
     mask = chunk_mask.to(device=dev, dtype=torch.uint8).contiguous()
-    nch = -(-cross_len // CROSS_CHUNK)
     bf = dict(dtype=torch.bfloat16, device=dev)
     m16 = -(-(b * t) // 16) * 16          # the skinny GEMM reads 16-row tiles
     xbuf = torch.zeros((m16, d), **bf)
@@ -255,12 +283,10 @@ def megastep_kernel(dec_layers: Params, ln_post: Params, x, self_k, self_v, cros
     scratch = [torch.zeros((m16, d), **bf) for _ in range(5)]
     hbuf = torch.zeros((m16, f), **bf)
     hidden = torch.empty((b * t, d), **bf)
-    part = torch.empty((b * num_heads * t * nch * (dh + 2),), dtype=torch.float32,
-                       device=dev)
     # Block mode: the block's residual stream, 16-row tiles like xbuf.
     bbuf = None if block is None else torch.zeros((m16, d), **bf)
     block_weights = _values(block) if block is not None else [None] * len(_WEIGHTS)
-    tensors = [xbuf, *scratch, hbuf, part, self_k, self_v, cross_k, cross_v,
+    tensors = [xbuf, *scratch, hbuf, self_k, self_v, cross_k, cross_v,
                offsets, mask, *_values(dec_layers), *ln, hidden, *extra, bbuf,
                *block_weights, *block_scales]
     ptrs = (ctypes.c_void_p * len(tensors))(
