@@ -18,10 +18,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      call; the
      int8 modes of K2, K4, K5 and head_rows; K2's Medusa-Block mode and K4's
      identity0 rows, bf16 and int8 (K2's six projections on its
-     weight-streaming GEMM, its self- and cross-attention on K10's cluster
+     weight-streaming GEMM, its three layer norms a layer inside the q/k/v,
+     cross-q and fc1 GEMMs, its self- and cross-attention on K10's cluster
      body, all launched with programmatic dependent launch; its 2-layer
      checks include chunks that straddle the self-attention's 160-key
-     slices; at (1, 11), (8, 11) and (8, 1) its device time, the
+     slices; its 32-layer worst cosine against the plain step held at
+     K2_COS_FLOOR, every example of its B=8 calls bitwise a B=1 call, and
+     8 launches a layer plus one ln_rows_kernel (ln_post) a step required;
+     at (1, 11), (8, 11) and (8, 1) its device time, the
      projections' share, the C entry's host time and each attention
      kernel's device time a launch beside its byte bound, SDPA's device time
      on the same work, its launches a layer, how early it starts under
@@ -41,7 +45,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      launch and a tail), its M=176 rows bitwise an M=11 call's, its device
      time at M = 16 and 176 beside the three-call addmm / gelu / addmm
      yardstick's, and the device times of K4 at R=121 and K5 at R = 8, 88,
-     176 and 1024 (the vocab stream); head_rows, K3, K5 and K7 past one
+     176 and 1024 (the vocab stream); K3 (on K7's tied-embedding stream) at
+     M = 1 to 240, the first 10 rows of its M=80 call bitwise an M=10
+     call's, its device time at M = 10 and 80 beside ``x @ E.T``'s;
+     head_rows, K3, K5 and K7 past one
      launch's rows, blocked), and time the kernel, the plain version and,
      where one PyTorch call computes the same function, that call, with
      CUDA events (3 warm-ups, median of 20; K1, K6, K8 and K10 also by device
@@ -59,7 +66,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      each driven with every launch counter set to 0 just before and read
      just after: three Medusa requests at B=1; one vanilla request
      (``disable_medusa=True``) at B=1; one batched Medusa request and one
-     batched vanilla request of eight waveforms; then the same four requests
+     batched vanilla request of eight waveforms, and the batched Medusa
+     request again under the profiler (its tokens unchanged, no kernel of
+     the old K3 on the card, one ln_rows_kernel a K2 call, every K3 launch
+     the bf16 stream); then the same four requests
      (one at B=1) on ``model.quantize()``, the int8 serving copy, with the
      share of its tokens equal to the bf16 ones printed, not held; then
      Medusa-Block requests (10 heads and a block layer, sharing the Whisper
@@ -125,6 +135,10 @@ F32_FLOPS = 67e12
 
 
 SMI = "not read"          # nvidia-smi's name and power limit (phase_env)
+# K2's 32-layer outputs against its plain step (every mode's worst cosine):
+# the bound the step has held since its projections moved onto the GEMM,
+# recorded to six decimals.
+K2_COS_FLOOR = 0.999858
 
 
 def log(msg):
@@ -616,9 +630,18 @@ def check_logits(g, embed):
         log(f"K3 logits M={m}: max_abs_err {err:.3e} (bound {tol:.3e})")
         require(err <= tol, f"K3 M={m}: err {err} > {tol}")
         out[m] = (x, err)
-    x80 = out[80][0]
-    log(f"K3 logits M=80 (pass B at B=8): kernel "
-        f"{cuda_ms(lambda: LG.project_kernel(x80, embed)):.4f} ms")
+    same = torch.equal(LG.project_kernel(out[80][0][:10].contiguous(), embed),
+                       LG.project_kernel(out[80][0], embed)[:10])
+    log(f"K3 logits: the first 10 rows of the M=80 call bitwise an M=10 call: {same}")
+    require(same, "K3 logits: a row's bits depend on M")
+    for m in (10, 80):     # 80: pass B at B=8
+        x = out[m][0]
+        b_ms, b_by = bound(nbytes(x, embed) + m * embed.shape[0] * 4,
+                           2 * m * embed.shape[0] * embed.shape[1])
+        log(f"K3 logits M={m}: kernel {cuda_ms(lambda: LG.project_kernel(x, embed)):.4f} ms, "
+            f"device {device_ms(lambda: LG.project_kernel(x, embed)):.4f} ms; x @ E.T "
+            f"{cuda_ms(lambda: x @ embed.T):.4f} ms, device {device_ms(lambda: x @ embed.T):.4f} "
+            f"ms; bound {b_ms:.4f} ms ({b_by}); {SMI}")
     x10 = out[10][0]
     ms = cuda_ms(lambda: LG.project_kernel(x10, embed))
     plain_ms = cuda_ms(lambda: LG.project_plain(x10, embed))
@@ -1385,6 +1408,50 @@ def k2_attention_times(name, run, rows, cache, offsets, offs, t, quant):
             f"(min {min(lead):.2f}); {clusters[i]} clusters fit the card at once; {SMI}")
 
 
+# K2's kernels by name (device_profile._short): its GEMM (the LN mode's
+# instantiations end in ", true>"), the attention body, and ln_post.
+K2_KERNELS = ("wgemm_kernel<", "cross_decode_kernel<", "ln_rows_kernel")
+K2_PER_LAYER = 8          # LN + q/k/v, self, o, LN + cross q, cross, cross o, LN + fc1, fc2
+
+
+def k2_launches(name, rows, slots, b, t):
+    """K2's launches a step in the profile ``rows`` of one step
+    (device_profile._by_kernel): 8 a layer over ``slots`` layers (the
+    block's included) and exactly one ``ln_rows_kernel`` (ln_post); the
+    layer norms run inside the q/k/v, cross-q and fc1 GEMMs (3 a layer)."""
+    count = lambda pre, end="": round(sum(n for k, (_, n) in rows.items()
+                                          if k.startswith(pre) and k.endswith(end)))
+    total = sum(count(k) for k in K2_KERNELS)
+    ln_rows, ln_gemms = count("ln_rows_kernel"), count("wgemm_kernel<", ", true>")
+    log(f"K2 {name} B={b} T={t}: {total} launches a step over {slots} layers "
+        f"({(total - ln_rows) / slots:.2f} a layer), ln_rows_kernel {ln_rows} a step, "
+        f"LN-mode GEMMs {ln_gemms} a step")
+    require(total == K2_PER_LAYER * slots + 1 and ln_rows == 1 and ln_gemms == 3 * slots,
+            f"K2 {name} B={b} T={t}: {total} launches a step, ln_rows {ln_rows}, "
+            f"LN-mode GEMMs {ln_gemms} over {slots} layers")
+
+
+def k2_alone(dec, cache, x, offsets, dims, nh, block):
+    """Each example of a K2 call run alone, as a B=1 call on copies of its
+    cache rows (before the batched call commits its chunk): [(pre_norm,
+    hidden, block_hidden)] by example."""
+    from whisper_medusa_tpu_torch.ops import megastep as MS
+
+    one = lambda t, e: None if t is None else t[:, e:e + 1].contiguous()
+    out = []
+    for e in range(x.shape[0]):
+        kw = dict(block=block)
+        if cache.self_s is not None:
+            kw.update(cross_k_s=one(cache.cross_k_s, e), cross_v_s=one(cache.cross_v_s, e),
+                      self_s=one(cache.self_s, e))
+        out.append(MS.megastep_kernel(dec["layers"], dec["ln_post"], x[e:e + 1],
+                                      one(cache.self_k, e), one(cache.self_v, e),
+                                      one(cache.cross_k, e), one(cache.cross_v, e),
+                                      offsets[e:e + 1], None, dims.max_source_positions, nh,
+                                      **kw))
+    return out
+
+
 def check_megastep_full(model, enc1, enc8, block=None):
     """The full 32-layer step (and the block on slot 32, given ``block``)
     against the plain layer loop on copies of one cache: at B=1 prefill T=4
@@ -1433,7 +1500,15 @@ def check_megastep_full(model, enc1, enc8, block=None):
                     offsets, None, dims.max_source_positions, nh)
             kkw = dict(sc, self_s=cache.self_s, block=block) if q else dict(block=block)
             pkw = dict(sc, self_s=ss, block=block) if q else dict(block=block)
+            alone = k2_alone(dec, cache, x, offsets, dims, nh, block) if b > 1 else None
             got, hid, bh = MS.megastep_kernel(dec["layers"], dec["ln_post"], *args, **kkw)
+            if alone is not None:
+                same = [all(torch.equal(a[0], bat[e]) for a, bat in zip(alone[e], (got, hid, bh))
+                            if bat is not None) for e in range(b)]
+                log(f"K2 {name} B={b} T={t}: each example's pre_norm, hidden"
+                    + (" and block_hidden" if block is not None else "")
+                    + f" bitwise its B=1 call's: {sum(same)}/{b}")
+                require(all(same), f"K2 {name} B={b} T={t}: an example's bits depend on B")
             ref, rhid, rbh = MS.megastep_plain(dec["layers"], dec["ln_post"], x, sk, sv,
                                                *args[3:], **pkw)
             cos = cosine(got, ref)
@@ -1510,6 +1585,7 @@ def check_megastep_full(model, enc1, enc8, block=None):
                     f"{plain_ms:.4f} ms, bound {b_ms[0]:.4f} ms ({b_ms[1]}; "
                     f"{cost[0] / 1e9:.3f} GB, {cost[1] / 1e9:.1f} GFLOP)")
                 rows = _by_kernel(run, 5)
+                k2_launches(name, rows, nl, b, t)
                 k2_attention_times(name, run, rows, cache, offsets, offs, t, q)
                 gemm = sum(us for k, (us, _) in rows.items() if k.startswith("wgemm_kernel"))
                 durations, busy = _overlap_ms(run, 5)
@@ -1585,6 +1661,35 @@ def drive(name, kernels, fn, needs, absent=(), seen=None):
     if seen is not None:
         seen.update(counts)
     return result, wall
+
+
+def drive_traced(name, kernels, fn, needs, absent_kernels):
+    """``drive`` with the run under torch.profiler: no device kernel whose
+    name starts with one of ``absent_kernels`` may run (the old K3 kernel
+    and its tile are gone), K2 launches ``ln_rows_kernel`` once a call (its
+    layers' norms run inside its GEMMs), and every K3 launch is the shared
+    tied-embedding stream on a bf16 table (``nt_stream_kernel<MT, false>``)."""
+    import collections
+
+    from whisper_medusa_tpu_torch.device_profile import _device_events, _short
+
+    box, seen = {}, {}
+    run = lambda: box.update(out=fn())
+    traced = lambda: box.update(names=collections.Counter(
+        _short(n) for n, _, _ in _device_events(run)))
+    _, wall = drive(name + " (under the profiler)", kernels, traced, needs, seen=seen)
+    names = box["names"]
+    found = {k: n for k, n in names.items() if k.startswith(tuple(absent_kernels))}
+    k3 = sum(n for k, n in names.items()
+             if k.startswith("nt_stream_kernel<") and k.endswith(", false>"))
+    log(f"kernels [{name}]: absent {list(absent_kernels)}: found {found or 'none'}; "
+        f"ln_rows_kernel {names['ln_rows_kernel']} for {seen['megastep']} K2 calls; "
+        f"nt_stream_kernel (bf16) {k3} for {seen['logits']} K3 launches")
+    require(not found, f"{name}: {found} ran")
+    require(names["ln_rows_kernel"] == seen["megastep"] > 0,
+            f"{name}: ln_rows_kernel {names['ln_rows_kernel']} for {seen['megastep']} K2 calls")
+    require(k3 == seen["logits"] > 0, f"{name}: {k3} stream launches, {seen['logits']} K3")
+    return box["out"], wall
 
 
 def check_output(out, b, vocab, new_tokens=MAX_NEW_TOKENS):
@@ -2359,6 +2464,11 @@ def main():
     k2bq, worst_cos_bq = check_megastep_full(bqmodel, enc1, enc8,
                                              bqmodel.params["medusa"]["block"])
     k2bq["max_abs_err"] = err2bq
+    worst_k2 = min(worst_cos, worst_cos_q, worst_cos_b, worst_cos_bq)
+    log(f"K2 32-layer worst cosine against its plain step, every mode: {worst_k2:.9f} (held "
+        f">= {K2_COS_FLOOR} at the six decimals it was recorded with)")
+    require(round(worst_k2, 6) >= K2_COS_FLOOR,
+            f"K2 32-layer cosine against its plain step {worst_k2} below {K2_COS_FLOOR}")
     k10, k10q = check_cross_decode(g)
     k10m = check_self_decode(g)
     k11 = check_ffn_decode(g)
@@ -2376,6 +2486,13 @@ def main():
 
     # ---- phase 4: the main paths, bf16 then int8
     outs = phase_requests("bf16", model, kernels, feats, waves, feats8, batch_secs)
+    out, _ = drive_traced(f"bf16 medusa B={BATCH}", kernels,
+                          lambda: model.generate(feats8, language="en",
+                                                 max_new_tokens=MAX_NEW_TOKENS),
+                          NEEDS["bf16"][f"medusa B={BATCH}"],
+                          ("logits_kernel", "vocab_tile"))
+    require(np.array_equal(out.sequences, outs[f"medusa B={BATCH}"].sequences),
+            "the traced request's tokens")
     qouts = phase_requests("int8", qmodel, kernels, feats[:1], waves, feats8, batch_secs)
     for path, qout in qouts.items():
         out = outs[path][0] if path == "medusa B=1" else outs[path]
@@ -2447,8 +2564,8 @@ def main():
             for k in kernels]
     log(f"K2 32-layer worst pre_norm cosine: bf16 {worst_cos:.6f}, int8 {worst_cos_q:.6f}; "
         f"block mode (pre_norm and block_hidden): bf16 {worst_cos_b:.6f}, int8 "
-        f"{worst_cos_bq:.6f}; per-op step vs K2 (pre_norm and hidden, bf16 and int8): "
-        f"{worst_cos_ops:.6f}")
+        f"{worst_cos_bq:.6f} (held >= {K2_COS_FLOOR}); per-op step vs K2 (pre_norm and "
+        f"hidden, bf16 and int8): {worst_cos_ops:.6f}")
     log(f"gpu: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

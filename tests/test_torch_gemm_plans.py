@@ -5,7 +5,8 @@ A row's bits on the card depend on how its sums are cut and ordered: K2's
 GEMM cuts K into slices (``ops/megastep.py::gemm_slices``, mirroring
 ``csrc/wgemm.cuh::gemm_slices``) and adds them in rank order; K7 sums each
 64-entry vocab tile over the 64-wide K chunks in order
-(``ops/qmm.py::nt_plan``, mirroring ``csrc/qmm.cu::wm_qmm_nt``).  Here the
+(``ops/qmm.py::nt_plan``, mirroring ``csrc/ntstream.cuh::nt_launch``, K7's
+and K3's stream).  Here the
 plans are held equal for every M from 1 to the kernels' rows, at
 whisper-large-v2's projections and its tied embedding, the slices must fill
 the card's 132 SMs within one portable cluster, and the Python constants
@@ -34,12 +35,13 @@ def _constants(source):
 
 
 def test_python_constants_match_the_sources():
-    ms, qm = _constants("wgemm.cuh"), _constants("qmm.cu")
+    ms, nt, qm = _constants("wgemm.cuh"), _constants("ntstream.cuh"), _constants("qmm.cu")
     assert ms["G_TILE"] == MS.GEMM_TILE
     assert ms["G_CTAS"] == MS.GEMM_CTAS
     assert ms["G_MAX_SLICES"] == MS.GEMM_MAX_SLICES
-    assert qm["NT_VT"] == QM.TILE and qm["NT_KC"] == QM.NT_CHUNK
-    assert qm["NT_MAX_MT"] * 16 == QM.MAX_NT_ROWS
+    assert ms["G_LN_LANES"] == MS.LN_LANES
+    assert nt["NT_VT"] == QM.TILE == qm["QT"] and nt["NT_KC"] == QM.NT_CHUNK
+    assert nt["NT_MAX_MT"] * 16 == QM.MAX_NT_ROWS
 
 
 @pytest.mark.parametrize("name,k,n,jobs", PROJECTIONS)

@@ -44,3 +44,62 @@ def test_leading_dims_and_cpu_route():
     torch.testing.assert_close(got, x @ e.T, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="CUDA"):
         tlogits.project_kernel(x[0].bfloat16(), e.bfloat16())
+
+
+class _Recorder:
+    """Stands in for ``cuda_lib`` on CPU tensors: records each launch's
+    (entry, rows, V, D) instead of calling C."""
+
+    def __init__(self):
+        self.calls = []
+
+    def require_cuda(self, *args, **kwargs):
+        pass
+
+    def launch(self, entry, device, *args):
+        self.calls.append((entry, *args[-3:]))
+
+
+@pytest.mark.parametrize("m", [1, 10, 80, 192, 193, 400])
+def test_k3_takes_the_plan_of_k7(monkeypatch, m):
+    """K3 and K7 run one stream (csrc/ntstream.cuh) tiled by one plan
+    (``qmm.nt_plan``): the same launches, each of at most 192 rows, at any M,
+    and a plan that reads only V and D for everything but the rows."""
+    from whisper_medusa_tpu_torch.ops import qmm as QM
+
+    v, d = 51865, 1280
+    rec = _Recorder()
+    monkeypatch.setattr(tlogits, "cuda_lib", rec)
+    monkeypatch.setattr(QM, "cuda_lib", rec)
+    # The recorded launches count on the wrappers' counters: put them back
+    # after the test (other tests in this process read them).
+    monkeypatch.setattr(tlogits, "launches", tlogits.launches)
+    monkeypatch.setattr(QM, "nt_launches", QM.nt_launches)
+    x = torch.zeros((m, d), dtype=torch.bfloat16)
+    tlogits.project_kernel(x, torch.zeros((v, d), dtype=torch.bfloat16))
+    k3 = [c[1:] for c in rec.calls]
+    rec.calls.clear()
+    QM.qmm_nt_kernel(x, torch.zeros((v, d), dtype=torch.int8), torch.ones(v))
+    k7 = [c[1:] for c in rec.calls]
+    assert k3 == k7 == [(rows, v, d) for _, rows in QM.nt_blocks(m, v, d)]
+    assert sum(r for r, _, _ in k3) == m and max(r for r, _, _ in k3) <= QM.MAX_NT_ROWS
+    assert tlogits.MAX_M == QM.MAX_NT_ROWS
+    with pytest.raises(ValueError):
+        tlogits.project_kernel(torch.zeros((m, 1000), dtype=torch.bfloat16),
+                               torch.zeros((v, 1000), dtype=torch.bfloat16))
+
+
+def test_k3_is_on_the_shared_stream():
+    import os
+    import re
+
+    from whisper_medusa_tpu_torch.ops import cuda_lib
+
+    src = {n: open(os.path.join(cuda_lib.CSRC_DIR, n)).read()
+           for n in os.listdir(cuda_lib.CSRC_DIR)}
+    assert '#include "ntstream.cuh"' in src["logits.cu"]
+    assert '#include "ntstream.cuh"' in src["qmm.cu"]
+    assert "nt_launch<false>" in src["logits.cu"] and "nt_launch<true>" in src["qmm.cu"]
+    for text in src.values():     # the old kernel and its tile (not the TPU's name)
+        for gone in ("vocab_tile", r"(?<!_)logits_kernel", "VOCAB_SMEM", "VTHREADS"):
+            assert not re.search(gone, text)

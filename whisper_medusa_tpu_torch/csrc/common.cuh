@@ -1,7 +1,8 @@
 // Shared device code of the port's Hopper kernels (sm_90a): conversions,
-// warp reductions, the epilogue codes, and two older building blocks (the
+// warp reductions, the epilogue codes, and one older building block (the
 // weight-streaming GEMM of K2 and K11 is wgemm.cuh; the vocab stream of K4
-// and K5 is verify.cu's):
+// and K5 is verify.cu's; the tied-embedding stream of K3 and K7 is
+// ntstream.cuh):
 //
 //  * skinny_gemm_kernel, K4's stage A and wm_head_rows: Y[M, N] =
 //    epilogue(A[M, K] @ W[K, N] + bias) for M <= 128 rows (the verification
@@ -25,13 +26,6 @@
 //    int8 x bf16 product and its fragment layout is opaque), runs the same
 //    K split and reduction order, and multiplies the summed column by its
 //    scale before the bias.
-//
-//  * vocab_tile, K3 alone (logits.cu): C[128, 64] = X[rows, D] @ E[v0 : v0 +
-//    64, D]^T for the tied embedding E (V, D), both staged through shared
-//    memory in 64-wide K slices (zero-filled past the last row and the last
-//    vocab entry) by synchronous 16-byte loads and multiplied with WMMA,
-//    f32 accumulation.  Bound by the embedding stream (133 MB at large-v2)
-//    plus one L2 read of the rows per vocab tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -85,23 +79,6 @@ __device__ __forceinline__ uint4 i8x8_to_bf16(uint2 w) {
   const uint2 lo = i8x4_to_bf16(w.x), hi = i8x4_to_bf16(w.y);
   return make_uint4(lo.x, lo.y, hi.x, hi.y);
 }
-
-// 4 / 8 consecutive elements of a bf16 or int8 array as bf16 (8- / 16-byte
-// stores); p is 4-element (8-element) aligned.
-__device__ __forceinline__ uint2 load4(const bf16* p) {
-  return *reinterpret_cast<const uint2*>(p);
-}
-__device__ __forceinline__ uint2 load4(const int8_t* p) {
-  return i8x4_to_bf16(*reinterpret_cast<const uint32_t*>(p));
-}
-__device__ __forceinline__ uint4 load8(const bf16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-__device__ __forceinline__ uint4 load8(const int8_t* p) {
-  return i8x8_to_bf16(*reinterpret_cast<const uint2*>(p));
-}
-__device__ __forceinline__ bf16 to_bf(bf16 v) { return v; }
-__device__ __forceinline__ bf16 to_bf(int8_t v) { return f2bf((float)v); }
 
 // ---------------------------------------------------------------------------
 // Skinny GEMM
@@ -277,74 +254,6 @@ inline SkinnyJob job(const void* w, const bf16* bias, bf16* out, int epi,
   j.epi = epi;
   j.scale = scale;
   return j;
-}
-
-// ---------------------------------------------------------------------------
-// Vocab tile: rows x 64 embedding rows on the tensor cores
-// ---------------------------------------------------------------------------
-
-constexpr int VT = 64;          // vocab entries per CTA
-constexpr int VKC = 64;         // K slice staged per step
-constexpr int VRB = 128;        // rows per block (8 warps x 16)
-constexpr int VLDS = VKC + 8;   // bf16 smem pitch (bank-conflict pad)
-constexpr int VLDC = VT + 4;    // f32 smem pitch
-constexpr int VTHREADS = 256;
-constexpr int VOCAB_SMEM =
-    VRB * VLDS * 2 + VT * VLDS * 2 + VRB * VLDC * 4;   // 62464 bytes
-
-// Fills cs[VRB][VLDC] with rows [row0, row0 + 128) x vocab [v0, v0 + 64).
-// Rows >= n_rows and vocab entries >= v_dim read as zero.  Ends synchronized.
-__device__ __forceinline__ void vocab_tile(const bf16* __restrict__ x, int n_rows,
-                                           int row0, const bf16* __restrict__ e,
-                                           int v_dim, int d_dim, int v0,
-                                           char* smem) {
-  bf16* as = reinterpret_cast<bf16*>(smem);
-  bf16* bs = as + VRB * VLDS;
-  float* cs = reinterpret_cast<float*>(bs + VT * VLDS);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const bool live = row0 + warp * 16 < n_rows;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[VT / 16];
-#pragma unroll
-  for (int j = 0; j < VT / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int k0 = 0; k0 < d_dim; k0 += VKC) {
-    for (int i = tid; i < VRB * (VKC / 8); i += VTHREADS) {
-      const int r = i / (VKC / 8), c = (i % (VKC / 8)) * 8;
-      uint4 val = zero;
-      if (row0 + r < n_rows)
-        val = *reinterpret_cast<const uint4*>(x + (size_t)(row0 + r) * d_dim + k0 + c);
-      *reinterpret_cast<uint4*>(as + r * VLDS + c) = val;
-    }
-    for (int i = tid; i < VT * (VKC / 8); i += VTHREADS) {
-      const int r = i / (VKC / 8), c = (i % (VKC / 8)) * 8;
-      uint4 val = zero;
-      if (v0 + r < v_dim) val = load8(e + (size_t)(v0 + r) * d_dim + k0 + c);
-      *reinterpret_cast<uint4*>(bs + r * VLDS + c) = val;
-    }
-    __syncthreads();
-    if (live) {
-#pragma unroll
-      for (int kk = 0; kk < VKC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, as + warp * 16 * VLDS + kk, VLDS);
-#pragma unroll
-        for (int j = 0; j < VT / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, bs + j * 16 * VLDS + kk, VLDS);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < VT / 16; ++j)
-    wmma::store_matrix_sync(cs + warp * 16 * VLDC + j * 16, acc[j], VLDC,
-                            wmma::mem_row_major);
-  __syncthreads();
 }
 
 }  // namespace

@@ -1,49 +1,24 @@
-// K3 — decode-time vocab projection Y[M, V] = X[M, D] @ E[V, D]^T, f32 out.
+// K3 — decode-time vocab projection Y[M, V] = X[M, D] @ E[V, D]^T, f32 out,
+// for the bf16 tied embedding (the drafts of the prefill and of pass B).
 //
 // Replaces whisper_medusa_tpu/ops/logits.py::_logits_kernel (TPU, launched
 // by _project via project_logits_stream), which streams the tied embedding
-// in 2048-row tiles against query rows resident in VMEM.  Here one CTA
-// (8 warps) per 64-entry vocab tile stages the rows and the tile through
-// shared memory in 64-wide K slices and multiplies them with WMMA
-// (common.cuh::vocab_tile); rows are processed in blocks of 128, so any
-// M <= 192 works.  The ragged last tile (51865 = 810 x 64 + 25) is zero-filled
-// on load and masked on store.
+// in 2048-row tiles against query rows resident in VMEM.  Here it is the
+// weight stream of ntstream.cuh, shared with K7's int8 embedding: a
+// persistent grid walks the 64-entry vocab tiles, one producer warp keeps a
+// TMA ring of bf16 E tiles (128-byte swizzle: the layout wgmma reads, no
+// conversion) and the matching x tiles (ceil(M / 16) * 16 rows, zero-filled
+// past M) in flight, one consumer warpgroup runs one m64nNk16 wgmma a
+// 16-deep step (E the 64-row side, the rows the N side) and writes the f32
+// sums from the accumulators.  Each output is one chain over K in order, so
+// a row's bits do not depend on M.  The ragged last tile (51865 = 810 x 64 +
+// 25) is zero-filled by TMA and masked on store.  Up to 192 rows a launch.
 //
-// Bound on H100: the embedding stream (51865 x 1280 bf16 = 133 MB per call at
-// M <= 16); the rows are re-read from L2 by every tile.
-#include "common.cuh"
+// Bound on H100: the embedding stream (51865 x 1280 bf16 = 133 MB per call)
+// plus M x 207 KB of f32 output.
+#include "ntstream.cuh"
 
-namespace wm {
-namespace {
-
-__global__ void __launch_bounds__(VTHREADS)
-logits_kernel(const bf16* __restrict__ x, const bf16* __restrict__ e,
-              float* __restrict__ y, int m_rows, int v_dim, int d_dim) {
-  extern __shared__ __align__(128) char smem[];
-  const float* cs = reinterpret_cast<const float*>(smem + VRB * VLDS * 2 + VT * VLDS * 2);
-  const int v0 = blockIdx.x * VT;
-  for (int row0 = 0; row0 < m_rows; row0 += VRB) {
-    vocab_tile(x, m_rows, row0, e, v_dim, d_dim, v0, smem);
-    for (int i = threadIdx.x; i < VRB * VT; i += VTHREADS) {
-      const int r = i / VT, c = i % VT;
-      if (row0 + r < m_rows && v0 + c < v_dim)
-        y[(size_t)(row0 + r) * v_dim + v0 + c] = cs[r * VLDC + c];
-    }
-    __syncthreads();
-  }
-}
-
-}  // namespace
-}  // namespace wm
-
-extern "C" int wm_logits(const void* x, const void* e, void* y, int m, int v,
-                         int d, void* stream) {
-  using namespace wm;
-  if (d % VKC) return (int)cudaErrorInvalidValue;
-  // Per launch: the attribute belongs to the current device's context.
-  cudaFuncSetAttribute(logits_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       VOCAB_SMEM);
-  logits_kernel<<<(v + VT - 1) / VT, VTHREADS, VOCAB_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)e, (float*)y, m, v, d);
-  return (int)cudaGetLastError();
+extern "C" int wm_logits(const void* x, const void* e, void* y, int m, int v, int d,
+                         void* stream) {
+  return wm::nt_launch<false>(x, e, nullptr, y, m, v, d, (cudaStream_t)stream);
 }

@@ -4,17 +4,21 @@
 // Replaces whisper_medusa_tpu/ops/megastep.py::_kernel (TPU, launched by
 // fused_decoder_layers), one pallas_call whose grid walks (layers, phases)
 // with the hidden state carried in VMEM while Mosaic streams the next phase's
-// weights.  On Hopper the same work is a fixed sequence of eleven small
-// kernels per layer, launched back to back on one stream by one C entry (one
-// ctypes call per decode step):
+// weights.  On Hopper the same work is a fixed sequence of eight kernels per
+// layer, launched back to back on one stream by one C entry (one ctypes call
+// per decode step):
 //
-//   LN -> q/k/v (one GEMM launch, 3 jobs) -> self-attention + in-place
-//   K/V commit -> o + residual -> LN -> cross q -> cross-attention -> cross
-//   o + residual -> LN -> fc1 + GELU -> fc2 + residual
+//   LN + q/k/v (one GEMM launch, 3 jobs) -> self-attention + in-place K/V
+//   commit -> o + residual -> LN + cross q -> cross-attention -> cross o +
+//   residual -> LN + fc1 + GELU -> fc2 + residual
 //
-// and after the last layer ln_post into a second buffer (hidden), so the
-// whole decoder output comes from kernels whose per-row arithmetic does not
-// depend on the number of rows (batch invariance).
+// and after the last layer ln_post (ln_rows_kernel) into a second buffer
+// (hidden), so the whole decoder output comes from kernels whose per-row
+// arithmetic does not depend on the number of rows (batch invariance).  The
+// three layer norms of a layer run inside the GEMMs that consume them (the
+// GEMM's LN mode, wgemm.cuh): the cluster of a column tile spans K, so its
+// CTAs combine per-slice row statistics in rank order and normalize each X
+// tile in shared memory; the GEMM reads the residual stream itself.
 //
 // The hidden state stays in a bf16 buffer of ceil(B*T / 16) * 16 rows in
 // device memory (L2 resident) between kernels.  Bound on H100: bytes.  At
@@ -38,9 +42,10 @@
 // cross CTAs and 60 self CTAs a layer.
 //
 // The six projections of a layer run on the weight-streaming GEMM of
-// wgemm.cuh (wgemm_kernel, shared with K11), Y^T = W^T X^T on wgmma: a CTA
-// per (64 W columns, K slice), the W tile wgmma's 64-row side and the X tile
-// (ceil(M / 16) * 16 rows) its N side; K slices from (K, N, jobs) alone
+// wgemm.cuh (wgemm_kernel, shared with K11; q/k/v, cross q and fc1 in its
+// LN mode), Y^T = W^T X^T on wgmma: a CTA per (64 W columns, K slice), the
+// W tile wgmma's 64-row side and the X tile (ceil(M / 16) * 16 rows) its N
+// side; K slices from (K, N, jobs) alone
 // (q/k/v 3 slices x 60 tiles, o / cross q / cross o and fc2 7 x 20, fc1 2 x
 // 80), added in rank order across a thread-block cluster; here the ring
 // holds a CTA's whole slice at B = 1 (up to 96 KB; 4 stages past 32 rows,
@@ -66,11 +71,13 @@
 // slabs' history rows were written by earlier steps.
 //
 // Numerics follow models/whisper.py::decoder_layer_step: f32 layernorm
-// statistics, softmax and accumulation; bf16 operands and activations;
-// exact erf GELU (erff).  Self-attention masks: history key j < offset is
-// visible; chunk key offset + c is visible to query t iff mask[t][c] (the
-// mask's diagonal set: every query sees itself); masked keys get
-// probability exactly 0, keys past offset + T are neither read nor counted.
+// statistics (a row's per-slice partials combined in rank order: the same
+// for every M, not ln_rows's summation order), softmax and accumulation;
+// bf16 operands and activations; exact erf GELU (erff).  Self-attention
+// masks: history key j < offset is visible; chunk key offset + c is visible
+// to query t iff mask[t][c] (the mask's diagonal set: every query sees
+// itself); masked keys get probability exactly 0, keys past offset + T are
+// neither read nor counted.
 // Cross keys >= cross_len are excluded (the JAX path gives them NEG_CROSS,
 // i.e. zero probability).  The chunk's K/V rows are written into the self
 // slabs in place (the JAX kernel aliases its slab outputs to its inputs);
@@ -109,9 +116,9 @@
 namespace wm {
 namespace {
 
-// y[row] = LN(x[row]) in bf16 (and into y2 too, when given: the block's
-// residual stream starts from ln_post's output); f32 statistics; one CTA per
-// row.
+// ln_post: y[row] = LN(x[row]) in bf16 (and into y2 too, when given: the
+// block's residual stream starts from ln_post's output); f32 statistics; one
+// CTA per row.
 __global__ void __launch_bounds__(256)
 ln_rows_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, bf16* __restrict__ y2,
                const bf16* __restrict__ scale, const bf16* __restrict__ bias, int d) {
@@ -169,14 +176,14 @@ struct StepCtx {
   int B, T, D, H, F, S, SE, cross_len, M, MT;
   bool quant;
   CdPlan self_plan, cross_plan;   // the attention kernels' splits (S, SE alone)
-  bf16 *xa, *qb, *kb, *vb, *attn, *hb;
+  bf16 *qb, *kb, *vb, *attn, *hb;
   void *self_k, *self_v;
   const void *cross_k, *cross_v;
   const float *cross_k_s, *cross_v_s;
   bf16* self_s;
   const int* offsets;
   const uint8_t* mask;
-  CUtensorMap x_xa, x_attn, x_h;   // the GEMMs' X operands (M rows)
+  CUtensorMap x_attn, x_h;   // X operands of o / cross o and fc2 (M rows)
   cudaStream_t st;
 };
 
@@ -225,27 +232,40 @@ int encode_layer_maps(LayerMaps* m, void* const* p, int w0, int L, int D, int F,
 }
 
 // One projection of the step: Y (M, N) = epilogue(X (M, K) @ W[layer]) for
-// ``njobs`` jobs sharing X.
+// ``njobs`` jobs sharing X; given ``ln``, in LN mode: X is the residual
+// stream, normalized inside the GEMM.
 int gemm(const StepCtx& c, const CUtensorMap& mx, const CUtensorMap* w0, const CUtensorMap* w1,
          const CUtensorMap* w2, int njobs, const GemmJobs& jobs, int layer, int k, int n,
-         int ldo) {
+         int ldo, const LnArgs* lna = nullptr) {
   const int stages = gemm_stages(k, n, njobs, c.MT, c.quant);
-  const size_t smem = gemm_smem(c.MT, c.quant, stages);
-  return c.quant ? wgemm_launch<8, true>(c.MT, stages, smem, c.st, mx, *w0, *w1, *w2, njobs,
-                                         jobs, layer, c.M, k, n, ldo, ldo)
-                 : wgemm_launch<8, false>(c.MT, stages, smem, c.st, mx, *w0, *w1, *w2, njobs,
-                                          jobs, layer, c.M, k, n, ldo, ldo);
+  const bool ln = lna != nullptr;
+  if (ln && gemm_ln_k(k, n, njobs) > G_LN_MAXP * G_TILE) return (int)cudaErrorInvalidValue;
+  const size_t smem = gemm_smem(c.MT, c.quant, stages, true, ln ? gemm_ln_k(k, n, njobs) : 0);
+#define WM_GEMM(W8, LN)                                                                    \
+  if (c.quant == W8 && ln == LN)                                                           \
+    return wgemm_launch<8, W8, LN>(c.MT, stages, smem, c.st, mx, *w0, *w1, *w2, njobs, jobs, \
+                                   layer, c.M, k, n, ldo, ldo, ln ? *lna : LnArgs{});
+  WM_GEMM(false, false) WM_GEMM(false, true) WM_GEMM(true, false) WM_GEMM(true, true)
+#undef WM_GEMM
+  return (int)cudaErrorInvalidValue;
 }
 
-// Shared memory of the GEMM instantiation a step uses (above 48 KB needs
+// Shared memory of the GEMM instantiations a step uses (above 48 KB needs
 // the attribute; per call: it belongs to the current device's context):
-// room for the deepest ring a projection takes.
-void gemm_set_smem(int mt, bool w8) {
-  const int smem = gemm_smem(mt, w8, gemm_max_stages(mt, w8));
-  if (w8)
+// room for the deepest ring a projection takes, and in LN mode for the
+// longest K slice of q/k/v, cross q and fc1.
+void gemm_set_smem(int mt, bool w8, int d, int f) {
+  const int stages = gemm_max_stages(mt, w8);
+  const int lq = gemm_ln_k(d, d, 3), lc = gemm_ln_k(d, d, 1), lf = gemm_ln_k(d, f, 1);
+  const int lk = lq > lc ? (lq > lf ? lq : lf) : (lc > lf ? lc : lf);
+  const int smem = gemm_smem(mt, w8, stages), smem_ln = gemm_smem(mt, w8, stages, true, lk);
+  if (w8) {
     wgemm_set_smem<8, true>(mt, smem);
-  else
+    wgemm_set_smem<8, true, true>(mt, smem_ln);
+  } else {
     wgemm_set_smem<8, false>(mt, smem);
+    wgemm_set_smem<8, false, true>(mt, smem_ln);
+  }
 }
 
 int ln_rows(const bf16* x, bf16* y, bf16* y2, const bf16* s, const bf16* b, int m, int d,
@@ -326,38 +346,39 @@ int attention_plans(StepCtx* c) {
 }
 
 // One decoder layer over the chunk's rows in x (residual stream, updated in
-// place), reading and writing cache slot `slot` of every slab.
-int layer_step(const LayerW& w, bf16* x, size_t slot, const StepCtx& c) {
-  const int D = c.D, F = c.F, M = c.M;
+// place; mx its tensor map), reading and writing cache slot `slot` of every
+// slab.
+int layer_step(const LayerW& w, bf16* x, const CUtensorMap& mx, size_t slot,
+               const StepCtx& c) {
+  const int D = c.D, F = c.F;
   const int l = w.layer;
   const LayerMaps& mp = *w.maps;
   const float scale = 0.125f;   // head dim ** -0.5
-  cudaStream_t st = c.st;
   // --- self-attention
-  WM_TRY(ln_rows(x, c.xa, nullptr, w.self_ln_s, w.self_ln_b, M, D, st));
+  const LnArgs self_ln = {x, w.self_ln_s, w.self_ln_b};
   GemmJobs qkv;
   qkv.j[0] = gjob(w.q_b, c.qb, EPI_BIAS_SCALE, nullptr, scale, w.q_s);
   qkv.j[1] = gjob(nullptr, c.kb, EPI_BIAS, nullptr, 1.0f, w.k_s);
   qkv.j[2] = gjob(w.v_b, c.vb, EPI_BIAS, nullptr, 1.0f, w.v_s);
-  WM_TRY(gemm(c, c.x_xa, &mp.q, &mp.k, &mp.v, 3, qkv, l, D, D, D));
+  WM_TRY(gemm(c, mx, &mp.q, &mp.k, &mp.v, 3, qkv, l, D, D, D, &self_ln));
   WM_TRY(self_attention(c, slot));
   GemmJobs o;
   o.j[0] = gjob(w.o_b, x, EPI_BIAS_RESID, x, 1.0f, w.o_s);
   WM_TRY(gemm(c, c.x_attn, &mp.o, &mp.o, &mp.o, 1, o, l, D, D, D));
   // --- cross-attention
-  WM_TRY(ln_rows(x, c.xa, nullptr, w.cross_ln_s, w.cross_ln_b, M, D, st));
+  const LnArgs cross_ln = {x, w.cross_ln_s, w.cross_ln_b};
   GemmJobs cq;
   cq.j[0] = gjob(w.cq_b, c.qb, EPI_BIAS_SCALE, nullptr, scale, w.cq_s);
-  WM_TRY(gemm(c, c.x_xa, &mp.cq, &mp.cq, &mp.cq, 1, cq, l, D, D, D));
+  WM_TRY(gemm(c, mx, &mp.cq, &mp.cq, &mp.cq, 1, cq, l, D, D, D, &cross_ln));
   WM_TRY(cross_attention(c, slot));
   GemmJobs co;
   co.j[0] = gjob(w.co_b, x, EPI_BIAS_RESID, x, 1.0f, w.co_s);
   WM_TRY(gemm(c, c.x_attn, &mp.co, &mp.co, &mp.co, 1, co, l, D, D, D));
   // --- FFN
-  WM_TRY(ln_rows(x, c.xa, nullptr, w.ffn_ln_s, w.ffn_ln_b, M, D, st));
+  const LnArgs ffn_ln = {x, w.ffn_ln_s, w.ffn_ln_b};
   GemmJobs f1;
   f1.j[0] = gjob(w.fc1_b, c.hb, EPI_BIAS_GELU, nullptr, 1.0f, w.fc1_s);
-  WM_TRY(gemm(c, c.x_xa, &mp.fc1, &mp.fc1, &mp.fc1, 1, f1, l, D, F, F));
+  WM_TRY(gemm(c, mx, &mp.fc1, &mp.fc1, &mp.fc1, 1, f1, l, D, F, F, &ffn_ln));
   GemmJobs f2;
   f2.j[0] = gjob(w.fc2_b, x, EPI_BIAS_RESID, x, 1.0f, w.fc2_s);
   WM_TRY(gemm(c, c.x_h, &mp.fc2, &mp.fc2, &mp.fc2, 1, f2, l, F, D, D));
@@ -370,7 +391,6 @@ int layer_step(const LayerW& w, bf16* x, size_t slot, const StepCtx& c) {
 // Pointer table of wm_megastep_step (ops/megastep.py builds the same list).
 enum MegastepPtr {
   P_X = 0,        // (M16, D) bf16 hidden: embedded chunk in, pre_norm out
-  P_XA,           // (M16, D) bf16 scratch: layernorm output
   P_Q, P_K, P_V,  // (M16, D) bf16 scratch: projections
   P_ATTN,         // (M16, D) bf16 scratch: attention output
   P_H,            // (M16, F) bf16 scratch: fc1 output
@@ -441,10 +461,10 @@ extern "C" int wm_megastep_step(void** p, const int* ints, void* stream) {
   c.cross_len = cross_len;
   c.quant = quant;
   WM_TRY(attention_plans(&c));
-  gemm_set_smem(c.MT, quant);
+  gemm_set_smem(c.MT, quant, D, F);
   auto P = [&](int i) { return static_cast<bf16*>(p[i]); };
   bf16* x = P(P_X);
-  c.xa = P(P_XA); c.qb = P(P_Q); c.kb = P(P_K); c.vb = P(P_V);
+  c.qb = P(P_Q); c.kb = P(P_K); c.vb = P(P_V);
   c.attn = P(P_ATTN); c.hb = P(P_H);
   c.self_k = p[P_SELF_K]; c.self_v = p[P_SELF_V];
   c.cross_k = p[P_CROSS_K]; c.cross_v = p[P_CROSS_V];
@@ -454,11 +474,14 @@ extern "C" int wm_megastep_step(void** p, const int* ints, void* stream) {
   c.offsets = static_cast<const int*>(p[P_OFFSETS]);
   c.mask = static_cast<const uint8_t*>(p[P_MASK]);
   c.st = st;
-  // Tensor maps: the GEMMs' X operands, then the streamed weights of the
-  // stack and of the block, each over its whole stack (the layer is a
-  // coordinate).
+  // Tensor maps: the GEMMs' X operands (the residual streams for the LN
+  // mode), then the streamed weights of the stack and of the block, each
+  // over its whole stack (the layer is a coordinate).
+  bf16* bx = block ? P(P_BLOCK_HIDDEN) : nullptr;
+  CUtensorMap x_map, bx_map;
   LayerMaps stack_maps, block_maps;
-  WM_TRY(encode_x_map(&c.x_xa, c.xa, M, D, c.MT));
+  WM_TRY(encode_x_map(&x_map, x, M, D, c.MT));
+  if (block) WM_TRY(encode_x_map(&bx_map, bx, M, D, c.MT));
   WM_TRY(encode_x_map(&c.x_attn, c.attn, M, D, c.MT));
   WM_TRY(encode_x_map(&c.x_h, c.hb, M, F, c.MT));
   WM_TRY(encode_layer_maps(&stack_maps, p, P_SELF_LN_S, L, D, F, quant));
@@ -466,13 +489,12 @@ extern "C" int wm_megastep_step(void** p, const int* ints, void* stream) {
 
   for (int l = 0; l < L; ++l)
     WM_TRY(layer_step(layer_weights(p, P_SELF_LN_S, P_Q_S, l, D, F, quant, &stack_maps), x,
-                      l, c));
+                      x_map, l, c));
   // ln_post; in block mode also into the block's residual stream, which
   // starts from ln_post's output while x keeps the main stack's pre_norm.
-  bf16* bx = block ? P(P_BLOCK_HIDDEN) : nullptr;
   WM_TRY(ln_rows(x, P(P_HIDDEN), bx, P(P_LN_POST_S), P(P_LN_POST_B), M, D, st));
   if (block)
-    WM_TRY(layer_step(layer_weights(p, P_B_W0, P_B_S0, 0, D, F, quant, &block_maps), bx, L,
-                      c));
+    WM_TRY(layer_step(layer_weights(p, P_B_W0, P_B_S0, 0, D, F, quant, &block_maps), bx,
+                      bx_map, L, c));
   return (int)cudaGetLastError();
 }

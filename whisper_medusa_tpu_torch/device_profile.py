@@ -20,7 +20,8 @@ code the same way:
      around the ctypes call, no synchronize), the projections' (the
      weight-streaming GEMM's) share and the kernels' durations added up
      (above the busy time by as much as programmatic dependent launch
-     overlaps them);
+     overlaps them), and K2's launches a call: how many GEMMs normalize
+     their X themselves (the LN mode) and how many ``ln_rows_kernel``;
   3. one verification step at B=8 on the 11-node chain: the loop's two
      passes (K5 over the head-0 rows, then the draft heads through K3)
      against one pass of every (head, node) row through K5 (R = 968);
@@ -236,11 +237,17 @@ def profile_megastep(model, mode, block=None):
         rows = _by_kernel(run, 5)
         gemm = sum(us for k, (us, _) in rows.items() if k.startswith("wgemm_kernel"))
         durations, busy = _overlap_ms(run, 5)
+        k2 = {k: n for k, (_, n) in rows.items()
+              if k.startswith(("wgemm_kernel<", "cross_decode_kernel<", "ln_rows_kernel"))}
+        ln_gemms = sum(n for k, n in k2.items()
+                       if re.fullmatch(r"wgemm_kernel<\d+, \w+, true>", k))
         _table(f"K2 {mode}, {what}, B={b} T={t}, per call", rows,
                f" (CUDA events: {ms:.4f} ms per call; the C entry's host time "
                f"{_entry_host_ms(run, 'wm_megastep_step'):.4f} ms; the projections "
                f"{gemm / 1e3:.4f} ms of device time; kernel durations add up to "
-               f"{durations:.4f} ms in {busy:.4f} ms of busy time)")
+               f"{durations:.4f} ms in {busy:.4f} ms of busy time; {sum(k2.values()):.0f} K2 "
+               f"launches a call, {ln_gemms:.0f} of them GEMMs with the layer norm folded "
+               f"in, ln_rows_kernel {k2.get('ln_rows_kernel', 0):.0f})")
         del cache
 
 

@@ -6,12 +6,17 @@ phases) grid that streams every decoder weight through VMEM while the hidden
 state stays resident.
 
 The Hopper version (``csrc/megastep.cu``) is one C entry, ``wm_megastep_step``,
-that launches eleven small kernels per layer on the current stream —
-layernorm, a weight-streaming GEMM for q/k/v (and o, cross q/o, fc1, fc2)
-with fused bias / scale / GELU / residual epilogues, self-attention with
-the in-place K/V commit, and cross-attention — so Python makes one ctypes
-call per decode step; the entry ends with the final layer norm
-(``ln_post``) into a second buffer.  It is bound by bytes:
+that launches eight kernels per layer on the current stream — a
+weight-streaming GEMM for q/k/v (and o, cross q/o, fc1, fc2) with fused bias
+/ scale / GELU / residual epilogues, self-attention with the in-place K/V
+commit, and cross-attention — so Python makes one ctypes call per decode
+step; the entry ends with the final layer norm (``ln_post``) into a second
+buffer.  The layer's three norms run inside the q/k/v, cross-q and fc1
+GEMMs (their LN mode): those read the residual stream, each CTA takes its K
+slice's per-row (mean, M2) in f32, the slices' partials are combined in rank
+order across the cluster (:func:`ln_fold_stats` mirrors the arithmetic), and
+every X tile is normalized in shared memory before its products.  It is
+bound by bytes:
 at large-v2 a step reads 1.47 GB of bf16 weights whatever B is, and
 B x 246 MB of cross K/V (counted from the shapes).  The GEMM computes
 Y^T = W^T X^T on ``wgmma`` (``csrc/wgemm.cuh``, shared with K11): a CTA
@@ -91,6 +96,8 @@ MAX_ROWS = 128           # csrc/common.cuh SK_MAX_ROWS
 GEMM_TILE = 64           # csrc/wgemm.cuh G_TILE: weight columns a CTA, K chunk
 GEMM_CTAS = 132          # csrc/wgemm.cuh G_CTAS: the CTAs a projection aims for
 GEMM_MAX_SLICES = 8      # csrc/wgemm.cuh G_MAX_SLICES: one portable cluster
+LN_LANES = 8             # csrc/wgemm.cuh G_LN_LANES: lanes summing a row's slice
+LN_MAX_CHUNKS = 10       # csrc/wgemm.cuh G_LN_MAXP: the longest K slice a norm takes
 
 launches = 0            # bf16 mode
 q_launches = 0          # int8 mode
@@ -124,10 +131,76 @@ def gemm_plan(m: int, k: int, n: int, jobs: int = 1):
     output's sum — its slices, their chunks and their order — comes from
     (K, N, jobs) alone; only the number of 16-row tiles follows M."""
     slices = gemm_slices(k, n, jobs)
-    chunks = k // GEMM_TILE
+    return slices, _slice_ranges(k // GEMM_TILE, slices), -(-m // 16)
+
+
+def _slice_ranges(chunks: int, slices: int):
+    """The 64-wide chunks [begin, end) of each K slice: fixed contiguous
+    ranges (csrc/wgemm.cuh ``gemm_slice_begin``)."""
     base, extra = divmod(chunks, slices)
     begin = [i * base + min(i, extra) for i in range(slices + 1)]
-    return slices, list(zip(begin[:-1], begin[1:])), -(-m // 16)
+    return list(zip(begin[:-1], begin[1:]))
+
+
+def ln_slices(d: int, f: int) -> Dict[str, int]:
+    """The K slices over which K2's fused layer norms take their statistics:
+    those of the GEMM each norm feeds (q/k/v, 3 jobs; cross q; fc1), from
+    (K, N, jobs) alone (:func:`gemm_slices`)."""
+    return {"self": gemm_slices(d, d, 3), "cross": gemm_slices(d, d, 1),
+            "ffn": gemm_slices(d, f, 1)}
+
+
+def ln_longest_slice(d: int, f: int) -> int:
+    """64-wide chunks in the longest K slice of a fused norm (a lane of the
+    GEMM's LN mode holds that many 16-byte pieces of a row)."""
+    return max(-(-(d // GEMM_TILE) // s) for s in ln_slices(d, f).values())
+
+
+def ln_fold_stats(x: torch.Tensor, slices: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (mean, rstd) of x (M, K) as the GEMM's LN mode
+    (``csrc/wgemm.cuh``) computes them, in f32: K is cut into ``slices``
+    contiguous ranges of 64-wide chunks (:func:`gemm_plan`); in each,
+    ``LN_LANES`` lanes take every ``LN_LANES``-th 16-byte piece and add it
+    (its 8 values as a pairwise tree) to a running sum, the lanes are added
+    as a butterfly, and the
+    slice's mean is that sum over its count; the same again over the squared
+    deviations from the slice's mean gives its M2; then the slices' (mean,
+    M2) are combined in rank order with Chan's pairwise formula, and rstd =
+    rsqrt(M2 / K + 1e-5).  A row's values depend on the row and ``slices``
+    alone, never on M.  (The card fuses multiply-adds where this rounds
+    twice: it mirrors the algorithm, not every bit.)"""
+    m, k = x.shape
+    x = x.float()
+
+    def lanes(v):                       # (M, n) -> (M,): the lanes' sum of a slice
+        e = v.reshape(m, -1, 8)         # (M, n / 8, 8): 16-byte pieces of 8 bf16
+        per = (((e[..., 0] + e[..., 1]) + (e[..., 2] + e[..., 3]))
+               + ((e[..., 4] + e[..., 5]) + (e[..., 6] + e[..., 7])))
+        per = per.reshape(m, -1, LN_LANES)    # piece p goes to lane p % LN_LANES
+        acc = torch.zeros((m, LN_LANES), dtype=torch.float32)
+        for j in range(per.shape[1]):
+            acc = acc + per[:, j]
+        o = 1
+        while o < LN_LANES:             # the butterfly: every lane ends with the total
+            acc = acc + acc[:, torch.arange(LN_LANES) ^ o]
+            o *= 2
+        return acc[:, 0]
+
+    parts = []
+    for c0, c1 in _slice_ranges(k // GEMM_TILE, slices):
+        xs = x[:, c0 * GEMM_TILE:c1 * GEMM_TILE]
+        cnt = torch.tensor(float(xs.shape[1]))
+        mean = lanes(xs) / cnt
+        dev = xs - mean[:, None]
+        parts.append((cnt, mean, lanes(dev * dev)))
+    n, mean, m2 = parts[0]
+    for nq, mq, m2q in parts[1:]:
+        tot = n + nq
+        delta = mq - mean
+        mean = mean + delta * (nq / tot)
+        m2 = m2 + m2q + delta * delta * (n * nq / tot)
+        n = tot
+    return mean, torch.rsqrt(m2 / torch.tensor(float(k)) + 1e-5)
 
 
 def attention_plan(s_enc: int, max_len: int):
@@ -165,9 +238,10 @@ def fits(dec_layers: Params, x: torch.Tensor, self_k: torch.Tensor,
          cross_k: torch.Tensor, num_heads: int) -> bool:
     """Whether K2 takes this decode call — the counterpart of JAX
     ``megastep.available``: B <= 8, T <= 16, heads of 64, d_model and
-    ffn_dim multiples of 256, a cross length that is a multiple of 4, and
-    self and cross key counts whose cluster slices (:func:`attention_plan`)
-    fit a CTA.  It reads only shapes, so it routes a call alike on the CPU
+    ffn_dim multiples of 256, a cross length that is a multiple of 4, self
+    and cross key counts whose cluster slices (:func:`attention_plan`) fit
+    a CTA, and fused norms whose K slices a lane can hold
+    (:func:`ln_longest_slice`).  It reads only shapes, so it routes a call alike on the CPU
     and on the card; ``models/whisper.py::decode_step`` runs the per-op step
     where it is False."""
     from whisper_medusa_tpu_torch.ops import decode_ops
@@ -178,7 +252,8 @@ def fits(dec_layers: Params, x: torch.Tensor, self_k: torch.Tensor,
     plan = attention_plan(cross_k.shape[-1], s_len)
     return (1 <= b <= MAX_B and 1 <= t <= MAX_T and d == 64 * num_heads
             and d % 256 == 0 and f % 256 == 0 and cross_k.shape[-1] % 4 == 0
-            and all(sc <= decode_ops.MAX_SLICE for _, sc in plan.values()))
+            and all(sc <= decode_ops.MAX_SLICE for _, sc in plan.values())
+            and ln_longest_slice(d, f) <= LN_MAX_CHUNKS)
 
 
 def megastep_plain(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross_k,
@@ -280,7 +355,7 @@ def megastep_kernel(dec_layers: Params, ln_post: Params, x, self_k, self_v, cros
     m16 = -(-(b * t) // 16) * 16          # the skinny GEMM reads 16-row tiles
     xbuf = torch.zeros((m16, d), **bf)
     xbuf[:b * t] = x.reshape(b * t, d)
-    scratch = [torch.zeros((m16, d), **bf) for _ in range(5)]
+    scratch = [torch.zeros((m16, d), **bf) for _ in range(4)]    # q, k, v, attention
     hbuf = torch.zeros((m16, f), **bf)
     hidden = torch.empty((b * t, d), **bf)
     # Block mode: the block's residual stream, 16-row tiles like xbuf.

@@ -28,15 +28,16 @@ the weight stream.
 K7 replaces ``_qmm_nt_kernel`` (``qmm_nt``): ``(bf16(x) @ bf16(wq)^T) * s``
 for the int8 tied embedding (V, D), the vocab projection of the prefill, the
 draft heads at B >= 2 and ``detect_language``.  ``csrc/qmm.cu::wm_qmm_nt``
-is a weight stream: a persistent grid walks the 64-entry vocab tiles, a
-producer warp keeps a TMA ring of int8 E tiles and the matching
-``ceil(M / 16) * 16``-row x tiles in flight, a consumer warpgroup converts
-each E tile exactly to bf16 in shared memory and runs ``wgmma`` (E the
-64-row side, the rows rounded up to 16 its N side), and the epilogue
-writes ``sum * s[v]`` from the accumulators.  The tiles and K chunks come
-from (V, D) alone (:func:`nt_plan`), and every x tile runs the same
-instruction, so a row's bits do not depend on M.  Bound by bytes: the 66 MB
-int8 embedding plus the f32 output.
+is the weight stream of ``csrc/ntstream.cuh``, shared with K3
+(``ops/logits.py``, the bf16 embedding): a persistent grid walks the
+64-entry vocab tiles, a producer warp keeps a TMA ring of int8 E tiles and
+the matching ``ceil(M / 16) * 16``-row x tiles in flight, a consumer
+warpgroup converts each E tile exactly to bf16 in shared memory and runs
+``wgmma`` (E the 64-row side, the rows rounded up to 16 its N side), and
+the epilogue writes ``sum * s[v]`` from the accumulators.  The tiles and K
+chunks come from (V, D) alone (:func:`nt_plan`, both kernels' tiling), and
+every x tile runs the same instruction, so a row's bits do not depend on M.
+Bound by bytes: the 66 MB int8 embedding plus the f32 output.
 
 Both wrappers cast ``x`` to bf16 first, as the JAX functions do; CUDA
 tensors then launch the kernel, CPU tensors take the plain version.
@@ -52,9 +53,9 @@ from whisper_medusa_tpu_torch.ops import cuda_lib
 
 Params = Dict[str, Any]
 
-TILE = 64                # csrc/qmm.cu QT, csrc/common.cuh VT
-MAX_NT_ROWS = 192        # rows per K7 launch (csrc/qmm.cu NT_MAX_MT x 16), as K3
-NT_CHUNK = 64            # K7's K chunk (csrc/qmm.cu NT_KC): D % 64 == 0
+TILE = 64                # csrc/qmm.cu QT, csrc/ntstream.cuh NT_VT
+MAX_NT_ROWS = 192        # rows per K7 / K3 launch (csrc/ntstream.cuh NT_MAX_MT x 16)
+NT_CHUNK = 64            # the stream's K chunk (csrc/ntstream.cuh NT_KC): D % 64 == 0
 
 launches = 0             # K6 (wm_qmm) launches
 nt_launches = 0          # K7 (wm_qmm_nt) launches
@@ -102,9 +103,10 @@ def _check_weight(name, x, wq, scale, n):
 
 
 def nt_plan(m: int, v: int, d: int) -> Dict[str, int]:
-    """K7's tiling at (M, V, D) (csrc/qmm.cu ``wm_qmm_nt``): ``tiles``
-    64-entry vocab tiles, each summed over ``chunks`` 64-wide K chunks in
-    order, for every launch of up to ``MAX_NT_ROWS`` rows; ``row_tiles``
+    """The tiling of the tied-embedding stream at (M, V, D), K7's and K3's
+    (csrc/ntstream.cuh ``nt_launch``): ``tiles`` 64-entry vocab tiles, each
+    summed over ``chunks`` 64-wide K chunks in order, for every one of
+    ``launches`` launches of up to ``MAX_NT_ROWS`` rows; ``row_tiles``
     16-row x tiles of the first launch.  What decides an output's sum —
     tiles and chunks — reads V and D only."""
     if m < 1 or d % NT_CHUNK or d < NT_CHUNK or v < 1:
@@ -112,6 +114,13 @@ def nt_plan(m: int, v: int, d: int) -> Dict[str, int]:
     return {"tiles": -(-v // TILE), "chunks": d // NT_CHUNK,
             "row_tiles": -(-min(m, MAX_NT_ROWS) // 16),
             "launches": -(-m // MAX_NT_ROWS)}
+
+
+def nt_blocks(m: int, v: int, d: int):
+    """(first row, rows) of each launch of the stream (:func:`nt_plan`)."""
+    plan = nt_plan(m, v, d)
+    return [(i * MAX_NT_ROWS, min(MAX_NT_ROWS, m - i * MAX_NT_ROWS))
+            for i in range(plan["launches"])]
 
 
 def qmm_kernel(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -146,8 +155,7 @@ def qmm_nt_kernel(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> tor
         raise ValueError(f"qmm_nt kernel takes K % {NT_CHUNK} == 0; got x {tuple(x.shape)}, "
                          f"wq {tuple(wq.shape)}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    for r0 in range(0, m, MAX_NT_ROWS):
-        rows = min(MAX_NT_ROWS, m - r0)
+    for r0, rows in nt_blocks(m, n, k):
         cuda_lib.launch("wm_qmm_nt", x.device, x[r0:].data_ptr(), wq.data_ptr(),
                         scale.data_ptr(), out[r0:].data_ptr(), rows, n, k)
         nt_launches += 1
