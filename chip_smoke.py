@@ -44,8 +44,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      GEMM) at M = 1, 16, 130, 176, 192 and 300 (one full launch, then a
      launch and a tail), its M=176 rows bitwise an M=11 call's, its device
      time at M = 16 and 176 beside the three-call addmm / gelu / addmm
-     yardstick's, and the device times of K4 at R=121 and K5 at R = 8, 88,
-     176 and 1024 (the vocab stream); K3 (on K7's tied-embedding stream) at
+     yardstick's, and the device times of K4 at R=121 (and of its stage A)
+     and K5 at R = 8, 88, 176 and 1024 (the vocab stream); head_rows (K4's
+     stage A alone: both on the GEMM's heads mode) at the loop's shapes, each
+     call's device time beside its byte bound and the baddbmm / silu / add
+     yardstick's, head 0 of a 1-head M=88 launch bitwise an 11-head M=11
+     launch's, the first 8 rows of an M=88 launch bitwise an M=8 launch's,
+     the draft heads of an 11-head launch bitwise a 10-head launch's (bf16,
+     int8 and whisper tiny's, bf16 and int8), and K4's statistics bitwise
+     K5's over head_rows' rows; K3 (on K7's tied-embedding stream) at
      M = 1 to 240, the first 10 rows of its M=80 call bitwise an M=10
      call's, its device time at M = 10 and 80 beside ``x @ E.T``'s;
      head_rows, K3, K5 and K7 past one
@@ -758,6 +765,15 @@ def check_verify(g, model, identity0=False, name=None):
         f"{arg_ok}; max/lse/gathered max_abs_err {err:.3e}")
     require(arg_ok and ok and got[0].shape == (kp1 * n_nodes,),
             f"K4 {name}: argmax {arg_ok}, err {err}")
+    # Stage A's rows are head_rows' rows bit for bit: K5 (stages B and C as
+    # one function) over head_rows' rows gives K4's statistics exactly.
+    flat = VF.head_rows_kernel(src.reshape(n_nodes, d), hw, hb).reshape(-1, d)
+    if identity0:
+        flat = torch.cat([hid.reshape(n_nodes, d), flat])
+    k5 = VF.verify_rows_kernel(flat, embed, pos, gcol, masks, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(got, k5))
+    log(f"K4 {name}: statistics bitwise those of K5 over head_rows' rows: {same}")
+    require(same, f"K4 {name}: stage A's rows differ from head_rows'")
     kern = lambda: VF.verify_hidden_kernel(hid, src, hw, hb, embed, pos, gcol, masks, **kw4)
     ms = cuda_ms(kern)
     plain_ms = cuda_ms(lambda: VF.verify_hidden_plain(hid, src, hw, hb, embed, pos,
@@ -766,10 +782,16 @@ def check_verify(g, model, identity0=False, name=None):
     sources = (hid, src) if identity0 else (hid,)
     moved = (nbytes(*sources, *_tensors(hw), hb, *_tensors(embed), pos, gcol, masks)
              + 4 * r * 4)
-    ops = 2 * r * v * d + 2 * hb.shape[0] * n_nodes * d * d
+    nh = hb.shape[0]
+    ops = 2 * r * v * d + 2 * nh * n_nodes * d * d
     b = bound(moved, ops)
-    log(f"K4 {name} R={r}: kernel {ms:.4f} ms events, {device_ms(kern):.4f} ms device; "
-        f"plain {plain_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}); {SMI}")
+    by_kernel = _kernel_ms(kern)
+    stage_a = sum(t for k, t in by_kernel.items() if k.startswith("wgemm_kernel"))
+    ba = bound(nbytes(src, *_tensors(hw), hb) + 2 * nh * n_nodes * d, 2 * nh * n_nodes * d * d)
+    log(f"K4 {name} R={r}: kernel {ms:.4f} ms events, {sum(by_kernel.values()):.4f} ms "
+        f"device, of it stage A ({nh} heads x {n_nodes} rows) {stage_a:.4f} ms, bound "
+        f"{ba[0]:.4f} ms ({ba[1]}); plain {plain_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}); "
+        f"{SMI}")
     counter = ("q_" if q else "") + ("id0_launches" if identity0 else "launches")
     return kernel_record(name, "whisper_medusa_tpu_torch/csrc/verify.cu",
                          "whisper_medusa_tpu/ops/verify.py:309", (VF, counter),
@@ -783,34 +805,108 @@ def _tensors(w):
     return [w["q"], w["s"]] if QM.is_quantized(w) else [w]
 
 
+def _kernel_ms(fn, reps=20):
+    """{kernel: device ms per call of fn()} under torch.profiler
+    (device_profile._by_kernel), after one warm-up call."""
+    from whisper_medusa_tpu_torch.device_profile import _by_kernel
+
+    fn()
+    return {k: us / 1e3 for k, (us, _) in _by_kernel(fn, reps).items()}
+
+
+def _cold_ms(fn):
+    """Device ms per call of fn() with the L2 flushed before each call, as
+    the decode loop reads the heads (device_profile._cold_ms)."""
+    from whisper_medusa_tpu_torch.device_profile import _cold_ms as cold
+
+    fn()
+    return cold(fn)
+
+
+def _head_weights(model):
+    """The model's stacked single-layer heads (nh, D, D) and biases (nh, D)."""
+    from whisper_medusa_tpu_torch.ops import qmm as QM
+
+    heads = model.params["medusa"]["heads"]
+    return QM.wmap(heads["w"], lambda a: a[:, 0]), heads["b"][:, 0]
+
+
+def _head_yardstick(src, w16, hb):
+    """The heads' rows in three PyTorch calls (no one call computes them):
+    torch.baddbmm of the biases and src @ W_k for every head, silu, add."""
+    pre = torch.baddbmm(hb[:, None, :], src[None].expand(hb.shape[0], -1, -1), w16)
+    return src[None] + torch.nn.functional.silu(pre)
+
+
+def check_head_invariance(g, model, name):
+    """The bits of a head row depend on neither M, the heads of the launch,
+    nor the entry (K4's stage A is the same GEMM mode): head 0's rows from a
+    1-head launch at M = 88 bitwise head 0's rows from an 11-head launch over
+    the same first 11 source rows (K4's stage A at B=1); the first 8 rows of
+    an M = 88 launch over every head bitwise an M = 8 launch's; the 10 draft
+    heads of an 11-head launch bitwise a 10-head launch's (pass B)."""
+    from whisper_medusa_tpu_torch.ops import qmm as QM
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    w, b = _head_weights(model)
+    d = model.config.dims.d_model
+    src = torch.randn((88, d), generator=g, device="cuda").to(torch.bfloat16)
+    one = VF.head_rows_kernel(src, QM.wmap(w, lambda a: a[:1]), b[:1])[0]
+    every11 = VF.head_rows_kernel(src[:11].contiguous(), w, b)
+    every88 = VF.head_rows_kernel(src, w, b)
+    every8 = VF.head_rows_kernel(src[:8].contiguous(), w, b)
+    drafts8 = VF.head_rows_kernel(src[:8].contiguous(), QM.wmap(w, lambda a: a[1:]), b[1:])
+    checks = {"head 0, 1-head M=88 vs 11-head M=11": torch.equal(one[:11], every11[0]),
+              "every head, M=88's first 8 rows vs M=8": torch.equal(every88[:, :8], every8),
+              "draft heads, 11-head vs 10-head launch": torch.equal(every8[1:], drafts8)}
+    for what, ok in checks.items():
+        log(f"{name} bitwise, {what}: {ok}")
+        require(ok, f"{name}: {what} differ")
+
+
 def check_head_rows(g, model, name=None):
     """K4's stage A alone (wm_head_rows) at the shapes the loop gives it,
     elementwise within 3e-2: head 0 at M = 88 and 176 (the two-pass loop's
-    head-0 rows at B=8 and B=16, 11 nodes; 176 in two launches), and the 10
-    draft heads at M = 8 and 16 (prefill and pass B at B=8 and 16) and M = 1
-    (prefill at B=1); the row is called ``name`` where given."""
+    head-0 rows at B=8 and B=16, 11 nodes), the 10 draft heads at M = 8 and
+    16 (prefill and pass B at B=8 and 16) and M = 1 (prefill at B=1), every
+    head at M = 11 (K4's stage A at B=1) and head 0 at M = 300 (past one
+    launch's 192 rows: two launches); each call's device time with the L2
+    flushed (_cold_ms) beside its byte bound and the three-call yardstick's
+    (_head_yardstick; on a bf16 copy of int8 heads); then
+    check_head_invariance.  The row is called
+    ``name`` where given."""
     from whisper_medusa_tpu_torch.ops import qmm as QM
     from whisper_medusa_tpu_torch.ops import verify as VF
 
     q = _int8(model)
     name = name or ("head_rows_int8" if q else "head_rows")
-    heads = model.params["medusa"]["heads"]
-    w, b = QM.wmap(heads["w"], lambda a: a[:, 0]), heads["b"][:, 0]
+    w, b = _head_weights(model)
     d = model.config.dims.d_model
     err, timed = 0.0, None
-    # M = 176: pass A at B=16, two launches of the blocked wrapper.
-    for m, lo, hi in ((88, 0, 1), (8, 1, None), (1, 1, None), (176, 0, 1), (16, 1, None)):
+    for m, lo, hi in ((88, 0, 1), (8, 1, None), (1, 1, None), (176, 0, 1), (16, 1, None),
+                      (11, 0, None), (300, 0, 1)):
         hw, hb = QM.wmap(w, lambda a: a[lo:hi]), b[lo:hi]
         src = torch.randn((m, d), generator=g, device="cuda").to(torch.bfloat16)
         got = VF.head_rows_kernel(src, hw, hb)
         ref = VF.head_rows_plain(src, hw, hb)
         e = max_err(got, ref)
-        log(f"{name} M={m} heads={hb.shape[0]}: max_abs_err {e:.3e}")
+        nh = hb.shape[0]
         require(got.shape == ref.shape and close(got, ref, 3e-2),
-                f"{name} M={m} heads={hb.shape[0]}: err {e}")
+                f"{name} M={m} heads={nh}: err {e}")
         err = max(err, e)
         if timed is None:
             timed = (src, hw, hb, got)
+        dev = _cold_ms(lambda: VF.head_rows_kernel(src, hw, hb))
+        bm = bound(nbytes(src, *_tensors(hw), hb, got), 2 * nh * m * d * d)
+        w16 = ((hw["q"].float() * hw["s"][:, None, :]).to(torch.bfloat16)
+               if QM.is_quantized(hw) else hw)
+        yard = _cold_ms(lambda: _head_yardstick(src, w16, hb))
+        launches = len(VF.head_plan(m, d, nh)["blocks"])
+        log(f"{name} M={m} heads={nh}: max_abs_err {e:.3e}; device {dev:.4f} ms in "
+            f"{launches} launch(es), L2 flushed, bound {bm[0]:.4f} ms ({bm[1]}); baddbmm / "
+            f"silu / add device {yard:.4f} ms; {SMI}")
+        del w16
+    check_head_invariance(g, model, name)
     src, hw, hb, got = timed
     ms = cuda_ms(lambda: VF.head_rows_kernel(src, hw, hb))
     plain_ms = cuda_ms(lambda: VF.head_rows_plain(src, hw, hb))
@@ -1409,7 +1505,7 @@ def k2_attention_times(name, run, rows, cache, offsets, offs, t, quant):
 
 
 # K2's kernels by name (device_profile._short): its GEMM (the LN mode's
-# instantiations end in ", true>"), the attention body, and ln_post.
+# instantiations: device_profile.is_ln_gemm), the attention body, and ln_post.
 K2_KERNELS = ("wgemm_kernel<", "cross_decode_kernel<", "ln_rows_kernel")
 K2_PER_LAYER = 8          # LN + q/k/v, self, o, LN + cross q, cross, cross o, LN + fc1, fc2
 
@@ -1419,10 +1515,12 @@ def k2_launches(name, rows, slots, b, t):
     (device_profile._by_kernel): 8 a layer over ``slots`` layers (the
     block's included) and exactly one ``ln_rows_kernel`` (ln_post); the
     layer norms run inside the q/k/v, cross-q and fc1 GEMMs (3 a layer)."""
-    count = lambda pre, end="": round(sum(n for k, (_, n) in rows.items()
-                                          if k.startswith(pre) and k.endswith(end)))
+    from whisper_medusa_tpu_torch.device_profile import is_ln_gemm
+
+    count = lambda pre: round(sum(n for k, (_, n) in rows.items() if k.startswith(pre)))
     total = sum(count(k) for k in K2_KERNELS)
-    ln_rows, ln_gemms = count("ln_rows_kernel"), count("wgemm_kernel<", ", true>")
+    ln_rows = count("ln_rows_kernel")
+    ln_gemms = round(sum(n for k, (_, n) in rows.items() if is_ln_gemm(k)))
     log(f"K2 {name} B={b} T={t}: {total} launches a step over {slots} layers "
         f"({(total - ln_rows) / slots:.2f} a layer), ln_rows_kernel {ln_rows} a step, "
         f"LN-mode GEMMs {ln_gemms} a step")
@@ -1965,8 +2063,8 @@ def phase_p4_requests(model, kernels, feat):
 
 
 # Whisper tiny (d_model 384): every decode call takes the per-op step (K2
-# takes d_model % 256 == 0), whose K11, head_rows and K4 split 24 K-steps
-# over the skinny GEMM's 16 warps.
+# takes d_model % 256 == 0); its K11, head_rows and K4's stage A run the
+# weight-streaming GEMM with 6 K slices of one 64-wide chunk each.
 TINY_D = 384
 TINY_ROWS = ("ffn_decode d384", "head_rows d384", "verify d384")
 NEEDS_TINY = {
@@ -2534,6 +2632,7 @@ def main():
                                  name="ffn_decode d384"),
                 check_head_rows(g, tiny[0], name="head_rows d384"),
                 check_verify(g, tiny[0], name="verify d384")]
+    check_head_invariance(g, tiny[1], "head_rows_int8 d384")
     check_step_invariance(tiny[0], tiny[0].encode(feats8), "tiny bf16")
     phase_tiny_requests(tiny, kernels, feats, feats8)
     for k in kernels:

@@ -113,7 +113,7 @@ def test_the_fold_is_in_the_sources():
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", wgemm)}
     assert consts["G_LN_LANES"] == MS.LN_LANES
     assert consts["G_LN_MAXP"] == MS.LN_MAX_CHUNKS
-    assert "template <int MT, bool W8, bool LN>" in wgemm
+    assert "template <int MT, bool W8, bool LN, bool HEADS = false>" in wgemm
     # ln_rows is launched once a step (ln_post) and never inside a layer;
     # the three fed GEMMs take the residual stream in LN mode.
     assert len(re.findall(r"WM_TRY\(ln_rows\(", mega)) == 1

@@ -116,6 +116,8 @@
 namespace wm {
 namespace {
 
+constexpr int K2_MAX_ROWS = 128;   // B * T rows a step: the GEMM's 8 row tiles (gemm)
+
 // ln_post: y[row] = LN(x[row]) in bf16 (and into y2 too, when given: the
 // block's residual stream starts from ln_post's output); f32 statistics; one
 // CTA per row.
@@ -446,7 +448,7 @@ extern "C" int wm_megastep_step(void** p, const int* ints, void* stream) {
   const int F = ints[5], S = ints[6], SE = ints[7], cross_len = ints[8];
   const int M = B * T;
   cudaStream_t st = (cudaStream_t)stream;
-  if (T > CD_MAXT || B > 8 || M > SK_MAX_ROWS || D != H * CD_DH || D % 256 || F % 256 ||
+  if (T > CD_MAXT || B > 8 || M > K2_MAX_ROWS || D != H * CD_DH || D % 256 || F % 256 ||
       SE % 4 || cross_len < 1 || cross_len > SE || S < T)
     return (int)cudaErrorInvalidValue;
   const bool quant = p[P_Q_S] != nullptr;

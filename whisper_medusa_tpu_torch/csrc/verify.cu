@@ -9,9 +9,10 @@
 // one C entry:
 //
 //  (A) rows[k * BN + n] = src[n] + bf16(SiLU(src[n] @ W_k + b_k)) for every
-//      head k: the skinny GEMM of common.cuh batched over heads (row block
-//      0 is head 0 — the base_head verification row — or the hidden state
-//      itself when identity0);
+//      head k: the heads mode of wgemm.cuh's weight-streaming wgmma GEMM,
+//      the head its grid's z and the stack's layer coordinate (row block 0
+//      is head 0 — the base_head verification row — or the hidden state
+//      itself when identity0, copied first);
 //  (B) the vocab stream (score_rows): the rows' logits against every
 //      64-entry vocab tile on the tensor cores, processed with suppress /
 //      begin-suppress / exponential EOS decay exactly as _process_tile
@@ -26,6 +27,14 @@
 // embedding stream (40 us at 3.35 TB/s) up to R ~ 250 rows, then the
 // 2 * R * V * D products (R = 1024: 136 GFLOP, 0.14 ms at 989 TFLOP/s;
 // counted from the shapes); stage A streams the 11 heads (36 MB).
+//
+// Stage A reads the BN source rows through a tensor map over exactly BN
+// rows (TMA zero-fills the rest of the 16-row tile: no staging copy) and
+// runs under programmatic dependent launch: it lets the vocab stream launch
+// early, but the stream is launched without the attribute (it has no
+// griddepcontrol.wait), so it starts only once stage A has finished; stage
+// A itself waits for the kernel before it and touches neither the rows the
+// identity0 copy writes nor anything that copy reads.
 //
 // K5 replaces whisper_medusa_tpu/ops/verify.py::_kernel (TPU, launched by
 // verify_rows): stages B and C over R <= 1024 rows that the caller built —
@@ -59,18 +68,21 @@
 //    the tiles in one fixed order.
 //
 // wm_head_rows is stage A alone: rows[k * M + m] = src[m] +
-// bf16(SiLU(src[m] @ W_k + b_k)) for M <= 128 source rows, the same skinny
-// GEMM and epilogue as K4's stage A, so a head row has the same bits whether
-// K4 builds it or the two-pass loop does.
+// bf16(SiLU(src[m] @ W_k + b_k)) for M <= 192 source rows, the same GEMM
+// mode, epilogue and K slices (from D alone) as K4's stage A, so a head row
+// has the same bits whether K4 builds it among 11 heads or the two-pass loop
+// does alone, at any M.
 //
 // int8 serving (the JAX kernels' quant / hquant modes) rides the same three
 // entries: an int8 embedding (V, D) with f32 scales (V,) streams as raw
 // int8 tiles (66 MB instead of 133 MB) and column v's sum is multiplied by
 // s[v] before the processors; int8 heads (nh, D, D) with f32 scales (nh, D)
-// take the skinny GEMM's W8A16 form.  A null scale pointer selects the bf16
-// form.
+// take the GEMM's W8 form (the raw tile converted exactly to bf16 in shared
+// memory, the column's scale applied before the bias).  A null scale pointer
+// selects the bf16 form.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "wgemm.cuh"
 
 namespace wm {
 namespace {
@@ -87,6 +99,7 @@ constexpr int VS_WBUF = 3;                   // converted bf16 E tiles (int8)
 constexpr int VS_LDC = VS_VT + 4;            // f32 pitch of the staged sums
 constexpr int VS_RB = 4;                     // rows a warp scores at once
 constexpr int VH_MAX_ROWS = 128;             // K4's rows (the JAX kernel takes 1024)
+constexpr int VH_MAX_SRC = 16;               // K4's source rows (B * N)
 
 // Ring depth by row tiles: 8 stages at one or two row tiles, 3 at three to
 // eight and 2 past them (a CTA of 192 rows and an int8 pair then holds
@@ -440,13 +453,37 @@ inline int score_rows(const bf16* rows, int n_rows, const void* e, const float* 
   return (int)cudaGetLastError();
 }
 
+// Stage A: out (nh, m, d) = src + bf16(SiLU(src @ W_k + b_k)) for every head
+// k on the heads mode of wgemm.cuh; w (nh, d, d) bf16, or int8 with f32
+// scales ws (nh, d).  src and w 16-byte aligned (else TENSOR_MAP_ERROR +
+// the encoder's error).
+inline int head_rows(const bf16* src, const void* w, const bf16* b, const float* ws, bf16* out,
+                     int m, int d, int nh, cudaStream_t st) {
+  const bool w8 = ws != nullptr;
+  const int mt = (m + 15) / 16;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)d, (cuuint64_t)nh};
+  const cuuint64_t es = w8 ? 1 : sizeof(bf16);
+  const cuuint64_t strides[2] = {(cuuint64_t)d * es, (cuuint64_t)d * d * es};
+  const cuuint32_t box[3] = {G_TILE, G_TILE, 1};
+  CUtensorMap mx, mw;
+  int err = encode_x_map(&mx, src, m, d, mt);
+  if (err == 0)
+    err = encode_map_cached(
+        &mw, w8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, w, dims,
+        strides, box, w8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  const GemmJob job = gjob(b, out, EPI_SILU_RESID, src, 1.0f, ws);
+  return w8 ? wgemm_heads_launch<true>(mt, st, mx, mw, job, nh, m, d, d)
+            : wgemm_heads_launch<false>(mt, st, mx, mw, job, nh, m, d, d);
+}
+
 }  // namespace
 }  // namespace wm
 
 // Pointer table of wm_verify_hidden (ops/verify.py builds the same list).
 enum VerifyPtr {
   V_HVER = 0,   // (BN, D) bf16 row-block-0 source (identity0 only)
-  V_HSRC16,     // (16, D) bf16 draft-row source, zero-padded to 16 rows
+  V_HSRC,       // (BN, D) bf16 draft-row source
   V_HEADS_W,    // (nh, D, D) bf16, or int8 with V_HEADS_S
   V_HEADS_B,    // (nh, D) bf16
   V_EMBED,      // (V, D) bf16, or int8 with V_EMBED_S
@@ -463,7 +500,7 @@ enum VerifyPtr {
 };
 
 // ints: BN, D, V, n_heads, identity0, begin_index, eos_id, has_decay,
-// decay_start.  R = (n_heads + identity0) * BN <= 128.
+// decay_start.  R = (n_heads + identity0) * BN <= 128, BN <= 16.
 extern "C" int wm_verify_hidden(void** p, const int* ints, float log_factor,
                                 void* stream) {
   using namespace wm;
@@ -472,21 +509,20 @@ extern "C" int wm_verify_hidden(void** p, const int* ints, float log_factor,
   const int decay_start = ints[8];
   const int R = (NH + id0) * BN;
   cudaStream_t st = (cudaStream_t)stream;
-  if (BN > 16 || R > VH_MAX_ROWS || D % VS_KC) return (int)cudaErrorInvalidValue;
+  if (BN < 1 || BN > VH_MAX_SRC || NH < 1 || R > VH_MAX_ROWS || D % VS_KC)
+    return (int)cudaErrorInvalidValue;
   bf16* rows = static_cast<bf16*>(p[V_ROWS]);
   // (A) row construction.
   if (id0)
     cudaMemcpyAsync(rows, p[V_HVER], (size_t)BN * D * sizeof(bf16),
                     cudaMemcpyDeviceToDevice, st);
-  const bf16* src = static_cast<const bf16*>(p[V_HSRC16]);
-  SkinnyJobs heads;
-  heads.j[0] = job(p[V_HEADS_W], static_cast<const bf16*>(p[V_HEADS_B]),
-                   rows + (size_t)id0 * BN * D, EPI_SILU_RESID, src, 1.0f,
-                   static_cast<const float*>(p[V_HEADS_S]));
-  skinny_gemm(src, D, BN, D, D, D, D, heads, 1, NH, (long long)D * D, D,
-              (long long)BN * D, st);
+  int err = head_rows(static_cast<const bf16*>(p[V_HSRC]), p[V_HEADS_W],
+                      static_cast<const bf16*>(p[V_HEADS_B]),
+                      static_cast<const float*>(p[V_HEADS_S]), rows + (size_t)id0 * BN * D, BN,
+                      D, NH, st);
+  if (err != 0) return err;
   // (B) the vocab stream, (C) combine.
-  const int err = score_rows(rows, R, p[V_EMBED], static_cast<const float*>(p[V_EMBED_S]), V, D,
+  err = score_rows(rows, R, p[V_EMBED], static_cast<const float*>(p[V_EMBED_S]), V, D,
              static_cast<const int*>(p[V_POS]), static_cast<const int*>(p[V_GCOL]),
              static_cast<const int8_t*>(p[V_SUP]), begin_index, eos_id, has_decay,
              decay_start, log_factor, static_cast<float*>(p[V_PART_F]),
@@ -528,17 +564,17 @@ extern "C" int wm_verify_rows(void** p, const int* ints, float log_factor,
              static_cast<float*>(p[VR_GTH]), (cudaStream_t)stream);
 }
 
-// out (NH, M, D) = src + bf16(SiLU(src @ W_k + b_k)) for each head k; src has
-// ceil(M / 16) * 16 rows allocated, w (NH, D, D), b (NH, D), all bf16; or w
-// int8 with f32 scales ws (NH, D) (null for bf16 heads).
+// out (NH, M, D) = src + bf16(SiLU(src @ W_k + b_k)) for each head k; src
+// (M, D), w (NH, D, D), b (NH, D), all bf16; or w int8 with f32 scales ws
+// (NH, D) (null for bf16 heads).  1 <= M <= 192, D % 64 == 0; src and w
+// 16-byte aligned.
 extern "C" int wm_head_rows(const void* src, const void* w, const void* b, void* out,
                             const void* ws, int m, int d, int nh, void* stream) {
   using namespace wm;
-  if (m < 1 || m > SK_MAX_ROWS || d % 64 || nh < 1) return (int)cudaErrorInvalidValue;
-  SkinnyJobs heads;
-  heads.j[0] = job(w, static_cast<const bf16*>(b), static_cast<bf16*>(out), EPI_SILU_RESID,
-                   static_cast<const bf16*>(src), 1.0f, static_cast<const float*>(ws));
-  skinny_gemm(static_cast<const bf16*>(src), d, m, d, d, d, d, heads, 1, nh,
-              (long long)d * d, d, (long long)m * d, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  if (m < 1 || m > 16 * G_MAX_MT || d < G_TILE || d % G_TILE || nh < 1)
+    return (int)cudaErrorInvalidValue;
+  const int err = head_rows(static_cast<const bf16*>(src), w, static_cast<const bf16*>(b),
+                            static_cast<const float*>(ws), static_cast<bf16*>(out), m, d, nh,
+                            (cudaStream_t)stream);
+  return err != 0 ? err : (int)cudaGetLastError();
 }

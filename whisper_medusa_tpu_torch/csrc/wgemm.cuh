@@ -1,5 +1,6 @@
 // The weight-streaming GEMM on wgmma, shared by K2's six projections
-// (megastep.cu) and K11's fc1 and fc2 (decode_ops.cu): Y (M, N) =
+// (megastep.cu), K11's fc1 and fc2 (decode_ops.cu) and the Medusa heads'
+// rows of K4's stage A and wm_head_rows (verify.cu): Y (M, N) =
 // epilogue(X (M, K) @ W (K, N)) for M <= 192 rows, computed as
 // Y^T = W^T X^T so that the weight gives wgmma's 64-row side and the rows
 // its N side.  At decode sizes it is bound by the weight stream.
@@ -35,6 +36,14 @@
 //    X tile's rows m < M in place, bf16((x - mean) * rstd * s[k] + b[k]),
 //    before its products.  A row's statistics depend on the row and (K, N,
 //    jobs) alone, never on M; no extra launch, no scratch.
+//  * heads mode (HEADS, verify.cu): the (NH, D, D) head stack is an (L, K,
+//    N) stack, so grid z is the head and its layer coordinate; bias and
+//    int8 scales (NH, D) and the output (NH, M, D) are offset by it, and the
+//    epilogue is EPI_SILU_RESID, bf16(x + bf16(silu(acc * s + b))) with x
+//    the source row itself (staged as EPI_BIAS_RESID's residual).  The K
+//    slices come from (K, N) alone (head_slices), never from the head
+//    count, so head 0's rows have the same bits in an 11-head launch of
+//    K4's stage A and in a 1-head wm_head_rows launch, at any M.
 //
 // Every launch uses programmatic dependent launch (launch_pdl): the kernel
 // lets the next one launch at its start (griddepcontrol.launch_dependents)
@@ -194,7 +203,8 @@ inline GemmJob gjob(const bf16* bias, bf16* out, int epi, const bf16* res = null
 }
 
 // grid (slices, N / 64, jobs), clusters of (slices, 1, 1): the cluster's
-// CTA of rank r computes W columns [64 y, + 64) of job z over K slice r;
+// CTA of rank r computes W columns [64 y, + 64) of job z (HEADS: of head z,
+// at layer z of mw0; ``layer`` unused) over K slice r;
 // then rank r adds the slices' partials, in rank order, for its share of
 // the rows and runs the epilogue.  The W tile is wgmma's A side (64 columns
 // x 16 K, MN-major, 128-byte swizzle as TMA writes it: the bf16 tile
@@ -214,7 +224,7 @@ inline GemmJob gjob(const bf16* bias, bf16* out, int epi, const bf16* res = null
 // rewritten in place once it has landed: the producer refills a stage only
 // after every consumer warp's products of its previous use are done, so no
 // product still reads a tile being rewritten.
-template <int MT, bool W8, bool LN>
+template <int MT, bool W8, bool LN, bool HEADS = false>
 __global__ void __launch_bounds__(G_THREADS)
 wgemm_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw0,
              const __grid_constant__ CUtensorMap mw1, const __grid_constant__ CUtensorMap mw2,
@@ -224,8 +234,9 @@ wgemm_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUt
   cg::cluster_group cluster = cg::this_cluster();
   const int slices = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int z = blockIdx.z, n0 = blockIdx.y * G_TILE;
-  const CUtensorMap* mw = z == 0 ? &mw0 : (z == 1 ? &mw1 : &mw2);
-  const GemmJob jb = z == 0 ? jobs.j[0] : (z == 1 ? jobs.j[1] : jobs.j[2]);
+  const CUtensorMap* mw = (HEADS || z == 0) ? &mw0 : (z == 1 ? &mw1 : &mw2);
+  const GemmJob jb = (HEADS || z == 0) ? jobs.j[0] : (z == 1 ? jobs.j[1] : jobs.j[2]);
+  const int lyr = HEADS ? z : layer;   // the W stack's layer coordinate
   const int c_first = gemm_slice_begin(chunks, slices, rank);
   const int nch = gemm_slice_begin(chunks, slices, rank + 1) - c_first;
   constexpr int WB = W8 ? G_WRAW : G_WTILE;   // W bytes a stage
@@ -266,12 +277,18 @@ wgemm_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUt
   if (warp == 4 && lane == 0) {   // the weights of the first stages: no wait
     for (int it = 0; it < pre; ++it) {
       mbar_arrive_tx(&full[it], WB + MT * G_XT);
-      tma_load_3d(ws + it * WB, mw, &full[it], n0, (c_first + it) * G_TILE, layer);
+      tma_load_3d(ws + it * WB, mw, &full[it], n0, (c_first + it) * G_TILE, lyr);
     }
   }
   if (threadIdx.x < G_TILE) {
-    col_bias[threadIdx.x] = jb.bias ? bf2f(jb.bias[n0 + threadIdx.x]) : 0.0f;
-    col_scale[threadIdx.x] = W8 ? jb.wscale[n0 + threadIdx.x] : 1.0f;
+    if constexpr (HEADS) {   // head z's columns of the (NH, N) bias and scales
+      const size_t c = (size_t)z * gridDim.y * G_TILE + n0 + threadIdx.x;
+      col_bias[threadIdx.x] = bf2f(jb.bias[c]);
+      col_scale[threadIdx.x] = W8 ? jb.wscale[c] : 1.0f;
+    } else {
+      col_bias[threadIdx.x] = jb.bias ? bf2f(jb.bias[n0 + threadIdx.x]) : 0.0f;
+      col_scale[threadIdx.x] = W8 ? jb.wscale[n0 + threadIdx.x] : 1.0f;
+    }
   }
   if constexpr (LN) {   // the slice's scale and bias, 8 of each a thread (nch * 8 <= 80)
     for (int i = threadIdx.x; i < nch * 8; i += G_THREADS) {
@@ -362,7 +379,7 @@ wgemm_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUt
 
   float acc[MT * 8];
   if (warp == 4) {   // producer; lanes 1-31 stage the residual rows meanwhile
-    if (lane != 0 && jb.epi == EPI_BIAS_RESID) {
+    if (lane != 0 && (HEADS || jb.epi == EPI_BIAS_RESID)) {
       for (int i = lane - 1; i < (r1 - r0) * (G_TILE / 8); i += 31) {
         const int m = r0 + i / (G_TILE / 8), c8 = (i % (G_TILE / 8)) * 8;
         *reinterpret_cast<uint4*>(&res_rows[(m - r0) * G_TILE + c8]) =
@@ -377,7 +394,7 @@ wgemm_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUt
         const int st = it % stages, c = c_first + it;
         mbar_wait(&empty[st], ((it / stages) & 1) ^ 1);
         mbar_arrive_tx(&full[st], WB + MT * G_XT);
-        tma_load_3d(ws + st * WB, mw, &full[st], n0, c * G_TILE, layer);
+        tma_load_3d(ws + st * WB, mw, &full[st], n0, c * G_TILE, lyr);
         tma_load_2d(xs + st * MT * G_XT, &mx, &full[st], c * G_TILE, 0);
       }
     }
@@ -478,13 +495,18 @@ wgemm_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUt
     if constexpr (W8) sum *= col_scale[col];
     if (jb.bias) sum += col_bias[col];
     float r;
-    switch (jb.epi) {
-      case EPI_BIAS_SCALE: r = bfr(sum) * jb.scale; break;
-      case EPI_BIAS_GELU: r = gelu_erf(sum); break;
-      case EPI_BIAS_RESID: r = bf2f(res_rows[(m - r0) * G_TILE + col]) + bfr(sum); break;
-      default: r = sum;
+    if constexpr (HEADS) {   // EPI_SILU_RESID, head z's rows of (NH, M, N)
+      r = bf2f(res_rows[(m - r0) * G_TILE + col]) + bfr(sum / (1.0f + expf(-sum)));
+      jb.out[((size_t)z * m_rows + m) * ldo + n0 + col] = f2bf(r);
+    } else {
+      switch (jb.epi) {
+        case EPI_BIAS_SCALE: r = bfr(sum) * jb.scale; break;
+        case EPI_BIAS_GELU: r = gelu_erf(sum); break;
+        case EPI_BIAS_RESID: r = bf2f(res_rows[(m - r0) * G_TILE + col]) + bfr(sum); break;
+        default: r = sum;
+      }
+      jb.out[(size_t)m * ldo + n0 + col] = f2bf(r);
     }
-    jb.out[(size_t)m * ldo + n0 + col] = f2bf(r);
   }
   cluster.sync();    // every rank's partial stays until the others have read it
 }
@@ -558,6 +580,41 @@ void wgemm_set_smem(int mt, int smem) {
     return;
   }
   if constexpr (MT < MAXMT) wgemm_set_smem<MAXMT, W8, LN, MT + 1>(mt, smem);
+}
+
+// Heads mode (HEADS): the K slices of an (NH, K, N) head stack from its
+// (K, N) alone (ops/verify.py::head_plan mirrors it), whatever the
+// number of heads or rows, so that a head's rows have the same bits in every
+// launch.  The ring has H_STAGES stages at every M: at large-v2 a slice is 3
+// chunks, and 2 stages (nine CTAs an SM at one row tile) measured as fast as
+// the whole slice in flight, or faster, with the L2 flushed.
+constexpr int H_STAGES = 2;
+
+inline int head_slices(int k, int n) { return gemm_slices(k, n, 1); }
+
+// out (nh, M, N) = src + bf16(silu(src @ W[h] * s[h] + b[h])) for every head
+// h: wgemm_kernel<mt, W8, false, true> on a grid (slices, N / 64, nh) under
+// programmatic dependent launch.  mx: src (M rows, K = N) as encode_x_map
+// gives it; mw: the (nh, K, N) stack, box (64, 64, 1); ``ldo`` = N.
+template <bool W8, int MT = 1>
+int wgemm_heads_launch(int mt, cudaStream_t st, const CUtensorMap& mx, const CUtensorMap& mw,
+                       const GemmJob& job, int nh, int m, int k, int n) {
+  static_assert(MT <= G_MAX_MT, "WgmmaN takes N <= 192");
+  if (mt == MT) {
+    const int slices = head_slices(k, n);
+    const int smem = gemm_smem(MT, W8, H_STAGES);
+    // Per call: the attribute belongs to the current device's context.
+    cudaFuncSetAttribute(wgemm_kernel<MT, W8, false, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    GemmJobs jobs;
+    jobs.j[0] = jobs.j[1] = jobs.j[2] = job;
+    return launch_pdl(wgemm_kernel<MT, W8, false, true>, dim3(slices, n / G_TILE, nh),
+                      dim3(G_THREADS), smem, slices, st, mx, mw, mw, mw, jobs, 0, m,
+                      k / G_TILE, H_STAGES, n, n, LnArgs{});
+  }
+  if constexpr (MT < G_MAX_MT)
+    return wgemm_heads_launch<W8, MT + 1>(mt, st, mx, mw, job, nh, m, k, n);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

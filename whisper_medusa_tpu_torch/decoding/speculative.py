@@ -215,8 +215,8 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
                 flat, embed, pos_rows, gcol_rows, sup_masks, **vkw)
         elif two_pass:
             # Pass A: the verification rows only — the hidden rows themselves
-            # (medusa_block), or head 0 of them built by the same skinny GEMM
-            # as K4's stage A (base_head).
+            # (medusa_block), or head 0 of them built by the same GEMM mode
+            # as K4's stage A (base_head), with the same bits.
             rows = flat if block is not None else verify_mod.head_rows(
                 flat, qmm_mod.wmap(heads_w, lambda a: a[:1]), heads_b[:1])[0]
             am, mx, lse, gth = verify_mod.verify_rows(

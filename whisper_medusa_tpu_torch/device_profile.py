@@ -1,11 +1,12 @@
 """Where the device time goes, on one CUDA card.
 
-    python -m whisper_medusa_tpu_torch.device_profile [--part serving|per_op|step|train|all]
+    python -m whisper_medusa_tpu_torch.device_profile [--part serving|heads|per_op|step|train|all]
 
 Six parts, all at full whisper-large-v2 width with bf16 weights drawn from
 a seed, and the same again on ``model.quantize()`` (int8 serving) for parts
-2, 4 and 6 (``--part serving`` runs parts 1-4 and 6, ``--part per_op`` part
-6, ``--part step`` part 6's per-op steps alone, ``--part train`` part 5).
+2, 3, 4 and 6 (``--part serving`` runs parts 1-4 and 6, ``--part heads``
+part 3, ``--part per_op`` part 6, ``--part step`` part 6's per-op steps
+alone, ``--part train`` part 5).
 Run with another checkout's package first on ``PYTHONPATH`` (``PYTHONPATH=DIR
 python path/to/this/device_profile.py ...``), it profiles that checkout's
 code the same way:
@@ -22,9 +23,14 @@ code the same way:
      (above the busy time by as much as programmatic dependent launch
      overlaps them), and K2's launches a call: how many GEMMs normalize
      their X themselves (the LN mode) and how many ``ln_rows_kernel``;
-  3. one verification step at B=8 on the 11-node chain: the loop's two
-     passes (K5 over the head-0 rows, then the draft heads through K3)
-     against one pass of every (head, node) row through K5 (R = 968);
+  3. the Medusa heads' rows (``wm_head_rows``, K4's stage A alone) at the
+     loop's shapes: head 0 at M = 88 (pass A at B=8), the 10 draft heads at
+     M = 8 (pass B) and M = 1 (the prefill at B=1), every head at M = 11,
+     bf16 and int8; one K4 call at R = 121 (11 heads x 11 nodes) with its
+     stage A by kernel; then one verification step at B=8 on the 11-node
+     chain: the loop's two passes (K5 over the head-0 rows, then the draft
+     heads through K3) against one pass of every (head, node) row through
+     K5 (R = 968);
   4. whole requests of ``max_new_tokens=128`` from seeded random features:
      Medusa and vanilla (``disable_medusa=True``) at B=1 and B=8, and
      Medusa-Block at B=1 and B=8, bf16 and int8.  For each, the wall time
@@ -85,6 +91,14 @@ def _short(name: str) -> str:
     return re.split(r"[<(]", name.removeprefix("void "), maxsplit=1)[0][:70]
 
 
+def is_ln_gemm(name: str) -> bool:
+    """Whether a kernel (``_short``'s name) is the weight-streaming GEMM in
+    K2's LN mode: ``wgemm_kernel<MT, W8, true>``, or ``wgemm_kernel<MT, W8,
+    true, false>`` since the heads mode became its fourth template
+    parameter."""
+    return re.fullmatch(r"wgemm_kernel<\d+, \w+, true(, false)?>", name) is not None
+
+
 def _device_events(fn, reps: int = 1):
     """(name, start us, end us) of every kernel, memcpy and memset that
     ``reps`` runs of ``fn`` put on the card, in start order (torch.profiler,
@@ -125,6 +139,29 @@ def _by_kernel(fn, reps: int = 1):
         k[1] += 1.0 / reps
         last = t1 if last is None else max(last, t1)
     return dict(acc)
+
+
+_FLUSH = []
+
+
+def _l2_flush():
+    """Copy 128 MB from one buffer to another (one device-to-device memcpy,
+    "memcpy / memset" in ``_by_kernel``), so that the card's 50 MB L2 holds
+    nothing the next call reads: in the decode loop K2's 1.47 GB weight
+    stream passes between two calls of a small kernel, whose weights then
+    come from HBM."""
+    if not _FLUSH:
+        _FLUSH.extend(torch.empty(64 * 2**20, dtype=torch.int16, device="cuda") for _ in "ab")
+    _FLUSH[1].copy_(_FLUSH[0])
+
+
+def _cold_ms(fn, reps: int = 20, prefixes=None):
+    """Device ms per call of ``fn`` with the L2 flushed before each call
+    (``_l2_flush``), the flush's copy left out; with ``prefixes``, only the
+    kernels whose names start with one of them."""
+    rows = _by_kernel(lambda: (_l2_flush(), fn()), reps)
+    return sum(us for k, (us, _) in rows.items()
+               if k != "memcpy / memset" and (prefixes is None or k.startswith(prefixes))) / 1e3
 
 
 def _overlap_ms(fn, reps: int = 1):
@@ -239,8 +276,7 @@ def profile_megastep(model, mode, block=None):
         durations, busy = _overlap_ms(run, 5)
         k2 = {k: n for k, (_, n) in rows.items()
               if k.startswith(("wgemm_kernel<", "cross_decode_kernel<", "ln_rows_kernel"))}
-        ln_gemms = sum(n for k, n in k2.items()
-                       if re.fullmatch(r"wgemm_kernel<\d+, \w+, true>", k))
+        ln_gemms = sum(n for k, n in k2.items() if is_ln_gemm(k))
         _table(f"K2 {mode}, {what}, B={b} T={t}, per call", rows,
                f" (CUDA events: {ms:.4f} ms per call; the C entry's host time "
                f"{_entry_host_ms(run, 'wm_megastep_step'):.4f} ms; the projections "
@@ -294,6 +330,35 @@ def profile_verify_passes(model, b=8):
     for name, fn in (("two passes", two_pass), ("one pass", one_pass)):
         _table(f"verification, B={b}, {n} nodes, {name}", _by_kernel(fn, 5),
                f" (CUDA events: {_cuda_ms(fn):.4f} ms per step)")
+
+
+def profile_head_rows(model, mode):
+    """Part 3's head rows and K4 at R = 121, device time by kernel."""
+    from whisper_medusa_tpu_torch.ops import qmm as QM
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    dims = model.config.dims
+    heads = model.params["medusa"]["heads"]
+    hw, hb = QM.wmap(heads["w"], lambda a: a[:, 0]), heads["b"][:, 0]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    d = dims.d_model
+    for m, lo, hi in ((88, 0, 1), (8, 1, None), (1, 1, None), (11, 0, None)):
+        w, b = QM.wmap(hw, lambda a: a[lo:hi]), hb[lo:hi]
+        src = torch.randn((m, d), generator=g, device="cuda").to(torch.bfloat16)
+        run = lambda: VF.head_rows(src, w, b)
+        _table(f"head rows {mode}, {b.shape[0]} head(s) x M={m}", _by_kernel(run, 20),
+               f" (CUDA events: {_cuda_ms(run):.4f} ms per call)")
+    n, kp1 = 11, hb.shape[0]
+    embed = model.params["whisper"]["decoder"]["embed_tokens"]
+    hid = torch.randn((1, n, d), generator=g, device="cuda").to(torch.bfloat16)
+    pos = (5 + torch.arange(kp1 * n, device="cuda") % 32).to(torch.int32)
+    gcol = torch.zeros_like(pos)
+    masks = torch.zeros((2, dims.vocab_size), dtype=torch.int8, device="cuda")
+    run = lambda: VF.verify_hidden(hid, hid, hw, hb, embed, pos, gcol, masks, identity0=False,
+                                   begin_index=4, eos_id=model.special.eos, decay=None)
+    _table(f"K4 {mode}, {kp1} heads x {n} nodes (R = {kp1 * n})", _by_kernel(run, 20),
+           f" (CUDA events: {_cuda_ms(run):.4f} ms per call)")
 
 
 def profile_requests(model, mode, paths=(("medusa", {}),
@@ -404,6 +469,13 @@ def profile_training(b=2, t=224):
         torch.cuda.empty_cache()
 
 
+def profile_heads(model, qmodel):
+    """Part 3."""
+    for m, mode in ((model, "bf16"), (qmodel, "int8")):
+        profile_head_rows(m, mode)
+    profile_verify_passes(model)
+
+
 def profile_serving(model, qmodel, bmodel, bqmodel):
     """Parts 1-4."""
     profile_frontend()
@@ -411,7 +483,7 @@ def profile_serving(model, qmodel, bmodel, bqmodel):
         profile_megastep(m, mode)
     for m, mode in ((bmodel, "bf16"), (bqmodel, "int8")):
         profile_megastep(m, mode, block=m.params["medusa"]["block"])
-    profile_verify_passes(model)
+    profile_heads(model, qmodel)
     for m, mode in ((model, "bf16"), (qmodel, "int8")):
         profile_requests(m, mode)
     for m, mode in ((bmodel, "bf16"), (bqmodel, "int8")):
@@ -426,7 +498,7 @@ def main(argv=None):
     from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--part", choices=("all", "serving", "per_op", "step", "train"),
+    parser.add_argument("--part", choices=("all", "serving", "heads", "per_op", "step", "train"),
                         default="all")
     part = parser.parse_args(argv).part
     if not torch.cuda.is_available():
@@ -444,6 +516,9 @@ def main(argv=None):
     g.manual_seed(SEED + 1)
     model.params["medusa"]["heads"]["w"].normal_(0.0, 0.02, generator=g)
     qmodel = model.quantize()
+    if part == "heads":
+        profile_heads(model, qmodel)
+        return
     bmodel = bridge.random_block_model(model, seed=SEED + 2)
     bqmodel = bmodel.quantize()
     if part not in ("per_op", "step"):

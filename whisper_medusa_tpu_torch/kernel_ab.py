@@ -1,5 +1,6 @@
-"""Time this checkout's K1, K6, K8, K10, K7, K3, K2, K11, K5 and K4 against
-another checkout's build of them, on one CUDA card, in turns.
+"""Time this checkout's K1, K6, K8, K10, K7, K3, K2, K11, K5, K4 and
+``wm_head_rows`` against another checkout's build of them, on one CUDA
+card, in turns.
 
     python -m whisper_medusa_tpu_torch.kernel_ab --other DIR
 
@@ -8,7 +9,11 @@ parent commit, unpacked with ``git archive``).  Its kernels are built from
 its own ``whisper_medusa_tpu_torch/csrc`` into its own ``build/`` by its own
 ``ops/cuda_lib.py``, loaded beside this checkout's, and both C entries are
 called on the same seeded inputs and output buffers (allocated once), so the
-times exclude the wrappers' checks and allocations:
+times exclude the wrappers' checks and allocations.  First, the SASS of the
+weight-streaming GEMM's instantiations that K2 and K11 run
+(``wgemm_kernel<MT, W8, LN>``, in each build's megastep.cu and
+decode_ops.cu objects, ``cuobjdump -sass``) is compared between the builds,
+instruction for instruction, and whether it is the same is printed.  Then:
 
   * K1, ``wm_attention_fwd``, at (1, 20, 1500, 64) and (8, 20, 1500, 64),
     the encoder's self-attention at B=1 and B=8;
@@ -47,7 +52,12 @@ times exclude the wrappers' checks and allocations:
     and int8 tied embedding; K4, ``wm_verify_hidden``, at R = 121 (11 heads
     x 11 nodes, or 10 heads and the ``identity0`` rows), bf16 and int8
     (``quant``: int8 embedding and heads), and bf16 at whisper tiny's D =
-    384.  Each is
+    384, with the device time of its stage A (the heads' rows) by kernel
+    name; ``wm_head_rows`` (K4's stage A alone), bf16 and int8 heads: head 0
+    at M = 88 (pass A at B=8), the 10 draft heads at M = 8 (pass B) and M =
+    1 (the prefill at B=1), every head at M = 11 (K4's stage A at B=1), and
+    head 0 at M = 88 and the 10 heads at M = 8 at D = 384, beside the
+    three-call yardstick (``torch.baddbmm``, silu, add).  Each is
     called through its checkout's own wrapper (``ops/decode_ops.py``,
     ``ops/verify.py`` loaded from that checkout, calling that checkout's
     library), so a build's row blocking and staging copies count, and the C
@@ -61,22 +71,27 @@ the time the device is busy with the call's kernels, which the events
 exceed where the host's launch overhead is the longer).  The two builds'
 outputs are compared first (K1 within 2e-2, K6 and K3 within 1e-3 of max
 |y|, K8's normalized features within 1e-3, K10, its mask mode, K7 and K11
-bitwise, K2's hidden states at cosine >= 0.999, K5's and
-K4's max / lse / gathered within 1e-2 and their argmax on all but 1 % of
-the rows: the builds sum in other orders).
+bitwise, K2's hidden states at cosine >= 0.999 (whether they are bitwise
+equal is printed), K5's and K4's max / lse / gathered within 1e-2 and
+their argmax on all but 1 % of the rows, the head rows elementwise within
+3e-2 of each other (bitwise equality printed): the builds may sum in other
+orders).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import importlib.util
 import os
+import re
+import shutil
 import subprocess
 
 import numpy as np
 import torch
 
-from whisper_medusa_tpu_torch.device_profile import _by_kernel, _cuda_ms
+from whisper_medusa_tpu_torch.device_profile import _by_kernel, _cold_ms, _cuda_ms
 from whisper_medusa_tpu_torch.ops import cuda_lib
 from whisper_medusa_tpu_torch.ops import mel as M
 from whisper_medusa_tpu_torch.ops import qmm as QM
@@ -103,22 +118,69 @@ def _other_lib(root: str):
     return mod
 
 
-def _turns(what, calls, entry=None, libs=None):
+def _turns(what, calls, entry=None, libs=None, part=None, cold=False):
     """calls: {"other": fn, "this": fn}; run other, this, this, other.  With
     ``entry``, also the host time of that C entry of each build
-    (``device_profile._entry_host_ms`` on ``libs[who]``)."""
+    (``device_profile._entry_host_ms`` on ``libs[who]``); with ``part`` (a
+    tuple of kernel-name prefixes), also the device time of those kernels
+    alone, with ``cold`` measured with the L2 flushed before each call
+    (``device_profile._cold_ms``)."""
     from whisper_medusa_tpu_torch.device_profile import _entry_host_ms
 
     out = []
     for who in ("other", "this", "this", "other"):
         ev = _cuda_ms(calls[who])
-        dev = sum(us for us, _ in _by_kernel(calls[who], 20).values()) / 1e3
+        rows = _by_kernel(calls[who], 20)
+        dev = sum(us for us, _ in rows.values()) / 1e3
         cell = f"{who} {ev:.4f} / {dev:.4f}"
         if entry is not None:
             cell += f" / {_entry_host_ms(calls[who], entry, lib=libs[who]):.4f}"
+        if part is not None:
+            ms = (_cold_ms(calls[who], 20, part) if cold else
+                  sum(us for k, (us, _) in rows.items() if k.startswith(part)) / 1e3)
+            cell += f" / {ms:.4f}"
         out.append(cell)
-    kind = "events / device / C-entry host ms" if entry else "events / device ms"
+    kind = "events / device" + (" / C-entry host" if entry else "") + (
+        f" / {'+'.join(part)} device" + (" (L2 flushed)" if cold else "") if part else "") + " ms"
     print(f"{what}: {kind}: " + ", ".join(out), flush=True)
+
+
+# K2's and K11's instantiations of the GEMM kernel, by template arguments
+# (MT, W8, LN), in a mangled name; a trailing ``false`` (the heads mode's
+# parameter at its default) is dropped.
+_WGEMM = re.compile(r"wgemm_kernelILi(\d+)ELb([01])ELb([01])E(?:Lb([01])E)?E")
+
+
+def _sass_functions(so_path):
+    """{(MT, W8, LN): sorted SASS bodies} of the GEMM kernel's
+    instantiations that K2 and K11 run (not the heads mode's) in a built
+    library, each body its instructions without addresses or encodings."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True, text=True,
+                          check=True).stdout
+    out = collections.defaultdict(list)
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        name, _, body = chunk.partition("\n")
+        m = _WGEMM.search(name)
+        if m is None or m.group(4) == "1":
+            continue
+        ins = [re.sub(r"/\*[^*]*\*/", "", line).strip() for line in body.splitlines()
+               if re.match(r"\s*/\*[0-9a-f]+\*/", line)]
+        out[tuple(int(x) for x in m.groups()[:3])].append("\n".join(ins))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def _sass_same(libs):
+    """Print whether K2's and K11's GEMM instantiations are instruction for
+    instruction the same in both builds."""
+    funcs = {who: _sass_functions(mod.lib()._name) for who, mod in libs.items()}
+    keys = sorted(set(funcs["this"]) | set(funcs["other"]))
+    same = [k for k in keys if funcs["this"].get(k) == funcs["other"].get(k)]
+    differ = [k for k in keys if k not in same]
+    print(f"SASS of wgemm_kernel<MT, W8, LN> (K2 and K11; {sum(map(len, funcs['this'].values()))} "
+          f"functions here, {sum(map(len, funcs['other'].values()))} in the other build): "
+          f"{len(same)} of {len(keys)} instantiations the same instruction for instruction"
+          + (f"; differ: {differ}" if differ else ""), flush=True)
 
 
 def _other_ops(root: str, name: str, lib):
@@ -168,6 +230,7 @@ def main(argv=None):
     libs = {"other": _other_lib(root), "this": cuda_lib}
     for mod in libs.values():
         mod.lib()
+    _sass_same(libs)
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
 
@@ -244,6 +307,7 @@ def main(argv=None):
     _k2(root, libs, g)
     _k11(root, libs, g)
     _verify(root, libs, g)
+    _head_rows(root, libs, g)
 
 
 def _k10_mask(libs, g):
@@ -355,7 +419,60 @@ def _verify(root, libs, g):
         what = (f"K4 verify_hidden {'quant' if mode == 'int8' else 'bf16'}"
                 f"{' identity0' if id0 else ''}{f' D={width}' if width != d else ''} R={r}")
         note = _agree(what, calls["this"](), calls["other"]())
-        _turns(f"{what}, {note}", calls, "wm_verify_hidden", libs)
+        _turns(f"{what}, {note}", calls, "wm_verify_hidden", libs, part=STAGE_A)
+
+
+# Stage A's kernel by name in either build (the WMMA GEMM of the older
+# builds, the weight-streaming GEMM's heads mode since).
+STAGE_A = ("skinny_gemm_kernel", "wgemm_kernel")
+# wm_head_rows: (D, first head, last head + 1, M): head 0 at M = 88 (pass A
+# at B=8), the draft heads at M = 8 (pass B) and M = 1 (the prefill at
+# B=1), every head at M = 11 (K4's stage A at B=1), and whisper tiny's.
+HEAD_SHAPES = ((1280, 0, 1, 88), (1280, 1, 11, 8), (1280, 1, 11, 1), (1280, 0, 11, 11),
+               (384, 0, 1, 88), (384, 1, 11, 8))
+
+
+def _head_rows(root, libs, g):
+    """``wm_head_rows`` through each checkout's ``ops/verify.py`` at
+    HEAD_SHAPES, bf16 and int8 heads (seeded N(0, 0.02), 11 of them), the
+    source rows N(0, 1); the stage-A kernel's device time with the L2
+    flushed before each call (11 bf16 heads, 36 MB, would stay in the 50 MB
+    L2 across back-to-back calls), beside the three-call yardstick
+    (baddbmm, silu, add; on a bf16 copy of int8 heads) the same way.  The
+    builds' rows must agree within 3e-2 (3e-2 |x|): they may sum in other
+    orders."""
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    mods = {"other": _other_ops(root, "verify", libs["other"]), "this": VF}
+    rnd = lambda *shape, scale=0.02: (torch.randn(shape, generator=g, device="cuda")
+                                      * scale).to(torch.bfloat16)
+    for d in sorted({d for d, *_ in HEAD_SHAPES}, reverse=True):
+        w16, b = rnd(11, d, d), rnd(11, d)
+        q, s = QM.quantize_array(w16, axis=-2)
+        heads = {"bf16": w16, "int8": {"q": q.contiguous(), "s": s.contiguous()}}
+        for mode, w in heads.items():
+            for _, lo, hi, m in (x for x in HEAD_SHAPES if x[0] == d):
+                hw = QM.wmap(w, lambda a: a[lo:hi])
+                hb = b[lo:hi]
+                src = rnd(m, d, scale=1.0)
+                calls = {who: (lambda mod=mod: mod.head_rows_kernel(src, hw, hb))
+                         for who, mod in mods.items()}
+                a, o = calls["this"](), calls["other"]()
+                bits = torch.equal(a, o)
+                diff = float((a.float() - o.float()).abs().max())
+                if not bool(((a.float() - o.float()).abs()
+                             <= 3e-2 + 3e-2 * o.float().abs()).all()):
+                    raise AssertionError(f"head_rows {mode} D={d} M={m}: the builds differ "
+                                         f"by {diff}")
+                wy = ((hw["q"].float() * hw["s"][:, None, :]).to(torch.bfloat16)
+                      if mode == "int8" else hw)
+                yard = lambda: src[None] + torch.nn.functional.silu(
+                    torch.baddbmm(hb[:, None, :], src[None].expand(hb.shape[0], -1, -1), wy))
+                lib = _cold_ms(yard)
+                _turns(f"head_rows {mode} D={d} heads {lo}..{hi - 1} M={m} (baddbmm / silu / "
+                       f"add: device {lib:.4f} ms, L2 flushed), builds differ by {diff:.3e}, "
+                       f"bitwise equal {bits}", calls, "wm_head_rows", libs, part=STAGE_A,
+                       cold=True)
 
 
 def _k7(libs, g):
@@ -496,8 +613,8 @@ def _k2(root, libs, g):
                 raise AssertionError(f"K2 ({b},{t}): the builds' hidden states at cosine {cos}")
             mode = ("int8" if quant else "bf16") + (" block" if blk is not None else "")
             print(f"K2 megastep {mode} (B, T) = ({b}, {t}), {n} slots, builds at cosine "
-                  f"{cos:.6f}: events / device / C-entry host ms: " + ", ".join(cells),
-                  flush=True)
+                  f"{cos:.6f}, bitwise equal {torch.equal(outs['this'], outs['other'])}: "
+                  "events / device / C-entry host ms: " + ", ".join(cells), flush=True)
             print(f"K2 megastep {mode} (B, T) = ({b}, {t}): attention, ln_rows and GEMM "
                   "kernels, device ms a step (launches): " + "; ".join(attn), flush=True)
             del sk, sv, ck, cv

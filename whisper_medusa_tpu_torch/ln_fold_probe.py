@@ -33,7 +33,7 @@ import sys
 import torch
 
 from whisper_medusa_tpu_torch import kernel_ab as KA
-from whisper_medusa_tpu_torch.device_profile import _by_kernel
+from whisper_medusa_tpu_torch.device_profile import _by_kernel, is_ln_gemm
 from whisper_medusa_tpu_torch.ops import cuda_lib
 from whisper_medusa_tpu_torch.ops import megastep as MS
 
@@ -111,8 +111,7 @@ def main(argv=None):
             run()
             rows = _by_kernel(run, 5)
             part = lambda f: sum(us for k, (us, _) in rows.items() if f(k)) / 1e3
-            ln = [(us, n) for k, (us, n) in rows.items()
-                  if k.startswith("wgemm_kernel<") and k.endswith(", true>") and k.count(",") == 2]
+            ln = [(us, n) for k, (us, n) in rows.items() if is_ln_gemm(k)]
             ln_ms, ln_n = sum(us for us, _ in ln) / 1e3, sum(n for _, n in ln)
             print(f"({b}, {t}) {who:10s} device {part(lambda k: True):.4f} ms: GEMMs "
                   f"{part(lambda k: k.startswith('wgemm_kernel<')):.4f} (LN mode {ln_ms:.4f} "

@@ -24,9 +24,11 @@ Params = Dict[str, Any]
 def apply_heads(medusa_params: Params, x: torch.Tensor) -> torch.Tensor:
     """x: (..., D) -> (n_heads, ..., D), float32 accumulation per layer.
 
-    Each layer goes through ``ops/verify.py::head_rows``: on CUDA tensors the
-    skinny GEMM of kernel K4's stage A (so a head row has the same bits for
-    every batch size), on CPU tensors its plain version."""
+    Each layer goes through ``ops/verify.py::head_rows``: on CUDA tensors
+    kernel K4's stage A, the heads mode of the weight-streaming ``wgmma``
+    GEMM (its K slices from D alone, so a head row has the same bits for
+    every batch size and every number of heads in the launch), on CPU
+    tensors its plain version."""
     from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
     from whisper_medusa_tpu_torch.ops import verify as verify_mod
 

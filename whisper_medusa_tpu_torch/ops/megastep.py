@@ -92,7 +92,7 @@ Params = Dict[str, Any]
 
 MAX_B = 8
 MAX_T = 16               # csrc/cluster_attn.cuh CD_MAXT
-MAX_ROWS = 128           # csrc/common.cuh SK_MAX_ROWS
+MAX_ROWS = 128           # csrc/megastep.cu K2_MAX_ROWS
 GEMM_TILE = 64           # csrc/wgemm.cuh G_TILE: weight columns a CTA, K chunk
 GEMM_CTAS = 132          # csrc/wgemm.cuh G_CTAS: the CTAs a projection aims for
 GEMM_MAX_SLICES = 8      # csrc/wgemm.cuh G_MAX_SLICES: one portable cluster
@@ -352,7 +352,7 @@ def megastep_kernel(dec_layers: Params, ln_post: Params, x, self_k, self_v, cros
         chunk_mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=dev))
     mask = chunk_mask.to(device=dev, dtype=torch.uint8).contiguous()
     bf = dict(dtype=torch.bfloat16, device=dev)
-    m16 = -(-(b * t) // 16) * 16          # the skinny GEMM reads 16-row tiles
+    m16 = -(-(b * t) // 16) * 16          # the step's row buffers hold 16-row tiles
     xbuf = torch.zeros((m16, d), **bf)
     xbuf[:b * t] = x.reshape(b * t, d)
     scratch = [torch.zeros((m16, d), **bf) for _ in range(4)]    # q, k, v, attention

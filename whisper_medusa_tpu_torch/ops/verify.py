@@ -10,8 +10,13 @@ the sequential grid.  K5 replaces ``whisper_medusa_tpu/ops/verify.py::_kernel``
 (launched by ``verify_rows``), the same stream over rows the caller built.
 
 On Hopper the CTAs of a grid run in parallel, so ``csrc/verify.cu`` splits the
-work into three launches behind one C entry: (A) the rows, by the skinny
-tensor-core GEMM batched over the heads; (B) the vocab stream, which scores
+work into three launches behind one C entry: (A) the rows, by the heads mode
+of the weight-streaming ``wgmma`` GEMM that K2 and K11 run on
+(``csrc/wgemm.cuh``: the head is the grid's z and the (nh, D, D) stack's
+layer coordinate; a CTA per (64 columns, K slice) of a head, the slices
+from D alone (:func:`head_plan`) and added in rank order across a
+thread-block cluster, the source rows read through a tensor map over
+exactly their M rows); (B) the vocab stream, which scores
 the rows against every 64-entry vocab tile on the tensor cores, applies the
 processors and writes per-(tile, row) partial statistics; (C) a per-row
 combine over the tiles with argmax ties broken to the lowest column.  The
@@ -28,14 +33,16 @@ two-pass loop's B*N head-0 rows; past 192 rows the stream takes passes of
 is the 133 MB embedding stream (40 us at 3.35 TB/s) for R up to ~250, the
 2*R*V*D products beyond.  ``head_rows`` (C entry ``wm_head_rows``) is K4's
 stage A alone, so that the two-pass loop's head-0 rows carry the same bits
-as K4's.
+as K4's: a head row's sum is cut and ordered by D alone, whatever the rows
+(M) and the heads of the launch.
 
 int8 serving (the JAX ``quant`` / ``hquant`` modes) is a mode of the same
 three entries: an int8 embedding ``{"q": (V, D) int8, "s": (V,) f32}``
 streams as raw int8 tiles converted exactly to bf16 in shared memory, and
 column v's f32 sum is multiplied by ``s[v]`` before the processors; int8
-heads ``{"q": (nh, D, D), "s": (nh, D)}`` go through the skinny GEMM's
-W8A16 form (scale before the bias).  The
+heads ``{"q": (nh, D, D), "s": (nh, D)}`` go through the GEMM's W8 form
+(the raw tile converted exactly to bf16 in shared memory, the column's
+scale before the bias).  The
 plain versions score ``bf16(rows)`` against an int8 embedding, as the JAX
 ``qmm_nt`` does.
 
@@ -47,8 +54,8 @@ Rows are ordered (k, e, n): head-major over flattened (batch, node).  Scope:
 chain + greedy, K4 at B*N <= 16 and R <= 128 (:func:`hidden_available`;
 the decode loop verifies in two passes where it is False, as the JAX
 package does); K5 launches take R <= 1024
-and ``head_rows`` launches M <= 128, so their wrappers send more rows in
-blocks (pass A at B > 8); the fused timestamp rules (``ts_cfg``) are not
+and ``head_rows`` launches M <= 192, so their wrappers send more rows in
+blocks (pass A at B > 16); the fused timestamp rules (``ts_cfg``) are not
 ported yet.
 """
 
@@ -62,12 +69,15 @@ import numpy as np
 import torch
 
 from whisper_medusa_tpu_torch.ops import cuda_lib
+from whisper_medusa_tpu_torch.ops import megastep as megastep_mod
 from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
 
 NEG = -float(np.finfo(np.float32).max) / 2
 MAX_R = 128              # K4
 MAX_ROWS_R = 1024        # rows per K5 launch (csrc/verify.cu VR_MAX_ROWS, the JAX _MAX_R)
-MAX_SRC_ROWS = 128       # rows per head_rows launch (csrc/common.cuh SK_MAX_ROWS)
+MAX_SRC = 16             # K4's source rows B * N (csrc/verify.cu VH_MAX_SRC)
+MAX_SRC_ROWS = 192       # rows per head_rows launch (csrc/wgemm.cuh G_MAX_MT * 16)
+HEAD_STAGES = 2          # csrc/wgemm.cuh H_STAGES: ring stages of the heads mode
 TILE = 64                # csrc/verify.cu VS_VT: vocab entries a tile (partials' columns)
 PASS_ROWS = 192          # csrc/verify.cu VS_MAX_MT * 16: rows the vocab stream takes a pass
 
@@ -120,7 +130,7 @@ def hidden_available(b: int, n: int, n_heads: int, identity0: bool, v: int, d: i
     kept for the JAX signature); ``decoding/speculative.py`` takes the
     two-pass verification where it is False, on every device."""
     del v
-    return (n_heads >= 1 and b * n <= 16 and (n_heads + int(identity0)) * b * n <= MAX_R
+    return (n_heads >= 1 and b * n <= MAX_SRC and (n_heads + int(identity0)) * b * n <= MAX_R
             and d % 64 == 0)
 
 
@@ -137,6 +147,22 @@ def head_rows_plain(src: torch.Tensor, heads_w, heads_b: torch.Tensor) -> torch.
         pre = pre + heads_b[k].float()
         out.append(src + torch.nn.functional.silu(pre).to(src.dtype))
     return torch.stack(out)
+
+
+def head_plan(m: int, d: int, nh: int = 1):
+    """The launches of K4's stage A / ``wm_head_rows`` over M source rows
+    of width D through ``nh`` heads (csrc/wgemm.cuh ``wgemm_heads_launch``):
+    the row blocks of up to 192 rows, one launch each, and per launch the K
+    slices (``head_slices``: ``megastep.gemm_slices(D, D, 1)``), their
+    64-wide chunk ranges and the grid (slices, D / 64, nh).  A head row's
+    sum — its slices, their chunks and their order — comes from D alone;
+    only the blocks, the 16-row tiles and the grid's z follow M and the
+    heads."""
+    slices, ranges, _ = megastep_mod.gemm_plan(1, d, d)
+    blocks = [(r0, min(MAX_SRC_ROWS, m - r0)) for r0 in range(0, m, MAX_SRC_ROWS)]
+    return dict(slices=slices, ranges=ranges, blocks=blocks,
+                launches=[dict(rows=n, row_tiles=-(-n // 16), grid=(slices, d // 64, nh))
+                          for _, n in blocks])
 
 
 def _operand(name, w, dev, scale_dims):
@@ -156,8 +182,8 @@ def _operand(name, w, dev, scale_dims):
 def head_rows_kernel(src: torch.Tensor, heads_w, heads_b: torch.Tensor) -> torch.Tensor:
     """Launch ``wm_head_rows`` (K4's stage A alone): src (M, D) bf16, heads
     (K, D, D) bf16 or int8 with (K, D) f32 scales, biases (K, D) bf16 ->
-    (K, M, D); rows in blocks of up to 128, one launch each (a row's
-    arithmetic does not depend on the others)."""
+    (K, M, D); rows in blocks of up to 192 (:func:`head_plan`), one launch
+    each, read in place (a row's arithmetic does not depend on the others)."""
     global head_launches, q_head_launches
     cuda_lib.require_cuda("head_rows", src, heads_b)
     w, ws = _operand("head_rows", heads_w, src.device, 2)
@@ -167,13 +193,10 @@ def head_rows_kernel(src: torch.Tensor, heads_w, heads_b: torch.Tensor) -> torch
         raise ValueError(f"head_rows kernel takes D % 64 == 0; got src "
                          f"{tuple(src.shape)}, heads {tuple(w.shape)}")
     out = torch.empty((nh, m, d), dtype=src.dtype, device=src.device)
-    for r0 in range(0, m, MAX_SRC_ROWS):
-        n = min(MAX_SRC_ROWS, m - r0)
-        src16 = torch.zeros((-(-n // 16) * 16, d), dtype=src.dtype, device=src.device)
-        src16[:n] = src[r0:r0 + n]
+    for r0, n in head_plan(m, d, nh)["blocks"]:
         blk = out if n == m else torch.empty((nh, n, d), dtype=src.dtype,
                                              device=src.device)
-        cuda_lib.launch("wm_head_rows", src.device, src16.data_ptr(), w.data_ptr(),
+        cuda_lib.launch("wm_head_rows", src.device, src[r0:].data_ptr(), w.data_ptr(),
                         heads_b.data_ptr(), blk.data_ptr(),
                         None if ws is None else ws.data_ptr(), n, d, nh)
         if n != m:
@@ -187,8 +210,8 @@ def head_rows_kernel(src: torch.Tensor, heads_w, heads_b: torch.Tensor) -> torch
 
 def head_rows(src: torch.Tensor, heads_w, heads_b: torch.Tensor) -> torch.Tensor:
     """Single-layer Medusa heads on the rows of ``src`` (M, D): (K, M, D).
-    CUDA tensors launch the skinny GEMM of K4's stage A; CPU tensors take
-    the plain version."""
+    CUDA tensors launch K4's stage A alone (the heads mode of the weight-
+    streaming GEMM); CPU tensors take the plain version."""
     fn = head_rows_kernel if src.is_cuda else head_rows_plain
     return fn(src, heads_w, heads_b)
 
@@ -326,11 +349,9 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
             f"verify kernel takes B*N <= 16, R <= {MAX_R}, D % 64 == 0; got "
             f"hidden {tuple(hver.shape)}, heads {tuple(heads_w.shape)}, R={r}")
     _check_meta(dev, r, v, pos, gcol, sup_masks)
-    src16 = torch.zeros((16, d), dtype=torch.bfloat16, device=dev)
-    src16[:bn] = hsrc.reshape(bn, d)
     rows = torch.empty((r, d), dtype=torch.bfloat16, device=dev)
     part_f, part_a, mx, lse, am, gth = _stat_outputs(r, -(-v // TILE), dev)
-    tensors = [hver, src16, heads_w, heads_b, embed, pos, gcol, sup_masks, rows,
+    tensors = [hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_masks, rows,
                part_f, part_a, mx, lse, am, gth]
     scales = [None if a is None else a.data_ptr() for a in (escale, hscale)]
     ptrs = (ctypes.c_void_p * (len(tensors) + 2))(*[t.data_ptr() for t in tensors],
