@@ -56,7 +56,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      M = 1 to 240, the first 10 rows of its M=80 call bitwise an M=10
      call's, its device time at M = 10 and 80 beside ``x @ E.T``'s;
      head_rows, K3, K5 and K7 past one
-     launch's rows, blocked), and time the kernel, the plain version and,
+     launch's rows, blocked; K4 and K5 in the timestamp mode (``ts_cfg``):
+     K4 at 11 heads x 11 nodes with n_verif = 11, bf16, int8 and identity0
+     rows, K5 at R = 11, 88, 176 and 1024, bf16 and int8, on histories
+     that make every rule fire and rows of spread norms, so that forced and
+     unforced rows both occur (both required, the forced count printed),
+     the R=8 call's rows bitwise the first 8 of the R=88 call's, each
+     timed beside the non-ts mode on the same rows), and time the kernel,
+     the plain version and,
      where one PyTorch call computes the same function, that call, with
      CUDA events (3 warm-ups, median of 20; K1, K6, K8 and K10 also by device
      time under torch.profiler, beside SDPA's, matmul's and torch.stft's);
@@ -88,7 +95,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      heads (verification in two passes, K4 at 0 launches) and a 16-head
      chain (T = 17: K2 only for the prefill, K10 in two 16-row launches a
      layer on every step), each held to its run under
-     ``draft_corruption=1.0``;
+     ``draft_corruption=1.0``; then ``return_timestamps=True`` requests
+     (Medusa at B=1 and B=8, bf16 and int8, Medusa-Block B=1, vanilla
+     B=1; the non-ts verification modes must not launch), each output held
+     to the timestamp grammar (no ``<|notimestamps|>``, a timestamp first,
+     timestamps non-decreasing, segments as ``_extract_segments`` reads
+     them), the B=8 decode to each example's B=1 tokens on the same encoder
+     rows, the B=1 Medusa and Medusa-Block tokens to their runs under
+     ``draft_corruption=1.0``; the seek loop on a 75 s waveform at B=1
+     with ``condition_on_prev_tokens`` and a 40-token "all-segments"
+     prompt (each window's prompt prefilled in pieces of at most 16, each
+     a K2 launch, the third from offset 32) and on 75 s and 50 s at B=2
+     with an ``attention_mask`` (windows, steps, wall and device time
+     printed); prompts of 40 and 70 tokens prefilled in pieces against the
+     one-pass plain prefill (cosine >= 0.999);
   5. the output is unchanged when every draft is corrupted, bf16 and int8,
      base_head and Medusa-Block, and bf16 base_head at B=16;
   6. decode batch invariance, bf16 and int8: speculative_generate at B=8
@@ -959,6 +979,225 @@ def check_verify_rows(g, model, sizes=(1, 8, 16, 88, 176, 1024, 1100)):
                          worst, ms, plain_ms, b, None)
 
 
+# The timestamp mode of K4 and K5 (ts_cfg): histories that make every rule
+# fire, cycled over the rows (last, penult, maxts as offsets from
+# timestamp_begin where they are timestamps): after text, after one
+# timestamp, after two, a running max with text last, a running max after a
+# lone timestamp; rows at begin_index 4 take the initial cap.
+TS_KINDS = ((50, 40, None), (42, 17, None), ("t3", 55, "t3"), ("t9", "t7", "t9"),
+            (99, "t60", "t60"), ("t200", 31, "t200"), ("t2", 7, "t2"))
+
+
+def _ts_operands(model, r, n_verif):
+    """The timestamp mode's operands for R rows (verify._ts_args form)."""
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    tb = model.special.timestamp_begin
+    val = lambda x: 0 if x is None else (tb + int(x[1:]) if isinstance(x, str) else x)
+    cols = [[val(k[j]) for k in (TS_KINDS[i % len(TS_KINDS)] for i in range(r))]
+            for j in range(3)]
+    last, penult, maxts = (torch.tensor(c, dtype=torch.int32, device="cuda") for c in cols)
+    cfg = (tb, model.special.no_timestamps, model.generation_config.max_initial_timestamp_index)
+    return VF._ts_args(cfg, n_verif, last, penult, maxts, r, torch.device("cuda"))
+
+
+def _ts_kw(ts):
+    return dict(ts_cfg=ts["cfg"], n_verif=ts["n_verif"], last=ts["last"],
+                penult=ts["penult"], maxts=ts["maxts"])
+
+
+def _ts_clear(rows, embed, pos, masks, kw, ts, am, ram, gap):
+    """(argmax equal on the clear rows, clear rows, forced rows): a row is
+    clear where the top-2 gap of what it chooses from (the timestamp columns
+    of a forced row, else every column) exceeds ``gap`` (a number, or one a
+    row) and, for a verification row, the force rule's two sides differ by
+    more than it."""
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    x = VF.process_rows(VF.row_logits(rows, embed), pos, masks, ts=ts, **kw)
+    tb, r = ts["cfg"][0], x.shape[0]
+    verif = torch.arange(r, device=x.device) < ts["n_verif"]
+    lse_ts, m_tx = torch.logsumexp(x[:, tb:], -1), x[:, :tb].amax(-1)
+    forced = verif & (lse_ts > m_tx)
+    text = torch.arange(x.shape[1], device=x.device)[None] < tb
+    top2 = torch.where(forced[:, None] & text, float("-inf"), x).topk(2, dim=-1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > gap) & ~(verif & ((lse_ts - m_tx).abs() <= gap))
+    return bool(torch.equal(am[clear], ram[clear])), int(clear.sum()), int(forced.sum())
+
+
+def _scaled_ok(model, got, ref, norm):
+    """(ok, worst err / limit, worst err): max / lse / gathered of each row
+    within _stats_ok's limit times max(1, norm) of that row.  A row of
+    elements of size s carries stage A's one bf16 rounding of each element
+    into its logits s times as large as at the unit size check_verify holds
+    to _stats_ok; int8 keeps its relative part as it is."""
+    k = norm.clamp(min=1.0)
+    worst, err = 0.0, 0.0
+    for a, b in zip(got[1:], ref[1:]):
+        d = (a.float() - b.float()).abs()
+        lim = (1e-3 * k + 1e-3 * b.float().abs()) if _int8(model) else 1e-2 * k
+        worst, err = max(worst, float((d / lim).max())), max(err, float(d.max()))
+    return worst <= 1.0, worst, err
+
+
+def check_verify_ts(g, model, identity0=False):
+    """K4 in the timestamp mode at 11 heads x 11 nodes (R = 121, n_verif =
+    11: the B=1 loop's), bf16, int8 and identity0 rows: the rules' masks on
+    the 11 verification rows, the force rule where their timestamp mass
+    beats their best text logit (hidden rows of norms spread 0.5-12 make
+    both kinds).  Held three ways, each printed: (1) K4 against its plain
+    version, verify_hidden_plain, on the same hid / src: argmax equal on the
+    rows clear by that row's limit, max / lse / gathered within
+    _scaled_ok's limit (the row's size times check_verify's); (2) stages B
+    and C alone: the plain ts statistics over the rows the kernel's stage A
+    built, within _stats_ok's unscaled limit; (3) K4's statistics bitwise
+    K5's ts mode over head_rows' rows.  Stage A's rows against
+    head_rows_plain at these sizes and the plain statistics over both sets
+    of rows are printed, the reading behind the scaled limit.  Forced and
+    unforced rows both required.  Device time beside the non-ts mode's on
+    the same rows.  A kernels row (verify_hidden_ts, _int8) except for
+    identity0."""
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    q = _int8(model)
+    hw, hb = _head_weights(model)
+    n_nodes, kp1 = 11, hb.shape[0] + identity0
+    r = kp1 * n_nodes
+    embed, masks, _, gcol, kw = _verify_inputs(g, model, r)
+    d = model.config.dims.d_model
+    pos = (3 + torch.arange(n_nodes, device="cuda")[None, :]
+           + torch.arange(kp1, device="cuda")[:, None]).reshape(-1).to(torch.int32)
+    scale = torch.linspace(0.5, 12.0, n_nodes, device="cuda")
+    hid = (torch.randn((1, n_nodes, d), generator=g, device="cuda")
+           * scale[None, :, None]).to(torch.bfloat16)
+    src = ((torch.randn((1, n_nodes, d), generator=g, device="cuda") * scale[None, :, None])
+           .to(torch.bfloat16) if identity0 else hid)
+    norm = scale.repeat(kp1)                      # row (k, n) is node n's size
+    ts = _ts_operands(model, r, n_nodes)
+    kw4 = dict(identity0=identity0, **kw)
+    got = VF.verify_hidden_kernel(hid, src, hw, hb, embed, pos, gcol, masks, ts=ts, **kw4)
+    ref = VF.verify_hidden_plain(hid, src, hw, hb, embed, pos, gcol, masks, ts=ts, **kw4)
+    plain_rows = VF.build_rows(hid, src, hw, hb, identity0)
+    # (1) against the plain version on the same inputs.
+    lim = 1e-2 * norm.clamp(min=1.0)
+    arg_ok, n_clear, n_forced = _ts_clear(plain_rows, embed, pos, masks, kw, ts, got[0],
+                                          ref[0], lim)
+    ok, ratio, err = _scaled_ok(model, got, ref, norm)
+    # Stage A's rows at these sizes, kernel against plain.
+    a16 = VF.head_rows_kernel(src.reshape(n_nodes, d), hw, hb)
+    a_pl = VF.head_rows_plain(src.reshape(n_nodes, d), hw, hb)
+    da = (a16.float() - a_pl.float()).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(a_pl.float().abs().clamp(min=1e-30))) - 7)
+    rows = a16.reshape(-1, d)
+    if identity0:
+        rows = torch.cat([hid.reshape(n_nodes, d), rows])
+    # (2) stages B and C alone; the plain statistics over both sets of rows.
+    ref_b = VF.verify_rows_plain(rows, embed, pos, gcol, masks, ts=ts, **kw)
+    ok_b, err_b = _stats_ok(model, got, ref_b)
+    arg_b, n_clear_b, _ = _ts_clear(rows, embed, pos, masks, kw, ts, got[0], ref_b[0], 1e-2)
+    err_a = max(max_err(a, b) for a, b in zip(ref[1:], ref_b[1:]))
+    # (3) bitwise K5's ts mode over head_rows' rows.
+    k5 = VF.verify_rows_kernel(rows, embed, pos, gcol, masks, ts=ts, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(got, k5))
+    name = "verify_hidden_ts" + ("_id0" if identity0 else "") + ("_int8" if q else "")
+    log(f"K4 {name} R={r} n_verif={n_nodes}: {n_forced} forced rows of {n_nodes}; against "
+        f"verify_hidden_plain: argmax equal on {n_clear} rows clear by their limit: "
+        f"{arg_ok} ({int((got[0] == ref[0]).sum())}/{r} rows equal); max/lse/gathered "
+        f"max_abs_err {err:.3e}, worst err/limit {ratio:.3f} (limit x max(1, row size "
+        f"0.5-12))")
+    log(f"K4 {name}: stage A rows head_rows_kernel vs head_rows_plain at row sizes "
+        f"0.5-12: max_abs_err {float(da.max()):.3e}, at most {float((da / ulp).max()):.2f} "
+        f"bf16 ulps, {int((da > 0).sum())} of {da.numel()} elements differ; the plain "
+        f"statistics over the kernel's stage-A rows vs over the plain rows differ by "
+        f"{err_a:.3e}")
+    log(f"K4 {name}: stages B and C against the plain ts statistics over the kernel's "
+        f"stage-A rows: argmax equal on {n_clear_b} clear rows: {arg_b}; max_abs_err "
+        f"{err_b:.3e}; statistics bitwise K5's ts mode over head_rows' rows: {same}")
+    require(arg_ok and ok and arg_b and ok_b and same and 0 < n_forced < n_nodes,
+            f"K4 {name}: argmax {arg_ok}/{arg_b}, err {err} (err/limit {ratio}), stages "
+            f"B+C err {err_b}, bitwise K5 {same}, forced {n_forced}")
+    kern = lambda: VF.verify_hidden_kernel(hid, src, hw, hb, embed, pos, gcol, masks, ts=ts,
+                                           **kw4)
+    plain_kern = lambda: VF.verify_hidden_kernel(hid, src, hw, hb, embed, pos, gcol, masks,
+                                                 **kw4)
+    ms, dev, dev0 = cuda_ms(kern), device_ms(kern), device_ms(plain_kern)
+    plain_ms = cuda_ms(lambda: VF.verify_hidden_plain(hid, src, hw, hb, embed, pos, gcol,
+                                                      masks, ts=ts, **kw4))
+    v, nh = model.config.dims.vocab_size, hb.shape[0]
+    sources = (hid, src) if identity0 else (hid,)
+    moved = (nbytes(*sources, *_tensors(hw), hb, *_tensors(embed), pos, gcol, masks,
+                    ts["last"], ts["penult"], ts["maxts"]) + 4 * r * 4)
+    b = bound(moved, 2 * r * v * d + 2 * nh * n_nodes * d * d)
+    log(f"K4 {name} R={r}: kernel {ms:.4f} ms events, {dev:.4f} ms device (the non-ts "
+        f"mode on the same rows {dev0:.4f} ms device); plain {plain_ms:.4f} ms; bound "
+        f"{b[0]:.4f} ms ({b[1]}); {SMI}")
+    return kernel_record(name, "whisper_medusa_tpu_torch/csrc/verify.cu",
+                         "whisper_medusa_tpu/ops/verify.py:309",
+                         (VF, "q_ts_launches" if q else "ts_launches"),
+                         err, ms, plain_ms, b, None)
+
+
+def check_verify_rows_ts(g, model, sizes=(8, 11, 88, 176, 1024)):
+    """K5 in the timestamp mode at R = 11 (vanilla's rows at B=11), 88 and
+    176 (pass A at B=8 and B=16, every row a verification row) and 1024
+    (968 verification rows, the rest draft rows), bf16 and int8: held as
+    check_verify_ts holds K4; the R=8 call's rows bitwise the first 8 of
+    the R=88 call's; forced rows counted, both kinds required; device time
+    beside the non-ts mode's on the same rows."""
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    q = _int8(model)
+    name = "verify_rows_ts_int8" if q else "verify_rows_ts"
+    d = model.config.dims.d_model
+    worst, timed, outs = 0.0, {}, {}
+    for r in sizes:
+        n_verif = 968 if r == 1024 else r
+        embed, masks, pos, gcol, kw = _verify_inputs(g, model, r)
+        scale = torch.linspace(0.5, 12.0, r, device="cuda")[:, None]
+        hs = (torch.randn((r, d), generator=g, device="cuda") * scale).to(torch.bfloat16)
+        if r == 88:
+            hs[:8] = outs[8][0]
+            pos, gcol = pos.clone(), gcol.clone()
+            pos[:8], gcol[:8] = outs[8][1], outs[8][2]
+        ts = _ts_operands(model, r, n_verif)
+        got = VF.verify_rows_kernel(hs, embed, pos, gcol, masks, ts=ts, **kw)
+        ref = VF.verify_rows_plain(hs, embed, pos, gcol, masks, ts=ts, **kw)
+        arg_ok, n_clear, n_forced = _ts_clear(hs, embed, pos, masks, kw, ts, got[0], ref[0],
+                                              1e-2)
+        ok, err = _stats_ok(model, got, ref)
+        log(f"K5 {name} R={r} n_verif={n_verif}: {n_forced} forced rows; argmax equal on "
+            f"{n_clear} clear rows: {arg_ok} ({int((got[0] == ref[0]).sum())}/{r} rows "
+            f"equal); max/lse/gathered max_abs_err {err:.3e}")
+        require(arg_ok and ok and 0 < n_forced < n_verif,
+                f"K5 {name} R={r}: argmax {arg_ok}, err {err}, forced {n_forced}")
+        worst = max(worst, err)
+        if r == 8:
+            outs[8] = (hs, pos[:8], gcol[:8], got)
+        if r == 88:
+            same = all(torch.equal(a[:8], b) for a, b in zip(got, outs[8][3]))
+            log(f"K5 {name}: the R=8 call's rows bitwise the first 8 of the R=88 call's: "
+                f"{same}")
+            require(same, f"K5 {name}: R=8 rows differ from the R=88 call's")
+        if r in (11, 88, 176, 1024):
+            args = (hs, embed, pos, gcol, masks)
+            kern = lambda: VF.verify_rows_kernel(*args, ts=ts, **kw)
+            ms, dev = cuda_ms(kern), device_ms(kern)
+            dev0 = device_ms(lambda: VF.verify_rows_kernel(*args, **kw))
+            plain_ms = cuda_ms(lambda: VF.verify_rows_plain(*args, ts=ts, **kw))
+            v = model.config.dims.vocab_size
+            b = bound(nbytes(hs, *_tensors(embed), pos, gcol, masks, ts["last"],
+                             ts["penult"], ts["maxts"]) + 4 * r * 4, 2 * r * v * d)
+            log(f"K5 {name} R={r}: kernel {ms:.4f} ms events, {dev:.4f} ms device (the "
+                f"non-ts mode on the same rows {dev0:.4f} ms device); plain {plain_ms:.4f} "
+                f"ms; bound {b[0]:.4f} ms ({b[1]}); no one PyTorch call computes it; {SMI}")
+            timed[r] = (ms, plain_ms, b)
+    ms, plain_ms, b = timed[88]       # pass A of the batched Medusa path
+    return kernel_record(name, "whisper_medusa_tpu_torch/csrc/verify.cu",
+                         "whisper_medusa_tpu/ops/verify.py:183",
+                         (VF, "q_ts_rows_launches" if q else "ts_rows_launches"),
+                         worst, ms, plain_ms, b, None)
+
+
 def check_qmm(g, qmodel, enc):
     """K6 against qmm_plain (1e-3 of max |y|) at the paths' shapes: one
     example's encoder output (1500, 1280) through layer 0's int8 cross k
@@ -1443,9 +1682,10 @@ def _megastep_cost(dec_layers, ln_post, cache, offs, t, cross_len, block=None):
     return moved, ops
 
 
-def k2_attention_times(name, run, rows, cache, offsets, offs, t, quant):
+def k2_attention_times(name, events, rows, cache, offsets, offs, t, quant):
     """K2's self- and cross-attention (the cluster body's K2 instantiations)
-    in the profile ``rows`` of one step ``run`` (device_profile._by_kernel):
+    in the profile ``rows`` (device_profile._fold_events) of the whole
+    trace ``events`` of a step's runs (device_profile._device_runs):
     device ms a launch and launches a layer, beside the byte bound of one
     launch (the self-attention's history, fresh and committed rows; all
     cross K/V) and, on bf16 caches, SDPA's device time on the same work:
@@ -1455,7 +1695,7 @@ def k2_attention_times(name, run, rows, cache, offsets, offs, t, quant):
     the trace, and how many of its clusters the card holds at once."""
     import ctypes
 
-    from whisper_medusa_tpu_torch.device_profile import _device_events, _short
+    from whisper_medusa_tpu_torch.device_profile import _short
     from whisper_medusa_tpu_torch.models import whisper
     from whisper_medusa_tpu_torch.ops import cuda_lib
 
@@ -1483,7 +1723,6 @@ def k2_attention_times(name, run, rows, cache, offsets, offs, t, quant):
         mask = whisper.make_step_mask(offsets, t, s_len, None)
         yard["self"] = device_ms(lambda: sdpa(q, sk, sv, attn_mask=mask, scale=1.0))
         del kh, vh, sk, sv
-    events = _device_events(run, 2)
     clusters = (ctypes.c_int * 2)()
     require(cuda_lib.lib().wm_megastep_clusters(b, nh, s_len, s_enc, int(quant), clusters) == 0,
             "wm_megastep_clusters")
@@ -1510,23 +1749,30 @@ K2_KERNELS = ("wgemm_kernel<", "cross_decode_kernel<", "ln_rows_kernel")
 K2_PER_LAYER = 8          # LN + q/k/v, self, o, LN + cross q, cross, cross o, LN + fc1, fc2
 
 
-def k2_launches(name, rows, slots, b, t):
-    """K2's launches a step in the profile ``rows`` of one step
-    (device_profile._by_kernel): 8 a layer over ``slots`` layers (the
-    block's included) and exactly one ``ln_rows_kernel`` (ln_post); the
-    layer norms run inside the q/k/v, cross-q and fc1 GEMMs (3 a layer)."""
-    from whisper_medusa_tpu_torch.device_profile import is_ln_gemm
+def k2_launches(name, steps, slots, b, t):
+    """K2's launches in each traced step (``steps``: device_profile.
+    _device_runs' lists): 8 a layer over ``slots`` layers (the block's included) and exactly one
+    ``ln_rows_kernel`` (ln_post); the layer norms run inside the q/k/v,
+    cross-q and fc1 GEMMs (3 a layer).  Every step must count the same."""
+    import collections
 
-    count = lambda pre: round(sum(n for k, (_, n) in rows.items() if k.startswith(pre)))
-    total = sum(count(k) for k in K2_KERNELS)
-    ln_rows = count("ln_rows_kernel")
-    ln_gemms = round(sum(n for k, (_, n) in rows.items() if is_ln_gemm(k)))
+    from whisper_medusa_tpu_torch.device_profile import _short, is_ln_gemm
+
+    counts = set()
+    for events in steps:
+        names = collections.Counter(_short(n) for n, _, _ in events)
+        counts.add((sum(n for k, n in names.items() if k.startswith(K2_KERNELS)),
+                    sum(n for k, n in names.items() if k.startswith("ln_rows_kernel")),
+                    sum(n for k, n in names.items() if is_ln_gemm(k))))
+    total, ln_rows, ln_gemms = max(counts)
     log(f"K2 {name} B={b} T={t}: {total} launches a step over {slots} layers "
         f"({(total - ln_rows) / slots:.2f} a layer), ln_rows_kernel {ln_rows} a step, "
-        f"LN-mode GEMMs {ln_gemms} a step")
-    require(total == K2_PER_LAYER * slots + 1 and ln_rows == 1 and ln_gemms == 3 * slots,
-            f"K2 {name} B={b} T={t}: {total} launches a step, ln_rows {ln_rows}, "
-            f"LN-mode GEMMs {ln_gemms} over {slots} layers")
+        f"LN-mode GEMMs {ln_gemms} a step; the same in each of {len(steps)} traced steps: "
+        f"{len(counts) == 1}")
+    require(len(counts) == 1 and total == K2_PER_LAYER * slots + 1 and ln_rows == 1
+            and ln_gemms == 3 * slots,
+            f"K2 {name} B={b} T={t}: (launches, ln_rows, LN-mode GEMMs) a step "
+            f"{sorted(counts)} over {slots} layers")
 
 
 def k2_alone(dec, cache, x, offsets, dims, nh, block):
@@ -1559,7 +1805,8 @@ def check_megastep_full(model, enc1, enc8, block=None):
     dequantized.  With the block, block_hidden also lies at least 4x closer
     (in 1 - cosine) to the plain block_hidden than the plain hidden does, so
     a kernel that skipped the block cannot pass."""
-    from whisper_medusa_tpu_torch.device_profile import _by_kernel, _entry_host_ms, _overlap_ms
+    from whisper_medusa_tpu_torch.device_profile import (_device_runs, _entry_host_ms,
+                                                         _fold_events, _overlap_events)
     from whisper_medusa_tpu_torch.models import whisper
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
@@ -1682,11 +1929,13 @@ def check_megastep_full(model, enc1, enc8, block=None):
                 log(f"K2 {name} {nl}-slot B={b} T={t}: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, bound {b_ms[0]:.4f} ms ({b_ms[1]}; "
                     f"{cost[0] / 1e9:.3f} GB, {cost[1] / 1e9:.1f} GFLOP)")
-                rows = _by_kernel(run, 5)
-                k2_launches(name, rows, nl, b, t)
-                k2_attention_times(name, run, rows, cache, offsets, offs, t, q)
+                traced = _device_runs(run, 5)
+                events = [e for step in traced for e in step]
+                rows = _fold_events(events, len(traced))
+                k2_launches(name, traced, nl, b, t)
+                k2_attention_times(name, events, rows, cache, offsets, offs, t, q)
                 gemm = sum(us for k, (us, _) in rows.items() if k.startswith("wgemm_kernel"))
-                durations, busy = _overlap_ms(run, 5)
+                durations, busy = _overlap_events(events, len(traced))
                 log(f"K2 {name} {nl}-slot B={b} T={t}: device "
                     f"{sum(us for us, _ in rows.values()) / 1e3:.4f} ms (the projections "
                     f"{gemm / 1e3:.4f} ms), the C entry's host time "
@@ -2065,6 +2314,234 @@ def phase_p4_requests(model, kernels, feat):
 # Whisper tiny (d_model 384): every decode call takes the per-op step (K2
 # takes d_model % 256 == 0); its K11, head_rows and K4's stage A run the
 # weight-streaming GEMM with 6 K slices of one 64-wide chunk each.
+# Timestamps and longform (phase 4): requests with return_timestamps=True,
+# each driven as the other main paths, and the seek loop over 75 s.
+TS_NEW_TOKENS = 48
+NEEDS_TS = {
+    "bf16 medusa B=1": ("megastep", "logits", "head_rows", "verify_hidden_ts"),
+    f"bf16 medusa B={BATCH}": ("megastep", "logits", "head_rows", "verify_rows_ts"),
+    "int8 medusa B=1": ("megastep_int8", "qmm_nt", "head_rows_int8", "verify_hidden_ts_int8"),
+    f"int8 medusa B={BATCH}": ("megastep_int8", "qmm_nt", "head_rows_int8",
+                               "verify_rows_ts_int8"),
+    "bf16 medusa_block B=1": ("megastep_block", "logits", "verify_hidden_ts"),
+    "bf16 vanilla B=1": ("megastep", "verify_rows_ts"),
+}
+# The non-ts modes of K4 / K5 launch on none of these paths.
+ABSENT_TS = ("verify_hidden", "verify_rows", "verify_hidden_int8", "verify_rows_int8",
+             "verify_hidden_id0", "verify_hidden_id0_int8")
+
+
+def check_ts_output(model, out, prompt_len=3):
+    """The timestamp grammar on every example: no <|notimestamps|>, a
+    timestamp as the first generated token, non-decreasing timestamps, and
+    segments that _extract_segments reads from the tokens."""
+    from whisper_medusa_tpu_torch.models.api import _extract_segments
+
+    st = model.special
+    require(out.segments is not None and len(out.segments) == out.sequences.shape[0],
+            "segments")
+    for i in range(out.sequences.shape[0]):
+        seq = out.sequences[i, prompt_len:out.lengths[i]].tolist()
+        gen = [t for t in seq if t != st.eos]
+        ts = [t for t in gen if t >= st.timestamp_begin]
+        require(st.no_timestamps not in gen, f"example {i}: <|notimestamps|> generated")
+        require(bool(gen) and gen[0] >= st.timestamp_begin,
+                f"example {i}: first generated token {gen[:1]} is not a timestamp")
+        require(ts == sorted(ts), f"example {i}: timestamps decrease")
+        segs = _extract_segments(out.sequences[i], int(out.lengths[i]), prompt_len, 0.02, st)
+        require(segs == out.segments[i], f"example {i}: segments")
+    require(np.isfinite(out.token_logprobs).all(), "finite log-probs")
+
+
+def _ts_decode(model, enc):
+    """speculative_generate with the timestamp rules from [sot, en,
+    transcribe] on encoder rows ``enc``."""
+    from whisper_medusa_tpu_torch.config import GenerationConfig
+    from whisper_medusa_tpu_torch.decoding.buffers import generate_medusa_buffers
+    from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig
+    from whisper_medusa_tpu_torch.decoding.speculative import speculative_generate
+
+    st, gd, cfg = model.special, model.generation_config, model.config
+    b = enc.shape[0]
+    prompt = torch.tensor([[st.sot, st.first_language, st.transcribe]] * b,
+                          dtype=torch.int32, device="cuda")
+    pcfg = ProcessorConfig(vocab_size=cfg.dims.vocab_size, suppress_tokens=gd.suppress_tokens,
+                           begin_suppress_tokens=gd.begin_suppress_tokens, begin_index=3,
+                           eos_token_id=st.eos, timestamp_rules=True,
+                           timestamp_begin=st.timestamp_begin,
+                           no_timestamps_id=st.no_timestamps,
+                           max_initial_timestamp_index=gd.max_initial_timestamp_index)
+    gen = GenerationConfig(max_length=3 + TS_NEW_TOKENS, eos_token_id=st.eos,
+                           pad_token_id=gd.pad_token_id)
+    return speculative_generate(model.params["whisper"], model.params["medusa"], cfg.dims,
+                                generate_medusa_buffers(cfg.medusa.medusa_choices), pcfg,
+                                gen, enc, prompt, variant=cfg.medusa.medusa_heads_type)
+
+
+def phase_ts_requests(model, qmodel, bmodel, kernels, feat, feats8):
+    """return_timestamps=True requests: B=1 and B=8 bf16 Medusa (K4 and
+    pass A in the ts mode), int8 B=1 and B=8, Medusa-Block B=1, vanilla B=1; each
+    output held to the grammar (check_ts_output), each B=8 example to its
+    B=1 tokens, the B=1 Medusa and Medusa-Block tokens to their runs under
+    draft_corruption=1.0."""
+    kw = dict(language="en", max_new_tokens=TS_NEW_TOKENS, return_timestamps=True)
+    runs = (("bf16 medusa B=1", model, feat, {}),
+            (f"bf16 medusa B={BATCH}", model, feats8, {}),
+            ("int8 medusa B=1", qmodel, feat, {}),
+            (f"int8 medusa B={BATCH}", qmodel, feats8, {}),
+            ("bf16 medusa_block B=1", bmodel, feat, {}),
+            ("bf16 vanilla B=1", model, feat, dict(disable_medusa=True)))
+    outs = {}
+    for name, m, f, extra in runs:
+        m.generate(f, **kw, **extra)              # warm-up
+        out, wall = drive(f"timestamps {name}", kernels,
+                          lambda: m.generate(f, **kw, **extra), NEEDS_TS[name], ABSENT_TS)
+        check_ts_output(m, out)
+        n_gen = int((out.lengths - 3).sum())
+        report(f"timestamps {name}", out, wall, n_gen)
+        log(f"  segments of example 0: {len(out.segments[0])}, first "
+            f"{out.segments[0][:1]}")
+        outs[name] = out
+    # B=8 against B=1 on the same encoder rows (the encoder's GEMMs may
+    # round another way at another batch size; report_generate_invariance).
+    same = []
+    enc8 = model.encode(feats8)
+    batched = _ts_decode(model, enc8)
+    for e in range(BATCH):
+        alone = _ts_decode(model, enc8[e:e + 1])
+        same.append(bool(torch.equal(alone.tokens[0], batched.tokens[e]))
+                    and int(alone.lengths[0]) == int(batched.lengths[e]))
+    log(f"timestamps decode B={BATCH} vs B=1 on the same encoder rows (bf16 medusa): "
+        f"tokens equal for {sum(same)}/{BATCH}")
+    require(all(same), f"timestamps: B={BATCH} tokens differ from B=1: {same}")
+    for name, m in (("bf16 medusa B=1", model), ("bf16 medusa_block B=1", bmodel)):
+        clean = outs[name]
+        bad = m.generate(feat, draft_corruption=1.0, **kw)
+        n = int(min(bad.lengths[0], clean.lengths[0]))
+        ok = np.array_equal(bad.sequences[0, :n], clean.sequences[0, :n])
+        log(f"timestamps {name} draft_corruption=1.0: common prefix of {n} tokens "
+            f"identical {ok}, steps {bad.steps} (clean {clean.steps}), accepted "
+            f"{int(bad.accepted.sum())} (clean {int(clean.accepted.sum())})")
+        require(ok and bad.steps >= clean.steps,
+                f"timestamps {name}: tokens changed under draft_corruption=1.0")
+    return outs
+
+
+def check_pieced_prefill(model, enc1, k2):
+    """Prompts of 40 and 70 tokens prefilled in pieces of at most 16
+    (decoding/speculative.py::prefill; each piece a K2 launch), against the
+    one-pass plain prefill (megastep_plain over the whole prompt) on a
+    copy of the cache: the last row's hidden and every written self-cache
+    row, cosine >= 0.999 (K2's bar against its plain step in bf16)."""
+    from whisper_medusa_tpu_torch.decoding import speculative as SP
+    from whisper_medusa_tpu_torch.models import whisper as W
+    from whisper_medusa_tpu_torch.ops import megastep as MS
+
+    p, dims = model.params["whisper"], model.config.dims
+    dec, nh = p["decoder"], dims.decoder_attention_heads
+    for t0 in (40, 70):
+        prompt = torch.arange(200, 200 + t0, dtype=torch.int32, device="cuda")[None]
+        cache = W.init_cache(p, dims, enc1, dims.max_target_positions + 12)
+        sk, sv = cache.self_k.clone(), cache.self_v.clone()
+        before = _read_count(k2)
+        out = SP.prefill(p, dims, prompt, cache)
+        launches = _read_count(k2) - before
+        offsets = torch.zeros((1,), dtype=torch.int32, device="cuda")
+        _, rhid, _ = MS.megastep_plain(dec["layers"], dec["ln_post"],
+                                       _embedded(dec, prompt, offsets), sk, sv, cache.cross_k,
+                                       cache.cross_v, offsets, None, dims.max_source_positions,
+                                       nh)
+        cos_h = cosine(out.hidden[:, -1], rhid[:, -1])
+        cos_k = min(cosine(cache.self_k[:, :, :t0], sk[:, :, :t0]),
+                    cosine(cache.self_v[:, :, :t0], sv[:, :, :t0]))
+        pieces = -(-t0 // SP.PREFILL_PIECE)
+        log(f"pieced prefill T0={t0}: {pieces} pieces, K2 launches {launches}; last hidden "
+            f"row cosine {cos_h:.6f}, written self-cache rows {cos_k:.6f} against the "
+            f"one-pass plain prefill")
+        require(launches == pieces and cos_h >= 0.999 and cos_k >= 0.999
+                and bool(torch.isfinite(out.hidden).all()), f"pieced prefill T0={t0}")
+
+
+LONG_SECS = (75.0, 50.0)
+LONG_NEW_TOKENS = 64
+
+
+def phase_longform(model, kernels, k2):
+    """The seek loop on a 75 s synthetic waveform (log-mel from
+    ops/mel.py, 7500 frames): B=1 sequential with condition_on_prev_tokens
+    and a 40-token all-segments prompt (each window's prompt 43+ tokens:
+    prefilled in pieces of 16, the third from offset 32; every piece must
+    launch K2); then 75 s and 50 s at B=2 batched with an attention_mask.
+    Windows, steps, wall and device time printed; outputs finite, in range,
+    with segments whose times increase."""
+    import whisper_medusa_tpu_torch.models.api as api_mod
+    from whisper_medusa_tpu_torch.device_profile import _by_kernel
+    from whisper_medusa_tpu_torch.models import whisper as W
+    from whisper_medusa_tpu_torch.ops.mel import log_mel_spectrogram
+
+    st = model.special
+    waves = waveforms(LONG_SECS)
+    n = int(LONG_SECS[0] * 16000)
+    audio = torch.zeros((2, n), device="cuda")
+    for i, w in enumerate(waves):
+        audio[i, :w.shape[0]] = torch.from_numpy(w).cuda()
+    feats = log_mel_spectrogram(audio)
+    mask = np.zeros((2, feats.shape[-1]), np.int32)
+    for i, secs in enumerate(LONG_SECS):
+        mask[i, :int(secs * 100)] = 1
+    require(feats.shape == (2, 80, 7500) and bool(torch.isfinite(feats).all()),
+            "longform features")
+    prompt = [st.start_of_prev] + list(range(1000, 1039))
+    pieces, windows = [], [0]
+    real_step, real_gen = W.decode_step, api_mod.speculative_generate
+
+    def step_spy(params, dims, tokens, cache, offsets, rel_positions=None, **kw):
+        before = _read_count(k2)
+        out = real_step(params, dims, tokens, cache, offsets, rel_positions, **kw)
+        if rel_positions is None:               # a prefill piece
+            pieces.append((tokens.shape[1], int(offsets[0]), _read_count(k2) - before))
+        return out
+
+    def gen_spy(*a, **kw):
+        windows[0] += 1
+        return real_gen(*a, **kw)
+
+    runs = (("B=1 sequential, condition_on_prev_tokens, all-segments prompt", feats[:1],
+             dict(condition_on_prev_tokens=True, prompt_ids=prompt,
+                  prompt_condition_type="all-segments", return_timestamps=True),
+             NEEDS_TS["bf16 medusa B=1"]),
+            ("B=2 batched, attention_mask", feats,
+             dict(attention_mask=mask, return_timestamps=True),
+             NEEDS_TS[f"bf16 medusa B={BATCH}"]))
+    W.decode_step, api_mod.speculative_generate = step_spy, gen_spy
+    try:
+        for name, f, extra, needs in runs:
+            run = lambda: model.generate(f, language="en", max_new_tokens=LONG_NEW_TOKENS,
+                                         **extra)
+            pieces.clear()
+            windows[0] = 0
+            out, wall = drive(f"longform {name}", kernels, run, needs, ABSENT_TS)
+            n_windows = windows[0]
+            dev = sum(us for us, _ in _by_kernel(run, 1).values()) / 1e3
+            log(f"longform {name}: {n_windows} windows, {out.steps} steps, lengths "
+                f"{out.lengths.tolist()}, wall {wall * 1e3:.1f} ms, device busy {dev:.1f} ms; "
+                f"{SMI}")
+            require(np.isfinite(out.token_logprobs).all()
+                    and (out.sequences < model.config.dims.vocab_size).all(), name)
+            for i, segs in enumerate(out.segments):
+                starts = [sg["start"] for sg in segs]
+                require(segs and starts == sorted(starts)
+                        and starts[-1] < LONG_SECS[i] + 30.0, f"{name}: example {i} segments")
+            if "sequential" in name:
+                deep = [p for p in pieces if p[1] >= 32]
+                log(f"longform {name}: prefill pieces (T, offset, K2 launches) {pieces[:6]}"
+                    f"{' ...' if len(pieces) > 6 else ''}")
+                require(deep and all(p[0] <= 16 and p[2] >= 1 for p in pieces),
+                        f"{name}: prefill pieces {pieces}")
+    finally:
+        W.decode_step, api_mod.speculative_generate = real_step, real_gen
+
+
 TINY_D = 384
 TINY_ROWS = ("ffn_decode d384", "head_rows d384", "verify d384")
 NEEDS_TINY = {
@@ -2538,6 +3015,12 @@ def main():
     k5q = check_verify_rows(g, qmodel, sizes=(1, 8, 16, 88, 176))
     k4b = check_verify(g, bmodel, identity0=True)
     k4bq = check_verify(g, bqmodel, identity0=True)
+    k4ts = check_verify_ts(g, model)
+    k4tsq = check_verify_ts(g, qmodel)
+    check_verify_ts(g, bmodel, identity0=True)
+    check_verify_ts(g, bqmodel, identity0=True)
+    k5ts = check_verify_rows_ts(g, model)
+    k5tsq = check_verify_rows_ts(g, qmodel)
 
     proc = WhisperMedusaProcessor(tokenizer=CharTokenizer())
     waves = waveforms((8.0, 17.5, 29.0))
@@ -2580,7 +3063,7 @@ def main():
     for m, name in ((model, "large-v2 bf16"), (qmodel, "large-v2 int8")):
         check_step_invariance(m, enc8, name)
     kernels = [*k1, k2, k2q, k3, k4, k4q, k4a, k4aq, k5, k5q, *k6, k7,
-               k8, k2b, k2bq, k4b, k4bq, k10, k10q, k10m, k11]
+               k8, k2b, k2bq, k4b, k4bq, k10, k10q, k10m, k11, k4ts, k4tsq, k5ts, k5tsq]
 
     # ---- phase 4: the main paths, bf16 then int8
     outs = phase_requests("bf16", model, kernels, feats, waves, feats8, batch_secs)
@@ -2606,6 +3089,11 @@ def main():
     outs16 = phase_b16_requests(model, qmodel, bmodel, kernels, feats16, proc_k, waves16,
                                 secs16)
     phase_p4_requests(model, kernels, feats[0])
+    t0 = time.perf_counter()
+    phase_ts_requests(model, qmodel, bmodel, kernels, feats[0], feats8)
+    phase_longform(model, kernels, k2)
+    check_pieced_prefill(model, enc1, k2)
+    log(f"timestamps and longform phases: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         log(f"launches {k['name']} (all main paths): {k['launches']}")
 

@@ -110,8 +110,8 @@ def _leaves(tree, prefix=""):
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(num_beams=2), "beam search"),
-    (dict(return_timestamps=True), "timestamps"),
-    (dict(prompt_ids=[50361, 220]), "timestamps"),
+    (dict(word_timestamps=True), "timestamps"),
+    (dict(return_token_timestamps=True), "timestamps"),
     (dict(temperature=(0.0, 0.2)), "decode modes"),
     (dict(return_scores="full"), "capture"),
 ])
@@ -122,15 +122,19 @@ def test_unported_options_raise(models, kwargs, match):
 
 
 def test_batch_and_longform_raise(models):
-    """B=9 (past K2's batch) serves through the per-op step; longform and an
-    unknown option raise."""
+    """B=9 (past K2's batch) serves through the per-op step; longform input
+    serves through the seek loop, and beams on it still raise (ROADMAP: beam
+    search); an unknown option raises."""
     _, tm = models
     cfg = tm.config
     out = tm.generate(np.zeros((9, cfg.dims.num_mel_bins, cfg.dims.num_frames),
                                np.float32), language="en", max_new_tokens=4)
     assert out.sequences.shape[0] == 9 and out.lengths.shape == (9,)
-    with pytest.raises(NotImplementedError, match="longform"):
-        tm.generate(np.zeros((1, cfg.dims.num_mel_bins, 2 * cfg.dims.num_frames),
-                             np.float32), language="en")
+    long = _feats(cfg, seed=4)[..., :cfg.dims.num_frames // 2]
+    long = np.concatenate([_feats(cfg, seed=4), long], axis=-1)
+    out = tm.generate(long, language="en", max_new_tokens=12)
+    assert out.sequences.shape[0] == 1 and out.steps > 0
+    with pytest.raises(NotImplementedError, match="beam search"):
+        tm.generate(long, language="en", num_beams=2)
     with pytest.raises(TypeError, match="unexpected"):
         tm.generate(_feats(cfg), language="en", no_such_option=1)

@@ -99,13 +99,14 @@ def test_head_rows_plain_is_k4_row_construction():
 
 @pytest.mark.parametrize("what,match", [("quant_ts_cfg", "item 12"), ("ts_cfg", "item 12")])
 def test_verify_rows_unported_modes_raise(what, match):
-    """The fused timestamp rules raise, with a bf16 or an int8 embedding."""
+    """The fused timestamp rules (ROADMAP item 12, ported) refuse verification
+    rows without their history, with a bf16 or an int8 embedding."""
     hs = torch.zeros((2, 64))
     emb = torch.zeros((10, 64))
     if what == "quant_ts_cfg":
         emb = {"q": emb.to(torch.int8), "s": torch.ones(10)}
-    kw = dict(ts_cfg=(8, 7, None))
-    with pytest.raises(NotImplementedError, match=match):
+    kw = dict(ts_cfg=(8, 7, None), n_verif=2)
+    with pytest.raises(ValueError, match=match):
         tverify.verify_rows(hs, emb, torch.zeros(2, dtype=torch.int32),
                             torch.zeros(2, dtype=torch.int32),
                             torch.zeros(2, 10, dtype=torch.int8), begin_index=0,
@@ -146,11 +147,13 @@ def test_kernel_processors_follow_apply_processors():
 
 
 def test_timestamp_rules_are_not_ported():
+    """verify_hidden's timestamp mode (ported since the rules' slice) takes
+    n_verif rows' history; without it, it raises naming the rules."""
     x = torch.zeros((1, 1, 256))
-    with pytest.raises(NotImplementedError, match="timestamp"):
+    with pytest.raises(ValueError, match="timestamp"):
         tverify.verify_hidden(x, x, torch.zeros(1, 256, 256), torch.zeros(1, 256),
                               torch.zeros(10, 256), torch.zeros(1, dtype=torch.int32),
                               torch.zeros(1, dtype=torch.int32),
                               torch.zeros(2, 10, dtype=torch.int8), identity0=False,
                               begin_index=0, eos_id=0, decay=None,
-                              ts_cfg=(8, 7, None))
+                              ts_cfg=(8, 7, None), n_verif=1)

@@ -73,6 +73,20 @@
 // has the same bits whether K4 builds it among 11 heads or the two-pass loop
 // does alone, at any M.
 //
+// The timestamp mode (the JAX kernels' ts_cfg, verify.py:100-180) is the
+// template flag TS of the vocab stream and a combine kernel of its own, so
+// the other instantiations compile to the code they had without it.  Rows
+// below n_verif take _process_tile's rule masks, tile-local predicates of
+// the row's (pos, last, penult, maxts) and the column; the force rule needs
+// the timestamp columns' max / sum / argmax and the text columns' max.  The
+// timestamp columns are [ts_begin, V): every tile below ts_begin's tile is
+// text and every tile above is timestamps, so their partials already are one
+// side's; only the tile that straddles ts_begin (when ts_begin % 64 != 0)
+// writes its split — (m_ts, s_ts, m_tx) f32 and a_ts int32 a row — and the
+// combine folds the sides in the same pass over the tiles, then resolves
+// _emit: a forced row takes (m_ts, m_ts + log s_ts, a_ts), and NEG as the
+// gathered value of a text column.
+//
 // int8 serving (the JAX kernels' quant / hquant modes) rides the same three
 // entries: an int8 embedding (V, D) with f32 scales (V,) streams as raw
 // int8 tiles (66 MB instead of 133 MB) and column v's sum is multiplied by
@@ -80,6 +94,8 @@
 // take the GEMM's W8 form (the raw tile converted exactly to bf16 in shared
 // memory, the column's scale applied before the bias).  A null scale pointer
 // selects the bf16 form.
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 #include "wgemm.cuh"
@@ -123,16 +139,64 @@ struct VsArgs {
   float log_factor;
 };
 
+// The timestamp mode's arguments (the TS instantiations' parameter).
+struct VsTsArgs : VsArgs {
+  const int* last;         // (R,) int32 each row's last token
+  const int* penult;       // (R,) int32 the token before it
+  const int* maxts;        // (R,) int32 the running max timestamp (0: none)
+  float* ts_f;             // (3, R) f32 the straddling tile's m_ts, s_ts, m_tx
+  int* ts_a;               // (R,) int32 its a_ts
+  int n_verif, ts_begin, no_ts_id, ts_cap;   // ts_cap -1: no initial cap
+};
+
+// The tile that holds both text and timestamp columns, or -1.
+__host__ __device__ __forceinline__ int ts_straddle(int ts_begin) {
+  return ts_begin % VS_VT ? ts_begin / VS_VT : -1;
+}
+
+// The timestamp rules' predicates of one row (_process_tile's rule masks,
+// rows < n_verif only): the no-timestamps column, the pairing rule both
+// ways, the monotonic floor from maxts and the initial cap at begin_index.
+struct TsRow {
+  bool verif, sup_ts, sup_text;
+  int floor_ts, cap_col;
+};
+
+__device__ __forceinline__ TsRow ts_row(const VsTsArgs& a, int r, int p) {
+  const int last = a.last[r], pen = a.penult[r], mts = a.maxts[r];
+  const int gen_len = p - a.begin_index;
+  const bool last_ts = last >= a.ts_begin && gen_len >= 1;
+  const bool pen_ts = gen_len < 2 || pen >= a.ts_begin;
+  TsRow t;
+  t.verif = r < a.n_verif;
+  t.sup_ts = last_ts && pen_ts;
+  t.sup_text = last_ts && !pen_ts;
+  t.floor_ts = mts > 0 ? (t.sup_text ? mts : mts + 1) : a.ts_begin;
+  t.cap_col = a.ts_cap >= 0 && p == a.begin_index ? a.ts_begin + a.ts_cap : 0x7fffffff;
+  return t;
+}
+
+__device__ __forceinline__ bool ts_masked(const TsRow& t, const VsTsArgs& a, int c) {
+  const bool is_ts = c >= a.ts_begin;
+  return t.verif && (c == a.no_ts_id || (t.sup_ts && is_ts) || (t.sup_text && c < a.eos_id) ||
+                     (is_ts && c < t.floor_ts) || c > t.cap_col);
+}
+
 // The partials of one (vocab tile, pass): rows [pass * 16 MT, + 16 MT) of
 // the sums staged in cs (row r of the pass at r * VS_LDC).  Lane l holds
 // columns l and l + 32, whose operands (scale, masks) it loads once; warp w
 // of the tile's warpgroup takes rows [VS_RB (w + 4 k), + VS_RB), VS_RB at
 // a time so that their shuffle chains overlap.  The processing is
 // _process_tile's (verify.py:100-128); each row's arithmetic is the same
-// whichever rows are beside it.
-template <bool Q>
-__device__ __forceinline__ void tile_stats(const float* cs, const VsArgs& a, int tile,
-                                           int pass, int pass_rows) {
+// whichever rows are beside it.  TS, the timestamp mode, adds the rules'
+// masks after the processors and, in the tile that straddles ts_begin, the
+// split; its code sits under if constexpr so that the TS = false
+// instantiations compile to the code without the mode (kernel_ab.py holds
+// their SASS to another build's).
+template <bool Q, bool TS>
+__device__ __forceinline__ void tile_stats(const float* cs,
+                                           const std::conditional_t<TS, VsTsArgs, VsArgs>& a,
+                                           int tile, int pass, int pass_rows) {
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int v0 = tile * VS_VT, r0 = pass * pass_rows;
   const int n = min(pass_rows, a.n_rows - r0);
@@ -156,6 +220,8 @@ __device__ __forceinline__ void tile_stats(const float* cs, const VsArgs& a, int
     for (int j = 0; j < VS_RB; ++j) {
       const int rl = min(rb + j, n - 1);      // past n: a repeat, not stored
       const int p = a.pos[r0 + rl], gc = a.gcol[r0 + rl];
+      [[maybe_unused]] TsRow tr;
+      if constexpr (TS) tr = ts_row(a, r0 + rl, p);
       g[j] = NEG_VERIFY;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
@@ -169,6 +235,9 @@ __device__ __forceinline__ void tile_stats(const float* cs, const VsArgs& a, int
           if (eos[hh] && p > a.decay_start) {
             const float idx = (float)max(p - a.decay_start, 0);
             val = val + fabsf(val) * (expf(idx * a.log_factor) - 1.0f);
+          }
+          if constexpr (TS) {
+            if (ts_masked(tr, a, col[hh])) val = NEG_VERIFY;
           }
         }
         x[j][hh] = val;
@@ -207,6 +276,52 @@ __device__ __forceinline__ void tile_stats(const float* cs, const VsArgs& a, int
       a.part_f[2 * ntile_rows + idx] = gj;
       a.part_a[idx] = aj;
     }
+    if constexpr (TS) {
+      if (tile == ts_straddle(a.ts_begin)) {
+        // The split: the timestamp side's max, argmax (ties to the lowest
+        // column) and sum of exp, the text side's max; -inf off each side.
+        float mt[VS_RB], st[VS_RB], mx[VS_RB];
+        int at[VS_RB];
+#pragma unroll
+        for (int j = 0; j < VS_RB; ++j) {
+          const bool t0 = col[0] >= a.ts_begin, t1 = col[1] >= a.ts_begin;
+          const float y0 = t0 ? x[j][0] : -INFINITY, y1 = t1 ? x[j][1] : -INFINITY;
+          mt[j] = y0;
+          at[j] = col[0];
+          if (y1 > mt[j]) { mt[j] = y1; at[j] = col[1]; }
+          mx[j] = fmaxf(t0 ? -INFINITY : x[j][0], t1 ? -INFINITY : x[j][1]);
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+          for (int j = 0; j < VS_RB; ++j) {
+            const float om = __shfl_xor_sync(0xffffffffu, mt[j], o);
+            const int oa = __shfl_xor_sync(0xffffffffu, at[j], o);
+            if (om > mt[j] || (om == mt[j] && oa < at[j])) { mt[j] = om; at[j] = oa; }
+            mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], o));
+          }
+#pragma unroll
+        for (int j = 0; j < VS_RB; ++j)
+          st[j] = (col[0] >= a.ts_begin ? expf(x[j][0] - mt[j]) : 0.0f) +
+                  (col[1] >= a.ts_begin ? expf(x[j][1] - mt[j]) : 0.0f);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+          for (int j = 0; j < VS_RB; ++j) st[j] += __shfl_xor_sync(0xffffffffu, st[j], o);
+        if (lane < VS_RB && rb + lane < n) {
+          float mj = mt[0], sj = st[0], xj = mx[0];
+          int aj = at[0];
+#pragma unroll
+          for (int j = 1; j < VS_RB; ++j)
+            if (lane == j) { mj = mt[j]; sj = st[j]; xj = mx[j]; aj = at[j]; }
+          const int r = r0 + rb + lane;
+          a.ts_f[r] = mj;
+          a.ts_f[a.n_rows + r] = sj;
+          a.ts_f[2 * a.n_rows + r] = xj;
+          a.ts_a[r] = aj;
+        }
+      }
+    }
   }
 }
 
@@ -220,10 +335,10 @@ __device__ __forceinline__ void tile_stats(const float* cs, const VsArgs& a, int
 // first), and at an item's last chunk stages its sums and writes its
 // tile's partials.  mx: the rows (R, D) bf16, box (64, 16 MT); me: E (V,
 // D), box (64, 64 VS_NWG), bf16 swizzled or int8 raw.
-template <int MT, bool Q>
+template <int MT, bool Q, bool TS>
 __global__ void __launch_bounds__(VS_THREADS)
 vocab_stream_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap me,
-                    const VsArgs a) {
+                    const std::conditional_t<TS, VsTsArgs, VsArgs> a) {
   constexpr int S = vs_stages(MT);
   constexpr int EB = Q ? VS_ERAW : VS_ETILE;   // bytes of one E tile in a stage
   constexpr int SB = MT * VS_XT + VS_NWG * EB; // bytes a stage
@@ -321,7 +436,7 @@ vocab_stream_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constan
             cs[row * VS_LDC + 16 * (warp & 3) + (lane >> 2) + ((i & 2) ? 8 : 0)] = acc[8 * t + i];
           }
         named_sync(1 + VS_NWG + wg, 128);
-        tile_stats<Q>(cs, a, tile, item % a.passes, PR);
+        tile_stats<Q, TS>(cs, a, tile, item % a.passes, PR);
       }
     }
   }
@@ -369,12 +484,64 @@ verify_combine_kernel(const float* __restrict__ part_f, const int* __restrict__ 
   }
 }
 
-// Launches vocab_stream_kernel<mt, Q> (mt in [MT, VS_MAX_MT]) on a grid of
-// as many CTAs as fit on the card (found once per device), at most one per
-// work item.
-template <bool Q, int MT = 1>
+// The timestamp mode's combine: verify_combine_kernel's fold, plus the
+// timestamp side (the timestamp tiles' partials and the straddling tile's
+// split) and the text side's max in the same pass, then _emit's force rule
+// for rows < n_verif.
+__global__ void __launch_bounds__(256)
+verify_combine_ts_kernel(const float* __restrict__ part_f, const int* __restrict__ part_a,
+                         int ntiles, int n_rows, float* __restrict__ o_max,
+                         float* __restrict__ o_lse, int* __restrict__ o_arg,
+                         float* __restrict__ o_gth, const VsTsArgs a) {
+  const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= n_rows) return;
+  const size_t nt = (size_t)ntiles * n_rows;
+  const int straddle = ts_straddle(a.ts_begin);
+  float m = -INFINITY, s = 0.0f, g = NEG_VERIFY, mts = -INFINITY, sts = 0.0f, mtx = -INFINITY;
+  int am = 0x7fffffff, ats = 0x7fffffff;
+  for (int t = lane; t < ntiles; t += 32) {
+    const size_t idx = (size_t)r * ntiles + t;
+    const float pm = part_f[idx], ps = part_f[nt + idx];
+    const int pa = part_a[idx];
+    merge(m, am, s, pm, pa, ps);
+    g = fmaxf(g, part_f[2 * nt + idx]);
+    if (t * VS_VT >= a.ts_begin) merge(mts, ats, sts, pm, pa, ps);
+    else if (t != straddle) mtx = fmaxf(mtx, pm);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+    const int a2 = __shfl_xor_sync(0xffffffffu, am, o);
+    const float s2 = __shfl_xor_sync(0xffffffffu, s, o);
+    merge(m, am, s, m2, a2, s2);
+    const float mt2 = __shfl_xor_sync(0xffffffffu, mts, o);
+    const int at2 = __shfl_xor_sync(0xffffffffu, ats, o);
+    const float st2 = __shfl_xor_sync(0xffffffffu, sts, o);
+    merge(mts, ats, sts, mt2, at2, st2);
+  }
+  g = warp_max(g);
+  mtx = warp_max(mtx);
+  if (lane == 0) {
+    if (straddle >= 0 && straddle < ntiles) {
+      merge(mts, ats, sts, a.ts_f[r], a.ts_a[r], a.ts_f[n_rows + r]);
+      mtx = fmaxf(mtx, a.ts_f[2 * n_rows + r]);
+    }
+    const float lse_ts = mts + logf(sts);
+    const bool force = r < a.n_verif && lse_ts > mtx;
+    o_max[r] = force ? mts : m;
+    o_lse[r] = force ? lse_ts : m + logf(s);
+    o_arg[r] = force ? ats : am;
+    o_gth[r] = force && a.gcol[r] < a.ts_begin ? NEG_VERIFY : g;
+  }
+}
+
+// Launches vocab_stream_kernel<mt, Q, TS> (mt in [MT, VS_MAX_MT]) on a grid
+// of as many CTAs as fit on the card (found once per device), at most one
+// per work item.
+template <bool Q, bool TS, int MT = 1>
 int vs_launch(int mt, int items, const CUtensorMap& mx, const CUtensorMap& me,
-              const VsArgs& a, cudaStream_t st) {
+              const VsTsArgs& a, cudaStream_t st) {
   if (mt == MT) {
     constexpr int MAX_DEV = 16;
     static int fits[MAX_DEV] = {};
@@ -383,20 +550,24 @@ int vs_launch(int mt, int items, const CUtensorMap& mx, const CUtensorMap& me,
     if (dev >= MAX_DEV) return (int)cudaErrorInvalidDevice;
     const int smem = vs_smem(MT, Q);
     // Per launch: the attribute belongs to the current device's context.
-    cudaFuncSetAttribute(vocab_stream_kernel<MT, Q>,
+    cudaFuncSetAttribute(vocab_stream_kernel<MT, Q, TS>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (fits[dev] == 0) {
       int sms = 0, per_sm = 0;
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vocab_stream_kernel<MT, Q>,
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vocab_stream_kernel<MT, Q, TS>,
                                                     VS_THREADS, smem);
       fits[dev] = (per_sm > 1 ? per_sm : 1) * sms;
     }
     const int grid = items < fits[dev] ? items : fits[dev];
-    vocab_stream_kernel<MT, Q><<<grid, VS_THREADS, smem, st>>>(mx, me, a);
+    if constexpr (TS)
+      vocab_stream_kernel<MT, Q, TS><<<grid, VS_THREADS, smem, st>>>(mx, me, a);
+    else
+      vocab_stream_kernel<MT, Q, TS><<<grid, VS_THREADS, smem, st>>>(
+          mx, me, static_cast<const VsArgs&>(a));
     return (int)cudaGetLastError();
   }
-  if constexpr (MT < VS_MAX_MT) return vs_launch<Q, MT + 1>(mt, items, mx, me, a, st);
+  if constexpr (MT < VS_MAX_MT) return vs_launch<Q, TS, MT + 1>(mt, items, mx, me, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -404,11 +575,14 @@ int vs_launch(int mt, int items, const CUtensorMap& mx, const CUtensorMap& me,
 // the per-row combine.  e is bf16, or int8 when escale is set.  rows and e
 // 16-byte aligned (the tensor-map encoder refuses another address: the
 // entry then returns TENSOR_MAP_ERROR + its error).
+// ts: the timestamp mode's pointers (last, penult, maxts, ts_f, ts_a; nulls
+// without it) and ts_ints (n_verif, on, ts_begin, no_ts_id, cap).
 inline int score_rows(const bf16* rows, int n_rows, const void* e, const float* escale,
                       int v_dim, int d_dim, const int* pos, const int* gcol,
                       const int8_t* sup, int begin_index, int eos_id, int has_decay,
                       int decay_start, float log_factor, float* part_f, int* part_a,
-                      float* o_max, float* o_lse, int* o_arg, float* o_gth, cudaStream_t st) {
+                      float* o_max, float* o_lse, int* o_arg, float* o_gth, void* const* ts,
+                      const int* ts_ints, cudaStream_t st) {
   const bool q = escale != nullptr;
   const int tiles = (v_dim + VS_VT - 1) / VS_VT;
   const int mt = ((n_rows < 16 * VS_MAX_MT ? n_rows : 16 * VS_MAX_MT) + 15) / 16;
@@ -427,7 +601,7 @@ inline int score_rows(const bf16* rows, int n_rows, const void* e, const float* 
         &me, q ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, e, edims,
         estrides, ebox, q ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
-  VsArgs a;
+  VsTsArgs a;
   a.escale = escale;
   a.pos = pos;
   a.gcol = gcol;
@@ -445,11 +619,32 @@ inline int score_rows(const bf16* rows, int n_rows, const void* e, const float* 
   a.has_decay = has_decay;
   a.decay_start = decay_start;
   a.log_factor = log_factor;
-  err = q ? vs_launch<true>(mt, a.groups * passes, mx, me, a, st)
-          : vs_launch<false>(mt, a.groups * passes, mx, me, a, st);
+  const bool ts_on = ts_ints[1] != 0;
+  a.last = static_cast<const int*>(ts[0]);
+  a.penult = static_cast<const int*>(ts[1]);
+  a.maxts = static_cast<const int*>(ts[2]);
+  a.ts_f = static_cast<float*>(ts[3]);
+  a.ts_a = static_cast<int*>(ts[4]);
+  a.n_verif = ts_ints[0];
+  a.ts_begin = ts_ints[2];
+  a.no_ts_id = ts_ints[3];
+  a.ts_cap = ts_ints[4];
+  if (ts_on && (!a.last || !a.penult || !a.maxts || !a.ts_f || !a.ts_a))
+    return (int)cudaErrorInvalidValue;
+  const int items = a.groups * passes;
+  if (ts_on)
+    err = q ? vs_launch<true, true>(mt, items, mx, me, a, st)
+            : vs_launch<false, true>(mt, items, mx, me, a, st);
+  else
+    err = q ? vs_launch<true, false>(mt, items, mx, me, a, st)
+            : vs_launch<false, false>(mt, items, mx, me, a, st);
   if (err != 0) return err;
-  verify_combine_kernel<<<(n_rows + 7) / 8, 256, 0, st>>>(part_f, part_a, tiles, n_rows, o_max,
-                                                          o_lse, o_arg, o_gth);
+  if (ts_on)
+    verify_combine_ts_kernel<<<(n_rows + 7) / 8, 256, 0, st>>>(part_f, part_a, tiles, n_rows,
+                                                               o_max, o_lse, o_arg, o_gth, a);
+  else
+    verify_combine_kernel<<<(n_rows + 7) / 8, 256, 0, st>>>(part_f, part_a, tiles, n_rows,
+                                                            o_max, o_lse, o_arg, o_gth);
   return (int)cudaGetLastError();
 }
 
@@ -496,11 +691,17 @@ enum VerifyPtr {
   V_MAX, V_LSE, V_ARG, V_GTH,   // (R,) outputs
   V_EMBED_S,    // (V,) f32 int8-embedding scales, or null (bf16 embedding)
   V_HEADS_S,    // (nh, D) f32 int8-head scales, or null (bf16 heads)
+  V_LAST,       // the timestamp mode (nulls without it): (R,) int32 last,
+  V_PENULT,     //   penult and maxts, the straddling tile's (3, R) f32 and
+  V_MAXTS,      //   (R,) int32 split
+  V_TS_F,
+  V_TS_A,
   V_COUNT
 };
 
 // ints: BN, D, V, n_heads, identity0, begin_index, eos_id, has_decay,
-// decay_start.  R = (n_heads + identity0) * BN <= 128, BN <= 16.
+// decay_start, then the timestamp mode's n_verif, on, ts_begin, no_ts_id,
+// cap (-1: none).  R = (n_heads + identity0) * BN <= 128, BN <= 16.
 extern "C" int wm_verify_hidden(void** p, const int* ints, float log_factor,
                                 void* stream) {
   using namespace wm;
@@ -528,7 +729,7 @@ extern "C" int wm_verify_hidden(void** p, const int* ints, float log_factor,
              decay_start, log_factor, static_cast<float*>(p[V_PART_F]),
              static_cast<int*>(p[V_PART_A]), static_cast<float*>(p[V_MAX]),
              static_cast<float*>(p[V_LSE]), static_cast<int*>(p[V_ARG]),
-             static_cast<float*>(p[V_GTH]), st);
+             static_cast<float*>(p[V_GTH]), p + V_LAST, ints + 9, st);
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
@@ -543,12 +744,18 @@ enum VerifyRowsPtr {
   VR_PART_A,     // (R, ntiles) int32 scratch
   VR_MAX, VR_LSE, VR_ARG, VR_GTH,   // (R,) outputs
   VR_EMBED_S,    // (V,) f32 int8-embedding scales, or null (bf16 embedding)
+  VR_LAST,       // the timestamp mode, as V_LAST .. V_TS_A
+  VR_PENULT,
+  VR_MAXTS,
+  VR_TS_F,
+  VR_TS_A,
   VR_COUNT
 };
 
 constexpr int VR_MAX_ROWS = 1024;   // the JAX kernel's _MAX_R
 
-// ints: R, D, V, begin_index, eos_id, has_decay, decay_start.
+// ints: R, D, V, begin_index, eos_id, has_decay, decay_start, then the
+// timestamp mode's n_verif, on, ts_begin, no_ts_id, cap (-1: none).
 extern "C" int wm_verify_rows(void** p, const int* ints, float log_factor,
                               void* stream) {
   using namespace wm;
@@ -561,7 +768,7 @@ extern "C" int wm_verify_rows(void** p, const int* ints, float log_factor,
              decay_start, log_factor, static_cast<float*>(p[VR_PART_F]),
              static_cast<int*>(p[VR_PART_A]), static_cast<float*>(p[VR_MAX]),
              static_cast<float*>(p[VR_LSE]), static_cast<int*>(p[VR_ARG]),
-             static_cast<float*>(p[VR_GTH]), (cudaStream_t)stream);
+             static_cast<float*>(p[VR_GTH]), p + VR_LAST, ints + 7, (cudaStream_t)stream);
 }
 
 // out (NH, M, D) = src + bf16(SiLU(src @ W_k + b_k)) for each head k; src

@@ -4,8 +4,9 @@ whisper_medusa_tpu/decoding/processors.py.
 Each processor is a function of ``(logits, pred_pos)`` where ``pred_pos`` is
 the absolute index of the token being predicted, so speculative verification
 applies exactly the rules a step-by-step loop would.  Ported: suppress,
-begin-suppress and the exponential-decay length penalty.  The timestamp rules
-and the user ``custom`` hook are not ported yet.
+begin-suppress, the exponential-decay length penalty and the Whisper timestamp
+rules (:func:`apply_timestamp_rules`).  The user ``custom`` hook is not ported
+yet (ROADMAP queue 1, item 12c).
 """
 
 from __future__ import annotations
@@ -26,6 +27,11 @@ class ProcessorConfig:
     # (start, factor), start an absolute position (regulation_start + prompt_len).
     exponential_decay_length_penalty: Optional[Tuple[int, float]] = None
     eos_token_id: int = 0
+    # The Whisper timestamp rules (apply_timestamp_rules).
+    timestamp_rules: bool = False
+    timestamp_begin: int = 50364          # <|0.00|>
+    no_timestamps_id: int = 50363
+    max_initial_timestamp_index: Optional[int] = 50   # 1.0 s
 
     def suppress_mask(self) -> Optional[np.ndarray]:
         if not self.suppress_tokens:
@@ -66,3 +72,44 @@ def apply_processors(logits: torch.Tensor, pred_pos: torch.Tensor,
         logits = logits.clone()
         logits[..., cfg.eos_token_id] = torch.where(pred_pos > start, eos + pen, eos)
     return logits
+
+
+def apply_timestamp_rules(logits: torch.Tensor, pred_pos: torch.Tensor,
+                          last_tok: torch.Tensor, penult_tok: torch.Tensor,
+                          max_ts: torch.Tensor, cfg: ProcessorConfig) -> torch.Tensor:
+    """The Whisper timestamp grammar on base-processed logits (..., V) f32,
+    given each position's last token, the token before it and the highest
+    timestamp emitted so far (0 for none): ``<|notimestamps|>`` barred;
+    timestamps in pairs; timestamps non-decreasing; at the first generated
+    position none past ``max_initial_timestamp_index``; and a timestamp
+    forced where the timestamp columns' total probability beats the best
+    text token.  Barred columns take -inf."""
+    dev = logits.device
+    v = logits.shape[-1]
+    ts_begin = cfg.timestamp_begin
+    vocab_ids = torch.arange(v, device=dev)
+    is_ts = vocab_ids >= ts_begin
+    ninf = torch.tensor(-float("inf"), device=dev)
+    logits = logits.clone()
+    logits[..., cfg.no_timestamps_id] = ninf
+
+    gen_len = pred_pos - cfg.begin_index
+    last_is_ts = (last_tok >= ts_begin) & (gen_len >= 1)
+    penult_is_ts = (gen_len < 2) | (penult_tok >= ts_begin)
+    sup_ts = (last_is_ts & penult_is_ts)[..., None]
+    sup_text = (last_is_ts & ~penult_is_ts)[..., None]
+    logits = torch.where((sup_ts & is_ts) | (sup_text & (vocab_ids < cfg.eos_token_id)),
+                         ninf, logits)
+    floor = torch.where(last_is_ts & ~penult_is_ts, max_ts, max_ts + 1)
+    floor = torch.where(max_ts > 0, floor, torch.full_like(floor, ts_begin))
+    logits = torch.where(is_ts & (vocab_ids < floor[..., None]), ninf, logits)
+    if cfg.max_initial_timestamp_index is not None:
+        cap = ts_begin + cfg.max_initial_timestamp_index
+        at_begin = (pred_pos == cfg.begin_index)[..., None]
+        logits = torch.where(at_begin & (vocab_ids > cap), ninf, logits)
+
+    logprobs = torch.log_softmax(logits, dim=-1)
+    ts_lp = torch.logsumexp(torch.where(is_ts, logprobs, ninf), dim=-1)
+    max_text = torch.where(is_ts, ninf, logprobs).max(dim=-1).values
+    force = (ts_lp > max_text)[..., None]
+    return torch.where(force & ~is_ts, ninf, logits)

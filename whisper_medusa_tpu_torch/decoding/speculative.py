@@ -25,9 +25,19 @@ from ``block_hidden``, the output of the block layer that K2 runs after the
 decoder stack on the cache's last slot.  The decoder forward is K2 at
 B <= 8 and the per-op step (K10, K11) beyond (``whisper.decode_step``).
 
+Timestamps (``pcfg.timestamp_rules``): each chain node carries its history
+(its last token, the token before it, the running max timestamp) and the
+verification rows take the Whisper timestamp rules inside K4 / K5's vocab
+pass (``ts_cfg``); draft rows and pass B keep the base processors, as in the
+JAX package.  A prompt longer than :data:`PREFILL_PIECE` tokens is prefilled
+in pieces of at most that many (each causal over itself, seeing the earlier
+pieces through the cache, as a decode chunk does), so every piece is a call
+K2 or the per-op step's mask mode takes.  ``stop_len`` / ``resume_state`` /
+``return_state`` decode in segments (``generate_stream``).
+
 State lives in device tensors; the loop reads ``finished`` on the host once
-per iteration.  Branching trees, sampling, typical acceptance and timestamp
-rules are not ported yet (they raise NotImplementedError).
+per iteration.  Branching trees, sampling and typical acceptance are not
+ported yet (they raise NotImplementedError).
 """
 
 from __future__ import annotations
@@ -39,7 +49,8 @@ import torch
 
 from whisper_medusa_tpu_torch.config import GenerationConfig, WhisperDims
 from whisper_medusa_tpu_torch.decoding.buffers import MedusaBuffers
-from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig, apply_processors
+from whisper_medusa_tpu_torch.decoding.processors import (ProcessorConfig, apply_processors,
+                                                           apply_timestamp_rules)
 from whisper_medusa_tpu_torch.models import medusa as medusa_mod
 from whisper_medusa_tpu_torch.models import whisper
 from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
@@ -48,6 +59,7 @@ from whisper_medusa_tpu_torch.ops import verify as verify_mod
 Params = Dict[str, Any]
 
 CORRUPTION_SEED = 0x5EED
+PREFILL_PIECE = 16      # prompt tokens a prefill call takes (K2's chunk, megastep.fits)
 
 
 @dataclasses.dataclass
@@ -58,6 +70,41 @@ class SpecResult:
     accepted: torch.Tensor      # (B,) accepted draft tokens
     first_logits: torch.Tensor  # (B, V) unprocessed base logits at the first position
     logprobs: torch.Tensor      # (B, max_length) processed log-prob of each token
+
+
+@dataclasses.dataclass
+class SpecState:
+    """The loop's state between segments (``return_state`` / ``resume_state``)."""
+    tokens: torch.Tensor        # (B, max_length + levels + 1) committed tokens
+    cur_len: torch.Tensor       # (B,) committed length, the pending root included
+    finished: torch.Tensor      # (B,) bool
+    cache: Any                  # whisper.KVCache
+    chunk: torch.Tensor         # (B, N) the next iteration's chain
+    steps: int
+    accepted: torch.Tensor      # (B,)
+    prev2: torch.Tensor         # (B,) the token before the pending root
+    max_ts: torch.Tensor        # (B,) highest committed timestamp (0: none)
+    logprobs: torch.Tensor      # (B, max_length + levels + 1)
+    gen_rng: torch.Generator    # draft corruption draws
+
+
+def prefill(params: Params, dims: WhisperDims, prompt: torch.Tensor, cache,
+            block: Optional[Params] = None) -> whisper.DecoderOutput:
+    """The prompt (B, T0) into ``cache`` from offset 0, in pieces of at most
+    :data:`PREFILL_PIECE` tokens: each piece causal over itself and over the
+    earlier pieces through the cache.  Returns the last piece's output."""
+    b, t0 = prompt.shape
+    out = None
+    for s0 in range(0, t0, PREFILL_PIECE):
+        out = whisper.decode_step(
+            params, dims, prompt[:, s0:s0 + PREFILL_PIECE], cache,
+            torch.full((b,), s0, dtype=torch.int32, device=prompt.device), block=block)
+    return out
+
+
+def ts_val(tok: torch.Tensor, pcfg: ProcessorConfig) -> torch.Tensor:
+    """The token where it is a timestamp, else 0."""
+    return torch.where(tok >= pcfg.timestamp_begin, tok, torch.zeros_like(tok))
 
 
 def _head_slice(medusa_params: Params, lo: int, hi: Optional[int]) -> Params:
@@ -102,7 +149,14 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
                          dims: WhisperDims, buffers: MedusaBuffers, pcfg: ProcessorConfig,
                          gen: GenerationConfig, enc_out: torch.Tensor,
                          prompt: torch.Tensor, variant: str = "base_head",
-                         draft_corruption: Optional[float] = None) -> SpecResult:
+                         draft_corruption: Optional[float] = None,
+                         resume_state: Optional[SpecState] = None,
+                         stop_len: Optional[int] = None, return_state: bool = False):
+    """The chain-greedy decode loop; a :class:`SpecResult` (with the
+    :class:`SpecState` when ``return_state``).  ``stop_len`` pauses once every
+    unfinished example's ``cur_len`` reaches it; ``resume_state`` continues a
+    paused segment (no prefill; ``first_logits`` is then zeros).  Segmented
+    decoding commits the same tokens as one call."""
     if variant not in ("base_head", "medusa_block", "vanilla"):
         raise ValueError(f"unknown variant {variant!r}")
     vanilla = variant == "vanilla" or medusa_params is None
@@ -150,8 +204,8 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
     sup_masks = verify_mod.masks_for(pcfg, dev)
     vkw = dict(begin_index=pcfg.begin_index, eos_id=pcfg.eos_token_id,
                decay=pcfg.exponential_decay_length_penalty)
-    gen_rng = torch.Generator(device=dev)
-    gen_rng.manual_seed(CORRUPTION_SEED)
+    use_ts = pcfg.timestamp_rules
+    ts_cfg = verify_mod.ts_cfg_for(pcfg) if use_ts else None
     arange_lv = torch.arange(lv, device=dev)[None, :]
     kp1_rows = torch.arange(kp1, dtype=torch.int32, device=dev)[:, None, None]
     batch_rows = torch.arange(b, device=dev)
@@ -171,33 +225,54 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
         drafts = _corrupt(drafts, draft_corruption, gen_rng, vocab)
         return torch.cat([root[:, None], drafts], dim=1)[:, tree_idx]
 
-    # ---------------- prefill ----------------
-    prompt = prompt.to(device=dev, dtype=torch.int32)
-    cache = whisper.init_cache(params, dims, enc_out, cache_len,
-                               extra_layers=int(block is not None))
-    if block is not None:
-        whisper.set_block_cross_kv(cache, block, enc_out, dims.decoder_attention_heads)
-    out = whisper.decode_step(params, dims, prompt, cache,
-                              torch.zeros((b,), dtype=torch.int32, device=dev), block=block)
-    h_last = out.hidden[:, -1]
-    base = _base_logits_fn(params, medusa_params, variant)(h_last)    # (B, V) f32
-    proc = apply_processors(base, torch.full((b,), t0, device=dev), pcfg)
-    root0 = torch.argmax(proc, dim=-1).to(torch.int32)
-    tokens = torch.full((b, buf_len), pad, dtype=torch.int32, device=dev)
-    tokens[:, :t0] = prompt
-    tokens[:, t0] = root0
-    cur_len = torch.full((b,), t0 + 1, dtype=torch.int32, device=dev)
-    finished = (root0 == eos) | (cur_len + num_heads >= max_length)
     draft_src = lambda o: o.hidden if block is None else o.block_hidden
-    chunk = drafts_to_chunk(root0, draft_src(out)[:, -1], cur_len)
-    logprobs = torch.zeros((b, buf_len), dtype=torch.float32, device=dev)
-    logprobs[:, t0] = torch.log_softmax(proc, dim=-1).gather(
-        1, root0.long()[:, None])[:, 0]
-    accepted = torch.zeros((b,), dtype=torch.int32, device=dev)
-    steps = 0
+
+    # ---------------- prefill (skipped when resuming) ----------------
+    if resume_state is None:
+        gen_rng = torch.Generator(device=dev)
+        gen_rng.manual_seed(CORRUPTION_SEED)
+        prompt = prompt.to(device=dev, dtype=torch.int32)
+        cache = whisper.init_cache(params, dims, enc_out, cache_len,
+                                   extra_layers=int(block is not None))
+        if block is not None:
+            whisper.set_block_cross_kv(cache, block, enc_out, dims.decoder_attention_heads)
+        out = prefill(params, dims, prompt, cache, block)
+        h_last = out.hidden[:, -1]
+        base = _base_logits_fn(params, medusa_params, variant)(h_last)    # (B, V) f32
+        at_t0 = torch.full((b,), t0, device=dev)
+        proc = apply_processors(base, at_t0, pcfg)
+        if use_ts:
+            proc = apply_timestamp_rules(
+                proc, at_t0, prompt[:, -1], prompt[:, -2] if t0 >= 2 else prompt[:, -1],
+                torch.zeros((b,), dtype=torch.int32, device=dev), pcfg)
+        root0 = torch.argmax(proc, dim=-1).to(torch.int32)
+        tokens = torch.full((b, buf_len), pad, dtype=torch.int32, device=dev)
+        tokens[:, :t0] = prompt
+        tokens[:, t0] = root0
+        cur_len = torch.full((b,), t0 + 1, dtype=torch.int32, device=dev)
+        finished = (root0 == eos) | (cur_len + num_heads >= max_length)
+        chunk = drafts_to_chunk(root0, draft_src(out)[:, -1], cur_len)
+        logprobs = torch.zeros((b, buf_len), dtype=torch.float32, device=dev)
+        logprobs[:, t0] = torch.log_softmax(proc, dim=-1).gather(
+            1, root0.long()[:, None])[:, 0]
+        accepted = torch.zeros((b,), dtype=torch.int32, device=dev)
+        steps = 0
+        prev2, max_ts = prompt[:, -1], ts_val(root0, pcfg)
+    else:
+        st = resume_state
+        tokens, cur_len, finished, cache, chunk = (st.tokens, st.cur_len, st.finished,
+                                                   st.cache, st.chunk)
+        steps, accepted, prev2, max_ts = st.steps, st.accepted, st.prev2, st.max_ts
+        logprobs, gen_rng = st.logprobs, st.gen_rng
+        base = torch.zeros((b, vocab), dtype=torch.float32, device=dev)
 
     # ---------------- loop ----------------
-    while not bool(finished.all()):
+    while True:
+        active = ~finished
+        if stop_len is not None:
+            active = active & (cur_len < stop_len)
+        if not bool(active.any()):
+            break
         offsets = cur_len - 1
         out = whisper.decode_step(params, dims, chunk, cache, offsets,
                                   rel_positions=pos_ids, block=block)
@@ -210,9 +285,22 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
             gcol_nodes.reshape(-1),
             torch.zeros(((kp1 - 1) * b * n_nodes,), dtype=torch.int32, device=dev)])
         flat = hidden.reshape(b * n_nodes, -1)
+        ts_kw = {}
+        if use_ts:
+            # Each node's history; only the k = 0 verification rows read it
+            # (draft rows keep the base processors), zeros for the rest.
+            zero_tail = torch.zeros(((kp1 - 1) * b * n_nodes,), dtype=torch.int32,
+                                    device=dev)
+            penult_nodes = torch.cat([prev2[:, None], chunk[:, :-1]], dim=1)
+            node_max_ts = torch.maximum(max_ts[:, None],
+                                        torch.cummax(ts_val(chunk, pcfg), dim=1).values)
+            ts_kw = dict(ts_cfg=ts_cfg, n_verif=b * n_nodes,
+                         last=torch.cat([chunk.reshape(-1), zero_tail]),
+                         penult=torch.cat([penult_nodes.reshape(-1), zero_tail]),
+                         maxts=torch.cat([node_max_ts.reshape(-1), zero_tail]))
         if vanilla:
             am, mx, lse, gth = verify_mod.verify_rows(
-                flat, embed, pos_rows, gcol_rows, sup_masks, **vkw)
+                flat, embed, pos_rows, gcol_rows, sup_masks, **vkw, **ts_kw)
         elif two_pass:
             # Pass A: the verification rows only — the hidden rows themselves
             # (medusa_block), or head 0 of them built by the same GEMM mode
@@ -220,11 +308,11 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
             rows = flat if block is not None else verify_mod.head_rows(
                 flat, qmm_mod.wmap(heads_w, lambda a: a[:1]), heads_b[:1])[0]
             am, mx, lse, gth = verify_mod.verify_rows(
-                rows, embed, pos_rows, gcol_rows, sup_masks, **vkw)
+                rows, embed, pos_rows, gcol_rows, sup_masks, **vkw, **ts_kw)
         else:
             am, mx, lse, gth = verify_mod.verify_hidden(
                 hidden, draft_src(out), heads_w, heads_b, embed, pos_rows, gcol_rows,
-                sup_masks, identity0=block is not None, **vkw)
+                sup_masks, identity0=block is not None, **vkw, **ts_kw)
         am, mx, lse, gth = (a.reshape(kp1, b, n_nodes) for a in (am, mx, lse, gth))
 
         best, accept, ptok, pnxt = _greedy_accept(chunk, am[0], retrieve)
@@ -268,6 +356,13 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
             drafts = _corrupt(drafts, draft_corruption, gen_rng, vocab)
             chunk = torch.cat([bonus[:, None], drafts], dim=1)[:, tree_idx]
 
+        # Timestamp history: the pending root is now the bonus token, the one
+        # before it the last accepted token (the old root at accept 0).
+        prev2 = torch.where(finished, prev2, best_tok.gather(1, acc_col)[:, 0])
+        win_ts = torch.where(arange_lv <= acc_col, ts_val(window, pcfg),
+                             torch.zeros_like(window))
+        max_ts = torch.where(finished, max_ts, torch.maximum(max_ts, win_ts.max(-1).values))
+
         finished = finished | eos_hit | (new_len + num_heads >= max_length)
         cur_len = new_len
         steps += 1
@@ -283,5 +378,11 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
     out_tokens = torch.where(backfill, torch.full_like(out_tokens, eos), out_tokens)
     out_lp = torch.where(pos < lengths[:, None], logprobs[:, :max_length],
                          torch.zeros_like(logprobs[:, :max_length]))
-    return SpecResult(tokens=out_tokens, lengths=lengths, steps=steps,
-                      accepted=accepted, first_logits=base, logprobs=out_lp)
+    result = SpecResult(tokens=out_tokens, lengths=lengths, steps=steps,
+                        accepted=accepted, first_logits=base, logprobs=out_lp)
+    if return_state:
+        return result, SpecState(tokens=tokens, cur_len=cur_len, finished=finished,
+                                 cache=cache, chunk=chunk, steps=steps, accepted=accepted,
+                                 prev2=prev2, max_ts=max_ts, logprobs=logprobs,
+                                 gen_rng=gen_rng)
+    return result

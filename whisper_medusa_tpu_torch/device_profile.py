@@ -33,10 +33,12 @@ code the same way:
      K5 (R = 968);
   4. whole requests of ``max_new_tokens=128`` from seeded random features:
      Medusa and vanilla (``disable_medusa=True``) at B=1 and B=8, and
-     Medusa-Block at B=1 and B=8, bf16 and int8.  For each, the wall time
-     without the profiler, then the device time by kernel under it, and the
-     device's idle share: 1 - (device time) / (wall time without the
-     profiler);
+     Medusa-Block at B=1 and B=8, bf16 and int8; then bf16 Medusa at B=1
+     with ``return_timestamps=True``, and a longform request (75 s of
+     seeded noise, the seek loop, 64 new tokens a window).  For each, the
+     wall time without the profiler, then the device time by kernel under
+     it, and the device's idle share: 1 - (device time) / (wall time
+     without the profiler);
   5. training at B=2, T=224 (seeded features and labels, Adafactor, remat
      off): one step of the Medusa-Block recipe and one full fine-tune step
      of base_head, each after a warm-up step: the wall time of a step
@@ -99,15 +101,29 @@ def is_ln_gemm(name: str) -> bool:
     return re.fullmatch(r"wgemm_kernel<\d+, \w+, true(, false)?>", name) is not None
 
 
-def _device_events(fn, reps: int = 1):
+MARK = "spin_kernel"      # torch.cuda._sleep's kernel: the marker around each run
+MARK_CYCLES = 1000        # its spin
+LEAD = 32                 # markers before the first run
+PAD_S = 0.02              # host wait after the profiler starts and before it stops
+TRIES = 3                 # each retake waits 4x longer
+
+
+def _trace(fn, reps: int, pad_s: float = PAD_S):
     """(name, start us, end us) of every kernel, memcpy and memset that
-    ``reps`` runs of ``fn`` put on the card, in start order (torch.profiler,
-    CUDA activity only, read from its trace)."""
+    ``LEAD`` markers, then ``reps`` runs of ``fn`` each followed by a
+    marker, put on the card, in start order (torch.profiler, CUDA activity
+    only, read from its trace).  The host waits ``pad_s`` after the
+    profiler starts and again after the last synchronize."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        for _ in range(LEAD):
+            torch.cuda._sleep(MARK_CYCLES)
         for _ in range(reps):
             fn()
+            torch.cuda._sleep(MARK_CYCLES)
         torch.cuda.synchronize()
+        time.sleep(pad_s)
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
@@ -122,6 +138,42 @@ def _device_events(fn, reps: int = 1):
     return sorted(out, key=lambda e: e[1])
 
 
+def _device_runs(fn, reps: int = 1, tries: int = TRIES):
+    """The device events of ``reps`` runs of ``fn`` (``_trace``), one list a
+    run, the markers left out.  On the H100 the profiler at times drops the
+    first events of a trace while it keeps their launches: a whole request's
+    trace lost its first event three times in a row, whatever the host
+    waited, a lone kernel's trace lost everything, and in runs of
+    chip_smoke.py traces lost up to 6 of 8, or up to 8 of 32, leading
+    markers; once it dropped a trace's tail.  A trace is whole when it
+    starts with one or more markers (the leading ones may be lost, not all),
+    ends with one, and holds one more marker for each run (a run puts at
+    least one event on the card); else it is taken again with 4x the host's
+    waits, up to ``tries`` times, then RuntimeError."""
+    for i in range(tries):
+        events = _trace(fn, reps, PAD_S * 4 ** i)
+        at = [j for j, e in enumerate(events) if MARK in e[0]]
+        lead = next((j for j, k in enumerate(at) if j != k), len(at))
+        if lead >= 1 and len(at) - lead == reps and at[-1] == len(events) - 1:
+            if lead < LEAD:
+                print(f"torch.profiler: the trace lost {LEAD - lead} of its {LEAD} "
+                      f"leading markers, none after a run", flush=True)
+            at = at[lead - 1:]
+            return [events[j0 + 1:j1] for j0, j1 in zip(at[:-1], at[1:])]
+        print(f"torch.profiler: trace {i + 1} of {tries} lost events ({len(at)} of "
+              f"{LEAD + reps} markers in {len(events)} events, the first "
+              f"{events[0][0][:50] if events else None!r}, the last "
+              f"{events[-1][0][:50] if events else None!r})", flush=True)
+    raise RuntimeError(f"torch.profiler: no whole trace of {reps} runs in {tries} tries")
+
+
+def _device_events(fn, reps: int = 1):
+    """(name, start us, end us) of every kernel, memcpy and memset that
+    ``reps`` runs of ``fn`` put on the card, in start order, from a whole
+    trace (``_device_runs``)."""
+    return [e for run in _device_runs(fn, reps) for e in run]
+
+
 def _by_kernel(fn, reps: int = 1):
     """Run ``fn`` ``reps`` times under torch.profiler; {kernel: (us per run,
     launches per run)}: each kernel's share of the device's busy time, the
@@ -131,9 +183,15 @@ def _by_kernel(fn, reps: int = 1):
     starts before the previous one ends and waits for it, and only what it
     runs past the previous kernels' end is its own.  The values add up to
     the time the device was busy."""
+    return _fold_events(_device_events(fn, reps), reps)
+
+
+def _fold_events(events, reps: int = 1):
+    """_by_kernel's table from a list of (name, start us, end us) events of
+    ``reps`` runs."""
     acc = collections.defaultdict(lambda: [0.0, 0.0])
     last = None
-    for name, t0, t1 in _device_events(fn, reps):
+    for name, t0, t1 in events:
         k = acc[_short(name)]
         k[0] += max(0.0, t1 - (t0 if last is None else max(t0, last))) / reps
         k[1] += 1.0 / reps
@@ -169,7 +227,12 @@ def _overlap_ms(fn, reps: int = 1):
     of ``fn``: the first exceeds the second by the time kernels spent
     running beside the one before them (programmatic dependent launch: a
     kernel's CTAs start early and wait)."""
-    events = _device_events(fn, reps)
+    return _overlap_events(_device_events(fn, reps), reps)
+
+
+def _overlap_events(events, reps: int = 1):
+    """_overlap_ms from a list of (name, start us, end us) events of
+    ``reps`` runs."""
     total = sum(t1 - t0 for _, t0, t1 in events)
     busy, last = 0.0, None
     for _, t0, t1 in events:
@@ -387,6 +450,39 @@ def profile_requests(model, mode, paths=(("medusa", {}),
             print(f"  device idle share {1 - total / 1e3 / wall_ms:.3f}")
 
 
+def profile_ts_requests(model, mode):
+    """Part 4's timestamp and longform requests: one ``return_timestamps=True``
+    Medusa request at B=1 (max_new_tokens=128) from seeded features, and one
+    longform request (75 s of seeded noise through ``ops/mel.py``, the seek
+    loop, max_new_tokens=64 a window) at B=1: wall time without the
+    profiler, device time by kernel, idle share."""
+    from whisper_medusa_tpu_torch.ops.mel import log_mel_spectrogram
+
+    rng = np.random.default_rng(SEED)
+    dims = model.config.dims
+    short = torch.from_numpy(rng.standard_normal(
+        (1, dims.num_mel_bins, dims.num_frames)).astype(np.float32)).cuda()
+    audio = torch.from_numpy((0.1 * rng.standard_normal((1, 16000 * 75)))
+                             .astype(np.float32)).cuda()
+    long = log_mel_spectrogram(audio, dims.num_mel_bins)
+    for name, feats, new in (("timestamps, B=1", short, MAX_NEW_TOKENS),
+                             ("longform 75 s, timestamps, B=1", long, 64)):
+        run = lambda: model.generate(feats, language="en", max_new_tokens=new,
+                                     return_timestamps=True)
+        run()                                             # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = _by_kernel(run)
+        total = _table(
+            f"{mode} request ({name}, {int(out.lengths.sum())} tokens, {out.steps} steps, "
+            f"mean_accept_length {out.mean_accept_length:.3f})", rows,
+            f" (wall without the profiler {wall_ms:.1f} ms)")
+        print(f"  device idle share {1 - total / 1e3 / wall_ms:.3f}")
+
+
 def profile_per_op_step(model, mode):
     """Part 6: one per-op decoder step over all layers at (8, 11), (16, 1)
     and (16, 11), from seeded encoder states and inputs, offsets 20."""
@@ -488,6 +584,7 @@ def profile_serving(model, qmodel, bmodel, bqmodel):
         profile_requests(m, mode)
     for m, mode in ((bmodel, "bf16"), (bqmodel, "int8")):
         profile_requests(m, mode, (("medusa_block", {}),))
+    profile_ts_requests(model, "bf16")
 
 
 def main(argv=None):

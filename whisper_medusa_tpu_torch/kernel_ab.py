@@ -2,7 +2,7 @@
 ``wm_head_rows`` against another checkout's build of them, on one CUDA
 card, in turns.
 
-    python -m whisper_medusa_tpu_torch.kernel_ab --other DIR
+    python -m whisper_medusa_tpu_torch.kernel_ab --other DIR [--only K4K5,head_rows]
 
 DIR is the root of another checkout of this repository (for example the
 parent commit, unpacked with ``git archive``).  Its kernels are built from
@@ -11,9 +11,11 @@ its own ``whisper_medusa_tpu_torch/csrc`` into its own ``build/`` by its own
 called on the same seeded inputs and output buffers (allocated once), so the
 times exclude the wrappers' checks and allocations.  First, the SASS of the
 weight-streaming GEMM's instantiations that K2 and K11 run
-(``wgemm_kernel<MT, W8, LN>``, in each build's megastep.cu and
-decode_ops.cu objects, ``cuobjdump -sass``) is compared between the builds,
-instruction for instruction, and whether it is the same is printed.  Then:
+(``wgemm_kernel<MT, W8, LN>``), of K4 / K5's vocab stream outside the
+timestamp mode (``vocab_stream_kernel<MT, Q>``) and of its combine
+(``verify_combine_kernel``) is compared between the builds (``cuobjdump
+-sass``), instruction for instruction, and whether it is the same is
+printed.  Then:
 
   * K1, ``wm_attention_fwd``, at (1, 20, 1500, 64) and (8, 20, 1500, 64),
     the encoder's self-attention at B=1 and B=8;
@@ -145,42 +147,70 @@ def _turns(what, calls, entry=None, libs=None, part=None, cold=False):
     print(f"{what}: {kind}: " + ", ".join(out), flush=True)
 
 
-# K2's and K11's instantiations of the GEMM kernel, by template arguments
-# (MT, W8, LN), in a mangled name; a trailing ``false`` (the heads mode's
-# parameter at its default) is dropped.
-_WGEMM = re.compile(r"wgemm_kernelILi(\d+)ELb([01])ELb([01])E(?:Lb([01])E)?E")
+# Instantiations held to the other build's SASS, by family: a mangled-name
+# pattern whose last group, a mode flag added at its default (false), must
+# not be 1, and whose other groups are the instantiation's key.  K2's and
+# K11's GEMM (wgemm_kernel<MT, W8, LN>, not the heads mode), and the non-ts
+# vocab stream of K4 / K5 (vocab_stream_kernel<MT, Q>, <MT, Q, false> since
+# the timestamp mode) and its combine (the ts mode has a combine kernel of
+# its own).
+_HELD = (("wgemm_kernel<MT, W8, LN>",
+          re.compile(r"wgemm_kernelILi(\d+)ELb([01])ELb([01])E(?:Lb([01])E)?E")),
+         ("vocab_stream_kernel<MT, Q>",
+          re.compile(r"vocab_stream_kernelILi(\d+)ELb([01])E(?:Lb([01])E)?E")),
+         ("verify_combine_kernel", re.compile(r"21verify_combine_kernel()")))
 
 
 def _sass_functions(so_path):
-    """{(MT, W8, LN): sorted SASS bodies} of the GEMM kernel's
-    instantiations that K2 and K11 run (not the heads mode's) in a built
-    library, each body its instructions without addresses or encodings."""
+    """{(family, key): sorted SASS bodies} of the held instantiations in a
+    built library, each body its instructions without addresses or
+    encodings."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True, text=True,
                           check=True).stdout
     out = collections.defaultdict(list)
     for chunk in re.split(r"\n\s*Function : ", text)[1:]:
         name, _, body = chunk.partition("\n")
-        m = _WGEMM.search(name)
-        if m is None or m.group(4) == "1":
-            continue
-        ins = [re.sub(r"/\*[^*]*\*/", "", line).strip() for line in body.splitlines()
-               if re.match(r"\s*/\*[0-9a-f]+\*/", line)]
-        out[tuple(int(x) for x in m.groups()[:3])].append("\n".join(ins))
+        for family, pattern in _HELD:
+            m = pattern.search(name)
+            if m is None or m.groups()[-1] == "1":
+                continue
+            ins = [re.sub(r"/\*[^*]*\*/", "", line).strip() for line in body.splitlines()
+                   if re.match(r"\s*/\*[0-9a-f]+\*/", line)]
+            key = tuple(int(x) for x in m.groups()[:-1])
+            out[(family, key)].append(_relabel("\n".join(ins)))
     return {k: sorted(v) for k, v in out.items()}
 
 
+def _relabel(body):
+    """Branch labels (``.L_x_N``, numbered across the whole object by
+    cuobjdump) renumbered in their order within the function, so that
+    kernels added elsewhere in the same source do not change its text."""
+    names = {}
+    return re.sub(r"\.L_x_\d+", lambda m: names.setdefault(m.group(0), f".L{len(names)}"),
+                  body)
+
+
 def _sass_same(libs):
-    """Print whether K2's and K11's GEMM instantiations are instruction for
-    instruction the same in both builds."""
+    """Print, per family of _HELD, whether its instantiations are
+    instruction for instruction the same in both builds."""
     funcs = {who: _sass_functions(mod.lib()._name) for who, mod in libs.items()}
-    keys = sorted(set(funcs["this"]) | set(funcs["other"]))
-    same = [k for k in keys if funcs["this"].get(k) == funcs["other"].get(k)]
-    differ = [k for k in keys if k not in same]
-    print(f"SASS of wgemm_kernel<MT, W8, LN> (K2 and K11; {sum(map(len, funcs['this'].values()))} "
-          f"functions here, {sum(map(len, funcs['other'].values()))} in the other build): "
-          f"{len(same)} of {len(keys)} instantiations the same instruction for instruction"
-          + (f"; differ: {differ}" if differ else ""), flush=True)
+    for family, _ in _HELD:
+        mine = {k: v for k, v in funcs["this"].items() if k[0] == family}
+        theirs = {k: v for k, v in funcs["other"].items() if k[0] == family}
+        keys = sorted(set(mine) | set(theirs))
+        differ = [k[1] for k in keys if mine.get(k) != theirs.get(k)]
+        if differ:
+            k = next(k for k in keys if k[1] == differ[0])
+            a, b = ("\n".join(d.get(k, [""])).splitlines() for d in (mine, theirs))
+            at = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            print(f"  first difference of {family} {k[1]} at instruction {at} of {len(a)} / "
+                  f"{len(b)}: this {a[at:at + 3]}, other {b[at:at + 3]}", flush=True)
+        print(f"SASS of {family} ({sum(map(len, mine.values()))} functions here, "
+              f"{sum(map(len, theirs.values()))} in the other build): "
+              f"{len(keys) - len(differ)} of {len(keys)} instantiations the same "
+              f"instruction for instruction" + (f"; differ: {differ}" if differ else ""),
+              flush=True)
 
 
 def _other_ops(root: str, name: str, lib):
@@ -221,7 +251,14 @@ def _mel_call(mod, x, out, n_mels=80):
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--other", required=True, help="root of the other checkout")
-    root = parser.parse_args(argv).other
+    parser.add_argument("--only", default=",".join(SECTIONS),
+                        help="comma-separated sections to time, in this order (default: "
+                             "all): " + ", ".join(SECTIONS))
+    args = parser.parse_args(argv)
+    root, only = args.other, args.only.split(",")
+    unknown = [x for x in only if x not in SECTIONS]
+    if unknown:
+        raise SystemExit(f"unknown sections {unknown}; known: {list(SECTIONS)}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -233,7 +270,11 @@ def main(argv=None):
     _sass_same(libs)
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
+    for section in only:
+        SECTIONS[section](root, libs, g)
 
+
+def _k1(root, libs, g):
     for b, h, s in K1_SHAPES:
         q, k, v = ((torch.randn((b, h, s, 64), generator=g, device="cuda") * scale)
                    .to(torch.bfloat16) for scale in (0.25, 1.0, 1.0))
@@ -249,6 +290,8 @@ def main(argv=None):
         _turns(f"K1 ({b},{h},{s},64), builds differ by {diff:.3e}", calls)
         del q, k, v, outs
 
+
+def _k6(root, libs, g):
     for m, k, n in K6_SHAPES:
         x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
         wq, sc = QM.quantize_array(torch.randn((k, n), generator=g, device="cuda") * 0.05)
@@ -262,6 +305,8 @@ def main(argv=None):
             raise AssertionError(f"K6 ({m},{k},{n}): the builds differ by {diff} > {tol}")
         _turns(f"K6 ({m},{k},{n}), builds differ by {diff:.3e}", calls)
 
+
+def _k8(root, libs, g):
     rng = np.random.default_rng(SEED)
     for b in (1, 8):
         x = torch.from_numpy((0.1 * rng.standard_normal((b, M.N_SAMPLES)))
@@ -276,6 +321,8 @@ def main(argv=None):
             raise AssertionError(f"K8 B={b}: the builds' features differ by {diff}")
         _turns(f"K8 B={b}, features differ by {diff:.3e}", calls)
 
+
+def _k10(root, libs, g):
     b, h, t, s_len = 16, 20, 11, 1500
     for int8 in (False, True):
         q = (torch.randn((b, h, t, 64), generator=g, device="cuda") * 0.125).to(torch.bfloat16)
@@ -301,13 +348,6 @@ def main(argv=None):
                f"bitwise equal", calls)
     del q, k, v, outs
     _k10_mask(libs, g)
-
-    _k7(libs, g)
-    _k3(libs, g)
-    _k2(root, libs, g)
-    _k11(root, libs, g)
-    _verify(root, libs, g)
-    _head_rows(root, libs, g)
 
 
 def _k10_mask(libs, g):
@@ -619,6 +659,13 @@ def _k2(root, libs, g):
                   "kernels, device ms a step (launches): " + "; ".join(attn), flush=True)
             del sk, sv, ck, cv
 
+
+
+# The sections main runs, in its default order; each draws its inputs from
+# the one seeded generator, so a run of a subset gets other (seeded) inputs.
+SECTIONS = {"K1": _k1, "K6": _k6, "K8": _k8, "K10": _k10,
+            "K7": lambda root, libs, g: _k7(libs, g), "K3": lambda root, libs, g: _k3(libs, g),
+            "K2": _k2, "K11": _k11, "K4K5": _verify, "head_rows": _head_rows}
 
 if __name__ == "__main__":
     main()

@@ -1,14 +1,17 @@
 """Public model API — counterpart of whisper_medusa_tpu/models/api.py.
 
 ``WhisperMedusaModel`` with ``from_random``, ``from_pretrained``, ``encode``,
-``detect_language`` and ``generate`` for the shortform, single-temperature,
-greedy path of both Medusa variants (``base_head``, and ``medusa_block``,
-chosen by ``config.medusa.medusa_heads_type``) and vanilla decoding
-(``disable_medusa=True``) at any batch size: ``language`` given (one code, or
-one per example) or detected per example, ``max_length`` /
-``max_new_tokens``, the suppress lists, the exponential decay length penalty
-and the no-speech probability.  Every other option of the JAX ``generate``
-raises NotImplementedError naming its ROADMAP item.  ``quantize()`` gives
+``detect_language``, ``generate`` and ``generate_stream`` for the
+single-temperature greedy path of both Medusa variants (``base_head``, and
+``medusa_block``, chosen by ``config.medusa.medusa_heads_type``) and vanilla
+decoding (``disable_medusa=True``) at any batch size: ``language`` given (one
+code, or one per example) or detected per example, ``max_length`` /
+``max_new_tokens``, the suppress lists, the exponential decay length
+penalty, the no-speech probability, ``return_timestamps`` with its segments,
+``prompt_ids``, and longform input (> 30 s) through the seek loop
+(``condition_on_prev_tokens``, ``prompt_condition_type``,
+``attention_mask``).  Every other option of the JAX ``generate`` raises
+NotImplementedError naming its ROADMAP item.  ``quantize()`` gives
 the int8 serving copy (W8A16 decoder, embedding, heads and Medusa-Block
 layer; int8 caches).  Everything runs on the card unless the model was made
 with ``device="cpu"``.
@@ -17,6 +20,7 @@ with ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -39,6 +43,7 @@ class GenerateOutput:
     accepted: np.ndarray           # (B,) accepted draft tokens
     mean_accept_length: float      # accepted drafts per step
     detected_language: Optional[List[str]] = None
+    segments: Optional[List[List[dict]]] = None    # per-example timestamped segments
     no_speech_probs: Optional[np.ndarray] = None   # (B,) prob of <|nospeech|>
     token_logprobs: Optional[np.ndarray] = None    # (B, max_length)
     avg_logprobs: Optional[np.ndarray] = None      # (B,)
@@ -47,21 +52,13 @@ class GenerateOutput:
 
 # generate() options of the JAX package that this slice does not run: the
 # default (accepted, a no-op) and the ROADMAP queue-1 item that brings it.
-_TIMESTAMPS = "timestamps + longform"
 _UNPORTED = {
     "num_beams": (1, "beam search"),
     "length_penalty": (1.0, "beam search"),
     "temperature": (0.0, "remaining decode modes"),
     "seed": (0, "remaining decode modes"),
     "compression_ratio_threshold": (None, "remaining decode modes"),
-    "return_timestamps": (False, _TIMESTAMPS),
-    "max_initial_timestamp_index": ("default", _TIMESTAMPS),
-    "time_precision": (0.02, _TIMESTAMPS),
-    "condition_on_prev_tokens": (False, _TIMESTAMPS),
-    "prompt_ids": (None, _TIMESTAMPS),
-    "prompt_condition_type": (None, _TIMESTAMPS),
-    "attention_mask": (None, _TIMESTAMPS),
-    "logits_processor": (None, _TIMESTAMPS),
+    "logits_processor": (None, "item 12c, the logits_processor hook"),
     "return_scores": (False, "capture surfaces"),
     "return_cross_attentions": (False, "capture surfaces"),
     "return_decoder_attentions": (False, "capture surfaces"),
@@ -191,9 +188,16 @@ class WhisperMedusaModel:
         logprob_threshold: Optional[float] = None,
         no_speech_threshold: Optional[float] = None,
         draft_corruption: Optional[float] = None,
+        return_timestamps: bool = False,
+        prompt_ids: Optional[Sequence[int]] = None,
+        max_initial_timestamp_index: Optional[int] = "default",
+        time_precision: float = 0.02,
+        condition_on_prev_tokens: bool = False,
+        prompt_condition_type: Optional[str] = None,
+        attention_mask=None,
         **options,
     ) -> GenerateOutput:
-        """Transcribe a batch of mel segments (B, n_mels, <= 3000); K2 runs
+        """Transcribe a batch of mel features (B, n_mels, frames); K2 runs
         the decoder at B <= 8, the per-op step (K10, K11) beyond.
 
         ``disable_medusa=True`` decodes vanilla: one token per decoder
@@ -201,7 +205,19 @@ class WhisperMedusaModel:
         one temperature ``logprob_threshold`` only gates no-speech
         blanking, as in the JAX package.  ``draft_corruption`` replaces each draft token
         with probability p (a benchmarking knob: the emitted tokens do not
-        change, only the accept counts)."""
+        change, only the accept counts).
+
+        ``return_timestamps=True`` drops ``<|notimestamps|>`` from the prompt,
+        applies the Whisper timestamp rules at every verified position and
+        returns ``segments``; ``prompt_ids`` are prepended to the prompt.
+        Input longer than 30 s runs the seek loop (:meth:`_generate_longform`):
+        each 30 s window decoded with timestamps, the seek advanced to the
+        end of its last complete segment; ``condition_on_prev_tokens`` puts
+        the previous window's kept text (the last 64, 32 or 16 tokens) in
+        front of the next window's prompt, ``prompt_condition_type``
+        ("first-segment" or "all-segments") says which windows ``prompt_ids``
+        condition, and ``attention_mask`` (B, frames) bounds each example's
+        real audio."""
         for name, value in options.items():
             if name not in _UNPORTED:
                 raise TypeError(f"generate() got an unexpected keyword argument {name!r}")
@@ -209,67 +225,45 @@ class WhisperMedusaModel:
             if value != default and not (name == "temperature"
                                          and tuple(np.atleast_1d(value)) == (0.0,)):
                 raise _not_ported(f"generate({name}={value!r})", item)
-        cfg = self.config
-        require_servable_dtype(self.params, self.device)
-        feats = torch.as_tensor(input_features, dtype=torch.float32,
-                                device=self.device)
-        if feats.dim() == 2:
-            feats = feats[None]
-        b, n_mels, n_frames = feats.shape
-        if n_mels != cfg.dims.num_mel_bins:
-            raise ValueError(f"expected {cfg.dims.num_mel_bins} mel bins, got {n_mels}")
-        if n_frames > cfg.dims.num_frames:
-            raise _not_ported("longform (> 30 s) input", _TIMESTAMPS)
-        if n_frames < cfg.dims.num_frames:
-            feats = torch.nn.functional.pad(feats, (0, cfg.dims.num_frames - n_frames))
         if max_new_tokens is not None and int(max_new_tokens) < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
-
-        enc_out = self.encode(feats)
-        st = self.special
-        detected = None
-        if language is None:
-            lang_ids = self.detect_language(enc_out)
-            detected = [st.languages[i - st.first_language] for i in lang_ids]
-        elif isinstance(language, str):
-            lang_ids = np.full((b,), language_token_id(language, st), np.int64)
-        else:
-            if len(language) != b:
-                raise ValueError("per-example language list length != batch size")
-            lang_ids = np.array([language_token_id(l, st) for l in language])
-        task_id = st.transcribe if task == "transcribe" else st.translate
-        prompt = np.stack([np.full((b,), st.sot), lang_ids, np.full((b,), task_id),
-                           np.full((b,), st.no_timestamps)], axis=1).astype(np.int32)
-
-        max_length = max_length or cfg.dims.max_target_positions
-        if max_new_tokens is not None:
-            max_length = min(prompt.shape[1] + int(max_new_tokens),
-                             cfg.dims.max_target_positions)
-        if prompt.shape[1] >= max_length:
-            raise ValueError(f"prompt length {prompt.shape[1]} exceeds max_length "
-                             f"{max_length}")
-        gd = self.generation_config
-        sup = tuple(suppress_tokens) if suppress_tokens not in (None, "default") else (
-            gd.suppress_tokens if suppress_tokens == "default" else None)
-        bsup = tuple(begin_suppress_tokens) if begin_suppress_tokens not in (
-            None, "default") else (gd.begin_suppress_tokens
-                                   if begin_suppress_tokens == "default" else None)
-        decay = exponential_decay_length_penalty
-        pcfg = ProcessorConfig(
-            vocab_size=cfg.dims.vocab_size, suppress_tokens=sup,
-            begin_suppress_tokens=bsup, begin_index=prompt.shape[1],
-            exponential_decay_length_penalty=(
-                (int(decay[0]) + prompt.shape[1], float(decay[1])) if decay else None),
-            eos_token_id=st.eos)
-        gen = GenerationConfig(max_length=max_length, temperature=0.0,
-                               eos_token_id=st.eos, pad_token_id=gd.pad_token_id,
-                               decoder_start_token_id=st.sot, suppress_tokens=sup,
-                               begin_suppress_tokens=bsup)
-        if disable_medusa:
-            choices, variant, medusa_params = (1,), "vanilla", None
-        else:
-            choices = tuple(medusa_choices or cfg.medusa.medusa_choices)
-            variant, medusa_params = cfg.medusa.medusa_heads_type, self.params["medusa"]
+        if prompt_condition_type is None:
+            prompt_condition_type = "first-segment"
+        if prompt_condition_type not in ("first-segment", "all-segments"):
+            raise ValueError(f"prompt_condition_type must be 'first-segment' or "
+                             f"'all-segments', got {prompt_condition_type!r}")
+        if prompt_condition_type == "all-segments" and not condition_on_prev_tokens:
+            raise ValueError("prompt_condition_type='all-segments' requires "
+                             "condition_on_prev_tokens=True")
+        cfg = self.config
+        feats = self._features(input_features)
+        b, _, n_frames = feats.shape
+        if attention_mask is not None:
+            am = np.asarray(attention_mask).reshape(b, -1)
+            if am.shape[1] != n_frames:
+                raise ValueError(
+                    f"attention_mask shape {np.asarray(attention_mask).shape} does not "
+                    f"match features (B={b}, frames={n_frames})")
+        if n_frames > cfg.dims.num_frames:
+            return self._generate_longform(
+                feats, language=language, task=task, max_length=max_length,
+                max_new_tokens=max_new_tokens, medusa_choices=medusa_choices,
+                disable_medusa=disable_medusa,
+                exponential_decay_length_penalty=exponential_decay_length_penalty,
+                logprob_threshold=logprob_threshold,
+                no_speech_threshold=no_speech_threshold, draft_corruption=draft_corruption,
+                return_timestamps=return_timestamps, time_precision=time_precision,
+                condition_on_prev_tokens=condition_on_prev_tokens, prompt_ids=prompt_ids,
+                prompt_condition_type=prompt_condition_type, attention_mask=attention_mask)
+        enc_out, prompt, detected, pcfg, gen = self._setup(
+            feats, language=language, task=task, max_length=max_length,
+            max_new_tokens=max_new_tokens, suppress_tokens=suppress_tokens,
+            begin_suppress_tokens=begin_suppress_tokens,
+            exponential_decay_length_penalty=exponential_decay_length_penalty,
+            return_timestamps=return_timestamps, prompt_ids=prompt_ids,
+            max_initial_timestamp_index=max_initial_timestamp_index)
+        st, gd = self.special, self.generation_config
+        choices, variant, medusa_params = self._decode_mode(disable_medusa, medusa_choices)
         result = speculative_generate(
             self.params["whisper"], medusa_params, cfg.dims,
             generate_medusa_buffers(choices), pcfg, gen, enc_out,
@@ -295,11 +289,286 @@ class WhisperMedusaModel:
             for i in np.where(silent)[0]:
                 tokens[i, prompt.shape[1]:] = gd.pad_token_id
                 lengths[i] = prompt.shape[1]
+        segments = None
+        if return_timestamps:
+            segments = [_extract_segments(tokens[i], int(lengths[i]), prompt.shape[1],
+                                          time_precision, st) for i in range(b)]
         return GenerateOutput(
             sequences=tokens, lengths=lengths, steps=result.steps,
             accepted=accepted, mean_accept_length=mean_acc,
-            detected_language=detected, no_speech_probs=no_speech_probs,
-            token_logprobs=logprobs, avg_logprobs=avg_lp, steps_per_example=steps)
+            detected_language=detected, segments=segments,
+            no_speech_probs=no_speech_probs, token_logprobs=logprobs,
+            avg_logprobs=avg_lp, steps_per_example=steps)
+
+    def _features(self, input_features) -> torch.Tensor:
+        """(B, n_mels, frames) f32 features on the model's device, checked."""
+        require_servable_dtype(self.params, self.device)
+        feats = torch.as_tensor(input_features, dtype=torch.float32, device=self.device)
+        if feats.dim() == 2:
+            feats = feats[None]
+        if feats.shape[1] != self.config.dims.num_mel_bins:
+            raise ValueError(f"expected {self.config.dims.num_mel_bins} mel bins, got "
+                             f"{feats.shape[1]}")
+        return feats
+
+    def _setup(self, feats: torch.Tensor, *, language, task, max_length,
+               max_new_tokens=None, suppress_tokens="default",
+               begin_suppress_tokens="default", exponential_decay_length_penalty=None,
+               return_timestamps=False, prompt_ids=None,
+               max_initial_timestamp_index="default"):
+        """One shortform request's setup, shared by :meth:`generate` and
+        :meth:`generate_stream`: the features padded to 30 s and encoded,
+        the language (detected where None), the prompt, the processors and
+        the generation config.  (enc_out, prompt, detected, pcfg, gen)."""
+        cfg, st, gd = self.config, self.special, self.generation_config
+        b, _, n_frames = feats.shape
+        if n_frames > cfg.dims.num_frames:
+            raise ValueError(f"{n_frames} frames: a shortform request takes at most "
+                             f"{cfg.dims.num_frames}")
+        if n_frames < cfg.dims.num_frames:
+            feats = torch.nn.functional.pad(feats, (0, cfg.dims.num_frames - n_frames))
+        enc_out = self.encode(feats)
+        detected = None
+        if language is None:
+            lang_ids = self.detect_language(enc_out)
+            detected = [st.languages[i - st.first_language] for i in lang_ids]
+        elif isinstance(language, str):
+            lang_ids = np.full((b,), language_token_id(language, st), np.int64)
+        else:
+            if len(language) != b:
+                raise ValueError("per-example language list length != batch size")
+            lang_ids = np.array([language_token_id(l, st) for l in language])
+        task_id = st.transcribe if task == "transcribe" else st.translate
+        cols = [np.full((b,), st.sot), lang_ids, np.full((b,), task_id)]
+        if not return_timestamps:
+            cols.append(np.full((b,), st.no_timestamps))
+        prompt = np.stack(cols, axis=1).astype(np.int32)
+        if prompt_ids is not None:
+            pids = np.asarray(prompt_ids, np.int32).reshape(1, -1)
+            prompt = np.concatenate([np.tile(pids, (b, 1)), prompt], axis=1)
+
+        max_length = max_length or cfg.dims.max_target_positions
+        if max_new_tokens is not None:
+            max_length = min(prompt.shape[1] + int(max_new_tokens),
+                             cfg.dims.max_target_positions)
+        if prompt.shape[1] >= max_length:
+            raise ValueError(f"prompt length {prompt.shape[1]} exceeds max_length "
+                             f"{max_length}")
+        sup = tuple(suppress_tokens) if suppress_tokens not in (None, "default") else (
+            gd.suppress_tokens if suppress_tokens == "default" else None)
+        bsup = tuple(begin_suppress_tokens) if begin_suppress_tokens not in (
+            None, "default") else (gd.begin_suppress_tokens
+                                   if begin_suppress_tokens == "default" else None)
+        if max_initial_timestamp_index == "default":
+            max_initial_timestamp_index = gd.max_initial_timestamp_index
+        decay = exponential_decay_length_penalty
+        pcfg = ProcessorConfig(
+            vocab_size=cfg.dims.vocab_size, suppress_tokens=sup,
+            begin_suppress_tokens=bsup, begin_index=prompt.shape[1],
+            exponential_decay_length_penalty=(
+                (int(decay[0]) + prompt.shape[1], float(decay[1])) if decay else None),
+            eos_token_id=st.eos, timestamp_rules=return_timestamps,
+            timestamp_begin=st.timestamp_begin, no_timestamps_id=st.no_timestamps,
+            max_initial_timestamp_index=max_initial_timestamp_index)
+        gen = GenerationConfig(max_length=max_length, temperature=0.0,
+                               eos_token_id=st.eos, pad_token_id=gd.pad_token_id,
+                               decoder_start_token_id=st.sot, suppress_tokens=sup,
+                               begin_suppress_tokens=bsup)
+        return enc_out, prompt, detected, pcfg, gen
+
+    def _decode_mode(self, disable_medusa: bool, medusa_choices=None):
+        """(choices, variant, medusa params) of a request."""
+        if disable_medusa:
+            return (1,), "vanilla", None
+        return (tuple(medusa_choices or self.config.medusa.medusa_choices),
+                self.config.medusa.medusa_heads_type, self.params["medusa"])
+
+    def _generate_longform(self, feats: torch.Tensor, *, language, task, max_length,
+                           max_new_tokens, medusa_choices, disable_medusa,
+                           exponential_decay_length_penalty, logprob_threshold,
+                           no_speech_threshold, draft_corruption, return_timestamps,
+                           time_precision, condition_on_prev_tokens, prompt_ids,
+                           prompt_condition_type, attention_mask) -> GenerateOutput:
+        """The seek loop over 30 s windows (the JAX package's
+        ``_generate_longform`` without beams and capture surfaces).  Each
+        window decodes with timestamps; where it holds a complete segment and
+        audio remains, the seek advances to that segment's end (mel frame =
+        10 ms) and what follows it is dropped, to be decoded again from the
+        next window's start; else the whole window is kept and the seek
+        advances 30 s.  Timestamps are stripped unless ``return_timestamps``.
+
+        B > 1 without ``condition_on_prev_tokens``: each round decodes every
+        example's current window in one batched call (finished examples ride
+        along, their outputs ignored).  Else each example runs alone, its
+        window prompt ``[<|startofprev|>, *context]`` with the previous
+        windows' kept text bucketed to its last 64, 32 or 16 tokens, and
+        ``prompt_ids`` on the first window ("first-segment") or in front of
+        every window's context ("all-segments").  ``steps`` sums the loop
+        iterations over rounds; ``accepted`` counts active examples only."""
+        cfg = self.config
+        st = self.special
+        b, _, total_frames = feats.shape
+        if attention_mask is not None:
+            totals = [int(c) for c in np.asarray(attention_mask).reshape(b, -1)
+                      .astype(bool).sum(axis=1)]
+        else:
+            totals = [total_frames] * b
+        win = cfg.dims.num_frames
+        prompt_len = 3  # [sot, lang, task]: timestamp mode
+        user_prompt = (list(np.asarray(prompt_ids, np.int32).reshape(-1))
+                       if prompt_ids is not None else None)
+        user_prompt_text = None
+        if user_prompt:
+            user_prompt_text = (user_prompt[1:] if user_prompt[0] == st.start_of_prev
+                                else list(user_prompt))
+        all_tokens: List[List[int]] = [[] for _ in range(b)]
+        all_segments: List[List[dict]] = [[] for _ in range(b)]
+        all_lp_rows: List[List[np.ndarray]] = [[] for _ in range(b)]
+        totals_run = {"steps": 0, "accepted": 0}
+        inner = dict(task=task, max_length=max_length, max_new_tokens=max_new_tokens,
+                     medusa_choices=medusa_choices, disable_medusa=disable_medusa,
+                     exponential_decay_length_penalty=exponential_decay_length_penalty,
+                     logprob_threshold=logprob_threshold,
+                     no_speech_threshold=no_speech_threshold,
+                     draft_corruption=draft_corruption, return_timestamps=True,
+                     time_precision=time_precision)
+
+        def fold_window(i, out, row, p_len, seek):
+            """Example i's kept tokens, log-probs and segments from window
+            output row ``row``: (advance in frames, kept tokens)."""
+            t_off = seek * 0.01
+            segs = out.segments[row]
+            complete_ends = [sg["end"] for sg in segs if sg["end"] is not None]
+            advance, cut_time = win, None
+            if complete_ends and seek + win < totals[i]:
+                adv = int(round(complete_ends[-1] / 0.01))
+                if adv > 0:
+                    advance = min(adv, win)
+                    cut_time = complete_ends[-1]
+                    segs = [sg for sg in segs if sg["end"] is not None]
+            raw = np.asarray(out.sequences[row, p_len: out.lengths[row]])
+            if cut_time is not None:
+                cut = _cut_after_last_complete(raw, st.timestamp_begin, st.eos)
+                if cut is not None:
+                    raw = raw[:cut]
+            keep = raw != st.eos
+            if not return_timestamps:
+                keep &= raw < st.timestamp_begin
+            all_tokens[i].extend(raw[keep].tolist())
+            lp = np.asarray(out.token_logprobs[row, p_len: p_len + len(raw)])
+            all_lp_rows[i].append(lp[keep])
+            for sg in segs:
+                all_segments[i].append({
+                    "start": sg["start"] + t_off,
+                    "end": None if sg["end"] is None else sg["end"] + t_off,
+                    "tokens": sg["tokens"]})
+            return advance, raw[keep].tolist()
+
+        def window_at(i, seek):
+            """Example i's (1, n_mels, win) window from frame ``seek``, padded
+            with its own minimum."""
+            w = feats[i:i + 1, :, seek: seek + win]
+            if w.shape[-1] < win:
+                floor = float(w.min()) if w.numel() else 0.0
+                w = torch.nn.functional.pad(w, (0, win - w.shape[-1]), value=floor)
+            return w
+
+        def live_mask(i, seek):
+            return (np.arange(win) < min(max(totals[i] - seek, 0), win)).astype(np.int32)
+
+        def run(window, lang, mask, wprompt):
+            out = self.generate(window, language=lang, attention_mask=mask,
+                                prompt_ids=wprompt, **inner)
+            totals_run["steps"] += out.steps
+            return out
+
+        if b > 1 and not condition_on_prev_tokens:
+            seeks, active = [0] * b, [True] * b
+            guard, guard_max = 0, 4 * (total_frames // win + 2)
+            while any(active) and guard < guard_max:
+                guard += 1
+                windows = torch.cat([window_at(i, seeks[i]) for i in range(b)])
+                mask = None if attention_mask is None else np.stack(
+                    [live_mask(i, seeks[i]) for i in range(b)])
+                # first-segment: round 1 is every example's first window.
+                round_prompt = user_prompt if guard == 1 else None
+                out = run(windows, language, mask, round_prompt)
+                p_len = prompt_len + (len(round_prompt) if round_prompt else 0)
+                totals_run["accepted"] += int(sum(out.accepted[i] for i in range(b)
+                                                  if active[i]))
+                for i in range(b):
+                    if not active[i]:
+                        continue
+                    adv, _ = fold_window(i, out, i, p_len, seeks[i])
+                    seeks[i] += adv
+                    if seeks[i] >= totals[i]:
+                        active[i] = False
+            if any(active):
+                _warn_longform_truncation([(i, seeks[i], totals[i])
+                                           for i in range(b) if active[i]])
+        else:
+            for i in range(b):
+                lang_i = language if (language is None or isinstance(language, str)) \
+                    else language[i]
+                seek = 0
+                guard, guard_max = 0, 4 * (total_frames // win + 2)
+                prev_text: List[int] = []
+                while seek < totals[i] and guard < guard_max:
+                    guard += 1
+                    # The rolling context, bucketed, shrunk to fit max_length.
+                    fixed = 1 + (len(user_prompt_text) if (
+                        user_prompt_text and prompt_condition_type == "all-segments") else 0)
+                    room = (max_length or cfg.dims.max_target_positions) - prompt_len - 1
+                    bucket = 0
+                    if condition_on_prev_tokens and prev_text:
+                        for cand in (64, 32, 16):
+                            if len(prev_text) >= cand and fixed + cand <= room:
+                                bucket = cand
+                                break
+                    rolling = prev_text[-bucket:] if bucket else []
+                    wprompt = None
+                    if user_prompt and seek == 0 and prompt_condition_type == "first-segment":
+                        wprompt = list(user_prompt)
+                    elif user_prompt_text and prompt_condition_type == "all-segments":
+                        wprompt = [st.start_of_prev] + user_prompt_text + rolling
+                    elif rolling:
+                        wprompt = [st.start_of_prev] + rolling
+                    mask = None if attention_mask is None else live_mask(i, seek)[None]
+                    out = run(window_at(i, seek), lang_i, mask, wprompt)
+                    totals_run["accepted"] += int(out.accepted.sum())
+                    p_len = prompt_len + (len(wprompt) if wprompt else 0)
+                    adv, kept = fold_window(i, out, 0, p_len, seek)
+                    prev_text = [t for t in kept if t < st.eos]
+                    seek += adv
+                if seek < totals[i]:
+                    _warn_longform_truncation([(i, seek, totals[i])])
+        return _longform_output(all_tokens, all_segments, all_lp_rows, totals_run["steps"],
+                                totals_run["accepted"], return_timestamps, st)
+
+    def generate_stream(self, input_features, language: Optional[str] = None,
+                        task: str = "transcribe", max_length: Optional[int] = None,
+                        chunk_tokens: int = 16, disable_medusa: bool = False):
+        """Yield ``(sequences_so_far, lengths, finished)`` every ~``chunk_tokens``
+        committed tokens of a greedy shortform decode (no timestamps), the
+        loop's state kept on the device between segments; the last yield's
+        tokens equal one :meth:`generate` call's."""
+        cfg = self.config
+        enc_out, prompt, _, pcfg, gen = self._setup(
+            self._features(input_features), language=language, task=task,
+            max_length=max_length)
+        choices, variant, mp = self._decode_mode(disable_medusa)
+        run = lambda stop, state: speculative_generate(
+            self.params["whisper"], mp, cfg.dims, generate_medusa_buffers(choices), pcfg,
+            gen, enc_out, torch.as_tensor(prompt, device=self.device), variant=variant,
+            resume_state=state, stop_len=stop, return_state=True)
+        result, state = run(prompt.shape[1] + chunk_tokens, None)
+        while True:
+            lengths = result.lengths.cpu().numpy()
+            finished = bool(state.finished.all())
+            yield result.tokens.cpu().numpy(), lengths, finished
+            if finished:
+                return
+            result, state = run(int(lengths.max()) + chunk_tokens, state)
 
 
 def require_servable_dtype(params, device) -> None:
@@ -325,3 +594,86 @@ def _avg_from_captured(logprobs: np.ndarray, lengths: np.ndarray,
     pos = np.arange(logprobs.shape[1])[None, :]
     mask = (pos >= prompt_len) & (pos < lengths[:, None])
     return np.where(mask, logprobs, 0.0).sum(-1) / np.maximum(mask.sum(-1), 1)
+
+
+def _warn_longform_truncation(dropped: List[Tuple[int, int, int]]) -> None:
+    """Report (not fatal) where the seek loop's guard stopped an example
+    before its end: the audio past the seek was dropped."""
+    for i, seek, total in dropped:
+        logging.getLogger("whisper_medusa_tpu_torch").warning(
+            "longform guard tripped for example %d: seek stalled at mel frame %d of %d "
+            "- audio beyond %.1f s was dropped", i, seek, total, seek * 0.01)
+
+
+def _longform_output(all_tokens, all_segments, all_lp_rows, steps_total: int,
+                     accepted_total: int, return_timestamps: bool,
+                     st: SpecialTokens) -> GenerateOutput:
+    """The seek loop's transcript: (B, longest + 1) EOS-padded sequences, each
+    kept token's log-prob and their mean, the summed steps and accepts."""
+    b = len(all_tokens)
+    max_len_out = max((len(t) for t in all_tokens), default=0) + 1
+    sequences = np.full((b, max_len_out), st.eos, np.int32)
+    lengths = np.zeros((b,), np.int32)
+    token_logprobs = np.zeros((b, max_len_out), np.float32)
+    avg_logprobs = np.zeros((b,), np.float32)
+    for i, toks in enumerate(all_tokens):
+        sequences[i, :len(toks)] = toks
+        lengths[i] = len(toks)
+        lp = (np.concatenate(all_lp_rows[i]) if all_lp_rows[i]
+              else np.zeros((0,), np.float32))
+        token_logprobs[i, :len(lp)] = lp
+        avg_logprobs[i] = lp.mean() if len(lp) else 0.0
+    return GenerateOutput(
+        sequences=sequences, lengths=lengths, steps=steps_total,
+        accepted=np.asarray([accepted_total]),
+        mean_accept_length=accepted_total / max(steps_total, 1),
+        segments=all_segments if return_timestamps else None,
+        token_logprobs=token_logprobs, avg_logprobs=avg_logprobs)
+
+
+def _extract_segments(tokens: np.ndarray, length: int, prompt_len: int,
+                      time_precision: float = 0.02,
+                      special: Optional[SpecialTokens] = None) -> List[dict]:
+    """Split a timestamped token sequence into segments: consecutive
+    timestamp pairs bracket text spans; a trailing open timestamp with text
+    gives a segment whose ``end`` is None."""
+    st = special or SpecialTokens()
+    ts_begin = st.timestamp_begin
+    segments: List[dict] = []
+    start_ts = None
+    text: List[int] = []
+    for tok in tokens[prompt_len:length].tolist():
+        if tok >= ts_begin:
+            if start_ts is None:
+                start_ts = tok
+            else:
+                segments.append({"start": (start_ts - ts_begin) * time_precision,
+                                 "end": (tok - ts_begin) * time_precision,
+                                 "tokens": text})
+                start_ts, text = None, []
+        elif tok == st.eos:
+            break
+        else:
+            text.append(tok)
+    if start_ts is not None and text:
+        segments.append({"start": (start_ts - ts_begin) * time_precision, "end": None,
+                         "tokens": text})
+    return segments
+
+
+def _cut_after_last_complete(raw: np.ndarray, ts_begin: int, eos: int) -> Optional[int]:
+    """One past the closing timestamp of the last complete segment (the
+    pairing of :func:`_extract_segments`), or None when none closes before
+    EOS."""
+    cut = None
+    start_seen = False
+    for j, tok in enumerate(raw.tolist()):
+        if tok == eos:
+            break
+        if tok >= ts_begin:
+            if start_seen:
+                cut = j + 1
+                start_seen = False
+            else:
+                start_seen = True
+    return cut

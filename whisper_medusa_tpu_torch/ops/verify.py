@@ -55,15 +55,25 @@ chain + greedy, K4 at B*N <= 16 and R <= 128 (:func:`hidden_available`;
 the decode loop verifies in two passes where it is False, as the JAX
 package does); K5 launches take R <= 1024
 and ``head_rows`` launches M <= 192, so their wrappers send more rows in
-blocks (pass A at B > 16); the fused timestamp rules (``ts_cfg``) are not
-ported yet.
+blocks (pass A at B > 16).
+
+The fused timestamp rules (``ts_cfg``, the JAX kernels' ts mode) are a mode
+of stages B and C: rows below ``n_verif`` take the rule masks of
+``_process_tile`` from their (last, penult, maxts) history, and the combine
+resolves ``_emit``'s force rule — a row whose timestamp columns' log-sum-exp
+beats its best text logit takes the timestamp columns' max, log-sum-exp and
+argmax, and NEG as the gathered value of a text column.  The timestamp
+columns are the range [ts_begin, V), so every 64-entry tile but the one that
+straddles ts_begin is all text or all timestamps and its partials already
+are one side's; only the straddling tile writes its split (m_ts, s_ts, a_ts,
+m_tx) as well.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,6 +99,10 @@ q_rows_launches = 0
 q_head_launches = 0
 id0_launches = 0         # K4 with identity0 (Medusa-Block), bf16 / int8
 q_id0_launches = 0
+ts_launches = 0          # K4 / K5 in the timestamp mode, bf16 / int8 embedding
+q_ts_launches = 0
+ts_rows_launches = 0
+q_ts_rows_launches = 0
 
 
 def masks_for(pcfg, device="cpu") -> torch.Tensor:
@@ -103,11 +117,45 @@ def masks_for(pcfg, device="cpu") -> torch.Tensor:
     return torch.from_numpy(m).to(device)
 
 
+def ts_cfg_for(pcfg):
+    """(timestamp_begin, no_timestamps_id, max_initial_cap) of a
+    ProcessorConfig: the ``ts_cfg`` of the fused timestamp rules."""
+    return (pcfg.timestamp_begin, pcfg.no_timestamps_id, pcfg.max_initial_timestamp_index)
+
+
+def ts_rule_mask(pos: torch.Tensor, last: torch.Tensor, penult: torch.Tensor,
+                 maxts: torch.Tensor, v: int, ts_cfg, *, begin_index: int, eos_id: int,
+                 n_verif: int) -> torch.Tensor:
+    """(R, V) bool: the columns the timestamp rules bar for each row
+    (``_process_tile``'s rules 1-4): ``<|notimestamps|>``; every timestamp
+    after a pair, every text token after a lone timestamp; timestamps under
+    the running floor; past the initial cap at ``begin_index``.  Rows at or
+    past ``n_verif`` (draft rows) take none."""
+    ts_begin, no_ts_id, cap = ts_cfg
+    dev = pos.device
+    cols = torch.arange(v, device=dev)[None, :]
+    is_ts = cols >= ts_begin
+    gen_len = pos - begin_index
+    last_is_ts = (last >= ts_begin) & (gen_len >= 1)
+    penult_is_ts = (gen_len < 2) | (penult >= ts_begin)
+    sup_ts = (last_is_ts & penult_is_ts)[:, None]
+    sup_text = (last_is_ts & ~penult_is_ts)[:, None]
+    floor = torch.where(sup_text[:, 0], maxts, maxts + 1)
+    floor = torch.where(maxts > 0, floor, torch.full_like(floor, ts_begin))
+    rule = ((cols == no_ts_id) | (sup_ts & is_ts) | (sup_text & (cols < eos_id))
+            | (is_ts & (cols < floor[:, None])))
+    if cap is not None:
+        rule = rule | ((pos == begin_index)[:, None] & (cols > ts_begin + cap))
+    verif = torch.arange(pos.shape[0], device=dev)[:, None] < n_verif
+    return rule & verif
+
+
 def process_rows(x: torch.Tensor, pos: torch.Tensor, sup_masks: torch.Tensor, *,
-                 begin_index: int, eos_id: int, decay) -> torch.Tensor:
+                 begin_index: int, eos_id: int, decay, ts=None) -> torch.Tensor:
     """The kernel's processors on materialized (R, V) f32 logits
     (whisper_medusa_tpu/ops/verify.py::_process_tile): suppressed columns take
-    NEG; the EOS decay is ``x + |x| * (exp(idx * log f) - 1)``."""
+    NEG; the EOS decay is ``x + |x| * (exp(idx * log f) - 1)``; ``ts``
+    (:func:`_ts_args`) adds the timestamp rules' masks."""
     x = torch.where(sup_masks[0].bool()[None], torch.tensor(NEG, device=x.device), x)
     at_begin = (pos == begin_index)[:, None] & sup_masks[1].bool()[None]
     x = torch.where(at_begin, torch.tensor(NEG, device=x.device), x)
@@ -118,7 +166,34 @@ def process_rows(x: torch.Tensor, pos: torch.Tensor, sup_masks: torch.Tensor, *,
         pen = eos.abs() * (torch.exp(idx * float(np.log(factor))) - 1.0)
         x = x.clone()
         x[:, eos_id] = torch.where(pos > start, eos + pen, eos)
+    if ts is not None:
+        rule = ts_rule_mask(pos, ts["last"], ts["penult"], ts["maxts"], x.shape[1],
+                            ts["cfg"], begin_index=begin_index, eos_id=eos_id,
+                            n_verif=ts["n_verif"])
+        x = torch.where(rule, torch.tensor(NEG, device=x.device), x)
     return x
+
+
+def _ts_args(ts_cfg, n_verif, last, penult, maxts, r: int, dev):
+    """The timestamp mode's operands (None without ``ts_cfg``): the triple,
+    ``n_verif`` and the (R,) int32 history.  Rows past ``n_verif`` (draft
+    rows) ignore their history; the verification rows must have it."""
+    if ts_cfg is None:
+        return None
+    if not 0 <= n_verif <= r:
+        raise ValueError(f"n_verif must be in [0, {r}], got {n_verif}")
+    hist = {}
+    for name, t in (("last", last), ("penult", penult), ("maxts", maxts)):
+        if t is None:
+            if n_verif:
+                raise ValueError(
+                    f"the timestamp rules (ROADMAP queue 1, item 12) read each "
+                    f"verification row's last, penult and maxts; {name} is missing")
+            t = torch.zeros((r,), dtype=torch.int32, device=dev)
+        if t.shape != (r,):
+            raise ValueError(f"{name} must have {r} rows, got {tuple(t.shape)}")
+        hist[name] = t.to(device=dev, dtype=torch.int32).contiguous()
+    return dict(cfg=tuple(ts_cfg), n_verif=int(n_verif), **hist)
 
 
 def hidden_available(b: int, n: int, n_heads: int, identity0: bool, v: int, d: int) -> bool:
@@ -234,29 +309,48 @@ def row_logits(rows: torch.Tensor, embed) -> torch.Tensor:
 
 
 def _row_stats(rows, embed, pos, gcol, sup_masks, *, begin_index: int, eos_id: int,
-               decay):
-    """Materialized logits of ``rows``, processed; (argmax, max, lse, gathered)."""
+               decay, ts=None):
+    """Materialized logits of ``rows``, processed; (argmax, max, lse, gathered).
+    With ``ts``, the verification rows whose timestamp columns' log-sum-exp
+    beats their best text logit are forced (``_emit``): they take the
+    timestamp columns' max, log-sum-exp and argmax, and NEG as the gathered
+    value of a text column."""
     x = process_rows(row_logits(rows, embed), pos, sup_masks, begin_index=begin_index,
-                     eos_id=eos_id, decay=decay)
+                     eos_id=eos_id, decay=decay, ts=ts)
     mx, am = x.max(dim=-1)
     lse = torch.logsumexp(x, dim=-1)
     gth = x.gather(1, gcol.long()[:, None])[:, 0]
+    if ts is not None:
+        tb = ts["cfg"][0]
+        xts, xtx = x[:, tb:], x[:, :tb]
+        r = x.shape[0]
+        m_ts, a_ts = xts.max(dim=-1) if xts.shape[1] else (
+            torch.full((r,), NEG, device=x.device), torch.zeros(r, dtype=torch.long,
+                                                               device=x.device))
+        lse_ts = torch.logsumexp(xts, dim=-1)
+        m_tx = xtx.max(dim=-1).values
+        force = (torch.arange(r, device=x.device) < ts["n_verif"]) & (lse_ts > m_tx)
+        mx = torch.where(force, m_ts, mx)
+        lse = torch.where(force, lse_ts, lse)
+        am = torch.where(force, a_ts + tb, am)
+        gth = torch.where(force & (gcol < tb), torch.tensor(NEG, device=x.device), gth)
     return am.to(torch.int32), mx, lse, gth
 
 
 def verify_hidden_plain(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_masks,
-                        *, identity0: bool, begin_index: int, eos_id: int, decay):
+                        *, identity0: bool, begin_index: int, eos_id: int, decay,
+                        ts=None):
     rows = build_rows(hver, hsrc, heads_w, heads_b, identity0)
     return _row_stats(rows, embed, pos, gcol, sup_masks, begin_index=begin_index,
-                      eos_id=eos_id, decay=decay)
+                      eos_id=eos_id, decay=decay, ts=ts)
 
 
 def verify_rows_plain(hs, embed, pos, gcol, sup_masks, *, begin_index: int,
-                      eos_id: int, decay):
+                      eos_id: int, decay, ts=None):
     """K5's plain version: logits materialized, then the same processors and
     statistics."""
     return _row_stats(hs, embed, pos, gcol, sup_masks, begin_index=begin_index,
-                      eos_id=eos_id, decay=decay)
+                      eos_id=eos_id, decay=decay, ts=ts)
 
 
 def _check_meta(dev, r, v, pos, gcol, sup_masks):
@@ -276,11 +370,28 @@ def _stat_outputs(r, ntiles, dev):
             torch.empty((r,), dtype=torch.int32, device=dev), torch.empty((r,), **f32))
 
 
+def _ts_tail(ts, r0: int, n: int, dev):
+    """The pointer table's timestamp entries (the rows' last / penult /
+    maxts from row r0, and the straddling tile's (3, n) f32 + (n,) int32
+    split) and the ints (n_verif of these n rows, on, ts_begin, no_ts_id,
+    cap or -1); nulls and zeros without ``ts``."""
+    if ts is None:
+        return [None] * 5, [0] * 5, None
+    split = (torch.empty((3, n), dtype=torch.float32, device=dev),
+             torch.empty((n,), dtype=torch.int32, device=dev))
+    ptrs = [ts[k][r0:].data_ptr() for k in ("last", "penult", "maxts")] + [
+        t.data_ptr() for t in split]
+    tb, no_ts, cap = ts["cfg"]
+    ints = [min(max(ts["n_verif"] - r0, 0), n), 1, tb, no_ts, -1 if cap is None else cap]
+    return ptrs, ints, split
+
+
 def verify_rows_kernel(hs, embed, pos, gcol, sup_masks, *, begin_index: int,
-                       eos_id: int, decay):
+                       eos_id: int, decay, ts=None):
     """Launch K5 over rows hs (R, D) bf16, in blocks of up to 1024 rows; the
-    embedding (V, D) bf16 or int8."""
-    global rows_launches, q_rows_launches
+    embedding (V, D) bf16 or int8; ``ts`` (:func:`_ts_args`) the timestamp
+    mode."""
+    global rows_launches, q_rows_launches, ts_rows_launches, q_ts_rows_launches
     cuda_lib.require_cuda("verify_rows", hs)
     embed, escale = _operand("verify_rows", embed, hs.device, 1)
     r, d = hs.shape
@@ -297,13 +408,19 @@ def verify_rows_kernel(hs, embed, pos, gcol, sup_masks, *, begin_index: int,
         part_f, part_a, mx, lse, am, gth = _stat_outputs(n, -(-v // TILE), dev)
         tensors = [hs[r0:], embed, pos[r0:], gcol[r0:], sup_masks, part_f, part_a, mx,
                    lse, am, gth]
-        ptrs = (ctypes.c_void_p * (len(tensors) + 1))(
+        ts_ptrs, ts_ints, _split = _ts_tail(ts, r0, n, dev)
+        ptrs = (ctypes.c_void_p * (len(tensors) + 6))(
             *[t.data_ptr() for t in tensors],
-            None if escale is None else escale.data_ptr())
-        ints = (ctypes.c_int * 7)(n, d, v, begin_index, eos_id, int(decay is not None),
-                                  int(start))
+            None if escale is None else escale.data_ptr(), *ts_ptrs)
+        ints = (ctypes.c_int * 12)(n, d, v, begin_index, eos_id, int(decay is not None),
+                                   int(start), *ts_ints)
         cuda_lib.launch("wm_verify_rows", dev, ptrs, ints, float(math.log(factor)))
-        if escale is None:
+        if ts is not None:
+            if escale is None:
+                ts_rows_launches += 1
+            else:
+                q_ts_rows_launches += 1
+        elif escale is None:
             rows_launches += 1
         else:
             q_rows_launches += 1
@@ -315,24 +432,25 @@ def verify_rows_kernel(hs, embed, pos, gcol, sup_masks, *, begin_index: int,
 
 def verify_rows(hs: torch.Tensor, embed, pos: torch.Tensor, gcol: torch.Tensor,
                 sup_masks: torch.Tensor, *, begin_index: int, eos_id: int, decay,
-                ts_cfg=None
+                ts_cfg=None, n_verif: int = 0, last: Optional[torch.Tensor] = None,
+                penult: Optional[torch.Tensor] = None, maxts: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(argmax (R,) int32, max, lse, gathered) of the processed logits of the
     rows ``hs`` (R, D) against the tied embedding (V, D), without
     materializing them.  CUDA tensors launch K5; CPU tensors take the plain
-    version.  ``embed`` may be int8 (``{"q", "s"}``)."""
-    if ts_cfg is not None:
-        raise NotImplementedError(
-            "fused timestamp rules in verify_rows are not ported yet "
-            "(ROADMAP queue 1, item 12: timestamps + longform)")
+    version.  ``embed`` may be int8 (``{"q", "s"}``).  ``ts_cfg`` ((ts_begin,
+    no_ts_id, cap or None), :func:`ts_cfg_for`) applies the timestamp rules
+    to rows < ``n_verif`` from their (R,) ``last`` / ``penult`` / ``maxts``."""
+    ts = _ts_args(ts_cfg, n_verif, last, penult, maxts, hs.shape[0], hs.device)
     fn = verify_rows_kernel if hs.is_cuda else verify_rows_plain
     return fn(hs, embed, pos, gcol, sup_masks, begin_index=begin_index,
-              eos_id=eos_id, decay=decay)
+              eos_id=eos_id, decay=decay, ts=ts)
 
 
 def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_masks,
-                         *, identity0: bool, begin_index: int, eos_id: int, decay):
-    global launches, q_launches, id0_launches, q_id0_launches
+                         *, identity0: bool, begin_index: int, eos_id: int, decay,
+                         ts=None):
+    global launches, q_launches, id0_launches, q_id0_launches, ts_launches, q_ts_launches
     b, n, d = hver.shape
     bn = b * n
     cuda_lib.require_cuda("verify_hidden", hver, hsrc, heads_b)
@@ -354,14 +472,21 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
     tensors = [hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_masks, rows,
                part_f, part_a, mx, lse, am, gth]
     scales = [None if a is None else a.data_ptr() for a in (escale, hscale)]
-    ptrs = (ctypes.c_void_p * (len(tensors) + 2))(*[t.data_ptr() for t in tensors],
-                                                  *scales)
+    ts_ptrs, ts_ints, _split = _ts_tail(ts, 0, r, dev)
+    ptrs = (ctypes.c_void_p * (len(tensors) + 7))(*[t.data_ptr() for t in tensors],
+                                                  *scales, *ts_ptrs)
     start, factor = decay if decay is not None else (0, 1.0)
-    ints = (ctypes.c_int * 9)(bn, d, v, nh, int(identity0), begin_index, eos_id,
-                              int(decay is not None), int(start))
+    ints = (ctypes.c_int * 14)(bn, d, v, nh, int(identity0), begin_index, eos_id,
+                               int(decay is not None), int(start), *ts_ints)
     cuda_lib.launch("wm_verify_hidden", dev, ptrs, ints, float(math.log(factor)))
     quant = escale is not None or hscale is not None
-    if identity0:
+    if ts is not None:
+        # The ts mode's own counts (identity0 and base_head rows alike).
+        if quant:
+            q_ts_launches += 1
+        else:
+            ts_launches += 1
+    elif identity0:
         if quant:
             q_id0_launches += 1
         else:
@@ -376,17 +501,19 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
 def verify_hidden(hver: torch.Tensor, hsrc: torch.Tensor, heads_w: torch.Tensor,
                   heads_b: torch.Tensor, embed: torch.Tensor, pos: torch.Tensor,
                   gcol: torch.Tensor, sup_masks: torch.Tensor, *, identity0: bool,
-                  begin_index: int, eos_id: int, decay, ts_cfg=None
+                  begin_index: int, eos_id: int, decay, ts_cfg=None, n_verif: int = 0,
+                  last: Optional[torch.Tensor] = None,
+                  penult: Optional[torch.Tensor] = None,
+                  maxts: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(argmax (R,) int32, max, lse, gathered) of the processed logits of the
     rows built from ``hver``/``hsrc`` (B, N, D) and the stacked single-layer
     heads (nh, D, D) / (nh, D).  CUDA tensors launch K4; CPU tensors take the
-    plain version.  The heads and the embedding may be int8."""
-    if ts_cfg is not None:
-        raise NotImplementedError(
-            "fused timestamp rules in verify_hidden are not ported yet "
-            "(ROADMAP queue 1, item 12: timestamps + longform)")
+    plain version.  The heads and the embedding may be int8.  ``ts_cfg`` and
+    its history as in :func:`verify_rows`."""
+    r = pos.shape[0]
+    ts = _ts_args(ts_cfg, n_verif, last, penult, maxts, r, hver.device)
     fn = verify_hidden_kernel if hver.is_cuda else verify_hidden_plain
     return fn(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_masks,
               identity0=identity0, begin_index=begin_index, eos_id=eos_id,
-              decay=decay)
+              decay=decay, ts=ts)
