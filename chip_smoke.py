@@ -108,7 +108,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      a K2 launch, the third from offset 32) and on 75 s and 50 s at B=2
      with an ``attention_mask`` (windows, steps, wall and device time
      printed); prompts of 40 and 70 tokens prefilled in pieces against the
-     one-pass plain prefill (cosine >= 0.999);
+     one-pass plain prefill (cosine >= 0.999); then the logits_processor
+     hook: a force-token hook at B=1 bf16 Medusa (every token the forced
+     one, K4 and K5 at 0 launches: the unfused route, head_rows and K3; the
+     hook given CUDA tensors only; device time printed) and an identity hook
+     at B=1 and B=8, bf16 and int8, held to the fused route's tokens (a
+     token may differ only at an example's first differing position and
+     only where the processed top-2 logit gap is under GAP_TOL); then beam
+     search (num_beams=5): the beam-folded per-op step against the per-op
+     step over cross K/V repeated 5 times (bf16, int8; a 4-token prefill in
+     two K10 launches a layer, then one token; within BEAM_STEP_TOL), beam
+     requests at B=1 bf16 and int8 and B=2 bf16 (the per-op step: K2, K4 and
+     K5 at 0 launches; wall, steps, tokens, peak memory), num_beams=1 with
+     length_penalty=0 against vanilla greedy under the same rule, beams with
+     timestamps (the grammar) and a 75 s longform request with num_beams=2;
   5. the output is unchanged when every draft is corrupted, bf16 and int8,
      base_head and Medusa-Block, and bf16 base_head at B=16;
   6. decode batch invariance, bf16 and int8: speculative_generate at B=8
@@ -2333,8 +2346,9 @@ ABSENT_TS = ("verify_hidden", "verify_rows", "verify_hidden_int8", "verify_rows_
 
 def check_ts_output(model, out, prompt_len=3):
     """The timestamp grammar on every example: no <|notimestamps|>, a
-    timestamp as the first generated token, non-decreasing timestamps, and
-    segments that _extract_segments reads from the tokens."""
+    timestamp as the first generated token, non-decreasing timestamps,
+    segments that _extract_segments reads from the tokens, and finite
+    log-probs (a beam request's scores)."""
     from whisper_medusa_tpu_torch.models.api import _extract_segments
 
     st = model.special
@@ -2350,7 +2364,9 @@ def check_ts_output(model, out, prompt_len=3):
         require(ts == sorted(ts), f"example {i}: timestamps decrease")
         segs = _extract_segments(out.sequences[i], int(out.lengths[i]), prompt_len, 0.02, st)
         require(segs == out.segments[i], f"example {i}: segments")
-    require(np.isfinite(out.token_logprobs).all(), "finite log-probs")
+    # Beams return their scores (avg_logprobs) and no per-token log-probs.
+    lp = out.avg_logprobs if out.token_logprobs is None else out.token_logprobs
+    require(np.isfinite(lp).all(), "finite log-probs")
 
 
 def _ts_decode(model, enc):
@@ -2540,6 +2556,321 @@ def phase_longform(model, kernels, k2):
                         f"{name}: prefill pieces {pieces}")
     finally:
         W.decode_step, api_mod.speculative_generate = real_step, real_gen
+
+
+# The logits_processor hook (the unfused verification route) and beam search
+# (phase 4): a force-token hook, an identity hook held to the fused route's
+# tokens, beams held to the plain per-op step and to greedy decoding.
+HOOK_TOKEN = 1234
+BEAMS = 5
+BEAM_TS_NEW_TOKENS = 48
+# The clear-gap rule: two routes' tokens may differ only at an example's
+# first differing position, and only where the reference's processed top-2
+# logit gap there (recomputed by a teacher-forced prefill of its tokens) is
+# under GAP_TOL, bf16 rounding of the two routes' logits.
+GAP_TOL = 5e-2
+BEAM_STEP_TOL = 1e-2      # folded vs repeated per-op step, elementwise (close)
+NEEDS_HOOK = {"bf16": ("attention", "megastep", "head_rows", "logits"),
+              "int8": ("attention", "megastep_int8", "head_rows_int8", "qmm_nt")}
+NEEDS_BEAM = {"bf16": ("attention", "self_decode", "cross_decode", "ffn_decode", "logits"),
+              "int8": ("attention", "self_decode", "cross_decode_int8", "qmm", "qmm_nt")}
+
+
+class Hook:
+    """A logits_processor that records its calls and the devices of what it
+    was given: ``force`` keeps only HOOK_TOKEN, else the identity."""
+
+    def __init__(self, force):
+        self.force, self.calls, self.devices = force, 0, set()
+
+    def __call__(self, logits, pred_pos):
+        self.calls += 1
+        self.devices |= {logits.device.type, pred_pos.device.type}
+        require(logits.dtype == torch.float32 and pred_pos.dtype == torch.int32,
+                f"hook operands {logits.dtype}, {pred_pos.dtype}")
+        if not self.force:
+            return logits
+        keep = torch.arange(logits.shape[-1], device=logits.device) == HOOK_TOKEN
+        return torch.where(keep, torch.zeros_like(logits), torch.full_like(logits, -1e9))
+
+
+def device_split(run, top=6):
+    """Device busy ms of one run of ``run`` under torch.profiler and its
+    ``top`` kernels by device time, as text."""
+    from whisper_medusa_tpu_torch.device_profile import _by_kernel
+
+    by = _by_kernel(run, 1)
+    tops = sorted(by.items(), key=lambda kv: -kv[1][0])[:top]
+    return (sum(us for us, _ in by.values()) / 1e3,
+            ", ".join(f"{k} {us / 1e3:.2f} ms x{n:.0f}" for k, (us, n) in tops))
+
+
+def _verify_names(kernels):
+    """K4 and K5 in every mode: the rows the unfused route never launches."""
+    return tuple(k["name"] for k in kernels if k["name"].startswith("verify"))
+
+
+def _request_pcfg(model):
+    """The processors of a plain greedy request (the default suppress lists)."""
+    from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig
+
+    gd, st = model.generation_config, model.special
+    return ProcessorConfig(vocab_size=model.config.dims.vocab_size,
+                           suppress_tokens=gd.suppress_tokens,
+                           begin_suppress_tokens=gd.begin_suppress_tokens,
+                           begin_index=PROMPT_LEN, eos_token_id=st.eos)
+
+
+def _top2_gap(model, enc, seq, pos, variant):
+    """The processed top-2 logit gap at position ``pos`` of one example's
+    tokens ``seq``: seq[:pos] prefilled (pieces of 16) on encoder row
+    ``enc``, the base logits of the last row (head 0 for base_head)."""
+    from whisper_medusa_tpu_torch.decoding import speculative as SP
+    from whisper_medusa_tpu_torch.decoding.processors import apply_processors
+    from whisper_medusa_tpu_torch.models import whisper as W
+
+    p, dims = model.params["whisper"], model.config.dims
+    cache = W.init_cache(p, dims, enc, pos + 1)
+    out = SP.prefill(p, dims, torch.as_tensor(seq[None, :pos], dtype=torch.int32,
+                                              device="cuda"), cache)
+    mp = None if variant == "vanilla" else model.params["medusa"]
+    base = SP._base_logits_fn(p, mp, variant)(out.hidden[:, -1])
+    proc = apply_processors(base, torch.full((1,), pos, dtype=torch.int32, device="cuda"),
+                            _request_pcfg(model))
+    top2 = proc.topk(2, dim=-1).values[0]
+    return float(top2[0] - top2[1])
+
+
+def clear_gap_compare(name, model, enc, ref, got, variant, stop_at_eos=False):
+    """Hold ``got``'s tokens to ``ref``'s under the clear-gap rule over each
+    example's common length (with ``stop_at_eos``, ``got``'s tokens before
+    its final EOS); returns the number of examples that differ."""
+    diffs = []
+    for e in range(ref.sequences.shape[0]):
+        n = int(min(ref.lengths[e], got.lengths[e] - (1 if stop_at_eos else 0)))
+        where = np.nonzero(ref.sequences[e, :n] != got.sequences[e, :n])[0]
+        if where.size:
+            pos = int(where[0])
+            diffs.append((e, pos, _top2_gap(model, enc[e:e + 1], ref.sequences[e], pos,
+                                            variant)))
+    log(f"{name}: tokens equal for {ref.sequences.shape[0] - len(diffs)}/"
+        f"{ref.sequences.shape[0]} examples; first differing (example, position, top-2 "
+        f"gap): {diffs or 'none'} (allowed under a gap of {GAP_TOL})")
+    require(all(gap < GAP_TOL for _, _, gap in diffs),
+            f"{name}: tokens differ where the top-2 gap is clear: {diffs}")
+    return len(diffs)
+
+
+def phase_hook_requests(model, qmodel, kernels, feat, feats8, outs, qouts):
+    """The logits_processor hook on the card.  (a) A force-token hook at
+    B=1, bf16 Medusa: every generated token is HOOK_TOKEN; the unfused
+    route (head_rows, K3) runs and K4 / K5 never launch; the hook saw CUDA
+    tensors only; wall, steps, tokens and device time printed.  (b) An
+    identity hook at B=1 and B=8, bf16 and int8, against the fused route's
+    phase-4 outputs under the clear-gap rule (the differing examples
+    counted and printed), and at bf16 each route's device time in turns
+    (fused, unfused, unfused, fused)."""
+    absent = _verify_names(kernels)
+    kw = dict(language="en", max_new_tokens=MAX_NEW_TOKENS)
+    hook = Hook(force=True)
+    model.generate(feat, max_new_tokens=8, language="en", logits_processor=hook)  # warm-up
+    run = lambda: model.generate(feat, logits_processor=hook, **kw)
+    out, wall = drive("hook (force token) bf16 medusa B=1", kernels, run, NEEDS_HOOK["bf16"],
+                      absent)
+    n_gen = check_output(out, 1, model.config.dims.vocab_size)
+    gen = out.sequences[0, PROMPT_LEN:out.lengths[0]]
+    require(len(gen) > 0 and bool((gen == HOOK_TOKEN).all()),
+            f"force-token hook: generated {gen[:8].tolist()}...")
+    dev, tops = device_split(run)
+    report("hook (force token) bf16 medusa B=1", out, wall, n_gen)
+    log(f"  route: unfused (K4 and K5 at 0 launches); every one of {n_gen} generated tokens "
+        f"is {HOOK_TOKEN}; the hook ran {hook.calls} times on {sorted(hook.devices)}; device "
+        f"busy {dev:.1f} ms ({tops}); {SMI}")
+    require(hook.devices == {"cuda"}, f"the hook saw {hook.devices}")
+    enc8 = model.encode(feats8)
+    differing = 0
+    for mode, m, fused in (("bf16", model, outs), ("int8", qmodel, qouts)):
+        for b, f, ref in ((1, feat, fused["medusa B=1"][0]),
+                          (BATCH, feats8, fused[f"medusa B={BATCH}"])):
+            ident = Hook(force=False)
+            out, wall = drive(f"hook (identity) {mode} medusa B={b}", kernels,
+                              lambda: m.generate(f, logits_processor=ident, **kw),
+                              NEEDS_HOOK[mode], absent)
+            report(f"hook (identity) {mode} medusa B={b}", out, wall,
+                   check_output(out, b, m.config.dims.vocab_size))
+            require(ident.devices == {"cuda"}, f"the hook saw {ident.devices}")
+            enc = m.encode(f) if b == 1 else enc8
+            differing += clear_gap_compare(f"identity hook vs fused route, {mode} B={b}", m,
+                                           enc, ref, out, m.config.medusa.medusa_heads_type)
+            if mode == "bf16":
+                runs = {"fused": lambda: m.generate(f, **kw),
+                        "unfused": lambda: m.generate(f, logits_processor=ident, **kw)}
+                for route in ("fused", "unfused", "unfused", "fused"):
+                    dev, tops = device_split(runs[route])
+                    log(f"  device busy [{route} route, {mode} B={b}, {out.steps} steps]: "
+                        f"{dev:.2f} ms ({tops}); {SMI}")
+    log(f"identity hook against the fused route: {differing} examples differ in all "
+        f"(each under the clear-gap rule)")
+
+
+def check_beam_step(model, enc1, name):
+    """The beam-folded per-op step (one example, BEAMS beam rows over one
+    cross row: decoder_layers_ops with cross_beam) against the per-op step
+    over the cross K/V repeated BEAMS times, on the same rows: a 4-token
+    prefill (4 x 5 = 20 folded query rows, two K10 launches a layer) and
+    one token.  hidden and the written self-cache rows elementwise within
+    BEAM_STEP_TOL (close; int8 slab rows within one quantization step);
+    bitwise equality printed."""
+    from whisper_medusa_tpu_torch.models import whisper as W
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    p, dims = model.params["whisper"], model.config.dims
+    dec, nh, k = p["decoder"], dims.decoder_attention_heads, BEAMS
+    fold = W.init_cache(p, dims, enc1, 16, self_batch=k)
+    rep = W.init_cache(p, dims, enc1.repeat_interleave(k, 0), 16)
+    require(fold.cross_k.shape[1] == 1 and fold.self_k.shape[1] == k, "beam cache rows")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 30)
+    worst, bitwise = 0.0, True
+    for t, off in ((4, 0), (1, 4)):
+        toks = torch.randint(300, 3000, (k, t), generator=g, device="cuda", dtype=torch.int32)
+        offsets = torch.full((k,), off, dtype=torch.int32, device="cuda")
+        x = _embedded(dec, toks, offsets)
+        step = lambda c, beam: W.decoder_layers_ops(
+            dec["layers"], dec["ln_post"], x, c.self_k, c.self_v, c.cross_k, c.cross_v,
+            offsets, None, dims.max_source_positions, nh, cross_k_s=c.cross_k_s,
+            cross_v_s=c.cross_v_s, self_s=c.self_s, cross_beam=beam)[1]
+        before = DO.cross_launches + DO.q_cross_launches
+        h_f = step(fold, k)
+        k10 = DO.cross_launches + DO.q_cross_launches - before
+        h_r = step(rep, 1)
+        rows = (fold.self_k[:, :, :off + t], rep.self_k[:, :, :off + t])
+        err, err_rows = max_err(h_f, h_r), max_err(*rows)
+        same = bool(torch.equal(h_f, h_r)) and bool(torch.equal(*rows))
+        log(f"beam-folded per-op step [{name}] T={t} at offset {off}: {k * t} folded query "
+            f"rows, K10 launches {k10} ({dims.decoder_layers} layers); against the repeated "
+            f"step: hidden max_abs_err {err:.3e}, self-cache rows {err_rows:.3e}; bitwise "
+            f"{same}")
+        # An int8 slab row may round one step the other way.
+        rows_ok = (err_rows <= 1.0 if rows[0].dtype == torch.int8
+                   else close(rows[0], rows[1], BEAM_STEP_TOL))
+        require(close(h_f, h_r, BEAM_STEP_TOL) and rows_ok,
+                f"beam-folded step [{name}] T={t}: {err}, {err_rows}")
+        require(k10 == dims.decoder_layers * -(-(k * t) // DO.MAX_T),
+                f"beam-folded step [{name}]: {k10} K10 launches")
+        worst = max(worst, err)
+        bitwise &= same
+    return worst, bitwise
+
+
+def beam_host_split(run):
+    """Where a beam request's host time goes: the wall of one run of
+    ``run`` (synchronized), the host time spent inside
+    ``whisper.decode_step`` (the per-op step, its launches enqueued) and
+    inside ``beam.top_k`` (the expansion's rankings), as text."""
+    from whisper_medusa_tpu_torch.decoding import beam as BM
+    from whisper_medusa_tpu_torch.models import whisper as W
+
+    spent = {"decode_step": 0.0, "top_k": 0.0}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
+
+    real_step, real_top = W.decode_step, BM.top_k
+    W.decode_step, BM.top_k = timed("decode_step", real_step), timed("top_k", real_top)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        W.decode_step, BM.top_k = real_step, real_top
+    rest = wall - sum(spent.values())
+    return (f"wall {wall * 1e3:.1f} ms, in decode_step {spent['decode_step'] * 1e3:.1f} ms, "
+            f"in top_k {spent['top_k'] * 1e3:.1f} ms, the rest {rest * 1e3:.1f} ms")
+
+
+def phase_beam_requests(model, qmodel, kernels, feat, feats8):
+    """Beam search on the card (num_beams=BEAMS, MAX_NEW_TOKENS new tokens):
+    the folded step against the repeated one (bf16, int8); requests at B=1
+    bf16 and int8 and B=2 bf16, each driven with the launch counters (the
+    per-op step, K2 and K4 / K5 at 0), its wall, steps, tokens and peak
+    memory (and its rise over what was resident) printed, the B=1 bf16
+    one's device time and host split (beam_host_split); num_beams=1,
+    length_penalty=0 against vanilla greedy under the clear-gap rule;
+    beams with timestamps (B=1, the timestamp grammar) and a 75 s longform
+    request with num_beams=2 at B=1."""
+    from whisper_medusa_tpu_torch.ops.mel import log_mel_spectrogram
+
+    absent = K2_ROWS + _verify_names(kernels)
+    enc1 = model.encode(feat)
+    for m, mode in ((model, "bf16"), (qmodel, "int8")):
+        check_beam_step(m, enc1, mode)
+    kw = dict(language="en", max_new_tokens=MAX_NEW_TOKENS, num_beams=BEAMS)
+    for mode, m, f, b in (("bf16", model, feat, 1), ("int8", qmodel, feat, 1),
+                          ("bf16", model, feats8[:2], 2)):
+        m.generate(f, language="en", max_new_tokens=8, num_beams=BEAMS)       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2**30
+        run = lambda: m.generate(f, **kw)
+        out, wall = drive(f"beams K={BEAMS} {mode} B={b}", kernels, run, NEEDS_BEAM[mode],
+                          absent)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_gen = int((out.lengths - PROMPT_LEN).sum())
+        require(out.sequences.shape[0] == b and (out.lengths > PROMPT_LEN).all()
+                and (out.sequences >= 0).all()
+                and (out.sequences < m.config.dims.vocab_size).all()
+                and np.isfinite(out.avg_logprobs).all() and out.steps > 0,
+                f"beams {mode} B={b}: output")
+        log(f"beams K={BEAMS} {mode} B={b}: {wall * 1e3:.1f} ms, {n_gen} generated tokens, "
+            f"{out.steps} steps, scores {np.round(out.avg_logprobs, 4).tolist()}, lengths "
+            f"{out.lengths.tolist()}, peak memory {peak:.2f} GiB ({peak - resident:.3f} over "
+            f"the {resident:.2f} GiB resident before it); {SMI}")
+        if mode == "bf16" and b == 1:
+            dev, tops = device_split(run)
+            log(f"  device busy {dev:.1f} ms of the request ({tops})")
+            log(f"  host split: {beam_host_split(run)}")
+    # num_beams=1, length_penalty=0 is greedy (JAX tests/test_beam.py).
+    greedy = model.generate(feat, language="en", max_new_tokens=MAX_NEW_TOKENS,
+                            disable_medusa=True)
+    beam1 = model._generate_beam(feat, language="en", task="transcribe", max_length=None,
+                                 max_new_tokens=MAX_NEW_TOKENS, num_beams=1,
+                                 length_penalty=0.0)
+    clear_gap_compare("num_beams=1, length_penalty=0 vs vanilla greedy (bf16 B=1)", model,
+                      enc1, greedy, beam1, "vanilla", stop_at_eos=True)
+    # Beams with timestamps, and the seek loop with beam-decoded windows.
+    out, wall = drive(f"beams K={BEAMS} timestamps bf16 B=1", kernels,
+                      lambda: model.generate(feat, language="en", num_beams=BEAMS,
+                                             max_new_tokens=BEAM_TS_NEW_TOKENS,
+                                             return_timestamps=True),
+                      NEEDS_BEAM["bf16"], absent)
+    check_ts_output(model, out)
+    log(f"beams K={BEAMS} timestamps bf16 B=1: {wall * 1e3:.1f} ms, "
+        f"{int(out.lengths[0]) - 3} generated tokens, {out.steps} steps, segments "
+        f"{len(out.segments[0])}, first {out.segments[0][:1]}")
+    wave = waveforms(LONG_SECS[:1])[0]
+    feats = log_mel_spectrogram(torch.from_numpy(wave).cuda()[None])
+    out, wall = drive("beams K=2 longform 75 s bf16 B=1", kernels,
+                      lambda: model.generate(feats, language="en", num_beams=2,
+                                             max_new_tokens=LONG_NEW_TOKENS,
+                                             return_timestamps=True),
+                      NEEDS_BEAM["bf16"], absent)
+    starts = [sg["start"] for sg in out.segments[0]]
+    log(f"beams K=2 longform 75 s bf16 B=1: {wall * 1e3:.1f} ms, {int(out.lengths[0])} kept "
+        f"tokens, {out.steps} steps, {len(starts)} segments, last start "
+        f"{starts[-1] if starts else None}")
+    require(out.token_logprobs is None and starts and starts == sorted(starts)
+            and starts[-1] < LONG_SECS[0] + 30.0
+            and (out.sequences < model.config.dims.vocab_size).all(),
+            "beams longform: segments")
 
 
 TINY_D = 384
@@ -3094,6 +3425,10 @@ def main():
     phase_longform(model, kernels, k2)
     check_pieced_prefill(model, enc1, k2)
     log(f"timestamps and longform phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_hook_requests(model, qmodel, kernels, feats[0], feats8, outs, qouts)
+    phase_beam_requests(model, qmodel, kernels, feats[0], feats8)
+    log(f"hook and beam phases: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         log(f"launches {k['name']} (all main paths): {k['launches']}")
 

@@ -109,7 +109,7 @@ def _leaves(tree, prefix=""):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(num_beams=2), "beam search"),
+    (dict(return_cross_attentions=True), "capture"),
     (dict(word_timestamps=True), "timestamps"),
     (dict(return_token_timestamps=True), "timestamps"),
     (dict(temperature=(0.0, 0.2)), "decode modes"),
@@ -123,8 +123,8 @@ def test_unported_options_raise(models, kwargs, match):
 
 def test_batch_and_longform_raise(models):
     """B=9 (past K2's batch) serves through the per-op step; longform input
-    serves through the seek loop, and beams on it still raise (ROADMAP: beam
-    search); an unknown option raises."""
+    serves through the seek loop, with beams too; an unknown option
+    raises."""
     _, tm = models
     cfg = tm.config
     out = tm.generate(np.zeros((9, cfg.dims.num_mel_bins, cfg.dims.num_frames),
@@ -134,7 +134,17 @@ def test_batch_and_longform_raise(models):
     long = np.concatenate([_feats(cfg, seed=4), long], axis=-1)
     out = tm.generate(long, language="en", max_new_tokens=12)
     assert out.sequences.shape[0] == 1 and out.steps > 0
-    with pytest.raises(NotImplementedError, match="beam search"):
-        tm.generate(long, language="en", num_beams=2)
+    out = tm.generate(long, language="en", num_beams=2, max_new_tokens=6)
+    assert out.sequences.shape[0] == 1 and out.steps > 0 and out.token_logprobs is None
     with pytest.raises(TypeError, match="unexpected"):
         tm.generate(_feats(cfg), language="en", no_such_option=1)
+
+
+def test_beams_with_fallback_temperature_raise(models):
+    """Beams take no temperature fallback: ValueError, as the JAX package
+    raises (without beams the ladder is still unported: NotImplementedError)."""
+    jm, tm = models
+    f = _feats(tm.config)
+    for m in (jm, tm):
+        with pytest.raises(ValueError, match="temperature fallback"):
+            m.generate(f, language="en", num_beams=2, temperature=(0.0, 0.2))

@@ -4,15 +4,15 @@ whisper_medusa_tpu/decoding/processors.py.
 Each processor is a function of ``(logits, pred_pos)`` where ``pred_pos`` is
 the absolute index of the token being predicted, so speculative verification
 applies exactly the rules a step-by-step loop would.  Ported: suppress,
-begin-suppress, the exponential-decay length penalty and the Whisper timestamp
-rules (:func:`apply_timestamp_rules`).  The user ``custom`` hook is not ported
-yet (ROADMAP queue 1, item 12c).
+begin-suppress, the exponential-decay length penalty, the user ``custom``
+hook (the ``logits_processor`` of ``generate``) and the Whisper timestamp
+rules (:func:`apply_timestamp_rules`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +32,13 @@ class ProcessorConfig:
     timestamp_begin: int = 50364          # <|0.00|>
     no_timestamps_id: int = 50363
     max_initial_timestamp_index: Optional[int] = 50   # 1.0 s
+    # The user hook: a torch function ``(logits (..., V) float32, pred_pos
+    # (...,) int32) -> logits`` on the logits' device, applied after the
+    # built-ins at every scored position (prefill, verification and draft
+    # rows, beams).  The fused verification kernels cannot run it, so a hook
+    # routes verification through the materialized logits
+    # (decoding/speculative.py).
+    custom: Optional[Callable] = None
 
     def suppress_mask(self) -> Optional[np.ndarray]:
         if not self.suppress_tokens:
@@ -71,6 +78,8 @@ def apply_processors(logits: torch.Tensor, pred_pos: torch.Tensor,
         pen = eos.abs() * (torch.pow(torch.tensor(float(factor), device=dev), idx) - 1.0)
         logits = logits.clone()
         logits[..., cfg.eos_token_id] = torch.where(pred_pos > start, eos + pen, eos)
+    if cfg.custom is not None:
+        logits = cfg.custom(logits, pred_pos.to(torch.int32)).float()
     return logits
 
 

@@ -25,6 +25,14 @@ from ``block_hidden``, the output of the block layer that K2 runs after the
 decoder stack on the cache's last slot.  The decoder forward is K2 at
 B <= 8 and the per-op step (K10, K11) beyond (``whisper.decode_step``).
 
+A user hook (``pcfg.custom``, ``generate(logits_processor=...)``) cannot
+ride the fused kernels, so with one the loop takes the unfused route of the
+JAX package at every B: the (K + 1) x B x N rows (the verification row and
+every draft head at every node) go through ``whisper.project_logits`` (K3,
+or K7 at int8) into materialized f32 logits, and the processors, the hook,
+the timestamp rules, the argmax, the log-softmax and the next drafts (the
+accepted node's head logits) are torch; K4 and K5 do not run.
+
 Timestamps (``pcfg.timestamp_rules``): each chain node carries its history
 (its last token, the token before it, the running max timestamp) and the
 verification rows take the Whisper timestamp rules inside K4 / K5's vocab
@@ -89,16 +97,18 @@ class SpecState:
 
 
 def prefill(params: Params, dims: WhisperDims, prompt: torch.Tensor, cache,
-            block: Optional[Params] = None) -> whisper.DecoderOutput:
+            block: Optional[Params] = None, cross_beam: int = 1) -> whisper.DecoderOutput:
     """The prompt (B, T0) into ``cache`` from offset 0, in pieces of at most
     :data:`PREFILL_PIECE` tokens: each piece causal over itself and over the
-    earlier pieces through the cache.  Returns the last piece's output."""
+    earlier pieces through the cache.  Returns the last piece's output.
+    ``cross_beam``: see ``whisper.decode_step`` (beam search's B * K rows)."""
     b, t0 = prompt.shape
     out = None
     for s0 in range(0, t0, PREFILL_PIECE):
         out = whisper.decode_step(
             params, dims, prompt[:, s0:s0 + PREFILL_PIECE], cache,
-            torch.full((b,), s0, dtype=torch.int32, device=prompt.device), block=block)
+            torch.full((b,), s0, dtype=torch.int32, device=prompt.device), block=block,
+            cross_beam=cross_beam)
     return out
 
 
@@ -192,9 +202,11 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
         heads_w = qmm_mod.wmap(hw, lambda a: a[:, 0])
         heads_b = medusa_params["heads"]["b"][:, 0]
         draft_params = _head_slice(medusa_params, first_head, None)
-    # The JAX package's auto rule: two passes at B >= 2, one K4 pass at B = 1
-    # where K4 takes the rows (verify.hidden_available), else two passes.
-    two_pass = not vanilla and (b >= 2 or not verify_mod.hidden_available(
+    # A hook takes the unfused route (materialized logits); else the JAX
+    # package's auto rule: two passes at B >= 2, one K4 pass at B = 1 where K4
+    # takes the rows (verify.hidden_available), else two passes.
+    unfused = pcfg.custom is not None
+    two_pass = not vanilla and not unfused and (b >= 2 or not verify_mod.hidden_available(
         b, n_nodes, shape[0], block is not None, vocab, dims.d_model))
     kp1 = 1 if vanilla or two_pass else num_heads + 1
 
@@ -213,17 +225,32 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
     buf_len = max_length + lv + 1
     cache_len = max_length + n_nodes + 1
 
+    def chunk_from_draft_logits(root, head_logits, new_len):
+        """Next chunk from the heads' logits (B, K, V) at one position: head
+        k's draft predicts position new_len + k - 1."""
+        draft_pos = new_len[:, None] + torch.arange(num_heads, dtype=torch.int32,
+                                                    device=dev)[None, :]
+        dproc = apply_processors(head_logits, draft_pos, pcfg)        # (B, K, V)
+        drafts = torch.argmax(dproc, dim=-1).to(torch.int32)
+        drafts = _corrupt(drafts, draft_corruption, gen_rng, vocab)
+        return torch.cat([root[:, None], drafts], dim=1)[:, tree_idx]
+
     def drafts_to_chunk(root, hidden_acc, new_len):
         """Next chunk from the draft heads at one position's hidden state."""
         if vanilla:
             return root[:, None]
         head_out = medusa_mod.apply_heads(draft_params, hidden_acc)   # (K, B, D)
-        head_logits = whisper.project_logits(params, head_out).transpose(0, 1)
-        draft_pos = new_len[:, None] + torch.arange(num_heads, device=dev)[None, :]
-        dproc = apply_processors(head_logits, draft_pos, pcfg)        # (B, K, V)
-        drafts = torch.argmax(dproc, dim=-1).to(torch.int32)
-        drafts = _corrupt(drafts, draft_corruption, gen_rng, vocab)
-        return torch.cat([root[:, None], drafts], dim=1)[:, tree_idx]
+        return chunk_from_draft_logits(
+            root, whisper.project_logits(params, head_out).transpose(0, 1), new_len)
+
+    def stack_rows(hidden, hsrc):
+        """The unfused route's (kp1, B, N, D) rows: the verification row (the
+        hidden state, or head 0 of it for base_head) then the draft heads."""
+        if vanilla:
+            return hidden[None]
+        if block is None:
+            return medusa_mod.apply_heads(medusa_params, hidden)
+        return torch.cat([hidden[None], medusa_mod.apply_heads(draft_params, hsrc)])
 
     draft_src = lambda o: o.hidden if block is None else o.block_hidden
 
@@ -239,7 +266,7 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
         out = prefill(params, dims, prompt, cache, block)
         h_last = out.hidden[:, -1]
         base = _base_logits_fn(params, medusa_params, variant)(h_last)    # (B, V) f32
-        at_t0 = torch.full((b,), t0, device=dev)
+        at_t0 = torch.full((b,), t0, dtype=torch.int32, device=dev)
         proc = apply_processors(base, at_t0, pcfg)
         if use_ts:
             proc = apply_timestamp_rules(
@@ -277,45 +304,60 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
         out = whisper.decode_step(params, dims, chunk, cache, offsets,
                                   rel_positions=pos_ids, block=block)
         hidden = out.hidden                                           # (B, N, D)
-        # Row (k, e, n) predicts absolute position cur_len[e] + n + k.
-        pos_rows = (cur_len[None, :, None] + pos_ids[None, None, :]
-                    + kp1_rows).reshape(-1)
-        gcol_nodes = torch.cat([chunk[:, 1:], torch.zeros_like(chunk[:, :1])], dim=1)
-        gcol_rows = torch.cat([
-            gcol_nodes.reshape(-1),
-            torch.zeros(((kp1 - 1) * b * n_nodes,), dtype=torch.int32, device=dev)])
-        flat = hidden.reshape(b * n_nodes, -1)
-        ts_kw = {}
         if use_ts:
-            # Each node's history; only the k = 0 verification rows read it
-            # (draft rows keep the base processors), zeros for the rest.
-            zero_tail = torch.zeros(((kp1 - 1) * b * n_nodes,), dtype=torch.int32,
-                                    device=dev)
+            # Each node's history: its last token, the one before it and the
+            # running max timestamp.
             penult_nodes = torch.cat([prev2[:, None], chunk[:, :-1]], dim=1)
             node_max_ts = torch.maximum(max_ts[:, None],
                                         torch.cummax(ts_val(chunk, pcfg), dim=1).values)
-            ts_kw = dict(ts_cfg=ts_cfg, n_verif=b * n_nodes,
-                         last=torch.cat([chunk.reshape(-1), zero_tail]),
-                         penult=torch.cat([penult_nodes.reshape(-1), zero_tail]),
-                         maxts=torch.cat([node_max_ts.reshape(-1), zero_tail]))
-        if vanilla:
-            am, mx, lse, gth = verify_mod.verify_rows(
-                flat, embed, pos_rows, gcol_rows, sup_masks, **vkw, **ts_kw)
-        elif two_pass:
-            # Pass A: the verification rows only — the hidden rows themselves
-            # (medusa_block), or head 0 of them built by the same GEMM mode
-            # as K4's stage A (base_head), with the same bits.
-            rows = flat if block is not None else verify_mod.head_rows(
-                flat, qmm_mod.wmap(heads_w, lambda a: a[:1]), heads_b[:1])[0]
-            am, mx, lse, gth = verify_mod.verify_rows(
-                rows, embed, pos_rows, gcol_rows, sup_masks, **vkw, **ts_kw)
+        if unfused:
+            # Every row's logits materialized (K3 / K7), the rest in torch.
+            logits = whisper.project_logits(params, stack_rows(hidden, draft_src(out)))
+            pred_pos = cur_len[:, None] + pos_ids[None, :]
+            proc = apply_processors(logits[0], pred_pos, pcfg)        # (B, N, V)
+            if use_ts:
+                proc = apply_timestamp_rules(proc, pred_pos, chunk, penult_nodes,
+                                             node_max_ts, pcfg)
+            nxt = torch.argmax(proc, dim=-1).to(torch.int32)
         else:
-            am, mx, lse, gth = verify_mod.verify_hidden(
-                hidden, draft_src(out), heads_w, heads_b, embed, pos_rows, gcol_rows,
-                sup_masks, identity0=block is not None, **vkw, **ts_kw)
-        am, mx, lse, gth = (a.reshape(kp1, b, n_nodes) for a in (am, mx, lse, gth))
+            # Row (k, e, n) predicts absolute position cur_len[e] + n + k.
+            pos_rows = (cur_len[None, :, None] + pos_ids[None, None, :]
+                        + kp1_rows).reshape(-1)
+            gcol_nodes = torch.cat([chunk[:, 1:], torch.zeros_like(chunk[:, :1])], dim=1)
+            gcol_rows = torch.cat([
+                gcol_nodes.reshape(-1),
+                torch.zeros(((kp1 - 1) * b * n_nodes,), dtype=torch.int32, device=dev)])
+            flat = hidden.reshape(b * n_nodes, -1)
+            ts_kw = {}
+            if use_ts:
+                # Only the k = 0 verification rows read the history (draft
+                # rows keep the base processors), zeros for the rest.
+                zero_tail = torch.zeros(((kp1 - 1) * b * n_nodes,), dtype=torch.int32,
+                                        device=dev)
+                ts_kw = dict(ts_cfg=ts_cfg, n_verif=b * n_nodes,
+                             last=torch.cat([chunk.reshape(-1), zero_tail]),
+                             penult=torch.cat([penult_nodes.reshape(-1), zero_tail]),
+                             maxts=torch.cat([node_max_ts.reshape(-1), zero_tail]))
+            if vanilla:
+                am, mx, lse, gth = verify_mod.verify_rows(
+                    flat, embed, pos_rows, gcol_rows, sup_masks, **vkw, **ts_kw)
+            elif two_pass:
+                # Pass A: the verification rows only — the hidden rows
+                # themselves (medusa_block), or head 0 of them built by the
+                # same GEMM mode as K4's stage A (base_head), with the same
+                # bits.
+                rows = flat if block is not None else verify_mod.head_rows(
+                    flat, qmm_mod.wmap(heads_w, lambda a: a[:1]), heads_b[:1])[0]
+                am, mx, lse, gth = verify_mod.verify_rows(
+                    rows, embed, pos_rows, gcol_rows, sup_masks, **vkw, **ts_kw)
+            else:
+                am, mx, lse, gth = verify_mod.verify_hidden(
+                    hidden, draft_src(out), heads_w, heads_b, embed, pos_rows, gcol_rows,
+                    sup_masks, identity0=block is not None, **vkw, **ts_kw)
+            am, mx, lse, gth = (a.reshape(kp1, b, n_nodes) for a in (am, mx, lse, gth))
+            nxt = am[0]
 
-        best, accept, ptok, pnxt = _greedy_accept(chunk, am[0], retrieve)
+        best, accept, ptok, pnxt = _greedy_accept(chunk, nxt, retrieve)
         best_tok = ptok[batch_rows, best]                             # (B, Lv)
         best_nxt = pnxt[batch_rows, best]
         acc_col = accept[:, None].long()
@@ -328,10 +370,16 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
         cols = (cur_len[:, None].long() + arange_lv).clamp(max=buf_len - 1)
         tokens = torch.where(finished[:, None], tokens, tokens.scatter(1, cols, window))
 
-        node_base = gth[0] - lse[0]                                   # (B, N)
-        node_bonus = mx[0] - lse[0]
-        bonus_lp = node_bonus.gather(1, acc_col)
-        win_lp = torch.where(arange_lv < acc_col, node_base, bonus_lp)
+        best_nodes = retrieve[best]                                   # (B, Lv)
+        if unfused:
+            # Committed token i is scored by path node i's processed logits.
+            node_lp = torch.log_softmax(proc, dim=-1)[batch_rows[:, None], best_nodes]
+            win_lp = node_lp.gather(2, window.clamp(min=0).long()[:, :, None])[..., 0]
+        else:
+            node_base = gth[0] - lse[0]                               # (B, N)
+            node_bonus = mx[0] - lse[0]
+            bonus_lp = node_bonus.gather(1, acc_col)
+            win_lp = torch.where(arange_lv < acc_col, node_base, bonus_lp)
         win_lp = torch.where(arange_lv <= acc_col, win_lp, torch.zeros_like(win_lp))
         logprobs = torch.where(finished[:, None], logprobs,
                                logprobs.scatter(1, cols, win_lp))
@@ -343,6 +391,11 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
 
         if vanilla:
             chunk = bonus[:, None]
+        elif unfused:
+            # The draft heads' logits at the accepted node, already projected.
+            acc_node = best_nodes.gather(1, acc_col)[:, 0]
+            chunk = chunk_from_draft_logits(
+                bonus, logits[1:, batch_rows, acc_node].transpose(0, 1), new_len)
         elif two_pass:
             # Pass B: the draft heads at the accepted node's hidden state (or
             # block output; chain: the accepted node is node `accept`), as in

@@ -8,10 +8,12 @@ decoding (``disable_medusa=True``) at any batch size: ``language`` given (one
 code, or one per example) or detected per example, ``max_length`` /
 ``max_new_tokens``, the suppress lists, the exponential decay length
 penalty, the no-speech probability, ``return_timestamps`` with its segments,
-``prompt_ids``, and longform input (> 30 s) through the seek loop
+``prompt_ids``, longform input (> 30 s) through the seek loop
 (``condition_on_prev_tokens``, ``prompt_condition_type``,
-``attention_mask``).  Every other option of the JAX ``generate`` raises
-NotImplementedError naming its ROADMAP item.  ``quantize()`` gives
+``attention_mask``), the ``logits_processor`` hook and beam search
+(``num_beams``, ``length_penalty``; shortform and longform).  Every other
+option of the JAX ``generate`` raises NotImplementedError naming its
+ROADMAP item.  ``quantize()`` gives
 the int8 serving copy (W8A16 decoder, embedding, heads and Medusa-Block
 layer; int8 caches).  Everything runs on the card unless the model was made
 with ``device="cpu"``.
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,12 +55,9 @@ class GenerateOutput:
 # generate() options of the JAX package that this slice does not run: the
 # default (accepted, a no-op) and the ROADMAP queue-1 item that brings it.
 _UNPORTED = {
-    "num_beams": (1, "beam search"),
-    "length_penalty": (1.0, "beam search"),
     "temperature": (0.0, "remaining decode modes"),
     "seed": (0, "remaining decode modes"),
     "compression_ratio_threshold": (None, "remaining decode modes"),
-    "logits_processor": (None, "item 12c, the logits_processor hook"),
     "return_scores": (False, "capture surfaces"),
     "return_cross_attentions": (False, "capture surfaces"),
     "return_decoder_attentions": (False, "capture surfaces"),
@@ -195,6 +194,9 @@ class WhisperMedusaModel:
         condition_on_prev_tokens: bool = False,
         prompt_condition_type: Optional[str] = None,
         attention_mask=None,
+        num_beams: int = 1,
+        length_penalty: float = 1.0,
+        logits_processor: Optional[Callable] = None,
         **options,
     ) -> GenerateOutput:
         """Transcribe a batch of mel features (B, n_mels, frames); K2 runs
@@ -217,7 +219,18 @@ class WhisperMedusaModel:
         front of the next window's prompt, ``prompt_condition_type``
         ("first-segment" or "all-segments") says which windows ``prompt_ids``
         condition, and ``attention_mask`` (B, frames) bounds each example's
-        real audio."""
+        real audio.
+
+        ``logits_processor``: a torch function ``(logits (..., V) float32,
+        pred_pos (...,) int32) -> logits`` on the logits' device, applied
+        after the built-in processors at every scored position; the decode
+        loop then verifies from materialized logits (no K4 / K5).
+        ``num_beams > 1`` runs beam search (:meth:`_generate_beam`; longform
+        input through the seek loop) with the GNMT ``length_penalty``;
+        ``avg_logprobs`` are then the beams' length-normalized scores."""
+        if num_beams != 1:
+            _check_beam_options(num_beams, logprob_threshold, no_speech_threshold,
+                                options)
         for name, value in options.items():
             if name not in _UNPORTED:
                 raise TypeError(f"generate() got an unexpected keyword argument {name!r}")
@@ -254,14 +267,26 @@ class WhisperMedusaModel:
                 no_speech_threshold=no_speech_threshold, draft_corruption=draft_corruption,
                 return_timestamps=return_timestamps, time_precision=time_precision,
                 condition_on_prev_tokens=condition_on_prev_tokens, prompt_ids=prompt_ids,
-                prompt_condition_type=prompt_condition_type, attention_mask=attention_mask)
+                prompt_condition_type=prompt_condition_type, attention_mask=attention_mask,
+                num_beams=num_beams, length_penalty=length_penalty,
+                logits_processor=logits_processor)
+        if num_beams != 1:
+            return self._generate_beam(
+                feats, language=language, task=task, max_length=max_length,
+                max_new_tokens=max_new_tokens, num_beams=num_beams,
+                suppress_tokens=suppress_tokens, begin_suppress_tokens=begin_suppress_tokens,
+                length_penalty=length_penalty,
+                exponential_decay_length_penalty=exponential_decay_length_penalty,
+                prompt_ids=prompt_ids, return_timestamps=return_timestamps,
+                time_precision=time_precision, logits_processor=logits_processor)
         enc_out, prompt, detected, pcfg, gen = self._setup(
             feats, language=language, task=task, max_length=max_length,
             max_new_tokens=max_new_tokens, suppress_tokens=suppress_tokens,
             begin_suppress_tokens=begin_suppress_tokens,
             exponential_decay_length_penalty=exponential_decay_length_penalty,
             return_timestamps=return_timestamps, prompt_ids=prompt_ids,
-            max_initial_timestamp_index=max_initial_timestamp_index)
+            max_initial_timestamp_index=max_initial_timestamp_index,
+            logits_processor=logits_processor)
         st, gd = self.special, self.generation_config
         choices, variant, medusa_params = self._decode_mode(disable_medusa, medusa_choices)
         result = speculative_generate(
@@ -315,11 +340,12 @@ class WhisperMedusaModel:
                max_new_tokens=None, suppress_tokens="default",
                begin_suppress_tokens="default", exponential_decay_length_penalty=None,
                return_timestamps=False, prompt_ids=None,
-               max_initial_timestamp_index="default"):
-        """One shortform request's setup, shared by :meth:`generate` and
-        :meth:`generate_stream`: the features padded to 30 s and encoded,
-        the language (detected where None), the prompt, the processors and
-        the generation config.  (enc_out, prompt, detected, pcfg, gen)."""
+               max_initial_timestamp_index="default", logits_processor=None):
+        """One shortform request's setup, shared by :meth:`generate`,
+        :meth:`_generate_beam` and :meth:`generate_stream`: the features
+        padded to 30 s and encoded, the language (detected where None), the
+        prompt, the processors (``logits_processor`` their ``custom`` hook)
+        and the generation config.  (enc_out, prompt, detected, pcfg, gen)."""
         cfg, st, gd = self.config, self.special, self.generation_config
         b, _, n_frames = feats.shape
         if n_frames > cfg.dims.num_frames:
@@ -369,7 +395,8 @@ class WhisperMedusaModel:
                 (int(decay[0]) + prompt.shape[1], float(decay[1])) if decay else None),
             eos_token_id=st.eos, timestamp_rules=return_timestamps,
             timestamp_begin=st.timestamp_begin, no_timestamps_id=st.no_timestamps,
-            max_initial_timestamp_index=max_initial_timestamp_index)
+            max_initial_timestamp_index=max_initial_timestamp_index,
+            custom=logits_processor)
         gen = GenerationConfig(max_length=max_length, temperature=0.0,
                                eos_token_id=st.eos, pad_token_id=gd.pad_token_id,
                                decoder_start_token_id=st.sot, suppress_tokens=sup,
@@ -383,14 +410,51 @@ class WhisperMedusaModel:
         return (tuple(medusa_choices or self.config.medusa.medusa_choices),
                 self.config.medusa.medusa_heads_type, self.params["medusa"])
 
+    def _generate_beam(self, feats: torch.Tensor, *, language, task, max_length,
+                       max_new_tokens, num_beams, suppress_tokens="default",
+                       begin_suppress_tokens="default", length_penalty=1.0,
+                       exponential_decay_length_penalty=None, prompt_ids=None,
+                       return_timestamps=False, time_precision=0.02,
+                       logits_processor=None) -> GenerateOutput:
+        """One 30 s window's beam search (decoding/beam.py): the prompt,
+        processors and ``max_new_tokens`` precedence of :meth:`generate`,
+        per-example languages, timestamps with their segments;
+        ``avg_logprobs`` are the beams' length-normalized scores, ``steps``
+        the expansions."""
+        from whisper_medusa_tpu_torch.decoding.beam import beam_search
+
+        st = self.special
+        enc_out, prompt, _, pcfg, gen = self._setup(
+            feats, language=language, task=task, max_length=max_length,
+            max_new_tokens=max_new_tokens, suppress_tokens=suppress_tokens,
+            begin_suppress_tokens=begin_suppress_tokens,
+            exponential_decay_length_penalty=exponential_decay_length_penalty,
+            return_timestamps=return_timestamps, prompt_ids=prompt_ids,
+            logits_processor=logits_processor)
+        res = beam_search(self.params["whisper"], self.config.dims, pcfg, gen, enc_out,
+                          torch.as_tensor(prompt, device=self.device), num_beams=num_beams,
+                          length_penalty=length_penalty)
+        b = prompt.shape[0]
+        sequences = res.tokens.cpu().numpy()
+        lengths = res.lengths.cpu().numpy()
+        segments = None
+        if return_timestamps:
+            segments = [_extract_segments(sequences[i], int(lengths[i]), prompt.shape[1],
+                                          time_precision, st) for i in range(b)]
+        return GenerateOutput(
+            sequences=sequences, lengths=lengths, steps=res.steps,
+            accepted=np.zeros((b,), np.int32), mean_accept_length=0.0,
+            avg_logprobs=res.scores.cpu().numpy(), segments=segments)
+
     def _generate_longform(self, feats: torch.Tensor, *, language, task, max_length,
                            max_new_tokens, medusa_choices, disable_medusa,
                            exponential_decay_length_penalty, logprob_threshold,
                            no_speech_threshold, draft_corruption, return_timestamps,
                            time_precision, condition_on_prev_tokens, prompt_ids,
-                           prompt_condition_type, attention_mask) -> GenerateOutput:
+                           prompt_condition_type, attention_mask, num_beams=1,
+                           length_penalty=1.0, logits_processor=None) -> GenerateOutput:
         """The seek loop over 30 s windows (the JAX package's
-        ``_generate_longform`` without beams and capture surfaces).  Each
+        ``_generate_longform`` without the capture surfaces).  Each
         window decodes with timestamps; where it holds a complete segment and
         audio remains, the seek advances to that segment's end (mel frame =
         10 ms) and what follows it is dropped, to be decoded again from the
@@ -404,7 +468,10 @@ class WhisperMedusaModel:
         windows' kept text bucketed to its last 64, 32 or 16 tokens, and
         ``prompt_ids`` on the first window ("first-segment") or in front of
         every window's context ("all-segments").  ``steps`` sums the loop
-        iterations over rounds; ``accepted`` counts active examples only."""
+        iterations over rounds; ``accepted`` counts active examples only.
+        With ``num_beams > 1`` every window is beam-decoded and no per-token
+        log-probs are returned (``token_logprobs`` and ``avg_logprobs`` None),
+        as in the JAX package."""
         cfg = self.config
         st = self.special
         b, _, total_frames = feats.shape
@@ -431,7 +498,8 @@ class WhisperMedusaModel:
                      logprob_threshold=logprob_threshold,
                      no_speech_threshold=no_speech_threshold,
                      draft_corruption=draft_corruption, return_timestamps=True,
-                     time_precision=time_precision)
+                     time_precision=time_precision, num_beams=num_beams,
+                     length_penalty=length_penalty, logits_processor=logits_processor)
 
         def fold_window(i, out, row, p_len, seek):
             """Example i's kept tokens, log-probs and segments from window
@@ -455,8 +523,9 @@ class WhisperMedusaModel:
             if not return_timestamps:
                 keep &= raw < st.timestamp_begin
             all_tokens[i].extend(raw[keep].tolist())
-            lp = np.asarray(out.token_logprobs[row, p_len: p_len + len(raw)])
-            all_lp_rows[i].append(lp[keep])
+            if out.token_logprobs is not None:        # beam windows have none
+                lp = np.asarray(out.token_logprobs[row, p_len: p_len + len(raw)])
+                all_lp_rows[i].append(lp[keep])
             for sg in segs:
                 all_segments[i].append({
                     "start": sg["start"] + t_off,
@@ -542,7 +611,8 @@ class WhisperMedusaModel:
                     seek += adv
                 if seek < totals[i]:
                     _warn_longform_truncation([(i, seek, totals[i])])
-        return _longform_output(all_tokens, all_segments, all_lp_rows, totals_run["steps"],
+        return _longform_output(all_tokens, all_segments,
+                                all_lp_rows if num_beams == 1 else None, totals_run["steps"],
                                 totals_run["accepted"], return_timestamps, st)
 
     def generate_stream(self, input_features, language: Optional[str] = None,
@@ -588,6 +658,31 @@ def require_servable_dtype(params, device) -> None:
             "from_pretrained(path, dtype=\"bfloat16\")")
 
 
+def _check_beam_options(num_beams: int, logprob_threshold, no_speech_threshold,
+                        options) -> None:
+    """Beam search takes no temperature fallback, no quality thresholds and
+    no capture surface: ValueError naming each, as the JAX package raises."""
+    temperature = options.get("temperature", 0.0)
+    temps = tuple(np.atleast_1d(temperature).tolist())
+    unsupported = []
+    if any(float(t) != 0.0 for t in temps) or len(temps) > 1:
+        unsupported.append("temperature fallback")
+    for name, v in (("compression_ratio_threshold", options.get("compression_ratio_threshold")),
+                    ("logprob_threshold", logprob_threshold),
+                    ("no_speech_threshold", no_speech_threshold)):
+        if v is not None:
+            unsupported.append(name)
+    if options.get("return_scores") == "full" or any(options.get(name) for name in (
+            "return_cross_attentions", "word_timestamps", "return_decoder_attentions",
+            "return_hidden_states", "return_token_timestamps")):
+        unsupported.append("full scores/attentions/hidden states/word timestamps")
+    if unsupported:
+        raise ValueError(
+            f"num_beams={num_beams} does not support: {', '.join(unsupported)} "
+            "(sampling/fallback is a greedy-path feature; run beams at temperature=0 "
+            "without thresholds)")
+
+
 def _avg_from_captured(logprobs: np.ndarray, lengths: np.ndarray,
                        prompt_len: int) -> np.ndarray:
     """Mean generated-token logprob from the loop-captured per-token scores."""
@@ -609,20 +704,23 @@ def _longform_output(all_tokens, all_segments, all_lp_rows, steps_total: int,
                      accepted_total: int, return_timestamps: bool,
                      st: SpecialTokens) -> GenerateOutput:
     """The seek loop's transcript: (B, longest + 1) EOS-padded sequences, each
-    kept token's log-prob and their mean, the summed steps and accepts."""
+    kept token's log-prob and their mean (None without ``all_lp_rows``), the
+    summed steps and accepts."""
     b = len(all_tokens)
     max_len_out = max((len(t) for t in all_tokens), default=0) + 1
     sequences = np.full((b, max_len_out), st.eos, np.int32)
     lengths = np.zeros((b,), np.int32)
-    token_logprobs = np.zeros((b, max_len_out), np.float32)
-    avg_logprobs = np.zeros((b,), np.float32)
     for i, toks in enumerate(all_tokens):
         sequences[i, :len(toks)] = toks
         lengths[i] = len(toks)
-        lp = (np.concatenate(all_lp_rows[i]) if all_lp_rows[i]
-              else np.zeros((0,), np.float32))
-        token_logprobs[i, :len(lp)] = lp
-        avg_logprobs[i] = lp.mean() if len(lp) else 0.0
+    token_logprobs = avg_logprobs = None
+    if all_lp_rows is not None:
+        token_logprobs = np.zeros((b, max_len_out), np.float32)
+        avg_logprobs = np.zeros((b,), np.float32)
+        for i, rows in enumerate(all_lp_rows):
+            lp = np.concatenate(rows) if rows else np.zeros((0,), np.float32)
+            token_logprobs[i, :len(lp)] = lp
+            avg_logprobs[i] = lp.mean() if len(lp) else 0.0
     return GenerateOutput(
         sequences=sequences, lengths=lengths, steps=steps_total,
         accepted=np.asarray([accepted_total]),

@@ -14,8 +14,10 @@ Decode runs through ``ops/megastep.py`` (kernel K2 on CUDA tensors, the
 :func:`decoder_layers_ops` (cuBLAS projections, K10's mask mode for the
 self-attention, K10 cross-attention, K11 FFN), with the Medusa-Block layer
 as one more layer on its own cache slot when given; the cache slabs are
-updated in place.  Encoder self-attention runs through ``ops/attention.py``
-(K1).  An example's decoder state does not depend on the batch it is in:
+updated in place.  Beam search (``cross_beam``) always takes the per-op
+step: B * K self rows, B cross rows, each example's beams' queries folded
+into one cross-attention block.  Encoder self-attention runs through
+``ops/attention.py`` (K1).  An example's decoder state does not depend on the batch it is in:
 the cross K/V are projected one example at a time, and K2's and K10's
 per-row arithmetic is independent of the row count.
 
@@ -30,6 +32,7 @@ head) scales (``KVCache``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -315,11 +318,15 @@ def _cross_kv(cross: Params, enc_out: torch.Tensor, num_heads: int):
 
 
 def init_cache(params: Params, dims: WhisperDims, enc_out: torch.Tensor,
-               max_len: int, extra_layers: int = 0) -> KVCache:
+               max_len: int, extra_layers: int = 0,
+               self_batch: Optional[int] = None) -> KVCache:
     """Allocate the self slabs (``max_len`` rows, no slack) and precompute the
     cross K/V of every layer, each example on its own, so that its cache
     does not depend on the batch.  ``extra_layers`` more slots (the
     Medusa-Block layer's, filled by :func:`set_block_cross_kv`) start zero.
+    ``self_batch`` gives the self slabs (and their int8 scales) that many
+    rows, beam search's B * K, while the cross K/V keep the B examples' rows:
+    the beams of an example share them (:func:`decode_step`'s ``cross_beam``).
 
     With int8 cross projections (int8 serving) the cross K/V are quantized
     per (head, position) over the head dim and the self slabs are int8 with
@@ -336,16 +343,17 @@ def init_cache(params: Params, dims: WhisperDims, enc_out: torch.Tensor,
     dev = enc_out.device
     slab_dt = torch.int8 if quant else enc_out.dtype
     n = nl + extra_layers
+    sb = b if self_batch is None else self_batch
     cache = KVCache(
-        self_k=torch.zeros((n, b, max_len, d), dtype=slab_dt, device=dev),
-        self_v=torch.zeros((n, b, max_len, d), dtype=slab_dt, device=dev),
+        self_k=torch.zeros((n, sb, max_len, d), dtype=slab_dt, device=dev),
+        self_v=torch.zeros((n, sb, max_len, d), dtype=slab_dt, device=dev),
         cross_k=torch.stack(ks).contiguous(),
         cross_v=torch.stack(vs).contiguous(),
     )
     if quant:
         cache.cross_k_s = torch.stack(kss).contiguous()
         cache.cross_v_s = torch.stack(vss).contiguous()
-        cache.self_s = torch.ones((n, b, max_len, 2 * nh), dtype=torch.bfloat16,
+        cache.self_s = torch.ones((n, sb, max_len, 2 * nh), dtype=torch.bfloat16,
                                   device=dev)
     return cache
 
@@ -412,11 +420,17 @@ def _layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.T
                 cross_k: torch.Tensor, cross_v: torch.Tensor, offsets: torch.Tensor,
                 self_mask: torch.Tensor, num_heads: int, cross_len: int,
                 cross_k_s: Optional[torch.Tensor], cross_v_s: Optional[torch.Tensor],
-                self_s: Optional[torch.Tensor], proj, attend, cross_fn, ffn_fn) -> torch.Tensor:
+                self_s: Optional[torch.Tensor], proj, attend, cross_fn, ffn_fn,
+                cross_beam: int = 1) -> torch.Tensor:
     """One decoder layer (JAX ``decoder_layer_step``, whisper.py:953-1042)
     with its projections through ``proj``, self-attention through
     ``attend(q, k_slab, v_slab, self_mask)``, cross-attention through
-    ``cross_fn`` and the FFN branch through ``ffn_fn(lp, x)``."""
+    ``cross_fn`` and the FFN branch through ``ffn_fn(lp, x)``.
+
+    ``cross_beam`` K > 1 (beam search): h holds B * K rows, beam-major per
+    example, and the cross K/V B rows; each example's K beams' queries are
+    folded into one (B, K * T) query block for the cross-attention and
+    unfolded after it, so the shared cross K/V are read once per example."""
     head_dim = h.shape[-1] // num_heads
     sx = layer_norm(h, lp["self_ln"]["scale"], lp["self_ln"]["bias"])
     q = _split_heads(proj(sx, lp["self"]["q_w"], lp["self"]["q_b"]), num_heads)
@@ -442,8 +456,12 @@ def _layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.T
     cx = layer_norm(h, lp["cross_ln"]["scale"], lp["cross_ln"]["bias"])
     cq = _split_heads(proj(cx, lp["cross"]["q_w"], lp["cross"]["q_b"]), num_heads)
     cq = cq * (head_dim ** -0.5)
-    co = cross_fn(cq.transpose(1, 2), cross_k, cross_v, cross_len, cross_k_s, cross_v_s)
-    h = h + proj(_merge_heads(co.transpose(1, 2)), lp["cross"]["o_w"], lp["cross"]["o_b"])
+    bk, t = cq.shape[:2]
+    cq = cq.reshape(bk // cross_beam, cross_beam * t, *cq.shape[2:])
+    co = cross_fn(cq.transpose(1, 2), cross_k, cross_v, cross_len, cross_k_s,
+                  cross_v_s).transpose(1, 2)                    # (B, K * T, H, Dh)
+    h = h + proj(_merge_heads(co.reshape(bk, t, *co.shape[2:])), lp["cross"]["o_w"],
+                 lp["cross"]["o_b"])
     fx = layer_norm(h, lp["ffn_ln"]["scale"], lp["ffn_ln"]["bias"])
     return h + ffn_fn(lp, fx)
 
@@ -492,7 +510,8 @@ def decoder_layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
                        self_mask: torch.Tensor, num_heads: int,
                        cross_len: int, cross_k_s: Optional[torch.Tensor] = None,
                        cross_v_s: Optional[torch.Tensor] = None,
-                       self_s: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       self_s: Optional[torch.Tensor] = None,
+                       cross_beam: int = 1) -> torch.Tensor:
     """One decoder layer over a T-token chunk in plain PyTorch on every
     device — the plain version of K2 (exact f32 products, the plain
     cross-attention and FFN); writes the chunk's K/V rows into
@@ -505,7 +524,8 @@ def decoder_layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
     return _layer_step(lp, h, k_buf, v_buf, cross_k, cross_v, offsets, self_mask,
                        num_heads, cross_len, cross_k_s, cross_v_s, self_s,
                        proj=dense_exact, attend=_attend_plain,
-                       cross_fn=decode_ops.cross_attention_decode_plain, ffn_fn=_ffn_plain)
+                       cross_fn=decode_ops.cross_attention_decode_plain, ffn_fn=_ffn_plain,
+                       cross_beam=cross_beam)
 
 
 def decoder_layer_ops(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
@@ -513,7 +533,8 @@ def decoder_layer_ops(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
                       offsets: torch.Tensor, self_mask: torch.Tensor, num_heads: int,
                       cross_len: int, cross_k_s: Optional[torch.Tensor] = None,
                       cross_v_s: Optional[torch.Tensor] = None,
-                      self_s: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      self_s: Optional[torch.Tensor] = None,
+                      cross_beam: int = 1) -> torch.Tensor:
     """One decoder layer of the per-op step (the JAX scan path): the
     projections through :func:`dense` (cuBLAS, or K6 at int8), the
     self-attention through K10's mask mode (``self_mask`` is then
@@ -523,7 +544,8 @@ def decoder_layer_ops(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
     return _layer_step(lp, h, k_buf, v_buf, cross_k, cross_v, offsets, self_mask,
                        num_heads, cross_len, cross_k_s, cross_v_s, self_s,
                        proj=dense, attend=_attend_ops,
-                       cross_fn=decode_ops.cross_attention_decode, ffn_fn=_ffn_ops)
+                       cross_fn=decode_ops.cross_attention_decode, ffn_fn=_ffn_ops,
+                       cross_beam=cross_beam)
 
 
 def run_layers(layer_fn, dec_layers: Params, ln_post: Params, x: torch.Tensor,
@@ -533,12 +555,13 @@ def run_layers(layer_fn, dec_layers: Params, ln_post: Params, x: torch.Tensor,
                cross_k_s: Optional[torch.Tensor] = None,
                cross_v_s: Optional[torch.Tensor] = None,
                self_s: Optional[torch.Tensor] = None, block: Optional[Params] = None,
-               mask_fn=make_step_mask):
+               mask_fn=make_step_mask, cross_beam: int = 1):
     """``layer_fn`` over every stacked decoder layer (slot i of each cache
     slab), then ``ln_post``, then the block (if given) on ln_post's output
     at slot L; (pre_norm, hidden, block_hidden or None), the self slabs
     (and scales) updated in place.  ``mask_fn(offsets, T, max_len,
-    chunk_mask)`` gives the self mask the layers take, once per step."""
+    chunk_mask)`` gives the self mask the layers take, once per step;
+    ``cross_beam`` goes to every layer (:func:`_layer_step`)."""
     from whisper_medusa_tpu_torch.ops import megastep
 
     nl = megastep.check_slots(dec_layers, self_k, block)
@@ -548,7 +571,8 @@ def run_layers(layer_fn, dec_layers: Params, ln_post: Params, x: torch.Tensor,
     def step(lp, h, i):
         return layer_fn(lp, h, self_k[i], self_v[i], cross_k[i], cross_v[i], offsets, mask,
                         num_heads, cross_len, cross_k_s=at(cross_k_s, i),
-                        cross_v_s=at(cross_v_s, i), self_s=at(self_s, i))
+                        cross_v_s=at(cross_v_s, i), self_s=at(self_s, i),
+                        cross_beam=cross_beam)
 
     h = x
     for layer in range(nl):
@@ -565,7 +589,7 @@ def decoder_layers_ops(dec_layers: Params, ln_post: Params, x: torch.Tensor,
                        cross_k_s: Optional[torch.Tensor] = None,
                        cross_v_s: Optional[torch.Tensor] = None,
                        self_s: Optional[torch.Tensor] = None,
-                       block: Optional[Params] = None):
+                       block: Optional[Params] = None, cross_beam: int = 1):
     """The per-op decoder step — the JAX ``lax.scan`` over
     ``decoder_layer_step`` (whisper.py:1223-1279) that serves what K2 does
     not take: :func:`decoder_layer_ops` over every layer, ``ln_post``, then
@@ -574,7 +598,7 @@ def decoder_layers_ops(dec_layers: Params, ln_post: Params, x: torch.Tensor,
     return run_layers(decoder_layer_ops, dec_layers, ln_post, x, self_k, self_v, cross_k,
                       cross_v, offsets, chunk_mask, cross_len, num_heads,
                       cross_k_s=cross_k_s, cross_v_s=cross_v_s, self_s=self_s, block=block,
-                      mask_fn=_step_mask_ops)
+                      mask_fn=_step_mask_ops, cross_beam=cross_beam)
 
 
 @dataclasses.dataclass
@@ -589,7 +613,7 @@ def decode_step(params: Params, dims: WhisperDims, tokens: torch.Tensor,
                 cache: KVCache, offsets: torch.Tensor,
                 rel_positions: Optional[torch.Tensor] = None,
                 chunk_mask: Optional[torch.Tensor] = None,
-                block: Optional[Params] = None) -> DecoderOutput:
+                block: Optional[Params] = None, cross_beam: int = 1) -> DecoderOutput:
     """Incremental decoder pass over T new tokens (B, T) at per-example
     ``offsets``; updates ``cache``'s self slabs in place.
 
@@ -599,9 +623,14 @@ def decode_step(params: Params, dims: WhisperDims, tokens: torch.Tensor,
     goes to K2 as a layer of its own, never concatenated onto the stacked
     decoder weights (that would copy every decoder weight per call).
 
+    ``cross_beam`` K > 1 (beam search): ``tokens`` holds B * K beam rows and
+    the cache B * K self rows but B cross rows (init_cache ``self_batch``);
+    each example's beams share its cross K/V.
+
     Dispatch, as the JAX package's: K2 (``fused_decoder_layers``) where
     ``megastep.fits`` the call, else the per-op step
-    (:func:`decoder_layers_ops`): B > 8, T > 16, widths off K2's scope."""
+    (:func:`decoder_layers_ops`): B > 8, T > 16, widths off K2's scope,
+    beams."""
     from whisper_medusa_tpu_torch.ops import megastep
 
     dec = params["decoder"]
@@ -612,8 +641,9 @@ def decode_step(params: Params, dims: WhisperDims, tokens: torch.Tensor,
     abs_pos = (offsets[:, None] + rel_positions[None, :]).clamp(
         0, dims.max_target_positions - 1)
     x = embed_lookup(dec["embed_tokens"], tokens) + dec["pos_embed"][abs_pos]
-    fused = megastep.fits(dec["layers"], x, cache.self_k, cache.cross_k, nh)
-    fn = megastep.fused_decoder_layers if fused else decoder_layers_ops
+    fused = megastep.fits(dec["layers"], x, cache.self_k, cache.cross_k, nh, cross_beam)
+    fn = (megastep.fused_decoder_layers if fused
+          else functools.partial(decoder_layers_ops, cross_beam=cross_beam))
     pre_norm, hidden, block_hidden = fn(
         dec["layers"], dec["ln_post"], x, cache.self_k, cache.self_v,
         cache.cross_k, cache.cross_v, offsets.to(torch.int32), chunk_mask,

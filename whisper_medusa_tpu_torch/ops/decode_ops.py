@@ -30,7 +30,11 @@ bytes: at large-v2 a call reads B x 7.68 MB of bf16 cross K/V (half that in
 int8).  A launch takes T <= 16 queries (one m16 tile); the wrappers send a
 longer chunk (a chain of 16 or more heads) in 16-row blocks, one launch
 each on the same K/V (:func:`cross_attention_blocked`,
-:func:`self_attention_blocked`).
+:func:`self_attention_blocked`).  Beam search folds each example's K beams'
+T queries into one block of K * T rows over the example's one cross row
+(``models/whisper.py::decode_step``'s ``cross_beam``), so the int8 scales
+stay (B, H, S), one per example; 20 rows (K = 5, a 4-token prompt) are two
+launches.
 
 K10's mask mode, ``csrc/decode_ops.cu::wm_self_decode``, is the per-op
 step's self-attention on the card (``models/whisper.py::decoder_layer_ops``):

@@ -235,9 +235,10 @@ def check_slots(dec_layers: Params, self_k, block) -> int:
 
 
 def fits(dec_layers: Params, x: torch.Tensor, self_k: torch.Tensor,
-         cross_k: torch.Tensor, num_heads: int) -> bool:
+         cross_k: torch.Tensor, num_heads: int, cross_beam: int = 1) -> bool:
     """Whether K2 takes this decode call — the counterpart of JAX
-    ``megastep.available``: B <= 8, T <= 16, heads of 64, d_model and
+    ``megastep.available``: no beams (``cross_beam`` 1; beams run the per-op
+    step, as in JAX), B <= 8, T <= 16, heads of 64, d_model and
     ffn_dim multiples of 256, a cross length that is a multiple of 4, self
     and cross key counts whose cluster slices (:func:`attention_plan`) fit
     a CTA, and fused norms whose K slices a lane can hold
@@ -250,7 +251,7 @@ def fits(dec_layers: Params, x: torch.Tensor, self_k: torch.Tensor,
     f = dec_layers["fc1_b"].shape[-1]
     s_len = self_k.shape[2]
     plan = attention_plan(cross_k.shape[-1], s_len)
-    return (1 <= b <= MAX_B and 1 <= t <= MAX_T and d == 64 * num_heads
+    return (cross_beam == 1 and 1 <= b <= MAX_B and 1 <= t <= MAX_T and d == 64 * num_heads
             and d % 256 == 0 and f % 256 == 0 and cross_k.shape[-1] % 4 == 0
             and all(sc <= decode_ops.MAX_SLICE for _, sc in plan.values())
             and ln_longest_slice(d, f) <= LN_MAX_CHUNKS)
