@@ -22,7 +22,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      cross-q and fc1 GEMMs, its self- and cross-attention on K10's cluster
      body, all launched with programmatic dependent launch; its 2-layer
      checks include chunks that straddle the self-attention's 160-key
-     slices; its 32-layer worst cosine against the plain step held at
+     slices, and trees' ancestor masks at T = 11 and 16, B = 1 and 8; its
+     32-layer worst cosine against the plain step held at
      K2_COS_FLOOR, every example of its B=8 calls bitwise a B=1 call, and
      8 launches a layer plus one ln_rows_kernel (ln_post) a step required;
      at (1, 11), (8, 11) and (8, 1) its device time, the
@@ -40,7 +41,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      mode (the per-op step's self-attention) against ``attention`` under
      ``make_step_mask`` at large-v2's B=16 (causal and a tree chunk mask,
      T=11 and T=1), B=8 at T = 17, 24 (tree) and 31, and whisper tiny's B=8,
-     B=8 and B=16 bitwise B=1, and K11 decode FFN (on K2's weight-streaming
+     B=8 and B=16 bitwise B=1, and past 32 chunk columns (trees of 39, 71
+     and 130 nodes, two to five words a row of chunk bits, at B = 1, 8 and
+     16, every example bitwise its B=1 call; its device time at 39 nodes
+     beside SDPA's and its bound), and K11 decode FFN (on K2's weight-streaming
      GEMM) at M = 1, 16, 130, 176, 192 and 300 (one full launch, then a
      launch and a tail), its M=176 rows bitwise an M=11 call's, its device
      time at M = 16 and 176 beside the three-call addmm / gelu / addmm
@@ -122,6 +126,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      K5 at 0 launches; wall, steps, tokens, peak memory), num_beams=1 with
      length_penalty=0 against vanilla greedy under the same rule, beams with
      timestamps (the grammar) and a 75 s longform request with num_beams=2;
+     then branching trees (48 new tokens; K4 and K5 at 0 launches): the
+     11-node (1,2,2,1) tree at B=1 and B=8, bf16 and int8, and Medusa-Block
+     at B=1 (K2 with the ancestor mask), the 21- and 39-node trees at B=1
+     (the per-op step, two and three K10 mask-mode launches a layer, the
+     39-node tree over two words a row), each held to its run under
+     ``draft_corruption=1.0`` (under the clear-gap rule), the B=8 tree
+     decode to each example's B=1 tokens, steps, accept length and device
+     time a step printed beside the chain's; sampled requests
+     (``temperature=0.7``, B=1 and B=8 bf16, B=1 int8: two runs at seed 0
+     equal); a B=8 temperature ladder (0.0, 0.4, 0.8) whose threshold splits
+     the greedy outputs: the rows kept at rung 0 equal the greedy request's,
+     each retry rung decodes exactly the failing rows;
   5. the output is unchanged when every draft is corrupted, bf16 and int8,
      base_head and Medusa-Block, and bf16 base_head at B=16;
   6. decode batch invariance, bf16 and int8: speculative_generate at B=8
@@ -497,7 +513,7 @@ def _block_layer(g, dims, int8):
 
 
 def _plain_2layer(layers, ln_post, blk, got_hidden, x, sk, sv, ck, cv, offsets, s_enc,
-                  h, cks=None, cvs=None, ss=None):
+                  h, cks=None, cvs=None, ss=None, chunk_mask=None):
     """The plain reference of a 2-layer K2 call: the layer loop and ln_post
     on slots 0 and 1; with a block, the plain block layer applied to the
     kernel's own hidden (its hand-over input) on slot 2, so that
@@ -510,22 +526,38 @@ def _plain_2layer(layers, ln_post, blk, got_hidden, x, sk, sv, ck, cv, offsets, 
     at = lambda a, i: None if a is None else a[i]
     two = slice(0, 2)
     pre, hid, _ = MS.megastep_plain(layers, ln_post, x, sk[two], sv[two], ck[two], cv[two],
-                                    offsets, None, s_enc, h, cross_k_s=at(cks, two),
+                                    offsets, chunk_mask, s_enc, h, cross_k_s=at(cks, two),
                                     cross_v_s=at(cvs, two), self_s=at(ss, two))
     if blk is None:
         return pre, hid, None
-    mask = whisper.make_step_mask(offsets, x.shape[1], sk.shape[2], None)
+    mask = whisper.make_step_mask(offsets, x.shape[1], sk.shape[2], chunk_mask)
     bh = whisper.decoder_layer_step(blk, got_hidden, sk[2], sv[2], ck[2], cv[2], offsets,
                                     mask, h, s_enc, cross_k_s=at(cks, 2),
                                     cross_v_s=at(cvs, 2), self_s=at(ss, 2))
     return pre, hid, bh
 
 
-def check_megastep_2layer_int8(g, t, offs, block=False):
+# K2 under a tree's ancestor mask: the (1,2,2,1) tree (11 nodes) and the
+# (1,3,4) tree (16 nodes), at B=1 and B=8.
+K2_TREES = {11: (1, 2, 2, 1), 16: (1, 3, 4)}
+K2_TREE_STEPS = ((11, [7]), (16, [0]), (11, [7, 0, 120, 33, 448, 5, 260, 90]),
+                 (16, [3, 0, 120, 33, 444, 5, 260, 90]))
+
+
+def k2_tree_masks():
+    """{T: the (T, T) bool ancestor mask of K2_TREES[T]} on the card."""
+    from whisper_medusa_tpu_torch.decoding.buffers import generate_medusa_buffers
+
+    return {t: torch.from_numpy(generate_medusa_buffers(c).attn_mask).cuda()
+            for t, c in K2_TREES.items()}
+
+
+def check_megastep_2layer_int8(g, t, offs, block=False, chunk_mask=None):
     """K2's int8 mode, two layers (and the block on slot 2 when ``block``),
     at per-example offsets ``offs``: pre_norm, hidden, block_hidden and the
     written self rows of every slot (dequantized) within 3e-2 + 3e-2 |x|;
-    every other row and scale untouched."""
+    every other row and scale untouched.  ``chunk_mask``: a (T, T) tree
+    mask in place of the causal one."""
     from whisper_medusa_tpu_torch.config import WhisperDims
     from whisper_medusa_tpu_torch.models import whisper
     from whisper_medusa_tpu_torch.ops import megastep as MS
@@ -548,10 +580,10 @@ def check_megastep_2layer_int8(g, t, offs, block=False):
     offsets = torch.tensor(offs, dtype=torch.int32, device="cuda")
     sk2, sv2, ss2 = self_k.clone(), self_v.clone(), self_s.clone()
     got = MS.megastep_kernel(layers, ln_post, x, self_k, self_v, cross_k, cross_v,
-                             offsets, None, s_enc, h, self_s=self_s, cross_k_s=cks,
+                             offsets, chunk_mask, s_enc, h, self_s=self_s, cross_k_s=cks,
                              cross_v_s=cvs, block=blk)
     ref = _plain_2layer(layers, ln_post, blk, got[1], x, sk2, sv2, cross_k, cross_v,
-                        offsets, s_enc, h, cks, cvs, ss2)
+                        offsets, s_enc, h, cks, cvs, ss2, chunk_mask)
     outs = [(a, c) for a, c in zip(got, ref) if c is not None]
     require(len(outs) == 2 + block and (got[2] is None) != block, "K2 outputs")
     err = max(max_err(a, c) for a, c in outs)
@@ -566,7 +598,8 @@ def check_megastep_2layer_int8(g, t, offs, block=False):
         cerr = max(cerr, max_err(ra, rc))
     untouched = all(torch.equal(a[:, ~written], c[:, ~written])
                     for a, c in ((self_k, sk2), (self_v, sv2), (self_s, ss2)))
-    what = "block mode, 2 layers + block" if block else "2-layer"
+    what = ("block mode, 2 layers + block" if block else "2-layer") + (
+        "" if chunk_mask is None else ", tree mask")
     log(f"K2 int8 megastep {what} B={b} T={t} offsets {offs}: pre_norm/hidden"
         f"{'/block_hidden' if block else ''} err {err:.3e}, written rows (dequantized, "
         f"{n} slots) err {cerr:.3e}, other rows equal {untouched}")
@@ -583,9 +616,10 @@ def check_megastep_2layer_int8(g, t, offs, block=False):
 BLOCK_F32_HELD_MAX = 4
 
 
-def check_megastep_2layer(g, t, offs, block=False):
+def check_megastep_2layer(g, t, offs, block=False, chunk_mask=None):
     """Two layers (and the block on slot 2 when ``block``) at per-example
-    offsets ``offs`` (B = len(offs)): pre_norm, hidden, block_hidden and the
+    offsets ``offs`` (B = len(offs)), under the causal chunk mask or the
+    (T, T) tree mask ``chunk_mask``: pre_norm, hidden, block_hidden and the
     written cache rows of every slot elementwise within 3e-2 + 3e-2 |x|;
     every other row untouched.  In block mode only, up to BLOCK_F32_HELD_MAX
     output elements may lie outside that bound of the plain bf16 value, each
@@ -612,9 +646,9 @@ def check_megastep_2layer(g, t, offs, block=False):
     # The f32 run's cache, copied before the kernel writes the slabs.
     slabs32 = (self_k.float(), self_v.float()) if block else None
     got = MS.megastep_kernel(layers, ln_post, x, self_k, self_v, cross_k, cross_v,
-                             offsets, None, s_enc, h, block=blk)
+                             offsets, chunk_mask, s_enc, h, block=blk)
     ref = _plain_2layer(layers, ln_post, blk, got[1], x, sk2, sv2, cross_k, cross_v,
-                        offsets, s_enc, h)
+                        offsets, s_enc, h, chunk_mask=chunk_mask)
     require(all(a is not None for a in got[:2]) and (got[2] is None) != block,
             "K2 outputs")
     outs = [(a, c) for a, c in zip(got, ref) if c is not None]
@@ -627,7 +661,7 @@ def check_megastep_2layer(g, t, offs, block=False):
                             for k, v in tree.items()}
         ref32 = _plain_2layer(f32(layers), f32(ln_post), f32(blk), got[1].float(),
                               x.float(), *slabs32, cross_k.float(), cross_v.float(),
-                              offsets, s_enc, h)
+                              offsets, s_enc, h, chunk_mask=chunk_mask)
         del slabs32
         ok = True
         for i, ((a, c), c32) in enumerate(zip(outs, ref32)):
@@ -644,7 +678,8 @@ def check_megastep_2layer(g, t, offs, block=False):
         cerr = max(cerr, max_err(a[:, written], c[:, written]))
     untouched = (torch.equal(self_k[:, ~written], sk2[:, ~written])
                  and torch.equal(self_v[:, ~written], sv2[:, ~written]))
-    what = "block mode, 2 layers + block" if block else "2-layer"
+    what = ("block mode, 2 layers + block" if block else "2-layer") + (
+        "" if chunk_mask is None else ", tree mask")
     log(f"K2 megastep {what} B={b} T={t} offsets {offs}: pre_norm/hidden"
         f"{'/block_hidden' if block else ''} err {err:.3e}"
         + (f" (elements held by the f32 run: pre_norm {held[0]}, hidden {held[1]}, "
@@ -1467,6 +1502,88 @@ def check_self_decode(g):
     return kernel_record("self_decode", DECODE_OPS_SOURCE,
                          "tools/decode_kernels_experiment.py:48", (DO, "self_launches"),
                          worst, ms, plain_ms, b_ms, lib_ms)
+
+
+# K10's mask mode past 32 chunk columns: the ancestor masks of trees of TC
+# nodes (W = ceil(TC / 32) words a row of chunk bits), the per-op step's
+# self-attention for trees of more than 16 nodes: the 39-node
+# (1,2,2,1,1,1,1,1,1,1,1), 71-node (1,2,2,2,1,1,1,1,1,1,1) and 130-node
+# (1,3,3) + 13 x (1,) trees.
+WIDE_TREES = ((1, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1), (1, 2, 2, 2, 1, 1, 1, 1, 1, 1, 1),
+              (1, 3, 3) + (1,) * 13)
+WIDE_BATCHES = (1, 8, 16)
+
+
+def check_self_decode_wide(g):
+    """K10's mask mode over chunks past 32 columns (WIDE_TREES, of 39, 71 and
+    130 nodes: 2, 3 and 5 words a row of chunk bits, 3, 5 and 9 launches a call)
+    against ``attention`` under ``make_step_mask`` on large-v2's self slabs
+    (20 heads x SELF_MAX_LEN rows), bf16, at B = 1, 8 and 16: elementwise
+    within 1e-2 + 1e-2 |x|, and every example of the B=8 and B=16 calls
+    bitwise its B=1 call.  Timed at TC = 39, B = 16 (CUDA events and device
+    time) beside the plain version, SDPA with the step's boolean mask and
+    the byte bound (each example's visible keys, offset + TC, read once);
+    B = 1's device time printed."""
+    from whisper_medusa_tpu_torch.decoding.buffers import generate_medusa_buffers
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    h, s_len, worst, row = 20, SELF_MAX_LEN, 0.0, None
+    for tree in WIDE_TREES:
+        cm = torch.from_numpy(generate_medusa_buffers(tree).attn_mask).cuda()
+        t = cm.shape[0]
+        bmax = max(WIDE_BATCHES)
+        rnd = lambda *shape, scale=1.0: (torch.randn(shape, generator=g, device="cuda")
+                                         * scale).to(torch.bfloat16)
+        q = rnd(bmax, t, h, 64, scale=0.125)
+        k, v = rnd(bmax, s_len, h * 64), rnd(bmax, s_len, h * 64)
+        off = torch.linspace(3, s_len - t, bmax, device="cuda").round().to(torch.int32)
+        bits = DO.chunk_bits(cm, t, "cuda", s_len)
+        one = lambda a, i: a[i:i + 1].contiguous()
+        singles = [DO.self_attention_decode_kernel(one(q, i), one(k, i), one(v, i),
+                                                   one(off, i), bits) for i in range(bmax)]
+        for b in WIDE_BATCHES:
+            sub = lambda a: a[:b].contiguous()
+            before = DO.self_wide_launches
+            got = DO.self_attention_decode_kernel(sub(q), sub(k), sub(v), sub(off), bits)
+            launches = DO.self_wide_launches - before
+            ref = DO.self_attention_decode_plain(sub(q), sub(k), sub(v), sub(off), cm)
+            err = max_err(got, ref)
+            what = (f"K10 mask mode, wide: tree of {t} nodes ({bits.shape[1]} words a row), "
+                    f"B={b} x {s_len}")
+            same = [torch.equal(got[i:i + 1], singles[i]) for i in range(b)]
+            log(f"{what}: max_abs_err {err:.3e} ({launches} launches); each example bitwise "
+                f"its B=1 output: {sum(same)}/{b}")
+            require(got.shape == ref.shape and close(got, ref, 1e-2), f"{what}: err {err}")
+            require(launches == len(DO.row_blocks(t)), f"{what}: {launches} launches")
+            require(all(same), f"{what}: a B=1 call differs from its row of the B={b} call")
+            worst = max(worst, err)
+        if t != 39:
+            continue
+        kern = lambda: DO.self_attention_decode_kernel(q, k, v, off, bits)
+        ms = cuda_ms(kern)
+        plain_ms = cuda_ms(lambda: DO.self_attention_decode_plain(q, k, v, off, cm))
+        mask = whisper.make_step_mask(off, t, s_len, cm)
+        qh = q.transpose(1, 2).contiguous()
+        kh = k.reshape(bmax, -1, h, 64).transpose(1, 2).contiguous()
+        vh = v.reshape(bmax, -1, h, 64).transpose(1, 2).contiguous()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=1.0)
+        lib_ms = cuda_ms(lib)
+        keys = int((off.long() + t).sum())
+        moved = nbytes(q) * 2 + 2 * keys * h * 64 * 2 + nbytes(off, bits)
+        b_ms = bound(moved, 4 * h * t * keys * 64)
+        dev_ms, dev_lib = device_ms(kern), device_ms(lib)
+        q1, k1, v1, off1 = (one(a, 0) for a in (q, k, v, off))
+        dev_1 = device_ms(lambda: DO.self_attention_decode_kernel(q1, k1, v1, off1, bits))
+        log(f"K10 mask mode, wide, tree of 39 nodes, B={bmax}: device time {dev_ms:.4f} ms "
+            f"(B=1: {dev_1:.4f} ms), bound {b_ms[0]:.4f} ms ({b_ms[1]}); SDPA with the "
+            f"step's mask {lib_ms:.4f} ms, device {dev_lib:.4f} ms; plain {plain_ms:.4f} ms")
+        row = (ms, plain_ms, b_ms, lib_ms)
+    ms, plain_ms, b_ms, lib_ms = row
+    return kernel_record("self_decode wide", DECODE_OPS_SOURCE,
+                         "tools/decode_kernels_experiment.py:48",
+                         (DO, "self_wide_launches"), worst, ms, plain_ms, b_ms, lib_ms)
 
 
 def check_step_invariance(model, enc8, name):
@@ -2713,6 +2830,244 @@ def phase_hook_requests(model, qmodel, kernels, feat, feats8, outs, qouts):
         f"(each under the clear-gap rule)")
 
 
+# The remaining decode modes (phase 4): branching trees, typical acceptance
+# with sampling, and the temperature-fallback ladder, each on the unfused
+# route (K3 / K7 rows, K4 and K5 at 0 launches).
+TREE_NEW_TOKENS = 48
+TREE_SMALL = (1, 2, 2, 1)                                 # 11 nodes: K2 with the mask
+TREE_PER_OP = (1, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1)           # 21 nodes: 2 K10 mask launches
+TREE_WIDE = (1, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1)             # 39 nodes: 2 words a row
+NEEDS_TREE = {"bf16": ("attention", "megastep", "head_rows", "logits"),
+              "int8": ("attention", "megastep_int8", "head_rows_int8", "qmm_nt"),
+              "block": ("attention", "megastep_block", "head_rows", "logits"),
+              "per_op": ("attention", "megastep", "self_decode", "cross_decode",
+                         "ffn_decode", "head_rows", "logits")}
+SAMPLE_T = 0.7
+LADDER = (0.0, 0.4, 0.8)
+
+
+def _step_ms(run, steps):
+    """Device busy ms of one run of ``run`` a decode step, and its top
+    kernels."""
+    dev, tops = device_split(run)
+    return dev / max(steps, 1), tops
+
+
+def check_tree_invariance(model, enc8, choices):
+    """speculative_generate with a tree at B=8 on the batched encoder rows
+    gives every example the tokens of a B=1 tree decode of its row."""
+    from whisper_medusa_tpu_torch.config import GenerationConfig
+    from whisper_medusa_tpu_torch.decoding.buffers import generate_medusa_buffers
+    from whisper_medusa_tpu_torch.decoding.speculative import speculative_generate
+
+    st, gd, cfg = model.special, model.generation_config, model.config
+    b = enc8.shape[0]
+    prompt = torch.tensor([[st.sot, st.first_language, st.transcribe,
+                            st.no_timestamps]] * b, dtype=torch.int32, device="cuda")
+    gen = GenerationConfig(max_length=PROMPT_LEN + TREE_NEW_TOKENS, eos_token_id=st.eos,
+                           pad_token_id=gd.pad_token_id)
+    buffers = generate_medusa_buffers(choices)
+    run = lambda e, p: speculative_generate(
+        model.params["whisper"], model.params["medusa"], cfg.dims, buffers,
+        _request_pcfg(model), gen, e, p, variant=cfg.medusa.medusa_heads_type)
+    batched = run(enc8, prompt)
+    same = [bool(torch.equal(batched.tokens[e], run(enc8[e:e + 1], prompt[e:e + 1]).tokens[0]))
+            for e in range(b)]
+    mode = "int8" if _int8(model) else "bf16"
+    log(f"{mode} tree {choices} batch invariance: B={b} tokens equal to the B=1 decode for "
+        f"{sum(same)}/{b} examples; B={b} steps {batched.steps}, accepted "
+        f"{batched.accepted.tolist()}")
+    require(all(same), f"{mode} tree decode batch invariance: {same}")
+
+
+def phase_tree_requests(model, qmodel, bmodel, kernels, feat, feats8):
+    """Trees at full width, TREE_NEW_TOKENS new tokens, each driven with the
+    launch counters (K4 and K5 at 0) and held to its own run under
+    ``draft_corruption=1.0`` over their common length (under the clear-gap
+    rule: see the comment below): TREE_SMALL (11 nodes, K2 with the ancestor
+    mask) at B=1 and B=8, bf16 and int8, and Medusa-Block at B=1; TREE_PER_OP
+    (21 nodes: the per-op step, two K10 mask-mode launches a layer) and
+    TREE_WIDE (39 nodes: three launches a layer over two words a row) at
+    B=1 bf16.  The B=8 TREE_SMALL decode (bf16, int8) gives each example its
+    B=1 tree tokens.  Each B=1 bf16 tree's steps, accept length and device
+    time a step are printed beside the chain's, and its agreement with the
+    chain's tokens (printed, not held: the drafts differ, the verification
+    is the same argmax up to the rounding of another route); "device time a
+    step" is a request's device busy time (encoder and prefill included)
+    over its steps."""
+    absent = _verify_names(kernels)
+    nl = model.config.dims.decoder_layers
+    kw = dict(language="en", max_new_tokens=TREE_NEW_TOKENS)
+    chain = model.generate(feat, **kw)
+    chain_ms, chain_tops = _step_ms(lambda: model.generate(feat, **kw), chain.steps)
+    log(f"chain (K4 route) bf16 B=1, {TREE_NEW_TOKENS} new tokens: {chain.steps} steps, "
+        f"mean_accept_length {chain.mean_accept_length:.3f}, device {chain_ms:.3f} ms a step "
+        f"({chain_tops}); {SMI}")
+    runs = (("bf16", model, TREE_SMALL, 1, NEEDS_TREE["bf16"]),
+            ("bf16", model, TREE_SMALL, BATCH, NEEDS_TREE["bf16"]),
+            ("int8", qmodel, TREE_SMALL, 1, NEEDS_TREE["int8"]),
+            ("int8", qmodel, TREE_SMALL, BATCH, NEEDS_TREE["int8"]),
+            ("bf16 medusa_block", bmodel, TREE_SMALL, 1, NEEDS_TREE["block"]),
+            ("bf16", model, TREE_PER_OP, 1, NEEDS_TREE["per_op"]),
+            ("bf16", model, TREE_WIDE, 1, NEEDS_TREE["per_op"] + ("self_decode wide",)))
+    for mode, m, choices, b, needs in runs:
+        f = feat if b == 1 else feats8
+        n_nodes = sum(int(np.prod(choices[:i + 1])) for i in range(len(choices)))
+        name = f"tree {choices} ({n_nodes} nodes) {mode} B={b}"
+        tkw = dict(kw, medusa_choices=choices)
+        m.generate(f, language="en", max_new_tokens=4, medusa_choices=choices)   # warm-up
+        seen = {}
+        out, wall = drive(name, kernels, lambda: m.generate(f, **tkw), needs, absent, seen)
+        report(name, out, wall, check_output(out, b, m.config.dims.vocab_size,
+                                             TREE_NEW_TOKENS))
+        if n_nodes > 16:
+            blocks = -(-n_nodes // 16)
+            log(f"  per-op step: K2 {seen['megastep']} launch (the prefill), K10 mask mode "
+                f"{seen['self_decode']} launches ({seen['self_decode wide']} over two words) "
+                f"in {out.steps} steps ({blocks * nl} a step expected)")
+            require(seen["megastep"] == 1 and seen["self_decode"] == blocks * nl * out.steps,
+                    f"{name}: the per-op step's 16-row blocks")
+            require(seen["self_decode wide"] == (seen["self_decode"] if n_nodes > 32 else 0),
+                    f"{name}: {seen['self_decode wide']} launches over two words")
+        # A tree's accepted node computes its K/V in another cache slot than
+        # the chain of one-token steps does, and K2 / K10 split the keys by
+        # slot: the two runs may round apart, so a difference is allowed
+        # only where the top-2 gap is under GAP_TOL (clear_gap_compare).
+        bad = m.generate(f, draft_corruption=1.0, **tkw)
+        log(f"  {name} under draft_corruption=1.0: steps {bad.steps} (clean {out.steps}), "
+            f"accepted {int(bad.accepted.sum())}")
+        require(bad.steps >= out.steps and int(bad.accepted.sum()) == 0,
+                f"{name} under draft_corruption=1.0: steps {bad.steps}")
+        clear_gap_compare(f"{name} vs its run under draft_corruption=1.0", m, m.encode(f),
+                          out, bad, m.config.medusa.medusa_heads_type)
+        if mode == "bf16" and b == 1:
+            ms, tops = _step_ms(lambda: m.generate(f, **tkw), out.steps)
+            log(f"  {name}: {out.steps} steps (chain {chain.steps}), mean_accept_length "
+                f"{out.mean_accept_length:.3f} (chain {chain.mean_accept_length:.3f}), device "
+                f"{ms:.3f} ms a step (chain {chain_ms:.3f}; {tops}); tokens equal to the "
+                f"chain's at {token_share(out, chain):.3f} of the generated positions (printed, "
+                f"not held); {SMI}")
+    enc8 = model.encode(feats8)
+    check_tree_invariance(model, enc8, TREE_SMALL)
+    check_tree_invariance(qmodel, enc8, TREE_SMALL)
+
+
+def phase_sampled_requests(model, qmodel, kernels, feat, feats8):
+    """temperature=SAMPLE_T (typical acceptance, tokens drawn from
+    softmax(logits / T) by a generator seeded from ``seed``), bf16 at B=1
+    and B=8 and int8 at B=1, each driven with the launch counters (K4 and K5
+    at 0): two runs at seed=0 give equal tokens (held), seed=1 other tokens
+    (printed); the bf16 runs' steps and device time a step printed beside
+    the greedy chain's (the fused route) on the same features."""
+    absent = _verify_names(kernels)
+    for mode, m, f, b in (("bf16", model, feat, 1), ("bf16", model, feats8, BATCH),
+                          ("int8", qmodel, feat, 1)):
+        kw = dict(language="en", max_new_tokens=TREE_NEW_TOKENS, temperature=SAMPLE_T)
+        name = f"sampled T={SAMPLE_T} {mode} B={b}"
+        out, wall = drive(name, kernels, lambda: m.generate(f, seed=0, **kw),
+                          NEEDS_TREE[mode], absent)
+        report(name, out, wall, check_output(out, b, m.config.dims.vocab_size,
+                                             TREE_NEW_TOKENS))
+        again = m.generate(f, seed=0, **kw)
+        other = m.generate(f, seed=1, **kw)
+        log(f"  {name}: seed 0 twice equal {np.array_equal(again.sequences, out.sequences)}; "
+            f"seed 1 differs at {1 - token_share(other, out):.3f} of the generated positions "
+            f"(printed)")
+        require(np.array_equal(again.sequences, out.sequences)
+                and np.array_equal(again.accepted, out.accepted),
+                f"{name}: two runs at seed 0 differ")
+        if mode == "bf16":
+            ms, tops = _step_ms(lambda: m.generate(f, seed=0, **kw), out.steps)
+            gkw = dict(kw, temperature=0.0)
+            greedy = m.generate(f, **gkw)
+            g_ms, _ = _step_ms(lambda: m.generate(f, **gkw), greedy.steps)
+            log(f"  {name}: {out.steps} steps, mean_accept_length "
+                f"{out.mean_accept_length:.3f}, device {ms:.3f} ms a step ({tops}); the "
+                f"greedy chain (fused route) {greedy.steps} steps, {g_ms:.3f} ms a step; {SMI}")
+
+
+def _ladder_split(model, greedy):
+    """A compression_ratio_threshold (or, where the ratios do not split the
+    batch, a logprob_threshold) between the greedy outputs' values nearest
+    the batch's middle: ({option: value}, examples that retry at rung 1)."""
+    from whisper_medusa_tpu_torch.models import api as A
+
+    vocab = model.config.dims.vocab_size
+    ratios = np.array([A._compression_ratio(greedy.sequences[e, PROMPT_LEN:greedy.lengths[e]],
+                                            vocab) for e in range(BATCH)])
+    for name, vals, above in (("compression_ratio_threshold", ratios, True),
+                              ("logprob_threshold", greedy.avg_logprobs.astype(np.float64),
+                               False)):
+        order = np.sort(vals)
+        cuts = [(abs(i - BATCH / 2), (order[i - 1] + order[i]) / 2)
+                for i in range(1, BATCH) if order[i] > order[i - 1]]
+        if cuts:
+            thr = float(min(cuts)[1])
+            return {name: thr}, int(((vals > thr) if above else (vals < thr)).sum())
+    raise AssertionError("the greedy outputs do not split the batch")
+
+
+def phase_ladder_requests(model, kernels, feats8, greedy):
+    """The temperature ladder LADDER at B=8, bf16, MAX_NEW_TOKENS new tokens,
+    with a threshold that splits the greedy request's batch (_ladder_split),
+    driven with the launch counters (K4 and K5 at 0 on the sampled rungs'
+    route; rung 0 is the greedy fused route, one K5 launch a step): the
+    examples kept at rung 0
+    equal ``greedy``'s tokens, and each retry rung decodes exactly the rows
+    still failing (a spy on ``speculative_generate`` records each rung's
+    batch and result); device time printed."""
+    from whisper_medusa_tpu_torch.models import api as A
+
+    opt, n_retry = _ladder_split(model, greedy)
+    real, calls = A.speculative_generate, []
+
+    def spy(*args, **kw):
+        result = real(*args, **kw)
+        calls.append((int(args[6].shape[0]), kw.get("rng") is not None, result))
+        return result
+
+    kw = dict(language="en", max_new_tokens=MAX_NEW_TOKENS, temperature=LADDER, seed=0, **opt)
+    A.speculative_generate = spy
+    seen = {}
+    try:
+        out, wall = drive(f"ladder {LADDER} bf16 B={BATCH}", kernels,
+                          lambda: model.generate(feats8, **kw),
+                          ("attention", "megastep", "head_rows", "logits", "verify_rows"),
+                          seen=seen)
+    finally:
+        A.speculative_generate = real
+    report(f"ladder {LADDER} bf16 B={BATCH}", out, wall,
+           check_output(out, BATCH, model.config.dims.vocab_size))
+    keep = np.zeros((BATCH,), bool)
+    crt = opt.get("compression_ratio_threshold")
+    lpt = opt.get("logprob_threshold")
+    for rung, (b, sampled, result) in enumerate(calls):
+        fail = np.arange(BATCH) if rung == 0 else np.where(~keep)[0]
+        require(b == len(fail) and sampled == (LADDER[rung] > 0),
+                f"ladder rung {rung}: a batch of {b} for {len(fail)} failing rows")
+        toks, lens = result.tokens.cpu().numpy(), result.lengths.cpu().numpy()
+        avg = A._avg_from_captured(result.logprobs.cpu().numpy(), lens, PROMPT_LEN)
+        keep[fail] = ~A._needs_fallback(toks, lens, PROMPT_LEN, crt, avg, lpt,
+                                        vocab_size=model.config.dims.vocab_size)
+    kept0 = np.where(~A._needs_fallback(greedy.sequences, greedy.lengths, PROMPT_LEN, crt,
+                                        greedy.avg_logprobs, lpt,
+                                        vocab_size=model.config.dims.vocab_size))[0]
+    log(f"  ladder {opt}: rung batches {[b for b, _, _ in calls]} ({n_retry} retried at rung "
+        f"1), steps {out.steps} (per example {out.steps_per_example.tolist()}); kept at rung 0: "
+        f"{kept0.tolist()}")
+    require(calls[0][0] == BATCH and len(calls) >= 2 and calls[1][0] == n_retry,
+            f"ladder: rung batches {[b for b, _, _ in calls]}, {n_retry} to retry")
+    # Rung 0 is greedy (two-pass verification at B=8: one K5 launch a step);
+    # the sampled rungs take the unfused route, K4 and K5 at 0.
+    fused = sum(seen[n] for n in _verify_names(kernels))
+    require(fused == calls[0][2].steps,
+            f"ladder: {fused} K4 / K5 launches for rung 0's {calls[0][2].steps} steps")
+    require(all(np.array_equal(out.sequences[e], greedy.sequences[e]) for e in kept0),
+            "ladder: an example kept at rung 0 differs from the greedy request")
+    dev, tops = device_split(lambda: model.generate(feats8, **kw))
+    log(f"  ladder {LADDER} bf16 B={BATCH}: device busy {dev:.1f} ms ({tops}); {SMI}")
+
+
 def check_beam_step(model, enc1, name):
     """The beam-folded per-op step (one example, BEAMS beam rows over one
     cross row: decoder_layers_ops with cross_beam) against the per-op step
@@ -3312,6 +3667,17 @@ def main():
     err2q = max(check_megastep_2layer_int8(g, t, offs) for t, offs in steps2)
     err2b = max(check_megastep_2layer(g, t, offs, block=True) for t, offs in steps2)
     err2bq = max(check_megastep_2layer_int8(g, t, offs, block=True) for t, offs in steps2)
+    # Trees of at most 16 nodes decode through K2 with their ancestor mask.
+    trees = k2_tree_masks()
+    err2 = max(err2, *(check_megastep_2layer(g, t, offs, chunk_mask=trees[t])
+                       for t, offs in K2_TREE_STEPS))
+    err2q = max(err2q, *(check_megastep_2layer_int8(g, t, offs, chunk_mask=trees[t])
+                         for t, offs in K2_TREE_STEPS))
+    err2b = max(err2b, *(check_megastep_2layer(g, t, offs, block=True, chunk_mask=trees[t])
+                         for t, offs in K2_TREE_STEPS))
+    err2bq = max(err2bq, *(check_megastep_2layer_int8(g, t, offs, block=True,
+                                                      chunk_mask=trees[t])
+                           for t, offs in K2_TREE_STEPS))
     cfg = ModelConfig(dims=WHISPER_PRESETS["large-v2"], medusa=MedusaConfig(),
                       param_dtype="bfloat16", compute_dtype="bfloat16")
     t0 = time.perf_counter()
@@ -3383,6 +3749,7 @@ def main():
             f"K2 32-layer cosine against its plain step {worst_k2} below {K2_COS_FLOOR}")
     k10, k10q = check_cross_decode(g)
     k10m = check_self_decode(g)
+    k10w = check_self_decode_wide(g)
     k11 = check_ffn_decode(g)
     secs16 = tuple(float(x) for x in np.linspace(4.0, 30.0, BATCH16))
     waves16 = waveforms(secs16)
@@ -3394,7 +3761,7 @@ def main():
     for m, name in ((model, "large-v2 bf16"), (qmodel, "large-v2 int8")):
         check_step_invariance(m, enc8, name)
     kernels = [*k1, k2, k2q, k3, k4, k4q, k4a, k4aq, k5, k5q, *k6, k7,
-               k8, k2b, k2bq, k4b, k4bq, k10, k10q, k10m, k11, k4ts, k4tsq, k5ts, k5tsq]
+               k8, k2b, k2bq, k4b, k4bq, k10, k10q, k10m, k10w, k11, k4ts, k4tsq, k5ts, k5tsq]
 
     # ---- phase 4: the main paths, bf16 then int8
     outs = phase_requests("bf16", model, kernels, feats, waves, feats8, batch_secs)
@@ -3429,6 +3796,11 @@ def main():
     phase_hook_requests(model, qmodel, kernels, feats[0], feats8, outs, qouts)
     phase_beam_requests(model, qmodel, kernels, feats[0], feats8)
     log(f"hook and beam phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_tree_requests(model, qmodel, bmodel, kernels, feats[0], feats8)
+    phase_sampled_requests(model, qmodel, kernels, feats[0], feats8)
+    phase_ladder_requests(model, kernels, feats8, outs[f"medusa B={BATCH}"])
+    log(f"tree, sampling and ladder phases: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         log(f"launches {k['name']} (all main paths): {k['launches']}")
 

@@ -158,11 +158,11 @@ def test_self_split_matches_plain(c):
 
 def test_chunk_bits():
     causal = tdo.chunk_bits(None, 5, "cpu")
-    assert causal.dtype == torch.int32 and causal.tolist() == [1, 3, 7, 15, 31]
+    assert causal.dtype == torch.int32 and causal.tolist() == [[1], [3], [7], [15], [31]]
     tree = _tree_mask(11)
     bits = tdo.chunk_bits(torch.from_numpy(tree), 11, "cpu").tolist()
     for i in range(11):
-        assert [bool(bits[i] >> j & 1) for j in range(11)] == tree[i].tolist()
+        assert [bool(bits[i][0] >> j & 1) for j in range(11)] == tree[i].tolist()
     with pytest.raises(ValueError, match="diagonal"):
         tdo.chunk_bits(torch.zeros((3, 3), dtype=torch.bool), 3, "cpu")
 

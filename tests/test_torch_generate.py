@@ -112,7 +112,7 @@ def _leaves(tree, prefix=""):
     (dict(return_cross_attentions=True), "capture"),
     (dict(word_timestamps=True), "timestamps"),
     (dict(return_token_timestamps=True), "timestamps"),
-    (dict(temperature=(0.0, 0.2)), "decode modes"),
+    (dict(return_hidden_states=True), "capture"),
     (dict(return_scores="full"), "capture"),
 ])
 def test_unported_options_raise(models, kwargs, match):
@@ -142,7 +142,7 @@ def test_batch_and_longform_raise(models):
 
 def test_beams_with_fallback_temperature_raise(models):
     """Beams take no temperature fallback: ValueError, as the JAX package
-    raises (without beams the ladder is still unported: NotImplementedError)."""
+    raises (without beams the ladder runs: test_torch_fallback.py)."""
     jm, tm = models
     f = _feats(tm.config)
     for m in (jm, tm):

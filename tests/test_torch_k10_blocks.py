@@ -7,8 +7,9 @@ against the unblocked plain version at T = 17, 24 and 31, float32 on the CPU
 (1e-5): cross-attention (bf16 and int8 K/V: each block is one more launch
 on the same K/V) and the mask mode (a causal and a tree chunk mask: each
 block keeps its own rows of chunk bits over all T columns at the same
-offsets).  The chunk bits of a row are one int32: T = 32 packs (bit 31 is
-the sign bit), T = 33 raises, naming the ROADMAP item.
+offsets).  The chunk bits of a row are W = ceil(T / 32) int32 words: T =
+32 packs into one (bit 31 is the sign bit), T = 33, 64 and 130 into 2, 2 and
+5, and a chunk wider than the self slab raises.
 """
 
 import numpy as np
@@ -83,7 +84,7 @@ def test_self_blocks_equal_unblocked(t, mask):
     launches = []
 
     def block(qb, bb, t_chunk):
-        assert qb.shape[1] <= D.MAX_T and bb.shape == (qb.shape[1],) and t_chunk == t
+        assert qb.shape[1] <= D.MAX_T and bb.shape == (qb.shape[1], 1) and t_chunk == t
         launches.append(qb.shape[1])
         return D.self_attention_block_plain(qb, k, v, offsets, bb, t_chunk)
 
@@ -112,12 +113,18 @@ def test_one_block_is_the_whole_chunk():
 
 def test_chunk_bits_width():
     causal = D.chunk_bits(None, 32, "cpu")
-    assert causal.dtype == torch.int32 and int(causal[31]) == -1   # all 32 bits
-    tree = tree_mask(32, 5)
-    got = D.chunk_bits(tree, 32, "cpu").to(torch.int64) & 0xFFFFFFFF
-    want = [sum(1 << j for j in range(32) if tree[i, j]) for i in range(32)]
-    assert got.tolist() == want
-    with pytest.raises(ValueError, match="item 14"):
-        D.chunk_bits(None, 33, "cpu")
-    with pytest.raises(ValueError, match="item 14"):
-        D.chunk_bits(torch.eye(33, dtype=torch.bool), 33, "cpu")
+    assert causal.dtype == torch.int32 and causal.shape == (32, 1)
+    assert int(causal[31, 0]) == -1                                # all 32 bits
+    for t, w in ((32, 1), (33, 2), (64, 2), (130, 5)):
+        tree = tree_mask(t, 5)
+        got = D.chunk_bits(tree, t, "cpu").to(torch.int64) & 0xFFFFFFFF
+        assert got.shape == (t, w)
+        want = [[sum(1 << (j - 32 * k) for j in range(32 * k, min(t, 32 * k + 32))
+                     if tree[i, j]) for k in range(w)] for i in range(t)]
+        assert got.tolist() == want
+    causal = D.chunk_bits(None, 33, "cpu")
+    assert causal.shape == (33, 2) and causal[32].tolist() == [-1, 1]
+    with pytest.raises(ValueError, match="self slab"):
+        D.chunk_bits(None, 33, "cpu", max_len=32)
+    with pytest.raises(ValueError, match="self slab"):
+        D.chunk_bits(torch.eye(130, dtype=torch.bool), 130, "cpu", max_len=129)

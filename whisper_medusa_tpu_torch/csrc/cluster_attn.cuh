@@ -22,7 +22,11 @@
 //     dequant_self does; then the bf16 mma.sync path runs.
 //   * SELF: mask mode (models/whisper.py::make_step_mask) over head-flat
 //     (B, S, H * 64) slabs: key j is visible to query t iff j < off[b], or
-//     0 <= j - off[b] < TC and chunk bit j - off[b] of row t is set.
+//     0 <= j - off[b] < TC and chunk bit j - off[b] of row t is set.  K10's
+//     mask mode (K2 false) reads row t's bits as W = ceil(TC / 32) int32
+//     words, bit r % 32 of word r / 32 (cd_visible_words, through the
+//     read-only cache where a tile holds chunk keys), so TC runs to S; K2
+//     packs its (T <= 16)-wide mask into one word a row in registers.
 //   * K2: the decoder step's instantiations (K10's are K2 = false, their
 //     code unchanged).  Launched with programmatic dependent launch beside
 //     the cluster attribute (cd_launch); griddep_launch() at the top.  In
@@ -118,7 +122,7 @@ struct CdArgs {
   bf16* out;             // q's layout
   long long q_b, q_h, q_t;   // element strides of q and out
   int heads, t_len, s_len, kv_len, slice;
-  int t_chunk;           // mask mode: the chunk's width (>= t_len, <= 32)
+  int t_chunk;           // mask mode: the chunk's width (>= t_len; K2: == t_len <= 16)
   // K2's mask mode: the chunk's fresh K/V rows (B * T, H * 64), the (T, T)
   // uint8 chunk mask (in place of bits) and, with int8 slabs, their (B, S,
   // 2H) bf16 scale slab (K scales at head h, V at H + h).
@@ -202,6 +206,19 @@ __device__ __forceinline__ bool cd_visible(int t, int jg, int t_len, int t_chunk
   return r < t_chunk && jg < s_len && ((bits >> r) & 1u);
 }
 
+// K10's mask mode: the same test over row t's W words of chunk bits
+// (rows: the launch's (T, W) int32 rows), bit r % 32 of word r / 32.
+__device__ __forceinline__ bool cd_visible_words(int t, int jg, int t_len, int t_chunk,
+                                                 int s_len, int off, const int* rows,
+                                                 int words) {
+  if (t >= t_len) return false;
+  if (jg < off) return true;
+  const int r = jg - off;
+  return r < t_chunk && jg < s_len &&
+         ((__ldg(reinterpret_cast<const unsigned*>(rows) + t * words + (r >> 5)) >> (r & 31)) &
+          1u);
+}
+
 // K2's mask mode: stage the first `rows` keys of a slice of one head as bf16
 // rows of `pitch` elements: keys j < hist from the slab (bf16 by cp.async;
 // int8 dequantized as it is staged, with the key's scale scale[j * sstride]),
@@ -258,9 +275,6 @@ __global__ void __launch_bounds__(CD_THREADS, 4) cross_decode_kernel(const CdArg
       if (g < t_len && a.mask[g * t_len + x]) bits0 |= 1u << x;
       if (g + 8 < t_len && a.mask[(g + 8) * t_len + x]) bits1 |= 1u << x;
     }
-  } else if constexpr (SELF) {
-    bits0 = g < t_len ? (uint32_t)a.bits[g] : 0u;
-    bits1 = g + 8 < t_len ? (uint32_t)a.bits[g + 8] : 0u;
   }
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -433,10 +447,15 @@ __global__ void __launch_bounds__(CD_THREADS, 4) cross_decode_kernel(const CdArg
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int t = g + 8 * (e >> 1), j = j0 + 8 * hh + 2 * c + (e & 1);
-        const bool vis =
-            all ? (e < 2 ? row0 : row1)
-                : j < n_load && cd_visible<SELF>(t, j_start + j, t_len, a.t_chunk, s_len,
-                                                 a.kv_len, off, e < 2 ? bits0 : bits1);
+        bool vis;
+        if constexpr (SELF && !K2)
+          vis = all ? (e < 2 ? row0 : row1)
+                    : j < n_load && cd_visible_words(t, j_start + j, t_len, a.t_chunk, s_len,
+                                                     off, a.bits, (a.t_chunk + 31) >> 5);
+        else
+          vis = all ? (e < 2 ? row0 : row1)
+                    : j < n_load && cd_visible<SELF>(t, j_start + j, t_len, a.t_chunk, s_len,
+                                                     a.kv_len, off, e < 2 ? bits0 : bits1);
         s[i][hh][e] = vis ? s[i][hh][e] * (Q ? ksc[j] : 1.0f) : -INFINITY;
       }
 #pragma unroll

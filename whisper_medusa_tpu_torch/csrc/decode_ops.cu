@@ -54,12 +54,16 @@
 // example's bits are its B=1 bits (the per-op step's self-attention is
 // batch-invariant).
 //
-// Chunks past 16 rows (T > 16: a chain of 16 or more heads): a launch takes
-// one m16 tile of queries, so ops/decode_ops.py blocks the rows into 16-row
-// launches.  Cross-attention rows are independent: each block is one more
-// launch on the same K/V.  In mask mode block j passes its own rows of
-// chunk bits over all TC columns at the same offsets (TC <= 32, the bits of
-// one int32).
+// Chunks past 16 rows (T > 16: a chain of 16 or more heads, a tree of more
+// than 16 nodes): a launch takes one m16 tile of queries, so
+// ops/decode_ops.py blocks the rows into 16-row launches.  Cross-attention
+// rows are independent: each block is one more launch on the same K/V.  In
+// mask mode block j passes its own rows of chunk bits over all TC columns at
+// the same offsets, W = ceil(TC / 32) int32 words a row (bit r % 32 of word
+// r / 32), so TC may be any width up to S; a tile of keys below the offset
+// is visible to every row without a look at the bits, and the words are
+// read (through the read-only cache) only for the tiles that hold the
+// chunk's keys.
 //
 // K11, wm_ffn_decode, replaces tools/decode_kernels_experiment.py::
 // _ffn_kernel (a sequential grid over F / 512 column blocks accumulating
@@ -148,15 +152,15 @@ extern "C" int wm_cross_decode(const void* q, const void* k, const void* v,
 }
 
 // Mask mode: q (B, T, H, 64) bf16, pre-scaled, T <= 16 query rows of a chunk
-// of TC <= 32 tokens (a block of its rows); k, v (B, S, H * 64) bf16 (the
-// self slabs, S = max_len); offsets (B,) int32; chunk_bits (T,) int32, the
-// block's rows (bit j of row t: query t sees chunk key j < TC); out (B, T, H,
-// 64) bf16.
+// of T <= TC <= S tokens (a block of its rows); k, v (B, S, H * 64) bf16 (the
+// self slabs, S = max_len); offsets (B,) int32; chunk_bits (T, ceil(TC / 32))
+// int32, the block's rows (bit j % 32 of word j / 32 of row t: query t sees
+// chunk key j < TC); out (B, T, H, 64) bf16.
 extern "C" int wm_self_decode(const void* q, const void* k, const void* v,
                               const void* offsets, const void* chunk_bits, void* out, int B,
                               int H, int T, int S, int TC, void* stream) {
   using namespace wm;
-  if (B < 1 || H < 1 || T < 1 || T > CD_MAXT || TC < T || TC > 32 || S < TC)
+  if (B < 1 || H < 1 || T < 1 || T > CD_MAXT || TC < T || S < TC)
     return (int)cudaErrorInvalidValue;
   CdArgs a = {};
   a.q = static_cast<const bf16*>(q);

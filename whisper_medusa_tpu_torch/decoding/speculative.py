@@ -1,12 +1,12 @@
-"""Speculative (Medusa) greedy decoding — counterpart of
+"""Speculative (Medusa) decoding — counterpart of
 whisper_medusa_tpu/decoding/speculative.py.
 
-Ported: the chain + greedy path of ``speculative_generate`` at any batch
-size for the ``base_head``, ``medusa_block`` and ``vanilla`` variants — one decoder
-forward per iteration over the (heads + 1)-node chain (one node for
-vanilla), fused verification, longest-prefix acceptance, the window commit,
-the finish rule and the EOS backfill.  Verification follows the JAX
-package's ``auto`` rule:
+``speculative_generate`` at any batch size for the ``base_head``,
+``medusa_block`` and ``vanilla`` variants — one decoder forward per
+iteration over the candidate tree (the (heads + 1)-node chain by default,
+one node for vanilla), verification, acceptance, the window commit, the
+finish rule and the EOS backfill.  Greedy verification of a chain follows
+the JAX package's ``auto`` rule:
 
   * B = 1: one pass of kernel K4 (``verify_hidden``) scores every (head,
     node) row, so the greedy tokens, the accepted drafts' log-probs and the
@@ -25,27 +25,54 @@ from ``block_hidden``, the output of the block layer that K2 runs after the
 decoder stack on the cache's last slot.  The decoder forward is K2 at
 B <= 8 and the per-op step (K10, K11) beyond (``whisper.decode_step``).
 
-A user hook (``pcfg.custom``, ``generate(logits_processor=...)``) cannot
-ride the fused kernels, so with one the loop takes the unfused route of the
+A user hook (``pcfg.custom``, ``generate(logits_processor=...)``), a
+branching ``medusa_choices`` tree and ``temperature > 0`` cannot ride the
+fused kernels, so with any of them the loop takes the unfused route of the
 JAX package at every B: the (K + 1) x B x N rows (the verification row and
 every draft head at every node) go through ``whisper.project_logits`` (K3,
 or K7 at int8) into materialized f32 logits, and the processors, the hook,
-the timestamp rules, the argmax, the log-softmax and the next drafts (the
-accepted node's head logits) are torch; K4 and K5 do not run.
+the timestamp rules, the acceptance, the log-softmax and the next drafts
+(the accepted node's head logits, the per-level top-k on a tree) are torch;
+K4 and K5 do not run.
 
-Timestamps (``pcfg.timestamp_rules``): each chain node carries its history
-(its last token, the token before it, the running max timestamp) and the
-verification rows take the Whisper timestamp rules inside K4 / K5's vocab
-pass (``ts_cfg``); draft rows and pass B keep the base processors, as in the
-JAX package.  A prompt longer than :data:`PREFILL_PIECE` tokens is prefilled
-in pieces of at most that many (each causal over itself, seeing the earlier
-pieces through the cache, as a decode chunk does), so every piece is a call
-K2 or the per-op step's mask mode takes.  ``stop_len`` / ``resume_state`` /
-``return_state`` decode in segments (``generate_stream``).
+Trees: the decoder forward takes the tree's ancestor mask (``chunk_mask``)
+and depths (``rel_positions``): K2 at B <= 8 and N <= 16, else the per-op
+step, where K10's mask mode reads the mask as rows of chunk bits.  After
+acceptance the accepted path's K/V rows (and int8 scales, and the
+Medusa-Block slot's) are gathered into contiguous cache positions
+(:func:`_compact_tree_cache`).  A tree may have fewer levels than the model
+has draft heads: the first ``len(choices) - 1`` heads draft.
+
+``temperature > 0``: typical acceptance (:func:`_typical_accept`, the
+posterior threshold and alpha of ``GenerationConfig``); with an ``rng``
+(a ``torch.Generator`` on the logits' device) the prefill root and every
+node's next token are drawn from ``softmax(proc / temperature)`` by a
+Gumbel-max over ``torch.rand`` (:func:`_sample`), else they are the argmax.
+The draws cannot match the JAX package's threefry draws bit for bit: equal
+generators give equal tokens, and the draws follow the tempered
+distribution.  The sampler's generator is not the draft-corruption one
+(``CORRUPTION_SEED``), so ``draft_corruption`` changes no token of a greedy
+request.
+
+Heads of more than one layer (``medusa_num_layers > 1``) verify in two
+passes at every B: pass A's rows are head 0 of the hidden state through
+``medusa_mod.apply_heads``, pass B drafts from the accepted node through the
+same function.
+
+Timestamps (``pcfg.timestamp_rules``): each node carries its history (its
+last token, the token before it, the running max timestamp: on a tree from
+the static parent / ancestor arrays) and the verification rows take the
+Whisper timestamp rules inside K4 / K5's vocab pass (``ts_cfg``), or in
+torch on the unfused route; draft rows and pass B keep the base
+processors, as in the JAX package.  A prompt longer than
+:data:`PREFILL_PIECE` tokens is prefilled in pieces of at most that many
+(each causal over itself, seeing the earlier pieces through the cache, as a
+decode chunk does), so every piece is a call K2 or the per-op step's mask
+mode takes.  ``stop_len`` / ``resume_state`` / ``return_state`` decode in
+segments (``generate_stream``).
 
 State lives in device tensors; the loop reads ``finished`` on the host once
-per iteration.  Branching trees, sampling and typical acceptance are not
-ported yet (they raise NotImplementedError).
+per iteration.
 """
 
 from __future__ import annotations
@@ -53,6 +80,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from whisper_medusa_tpu_torch.config import GenerationConfig, WhisperDims
@@ -94,6 +122,7 @@ class SpecState:
     max_ts: torch.Tensor        # (B,) highest committed timestamp (0: none)
     logprobs: torch.Tensor      # (B, max_length + levels + 1)
     gen_rng: torch.Generator    # draft corruption draws
+    rng: Optional[torch.Generator] = None   # the sampler's draws (temperature > 0)
 
 
 def prefill(params: Params, dims: WhisperDims, prompt: torch.Tensor, cache,
@@ -155,18 +184,89 @@ def _corrupt(drafts, draft_corruption, gen_rng, vocab_size):
     return torch.where(u < draft_corruption, (drafts + 1) % vocab_size, drafts)
 
 
+def _compact_tree_cache(cache, offsets: torch.Tensor, path_nodes: torch.Tensor):
+    """In place: gather the accepted path's self K/V rows (and int8 scales)
+    of every slot into contiguous positions, row ``offsets[b] + i`` taking
+    row ``offsets[b] + path_nodes[b, i]``; returns ``cache``.  The slabs are
+    (L (+1), B, max_len, D), ``self_s`` (L (+1), B, max_len, 2H)."""
+    b, lv = path_nodes.shape
+    off = offsets.long()[:, None]
+    src = off + path_nodes.long()
+    dst = off + torch.arange(lv, device=off.device)[None, :]
+    rows = torch.arange(b, device=off.device)[:, None]
+    for buf in (cache.self_k, cache.self_v, cache.self_s):
+        if buf is not None:
+            buf[:, rows, dst] = buf[:, rows, src]
+    return cache
+
+
+def _typical_accept(chunk, proc, nxt, retrieve, temperature: float,
+                    posterior_threshold: float, posterior_alpha: float):
+    """Typical acceptance over the candidate paths (the JAX package's
+    ``_typical_accept``): a path token is accepted while its probability
+    under ``softmax(proc / temperature)`` at its parent node exceeds
+    min(threshold, alpha * exp(-entropy)); among the longest accepted
+    prefixes the one of highest summed log-probability wins (ties: the
+    first path).  ``nxt`` (B, N) gives each node's next token."""
+    ptok = chunk[:, retrieve]                                     # (B, P, Lv)
+    plog = proc[torch.arange(chunk.shape[0], device=proc.device)[:, None, None],
+                retrieve[None, :, :-1]]                           # (B, P, Lv-1, V)
+    probs = torch.softmax(plog / temperature, dim=-1)
+    cand = probs.gather(-1, ptok[:, :, 1:, None].long())[..., 0]  # (B, P, Lv-1)
+    entropy = -torch.sum(probs * torch.log(probs + 1e-5), dim=-1)
+    threshold = torch.minimum(torch.tensor(posterior_threshold, device=proc.device),
+                              torch.exp(-entropy) * posterior_alpha)
+    acc_len = torch.cumprod((cand > threshold).to(torch.int32), dim=-1).sum(-1)   # (B, P)
+    max_acc = acc_len.max(dim=-1, keepdim=True).values
+    idx = torch.arange(cand.shape[-1], device=proc.device)
+    likelihood = torch.where(idx[None, None] < acc_len[..., None], torch.log(cand + 1e-30),
+                             torch.zeros_like(cand)).sum(-1)
+    score = torch.where(acc_len == max_acc, likelihood,
+                        torch.full_like(likelihood, -float("inf")))
+    best = torch.argmax(score, dim=-1)                            # ties -> first path
+    return best, max_acc[:, 0], ptok, nxt[:, retrieve]
+
+
+def _sample(proc: torch.Tensor, temperature: float, rng: torch.Generator) -> torch.Tensor:
+    """One draw per row of ``softmax(proc / temperature)``: the Gumbel-max
+    argmax(proc / T - log(-log u)), u ~ U(0, 1) from ``rng`` on proc's
+    device (as ``jax.random.categorical``; suppressed -inf logits are never
+    drawn).  int32, proc's leading shape."""
+    u = torch.rand(proc.shape, generator=rng, device=proc.device)
+    tiny = torch.finfo(torch.float32).tiny
+    gumbel = -torch.log(-torch.log(u.clamp(min=tiny, max=1.0 - 2 ** -24)))
+    return torch.argmax(proc / temperature + gumbel, dim=-1).to(torch.int32)
+
+
+def _tree_history(buffers: MedusaBuffers, device):
+    """A tree node's parent (-1 at the root) and its ancestor-or-self mask,
+    the static structure its timestamp history reads."""
+    pos, mask = buffers.position_ids, buffers.attn_mask
+    parent = [-1] + [int(np.where(mask[n] & (pos == pos[n] - 1))[0][0])
+                     for n in range(1, buffers.num_nodes)]
+    return (torch.tensor(parent, dtype=torch.long, device=device),
+            torch.as_tensor(mask, dtype=torch.bool, device=device))
+
+
 def speculative_generate(params: Params, medusa_params: Optional[Params],
                          dims: WhisperDims, buffers: MedusaBuffers, pcfg: ProcessorConfig,
                          gen: GenerationConfig, enc_out: torch.Tensor,
                          prompt: torch.Tensor, variant: str = "base_head",
                          draft_corruption: Optional[float] = None,
                          resume_state: Optional[SpecState] = None,
-                         stop_len: Optional[int] = None, return_state: bool = False):
-    """The chain-greedy decode loop; a :class:`SpecResult` (with the
-    :class:`SpecState` when ``return_state``).  ``stop_len`` pauses once every
-    unfinished example's ``cur_len`` reaches it; ``resume_state`` continues a
-    paused segment (no prefill; ``first_logits`` is then zeros).  Segmented
-    decoding commits the same tokens as one call."""
+                         stop_len: Optional[int] = None, return_state: bool = False,
+                         rng: Optional[torch.Generator] = None):
+    """The decode loop; a :class:`SpecResult` (with the :class:`SpecState`
+    when ``return_state``).  ``stop_len`` pauses once every unfinished
+    example's ``cur_len`` reaches it; ``resume_state`` continues a paused
+    segment (no prefill; ``first_logits`` is then zeros; the state's
+    sampler generator continues and ``rng`` is not read).  Segmented
+    decoding commits the same tokens as one call.  ``rng``: with
+    ``gen.temperature > 0``, a ``torch.Generator`` on ``enc_out``'s device
+    that draws the tokens (sampling); without one the tokens are the argmax
+    and typical acceptance decides."""
+    from whisper_medusa_tpu_torch.decoding.beam import top_k
+
     if variant not in ("base_head", "medusa_block", "vanilla"):
         raise ValueError(f"unknown variant {variant!r}")
     vanilla = variant == "vanilla" or medusa_params is None
@@ -174,12 +274,6 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
     # from the block layer's output.
     block = None if vanilla or variant != "medusa_block" else medusa_params["block"]
     first_head = 0 if block is not None else 1
-    if not buffers.is_chain:
-        raise NotImplementedError("branching medusa_choices trees are not ported "
-                                  "yet (ROADMAP queue 1: remaining decode modes)")
-    if gen.temperature != 0.0:
-        raise NotImplementedError("sampling is not ported yet (ROADMAP queue 1: "
-                                  "remaining decode modes)")
     dev = enc_out.device
     b, t0 = prompt.shape
     eos, pad, max_length = gen.eos_token_id, gen.pad_token_id, gen.max_length
@@ -188,36 +282,54 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
     lv = buffers.num_levels
     vocab = dims.vocab_size
     embed = params["decoder"]["embed_tokens"]
+    tree = not buffers.is_chain
+    greedy = gen.temperature == 0.0
+    if resume_state is not None:
+        rng = resume_state.rng
+    sample = not greedy and rng is not None
+    n_head_layers = 1
     if vanilla:
         if num_heads:
             raise ValueError("vanilla decoding has no draft heads: medusa_choices (1,)")
         medusa_params = None
     else:
         hw = medusa_params["heads"]["w"]
-        shape = (hw["q"] if qmm_mod.is_quantized(hw) else hw).shape
-        if shape[1] != 1 or shape[0] != num_heads + first_head or num_heads < 1:
-            raise NotImplementedError(
-                "fused verification takes single-layer heads, at least one draft "
-                "head and a chain over every head")
-        heads_w = qmm_mod.wmap(hw, lambda a: a[:, 0])
-        heads_b = medusa_params["heads"]["b"][:, 0]
-        draft_params = _head_slice(medusa_params, first_head, None)
-    # A hook takes the unfused route (materialized logits); else the JAX
-    # package's auto rule: two passes at B >= 2, one K4 pass at B = 1 where K4
-    # takes the rows (verify.hidden_available), else two passes.
-    unfused = pcfg.custom is not None
-    two_pass = not vanilla and not unfused and (b >= 2 or not verify_mod.hidden_available(
-        b, n_nodes, shape[0], block is not None, vocab, dims.d_model))
+        n_all, n_head_layers = (hw["q"] if qmm_mod.is_quantized(hw) else hw).shape[:2]
+        if num_heads < 1 or n_all < num_heads + first_head:
+            raise ValueError(
+                f"medusa_choices of {lv} levels take {num_heads} draft heads and at least "
+                f"one; the model has {n_all - first_head}")
+        # The first len(choices) - 1 draft heads (and base_head's head 0).
+        n_used = num_heads + first_head
+        used_params = _head_slice(medusa_params, 0, n_used)
+        draft_params = _head_slice(medusa_params, first_head, n_used)
+        head0 = _head_slice(medusa_params, 0, 1)
+    # A hook, a tree or temperature > 0 takes the unfused route
+    # (materialized logits), as in the JAX package; else its auto rule: two
+    # passes at B >= 2 (and for heads of more than one layer), one K4 pass at
+    # B = 1 where K4 takes the rows (verify.hidden_available), else two
+    # passes.
+    unfused = pcfg.custom is not None or tree or not greedy
+    two_pass = not vanilla and not unfused and (
+        b >= 2 or n_head_layers > 1 or not verify_mod.hidden_available(
+            b, n_nodes, n_used, block is not None, vocab, dims.d_model))
     kp1 = 1 if vanilla or two_pass else num_heads + 1
+    if not (vanilla or unfused or two_pass):
+        heads_w = qmm_mod.wmap(used_params["heads"]["w"], lambda a: a[:, 0])
+        heads_b = used_params["heads"]["b"][:, 0]
 
     tree_idx = torch.as_tensor(buffers.tree_indices, dtype=torch.long, device=dev)
     pos_ids = torch.as_tensor(buffers.position_ids, dtype=torch.int32, device=dev)
     retrieve = torch.as_tensor(buffers.retrieve_indices, dtype=torch.long, device=dev)
+    chunk_mask = (torch.as_tensor(buffers.attn_mask, dtype=torch.bool, device=dev)
+                  if tree else None)
     sup_masks = verify_mod.masks_for(pcfg, dev)
     vkw = dict(begin_index=pcfg.begin_index, eos_id=pcfg.eos_token_id,
                decay=pcfg.exponential_decay_length_penalty)
     use_ts = pcfg.timestamp_rules
     ts_cfg = verify_mod.ts_cfg_for(pcfg) if use_ts else None
+    if use_ts and tree:
+        ts_parents, ts_anc = _tree_history(buffers, dev)
     arange_lv = torch.arange(lv, device=dev)[None, :]
     kp1_rows = torch.arange(kp1, dtype=torch.int32, device=dev)[:, None, None]
     batch_rows = torch.arange(b, device=dev)
@@ -227,12 +339,18 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
 
     def chunk_from_draft_logits(root, head_logits, new_len):
         """Next chunk from the heads' logits (B, K, V) at one position: head
-        k's draft predicts position new_len + k - 1."""
+        k's draft predicts position new_len + k - 1; level l takes its
+        head's top choices[l] tokens (lax.top_k's order)."""
         draft_pos = new_len[:, None] + torch.arange(num_heads, dtype=torch.int32,
                                                     device=dev)[None, :]
         dproc = apply_processors(head_logits, draft_pos, pcfg)        # (B, K, V)
-        drafts = torch.argmax(dproc, dim=-1).to(torch.int32)
-        drafts = _corrupt(drafts, draft_corruption, gen_rng, vocab)
+        if tree:
+            drafts = torch.cat([top_k(dproc[:, l - 1], k)[1] if k > 1 else
+                                torch.argmax(dproc[:, l - 1], dim=-1)[:, None]
+                                for l, k in enumerate(buffers.choices) if l], dim=1)
+        else:
+            drafts = torch.argmax(dproc, dim=-1)
+        drafts = _corrupt(drafts.to(torch.int32), draft_corruption, gen_rng, vocab)
         return torch.cat([root[:, None], drafts], dim=1)[:, tree_idx]
 
     def drafts_to_chunk(root, hidden_acc, new_len):
@@ -249,8 +367,15 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
         if vanilla:
             return hidden[None]
         if block is None:
-            return medusa_mod.apply_heads(medusa_params, hidden)
+            return medusa_mod.apply_heads(used_params, hidden)
         return torch.cat([hidden[None], medusa_mod.apply_heads(draft_params, hsrc)])
+
+    def next_tokens(proc):
+        """Each row's next token: drawn at temperature > 0 with an rng, else
+        the argmax."""
+        if sample:
+            return _sample(proc, gen.temperature, rng)
+        return torch.argmax(proc, dim=-1).to(torch.int32)
 
     draft_src = lambda o: o.hidden if block is None else o.block_hidden
 
@@ -272,7 +397,7 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
             proc = apply_timestamp_rules(
                 proc, at_t0, prompt[:, -1], prompt[:, -2] if t0 >= 2 else prompt[:, -1],
                 torch.zeros((b,), dtype=torch.int32, device=dev), pcfg)
-        root0 = torch.argmax(proc, dim=-1).to(torch.int32)
+        root0 = next_tokens(proc)
         tokens = torch.full((b, buf_len), pad, dtype=torch.int32, device=dev)
         tokens[:, :t0] = prompt
         tokens[:, t0] = root0
@@ -302,14 +427,22 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
             break
         offsets = cur_len - 1
         out = whisper.decode_step(params, dims, chunk, cache, offsets,
-                                  rel_positions=pos_ids, block=block)
+                                  rel_positions=pos_ids, chunk_mask=chunk_mask, block=block)
         hidden = out.hidden                                           # (B, N, D)
         if use_ts:
             # Each node's history: its last token, the one before it and the
-            # running max timestamp.
-            penult_nodes = torch.cat([prev2[:, None], chunk[:, :-1]], dim=1)
-            node_max_ts = torch.maximum(max_ts[:, None],
-                                        torch.cummax(ts_val(chunk, pcfg), dim=1).values)
+            # running max timestamp (on a tree along its ancestors).
+            if tree:
+                penult_nodes = torch.where(ts_parents[None, :] >= 0,
+                                           chunk[:, ts_parents.clamp(min=0)], prev2[:, None])
+                ts_chunk = ts_val(chunk, pcfg)
+                path_max = torch.where(ts_anc[None], ts_chunk[:, None, :],
+                                       torch.zeros_like(ts_chunk)[:, None, :]).amax(dim=2)
+                node_max_ts = torch.maximum(max_ts[:, None], path_max)
+            else:
+                penult_nodes = torch.cat([prev2[:, None], chunk[:, :-1]], dim=1)
+                node_max_ts = torch.maximum(
+                    max_ts[:, None], torch.cummax(ts_val(chunk, pcfg), dim=1).values)
         if unfused:
             # Every row's logits materialized (K3 / K7), the rest in torch.
             logits = whisper.project_logits(params, stack_rows(hidden, draft_src(out)))
@@ -318,7 +451,7 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
             if use_ts:
                 proc = apply_timestamp_rules(proc, pred_pos, chunk, penult_nodes,
                                              node_max_ts, pcfg)
-            nxt = torch.argmax(proc, dim=-1).to(torch.int32)
+            nxt = next_tokens(proc)
         else:
             # Row (k, e, n) predicts absolute position cur_len[e] + n + k.
             pos_rows = (cur_len[None, :, None] + pos_ids[None, None, :]
@@ -343,11 +476,10 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
                     flat, embed, pos_rows, gcol_rows, sup_masks, **vkw, **ts_kw)
             elif two_pass:
                 # Pass A: the verification rows only — the hidden rows
-                # themselves (medusa_block), or head 0 of them built by the
-                # same GEMM mode as K4's stage A (base_head), with the same
-                # bits.
-                rows = flat if block is not None else verify_mod.head_rows(
-                    flat, qmm_mod.wmap(heads_w, lambda a: a[:1]), heads_b[:1])[0]
+                # themselves (medusa_block), or head 0 of them (base_head:
+                # for one-layer heads the GEMM mode of K4's stage A, with
+                # the same bits).
+                rows = flat if block is not None else medusa_mod.apply_heads(head0, flat)[0]
                 am, mx, lse, gth = verify_mod.verify_rows(
                     rows, embed, pos_rows, gcol_rows, sup_masks, **vkw, **ts_kw)
             else:
@@ -357,7 +489,12 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
             am, mx, lse, gth = (a.reshape(kp1, b, n_nodes) for a in (am, mx, lse, gth))
             nxt = am[0]
 
-        best, accept, ptok, pnxt = _greedy_accept(chunk, nxt, retrieve)
+        if greedy:
+            best, accept, ptok, pnxt = _greedy_accept(chunk, nxt, retrieve)
+        else:
+            best, accept, ptok, pnxt = _typical_accept(
+                chunk, proc, nxt, retrieve, gen.temperature, gen.posterior_threshold,
+                gen.posterior_alpha)
         best_tok = ptok[batch_rows, best]                             # (B, Lv)
         best_nxt = pnxt[batch_rows, best]
         acc_col = accept[:, None].long()
@@ -388,6 +525,8 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
         new_len = (cur_len + ncommit).to(torch.int32)
         eos_hit = ((window == eos) & (arange_lv <= acc_col)).any(-1)
         accepted = accepted + torch.where(finished, torch.zeros_like(accept), accept)
+        if tree:
+            _compact_tree_cache(cache, offsets, best_nodes)
 
         if vanilla:
             chunk = bonus[:, None]
@@ -437,5 +576,5 @@ def speculative_generate(params: Params, medusa_params: Optional[Params],
         return result, SpecState(tokens=tokens, cur_len=cur_len, finished=finished,
                                  cache=cache, chunk=chunk, steps=steps, accepted=accepted,
                                  prev2=prev2, max_ts=max_ts, logprobs=logprobs,
-                                 gen_rng=gen_rng)
+                                 gen_rng=gen_rng, rng=rng)
     return result

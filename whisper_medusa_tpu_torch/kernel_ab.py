@@ -12,8 +12,10 @@ called on the same seeded inputs and output buffers (allocated once), so the
 times exclude the wrappers' checks and allocations.  First, the SASS of the
 weight-streaming GEMM's instantiations that K2 and K11 run
 (``wgemm_kernel<MT, W8, LN>``), of K4 / K5's vocab stream outside the
-timestamp mode (``vocab_stream_kernel<MT, Q>``) and of its combine
-(``verify_combine_kernel``) is compared between the builds (``cuobjdump
+timestamp mode (``vocab_stream_kernel<MT, Q>``), of its combine
+(``verify_combine_kernel``) and of the cluster attention body that K2 and
+K10's cross mode run (``cross_decode_kernel<KT, SELF, K2>``, all but K10's
+mask mode) is compared between the builds (``cuobjdump
 -sass``), instruction for instruction, and whether it is the same is
 printed.  Then:
 
@@ -32,7 +34,8 @@ printed.  Then:
   * K10, ``wm_cross_decode``, at (16, 20, 11, 64) x 1500, bf16 and int8 K/V
     (the per-op step's cross-attention at B=16 on the Medusa chain), and its
     mask mode, ``wm_self_decode``, at (16, T=11, 20 heads) x 460 (the per-op
-    step's self-attention);
+    step's self-attention; the builds also held bitwise equal at T=11 on a
+    tree mask and at TC = 24 and 32 in 16-row launches);
   * K7, ``wm_qmm_nt``, at M = 10 and 80 rows against large-v2's int8 tied
     embedding (the B=1 and B=8 draft projections), with ``x @ E.T`` on a
     bf16 copy timed beside it; the builds' outputs bitwise equal;
@@ -148,17 +151,25 @@ def _turns(what, calls, entry=None, libs=None, part=None, cold=False):
 
 
 # Instantiations held to the other build's SASS, by family: a mangled-name
-# pattern whose last group, a mode flag added at its default (false), must
-# not be 1, and whose other groups are the instantiation's key.  K2's and
-# K11's GEMM (wgemm_kernel<MT, W8, LN>, not the heads mode), and the non-ts
-# vocab stream of K4 / K5 (vocab_stream_kernel<MT, Q>, <MT, Q, false> since
-# the timestamp mode) and its combine (the ts mode has a combine kernel of
-# its own).
+# pattern whose groups are the instantiation's key, and a predicate on the
+# key that leaves an instantiation out (a mode added later at its default,
+# or the one instantiation a change widens).  K2's and K11's GEMM
+# (wgemm_kernel<MT, W8, LN>, not the heads mode), the non-ts vocab stream of
+# K4 / K5 (vocab_stream_kernel<MT, Q>, <MT, Q, false> since the timestamp
+# mode) and its combine (the ts mode has a combine kernel of its own), and
+# the cluster attention body of K2 (K2 = true) and of K10's cross mode
+# (cross_decode_kernel<KT, SELF, K2>, all but K10's mask mode <bf16, true,
+# false>, whose chunk bits became words of a row).
 _HELD = (("wgemm_kernel<MT, W8, LN>",
-          re.compile(r"wgemm_kernelILi(\d+)ELb([01])ELb([01])E(?:Lb([01])E)?E")),
+          re.compile(r"wgemm_kernelILi(\d+)ELb([01])ELb([01])E(?:Lb([01])E)?E"),
+          lambda key: key[-1] == "1"),
          ("vocab_stream_kernel<MT, Q>",
-          re.compile(r"vocab_stream_kernelILi(\d+)ELb([01])E(?:Lb([01])E)?E")),
-         ("verify_combine_kernel", re.compile(r"21verify_combine_kernel()")))
+          re.compile(r"vocab_stream_kernelILi(\d+)ELb([01])E(?:Lb([01])E)?E"),
+          lambda key: key[-1] == "1"),
+         ("verify_combine_kernel", re.compile(r"21verify_combine_kernel()"), lambda key: False),
+         ("cross_decode_kernel<KT, SELF, K2>",
+          re.compile(r"cross_decode_kernelI(\w+?)Lb([01])ELb([01])EE"),
+          lambda key: key[1:] == ("1", "0")))
 
 
 def _sass_functions(so_path):
@@ -171,13 +182,13 @@ def _sass_functions(so_path):
     out = collections.defaultdict(list)
     for chunk in re.split(r"\n\s*Function : ", text)[1:]:
         name, _, body = chunk.partition("\n")
-        for family, pattern in _HELD:
+        for family, pattern, skip in _HELD:
             m = pattern.search(name)
-            if m is None or m.groups()[-1] == "1":
+            if m is None or skip(m.groups()):
                 continue
             ins = [re.sub(r"/\*[^*]*\*/", "", line).strip() for line in body.splitlines()
                    if re.match(r"\s*/\*[0-9a-f]+\*/", line)]
-            key = tuple(int(x) for x in m.groups()[:-1])
+            key = tuple(x for x in m.groups() if x is not None)
             out[(family, key)].append(_relabel("\n".join(ins)))
     return {k: sorted(v) for k, v in out.items()}
 
@@ -195,7 +206,7 @@ def _sass_same(libs):
     """Print, per family of _HELD, whether its instantiations are
     instruction for instruction the same in both builds."""
     funcs = {who: _sass_functions(mod.lib()._name) for who, mod in libs.items()}
-    for family, _ in _HELD:
+    for family, _, _ in _HELD:
         mine = {k: v for k, v in funcs["this"].items() if k[0] == family}
         theirs = {k: v for k, v in funcs["other"].items() if k[0] == family}
         keys = sorted(set(mine) | set(theirs))
@@ -351,27 +362,46 @@ def _k10(root, libs, g):
 
 
 def _k10_mask(libs, g):
-    """K10's mask mode, ``wm_self_decode``, at (16, T=11, 20 heads) x 460
-    (the per-op step's self-attention at B=16) at offsets 3-400, causal
-    chunk bits; the builds' outputs must be bitwise equal."""
+    """K10's mask mode, ``wm_self_decode``, at (16, T, 20 heads) x 460 (the
+    per-op step's self-attention at B=16) at offsets 3-400, on chunks of at
+    most 32 columns (one word a row of chunk bits, the only width the other
+    build may take): T = 11 causal (the Medusa chain) and tree, and TC = 24
+    (tree) and 32 (causal) in 16-row launches; the builds' outputs must be
+    bitwise equal.  The first case is timed."""
     from whisper_medusa_tpu_torch.ops import decode_ops as DO
 
-    b, h, t, s_len = 16, 20, 11, 460
+    b, h, s_len = 16, 20, 460
     rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
-    q = (torch.randn((b, t, h, 64), generator=g, device="cuda") * 0.125).to(torch.bfloat16)
     k, v = rnd(b, s_len, h * 64), rnd(b, s_len, h * 64)
-    offs = torch.tensor([3 + (37 * e) % (s_len - t - 3) for e in range(b)], dtype=torch.int32,
-                        device="cuda")
-    bits = DO.chunk_bits(None, t, "cuda")
-    outs = {who: torch.empty_like(q) for who in libs}
-    calls = {who: (lambda mod=mod, o=outs[who]: mod.launch(
-        "wm_self_decode", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), offs.data_ptr(),
-        bits.data_ptr(), o.data_ptr(), b, h, t, s_len, t)) for who, mod in libs.items()}
-    for fn in calls.values():
-        fn()
-    if not torch.equal(outs["this"], outs["other"]):
-        raise AssertionError("K10 mask mode: the builds differ")
-    _turns(f"K10 mask mode ({b}, T={t}, {h} heads) x {s_len}, builds bitwise equal", calls)
+    for tc, tree in ((11, False), (11, True), (24, True), (32, False)):
+        q = (torch.randn((b, tc, h, 64), generator=g, device="cuda") * 0.125).to(torch.bfloat16)
+        offs = torch.tensor([3 + (37 * e) % (s_len - tc - 3) for e in range(b)],
+                            dtype=torch.int32, device="cuda")
+        cm = None
+        if tree:   # node i sees itself, node 0 and the even nodes before it
+            cm = torch.eye(tc, dtype=torch.bool, device="cuda")
+            cm[:, 0] = True
+            for i in range(tc):
+                cm[i, :i:2] = True
+        bits = DO.chunk_bits(cm, tc, "cuda")
+        blocks = [(q[:, r0:r0 + n].contiguous(), bits[r0:r0 + n].contiguous())
+                  for r0, n in DO.row_blocks(tc)]
+        outs = {who: [torch.empty_like(qb) for qb, _ in blocks] for who in libs}
+
+        def call(mod, outs_who):
+            for (qb, bb), o in zip(blocks, outs_who):
+                mod.launch("wm_self_decode", qb.device, qb.data_ptr(), k.data_ptr(),
+                           v.data_ptr(), offs.data_ptr(), bb.data_ptr(), o.data_ptr(), b, h,
+                           qb.shape[1], s_len, tc)
+        calls = {who: (lambda mod=mod, o=outs[who]: call(mod, o)) for who, mod in libs.items()}
+        for fn in calls.values():
+            fn()
+        what = f"K10 mask mode (16, TC={tc}, {'tree' if tree else 'causal'}, {h} heads) x {s_len}"
+        if not all(torch.equal(a, c) for a, c in zip(outs["this"], outs["other"])):
+            raise AssertionError(f"{what}: the builds differ")
+        print(f"{what}: builds bitwise equal ({len(blocks)} launches)", flush=True)
+        if (tc, tree) == (11, False):
+            _turns(f"{what}, builds bitwise equal", calls)
 
 
 def _k11(root, libs, g):

@@ -1,18 +1,21 @@
 """Public model API — counterpart of whisper_medusa_tpu/models/api.py.
 
 ``WhisperMedusaModel`` with ``from_random``, ``from_pretrained``, ``encode``,
-``detect_language``, ``generate`` and ``generate_stream`` for the
-single-temperature greedy path of both Medusa variants (``base_head``, and
-``medusa_block``, chosen by ``config.medusa.medusa_heads_type``) and vanilla
-decoding (``disable_medusa=True``) at any batch size: ``language`` given (one
-code, or one per example) or detected per example, ``max_length`` /
-``max_new_tokens``, the suppress lists, the exponential decay length
-penalty, the no-speech probability, ``return_timestamps`` with its segments,
-``prompt_ids``, longform input (> 30 s) through the seek loop
+``detect_language``, ``generate`` and ``generate_stream`` for both Medusa
+variants (``base_head``, and ``medusa_block``, chosen by
+``config.medusa.medusa_heads_type``) and vanilla decoding
+(``disable_medusa=True``) at any batch size: ``language`` given (one code,
+or one per example) or detected per example, ``max_length`` /
+``max_new_tokens``, ``medusa_choices`` chains and branching trees, the
+suppress lists, the exponential decay length penalty, the no-speech
+probability, the temperature-fallback ladder (``temperature`` lists,
+``seed``, ``compression_ratio_threshold``, ``logprob_threshold``; typical
+acceptance and sampling at temperature > 0), ``return_timestamps`` with its
+segments, ``prompt_ids``, longform input (> 30 s) through the seek loop
 (``condition_on_prev_tokens``, ``prompt_condition_type``,
 ``attention_mask``), the ``logits_processor`` hook and beam search
-(``num_beams``, ``length_penalty``; shortform and longform).  Every other
-option of the JAX ``generate`` raises NotImplementedError naming its
+(``num_beams``, ``length_penalty``; shortform and longform).  The capture
+surfaces of the JAX ``generate`` raise NotImplementedError naming their
 ROADMAP item.  ``quantize()`` gives
 the int8 serving copy (W8A16 decoder, embedding, heads and Medusa-Block
 layer; int8 caches).  Everything runs on the card unless the model was made
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import zlib
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -55,9 +59,6 @@ class GenerateOutput:
 # generate() options of the JAX package that this slice does not run: the
 # default (accepted, a no-op) and the ROADMAP queue-1 item that brings it.
 _UNPORTED = {
-    "temperature": (0.0, "remaining decode modes"),
-    "seed": (0, "remaining decode modes"),
-    "compression_ratio_threshold": (None, "remaining decode modes"),
     "return_scores": (False, "capture surfaces"),
     "return_cross_attentions": (False, "capture surfaces"),
     "return_decoder_attentions": (False, "capture surfaces"),
@@ -197,6 +198,9 @@ class WhisperMedusaModel:
         num_beams: int = 1,
         length_penalty: float = 1.0,
         logits_processor: Optional[Callable] = None,
+        temperature: Union[float, Sequence[float]] = 0.0,
+        compression_ratio_threshold: Optional[float] = None,
+        seed: int = 0,
         **options,
     ) -> GenerateOutput:
         """Transcribe a batch of mel features (B, n_mels, frames); K2 runs
@@ -207,7 +211,19 @@ class WhisperMedusaModel:
         one temperature ``logprob_threshold`` only gates no-speech
         blanking, as in the JAX package.  ``draft_corruption`` replaces each draft token
         with probability p (a benchmarking knob: the emitted tokens do not
-        change, only the accept counts).
+        change, only the accept counts).  ``medusa_choices`` may be a
+        branching tree (per-level branching factors, e.g. (1, 2, 2, 1)).
+
+        ``temperature``: one value or a fallback ladder (t0, t1, ...).  A
+        rung at 0 decodes greedily; a rung at t > 0 verifies by typical
+        acceptance and samples from softmax(logits / t) with a
+        ``torch.Generator`` seeded from (``seed``, rung index).  After each
+        rung the examples whose generated tokens compress by more than
+        ``compression_ratio_threshold`` or whose mean log-prob is below
+        ``logprob_threshold`` are decoded again, alone, at the next rung;
+        every returned field of an example comes from the rung that
+        produced its kept sequence, ``steps`` sums the rungs' loop
+        iterations (:meth:`_decode_ladder`).
 
         ``return_timestamps=True`` drops ``<|notimestamps|>`` from the prompt,
         applies the Whisper timestamp rules at every verified position and
@@ -229,14 +245,13 @@ class WhisperMedusaModel:
         input through the seek loop) with the GNMT ``length_penalty``;
         ``avg_logprobs`` are then the beams' length-normalized scores."""
         if num_beams != 1:
-            _check_beam_options(num_beams, logprob_threshold, no_speech_threshold,
-                                options)
+            _check_beam_options(num_beams, temperature, compression_ratio_threshold,
+                                logprob_threshold, no_speech_threshold, options)
         for name, value in options.items():
             if name not in _UNPORTED:
                 raise TypeError(f"generate() got an unexpected keyword argument {name!r}")
             default, item = _UNPORTED[name]
-            if value != default and not (name == "temperature"
-                                         and tuple(np.atleast_1d(value)) == (0.0,)):
+            if value != default:
                 raise _not_ported(f"generate({name}={value!r})", item)
         if max_new_tokens is not None and int(max_new_tokens) < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
@@ -269,7 +284,8 @@ class WhisperMedusaModel:
                 condition_on_prev_tokens=condition_on_prev_tokens, prompt_ids=prompt_ids,
                 prompt_condition_type=prompt_condition_type, attention_mask=attention_mask,
                 num_beams=num_beams, length_penalty=length_penalty,
-                logits_processor=logits_processor)
+                logits_processor=logits_processor, temperature=temperature,
+                compression_ratio_threshold=compression_ratio_threshold, seed=seed)
         if num_beams != 1:
             return self._generate_beam(
                 feats, language=language, task=task, max_length=max_length,
@@ -288,20 +304,15 @@ class WhisperMedusaModel:
             max_initial_timestamp_index=max_initial_timestamp_index,
             logits_processor=logits_processor)
         st, gd = self.special, self.generation_config
-        choices, variant, medusa_params = self._decode_mode(disable_medusa, medusa_choices)
-        result = speculative_generate(
-            self.params["whisper"], medusa_params, cfg.dims,
-            generate_medusa_buffers(choices), pcfg, gen, enc_out,
-            torch.as_tensor(prompt, device=self.device), variant=variant,
-            draft_corruption=draft_corruption)
-
-        tokens = result.tokens.cpu().numpy()
-        lengths = result.lengths.cpu().numpy()
-        logprobs = result.logprobs.cpu().numpy()
-        accepted = result.accepted.cpu().numpy()
-        steps = np.full((b,), result.steps, np.int64)
+        merged, steps_total = self._decode_ladder(
+            enc_out, prompt, pcfg, gen, disable_medusa, medusa_choices, draft_corruption,
+            temperature, compression_ratio_threshold, logprob_threshold, seed)
+        tokens, lengths, logprobs = merged["tokens"], merged["lengths"], merged["logprobs"]
+        accepted, steps = merged["accepted"], merged["steps"]
+        # Accepted drafts per step, each example against its own rung's loop
+        # count (accepted.sum() / steps when no fallback ran).
         mean_acc = float(np.sum(accepted / np.maximum(steps, 1)))
-        fl = result.first_logits.float().cpu().numpy()
+        fl = merged["first_logits"]
         p = np.exp(fl - fl.max(-1, keepdims=True))
         no_speech_probs = (p / p.sum(-1, keepdims=True))[:, st.no_speech]
         # The average from before no-speech blanking, as the JAX package
@@ -319,7 +330,7 @@ class WhisperMedusaModel:
             segments = [_extract_segments(tokens[i], int(lengths[i]), prompt.shape[1],
                                           time_precision, st) for i in range(b)]
         return GenerateOutput(
-            sequences=tokens, lengths=lengths, steps=result.steps,
+            sequences=tokens, lengths=lengths, steps=steps_total,
             accepted=accepted, mean_accept_length=mean_acc,
             detected_language=detected, segments=segments,
             no_speech_probs=no_speech_probs, token_logprobs=logprobs,
@@ -400,7 +411,9 @@ class WhisperMedusaModel:
         gen = GenerationConfig(max_length=max_length, temperature=0.0,
                                eos_token_id=st.eos, pad_token_id=gd.pad_token_id,
                                decoder_start_token_id=st.sot, suppress_tokens=sup,
-                               begin_suppress_tokens=bsup)
+                               begin_suppress_tokens=bsup,
+                               posterior_threshold=gd.posterior_threshold,
+                               posterior_alpha=gd.posterior_alpha)
         return enc_out, prompt, detected, pcfg, gen
 
     def _decode_mode(self, disable_medusa: bool, medusa_choices=None):
@@ -409,6 +422,61 @@ class WhisperMedusaModel:
             return (1,), "vanilla", None
         return (tuple(medusa_choices or self.config.medusa.medusa_choices),
                 self.config.medusa.medusa_heads_type, self.params["medusa"])
+
+    def _decode_ladder(self, enc_out: torch.Tensor, prompt: np.ndarray, pcfg, gen,
+                       disable_medusa: bool, medusa_choices, draft_corruption, temperature,
+                       compression_ratio_threshold, logprob_threshold, seed: int):
+        """The temperature-fallback ladder with subset retry (the JAX
+        package's, api.py:560-626): rung 0 decodes every example, each later
+        rung only the examples that still fail :func:`_needs_fallback`, and
+        every per-example field (tokens, lengths, log-probs, accepted,
+        steps, first logits) comes from the rung that produced the
+        example's kept sequence.  The JAX package pads a retry batch to a
+        power of two to bound its jit cache; the port has none to bound and
+        decodes exactly the failing rows.  ({field: (B, ...) numpy},
+        summed loop iterations)."""
+        cfg = self.config
+        b, p_len = prompt.shape
+        choices, variant, medusa_params = self._decode_mode(disable_medusa, medusa_choices)
+        buffers = generate_medusa_buffers(choices)
+        temps = ((temperature,) if isinstance(temperature, (int, float))
+                 else tuple(temperature))
+        keep = np.zeros((b,), bool)
+        merged, steps_total = {}, 0
+        for t_i, temp in enumerate(temps):
+            fail = np.arange(b) if t_i == 0 else np.where(~keep)[0]
+            rng = None
+            if float(temp) > 0.0:
+                # Sampled rungs draw from a generator seeded from (seed, rung).
+                rng = torch.Generator(device=self.device)
+                rng.manual_seed(int(np.random.SeedSequence([seed, t_i]).generate_state(1)[0]))
+            rows_idx = torch.as_tensor(fail, device=self.device)
+            result = speculative_generate(
+                self.params["whisper"], medusa_params, cfg.dims, buffers, pcfg,
+                dataclasses.replace(gen, temperature=float(temp)),
+                enc_out if t_i == 0 else enc_out[rows_idx],
+                torch.as_tensor(prompt[fail], device=self.device), variant=variant,
+                draft_corruption=draft_corruption, rng=rng)
+            steps_total += result.steps
+            rows = {"tokens": result.tokens.cpu().numpy(),
+                    "lengths": result.lengths.cpu().numpy(),
+                    "logprobs": result.logprobs.cpu().numpy(),
+                    "accepted": result.accepted.cpu().numpy(),
+                    "steps": np.full((len(fail),), result.steps, np.int64),
+                    "first_logits": result.first_logits.float().cpu().numpy()}
+            if t_i == 0:
+                merged = rows
+            else:
+                for k, v in rows.items():
+                    merged[k][fail] = v
+            avg_lp = _avg_from_captured(rows["logprobs"], rows["lengths"], p_len)
+            bad = _needs_fallback(rows["tokens"], rows["lengths"], p_len,
+                                  compression_ratio_threshold, avg_lp, logprob_threshold,
+                                  vocab_size=cfg.dims.vocab_size)
+            keep[fail] = ~bad
+            if keep.all():
+                break
+        return merged, steps_total
 
     def _generate_beam(self, feats: torch.Tensor, *, language, task, max_length,
                        max_new_tokens, num_beams, suppress_tokens="default",
@@ -452,7 +520,8 @@ class WhisperMedusaModel:
                            no_speech_threshold, draft_corruption, return_timestamps,
                            time_precision, condition_on_prev_tokens, prompt_ids,
                            prompt_condition_type, attention_mask, num_beams=1,
-                           length_penalty=1.0, logits_processor=None) -> GenerateOutput:
+                           length_penalty=1.0, logits_processor=None, temperature=0.0,
+                           compression_ratio_threshold=None, seed=0) -> GenerateOutput:
         """The seek loop over 30 s windows (the JAX package's
         ``_generate_longform`` without the capture surfaces).  Each
         window decodes with timestamps; where it holds a complete segment and
@@ -471,7 +540,9 @@ class WhisperMedusaModel:
         iterations over rounds; ``accepted`` counts active examples only.
         With ``num_beams > 1`` every window is beam-decoded and no per-token
         log-probs are returned (``token_logprobs`` and ``avg_logprobs`` None),
-        as in the JAX package."""
+        as in the JAX package.  Every window runs the temperature ladder
+        (``temperature``, ``compression_ratio_threshold``,
+        ``logprob_threshold``, ``seed``) of :meth:`generate`."""
         cfg = self.config
         st = self.special
         b, _, total_frames = feats.shape
@@ -499,7 +570,9 @@ class WhisperMedusaModel:
                      no_speech_threshold=no_speech_threshold,
                      draft_corruption=draft_corruption, return_timestamps=True,
                      time_precision=time_precision, num_beams=num_beams,
-                     length_penalty=length_penalty, logits_processor=logits_processor)
+                     length_penalty=length_penalty, logits_processor=logits_processor,
+                     temperature=temperature,
+                     compression_ratio_threshold=compression_ratio_threshold, seed=seed)
 
         def fold_window(i, out, row, p_len, seek):
             """Example i's kept tokens, log-probs and segments from window
@@ -658,16 +731,15 @@ def require_servable_dtype(params, device) -> None:
             "from_pretrained(path, dtype=\"bfloat16\")")
 
 
-def _check_beam_options(num_beams: int, logprob_threshold, no_speech_threshold,
-                        options) -> None:
+def _check_beam_options(num_beams: int, temperature, compression_ratio_threshold,
+                        logprob_threshold, no_speech_threshold, options) -> None:
     """Beam search takes no temperature fallback, no quality thresholds and
     no capture surface: ValueError naming each, as the JAX package raises."""
-    temperature = options.get("temperature", 0.0)
     temps = tuple(np.atleast_1d(temperature).tolist())
     unsupported = []
     if any(float(t) != 0.0 for t in temps) or len(temps) > 1:
         unsupported.append("temperature fallback")
-    for name, v in (("compression_ratio_threshold", options.get("compression_ratio_threshold")),
+    for name, v in (("compression_ratio_threshold", compression_ratio_threshold),
                     ("logprob_threshold", logprob_threshold),
                     ("no_speech_threshold", no_speech_threshold)):
         if v is not None:
@@ -681,6 +753,35 @@ def _check_beam_options(num_beams: int, logprob_threshold, no_speech_threshold,
             f"num_beams={num_beams} does not support: {', '.join(unsupported)} "
             "(sampling/fallback is a greedy-path feature; run beams at temperature=0 "
             "without thresholds)")
+
+
+def _compression_ratio(token_ids: np.ndarray, vocab_size: int) -> float:
+    """The compression ratio of a token row as transformers'
+    ``_retrieve_compression_ratio`` computes it: each token packed
+    little-endian into ``int(log2(vocab) / 8) + 1`` bytes, the length over
+    the zlib-compressed length."""
+    length = int(np.log2(vocab_size) / 8) + 1
+    seq = b"".join(int(t).to_bytes(length, "little") for t in token_ids.tolist())
+    if not seq:
+        return 0.0
+    return len(seq) / max(len(zlib.compress(seq)), 1)
+
+
+def _needs_fallback(tokens, lengths, prompt_len, compression_ratio_threshold,
+                    avg_logprobs=None, logprob_threshold=None,
+                    vocab_size: int = 51865) -> np.ndarray:
+    """(B,) bool: the examples the temperature ladder decodes again — the
+    generated tokens compress by more than ``compression_ratio_threshold``,
+    or their mean log-prob is below ``logprob_threshold``."""
+    b = tokens.shape[0]
+    bad = np.zeros((b,), bool)
+    if compression_ratio_threshold is not None:
+        for i in range(b):
+            ratio = _compression_ratio(tokens[i, prompt_len: lengths[i]], vocab_size)
+            bad[i] |= ratio > compression_ratio_threshold
+    if logprob_threshold is not None and avg_logprobs is not None:
+        bad |= np.asarray(avg_logprobs) < logprob_threshold
+    return bad
 
 
 def _avg_from_captured(logprobs: np.ndarray, lengths: np.ndarray,

@@ -479,7 +479,7 @@ def _step_mask_ops(offsets: torch.Tensor, chunk_len: int, max_len: int,
     """The per-op step's self mask: on the card K10's mask-mode operands
     (offsets, chunk bits), elsewhere :func:`make_step_mask`."""
     if offsets.is_cuda:
-        return offsets, decode_ops.chunk_bits(chunk_mask, chunk_len, offsets.device)
+        return offsets, decode_ops.chunk_bits(chunk_mask, chunk_len, offsets.device, max_len)
     return make_step_mask(offsets, chunk_len, max_len, chunk_mask)
 
 

@@ -46,7 +46,9 @@ is ``models/whisper.py::attention`` with ``make_step_mask``
 (:func:`self_attention_decode_plain`), which the step runs on the CPU; a
 16-row block of a longer chunk keeps its own rows of chunk bits over all T
 columns at the same offsets (:func:`self_attention_block_plain` is one
-launch's function), T <= 32 (a row of bits is one int32).
+launch's function).  A row of chunk bits is W = ceil(T / 32) int32 words
+(:func:`chunk_bits`), so a chunk may be as wide as the slab: a 39-node
+tree is three launches a layer, each reading its rows' two words.
 
 K11 replaces ``tools/decode_kernels_experiment.py::_ffn_kernel`` (launched
 by ``_ffn_pallas``), whose grid walks F / 512 column blocks sequentially
@@ -85,7 +87,7 @@ from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
 NEG_BIG = -0.7 * torch.finfo(torch.float32).max
 HEAD_DIM = 64            # csrc/cluster_attn.cuh CD_DH
 MAX_T = 16               # csrc/cluster_attn.cuh CD_MAXT: query rows of one launch
-MAX_CHUNK_BITS = 32      # a chunk-bit row is one int32: the mask mode's widest chunk
+BITS_PER_WORD = 32       # chunk bits of one int32 word of a mask-mode row
 FFN_ROWS = 192           # csrc/wgemm.cuh G_MAX_MT * 16: K11's rows per launch
 FFN_MAX_STAGES = 3       # csrc/decode_ops.cu FFN_MAX_STAGES
 CLUSTER_KEYS = 192       # csrc/cluster_attn.cuh CD_KEYS: keys a CTA takes before C grows
@@ -95,6 +97,7 @@ MAX_SLICE = 384          # csrc/cluster_attn.cuh CD_MAXSLICE: keys a CTA holds a
 cross_launches = 0       # K10, bf16 K/V
 q_cross_launches = 0     # K10, int8 K/V
 self_launches = 0        # K10's mask mode (the per-op step's self-attention)
+self_wide_launches = 0   # those of its launches over a chunk wider than 32 (W >= 2 words)
 ffn_launches = 0         # K11 (bf16 weights)
 
 
@@ -154,16 +157,20 @@ def self_attention_block_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                offsets: torch.Tensor, bits: torch.Tensor,
                                t_chunk: int) -> torch.Tensor:
     """The function of one K10 mask-mode launch: q (B, Tb, H, Dh), a block
-    of a chunk's query rows, pre-scaled; ``bits`` (Tb,) those rows' chunk
-    bits over the chunk's ``t_chunk`` columns; key j is visible to a row iff
-    j < offsets[b], or 0 <= j - offsets[b] < t_chunk and its bit is set."""
+    of a chunk's query rows, pre-scaled; ``bits`` (Tb, W) those rows' chunk
+    bits over the chunk's ``t_chunk`` columns (:func:`chunk_bits`); key j is
+    visible to a row iff j < offsets[b], or 0 <= j - offsets[b] < t_chunk
+    and bit (j - offsets[b]) % 32 of the row's word (j - offsets[b]) // 32
+    is set."""
     from whisper_medusa_tpu_torch.models import whisper
 
     b, t, h, dh = q.shape
     key = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
     rel = key - offsets.to(q.device)[:, None, None, None].long()
-    bit = (bits.to(device=q.device, dtype=torch.int64)[None, None, :, None]
-           >> rel.clamp(0, t_chunk - 1)) & 1
+    col = rel.clamp(0, t_chunk - 1)
+    words = bits.to(device=q.device, dtype=torch.int64) & 0xFFFFFFFF          # (Tb, W)
+    word = words[torch.arange(t, device=q.device)[None, None, :, None], col // BITS_PER_WORD]
+    bit = (word >> (col % BITS_PER_WORD)) & 1
     mask = (rel < 0) | ((rel < t_chunk) & (bit == 1))
     split = lambda x: x.reshape(b, x.shape[1], h, dh)
     return whisper.attention(q, split(k), split(v), mask)
@@ -203,28 +210,32 @@ def _as_int32_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
 
 
-def chunk_bits(chunk_mask: Optional[torch.Tensor], t: int, device) -> torch.Tensor:
-    """(T,) int32 rows of a (T, T) chunk mask as bits (bit j of row i: query
-    i sees chunk key j), K10's mask-mode operand; ``None`` is the causal
-    mask.  A given mask must have its diagonal set (every query sees
-    itself), so that no query row is left without a key.  A row is one
-    int32: T <= 32."""
-    if t > MAX_CHUNK_BITS:
-        raise ValueError(
-            f"K10's mask mode packs a chunk-mask row into one int32: T <= "
-            f"{MAX_CHUNK_BITS}, got T = {t} (wider chunks: ROADMAP queue 1, item 14)")
+def chunk_bits(chunk_mask: Optional[torch.Tensor], t: int, device,
+               max_len: Optional[int] = None) -> torch.Tensor:
+    """(T, W) int32 rows of a (T, T) chunk mask as bits, W = ceil(T / 32)
+    words a row (bit j % 32 of word j // 32 of row i: query i sees chunk
+    key j), K10's mask-mode operand; ``None`` is the causal mask.  A given
+    mask must have its diagonal set (every query sees itself), so that no
+    query row is left without a key.  ``max_len``: the self slab's length;
+    a chunk wider than the slab raises ValueError."""
+    if max_len is not None and t > max_len:
+        raise ValueError(f"K10's mask mode takes a chunk of at most the self slab's "
+                         f"{max_len} rows, got T = {t}")
     device = torch.device(device)
+    w = -(-t // BITS_PER_WORD)
     if chunk_mask is None:
         key = (t, device)
         if key not in _CAUSAL_BITS:
-            rows = torch.tensor([(1 << (i + 1)) - 1 for i in range(t)], dtype=torch.int64)
-            _CAUSAL_BITS[key] = _as_int32_bits(rows).to(device)
+            _CAUSAL_BITS[key] = chunk_bits(torch.tril(torch.ones((t, t), dtype=torch.bool)),
+                                           t, device)
         return _CAUSAL_BITS[key]
     if chunk_mask.shape != (t, t) or not bool(chunk_mask.diagonal().all()):
         raise ValueError(f"K10's mask mode takes a ({t}, {t}) chunk mask with its "
                          "diagonal set")
-    weights = 1 << torch.arange(t, device=chunk_mask.device, dtype=torch.int64)
-    return _as_int32_bits((chunk_mask.to(torch.int64) * weights).sum(1)).to(device)
+    cols = torch.nn.functional.pad(chunk_mask.to(torch.int64), (0, w * BITS_PER_WORD - t))
+    weights = 1 << torch.arange(BITS_PER_WORD, device=chunk_mask.device, dtype=torch.int64)
+    rows = (cols.reshape(t, w, BITS_PER_WORD) * weights).sum(-1)
+    return _as_int32_bits(rows).to(device).contiguous()
 
 
 def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -273,32 +284,33 @@ def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 
 def self_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  offsets: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """Launch K10's mask mode: q (B, T <= 32, H, 64) bf16, pre-scaled; k, v
-    (B, max_len, H * 64) bf16 self slabs; ``offsets`` (B,) int32; ``bits``
-    (T,) int32 (:func:`chunk_bits`) -> (B, T, H, 64) bf16.  Past T = 16 the
-    rows go in 16-row blocks, one launch each, every block over the whole
-    chunk's T columns."""
+    """Launch K10's mask mode: q (B, T, H, 64) bf16, pre-scaled; k, v
+    (B, max_len >= T, H * 64) bf16 self slabs; ``offsets`` (B,) int32;
+    ``bits`` (T, ceil(T / 32)) int32 (:func:`chunk_bits`) -> (B, T, H, 64)
+    bf16.  Past T = 16 the rows go in 16-row blocks, one launch each, every
+    block over the whole chunk's T columns."""
     b, t, h, dh = q.shape
     cuda_lib.require_cuda("self_attention_decode", q, k, v)
     cuda_lib.require_cuda("self_attention_decode", offsets, bits, dtype=torch.int32,
                           device=q.device, aligned=False)
     s = k.shape[1]
-    if (dh != HEAD_DIM or not 1 <= t <= MAX_CHUNK_BITS or k.shape != (b, s, h * dh)
+    if (dh != HEAD_DIM or t < 1 or k.shape != (b, s, h * dh)
             or v.shape != k.shape or s < t or cluster_split(s)[1] > MAX_SLICE
-            or offsets.shape != (b,) or bits.shape != (t,)):
+            or offsets.shape != (b,) or bits.shape != (t, -(-t // BITS_PER_WORD))):
         raise ValueError(
-            f"self_attention_decode kernel takes q (B, T <= {MAX_CHUNK_BITS}, H, "
-            f"{HEAD_DIM}), K and V (B, T <= S <= {MAX_CLUSTER * MAX_SLICE}, H*{HEAD_DIM}), "
-            f"offsets (B,) and bits (T,); got q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"self_attention_decode kernel takes q (B, T, H, {HEAD_DIM}), K and V (B, "
+            f"T <= S <= {MAX_CLUSTER * MAX_SLICE}, H*{HEAD_DIM}), offsets (B,) and bits "
+            f"(T, ceil(T / {BITS_PER_WORD})); got q {tuple(q.shape)}, k {tuple(k.shape)}, v "
             f"{tuple(v.shape)}, offsets {tuple(offsets.shape)}, bits {tuple(bits.shape)}")
 
     def launch(qb, bb, t_chunk):
-        global self_launches
+        global self_launches, self_wide_launches
         out = torch.empty_like(qb)
         cuda_lib.launch("wm_self_decode", q.device, qb.data_ptr(), k.data_ptr(),
                         v.data_ptr(), offsets.data_ptr(), bb.data_ptr(), out.data_ptr(), b,
                         h, qb.shape[1], s, t_chunk)
         self_launches += 1
+        self_wide_launches += t_chunk > BITS_PER_WORD
         return out
 
     return self_attention_blocked(q, bits, launch)
