@@ -10,8 +10,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      per source, in parallel);
   3. hold each kernel against its plain PyTorch version at the shapes the
      paths give it, bf16 and int8 (K1 at the encoder's shapes at B=1 and
-     B=8 and whisper tiny's, training's 224 x 224 causal and 224 x 1500, and
-     off the paths, with every example of the B=8 call bitwise its B=1
+     B=8 and whisper tiny's, training's 224 x 224 causal and 224 x 1500, the
+     capture pass's causal T x T and T x 1500 at T = 67 (B=1 and B=8, each
+     timed beside SDPA and its bound: the "attention capture" rows), and
+     off the paths, with every example of the B=8 calls bitwise its B=1
      call; the TMA guards of K1 and K6: a misaligned operand raises, and so
      does a failed tensor-map encode; K1's log-sum-exp output; K8 log_mel on
      the frontend's audio, every example of the B=8 call bitwise its B=1
@@ -137,7 +139,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (``temperature=0.7``, B=1 and B=8 bf16, B=1 int8: two runs at seed 0
      equal); a B=8 temperature ladder (0.0, 0.4, 0.8) whose threshold splits
      the greedy outputs: the rows kept at rung 0 equal the greedy request's,
-     each retry rung decodes exactly the failing rows;
+     each retry rung decodes exactly the failing rows; then the capture
+     surfaces (64 new tokens, a base_head copy whose head 0 is the
+     identity): B=1 and B=8 bf16 and B=1 int8 requests with the score
+     stack, DTW word (a pseudo-word tokenizer) and token times, four
+     selected cross-attention heads, every self map and the hidden states,
+     Medusa-Block B=1 with the score stack, a 75 s longform request with
+     word times and the score stack, and score_sequences on the B=8 output:
+     K1 and K3 (K6 and K7 at int8) launch inside the capture; tokens equal
+     the requests without captures; the maps and hidden states bit for bit
+     those of a direct capture of every head, their rows summing to 1; the
+     score stack's gathered rows within SCORE_TOL of the loop's token
+     log-probs and its clear rows' argmax the emitted token; word and token
+     times monotonic inside the audio; B=8 word times within 0.02 s of each
+     example's B=1 capture; the device time of the decode, the capture pass
+     and the score stack (with its host copy) and peak memory printed;
   5. the output is unchanged when every draft is corrupted, bf16 and int8,
      base_head and Medusa-Block, and bf16 base_head at B=16;
   6. decode batch invariance, bf16 and int8: speculative_generate at B=8
@@ -301,13 +317,21 @@ def phase_build():
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# The capture requests (phase 4): [sot, en, transcribe] and 64 new tokens, so
+# the teacher-forced capture pass runs K1 at T = 67 (not a multiple of 128).
+CAPTURE_NEW_TOKENS = 64
+CAPTURE_T = 3 + CAPTURE_NEW_TOKENS
 # K1 at the paths' shapes: ((B, H, Sq, Skv), kv_len, causal): the encoder at
 # B=1 and B=8 (large-v2) and B=1 (whisper tiny, 6 heads), training's decoder
-# self-attention (causal) and cross-attention (224 queries, 1500 keys); then
-# off the paths: causal with a ragged edge, kv_len < Skv, a short ragged Sq.
+# self-attention (causal) and cross-attention (224 queries, 1500 keys), the
+# capture pass's causal T x T and T x 1500 at B=1 and B=8; then off the
+# paths: causal with a ragged edge, kv_len < Skv, a short ragged Sq.
+K1_CAPTURE = (((1, 20, CAPTURE_T, CAPTURE_T), CAPTURE_T, True),
+              ((8, 20, CAPTURE_T, CAPTURE_T), CAPTURE_T, True),
+              ((1, 20, CAPTURE_T, 1500), 1500, False), ((8, 20, CAPTURE_T, 1500), 1500, False))
 K1_PATH = (((1, 20, 1500, 1500), 1500, False), ((8, 20, 1500, 1500), 1500, False),
            ((1, 6, 1500, 1500), 1500, False), ((2, 20, 224, 224), 224, True),
-           ((2, 20, 224, 1500), 1500, False))
+           ((2, 20, 224, 1500), 1500, False)) + K1_CAPTURE
 K1_OFF = (((1, 4, 300, 300), 300, True), ((1, 4, 300, 300), 257, False),
           ((1, 3, 77, 300), 299, False))
 K1_SOURCE = "whisper_medusa_tpu_torch/csrc/attention.cu"
@@ -324,13 +348,21 @@ def device_ms(fn, reps=20):
     return sum(us for us, _ in _by_kernel(fn, reps).values()) / 1e3
 
 
+def _attention_cost(b, h, sq, skv, causal, dh=64):
+    """(bytes, FLOPs) of one K1 call: q, k, v read and the output written
+    once; QK^T and PV over the visible (query, key) pairs only."""
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv
+    return 2 * b * h * dh * (2 * sq + 2 * skv), 4 * b * h * pairs * dh
+
+
 def check_attention(g):
     """K1 against attention_plain (2e-2 max abs) at every shape of K1_PATH
     and K1_OFF; at B=8 every example's output bitwise its B=1 call's (the
-    batch invariance the decode checks rely on).  Timed at (1, 20, 1500, 64)
-    and (8, 20, 1500, 64) against the plain version and SDPA (scale 1.0, q
-    pre-scaled), with the device time of K1 and SDPA under the profiler
-    printed beside; two kernels rows."""
+    batch invariance the decode checks rely on; the encoder's and the
+    capture pass's shapes).  Timed at (1, 20, 1500, 64), (8, 20, 1500, 64)
+    and the capture pass's four shapes against the plain version and SDPA
+    (scale 1.0, q pre-scaled; causal where K1 is), with the device time of
+    K1 and SDPA under the profiler printed beside; six kernels rows."""
     from whisper_medusa_tpu_torch.ops import attention as A
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -344,22 +376,27 @@ def check_attention(g):
         what = f"K1 attention ({b},{h},{sq}x{skv},64) kv_len {kv_len} causal {causal}"
         log(f"{what}: max_abs_err {err:.3e}")
         require(err <= 2e-2, f"{what}: err {err} > 2e-2")
-        if b > 1 and sq == skv == 1500:
+        capture = ((b, h, sq, skv), kv_len, causal) in K1_CAPTURE
+        if b > 1 and (sq == skv == 1500 or capture):
             same = [torch.equal(got[i:i + 1], A.attention_kernel(
                 q[i:i + 1].contiguous(), k[i:i + 1].contiguous(), v[i:i + 1].contiguous(),
                 kv_len, causal)) for i in range(b)]
             log(f"{what}: each example bitwise its B=1 output: {sum(same)}/{b}")
             require(all(same), f"{what}: a B=1 call differs from its row of the B={b} call")
-        if h != 20 or sq != 1500:
+        if not (h == 20 and sq == 1500 or capture):
             continue
+        lib = lambda: sdpa(q, k, v, scale=1.0, is_causal=causal)
         ms = cuda_ms(lambda: A.attention_kernel(q, k, v, kv_len, causal))
         plain_ms = cuda_ms(lambda: A.attention_plain(q, k, v, kv_len, causal))
-        lib_ms = cuda_ms(lambda: sdpa(q, k, v, scale=1.0))
+        lib_ms = cuda_ms(lib)
         log(f"{what}: device time K1 {device_ms(lambda: A.attention_kernel(q, k, v, kv_len, causal)):.4f} "
-            f"ms, SDPA {device_ms(lambda: sdpa(q, k, v, scale=1.0)):.4f} ms")
-        rows.append(kernel_record("attention" if b == 1 else f"attention B={b}", K1_SOURCE,
-                                  K1_REPLACES, (A, "launches"), err, ms, plain_ms,
-                                  bound(4 * nbytes(q), 4 * b * h * sq * skv * 64), lib_ms))
+            f"ms, SDPA {device_ms(lib):.4f} ms")
+        name = "attention" if b == 1 else f"attention B={b}"
+        if capture:
+            name = f"attention capture {'self' if causal else 'cross'} B={b}"
+        rows.append(kernel_record(name, K1_SOURCE, K1_REPLACES, (A, "launches"), err, ms,
+                                  plain_ms, bound(*_attention_cost(b, h, sq, skv, causal)),
+                                  lib_ms))
         del q, k, v, got
     return rows
 
@@ -3228,6 +3265,346 @@ def phase_beam_requests(model, qmodel, kernels, feat, feats8):
             "beams longform: segments")
 
 
+# The capture surfaces (phase 4): the score stack, the attention maps, the
+# hidden states, DTW word and token times and score_sequences, each served
+# by one teacher-forced pass after the decode (models/api.py::_capture).
+CAPTURE_HEADS = ((8, 3), (16, 11), (24, 5), (31, 19))     # return_cross_attentions
+# The DTW's alignment heads: a checkpoint's generation config names a few
+# (the default, every head of the upper half, is 320 at large-v2).
+CAPTURE_ALIGN = ((18, 2), (20, 7), (22, 11), (24, 4), (26, 15), (28, 9), (30, 1), (31, 13))
+CAPTURE_LONG_SECS = 75.0
+# The score stack's rows (one teacher-forced pass: K1, cuBLAS, K3 / K7)
+# gathered at the emitted tokens against the loop's token log-probs (K2,
+# K4 / K5): at most 0.0381 over the B=1, B=8 and int8 requests on an H100
+# 80GB HBM3 at 700 W (PERF.md, §5); held at 0.1.
+SCORE_TOL = 0.1
+# Kernels that must launch inside the capture (the teacher-forced pass and
+# the score stack): K1 and K3 at bf16; the int8 pass's projections on K6
+# and its vocab rows on K7.
+CAPTURE_NEEDS = {"bf16": ("attention", "logits"), "int8": ("qmm", "qmm_nt")}
+
+
+class _PseudoWords:
+    """A tokenizer stand-in (the repository holds no BPE vocabulary): each
+    id decodes to a space-separated pseudo-word, so each text token is one
+    word."""
+
+    def decode(self, ids, skip_special_tokens=True, **kw):
+        return "".join(f" t{int(i)}" for i in ids)
+
+
+def capture_model(model):
+    """``model`` (base_head, its Whisper weights shared) with head 0 the
+    identity (zero weights and bias): the loop then verifies from the
+    backbone's hidden state itself, which is what the score stack, as the
+    JAX package's, projects, so the stack's gathered rows can be held to
+    the loop's token log-probs."""
+    from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+
+    heads = {k: v.clone() for k, v in model.params["medusa"]["heads"].items()}
+    heads["w"][0].zero_()
+    heads["b"][0].zero_()
+    return WhisperMedusaModel(model.config, {"whisper": model.params["whisper"],
+                                             "medusa": {"heads": heads}},
+                              device=model.device, generation_config=model.generation_config,
+                              special_tokens=model.special)
+
+
+def _spy_capture(model, kernels, names):
+    """Wrap ``model._capture``: each call's arguments, host seconds and the
+    launches of the rows ``names`` inside it are appended to the list
+    returned."""
+    by_name = {k["name"]: k for k in kernels}
+    real, calls = model._capture, []
+
+    def spy(*args, **kw):
+        before = {n: _read_count(by_name[n]) for n in names}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        calls.append(dict(args=args, kw=kw, secs=time.perf_counter() - t0,
+                          launches={n: _read_count(by_name[n]) - before[n] for n in names}))
+        return out
+
+    model._capture = spy
+    return calls
+
+
+def check_score_stack(name, out, p_len=3):
+    """Each live row of the score stack is a log-probability distribution
+    (its log-sum-exp within 1e-3 of 0), rows past an example's length are 0,
+    the rows gathered at the emitted tokens lie within SCORE_TOL of the
+    loop's token log-probs, and every row whose top-2 gap exceeds
+    2 x SCORE_TOL has the emitted token as its argmax.  Returns the largest
+    gathered difference."""
+    worst, clear, flips = 0.0, 0, []
+    for i in range(out.sequences.shape[0]):
+        n = int(out.lengths[i]) - p_len
+        rows = out.scores[i, :n]
+        toks = out.sequences[i, p_len:p_len + n]
+        fin = np.where(np.isfinite(rows), rows, -np.inf)
+        lse = np.log(np.exp(fin - fin.max(-1, keepdims=True)).sum(-1)) + fin.max(-1)
+        require(np.abs(lse).max() < 1e-3, f"{name}: example {i}: rows are not log-probs")
+        require(not out.scores[i, n:].any(), f"{name}: example {i}: rows past the length")
+        got = rows[np.arange(n), toks]
+        worst = max(worst, float(np.abs(got - out.token_logprobs[i, p_len:p_len + n]).max()))
+        top2 = np.partition(fin, -2, axis=-1)[:, -2:]
+        big = (top2[:, 1] - top2[:, 0]) > 2 * SCORE_TOL
+        clear += int(big.sum())
+        flips += [(i, int(j)) for j in np.nonzero(big & (fin.argmax(-1) != toks))[0]]
+    log(f"  {name}: score stack {out.scores.shape}; gathered rows vs the loop's token "
+        f"log-probs: max |diff| {worst:.4e} (held <= {SCORE_TOL}); {clear} rows with a top-2 "
+        f"gap over {2 * SCORE_TOL}: argmax != the emitted token at {flips or 'none'}")
+    require(worst <= SCORE_TOL and not flips, f"{name}: score stack against the loop")
+    return worst
+
+
+def check_times(name, model, out, live_s, p_len):
+    """Word and token times are monotonic and lie within [0, live_s]; the
+    token times' NaN rows are the non-text tokens (``p_len`` prompt tokens
+    lead each sequence, none on longform output)."""
+    for i in range(out.sequences.shape[0]):
+        gen = out.sequences[i, p_len:out.lengths[i]]
+        if out.token_timestamps is not None:
+            tt = out.token_timestamps[i]
+            text = gen < model.special.eos
+            require(tt.shape == (len(gen), 2) and np.isnan(tt[~text]).all()
+                    and np.isfinite(tt[text]).all(), f"{name}: example {i}: token times")
+            st, en = tt[text, 0], tt[text, 1]
+            require(bool((np.diff(st) >= -1e-9).all() and (en >= st - 1e-9).all()
+                         and (st >= -1e-9).all() and (en <= live_s + 1e-6).all()),
+                    f"{name}: example {i}: token times not monotonic in [0, {live_s}]")
+        if out.words is not None:
+            ws = out.words[i]
+            starts = [w["start"] for w in ws]
+            require(bool(ws) and starts == sorted(starts)
+                    and all(0.0 <= w["start"] <= w["end"] <= live_s + 1e-6 for w in ws),
+                    f"{name}: example {i}: word times not monotonic in [0, {live_s}]")
+
+
+def check_capture_maps(name, model, out, call):
+    """The maps against a direct ``decode_train_capture(cross="all",
+    self_attn="all", collect_hidden=True)`` of each example (the API's
+    capture pass runs one example at a time) on the request's final tokens
+    and encoder rows: the selected cross maps, the self maps and the hidden
+    stack bit for bit; every map row sums to 1 within 1e-3; the hidden
+    stack's last row after ln_post is the pass's hidden, and that hidden is
+    ``decode_train``'s, bit for bit."""
+    from whisper_medusa_tpu_torch.models import whisper as W
+
+    p, dims = model.params["whisper"], model.config.dims
+    dec = p["decoder"]
+    enc, tokens, _, _, _, max_length = call["args"][:6]
+    dec_in = torch.as_tensor(tokens[:, :max_length], dtype=torch.int32, device="cuda")
+    checks = dict.fromkeys(("selected cross maps", "self maps", "hidden stack",
+                            "ln_post(last hidden row) == hidden",
+                            "hidden == decode_train's"), True)
+    for e in range(dec_in.shape[0]):
+        with torch.no_grad():
+            hid, cm, sm, hs = W.decode_train_capture(
+                p, dims, dec_in[e:e + 1], enc[e:e + 1], cross="all", self_attn="all",
+                collect_hidden=True)
+            ref = W.decode_train(p, dims, dec_in[e:e + 1], enc[e:e + 1]).hidden
+        for key, ok in (
+                ("selected cross maps", all(np.array_equal(
+                    out.cross_attentions[i][e], cm[l][0, h].cpu().numpy())
+                    for i, (l, h) in enumerate(CAPTURE_HEADS))),
+                ("self maps", np.array_equal(out.decoder_attentions[:, e],
+                                             sm[:, 0].cpu().numpy())),
+                ("hidden stack", np.array_equal(out.decoder_hidden_states[:, e],
+                                                hs[:, 0].float().cpu().numpy())),
+                ("ln_post(last hidden row) == hidden", torch.equal(W.layer_norm(
+                    hs[-1], dec["ln_post"]["scale"], dec["ln_post"]["bias"]), hid)),
+                ("hidden == decode_train's", torch.equal(hid, ref))):
+            checks[key] &= bool(ok)
+        del cm, sm, hs
+    sums = [np.abs(out.cross_attentions.sum(-1) - 1).max(),
+            np.abs(out.decoder_attentions.sum(-1) - 1).max()]
+    log(f"  {name}: against a direct capture of every head: {checks}; map rows' sums "
+        f"within {max(sums):.2e} of 1")
+    require(all(checks.values()) and max(sums) <= 1e-3, f"{name}: maps {checks}, sums {sums}")
+
+
+def _capture_times(name, model, plain, captured, call):
+    """Device busy time of the decode (the request without captures), of the
+    capture pass (decode_train_capture with the request's arguments) and of
+    the score stack with its host copy (memcpy device time and host
+    seconds), and each run's peak memory above what was allocated before."""
+    from whisper_medusa_tpu_torch.decoding import scores as S
+    from whisper_medusa_tpu_torch.device_profile import _by_kernel
+    from whisper_medusa_tpu_torch.models import whisper as W
+
+    p, dims = model.params["whisper"], model.config.dims
+    enc, tokens, lengths, _, pcfg, max_length = call["args"][:6]
+    dec_in = torch.as_tensor(tokens[:, :max_length], dtype=torch.int32, device="cuda")
+    want = tuple(dict.fromkeys(CAPTURE_HEADS + CAPTURE_ALIGN))
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    def cap():
+        with torch.no_grad():
+            for e in range(dec_in.shape[0]):
+                W.decode_train_capture(p, dims, dec_in[e:e + 1], enc[e:e + 1], cross=want,
+                                       self_attn="all", collect_hidden=True, to_host=True)
+
+    stack = lambda: S.full_scores(p, dims, tokens, lengths, enc, pcfg, max_length)
+    dec_ms, dec_top = device_split(plain)
+    cap_ms, cap_top = device_split(cap)
+    by = _by_kernel(stack, 1)
+    stack_ms = sum(us for us, _ in by.values()) / 1e3
+    copy_ms = by.get("memcpy / memset", (0.0, 0))[0] / 1e3
+    t0 = time.perf_counter()
+    stack()
+    stack_host = time.perf_counter() - t0
+    mem = {"decode": peak(plain), "request with captures": peak(captured),
+           "capture pass": peak(cap), "score stack": peak(stack)}
+    log(f"  {name}: device busy ms: decode (the request without captures) {dec_ms:.2f} "
+        f"({dec_top}); capture pass ({len(want)} cross maps, every self map, hidden states) "
+        f"{cap_ms:.2f} ({cap_top}); score stack {stack_ms:.2f}, of it memcpy / memset "
+        f"{copy_ms:.2f}, host {stack_host * 1e3:.1f} ms for {tokens.shape[0]} x "
+        f"{max_length - pcfg.begin_index} x {dims.vocab_size} f32; the whole capture "
+        f"(_capture) {call['secs'] * 1e3:.1f} ms of host time; peak GiB above the "
+        f"baseline {', '.join(f'{k} {v:.3f}' for k, v in mem.items())}; {SMI}")
+
+
+def phase_capture_requests(model, bmodel, kernels, feat, feats8):
+    """The capture surfaces at full width, each request driven with the
+    launch counters and held to the same request without captures (tokens
+    equal): base_head at B=1 and B=8 (bf16) and B=1 (int8) with every
+    surface (timestamps, the score stack, DTW word and token times with
+    the pseudo-word tokenizer, four selected cross-attention heads, every
+    self map, the hidden states); Medusa-Block B=1 with the score stack; a
+    75 s longform B=1 with word times and the score stack; score_sequences
+    on the B=8 output.  K1 and K3 (K6 and K7 at int8) must launch inside the
+    capture.  Checks: check_capture_maps, check_score_stack, check_times,
+    the B=8 word times within one encoder frame (0.02 s) of each example's
+    B=1 capture on the same encoder row and tokens (the count of exactly
+    equal words printed, not held), and score_sequences within SCORE_TOL of
+    the loop's avg_logprobs.  The device times of the decode, the capture
+    pass and the score stack, and peak memory, printed (_capture_times)."""
+    from whisper_medusa_tpu_torch.ops.mel import log_mel_spectrogram
+
+    cmodel = capture_model(model)
+    cqmodel = cmodel.quantize()
+    base = dict(language="en", max_new_tokens=CAPTURE_NEW_TOKENS, return_timestamps=True)
+    every = dict(return_scores="full", return_token_timestamps=True, word_timestamps=True,
+                 tokenizer=_PseudoWords(), alignment_heads=CAPTURE_ALIGN,
+                 return_decoder_attentions=True, return_hidden_states=True,
+                 return_cross_attentions=CAPTURE_HEADS)
+    runs = (("bf16 base_head B=1", cmodel, feat, every, "bf16"),
+            (f"bf16 base_head B={BATCH}", cmodel, feats8, every, "bf16"),
+            ("int8 base_head B=1", cqmodel, feat, every, "int8"),
+            ("bf16 medusa_block B=1", bmodel, feat, dict(return_scores="full"), "bf16"))
+    outs = {}
+    for name, m, f, caps, mode in runs:
+        plain = lambda: m.generate(f, **base)
+        ref = plain()
+        calls = _spy_capture(m, kernels, CAPTURE_NEEDS[mode])
+        try:
+            out, wall = drive(f"capture {name}", kernels, lambda: m.generate(f, **base, **caps),
+                              ("attention",) + CAPTURE_NEEDS[mode])
+        finally:
+            del m._capture
+        call = calls[-1]
+        log(f"capture {name}: {wall * 1e3:.1f} ms wall ({call['secs'] * 1e3:.1f} in "
+            f"_capture), lengths {out.lengths.tolist()}; launches inside the capture "
+            f"{call['launches']}")
+        require(all(n > 0 for n in call["launches"].values()),
+                f"capture {name}: a kernel did not launch inside the capture")
+        require(np.array_equal(out.sequences, ref.sequences)
+                and np.array_equal(out.lengths, ref.lengths),
+                f"capture {name}: tokens differ from the request without captures")
+        check_score_stack(f"capture {name}", out)
+        if caps.get("word_timestamps"):
+            check_capture_maps(f"capture {name}", m, out, call)
+            check_times(f"capture {name}", m, out, 30.0, 3)
+        if m is cmodel:
+            _capture_times(f"capture {name}", m, plain, lambda: m.generate(f, **base, **caps),
+                           call)
+        outs[name] = (out, call)
+
+    # B=8 word times against each example's B=1 capture on the same encoder
+    # row and tokens.
+    out8, call8 = outs[f"bf16 base_head B={BATCH}"]
+    enc, tokens, lengths, p_len, pcfg, max_length, n_frames = call8["args"][:7]
+    worst, equal, total = 0.0, 0, 0
+    for e in range(BATCH):
+        one = cmodel._capture(enc[e:e + 1], tokens[e:e + 1], lengths[e:e + 1], p_len, pcfg,
+                              max_length, n_frames, None, None, **dict(
+                                  call8["kw"], return_scores=False,
+                                  return_decoder_attentions=False,
+                                  return_hidden_states=False))
+        wa, wb = out8.words[e], one["words"][0]
+        require([w["word"] for w in wa] == [w["word"] for w in wb],
+                f"capture B={BATCH}: example {e}: words differ from its B=1 capture")
+        for x, y in zip(wa, wb):
+            worst = max(worst, abs(x["start"] - y["start"]), abs(x["end"] - y["end"]))
+            equal += int(x == y)
+            total += 1
+    log(f"capture B={BATCH} vs each example's B=1 capture: {equal}/{total} words with equal "
+        f"times (printed); largest time difference {worst:.3f} s (held <= 0.02)")
+    require(worst <= 0.02 + 1e-9, f"capture B={BATCH}: word times differ by {worst} s")
+
+    # score_sequences on the B=8 output.
+    seen = {}
+    avg, _ = drive(f"score_sequences bf16 B={BATCH}", kernels,
+                   lambda: cmodel.score_sequences(enc, out8.sequences, out8.lengths, 3),
+                   ("attention", "logits"), seen=seen)
+    # The plain version: the same pass's hidden state through an f32 product
+    # with the embedding (no K3), log-softmax, gather and mean.
+    from whisper_medusa_tpu_torch.models import whisper as W
+
+    p = cmodel.params["whisper"]
+    seq = torch.as_tensor(out8.sequences, dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        hid = W.decode_train(p, cmodel.config.dims, seq[:, :-1], enc).hidden
+        lp = torch.log_softmax(W.project_logits_train(p, hid), dim=-1)
+    tok = lp.gather(-1, seq[:, 1:, None])[..., 0].cpu().numpy()
+    live = ((np.arange(tok.shape[1])[None] >= 2)
+            & (np.arange(tok.shape[1])[None] < out8.lengths[:, None] - 1))
+    plain = (tok * live).sum(-1) / live.sum(-1)
+    diff = float(np.abs(avg - plain).max())
+    log(f"  score_sequences B={BATCH}: {np.round(avg, 4).tolist()}; against the plain "
+        f"projection max |diff| {diff:.3e} (held <= 1e-3); the loop's avg_logprobs (processed "
+        f"log-probs, timestamp rules on) {np.round(out8.avg_logprobs, 4).tolist()} (printed)")
+    require(avg.shape == (BATCH,) and np.isfinite(avg).all() and diff <= 1e-3,
+            "score_sequences against its plain version")
+
+    # 75 s longform, B=1.
+    wave = waveforms((CAPTURE_LONG_SECS,))[0]
+    feats = log_mel_spectrogram(torch.from_numpy(wave).cuda()[None])
+    # The mask bounds each window's DTW to the audio (the last window is padded).
+    kw = dict(language="en", max_new_tokens=CAPTURE_NEW_TOKENS, return_timestamps=True,
+              attention_mask=np.ones((1, feats.shape[-1]), np.int32))
+    ref = cmodel.generate(feats, **kw)
+    out, wall = drive("capture longform 75 s B=1", kernels, lambda: cmodel.generate(
+        feats, return_scores="full", word_timestamps=True, tokenizer=_PseudoWords(),
+        alignment_heads=CAPTURE_ALIGN, return_token_timestamps=True, **kw),
+        ("attention", "logits", "megastep"))
+    n = int(out.lengths[0])
+    log(f"capture longform 75 s B=1: {wall * 1e3:.1f} ms wall, {n} tokens, {len(out.words[0])} "
+        f"words, last word {out.words[0][-1] if out.words[0] else None}")
+    require(np.array_equal(out.sequences, ref.sequences),
+            "capture longform: tokens differ from the request without captures")
+    require(out.scores.shape == (1, out.sequences.shape[1], model.config.dims.vocab_size)
+            and not out.scores[0, n:].any(), "capture longform: score rows")
+    got = out.scores[0, np.arange(n), out.sequences[0, :n]]
+    ldiff = float(np.abs(got - out.token_logprobs[0, :n]).max())
+    log(f"  capture longform: gathered score rows vs token log-probs max |diff| {ldiff:.4e} "
+        f"(held <= {SCORE_TOL})")
+    require(ldiff <= SCORE_TOL, "capture longform: score rows against the loop")
+    check_times("capture longform 75 s B=1", cmodel, out, CAPTURE_LONG_SECS, 0)
+    require(any(sg.get("words") for sg in out.segments[0]), "capture longform: segment words")
+    del cmodel, cqmodel
+
+
 TINY_D = 384
 TINY_ROWS = ("ffn_decode d384", "head_rows d384", "verify d384")
 NEEDS_TINY = {
@@ -3801,6 +4178,9 @@ def main():
     phase_sampled_requests(model, qmodel, kernels, feats[0], feats8)
     phase_ladder_requests(model, kernels, feats8, outs[f"medusa B={BATCH}"])
     log(f"tree, sampling and ladder phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_capture_requests(model, bmodel, kernels, feats[0], feats8)
+    log(f"capture phase: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         log(f"launches {k['name']} (all main paths): {k['launches']}")
 

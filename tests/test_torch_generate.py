@@ -116,9 +116,41 @@ def _leaves(tree, prefix=""):
     (dict(return_scores="full"), "capture"),
 ])
 def test_unported_options_raise(models, kwargs, match):
-    _, tm = models
-    with pytest.raises(NotImplementedError, match=match):
-        tm.generate(_feats(tm.config), language="en", **kwargs)
+    """Once refusals, these options are now served: each surface ("capture":
+    maps, hidden states, scores; "timestamps": the DTW times) equals the JAX
+    package's on the same request (tests/test_torch_capture.py holds them
+    all at B = 1 and 2, int8, Medusa-Block and longform)."""
+    jm, tm = models
+    name = next(iter(kwargs))
+    if name == "word_timestamps":
+        kwargs = dict(kwargs, return_timestamps=True, tokenizer=_PseudoWords())
+    kw = dict(language="en", max_length=16, **kwargs)
+    f = _feats(tm.config, seed=5)
+    a, c = jm.generate(f, **kw), tm.generate(f, **kw)
+    np.testing.assert_array_equal(c.sequences, np.asarray(a.sequences))
+    field = {"return_cross_attentions": "cross_attentions",
+             "return_hidden_states": "decoder_hidden_states",
+             "return_scores": "scores", "word_timestamps": "words",
+             "return_token_timestamps": "token_timestamps"}[name]
+    x, y = getattr(a, field), getattr(c, field)
+    if match == "timestamps":
+        if field == "words":
+            x, y = [[w["word"] for w in ws] for ws in x], [[w["word"] for w in ws] for ws in y]
+            assert y == x and len(y[0]) > 0
+        else:
+            np.testing.assert_allclose(y[0], x[0], rtol=0, atol=0.02 + 1e-9)
+        return
+    x = np.asarray(x)
+    fin = np.isfinite(x)
+    np.testing.assert_array_equal(np.isfinite(y), fin)
+    np.testing.assert_allclose(y[fin], x[fin], rtol=0, atol=1e-4)
+
+
+class _PseudoWords:
+    """A tokenizer stand-in: each id decodes to a space-separated pseudo-word."""
+
+    def decode(self, ids, skip_special_tokens=True, **kw):
+        return "".join(f" t{int(i)}" for i in ids)
 
 
 def test_batch_and_longform_raise(models):

@@ -14,9 +14,13 @@ acceptance and sampling at temperature > 0), ``return_timestamps`` with its
 segments, ``prompt_ids``, longform input (> 30 s) through the seek loop
 (``condition_on_prev_tokens``, ``prompt_condition_type``,
 ``attention_mask``), the ``logits_processor`` hook and beam search
-(``num_beams``, ``length_penalty``; shortform and longform).  The capture
-surfaces of the JAX ``generate`` raise NotImplementedError naming their
-ROADMAP item.  ``quantize()`` gives
+(``num_beams``, ``length_penalty``; shortform and longform) and the
+capture surfaces (``return_scores="full"``, ``return_cross_attentions``,
+``return_decoder_attentions``, ``return_hidden_states``,
+``return_token_timestamps``, ``word_timestamps``; each served by one
+post-hoc teacher-forced pass, ``decoding/scores.py`` and
+``decoding/word_timestamps.py``), and ``score_sequences``.
+``quantize()`` gives
 the int8 serving copy (W8A16 decoder, embedding, heads and Medusa-Block
 layer; int8 caches).  Everything runs on the card unless the model was made
 with ``device="cpu"``.
@@ -35,6 +39,8 @@ import torch
 from whisper_medusa_tpu_torch.config import (GenerationConfig, ModelConfig, SpecialTokens,
                                        default_begin_suppress_tokens,
                                        default_suppress_tokens, language_token_id)
+from whisper_medusa_tpu_torch.decoding import scores as scores_mod
+from whisper_medusa_tpu_torch.decoding import word_timestamps as wt
 from whisper_medusa_tpu_torch.decoding.buffers import generate_medusa_buffers
 from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig
 from whisper_medusa_tpu_torch.decoding.speculative import speculative_generate
@@ -54,26 +60,31 @@ class GenerateOutput:
     token_logprobs: Optional[np.ndarray] = None    # (B, max_length)
     avg_logprobs: Optional[np.ndarray] = None      # (B,)
     steps_per_example: Optional[np.ndarray] = None  # (B,)
-
-
-# generate() options of the JAX package that this slice does not run: the
-# default (accepted, a no-op) and the ROADMAP queue-1 item that brings it.
-_UNPORTED = {
-    "return_scores": (False, "capture surfaces"),
-    "return_cross_attentions": (False, "capture surfaces"),
-    "return_decoder_attentions": (False, "capture surfaces"),
-    "return_hidden_states": (False, "capture surfaces"),
-    "return_token_timestamps": (False, "capture surfaces"),
-    "word_timestamps": (False, "capture surfaces"),
-    "alignment_heads": (None, "capture surfaces"),
-    "tokenizer": (None, "capture surfaces"),
-}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to whisper_medusa_tpu_torch yet "
-        f"(ROADMAP queue 1: {item})")
+    # ``return_scores="full"``: the processed score stack, (B, max_length -
+    # prompt_len, V) float32 log-probs, one row per generated position
+    # (decoding/scores.py).
+    scores: Optional[np.ndarray] = None
+    # ``return_cross_attentions``: (L, B, H, T, S) for ``True``, (N_sel, B,
+    # T, S) for a (layer, head) selection, float32.
+    cross_attentions: Optional[np.ndarray] = None
+    # ``word_timestamps=True``: per-example [{"word", "start", "end"}] lists
+    # from the cross-attention DTW (decoding/word_timestamps.py).
+    words: Optional[List[List[dict]]] = None
+    # ``return_token_timestamps=True``: per-example (T_gen_i, 2) float64 DTW
+    # (start, end) seconds per generated token (timestamp / EOS rows NaN).
+    token_timestamps: Optional[List[np.ndarray]] = None
+    # ``return_decoder_attentions``: self-attention maps, (L, B, H, T, T) for
+    # ``True``, (N_sel, B, T, T) for a selection, float32.
+    decoder_attentions: Optional[np.ndarray] = None
+    # ``return_hidden_states``: (L+1, B, T, D) float32, row 0 the embedding
+    # output, row 1 + l layer l's output (before ln_post).
+    decoder_hidden_states: Optional[np.ndarray] = None
+    # Longform (> 30 s): ``scores`` is (B, T_out, V), row j the row that
+    # emitted ``sequences[:, j]``; ``words`` and ``token_timestamps`` carry
+    # absolute times; the attention and hidden-state surfaces become
+    # per-example lists of per-window dicts {"time_offset", "cross_attentions",
+    # "decoder_attentions", "decoder_hidden_states"} under
+    # ``cross_attentions``.
 
 
 class WhisperMedusaModel:
@@ -201,7 +212,14 @@ class WhisperMedusaModel:
         temperature: Union[float, Sequence[float]] = 0.0,
         compression_ratio_threshold: Optional[float] = None,
         seed: int = 0,
-        **options,
+        return_scores: Union[bool, str] = False,
+        return_cross_attentions: Union[bool, Sequence[Tuple[int, int]]] = False,
+        word_timestamps: bool = False,
+        alignment_heads: Optional[Sequence[Tuple[int, int]]] = None,
+        tokenizer=None,
+        return_decoder_attentions: Union[bool, Sequence[Tuple[int, int]]] = False,
+        return_hidden_states: bool = False,
+        return_token_timestamps: bool = False,
     ) -> GenerateOutput:
         """Transcribe a batch of mel features (B, n_mels, frames); K2 runs
         the decoder at B <= 8, the per-op step (K10, K11) beyond.
@@ -243,16 +261,39 @@ class WhisperMedusaModel:
         loop then verifies from materialized logits (no K4 / K5).
         ``num_beams > 1`` runs beam search (:meth:`_generate_beam`; longform
         input through the seek loop) with the GNMT ``length_penalty``;
-        ``avg_logprobs`` are then the beams' length-normalized scores."""
+        ``avg_logprobs`` are then the beams' length-normalized scores.
+
+        The capture surfaces (greedy and sampled decodes, not beams) are
+        served after the decode by one teacher-forced pass over the final
+        tokens (:meth:`_capture`): ``return_scores="full"`` the processed
+        score stack; ``return_cross_attentions`` / ``return_decoder_attentions``
+        the cross- / self-attention maps (every head for ``True``, or a
+        tuple of (layer, head) pairs); ``return_hidden_states`` the
+        per-layer hidden states; ``return_token_timestamps`` per-token DTW
+        times and ``word_timestamps`` (``return_timestamps=True`` and a
+        ``tokenizer`` required) DTW word times attached to the segments, on
+        ``alignment_heads`` (else the generation config's, else the upper
+        half of the decoder's heads).  ``attention_mask`` bounds each
+        example's audio for the DTW.  Longform input composes them per
+        window (see :class:`GenerateOutput`)."""
+        captures = dict(
+            return_scores=return_scores, return_cross_attentions=return_cross_attentions,
+            word_timestamps=word_timestamps, alignment_heads=alignment_heads,
+            tokenizer=tokenizer, return_decoder_attentions=return_decoder_attentions,
+            return_hidden_states=return_hidden_states,
+            return_token_timestamps=return_token_timestamps)
+        if return_scores not in (False, True, "full"):
+            raise ValueError(f"return_scores must be False/True/'full', got {return_scores!r}")
+        if word_timestamps:
+            if not return_timestamps:
+                raise ValueError("word_timestamps=True requires return_timestamps=True "
+                                 "(words are attached to segments)")
+            if tokenizer is None:
+                raise ValueError("word_timestamps=True requires tokenizer= (token->word "
+                                 "splitting needs the vocabulary)")
         if num_beams != 1:
             _check_beam_options(num_beams, temperature, compression_ratio_threshold,
-                                logprob_threshold, no_speech_threshold, options)
-        for name, value in options.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"generate() got an unexpected keyword argument {name!r}")
-            default, item = _UNPORTED[name]
-            if value != default:
-                raise _not_ported(f"generate({name}={value!r})", item)
+                                logprob_threshold, no_speech_threshold, captures)
         if max_new_tokens is not None and int(max_new_tokens) < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
         if prompt_condition_type is None:
@@ -266,12 +307,15 @@ class WhisperMedusaModel:
         cfg = self.config
         feats = self._features(input_features)
         b, _, n_frames = feats.shape
+        frame_counts = None
         if attention_mask is not None:
             am = np.asarray(attention_mask).reshape(b, -1)
             if am.shape[1] != n_frames:
                 raise ValueError(
                     f"attention_mask shape {np.asarray(attention_mask).shape} does not "
                     f"match features (B={b}, frames={n_frames})")
+            # Each example's real frames: they bound the DTW's live audio.
+            frame_counts = am.astype(bool).sum(axis=1)
         if n_frames > cfg.dims.num_frames:
             return self._generate_longform(
                 feats, language=language, task=task, max_length=max_length,
@@ -285,7 +329,8 @@ class WhisperMedusaModel:
                 prompt_condition_type=prompt_condition_type, attention_mask=attention_mask,
                 num_beams=num_beams, length_penalty=length_penalty,
                 logits_processor=logits_processor, temperature=temperature,
-                compression_ratio_threshold=compression_ratio_threshold, seed=seed)
+                compression_ratio_threshold=compression_ratio_threshold, seed=seed,
+                captures=captures)
         if num_beams != 1:
             return self._generate_beam(
                 feats, language=language, task=task, max_length=max_length,
@@ -329,12 +374,112 @@ class WhisperMedusaModel:
         if return_timestamps:
             segments = [_extract_segments(tokens[i], int(lengths[i]), prompt.shape[1],
                                           time_precision, st) for i in range(b)]
+        surfaces = self._capture(enc_out, tokens, lengths, prompt.shape[1], pcfg,
+                                 gen.max_length, n_frames, frame_counts, segments,
+                                 **captures)
         return GenerateOutput(
             sequences=tokens, lengths=lengths, steps=steps_total,
             accepted=accepted, mean_accept_length=mean_acc,
             detected_language=detected, segments=segments,
             no_speech_probs=no_speech_probs, token_logprobs=logprobs,
-            avg_logprobs=avg_lp, steps_per_example=steps)
+            avg_logprobs=avg_lp, steps_per_example=steps, **surfaces)
+
+    def _capture(self, enc_out: torch.Tensor, tokens: np.ndarray, lengths: np.ndarray,
+                 prompt_len: int, pcfg: ProcessorConfig, max_length: int, n_frames: int,
+                 frame_counts, segments, *, return_scores, return_cross_attentions,
+                 word_timestamps, alignment_heads, tokenizer, return_decoder_attentions,
+                 return_hidden_states, return_token_timestamps) -> dict:
+        """The capture surfaces of one shortform request, on its final
+        tokens (after the ladder and the no-speech blanking): the score
+        stack (decoding/scores.py), then ONE teacher-forced capture pass
+        (``whisper.decode_train_capture``, its maps moved to the host layer
+        by layer) for every map and hidden-state surface: the union of the
+        user's (layer, head) selection and the alignment heads, or every
+        head for ``return_cross_attentions=True``.  The pass runs one
+        example at a time, as ``init_cache`` projects the cross K/V: a
+        library GEMM may round another way at another row count, and the
+        DTW's path can move by many frames on a small change of its maps, so
+        an example's maps, hidden states and times do not depend on the batch
+        it is in.  One DTW an example serves both token and word times.
+        {GenerateOutput field: value}."""
+        cfg, st = self.config, self.special
+        p = self.params["whisper"]
+        out = dict(scores=None, cross_attentions=None, words=None, token_timestamps=None,
+                   decoder_attentions=None, decoder_hidden_states=None)
+        if return_scores == "full":
+            out["scores"] = scores_mod.full_scores(p, cfg.dims, tokens, lengths, enc_out,
+                                                   pcfg, max_length)
+        want_align = word_timestamps or return_token_timestamps
+        if not (return_cross_attentions or want_align or return_decoder_attentions
+                or return_hidden_states):
+            return out
+        select = None
+        if return_cross_attentions and return_cross_attentions is not True:
+            select = tuple((int(l), int(h)) for l, h in return_cross_attentions)
+        align_sel = ()
+        if want_align:
+            align_sel = tuple((int(l), int(h)) for l, h in (
+                alignment_heads or self.generation_config.alignment_heads
+                or wt.default_alignment_heads(cfg.dims.decoder_layers,
+                                              cfg.dims.decoder_attention_heads)))
+        full_capture = return_cross_attentions is True
+        want = None if full_capture else tuple(dict.fromkeys((select or ()) + align_sel))
+        cross_arg = (None if not (return_cross_attentions or want_align)
+                     else "all" if full_capture else want)
+        self_arg = None
+        if return_decoder_attentions is True:
+            self_arg = "all"
+        elif return_decoder_attentions:
+            self_arg = tuple((int(l), int(h)) for l, h in return_decoder_attentions)
+        dec_in = torch.as_tensor(tokens[:, :max_length], dtype=torch.int32, device=self.device)
+        with torch.no_grad():
+            parts = [whisper.decode_train_capture(
+                p, cfg.dims, dec_in[i:i + 1], enc_out[i:i + 1], cross=cross_arg,
+                self_attn=self_arg, collect_hidden=return_hidden_states, to_host=True)
+                for i in range(tokens.shape[0])]
+        # Every surface has the batch on axis 1.
+        maps, smaps, hid = (None if parts[0][k] is None
+                            else torch.cat([part[k] for part in parts], dim=1)
+                            for k in (1, 2, 3))
+        if smaps is not None:
+            out["decoder_attentions"] = smaps.float().numpy()
+        if hid is not None:
+            out["decoder_hidden_states"] = hid.float().numpy()
+        maps = None if maps is None else maps.float().numpy()
+        if full_capture:
+            out["cross_attentions"] = maps                       # (L, B, H, T, S)
+        elif select:
+            out["cross_attentions"] = maps[[want.index(pair) for pair in select]]
+        if not want_align:
+            return out
+        if full_capture:
+            amaps = np.stack([maps[l][:, h] for l, h in align_sel])
+        else:
+            amaps = maps[[want.index(pair) for pair in align_sel]]
+        live_frames = min(n_frames, cfg.dims.num_frames) // 2
+        words = [] if word_timestamps else None
+        token_tts = [] if return_token_timestamps else None
+        for i in range(tokens.shape[0]):
+            li = int(lengths[i])
+            # A generated token's row is the query at its own position (it
+            # is the input there in the teacher-forced pass).
+            gen_i = tokens[i, prompt_len:li]
+            maps_i = amaps[:, i][:, np.arange(prompt_len, li)]
+            # attention_mask narrows each example's live audio: the DTW must
+            # not align tokens onto padding frames.
+            lf_i = (live_frames if frame_counts is None
+                    else max(min(int(frame_counts[i]), cfg.dims.num_frames) // 2, 1))
+            spans = None
+            if return_token_timestamps:
+                spans = wt.per_token_times(gen_i, maps_i, lf_i, st.eos)
+                token_tts.append(spans)
+            if word_timestamps:
+                words.append(wt.words_with_times(gen_i, maps_i, tokenizer, lf_i, st.eos,
+                                                 st.timestamp_begin, token_spans=spans))
+        if word_timestamps and segments is not None:
+            _attach_words_to_segments(segments, words)
+        out["words"], out["token_timestamps"] = words, token_tts
+        return out
 
     def _features(self, input_features) -> torch.Tensor:
         """(B, n_mels, frames) f32 features on the model's device, checked."""
@@ -521,9 +666,10 @@ class WhisperMedusaModel:
                            time_precision, condition_on_prev_tokens, prompt_ids,
                            prompt_condition_type, attention_mask, num_beams=1,
                            length_penalty=1.0, logits_processor=None, temperature=0.0,
-                           compression_ratio_threshold=None, seed=0) -> GenerateOutput:
+                           compression_ratio_threshold=None, seed=0,
+                           captures: dict) -> GenerateOutput:
         """The seek loop over 30 s windows (the JAX package's
-        ``_generate_longform`` without the capture surfaces).  Each
+        ``_generate_longform``).  Each
         window decodes with timestamps; where it holds a complete segment and
         audio remains, the seek advances to that segment's end (mel frame =
         10 ms) and what follows it is dropped, to be decoded again from the
@@ -542,7 +688,15 @@ class WhisperMedusaModel:
         log-probs are returned (``token_logprobs`` and ``avg_logprobs`` None),
         as in the JAX package.  Every window runs the temperature ladder
         (``temperature``, ``compression_ratio_threshold``,
-        ``logprob_threshold``, ``seed``) of :meth:`generate`."""
+        ``logprob_threshold``, ``seed``) of :meth:`generate`.
+
+        The capture surfaces (``captures``: :meth:`generate`'s capture
+        options by name) compose per window: each window's shortform call
+        runs its own capture; score and token-time rows follow the
+        kept tokens (token times and words shifted by the window's offset,
+        words past the cut dropped), and the attention maps and hidden
+        states become per-example lists of per-window dicts keyed by
+        ``time_offset`` (windows share no positional layout to stack on)."""
         cfg = self.config
         st = self.special
         b, _, total_frames = feats.shape
@@ -562,6 +716,13 @@ class WhisperMedusaModel:
         all_tokens: List[List[int]] = [[] for _ in range(b)]
         all_segments: List[List[dict]] = [[] for _ in range(b)]
         all_lp_rows: List[List[np.ndarray]] = [[] for _ in range(b)]
+        all_score_rows: List[List[np.ndarray]] = [[] for _ in range(b)]
+        all_tt_rows: List[List[np.ndarray]] = [[] for _ in range(b)]
+        all_words: List[List[dict]] = [[] for _ in range(b)]
+        all_caps: List[List[dict]] = [[] for _ in range(b)]
+        want_caps = bool(captures["return_cross_attentions"]
+                         or captures["return_decoder_attentions"]
+                         or captures["return_hidden_states"])
         totals_run = {"steps": 0, "accepted": 0}
         inner = dict(task=task, max_length=max_length, max_new_tokens=max_new_tokens,
                      medusa_choices=medusa_choices, disable_medusa=disable_medusa,
@@ -572,11 +733,13 @@ class WhisperMedusaModel:
                      time_precision=time_precision, num_beams=num_beams,
                      length_penalty=length_penalty, logits_processor=logits_processor,
                      temperature=temperature,
-                     compression_ratio_threshold=compression_ratio_threshold, seed=seed)
+                     compression_ratio_threshold=compression_ratio_threshold, seed=seed,
+                     **captures)
 
         def fold_window(i, out, row, p_len, seek):
-            """Example i's kept tokens, log-probs and segments from window
-            output row ``row``: (advance in frames, kept tokens)."""
+            """Example i's kept tokens, log-probs, segments and capture
+            surfaces from window output row ``row``: (advance in frames,
+            kept tokens)."""
             t_off = seek * 0.01
             segs = out.segments[row]
             complete_ends = [sg["end"] for sg in segs if sg["end"] is not None]
@@ -599,11 +762,28 @@ class WhisperMedusaModel:
             if out.token_logprobs is not None:        # beam windows have none
                 lp = np.asarray(out.token_logprobs[row, p_len: p_len + len(raw)])
                 all_lp_rows[i].append(lp[keep])
+            if out.scores is not None:
+                all_score_rows[i].append(out.scores[row, :len(raw)][keep])
+            if out.token_timestamps is not None:
+                # Rows align with the generated region (the same cut as raw);
+                # NaN rows stay NaN.
+                all_tt_rows[i].append(out.token_timestamps[row][:len(raw)][keep] + t_off)
             for sg in segs:
                 all_segments[i].append({
                     "start": sg["start"] + t_off,
                     "end": None if sg["end"] is None else sg["end"] + t_off,
                     "tokens": sg["tokens"]})
+            if out.words is not None:
+                all_words[i].extend({**w, "start": w["start"] + t_off, "end": w["end"] + t_off}
+                                    for w in out.words[row]
+                                    if cut_time is None or w["start"] < cut_time)
+            if want_caps:
+                entry = {"time_offset": t_off}
+                for name in ("cross_attentions", "decoder_attentions",
+                             "decoder_hidden_states"):
+                    if getattr(out, name) is not None:
+                        entry[name] = getattr(out, name)[:, row]
+                all_caps[i].append(entry)
             return advance, raw[keep].tolist()
 
         def window_at(i, seek):
@@ -684,9 +864,24 @@ class WhisperMedusaModel:
                     seek += adv
                 if seek < totals[i]:
                     _warn_longform_truncation([(i, seek, totals[i])])
-        return _longform_output(all_tokens, all_segments,
-                                all_lp_rows if num_beams == 1 else None, totals_run["steps"],
-                                totals_run["accepted"], return_timestamps, st)
+        return _longform_output(
+            all_tokens, all_segments, all_lp_rows if num_beams == 1 else None,
+            totals_run["steps"], totals_run["accepted"], return_timestamps, st,
+            all_score_rows=all_score_rows if captures["return_scores"] == "full" else None,
+            vocab_size=cfg.dims.vocab_size,
+            all_words=all_words if captures["word_timestamps"] else None,
+            all_tt_rows=all_tt_rows if captures["return_token_timestamps"] else None,
+            all_caps=all_caps if want_caps else None)
+
+    def score_sequences(self, enc_out, sequences: np.ndarray, lengths: np.ndarray,
+                        prompt_len: int) -> np.ndarray:
+        """Mean log-probability of each example's generated tokens (positions
+        >= ``prompt_len`` and < its length), (B,) float32, by one
+        teacher-forced pass (:func:`_avg_logprobs`): the quantity the
+        ``logprob_threshold`` fallback reads."""
+        enc = torch.as_tensor(enc_out, device=self.device)
+        return _avg_logprobs(self.params["whisper"], enc, sequences, lengths, prompt_len,
+                             self.config.dims)
 
     def generate_stream(self, input_features, language: Optional[str] = None,
                         task: str = "transcribe", max_length: Optional[int] = None,
@@ -732,7 +927,7 @@ def require_servable_dtype(params, device) -> None:
 
 
 def _check_beam_options(num_beams: int, temperature, compression_ratio_threshold,
-                        logprob_threshold, no_speech_threshold, options) -> None:
+                        logprob_threshold, no_speech_threshold, captures) -> None:
     """Beam search takes no temperature fallback, no quality thresholds and
     no capture surface: ValueError naming each, as the JAX package raises."""
     temps = tuple(np.atleast_1d(temperature).tolist())
@@ -744,7 +939,7 @@ def _check_beam_options(num_beams: int, temperature, compression_ratio_threshold
                     ("no_speech_threshold", no_speech_threshold)):
         if v is not None:
             unsupported.append(name)
-    if options.get("return_scores") == "full" or any(options.get(name) for name in (
+    if captures["return_scores"] == "full" or any(captures[name] for name in (
             "return_cross_attentions", "word_timestamps", "return_decoder_attentions",
             "return_hidden_states", "return_token_timestamps")):
         unsupported.append("full scores/attentions/hidden states/word timestamps")
@@ -792,6 +987,26 @@ def _avg_from_captured(logprobs: np.ndarray, lengths: np.ndarray,
     return np.where(mask, logprobs, 0.0).sum(-1) / np.maximum(mask.sum(-1), 1)
 
 
+@torch.no_grad()
+def _avg_logprobs(params, enc_out: torch.Tensor, sequences, lengths, prompt_len: int,
+                  dims) -> np.ndarray:
+    """Teacher-forced mean log-prob of the generated tokens: one
+    ``decode_train`` pass over ``sequences[:, :-1]`` (K1; the int8 branch on
+    a quantized model), K3 (K7 at int8) over the (B, L - 1) rows,
+    ``log_softmax`` and a gather at ``sequences[:, 1:]``."""
+    dev = enc_out.device
+    seq = torch.as_tensor(np.asarray(sequences), dtype=torch.int64, device=dev)
+    hidden = whisper.decode_train(params, dims, seq[:, :-1], enc_out).hidden
+    logp = torch.log_softmax(whisper.project_logits(params, hidden), dim=-1)
+    tgt = seq[:, 1:]
+    tok_lp = torch.gather(logp, -1, tgt[..., None])[..., 0]
+    pos = torch.arange(tgt.shape[1], device=dev)[None, :]
+    lens = torch.as_tensor(np.asarray(lengths), dtype=torch.int64, device=dev)
+    mask = (pos >= prompt_len - 1) & (pos < (lens - 1)[:, None])
+    total = torch.where(mask, tok_lp, torch.zeros((), device=dev)).sum(-1)
+    return (total / mask.sum(-1).clamp(min=1)).cpu().numpy()
+
+
 def _warn_longform_truncation(dropped: List[Tuple[int, int, int]]) -> None:
     """Report (not fatal) where the seek loop's guard stopped an example
     before its end: the audio past the seek was dropped."""
@@ -803,10 +1018,14 @@ def _warn_longform_truncation(dropped: List[Tuple[int, int, int]]) -> None:
 
 def _longform_output(all_tokens, all_segments, all_lp_rows, steps_total: int,
                      accepted_total: int, return_timestamps: bool,
-                     st: SpecialTokens) -> GenerateOutput:
+                     st: SpecialTokens, all_score_rows=None, vocab_size: int = 0,
+                     all_words=None, all_tt_rows=None, all_caps=None) -> GenerateOutput:
     """The seek loop's transcript: (B, longest + 1) EOS-padded sequences, each
     kept token's log-prob and their mean (None without ``all_lp_rows``), the
-    summed steps and accepts."""
+    summed steps and accepts; and the capture surfaces folded per window:
+    ``scores`` (B, longest + 1, V) from ``all_score_rows``, ``words``
+    (attached to the segments), ``token_timestamps`` and the per-window
+    capture entries under ``cross_attentions``."""
     b = len(all_tokens)
     max_len_out = max((len(t) for t in all_tokens), default=0) + 1
     sequences = np.full((b, max_len_out), st.eos, np.int32)
@@ -822,12 +1041,26 @@ def _longform_output(all_tokens, all_segments, all_lp_rows, steps_total: int,
             lp = np.concatenate(rows) if rows else np.zeros((0,), np.float32)
             token_logprobs[i, :len(lp)] = lp
             avg_logprobs[i] = lp.mean() if len(lp) else 0.0
+    scores = None
+    if all_score_rows is not None:
+        scores = np.zeros((b, max_len_out, vocab_size), np.float32)
+        for i, rows in enumerate(all_score_rows):
+            if rows:
+                stack = np.concatenate(rows, axis=0)
+                scores[i, :stack.shape[0]] = stack
+    if all_words is not None and return_timestamps and all_segments:
+        _attach_words_to_segments(all_segments, all_words)
+    token_tts = None
+    if all_tt_rows is not None:
+        token_tts = [np.concatenate(rows, axis=0) if rows else np.zeros((0, 2), np.float64)
+                     for rows in all_tt_rows]
     return GenerateOutput(
         sequences=sequences, lengths=lengths, steps=steps_total,
         accepted=np.asarray([accepted_total]),
         mean_accept_length=accepted_total / max(steps_total, 1),
         segments=all_segments if return_timestamps else None,
-        token_logprobs=token_logprobs, avg_logprobs=avg_logprobs)
+        token_logprobs=token_logprobs, avg_logprobs=avg_logprobs, scores=scores,
+        words=all_words, token_timestamps=token_tts, cross_attentions=all_caps)
 
 
 def _extract_segments(tokens: np.ndarray, length: int, prompt_len: int,
@@ -858,6 +1091,27 @@ def _extract_segments(tokens: np.ndarray, length: int, prompt_len: int,
         segments.append({"start": (start_ts - ts_begin) * time_precision, "end": None,
                          "tokens": text})
     return segments
+
+
+def _attach_words_to_segments(segments: List[List[dict]], words: List[List[dict]]) -> None:
+    """Attach each word dict to the segment whose [start, end) holds the
+    word's midpoint (an open segment's end is infinite), else to the segment
+    that starts nearest the word; every segment gets a ``words`` list."""
+    for segs, wrds in zip(segments, words):
+        for seg in segs:
+            seg["words"] = []
+        for w in wrds:
+            mid = 0.5 * (w["start"] + w["end"])
+            target = None
+            for seg in segs:
+                end = seg["end"] if seg["end"] is not None else float("inf")
+                if seg["start"] <= mid < end:
+                    target = seg
+                    break
+            if target is None and segs:
+                target = min(segs, key=lambda sg: abs(sg["start"] - w["start"]))
+            if target is not None:
+                target["words"].append(w)
 
 
 def _cut_after_last_complete(raw: np.ndarray, ts_begin: int, eos: int) -> Optional[int]:

@@ -113,6 +113,11 @@ def dense_exact(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.T
     return y.to(x.dtype)
 
 
+def _vocab_rows(embed) -> int:
+    """The embedding's row count, bf16 or int8 (``{"q", "s"}``)."""
+    return (embed["q"] if qmm_mod.is_quantized(embed) else embed).shape[0]
+
+
 def embed_lookup(embed, tokens: torch.Tensor) -> torch.Tensor:
     """Token-embedding gather; an int8 embedding gives
     ``bf16(q[tok]) * bf16(s[tok])``."""
@@ -130,15 +135,22 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
 
 
-def attention(q, k, v, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+def attention_with_probs(q, k, v, mask: Optional[torch.Tensor] = None):
     """Plain attention, q/k/v (B, T, H, Dh), mask broadcastable to
-    (B, H, Tq, Tk) with True = keep.  Float32 softmax; (B, Tq, H, Dh) out."""
+    (B, H, Tq, Tk) with True = keep: (out (B, Tq, H, Dh), the f32 softmax
+    probabilities (B, H, Tq, Tk)).  P is rounded to the value dtype before
+    P @ V, which sums in f32."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     if mask is not None:
         logits = torch.where(mask, logits, torch.tensor(-1e30, device=q.device))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
-    return out.to(v.dtype)
+    return out.to(v.dtype), probs
+
+
+def attention(q, k, v, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`attention_with_probs`' output alone."""
+    return attention_with_probs(q, k, v, mask)[0]
 
 
 def _proj_bhsd(x: torch.Tensor, w, b, num_heads: int) -> torch.Tensor:
@@ -156,26 +168,68 @@ def _out_proj_bhsd(out: torch.Tensor, w, b, num_heads: int) -> torch.Tensor:
     return dense(flat, w, b)
 
 
+def _attn_full(lp: Params, x: torch.Tensor, kv_src: torch.Tensor, num_heads: int,
+               causal: bool, kv_len: Optional[int], with_probs: bool):
+    """Full-sequence attention of ``x`` over ``kv_src``: (B, T, D), and with
+    ``with_probs`` also the f32 probabilities (B, H, T, S).
+
+    Float weights: head-major projections and K1 on the card (the plain
+    version on the CPU); the probabilities are the f32 softmax of the same
+    q and k (``attention_probs``), so asking for them does not change the
+    output.  int8 weights (the decoder of ``quantize()``, whose keys are
+    never padded): JAX's int8 branch, :func:`dense` (K6) projections and the
+    plain :func:`attention_with_probs`, whose probabilities are the ones
+    applied."""
+    head_dim = x.shape[-1] // num_heads
+    if qmm_mod.is_quantized(lp["q_w"]):
+        q = _split_heads(dense(x, lp["q_w"], lp["q_b"]), num_heads) * (head_dim ** -0.5)
+        k = _split_heads(dense(kv_src, lp["k_w"]), num_heads)
+        v = _split_heads(dense(kv_src, lp["v_w"], lp["v_b"]), num_heads)
+        t = x.shape[1]
+        mask = (torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))[None, None]
+                if causal else None)
+        out, probs = attention_with_probs(q, k, v, mask)
+        out = dense(_merge_heads(out), lp["o_w"], lp["o_b"])
+        return (out, probs) if with_probs else out
+    kv_len = kv_src.shape[1] if kv_len is None else kv_len
+    q = _proj_bhsd(x, lp["q_w"], lp["q_b"], num_heads) * (head_dim ** -0.5)
+    k = _proj_bhsd(kv_src, lp["k_w"], None, num_heads)
+    v = _proj_bhsd(kv_src, lp["v_w"], lp["v_b"], num_heads)
+    out = _out_proj_bhsd(attn_mod.full_attention_bhsd(q, k, v, kv_len=kv_len, causal=causal),
+                         lp["o_w"], lp["o_b"], num_heads)
+    if not with_probs:
+        return out
+    return out, attn_mod.attention_probs(q, k, kv_len, causal)
+
+
 def self_attn_full(lp: Params, x: torch.Tensor, num_heads: int, causal: bool,
                    kv_len: Optional[int] = None) -> torch.Tensor:
-    head_dim = x.shape[-1] // num_heads
-    q = _proj_bhsd(x, lp["q_w"], lp["q_b"], num_heads) * (head_dim ** -0.5)
-    k = _proj_bhsd(x, lp["k_w"], None, num_heads)
-    v = _proj_bhsd(x, lp["v_w"], lp["v_b"], num_heads)
-    out = attn_mod.full_attention_bhsd(q, k, v, kv_len=kv_len, causal=causal)
-    return _out_proj_bhsd(out, lp["o_w"], lp["o_b"], num_heads)
+    """Full-sequence self-attention (encoder, or teacher-forced decoder):
+    K1 on the card; int8 weights through K6 and the plain attention."""
+    return _attn_full(lp, x, x, num_heads, causal, kv_len, False)
 
 
 def cross_attn_full(lp: Params, x: torch.Tensor, enc: torch.Tensor,
                     num_heads: int) -> torch.Tensor:
     """Teacher-forced cross-attention, T queries against the unpadded
     encoder frames (K1, and K9 in the backward, take the ragged 1500)."""
-    head_dim = x.shape[-1] // num_heads
-    q = _proj_bhsd(x, lp["q_w"], lp["q_b"], num_heads) * (head_dim ** -0.5)
-    k = _proj_bhsd(enc, lp["k_w"], None, num_heads)
-    v = _proj_bhsd(enc, lp["v_w"], lp["v_b"], num_heads)
-    out = attn_mod.full_attention_bhsd(q, k, v, causal=False)
-    return _out_proj_bhsd(out, lp["o_w"], lp["o_b"], num_heads)
+    return _attn_full(lp, x, enc, num_heads, False, None, False)
+
+
+def self_attn_probs(lp: Params, x: torch.Tensor, num_heads: int):
+    """Causal self-attention that also returns its probabilities: (out
+    (B, T, D), probs (B, H, T, T) float32), the maps of the JAX package's
+    ``decoder_attentions``.  The output is :func:`self_attn_full`'s, bit
+    for bit (K1 on the card for float weights)."""
+    return _attn_full(lp, x, x, num_heads, True, None, True)
+
+
+def cross_attn_probs(lp: Params, x: torch.Tensor, enc: torch.Tensor, num_heads: int):
+    """Cross-attention that also returns its probabilities: (out (B, T, D),
+    probs (B, H, T, S) float32), the maps DTW word timestamps align
+    (``decoding/word_timestamps.py``).  The output is
+    :func:`cross_attn_full`'s, bit for bit."""
+    return _attn_full(lp, x, enc, num_heads, False, None, True)
 
 
 def ffn(lp: Params, x: torch.Tensor) -> torch.Tensor:
@@ -687,7 +741,7 @@ def decode_train(params: Params, dims: WhisperDims, tokens: torch.Tensor,
     nh = dims.decoder_attention_heads
     t = tokens.shape[1]
     nl = dims.decoder_layers
-    vocab = dec["embed_tokens"].shape[0]
+    vocab = _vocab_rows(dec["embed_tokens"])
     tokens = tokens.long()
     layer, branch = _remat_plan(False if grad_last_only else remat)
 
@@ -708,6 +762,97 @@ def decode_train(params: Params, dims: WhisperDims, tokens: torch.Tensor,
     hidden = layer_norm(x, dec["ln_post"]["scale"], dec["ln_post"]["bias"])
     return DecoderOutput(hidden=hidden, pre_norm=x,
                          penultimate=penult if collect_penultimate else None)
+
+
+def _capture_plan(sel) -> Dict[int, list]:
+    """{layer: [(slot, head), ...]} of a (layer, head) selection; {} for
+    None and "all"."""
+    want: Dict[int, list] = {}
+    if sel is not None and sel != "all":
+        for i, (l, h) in enumerate(sel):
+            want.setdefault(int(l), []).append((i, int(h)))
+    return want
+
+
+def decode_train_capture(params: Params, dims: WhisperDims, tokens: torch.Tensor,
+                         enc_out: torch.Tensor, cross=None, self_attn=None,
+                         collect_hidden: bool = False, to_host: bool = False):
+    """Teacher-forced decoder pass (B, T) that also captures attention maps
+    and hidden states, the counterpart of the JAX function of this name.
+
+    ``cross`` / ``self_attn``: None skips the capture; "all" keeps every
+    head, (L, B, H, T, S) cross / (L, B, H, T, T) self; a tuple of
+    (layer, head) pairs keeps those maps, (N_sel, B, T, S) / (N_sel, B, T,
+    T) float32 in the given order.  ``collect_hidden`` also returns the
+    (L+1, B, T, D) stack: row 0 the embedding output, row 1 + l layer l's
+    output (before ``ln_post``).  The layer loop is unrolled: a layer whose
+    maps are asked for runs :func:`self_attn_probs` / :func:`cross_attn_probs`,
+    whose outputs are bit for bit those of the layers that run
+    :func:`self_attn_full` / :func:`cross_attn_full` (K1 on the card), so
+    the pass computes :func:`decode_train`'s activations whatever is
+    captured, and a map does not depend on which others were asked for.
+    The cross-attention reads the unpadded encoder frames.  ``to_host``
+    moves each captured map and hidden row to the CPU as it is made, so
+    the card holds one layer's maps at a time.
+
+    Returns (hidden (B, T, D) after ``ln_post``, cross maps, self maps,
+    hidden stack); what was not asked for is None."""
+    dec = params["decoder"]
+    nh = dims.decoder_attention_heads
+    t = tokens.shape[1]
+    vocab = _vocab_rows(dec["embed_tokens"])
+    keep = (lambda a: a.cpu()) if to_host else (lambda a: a)
+    x = (embed_lookup(dec["embed_tokens"], tokens.long().clamp(0, vocab - 1))
+         + dec["pos_embed"][None, :t])
+    c_want, s_want = _capture_plan(cross), _capture_plan(self_attn)
+    c_sel = [None] * (0 if cross in (None, "all") else len(cross))
+    s_sel = [None] * (0 if self_attn in (None, "all") else len(self_attn))
+    c_all, s_all = [], []
+    hiddens = [keep(x)] if collect_hidden else []
+
+    def capture(probs, sel, want, every, picked, layer):
+        if sel == "all":
+            every.append(keep(probs))
+        else:
+            for i, hd in want[layer]:
+                picked[i] = keep(probs[:, hd])
+
+    for l in range(dims.decoder_layers):
+        lp = layer_params(dec["layers"], l)
+        ln_x = layer_norm(x, lp["self_ln"]["scale"], lp["self_ln"]["bias"])
+        if self_attn == "all" or l in s_want:
+            s_out, probs = self_attn_probs(lp["self"], ln_x, nh)
+            capture(probs, self_attn, s_want, s_all, s_sel, l)
+        else:
+            s_out = self_attn_full(lp["self"], ln_x, nh, causal=True)
+        h = x + s_out
+        ln_h = layer_norm(h, lp["cross_ln"]["scale"], lp["cross_ln"]["bias"])
+        if cross == "all" or l in c_want:
+            c_out, probs = cross_attn_probs(lp["cross"], ln_h, enc_out, nh)
+            capture(probs, cross, c_want, c_all, c_sel, l)
+        else:
+            c_out = cross_attn_full(lp["cross"], ln_h, enc_out, nh)
+        h = h + c_out
+        x = h + ffn(lp, layer_norm(h, lp["ffn_ln"]["scale"], lp["ffn_ln"]["bias"]))
+        if collect_hidden:
+            hiddens.append(keep(x))
+    hidden = layer_norm(x, dec["ln_post"]["scale"], dec["ln_post"]["bias"])
+    cross_maps = (torch.stack(c_all) if cross == "all"
+                  else torch.stack(c_sel) if c_sel else None)
+    self_maps = (torch.stack(s_all) if self_attn == "all"
+                 else torch.stack(s_sel) if s_sel else None)
+    return hidden, cross_maps, self_maps, torch.stack(hiddens) if collect_hidden else None
+
+
+def decode_train_cross_attn(params: Params, dims: WhisperDims, tokens: torch.Tensor,
+                            enc_out: torch.Tensor, select=None):
+    """Cross-attention-only capture (:func:`decode_train_capture`):
+    ``select`` a tuple of (layer, head) alignment heads, (N_sel, B, T, S)
+    float32 in the given order; None keeps every head, (L, B, H, T, S).
+    Returns (hidden after ``ln_post``, maps)."""
+    hidden, maps, _, _ = decode_train_capture(
+        params, dims, tokens, enc_out, cross="all" if select is None else select)
+    return hidden, maps
 
 
 def project_logits_train(params: Params, hidden: torch.Tensor) -> torch.Tensor:

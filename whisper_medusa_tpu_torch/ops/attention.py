@@ -63,8 +63,10 @@ def _scores_mask(q, k, kv_len: int, causal: bool) -> torch.Tensor:
     return mask
 
 
-def _probs(q, k, kv_len: int, causal: bool) -> torch.Tensor:
-    """f32 softmax of the masked f32 scores."""
+def attention_probs(q, k, kv_len: int, causal: bool) -> torch.Tensor:
+    """f32 softmax of the masked f32 scores, (B, H, Sq, Skv): the
+    probabilities of :func:`attention_plain` (and of K1), which the
+    decoder's capture pass returns (``models/whisper.py::self_attn_probs``)."""
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     s = torch.where(_scores_mask(q, k, kv_len, causal), s,
                     torch.tensor(NEG_BIG, device=q.device))
@@ -85,7 +87,7 @@ def attention_plain(q, k, v, kv_len: int, causal: bool) -> torch.Tensor:
 
     Mirrors ``_attention_xla``: f32 scores, masked to NEG_BIG, softmax, the
     probabilities cast to the value dtype before PV with f32 accumulation."""
-    p = _probs(q, k, kv_len, causal)
+    p = attention_probs(q, k, kv_len, causal)
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
     return o.to(v.dtype)
 
@@ -97,7 +99,7 @@ def attention_bwd_plain(q, k, v, g, kv_len: int, causal: bool):
     and dsum = sum P * dP in f32, dS = P (dP - dsum) cast to the input dtype
     before both of its products, P cast to dO's dtype for dV, every product
     accumulated in f32."""
-    p = _probs(q, k, kv_len, causal)
+    p = attention_probs(q, k, kv_len, causal)
     dp = torch.einsum("bhqd,bhkd->bhqk", g.float(), v.float())
     dsum = (p * dp).sum(-1, keepdim=True)
     ds = (p * (dp - dsum)).to(q.dtype).float()
