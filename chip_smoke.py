@@ -166,6 +166,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      D=384 against their plain versions (three kernels rows), Medusa at B=1
      and B=8, vanilla at B=1, int8 Medusa and Medusa-Block at B=1 driven as
      in phase 4, and its decode at B=8 held to its B=1 tokens;
+  6b. f32 serving (ModelConfig's default dtype), its model alone on the
+     card after the bf16, int8 and Medusa-Block models are deleted: the f32
+     modes of K1, K3, K4, head_rows, K5, K10 (cross and mask) and K11 each
+     against its plain version on the card at the paths' shapes, within
+     1e-4 + 1e-4 |x| (K4 / K5: argmax on the rows whose top-2 gap exceeds
+     1e-4, the timestamp mode too), every example of a B=8 (K1) or B=16
+     (K10) call bitwise its B=1 call, an M=176 / M=88 call's first rows
+     bitwise a small call's (K3, head_rows, K11), K4's statistics bitwise
+     K5's over head_rows' rows; P3 on the f32 per-op step (its projections
+     on the f32 GEMM); f32 large-v2 requests (Medusa B=1 and B=8, vanilla
+     B=1, Medusa-Block B=1, timestamps B=1, an identity hook, num_beams=2,
+     a vanilla score stack held to the loop's log-probs) with K2 and every
+     bf16 / int8 row at 0 launches, each profiled for its device busy time
+     and idle share; the B=1 Medusa request under draft_corruption=1.0; the
+     B=8 decode's tokens equal to each example's B=1 decode; an f32 whisper
+     tiny request against the CPU port on the same weights (a differing
+     token only where the CPU's top-2 gap is under 1e-4 of the top logit);
   7. training: the grad guard (a kernel without a backward refuses an
      operand that requires grad); K9, the one-pass attention backward from
      K1's output and log-sum-exp, against both plain versions off the path
@@ -2242,7 +2259,9 @@ def check_batch_invariance(model, enc8, variants=("base_head", "vanilla")):
                            begin_index=PROMPT_LEN, eos_token_id=st.eos)
     gen = GenerationConfig(max_length=PROMPT_LEN + MAX_NEW_TOKENS, eos_token_id=st.eos,
                            pad_token_id=gd.pad_token_id)
-    mode = ("int8" if _int8(model) else "bf16") + f" d_model {cfg.dims.d_model}"
+    emb = model.params["whisper"]["decoder"]["embed_tokens"]
+    mode = ("int8" if _int8(model) else "f32" if emb.dtype == torch.float32 else "bf16") + (
+        f" d_model {cfg.dims.d_model}")
     for variant in variants:
         vanilla = variant == "vanilla"
         choices = (1,) if vanilla else cfg.medusa.medusa_choices
@@ -2775,24 +2794,26 @@ def _request_pcfg(model):
                            begin_index=PROMPT_LEN, eos_token_id=st.eos)
 
 
-def _top2_gap(model, enc, seq, pos, variant):
+def _top2_gap(model, enc, seq, pos, variant, with_top=False):
     """The processed top-2 logit gap at position ``pos`` of one example's
     tokens ``seq``: seq[:pos] prefilled (pieces of 16) on encoder row
-    ``enc``, the base logits of the last row (head 0 for base_head)."""
+    ``enc`` (on its device), the base logits of the last row (head 0 for
+    base_head); with ``with_top``, (gap, the top logit)."""
     from whisper_medusa_tpu_torch.decoding import speculative as SP
     from whisper_medusa_tpu_torch.decoding.processors import apply_processors
     from whisper_medusa_tpu_torch.models import whisper as W
 
-    p, dims = model.params["whisper"], model.config.dims
+    p, dims, dev = model.params["whisper"], model.config.dims, enc.device
     cache = W.init_cache(p, dims, enc, pos + 1)
     out = SP.prefill(p, dims, torch.as_tensor(seq[None, :pos], dtype=torch.int32,
-                                              device="cuda"), cache)
+                                              device=dev), cache)
     mp = None if variant == "vanilla" else model.params["medusa"]
     base = SP._base_logits_fn(p, mp, variant)(out.hidden[:, -1])
-    proc = apply_processors(base, torch.full((1,), pos, dtype=torch.int32, device="cuda"),
+    proc = apply_processors(base, torch.full((1,), pos, dtype=torch.int32, device=dev),
                             _request_pcfg(model))
     top2 = proc.topk(2, dim=-1).values[0]
-    return float(top2[0] - top2[1])
+    gap = float(top2[0] - top2[1])
+    return (gap, float(top2[0])) if with_top else gap
 
 
 def clear_gap_compare(name, model, enc, ref, got, variant, stop_at_eos=False):
@@ -3723,6 +3744,528 @@ def check_corruption(mode, model, feat, clean, new_tokens=MAX_NEW_TOKENS):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6b: f32 serving (the JAX package's default dtype)
+# ---------------------------------------------------------------------------
+
+# Every f32 mode is held to its plain version elementwise within
+# F32_TOL + F32_TOL |x| (f32 sums in another order), and K4 / K5's argmax on
+# the rows whose plain top-2 gap exceeds F32_TOL (_stats_ok's rule).
+F32_TOL = 1e-4
+F32_NEW_TOKENS = 48
+F32_ROWS = ("attention f32", "logits f32", "verify_hidden f32", "head_rows f32",
+            "verify_rows f32", "cross_decode f32", "self_decode f32", "ffn_decode f32")
+# K1's f32 mode at the paths' shapes: the encoder at B=1 and B=8, the
+# capture pass's T = 67 causal and T x 1500, training's 224^2 causal, and off
+# the paths a ragged kv_len.
+K1_F32 = (((1, 20, 1500, 1500), 1500, False), ((8, 20, 1500, 1500), 1500, False),
+          ((1, 20, CAPTURE_T, CAPTURE_T), CAPTURE_T, True),
+          ((1, 20, CAPTURE_T, 1500), 1500, False), ((2, 20, 224, 224), 224, True),
+          ((1, 4, 300, 300), 257, False))
+
+
+def f32_model(preset="large-v2"):
+    """An f32 model (param and compute dtype float32, as ModelConfig's
+    defaults), random weights from SEED, 10 base_head heads with N(0, 0.02)
+    weights from a generator of their own."""
+    from whisper_medusa_tpu_torch.config import WHISPER_PRESETS, MedusaConfig, ModelConfig
+    from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+
+    dims = WHISPER_PRESETS[preset]
+    cfg = ModelConfig(dims=dims, medusa=MedusaConfig(medusa_hidden_size=dims.d_model))
+    require(cfg.param_dtype == cfg.compute_dtype == "float32", "ModelConfig's default dtype")
+    model = WhisperMedusaModel.from_random(cfg, seed=SEED)
+    hg = torch.Generator(device="cuda")
+    hg.manual_seed(SEED + 1)
+    model.params["medusa"]["heads"]["w"].normal_(0.0, 0.02, generator=hg)
+    return model
+
+
+def _f32(g, *shape, scale=1.0):
+    return torch.randn(shape, generator=g, device="cuda") * scale
+
+
+def _f32_ok(what, got, ref):
+    err = max_err(got, ref)
+    log(f"{what}: max_abs_err {err:.3e}")
+    require(got.shape == ref.shape and close(got, ref, F32_TOL), f"{what}: err {err}")
+    return err
+
+
+def check_f32_attention(g):
+    """K1's f32 mode against attention_plain and attention_lse_plain at
+    K1_F32; every example of the B=8 call bitwise its B=1 call; timed at
+    the B=1 encoder's shape beside the plain version and SDPA on the same
+    f32 inputs."""
+    from whisper_medusa_tpu_torch.ops import attention as A
+
+    worst, timed = 0.0, None
+    for (b, h, sq, skv), kv, causal in K1_F32:
+        q, k, v = _f32(g, b, h, sq, 64, scale=0.125), _f32(g, b, h, skv, 64), _f32(g, b, h, skv, 64)
+        out, lse = A.attention_kernel(q, k, v, kv, causal, return_lse=True)
+        what = f"K1 f32 ({b},{h},{sq},{skv}) kv_len {kv} causal {causal}"
+        worst = max(worst, _f32_ok(what, out, A.attention_plain(q, k, v, kv, causal)))
+        _f32_ok(what + " log-sum-exp", lse, A.attention_lse_plain(q, k, kv, causal))
+        if b == 8:
+            same = [torch.equal(out[i:i + 1], A.attention_kernel(
+                q[i:i + 1].contiguous(), k[i:i + 1].contiguous(), v[i:i + 1].contiguous(), kv,
+                causal)) for i in range(b)]
+            log(f"{what}: each example bitwise its B=1 output: {sum(same)}/{b}")
+            require(all(same), f"{what}: a B=1 call differs from its row of the B=8 call")
+        if timed is None:
+            timed = (q, k, v, kv, causal)
+    q, k, v, kv, causal = timed
+    b, h, sq, _ = q.shape
+    kern = lambda: A.attention_kernel(q, k, v, kv, causal)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0)
+    ms, plain_ms, lib_ms = (cuda_ms(kern), cuda_ms(lambda: A.attention_plain(q, k, v, kv, causal)),
+                            cuda_ms(sdpa))
+    nb, ops = _attention_cost(b, h, sq, kv, causal)
+    bd = bound(2 * nb, ops, F32_FLOPS)
+    log(f"K1 f32 ({b},{h},{sq},{kv}): device {device_ms(kern):.4f} ms; SDPA f32 device "
+        f"{device_ms(sdpa):.4f} ms; {SMI}")
+    return kernel_record("attention f32", K1_SOURCE, K1_REPLACES, (A, "f32_launches"), worst,
+                         ms, plain_ms, bd, lib_ms)
+
+
+def check_f32_logits(g, embed):
+    """K3's f32 mode against project_plain at M = 1, 10, 80, 121, 300; the
+    first 10 rows of the M=80 call bitwise an M=10 call; timed at M = 10
+    (the B=1 drafts) beside x @ E.T, M = 80 printed."""
+    from whisper_medusa_tpu_torch.ops import logits as LG
+
+    worst, xs = 0.0, {}
+    for m in (1, 10, 80, 121, 300):
+        x = _f32(g, m, embed.shape[1])
+        worst = max(worst, _f32_ok(f"K3 f32 M={m}", LG.project_kernel(x, embed),
+                                   LG.project_plain(x, embed)))
+        xs[m] = x
+    same = torch.equal(LG.project_kernel(xs[80][:10].contiguous(), embed),
+                       LG.project_kernel(xs[80], embed)[:10])
+    log(f"K3 f32: the first 10 rows of the M=80 call bitwise an M=10 call: {same}")
+    require(same, "K3 f32: a row's bits depend on M")
+    v, d = embed.shape
+    for m in (10, 80):
+        x = xs[m]
+        kern = lambda: LG.project_kernel(x, embed)
+        lib = lambda: x @ embed.T
+        bd = bound(nbytes(x, embed) + m * v * 4, 2 * m * v * d, F32_FLOPS)
+        log(f"K3 f32 M={m}: kernel {cuda_ms(kern):.4f} ms, device {device_ms(kern):.4f} ms; "
+            f"x @ E.T {cuda_ms(lib):.4f} ms, device {device_ms(lib):.4f} ms; bound "
+            f"{bd[0]:.4f} ms ({bd[1]}); {SMI}")
+    x = xs[10]
+    return kernel_record("logits f32", "whisper_medusa_tpu_torch/csrc/logits.cu",
+                         "whisper_medusa_tpu/ops/logits.py:55", (LG, "f32_launches"), worst,
+                         cuda_ms(lambda: LG.project_kernel(x, embed)),
+                         cuda_ms(lambda: LG.project_plain(x, embed)),
+                         bound(nbytes(x, embed) + 10 * v * 4, 2 * 10 * v * d, F32_FLOPS),
+                         cuda_ms(lambda: x @ embed.T))
+
+
+def _f32_stats_ok(what, rows, embed, pos, masks, kw, got, ref, ts=None):
+    """K4 / K5 statistics: argmax equal on the rows whose plain top-2 gap
+    exceeds F32_TOL, max / lse / gathered within F32_TOL + F32_TOL |x|."""
+    if ts is None:
+        arg_ok, n_clear = _clear_argmax(rows, embed, pos, masks, kw, got[0], ref[0], F32_TOL)
+        forced = ""
+    else:
+        arg_ok, n_clear, n_forced = _ts_clear(rows, embed, pos, masks, kw, ts, got[0], ref[0],
+                                              F32_TOL)
+        forced = f", {n_forced} forced rows"
+    err = max(max_err(a, b) for a, b in zip(got[1:], ref[1:]))
+    ok = all(close(a, b, F32_TOL) for a, b in zip(got[1:], ref[1:]))
+    log(f"{what}: argmax equal on {n_clear} clear rows: {arg_ok}{forced}; max/lse/gathered "
+        f"max_abs_err {err:.3e}")
+    require(arg_ok and ok, f"{what}: argmax {arg_ok}, err {err}")
+    return err
+
+
+def check_f32_verify(g, model):
+    """K4's f32 mode at R = 121 (11 heads x 11 nodes; and identity0 rows, 10
+    heads + the hidden rows) against verify_hidden_plain, and in the
+    timestamp mode (n_verif 11); its statistics bitwise K5's over
+    head_rows' rows (stage A is the same GEMM launch); timed beside the
+    plain version."""
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    hw, hb = _head_weights(model)
+    d, n_nodes = model.config.dims.d_model, 11
+    worst, timed = 0.0, None
+    for identity0 in (False, True):
+        nh = hb.shape[0] - identity0
+        w, b = hw[identity0:], hb[identity0:]
+        r = (nh + identity0) * n_nodes
+        embed, masks, pos, gcol, kw = _verify_inputs(g, model, r)
+        pos = (5 + torch.arange(n_nodes, device="cuda")[None, :]
+               + torch.arange(nh + identity0, device="cuda")[:, None]).reshape(-1).to(torch.int32)
+        hid = _f32(g, 1, n_nodes, d)
+        src = _f32(g, 1, n_nodes, d) if identity0 else hid
+        rows = VF.build_rows(hid, src, w, b, identity0)
+        for ts in (None, _ts_operands(model, r, n_nodes)):
+            kw4 = dict(identity0=identity0, **kw, **(_ts_kw(ts) if ts else {}))
+            got = VF.verify_hidden(hid, src, w, b, embed, pos, gcol, masks, **kw4)
+            ref = VF.verify_hidden_plain(hid, src, w, b, embed, pos, gcol, masks,
+                                         identity0=identity0, ts=ts, **kw)
+            what = (f"K4 f32 R={r}" + (" identity0" if identity0 else "")
+                    + (" timestamp mode" if ts else ""))
+            worst = max(worst, _f32_stats_ok(what, rows, embed, pos, masks, kw, got, ref, ts))
+            flat = VF.head_rows_kernel(src.reshape(n_nodes, d), w, b).reshape(-1, d)
+            if identity0:
+                flat = torch.cat([hid.reshape(n_nodes, d), flat])
+            k5 = VF.verify_rows(flat, embed, pos, gcol, masks, **kw, **(_ts_kw(ts) if ts else {}))
+            same = all(torch.equal(a, c) for a, c in zip(got, k5))
+            log(f"{what}: statistics bitwise those of K5 over head_rows' rows: {same}")
+            require(same, f"{what}: stage A's rows differ from head_rows'")
+        if timed is None:
+            timed = (hid, w, b, embed, pos, gcol, masks, kw, r, nh)
+    hid, w, b, embed, pos, gcol, masks, kw, r, nh = timed
+    kern = lambda: VF.verify_hidden_kernel(hid, hid, w, b, embed, pos, gcol, masks,
+                                           identity0=False, **kw)
+    plain = lambda: VF.verify_hidden_plain(hid, hid, w, b, embed, pos, gcol, masks,
+                                           identity0=False, **kw)
+    v = model.config.dims.vocab_size
+    bd = bound(nbytes(hid, w, b, embed, pos, gcol, masks) + 4 * r * 4,
+               2 * r * v * d + 2 * nh * n_nodes * d * d, F32_FLOPS)
+    by_kernel = _kernel_ms(kern)
+    log(f"K4 f32 R={r}: device {sum(by_kernel.values()):.4f} ms by kernel "
+        + ", ".join(f"{k} {t:.4f}" for k, t in by_kernel.items()) + f"; {SMI}")
+    return kernel_record("verify_hidden f32", "whisper_medusa_tpu_torch/csrc/verify.cu",
+                         "whisper_medusa_tpu/ops/verify.py:309", (VF, "f32_launches"), worst,
+                         cuda_ms(kern), cuda_ms(plain), bd, None)
+
+
+def check_f32_head_rows(g, model):
+    """wm_head_rows' f32 mode (the f32 GEMM over the heads) against
+    head_rows_plain at the loop's shapes (head 0 x 88 and 176, the drafts x 8
+    and 1, every head x 11, head 0 x 300); head 0 of a 1-head M=88 launch
+    bitwise an 11-head M=11 launch's, M=88's first 8 rows bitwise M=8's;
+    timed at head 0 x 88 (B=8's pass A) beside the baddbmm / silu / add
+    yardstick."""
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    w, b = _head_weights(model)
+    d = model.config.dims.d_model
+    worst, timed = 0.0, None
+    for m, lo, hi in ((88, 0, 1), (8, 1, None), (1, 1, None), (176, 0, 1), (11, 0, None),
+                      (300, 0, 1)):
+        src = _f32(g, m, d)
+        got = VF.head_rows_kernel(src, w[lo:hi], b[lo:hi])
+        worst = max(worst, _f32_ok(f"head_rows f32 M={m} heads={b[lo:hi].shape[0]}", got,
+                                   VF.head_rows_plain(src, w[lo:hi], b[lo:hi])))
+        if timed is None:
+            timed = (src, got)
+    src, got = timed
+    one = VF.head_rows_kernel(src, w[:1], b[:1])[0]
+    checks = {"head 0, 1-head M=88 vs 11-head M=11":
+              torch.equal(one[:11], VF.head_rows_kernel(src[:11].contiguous(), w, b)[0]),
+              "every head, M=88's first 8 rows vs M=8":
+              torch.equal(VF.head_rows_kernel(src, w, b)[:, :8],
+                          VF.head_rows_kernel(src[:8].contiguous(), w, b))}
+    for what, ok in checks.items():
+        log(f"head_rows f32 bitwise, {what}: {ok}")
+        require(ok, f"head_rows f32: {what} differ")
+    kern = lambda: VF.head_rows_kernel(src, w[:1], b[:1])
+    bd = bound(nbytes(src, w[:1], b[:1], got), 2 * 88 * d * d, F32_FLOPS)
+    log(f"head_rows f32 head 0 x 88: device {_cold_ms(kern):.4f} ms, L2 flushed; baddbmm / "
+        f"silu / add {_cold_ms(lambda: _head_yardstick(src, w[:1], b[:1])):.4f} ms; bound "
+        f"{bd[0]:.4f} ms ({bd[1]}); {SMI}")
+    return kernel_record("head_rows f32", "whisper_medusa_tpu_torch/csrc/verify.cu",
+                         "whisper_medusa_tpu/ops/verify.py:309", (VF, "f32_head_launches"),
+                         worst, cuda_ms(kern),
+                         cuda_ms(lambda: VF.head_rows_plain(src, w[:1], b[:1])), bd, None)
+
+
+def check_f32_verify_rows(g, model, sizes=(1, 8, 88, 176, 1024)):
+    """K5's f32 mode at R in ``sizes`` against verify_rows_plain, and in the
+    timestamp mode at R = 88 (n_verif 88); timed at R = 88 (B=8's pass A)."""
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    d, v = model.config.dims.d_model, model.config.dims.vocab_size
+    worst, timed = 0.0, None
+    for r in sizes:
+        embed, masks, pos, gcol, kw = _verify_inputs(g, model, r)
+        hs = _f32(g, r, d)
+        for ts in (None, _ts_operands(model, r, r)) if r == 88 else (None,):
+            extra = _ts_kw(ts) if ts else {}
+            got = VF.verify_rows(hs, embed, pos, gcol, masks, **kw, **extra)
+            ref = VF.verify_rows_plain(hs, embed, pos, gcol, masks, ts=ts, **kw)
+            what = f"K5 f32 R={r}" + (" timestamp mode" if ts else "")
+            worst = max(worst, _f32_stats_ok(what, hs, embed, pos, masks, kw, got, ref, ts))
+        if r == 88:
+            timed = (hs, embed, pos, gcol, masks, kw)
+    hs, embed, pos, gcol, masks, kw = timed
+    kern = lambda: VF.verify_rows_kernel(hs, embed, pos, gcol, masks, **kw)
+    r = hs.shape[0]
+    bd = bound(nbytes(hs, embed, pos, gcol, masks) + 4 * r * 4, 2 * r * v * d, F32_FLOPS)
+    log(f"K5 f32 R={r}: device {device_ms(kern):.4f} ms; {SMI}")
+    return kernel_record("verify_rows f32", "whisper_medusa_tpu_torch/csrc/verify.cu",
+                         "whisper_medusa_tpu/ops/verify.py:183", (VF, "f32_rows_launches"),
+                         worst, cuda_ms(kern),
+                         cuda_ms(lambda: VF.verify_rows_plain(hs, embed, pos, gcol, masks, **kw)),
+                         bd, None)
+
+
+def check_f32_cross_decode(g):
+    """K10's f32 mode against its plain version at CROSS_OFF + CROSS_PATH;
+    every example of the (16, 20, 11, 64) call bitwise its B=1 call; timed
+    there beside SDPA on K and V re-laid head-major."""
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    worst, timed = 0.0, None
+    for b, t, s, kv in CROSS_OFF + CROSS_PATH:
+        q, k, v = _f32(g, b, 20, t, 64, scale=0.125), _f32(g, b, 20, 64, s), _f32(g, b, s, 1280)
+        got = DO.cross_attention_decode_kernel(q, k, v, kv)
+        what = f"K10 f32 ({b},20,{t},64) x {s} kv_len {kv}"
+        worst = max(worst, _f32_ok(what, got, DO.cross_attention_decode_plain(q, k, v, kv)))
+        if (b, t) == (16, 11):
+            one = lambda a, i: a[i:i + 1].contiguous()
+            same = [torch.equal(got[i:i + 1], DO.cross_attention_decode_kernel(
+                one(q, i), one(k, i), one(v, i), kv)) for i in range(b)]
+            log(f"{what}: each example bitwise its B=1 output: {sum(same)}/{b}")
+            require(all(same), f"{what}: a B=1 call differs from its row of the B={b} call")
+            timed = (q, k, v)
+    q, k, v = timed
+    b, h, t, _ = q.shape
+    kern = lambda: DO.cross_attention_decode_kernel(q, k, v, 1500)
+    kh = k.transpose(2, 3).contiguous()
+    vh = v.reshape(b, -1, h, 64).transpose(1, 2).contiguous()
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, kh, vh, scale=1.0)
+    log(f"K10 f32 (16,20,11,64) x 1500: device {device_ms(kern):.4f} ms; SDPA f32 device "
+        f"{device_ms(sdpa):.4f} ms; {SMI}")
+    return kernel_record("cross_decode f32", DECODE_OPS_SOURCE,
+                         "tools/decode_kernels_experiment.py:48", (DO, "f32_cross_launches"),
+                         worst, cuda_ms(kern),
+                         cuda_ms(lambda: DO.cross_attention_decode_plain(q, k, v, 1500)),
+                         bound(nbytes(q, k, v, q), 4 * b * h * t * 1500 * 64, F32_FLOPS),
+                         cuda_ms(sdpa))
+
+
+def check_f32_self_decode(g):
+    """K10's f32 mask mode against self_attention_decode_plain at
+    SELF_SHAPES (max_len 460); every example of each call, and of a B=8
+    call, bitwise its B=1 call; timed at large-v2's (16, 11) beside SDPA
+    with the step's mask."""
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    worst, row = 0.0, None
+    for name, b, t, h, chunk in SELF_SHAPES:
+        q = _f32(g, b, t, h, 64, scale=0.125)
+        k, v = _f32(g, b, SELF_MAX_LEN, h * 64), _f32(g, b, SELF_MAX_LEN, h * 64)
+        off = torch.linspace(3, 400, b, device="cuda").round().to(torch.int32)
+        cm = tree_mask(t) if chunk == "tree" else None
+        bits = DO.chunk_bits(cm, t, "cuda")
+        got = DO.self_attention_decode_kernel(q, k, v, off, bits)
+        what = f"K10 f32 mask mode {name} (B={b}, T={t}, H={h}) x {SELF_MAX_LEN}, {chunk}"
+        worst = max(worst, _f32_ok(what, got, DO.self_attention_decode_plain(q, k, v, off, cm)))
+        one = lambda a, i: a[i:i + 1].contiguous()
+        same = [torch.equal(got[i:i + 1], DO.self_attention_decode_kernel(
+            one(q, i), one(k, i), one(v, i), one(off, i), bits)) for i in range(b)]
+        log(f"{what}: each example bitwise its B=1 output: {sum(same)}/{b}")
+        require(all(same), f"{what}: a B=1 call differs from its row of the B={b} call")
+        if name != "large-v2":
+            continue
+        kern = lambda: DO.self_attention_decode_kernel(q, k, v, off, bits)
+        mask = whisper.make_step_mask(off, t, SELF_MAX_LEN, cm)
+        qh = q.transpose(1, 2).contiguous()
+        kh = k.reshape(b, -1, h, 64).transpose(1, 2).contiguous()
+        vh = v.reshape(b, -1, h, 64).transpose(1, 2).contiguous()
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, scale=1.0)
+        keys = int((off.long() + t).sum())
+        log(f"{what}: device {device_ms(kern):.4f} ms; SDPA f32 with the mask device "
+            f"{device_ms(lib):.4f} ms; {SMI}")
+        row = (cuda_ms(kern), cuda_ms(lambda: DO.self_attention_decode_plain(q, k, v, off, cm)),
+               bound(nbytes(q) * 2 + 2 * keys * h * 64 * 4 + nbytes(off, bits),
+                     4 * h * t * keys * 64, F32_FLOPS), cuda_ms(lib))
+    return kernel_record("self_decode f32", DECODE_OPS_SOURCE,
+                         "tools/decode_kernels_experiment.py:48", (DO, "f32_self_launches"),
+                         worst, *row)
+
+
+def check_f32_ffn_decode(g, d=1280, f=5120):
+    """K11's f32 mode against ffn_decode_plain at M = 176, 16, 11, 1 and
+    300; the first 11 rows of the M=176 call bitwise an M=11 call; timed at
+    M = 11 (the B=1 chain) and 176 beside addmm / gelu / addmm."""
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    w1, b1, w2, b2 = (_f32(g, d, f, scale=0.02), _f32(g, f, scale=0.02),
+                      _f32(g, f, d, scale=0.02), _f32(g, d, scale=0.02))
+    worst, xs = 0.0, {}
+    for m in (176, 16, 11, 1, 300):
+        x = _f32(g, m, d)
+        y = DO.ffn_decode_kernel(x, w1, b1, w2, b2)
+        worst = max(worst, _f32_ok(f"K11 f32 M={m} D={d} F={f}", y,
+                                   DO.ffn_decode_plain(x, w1, b1, w2, b2)))
+        xs[m] = (x, y)
+    same = torch.equal(xs[176][1][:11],
+                       DO.ffn_decode_kernel(xs[176][0][:11].contiguous(), w1, b1, w2, b2))
+    log(f"K11 f32: the first 11 rows of the M=176 call bitwise an M=11 call: {same}")
+    require(same, "K11 f32: M=176 rows differ from an M=11 call")
+    gelu = torch.nn.functional.gelu
+    for m in (11, 176):
+        xm = xs[m][0]
+        kern = lambda: DO.ffn_decode_kernel(xm, w1, b1, w2, b2)
+        three = lambda: torch.addmm(b2, gelu(torch.addmm(b1, xm, w1)), w2)
+        bd = bound(nbytes(xm, w1, b1, w2, b2) + m * d * 4, 4 * m * d * f, F32_FLOPS)
+        log(f"K11 f32 M={m}: kernel {cuda_ms(kern):.4f} ms, device {device_ms(kern):.4f} ms; "
+            f"addmm / gelu / addmm {cuda_ms(three):.4f} ms, device {device_ms(three):.4f} ms; "
+            f"bound {bd[0]:.4f} ms ({bd[1]}); {SMI}")
+    x = xs[11][0]
+    return kernel_record("ffn_decode f32", DECODE_OPS_SOURCE,
+                         "tools/decode_kernels_experiment.py:110", (DO, "f32_ffn_launches"),
+                         worst, cuda_ms(lambda: DO.ffn_decode_kernel(x, w1, b1, w2, b2)),
+                         cuda_ms(lambda: DO.ffn_decode_plain(x, w1, b1, w2, b2)),
+                         bound(nbytes(x, w1, b1, w2, b2) + 11 * d * 4, 4 * 11 * d * f,
+                               F32_FLOPS), None)
+
+
+STEP_F32 = ("self_decode f32", "cross_decode f32", "ffn_decode f32")
+NEEDS_F32 = {
+    "medusa B=1": ("attention f32", "logits f32", "head_rows f32", "verify_hidden f32")
+    + STEP_F32,
+    "vanilla B=1": ("attention f32", "verify_rows f32") + STEP_F32,
+    f"medusa B={BATCH}": ("attention f32", "logits f32", "head_rows f32", "verify_rows f32")
+    + STEP_F32,
+    "medusa_block B=1": ("attention f32", "logits f32", "verify_hidden f32") + STEP_F32,
+}
+
+
+def _cpu_copy(tree):
+    return {k: (_cpu_copy(v) if isinstance(v, dict) else v.to("cpu")) for k, v in tree.items()}
+
+
+def phase_f32_requests(model, kernels, feat, feats8):
+    """f32 large-v2 requests on the card through the entry points: Medusa
+    B=1 (K4), vanilla B=1, Medusa B=8 (two-pass verification, K5),
+    Medusa-Block B=1 and return_timestamps B=1 (K4's timestamp mode), each
+    driven with every counter set to 0: the f32 rows of its path must
+    launch, and no other row (K2, the bf16 and int8 modes) may; each run
+    again under the profiler for its device busy time and idle share; then the
+    B=1 Medusa request under draft_corruption=1.0; an identity hook (the
+    unfused route), num_beams=2 and return_scores="full" requests at B=1,
+    each with only f32 rows launching."""
+    from whisper_medusa_tpu_torch.models import bridge
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    bmodel = bridge.random_block_model(model, seed=SEED + 2)
+    others = tuple(k["name"] for k in kernels if k["name"] not in F32_ROWS)
+    vocab = model.config.dims.vocab_size
+    kw = dict(language="en", max_new_tokens=F32_NEW_TOKENS)
+    runs = {"medusa B=1": (model, feat, {}),
+            "vanilla B=1": (model, feat, dict(disable_medusa=True)),
+            f"medusa B={BATCH}": (model, feats8, {}),
+            "medusa_block B=1": (bmodel, feat, {})}
+    outs = {}
+    for path, (m, f, extra) in runs.items():
+        m.generate(f, language="en", max_new_tokens=8, **extra)       # warm-up
+        out, wall = drive(f"f32 {path}", kernels, lambda: m.generate(f, **kw, **extra),
+                          NEEDS_F32[path], absent=others)
+        report(f"f32 {path} request", out, wall,
+               check_output(out, f.shape[0], vocab, F32_NEW_TOKENS))
+        dev, tops = device_split(lambda: m.generate(f, **kw, **extra))
+        log(f"f32 {path}: device busy {dev:.2f} ms of {wall * 1e3:.1f} ms wall, idle share "
+            f"{1 - dev / (wall * 1e3):.3f}, {out.steps} steps; {tops}; {SMI}")
+        outs[path] = out
+    ts0 = VF.f32_ts_launches
+    out, wall = drive("f32 timestamps medusa B=1", kernels,
+                      lambda: model.generate(feat, return_timestamps=True, **kw),
+                      ("attention f32", "logits f32") + STEP_F32,
+                      absent=others + ("verify_hidden f32",))
+    require(VF.f32_ts_launches > ts0, "f32 timestamps: K4's f32 timestamp mode never launched")
+    check_ts_output(model, out)
+    report("f32 timestamps medusa B=1", out, wall, int((out.lengths - 3).sum()))
+    check_corruption("f32", model, feat, outs["medusa B=1"], new_tokens=F32_NEW_TOKENS)
+    # The other routes generate takes, at B=1: an identity hook (the unfused
+    # route: K4 and K5 at 0), beams (K3 on the beams' rows) and the score
+    # stack of a vanilla request (the capture pass: K1 causal and T x 1500,
+    # K3 on 64-position chunks; vanilla, so that the stack is the loop's
+    # distribution).
+    verify_rows = ("verify_hidden f32", "verify_rows f32")
+    hook = Hook(force=False)
+    for name, extra, needs, absent, ref in (
+            ("identity hook", dict(logits_processor=hook), ("logits f32", "head_rows f32"),
+             verify_rows, "medusa B=1"),
+            ("beams K=2", dict(num_beams=2), ("logits f32",), verify_rows, "medusa B=1"),
+            ("vanilla score stack", dict(return_scores="full", disable_medusa=True),
+             ("logits f32", "verify_rows f32"), (), "vanilla B=1")):
+        out, wall = drive(f"f32 {name} B=1", kernels, lambda: model.generate(feat, **kw, **extra),
+                          ("attention f32",) + STEP_F32 + needs, absent=others + absent)
+        require(out.sequences.shape[0] == 1 and (out.sequences >= 0).all()
+                and (out.sequences < vocab).all() and out.steps > 0, f"f32 {name}: output")
+        same = np.array_equal(out.sequences, outs[ref].sequences)
+        log(f"f32 {name} B=1: {wall * 1e3:.1f} ms, {out.steps} steps, tokens equal to the "
+            f"{ref} request's: {same} (printed, not held)")
+    require(hook.calls > 0 and hook.devices == {"cuda"},
+            f"f32 hook: {hook.calls} calls on {hook.devices}")
+    check_score_stack("f32 vanilla B=1", out, PROMPT_LEN)
+    del bmodel
+    return outs
+
+
+def check_f32_tiny_against_cpu(feat):
+    """An f32 whisper tiny request on the card against the CPU port on the
+    same weights and features: tokens equal, or where an example's first
+    differing position has a processed top-2 logit gap under F32_TOL of
+    the top logit on the CPU (a tie the two devices' sums may break either
+    way)."""
+    from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+
+    cuda_model = f32_model("tiny")
+    cpu_model = WhisperMedusaModel(cuda_model.config, _cpu_copy(cuda_model.params), device="cpu")
+    kw = dict(language="en", max_new_tokens=F32_NEW_TOKENS)
+    got = cuda_model.generate(feat, **kw)
+    ref = cpu_model.generate(feat.cpu(), **kw)
+    diffs = []
+    for e in range(ref.sequences.shape[0]):
+        n = int(min(ref.lengths[e], got.lengths[e]))
+        where = np.nonzero(ref.sequences[e, :n] != got.sequences[e, :n])[0]
+        if where.size:
+            pos = int(where[0])
+            enc = cpu_model.encode(feat[e:e + 1].cpu())
+            gap, top = _top2_gap(cpu_model, enc, ref.sequences[e], pos, "base_head",
+                                 with_top=True)
+            diffs.append((e, pos, gap, gap / max(abs(top), 1e-30)))
+    log(f"f32 whisper tiny, card vs CPU port: {ref.sequences.shape[0] - len(diffs)}/"
+        f"{ref.sequences.shape[0]} examples' tokens equal over {int(ref.lengths.sum())} "
+        f"positions; first differing (example, position, CPU top-2 gap, relative): "
+        f"{diffs or 'none'}")
+    require(all(rel < F32_TOL for *_, rel in diffs),
+            f"f32 tiny: tokens differ from the CPU port where the top-2 gap is clear: {diffs}")
+
+
+def phase_f32(g, kernels, feats, feats8):
+    """Phase 6b: the f32 modes against their plain versions, P3 (the per-op
+    step at B=8 bitwise its B=1 steps, every layer) on the f32 model, the
+    f32 requests, the B=8 decode held to B=1, and whisper tiny in f32
+    against the CPU port.  Returns the f32 kernel rows (added to
+    ``kernels`` before the requests run)."""
+    t0 = time.perf_counter()
+    model = f32_model()
+    torch.cuda.synchronize()
+    log(f"model: whisper-large-v2 + 10 base_head heads, f32 (ModelConfig's default), random "
+        f"(seed {SEED}), {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    embed = model.params["whisper"]["decoder"]["embed_tokens"]
+    rows = [check_f32_attention(g), check_f32_logits(g, embed), check_f32_verify(g, model),
+            check_f32_head_rows(g, model), check_f32_verify_rows(g, model),
+            check_f32_cross_decode(g), check_f32_self_decode(g), check_f32_ffn_decode(g)]
+    kernels += rows
+    enc8 = model.encode(feats8)
+    check_step_invariance(model, enc8, "large-v2 f32")
+    t1 = time.perf_counter()
+    phase_f32_requests(model, kernels, feats[0], feats8)
+    check_batch_invariance(model, enc8, ("base_head",))
+    log(f"f32 requests and B=8 decode invariance: {time.perf_counter() - t1:.1f} s")
+    del model, embed, enc8
+    torch.cuda.empty_cache()
+    check_f32_tiny_against_cpu(feats[0])
+    for k in rows:
+        log(f"launches {k['name']} (f32 paths): {k['launches']}")
+    log(f"f32 phase: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: training (K1 forward, K9 backward)
 # ---------------------------------------------------------------------------
 
@@ -4215,10 +4758,13 @@ def main():
             log(f"launches {k['name']} (whisper tiny paths): {k['launches']}")
     del tiny
 
-    # ---- phase 7: training (K9), on fresh models after the serving ones go
+    # ---- phase 6b: f32 serving, its model alone on the card
     check_grad_guard(model.params)
     del model, qmodel, bmodel, bqmodel, outs, qouts, bouts, bqouts, outs16, enc1, enc8, enc16
     torch.cuda.empty_cache()
+    phase_f32(g, kernels, feats, feats8)
+
+    # ---- phase 7: training (K9), on fresh models after the serving ones go
     kernels += check_attention_bwd(g)
     for variant, policy in (("medusa_block", "whisper"), ("base_head", "all_but_last")):
         check_train_2layer(variant, policy, feats[0])

@@ -171,23 +171,58 @@ def test_training_on_cuda_takes_bf16():
         def is_floating_point(self):
             return True
 
-    with pytest.raises(NotImplementedError, match="f32 modes of K1 and K9"):
+    with pytest.raises(NotImplementedError, match="item 19a: K9's f32 mode"):
         TT.require_trainable_dtype({"w": FakeCuda()})
     TT.require_trainable_dtype({"w": torch.zeros(2)})        # CPU f32 trains
 
 
-def test_serving_on_cuda_takes_bf16():
-    """generate's dtype check: f32 weights on a CUDA device raise
-    NotImplementedError naming ROADMAP item 19 and the bf16 load, before
-    anything runs; the int8 copy's f32 scales and CPU f32 serving pass."""
+_F32 = {"whisper": {"w": torch.zeros(2, dtype=torch.float32)}}
+_INT8 = {"whisper": {"w": {"q": torch.zeros(2, dtype=torch.int8),
+                           "s": torch.ones(2, dtype=torch.float32)}}}
+_SERVABLE = {
+    "f32 on cuda": (_F32, "cuda", None),
+    "f32 int8 copy on cuda": (
+        {"whisper": {**_INT8["whisper"], "b": torch.zeros(2, dtype=torch.float32)}}, "cuda",
+        "item 19c"),
+    "bf16 on cuda": ({"whisper": {"w": torch.zeros(2, dtype=torch.bfloat16)}}, "cuda", None),
+    "bf16 int8 copy on cuda": (
+        {"whisper": {**_INT8["whisper"], "b": torch.zeros(2, dtype=torch.bfloat16)}}, "cuda",
+        None),
+    "mixed on cuda": ({"whisper": {"w": torch.zeros(2, dtype=torch.float32),
+                                   "b": torch.zeros(2, dtype=torch.bfloat16)}}, "cuda",
+                      "mixed dtypes"),
+    "f32 on cpu": (_F32, "cpu", None),
+    "f32 int8 copy on cpu": (
+        {"whisper": {**_INT8["whisper"], "b": torch.zeros(2, dtype=torch.float32)}}, "cpu",
+        None),
+}
+
+
+@pytest.mark.parametrize("case", list(_SERVABLE))
+def test_serving_on_cuda_takes_bf16(case):
+    """generate's dtype check: all-f32 weights (the JAX package's default)
+    and all-bf16 weights are served on the card, and so is the int8 copy of
+    a bf16 model (its f32 scales belong to it); the int8 copy of an f32
+    model raises NotImplementedError naming ROADMAP item 19c, and weights
+    that mix bf16 and f32 raise, before anything runs; CPU serving takes
+    any dtype."""
     from whisper_medusa_tpu_torch.models.api import require_servable_dtype
 
-    params = {"whisper": {"w": torch.zeros(2, dtype=torch.float32)}}
-    with pytest.raises(NotImplementedError, match="item 19") as err:
-        require_servable_dtype(params, device="cuda")
-    assert 'dtype="bfloat16"' in str(err.value)
-    require_servable_dtype(params, device="cpu")
-    int8 = {"whisper": {"w": {"q": torch.zeros(2, dtype=torch.int8),
-                              "s": torch.ones(2, dtype=torch.float32)},
-                        "b": torch.zeros(2, dtype=torch.bfloat16)}}
-    require_servable_dtype(int8, device="cuda")
+    params, device, error = _SERVABLE[case]
+    if error is None:
+        require_servable_dtype(params, device=device)
+        return
+    with pytest.raises(NotImplementedError, match=error):
+        require_servable_dtype(params, device=device)
+
+
+def test_f32_serving_refuses_tf32(monkeypatch):
+    """f32 serving on the card takes full-f32 cuBLAS products: with TF32
+    allowed it raises before anything runs; bf16 serving does not care."""
+    from whisper_medusa_tpu_torch.models.api import require_servable_dtype
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(ValueError, match="allow_tf32"):
+        require_servable_dtype(_F32, device="cuda")
+    require_servable_dtype(_SERVABLE["bf16 on cuda"][0], device="cuda")
+    require_servable_dtype(_F32, device="cpu")

@@ -83,8 +83,16 @@ def test_cluster_attn_constants_match_python():
     assert not hasattr(MS, "CROSS_CHUNK")
 
 
+def _streamed(layers, dtype=torch.bfloat16):
+    """``layers`` with K2's streamed weights added in ``dtype`` (``fits``
+    reads their dtype; one element each stands for the weight)."""
+    w = lambda: torch.zeros(1, dtype=dtype)
+    return {**layers, "self": {k: w() for k in ("q_w", "k_w", "v_w", "o_w")},
+            "cross": {k: w() for k in ("q_w", "o_w")}, "fc1_w": w(), "fc2_w": w()}
+
+
 def test_fits_reaches_the_cluster_split():
-    layers = {"fc1_b": torch.zeros((2, 5120))}
+    layers = _streamed({"fc1_b": torch.zeros((2, 5120))})
     ck = torch.zeros((2, 1, 20, 64, 1500))
     x = torch.zeros((1, 11, 1280))
     slab = lambda s: torch.zeros((2, 1, s, 1280))

@@ -81,6 +81,14 @@ def test_statistics_do_not_depend_on_m(slices):
     assert torch.allclose(rstd88.double(), want, rtol=1e-5)
 
 
+def _streamed(layers, dtype=torch.bfloat16):
+    """``layers`` with K2's streamed weights added in ``dtype`` (``fits``
+    reads their dtype; one element each stands for the weight)."""
+    w = lambda: torch.zeros(1, dtype=dtype)
+    return {**layers, "self": {k: w() for k in ("q_w", "k_w", "v_w", "o_w")},
+            "cross": {k: w() for k in ("q_w", "o_w")}, "fc1_w": w(), "fc2_w": w()}
+
+
 def test_slices_are_the_fed_gemms():
     for d, f in (LARGE_V2, (256, 1024), (1024, 4096)):
         assert MS.ln_slices(d, f) == {"self": MS.gemm_slices(d, d, 3),
@@ -92,11 +100,12 @@ def test_slices_are_the_fed_gemms():
     assert MS.ln_longest_slice(*LARGE_V2) == MS.LN_MAX_CHUNKS
     for d, f in ((512, 2048), (768, 3072), (1024, 4096)):
         assert MS.ln_longest_slice(d, f) <= MS.LN_MAX_CHUNKS
-    layers = {"fc1_b": torch.zeros((1, 5120))}
+    layers = _streamed({"fc1_b": torch.zeros((1, 5120))})
     x, ck = torch.zeros((1, 11, 1280)), torch.zeros((1, 1, 20, 64, 1500))
     assert MS.fits(layers, x, torch.zeros((1, 1, 460, 1280)), ck, 20)
     assert MS.ln_longest_slice(2048, 4096) > MS.LN_MAX_CHUNKS
-    assert not MS.fits({"fc1_b": torch.zeros((1, 4096))}, torch.zeros((1, 11, 2048)),
+    assert not MS.fits(_streamed({"fc1_b": torch.zeros((1, 4096))}),
+                       torch.zeros((1, 11, 2048)),
                        torch.zeros((1, 1, 460, 2048)), torch.zeros((1, 1, 32, 64, 1500)), 32)
     # chip_smoke.py's 2-layer checks run at the default (large-v2) widths.
     dims = WhisperDims(decoder_layers=2)

@@ -9,7 +9,8 @@ heads at the accepted node), as the JAX package falls back where its
 ``tiny_test_config`` (4 heads of 64, ffn 256: K2's widths, so D % 64 == 0
 and only R decides), float32 on the CPU: 10 draft heads give R = 121 (K4),
 11 give R = 144 (two passes), and 16 give a 17-node chain, which also runs
-the per-op decoder step (T = 17 > 16) in place of K2's.  Tokens, lengths, accepted drafts and steps equal the
+the per-op decoder step at bf16 too (T = 17 > 16; f32 weights run it at every
+T).  Tokens, lengths, accepted drafts and steps equal the
 JAX package's; token log-probs agree to 1e-4.
 """
 
@@ -27,6 +28,7 @@ from whisper_medusa_tpu_torch import config as tconfig
 from whisper_medusa_tpu_torch.models import bridge
 from whisper_medusa_tpu_torch.models import whisper as tw
 from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel as TModel
+from whisper_medusa_tpu_torch.ops import megastep as tmegastep
 from whisper_medusa_tpu_torch.ops import verify as tverify
 
 
@@ -80,7 +82,11 @@ def test_b1_route_matches_jax(monkeypatch, heads, fused, per_op):
         # Pass A on every step: head 0's rows, then K5 over them.
         assert calls["verify_hidden"] == 0
         assert calls["verify_rows"] == steps and calls["head_rows"] >= steps
-    assert (calls["decoder_layers_ops"] > 0) == per_op
+    # f32 weights take the per-op step at every T (megastep.fits refuses f32,
+    # as JAX's gate does); per_op marks the chain that K2 would not take at
+    # bf16 either (T = 17 > 16).
+    assert calls["decoder_layers_ops"] >= steps
+    assert (nodes > tmegastep.MAX_T) == per_op
 
 
 @pytest.mark.parametrize("b,n,heads,identity0,d,want", [

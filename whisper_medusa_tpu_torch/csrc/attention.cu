@@ -682,3 +682,187 @@ extern "C" int wm_attention_fwd(const void* q, const void* k, const void* v,
       mq, mk, mv, (bf16*)o, (float*)lse, sq, kv_len, causal);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// K1's f32 mode, wm_attention_fwd_f32: the same function on f32 q, k, v (the
+// JAX package's default dtype): f32 scores, the online softmax in f32, P not
+// rounded (the TPU kernel rounds P to the value dtype, f32 here), f32 PV,
+// the f32 output and, where lse is not null, each row's f32 log-sum-exp
+// m + log(l).  The products and sums are FFMA on the CUDA cores: the tensor
+// cores take f32 only as TF32, which keeps about three decimal digits.
+//
+//  * one CTA (256 threads) per (batch, head, 64-query block); the block's q
+//    staged once, transposed (d-major), then 64-key tiles of K (transposed)
+//    and V (row-major) staged in shared memory one at a time (16 KB each),
+//    keys past Skv zero-filled, tiles past the last visible key (kv_len,
+//    and the block's last query when causal) not loaded;
+//  * thread t holds a 4 x 4 register tile of scores, queries 4 (t / 16) ..
+//    + 3 and keys 4 (t % 16) .. + 3 (two float4 reads of shared memory per
+//    16 FFMA, a dot of 64 in order), and the same queries' output columns
+//    4 (t % 16) .. + 3; a query row's 16 threads are one half-warp, so its
+//    max and sum take four shuffles;
+//  * P goes through shared memory transposed (pitch 68), and O += P V is
+//    the same 4 x 4 register tile over the 64 keys in order.
+// Masks: key < kv_len, and key <= query when causal.  No split over keys
+// and no atomics: a (b, h, query block) computes the same bits whatever B
+// is.  Bound on H100: operations; the encoder's (1, 20, 1500^2) is 11.5
+// GFLOP a layer, 0.17 ms at the CUDA cores' 67 TFLOP/s.
+namespace wm {
+namespace {
+
+constexpr int AF_Q = 64;                    // queries a CTA
+constexpr int AF_K = 64;                    // keys a tile
+constexpr int AF_DH = 64;
+constexpr int AF_THREADS = 256;
+constexpr int AF_PP = AF_Q + 4;             // pitch of the transposed P tile
+constexpr int AF_SMEM = (AF_DH * AF_Q + 2 * AF_DH * AF_K + AF_K * AF_PP) * 4;
+
+__device__ __forceinline__ float4 af_ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__global__ void __launch_bounds__(AF_THREADS)
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int sq, int skv, int kv_len, int causal) {
+  extern __shared__ __align__(16) float af_smem[];
+  float* qt = af_smem;                        // [d][query]
+  float* kt = qt + AF_DH * AF_Q;              // [d][key]
+  float* vs = kt + AF_DH * AF_K;              // [key][d]
+  float* pt = vs + AF_K * AF_DH;              // [key][query], pitch AF_PP
+  const int q0 = blockIdx.x * AF_Q;
+  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const float* qh = q + bh * sq * AF_DH;
+  const float* kh = k + bh * skv * AF_DH;
+  const float* vh = v + bh * skv * AF_DH;
+  const int t = threadIdx.x, tq = t >> 4, tk = t & 15;
+  const int kend = causal ? min(kv_len, q0 + AF_Q) : kv_len;
+  const int ntiles = (kend + AF_K - 1) / AF_K;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const int idx = t + h * AF_THREADS, r = idx & 63, d4 = (idx >> 6) * 4;
+    const float4 x = q0 + r < sq ? af_ld4(qh + (size_t)(q0 + r) * AF_DH + d4) : zero;
+    qt[(d4 + 0) * AF_Q + r] = x.x;
+    qt[(d4 + 1) * AF_Q + r] = x.y;
+    qt[(d4 + 2) * AF_Q + r] = x.z;
+    qt[(d4 + 3) * AF_Q + r] = x.w;
+  }
+  float acc[4][4], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int k0 = tile * AF_K;
+    __syncthreads();              // the previous tile's products have read kt, vs, pt
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int idx = t + h * AF_THREADS;
+      {
+        const int j = idx & 63, d4 = (idx >> 6) * 4, key = k0 + j;
+        const float4 x = key < skv ? af_ld4(kh + (size_t)key * AF_DH + d4) : zero;
+        kt[(d4 + 0) * AF_K + j] = x.x;
+        kt[(d4 + 1) * AF_K + j] = x.y;
+        kt[(d4 + 2) * AF_K + j] = x.z;
+        kt[(d4 + 3) * AF_K + j] = x.w;
+      }
+      {
+        const int j = idx >> 4, d4 = (idx & 15) * 4, key = k0 + j;
+        *reinterpret_cast<float4*>(vs + j * AF_DH + d4) =
+            key < skv ? af_ld4(vh + (size_t)key * AF_DH + d4) : zero;
+      }
+    }
+    __syncthreads();
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll 16
+    for (int d = 0; d < AF_DH; ++d) {
+      const float4 qa = *reinterpret_cast<const float4*>(qt + d * AF_Q + 4 * tq);
+      const float4 ka = *reinterpret_cast<const float4*>(kt + d * AF_K + 4 * tk);
+      const float qv[4] = {qa.x, qa.y, qa.z, qa.w}, kv[4] = {ka.x, ka.y, ka.z, ka.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * tq + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + 4 * tk + j;
+        if (key >= kv_len || (causal && key > row)) s[i][j] = -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int sh = 1; sh < 16; sh <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
+      const float mn = fmaxf(m[i], mx);
+      // A row with no visible key yet keeps m = -inf, p = 0 and alpha = 1.
+      const float base = mn == -INFINITY ? 0.0f : mn;
+      const float alpha = mn == -INFINITY ? 1.0f : expf(m[i] - mn);
+      m[i] = mn;
+      float ps = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - base);
+        ps += p;
+        pt[(4 * tk + j) * AF_PP + 4 * tq + i] = p;
+      }
+      l[i] = l[i] * alpha + ps;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+#pragma unroll 16
+    for (int j = 0; j < AF_K; ++j) {
+      const float4 pa = *reinterpret_cast<const float4*>(pt + j * AF_PP + 4 * tq);
+      const float4 va = *reinterpret_cast<const float4*>(vs + j * AF_DH + 4 * tk);
+      const float pv[4] = {pa.x, pa.y, pa.z, pa.w}, vv[4] = {va.x, va.y, va.z, va.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int dd = 0; dd < 4; ++dd) acc[i][dd] = fmaf(pv[i], vv[dd], acc[i][dd]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int sh = 1; sh < 16; sh <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], sh);
+    const int row = q0 + 4 * tq + i;
+    if (row < sq) {
+      const float inv = l[i] > 0.0f ? 1.0f / l[i] : 0.0f;
+      *reinterpret_cast<float4*>(o + (bh * sq + row) * AF_DH + 4 * tk) =
+          make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
+      if (lse != nullptr && tk == 0) lse[bh * sq + row] = m[i] + logf(l[i]);
+    }
+  }
+}
+
+}  // namespace
+}  // namespace wm
+
+// lse: (B, H, Sq) f32, or null.  q (B, H, Sq, 64), k and v (B, H, Skv, 64)
+// f32, 16-byte aligned; o (B, H, Sq, 64) f32.
+extern "C" int wm_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                                    void* lse, int b, int h, int sq, int skv, int dh,
+                                    int kv_len, int causal, void* stream) {
+  using namespace wm;
+  if (dh != AF_DH || b < 1 || h < 1 || sq < 1 || kv_len < 1 || kv_len > skv)
+    return (int)cudaErrorInvalidValue;
+  // Per launch: the attribute belongs to the current device's context.
+  cudaFuncSetAttribute(attention_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       AF_SMEM);
+  attention_f32_kernel<<<dim3((sq + AF_Q - 1) / AF_Q, h, b), AF_THREADS, AF_SMEM,
+                         (cudaStream_t)stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), sq, skv, kv_len, causal);
+  return (int)cudaGetLastError();
+}

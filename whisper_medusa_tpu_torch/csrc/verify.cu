@@ -97,6 +97,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "ffma.cuh"
 #include "hopper.cuh"
 #include "wgemm.cuh"
 
@@ -784,4 +785,168 @@ extern "C" int wm_head_rows(const void* src, const void* w, const void* b, void*
                             static_cast<const float*>(ws), static_cast<bf16*>(out), m, d, nh,
                             (cudaStream_t)stream);
   return err != 0 ? err : (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The f32 modes of K4 and K5 (the JAX package's default dtype): f32 rows
+// against an f32 tied embedding, FFMA on the CUDA cores (the tensor cores
+// take f32 only as TF32).
+//
+// Stage B is vocab_stream_f32_kernel: a CTA (256 threads) per (64-entry
+// vocab tile, pass of up to 128 rows), a tile's passes adjacent in the grid
+// so that its E rows come from L2 after the first; ffma.cuh's NT tile
+// computes the (rows x 64) f32 sums (each a chain over D in order, so a
+// row's sums do not depend on R or on the rows beside it) and stages them in
+// shared memory, and each warpgroup runs the same tile_stats<false, TS> as
+// the bf16 stream on half of the pass's rows: the processors, the timestamp
+// rules and the straddling tile's split are the same code.  Stage C is the
+// same combine kernels.  Stage A (K4) is ffma.cuh's f32 GEMM over the heads
+// (EPI_SILU_RESID, K slices from (D, D) alone), the same launch as
+// wm_gemm_f32's for the two-pass loop's head rows, so a head row has the
+// same bits in both.  Bound on H100: the 212 MB f32 embedding stream (63 us
+// at 3.35 TB/s) up to R ~ 160 rows, then the 2 R V D products at the CUDA
+// cores' 67 TFLOP/s (R = 121: 16 GFLOP, 0.24 ms).
+namespace wm {
+namespace {
+
+template <int MT, bool TS>
+__global__ void __launch_bounds__(FF_THREADS)
+vocab_stream_f32_kernel(const float* __restrict__ rows, const float* __restrict__ e, int d_dim,
+                        const std::conditional_t<TS, VsTsArgs, VsArgs> a) {
+  constexpr int PR = 16 * MT;
+  constexpr int STAGE_F = 2 * ff_stage_floats<MT>();
+  constexpr int CS_F = PR * VS_LDC;
+  __shared__ __align__(16) float sm[STAGE_F > CS_F ? STAGE_F : CS_F];
+  const int tile = blockIdx.x / a.passes, pass = blockIdx.x % a.passes;
+  const int v0 = tile * VS_VT, r0 = pass * PR;
+  float acc[MT][4];
+  ffma_tile<MT, true>(acc, rows + (size_t)r0 * d_dim, d_dim, min(PR, a.n_rows - r0),
+                      e + (size_t)v0 * d_dim, d_dim, min(VS_VT, a.v_dim - v0), 0, d_dim, sm);
+  // ffma_tile ends on a barrier: the staging buffers are free for the sums.
+  const int tc = threadIdx.x & 15, tr = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+    *reinterpret_cast<float4*>(sm + (tr * MT + i) * VS_LDC + 4 * tc) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  tile_stats<false, TS>(sm + wg * (PR / 2) * VS_LDC, a, tile, 2 * pass + wg, PR / 2);
+}
+
+template <bool TS, int MT = 1>
+int vs_f32_launch(int mt, const float* rows, const float* e, int d_dim, const VsTsArgs& a,
+                  cudaStream_t st) {
+  if (mt == MT) {
+    const dim3 grid(a.tiles * a.passes);
+    if constexpr (TS)
+      vocab_stream_f32_kernel<MT, TS><<<grid, FF_THREADS, 0, st>>>(rows, e, d_dim, a);
+    else
+      vocab_stream_f32_kernel<MT, TS><<<grid, FF_THREADS, 0, st>>>(
+          rows, e, d_dim, static_cast<const VsArgs&>(a));
+    return (int)cudaGetLastError();
+  }
+  if constexpr (MT < FF_MAX_MT) return vs_f32_launch<TS, MT * 2>(mt, rows, e, d_dim, a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Stages B and C over f32 rows (n_rows, D) and an f32 embedding e (V, D):
+// score_rows' arguments without the int8 scale.
+inline int score_rows_f32(const float* rows, int n_rows, const float* e, int v_dim, int d_dim,
+                          const int* pos, const int* gcol, const int8_t* sup, int begin_index,
+                          int eos_id, int has_decay, int decay_start, float log_factor,
+                          float* part_f, int* part_a, float* o_max, float* o_lse, int* o_arg,
+                          float* o_gth, void* const* ts, const int* ts_ints, cudaStream_t st) {
+  const int tiles = (v_dim + VS_VT - 1) / VS_VT;
+  const int mt = ff_mt(n_rows);
+  VsTsArgs a;
+  a.escale = nullptr;
+  a.pos = pos;
+  a.gcol = gcol;
+  a.sup = sup;
+  a.part_f = part_f;
+  a.part_a = part_a;
+  a.v_dim = v_dim;
+  a.n_rows = n_rows;
+  a.chunks = d_dim / FF_KC;
+  a.tiles = tiles;
+  a.groups = tiles;
+  a.passes = (n_rows + 16 * mt - 1) / (16 * mt);
+  a.begin_index = begin_index;
+  a.eos_id = eos_id;
+  a.has_decay = has_decay;
+  a.decay_start = decay_start;
+  a.log_factor = log_factor;
+  const bool ts_on = ts_ints[1] != 0;
+  a.last = static_cast<const int*>(ts[0]);
+  a.penult = static_cast<const int*>(ts[1]);
+  a.maxts = static_cast<const int*>(ts[2]);
+  a.ts_f = static_cast<float*>(ts[3]);
+  a.ts_a = static_cast<int*>(ts[4]);
+  a.n_verif = ts_ints[0];
+  a.ts_begin = ts_ints[2];
+  a.no_ts_id = ts_ints[3];
+  a.ts_cap = ts_ints[4];
+  if (ts_on && (!a.last || !a.penult || !a.maxts || !a.ts_f || !a.ts_a))
+    return (int)cudaErrorInvalidValue;
+  int err = ts_on ? vs_f32_launch<true>(mt, rows, e, d_dim, a, st)
+                  : vs_f32_launch<false>(mt, rows, e, d_dim, a, st);
+  if (err != 0) return err;
+  if (ts_on)
+    verify_combine_ts_kernel<<<(n_rows + 7) / 8, 256, 0, st>>>(part_f, part_a, tiles, n_rows,
+                                                               o_max, o_lse, o_arg, o_gth, a);
+  else
+    verify_combine_kernel<<<(n_rows + 7) / 8, 256, 0, st>>>(part_f, part_a, tiles, n_rows,
+                                                            o_max, o_lse, o_arg, o_gth);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace wm
+
+// K4's f32 mode: wm_verify_hidden's pointer table and ints, every float
+// operand f32 (the rows scratch (R, D) f32, no int8 scales), and one more
+// pointer at V_COUNT: stage A's (nh, slices, BN, D) f32 GEMM scratch.
+extern "C" int wm_verify_hidden_f32(void** p, const int* ints, float log_factor,
+                                    void* stream) {
+  using namespace wm;
+  const int BN = ints[0], D = ints[1], V = ints[2], NH = ints[3], id0 = ints[4];
+  const int R = (NH + id0) * BN;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (BN < 1 || BN > VH_MAX_SRC || NH < 1 || R > VH_MAX_ROWS || D % VS_KC ||
+      p[V_EMBED_S] != nullptr || p[V_HEADS_S] != nullptr)
+    return (int)cudaErrorInvalidValue;
+  float* rows = static_cast<float*>(p[V_ROWS]);
+  if (id0)
+    cudaMemcpyAsync(rows, p[V_HVER], (size_t)BN * D * sizeof(float), cudaMemcpyDeviceToDevice,
+                    st);
+  const float* src = static_cast<const float*>(p[V_HSRC]);
+  int err = ff_gemm(src, static_cast<const float*>(p[V_HEADS_W]),
+                    static_cast<const float*>(p[V_HEADS_B]), src, rows + (size_t)id0 * BN * D,
+                    static_cast<float*>(p[V_COUNT]), BN, D, D, NH, EPI_SILU_RESID, st);
+  if (err != 0) return err;
+  return score_rows_f32(rows, R, static_cast<const float*>(p[V_EMBED]), V, D,
+                        static_cast<const int*>(p[V_POS]), static_cast<const int*>(p[V_GCOL]),
+                        static_cast<const int8_t*>(p[V_SUP]), ints[5], ints[6], ints[7],
+                        ints[8], log_factor, static_cast<float*>(p[V_PART_F]),
+                        static_cast<int*>(p[V_PART_A]), static_cast<float*>(p[V_MAX]),
+                        static_cast<float*>(p[V_LSE]), static_cast<int*>(p[V_ARG]),
+                        static_cast<float*>(p[V_GTH]), p + V_LAST, ints + 9, st);
+}
+
+// K5's f32 mode: wm_verify_rows' pointer table and ints, f32 rows and
+// embedding (VR_EMBED_S null).  Any R <= 1024 (passes of up to 128 rows).
+extern "C" int wm_verify_rows_f32(void** p, const int* ints, float log_factor, void* stream) {
+  using namespace wm;
+  const int R = ints[0], D = ints[1], V = ints[2];
+  if (R < 1 || R > VR_MAX_ROWS || D % VS_KC || p[VR_EMBED_S] != nullptr)
+    return (int)cudaErrorInvalidValue;
+  return score_rows_f32(static_cast<const float*>(p[VR_ROWS]), R,
+                        static_cast<const float*>(p[VR_EMBED]), V, D,
+                        static_cast<const int*>(p[VR_POS]), static_cast<const int*>(p[VR_GCOL]),
+                        static_cast<const int8_t*>(p[VR_SUP]), ints[3], ints[4], ints[5],
+                        ints[6], log_factor, static_cast<float*>(p[VR_PART_F]),
+                        static_cast<int*>(p[VR_PART_A]), static_cast<float*>(p[VR_MAX]),
+                        static_cast<float*>(p[VR_LSE]), static_cast<int*>(p[VR_ARG]),
+                        static_cast<float*>(p[VR_GTH]), p + VR_LAST, ints + 7,
+                        (cudaStream_t)stream);
 }

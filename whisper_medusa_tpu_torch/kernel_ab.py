@@ -10,14 +10,16 @@ its own ``whisper_medusa_tpu_torch/csrc`` into its own ``build/`` by its own
 ``ops/cuda_lib.py``, loaded beside this checkout's, and both C entries are
 called on the same seeded inputs and output buffers (allocated once), so the
 times exclude the wrappers' checks and allocations.  First, the SASS of the
-weight-streaming GEMM's instantiations that K2 and K11 run
-(``wgemm_kernel<MT, W8, LN>``), of K4 / K5's vocab stream outside the
-timestamp mode (``vocab_stream_kernel<MT, Q>``), of its combine
-(``verify_combine_kernel``) and of the cluster attention body that K2 and
-K10's cross mode run (``cross_decode_kernel<KT, SELF, K2>``, all but K10's
-mask mode) is compared between the builds (``cuobjdump
--sass``), instruction for instruction, and whether it is the same is
-printed.  Then:
+bf16 and int8 kernels of K1, K2, K3, K4, K5, K7, K10 and K11 — the
+weight-streaming GEMM's instantiations (``wgemm_kernel<MT, W8, LN,
+HEADS>``: K2's, K11's and the heads mode of K4's stage A), K4 / K5's vocab
+stream in every mode (``vocab_stream_kernel<MT, Q, TS>``) and its two
+combines, the cluster attention body of K2 and K10
+(``cross_decode_kernel<KT, SELF, K2>``), K1's ``attention_kernel`` and the
+tied-embedding stream of K3 and K7 (``nt_stream_kernel<MT, W8>``) — is
+compared between the builds (``cuobjdump -sass``), instruction for
+instruction, and whether it is the same is printed (the f32 modes are
+kernels of their own beside them).  Then:
 
   * K1, ``wm_attention_fwd``, at (1, 20, 1500, 64) and (8, 20, 1500, 64),
     the encoder's self-attention at B=1 and B=8;
@@ -153,23 +155,28 @@ def _turns(what, calls, entry=None, libs=None, part=None, cold=False):
 # Instantiations held to the other build's SASS, by family: a mangled-name
 # pattern whose groups are the instantiation's key, and a predicate on the
 # key that leaves an instantiation out (a mode added later at its default,
-# or the one instantiation a change widens).  K2's and K11's GEMM
-# (wgemm_kernel<MT, W8, LN>, not the heads mode), the non-ts vocab stream of
-# K4 / K5 (vocab_stream_kernel<MT, Q>, <MT, Q, false> since the timestamp
-# mode) and its combine (the ts mode has a combine kernel of its own), and
-# the cluster attention body of K2 (K2 = true) and of K10's cross mode
-# (cross_decode_kernel<KT, SELF, K2>, all but K10's mask mode <bf16, true,
-# false>, whose chunk bits became words of a row).
-_HELD = (("wgemm_kernel<MT, W8, LN>",
+# or the one instantiation a change widens; none since the f32 modes, which
+# are kernels of their own beside these).  K2's and K11's GEMM and the heads
+# mode of K4's stage A and wm_head_rows (wgemm_kernel<MT, W8, LN, HEADS>),
+# K4 / K5's vocab stream in every mode (vocab_stream_kernel<MT, Q, TS>) and
+# its two combines, the cluster attention body of K2 and of K10's cross and
+# mask modes (cross_decode_kernel<KT, SELF, K2>), K1's forward
+# (attention_kernel) and the tied-embedding stream of K3 and K7
+# (nt_stream_kernel<MT, W8>).
+_HELD = (("wgemm_kernel<MT, W8, LN, HEADS>",
           re.compile(r"wgemm_kernelILi(\d+)ELb([01])ELb([01])E(?:Lb([01])E)?E"),
-          lambda key: key[-1] == "1"),
-         ("vocab_stream_kernel<MT, Q>",
+          lambda key: False),
+         ("vocab_stream_kernel<MT, Q, TS>",
           re.compile(r"vocab_stream_kernelILi(\d+)ELb([01])E(?:Lb([01])E)?E"),
-          lambda key: key[-1] == "1"),
+          lambda key: False),
          ("verify_combine_kernel", re.compile(r"21verify_combine_kernel()"), lambda key: False),
+         ("verify_combine_ts_kernel", re.compile(r"24verify_combine_ts_kernel()"),
+          lambda key: False),
          ("cross_decode_kernel<KT, SELF, K2>",
-          re.compile(r"cross_decode_kernelI(\w+?)Lb([01])ELb([01])EE"),
-          lambda key: key[1:] == ("1", "0")))
+          re.compile(r"cross_decode_kernelI(\w+?)Lb([01])ELb([01])EE"), lambda key: False),
+         ("attention_kernel", re.compile(r"16attention_kernel()"), lambda key: False),
+         ("nt_stream_kernel<MT, W8>", re.compile(r"nt_stream_kernelILi(\d+)ELb([01])EE"),
+          lambda key: False))
 
 
 def _sass_functions(so_path):

@@ -910,20 +910,35 @@ class WhisperMedusaModel:
 
 
 def require_servable_dtype(params, device) -> None:
-    """Serving on the card takes bf16 weights (or the int8 copy): K1, K2, K10
-    and K11 have no f32 mode, so f32 floating-point weights on a CUDA
-    ``device`` raise NotImplementedError naming the ROADMAP item.  CPU
-    serving takes any dtype."""
+    """Serving on the card takes all-bf16 weights, all-f32 weights (the JAX
+    package's default dtype: the f32 modes of K1, K3, K4, K5, K10 and K11,
+    the per-op decoder step) or the int8 copy of a bf16 model.  The int8
+    copy of an f32 model (int8 streamed weights beside f32 norms, biases,
+    encoder and positions) raises NotImplementedError naming ROADMAP item
+    19c, and so do weights that mix bf16 and f32, before anything runs; f32
+    weights raise ValueError while cuBLAS may use TF32 (the encoder's f32
+    products run there).  CPU serving takes any dtype."""
     if torch.device(device).type != "cuda":
         return
     flat = bridge.flatten(params)
     # An int8 weight's f32 scales ({"q", "s"}) belong to the int8 copy.
-    if any(a.dtype == torch.float32 and not (k.endswith("/s") and f"{k[:-2]}/q" in flat)
-           for k, a in flat.items()):
+    scales = {k for k in flat if k.endswith("/s") and f"{k[:-2]}/q" in flat}
+    floats = {a.dtype for k, a in flat.items() if a.is_floating_point() and k not in scales}
+    if scales and torch.float32 in floats:
         raise NotImplementedError(
-            "f32 weights are not served on the card yet (ROADMAP queue 1, item 19: "
-            "f32 modes of K1 and K9, and f32 serving); load the checkpoint with "
-            "from_pretrained(path, dtype=\"bfloat16\")")
+            "the int8 copy of an f32 model is not served on the card yet (ROADMAP queue 1, "
+            "item 19c: K2's int8 mode takes bf16 norms, biases and positions); quantize a "
+            "bf16 model (from_pretrained(path, dtype=\"bfloat16\").quantize()) or serve "
+            "the f32 model as it is")
+    if len(floats) > 1:
+        raise NotImplementedError(
+            f"weights of mixed dtypes {sorted(str(d) for d in floats)} are not served on "
+            "the card: cast the model to one of bfloat16 or float32")
+    if torch.float32 in floats and torch.backends.cuda.matmul.allow_tf32:
+        raise ValueError(
+            "f32 serving on the card takes full-f32 products, but "
+            "torch.backends.cuda.matmul.allow_tf32 is True (TF32 keeps about three "
+            "decimal digits); set it to False")
 
 
 def _check_beam_options(num_beams: int, temperature, compression_ratio_threshold,

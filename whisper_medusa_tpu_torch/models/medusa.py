@@ -26,9 +26,9 @@ def apply_heads(medusa_params: Params, x: torch.Tensor) -> torch.Tensor:
 
     Each layer goes through ``ops/verify.py::head_rows``: on CUDA tensors
     kernel K4's stage A, the heads mode of the weight-streaming ``wgmma``
-    GEMM (its K slices from D alone, so a head row has the same bits for
-    every batch size and every number of heads in the launch), on CPU
-    tensors its plain version."""
+    GEMM, or for f32 heads the f32 GEMM (K slices from D alone in both, so a
+    head row has the same bits for every batch size and every number of
+    heads in the launch), on CPU tensors its plain version."""
     from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
     from whisper_medusa_tpu_torch.ops import verify as verify_mod
 

@@ -10,9 +10,10 @@ cross cache is never padded.
 
 Decode runs through ``ops/megastep.py`` (kernel K2 on CUDA tensors, the
 :func:`decoder_layer_step` loop on CPU tensors) where K2 takes the call
-(B <= 8, T <= 16, ``megastep.fits``), else through the per-op step
-:func:`decoder_layers_ops` (cuBLAS projections, K10's mask mode for the
-self-attention, K10 cross-attention, K11 FFN), with the Medusa-Block layer
+(bf16 or int8 weights, B <= 8, T <= 16, ``megastep.fits``), else through the
+per-op step :func:`decoder_layers_ops` (cuBLAS projections, or the f32 GEMM
+for f32 weights, K10's mask mode for the self-attention, K10
+cross-attention, K11 FFN), with the Medusa-Block layer
 as one more layer on its own cache slot when given; the cache slabs are
 updated in place.  Beam search (``cross_beam``) always takes the per-op
 step: B * K self rows, B cross rows, each example's beams' queries folded
@@ -20,6 +21,12 @@ into one cross-attention block.  Encoder self-attention runs through
 ``ops/attention.py`` (K1).  An example's decoder state does not depend on the batch it is in:
 the cross K/V are projected one example at a time, and K2's and K10's
 per-row arithmetic is independent of the row count.
+
+f32 weights (ModelConfig's default, as in the JAX package) run every step
+on the per-op step with the f32 modes of K10 and K11 and the f32 GEMM, the
+encoder on cuBLAS f32 (full f32: PyTorch's default leaves TF32 off) and K1's
+f32 mode; :func:`layer_norm`, :func:`embed_lookup` and the caches take the
+weights' dtype.
 
 int8 serving (``ops/qmm.py::quantize_decoder``): a weight may be the dict
 ``{"q": int8, "s": float32}``; :func:`dense` then runs ``qmm`` (K6), the
@@ -101,6 +108,17 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype)
+
+
+def dense_step(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-op decoder step's projections: :func:`dense`, except that f32
+    operands on the card go through the f32 GEMM (``decode_ops.gemm_f32``,
+    FFMA, K slices from (K, N) alone).  cuBLAS picks another f32 kernel at
+    another row count, so its rows' bits depend on B (seen on the H100 at
+    every decode shape), and the step must give an example its B=1 bits."""
+    if x.is_cuda and x.dtype == torch.float32 and not qmm_mod.is_quantized(w):
+        return decode_ops.gemm_f32(x, w, b)
+    return dense(x, w, b)
 
 
 def dense_exact(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -552,7 +570,8 @@ def _ffn_plain(lp: Params, x: torch.Tensor) -> torch.Tensor:
 
 def _ffn_ops(lp: Params, x: torch.Tensor) -> torch.Tensor:
     """The per-op step's FFN, as the JAX scan path (whisper.py:1036-1041):
-    int8 weights through :func:`ffn` (K6), bf16 through ``ffn_decode`` (K11)."""
+    int8 weights through :func:`ffn` (K6), bf16 and f32 through
+    ``ffn_decode`` (K11 and its f32 mode)."""
     if qmm_mod.is_quantized(lp["fc1_w"]):
         return ffn(lp, x)
     return decode_ops.ffn_decode(x, lp["fc1_w"], lp["fc1_b"], lp["fc2_w"], lp["fc2_b"])
@@ -590,14 +609,15 @@ def decoder_layer_ops(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
                       self_s: Optional[torch.Tensor] = None,
                       cross_beam: int = 1) -> torch.Tensor:
     """One decoder layer of the per-op step (the JAX scan path): the
-    projections through :func:`dense` (cuBLAS, or K6 at int8), the
-    self-attention through K10's mask mode (``self_mask`` is then
-    :func:`_step_mask_ops`'s (offsets, chunk bits)), cross-attention through
-    K10 and the bf16 FFN through K11 (ops/decode_ops.py); on CPU tensors the
-    wrappers run their plain versions."""
+    projections through :func:`dense_step` (cuBLAS at bf16, K6 at int8, the
+    f32 GEMM at f32), the self-attention through K10's mask mode
+    (``self_mask`` is then :func:`_step_mask_ops`'s (offsets, chunk bits)),
+    cross-attention through K10 and the bf16 or f32 FFN through K11
+    (ops/decode_ops.py); on CPU tensors the wrappers run their plain
+    versions."""
     return _layer_step(lp, h, k_buf, v_buf, cross_k, cross_v, offsets, self_mask,
                        num_heads, cross_len, cross_k_s, cross_v_s, self_s,
-                       proj=dense, attend=_attend_ops,
+                       proj=dense_step, attend=_attend_ops,
                        cross_fn=decode_ops.cross_attention_decode, ffn_fn=_ffn_ops,
                        cross_beam=cross_beam)
 

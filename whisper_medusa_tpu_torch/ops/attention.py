@@ -32,7 +32,17 @@ ring), storing each key block's f32 dQ partial (one slot per 128 keys:
 (2, 20, 1500^2)); a cast pass adds the partials in key-block order and
 rounds dQ.  dK and dV are written once and dQ is one fixed-order sum, so all
 three are bitwise the same from run to run, as the JAX kernel's (no
-atomics).  :class:`AttentionFn` ties the two together for autograd: on CUDA
+atomics).
+
+K1's f32 mode (``wm_attention_fwd_f32``, in the same source) serves f32
+weights, the JAX package's default dtype: the TPU kernel's function on f32
+q, k, v (P not rounded), in FFMA on the CUDA cores, since the tensor cores
+take f32 only as TF32.  One CTA of 256 threads per (batch, head, 64-query
+block), 64-key f32 tiles of K and V staged in shared memory, a 4 x 4
+register tile of scores and of output a thread, the online softmax in f32;
+it writes the log-sum-exp when asked, as the bf16 mode does.  No split
+over keys: a row's bits do not depend on B.  Bound by the CUDA cores' 67
+TFLOP/s at the encoder's shapes.  :class:`AttentionFn` ties the two together for autograd: on CUDA
 its forward saves O and the log-sum-exp for the backward; serving never
 builds a graph and calls K1 without the log-sum-exp as before.
 """
@@ -51,6 +61,7 @@ NEG_BIG = -0.7 * torch.finfo(torch.float32).max
 BWD_KEYS = 128   # keys of one K9 CTA (csrc/attention.cu BKB): one dQ partial each
 
 launches = 0     # K1 launches (not plain-version calls)
+f32_launches = 0   # K1's f32 mode
 launches_bwd = collections.Counter()   # K9 launches by (Sq, Skv, causal)
 
 
@@ -142,19 +153,25 @@ def _check_shapes(name, q, k, v, kv_len):
 
 
 def attention_kernel(q, k, v, kv_len: int, causal: bool, return_lse: bool = False):
-    """Launch K1.  q: (B, H, Sq, 64), k/v: (B, H, Skv, 64), bf16, contiguous.
-    Returns the output, or (output, log-sum-exp (B, H, Sq) f32) with
-    ``return_lse``."""
-    global launches
-    cuda_lib.require_cuda("attention", q, k, v)
+    """Launch K1.  q: (B, H, Sq, 64), k/v: (B, H, Skv, 64), bf16 (K1) or f32
+    (its f32 mode), contiguous.  Returns the output, or (output, log-sum-exp
+    (B, H, Sq) f32) with ``return_lse``."""
+    global launches, f32_launches
+    dt = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
+    cuda_lib.require_cuda("attention", q, k, v, dtype=dt)
+    f32 = dt == torch.float32
     b, h, sq, skv, dh = _check_shapes("attention", q, k, v, kv_len)
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    cuda_lib.launch("wm_attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-                    b, h, sq, skv, dh, kv_len, int(causal))
-    launches += 1
+    cuda_lib.launch("wm_attention_fwd_f32" if f32 else "wm_attention_fwd", q.device,
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    None if lse is None else lse.data_ptr(), b, h, sq, skv, dh, kv_len,
+                    int(causal))
+    if f32:
+        f32_launches += 1
+    else:
+        launches += 1
     return (out, lse) if return_lse else out
 
 

@@ -63,6 +63,15 @@ _SIGNATURES = {
     "wm_cross_decode": [_vp] * 6 + [_ci] * 5 + [_vp],
     "wm_self_decode": [_vp] * 6 + [_ci] * 5 + [_vp],
     "wm_ffn_decode": [_vp] * 7 + [_ci] * 3 + [_vp],
+    # The f32 modes (FFMA on the CUDA cores).
+    "wm_attention_fwd_f32": [_vp] * 5 + [_ci] * 7 + [_vp],
+    "wm_logits_f32": [_vp] * 3 + [_ci] * 3 + [_vp],
+    "wm_verify_hidden_f32": [_ptrs, _ints, ctypes.c_float, _vp],
+    "wm_verify_rows_f32": [_ptrs, _ints, ctypes.c_float, _vp],
+    "wm_cross_decode_f32": [_vp] * 5 + [_ci] * 5 + [_vp],
+    "wm_self_decode_f32": [_vp] * 7 + [_ci] * 5 + [_vp],
+    "wm_ffn_decode_f32": [_vp] * 8 + [_ci] * 3 + [_vp],
+    "wm_gemm_f32": [_vp] * 6 + [_ci] * 5 + [_vp],
 }
 
 
@@ -170,8 +179,9 @@ def require_cuda(name: str, *tensors, dtype=None, device=None, aligned=True) -> 
     its gradient silently; K1 and K9 are reached through
     ``ops/attention.py::AttentionFn``, which passes detached tensors), one
     CUDA device (``device``, else the first operand's), ``dtype`` (default
-    bf16), contiguous, 16-byte aligned (unless ``aligned`` is False: small
-    operands a kernel reads element by element)."""
+    bf16; the f32 modes' wrappers pass f32), contiguous, 16-byte aligned
+    (unless ``aligned`` is False: small operands a kernel reads element by
+    element)."""
     import torch
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):

@@ -67,6 +67,21 @@ row's arithmetic is independent of the others and of M.  bf16 weights
 only: int8 serving runs the FFN through ``models/whisper.py::ffn`` (K6), as
 the JAX package does.  Bound: 26.2 MB of weights per call at large-v2.
 
+The f32 modes serve f32 weights, the JAX package's default dtype (whose
+f32 decoder step is its scan, K2 refusing f32): f32 products and sums in
+FFMA on the CUDA cores, since the tensor cores take f32 only as TF32.
+K10's f32 mode (``wm_cross_decode_f32``, ``wm_self_decode_f32``) cuts the
+keys by the same :func:`cluster_split`; a CTA per (slice, head, example)
+computes its slice's scores, max, sum of exp and unnormalised PV, and a
+combine kernel rescales the slices to the global max and adds them in
+slice order (P is not rounded, as the TPU kernel's P at f32).  K11's f32
+mode (``wm_ffn_decode_f32``) and the f32 head rows and projections
+(``wm_gemm_f32``, :func:`gemm_f32`) run ``csrc/ffma.cuh``'s f32 GEMM: a
+CTA per (64 columns, K slice, head, pass of up to 128 rows), the slices
+from (K, N) alone (:func:`f32_gemm_plan`) added in slice order with the
+bias and the epilogue by a second kernel, so a row's bits do not depend on
+M.  The f32 wrappers take any M in one call.
+
 The plain versions (``*_plain``) are the math the megastep's plain version
 (``models/whisper.py::decoder_layer_step``) runs on every device; the
 wrappers launch the kernel on CUDA tensors and take the plain version only
@@ -99,6 +114,15 @@ q_cross_launches = 0     # K10, int8 K/V
 self_launches = 0        # K10's mask mode (the per-op step's self-attention)
 self_wide_launches = 0   # those of its launches over a chunk wider than 32 (W >= 2 words)
 ffn_launches = 0         # K11 (bf16 weights)
+f32_cross_launches = 0   # K10's f32 mode
+f32_self_launches = 0    # its f32 mask mode
+f32_ffn_launches = 0     # K11's f32 mode
+f32_gemm_launches = 0    # the f32 GEMM alone (wm_gemm_f32): the per-op step's projections
+F32_COLS = 64            # csrc/ffma.cuh FF_COLS: output columns a CTA
+F32_KC = 16              # csrc/ffma.cuh FF_KC: K a staged chunk holds
+F32_WAVE = 264           # csrc/ffma.cuh FF_WAVE: CTAs the K slices aim at
+F32_PART_ROW = HEAD_DIM + 2   # csrc/decode_ops.cu DF_ROW: a K10 f32 slice's (O, max, sum)
+EPI_BIAS, EPI_SILU_RESID = 0, 4   # csrc/common.cuh Epi: the f32 GEMM's epilogues here
 
 
 def cross_attention_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -238,17 +262,29 @@ def chunk_bits(chunk_mask: Optional[torch.Tensor], t: int, device,
     return _as_int32_bits(rows).to(device).contiguous()
 
 
+def _f32_part(b: int, h: int, s: int, device) -> torch.Tensor:
+    """K10's f32 scratch: each (example, head, key slice)'s (16 rows of O,
+    max and sum), (B, H, C, 16, 66) f32, C from :func:`cluster_split`."""
+    return torch.empty((b, h, cluster_split(s)[0], MAX_T, F32_PART_ROW),
+                       dtype=torch.float32, device=device)
+
+
 def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   kv_len: int, k_s=None, v_s=None) -> torch.Tensor:
     """Launch K10: q (B, H, T, 64) bf16; k (B, H, 64, S) and v (B, S, H * 64)
     bf16, or int8 with f32 (B, H, S) scales ``k_s`` and ``v_s``; S % 4 == 0,
-    1 <= kv_len <= S -> (B, H, T, 64) bf16.  One launch takes 16 query rows:
-    past T = 16 the rows go in 16-row blocks, one launch each."""
+    1 <= kv_len <= S -> (B, H, T, 64) bf16; all f32 (q, k, v) launch the f32
+    mode.  One launch takes 16 query rows: past T = 16 the rows go in 16-row
+    blocks, one launch each."""
     b, h, t, dh = q.shape
     s = k.shape[3]
     quant = k_s is not None
-    cuda_lib.require_cuda("cross_attention_decode", q)
-    kv_dt = torch.int8 if quant else torch.bfloat16
+    dt = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
+    cuda_lib.require_cuda("cross_attention_decode", q, dtype=dt)
+    f32 = dt == torch.float32
+    kv_dt = torch.int8 if quant else q.dtype
+    if f32 and quant:
+        raise ValueError("cross_attention_decode kernel: int8 K/V take bf16 queries")
     cuda_lib.require_cuda("cross_attention_decode", k, v, dtype=kv_dt, device=q.device)
     if quant:
         if v_s is None:
@@ -265,6 +301,19 @@ def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
             f"(B, H, {HEAD_DIM}, S), V (B, S, H*{HEAD_DIM}), S % 4 == 0, "
             f"S <= {MAX_CLUSTER * MAX_SLICE}, 1 <= kv_len <= S; got q {tuple(q.shape)}, "
             f"k {tuple(k.shape)}, v {tuple(v.shape)}, kv_len {kv_len}")
+
+    if f32:
+        def launch_f32(qb):
+            global f32_cross_launches
+            out = torch.empty_like(qb)
+            part = _f32_part(b, h, s, q.device)
+            cuda_lib.launch("wm_cross_decode_f32", q.device, qb.data_ptr(), k.data_ptr(),
+                            v.data_ptr(), part.data_ptr(), out.data_ptr(), b, h, qb.shape[2],
+                            s, kv_len)
+            f32_cross_launches += 1
+            return out
+
+        return cross_attention_blocked(q, launch_f32)
 
     def launch(qb):
         global cross_launches, q_cross_launches
@@ -287,10 +336,13 @@ def self_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     """Launch K10's mask mode: q (B, T, H, 64) bf16, pre-scaled; k, v
     (B, max_len >= T, H * 64) bf16 self slabs; ``offsets`` (B,) int32;
     ``bits`` (T, ceil(T / 32)) int32 (:func:`chunk_bits`) -> (B, T, H, 64)
-    bf16.  Past T = 16 the rows go in 16-row blocks, one launch each, every
-    block over the whole chunk's T columns."""
+    bf16; f32 q and slabs launch the f32 mode.  Past T = 16 the rows go in
+    16-row blocks, one launch each, every block over the whole chunk's T
+    columns."""
     b, t, h, dh = q.shape
-    cuda_lib.require_cuda("self_attention_decode", q, k, v)
+    dt = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
+    cuda_lib.require_cuda("self_attention_decode", q, k, v, dtype=dt)
+    f32 = dt == torch.float32
     cuda_lib.require_cuda("self_attention_decode", offsets, bits, dtype=torch.int32,
                           device=q.device, aligned=False)
     s = k.shape[1]
@@ -304,8 +356,15 @@ def self_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
             f"{tuple(v.shape)}, offsets {tuple(offsets.shape)}, bits {tuple(bits.shape)}")
 
     def launch(qb, bb, t_chunk):
-        global self_launches, self_wide_launches
+        global self_launches, self_wide_launches, f32_self_launches
         out = torch.empty_like(qb)
+        if f32:
+            part = _f32_part(b, h, s, q.device)
+            cuda_lib.launch("wm_self_decode_f32", q.device, qb.data_ptr(), k.data_ptr(),
+                            v.data_ptr(), offsets.data_ptr(), bb.data_ptr(), part.data_ptr(),
+                            out.data_ptr(), b, h, qb.shape[1], s, t_chunk)
+            f32_self_launches += 1
+            return out
         cuda_lib.launch("wm_self_decode", q.device, qb.data_ptr(), k.data_ptr(),
                         v.data_ptr(), offsets.data_ptr(), bb.data_ptr(), out.data_ptr(), b,
                         h, qb.shape[1], s, t_chunk)
@@ -331,6 +390,74 @@ def ffn_plan(m: int, d: int, f: int):
     return dict(blocks=row_blocks_of(m, FFN_ROWS), fc1=gemm(d, f), fc2=gemm(f, d))
 
 
+def f32_gemm_plan(m: int, k: int, n: int, nh: int = 1):
+    """The f32 GEMM's launch (csrc/ffma.cuh ``ff_gemm``) over M rows through
+    (nh, K, N) weights: the K slice (``ff_gemm_slice``: enough slices for
+    264 CTAs over the N / 64 column tiles, a multiple of 16 deep) and the
+    slices, from (K, N) alone; the pass's 16-row groups and the passes
+    (``logits.f32_row_tiles``), the grid, and the floats of the (nh,
+    slices, M, N) partials scratch."""
+    from whisper_medusa_tpu_torch.ops import logits as logits_mod
+
+    tiles = n // F32_COLS
+    want = -(-F32_WAVE // tiles)
+    length = -(-(-(-k // want)) // F32_KC) * F32_KC
+    piece = min(length, k)
+    slices = -(-k // piece)
+    mt = logits_mod.f32_row_tiles(m)
+    passes = -(-m // (16 * mt))
+    return dict(slice=piece, slices=slices, mt=mt, passes=passes,
+                grid=(tiles * passes, slices, nh), part=nh * slices * m * n)
+
+
+def f32_ffn_plan(m: int, d: int, f: int):
+    """K11's f32 mode at M rows through (D, F) and (F, D) weights: fc1's and
+    fc2's :func:`f32_gemm_plan` and the floats of the partials scratch the
+    two share."""
+    fc1, fc2 = f32_gemm_plan(m, d, f), f32_gemm_plan(m, f, d)
+    return dict(fc1=fc1, fc2=fc2, part=max(fc1["part"], fc2["part"]))
+
+
+def gemm_f32_launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], epi: int,
+                    resid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch ``wm_gemm_f32``: x (M, K) f32, w (nh, K, N) f32, b (nh, N) f32
+    or None; resid (M, N) for EPI_SILU_RESID -> (nh, M, N) f32
+    ``epi(x @ w + b)``.  The caller counts the launch."""
+    cuda_lib.require_cuda("gemm_f32", x, w, dtype=torch.float32)
+    extra = [t for t in (b, resid) if t is not None]
+    if extra:
+        cuda_lib.require_cuda("gemm_f32", *extra, dtype=torch.float32, device=x.device)
+    m, k = x.shape
+    nh, _, n = w.shape
+    if (k % F32_KC or n % F32_COLS or w.shape[1] != k
+            or (b is not None and b.shape != (nh, n))
+            or (resid is not None and resid.shape != (m, n))):
+        raise ValueError(f"gemm_f32 takes K % {F32_KC} == 0, N % {F32_COLS} == 0, bias "
+                         f"(nh, N) and resid (M, N); got x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}")
+    plan = f32_gemm_plan(m, k, n, nh)
+    out = torch.empty((nh, m, n), dtype=torch.float32, device=x.device)
+    part = torch.empty((plan["part"],), dtype=torch.float32, device=x.device)
+    cuda_lib.launch("wm_gemm_f32", x.device, x.data_ptr(), w.data_ptr(),
+                    None if b is None else b.data_ptr(),
+                    None if resid is None else resid.data_ptr(), out.data_ptr(),
+                    part.data_ptr(), m, k, n, nh, epi)
+    return out
+
+
+def gemm_f32(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """``x @ w + b`` in f32 through the f32 GEMM: x (..., K), w (K, N), b
+    (N,) -> (..., N); a row's bits do not depend on how many rows the call
+    has (the per-op step's f32 projections on the card)."""
+    global f32_gemm_launches
+    k, n = w.shape
+    y = gemm_f32_launch(x.reshape(-1, k).contiguous(), w.reshape(1, k, n),
+                        None if b is None else b.reshape(1, n), EPI_BIAS)
+    f32_gemm_launches += 1
+    return y.reshape(*x.shape[:-1], n)
+
+
 def row_blocks_of(m: int, rows: int):
     """The (first row, rows) of each launch over M rows, ``rows`` a launch."""
     return [(r0, min(rows, m - r0)) for r0 in range(0, m, rows)]
@@ -350,17 +477,21 @@ def ffn_decode_kernel(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                       w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """Launch K11: x (M, D) bf16, w1 (D, F), b1 (F,), w2 (F, D), b2 (D,) bf16,
     D and F multiples of 64 -> (M, D) bf16.  Rows go in blocks of up to 192,
-    one launch each, straight from x into the output (no staging copies)."""
+    one launch each, straight from x into the output (no staging copies).
+    All-f32 operands launch the f32 mode once over all M rows."""
     if qmm_mod.is_quantized(w1) or qmm_mod.is_quantized(w2):
-        raise ValueError("ffn_decode kernel takes bf16 weights (int8 serving runs the "
-                         "FFN through models/whisper.py::ffn, K6)")
-    cuda_lib.require_cuda("ffn_decode", x, w1, b1, w2, b2)
+        raise ValueError("ffn_decode kernel takes bf16 or f32 weights (int8 serving runs "
+                         "the FFN through models/whisper.py::ffn, K6)")
+    dt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
+    cuda_lib.require_cuda("ffn_decode", x, w1, b1, w2, b2, dtype=dt)
     m, d = x.shape
     f = w1.shape[1]
     if (m < 1 or d % 64 or f % 64 or w1.shape != (d, f) or w2.shape != (f, d)
             or b1.shape != (f,) or b2.shape != (d,)):
         raise ValueError(f"ffn_decode kernel takes D and F multiples of 64; got x "
                          f"{tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+    if dt == torch.float32:
+        return _ffn_decode_f32(x, w1, b1, w2, b2)
     h = torch.empty((min(m, FFN_ROWS), f), dtype=torch.bfloat16, device=x.device)
 
     def launch(xb, yb):
@@ -371,6 +502,23 @@ def ffn_decode_kernel(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         ffn_launches += 1
 
     return ffn_decode_blocked(x, launch)
+
+
+def _ffn_decode_f32(x, w1, b1, w2, b2) -> torch.Tensor:
+    """K11's f32 mode over all M rows in one call: fc1 + GELU into an (M, F)
+    f32 scratch, then fc2 + bias, each on the f32 GEMM."""
+    global f32_ffn_launches
+    m, d = x.shape
+    f = w1.shape[1]
+    plan = f32_ffn_plan(m, d, f)
+    h = torch.empty((m, f), dtype=torch.float32, device=x.device)
+    part = torch.empty((plan["part"],), dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    cuda_lib.launch("wm_ffn_decode_f32", x.device, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                    w2.data_ptr(), b2.data_ptr(), h.data_ptr(), y.data_ptr(), part.data_ptr(),
+                    m, d, f)
+    f32_ffn_launches += 1
+    return y
 
 
 def cross_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -237,16 +237,21 @@ def check_slots(dec_layers: Params, self_k, block) -> int:
 def fits(dec_layers: Params, x: torch.Tensor, self_k: torch.Tensor,
          cross_k: torch.Tensor, num_heads: int, cross_beam: int = 1) -> bool:
     """Whether K2 takes this decode call — the counterpart of JAX
-    ``megastep.available``: no beams (``cross_beam`` 1; beams run the per-op
-    step, as in JAX), B <= 8, T <= 16, heads of 64, d_model and
+    ``megastep.available``: streamed weights all bf16 or all int8 (f32
+    weights, the JAX package's default dtype, run the per-op step, as JAX's
+    gate sends them to its scan), no beams (``cross_beam`` 1; beams run the
+    per-op step, as in JAX), B <= 8, T <= 16, heads of 64, d_model and
     ffn_dim multiples of 256, a cross length that is a multiple of 4, self
     and cross key counts whose cluster slices (:func:`attention_plan`) fit
     a CTA, and fused norms whose K slices a lane can hold
-    (:func:`ln_longest_slice`).  It reads only shapes, so it routes a call alike on the CPU
-    and on the card; ``models/whisper.py::decode_step`` runs the per-op step
-    where it is False."""
+    (:func:`ln_longest_slice`).  It reads only the weights' dtypes and
+    shapes, so it routes a call alike on the CPU and on the card;
+    ``models/whisper.py::decode_step`` runs the per-op step where it is
+    False."""
     from whisper_medusa_tpu_torch.ops import decode_ops
 
+    if not streamed_dtypes_fit(dec_layers):
+        return False
     b, t, d = x.shape
     f = dec_layers["fc1_b"].shape[-1]
     s_len = self_k.shape[2]
@@ -255,6 +260,16 @@ def fits(dec_layers: Params, x: torch.Tensor, self_k: torch.Tensor,
             and d % 256 == 0 and f % 256 == 0 and cross_k.shape[-1] % 4 == 0
             and all(sc <= decode_ops.MAX_SLICE for _, sc in plan.values())
             and ln_longest_slice(d, f) <= LN_MAX_CHUNKS)
+
+
+def streamed_dtypes_fit(dec_layers: Params) -> bool:
+    """K2's dtype gate (JAX ``megastep.available``, megastep.py:180-188):
+    every streamed weight bf16, or every streamed weight int8 (the int8
+    mode); f32 weights are refused."""
+    ws = [_leaf(dec_layers, p) for p in _QUANT]
+    if qmm_mod.is_quantized(ws[0]):
+        return all(qmm_mod.is_quantized(w) and w["q"].dtype == torch.int8 for w in ws)
+    return all(not qmm_mod.is_quantized(w) and w.dtype == torch.bfloat16 for w in ws)
 
 
 def megastep_plain(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross_k,

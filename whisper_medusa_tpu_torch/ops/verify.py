@@ -57,6 +57,18 @@ package does); K5 launches take R <= 1024
 and ``head_rows`` launches M <= 192, so their wrappers send more rows in
 blocks (pass A at B > 16).
 
+f32 serving (the JAX package's default dtype) is a mode of the same three
+wrappers with C entries of their own (``wm_verify_hidden_f32``,
+``wm_verify_rows_f32``; head rows through ``wm_gemm_f32``): f32 rows
+against an f32 embedding in FFMA on the CUDA cores (the tensor cores take
+f32 only as TF32).  Stage B is ``verify.cu::vocab_stream_f32_kernel``, a
+CTA per (64-entry vocab tile, pass of up to 128 rows) whose sums feed the
+same ``tile_stats`` epilogue (processors, timestamp rules, the straddling
+tile's split) and the same combine kernels as the bf16 stream; stage A and
+``head_rows`` are ``csrc/ffma.cuh``'s f32 GEMM over the heads, K slices
+from (D, D) alone (``decode_ops.f32_gemm_plan``), so a head row has the
+same bits in K4 and in the two-pass loop, at any M.
+
 The fused timestamp rules (``ts_cfg``, the JAX kernels' ts mode) are a mode
 of stages B and C: rows below ``n_verif`` take the rule masks of
 ``_process_tile`` from their (last, penult, maxts) history, and the combine
@@ -79,6 +91,7 @@ import numpy as np
 import torch
 
 from whisper_medusa_tpu_torch.ops import cuda_lib
+from whisper_medusa_tpu_torch.ops import decode_ops as decode_ops_mod
 from whisper_medusa_tpu_torch.ops import megastep as megastep_mod
 from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
 
@@ -103,6 +116,11 @@ ts_launches = 0          # K4 / K5 in the timestamp mode, bf16 / int8 embedding
 q_ts_launches = 0
 ts_rows_launches = 0
 q_ts_rows_launches = 0
+f32_launches = 0         # the f32 modes: K4 (base_head and identity0 rows),
+f32_rows_launches = 0    # K5, wm_head_rows (the f32 GEMM over the heads),
+f32_head_launches = 0    # and K4 / K5 in the timestamp mode
+f32_ts_launches = 0
+f32_ts_rows_launches = 0
 
 
 def masks_for(pcfg, device="cpu") -> torch.Tensor:
@@ -240,13 +258,15 @@ def head_plan(m: int, d: int, nh: int = 1):
                           for _, n in blocks])
 
 
-def _operand(name, w, dev, scale_dims):
-    """(values, scales-or-None) of a kernel's weight on ``dev``, checked: bf16,
-    or int8 with f32 scales over its first ``scale_dims`` dims (heads (nh, D),
-    embedding (V,))."""
+def _operand(name, w, dev, scale_dims, dtype=torch.bfloat16):
+    """(values, scales-or-None) of a kernel's weight on ``dev``, checked:
+    ``dtype`` (bf16, or f32 in the f32 modes), or int8 with f32 scales over
+    its first ``scale_dims`` dims (heads (nh, D), embedding (V,))."""
     if not qmm_mod.is_quantized(w):
-        cuda_lib.require_cuda(name, w, device=dev)
+        cuda_lib.require_cuda(name, w, dtype=dtype, device=dev)
         return w, None
+    if dtype == torch.float32:
+        raise ValueError(f"{name}: the f32 mode takes f32 weights, not int8")
     cuda_lib.require_cuda(name, w["q"], dtype=torch.int8, device=dev)
     cuda_lib.require_cuda(name, w["s"], dtype=torch.float32, device=dev)
     if w["s"].shape != w["q"].shape[:scale_dims]:
@@ -258,15 +278,22 @@ def head_rows_kernel(src: torch.Tensor, heads_w, heads_b: torch.Tensor) -> torch
     """Launch ``wm_head_rows`` (K4's stage A alone): src (M, D) bf16, heads
     (K, D, D) bf16 or int8 with (K, D) f32 scales, biases (K, D) bf16 ->
     (K, M, D); rows in blocks of up to 192 (:func:`head_plan`), one launch
-    each, read in place (a row's arithmetic does not depend on the others)."""
-    global head_launches, q_head_launches
-    cuda_lib.require_cuda("head_rows", src, heads_b)
-    w, ws = _operand("head_rows", heads_w, src.device, 2)
+    each, read in place (a row's arithmetic does not depend on the others).
+    All-f32 operands take K4's f32 stage A, ``wm_gemm_f32``, in one launch."""
+    global head_launches, q_head_launches, f32_head_launches
+    dt = torch.float32 if src.dtype == torch.float32 else torch.bfloat16
+    cuda_lib.require_cuda("head_rows", src, heads_b, dtype=dt)
+    w, ws = _operand("head_rows", heads_w, src.device, 2, dt)
     m, d = src.shape
     nh = w.shape[0]
     if m < 1 or d % 64 or w.shape != (nh, d, d) or heads_b.shape != (nh, d):
         raise ValueError(f"head_rows kernel takes D % 64 == 0; got src "
                          f"{tuple(src.shape)}, heads {tuple(w.shape)}")
+    if dt == torch.float32:
+        out = decode_ops_mod.gemm_f32_launch(src, w, heads_b, decode_ops_mod.EPI_SILU_RESID,
+                                             resid=src)
+        f32_head_launches += 1
+        return out
     out = torch.empty((nh, m, d), dtype=src.dtype, device=src.device)
     for r0, n in head_plan(m, d, nh)["blocks"]:
         blk = out if n == m else torch.empty((nh, n, d), dtype=src.dtype,
@@ -392,8 +419,10 @@ def verify_rows_kernel(hs, embed, pos, gcol, sup_masks, *, begin_index: int,
     embedding (V, D) bf16 or int8; ``ts`` (:func:`_ts_args`) the timestamp
     mode."""
     global rows_launches, q_rows_launches, ts_rows_launches, q_ts_rows_launches
-    cuda_lib.require_cuda("verify_rows", hs)
-    embed, escale = _operand("verify_rows", embed, hs.device, 1)
+    global f32_rows_launches, f32_ts_rows_launches
+    dt = torch.float32 if hs.dtype == torch.float32 else torch.bfloat16
+    cuda_lib.require_cuda("verify_rows", hs, dtype=dt)
+    embed, escale = _operand("verify_rows", embed, hs.device, 1, dt)
     r, d = hs.shape
     v = embed.shape[0]
     if r < 1 or d % TILE or embed.shape[1] != d:
@@ -414,8 +443,14 @@ def verify_rows_kernel(hs, embed, pos, gcol, sup_masks, *, begin_index: int,
             None if escale is None else escale.data_ptr(), *ts_ptrs)
         ints = (ctypes.c_int * 12)(n, d, v, begin_index, eos_id, int(decay is not None),
                                    int(start), *ts_ints)
-        cuda_lib.launch("wm_verify_rows", dev, ptrs, ints, float(math.log(factor)))
-        if ts is not None:
+        cuda_lib.launch("wm_verify_rows_f32" if dt == torch.float32 else "wm_verify_rows",
+                        dev, ptrs, ints, float(math.log(factor)))
+        if dt == torch.float32:
+            if ts is not None:
+                f32_ts_rows_launches += 1
+            else:
+                f32_rows_launches += 1
+        elif ts is not None:
             if escale is None:
                 ts_rows_launches += 1
             else:
@@ -451,12 +486,14 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
                          *, identity0: bool, begin_index: int, eos_id: int, decay,
                          ts=None):
     global launches, q_launches, id0_launches, q_id0_launches, ts_launches, q_ts_launches
+    global f32_launches, f32_ts_launches
     b, n, d = hver.shape
     bn = b * n
-    cuda_lib.require_cuda("verify_hidden", hver, hsrc, heads_b)
+    dt = torch.float32 if hver.dtype == torch.float32 else torch.bfloat16
+    cuda_lib.require_cuda("verify_hidden", hver, hsrc, heads_b, dtype=dt)
     dev = hver.device
-    heads_w, hscale = _operand("verify_hidden", heads_w, dev, 2)
-    embed, escale = _operand("verify_hidden", embed, dev, 1)
+    heads_w, hscale = _operand("verify_hidden", heads_w, dev, 2, dt)
+    embed, escale = _operand("verify_hidden", embed, dev, 1, dt)
     nh = heads_w.shape[0]
     v = embed.shape[0]
     r = (nh + int(identity0)) * bn
@@ -467,17 +504,29 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
             f"verify kernel takes B*N <= 16, R <= {MAX_R}, D % 64 == 0; got "
             f"hidden {tuple(hver.shape)}, heads {tuple(heads_w.shape)}, R={r}")
     _check_meta(dev, r, v, pos, gcol, sup_masks)
-    rows = torch.empty((r, d), dtype=torch.bfloat16, device=dev)
+    rows = torch.empty((r, d), dtype=dt, device=dev)
     part_f, part_a, mx, lse, am, gth = _stat_outputs(r, -(-v // TILE), dev)
     tensors = [hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_masks, rows,
                part_f, part_a, mx, lse, am, gth]
     scales = [None if a is None else a.data_ptr() for a in (escale, hscale)]
     ts_ptrs, ts_ints, _split = _ts_tail(ts, 0, r, dev)
-    ptrs = (ctypes.c_void_p * (len(tensors) + 7))(*[t.data_ptr() for t in tensors],
-                                                  *scales, *ts_ptrs)
+    # The f32 mode's table has one more entry: stage A's GEMM scratch.
+    gemm_part = ([torch.empty((decode_ops_mod.f32_gemm_plan(bn, d, d, nh)["part"],),
+                                dtype=torch.float32, device=dev)]
+                   if dt == torch.float32 else [])
+    ptrs = (ctypes.c_void_p * (len(tensors) + 7 + len(gemm_part)))(
+        *[t.data_ptr() for t in tensors], *scales, *ts_ptrs,
+        *[t.data_ptr() for t in gemm_part])
     start, factor = decay if decay is not None else (0, 1.0)
     ints = (ctypes.c_int * 14)(bn, d, v, nh, int(identity0), begin_index, eos_id,
                                int(decay is not None), int(start), *ts_ints)
+    if dt == torch.float32:
+        cuda_lib.launch("wm_verify_hidden_f32", dev, ptrs, ints, float(math.log(factor)))
+        if ts is not None:
+            f32_ts_launches += 1
+        else:
+            f32_launches += 1
+        return am, mx, lse, gth
     cuda_lib.launch("wm_verify_hidden", dev, ptrs, ints, float(math.log(factor)))
     quant = escale is not None or hscale is not None
     if ts is not None:

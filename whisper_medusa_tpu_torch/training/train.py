@@ -214,14 +214,15 @@ def init_train_state(params: Params, optimizer: OptimizerSpec) -> TrainState:
 
 
 def require_trainable_dtype(params: Params) -> None:
-    """Training on a CUDA device takes bf16 parameters (K1 and K9 are bf16
-    kernels); float32 there raises rather than running in another dtype."""
+    """Training on a CUDA device takes bf16 parameters (K9, the attention
+    backward, is a bf16 kernel; K1 has an f32 mode, K9 not yet); float32
+    there raises rather than running in another dtype."""
     for t in leaves(params):
         if t.is_cuda and t.is_floating_point() and t.dtype != torch.bfloat16:
             raise NotImplementedError(
                 f"training on {t.device} takes param_dtype='bfloat16', got {t.dtype}: "
-                "the f32 modes of K1 and K9 are not written yet (ROADMAP queue 1, item 19: "
-                "f32 modes of K1 and K9)")
+                "K9 has no f32 mode yet (ROADMAP queue 1, item 19a: K9's f32 mode and f32 "
+                "training on the card; K1's f32 mode is written)")
 
 
 def masked_grads(params: Params, config: ModelConfig, input_features, labels,
