@@ -4278,13 +4278,14 @@ K9_SOURCE = "whisper_medusa_tpu_torch/csrc/attention.cu"
 K9_REPLACES = "whisper_medusa_tpu/ops/attention.py:179"
 
 
-def _attn_bwd_cost(b, h, sq, skv, kv_len, causal, dh=64):
+def _attn_bwd_cost(b, h, sq, skv, kv_len, causal, dh=64, elem=2):
     """(bytes, operations) of one attention backward from the forward's
-    statistics: q, k, v, dO and O read once (bf16) with the f32 log-sum-exp,
-    dq, dk and dv written once (bf16); five products of 2 Dh operations over
-    the (query, key) pairs this call's masks leave visible."""
+    statistics: q, k, v, dO and O read once (``elem`` bytes an element: bf16,
+    or 4 for the f32 mode) with the f32 log-sum-exp, dq, dk and dv written
+    once; five products of 2 Dh operations over the (query, key) pairs this
+    call's masks leave visible."""
     pairs = sum(min(kv_len, i + 1) for i in range(sq)) if causal else sq * kv_len
-    return (2 * dh * b * h * (4 * sq + 4 * skv) + 4 * b * h * sq,
+    return (elem * dh * b * h * (4 * sq + 4 * skv) + 4 * b * h * sq,
             5 * 2 * dh * b * h * pairs)
 
 
@@ -4368,12 +4369,101 @@ def check_attention_bwd(g):
     return rows
 
 
-def _train_config(variant, **dims_kw):
+# K9's f32 mode against both plain versions: relative (Frobenius) error of
+# dQ, dK and dV (f32 sums in another order; the bf16 mode takes 1e-2).
+K9_F32_TOL = 1e-5
+K9_F32_NAMES = {key: name.replace("attention_bwd", "attention_bwd f32")
+                for key, name in K9_SHAPES.items()}
+
+
+def check_attention_bwd_f32(g):
+    """K9's f32 mode from K1 f32's output and log-sum-exp: off the path
+    (ragged Sq, kv_len < Skv, causal and not), then at the training paths'
+    three shapes, f32 throughout.  dQ, dK and dV each within K9_F32_TOL
+    relative (Frobenius) of attention_bwd_plain and attention_bwd_lse_plain
+    on the same f32 inputs, the dK / dV rows of keys past kv_len exactly 0;
+    each main-path shape twice on the same inputs, bitwise equal.  Timed
+    against the plain version and PyTorch's f32 SDPA backward (the
+    efficient-attention backend: flash takes no f32), the one backward call
+    through autograd on a graph kept from one forward, held to the plain
+    version too; device times under the profiler; one kernels row a
+    shape."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from whisper_medusa_tpu_torch.device_profile import _by_kernel
+    from whisper_medusa_tpu_torch.ops import attention as A
+    from whisper_medusa_tpu_torch.ops import cuda_lib
+
+    cases = [((1, 4, 300, 300), 257, True), ((1, 3, 77, 300), 299, False),
+             ((1, 2, 130, 64), 64, True)]
+    cases += [((TRAIN_B, 20, sq, skv), skv, causal) for sq, skv, causal in K9_SHAPES]
+    rows = []
+    for (b, h, sq, skv), kv_len, causal in cases:
+        q, k, v, do = (_f32(g, b, h, sq, 64, scale=0.25), _f32(g, b, h, skv, 64),
+                       _f32(g, b, h, skv, 64), _f32(g, b, h, sq, 64))
+        o, lse = A.attention_kernel(q, k, v, kv_len, causal, return_lse=True)
+        got = A.attention_bwd_kernel(q, k, v, do, kv_len, causal, o=o, lse=lse)
+        ref = A.attention_bwd_plain(q, k, v, do, kv_len, causal)
+        ref2 = A.attention_bwd_lse_plain(q, k, v, o, lse, do, kv_len, causal)
+        rels = [rel_err(a, c) for a, c in zip(got, ref)]
+        rels2 = [rel_err(a, c) for a, c in zip(got, ref2)]
+        err = max(max_err(a, c) for a, c in zip(got, ref2))
+        zero = not (got[1][:, :, kv_len:].any() or got[2][:, :, kv_len:].any())
+        dtypes = all(t.dtype == torch.float32 for t in got)
+        what = f"K9 f32 attention_bwd ({b},{h},{sq}x{skv},64) kv_len {kv_len} causal {causal}"
+        log(f"{what}: relative error to attention_bwd_plain dq {rels[0]:.2e} dk "
+            f"{rels[1]:.2e} dv {rels[2]:.2e}, to attention_bwd_lse_plain dq {rels2[0]:.2e} "
+            f"dk {rels2[1]:.2e} dv {rels2[2]:.2e}, max_abs_err {err:.3e}, dK/dV past "
+            f"kv_len zero {zero}")
+        require(max(rels + rels2) <= K9_F32_TOL and zero and dtypes,
+                f"{what}: {rels}, {rels2}, zero {zero}, f32 {dtypes}")
+        key = (sq, skv, causal)
+        if b != TRAIN_B or key not in K9_SHAPES:
+            continue
+        again = A.attention_bwd_kernel(q, k, v, do, kv_len, causal, o=o, lse=lse)
+        same = all(torch.equal(a, c) for a, c in zip(again, got))
+        log(f"{what}: a second run on the same inputs: dQ, dK and dV bitwise equal {same}")
+        require(same, f"{what}: dQ / dK / dV changed between two runs")
+        kern = lambda: A.attention_bwd_kernel(q, k, v, do, kv_len, causal, o=o, lse=lse)
+        ms = cuda_ms(kern)
+        dsum = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+        bufs = [torch.empty_like(t) for t in (q, k, v)] + [dsum]
+        entry_ms = cuda_ms(lambda: cuda_lib.launch(
+            "wm_attention_bwd_f32", q.device, *(t.data_ptr() for t in (q, k, v, o, lse, do)),
+            *(t.data_ptr() for t in bufs), b, h, sq, skv, 64, kv_len, int(causal)))
+        plain_ms = cuda_ms(lambda: A.attention_bwd_lse_plain(q, k, v, o, lse, do, kv_len,
+                                                             causal))
+        tpu_plain_ms = cuda_ms(lambda: A.attention_bwd_plain(q, k, v, do, kv_len, causal))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=1.0,
+                                                                   is_causal=causal)
+        lib = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+        lib_rel = max(rel_err(a, c) for a, c in zip(lib(), ref))
+        require(lib_rel <= 1e-3, f"{what}: the SDPA f32 backward is {lib_rel} from the plain")
+        lib_ms = cuda_ms(lib)
+        split = _by_kernel(kern, 20)
+        dev_ms, lib_dev_ms = sum(us for us, _ in split.values()) / 1e3, device_ms(lib)
+        cost = _attn_bwd_cost(b, h, sq, skv, kv_len, causal, elem=4)
+        log(f"{what}: {cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.2f} GFLOP; device time K9 f32 "
+            f"{dev_ms:.4f} ms ("
+            + ", ".join(f"{n} {us / 1e3:.4f}" for n, (us, _) in split.items())
+            + f"), SDPA f32 backward {lib_dev_ms:.4f} ms (relative error "
+            f"{lib_rel:.2e}); attention_bwd_plain {tpu_plain_ms:.4f} ms; K9 f32's C entry "
+            f"alone {entry_ms:.4f} ms; {SMI}")
+        rows.append(kernel_record(K9_F32_NAMES[key], K9_SOURCE, K9_REPLACES,
+                                  (A, "f32_launches_bwd", key), err, ms, plain_ms,
+                                  bound(*cost, F32_FLOPS), lib_ms))
+        del out, leaves
+    return rows
+
+
+def _train_config(variant, dtype="bfloat16", **dims_kw):
     from whisper_medusa_tpu_torch.config import WhisperDims, MedusaConfig, ModelConfig
 
     return ModelConfig(dims=WhisperDims(**dims_kw),
                        medusa=MedusaConfig(medusa_heads_type=variant),
-                       param_dtype="bfloat16", compute_dtype="bfloat16")
+                       param_dtype=dtype, compute_dtype=dtype)
 
 
 def _train_batch(feats_b, seed):
@@ -4385,23 +4475,38 @@ def _train_batch(feats_b, seed):
     return feats_b, labels
 
 
-def _grads(params, cfg, feats, labels, policy):
+def _grads(params, cfg, feats, labels, policy, remat=False):
     """(loss, {trainable leaf: masked gradient}) of one train forward."""
     from whisper_medusa_tpu_torch.training import train as TT
 
-    out, grads = TT.masked_grads(params, cfg, feats, labels, policy, remat=False)
+    out, grads = TT.masked_grads(params, cfg, feats, labels, policy, remat=remat)
     return float(out.loss.detach()), grads
 
 
-def check_train_2layer(variant, policy, feats1):
-    """One train forward and backward at full width, 2 encoder and 2 decoder
-    layers, B=1, T=224, on the card (K1, K9) and on a float32 CPU copy of
-    the same bf16 weights and batch (the plain versions): loss within 1e-2
-    relative, every trainable leaf's gradient at cosine >= 0.999."""
-    from whisper_medusa_tpu_torch.models import bridge
+# The card's train step against its f32 CPU copy: (loss relative error,
+# worst gradient cosine) a dtype may take.  bf16 weights (rounded P, dS and
+# activations on the card) 1e-2 and 0.999; f32 (f32 sums in another order)
+# 1e-5 and 0.99999.
+TRAIN_2LAYER_TOL = {"bfloat16": (1e-2, 0.999), "float32": (1e-5, 0.99999)}
+
+
+def _k9_count(dtype):
+    """K9's launches so far on the training shapes, in ``dtype``'s mode."""
     from whisper_medusa_tpu_torch.ops import attention as A
 
-    cfg = _train_config(variant, encoder_layers=2, decoder_layers=2)
+    counter = A.f32_launches_bwd if dtype == "float32" else A.launches_bwd
+    return sum(counter.values())
+
+
+def check_train_2layer(variant, policy, feats1, dtype="bfloat16"):
+    """One train forward and backward at full width, 2 encoder and 2 decoder
+    layers, B=1, T=224, on the card (K1, K9; their f32 modes for f32
+    weights) and on a float32 CPU copy of the same weights and batch (the
+    plain versions): loss and the worst trainable leaf's gradient cosine
+    within ``TRAIN_2LAYER_TOL[dtype]``; K9 launched twice, in dtype's mode."""
+    from whisper_medusa_tpu_torch.models import bridge
+
+    cfg = _train_config(variant, dtype, encoder_layers=2, decoder_layers=2)
     params = bridge.from_random(cfg, seed=SEED, device="cuda")
     hg = torch.Generator(device="cuda")
     hg.manual_seed(SEED + 5)
@@ -4410,53 +4515,60 @@ def check_train_2layer(variant, policy, feats1):
                         for k, v in tree.items()}
     cpu = f32(params)
     feats, labels = _train_batch(feats1.float().cpu().numpy(), SEED + 6)
-    n9 = sum(A.launches_bwd.values())
+    n9 = _k9_count(dtype)
     loss, grads = _grads(params, cfg, feats, labels, policy)
     torch.cuda.synchronize()
-    n9 = sum(A.launches_bwd.values()) - n9
+    n9 = _k9_count(dtype) - n9
     loss_c, grads_c = _grads(cpu, cfg.replace(param_dtype="float32"), feats, labels, policy)
     cos = {k: cosine(grads[k].cpu(), grads_c[k]) for k in grads}
+    rels = {k: rel_err(grads[k].cpu(), grads_c[k]) for k in grads}
     worst = min(cos, key=cos.get)
     rel = abs(loss - loss_c) / abs(loss_c)
-    log(f"train 2-layer {variant} / {policy} B=1 T={TRAIN_T}: loss card {loss:.6f}, CPU f32 "
-        f"{loss_c:.6f} (relative {rel:.2e}); K9 launches {n9}; gradient cosine over "
-        f"{len(cos)} trainable leaves: worst {cos[worst]:.6f} ({worst}), median "
-        f"{statistics.median(cos.values()):.6f}")
-    require(rel <= 1e-2 and cos[worst] >= 0.999 and n9 == 2,
-            f"train 2-layer {variant} / {policy}: loss {rel}, cosine {cos[worst]} at {worst}, "
-            f"K9 launches {n9}")
+    loss_tol, cos_tol = TRAIN_2LAYER_TOL[dtype]
+    log(f"train 2-layer {variant} / {policy} {dtype} B=1 T={TRAIN_T}: loss card {loss:.6f}, "
+        f"CPU f32 {loss_c:.6f} (relative {rel:.2e}); K9 ({dtype}) launches {n9}; gradient "
+        f"cosine over {len(cos)} trainable leaves: worst {cos[worst]:.8f} ({worst}), median "
+        f"{statistics.median(cos.values()):.8f}; worst relative error "
+        f"{max(rels.values()):.2e} ({max(rels, key=rels.get)})")
+    require(rel <= loss_tol and cos[worst] >= cos_tol and n9 == 2,
+            f"train 2-layer {variant} / {policy} {dtype}: loss {rel}, cosine {cos[worst]} at "
+            f"{worst}, K9 launches {n9}")
 
 
 # Training paths: (name, variant, policy, steps, K9 launches per step).
 TRAIN_RUNS = (("Medusa-Block recipe", "medusa_block", "whisper", 3, 2),
               ("Medusa-Linear recipe", "base_head", "all_but_last", 3, 2),
               ("full fine-tune", "base_head", None, 1, 96))
+# The kernels rows each dtype's training must launch, and those it must not.
+TRAIN_ROWS = {"bfloat16": ("attention", *K9_SHAPES.values()),
+              "float32": ("attention f32", *K9_F32_NAMES.values())}
 
 
-def train_run(kernels, name, variant, policy, steps, k9_per_step, feats2):
-    """Train steps at full large-v2 width, bf16, B=2, T=224, random weights
-    from SEED, one repeated batch, Adafactor at lr 1e-3 (no warmup, constant
-    schedule), remat off.  Finite losses; for a recipe the third loss below
-    the first; frozen leaves and frozen slices bit-identical; every trained
-    leaf changed but those still at 1.0 (a layer-norm scale of 1.0 does not
-    move in bf16 at this lr: half a bf16 ulp of 1.0 is 3.9e-3, the step
-    1e-3); K9 launched ``k9_per_step`` times per step.  The weights' copy
-    for that comparison lives on the host, so the peak memory printed is the
-    training's own."""
+def train_run(kernels, name, variant, policy, steps, k9_per_step, feats2, dtype="bfloat16"):
+    """Train steps at full large-v2 width, ``dtype`` weights, B=2, T=224,
+    random weights from SEED, one repeated batch, Adafactor at lr 1e-3 (no
+    warmup, constant schedule), remat off.  Finite losses; for a recipe the
+    third loss below the first; frozen leaves and frozen slices
+    bit-identical; every trained leaf changed but those still at 1.0 (a
+    layer-norm scale of 1.0 does not move in bf16 at this lr: half a bf16
+    ulp of 1.0 is 3.9e-3, the step 1e-3); K9 launched ``k9_per_step`` times
+    per step, in dtype's mode, and neither K1 nor K9 in the other mode.  The
+    weights' copy for that comparison lives on the host, so the peak memory
+    printed is the training's own."""
     from whisper_medusa_tpu_torch.models import bridge
     from whisper_medusa_tpu_torch.ops import attention as A
     from whisper_medusa_tpu_torch.training import train as TT
 
-    cfg = _train_config(variant)
+    cfg = _train_config(variant, dtype)
     params = bridge.from_random(cfg, seed=SEED, device="cuda")
     before = {k: v.to("cpu", copy=True) for k, v in bridge.flatten(params).items()}
     opt = TT.make_optimizer("adafactor", lr=1e-3, warmup_steps=0, schedule="constant")
     state = TT.init_train_state(params, opt)
     step = TT.make_train_step(cfg, opt, policy, remat=False)
     feats, labels = _train_batch(feats2, SEED + 7)
-    needs = ["attention", "attention_bwd self", "attention_bwd cross"]
-    if policy is None:
-        needs.append("attention_bwd encoder")
+    rows = TRAIN_ROWS[dtype]
+    needs = list(rows[:3]) + ([rows[3]] if policy is None else [])
+    absent = [n for d, other in TRAIN_ROWS.items() if d != dtype for n in other]
 
     def run():
         losses, times = [], []
@@ -4468,9 +4580,11 @@ def train_run(kernels, name, variant, policy, steps, k9_per_step, feats2):
         return losses, times
 
     torch.cuda.reset_peak_memory_stats()
-    (losses, times), _ = drive(f"train {name}", kernels, run, needs)
+    seen = {}
+    (losses, times), _ = drive(f"train {name} {dtype}", kernels, run, needs, absent, seen)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    k1, k9 = A.launches / steps, sum(A.launches_bwd[key] for key in K9_SHAPES) / steps
+    k1 = seen[rows[0]] / steps
+    k9 = sum(seen[n] for n in rows[1:]) / steps
     mask = bridge.flatten(TT.trainable_mask(params, policy))
     frozen_ok, moved, still, ones = True, 0, [], []
     for k, a in bridge.flatten(params).items():
@@ -4487,17 +4601,61 @@ def train_run(kernels, name, variant, policy, steps, k9_per_step, feats2):
             ones.append(k)               # a layer-norm scale at 1.0: see above
         else:
             still.append(k)
-    log(f"train {name} ({variant}, parts_to_freeze={policy}) B={TRAIN_B} T={TRAIN_T}: "
+    log(f"train {name} ({variant}, parts_to_freeze={policy}) {dtype} B={TRAIN_B} T={TRAIN_T}: "
         f"losses {', '.join(f'{x:.6f}' for x in losses)}; ms per step "
         f"{', '.join(f'{t:.1f}' for t in times)}; peak memory {peak:.2f} GiB; per step "
         f"K1 {k1:g}, K9 {k9:g}; trained leaves changed {moved}, unchanged at 1.0 "
         f"{len(ones)}, otherwise unchanged {still or 'none'}; frozen leaves and slices "
-        f"identical {frozen_ok}")
+        f"identical {frozen_ok}; {SMI}")
     require(all(np.isfinite(losses)) and (steps < 3 or losses[2] < losses[0])
             and frozen_ok and not still and moved > 0 and k9 == k9_per_step,
-            f"train {name}: losses {losses}, frozen {frozen_ok}, unchanged {still}, "
+            f"train {name} {dtype}: losses {losses}, frozen {frozen_ok}, unchanged {still}, "
             f"K9 per step {k9}")
-    return params
+    del state, params, before
+    return losses
+
+
+def check_remat_dots(kernels, feats2):
+    """One f32 full fine-tune forward and backward at full large-v2 width,
+    B=2, T=224, under remat False, "attn" and "dots" on the same weights and
+    batch: the loss and every gradient under "attn" and "dots" bitwise
+    False's (every kernel of the step is deterministic, and a recompute runs
+    the same operations on the same inputs); K9 f32 96 launches a pass; each
+    pass's peak memory above what was allocated before it, "dots" below
+    False's."""
+    from whisper_medusa_tpu_torch.models import bridge
+
+    cfg = _train_config("base_head", "float32")
+    params = bridge.from_random(cfg, seed=SEED + 8, device="cuda")
+    feats, labels = _train_batch(feats2, SEED + 9)
+    rows = TRAIN_ROWS["float32"]
+    ref, peaks = None, {}
+    for remat in (False, "attn", "dots"):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        seen = {}
+        (loss, grads), wall = drive(f"remat {remat!r} f32 full fine-tune", kernels,
+                                    lambda: _grads(params, cfg, feats, labels, None, remat),
+                                    rows, seen=seen)
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        k9 = sum(seen[n] for n in rows[1:])
+        log(f"remat {remat!r}: loss {loss:.8f}, {wall * 1e3:.1f} ms, peak memory "
+            f"{peaks[remat]:.2f} GiB above the weights, K1 f32 {seen[rows[0]]}, K9 f32 {k9}")
+        require(k9 == 96, f"remat {remat!r}: K9 f32 launches {k9}")
+        if ref is None:
+            ref = (loss, grads)
+            continue
+        same = [k for k in grads if torch.equal(grads[k], ref[1][k])]
+        worst = max(rel_err(grads[k], ref[1][k]) for k in grads)
+        log(f"remat {remat!r} vs False: loss bitwise {loss == ref[0]}, {len(same)}/{len(grads)} "
+            f"gradients bitwise, worst relative error {worst:.2e}")
+        require(loss == ref[0] and len(same) == len(grads),
+                f"remat {remat!r}: loss {loss} vs {ref[0]}, gradient error {worst}")
+        del grads
+    log(f"peak memory of one f32 full fine-tune pass above the weights (GiB): "
+        + ", ".join(f"remat {r!r} {p:.2f}" for r, p in peaks.items()) + f"; {SMI}")
+    require(peaks["dots"] < peaks[False], "remat 'dots' did not lower the peak memory")
+    del params, ref
 
 
 def check_grad_guard(params):
@@ -4516,17 +4674,20 @@ def check_grad_guard(params):
 
 
 def check_cli():
-    """The training CLI in-process, on a temporary CSV of generated WAV
-    files, at --whisper-size tiny (d_model 384: the generate decodes through
-    the per-op step, K11, head_rows and K4), bf16, 2 steps, a checkpoint
-    every step; its model_components/ loads through from_pretrained and
-    answers a generate."""
+    """The training CLI in-process at its defaults (--param-dtype float32,
+    --device cuda, --parts-to-freeze whisper: K1's f32 mode in the frozen
+    forward), on a temporary CSV of generated WAV files, at --whisper-size
+    tiny (d_model 384), 2 steps, a checkpoint every step; its
+    model_components/ loads through from_pretrained as an f32 model and
+    answers a generate (f32 serving: the per-op step's f32 modes, K4 f32)."""
     import tempfile
     import wave
 
     from whisper_medusa_tpu_torch.cli import train as cli
     from whisper_medusa_tpu_torch.data.tokenizer import CharTokenizer
+    from whisper_medusa_tpu_torch.models import bridge
     from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+    from whisper_medusa_tpu_torch.ops import attention as A
     from whisper_medusa_tpu_torch.processor import WhisperMedusaProcessor
 
     with tempfile.TemporaryDirectory(prefix="wm_smoke_cli_") as tmp:
@@ -4545,22 +4706,29 @@ def check_cli():
             f.write("\n".join(rows) + "\n")
         out = os.path.join(tmp, "run")
         t0 = time.perf_counter()
+        k1_train = A.f32_launches
         summary = cli.main(["--train-data-path", data, "--validation-data-path", data,
-                            "--output-path", out, "--whisper-size", "tiny",
-                            "--param-dtype", "bfloat16", "--max-steps", "2",
+                            "--output-path", out, "--whisper-size", "tiny", "--max-steps", "2",
                             "--save-steps", "1", "--eval-steps", "2", "--warmup-steps", "0",
                             "--batch-size", "2"])
         cli_s = time.perf_counter() - t0
+        k1_train = A.f32_launches - k1_train
         saved = sorted(os.listdir(os.path.join(out, "checkpoints")))
         model = WhisperMedusaModel.from_pretrained(os.path.join(out, "model_components"))
+        dtypes = {t.dtype for t in bridge.flatten(model.params).values()
+                  if t.is_floating_point()}
         proc = WhisperMedusaProcessor(tokenizer=CharTokenizer())
+        k1 = A.f32_launches
         res = model.generate(proc(waves[0]), language="en", max_new_tokens=16)
+        k1 = A.f32_launches - k1
     n_gen = int(res.lengths[0]) - PROMPT_LEN
-    log(f"cli.train.main (tiny, bf16, 2 steps): {cli_s:.1f} s, {summary}; checkpoints "
-        f"{saved}; model_components loaded and generated {n_gen} tokens "
-        f"{res.sequences[0, :PROMPT_LEN + n_gen].tolist()}")
+    log(f"cli.train.main (tiny, its default f32, 2 steps): {cli_s:.1f} s, {summary}; K1 f32 "
+        f"launches {k1_train}; checkpoints {saved}; model_components loaded ({dtypes}) and "
+        f"generated {n_gen} tokens {res.sequences[0, :PROMPT_LEN + n_gen].tolist()} (K1 f32 "
+        f"launches {k1})")
     require(summary["final_step"] == 2 and "trainer_state.json" in saved and n_gen >= 1
-            and np.isfinite(res.token_logprobs).all(), "cli train / load / generate")
+            and np.isfinite(res.token_logprobs).all() and dtypes == {torch.float32}
+            and k1_train > 0 and k1 > 0, "cli train / load / generate")
 
 
 def main():
@@ -4766,11 +4934,16 @@ def main():
 
     # ---- phase 7: training (K9), on fresh models after the serving ones go
     kernels += check_attention_bwd(g)
-    for variant, policy in (("medusa_block", "whisper"), ("base_head", "all_but_last")):
-        check_train_2layer(variant, policy, feats[0])
-    for run in TRAIN_RUNS:
-        train_run(kernels, *run, feats8[:TRAIN_B])
-        torch.cuda.empty_cache()
+    kernels += check_attention_bwd_f32(g)
+    for dtype in ("bfloat16", "float32"):
+        for variant, policy in (("medusa_block", "whisper"), ("base_head", "all_but_last")):
+            check_train_2layer(variant, policy, feats[0], dtype)
+    for dtype in ("float32", "bfloat16"):
+        for run in TRAIN_RUNS:
+            train_run(kernels, *run, feats8[:TRAIN_B], dtype)
+            torch.cuda.empty_cache()
+    check_remat_dots(kernels, feats8[:TRAIN_B])
+    torch.cuda.empty_cache()
     check_cli()
     for k in kernels:
         if k["name"].startswith("attention"):

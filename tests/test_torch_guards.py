@@ -159,21 +159,61 @@ def test_forward_only_kernels_refuse_grad():
         logits.project_kernel(x, embed)
 
 
-def test_training_on_cuda_takes_bf16():
-    """f32 parameters on a CUDA device raise NotImplementedError naming the
-    ROADMAP item, before anything runs (checked on the leaves' devices)."""
+class _FakeCuda:
+    """A leaf that reports a CUDA device (no card here)."""
+    is_cuda = True
+    device = "cuda:0"
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+    def is_floating_point(self):
+        return self.dtype.is_floating_point
+
+
+_TRAINABLE = {
+    "f32 on cuda": ({"w": _FakeCuda(torch.float32), "b": _FakeCuda(torch.float32)}, None),
+    "bf16 on cuda": ({"w": _FakeCuda(torch.bfloat16)}, None),
+    "int leaf beside f32 on cuda": (
+        {"w": _FakeCuda(torch.float32), "ids": _FakeCuda(torch.int32)}, None),
+    "mixed on cuda": ({"w": _FakeCuda(torch.float32), "b": _FakeCuda(torch.bfloat16)},
+                      "mixed dtypes"),
+    "f16 on cuda": ({"w": _FakeCuda(torch.float16)}, "bfloat16 or float32"),
+    "f32 on cpu": ({"w": torch.zeros(2)}, None),
+    "mixed on cpu": ({"w": torch.zeros(2), "b": torch.zeros(2, dtype=torch.bfloat16)}, None),
+}
+
+
+@pytest.mark.parametrize("case", list(_TRAINABLE))
+def test_training_on_cuda_takes_bf16(case):
+    """The training dtype check (checked on the leaves' devices, before
+    anything runs): all-f32 (ModelConfig's default) and all-bf16 CUDA
+    leaves train, leaves that mix the two or take another float dtype raise
+    ValueError; CPU training takes any dtype."""
     from whisper_medusa_tpu_torch.training import train as TT
 
-    class FakeCuda:
-        is_cuda, dtype = True, torch.float32
-        device = "cuda:0"
+    params, error = _TRAINABLE[case]
+    if error is None:
+        TT.require_trainable_dtype(params)
+        return
+    with pytest.raises(ValueError, match=error):
+        TT.require_trainable_dtype(params)
 
-        def is_floating_point(self):
-            return True
 
-    with pytest.raises(NotImplementedError, match="item 19a: K9's f32 mode"):
-        TT.require_trainable_dtype({"w": FakeCuda()})
-    TT.require_trainable_dtype({"w": torch.zeros(2)})        # CPU f32 trains
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_f32_training_refuses_tf32(monkeypatch, dtype):
+    """f32 training on the card takes full-f32 cuBLAS products: with TF32
+    allowed it raises ValueError before anything runs; bf16 training and
+    CPU training do not care."""
+    from whisper_medusa_tpu_torch.training import train as TT
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    if dtype == torch.float32:
+        with pytest.raises(ValueError, match="allow_tf32"):
+            TT.require_trainable_dtype({"w": _FakeCuda(dtype)})
+    else:
+        TT.require_trainable_dtype({"w": _FakeCuda(dtype)})
+    TT.require_trainable_dtype({"w": torch.zeros(2)})
 
 
 _F32 = {"whisper": {"w": torch.zeros(2, dtype=torch.float32)}}

@@ -82,20 +82,22 @@ def test_forward_and_grads_match_jax(variant, policy, medusa_kw):
     check_against_jax(variant, policy, medusa_kw)
 
 
-def check_against_jax(variant, policy, medusa_kw):
+def check_against_jax(variant, policy, medusa_kw, remat=False):
+    """Both packages' loss, per-head losses and masked gradients, each
+    package under the recompute policy ``remat``."""
     jc, tc = configs(variant, **medusa_kw)
     tree = param_tree(jc)
     feats, labels = batch(jc.dims)
 
     def loss_fn(p):
         out = JT.medusa_train_forward(p, jc, jnp.asarray(feats), jnp.asarray(labels),
-                                      freeze_policy=policy, remat=False)
+                                      freeze_policy=policy, remat=remat)
         return out.loss, out
 
     jp = jax.tree.map(jnp.asarray, tree)
     (jloss, jout), jg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(jp)
     jg = flat_np(JT.apply_mask(jg, JT.trainable_mask(jp, policy)))
-    out, got = torch_grads(tc, tree, feats, labels, policy)
+    out, got = torch_grads(tc, tree, feats, labels, policy, remat=remat)
 
     np.testing.assert_allclose(float(out.loss.detach()), float(jloss), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(out.per_head_ce.detach().numpy(), np.asarray(jout.per_head_ce),

@@ -1,7 +1,10 @@
 """The port's train forward against the JAX package's with the KL loss (the
 base head's and the frozen teacher layer's targets); the gradients do not
-depend on ``remat``; a train step leaves frozen leaves and frozen slices
-bit-identical.  Helpers in test_torch_train.py."""
+depend on ``remat``, and remat "dots" matches JAX's "dots" and keeps fewer
+tensors than no recompute; a train step leaves frozen leaves and frozen
+slices bit-identical.  Helpers in test_torch_train.py."""
+
+import collections
 
 import numpy as np
 import pytest
@@ -9,6 +12,7 @@ import torch
 
 from tests.test_torch_train import KL, batch, check_against_jax, configs, param_tree, torch_grads
 from whisper_medusa_tpu_torch.models import bridge
+from whisper_medusa_tpu_torch.models import whisper as W
 from whisper_medusa_tpu_torch.training import train as TT
 
 
@@ -27,12 +31,60 @@ def test_grads_do_not_depend_on_remat(variant, policy):
     tree = param_tree(jc, seed=2)
     feats, labels = batch(jc.dims, seed=1)
     _, ref = torch_grads(tc, tree, feats, labels, policy, remat=False)
-    for remat in (True, "full", "attn"):
+    for remat in (True, "full", "attn", "dots"):
         _, got = torch_grads(tc, tree, feats, labels, policy, remat=remat)
         for k in ref:
             np.testing.assert_allclose(got[k], ref[k], rtol=1e-6, atol=1e-7, err_msg=f"{remat} {k}")
-    with pytest.raises(NotImplementedError, match="dots"):
-        torch_grads(tc, tree, feats, labels, policy, remat="dots")
+
+
+@pytest.mark.parametrize("variant", ["base_head", "medusa_block"])
+def test_dots_grads_match_jax_dots(variant):
+    """A full fine-tune under remat "dots" in both packages (JAX's
+    dots_with_no_batch_dims_saveable, the port's selective checkpoint)."""
+    check_against_jax(variant, None, {}, remat="dots")
+
+
+@pytest.mark.parametrize("variant", ["base_head", "medusa_block"])
+def test_dots_keeps_fewer_tensors(monkeypatch, variant):
+    """The tensors a full fine-tune's forward keeps for the backward: under
+    remat=False every one goes through autograd's saved-tensor hooks; under
+    "dots" only those outside the layers do, plus the outputs the policy
+    keeps inside them, which are exactly the layers' weight projections (6
+    an encoder layer, 10 a decoder layer).  Fewer in all, the same loss."""
+    jc, tc = configs(variant)
+    tree = param_tree(jc, seed=2)
+    feats, labels = batch(jc.dims, seed=1)
+    kept = collections.Counter()
+    policy = W._dots_policy
+
+    def spy(ctx, op, *args, **kwargs):
+        decision = policy(ctx, op, *args, **kwargs)
+        if not ctx.is_recompute:
+            kept[(str(op), str(decision).rsplit(".", 1)[-1])] += 1
+        return decision
+
+    monkeypatch.setattr(W, "_dots_policy", spy)
+
+    def saved(remat):
+        n = [0]
+
+        def pack(t):
+            n[0] += 1
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out, _ = torch_grads(tc, tree, feats, labels, None, remat=remat)
+        return n[0], float(out.loss.detach())
+
+    n_none, loss_none = saved(False)
+    assert not kept
+    n_dots, loss_dots = saved("dots")
+    d = jc.dims
+    projections = 6 * d.encoder_layers + 10 * d.decoder_layers
+    must = sum(n for (_, decision), n in kept.items() if decision == "MUST_SAVE")
+    assert must == kept[("aten.mm.default", "MUST_SAVE")] == projections
+    assert n_dots + must < n_none
+    assert loss_dots == loss_none
 
 
 @pytest.mark.parametrize("variant,policy", [("base_head", "all_but_last"),

@@ -38,7 +38,8 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--output-whisper-original", type=str2bool, default=False)
     p.add_argument("--param-dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--device", default="cuda",
-                   help="torch device; training on cuda takes --param-dtype bfloat16")
+                   help="torch device (cuda trains either --param-dtype; cpu runs the "
+                        "kernels' plain versions)")
 
 
 def add_mesh_args(p: argparse.ArgumentParser) -> None:

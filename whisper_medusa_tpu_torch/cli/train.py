@@ -2,13 +2,14 @@
 
   python -m whisper_medusa_tpu_torch.cli.train \
       --train-data-path train.csv --validation-data-path val.csv \
-      --output-path out --whisper-size tiny --param-dtype bfloat16
+      --output-path out --whisper-size tiny
 
 A local ``--whisper-model-name`` directory loads through ``from_pretrained``;
 otherwise the model is drawn at random from ``--seed`` at ``--whisper-size``.
 The run writes ``<output-path>/model_components/`` through
-``save_pretrained`` (the JAX package's checkpoint format).  On ``--device
-cuda`` (the default) training takes ``--param-dtype bfloat16``.
+``save_pretrained`` (the JAX package's checkpoint format).  ``--device
+cuda`` (the default) trains at either ``--param-dtype``: float32 (the
+default) or bfloat16.
 """
 
 from __future__ import annotations

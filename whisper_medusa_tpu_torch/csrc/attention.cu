@@ -866,3 +866,326 @@ extern "C" int wm_attention_fwd_f32(const void* q, const void* k, const void* v,
       static_cast<float*>(o), static_cast<float*>(lse), sq, skv, kv_len, causal);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// K9's f32 mode, wm_attention_bwd_f32: the TPU kernel's function on f32
+// operands (the JAX package's default dtype): S = q k^T in f32, masked past
+// kv_len (and above the diagonal when causal), P = exp(S - LSE) in f32 from
+// the log-sum-exp K1's f32 mode writes, dP = dO V^T, dS = P (dP - Dsum), dQ
+// = dS K, dK = dS^T Q, dV = P^T dO; nothing rounded below f32 (the TPU
+// kernel rounds dS and P to the operands' dtype, f32 here).  FFMA on the
+// CUDA cores, as K1's f32 mode: the tensor cores take f32 only as TF32.
+//
+//  (a) bwd_rows_f32_kernel: Dsum = sum_d dO * O per row (16 lanes a row);
+//  (b) attention_bwd_kv_f32_kernel: one CTA (256 threads) per (batch, head,
+//      64-key block), K^T and V^T staged once, then the visible 64-query
+//      tiles in order (from the block's first key when causal): S^T and dP^T
+//      as 4 x 4 register tiles a thread (keys 4 (t / 16) .., queries 4 (t %
+//      16) ..), P and dS through shared memory query-major, then dV += P^T dO
+//      and dK += dS^T Q as 4 x 4 tiles (keys x head columns) over the tile's
+//      64 queries in order; dK and dV written once, exact zeros for keys
+//      past kv_len (and for a causal block no query sees);
+//  (c) attention_bwd_q_f32_kernel: one CTA per (batch, head, 64-query
+//      block), q^T and dO^T staged once, then the visible 64-key tiles in
+//      order: S and dP again (the same fmaf chains as (b) and K1 f32, so the
+//      same P), dS^T through shared memory, dQ += dS K over the tile's keys
+//      in order.
+// (c) recomputes two of (b)'s products instead of keeping per-key-block dQ
+// partials (the bf16 mode's route): 7 products where 5 would do, but no
+// scratch (the partials would be 184 MB at (2, 20, 1500^2) with 128-key
+// blocks) and no second pass.  Every sum is one chain in a fixed order, no
+// atomics: dQ, dK and dV are bitwise the same from run to run, and a (b,
+// h) block's bits do not depend on B.  Bound on H100: operations at the
+// CUDA cores' 67 TFLOP/s; the encoder's (2, 20, 1500^2) is 57.6 GFLOP of
+// the five products, 0.86 ms.
+namespace wm {
+namespace {
+
+constexpr int BF_T = 64;                    // keys of (b), queries of (c), rows a tile
+constexpr int BF_DH = 64;
+constexpr int BF_THREADS = 256;
+constexpr int BF_PP = BF_T + 4;             // pitch of the P / dS tiles
+constexpr int BF_TILE = BF_DH * BF_T;       // floats of one staged 64 x 64 tile
+// (b): K^T, V^T; Q^T, dO^T, Q, dO; P, dS (query-major); the tile's LSE, Dsum.
+constexpr int BKV_SMEM = (6 * BF_TILE + 2 * BF_T * BF_PP + 2 * BF_T) * 4;
+// (c): q^T, dO^T; K^T, V^T, K; dS^T (key-major).
+constexpr int BQ_SMEM = (5 * BF_TILE + BF_T * BF_PP) * 4;
+
+// Rows r0 .. r0 + 63 of an (n, 64) f32 matrix (rows >= n as zeros),
+// transposed: t[d][r].
+__device__ __forceinline__ void bf_stage_t(float* t, const float* __restrict__ src, int r0,
+                                           int n) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const int idx = threadIdx.x + h * BF_THREADS, r = idx & 63, d4 = (idx >> 6) * 4;
+    const float4 x = r0 + r < n ? af_ld4(src + (size_t)(r0 + r) * BF_DH + d4) : zero;
+    t[(d4 + 0) * BF_T + r] = x.x;
+    t[(d4 + 1) * BF_T + r] = x.y;
+    t[(d4 + 2) * BF_T + r] = x.z;
+    t[(d4 + 3) * BF_T + r] = x.w;
+  }
+}
+
+// The same rows row-major: s[r][d].
+__device__ __forceinline__ void bf_stage_r(float* s, const float* __restrict__ src, int r0,
+                                           int n) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const int idx = threadIdx.x + h * BF_THREADS, r = idx >> 4, d4 = (idx & 15) * 4;
+    *reinterpret_cast<float4*>(s + r * BF_DH + d4) =
+        r0 + r < n ? af_ld4(src + (size_t)(r0 + r) * BF_DH + d4) : zero;
+  }
+}
+
+// a[i][j] = sum_d x[d][4 xi + i] * y[d][4 yj + j] and b[i][j] = the same of
+// (u, w), over d = 0 .. 63 in order (x, y, u, w transposed 64 x 64 tiles).
+__device__ __forceinline__ void bf_two_dots(float (&a)[4][4], float (&b)[4][4],
+                                            const float* x, const float* y, const float* u,
+                                            const float* w, int xi, int yj) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[i][j] = b[i][j] = 0.0f;
+#pragma unroll 8
+  for (int d = 0; d < BF_DH; ++d) {
+    const float4 xa = *reinterpret_cast<const float4*>(x + d * BF_T + 4 * xi);
+    const float4 ya = *reinterpret_cast<const float4*>(y + d * BF_T + 4 * yj);
+    const float4 ua = *reinterpret_cast<const float4*>(u + d * BF_T + 4 * xi);
+    const float4 wa = *reinterpret_cast<const float4*>(w + d * BF_T + 4 * yj);
+    const float xv[4] = {xa.x, xa.y, xa.z, xa.w}, yv[4] = {ya.x, ya.y, ya.z, ya.w};
+    const float uv[4] = {ua.x, ua.y, ua.z, ua.w}, wv[4] = {wa.x, wa.y, wa.z, wa.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        a[i][j] = fmaf(xv[i], yv[j], a[i][j]);
+        b[i][j] = fmaf(uv[i], wv[j], b[i][j]);
+      }
+  }
+}
+
+__global__ void __launch_bounds__(256)
+bwd_rows_f32_kernel(const float* __restrict__ o, const float* __restrict__ g,
+                    float* __restrict__ dsum, int rows) {
+  const int row = blockIdx.x * 16 + (threadIdx.x >> 4), part = threadIdx.x & 15;
+  float s = 0.0f;
+  if (row < rows) {
+    const float4 ov = af_ld4(o + (size_t)row * BF_DH + 4 * part);
+    const float4 gv = af_ld4(g + (size_t)row * BF_DH + 4 * part);
+    s = fmaf(ov.w, gv.w, fmaf(ov.z, gv.z, fmaf(ov.y, gv.y, ov.x * gv.x)));
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (row < rows && part == 0) dsum[row] = s;
+}
+
+__global__ void __launch_bounds__(BF_THREADS)
+attention_bwd_kv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ g,
+                            const float* __restrict__ lse, const float* __restrict__ dsum,
+                            float* __restrict__ dk, float* __restrict__ dv, int sq, int skv,
+                            int kv_len, int causal) {
+  extern __shared__ __align__(16) float bf_smem[];
+  float* kt = bf_smem;                  // [d][key]
+  float* vt = kt + BF_TILE;             // [d][key]
+  float* qt = vt + BF_TILE;             // [d][query]
+  float* gt = qt + BF_TILE;             // [d][query]
+  float* qs = gt + BF_TILE;             // [query][d]
+  float* gs = qs + BF_TILE;             // [query][d]
+  float* pq = gs + BF_TILE;             // P [query][key], pitch BF_PP
+  float* dsq = pq + BF_T * BF_PP;       // dS [query][key], pitch BF_PP
+  float* ls = dsq + BF_T * BF_PP;       // the tile's LSE
+  float* dl = ls + BF_T;                // the tile's Dsum
+  const int k0 = blockIdx.x * BF_T;
+  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const float* qh = q + bh * sq * BF_DH;
+  const float* gh = g + bh * sq * BF_DH;
+  const int t = threadIdx.x, tr = t >> 4, tc = t & 15;   // keys 4 tr .., queries / d 4 tc ..
+  float adk[4][4], adv[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) adk[i][j] = adv[i][j] = 0.0f;
+  const int q_begin = causal ? k0 : 0;
+  const int ntiles = k0 < kv_len && q_begin < sq ? (sq - q_begin + BF_T - 1) / BF_T : 0;
+  if (ntiles > 0) {         // block-uniform; keys >= kv_len get exact zeros
+    bf_stage_t(kt, k + bh * skv * BF_DH, k0, skv);
+    bf_stage_t(vt, v + bh * skv * BF_DH, k0, skv);
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    const int q0 = q_begin + it * BF_T;
+    __syncthreads();        // the previous tile's products are done with its stages
+    bf_stage_t(qt, qh, q0, sq);
+    bf_stage_t(gt, gh, q0, sq);
+    bf_stage_r(qs, qh, q0, sq);
+    bf_stage_r(gs, gh, q0, sq);
+    if (t < BF_T) {
+      ls[t] = q0 + t < sq ? lse[bh * sq + q0 + t] : 0.0f;
+      dl[t] = q0 + t < sq ? dsum[bh * sq + q0 + t] : 0.0f;
+    }
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    bf_two_dots(s, dp, kt, qt, vt, gt, tr, tc);        // S^T, dP^T: keys x queries
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 4 * tc + j, qi = q0 + c;
+      float p[4], d[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + 4 * tr + i;
+        const bool ok = qi < sq && key < kv_len && (!causal || key <= qi);
+        p[i] = ok ? expf(s[i][j] - ls[c]) : 0.0f;
+        d[i] = p[i] * (dp[i][j] - dl[c]);
+      }
+      *reinterpret_cast<float4*>(pq + c * BF_PP + 4 * tr) =
+          make_float4(p[0], p[1], p[2], p[3]);
+      *reinterpret_cast<float4*>(dsq + c * BF_PP + 4 * tr) =
+          make_float4(d[0], d[1], d[2], d[3]);
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int c = 0; c < BF_T; ++c) {
+      const float4 pa = *reinterpret_cast<const float4*>(pq + c * BF_PP + 4 * tr);
+      const float4 da = *reinterpret_cast<const float4*>(dsq + c * BF_PP + 4 * tr);
+      const float4 ga = *reinterpret_cast<const float4*>(gs + c * BF_DH + 4 * tc);
+      const float4 qa = *reinterpret_cast<const float4*>(qs + c * BF_DH + 4 * tc);
+      const float pv[4] = {pa.x, pa.y, pa.z, pa.w}, dv4[4] = {da.x, da.y, da.z, da.w};
+      const float gv[4] = {ga.x, ga.y, ga.z, ga.w}, qv[4] = {qa.x, qa.y, qa.z, qa.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          adv[i][j] = fmaf(pv[i], gv[j], adv[i][j]);
+          adk[i][j] = fmaf(dv4[i], qv[j], adk[i][j]);
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + 4 * tr + i;
+    if (key < skv) {
+      const size_t at = (bh * skv + key) * BF_DH + 4 * tc;
+      *reinterpret_cast<float4*>(dk + at) =
+          make_float4(adk[i][0], adk[i][1], adk[i][2], adk[i][3]);
+      *reinterpret_cast<float4*>(dv + at) =
+          make_float4(adv[i][0], adv[i][1], adv[i][2], adv[i][3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(BF_THREADS)
+attention_bwd_q_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ g,
+                           const float* __restrict__ lse, const float* __restrict__ dsum,
+                           float* __restrict__ dq, int sq, int skv, int kv_len, int causal) {
+  extern __shared__ __align__(16) float bf_smem[];
+  float* qt = bf_smem;                  // [d][query]
+  float* gt = qt + BF_TILE;             // [d][query]
+  float* kt = gt + BF_TILE;             // [d][key]
+  float* vt = kt + BF_TILE;             // [d][key]
+  float* ks = vt + BF_TILE;             // [key][d]
+  float* st = ks + BF_TILE;             // dS^T [key][query], pitch BF_PP
+  const int q0 = blockIdx.x * BF_T;
+  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const float* kh = k + bh * skv * BF_DH;
+  const float* vh = v + bh * skv * BF_DH;
+  const int t = threadIdx.x, tq = t >> 4, tk = t & 15;   // queries 4 tq .., keys / d 4 tk ..
+  bf_stage_t(qt, q + bh * sq * BF_DH, q0, sq);
+  bf_stage_t(gt, g + bh * sq * BF_DH, q0, sq);
+  float lr[4], dr[4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * tq + i;
+    lr[i] = row < sq ? lse[bh * sq + row] : 0.0f;
+    dr[i] = row < sq ? dsum[bh * sq + row] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+  const int kend = causal ? min(kv_len, q0 + BF_T) : kv_len;
+  const int ntiles = (kend + BF_T - 1) / BF_T;
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int k0 = tile * BF_T;
+    __syncthreads();        // the previous tile's products are done with its stages
+    bf_stage_t(kt, kh, k0, skv);
+    bf_stage_t(vt, vh, k0, skv);
+    bf_stage_r(ks, kh, k0, skv);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    bf_two_dots(s, dp, qt, kt, gt, vt, tq, tk);        // S, dP: queries x keys
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = k0 + 4 * tk + j;
+      float d[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + 4 * tq + i;
+        const bool ok = row < sq && key < kv_len && (!causal || key <= row);
+        const float p = ok ? expf(s[i][j] - lr[i]) : 0.0f;
+        d[i] = p * (dp[i][j] - dr[i]);
+      }
+      *reinterpret_cast<float4*>(st + (4 * tk + j) * BF_PP + 4 * tq) =
+          make_float4(d[0], d[1], d[2], d[3]);
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int c = 0; c < BF_T; ++c) {
+      const float4 da = *reinterpret_cast<const float4*>(st + c * BF_PP + 4 * tq);
+      const float4 ka = *reinterpret_cast<const float4*>(ks + c * BF_DH + 4 * tk);
+      const float dv4[4] = {da.x, da.y, da.z, da.w}, kv[4] = {ka.x, ka.y, ka.z, ka.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(dv4[i], kv[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * tq + i;
+    if (row < sq)
+      *reinterpret_cast<float4*>(dq + (bh * sq + row) * BF_DH + 4 * tk) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+}  // namespace
+}  // namespace wm
+
+// q, g, o, dq (B, H, Sq, 64) and k, v, dk, dv (B, H, Skv, 64) f32, 16-byte
+// aligned; lse (B, H, Sq) f32 from K1's f32 mode; scratch dsum (B, H, Sq) f32.
+extern "C" int wm_attention_bwd_f32(const void* q, const void* k, const void* v,
+                                    const void* o, const void* lse, const void* g, void* dq,
+                                    void* dk, void* dv, void* dsum, int b, int h, int sq,
+                                    int skv, int dh, int kv_len, int causal, void* stream) {
+  using namespace wm;
+  if (dh != BF_DH || b < 1 || h < 1 || sq < 1 || kv_len < 1 || kv_len > skv)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int rows = b * h * sq;
+  bwd_rows_f32_kernel<<<(rows + 15) / 16, 256, 0, st>>>(static_cast<const float*>(o),
+                                                       static_cast<const float*>(g),
+                                                       static_cast<float*>(dsum), rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  const float* fg = static_cast<const float*>(g);
+  const float* fl = static_cast<const float*>(lse);
+  const float* fd = static_cast<const float*>(dsum);
+  // Per launch: the attribute belongs to the current device's context.
+  cudaFuncSetAttribute(attention_bwd_kv_f32_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, BKV_SMEM);
+  attention_bwd_kv_f32_kernel<<<dim3((skv + BF_T - 1) / BF_T, h, b), BF_THREADS, BKV_SMEM,
+                                st>>>(fq, fk, fv, fg, fl, fd, static_cast<float*>(dk),
+                                      static_cast<float*>(dv), sq, skv, kv_len, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncSetAttribute(attention_bwd_q_f32_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, BQ_SMEM);
+  attention_bwd_q_f32_kernel<<<dim3((sq + BF_T - 1) / BF_T, h, b), BF_THREADS, BQ_SMEM,
+                               st>>>(fq, fk, fv, fg, fl, fd, static_cast<float*>(dq), sq, skv,
+                                     kv_len, causal);
+  return (int)cudaGetLastError();
+}

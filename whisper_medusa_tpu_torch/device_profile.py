@@ -40,10 +40,11 @@ code the same way:
      it, and the device's idle share: 1 - (device time) / (wall time
      without the profiler);
   5. training at B=2, T=224 (seeded features and labels, Adafactor, remat
-     off): one step of the Medusa-Block recipe and one full fine-tune step
-     of base_head, each after a warm-up step: the wall time of a step
-     without the profiler, the device time by kernel of the next (K1, K9,
-     cuBLAS, the elementwise kernels), the idle share and the peak memory;
+     off), bf16 then f32 weights: one step of the Medusa-Block recipe and
+     one full fine-tune step of base_head, each after a warm-up step: the
+     wall time of a step without the profiler, the device time by kernel
+     of the next (K1, K9 or their f32 modes, cuBLAS, the elementwise
+     kernels), the idle share and the peak memory;
   6. past K2's batch: one per-op decoder step
      (``models/whisper.py::decoder_layers_ops``: cuBLAS or K6 projections,
      K10's mask mode for the self-attention, K10, K11) over all 32 layers at
@@ -67,6 +68,7 @@ Medusa-Block model (``models/bridge.py::random_block_model``), are drawn as
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import os
 import re
@@ -519,13 +521,17 @@ def profile_per_op_step(model, mode):
         del cache
 
 
-K9_KERNELS = ("bwd_rows_kernel", "bwd_main_kernel", "bwd_cast_kernel")
+# K9's kernels behind its one entry, by mode: the row pass, then the main
+# pass and the cast (bf16), or the dK / dV and the dQ kernels (f32).
+K9_KERNELS = {"bfloat16": ("bwd_rows_kernel", "bwd_main_kernel", "bwd_cast_kernel"),
+              "float32": ("bwd_rows_f32_kernel", "attention_bwd_kv_f32_kernel",
+                          "attention_bwd_q_f32_kernel")}
 
 
 def profile_training(b=2, t=224):
     """Part 5: one Medusa-Block recipe step (parts_to_freeze="whisper") and
-    one full fine-tune step of base_head, each timed and profiled after a
-    warm-up step on the same batch."""
+    one full fine-tune step of base_head, bf16 then f32 weights, each timed
+    and profiled after a warm-up step on the same batch."""
     from whisper_medusa_tpu_torch.config import WHISPER_PRESETS, MedusaConfig, ModelConfig
     from whisper_medusa_tpu_torch.models import bridge
     from whisper_medusa_tpu_torch.training import train as TT
@@ -535,10 +541,11 @@ def profile_training(b=2, t=224):
     feats = torch.from_numpy(rng.standard_normal(
         (b, dims.num_mel_bins, dims.num_frames)).astype(np.float32)).cuda()
     labels = rng.integers(0, 50257, size=(b, t))
-    for name, variant, policy in (("Medusa-Block recipe", "medusa_block", "whisper"),
-                                  ("full fine-tune", "base_head", None)):
+    for dtype, (name, variant, policy) in itertools.product(
+            K9_KERNELS, (("Medusa-Block recipe", "medusa_block", "whisper"),
+                         ("full fine-tune", "base_head", None))):
         cfg = ModelConfig(dims=dims, medusa=MedusaConfig(medusa_heads_type=variant),
-                          param_dtype="bfloat16", compute_dtype="bfloat16")
+                          param_dtype=dtype, compute_dtype=dtype)
         params = bridge.from_random(cfg, seed=SEED, device="cuda")
         opt = TT.make_optimizer("adafactor", lr=1e-3, warmup_steps=0, schedule="constant")
         state = TT.init_train_state(params, opt)
@@ -552,13 +559,12 @@ def profile_training(b=2, t=224):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         rows = _by_kernel(run)
-        total = _table(f"train step, {name} ({variant}, parts_to_freeze={policy}), B={b} "
-                       f"T={t}", rows, f" (wall without the profiler {wall_ms:.1f} ms)")
-        # K9 is three kernels behind one entry: the row pass, the main pass, the cast.
-        k9 = [rows.get(k, (0.0, 0)) for k in K9_KERNELS]
+        total = _table(f"train step, {name} ({variant}, parts_to_freeze={policy}), {dtype}, "
+                       f"B={b} T={t}", rows, f" (wall without the profiler {wall_ms:.1f} ms)")
+        k9 = [rows.get(k, (0.0, 0)) for k in K9_KERNELS[dtype]]
         k9_us = sum(us for us, _ in k9)
-        print(f"  K9 ({' + '.join(K9_KERNELS)}): {k9_us:.1f} us, {100 * k9_us / total:.1f} % "
-              f"of device time, {k9[1][1]:g} launches")
+        print(f"  K9 ({' + '.join(K9_KERNELS[dtype])}): {k9_us:.1f} us, "
+              f"{100 * k9_us / total:.1f} % of device time, {k9[1][1]:g} launches")
         print(f"  device idle share {1 - total / 1e3 / wall_ms:.3f}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del params, state, step, run

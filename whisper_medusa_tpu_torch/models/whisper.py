@@ -45,6 +45,8 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from whisper_medusa_tpu_torch.config import WhisperDims
 from whisper_medusa_tpu_torch.ops import attention as attn_mod
@@ -287,13 +289,32 @@ def conv1d_stem(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 # Rematerialization (training)
 # ---------------------------------------------------------------------------
 
-def _checkpointed(fn):
-    """``fn`` under ``torch.utils.checkpoint`` when a graph is being built."""
+def _checkpointed(fn, context_fn=noop_context_fn):
+    """``fn`` under ``torch.utils.checkpoint`` when a graph is being built;
+    ``context_fn`` gives a selective policy's contexts."""
     def run(*args):
         if torch.is_grad_enabled():
-            return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+            return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                     context_fn=context_fn)
         return fn(*args)
     return run
+
+
+# Products without batch dimensions: the weight projections, which
+# torch.matmul runs as aten.mm once the leading dimensions are folded.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the outputs of
+    products without batch dimensions, recompute everything else (the
+    elementwise chain, batched products such as the plain attention's
+    einsums, and K1, whose ctypes launch no policy can keep)."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 def _remat_plan(remat):
@@ -304,7 +325,9 @@ def _remat_plan(remat):
     kept, the rest recomputed in the backward); ``"attn"`` checkpoints each
     residual branch (self-attention, cross-attention, FFN) on its own, so the
     residual stream at every attention output is kept and only the insides
-    of the branches are recomputed.  ``"dots"`` names an XLA save policy."""
+    of the branches are recomputed; ``"dots"`` checkpoints each layer under
+    :func:`_dots_policy` (XLA's ``dots_with_no_batch_dims_saveable``): the
+    layer's weight projections are kept, the rest recomputed."""
     keep = lambda fn: fn
     if remat in (False, None):
         return keep, keep
@@ -313,9 +336,7 @@ def _remat_plan(remat):
     if remat == "attn":
         return keep, _checkpointed
     if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (XLA's dots_with_no_batch_dims_saveable policy) is not "
-            "ported to whisper_medusa_tpu_torch (ROADMAP queue 1, item 20: remat 'dots')")
+        return (lambda fn: _checkpointed(fn, _dots_contexts)), keep
     raise ValueError(f"remat={remat!r}: expected bool, 'full', 'dots' or 'attn'")
 
 

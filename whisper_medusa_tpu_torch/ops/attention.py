@@ -42,7 +42,19 @@ block), 64-key f32 tiles of K and V staged in shared memory, a 4 x 4
 register tile of scores and of output a thread, the online softmax in f32;
 it writes the log-sum-exp when asked, as the bf16 mode does.  No split
 over keys: a row's bits do not depend on B.  Bound by the CUDA cores' 67
-TFLOP/s at the encoder's shapes.  :class:`AttentionFn` ties the two together for autograd: on CUDA
+TFLOP/s at the encoder's shapes.
+
+K9's f32 mode (``wm_attention_bwd_f32``) trains f32 weights: the TPU
+kernel's backward on f32 operands, dS and P never rounded, every product in
+FFMA on the CUDA cores.  The same row pass gives Dsum = dO . O; one kernel
+per (batch, head, 64-key block) recomputes P from K1 f32's log-sum-exp and
+writes dK and dV once; a second kernel per (batch, head, 64-query block)
+recomputes S and dP and writes dQ as one sum over the keys in order, with
+no scratch (two products more than the bf16 mode's partials, which would
+take 184 MB at the encoder's shapes).  No atomics: all three are bitwise
+the same from run to run.
+
+:class:`AttentionFn` ties the two together for autograd: on CUDA
 its forward saves O and the log-sum-exp for the backward; serving never
 builds a graph and calls K1 without the log-sum-exp as before.
 """
@@ -63,6 +75,7 @@ BWD_KEYS = 128   # keys of one K9 CTA (csrc/attention.cu BKB): one dQ partial ea
 launches = 0     # K1 launches (not plain-version calls)
 f32_launches = 0   # K1's f32 mode
 launches_bwd = collections.Counter()   # K9 launches by (Sq, Skv, causal)
+f32_launches_bwd = collections.Counter()   # K9's f32 mode, keyed alike
 
 
 def _scores_mask(q, k, kv_len: int, causal: bool) -> torch.Tensor:
@@ -176,31 +189,43 @@ def attention_kernel(q, k, v, kv_len: int, causal: bool, return_lse: bool = Fals
 
 
 def attention_bwd_kernel(q, k, v, g, kv_len: int, causal: bool, o=None, lse=None):
-    """Launch K9.  q, g: (B, H, Sq, 64), k/v: (B, H, Skv, 64), bf16,
-    contiguous; ``o`` (bf16, q's shape) and ``lse`` ((B, H, Sq) f32) are the
-    forward's output and log-sum-exp, from K1 with ``return_lse=True`` (run
-    here first when either is None).  Returns (dq, dk, dv), bf16."""
-    cuda_lib.require_cuda("attention_bwd", q, k, v, g)
+    """Launch K9.  q, g: (B, H, Sq, 64), k/v: (B, H, Skv, 64), all bf16 (K9)
+    or all f32 (its f32 mode), contiguous; ``o`` (q's dtype and shape) and
+    ``lse`` ((B, H, Sq) f32) are the forward's output and log-sum-exp, from
+    K1 with ``return_lse=True`` (run here first when either is None).
+    Returns (dq, dk, dv) in q's dtype."""
+    dt = q.dtype
+    if dt not in (torch.bfloat16, torch.float32) or any(
+            t is not None and t.dtype != dt for t in (k, v, g, o)):
+        raise ValueError("attention_bwd: q, k, v, dO and O must be all bf16 or all f32, got "
+                         + ", ".join(str(t.dtype) for t in (q, k, v, g, o) if t is not None))
+    cuda_lib.require_cuda("attention_bwd", q, k, v, g, dtype=dt)
+    f32 = dt == torch.float32
     b, h, sq, skv, dh = _check_shapes("attention_bwd", q, k, v, kv_len)
     if g.shape != q.shape:
         raise ValueError(f"attention_bwd: dO {tuple(g.shape)} != q {tuple(q.shape)}")
     if o is None or lse is None:
         o, lse = attention_kernel(q, k, v, kv_len, causal, return_lse=True)
-    cuda_lib.require_cuda("attention_bwd", o, device=q.device)
+    cuda_lib.require_cuda("attention_bwd", o, dtype=dt, device=q.device)
     cuda_lib.require_cuda("attention_bwd", lse, dtype=torch.float32, device=q.device)
     if o.shape != q.shape or lse.shape != (b, h, sq):
         raise ValueError(f"attention_bwd: O {tuple(o.shape)} and LSE {tuple(lse.shape)} "
                          f"do not match q {tuple(q.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # Scratch: Dsum = dO . O per row, and one f32 dQ partial per 128-key block
-    # (csrc/attention.cu BKB), added in key-block order by the cast pass.
+    # Scratch: Dsum = dO . O per row; the bf16 mode also keeps one f32 dQ
+    # partial per 128-key block (csrc/attention.cu BKB), added in key-block
+    # order by the cast pass.
     dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    ptrs = [t.data_ptr() for t in (q, k, v, o, lse, g, dq, dk, dv, dsum)]
+    if f32:
+        cuda_lib.launch("wm_attention_bwd_f32", q.device, *ptrs, b, h, sq, skv, dh, kv_len,
+                        int(causal))
+        f32_launches_bwd[(sq, skv, bool(causal))] += 1
+        return dq, dk, dv
     dq_part = torch.empty((-(-skv // BWD_KEYS), b, h, sq, dh), dtype=torch.float32,
                           device=q.device)
-    cuda_lib.launch("wm_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), o.data_ptr(), lse.data_ptr(), g.data_ptr(),
-                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
-                    dq_part.data_ptr(), b, h, sq, skv, dh, kv_len, int(causal))
+    cuda_lib.launch("wm_attention_bwd", q.device, *ptrs, dq_part.data_ptr(), b, h, sq, skv,
+                    dh, kv_len, int(causal))
     launches_bwd[(sq, skv, bool(causal))] += 1
     return dq, dk, dv
 

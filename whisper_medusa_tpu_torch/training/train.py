@@ -8,9 +8,11 @@ slice of the stacked leaves (``decode_train(grad_last_only=True)``); the
 tied projection is detached whenever the backbone is frozen.  The gradient
 mask of :func:`trainable_mask` is applied on top.
 
-Training on the card runs at ``param_dtype="bfloat16"``, the dtype of every
-kernel the port has; float32 parameters on a CUDA device raise.  On the CPU
-either dtype trains, through the plain versions of the kernels.
+Training on the card takes all-bf16 or all-f32 parameters (``param_dtype``
+``"float32"`` is ModelConfig's default, as in the JAX package): K1 and K9
+have both modes, and an f32 step's projections are full-f32 cuBLAS
+products, so f32 training refuses ``torch.backends.cuda.matmul.allow_tf32``.
+On the CPU either dtype trains, through the plain versions of the kernels.
 """
 
 from __future__ import annotations
@@ -214,15 +216,26 @@ def init_train_state(params: Params, optimizer: OptimizerSpec) -> TrainState:
 
 
 def require_trainable_dtype(params: Params) -> None:
-    """Training on a CUDA device takes bf16 parameters (K9, the attention
-    backward, is a bf16 kernel; K1 has an f32 mode, K9 not yet); float32
-    there raises rather than running in another dtype."""
-    for t in leaves(params):
-        if t.is_cuda and t.is_floating_point() and t.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"training on {t.device} takes param_dtype='bfloat16', got {t.dtype}: "
-                "K9 has no f32 mode yet (ROADMAP queue 1, item 19a: K9's f32 mode and f32 "
-                "training on the card; K1's f32 mode is written)")
+    """Training on a CUDA device takes one floating dtype, bf16 or f32 (K9,
+    the attention backward, has both modes); parameters that mix dtypes, or
+    another dtype, raise before anything runs, and so do f32 parameters
+    while ``torch.backends.cuda.matmul.allow_tf32`` is True (the f32 step's
+    projections, im2col stem and vocab projection are cuBLAS f32 products,
+    and TF32 keeps about three decimal digits).  CPU training takes any
+    dtype."""
+    floats = {t.dtype for t in leaves(params) if t.is_cuda and t.is_floating_point()}
+    if len(floats) > 1:
+        raise ValueError(f"training on the card takes parameters of one dtype, got mixed "
+                         f"dtypes {sorted(str(d) for d in floats)}: cast the model to "
+                         "bfloat16 or float32")
+    if not floats <= {torch.bfloat16, torch.float32}:
+        raise ValueError(f"training on the card takes bfloat16 or float32 parameters, "
+                         f"got {floats.pop()}")
+    if torch.float32 in floats and torch.backends.cuda.matmul.allow_tf32:
+        raise ValueError(
+            "f32 training on the card takes full-f32 products, but "
+            "torch.backends.cuda.matmul.allow_tf32 is True (TF32 keeps about three "
+            "decimal digits); set it to False")
 
 
 def masked_grads(params: Params, config: ModelConfig, input_features, labels,
