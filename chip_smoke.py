@@ -183,6 +183,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      B=8 decode's tokens equal to each example's B=1 decode; an f32 whisper
      tiny request against the CPU port on the same weights (a differing
      token only where the CPU's top-2 gap is under 1e-4 of the top logit);
+  6c. the int8 copy of 6b's f32 model (``model.quantize()``, W8A32), before
+     that model is freed: K2's W8A32 mode, 2 layers at (1, 11), (8, 11) and
+     (8, 1) with offsets and in block mode, within 1e-4 + 1e-4 |x| of its
+     plain version (the written self rows within one int8 step, B=8
+     bitwise B=1), 32 layers at cosine >= W8A32_COS_FLOOR with its device
+     time by kernel; K4, head_rows and K5 on the int8 embedding and heads
+     at the f32 checks' sizes, K10's W8A32 mode at (16, 20, 11, 64) x 1500
+     (B=16 bitwise B=1, timed beside f32 SDPA on the dequantized K/V); P3
+     on the per-op step at B=8 and B=16; requests (Medusa and vanilla B=1,
+     Medusa B=8, B=16 on the per-op step, Medusa-Block B=1, timestamps B=1)
+     with only the W8A32 rows, K1 f32, K10's f32 mask mode and K6 / K7
+     launching; the B=8 decode held to B=1;
   7. training: the grad guard (a kernel without a backward refuses an
      operand that requires grad); K9, the one-pass attention backward from
      K1's output and log-sum-exp, against both plain versions off the path
@@ -1654,7 +1666,8 @@ def check_step_invariance(model, enc8, name):
     p, dims = model.params["whisper"], model.config.dims
     dec, nh, st = p["decoder"], dims.decoder_attention_heads, model.special
     real = DO.self_attention_decode_kernel
-    offs = torch.tensor([4, 2, 4, 3, 1, 4, 0, 2], dtype=torch.int32, device="cuda")
+    offs = torch.tensor([4, 2, 4, 3, 1, 4, 0, 2, 3, 1, 0, 4, 2, 4, 1, 3][:enc8.shape[0]],
+                        dtype=torch.int32, device="cuda")
 
     def two_steps(enc, offsets):
         b = enc.shape[0]
@@ -1690,7 +1703,7 @@ def check_step_invariance(model, enc8, name):
             # (q, k, v, offsets) are per example; the chunk bits are shared.
             mine = [a[i:i + 1].contiguous() for a in args8[:4]] + args8[4:]
             require(torch.equal(out8[i:i + 1], real(*mine)),
-                    f"P3 {name}: example {i}'s self-attention in the B=8 step differs from "
+                    f"P3 {name}: example {i}'s self-attention in the batched step differs from "
                     f"the kernel on its inputs alone")
             if all(torch.equal(a, b) for a, b in zip(mine, args1)):
                 same_in += 1
@@ -1698,9 +1711,10 @@ def check_step_invariance(model, enc8, name):
                         f"P3 {name}: example {i}'s self-attention differs from its B=1 "
                         f"step's on the same inputs")
     n = len(rec8) * enc8.shape[0]
-    log(f"P3 {name}, per-op step B=8 vs B=1 ({len(rec8)} layers): every self-attention "
-        f"output bitwise the kernel's on its own inputs; {same_in}/{n} (layer, example) "
-        f"pairs got bitwise the B=1 step's inputs and gave bitwise its output; hidden "
+    log(f"P3 {name}, per-op step B={enc8.shape[0]} vs B=1 ({len(rec8)} layers): every "
+        f"self-attention output bitwise the kernel's on its own inputs; {same_in}/{n} "
+        f"(layer, example) pairs got bitwise the B=1 step's inputs and gave bitwise its "
+        f"output; hidden "
         f"bitwise equal for {sum(hid_same)}/{len(hid_same)} examples")
     require(same_in == n and all(hid_same),
             f"P3 {name}: the per-op step at B=8 is not bitwise its B=1 steps")
@@ -3879,20 +3893,28 @@ def _f32_stats_ok(what, rows, embed, pos, masks, kw, got, ref, ts=None):
     return err
 
 
+def _f32_mode(model):
+    """(row-name suffix, counter prefix) of the f32 checks: "f32" on f32
+    weights, "w8a32" on the int8 copy of an f32 model."""
+    return ("w8a32", "w8a32_") if _int8(model) else ("f32", "f32_")
+
+
 def check_f32_verify(g, model):
-    """K4's f32 mode at R = 121 (11 heads x 11 nodes; and identity0 rows, 10
-    heads + the hidden rows) against verify_hidden_plain, and in the
-    timestamp mode (n_verif 11); its statistics bitwise K5's over
-    head_rows' rows (stage A is the same GEMM launch); timed beside the
-    plain version."""
+    """K4's f32 mode (W8A32 on the int8 copy: int8 heads and embedding) at
+    R = 121 (11 heads x 11 nodes; and identity0 rows, 10 heads + the hidden
+    rows) against verify_hidden_plain, and in the timestamp mode (n_verif
+    11); its statistics bitwise K5's over head_rows' rows (stage A is the
+    same GEMM launch); timed beside the plain version."""
+    from whisper_medusa_tpu_torch.ops import qmm as QM
     from whisper_medusa_tpu_torch.ops import verify as VF
 
+    mode, prefix = _f32_mode(model)
     hw, hb = _head_weights(model)
     d, n_nodes = model.config.dims.d_model, 11
     worst, timed = 0.0, None
     for identity0 in (False, True):
         nh = hb.shape[0] - identity0
-        w, b = hw[identity0:], hb[identity0:]
+        w, b = QM.wmap(hw, lambda a: a[identity0:]), hb[identity0:]
         r = (nh + identity0) * n_nodes
         embed, masks, pos, gcol, kw = _verify_inputs(g, model, r)
         pos = (5 + torch.arange(n_nodes, device="cuda")[None, :]
@@ -3905,7 +3927,7 @@ def check_f32_verify(g, model):
             got = VF.verify_hidden(hid, src, w, b, embed, pos, gcol, masks, **kw4)
             ref = VF.verify_hidden_plain(hid, src, w, b, embed, pos, gcol, masks,
                                          identity0=identity0, ts=ts, **kw)
-            what = (f"K4 f32 R={r}" + (" identity0" if identity0 else "")
+            what = (f"K4 {mode} R={r}" + (" identity0" if identity0 else "")
                     + (" timestamp mode" if ts else ""))
             worst = max(worst, _f32_stats_ok(what, rows, embed, pos, masks, kw, got, ref, ts))
             flat = VF.head_rows_kernel(src.reshape(n_nodes, d), w, b).reshape(-1, d)
@@ -3923,14 +3945,14 @@ def check_f32_verify(g, model):
     plain = lambda: VF.verify_hidden_plain(hid, hid, w, b, embed, pos, gcol, masks,
                                            identity0=False, **kw)
     v = model.config.dims.vocab_size
-    bd = bound(nbytes(hid, w, b, embed, pos, gcol, masks) + 4 * r * 4,
+    bd = bound(nbytes(hid, *_tensors(w), b, *_tensors(embed), pos, gcol, masks) + 4 * r * 4,
                2 * r * v * d + 2 * nh * n_nodes * d * d, F32_FLOPS)
     by_kernel = _kernel_ms(kern)
-    log(f"K4 f32 R={r}: device {sum(by_kernel.values()):.4f} ms by kernel "
+    log(f"K4 {mode} R={r}: device {sum(by_kernel.values()):.4f} ms by kernel "
         + ", ".join(f"{k} {t:.4f}" for k, t in by_kernel.items()) + f"; {SMI}")
-    return kernel_record("verify_hidden f32", "whisper_medusa_tpu_torch/csrc/verify.cu",
-                         "whisper_medusa_tpu/ops/verify.py:309", (VF, "f32_launches"), worst,
-                         cuda_ms(kern), cuda_ms(plain), bd, None)
+    return kernel_record(f"verify_hidden {mode}", "whisper_medusa_tpu_torch/csrc/verify.cu",
+                         "whisper_medusa_tpu/ops/verify.py:309", (VF, f"{prefix}launches"),
+                         worst, cuda_ms(kern), cuda_ms(plain), bd, None)
 
 
 def check_f32_head_rows(g, model):
@@ -3939,46 +3961,54 @@ def check_f32_head_rows(g, model):
     and 1, every head x 11, head 0 x 300); head 0 of a 1-head M=88 launch
     bitwise an 11-head M=11 launch's, M=88's first 8 rows bitwise M=8's;
     timed at head 0 x 88 (B=8's pass A) beside the baddbmm / silu / add
-    yardstick."""
+    yardstick (on the dequantized heads for int8 ones); the W8A32 mode on
+    the int8 copy."""
+    from whisper_medusa_tpu_torch.ops import qmm as QM
     from whisper_medusa_tpu_torch.ops import verify as VF
 
+    mode, prefix = _f32_mode(model)
     w, b = _head_weights(model)
+    sl = lambda lo, hi: QM.wmap(w, lambda a: a[lo:hi])
     d = model.config.dims.d_model
     worst, timed = 0.0, None
     for m, lo, hi in ((88, 0, 1), (8, 1, None), (1, 1, None), (176, 0, 1), (11, 0, None),
                       (300, 0, 1)):
         src = _f32(g, m, d)
-        got = VF.head_rows_kernel(src, w[lo:hi], b[lo:hi])
-        worst = max(worst, _f32_ok(f"head_rows f32 M={m} heads={b[lo:hi].shape[0]}", got,
-                                   VF.head_rows_plain(src, w[lo:hi], b[lo:hi])))
+        got = VF.head_rows_kernel(src, sl(lo, hi), b[lo:hi])
+        worst = max(worst, _f32_ok(f"head_rows {mode} M={m} heads={b[lo:hi].shape[0]}", got,
+                                   VF.head_rows_plain(src, sl(lo, hi), b[lo:hi])))
         if timed is None:
             timed = (src, got)
     src, got = timed
-    one = VF.head_rows_kernel(src, w[:1], b[:1])[0]
+    one = VF.head_rows_kernel(src, sl(0, 1), b[:1])[0]
     checks = {"head 0, 1-head M=88 vs 11-head M=11":
               torch.equal(one[:11], VF.head_rows_kernel(src[:11].contiguous(), w, b)[0]),
               "every head, M=88's first 8 rows vs M=8":
               torch.equal(VF.head_rows_kernel(src, w, b)[:, :8],
                           VF.head_rows_kernel(src[:8].contiguous(), w, b))}
     for what, ok in checks.items():
-        log(f"head_rows f32 bitwise, {what}: {ok}")
-        require(ok, f"head_rows f32: {what} differ")
-    kern = lambda: VF.head_rows_kernel(src, w[:1], b[:1])
-    bd = bound(nbytes(src, w[:1], b[:1], got), 2 * 88 * d * d, F32_FLOPS)
-    log(f"head_rows f32 head 0 x 88: device {_cold_ms(kern):.4f} ms, L2 flushed; baddbmm / "
-        f"silu / add {_cold_ms(lambda: _head_yardstick(src, w[:1], b[:1])):.4f} ms; bound "
+        log(f"head_rows {mode} bitwise, {what}: {ok}")
+        require(ok, f"head_rows {mode}: {what} differ")
+    kern = lambda: VF.head_rows_kernel(src, sl(0, 1), b[:1])
+    bd = bound(nbytes(src, *_tensors(sl(0, 1)), b[:1], got), 2 * 88 * d * d, F32_FLOPS)
+    w0 = sl(0, 1)
+    w0 = w0["q"].float() * w0["s"][:, None, :] if QM.is_quantized(w0) else w0
+    log(f"head_rows {mode} head 0 x 88: device {_cold_ms(kern):.4f} ms, L2 flushed; baddbmm / "
+        f"silu / add {_cold_ms(lambda: _head_yardstick(src, w0, b[:1])):.4f} ms; bound "
         f"{bd[0]:.4f} ms ({bd[1]}); {SMI}")
-    return kernel_record("head_rows f32", "whisper_medusa_tpu_torch/csrc/verify.cu",
-                         "whisper_medusa_tpu/ops/verify.py:309", (VF, "f32_head_launches"),
+    return kernel_record(f"head_rows {mode}", "whisper_medusa_tpu_torch/csrc/verify.cu",
+                         "whisper_medusa_tpu/ops/verify.py:309", (VF, f"{prefix}head_launches"),
                          worst, cuda_ms(kern),
-                         cuda_ms(lambda: VF.head_rows_plain(src, w[:1], b[:1])), bd, None)
+                         cuda_ms(lambda: VF.head_rows_plain(src, sl(0, 1), b[:1])), bd, None)
 
 
 def check_f32_verify_rows(g, model, sizes=(1, 8, 88, 176, 1024)):
-    """K5's f32 mode at R in ``sizes`` against verify_rows_plain, and in the
-    timestamp mode at R = 88 (n_verif 88); timed at R = 88 (B=8's pass A)."""
+    """K5's f32 mode (W8A32 on the int8 copy: an int8 embedding) at R in
+    ``sizes`` against verify_rows_plain, and in the timestamp mode at R = 88
+    (n_verif 88); timed at R = 88 (B=8's pass A)."""
     from whisper_medusa_tpu_torch.ops import verify as VF
 
+    mode, prefix = _f32_mode(model)
     d, v = model.config.dims.d_model, model.config.dims.vocab_size
     worst, timed = 0.0, None
     for r in sizes:
@@ -3988,54 +4018,70 @@ def check_f32_verify_rows(g, model, sizes=(1, 8, 88, 176, 1024)):
             extra = _ts_kw(ts) if ts else {}
             got = VF.verify_rows(hs, embed, pos, gcol, masks, **kw, **extra)
             ref = VF.verify_rows_plain(hs, embed, pos, gcol, masks, ts=ts, **kw)
-            what = f"K5 f32 R={r}" + (" timestamp mode" if ts else "")
+            what = f"K5 {mode} R={r}" + (" timestamp mode" if ts else "")
             worst = max(worst, _f32_stats_ok(what, hs, embed, pos, masks, kw, got, ref, ts))
         if r == 88:
             timed = (hs, embed, pos, gcol, masks, kw)
     hs, embed, pos, gcol, masks, kw = timed
     kern = lambda: VF.verify_rows_kernel(hs, embed, pos, gcol, masks, **kw)
     r = hs.shape[0]
-    bd = bound(nbytes(hs, embed, pos, gcol, masks) + 4 * r * 4, 2 * r * v * d, F32_FLOPS)
-    log(f"K5 f32 R={r}: device {device_ms(kern):.4f} ms; {SMI}")
-    return kernel_record("verify_rows f32", "whisper_medusa_tpu_torch/csrc/verify.cu",
-                         "whisper_medusa_tpu/ops/verify.py:183", (VF, "f32_rows_launches"),
+    bd = bound(nbytes(hs, *_tensors(embed), pos, gcol, masks) + 4 * r * 4, 2 * r * v * d,
+               F32_FLOPS)
+    log(f"K5 {mode} R={r}: device {device_ms(kern):.4f} ms; {SMI}")
+    return kernel_record(f"verify_rows {mode}", "whisper_medusa_tpu_torch/csrc/verify.cu",
+                         "whisper_medusa_tpu/ops/verify.py:183", (VF, f"{prefix}rows_launches"),
                          worst, cuda_ms(kern),
                          cuda_ms(lambda: VF.verify_rows_plain(hs, embed, pos, gcol, masks, **kw)),
                          bd, None)
 
 
-def check_f32_cross_decode(g):
-    """K10's f32 mode against its plain version at CROSS_OFF + CROSS_PATH;
-    every example of the (16, 20, 11, 64) call bitwise its B=1 call; timed
-    there beside SDPA on K and V re-laid head-major."""
+def check_f32_cross_decode(g, int8=False):
+    """K10's f32 mode (``int8``: its W8A32 mode, f32 queries on int8 K/V
+    with f32 (B, H, S) scales) against its plain version at CROSS_OFF +
+    CROSS_PATH; every example of the (16, 20, 11, 64) call bitwise its B=1
+    call; timed there beside f32 SDPA on K and V (dequantized) re-laid
+    head-major."""
     from whisper_medusa_tpu_torch.ops import decode_ops as DO
 
+    mode = "w8a32" if int8 else "f32"
     worst, timed = 0.0, None
     for b, t, s, kv in CROSS_OFF + CROSS_PATH:
-        q, k, v = _f32(g, b, 20, t, 64, scale=0.125), _f32(g, b, 20, 64, s), _f32(g, b, s, 1280)
-        got = DO.cross_attention_decode_kernel(q, k, v, kv)
-        what = f"K10 f32 ({b},20,{t},64) x {s} kv_len {kv}"
-        worst = max(worst, _f32_ok(what, got, DO.cross_attention_decode_plain(q, k, v, kv)))
+        q = _f32(g, b, 20, t, 64, scale=0.125)
+        if int8:
+            i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                              dtype=torch.int8)
+            scl = lambda: 0.004 + 0.012 * torch.rand((b, 20, s), generator=g, device="cuda")
+            k, v, sc = i8(b, 20, 64, s), i8(b, s, 1280), (scl(), scl())
+        else:
+            k, v, sc = _f32(g, b, 20, 64, s), _f32(g, b, s, 1280), ()
+        got = DO.cross_attention_decode_kernel(q, k, v, kv, *sc)
+        what = f"K10 {mode} ({b},20,{t},64) x {s} kv_len {kv}"
+        worst = max(worst, _f32_ok(what, got, DO.cross_attention_decode_plain(q, k, v, kv, *sc)))
         if (b, t) == (16, 11):
             one = lambda a, i: a[i:i + 1].contiguous()
             same = [torch.equal(got[i:i + 1], DO.cross_attention_decode_kernel(
-                one(q, i), one(k, i), one(v, i), kv)) for i in range(b)]
+                one(q, i), one(k, i), one(v, i), kv, *(one(a, i) for a in sc)))
+                for i in range(b)]
             log(f"{what}: each example bitwise its B=1 output: {sum(same)}/{b}")
             require(all(same), f"{what}: a B=1 call differs from its row of the B={b} call")
-            timed = (q, k, v)
-    q, k, v = timed
+            timed = (q, k, v, sc)
+    q, k, v, sc = timed
     b, h, t, _ = q.shape
-    kern = lambda: DO.cross_attention_decode_kernel(q, k, v, 1500)
-    kh = k.transpose(2, 3).contiguous()
-    vh = v.reshape(b, -1, h, 64).transpose(1, 2).contiguous()
+    kern = lambda: DO.cross_attention_decode_kernel(q, k, v, 1500, *sc)
+    kd = k.float() * sc[0][:, :, None, :] if int8 else k
+    vd = v.float().reshape(b, -1, h, 64).transpose(1, 2)
+    vd = vd * sc[1][..., None] if int8 else vd
+    kh, vh = kd.transpose(2, 3).contiguous(), vd.contiguous()
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, kh, vh, scale=1.0)
-    log(f"K10 f32 (16,20,11,64) x 1500: device {device_ms(kern):.4f} ms; SDPA f32 device "
-        f"{device_ms(sdpa):.4f} ms; {SMI}")
-    return kernel_record("cross_decode f32", DECODE_OPS_SOURCE,
-                         "tools/decode_kernels_experiment.py:48", (DO, "f32_cross_launches"),
+    log(f"K10 {mode} (16,20,11,64) x 1500: device {device_ms(kern):.4f} ms; SDPA f32"
+        + (" on the dequantized K/V" if int8 else "") + f" device {device_ms(sdpa):.4f} ms; "
+        f"{SMI}")
+    return kernel_record(f"cross_decode {mode}", DECODE_OPS_SOURCE,
+                         "tools/decode_kernels_experiment.py:48",
+                         (DO, "w8a32_cross_launches" if int8 else "f32_cross_launches"),
                          worst, cuda_ms(kern),
-                         cuda_ms(lambda: DO.cross_attention_decode_plain(q, k, v, 1500)),
-                         bound(nbytes(q, k, v, q), 4 * b * h * t * 1500 * 64, F32_FLOPS),
+                         cuda_ms(lambda: DO.cross_attention_decode_plain(q, k, v, 1500, *sc)),
+                         bound(nbytes(q, k, v, *sc, q), 4 * b * h * t * 1500 * 64, F32_FLOPS),
                          cuda_ms(sdpa))
 
 
@@ -4233,6 +4279,317 @@ def check_f32_tiny_against_cpu(feat):
             f"f32 tiny: tokens differ from the CPU port where the top-2 gap is clear: {diffs}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6c: the int8 copy of the f32 model (W8A32), on phase 6b's model
+# ---------------------------------------------------------------------------
+
+# Every W8A32 mode is held to its plain version elementwise within F32_TOL +
+# F32_TOL |x| (f32 sums in another order; each int8 value converted exactly),
+# K4 / K5's argmax on the rows whose plain top-2 gap exceeds F32_TOL; the
+# self rows K2 commits within one int8 step of the plain version's and
+# their bf16 scales within one bf16 ulp (2**-7 relative: a value on a
+# rounding boundary may round to the neighbouring step).
+W8A32_ROWS = ("megastep w8a32", "megastep_block w8a32", "verify_hidden w8a32",
+              "head_rows w8a32", "verify_rows w8a32", "cross_decode w8a32")
+W8A32_STEPS = ((11, [7]), (11, [7, 0, 120, 33, 448, 5, 260, 90]),
+               (1, [0, 17, 100, 5, 300, 440, 2, 63]))
+# K2 W8A32's 32-layer cosine against its plain step (pre_norm, hidden and
+# block_hidden), every step of check_w8a32_megastep_full.
+W8A32_COS_FLOOR = 0.999999
+
+
+def _w8a32_tree(tree):
+    """A random bf16 layer tree (_random_layers) as an f32 tree, its
+    streamed weights quantized: the int8 copy of an f32 model's layers."""
+    from whisper_medusa_tpu_torch.ops import qmm as QM
+
+    f32 = lambda t: {k: f32(v) if isinstance(v, dict) else v.float() for k, v in t.items()}
+    return QM.quantize_layers(f32(tree))
+
+
+def _w8a32_caches(g, n, b, s_len, d, h, s_enc):
+    """Random int8 self slabs with bf16 scales and int8 cross K/V with f32
+    scales, n slots."""
+    i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                      dtype=torch.int8)
+    scl = lambda *shape: 0.004 + 0.012 * torch.rand(shape, generator=g, device="cuda")
+    return dict(self_k=i8(n, b, s_len, d), self_v=i8(n, b, s_len, d),
+                self_s=scl(n, b, s_len, 2 * h).to(torch.bfloat16),
+                cross_k=i8(n, b, h, 64, s_enc), cross_v=i8(n, b, s_enc, d),
+                cross_k_s=scl(n, b, h, s_enc), cross_v_s=scl(n, b, h, s_enc))
+
+
+def _w8a32_rows_ok(what, c, ref, written, h):
+    """The self rows a K2 W8A32 call wrote against the plain version's:
+    int8 values within one step, bf16 scales within one ulp; every other
+    row and scale untouched.  Returns (ok, the largest int8 difference)."""
+    steps = max(int((c[k][:, written].int() - ref[k][:, written].int()).abs().max())
+                for k in ("self_k", "self_v"))
+    s_a, s_b = c["self_s"][:, written].float(), ref["self_s"][:, written].float()
+    scales_ok = bool(((s_a - s_b).abs() <= 2.0 ** -7 * s_b.abs()).all())
+    untouched = all(torch.equal(c[k][:, ~written], ref[k][:, ~written])
+                    for k in ("self_k", "self_v", "self_s"))
+    log(f"{what}: written rows within {steps} int8 step(s) of the plain version's, "
+        f"scales within a bf16 ulp {scales_ok}, other rows equal {untouched}")
+    return steps <= 1 and scales_ok and untouched, steps
+
+
+def check_w8a32_megastep_2layer(g, t, offs, block=False):
+    """K2's W8A32 mode, two layers (and the block on slot 2 when
+    ``block``), at per-example offsets ``offs``, against the plain version
+    (megastep_plain's W8A32 branch; the plain block layer on the kernel's
+    own hidden): pre_norm, hidden and block_hidden within F32_TOL +
+    F32_TOL |x|, the written rows as _w8a32_rows_ok holds them; at B > 1
+    every example bitwise a B=1 call on its own cache rows."""
+    from whisper_medusa_tpu_torch.config import WhisperDims
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import megastep as MS
+
+    dims = WhisperDims(decoder_layers=2)
+    b, d, h, s_enc, s_len = len(offs), dims.d_model, 20, 1500, 460
+    tree, ln_post, _ = _random_layers(g, dims, 2)
+    layers, ln_post = _w8a32_tree(tree), {k: v.float() for k, v in ln_post.items()}
+    blk = (_w8a32_tree(whisper.layer_params(_random_layers(g, dims, 1)[0], 0))
+           if block else None)
+    n = 2 + block
+    c = _w8a32_caches(g, n, b, s_len, d, h, s_enc)
+    x = torch.randn((b, t, d), generator=g, device="cuda")
+    offsets = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    before = {k: c[k].clone() for k in ("self_k", "self_v", "self_s")}
+    ref = {k: v.clone() for k, v in before.items()}
+    kw = lambda cc, sl: dict(cross_k_s=c["cross_k_s"][sl], cross_v_s=c["cross_v_s"][sl],
+                             self_s=cc["self_s"][sl])
+    allsl = slice(None)
+    got = MS.megastep_kernel(layers, ln_post, x, c["self_k"], c["self_v"], c["cross_k"],
+                             c["cross_v"], offsets, None, s_enc, h, block=blk, **kw(c, allsl))
+    two = slice(0, 2)
+    pre, hid, _ = MS.megastep_plain(layers, ln_post, x, ref["self_k"][two], ref["self_v"][two],
+                                    c["cross_k"][two], c["cross_v"][two], offsets, None, s_enc,
+                                    h, **kw(ref, two))
+    refs = [pre, hid]
+    if block:
+        refs.append(MS.w8a32_layer_step(
+            blk, got[1], ref["self_k"][2], ref["self_v"][2], c["cross_k"][2], c["cross_v"][2],
+            offsets, torch.tril(torch.ones((t, t), dtype=torch.bool, device="cuda")), h,
+            s_enc, cross_k_s=c["cross_k_s"][2], cross_v_s=c["cross_v_s"][2],
+            self_s=ref["self_s"][2]))
+    require(all(a is not None and a.dtype == torch.float32 for a in got[:2])
+            and (got[2] is None) != block, "K2 W8A32 outputs")
+    err = max(max_err(a, r) for a, r in zip(got, refs))
+    ok = all(close(a, r, F32_TOL) for a, r in zip(got, refs))
+    written = torch.zeros((b, s_len), dtype=torch.bool, device="cuda")
+    for e, off in enumerate(offs):
+        written[e, off:off + t] = True
+    what = f"K2 W8A32 {'block mode, 2 layers + block' if block else '2-layer'} B={b} T={t}"
+    rows_ok, _ = _w8a32_rows_ok(what, c, ref, written, h)
+    same = []
+    if b > 1:
+        one = lambda a, e: a[:, e:e + 1].contiguous()
+        for e in range(b):
+            alone = MS.megastep_kernel(
+                layers, ln_post, x[e:e + 1], one(before["self_k"], e), one(before["self_v"], e),
+                one(c["cross_k"], e), one(c["cross_v"], e), offsets[e:e + 1], None, s_enc, h,
+                cross_k_s=one(c["cross_k_s"], e), cross_v_s=one(c["cross_v_s"], e),
+                self_s=one(before["self_s"], e), block=blk)
+            same.append(all(torch.equal(a[e:e + 1], a1) for a, a1 in zip(got, alone)
+                            if a is not None))
+    log(f"{what} offsets {offs}: pre_norm/hidden{'/block_hidden' if block else ''} err "
+        f"{err:.3e}" + (f"; each example bitwise its B=1 call: {sum(same)}/{b}" if same else ""))
+    require(ok and rows_ok and all(same), f"{what}: err {err}, rows {rows_ok}, B=1 {same}")
+    return err
+
+
+def check_w8a32_megastep_full(model, enc1, enc8, block=None):
+    """K2's W8A32 mode over the int8 copy's 32 layers (and the block on slot
+    32, given ``block``) against its plain step on copies of one cache: at
+    B=1 prefill T=4 then the T=11 chain, at B=8 prefill T=4, then T=11 and
+    T=1 at per-example offsets; pre_norm, hidden (and block_hidden) cosine
+    >= W8A32_COS_FLOOR, the written rows as _w8a32_rows_ok holds them, every
+    example of a B=8 call bitwise its B=1 call.  Timed at (1, 11) beside the
+    plain step and its bound; returns (kernels row, worst cosine)."""
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import megastep as MS
+
+    name = "megastep" + ("_block" if block is not None else "") + " w8a32"
+    p, dims = model.params["whisper"], model.config.dims
+    dec, nh, st = p["decoder"], dims.decoder_attention_heads, model.special
+    worst, timed = 1.0, None
+    for enc, steps in ((enc1, ((4, [0]), (11, [4]))),
+                       (enc8, ((4, [0] * 8), (11, [4, 2, 4, 3, 1, 4, 0, 2]),
+                               (1, [15, 9, 13, 14, 5, 11, 2, 7])))):
+        b = enc.shape[0]
+        cache = whisper.init_cache(p, dims, enc, dims.max_target_positions + 12,
+                                   extra_layers=int(block is not None))
+        if block is not None:
+            whisper.set_block_cross_kv(cache, block, enc, nh)
+        for t, offs in steps:
+            toks = (torch.tensor([[st.sot, st.first_language, st.transcribe,
+                                   st.no_timestamps]] * b) if t == 4 else
+                    torch.arange(100, 100 + b * t).reshape(b, t)).to("cuda", torch.int32)
+            offsets = torch.tensor(offs, dtype=torch.int32, device="cuda")
+            x = _embedded(dec, toks, offsets)
+            ref = {"self_k": cache.self_k.clone(), "self_v": cache.self_v.clone(),
+                   "self_s": cache.self_s.clone()}
+            args = (x, cache.self_k, cache.self_v, cache.cross_k, cache.cross_v, offsets,
+                    None, dims.max_source_positions, nh)
+            sc = dict(cross_k_s=cache.cross_k_s, cross_v_s=cache.cross_v_s, block=block)
+            alone = k2_alone(dec, cache, x, offsets, dims, nh, block) if b > 1 else None
+            got = MS.megastep_kernel(dec["layers"], dec["ln_post"], *args, self_s=cache.self_s,
+                                     **sc)
+            if alone is not None:
+                same = [all(torch.equal(a[0], bat[e]) for a, bat in zip(alone[e], got)
+                            if bat is not None) for e in range(b)]
+                log(f"K2 {name} B={b} T={t}: each example bitwise its B=1 call: "
+                    f"{sum(same)}/{b}")
+                require(all(same), f"K2 {name} B={b} T={t}: an example's bits depend on B")
+            plain = MS.megastep_plain(dec["layers"], dec["ln_post"], x, ref["self_k"],
+                                      ref["self_v"], *args[3:], self_s=ref["self_s"], **sc)
+            cos = [cosine(a, r) for a, r in zip(got, plain) if r is not None]
+            written = torch.zeros(cache.self_k.shape[1:3], dtype=torch.bool, device="cuda")
+            for e, off in enumerate(offs):
+                written[e, off:off + t] = True
+            what = f"K2 {name} {cache.self_k.shape[0]}-slot B={b} T={t} offsets {offs}"
+            c = {"self_k": cache.self_k, "self_v": cache.self_v, "self_s": cache.self_s}
+            rows_ok, _ = _w8a32_rows_ok(what, c, ref, written, nh)
+            log(f"{what}: cosine against the plain step (pre_norm, hidden"
+                + (", block_hidden" if block is not None else "") + "): "
+                + ", ".join(f"{x:.9f}" for x in cos))
+            require(min(cos) >= W8A32_COS_FLOOR and rows_ok,
+                    f"{what}: cosine {cos}, rows {rows_ok}")
+            worst = min(worst, *cos)
+            if (b, t) == (1, 11):
+                run = lambda: MS.megastep_kernel(dec["layers"], dec["ln_post"], *args,
+                                                 self_s=cache.self_s, **sc)
+                cost = _megastep_cost(dec["layers"], dec["ln_post"], cache, offs, t,
+                                      dims.max_source_positions, block)
+                bd = bound(*cost, F32_FLOPS)
+                timed = (cuda_ms(run), cuda_ms(lambda: MS.megastep_plain(
+                    dec["layers"], dec["ln_post"], *args, self_s=cache.self_s, **sc)), bd)
+                by_kernel = _kernel_ms(run)
+                log(f"K2 {name} B=1 T=11: kernel {timed[0]:.4f} ms, device "
+                    f"{sum(by_kernel.values()):.4f} ms ("
+                    + ", ".join(f"{k} {ms:.4f}" for k, ms in by_kernel.items())
+                    + f"), plain {timed[1]:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}; "
+                    f"{cost[0] / 1e9:.3f} GB, {cost[1] / 1e9:.1f} GFLOP); {SMI}")
+            for k in ("self_k", "self_v", "self_s"):      # continue from the plain cache
+                getattr(cache, k).copy_(ref[k])
+        del cache
+    counter = "w8a32_block_launches" if block is not None else "w8a32_launches"
+    return kernel_record(name, "whisper_medusa_tpu_torch/csrc/megastep.cu",
+                         "whisper_medusa_tpu/ops/megastep.py:342", (MS, counter), None,
+                         *timed, None), worst
+
+
+W8A32_NEW_TOKENS = 48
+# The rows each W8A32 request must launch: K1's f32 mode for the f32 encoder,
+# K2's W8A32 mode where K2 takes the step (B <= 8), else the per-op step
+# (K6 projections and FFN as JAX's qmm, K10's f32 mask mode on the bf16
+# slab, K10's W8A32 mode), and the W8A32 vocab side.
+NEEDS_W8A32 = {
+    "medusa B=1": ("attention f32", "megastep w8a32", "verify_hidden w8a32"),
+    "vanilla B=1": ("attention f32", "megastep w8a32", "verify_rows w8a32"),
+    f"medusa B={BATCH}": ("attention f32", "megastep w8a32", "head_rows w8a32",
+                          "verify_rows w8a32"),
+    f"medusa B={BATCH16}": ("attention f32", "self_decode f32", "cross_decode w8a32",
+                            "head_rows w8a32", "verify_rows w8a32"),
+    "medusa_block B=1": ("attention f32", "megastep_block w8a32", "verify_hidden w8a32"),
+}
+
+
+def phase_w8a32_requests(model, bmodel, kernels, feat, feats8, feats16):
+    """W8A32 large-v2 requests through generate, each driven with every
+    counter set to 0: Medusa and vanilla at B=1, Medusa at B=8 and B=16 (the
+    per-op step), Medusa-Block at B=1 and a return_timestamps request (K4's
+    W8A32 timestamp mode); the rows of NEEDS_W8A32 must launch, and none but
+    those, K6 / K7 (the int8 projections JAX's qmm and qmm_nt round to bf16)
+    and the f32 mask mode of K10; each request's device busy time and idle
+    share under the profiler."""
+    from whisper_medusa_tpu_torch.ops import qmm as QM
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    allowed = set(W8A32_ROWS) | {"attention f32", "self_decode f32"} | {
+        k["name"] for k in kernels if k["counter"][0] is QM}
+    others = tuple(k["name"] for k in kernels if k["name"] not in allowed)
+    vocab = model.config.dims.vocab_size
+    kw = dict(language="en", max_new_tokens=W8A32_NEW_TOKENS)
+    runs = {"medusa B=1": (model, feat, {}),
+            "vanilla B=1": (model, feat, dict(disable_medusa=True)),
+            f"medusa B={BATCH}": (model, feats8, {}),
+            f"medusa B={BATCH16}": (model, feats16, {}),
+            "medusa_block B=1": (bmodel, feat, {})}
+    outs = {}
+    for path, (m, f, extra) in runs.items():
+        m.generate(f, language="en", max_new_tokens=8, **extra)       # warm-up
+        out, wall = drive(f"w8a32 {path}", kernels, lambda: m.generate(f, **kw, **extra),
+                          NEEDS_W8A32[path], absent=others)
+        report(f"w8a32 {path} request", out, wall,
+               check_output(out, f.shape[0], vocab, W8A32_NEW_TOKENS))
+        dev, tops = device_split(lambda: m.generate(f, **kw, **extra))
+        log(f"w8a32 {path}: device busy {dev:.2f} ms of {wall * 1e3:.1f} ms wall, idle share "
+            f"{1 - dev / (wall * 1e3):.3f}, {out.steps} steps; {tops}; {SMI}")
+        outs[path] = out
+    ts0 = VF.w8a32_ts_launches
+    out, wall = drive("w8a32 timestamps medusa B=1", kernels,
+                      lambda: model.generate(feat, return_timestamps=True, **kw),
+                      ("attention f32", "megastep w8a32", "verify_hidden w8a32"),
+                      absent=others)
+    require(VF.w8a32_ts_launches > ts0,
+            "w8a32 timestamps: K4's W8A32 timestamp mode never launched")
+    check_ts_output(model, out)
+    report("w8a32 timestamps medusa B=1", out, wall, int((out.lengths - 3).sum()))
+    alone = model.generate(feats8[:1], **kw)
+    same = np.array_equal(alone.sequences[0], outs[f"medusa B={BATCH}"].sequences[0])
+    log(f"w8a32 medusa: example 0 of the B={BATCH} request equals its B=1 request: {same} "
+        f"(check_batch_invariance holds every example's decode)")
+    return outs
+
+
+def phase_w8a32(g, kernels, model, feats, feats8):
+    """Phase 6c: the int8 copy of phase 6b's f32 model (``model.quantize()``,
+    int8 decoder weights, embedding and heads beside f32 norms, biases,
+    encoder and positions): each W8A32 mode against its plain version (K2
+    2-layer at (1, 11), (8, 11), (8, 1) with offsets, its block mode, 32
+    layers with the worst cosine; K4 / K5 / head_rows at the f32 checks'
+    sizes; K10 at (16, 20, 11, 64) x 1500), P3 on the per-op step at B=8
+    and B=16, the requests, and the B=8 decode held to B=1.  Returns the
+    W8A32 kernel rows (added to ``kernels`` before the requests run)."""
+    from whisper_medusa_tpu_torch.models import bridge
+
+    t0 = time.perf_counter()
+    qmodel = model.quantize()
+    bq = bridge.random_block_model(model, seed=SEED + 2).quantize()
+    torch.cuda.synchronize()
+    log(f"W8A32 models (model.quantize() of the f32 large-v2 and of its Medusa-Block "
+        f"variant): {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    err2 = max(check_w8a32_megastep_2layer(g, t, offs) for t, offs in W8A32_STEPS)
+    err2b = max(check_w8a32_megastep_2layer(g, t, offs, block=True) for t, offs in W8A32_STEPS)
+    enc1, enc8 = qmodel.encode(feats[0]), qmodel.encode(feats8)
+    k2, cos = check_w8a32_megastep_full(qmodel, enc1, enc8)
+    k2b, cos_b = check_w8a32_megastep_full(bq, enc1, enc8, bq.params["medusa"]["block"])
+    k2["max_abs_err"], k2b["max_abs_err"] = err2, err2b
+    log(f"K2 W8A32 32-layer worst cosine against its plain step: {cos:.9f}, block mode "
+        f"{cos_b:.9f} (held >= {W8A32_COS_FLOOR})")
+    rows = [k2, k2b, check_f32_verify(g, qmodel), check_f32_head_rows(g, qmodel),
+            check_f32_verify_rows(g, qmodel), check_f32_cross_decode(g, int8=True)]
+    require(tuple(k["name"] for k in rows) == W8A32_ROWS, "W8A32 rows")
+    kernels += rows
+    enc16 = torch.cat([enc8, enc8.flip(0)])
+    check_step_invariance(qmodel, enc8, "large-v2 W8A32")
+    check_step_invariance(qmodel, enc16, "large-v2 W8A32")
+    t1 = time.perf_counter()
+    feats16 = torch.cat([feats8, feats8.flip(0)])
+    phase_w8a32_requests(qmodel, bq, kernels, feats[0], feats8, feats16)
+    check_batch_invariance(qmodel, enc8, ("base_head",))
+    log(f"w8a32 requests and B=8 decode invariance: {time.perf_counter() - t1:.1f} s")
+    for k in rows:
+        log(f"launches {k['name']} (W8A32 paths): {k['launches']}")
+    del qmodel, bq, enc1, enc8, enc16
+    torch.cuda.empty_cache()
+    log(f"W8A32 phase: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def phase_f32(g, kernels, feats, feats8):
     """Phase 6b: the f32 modes against their plain versions, P3 (the per-op
     step at B=8 bitwise its B=1 steps, every layer) on the f32 model, the
@@ -4256,7 +4613,9 @@ def phase_f32(g, kernels, feats, feats8):
     phase_f32_requests(model, kernels, feats[0], feats8)
     check_batch_invariance(model, enc8, ("base_head",))
     log(f"f32 requests and B=8 decode invariance: {time.perf_counter() - t1:.1f} s")
-    del model, embed, enc8
+    del embed, enc8
+    phase_w8a32(g, kernels, model, feats, feats8)
+    del model
     torch.cuda.empty_cache()
     check_f32_tiny_against_cpu(feats[0])
     for k in rows:

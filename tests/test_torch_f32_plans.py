@@ -38,7 +38,7 @@ def test_constants_are_the_sources():
     assert _const("FF_KC", "ffma.cuh") == DO.F32_KC
     assert _const("FF_WAVE", "ffma.cuh") == DO.F32_WAVE
     assert _const("FF_MAX_MT", "ffma.cuh") == LG.F32_MAX_MT
-    assert "constexpr int DF_ROW = CD_DH + 2;" in open(os.path.join(CSRC, "decode_ops.cu")).read()
+    assert "constexpr int DF_ROW = CD_DH + 2;" in open(os.path.join(CSRC, "ffma_attn.cuh")).read()
     assert DO.F32_PART_ROW == DO.HEAD_DIM + 2
     common = open(os.path.join(CSRC, "common.cuh")).read()
     for name in ("EPI_BIAS", "EPI_SILU_RESID"):

@@ -223,7 +223,7 @@ _SERVABLE = {
     "f32 on cuda": (_F32, "cuda", None),
     "f32 int8 copy on cuda": (
         {"whisper": {**_INT8["whisper"], "b": torch.zeros(2, dtype=torch.float32)}}, "cuda",
-        "item 19c"),
+        None),
     "bf16 on cuda": ({"whisper": {"w": torch.zeros(2, dtype=torch.bfloat16)}}, "cuda", None),
     "bf16 int8 copy on cuda": (
         {"whisper": {**_INT8["whisper"], "b": torch.zeros(2, dtype=torch.bfloat16)}}, "cuda",
@@ -241,9 +241,8 @@ _SERVABLE = {
 @pytest.mark.parametrize("case", list(_SERVABLE))
 def test_serving_on_cuda_takes_bf16(case):
     """generate's dtype check: all-f32 weights (the JAX package's default)
-    and all-bf16 weights are served on the card, and so is the int8 copy of
-    a bf16 model (its f32 scales belong to it); the int8 copy of an f32
-    model raises NotImplementedError naming ROADMAP item 19c, and weights
+    and all-bf16 weights are served on the card, and so are the int8 copies
+    of a bf16 and of an f32 model (their f32 scales belong to them); weights
     that mix bf16 and f32 raise, before anything runs; CPU serving takes
     any dtype."""
     from whisper_medusa_tpu_torch.models.api import require_servable_dtype
@@ -266,3 +265,15 @@ def test_f32_serving_refuses_tf32(monkeypatch):
         require_servable_dtype(_F32, device="cuda")
     require_servable_dtype(_SERVABLE["bf16 on cuda"][0], device="cuda")
     require_servable_dtype(_F32, device="cpu")
+
+
+def test_f32_int8_copy_serving_refuses_tf32(monkeypatch):
+    """The int8 copy of an f32 model keeps the f32 encoder on cuBLAS: with
+    TF32 allowed it raises ValueError before anything runs, as f32 weights
+    do; the int8 copy of a bf16 model does not care."""
+    from whisper_medusa_tpu_torch.models.api import require_servable_dtype
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(ValueError, match="allow_tf32"):
+        require_servable_dtype(_SERVABLE["f32 int8 copy on cuda"][0], device="cuda")
+    require_servable_dtype(_SERVABLE["bf16 int8 copy on cuda"][0], device="cuda")

@@ -88,6 +88,7 @@
 #include "cluster_attn.cuh"
 #include "common.cuh"
 #include "ffma.cuh"
+#include "ffma_attn.cuh"
 #include "wgemm.cuh"
 
 namespace wm {
@@ -221,7 +222,8 @@ extern "C" int wm_ffn_decode(const void* x, const void* w1, const void* b1, cons
 // function as tools/decode_kernels_experiment.py::_cross_kernel on f32 q, K
 // and V (P not rounded: the TPU kernel rounds it to the value dtype, f32
 // here), and in the mask mode the same visibility as wm_self_decode (keys at
-// or past off + TC neither read nor counted).  The keys are cut into the
+// or past off + TC neither read nor counted).  The body lives in
+// ffma_attn.cuh (shared with K2's W8A32 mode).  The keys are cut into the
 // slices of cd_split (from S alone, as the bf16 mode: large-v2's 1500 cross
 // keys 8 x 192, a 460-row self slab 3 x 160); one CTA (8 warps) per (slice,
 // head, example):
@@ -248,165 +250,16 @@ extern "C" int wm_ffn_decode(const void* x, const void* w1, const void* b1, cons
 // wm_gemm_f32 is that GEMM alone: out (nh, M, N) = epi(x @ w + b), the
 // Medusa heads' rows of the f32 two-pass verification (EPI_SILU_RESID) and
 // the per-op step's f32 projections (EPI_BIAS).
-namespace wm {
-namespace {
-
-constexpr int DF_THREADS = 256;
-constexpr int DF_ROW = CD_DH + 2;   // a slice's partial row: O (64), max, sum
-
-struct DfArgs {
-  const float* q;      // cross (B, H, T, 64); self (B, T, H, 64); pre-scaled
-  const float* k;      // cross (B, H, 64, S); self (B, S, H * 64)
-  const float* v;      // (B, S, H * 64)
-  const int* off;      // self: (B,) int32 offsets
-  const int* bits;     // self: (T, W) int32 chunk bits
-  float* part;         // (B, H, C, 16, DF_ROW) f32 scratch
-  float* out;          // q's layout
-  long long q_b, q_h, q_t;
-  int heads, t_len, t_chunk, s_len, kv_len, c, sc;
-};
-
-template <bool SELF>
-__global__ void __launch_bounds__(DF_THREADS) decode_attn_f32_kernel(const DfArgs a) {
-  __shared__ __align__(16) float qs[CD_MAXT * CD_DH];
-  __shared__ float ss[CD_MAXT * CD_MAXSLICE];              // scores, then p
-  __shared__ float os[4 * CD_MAXT * CD_DH];                // the key groups' PV
-  __shared__ float stat[2 * CD_MAXT];
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
-  const int warp = t >> 5, lane = t & 31;
-  const int d_model = a.heads * CD_DH;
-  const int j0 = c * a.sc, j1 = min(a.s_len, j0 + a.sc);
-  const int off = SELF ? a.off[b] : 0;
-  const int vis_end = SELF ? min(j1, off + a.t_chunk) : min(j1, a.kv_len);
-  const int n = max(vis_end - j0, 0);
-  const int words = (a.t_chunk + 31) / 32;
-  const float* qb = a.q + b * a.q_b + h * a.q_h;
-  for (int i = t; i < CD_MAXT * CD_DH; i += DF_THREADS) {
-    const int r = i / CD_DH;
-    qs[i] = r < a.t_len ? qb[r * a.q_t + i % CD_DH] : 0.0f;
-  }
-  __syncthreads();
-  for (int jl = t; jl < n; jl += DF_THREADS) {
-    const int j = j0 + jl;
-    float s[CD_MAXT];
-#pragma unroll
-    for (int r = 0; r < CD_MAXT; ++r) s[r] = 0.0f;
-    if constexpr (SELF) {
-      const float* kr = a.k + ((size_t)b * a.s_len + j) * d_model + h * CD_DH;
-#pragma unroll 4
-      for (int d4 = 0; d4 < CD_DH; d4 += 4) {
-        const float4 kv = __ldg(reinterpret_cast<const float4*>(kr + d4));
-#pragma unroll
-        for (int r = 0; r < CD_MAXT; ++r) {
-          const float4 qv = *reinterpret_cast<const float4*>(qs + r * CD_DH + d4);
-          s[r] = fmaf(qv.x, kv.x, s[r]);
-          s[r] = fmaf(qv.y, kv.y, s[r]);
-          s[r] = fmaf(qv.z, kv.z, s[r]);
-          s[r] = fmaf(qv.w, kv.w, s[r]);
-        }
-      }
-    } else {
-      const float* kc = a.k + (size_t)(b * a.heads + h) * CD_DH * a.s_len + j;
-#pragma unroll 4
-      for (int d = 0; d < CD_DH; ++d) {
-        const float kd = __ldg(kc + (size_t)d * a.s_len);
-#pragma unroll
-        for (int r = 0; r < CD_MAXT; ++r) s[r] = fmaf(qs[r * CD_DH + d], kd, s[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < CD_MAXT; ++r) {
-      bool vis = true;
-      if constexpr (SELF) {
-        const int rel = j - off;
-        if (rel >= 0 && r < a.t_len)
-          vis = (__ldg(a.bits + r * words + rel / 32) >> (rel % 32)) & 1;
-      }
-      ss[r * CD_MAXSLICE + jl] = vis ? s[r] : -INFINITY;
-    }
-  }
-  __syncthreads();
-  for (int r = warp; r < CD_MAXT; r += DF_THREADS / 32) {
-    float mx = -INFINITY;
-    for (int jl = lane; jl < n; jl += 32) mx = fmaxf(mx, ss[r * CD_MAXSLICE + jl]);
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int jl = lane; jl < n; jl += 32) {
-      const float p = mx == -INFINITY ? 0.0f : expf(ss[r * CD_MAXSLICE + jl] - mx);
-      ss[r * CD_MAXSLICE + jl] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      stat[r] = mx;
-      stat[CD_MAXT + r] = sum;
-    }
-  }
-  __syncthreads();
-  {
-    const int d = t & 63, g = t >> 6;
-    float o[CD_MAXT];
-#pragma unroll
-    for (int r = 0; r < CD_MAXT; ++r) o[r] = 0.0f;
-    const float* vc = a.v + ((size_t)b * a.s_len + j0) * d_model + h * CD_DH + d;
-    for (int jl = g; jl < n; jl += 4) {
-      const float vv = __ldg(vc + (size_t)jl * d_model);
-#pragma unroll
-      for (int r = 0; r < CD_MAXT; ++r) o[r] = fmaf(ss[r * CD_MAXSLICE + jl], vv, o[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < CD_MAXT; ++r) os[(g * CD_MAXT + r) * CD_DH + d] = o[r];
-  }
-  __syncthreads();
-  float* part = a.part + (((size_t)b * a.heads + h) * a.c + c) * CD_MAXT * DF_ROW;
-  for (int i = t; i < a.t_len * CD_DH; i += DF_THREADS) {
-    const int r = i / CD_DH, d = i % CD_DH;
-    float y = os[r * CD_DH + d];
-#pragma unroll
-    for (int g = 1; g < 4; ++g) y += os[(g * CD_MAXT + r) * CD_DH + d];
-    part[r * DF_ROW + d] = y;
-  }
-  if (t < a.t_len) {
-    part[t * DF_ROW + CD_DH] = stat[t];
-    part[t * DF_ROW + CD_DH + 1] = stat[CD_MAXT + t];
-  }
-}
-
-// One CTA per (head, example): the C slices rescaled to the global max and
-// added in slice order, then divided by the sum.
-__global__ void __launch_bounds__(DF_THREADS) decode_combine_f32_kernel(const DfArgs a) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const float* part = a.part + ((size_t)b * a.heads + h) * a.c * CD_MAXT * DF_ROW;
-  float* ob = a.out + b * a.q_b + h * a.q_h;
-  for (int i = threadIdx.x; i < a.t_len * CD_DH; i += DF_THREADS) {
-    const int r = i / CD_DH, d = i % CD_DH;
-    float m = -INFINITY;
-    for (int c = 0; c < a.c; ++c) m = fmaxf(m, part[(c * CD_MAXT + r) * DF_ROW + CD_DH]);
-    float l = 0.0f, y = 0.0f;
-    for (int c = 0; c < a.c; ++c) {
-      const float* row = part + (c * CD_MAXT + r) * DF_ROW;
-      const float mc = row[CD_DH];
-      if (mc == -INFINITY) continue;      // a slice with no visible key
-      const float w = expf(mc - m);
-      l += row[CD_DH + 1] * w;
-      y += row[d] * w;
-    }
-    ob[r * a.q_t + d] = l > 0.0f ? y / l : 0.0f;
-  }
-}
-
-template <bool SELF>
-int k10_f32_launch(DfArgs a, int batch, cudaStream_t st) {
-  if (!cd_split(a.s_len, &a.c, &a.sc)) return (int)cudaErrorInvalidValue;
-  decode_attn_f32_kernel<SELF><<<dim3(a.c, a.heads, batch), DF_THREADS, 0, st>>>(a);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  decode_combine_f32_kernel<<<dim3(a.heads, batch), DF_THREADS, 0, st>>>(a);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-}  // namespace wm
+//
+// W8A32 (the int8 copy of an f32 model): wm_cross_decode_w8a32 is K10's f32
+// mode on int8 K/V with f32 (B, H, S) scales (the per-op step's cross-
+// attention; decode_attn_f32_kernel<false, Q8 = true>: a score times its
+// key's scale before the mask, a probability times its value's scale
+// before the PV product), bound by the 384 KB of int8 K and V per
+// (example, head) at S = 1500; wm_gemm_w8a32 is wm_gemm_f32 on int8 (nh,
+// K, N) weights with f32 (nh, N) scales (ffma.cuh's W8 operand: the
+// two-pass loop's head rows on int8 heads), the scale on the sum before the
+// bias.
 
 // q (B, H, T, 64) f32; k (B, H, 64, S), v (B, S, H * 64) f32; part the
 // (B, H, C, 16, 66) f32 scratch (C from cd_split(S)); out (B, H, T, 64) f32.
@@ -492,4 +345,47 @@ extern "C" int wm_gemm_f32(const void* x, const void* w, const void* b, const vo
                  static_cast<const float*>(b), static_cast<const float*>(resid),
                  static_cast<float*>(out), static_cast<float*>(part), M, K, N, NH, epi,
                  (cudaStream_t)stream);
+}
+
+// K10's W8A32 mode: q (B, H, T, 64) f32; k (B, H, 64, S), v (B, S, H * 64)
+// int8 with ks, vs (B, H, S) f32; part and out as wm_cross_decode_f32's.
+extern "C" int wm_cross_decode_w8a32(const void* q, const void* k, const void* v,
+                                     const void* ks, const void* vs, void* part, void* out,
+                                     int B, int H, int T, int S, int kv_len, void* stream) {
+  using namespace wm;
+  if (B < 1 || H < 1 || T < 1 || T > CD_MAXT || kv_len < 1 || kv_len > S || !ks || !vs)
+    return (int)cudaErrorInvalidValue;
+  DfArgs a = {};
+  a.q = static_cast<const float*>(q);
+  a.k8 = static_cast<int8_t*>(const_cast<void*>(k));
+  a.v8 = static_cast<int8_t*>(const_cast<void*>(v));
+  a.ks = static_cast<const float*>(ks);
+  a.vs = static_cast<const float*>(vs);
+  a.part = static_cast<float*>(part);
+  a.out = static_cast<float*>(out);
+  a.q_b = (long long)H * T * CD_DH;
+  a.q_h = (long long)T * CD_DH;
+  a.q_t = CD_DH;
+  a.heads = H;
+  a.t_len = T;
+  a.t_chunk = T;
+  a.s_len = S;
+  a.kv_len = kv_len;
+  return k10_f32_launch<false, true>(a, B, (cudaStream_t)stream);
+}
+
+// out (NH, M, N) = epi(x (M, K) @ (wq (NH, K, N) * s (NH, N)) + b (NH, N))
+// in f32; b may be null; resid (M, N) for EPI_SILU_RESID / EPI_BIAS_RESID;
+// part the (NH, slices, M, N) scratch.  K % 16 == 0, N % 64 == 0.
+extern "C" int wm_gemm_w8a32(const void* x, const void* wq, const void* s, const void* b,
+                             const void* resid, void* out, void* part, int M, int K, int N,
+                             int NH, int epi, void* stream) {
+  using namespace wm;
+  if ((epi != EPI_BIAS && epi != EPI_BIAS_GELU && epi != EPI_SILU_RESID) || !s)
+    return (int)cudaErrorInvalidValue;
+  Ff8Job j = {static_cast<const int8_t*>(wq), static_cast<const float*>(s),
+              static_cast<const float*>(b), static_cast<const float*>(resid),
+              static_cast<float*>(out), 1.0f, epi};
+  return ff_gemm8(static_cast<const float*>(x), &j, 1, NH, static_cast<float*>(part), M, K, N,
+                  (cudaStream_t)stream);
 }

@@ -28,7 +28,17 @@
 // Bound on H100: bytes at the decode step's M (large-v2's fc2, 26.2 MB of
 // f32 weights, 7.8 us at 3.35 TB/s), operations at the 67 TFLOP/s of the
 // CUDA cores past M ~ 64 rows.
+//
+// W8A32 (the int8 copy of an f32 model): ffma_tile<MT, NT, int8_t> reads an
+// int8 W (or E) and converts each value exactly to f32 as it is fetched,
+// the rest of the tile unchanged; ffma_gemm8_kernel + ffma_combine8_kernel
+// are the GEMM over int8 weights, up to three jobs on one X (K2's q / k /
+// v) or a stack of heads, the column's f32 scale applied to the slices'
+// sum before the bias and the epilogue (the JAX kernels' ``mm``: the sum
+// times the scale, then the bias).
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -68,9 +78,20 @@ __device__ __forceinline__ float4 ff_ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-template <int MT, bool NT>
+// Four W values at p as f32: a float4, or four int8 converted exactly.
+template <typename WT>
+__device__ __forceinline__ float4 ff_ldw4(const WT* p) {
+  if constexpr (std::is_same_v<WT, int8_t>) {
+    const char4 c = __ldg(reinterpret_cast<const char4*>(p));
+    return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
+  } else {
+    return ff_ld4(p);
+  }
+}
+
+template <int MT, bool NT, typename WT = float>
 __device__ __forceinline__ void ffma_tile(float (&acc)[MT][4], const float* __restrict__ x,
-                                          int ldx, int rows, const float* __restrict__ w,
+                                          int ldx, int rows, const WT* __restrict__ w,
                                           size_t ldw, int cols, int k0, int k1, float* sm) {
   constexpr int PR = 16 * MT;                                  // rows of the pass
   constexpr int XQ = PR * FF_KC / 4;                           // float4 of a rows chunk
@@ -88,9 +109,9 @@ __device__ __forceinline__ void ffma_tile(float (&acc)[MT][4], const float* __re
     const int kb = k0 + c * FF_KC;
     if constexpr (NT) {
       const int e = t & 63, kq = (t >> 6) * 4;
-      wr = e < cols ? ff_ld4(w + (size_t)e * ldw + kb + kq) : zero;
+      wr = e < cols ? ff_ldw4(w + (size_t)e * ldw + kb + kq) : zero;
     } else {
-      wr = ff_ld4(w + (size_t)(kb + (t >> 4)) * ldw + 4 * (t & 15));
+      wr = ff_ldw4(w + (size_t)(kb + (t >> 4)) * ldw + 4 * (t & 15));
     }
 #pragma unroll
     for (int h = 0; h < XV; ++h) {
@@ -256,6 +277,128 @@ inline int ff_gemm(const float* x, const float* w, const float* b, const float* 
   const size_t total = (size_t)nh * m * n;
   ffma_combine_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, g.slices, m, n, nh,
                                                                        b, resid, epi, out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The W8A32 GEMM: out = epi(x (M, K) @ (q (K, N) * s) + b) in f32.
+
+// One job: an int8 (K, N) weight and its f32 column scales, the bias (may be
+// null), the residual of EPI_BIAS_RESID / EPI_SILU_RESID ((M, N), may be
+// out itself), the (M, N) output and EPI_BIAS_SCALE's factor.
+struct Ff8Job {
+  const int8_t* w;
+  const float* s;
+  const float* b;
+  const float* resid;
+  float* out;
+  float post;
+  int epi;
+};
+
+// Grid z runs over nz outputs: z < njobs takes job z; past it, job njobs -
+// 1's stack (heads: w (nz, K, N), s and b (nz, N), out (nz, M, N)) at
+// layer z - (njobs - 1).
+struct FfGemm8 {
+  const float* x;
+  Ff8Job j[3];
+  int njobs;
+  float* part;          // (nz, slices, M, N) f32 scratch
+  int m, k, n, slice, slices, passes;
+};
+
+__device__ __forceinline__ int ff8_job(const FfGemm8& g, int z, int* layer) {
+  const int jz = z < g.njobs ? z : g.njobs - 1;
+  *layer = z - jz;
+  return jz;
+}
+
+template <int MT>
+__global__ void __launch_bounds__(FF_THREADS) ffma_gemm8_kernel(const FfGemm8 g) {
+  __shared__ __align__(16) float sm[2 * ff_stage_floats<MT>()];
+  const int tile = blockIdx.x / g.passes, pass = blockIdx.x % g.passes;
+  const int s = blockIdx.y, z = blockIdx.z;
+  int layer;
+  const int jz = ff8_job(g, z, &layer);
+  const int n0 = tile * FF_COLS, r0 = pass * 16 * MT;
+  const int k0 = s * g.slice, k1 = min(g.k, k0 + g.slice);
+  const int rows = min(16 * MT, g.m - r0);
+  float acc[MT][4];
+  ffma_tile<MT, false, int8_t>(acc, g.x + (size_t)r0 * g.k, g.k, rows,
+                               g.j[jz].w + (size_t)layer * g.k * g.n + n0, g.n, FF_COLS, k0,
+                               k1, sm);
+  const int tc = threadIdx.x & 15, tr = threadIdx.x >> 4;
+  float* p = g.part + ((size_t)z * g.slices + s) * g.m * g.n + n0 + 4 * tc;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int r = tr * MT + i;
+    if (r < rows)
+      *reinterpret_cast<float4*>(p + (size_t)(r0 + r) * g.n) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+// out[r][c] = epi((part[0][r][c] + ... + part[S-1][r][c]) * s[c] + b[c]),
+// the slices added in order.
+__global__ void __launch_bounds__(256) ffma_combine8_kernel(const FfGemm8 g, int nz) {
+  const size_t mn = (size_t)g.m * g.n;
+  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (size_t)nz * mn) return;
+  const int z = (int)(i / mn);
+  const size_t rc = i % mn;
+  const int c = (int)(rc % g.n);
+  int layer;
+  const Ff8Job& jb = g.j[ff8_job(g, z, &layer)];
+  const float* p = g.part + (size_t)z * g.slices * mn + rc;
+  float y = p[0];
+  for (int s = 1; s < g.slices; ++s) y += p[s * mn];
+  y *= jb.s[(size_t)layer * g.n + c];
+  if (jb.b != nullptr) y += jb.b[(size_t)layer * g.n + c];
+  switch (jb.epi) {
+    case EPI_BIAS_SCALE: y *= jb.post; break;
+    case EPI_BIAS_GELU: y = gelu_erf(y); break;
+    case EPI_BIAS_RESID: y = jb.resid[rc] + y; break;
+    case EPI_SILU_RESID: y = jb.resid[rc] + y / (1.0f + expf(-y)); break;
+    default: break;
+  }
+  jb.out[(size_t)layer * mn + rc] = y;
+}
+
+template <int MT = 1>
+int ff_gemm8_launch(int mt, const FfGemm8& g, int nz, cudaStream_t st) {
+  if (mt == MT) {
+    ffma_gemm8_kernel<MT><<<dim3(g.n / FF_COLS * g.passes, g.slices, nz), FF_THREADS, 0, st>>>(g);
+    return (int)cudaGetLastError();
+  }
+  if constexpr (MT < FF_MAX_MT) return ff_gemm8_launch<MT * 2>(mt, g, nz, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// nz outputs of x (M, K) through the njobs jobs (njobs <= 3, nz >= njobs);
+// part: the (nz, slices, M, N) scratch (ops/decode_ops.py::f32_gemm_plan
+// with nh = nz sizes it).  K % 16 == 0, N % 64 == 0, x 16-byte and w
+// 4-byte aligned.
+inline int ff_gemm8(const float* x, const Ff8Job* jobs, int njobs, int nz, float* part, int m,
+                    int k, int n, cudaStream_t st) {
+  if (m < 1 || k < FF_KC || k % FF_KC || n < FF_COLS || n % FF_COLS || njobs < 1 ||
+      njobs > 3 || nz < njobs)
+    return (int)cudaErrorInvalidValue;
+  FfGemm8 g;
+  g.x = x;
+  for (int i = 0; i < 3; ++i) g.j[i] = jobs[i < njobs ? i : njobs - 1];
+  g.njobs = njobs;
+  g.part = part;
+  g.m = m;
+  g.k = k;
+  g.n = n;
+  g.slice = ff_gemm_slice(k, n);
+  g.slices = (k + g.slice - 1) / g.slice;
+  const int mt = ff_mt(m);
+  g.passes = (m + 16 * mt - 1) / (16 * mt);
+  int err = ff_gemm8_launch(mt, g, nz, st);
+  if (err != 0) return err;
+  const size_t total = (size_t)nz * m * n;
+  ffma_combine8_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(g, nz);
   return (int)cudaGetLastError();
 }
 

@@ -108,8 +108,37 @@
 // buffer ends as block_hidden, with no ln_post (models/whisper.py:1258-1279);
 // x keeps the main stack's pre_norm.  The block adds 46 MB of bf16 weights
 // (23 MB int8) and B x 7.7 MB of cross K/V to the step's bytes.
+//
+// W8A32 (the int8 copy of an f32 model: the JAX kernel's quant / kv_quant /
+// skv_quant mode at f32 activations), wm_megastep_w8a32, a C entry of its
+// own: f32 residual stream, int8 streamed weights with f32 column scales,
+// every other leaf f32, int8 self slabs with bf16 scales, int8 cross K/V
+// with f32 scales.  The tensor cores take f32 only as TF32, so every
+// product is FFMA on the CUDA cores (ffma.cuh, ffma_attn.cuh).  A layer is
+// ten launches of six kinds:
+//
+//   ln_rows_f32 -> q/k/v (one W8A32 GEMM, 3 jobs, + combine) -> self-
+//   attention with the commit (+ combine) -> o + residual (GEMM + combine)
+//   -> ln -> cross q -> cross-attention -> cross o + residual -> ln -> fc1
+//   + GELU -> fc2 + residual
+//
+// (20 kernels a layer with the combines), then ln_post into hidden (and the
+// block's stream, whose layer runs on slot L as in the bf16 mode).  The
+// GEMM (ffma_gemm8_kernel) converts each int8 weight exactly to f32 as it
+// loads it and multiplies the slices' sum by the column's scale before the
+// bias, K slices from (K, N) alone (ff_gemm_slice); the attention is the
+// Q8 body of ffma_attn.cuh (history from the int8 slab times its bf16
+// scales, the chunk's keys from the fresh f32 rows, the commit in slice 0's
+// CTA; cross scores times the key scale, probabilities times the value
+// scale).  The arithmetic follows ops/megastep.py::w8a32_layer_step, the
+// JAX kernel's line by line (megastep.py:589-720, :759-905, :1005-1160).
+// Bound on H100: bytes, 0.73 GB of int8 weights and B x 123 MB of int8
+// cross K/V a step at large-v2 (counted from the shapes), 0.26 ms at 3.35
+// TB/s for B = 1.
 #include "cluster_attn.cuh"
 #include "common.cuh"
+#include "ffma.cuh"
+#include "ffma_attn.cuh"
 #include "hopper.cuh"
 #include "wgemm.cuh"
 
@@ -389,6 +418,242 @@ int layer_step(const LayerW& w, bf16* x, const CUtensorMap& mx, size_t slot,
 
 }  // namespace
 }  // namespace wm
+
+namespace wm {
+namespace {
+
+// W8A32: y[row] = LN(x[row]) in f32 (and into y2 too, when given); the
+// two-pass f32 statistics of models/whisper.py::layer_norm; one CTA per row.
+__global__ void __launch_bounds__(256)
+ln_rows_f32_kernel(const float* __restrict__ x, float* __restrict__ y, float* __restrict__ y2,
+                   const float* __restrict__ scale, const float* __restrict__ bias, int d) {
+  __shared__ float red[8];
+  const float* xr = x + (size_t)blockIdx.x * d;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float s = 0.0f;
+  for (int i = threadIdx.x; i < d; i += 256) s += xr[i];
+  s = warp_sum(s);
+  if (lane == 0) red[warp] = s;
+  __syncthreads();
+  float tot = 0.0f;
+  for (int i = 0; i < 8; ++i) tot += red[i];
+  const float mean = tot / d;
+  __syncthreads();
+  float v = 0.0f;
+  for (int i = threadIdx.x; i < d; i += 256) {
+    const float c = xr[i] - mean;
+    v += c * c;
+  }
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  tot = 0.0f;
+  for (int i = 0; i < 8; ++i) tot += red[i];
+  const float rstd = rsqrtf(tot / d + 1e-5f);
+  for (int i = threadIdx.x; i < d; i += 256) {
+    const float r = (xr[i] - mean) * rstd * scale[i] + bias[i];
+    y[(size_t)blockIdx.x * d + i] = r;
+    if (y2) y2[(size_t)blockIdx.x * d + i] = r;
+  }
+}
+
+// One W8A32 layer's weights at layer l of (L, ...) stacks (a single layer,
+// the block: l = 0): the 21 tensors of ops/megastep.py _WEIGHTS from slot w0
+// (int8 values for the 8 streamed weights, f32 for the rest) and the 8 f32
+// scales of _QUANT from slot s0.
+struct LayerW32 {
+  const float *self_ln_s, *self_ln_b, *q_b, *v_b, *o_b, *cross_ln_s, *cross_ln_b, *cq_b,
+      *co_b, *ffn_ln_s, *ffn_ln_b, *fc1_b, *fc2_b;
+  const int8_t *q_w, *k_w, *v_w, *o_w, *cq_w, *co_w, *fc1_w, *fc2_w;
+  const float *q_s, *k_s, *v_s, *o_s, *cq_s, *co_s, *fc1_s, *fc2_s;
+};
+
+LayerW32 layer_weights_w8a32(void* const* p, int w0, int s0, size_t l, int D, int F) {
+  const size_t lD = l * D, lF = l * F, DD = (size_t)D * D, DF = (size_t)D * F;
+  auto F32 = [&](int i, size_t off) { return static_cast<const float*>(p[w0 + i]) + off; };
+  auto I8 = [&](int i, size_t off) { return static_cast<const int8_t*>(p[w0 + i]) + off; };
+  auto S = [&](int i, size_t off) { return static_cast<const float*>(p[s0 + i]) + off; };
+  LayerW32 w;
+  w.self_ln_s = F32(0, lD);  w.self_ln_b = F32(1, lD);
+  w.q_w = I8(2, l * DD);     w.q_b = F32(3, lD);
+  w.k_w = I8(4, l * DD);     w.v_w = I8(5, l * DD);     w.v_b = F32(6, lD);
+  w.o_w = I8(7, l * DD);     w.o_b = F32(8, lD);
+  w.cross_ln_s = F32(9, lD); w.cross_ln_b = F32(10, lD);
+  w.cq_w = I8(11, l * DD);   w.cq_b = F32(12, lD);
+  w.co_w = I8(13, l * DD);   w.co_b = F32(14, lD);
+  w.ffn_ln_s = F32(15, lD);  w.ffn_ln_b = F32(16, lD);
+  w.fc1_w = I8(17, l * DF);  w.fc1_b = F32(18, lF);
+  w.fc2_w = I8(19, l * DF);  w.fc2_b = F32(20, lD);
+  w.q_s = S(0, lD);  w.k_s = S(1, lD);  w.v_s = S(2, lD);  w.o_s = S(3, lD);
+  w.cq_s = S(4, lD); w.co_s = S(5, lD); w.fc1_s = S(6, lF); w.fc2_s = S(7, lD);
+  return w;
+}
+
+// The buffers, caches and shapes one W8A32 step shares across its layers.
+struct StepCtx32 {
+  int B, T, D, H, F, S, SE, cross_len, M;
+  float *ln, *qb, *kb, *vb, *attn, *hb, *part, *apart;
+  int8_t *self_k, *self_v, *cross_k, *cross_v;
+  const float *cross_k_s, *cross_v_s;
+  bf16* self_s;
+  const int *offsets, *bits;
+  cudaStream_t st;
+};
+
+Ff8Job job8(const int8_t* w, const float* s, const float* b, float* out, int epi,
+            const float* resid = nullptr, float post = 1.0f) {
+  return Ff8Job{w, s, b, resid, out, post, epi};
+}
+
+// The attention's arguments over the chunk's (M, D) rows, (B, T, H, 64).
+DfArgs attn_args32(const StepCtx32& c) {
+  DfArgs a = {};
+  a.q = c.qb;
+  a.out = c.attn;
+  a.part = c.apart;
+  a.q_b = (long long)c.T * c.D;
+  a.q_h = CD_DH;
+  a.q_t = c.D;
+  a.heads = c.H;
+  a.t_len = c.T;
+  a.t_chunk = c.T;
+  return a;
+}
+
+#define WM_TRY32(call)           \
+  do {                           \
+    const int err_ = (call);     \
+    if (err_) return err_;       \
+  } while (0)
+
+int launch_ln32(const float* x, float* y, float* y2, const float* s, const float* b, int m,
+                int d, cudaStream_t st) {
+  ln_rows_f32_kernel<<<m, 256, 0, st>>>(x, y, y2, s, b, d);
+  return (int)cudaGetLastError();
+}
+
+// One W8A32 decoder layer over the chunk's rows in x (f32 residual stream,
+// updated in place) on cache slot `slot`.
+int layer_step_w8a32(const LayerW32& w, float* x, size_t slot, const StepCtx32& c) {
+  const int D = c.D, F = c.F, M = c.M;
+  const float scale = 0.125f;   // head dim ** -0.5
+  // --- self-attention
+  WM_TRY32(launch_ln32(x, c.ln, nullptr, w.self_ln_s, w.self_ln_b, M, D, c.st));
+  const Ff8Job qkv[3] = {job8(w.q_w, w.q_s, w.q_b, c.qb, EPI_BIAS_SCALE, nullptr, scale),
+                         job8(w.k_w, w.k_s, nullptr, c.kb, EPI_BIAS),
+                         job8(w.v_w, w.v_s, w.v_b, c.vb, EPI_BIAS)};
+  WM_TRY32(ff_gemm8(c.ln, qkv, 3, 3, c.part, M, D, D, c.st));
+  {
+    DfArgs a = attn_args32(c);
+    const size_t slab = slot * c.B * c.S * D;
+    a.off = c.offsets;
+    a.bits = c.bits;
+    a.k8 = c.self_k + slab;
+    a.v8 = c.self_v + slab;
+    a.ss = c.self_s + slot * c.B * c.S * 2 * c.H;
+    a.kn = c.kb;
+    a.vn = c.vb;
+    a.s_len = c.S;
+    a.kv_len = c.S;
+    WM_TRY32((k10_f32_launch<true, true>(a, c.B, c.st)));
+  }
+  const Ff8Job o = job8(w.o_w, w.o_s, w.o_b, x, EPI_BIAS_RESID, x);
+  WM_TRY32(ff_gemm8(c.attn, &o, 1, 1, c.part, M, D, D, c.st));
+  // --- cross-attention
+  WM_TRY32(launch_ln32(x, c.ln, nullptr, w.cross_ln_s, w.cross_ln_b, M, D, c.st));
+  const Ff8Job cq = job8(w.cq_w, w.cq_s, w.cq_b, c.qb, EPI_BIAS_SCALE, nullptr, scale);
+  WM_TRY32(ff_gemm8(c.ln, &cq, 1, 1, c.part, M, D, D, c.st));
+  {
+    DfArgs a = attn_args32(c);
+    const size_t ck = slot * c.B * c.H * CD_DH * c.SE, cv = slot * c.B * c.SE * D;
+    const size_t cs = slot * c.B * c.H * c.SE;
+    a.k8 = c.cross_k + ck;
+    a.v8 = c.cross_v + cv;
+    a.ks = c.cross_k_s + cs;
+    a.vs = c.cross_v_s + cs;
+    a.s_len = c.SE;
+    a.kv_len = c.cross_len;
+    WM_TRY32((k10_f32_launch<false, true>(a, c.B, c.st)));
+  }
+  const Ff8Job co = job8(w.co_w, w.co_s, w.co_b, x, EPI_BIAS_RESID, x);
+  WM_TRY32(ff_gemm8(c.attn, &co, 1, 1, c.part, M, D, D, c.st));
+  // --- FFN
+  WM_TRY32(launch_ln32(x, c.ln, nullptr, w.ffn_ln_s, w.ffn_ln_b, M, D, c.st));
+  const Ff8Job f1 = job8(w.fc1_w, w.fc1_s, w.fc1_b, c.hb, EPI_BIAS_GELU);
+  WM_TRY32(ff_gemm8(c.ln, &f1, 1, 1, c.part, M, D, F, c.st));
+  const Ff8Job f2 = job8(w.fc2_w, w.fc2_s, w.fc2_b, x, EPI_BIAS_RESID, x);
+  WM_TRY32(ff_gemm8(c.hb, &f2, 1, 1, c.part, M, F, D, c.st));
+  return 0;
+}
+
+}  // namespace
+}  // namespace wm
+
+// Pointer table of wm_megastep_w8a32 (ops/megastep.py builds the same list).
+enum MegastepW8A32Ptr {
+  A_X = 0,        // (M, D) f32 residual stream: embedded chunk in, pre_norm out
+  A_LN,           // (M, D) f32 scratch: a layer norm's output
+  A_Q, A_K, A_V,  // (M, D) f32 scratch: projections
+  A_ATTN,         // (M, D) f32 scratch: attention output
+  A_H,            // (M, F) f32 scratch: fc1 output
+  A_PART,         // f32 scratch: the GEMM's slices (decode_ops.f32_gemm_plan)
+  A_APART,        // f32 scratch: the attention's slices (B, H, C, 16, 66)
+  A_SELF_K, A_SELF_V,        // (L', B, S, D) int8 slabs, updated in place
+  A_SELF_S,                  // (L', B, S, 2H) bf16 scales, updated in place
+  A_CROSS_K,                 // (L', B, H, 64, Se) int8
+  A_CROSS_V,                 // (L', B, Se, D) int8
+  A_CROSS_K_S, A_CROSS_V_S,  // (L', B, H, Se) f32
+  A_OFFSETS,                 // (B,) int32
+  A_BITS,                    // (T, 1) int32 chunk bits (decode_ops.chunk_bits), diagonal set
+  A_W0,                      // the stack's 21 weights (_WEIGHTS), (L, ...)
+  A_S0 = A_W0 + 21,          // and its 8 scales (_QUANT)
+  A_LN_POST_S = A_S0 + 8, A_LN_POST_B,   // (D,) f32
+  A_HIDDEN,                  // (M, D) f32 out: ln_post(pre_norm)
+  A_BLOCK_HIDDEN,            // (M, D) f32 block stream, out: block_hidden; null: no block
+  A_B_W0,                    // the block's 21 weights, unstacked
+  A_B_S0 = A_B_W0 + 21,      // and its 8 scales
+  A_COUNT = A_B_S0 + 8
+};
+
+// ints: L, B, T, D, H, F, S (self slab rows), Se (cross rows), cross_len;
+// L' = L slab slots, or L + 1 with the block (slot L is the block's).
+extern "C" int wm_megastep_w8a32(void** p, const int* ints, void* stream) {
+  using namespace wm;
+  const int L = ints[0], B = ints[1], T = ints[2], D = ints[3], H = ints[4];
+  const int F = ints[5], S = ints[6], SE = ints[7], cross_len = ints[8];
+  if (T < 1 || T > CD_MAXT || B < 1 || B > 8 || D != H * CD_DH || D % FF_COLS ||
+      F % FF_COLS || cross_len < 1 || cross_len > SE || S < T)
+    return (int)cudaErrorInvalidValue;
+  const bool block = p[A_BLOCK_HIDDEN] != nullptr;
+  for (int i = 0; i <= A_HIDDEN; ++i)
+    if (!p[i]) return (int)cudaErrorInvalidValue;
+  for (int i = A_B_W0; block && i < A_COUNT; ++i)
+    if (!p[i]) return (int)cudaErrorInvalidValue;
+  StepCtx32 c;
+  c.B = B; c.T = T; c.D = D; c.H = H; c.F = F; c.S = S; c.SE = SE; c.M = B * T;
+  c.cross_len = cross_len;
+  auto P = [&](int i) { return static_cast<float*>(p[i]); };
+  float* x = P(A_X);
+  c.ln = P(A_LN); c.qb = P(A_Q); c.kb = P(A_K); c.vb = P(A_V);
+  c.attn = P(A_ATTN); c.hb = P(A_H); c.part = P(A_PART); c.apart = P(A_APART);
+  c.self_k = static_cast<int8_t*>(p[A_SELF_K]);
+  c.self_v = static_cast<int8_t*>(p[A_SELF_V]);
+  c.self_s = static_cast<bf16*>(p[A_SELF_S]);
+  c.cross_k = static_cast<int8_t*>(p[A_CROSS_K]);
+  c.cross_v = static_cast<int8_t*>(p[A_CROSS_V]);
+  c.cross_k_s = P(A_CROSS_K_S);
+  c.cross_v_s = P(A_CROSS_V_S);
+  c.offsets = static_cast<const int*>(p[A_OFFSETS]);
+  c.bits = static_cast<const int*>(p[A_BITS]);
+  c.st = (cudaStream_t)stream;
+  for (int l = 0; l < L; ++l)
+    WM_TRY32(layer_step_w8a32(layer_weights_w8a32(p, A_W0, A_S0, l, D, F), x, l, c));
+  float* bx = block ? P(A_BLOCK_HIDDEN) : nullptr;
+  WM_TRY32(launch_ln32(x, P(A_HIDDEN), bx, P(A_LN_POST_S), P(A_LN_POST_B), c.M, D, c.st));
+  if (block)
+    WM_TRY32(layer_step_w8a32(layer_weights_w8a32(p, A_B_W0, A_B_S0, 0, D, F), bx, L, c));
+  return (int)cudaGetLastError();
+}
 
 // Pointer table of wm_megastep_step (ops/megastep.py builds the same list).
 enum MegastepPtr {

@@ -806,12 +806,24 @@ extern "C" int wm_head_rows(const void* src, const void* w, const void* b, void*
 // same bits in both.  Bound on H100: the 212 MB f32 embedding stream (63 us
 // at 3.35 TB/s) up to R ~ 160 rows, then the 2 R V D products at the CUDA
 // cores' 67 TFLOP/s (R = 121: 16 GFLOP, 0.24 ms).
+//
+// W8A32 (the int8 copy of an f32 model) rides the same two entries: an int8
+// embedding (V_EMBED_S / VR_EMBED_S given) streams through ffma.cuh's W8
+// operand (each int8 value converted exactly to f32 as it is fetched, 66 MB
+// instead of 212 MB) and column v's f32 sum is multiplied by s[v] before
+// the processors (tile_stats<Q = true, TS>), in every mode of the f32 form
+// (ts_cfg, identity0); int8 heads (V_HEADS_S given) run stage A on the
+// W8A32 GEMM (ffma_gemm8_kernel: the heads as a stack, the column's scale
+// on the sum before the bias, EPI_SILU_RESID).  The JAX kernels score the
+// f32 rows against the embedding cast to f32 (verify.py:208, :365) and cast
+// int8 heads to the rows' dtype (:345-354).
 namespace wm {
 namespace {
 
-template <int MT, bool TS>
+template <int MT, bool Q, bool TS>
 __global__ void __launch_bounds__(FF_THREADS)
-vocab_stream_f32_kernel(const float* __restrict__ rows, const float* __restrict__ e, int d_dim,
+vocab_stream_f32_kernel(const float* __restrict__ rows,
+                        const std::conditional_t<Q, int8_t, float>* __restrict__ e, int d_dim,
                         const std::conditional_t<TS, VsTsArgs, VsArgs> a) {
   constexpr int PR = 16 * MT;
   constexpr int STAGE_F = 2 * ff_stage_floats<MT>();
@@ -830,28 +842,30 @@ vocab_stream_f32_kernel(const float* __restrict__ rows, const float* __restrict_
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   __syncthreads();
   const int wg = threadIdx.x >> 7;
-  tile_stats<false, TS>(sm + wg * (PR / 2) * VS_LDC, a, tile, 2 * pass + wg, PR / 2);
+  tile_stats<Q, TS>(sm + wg * (PR / 2) * VS_LDC, a, tile, 2 * pass + wg, PR / 2);
 }
 
-template <bool TS, int MT = 1>
-int vs_f32_launch(int mt, const float* rows, const float* e, int d_dim, const VsTsArgs& a,
+template <bool TS, typename ET, int MT = 1>
+int vs_f32_launch(int mt, const float* rows, const ET* e, int d_dim, const VsTsArgs& a,
                   cudaStream_t st) {
+  constexpr bool Q = std::is_same_v<ET, int8_t>;
   if (mt == MT) {
     const dim3 grid(a.tiles * a.passes);
     if constexpr (TS)
-      vocab_stream_f32_kernel<MT, TS><<<grid, FF_THREADS, 0, st>>>(rows, e, d_dim, a);
+      vocab_stream_f32_kernel<MT, Q, TS><<<grid, FF_THREADS, 0, st>>>(rows, e, d_dim, a);
     else
-      vocab_stream_f32_kernel<MT, TS><<<grid, FF_THREADS, 0, st>>>(
+      vocab_stream_f32_kernel<MT, Q, TS><<<grid, FF_THREADS, 0, st>>>(
           rows, e, d_dim, static_cast<const VsArgs&>(a));
     return (int)cudaGetLastError();
   }
-  if constexpr (MT < FF_MAX_MT) return vs_f32_launch<TS, MT * 2>(mt, rows, e, d_dim, a, st);
+  if constexpr (MT < FF_MAX_MT) return vs_f32_launch<TS, ET, MT * 2>(mt, rows, e, d_dim, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Stages B and C over f32 rows (n_rows, D) and an f32 embedding e (V, D):
-// score_rows' arguments without the int8 scale.
-inline int score_rows_f32(const float* rows, int n_rows, const float* e, int v_dim, int d_dim,
+// Stages B and C over f32 rows (n_rows, D) and an f32 embedding e (V, D),
+// or an int8 one (e_q) with its f32 scales (escale): score_rows' arguments.
+inline int score_rows_f32(const float* rows, int n_rows, const void* e, const float* escale,
+                          int v_dim, int d_dim,
                           const int* pos, const int* gcol, const int8_t* sup, int begin_index,
                           int eos_id, int has_decay, int decay_start, float log_factor,
                           float* part_f, int* part_a, float* o_max, float* o_lse, int* o_arg,
@@ -859,7 +873,7 @@ inline int score_rows_f32(const float* rows, int n_rows, const float* e, int v_d
   const int tiles = (v_dim + VS_VT - 1) / VS_VT;
   const int mt = ff_mt(n_rows);
   VsTsArgs a;
-  a.escale = nullptr;
+  a.escale = escale;
   a.pos = pos;
   a.gcol = gcol;
   a.sup = sup;
@@ -888,8 +902,12 @@ inline int score_rows_f32(const float* rows, int n_rows, const float* e, int v_d
   a.ts_cap = ts_ints[4];
   if (ts_on && (!a.last || !a.penult || !a.maxts || !a.ts_f || !a.ts_a))
     return (int)cudaErrorInvalidValue;
-  int err = ts_on ? vs_f32_launch<true>(mt, rows, e, d_dim, a, st)
-                  : vs_f32_launch<false>(mt, rows, e, d_dim, a, st);
+  const float* ef = static_cast<const float*>(e);
+  const int8_t* eq = static_cast<const int8_t*>(e);
+  int err = escale ? (ts_on ? vs_f32_launch<true>(mt, rows, eq, d_dim, a, st)
+                            : vs_f32_launch<false>(mt, rows, eq, d_dim, a, st))
+                   : (ts_on ? vs_f32_launch<true>(mt, rows, ef, d_dim, a, st)
+                            : vs_f32_launch<false>(mt, rows, ef, d_dim, a, st));
   if (err != 0) return err;
   if (ts_on)
     verify_combine_ts_kernel<<<(n_rows + 7) / 8, 256, 0, st>>>(part_f, part_a, tiles, n_rows,
@@ -904,27 +922,37 @@ inline int score_rows_f32(const float* rows, int n_rows, const float* e, int v_d
 }  // namespace wm
 
 // K4's f32 mode: wm_verify_hidden's pointer table and ints, every float
-// operand f32 (the rows scratch (R, D) f32, no int8 scales), and one more
-// pointer at V_COUNT: stage A's (nh, slices, BN, D) f32 GEMM scratch.
+// operand f32 (the rows scratch (R, D) f32; W8A32: an int8 embedding and /
+// or int8 heads with their f32 scales), and one more pointer at V_COUNT:
+// stage A's (nh, slices, BN, D) f32 GEMM scratch.
 extern "C" int wm_verify_hidden_f32(void** p, const int* ints, float log_factor,
                                     void* stream) {
   using namespace wm;
   const int BN = ints[0], D = ints[1], V = ints[2], NH = ints[3], id0 = ints[4];
   const int R = (NH + id0) * BN;
   cudaStream_t st = (cudaStream_t)stream;
-  if (BN < 1 || BN > VH_MAX_SRC || NH < 1 || R > VH_MAX_ROWS || D % VS_KC ||
-      p[V_EMBED_S] != nullptr || p[V_HEADS_S] != nullptr)
+  if (BN < 1 || BN > VH_MAX_SRC || NH < 1 || R > VH_MAX_ROWS || D % VS_KC)
     return (int)cudaErrorInvalidValue;
   float* rows = static_cast<float*>(p[V_ROWS]);
   if (id0)
     cudaMemcpyAsync(rows, p[V_HVER], (size_t)BN * D * sizeof(float), cudaMemcpyDeviceToDevice,
                     st);
   const float* src = static_cast<const float*>(p[V_HSRC]);
-  int err = ff_gemm(src, static_cast<const float*>(p[V_HEADS_W]),
-                    static_cast<const float*>(p[V_HEADS_B]), src, rows + (size_t)id0 * BN * D,
-                    static_cast<float*>(p[V_COUNT]), BN, D, D, NH, EPI_SILU_RESID, st);
+  float* hrows = rows + (size_t)id0 * BN * D;
+  int err;
+  if (p[V_HEADS_S] != nullptr) {
+    const Ff8Job j = {static_cast<const int8_t*>(p[V_HEADS_W]),
+                      static_cast<const float*>(p[V_HEADS_S]),
+                      static_cast<const float*>(p[V_HEADS_B]), src, hrows, 1.0f,
+                      EPI_SILU_RESID};
+    err = ff_gemm8(src, &j, 1, NH, static_cast<float*>(p[V_COUNT]), BN, D, D, st);
+  } else {
+    err = ff_gemm(src, static_cast<const float*>(p[V_HEADS_W]),
+                  static_cast<const float*>(p[V_HEADS_B]), src, hrows,
+                  static_cast<float*>(p[V_COUNT]), BN, D, D, NH, EPI_SILU_RESID, st);
+  }
   if (err != 0) return err;
-  return score_rows_f32(rows, R, static_cast<const float*>(p[V_EMBED]), V, D,
+  return score_rows_f32(rows, R, p[V_EMBED], static_cast<const float*>(p[V_EMBED_S]), V, D,
                         static_cast<const int*>(p[V_POS]), static_cast<const int*>(p[V_GCOL]),
                         static_cast<const int8_t*>(p[V_SUP]), ints[5], ints[6], ints[7],
                         ints[8], log_factor, static_cast<float*>(p[V_PART_F]),
@@ -933,15 +961,15 @@ extern "C" int wm_verify_hidden_f32(void** p, const int* ints, float log_factor,
                         static_cast<float*>(p[V_GTH]), p + V_LAST, ints + 9, st);
 }
 
-// K5's f32 mode: wm_verify_rows' pointer table and ints, f32 rows and
-// embedding (VR_EMBED_S null).  Any R <= 1024 (passes of up to 128 rows).
+// K5's f32 mode: wm_verify_rows' pointer table and ints, f32 rows and an
+// f32 embedding (VR_EMBED_S null) or, W8A32, an int8 one with its f32
+// scales at VR_EMBED_S.  Any R <= 1024 (passes of up to 128 rows).
 extern "C" int wm_verify_rows_f32(void** p, const int* ints, float log_factor, void* stream) {
   using namespace wm;
   const int R = ints[0], D = ints[1], V = ints[2];
-  if (R < 1 || R > VR_MAX_ROWS || D % VS_KC || p[VR_EMBED_S] != nullptr)
-    return (int)cudaErrorInvalidValue;
-  return score_rows_f32(static_cast<const float*>(p[VR_ROWS]), R,
-                        static_cast<const float*>(p[VR_EMBED]), V, D,
+  if (R < 1 || R > VR_MAX_ROWS || D % VS_KC) return (int)cudaErrorInvalidValue;
+  return score_rows_f32(static_cast<const float*>(p[VR_ROWS]), R, p[VR_EMBED],
+                        static_cast<const float*>(p[VR_EMBED_S]), V, D,
                         static_cast<const int*>(p[VR_POS]), static_cast<const int*>(p[VR_GCOL]),
                         static_cast<const int8_t*>(p[VR_SUP]), ints[3], ints[4], ints[5],
                         ints[6], log_factor, static_cast<float*>(p[VR_PART_F]),

@@ -18,8 +18,8 @@ combines, the cluster attention body of K2 and K10
 (``cross_decode_kernel<KT, SELF, K2>``), K1's ``attention_kernel`` and the
 tied-embedding stream of K3 and K7 (``nt_stream_kernel<MT, W8>``) — is
 compared between the builds (``cuobjdump -sass``), instruction for
-instruction, and whether it is the same is printed (the f32 modes are
-kernels of their own beside them).  Then:
+instruction, and whether it is the same is printed (the f32 and W8A32
+modes are kernels of their own beside them).  Then:
 
   * K1, ``wm_attention_fwd``, at (1, 20, 1500, 64) and (8, 20, 1500, 64),
     the encoder's self-attention at B=1 and B=8;
@@ -155,8 +155,8 @@ def _turns(what, calls, entry=None, libs=None, part=None, cold=False):
 # Instantiations held to the other build's SASS, by family: a mangled-name
 # pattern whose groups are the instantiation's key, and a predicate on the
 # key that leaves an instantiation out (a mode added later at its default,
-# or the one instantiation a change widens; none since the f32 modes, which
-# are kernels of their own beside these).  K2's and K11's GEMM and the heads
+# or the one instantiation a change widens; none since the f32 modes, which,
+# with the W8A32 modes, are kernels of their own beside these).  K2's and K11's GEMM and the heads
 # mode of K4's stage A and wm_head_rows (wgemm_kernel<MT, W8, LN, HEADS>),
 # K4 / K5's vocab stream in every mode (vocab_stream_kernel<MT, Q, TS>) and
 # its two combines, the cluster attention body of K2 and of K10's cross and

@@ -912,24 +912,19 @@ class WhisperMedusaModel:
 def require_servable_dtype(params, device) -> None:
     """Serving on the card takes all-bf16 weights, all-f32 weights (the JAX
     package's default dtype: the f32 modes of K1, K3, K4, K5, K10 and K11,
-    the per-op decoder step) or the int8 copy of a bf16 model.  The int8
+    the per-op decoder step), the int8 copy of a bf16 model and the int8
     copy of an f32 model (int8 streamed weights beside f32 norms, biases,
-    encoder and positions) raises NotImplementedError naming ROADMAP item
-    19c, and so do weights that mix bf16 and f32, before anything runs; f32
-    weights raise ValueError while cuBLAS may use TF32 (the encoder's f32
-    products run there).  CPU serving takes any dtype."""
+    encoder and positions: the W8A32 modes of K2, K4, K5, head_rows and
+    K10).  Weights that mix bf16 and f32 raise NotImplementedError before
+    anything runs; f32 weights, int8 copy or not, raise ValueError while
+    cuBLAS may use TF32 (the encoder's f32 products run there).  CPU
+    serving takes any dtype."""
     if torch.device(device).type != "cuda":
         return
     flat = bridge.flatten(params)
     # An int8 weight's f32 scales ({"q", "s"}) belong to the int8 copy.
     scales = {k for k in flat if k.endswith("/s") and f"{k[:-2]}/q" in flat}
     floats = {a.dtype for k, a in flat.items() if a.is_floating_point() and k not in scales}
-    if scales and torch.float32 in floats:
-        raise NotImplementedError(
-            "the int8 copy of an f32 model is not served on the card yet (ROADMAP queue 1, "
-            "item 19c: K2's int8 mode takes bf16 norms, biases and positions); quantize a "
-            "bf16 model (from_pretrained(path, dtype=\"bfloat16\").quantize()) or serve "
-            "the f32 model as it is")
     if len(floats) > 1:
         raise NotImplementedError(
             f"weights of mixed dtypes {sorted(str(d) for d in floats)} are not served on "

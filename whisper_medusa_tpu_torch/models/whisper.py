@@ -579,7 +579,14 @@ def _step_mask_ops(offsets: torch.Tensor, chunk_len: int, max_len: int,
 def _attend_ops(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask) -> torch.Tensor:
     """The per-op step's self-attention: K10's mask mode on CUDA tensors
     (batch-invariant: each example's sums in an order fixed by max_len),
-    :func:`_attend_plain` on CPU tensors."""
+    :func:`_attend_plain` on CPU tensors.  f32 queries on the bf16 slab of
+    an int8 self cache (the int8 copy of an f32 model: the history
+    dequantized to bf16 with the chunk's rows in bf16, JAX ``_dequant_self``)
+    take K10's f32 mask mode on that slab widened to f32; the output comes
+    back in the slab's dtype, as :func:`attention` returns it."""
+    if q.is_cuda and q.dtype == torch.float32 and v.dtype == torch.bfloat16:
+        return decode_ops.self_attention_decode_kernel(q, k.float(), v.float(),
+                                                       *mask).to(v.dtype)
     if q.is_cuda:
         return decode_ops.self_attention_decode_kernel(q, k, v, *mask)
     return _attend_plain(q, k, v, mask)

@@ -82,6 +82,17 @@ from (K, N) alone (:func:`f32_gemm_plan`) added in slice order with the
 bias and the epilogue by a second kernel, so a row's bits do not depend on
 M.  The f32 wrappers take any M in one call.
 
+W8A32 (the int8 copy of an f32 model, whose per-op step is JAX's scan at
+f32 rows): K10's W8A32 mode (``wm_cross_decode_w8a32``) is the f32 body
+(``csrc/ffma_attn.cuh``) on int8 cross K/V, each value converted exactly,
+a score times its key's scale before the mask and a probability times its
+value's scale before the PV product, as :func:`cross_attention_decode_plain`
+(counted in ``w8a32_cross_launches``); :func:`gemm_w8a32_launch` is the
+f32 GEMM on int8 weights (the W8A32 head rows).  The step's projections
+and FFN stay on K6 (JAX's ``qmm`` rounds the rows to bf16), and its
+self-attention reads the bf16-dequantized slab widened to f32 through
+K10's f32 mask mode (``models/whisper.py::_attend_ops``).
+
 The plain versions (``*_plain``) are the math the megastep's plain version
 (``models/whisper.py::decoder_layer_step``) runs on every device; the
 wrappers launch the kernel on CUDA tensors and take the plain version only
@@ -118,6 +129,7 @@ f32_cross_launches = 0   # K10's f32 mode
 f32_self_launches = 0    # its f32 mask mode
 f32_ffn_launches = 0     # K11's f32 mode
 f32_gemm_launches = 0    # the f32 GEMM alone (wm_gemm_f32): the per-op step's projections
+w8a32_cross_launches = 0  # K10's W8A32 mode (f32 queries, int8 K/V)
 F32_COLS = 64            # csrc/ffma.cuh FF_COLS: output columns a CTA
 F32_KC = 16              # csrc/ffma.cuh FF_KC: K a staged chunk holds
 F32_WAVE = 264           # csrc/ffma.cuh FF_WAVE: CTAs the K slices aim at
@@ -274,8 +286,8 @@ def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     """Launch K10: q (B, H, T, 64) bf16; k (B, H, 64, S) and v (B, S, H * 64)
     bf16, or int8 with f32 (B, H, S) scales ``k_s`` and ``v_s``; S % 4 == 0,
     1 <= kv_len <= S -> (B, H, T, 64) bf16; all f32 (q, k, v) launch the f32
-    mode.  One launch takes 16 query rows: past T = 16 the rows go in 16-row
-    blocks, one launch each."""
+    mode, f32 q on int8 K/V the W8A32 mode (f32 out).  One launch takes 16
+    query rows: past T = 16 the rows go in 16-row blocks, one launch each."""
     b, h, t, dh = q.shape
     s = k.shape[3]
     quant = k_s is not None
@@ -283,8 +295,6 @@ def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     cuda_lib.require_cuda("cross_attention_decode", q, dtype=dt)
     f32 = dt == torch.float32
     kv_dt = torch.int8 if quant else q.dtype
-    if f32 and quant:
-        raise ValueError("cross_attention_decode kernel: int8 K/V take bf16 queries")
     cuda_lib.require_cuda("cross_attention_decode", k, v, dtype=kv_dt, device=q.device)
     if quant:
         if v_s is None:
@@ -293,6 +303,18 @@ def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
                               device=q.device)
         if k_s.shape != (b, h, s) or v_s.shape != (b, h, s):
             raise ValueError("cross_attention_decode kernel: scales must be (B, H, S)")
+        if f32:
+            def launch_w8a32(qb):
+                global w8a32_cross_launches
+                out = torch.empty_like(qb)
+                part = _f32_part(b, h, s, q.device)
+                cuda_lib.launch("wm_cross_decode_w8a32", q.device, qb.data_ptr(),
+                                k.data_ptr(), v.data_ptr(), k_s.data_ptr(), v_s.data_ptr(),
+                                part.data_ptr(), out.data_ptr(), b, h, qb.shape[2], s, kv_len)
+                w8a32_cross_launches += 1
+                return out
+
+            return cross_attention_blocked(q, launch_w8a32)
     if (dh != HEAD_DIM or t < 1 or k.shape != (b, h, dh, s)
             or v.shape != (b, s, h * dh) or s % 4 or not 1 <= kv_len <= s
             or cluster_split(s)[1] > MAX_SLICE):
@@ -439,6 +461,36 @@ def gemm_f32_launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     out = torch.empty((nh, m, n), dtype=torch.float32, device=x.device)
     part = torch.empty((plan["part"],), dtype=torch.float32, device=x.device)
     cuda_lib.launch("wm_gemm_f32", x.device, x.data_ptr(), w.data_ptr(),
+                    None if b is None else b.data_ptr(),
+                    None if resid is None else resid.data_ptr(), out.data_ptr(),
+                    part.data_ptr(), m, k, n, nh, epi)
+    return out
+
+
+def gemm_w8a32_launch(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                      b: Optional[torch.Tensor], epi: int,
+                      resid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch ``wm_gemm_w8a32``: x (M, K) f32 through int8 weights wq (nh,
+    K, N) with f32 scales ws (nh, N), b (nh, N) f32 or None; resid (M, N)
+    for EPI_SILU_RESID -> (nh, M, N) f32 ``epi(x @ (wq * ws) + b)``, the
+    scale on the sum before the bias.  The caller counts the launch."""
+    cuda_lib.require_cuda("gemm_w8a32", x, ws, dtype=torch.float32)
+    cuda_lib.require_cuda("gemm_w8a32", wq, dtype=torch.int8, device=x.device, aligned=False)
+    extra = [t for t in (b, resid) if t is not None]
+    if extra:
+        cuda_lib.require_cuda("gemm_w8a32", *extra, dtype=torch.float32, device=x.device)
+    m, k = x.shape
+    nh, _, n = wq.shape
+    if (k % F32_KC or n % F32_COLS or wq.shape[1] != k or ws.shape != (nh, n)
+            or (b is not None and b.shape != (nh, n))
+            or (resid is not None and resid.shape != (m, n))):
+        raise ValueError(f"gemm_w8a32 takes K % {F32_KC} == 0, N % {F32_COLS} == 0, scales "
+                         f"and bias (nh, N), resid (M, N); got x {tuple(x.shape)}, w "
+                         f"{tuple(wq.shape)}")
+    plan = f32_gemm_plan(m, k, n, nh)
+    out = torch.empty((nh, m, n), dtype=torch.float32, device=x.device)
+    part = torch.empty((plan["part"],), dtype=torch.float32, device=x.device)
+    cuda_lib.launch("wm_gemm_w8a32", x.device, x.data_ptr(), wq.data_ptr(), ws.data_ptr(),
                     None if b is None else b.data_ptr(),
                     None if resid is None else resid.data_ptr(), out.data_ptr(),
                     part.data_ptr(), m, k, n, nh, epi)

@@ -65,11 +65,33 @@ is ``block_hidden`` (no ``ln_post``), and ``pre_norm`` stays the main
 stack's output.  The block adds 46 MB of streamed bf16 weights (23 MB
 int8) and B x 7.7 MB of cross K/V to a step (counted from the shapes).
 
+W8A32 (the int8 copy of an f32 model, ``model.quantize()`` on f32 weights:
+the JAX kernel's quant / kv_quant / skv_quant mode at f32 activations) is a
+C entry of its own, ``wm_megastep_w8a32``: f32 residual stream, norms and
+biases, the eight streamed weights int8 with f32 column scales, int8 self
+slabs with bf16 scales and int8 cross K/V with f32 scales, every product
+FFMA on the CUDA cores (the tensor cores take f32 only as TF32).  Per
+layer: an f32 layer norm, the W8A32 GEMM (``csrc/ffma.cuh``: each int8
+weight converted exactly to f32 as it loads, the column's scale on the
+slices' sum before the bias; q/k/v one launch of 3 jobs), the f32
+attention body of ``csrc/ffma_attn.cuh`` (self: history rows from the int8
+slab, score times the key's bf16 scale and probability times the value's,
+the chunk's keys from the fresh f32 rows, the commit quantizing each
+(position, head) row as ``quantize_self_rows``; cross: int8 K/V, scores
+times the key scale, probabilities times the value scale), ten kernels of
+six kinds and their combines, twenty launches a layer.  Its plain version
+is :func:`w8a32_layer_step`, the JAX kernel's arithmetic line by line
+(not the JAX scan's, whose ``qmm`` rounds the rows to bf16); its count is
+``w8a32_launches`` (``w8a32_block_launches`` with the block).  At
+large-v2 a step streams the 0.73 GB of int8 weights and B x 123 MB of
+int8 cross K/V (counted from the shapes).
+
 The plain version is the ``models/whisper.py::decoder_layer_step`` loop
 followed by ``layer_norm`` (and the block's ``decoder_layer_step``).  Both
 update the self slabs (and scales) in place and return ``(pre_norm, hidden,
 block_hidden)``, ``block_hidden`` None without a block.  Scope of the
-kernel (:func:`fits`): bf16 activations, bf16 or int8 weights and caches,
+kernel (:func:`fits`): bf16 activations with bf16 or int8 weights and
+caches, or f32 activations with int8 weights and caches (W8A32),
 B <= 8, T <= 16 (so B*T <= 128), Dh = 64, d_model and ffn_dim multiples of
 256, self and cross key counts whose cluster slices fit a CTA (at most 8 x
 384 keys); ``models/whisper.py::decode_step`` sends every other call to the
@@ -98,11 +120,14 @@ GEMM_CTAS = 132          # csrc/wgemm.cuh G_CTAS: the CTAs a projection aims for
 GEMM_MAX_SLICES = 8      # csrc/wgemm.cuh G_MAX_SLICES: one portable cluster
 LN_LANES = 8             # csrc/wgemm.cuh G_LN_LANES: lanes summing a row's slice
 LN_MAX_CHUNKS = 10       # csrc/wgemm.cuh G_LN_MAXP: the longest K slice a norm takes
+NEG_SELF = -1e30         # a masked self-attention score (the JAX kernel's NEG_SELF)
 
 launches = 0            # bf16 mode
 q_launches = 0          # int8 mode
 block_launches = 0      # bf16 block mode (the Medusa-Block layer as layer L)
 q_block_launches = 0    # int8 block mode
+w8a32_launches = 0      # W8A32 mode (f32 rows, int8 weights: the int8 copy of an f32 model)
+w8a32_block_launches = 0    # W8A32 block mode
 
 # Weight order of the C pointer table (csrc/megastep.cu MegastepPtr, from
 # P_SELF_LN_S on).
@@ -237,9 +262,10 @@ def check_slots(dec_layers: Params, self_k, block) -> int:
 def fits(dec_layers: Params, x: torch.Tensor, self_k: torch.Tensor,
          cross_k: torch.Tensor, num_heads: int, cross_beam: int = 1) -> bool:
     """Whether K2 takes this decode call — the counterpart of JAX
-    ``megastep.available``: streamed weights all bf16 or all int8 (f32
-    weights, the JAX package's default dtype, run the per-op step, as JAX's
-    gate sends them to its scan), no beams (``cross_beam`` 1; beams run the
+    ``megastep.available``: streamed weights all bf16 or all int8 (the
+    latter at bf16 or, W8A32, f32 activations; f32 weights, the JAX
+    package's default dtype, run the per-op step, as JAX's gate sends them
+    to its scan), no beams (``cross_beam`` 1; beams run the
     per-op step, as in JAX), B <= 8, T <= 16, heads of 64, d_model and
     ffn_dim multiples of 256, a cross length that is a multiple of 4, self
     and cross key counts whose cluster slices (:func:`attention_plan`) fit
@@ -276,25 +302,122 @@ def megastep_plain(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross
                    cross_v, offsets, chunk_mask, cross_len: int, num_heads: int,
                    cross_k_s=None, cross_v_s=None, self_s=None, block=None):
     """The decoder_layer_step loop (models/whisper.py), then ln_post, then
-    the block (if given) on ln_post's output at slot L."""
+    the block (if given) on ln_post's output at slot L; f32 rows through
+    int8 weights take :func:`w8a32_layer_step` instead."""
     from whisper_medusa_tpu_torch.models import whisper
 
-    return whisper.run_layers(whisper.decoder_layer_step, dec_layers, ln_post, x, self_k,
-                              self_v, cross_k, cross_v, offsets, chunk_mask, cross_len,
-                              num_heads, cross_k_s=cross_k_s, cross_v_s=cross_v_s,
-                              self_s=self_s, block=block)
+    if is_w8a32(dec_layers, x):
+        layer_fn = w8a32_layer_step
+        mask_fn = lambda off, t, s_len, cm: _chunk_mask(cm, t, x.device)
+    else:
+        layer_fn, mask_fn = whisper.decoder_layer_step, whisper.make_step_mask
+    return whisper.run_layers(layer_fn, dec_layers, ln_post, x, self_k, self_v, cross_k,
+                              cross_v, offsets, chunk_mask, cross_len, num_heads,
+                              cross_k_s=cross_k_s, cross_v_s=cross_v_s, self_s=self_s,
+                              block=block, mask_fn=mask_fn)
 
 
-def _check_int8(name, layer_tree, ln, x):
+def is_w8a32(dec_layers: Params, x: torch.Tensor) -> bool:
+    """Whether a K2 call is the W8A32 mode: f32 rows (the int8 copy of an
+    f32 model) through int8 streamed weights."""
+    return x.dtype == torch.float32 and qmm_mod.is_quantized(dec_layers["self"]["q_w"])
+
+
+def _chunk_mask(chunk_mask, t: int, device) -> torch.Tensor:
+    if chunk_mask is None:
+        return torch.tril(torch.ones((t, t), dtype=torch.bool, device=device))
+    return chunk_mask.to(device=device, dtype=torch.bool)
+
+
+def mm_w8(x: torch.Tensor, w, b=None) -> torch.Tensor:
+    """f32 rows @ an int8 weight as K2's W8A32 GEMM computes it (the JAX
+    kernel's ``mm`` at f32 activations): the int8 values converted exactly
+    to f32, f32 products and sums, the column's scale on the sum, then the
+    bias."""
+    y = (x.float() @ w["q"].float()) * w["s"].float()
+    return y if b is None else y + b.float()
+
+
+def w8a32_self_attention(q, k, v, k_buf, v_buf, self_s, offsets, chunk_mask):
+    """K2's W8A32 self-attention of a chunk (the JAX kernel's block-diagonal
+    form, megastep.py:832-875): q (B, T, H, Dh) f32 pre-scaled; k, v (B, T,
+    D) the chunk's fresh f32 rows; k_buf, v_buf (B, S, D) int8 slabs and
+    self_s (B, S, 2H) their bf16 scales, of which the history rows j <
+    offsets[b] are read.  History scores are ``(q . k_int8) * f32(k scale)``
+    and history probabilities are multiplied by the value's scale before the
+    PV product; the chunk's keys are the fresh rows under ``chunk_mask``
+    (T, T); one f32 softmax over both.  Returns (B, T, H, Dh) f32."""
+    b, t, h, dh = q.shape
+    s_len = k_buf.shape[1]
+    hist = (torch.arange(s_len, device=q.device)[None, :]
+            < offsets.to(q.device).long()[:, None])                       # (B, S)
+    scales = self_s.float().permute(0, 2, 1)[:, :, None, :]                # (B, 2H, 1, S)
+    s1 = torch.einsum("bthd,bshd->bhts", q, k_buf.float().reshape(b, s_len, h, dh))
+    s1 = torch.where(hist[:, None, None, :], s1 * scales[:, :h], NEG_SELF)
+    s2 = torch.einsum("bthd,bchd->bhtc", q, k.reshape(b, t, h, dh))
+    s2 = torch.where(chunk_mask[None, None], s2, NEG_SELF)
+    m = torch.maximum(s1.amax(-1, keepdim=True), s2.amax(-1, keepdim=True))
+    p1, p2 = torch.exp(s1 - m), torch.exp(s2 - m)
+    den = p1.sum(-1, keepdim=True) + p2.sum(-1, keepdim=True)
+    p1 = p1 / den * scales[:, h:]
+    return (torch.einsum("bhts,bshd->bthd", p1, v_buf.float().reshape(b, s_len, h, dh))
+            + torch.einsum("bhtc,bchd->bthd", p2 / den, v.reshape(b, t, h, dh)))
+
+
+def w8a32_layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.Tensor,
+                     cross_k: torch.Tensor, cross_v: torch.Tensor, offsets: torch.Tensor,
+                     chunk_mask: torch.Tensor, num_heads: int, cross_len: int,
+                     cross_k_s=None, cross_v_s=None, self_s=None,
+                     cross_beam: int = 1) -> torch.Tensor:
+    """One decoder layer of K2's W8A32 mode in plain PyTorch, line by line
+    the JAX kernel's arithmetic at f32 activations and int8 weights
+    (megastep.py:589-720, :759-905, :1005-1160): f32 layer norms;
+    projections through :func:`mm_w8`; the chunk's K/V rows committed into
+    the int8 slabs with ``quantize_self_rows`` (bf16 scales); the
+    self-attention of :func:`w8a32_self_attention`; the cross-attention f32
+    against the int8 cross K/V (``cross_attention_decode_plain``); the FFN
+    with the exact-erf GELU.  ``chunk_mask`` is the (T, T) chunk mask.
+    Returns the new (B, T, D) f32 hidden."""
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import decode_ops, gelu
+
+    del cross_beam                              # K2 takes no beams (``fits``)
+    b, t, d = h.shape
+    dh = d // num_heads
+    ln = whisper.layer_norm(h, lp["self_ln"]["scale"], lp["self_ln"]["bias"])
+    q = mm_w8(ln, lp["self"]["q_w"], lp["self"]["q_b"]) * (dh ** -0.5)
+    k = mm_w8(ln, lp["self"]["k_w"])
+    v = mm_w8(ln, lp["self"]["v_w"], lp["self"]["v_b"])
+    kq, k_sc = whisper.quantize_self_rows(k, num_heads)
+    vq, v_sc = whisper.quantize_self_rows(v, num_heads)
+    whisper.write_rows(k_buf, kq, offsets)
+    whisper.write_rows(v_buf, vq, offsets)
+    whisper.write_rows(self_s, torch.cat([k_sc, v_sc], dim=-1).to(self_s.dtype), offsets)
+    att = w8a32_self_attention(q.reshape(b, t, num_heads, dh), k, v, k_buf, v_buf, self_s,
+                               offsets, chunk_mask)
+    h = h + mm_w8(att.reshape(b, t, d), lp["self"]["o_w"], lp["self"]["o_b"])
+    cx = whisper.layer_norm(h, lp["cross_ln"]["scale"], lp["cross_ln"]["bias"])
+    cq = mm_w8(cx, lp["cross"]["q_w"], lp["cross"]["q_b"]) * (dh ** -0.5)
+    co = decode_ops.cross_attention_decode_plain(
+        cq.reshape(b, t, num_heads, dh).transpose(1, 2), cross_k, cross_v, cross_len,
+        cross_k_s, cross_v_s)
+    h = h + mm_w8(co.transpose(1, 2).reshape(b, t, d), lp["cross"]["o_w"], lp["cross"]["o_b"])
+    fx = whisper.layer_norm(h, lp["ffn_ln"]["scale"], lp["ffn_ln"]["bias"])
+    hh = gelu.gelu(mm_w8(fx, lp["fc1_w"], lp["fc1_b"]))
+    return h + mm_w8(hh, lp["fc2_w"], lp["fc2_b"])
+
+
+def _check_int8(name, layer_tree, ln, x, dtype=torch.bfloat16):
     """The int8 mode's weights: every streamed weight int8 with f32 scales,
-    every other leaf bf16; returns the streamed weights' scales."""
+    every other leaf (and x) ``dtype``, bf16 or (W8A32) f32; returns the
+    streamed weights' scales."""
     qw = [_leaf(layer_tree, p) for p in _QUANT]
     if not all(qmm_mod.is_quantized(w) for w in qw):
         raise ValueError(f"megastep kernel: int8 mode takes int8 streamed weights "
                          f"({name})")
     plain = [w for w in (_leaf(layer_tree, p) for p in _WEIGHTS)
              if not qmm_mod.is_quantized(w)]
-    cuda_lib.require_cuda("megastep", x, *plain, *ln)
+    cuda_lib.require_cuda("megastep", x, *plain, *ln, dtype=dtype)
     cuda_lib.require_cuda("megastep", *[w["q"] for w in qw], dtype=torch.int8,
                           device=x.device)
     cuda_lib.require_cuda("megastep", *[w["s"] for w in qw], dtype=torch.float32,
@@ -308,12 +431,61 @@ def _values(layer_tree):
             for w in (_leaf(layer_tree, p) for p in _WEIGHTS)]
 
 
+def _launch_w8a32(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross_k, cross_v,
+                  offsets, chunk_mask, cross_len: int, num_heads: int, cross_k_s, cross_v_s,
+                  self_s, block, scales, block_scales):
+    """Launch K2's W8A32 mode (``wm_megastep_w8a32``) on operands
+    :func:`megastep_kernel` checked: its f32 scratch (the GEMM's partials,
+    the largest ``decode_ops.f32_gemm_plan`` of its projections, q/k/v as 3
+    jobs; the attention's (B, H, C, 16, 66) slices, C the larger of the self
+    and cross splits) and the chunk bits; (pre_norm, hidden, block_hidden or
+    None), each (B, T, D) f32."""
+    global w8a32_launches, w8a32_block_launches
+    from whisper_medusa_tpu_torch.ops import decode_ops
+
+    b, t, d = x.shape
+    nl = check_slots(dec_layers, self_k, block)
+    s_len, s_enc = self_k.shape[2], cross_k.shape[4]
+    f = dec_layers["fc1_b"].shape[-1]
+    dev = x.device
+    m = b * t
+    part = max(decode_ops.f32_gemm_plan(m, k, n, nz)["part"]
+               for k, n, nz in ((d, d, 3), (d, d, 1), (d, f, 1), (f, d, 1)))
+    c = max(decode_ops.cluster_split(s_len)[0], decode_ops.cluster_split(s_enc)[0])
+    f32 = dict(dtype=torch.float32, device=dev)
+    xbuf = x.reshape(m, d).clone()
+    scratch = [torch.empty((m, d), **f32) for _ in range(5)]   # ln, q, k, v, attention
+    buffers = [torch.empty((m, f), **f32), torch.empty((part,), **f32),
+               torch.empty((b * num_heads * c * decode_ops.MAX_T * decode_ops.F32_PART_ROW,),
+                           **f32)]
+    hidden = torch.empty((m, d), **f32)
+    bbuf = None if block is None else torch.empty((m, d), **f32)
+    block_tensors = ([None] * (len(_WEIGHTS) + len(_QUANT)) if block is None
+                     else [*_values(block), *block_scales])
+    bits = decode_ops.chunk_bits(chunk_mask, t, dev, s_len)
+    tensors = [xbuf, *scratch, *buffers, self_k, self_v, self_s, cross_k, cross_v,
+               cross_k_s, cross_v_s, offsets, bits, *_values(dec_layers), *scales,
+               ln_post["scale"], ln_post["bias"], hidden, bbuf, *block_tensors]
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if tt is None else tt.data_ptr() for tt in tensors])
+    ints = (ctypes.c_int * 9)(nl, b, t, d, num_heads, f, s_len, s_enc, cross_len)
+    cuda_lib.launch("wm_megastep_w8a32", dev, ptrs, ints)
+    if block is None:
+        w8a32_launches += 1
+    else:
+        w8a32_block_launches += 1
+    block_hidden = None if bbuf is None else bbuf.reshape(b, t, d)
+    return xbuf.reshape(b, t, d), hidden.reshape(b, t, d), block_hidden
+
+
 def megastep_kernel(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross_k,
                     cross_v, offsets, chunk_mask, cross_len: int, num_heads: int,
                     cross_k_s=None, cross_v_s=None, self_s=None, block=None):
     """Launch K2 over all layers (and the block, if given); returns
     (pre_norm, hidden, block_hidden or None), each (B, T, D).  int8 mode
-    when the weights are int8 (then the caches, and the block, must be too)."""
+    when the weights are int8 (then the caches, and the block, must be too);
+    f32 rows through int8 weights take the W8A32 mode (f32 norms, biases and
+    outputs)."""
     global launches, q_launches, block_launches, q_block_launches
     b, t, d = x.shape
     nl = check_slots(dec_layers, self_k, block)
@@ -334,9 +506,10 @@ def megastep_kernel(dec_layers: Params, ln_post: Params, x, self_k, self_v, cros
         if self_s is None or cross_k_s is None or cross_v_s is None:
             raise ValueError("megastep kernel: int8 mode takes an int8 cross cache "
                              "with scales and int8 self slabs with self_s")
-        scales = _check_int8("decoder layers", dec_layers, ln, x)
+        dt = x.dtype if is_w8a32(dec_layers, x) else torch.bfloat16
+        scales = _check_int8("decoder layers", dec_layers, ln, x, dt)
         if block is not None:
-            block_scales = _check_int8("block", block, ln, x)
+            block_scales = _check_int8("block", block, ln, x, dt)
         cuda_lib.require_cuda("megastep", self_s, device=dev)
         cuda_lib.require_cuda("megastep", self_k, self_v, cross_k, cross_v,
                               dtype=torch.int8, device=dev)
@@ -364,6 +537,10 @@ def megastep_kernel(dec_layers: Params, ln_post: Params, x, self_k, self_v, cros
             f"{tuple(cross_k.shape)}, cross_v {tuple(cross_v.shape)}, cross_len {cross_len}")
     if offsets.dtype != torch.int32 or offsets.shape != (b,) or offsets.device != x.device:
         raise ValueError("offsets must be int32 (B,) on the kernel's device")
+    if is_w8a32(dec_layers, x):
+        return _launch_w8a32(dec_layers, ln_post, x, self_k, self_v, cross_k, cross_v,
+                             offsets, chunk_mask, cross_len, num_heads, cross_k_s, cross_v_s,
+                             self_s, block, scales, block_scales)
     if chunk_mask is None:
         chunk_mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=dev))
     mask = chunk_mask.to(device=dev, dtype=torch.uint8).contiguous()

@@ -43,8 +43,9 @@ column v's f32 sum is multiplied by ``s[v]`` before the processors; int8
 heads ``{"q": (nh, D, D), "s": (nh, D)}`` go through the GEMM's W8 form
 (the raw tile converted exactly to bf16 in shared memory, the column's
 scale before the bias).  The
-plain versions score ``bf16(rows)`` against an int8 embedding, as the JAX
-``qmm_nt`` does.
+plain versions score the rows in their own dtype against an int8
+embedding, as the JAX kernels do (``w.astype(x.dtype)``): bf16 rows as
+``qmm_nt`` does, f32 rows in f32.
 
 ``identity0`` (Medusa-Block): row block 0 is ``hver`` itself (the hidden
 state, scored as the verification rows) and the heads 0..K-1 build row
@@ -67,7 +68,13 @@ same ``tile_stats`` epilogue (processors, timestamp rules, the straddling
 tile's split) and the same combine kernels as the bf16 stream; stage A and
 ``head_rows`` are ``csrc/ffma.cuh``'s f32 GEMM over the heads, K slices
 from (D, D) alone (``decode_ops.f32_gemm_plan``), so a head row has the
-same bits in K4 and in the two-pass loop, at any M.
+same bits in K4 and in the two-pass loop, at any M.  W8A32 (the int8 copy
+of an f32 model) rides the same f32 entries: an int8 embedding streams
+through the FFMA tile's W8 operand (each value converted exactly to f32,
+``s[v]`` on column v's sum before the processors) and int8 heads run stage
+A and ``head_rows`` on the W8A32 GEMM (``wm_gemm_w8a32``, the scale on the
+sum before the bias); counted in ``w8a32_launches``,
+``w8a32_rows_launches`` and ``w8a32_head_launches``.
 
 The fused timestamp rules (``ts_cfg``, the JAX kernels' ts mode) are a mode
 of stages B and C: rows below ``n_verif`` take the rule masks of
@@ -121,6 +128,10 @@ f32_rows_launches = 0    # K5, wm_head_rows (the f32 GEMM over the heads),
 f32_head_launches = 0    # and K4 / K5 in the timestamp mode
 f32_ts_launches = 0
 f32_ts_rows_launches = 0
+w8a32_launches = 0       # W8A32 (f32 rows, int8 embedding and heads): K4 in every
+w8a32_rows_launches = 0  # mode (base_head, identity0, ts), K5 (ts too) and
+w8a32_head_launches = 0  # wm_head_rows on int8 heads
+w8a32_ts_launches = 0    # those of the W8A32 K4 / K5 launches in the timestamp mode
 
 
 def masks_for(pcfg, device="cpu") -> torch.Tensor:
@@ -261,12 +272,11 @@ def head_plan(m: int, d: int, nh: int = 1):
 def _operand(name, w, dev, scale_dims, dtype=torch.bfloat16):
     """(values, scales-or-None) of a kernel's weight on ``dev``, checked:
     ``dtype`` (bf16, or f32 in the f32 modes), or int8 with f32 scales over
-    its first ``scale_dims`` dims (heads (nh, D), embedding (V,))."""
+    its first ``scale_dims`` dims (heads (nh, D), embedding (V,)); int8 on
+    f32 rows is the W8A32 mode."""
     if not qmm_mod.is_quantized(w):
         cuda_lib.require_cuda(name, w, dtype=dtype, device=dev)
         return w, None
-    if dtype == torch.float32:
-        raise ValueError(f"{name}: the f32 mode takes f32 weights, not int8")
     cuda_lib.require_cuda(name, w["q"], dtype=torch.int8, device=dev)
     cuda_lib.require_cuda(name, w["s"], dtype=torch.float32, device=dev)
     if w["s"].shape != w["q"].shape[:scale_dims]:
@@ -279,8 +289,9 @@ def head_rows_kernel(src: torch.Tensor, heads_w, heads_b: torch.Tensor) -> torch
     (K, D, D) bf16 or int8 with (K, D) f32 scales, biases (K, D) bf16 ->
     (K, M, D); rows in blocks of up to 192 (:func:`head_plan`), one launch
     each, read in place (a row's arithmetic does not depend on the others).
-    All-f32 operands take K4's f32 stage A, ``wm_gemm_f32``, in one launch."""
-    global head_launches, q_head_launches, f32_head_launches
+    All-f32 operands take K4's f32 stage A, ``wm_gemm_f32``, in one launch;
+    f32 rows through int8 heads its W8A32 form, ``wm_gemm_w8a32``."""
+    global head_launches, q_head_launches, f32_head_launches, w8a32_head_launches
     dt = torch.float32 if src.dtype == torch.float32 else torch.bfloat16
     cuda_lib.require_cuda("head_rows", src, heads_b, dtype=dt)
     w, ws = _operand("head_rows", heads_w, src.device, 2, dt)
@@ -289,6 +300,11 @@ def head_rows_kernel(src: torch.Tensor, heads_w, heads_b: torch.Tensor) -> torch
     if m < 1 or d % 64 or w.shape != (nh, d, d) or heads_b.shape != (nh, d):
         raise ValueError(f"head_rows kernel takes D % 64 == 0; got src "
                          f"{tuple(src.shape)}, heads {tuple(w.shape)}")
+    if dt == torch.float32 and ws is not None:
+        out = decode_ops_mod.gemm_w8a32_launch(src, w, ws, heads_b,
+                                               decode_ops_mod.EPI_SILU_RESID, resid=src)
+        w8a32_head_launches += 1
+        return out
     if dt == torch.float32:
         out = decode_ops_mod.gemm_f32_launch(src, w, heads_b, decode_ops_mod.EPI_SILU_RESID,
                                              resid=src)
@@ -328,9 +344,13 @@ def build_rows(hver, hsrc, heads_w, heads_b, identity0: bool) -> torch.Tensor:
 
 
 def row_logits(rows: torch.Tensor, embed) -> torch.Tensor:
-    """Unprocessed f32 logits (R, V) of ``rows`` against a bf16 or int8 tied
-    embedding, in plain PyTorch."""
+    """Unprocessed f32 logits (R, V) of ``rows`` against a bf16, f32 or int8
+    tied embedding, in plain PyTorch.  An int8 embedding scores the rows in
+    their own dtype, as the JAX kernels do (``w.astype(x.dtype)``): bf16
+    rows as ``qmm_nt`` does, f32 rows in f32 (the W8A32 mode)."""
     if qmm_mod.is_quantized(embed):
+        if rows.dtype == torch.float32:
+            return (rows @ embed["q"].float().T) * embed["s"].float()
         return qmm_mod.qmm_nt_plain(rows, embed["q"], embed["s"])
     return rows.float() @ embed.float().T
 
@@ -419,7 +439,7 @@ def verify_rows_kernel(hs, embed, pos, gcol, sup_masks, *, begin_index: int,
     embedding (V, D) bf16 or int8; ``ts`` (:func:`_ts_args`) the timestamp
     mode."""
     global rows_launches, q_rows_launches, ts_rows_launches, q_ts_rows_launches
-    global f32_rows_launches, f32_ts_rows_launches
+    global f32_rows_launches, f32_ts_rows_launches, w8a32_rows_launches, w8a32_ts_launches
     dt = torch.float32 if hs.dtype == torch.float32 else torch.bfloat16
     cuda_lib.require_cuda("verify_rows", hs, dtype=dt)
     embed, escale = _operand("verify_rows", embed, hs.device, 1, dt)
@@ -445,7 +465,10 @@ def verify_rows_kernel(hs, embed, pos, gcol, sup_masks, *, begin_index: int,
                                    int(start), *ts_ints)
         cuda_lib.launch("wm_verify_rows_f32" if dt == torch.float32 else "wm_verify_rows",
                         dev, ptrs, ints, float(math.log(factor)))
-        if dt == torch.float32:
+        if dt == torch.float32 and escale is not None:
+            w8a32_rows_launches += 1
+            w8a32_ts_launches += ts is not None
+        elif dt == torch.float32:
             if ts is not None:
                 f32_ts_rows_launches += 1
             else:
@@ -486,7 +509,7 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
                          *, identity0: bool, begin_index: int, eos_id: int, decay,
                          ts=None):
     global launches, q_launches, id0_launches, q_id0_launches, ts_launches, q_ts_launches
-    global f32_launches, f32_ts_launches
+    global f32_launches, f32_ts_launches, w8a32_launches, w8a32_ts_launches
     b, n, d = hver.shape
     bn = b * n
     dt = torch.float32 if hver.dtype == torch.float32 else torch.bfloat16
@@ -522,7 +545,10 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
                                int(decay is not None), int(start), *ts_ints)
     if dt == torch.float32:
         cuda_lib.launch("wm_verify_hidden_f32", dev, ptrs, ints, float(math.log(factor)))
-        if ts is not None:
+        if escale is not None or hscale is not None:
+            w8a32_launches += 1
+            w8a32_ts_launches += ts is not None
+        elif ts is not None:
             f32_ts_launches += 1
         else:
             f32_launches += 1
