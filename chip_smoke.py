@@ -58,7 +58,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      launch's, the first 8 rows of an M=88 launch bitwise an M=8 launch's,
      the draft heads of an 11-head launch bitwise a 10-head launch's (bf16,
      int8 and whisper tiny's, bf16 and int8), and K4's statistics bitwise
-     K5's over head_rows' rows; K3 (on K7's tied-embedding stream) at
+     K5's over head_rows' rows; K4 past 128 rows (R = 144: 12 heads x 12
+     rows, also in the timestamp mode; 289: 16 heads + identity0 x 17;
+     1024: one head over 1024 source rows, stage A in six blocks of 192)
+     against verify_hidden_plain, bf16 and int8 here, f32 in 6b and W8A32
+     in 6c, each call's statistics bitwise K5's over head_rows' rows and
+     timed (the "... R144" rows); K3 (on K7's tied-embedding stream) at
      M = 1 to 240, the first 10 rows of its M=80 call bitwise an M=10
      call's, its device time at M = 10 and 80 beside ``x @ E.T``'s;
      head_rows, K3, K5 and K7 past one
@@ -97,10 +102,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``WhisperMedusaProcessor(use_kernel=True)`` (K8) inside the driven run;
      then requests of 16 waveforms, past K2's batch (the per-op step, K2 at
      0 launches): base_head bf16 and int8, vanilla bf16, Medusa-Block bf16;
-     then B=1 requests past K4's rows and K2's chunk (P4): 11 base_head
-     heads (verification in two passes, K4 at 0 launches) and a 16-head
-     chain (T = 17: K2 only for the prefill, K10 in two 16-row launches a
-     layer on every step), each held to its run under
+     then B=1 requests on long chains (P4): 11 base_head heads (R = 144,
+     one K4 pass a step, K5 at 0 launches) and a 16-head chain (a 55.7 MB
+     head stack, past the JAX gate's 40 MiB: two passes, K4 at 0; T = 17:
+     K2 only for the prefill, K10 in two 16-row launches a layer on every
+     step), each held to its run under
      ``draft_corruption=1.0``; then ``return_timestamps=True`` requests
      (Medusa at B=1 and B=8, bf16 and int8, Medusa-Block B=1, vanilla
      B=1; the non-ts verification modes must not launch), each output held
@@ -153,7 +159,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      log-probs and its clear rows' argmax the emitted token; word and token
      times monotonic inside the audio; B=8 word times within 0.02 s of each
      example's B=1 capture; the device time of the decode, the capture pass
-     and the score stack (with its host copy) and peak memory printed;
+     and the score stack (with its host copy) and peak memory printed; then
+     reference checkpoints and the evaluation CLI (``phase_eval_cli``): the
+     bf16 model written in the reference's key layout to a temporary
+     directory, ``from_pretrained`` on it bitwise the source tensors, and
+     ``cli.evaluate.evaluate_model`` over four synthetic WAVs at
+     --batch-size 1 and 4 (K1-K4 at B=1, K5 at B=4 required; the summary and
+     the CSV's columns printed); the directory removed;
   5. the output is unchanged when every draft is corrupted, bf16 and int8,
      base_head and Medusa-Block, and bf16 base_head at B=16;
   6. decode batch invariance, bf16 and int8: speculative_generate at B=8
@@ -162,10 +174,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      whether generate at B=8 gives each example its B=1 tokens end to end,
      and whether the decode at B=16 (per-op step) gives each example its B=1
      tokens (K2), are printed, not required; then whisper tiny (d_model
-     384, the per-op step, K2 at 0 launches): K11, head_rows and K4 at
-     D=384 against their plain versions (three kernels rows), Medusa at B=1
-     and B=8, vanilla at B=1, int8 Medusa and Medusa-Block at B=1 driven as
-     in phase 4, and its decode at B=8 held to its B=1 tokens;
+     384): K11, head_rows and K4 at D=384 against their plain versions,
+     K2 at D=384 (2 layers at (1, 11), (8, 11), (8, 1) in bf16, int8,
+     block and int8 block mode within 3e-2 + 3e-2 |x|; tiny's 4-layer step
+     in bf16, int8 and block mode against its plain step, every B=8 example
+     bitwise its B=1 call, timed: the "... d384" rows), P3 on its per-op
+     step, Medusa at B=1 and B=8, vanilla at B=1, int8 Medusa and
+     Medusa-Block at B=1 driven as in phase 4 with K2 launching and the
+     per-op step's kernels at 0, its decode at B=8 held to its B=1 tokens,
+     and a 16-head chain at B=1 (R = 289: one K4 pass a step, K5 at 0;
+     T = 17 on the per-op step);
   6b. f32 serving (ModelConfig's default dtype), its model alone on the
      card after the bf16, int8 and Medusa-Block models are deleted: the f32
      modes of K1, K3, K4, head_rows, K5, K10 (cross and mask) and K11 each
@@ -194,7 +212,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      on the per-op step at B=8 and B=16; requests (Medusa and vanilla B=1,
      Medusa B=8, B=16 on the per-op step, Medusa-Block B=1, timestamps B=1)
      with only the W8A32 rows, K1 f32, K10's f32 mask mode and K6 / K7
-     launching; the B=8 decode held to B=1;
+     launching; the B=8 decode held to B=1; K2's W8A32 mode at D = 384
+     (2 layers at the same shapes and in block mode, the 4-layer step of
+     an f32 whisper tiny's int8 copy, B=8 bitwise B=1) and a Medusa B=1
+     request on that copy;
   7. training: the grad guard (a kernel without a backward refuses an
      operand that requires grad); K9, the one-pass attention backward from
      K1's output and log-sum-exp, against both plain versions off the path
@@ -618,19 +639,20 @@ def k2_tree_masks():
             for t, c in K2_TREES.items()}
 
 
-def check_megastep_2layer_int8(g, t, offs, block=False, chunk_mask=None):
+def check_megastep_2layer_int8(g, t, offs, block=False, chunk_mask=None, dims=None):
     """K2's int8 mode, two layers (and the block on slot 2 when ``block``),
     at per-example offsets ``offs``: pre_norm, hidden, block_hidden and the
     written self rows of every slot (dequantized) within 3e-2 + 3e-2 |x|;
     every other row and scale untouched.  ``chunk_mask``: a (T, T) tree
-    mask in place of the causal one."""
+    mask in place of the causal one.  ``dims``: the widths (large-v2's by
+    default; whisper tiny's for K2 at D = 384)."""
     from whisper_medusa_tpu_torch.config import WhisperDims
     from whisper_medusa_tpu_torch.models import whisper
     from whisper_medusa_tpu_torch.ops import megastep as MS
     from whisper_medusa_tpu_torch.ops import qmm as QM
 
-    dims = WhisperDims(decoder_layers=2)
-    b, d, h, s_enc, s_len = len(offs), dims.d_model, 20, 1500, 460
+    dims = WhisperDims(decoder_layers=2) if dims is None else dims
+    b, d, h, s_enc, s_len = len(offs), dims.d_model, dims.decoder_attention_heads, 1500, 460
     layers, ln_post, rnd = _random_layers(g, dims, 2)
     layers = QM.quantize_layers(layers)
     blk = _block_layer(g, dims, True) if block else None
@@ -665,7 +687,7 @@ def check_megastep_2layer_int8(g, t, offs, block=False, chunk_mask=None):
     untouched = all(torch.equal(a[:, ~written], c[:, ~written])
                     for a, c in ((self_k, sk2), (self_v, sv2), (self_s, ss2)))
     what = ("block mode, 2 layers + block" if block else "2-layer") + (
-        "" if chunk_mask is None else ", tree mask")
+        "" if chunk_mask is None else ", tree mask") + f" D={d}"
     log(f"K2 int8 megastep {what} B={b} T={t} offsets {offs}: pre_norm/hidden"
         f"{'/block_hidden' if block else ''} err {err:.3e}, written rows (dequantized, "
         f"{n} slots) err {cerr:.3e}, other rows equal {untouched}")
@@ -682,7 +704,7 @@ def check_megastep_2layer_int8(g, t, offs, block=False, chunk_mask=None):
 BLOCK_F32_HELD_MAX = 4
 
 
-def check_megastep_2layer(g, t, offs, block=False, chunk_mask=None):
+def check_megastep_2layer(g, t, offs, block=False, chunk_mask=None, dims=None):
     """Two layers (and the block on slot 2 when ``block``) at per-example
     offsets ``offs`` (B = len(offs)), under the causal chunk mask or the
     (T, T) tree mask ``chunk_mask``: pre_norm, hidden, block_hidden and the
@@ -697,8 +719,8 @@ def check_megastep_2layer(g, t, offs, block=False, chunk_mask=None):
     from whisper_medusa_tpu_torch.config import WhisperDims
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
-    dims = WhisperDims(decoder_layers=2)
-    b, d, h, s_enc, s_len = len(offs), dims.d_model, 20, 1500, 460
+    dims = WhisperDims(decoder_layers=2) if dims is None else dims
+    b, d, h, s_enc, s_len = len(offs), dims.d_model, dims.decoder_attention_heads, 1500, 460
     layers, ln_post, rnd = _random_layers(g, dims, 2)
     blk = _block_layer(g, dims, False) if block else None
     n = 2 + block
@@ -745,7 +767,7 @@ def check_megastep_2layer(g, t, offs, block=False, chunk_mask=None):
     untouched = (torch.equal(self_k[:, ~written], sk2[:, ~written])
                  and torch.equal(self_v[:, ~written], sv2[:, ~written]))
     what = ("block mode, 2 layers + block" if block else "2-layer") + (
-        "" if chunk_mask is None else ", tree mask")
+        "" if chunk_mask is None else ", tree mask") + f" D={d}"
     log(f"K2 megastep {what} B={b} T={t} offsets {offs}: pre_norm/hidden"
         f"{'/block_hidden' if block else ''} err {err:.3e}"
         + (f" (elements held by the f32 run: pre_norm {held[0]}, hidden {held[1]}, "
@@ -1994,7 +2016,7 @@ def k2_alone(dec, cache, x, offsets, dims, nh, block):
     return out
 
 
-def check_megastep_full(model, enc1, enc8, block=None):
+def check_megastep_full(model, enc1, enc8, block=None, suffix=""):
     """The full 32-layer step (and the block on slot 32, given ``block``)
     against the plain layer loop on copies of one cache: at B=1 prefill T=4
     then the T=11 chain, at B=8 prefill T=4, then T=11 and T=1 at
@@ -2002,14 +2024,16 @@ def check_megastep_full(model, enc1, enc8, block=None):
     cosine >= 0.999; int8 (a quantized model): >= 0.9998, its written rows
     dequantized.  With the block, block_hidden also lies at least 4x closer
     (in 1 - cosine) to the plain block_hidden than the plain hidden does, so
-    a kernel that skipped the block cannot pass."""
+    a kernel that skipped the block cannot pass.  ``suffix`` ends the row's
+    name (" d384": whisper tiny)."""
     from whisper_medusa_tpu_torch.device_profile import (_device_runs, _entry_host_ms,
                                                          _fold_events, _overlap_events)
     from whisper_medusa_tpu_torch.models import whisper
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
     q = _int8(model)
-    name = "megastep" + ("_block" if block is not None else "") + ("_int8" if q else "")
+    name = ("megastep" + ("_block" if block is not None else "") + ("_int8" if q else "")
+            + suffix)
     p = model.params["whisper"]
     dims = model.config.dims
     dec = p["decoder"]
@@ -2168,6 +2192,15 @@ def waveforms(seconds):
     return out
 
 
+def _others(kernels, allowed):
+    """The rows that must not launch beside the rows named in ``allowed``:
+    every row whose counter is not one of theirs (a row of another shape
+    that shares an allowed row's counter, e.g. "verify_hidden f32 R144",
+    counts the same launches)."""
+    mine = {tuple(k["counter"]) for k in kernels if k["name"] in allowed}
+    return tuple(k["name"] for k in kernels if tuple(k["counter"]) not in mine)
+
+
 def _zero_count(k):
     """Set a row's launch counter to 0: a wrapper's integer, or one key of
     its per-shape Counter (K9)."""
@@ -2257,7 +2290,8 @@ def report(name, out, wall, n_gen):
 def check_batch_invariance(model, enc8, variants=("base_head", "vanilla")):
     """speculative_generate at B=8 on the batched encoder output gives every
     example exactly the tokens of a B=1 decode of its encoder row, for each
-    of ``variants`` (whisper tiny: both through the per-op step)."""
+    of ``variants`` (whisper tiny too: K2 takes its steps at B <= 8, d_model
+    384 being a multiple of 128)."""
     from whisper_medusa_tpu_torch.config import GenerationConfig
     from whisper_medusa_tpu_torch.decoding.buffers import generate_medusa_buffers
     from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig
@@ -2447,13 +2481,18 @@ def phase_b16_requests(model, qmodel, bmodel, kernels, feats16, proc_k, waves16,
     return outs
 
 
-# P4: B=1 requests past K4's rows and K2's chunk (the JAX package serves
-# both).  (heads, kernels that must launch, kernels that must not.)
+# P4: B=1 requests on long chains, past K2's chunk (T = 17) or K4's head
+# stack (the JAX package's gate: R <= 1024 rows, heads * D^2 * 2 <= 40 MiB).
+# (heads, kernels that must launch, kernels that must not.)  11 heads at
+# large-v2: R = 144, a 39.3 MB stack, one K4 pass a step; 16 heads at
+# large-v2: a 55.7 MB stack, two passes (head_rows + K5); 16 heads at whisper
+# tiny: R = 289, 5.0 MB, one K4 pass.
 P4_NEW_TOKENS = 24
-P4_RUNS = ((11, ("attention", "megastep", "logits", "head_rows", "verify_rows"),
-            ("verify_hidden",)),
+P4_RUNS = ((11, ("attention", "megastep", "logits", "verify_hidden"), ("verify_rows",)),
            (16, ("attention", "megastep", "self_decode", "cross_decode", "ffn_decode",
                  "logits", "head_rows", "verify_rows"), ("verify_hidden",)))
+P4_TINY_RUNS = ((16, ("attention", "megastep", "self_decode", "cross_decode", "ffn_decode",
+                      "logits", "verify_hidden"), ("verify_rows",)),)
 
 
 def wide_head_model(model, heads, seed):
@@ -2477,43 +2516,48 @@ def wide_head_model(model, heads, seed):
                               special_tokens=model.special)
 
 
-def phase_p4_requests(model, kernels, feat):
-    """P4 on the card, bf16, B=1, ``P4_NEW_TOKENS`` new tokens: an 11-head
-    base_head model (12 x 12 = 144 verification rows, past K4's 128: the
-    loop verifies in two passes, head_rows + K5, and K4 never launches) and
-    a 16-head chain (T = 17: the 4-token prefill runs on K2, every decode
-    step on the per-op step, whose K10 calls take two 16-row blocks a layer:
-    K2 launches once and K10 2 x 32 times a step, in both modes).  Each is
-    driven with the launch counters and its tokens held to those of its own
-    run with every draft corrupted (``draft_corruption=1.0``)."""
-    vocab, nl = model.config.dims.vocab_size, model.config.dims.decoder_layers
-    for heads, needs, absent in P4_RUNS:
+def phase_p4_requests(model, kernels, feat, runs=P4_RUNS):
+    """P4 on the card, bf16, B=1, ``P4_NEW_TOKENS`` new tokens, the ``runs``
+    of P4_RUNS (large-v2) or P4_TINY_RUNS (whisper tiny): an 11-head
+    base_head model (12 x 12 = 144 verification rows: one K4 pass a step,
+    K5 never launches) and 16-head chains (T = 17: the 4-token prefill runs
+    on K2, every decode step on the per-op step, whose K10 calls take two
+    16-row blocks a layer: K2 launches once and K10 2 x L times a step; at
+    large-v2 two verification passes, head_rows + K5, at tiny one K4 pass
+    of 289 rows).  Each is driven with the launch counters and its tokens
+    held to those of its own run with every draft corrupted
+    (``draft_corruption=1.0``)."""
+    dims = model.config.dims
+    vocab, nl = dims.vocab_size, dims.decoder_layers
+    for heads, needs, absent in runs:
         m = wide_head_model(model, heads, SEED + 10 + heads)
         m.generate(feat, language="en", max_new_tokens=8)                 # warm-up
         seen = {}
-        out, wall = drive(f"bf16 {heads}-head chain B=1", kernels,
+        what = f"bf16 {heads}-head chain B=1 d_model {dims.d_model}"
+        out, wall = drive(what, kernels,
                           lambda: m.generate(feat, language="en",
                                              max_new_tokens=P4_NEW_TOKENS),
                           needs, absent, seen)
-        report(f"bf16 request ({heads} base_head heads, B=1)", out, wall,
-               check_output(out, 1, vocab, P4_NEW_TOKENS))
-        require(seen["verify_rows"] == out.steps,
-                f"{heads} heads: {seen['verify_rows']} K5 launches in {out.steps} steps")
+        report(f"{what} request", out, wall, check_output(out, 1, vocab, P4_NEW_TOKENS))
+        passes = "verify_hidden" if "verify_hidden" in needs else "verify_rows"
+        require(seen[passes] == out.steps,
+                f"{what}: {seen[passes]} {passes} launches in {out.steps} steps")
         if heads == 16:
             per_op = 2 * nl * out.steps
-            log(f"  16 heads: K2 {seen['megastep']} launch (the prefill), K10 "
+            log(f"  {what}: K2 {seen['megastep']} launch (the prefill), K10 "
                 f"{seen['cross_decode']} and its mask mode {seen['self_decode']} launches in "
                 f"{out.steps} steps of T = 17 ({per_op} expected each)")
             require(seen["megastep"] == 1 and seen["cross_decode"] == per_op
                     and seen["self_decode"] == per_op,
                     "16 heads: a T = 17 step did not take the per-op step's 16-row blocks")
-        check_corruption(f"bf16 {heads}-head chain B=1", m, feat, out, P4_NEW_TOKENS)
+        check_corruption(what, m, feat, out, P4_NEW_TOKENS)
         del m
 
 
-# Whisper tiny (d_model 384): every decode call takes the per-op step (K2
-# takes d_model % 256 == 0); its K11, head_rows and K4's stage A run the
-# weight-streaming GEMM with 6 K slices of one 64-wide chunk each.
+# Whisper tiny (d_model 384): K2 takes its decode calls at B <= 8 (d_model
+# % 128 == 0, ffn_dim % d_model == 0, the JAX gate), the per-op step the
+# rest; K2's projections, K11, head_rows and K4's stage A run the weight-
+# streaming GEMM in 64-wide K slices (6 of one chunk; fc2 8 of three).
 # Timestamps and longform (phase 4): requests with return_timestamps=True,
 # each driven as the other main paths, and the seek loop over 75 s.
 TS_NEW_TOKENS = 48
@@ -3641,19 +3685,21 @@ def phase_capture_requests(model, bmodel, kernels, feat, feats8):
 
 
 TINY_D = 384
-TINY_ROWS = ("ffn_decode d384", "head_rows d384", "verify d384")
+TINY_ROWS = ("ffn_decode d384", "head_rows d384", "verify d384", "megastep d384",
+             "megastep_int8 d384", "megastep_block d384")
 NEEDS_TINY = {
-    "bf16 medusa B=1": ("attention", "self_decode", "cross_decode", "ffn_decode d384",
-                        "logits", "head_rows d384", "verify d384"),
-    "bf16 vanilla B=1": ("attention", "self_decode", "cross_decode", "ffn_decode d384",
-                         "logits", "verify_rows"),
-    f"bf16 medusa B={BATCH}": ("attention", "self_decode", "cross_decode", "ffn_decode d384",
-                               "logits", "head_rows d384", "verify_rows"),
-    "int8 medusa B=1": ("attention", "self_decode", "cross_decode_int8", "qmm", "qmm_nt",
-                        "head_rows_int8", "verify_hidden_int8"),
-    "bf16 medusa_block B=1": ("attention", "self_decode", "cross_decode", "ffn_decode d384",
-                              "logits", "verify_hidden_id0"),
+    "bf16 medusa B=1": ("attention", "megastep d384", "logits", "head_rows d384",
+                        "verify d384"),
+    "bf16 vanilla B=1": ("attention", "megastep d384", "logits", "verify_rows"),
+    f"bf16 medusa B={BATCH}": ("attention", "megastep d384", "logits", "head_rows d384",
+                               "verify_rows"),
+    "int8 medusa B=1": ("attention", "megastep_int8 d384", "qmm_nt", "head_rows_int8",
+                        "verify_hidden_int8"),
+    "bf16 medusa_block B=1": ("attention", "megastep_block d384", "logits",
+                              "verify_hidden_id0"),
 }
+# The per-op step's kernels: none at B <= 8 on whisper tiny now that K2 takes it.
+PER_OP_ROWS = ("self_decode", "cross_decode", "cross_decode_int8", "ffn_decode")
 
 
 def tiny_models():
@@ -3678,9 +3724,10 @@ def tiny_models():
 def phase_tiny_requests(models, kernels, feats, feats8):
     """Whisper tiny served on the card: Medusa at B=1 and B=8, vanilla at
     B=1, int8 Medusa at B=1 and Medusa-Block at B=1, each driven as in
-    phase 4 with K2 at 0 launches (the per-op step serves d_model 384);
-    then speculative_generate at B=8 gives every example its B=1 tokens
-    (held, as check_batch_invariance holds K2's)."""
+    phase 4 with K2 in the request's mode launching and the per-op step's
+    kernels (K10, its mask mode, K11) at 0 (K2 serves d_model 384 at
+    B <= 8); then speculative_generate at B=8 gives every example its B=1
+    tokens."""
     model, qmodel, bmodel = models
     vocab = model.config.dims.vocab_size
     runs = {"bf16 medusa B=1": (model, feats[0], {}),
@@ -3694,7 +3741,7 @@ def phase_tiny_requests(models, kernels, feats, feats8):
         out, wall = drive(f"tiny {path}", kernels,
                           lambda: m.generate(f, language="en",
                                              max_new_tokens=MAX_NEW_TOKENS, **kw),
-                          NEEDS_TINY[path], absent=K2_ROWS)
+                          NEEDS_TINY[path], absent=PER_OP_ROWS)
         report(f"tiny {path} request", out, wall, check_output(out, f.shape[0], vocab))
         outs[path] = out
     check_batch_invariance(model, model.encode(feats8), ("base_head",))
@@ -4194,7 +4241,7 @@ def phase_f32_requests(model, kernels, feat, feats8):
     from whisper_medusa_tpu_torch.ops import verify as VF
 
     bmodel = bridge.random_block_model(model, seed=SEED + 2)
-    others = tuple(k["name"] for k in kernels if k["name"] not in F32_ROWS)
+    others = _others(kernels, F32_ROWS)
     vocab = model.config.dims.vocab_size
     kw = dict(language="en", max_new_tokens=F32_NEW_TOKENS)
     runs = {"medusa B=1": (model, feat, {}),
@@ -4334,7 +4381,7 @@ def _w8a32_rows_ok(what, c, ref, written, h):
     return steps <= 1 and scales_ok and untouched, steps
 
 
-def check_w8a32_megastep_2layer(g, t, offs, block=False):
+def check_w8a32_megastep_2layer(g, t, offs, block=False, dims=None):
     """K2's W8A32 mode, two layers (and the block on slot 2 when
     ``block``), at per-example offsets ``offs``, against the plain version
     (megastep_plain's W8A32 branch; the plain block layer on the kernel's
@@ -4345,8 +4392,8 @@ def check_w8a32_megastep_2layer(g, t, offs, block=False):
     from whisper_medusa_tpu_torch.models import whisper
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
-    dims = WhisperDims(decoder_layers=2)
-    b, d, h, s_enc, s_len = len(offs), dims.d_model, 20, 1500, 460
+    dims = WhisperDims(decoder_layers=2) if dims is None else dims
+    b, d, h, s_enc, s_len = len(offs), dims.d_model, dims.decoder_attention_heads, 1500, 460
     tree, ln_post, _ = _random_layers(g, dims, 2)
     layers, ln_post = _w8a32_tree(tree), {k: v.float() for k, v in ln_post.items()}
     blk = (_w8a32_tree(whisper.layer_params(_random_layers(g, dims, 1)[0], 0))
@@ -4380,7 +4427,8 @@ def check_w8a32_megastep_2layer(g, t, offs, block=False):
     written = torch.zeros((b, s_len), dtype=torch.bool, device="cuda")
     for e, off in enumerate(offs):
         written[e, off:off + t] = True
-    what = f"K2 W8A32 {'block mode, 2 layers + block' if block else '2-layer'} B={b} T={t}"
+    what = (f"K2 W8A32 {'block mode, 2 layers + block' if block else '2-layer'} D={d} "
+            f"B={b} T={t}")
     rows_ok, _ = _w8a32_rows_ok(what, c, ref, written, h)
     same = []
     if b > 1:
@@ -4399,7 +4447,7 @@ def check_w8a32_megastep_2layer(g, t, offs, block=False):
     return err
 
 
-def check_w8a32_megastep_full(model, enc1, enc8, block=None):
+def check_w8a32_megastep_full(model, enc1, enc8, block=None, suffix=""):
     """K2's W8A32 mode over the int8 copy's 32 layers (and the block on slot
     32, given ``block``) against its plain step on copies of one cache: at
     B=1 prefill T=4 then the T=11 chain, at B=8 prefill T=4, then T=11 and
@@ -4410,7 +4458,7 @@ def check_w8a32_megastep_full(model, enc1, enc8, block=None):
     from whisper_medusa_tpu_torch.models import whisper
     from whisper_medusa_tpu_torch.ops import megastep as MS
 
-    name = "megastep" + ("_block" if block is not None else "") + " w8a32"
+    name = "megastep" + ("_block" if block is not None else "") + " w8a32" + suffix
     p, dims = model.params["whisper"], model.config.dims
     dec, nh, st = p["decoder"], dims.decoder_attention_heads, model.special
     worst, timed = 1.0, None
@@ -4509,7 +4557,7 @@ def phase_w8a32_requests(model, bmodel, kernels, feat, feats8, feats16):
 
     allowed = set(W8A32_ROWS) | {"attention f32", "self_decode f32"} | {
         k["name"] for k in kernels if k["counter"][0] is QM}
-    others = tuple(k["name"] for k in kernels if k["name"] not in allowed)
+    others = _others(kernels, allowed)
     vocab = model.config.dims.vocab_size
     kw = dict(language="en", max_new_tokens=W8A32_NEW_TOKENS)
     runs = {"medusa B=1": (model, feat, {}),
@@ -4573,7 +4621,7 @@ def phase_w8a32(g, kernels, model, feats, feats8):
     rows = [k2, k2b, check_f32_verify(g, qmodel), check_f32_head_rows(g, qmodel),
             check_f32_verify_rows(g, qmodel), check_f32_cross_decode(g, int8=True)]
     require(tuple(k["name"] for k in rows) == W8A32_ROWS, "W8A32 rows")
-    kernels += rows
+    kernels += rows + [check_verify_wide(g, qmodel, "w8a32")]
     enc16 = torch.cat([enc8, enc8.flip(0)])
     check_step_invariance(qmodel, enc8, "large-v2 W8A32")
     check_step_invariance(qmodel, enc16, "large-v2 W8A32")
@@ -4582,9 +4630,12 @@ def phase_w8a32(g, kernels, model, feats, feats8):
     phase_w8a32_requests(qmodel, bq, kernels, feats[0], feats8, feats16)
     check_batch_invariance(qmodel, enc8, ("base_head",))
     log(f"w8a32 requests and B=8 decode invariance: {time.perf_counter() - t1:.1f} s")
+    del bq, enc1, enc8, enc16
+    torch.cuda.empty_cache()
+    rows.append(phase_tiny_w8a32(g, kernels, feats[0], feats8))
     for k in rows:
         log(f"launches {k['name']} (W8A32 paths): {k['launches']}")
-    del qmodel, bq, enc1, enc8, enc16
+    del qmodel
     torch.cuda.empty_cache()
     log(f"W8A32 phase: {time.perf_counter() - t0:.1f} s")
     return rows
@@ -4606,7 +4657,7 @@ def phase_f32(g, kernels, feats, feats8):
     rows = [check_f32_attention(g), check_f32_logits(g, embed), check_f32_verify(g, model),
             check_f32_head_rows(g, model), check_f32_verify_rows(g, model),
             check_f32_cross_decode(g), check_f32_self_decode(g), check_f32_ffn_decode(g)]
-    kernels += rows
+    kernels += rows + [check_verify_wide(g, model, "f32")]
     enc8 = model.encode(feats8)
     check_step_invariance(model, enc8, "large-v2 f32")
     t1 = time.perf_counter()
@@ -5090,6 +5141,345 @@ def check_cli():
             and k1_train > 0 and k1 > 0, "cli train / load / generate")
 
 
+# ---------------------------------------------------------------------------
+# K2 at d_model 384, K4 past 128 rows, reference checkpoints and the
+# evaluation CLI
+# ---------------------------------------------------------------------------
+
+# K2's 2-layer checks at whisper tiny's widths: (1, 11), (8, 11), (8, 1).
+D384_STEPS = ((11, [7]), (11, [7, 0, 120, 33, 448, 5, 260, 90]),
+              (1, [0, 17, 100, 5, 300, 440, 2, 63]))
+
+
+def tiny_dims2():
+    """Whisper tiny's widths (d_model 384, 6 heads, ffn 1536), 2 decoder layers."""
+    import dataclasses
+
+    from whisper_medusa_tpu_torch.config import WHISPER_PRESETS
+
+    return dataclasses.replace(WHISPER_PRESETS["tiny"], decoder_layers=2)
+
+
+def check_megastep_d384(g, tiny, enc1, enc8):
+    """K2 at D = 384 (whisper tiny), in bf16, int8, block and int8 block
+    mode: two layers at D384_STEPS against the plain layer loop within 3e-2
+    + 3e-2 |x| (the large-v2 checks' bound, PERF rows 2 / 2q / 2b), then the
+    4-layer step of tiny's models (bf16, int8 and the Medusa-Block model)
+    against its plain step at (1, 11), (8, 11) and (8, 1), every example of
+    a B=8 call bitwise its B=1 call, timed beside the plain step and its
+    bound.  Returns the rows megastep d384, megastep_int8 d384 and
+    megastep_block d384."""
+    model, qmodel, bmodel = tiny
+    dims = tiny_dims2()
+    errs = {"bf16": max(check_megastep_2layer(g, t, o, dims=dims) for t, o in D384_STEPS),
+            "int8": max(check_megastep_2layer_int8(g, t, o, dims=dims) for t, o in D384_STEPS),
+            "block": max(check_megastep_2layer(g, t, o, block=True, dims=dims)
+                         for t, o in D384_STEPS),
+            "block int8": max(check_megastep_2layer_int8(g, t, o, block=True, dims=dims)
+                              for t, o in D384_STEPS)}
+    rows, worst = [], 1.0
+    for m, key, blk in ((model, "bf16", None), (qmodel, "int8", None),
+                        (bmodel, "block", bmodel.params["medusa"]["block"])):
+        row, cos = check_megastep_full(m, enc1, enc8, blk, suffix=" d384")
+        row["max_abs_err"] = errs[key]
+        rows.append(row)
+        worst = min(worst, cos)
+    log(f"K2 at D=384: 2-layer max_abs_err {errs}; 4-layer worst cosine against the plain "
+        f"step {worst:.6f}; {SMI}")
+    from whisper_medusa_tpu_torch.utils.profiling import megastep_chain_ms
+
+    for b, t in ((1, 11), (8, 11), (8, 1)):
+        ms = megastep_chain_ms(model.params["whisper"], model.config.dims, enc8[:b], t, steps=50)
+        log(f"utils.profiling.megastep_chain_ms, whisper tiny bf16 ({b}, {t}): {ms:.4f} ms a "
+            f"step over a chain of 50 K2 steps (CUDA events); {SMI}")
+    return rows
+
+
+# K4 past the old 128 rows: (stacked heads, source rows B * N at B = 1,
+# identity0) giving R = 144 (the 11-head chain), 289 (16 heads + the
+# identity rows, whisper tiny's 16-head chain) and 1024 (one head over 1024
+# rows: stage A in six blocks).  Where 16 heads are over the 40 MiB stack
+# (large-v2: 52.4 MB), R = 289 is one head over 289 source rows (two
+# stage-A blocks) and identity0 runs 12 heads + the identity rows over 21
+# (R = 273).
+WIDE_K4 = ((12, 12, False), (16, 17, True), (1, 1024, False))
+WIDE_K4_LARGE = ((12, 12, False), (1, 289, False), (12, 21, True), (1, 1024, False))
+
+
+def _wide_heads(g, model, nh):
+    """``nh`` random single-layer heads in the model's mode: N(0, 0.02)
+    (nh, D, D) weights and N(0, 0.1) (nh, D) biases in its row dtype (bf16,
+    or f32), the weights quantized as quantize() does on an int8 model."""
+    from whisper_medusa_tpu_torch.ops import qmm as QM
+
+    d = model.config.dims.d_model
+    dt = model.params["whisper"]["decoder"]["ln_post"]["scale"].dtype
+    w = (torch.randn((nh, d, d), generator=g, device="cuda") * 0.02).to(dt)
+    b = (torch.randn((nh, d), generator=g, device="cuda") * 0.1).to(dt)
+    if _int8(model):
+        q, sc = QM.quantize_array(w)
+        w = {"q": q, "s": sc}
+    return w, b, dt
+
+
+def check_verify_wide(g, model, label):
+    """K4 at R = 144, 289 and 1024 (WIDE_K4, or WIDE_K4_LARGE past a 16-head
+    stack of 40 MiB) in the model's mode (bf16; int8 heads and embedding;
+    f32; W8A32) against verify_hidden_plain, the
+    R = 144 call also in the timestamp mode: bf16 and int8 held as
+    check_verify holds them (argmax on rows whose plain top-2 gap exceeds
+    1e-2, max / lse / gathered by _stats_ok), f32 and W8A32 as
+    check_f32_verify (_f32_stats_ok); each call's statistics bitwise K5's
+    over head_rows' rows (stage A's blocks of 192 source rows give a row
+    the bits of any other launch).  Timed at each R; returns the R = 144
+    row (``label`` names the mode)."""
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    d, v = model.config.dims.d_model, model.config.dims.vocab_size
+    q = _int8(model)
+    worst, timed = 0.0, {}
+    for nh, n, id0 in WIDE_K4 if 16 * d * d * 2 <= VF.MAX_HEAD_BYTES else WIDE_K4_LARGE:
+        w, b, dt = _wide_heads(g, model, nh)
+        r = (nh + id0) * n
+        require(VF.hidden_available(1, n, nh, id0, v, d), f"K4 takes R = {r}")
+        embed, masks, _, gcol, kw = _verify_inputs(g, model, r)
+        # Row (k, n) predicts position 5 + n % 12 + k: within a decode's
+        # positions (past ~480 the EOS decay's factor overflows f32).
+        pos = (5 + torch.arange(n, device="cuda")[None, :] % 12
+               + torch.arange(nh + id0, device="cuda")[:, None]).reshape(-1).to(torch.int32)
+        hid = torch.randn((1, n, d), generator=g, device="cuda").to(dt)
+        src = torch.randn((1, n, d), generator=g, device="cuda").to(dt) if id0 else hid
+        rows = VF.build_rows(hid, src, w, b, id0)
+        for ts in ((None, _ts_operands(model, r, n)) if r == 144 else (None,)):
+            tkw = _ts_kw(ts) if ts else {}
+            got = VF.verify_hidden(hid, src, w, b, embed, pos, gcol, masks, identity0=id0,
+                                   **kw, **tkw)
+            ref = VF.verify_hidden_plain(hid, src, w, b, embed, pos, gcol, masks,
+                                         identity0=id0, ts=ts, **kw)
+            what = (f"K4 {label} R={r} ({nh} heads{' + identity0' if id0 else ''} x {n} "
+                    f"rows){' timestamp mode' if ts else ''}")
+            if dt == torch.float32:
+                err = _f32_stats_ok(what, rows, embed, pos, masks, kw, got, ref, ts)
+            else:
+                if ts is None:
+                    arg_ok, n_clear = _clear_argmax(rows, embed, pos, masks, kw, got[0],
+                                                    ref[0], 1e-2)
+                else:
+                    arg_ok, n_clear, _ = _ts_clear(rows, embed, pos, masks, kw, ts, got[0],
+                                                   ref[0], 1e-2)
+                ok, err = _stats_ok(model, got, ref)
+                log(f"{what}: argmax equal on {n_clear} clear rows: {arg_ok}; "
+                    f"max/lse/gathered max_abs_err {err:.3e}")
+                require(arg_ok and ok and got[0].shape == (r,), f"{what}: argmax {arg_ok}, "
+                        f"err {err}")
+            flat = VF.head_rows(src.reshape(n, d), w, b).reshape(-1, d)
+            if id0:
+                flat = torch.cat([hid.reshape(n, d), flat])
+            k5 = VF.verify_rows(flat, embed, pos, gcol, masks, **kw, **tkw)
+            same = all(torch.equal(a, c) for a, c in zip(got, k5))
+            log(f"{what}: statistics bitwise those of K5 over head_rows' rows: {same}")
+            require(same, f"{what}: stage A's rows differ from head_rows'")
+            worst = max(worst, err)
+        kern = lambda: VF.verify_hidden(hid, src, w, b, embed, pos, gcol, masks,
+                                        identity0=id0, **kw)
+        plain = lambda: VF.verify_hidden_plain(hid, src, w, b, embed, pos, gcol, masks,
+                                               identity0=id0, **kw)
+        sources = (hid, src) if id0 else (hid,)
+        bd = bound(nbytes(*sources, *_tensors(w), b, *_tensors(embed), pos, gcol, masks)
+                   + 4 * r * 4, 2 * r * v * d + 2 * nh * n * d * d,
+                   F32_FLOPS if dt == torch.float32 else BF16_FLOPS)
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        by_kernel = _kernel_ms(kern)
+        log(f"K4 {label} R={r}: kernel {ms:.4f} ms events, device "
+            f"{sum(by_kernel.values()):.4f} ms (" + ", ".join(
+                f"{k} {t:.4f}" for k, t in by_kernel.items())
+            + f"); plain {plain_ms:.4f} ms; bound {bd[0]:.4f} ms ({bd[1]}); {SMI}")
+        timed[r] = (ms, plain_ms, bd)
+    if dt == torch.float32:
+        counter = "w8a32_launches" if q else "f32_launches"
+    else:
+        counter = "q_launches" if q else "launches"
+    name = "verify_hidden" + ("_int8" if q and dt != torch.float32 else "") + (
+        f" {label}" if dt == torch.float32 else "") + " R144"
+    return kernel_record(name, "whisper_medusa_tpu_torch/csrc/verify.cu",
+                         "whisper_medusa_tpu/ops/verify.py:309", (VF, counter), worst,
+                         *timed[144], None)
+
+
+EVAL_SECS = (3.0, 7.5, 12.0, 21.0)       # the evaluation CLI's synthetic utterances
+EVAL_NEEDS = {1: ("attention", "megastep", "logits", "verify_hidden"),
+              4: ("attention", "megastep", "logits", "head_rows", "verify_rows")}
+
+
+def phase_eval_cli(model, kernels):
+    """Reference checkpoints and the evaluation CLI at large-v2 width: the
+    bf16 model's weights (seed 0, its 10 random heads) written in the
+    reference's key layout (``convert.save_reference_checkpoint``) to a
+    temporary directory; ``from_pretrained`` on it holds every tensor
+    bitwise to the source; then ``cli.evaluate.evaluate_model`` over four
+    synthetic WAVs (EVAL_SECS) and a CSV at --batch-size 1 and 4, each driven
+    with the launch counters (K1, K2, K3 and K4 at B=1; K5 at B=4), its
+    summary printed, its CSV's rows read back.  The directory is removed."""
+    import argparse
+    import csv
+    import shutil
+    import tempfile
+    import wave
+
+    from whisper_medusa_tpu_torch.cli import args as cli_args
+    from whisper_medusa_tpu_torch.cli import evaluate as cli_eval
+    from whisper_medusa_tpu_torch.models import bridge, convert
+    from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="wm_eval_")
+    try:
+        ckpt = os.path.join(tmp, "ckpt")
+        convert.save_reference_checkpoint(ckpt, model.params, model.config)
+        t1 = time.perf_counter()
+        loaded = WhisperMedusaModel.from_pretrained(ckpt, device="cuda", dtype="bfloat16")
+        src, got = bridge.flatten(model.params), bridge.flatten(loaded.params)
+        same = src.keys() == got.keys() and all(
+            got[k].dtype == src[k].dtype and torch.equal(got[k], src[k]) for k in src)
+        size = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        log(f"reference checkpoint of the bf16 model (d_model {model.config.dims.d_model}, "
+            f"{model.config.medusa.medusa_num_heads} heads): written in {t1 - t0:.1f} s, "
+            f"{size / 1e9:.2f} GB; from_pretrained {time.perf_counter() - t1:.1f} s; "
+            f"{len(got)} tensors bitwise the source's: {same}")
+        require(same, "from_pretrained of the reference checkpoint differs from the source")
+        del loaded, got
+        torch.cuda.empty_cache()
+        rows = []
+        for i, w in enumerate(waveforms(EVAL_SECS)):
+            path = os.path.join(tmp, f"utt{i}.wav")
+            with wave.open(path, "wb") as f:
+                f.setnchannels(1)
+                f.setsampwidth(2)
+                f.setframerate(16000)
+                f.writeframes((np.clip(w, -1, 1) * 32767).astype(np.int16).tobytes())
+            rows.append({"audio": path, "sentence": f"utterance number {i}", "language": "en"})
+        data = os.path.join(tmp, "data.csv")
+        with open(data, "w", newline="") as f:
+            wr = csv.DictWriter(f, fieldnames=["audio", "sentence", "language"])
+            wr.writeheader()
+            wr.writerows(rows)
+        for batch, needs in EVAL_NEEDS.items():
+            parser = argparse.ArgumentParser()
+            cli_args.add_eval_args(parser)
+            out_csv = os.path.join(tmp, f"preds{batch}.csv")
+            args = parser.parse_args(["--model-name", ckpt, "--data-path", data,
+                                      "--out-file-path", out_csv, "--batch-size", str(batch),
+                                      "--max-length", str(PROMPT_LEN + MAX_NEW_TOKENS)])
+            summary, wall = drive(f"evaluate CLI --batch-size {batch}", kernels,
+                                  lambda: cli_eval.evaluate_model(args), needs)
+            with open(out_csv) as f:
+                preds = list(csv.DictReader(f))
+            log(f"evaluate CLI --batch-size {batch} (reference checkpoint, bf16, cuda): "
+                f"{wall:.1f} s with the load; summary {summary}; {len(preds)} rows, columns "
+                f"{list(preds[0])}; {SMI}")
+            require(len(preds) == len(EVAL_SECS) and summary["utterances"] == len(EVAL_SECS)
+                    and np.isfinite(summary["wer"]) and np.isfinite(summary["cer"])
+                    and summary["tokens_per_second"] > 0
+                    and list(preds[0]) == list(cli_eval.OUT_FIELDS),
+                    f"evaluate CLI --batch-size {batch}: {summary}")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"reference checkpoint and evaluation CLI phase: {time.perf_counter() - t0:.1f} s")
+
+
+# The scopes K2 and K4 had before they took the JAX gates', for a same-call
+# comparison of the routes they chose.
+def _parent_fits(fits):
+    """``megastep.fits`` with its former width rule: d_model and ffn_dim
+    multiples of 256 besides the current conditions."""
+    def gate(dec_layers, x, self_k, cross_k, num_heads, cross_beam=1):
+        return (x.shape[-1] % 256 == 0 and dec_layers["fc1_b"].shape[-1] % 256 == 0
+                and fits(dec_layers, x, self_k, cross_k, num_heads, cross_beam))
+    return gate
+
+
+def _parent_hidden_available(b, n, n_heads, identity0, v, d):
+    """``verify.hidden_available`` with its former row rule: R <= 128 and
+    B * N <= 16 source rows."""
+    return (n_heads >= 1 and b * n <= 16 and (n_heads + int(identity0)) * b * n <= 128
+            and d % 64 == 0)
+
+
+def report_scope_ab(model, tiny, feat, feats8):
+    """Printed, not held: the requests whose route the wider scopes change,
+    each under the former gates (``_parent_fits``,
+    ``_parent_hidden_available``) and the current ones, in turns (former,
+    current, current, former; printed as parent and this), in one call: whisper tiny Medusa B=1 and B=8 (the per-op step against K2) and
+    the 11-head large-v2 chain at B=1 (two passes against one K4 pass); wall
+    ms of each run (128 new tokens; the 11-head chain P4_NEW_TOKENS), then
+    each route's device busy ms and idle share under the profiler."""
+    from whisper_medusa_tpu_torch.ops import megastep as MS
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    fits, avail = MS.fits, VF.hidden_available
+    wide = wide_head_model(model, 11, SEED + 21)
+    runs = {"tiny medusa B=1": (tiny, feat, MAX_NEW_TOKENS),
+            f"tiny medusa B={BATCH}": (tiny, feats8, MAX_NEW_TOKENS),
+            "large-v2 11-head chain B=1": (wide, feat, P4_NEW_TOKENS)}
+    try:
+        for name, (m, f, new) in runs.items():
+            gen = lambda: m.generate(f, language="en", max_new_tokens=new)
+            walls, outs, dev = {}, {}, {}
+            for side in ("parent", "this", "this", "parent"):
+                MS.fits, VF.hidden_available = ((_parent_fits(fits), _parent_hidden_available)
+                                                if side == "parent" else (fits, avail))
+                gen()                                               # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[side] = gen()
+                torch.cuda.synchronize()
+                walls.setdefault(side, []).append((time.perf_counter() - t0) * 1e3)
+                if len(walls[side]) == 1:
+                    dev[side] = device_split(gen)[0]
+            same = np.array_equal(outs["parent"].sequences, outs["this"].sequences)
+            log(f"scope A/B [{name}]: wall ms parent {walls['parent'][0]:.1f}, this "
+                + ", ".join(f"{w:.1f}" for w in walls["this"]) + f", parent "
+                f"{walls['parent'][1]:.1f}; device busy parent {dev['parent']:.2f} ms (idle "
+                f"{1 - dev['parent'] / min(walls['parent']):.3f}), this {dev['this']:.2f} ms "
+                f"(idle {1 - dev['this'] / min(walls['this']):.3f}); {outs['this'].steps} "
+                f"steps; tokens equal across the routes: {same}; {SMI}")
+    finally:
+        MS.fits, VF.hidden_available = fits, avail
+    del wide
+
+
+def phase_tiny_w8a32(g, kernels, feat, feats8):
+    """K2's W8A32 mode at D = 384: two layers at D384_STEPS (and the block)
+    within F32_TOL + F32_TOL |x| of the plain version, B=8 bitwise B=1; the
+    4-layer step of the int8 copy of an f32 whisper tiny against its plain
+    step (W8A32_COS_FLOOR); one Medusa B=1 request on it driven with
+    K2's W8A32 mode required.  Returns the row megastep w8a32 d384 (added to
+    ``kernels`` before the request runs)."""
+    dims = tiny_dims2()
+    err = max(max(check_w8a32_megastep_2layer(g, t, o, dims=dims) for t, o in D384_STEPS),
+              max(check_w8a32_megastep_2layer(g, t, o, block=True, dims=dims)
+                  for t, o in D384_STEPS))
+    qmodel = f32_model("tiny").quantize()
+    enc1, enc8 = qmodel.encode(feat), qmodel.encode(feats8)
+    row, cos = check_w8a32_megastep_full(qmodel, enc1, enc8, suffix=" d384")
+    row["max_abs_err"] = err
+    log(f"K2 W8A32 at D=384: 2-layer max_abs_err {err:.3e}, 4-layer worst cosine {cos:.9f} "
+        f"(held >= {W8A32_COS_FLOOR})")
+    kernels.append(row)
+    qmodel.generate(feat, language="en", max_new_tokens=8)           # warm-up
+    out, wall = drive("w8a32 tiny medusa B=1", kernels,
+                      lambda: qmodel.generate(feat, language="en",
+                                              max_new_tokens=W8A32_NEW_TOKENS),
+                      ("attention f32", "megastep w8a32 d384", "verify_hidden w8a32"),
+                      absent=PER_OP_ROWS + ("self_decode f32", "cross_decode w8a32"))
+    report("w8a32 tiny medusa B=1 request", out, wall,
+           check_output(out, 1, qmodel.config.dims.vocab_size, W8A32_NEW_TOKENS))
+    del qmodel, enc1, enc8
+    torch.cuda.empty_cache()
+    return row
+
+
 def main():
     smi = phase_env()
     phase_build()
@@ -5165,6 +5555,7 @@ def main():
     check_verify_ts(g, bqmodel, identity0=True)
     k5ts = check_verify_rows_ts(g, model)
     k5tsq = check_verify_rows_ts(g, qmodel)
+    k4w, k4wq = check_verify_wide(g, model, "bf16"), check_verify_wide(g, qmodel, "int8")
 
     proc = WhisperMedusaProcessor(tokenizer=CharTokenizer())
     waves = waveforms((8.0, 17.5, 29.0))
@@ -5208,7 +5599,8 @@ def main():
     for m, name in ((model, "large-v2 bf16"), (qmodel, "large-v2 int8")):
         check_step_invariance(m, enc8, name)
     kernels = [*k1, k2, k2q, k3, k4, k4q, k4a, k4aq, k5, k5q, *k6, k7,
-               k8, k2b, k2bq, k4b, k4bq, k10, k10q, k10m, k10w, k11, k4ts, k4tsq, k5ts, k5tsq]
+               k8, k2b, k2bq, k4b, k4bq, k10, k10q, k10m, k10w, k11, k4ts, k4tsq, k5ts, k5tsq,
+               k4w, k4wq]
 
     # ---- phase 4: the main paths, bf16 then int8
     outs = phase_requests("bf16", model, kernels, feats, waves, feats8, batch_secs)
@@ -5251,6 +5643,7 @@ def main():
     t0 = time.perf_counter()
     phase_capture_requests(model, bmodel, kernels, feats[0], feats8)
     log(f"capture phase: {time.perf_counter() - t0:.1f} s")
+    phase_eval_cli(model, kernels)
     for k in kernels:
         log(f"launches {k['name']} (all main paths): {k['launches']}")
 
@@ -5271,15 +5664,20 @@ def main():
     report_generate_invariance(model, feats8, outs["medusa B=8"])
     report_b16_invariance(model, enc16)
 
-    # ---- phase 4 at whisper tiny (d_model 384): the per-op step, K2 at 0
+    # ---- phase 4 at whisper tiny (d_model 384): K2 at B <= 8, the per-op step past it
     tiny = tiny_models()
     kernels += [check_ffn_decode(g, d=TINY_D, f=4 * TINY_D, timed_m=16,
                                  name="ffn_decode d384"),
                 check_head_rows(g, tiny[0], name="head_rows d384"),
                 check_verify(g, tiny[0], name="verify d384")]
     check_head_invariance(g, tiny[1], "head_rows_int8 d384")
-    check_step_invariance(tiny[0], tiny[0].encode(feats8), "tiny bf16")
+    check_verify_wide(g, tiny[0], "bf16 d384")
+    tenc8 = tiny[0].encode(feats8)
+    kernels += check_megastep_d384(g, tiny, tiny[0].encode(feats[0]), tenc8)
+    check_step_invariance(tiny[0], tenc8, "tiny bf16")
     phase_tiny_requests(tiny, kernels, feats, feats8)
+    phase_p4_requests(tiny[0], kernels, feats[0], P4_TINY_RUNS)
+    report_scope_ab(model, tiny[0], feats[0], feats8)
     for k in kernels:
         if k["name"] in TINY_ROWS:
             log(f"launches {k['name']} (whisper tiny paths): {k['launches']}")

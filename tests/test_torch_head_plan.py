@@ -44,7 +44,7 @@ def test_python_constants_match_the_sources():
     wg, ver = _constants("wgemm.cuh"), _constants("verify.cu")
     assert wg["G_MAX_MT"] * 16 == VF.MAX_SRC_ROWS
     assert wg["H_STAGES"] == VF.HEAD_STAGES
-    assert ver["VH_MAX_SRC"] == VF.MAX_SRC
+    assert ver["VH_SRC_BLOCK"] == VF.MAX_SRC_ROWS
     assert ver["VH_MAX_ROWS"] == VF.MAX_R
 
 

@@ -119,7 +119,10 @@ def test_fits_is_k2_scope():
     assert tmegastep.fits(layers, x(1, 16), sk, ck, 20)
     assert not tmegastep.fits(layers, x(9, 11), sk, ck, 20)         # B > 8
     assert not tmegastep.fits(layers, x(1, 17), sk, ck, 20)         # T > 16
-    assert not tmegastep.fits(layers, x(1, 1, 384), sk, ck, 6)      # tiny: D % 256
+    tiny = _streamed({"fc1_b": torch.zeros((4, 1536))})
+    assert tmegastep.fits(tiny, x(8, 11, 384), sk, ck, 6)           # tiny: D % 128
+    assert not tmegastep.fits(_streamed({"fc1_b": torch.zeros((2, 1280))}),
+                              x(1, 1, 320), sk, ck, 5)              # D % 128
     assert not tmegastep.fits(layers, x(1, 1), sk, ck, 10)          # heads of 128
     # A self slab past the attention's cluster split (8 CTAs of 384 keys).
     assert not tmegastep.fits(layers, x(1, 1), torch.zeros((2, 1, 3088, 1280)), ck, 20)

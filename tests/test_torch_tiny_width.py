@@ -4,10 +4,11 @@ made by the JAX package and carried across by the bridge; ``generate`` with
 10 base_head heads at B=1 and B=3, ``max_new_tokens=12`` (one verification
 step: the loop stops where the ten heads would draft past the limit), and
 at B=1 with ``max_new_tokens=40`` (several steps), gives the JAX package's
-tokens, lengths, accepted drafts and steps.  d_model 384 is not a
-multiple of 256, so on the card every decode call takes the per-op step,
-whose kernels (K11, head_rows, K4) are held against these plain versions by
-chip_smoke.py."""
+tokens, lengths, accepted drafts and steps.  With f32 weights every decode
+call takes the per-op step on both sides (K2 refuses f32 streamed weights,
+as JAX's gate does); at bf16 and int8 whisper tiny decodes on K2 at B <= 8
+(d_model 384 is a multiple of 128, ffn 1536 of 384), and chip_smoke.py holds
+K2 at D = 384, K11, head_rows and K4 against these plain versions."""
 
 import jax
 import jax.numpy as jnp

@@ -48,6 +48,6 @@ def test_cli_checkpoint_loads_in_jax(data_csv, tmp_path):
     with pytest.raises(NotImplementedError, match="item 17"):
         cli.main(["--train-data-path", data_csv, "--validation-data-path", data_csv,
                   "--output-path", out, "--dp", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(NotImplementedError, match="--wandb-logging is not ported"):
         cli.main(["--train-data-path", data_csv, "--validation-data-path", data_csv,
                   "--output-path", out, "--wandb-logging", "true", "--device", "cpu"])

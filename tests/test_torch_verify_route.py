@@ -1,17 +1,18 @@
-"""Verification at B=1 past K4's rows: the port's ``generate`` against the
+"""Verification at B=1 on long chains: the port's ``generate`` against the
 JAX package's on the same weights, with the verification route counted.
 
-K4 (``ops/verify.py::verify_hidden``) takes R = (heads) * B * N <= 128 rows
-and B * N <= 16 (``verify.hidden_available``); past that the decode loop
-verifies in two passes (``head_rows`` + K5 ``verify_rows``, then the draft
-heads at the accepted node), as the JAX package falls back where its
-``hidden_available`` is False.  A d_model-256 variant of
-``tiny_test_config`` (4 heads of 64, ffn 256: K2's widths, so D % 64 == 0
-and only R decides), float32 on the CPU: 10 draft heads give R = 121 (K4),
-11 give R = 144 (two passes), and 16 give a 17-node chain, which also runs
-the per-op decoder step at bf16 too (T = 17 > 16; f32 weights run it at every
-T).  Tokens, lengths, accepted drafts and steps equal the
-JAX package's; token log-probs agree to 1e-4.
+K4 (``ops/verify.py::verify_hidden``) takes the JAX gate's scope
+(``verify.hidden_available``): R = (heads) * B * N <= 1024 rows and a head
+stack of at most 40 MiB; past that the decode loop verifies in two passes
+(``head_rows`` + K5 ``verify_rows``, then the draft heads at the accepted
+node), as the JAX package does where its ``hidden_available`` is False.  A
+d_model-256 variant of ``tiny_test_config`` (4 heads of 64, ffn 256: K2's
+widths, so D % 64 == 0 and only R decides), float32 on the CPU: 10 draft
+heads give R = 121, 11 give R = 144 and 16 give a 17-node chain, R = 289,
+all one K4 pass a step; the 17-node chain also runs the per-op decoder step
+at bf16 too (T = 17 > 16; f32 weights run it at every T).  Tokens, lengths,
+accepted drafts and steps equal the JAX package's; token log-probs agree to
+1e-4.
 """
 
 import dataclasses
@@ -60,8 +61,8 @@ def _counted(monkeypatch, module, name, calls):
     monkeypatch.setattr(module, name, run)
 
 
-@pytest.mark.parametrize("heads,fused,per_op", [(10, True, False), (11, False, False),
-                                                (16, False, True)])
+@pytest.mark.parametrize("heads,fused,per_op", [(10, True, False), (11, True, False),
+                                                (16, True, True)])
 def test_b1_route_matches_jax(monkeypatch, heads, fused, per_op):
     jm, tm = _models(heads)
     nodes = heads + 1
@@ -91,11 +92,15 @@ def test_b1_route_matches_jax(monkeypatch, heads, fused, per_op):
 
 @pytest.mark.parametrize("b,n,heads,identity0,d,want", [
     (1, 11, 11, False, 1280, True),      # R = 121: the 10-head chain
-    (1, 12, 12, False, 1280, False),     # R = 144
+    (1, 12, 12, False, 1280, True),      # R = 144, a 39.3 MB stack: the 11-head chain
     (1, 11, 10, True, 1280, True),       # Medusa-Block: (10 + 1) * 11
-    (1, 12, 11, True, 1280, False),
+    (1, 12, 11, True, 1280, True),
     (2, 8, 8, False, 1280, True),        # B * N = 16, R = 128
-    (1, 17, 1, False, 1280, False),      # B * N = 17
+    (1, 17, 1, False, 1280, True),       # B * N = 17
+    (1, 17, 17, False, 384, True),       # tiny's 16-head chain: R = 289
+    (1, 17, 17, False, 1280, False),     # large-v2's 16-head chain: a 55.7 MB stack
+    (8, 11, 11, False, 1280, True),      # R = 968
+    (1, 33, 32, False, 256, False),      # R = 1056 > 1024
     (1, 11, 11, False, 32, False),       # D % 64
     (1, 11, 0, False, 1280, False),      # no heads
 ])

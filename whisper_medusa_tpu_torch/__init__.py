@@ -5,7 +5,7 @@ paths (``models/whisper.py``, ``ops/megastep.py``, ...) so each counterpart is
 found by name.  It imports ``torch`` and never ``jax``, and nothing of the
 JAX package: it keeps its own copies of the jax-free modules it needs
 (``config``, ``decoding.buffers``, ``data.tokenizer``, ``data.bpe``,
-``data.flac_py``, the resampler in ``data.audio``).
+``data.flac_py``, the resampler in ``data.audio``, ``utils.metrics``).
 
 Plain tensor code is PyTorch.  The eight kernels of the serving paths
 (attention, the whole-decoder megastep with its int8 and Medusa-Block

@@ -1,7 +1,8 @@
-"""The training CLI's flags — the port's copy of whisper_medusa_tpu/cli/args.py
-(``add_model_args``, ``add_training_args``: the same flags and defaults), plus
-``--device``.  The distributed and mesh flags are accepted and refused when
-set (``refuse_unported``)."""
+"""The CLIs' flags — the port's copy of whisper_medusa_tpu/cli/args.py
+(``add_model_args``, ``add_training_args``, ``add_eval_args``: the same flags
+and defaults), plus ``--device``.  The distributed and mesh flags are
+accepted and refused when set (``refuse_unported``), as is
+``--wandb-logging``."""
 
 from __future__ import annotations
 
@@ -58,10 +59,10 @@ def refuse_unported(args) -> None:
             "--dp/--tp/--coordinator-address/--num-processes/--process-id are not "
             "ported to whisper_medusa_tpu_torch yet (ROADMAP queue 1, item 17: "
             "DP/DDP training)")
-    if args.wandb_logging:
-        raise NotImplementedError(
-            "--wandb-logging is not ported to whisper_medusa_tpu_torch yet (ROADMAP "
-            "queue 1, item 18: wandb logging)")
+    if getattr(args, "wandb_logging", False):
+        from whisper_medusa_tpu_torch.utils.logging_utils import make_wandb_logger
+
+        make_wandb_logger(args.wandb_project)
 
 
 def add_training_args(p: argparse.ArgumentParser) -> None:
@@ -90,4 +91,28 @@ def add_training_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--wandb-project", default="whisper-medusa-tpu")
     p.add_argument("--wandb-run-name", default=None)
     p.add_argument("--wandb-resume-id", default=None)
+    add_mesh_args(p)
+
+
+def add_eval_args(p: argparse.ArgumentParser) -> None:
+    """The evaluation CLI's flags (the JAX ``add_eval_args``) and ``--device``."""
+    p.add_argument("--model-name", required=True,
+                   help="checkpoint directory (the framework's format or the reference's)")
+    p.add_argument("--data-path", required=True)
+    p.add_argument("--out-file-path", required=True)
+    p.add_argument("--language", default="en")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--max-length", type=int, default=448)
+    p.add_argument("--disable-medusa", type=str2bool, default=False,
+                   help="vanilla greedy baseline (for speedup measurement)")
+    p.add_argument("--regulation-start", type=int, default=140)
+    p.add_argument("--regulation-factor", type=float, default=1.0)
+    p.add_argument("--tokenizer-path", default=None)
+    p.add_argument("--param-dtype", default="bfloat16")
+    p.add_argument("--num-beams", type=int, default=1,
+                   help=">1 switches to vanilla beam search (beyond reference)")
+    p.add_argument("--int8", type=str2bool, default=False,
+                   help="int8 weight-only serving mode (model.quantize())")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (cpu runs the kernels' plain versions)")
     add_mesh_args(p)

@@ -17,9 +17,6 @@ from __future__ import annotations
 import argparse
 import logging
 import os
-import random
-
-import numpy as np
 
 from whisper_medusa_tpu_torch.cli.args import (add_model_args, add_training_args,
                                                refuse_unported)
@@ -28,6 +25,7 @@ from whisper_medusa_tpu_torch.data import dataset as ds_mod
 from whisper_medusa_tpu_torch.data.tokenizer import CharTokenizer, load_tokenizer
 from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
 from whisper_medusa_tpu_torch.training.trainer import MedusaTrainer, TrainingArgs
+from whisper_medusa_tpu_torch.utils.logging_utils import set_logger, set_seed
 
 logger = logging.getLogger("whisper_medusa_tpu_torch")
 
@@ -60,13 +58,8 @@ def main(argv=None):
     add_training_args(parser)
     args = parser.parse_args(argv)
     refuse_unported(args)
-    if not logger.handlers:
-        handler = logging.StreamHandler()
-        handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s"))
-        logger.addHandler(handler)
-    logger.setLevel(logging.INFO)
-    random.seed(args.seed)
-    np.random.seed(args.seed)
+    set_logger()
+    set_seed(args.seed)
     model = get_model(args)
 
     try:

@@ -707,13 +707,17 @@ extern "C" int wm_megastep_clusters(int B, int H, int S, int SE, int quant, int*
 // ints: L, B, T, D, H, F, S (self slab rows), Se (cross rows), cross_len.
 // L' = L slab slots, or L + 1 in block mode (slot L is the block's).
 // M16 = ceil(B * T / 16) * 16 rows are allocated in every row buffer.
+// D % 128 and F % D, the JAX gate's widths (whisper tiny's 384 and 1536:
+// every projection then has 64-wide K slices, 6-CTA clusters; every K slice
+// and cluster size comes from gemm_slices, so no width needs code of its
+// own); ops/megastep.py::fits adds the narrower conditions the kernels need.
 extern "C" int wm_megastep_step(void** p, const int* ints, void* stream) {
   using namespace wm;
   const int L = ints[0], B = ints[1], T = ints[2], D = ints[3], H = ints[4];
   const int F = ints[5], S = ints[6], SE = ints[7], cross_len = ints[8];
   const int M = B * T;
   cudaStream_t st = (cudaStream_t)stream;
-  if (T > CD_MAXT || B > 8 || M > K2_MAX_ROWS || D != H * CD_DH || D % 256 || F % 256 ||
+  if (T > CD_MAXT || B > 8 || M > K2_MAX_ROWS || H < 1 || D != H * CD_DH || D % 128 || F % D ||
       SE % 4 || cross_len < 1 || cross_len > SE || S < T)
     return (int)cudaErrorInvalidValue;
   const bool quant = p[P_Q_S] != nullptr;

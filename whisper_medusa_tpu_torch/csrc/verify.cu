@@ -28,6 +28,14 @@
 // 2 * R * V * D products (R = 1024: 136 GFLOP, 0.14 ms at 989 TFLOP/s;
 // counted from the shapes); stage A streams the 11 heads (36 MB).
 //
+// K4 takes the JAX kernel's R <= 1024 rows (VH_MAX_ROWS).  Stage A runs
+// over the BN source rows in blocks of up to 192 (VH_SRC_BLOCK, the heads
+// mode's rows a launch), in order: within one block the launch writes the
+// rows in place, as it always did; past it each block's launch writes the
+// wrapper's staging rows (NH, 192, D) and one 2-D copy puts head k's block
+// at rows k BN + r0.  A head row's sum is cut by D alone, so its bits do
+// not depend on the block, on BN or on R.
+//
 // Stage A reads the BN source rows through a tensor map over exactly BN
 // rows (TMA zero-fills the rest of the 16-row tile: no staging copy) and
 // runs under programmatic dependent launch: it lets the vocab stream launch
@@ -115,8 +123,8 @@ constexpr int VS_ERAW = VS_VT * VS_KC;       // int8 E tile, bytes
 constexpr int VS_WBUF = 3;                   // converted bf16 E tiles (int8)
 constexpr int VS_LDC = VS_VT + 4;            // f32 pitch of the staged sums
 constexpr int VS_RB = 4;                     // rows a warp scores at once
-constexpr int VH_MAX_ROWS = 128;             // K4's rows (the JAX kernel takes 1024)
-constexpr int VH_MAX_SRC = 16;               // K4's source rows (B * N)
+constexpr int VH_MAX_ROWS = 1024;            // K4's rows (the JAX kernel's _MAX_R)
+constexpr int VH_SRC_BLOCK = 192;            // stage A's source rows a launch (16 G_MAX_MT)
 
 // Ring depth by row tiles: 8 stages at one or two row tiles, 3 at three to
 // eight and 2 past them (a CTA of 192 rows and an int8 pair then holds
@@ -697,12 +705,12 @@ enum VerifyPtr {
   V_MAXTS,      //   (R,) int32 split
   V_TS_F,
   V_TS_A,
-  V_COUNT
+  V_COUNT       // bf16: (nh, 192, D) staging rows when BN > 192, else null
 };
 
 // ints: BN, D, V, n_heads, identity0, begin_index, eos_id, has_decay,
 // decay_start, then the timestamp mode's n_verif, on, ts_begin, no_ts_id,
-// cap (-1: none).  R = (n_heads + identity0) * BN <= 128, BN <= 16.
+// cap (-1: none).  R = (n_heads + identity0) * BN <= 1024.
 extern "C" int wm_verify_hidden(void** p, const int* ints, float log_factor,
                                 void* stream) {
   using namespace wm;
@@ -711,17 +719,32 @@ extern "C" int wm_verify_hidden(void** p, const int* ints, float log_factor,
   const int decay_start = ints[8];
   const int R = (NH + id0) * BN;
   cudaStream_t st = (cudaStream_t)stream;
-  if (BN < 1 || BN > VH_MAX_SRC || NH < 1 || R > VH_MAX_ROWS || D % VS_KC)
+  if (BN < 1 || NH < 1 || R > VH_MAX_ROWS || D % VS_KC || (BN > VH_SRC_BLOCK && !p[V_COUNT]))
     return (int)cudaErrorInvalidValue;
   bf16* rows = static_cast<bf16*>(p[V_ROWS]);
-  // (A) row construction.
+  // (A) row construction, in blocks of up to VH_SRC_BLOCK source rows.
   if (id0)
     cudaMemcpyAsync(rows, p[V_HVER], (size_t)BN * D * sizeof(bf16),
                     cudaMemcpyDeviceToDevice, st);
-  int err = head_rows(static_cast<const bf16*>(p[V_HSRC]), p[V_HEADS_W],
-                      static_cast<const bf16*>(p[V_HEADS_B]),
-                      static_cast<const float*>(p[V_HEADS_S]), rows + (size_t)id0 * BN * D, BN,
-                      D, NH, st);
+  const bf16* src = static_cast<const bf16*>(p[V_HSRC]);
+  const bf16* hb = static_cast<const bf16*>(p[V_HEADS_B]);
+  const float* hs = static_cast<const float*>(p[V_HEADS_S]);
+  bf16* hrows = rows + (size_t)id0 * BN * D;
+  int err = 0;
+  if (BN <= VH_SRC_BLOCK) {
+    err = head_rows(src, p[V_HEADS_W], hb, hs, hrows, BN, D, NH, st);
+  } else {
+    bf16* stage = static_cast<bf16*>(p[V_COUNT]);
+    const size_t row_bytes = (size_t)D * sizeof(bf16);
+    for (int r0 = 0; r0 < BN && err == 0; r0 += VH_SRC_BLOCK) {
+      const int m = BN - r0 < VH_SRC_BLOCK ? BN - r0 : VH_SRC_BLOCK;
+      err = head_rows(src + (size_t)r0 * D, p[V_HEADS_W], hb, hs, stage, m, D, NH, st);
+      if (err == 0)   // head k's m rows: stage[k] -> rows k BN + r0
+        err = (int)cudaMemcpy2DAsync(hrows + (size_t)r0 * D, BN * row_bytes, stage,
+                                     m * row_bytes, m * row_bytes, NH,
+                                     cudaMemcpyDeviceToDevice, st);
+    }
+  }
   if (err != 0) return err;
   // (B) the vocab stream, (C) combine.
   err = score_rows(rows, R, p[V_EMBED], static_cast<const float*>(p[V_EMBED_S]), V, D,
@@ -931,8 +954,7 @@ extern "C" int wm_verify_hidden_f32(void** p, const int* ints, float log_factor,
   const int BN = ints[0], D = ints[1], V = ints[2], NH = ints[3], id0 = ints[4];
   const int R = (NH + id0) * BN;
   cudaStream_t st = (cudaStream_t)stream;
-  if (BN < 1 || BN > VH_MAX_SRC || NH < 1 || R > VH_MAX_ROWS || D % VS_KC)
-    return (int)cudaErrorInvalidValue;
+  if (BN < 1 || NH < 1 || R > VH_MAX_ROWS || D % VS_KC) return (int)cudaErrorInvalidValue;
   float* rows = static_cast<float*>(p[V_ROWS]);
   if (id0)
     cudaMemcpyAsync(rows, p[V_HVER], (size_t)BN * D * sizeof(float), cudaMemcpyDeviceToDevice,

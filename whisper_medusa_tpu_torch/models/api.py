@@ -116,7 +116,10 @@ class WhisperMedusaModel:
 
     @classmethod
     def from_pretrained(cls, path: str, device="cuda", dtype=None) -> "WhisperMedusaModel":
-        """Load a framework checkpoint directory (config.json + params.safetensors)."""
+        """Load a checkpoint directory: the framework's (config.json +
+        params.safetensors) or a reference (``aiola/whisper-medusa-*``)
+        one, converted (``models/convert.py``); ``generation_config.json``
+        in either format when present."""
         config, params = bridge.load_checkpoint(path, device=device, dtype=dtype)
         gen_cfg, special = bridge.generation_metadata(path, config)
         return cls(config, params, device=device, generation_config=gen_cfg,

@@ -11,7 +11,10 @@ reshape:
     ``init_medusa_params`` with a ``torch.Generator`` on the target device;
   * :func:`load_checkpoint` reads the framework format (``config.json`` +
     ``params.safetensors``, keys ``whisper/decoder/layers/self/q_w``...,
-    ``medusa/block/...`` for the Medusa-Block layer).
+    ``medusa/block/...`` for the Medusa-Block layer) or, through
+    ``models/convert.py``, a reference (``aiola/whisper-medusa-*``)
+    checkpoint directory; :func:`generation_metadata` reads either format's
+    ``generation_config.json``.
 
 A Medusa-Block model's ``medusa`` tree holds ``heads`` (``medusa_num_heads``
 heads, all drafting) and ``block``, one unstacked decoder layer; a model
@@ -243,16 +246,22 @@ def _unflatten(flat: Dict[str, torch.Tensor]) -> Params:
 
 
 def load_checkpoint(path: str, device="cuda", dtype=None) -> Tuple[ModelConfig, Params]:
-    """Read a framework checkpoint directory (config.json + params.safetensors)."""
+    """Read a checkpoint directory: the framework's (config.json +
+    params.safetensors) or the reference's (an HF MedusaConfig config.json
+    and ``*.safetensors`` / ``*.bin`` state dicts, converted by
+    ``models/convert.py``)."""
     from safetensors.torch import load_file
 
+    from whisper_medusa_tpu_torch.models import convert
+
     dev = resolve_device(device)
-    with open(os.path.join(path, "config.json")) as f:
+    cfg_path = os.path.join(path, "config.json")
+    if not os.path.isfile(cfg_path):
+        raise FileNotFoundError(f"no config.json under {path}")
+    with open(cfg_path) as f:
         raw = json.load(f)
-    if "dims" not in raw:
-        raise NotImplementedError(
-            "only the framework's own checkpoint format is ported; reference "
-            "torch checkpoints wait for the converter (ROADMAP queue 1)")
+    if "dims" not in raw:       # the reference's HF MedusaConfig: widths at the top level
+        return convert.load_reference(path, device=dev, dtype=dtype)
     config = ModelConfig.from_dict(raw)
     if dtype:
         config = config.replace(param_dtype=str(dtype).replace("torch.", ""))
@@ -264,16 +273,63 @@ def load_checkpoint(path: str, device="cuda", dtype=None) -> Tuple[ModelConfig, 
 
 def generation_metadata(path: str, config: ModelConfig) -> Tuple[Optional[Any], Optional[Any]]:
     """(GenerationConfig, SpecialTokens) from a checkpoint's
-    ``generation_config.json`` in the framework's own save format, or
-    (None, None) when absent."""
-    from whisper_medusa_tpu_torch.config import GenerationConfig, SpecialTokens
+    ``generation_config.json``, or (None, None) when absent — the JAX
+    ``api._load_generation_config``.  The framework's own save format
+    carries ``special_tokens`` and round-trips exactly; an HF Whisper
+    generation config gives the special-token layout from its ``lang_to_id``
+    / ``task_to_id`` / ``no_timestamps_token_id`` / ``prev_sot_token_id``
+    over the vocabulary's defaults, and its suppress lists, thresholds,
+    posterior hyperparameters and decay."""
+    import dataclasses
+
+    from whisper_medusa_tpu_torch.config import (GenerationConfig, SpecialTokens,
+                                                 default_begin_suppress_tokens,
+                                                 default_suppress_tokens)
 
     p = os.path.join(path, "generation_config.json")
     if not os.path.isfile(p):
         return None, None
     with open(p) as f:
         raw = json.load(f)
-    if "special_tokens" not in raw:
-        raise NotImplementedError(
-            "HF-format generation_config.json is not ported yet (ROADMAP queue 1)")
-    return GenerationConfig.from_dict(raw), SpecialTokens(**raw["special_tokens"])
+    if "special_tokens" in raw:
+        return GenerationConfig.from_dict(raw), SpecialTokens(**raw["special_tokens"])
+    kw = {}
+    if raw.get("eos_token_id") is not None:
+        kw["eos"] = int(raw["eos_token_id"])
+    if raw.get("decoder_start_token_id") is not None:
+        kw["sot"] = int(raw["decoder_start_token_id"])
+    if raw.get("lang_to_id"):
+        ids = sorted(int(v) for v in raw["lang_to_id"].values())
+        kw["first_language"] = ids[0]
+        kw["num_languages"] = len(ids)
+    for task in ("transcribe", "translate"):
+        if task in (raw.get("task_to_id") or {}):
+            kw[task] = int(raw["task_to_id"][task])
+    if raw.get("prev_sot_token_id") is not None:
+        kw["start_of_prev"] = int(raw["prev_sot_token_id"])
+        kw["start_of_lm"] = int(raw["prev_sot_token_id"]) - 1
+    if raw.get("no_timestamps_token_id") is not None:
+        nt = int(raw["no_timestamps_token_id"])
+        kw.update(no_timestamps=nt, timestamp_begin=nt + 1, no_speech=nt - 1)
+    special = dataclasses.replace(config.dims.special, **kw)
+    gen = dict(
+        max_length=int(raw.get("max_length", config.dims.max_target_positions)),
+        eos_token_id=special.eos,
+        pad_token_id=(int(raw["pad_token_id"]) if raw.get("pad_token_id") is not None
+                      else special.eos),
+        decoder_start_token_id=special.sot,
+        suppress_tokens=(tuple(raw["suppress_tokens"]) if raw.get("suppress_tokens") is not None
+                         else default_suppress_tokens(special)),
+        begin_suppress_tokens=(tuple(raw["begin_suppress_tokens"])
+                               if raw.get("begin_suppress_tokens") is not None
+                               else default_begin_suppress_tokens(special)))
+    for k in ("posterior_threshold", "posterior_alpha", "temperature",
+              "compression_ratio_threshold", "logprob_threshold", "no_speech_threshold"):
+        if raw.get(k) is not None:
+            gen[k] = float(raw[k])
+    if raw.get("max_initial_timestamp_index") is not None:
+        gen["max_initial_timestamp_index"] = int(raw["max_initial_timestamp_index"])
+    for k in ("exponential_decay_length_penalty", "temperature_fallback"):
+        if raw.get(k) is not None:
+            gen[k] = tuple(raw[k])
+    return GenerationConfig(**gen), special

@@ -92,12 +92,16 @@ update the self slabs (and scales) in place and return ``(pre_norm, hidden,
 block_hidden)``, ``block_hidden`` None without a block.  Scope of the
 kernel (:func:`fits`): bf16 activations with bf16 or int8 weights and
 caches, or f32 activations with int8 weights and caches (W8A32),
-B <= 8, T <= 16 (so B*T <= 128), Dh = 64, d_model and ffn_dim multiples of
-256, self and cross key counts whose cluster slices fit a CTA (at most 8 x
-384 keys); ``models/whisper.py::decode_step`` sends every other call to the
-per-op step (kernels K10 and K11, ops/decode_ops.py).  The chunk mask must
-have its diagonal set (every query sees itself), as the decoding loop's
-masks do.
+B <= 8, T <= 16 (so B*T <= 128), Dh = 64, d_model a multiple of 128 and
+ffn_dim a multiple of d_model (the JAX gate's widths: whisper tiny's 384
+and 1536 among them), self and cross key counts whose cluster slices fit a
+CTA (at most 8 x 384 keys); ``models/whisper.py::decode_step`` sends every
+other call to the per-op step (kernels K10 and K11, ops/decode_ops.py).
+At whisper tiny the projections' K slices are 64 wide (q/k/v, o, cross
+q/o and fc1 in 6 slices of one chunk, fc2 in 8 of three), so its GEMM
+clusters hold 6 CTAs, and its 6 heads are 6 attention clusters an example.
+The chunk mask must have its diagonal set (every query sees itself), as the
+decoding loop's masks do.
 """
 
 from __future__ import annotations
@@ -266,14 +270,22 @@ def fits(dec_layers: Params, x: torch.Tensor, self_k: torch.Tensor,
     latter at bf16 or, W8A32, f32 activations; f32 weights, the JAX
     package's default dtype, run the per-op step, as JAX's gate sends them
     to its scan), no beams (``cross_beam`` 1; beams run the
-    per-op step, as in JAX), B <= 8, T <= 16, heads of 64, d_model and
-    ffn_dim multiples of 256, a cross length that is a multiple of 4, self
-    and cross key counts whose cluster slices (:func:`attention_plan`) fit
-    a CTA, and fused norms whose K slices a lane can hold
-    (:func:`ln_longest_slice`).  It reads only the weights' dtypes and
-    shapes, so it routes a call alike on the CPU and on the card;
-    ``models/whisper.py::decode_step`` runs the per-op step where it is
-    False."""
+    per-op step, as in JAX), B <= 8, T <= 16, d_model a multiple of 128
+    and ffn_dim a multiple of d_model (JAX's widths,
+    whisper_medusa_tpu/ops/megastep.py:172-176).  It reads only the
+    weights' dtypes and shapes, so it routes a call alike on the CPU and on
+    the card; ``models/whisper.py::decode_step`` runs the per-op step where
+    it is False.
+
+    Narrower than JAX, for the kernel's sake: heads of 64 (JAX takes any
+    ``d_model % num_heads == 0``; the attention body ``cluster_attn.cuh``
+    is written for Dh = 64), a cross length that is a multiple of 4 (its
+    16-byte K/V copies), self and cross key counts whose cluster slices
+    (:func:`attention_plan`) fit a CTA (at most 8 x 384 keys: its shared
+    memory), and fused norms whose K slices a lane can hold
+    (:func:`ln_longest_slice` <= 10 chunks: the LN mode keeps a lane's
+    pieces of a row in registers; every Whisper preset passes, a d_model of
+    1536 with 24 heads would not)."""
     from whisper_medusa_tpu_torch.ops import decode_ops
 
     if not streamed_dtypes_fit(dec_layers):
@@ -283,7 +295,7 @@ def fits(dec_layers: Params, x: torch.Tensor, self_k: torch.Tensor,
     s_len = self_k.shape[2]
     plan = attention_plan(cross_k.shape[-1], s_len)
     return (cross_beam == 1 and 1 <= b <= MAX_B and 1 <= t <= MAX_T and d == 64 * num_heads
-            and d % 256 == 0 and f % 256 == 0 and cross_k.shape[-1] % 4 == 0
+            and d % 128 == 0 and f % d == 0 and cross_k.shape[-1] % 4 == 0
             and all(sc <= decode_ops.MAX_SLICE for _, sc in plan.values())
             and ln_longest_slice(d, f) <= LN_MAX_CHUNKS)
 
@@ -524,8 +536,8 @@ def megastep_kernel(dec_layers: Params, ln_post: Params, x, self_k, self_v, cros
     dh = d // num_heads
     if not fits(dec_layers, x, self_k, cross_k, num_heads):
         raise ValueError(
-            f"megastep kernel takes B <= {MAX_B}, T <= {MAX_T}, Dh=64, D and F multiples "
-            f"of 256, S_enc % 4 == 0 and key counts of at most 8 x 384; got x "
+            f"megastep kernel takes B <= {MAX_B}, T <= {MAX_T}, Dh=64, D % 128 == 0, "
+            f"F % D == 0, S_enc % 4 == 0 and key counts of at most 8 x 384; got x "
             f"{tuple(x.shape)}, self_k {tuple(self_k.shape)}, cross_k "
             f"{tuple(cross_k.shape)}, F={f}")
     if (self_k.shape != (n_slots, b, s_len, d) or self_v.shape != self_k.shape

@@ -29,7 +29,10 @@ memory for the statistics, so a row's partials do not depend on R or on
 the rows beside it.  K5 is stages
 B and C alone, for R <= 1024 rows a call (the vanilla loop's B rows and the
 two-pass loop's B*N head-0 rows; past 192 rows the stream takes passes of
-192); K4's stage B is the same function over its R <= 128 rows.  The bound
+192); K4's stage B is the same function over its R <= 1024 rows.  K4's
+stage A takes the B*N source rows in blocks of up to 192 (one heads-mode
+launch each; past one block each launch writes a staging buffer whose
+head blocks are copied to their rows), so a row's bits do not depend on R.  The bound
 is the 133 MB embedding stream (40 us at 3.35 TB/s) for R up to ~250, the
 2*R*V*D products beyond.  ``head_rows`` (C entry ``wm_head_rows``) is K4's
 stage A alone, so that the two-pass loop's head-0 rows carry the same bits
@@ -52,11 +55,11 @@ state, scored as the verification rows) and the heads 0..K-1 build row
 blocks 1..K from ``hsrc`` (the block layer's output), so R = (K + 1) * B * N.
 
 Rows are ordered (k, e, n): head-major over flattened (batch, node).  Scope:
-chain + greedy, K4 at B*N <= 16 and R <= 128 (:func:`hidden_available`;
-the decode loop verifies in two passes where it is False, as the JAX
-package does); K5 launches take R <= 1024
-and ``head_rows`` launches M <= 192, so their wrappers send more rows in
-blocks (pass A at B > 16).
+chain + greedy, K4 at R <= 1024 rows and a head stack of at most 40 MiB
+(:func:`hidden_available`, the JAX gate; the decode loop verifies in two
+passes where it is False, as the JAX package does); K5 launches take
+R <= 1024 and ``head_rows`` launches M <= 192, so their wrappers send more
+rows in blocks (pass A at B > 16).
 
 f32 serving (the JAX package's default dtype) is a mode of the same three
 wrappers with C entries of their own (``wm_verify_hidden_f32``,
@@ -103,9 +106,9 @@ from whisper_medusa_tpu_torch.ops import megastep as megastep_mod
 from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
 
 NEG = -float(np.finfo(np.float32).max) / 2
-MAX_R = 128              # K4
+MAX_R = 1024             # K4's rows (csrc/verify.cu VH_MAX_ROWS, the JAX _MAX_R)
 MAX_ROWS_R = 1024        # rows per K5 launch (csrc/verify.cu VR_MAX_ROWS, the JAX _MAX_R)
-MAX_SRC = 16             # K4's source rows B * N (csrc/verify.cu VH_MAX_SRC)
+MAX_HEAD_BYTES = 40 * 1024 * 1024   # K4's head stack, n_heads * D^2 * 2 (the JAX gate's)
 MAX_SRC_ROWS = 192       # rows per head_rows launch (csrc/wgemm.cuh G_MAX_MT * 16)
 HEAD_STAGES = 2          # csrc/wgemm.cuh H_STAGES: ring stages of the heads mode
 TILE = 64                # csrc/verify.cu VS_VT: vocab entries a tile (partials' columns)
@@ -228,13 +231,17 @@ def _ts_args(ts_cfg, n_verif, last, penult, maxts, r: int, dev):
 def hidden_available(b: int, n: int, n_heads: int, identity0: bool, v: int, d: int) -> bool:
     """Whether K4 (:func:`verify_hidden`) takes a step of B examples of N
     nodes with ``n_heads`` stacked heads (and the hidden rows themselves
-    with ``identity0``): R = (n_heads + identity0) * B * N <= MAX_R rows,
-    B * N <= 16 source rows, D % 64 == 0 — the counterpart of the JAX
-    package's ``verify.hidden_available``.  It reads only shapes (``v`` is
-    kept for the JAX signature); ``decoding/speculative.py`` takes the
-    two-pass verification where it is False, on every device."""
+    with ``identity0``): the JAX package's ``verify.hidden_available``
+    scope (whisper_medusa_tpu/ops/verify.py:375-395) — R = (n_heads +
+    identity0) * B * N <= 1024 rows, a head stack of at most 40 MiB counted
+    as n_heads * D^2 * 2 bytes, n_heads >= 1 — with the port's own
+    D % 64 == 0 (the kernels' 64-wide K chunks) for JAX's D % 128.  It
+    reads only shapes (``v`` is kept for the JAX signature);
+    ``decoding/speculative.py`` takes the two-pass verification where it is
+    False, on every device."""
     del v
-    return (n_heads >= 1 and b * n <= MAX_SRC and (n_heads + int(identity0)) * b * n <= MAX_R
+    r = (n_heads + int(identity0)) * b * n
+    return (n_heads >= 1 and r <= MAX_R and n_heads * d * d * 2 <= MAX_HEAD_BYTES
             and d % 64 == 0)
 
 
@@ -524,7 +531,7 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
             or heads_w.shape != (nh, d, d) or heads_b.shape != (nh, d)
             or embed.shape[1] != d):
         raise ValueError(
-            f"verify kernel takes B*N <= 16, R <= {MAX_R}, D % 64 == 0; got "
+            f"verify kernel takes R <= {MAX_R}, a head stack of <= 40 MiB, D % 64 == 0; got "
             f"hidden {tuple(hver.shape)}, heads {tuple(heads_w.shape)}, R={r}")
     _check_meta(dev, r, v, pos, gcol, sup_masks)
     rows = torch.empty((r, d), dtype=dt, device=dev)
@@ -533,13 +540,19 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
                part_f, part_a, mx, lse, am, gth]
     scales = [None if a is None else a.data_ptr() for a in (escale, hscale)]
     ts_ptrs, ts_ints, _split = _ts_tail(ts, 0, r, dev)
-    # The f32 mode's table has one more entry: stage A's GEMM scratch.
-    gemm_part = ([torch.empty((decode_ops_mod.f32_gemm_plan(bn, d, d, nh)["part"],),
-                                dtype=torch.float32, device=dev)]
-                   if dt == torch.float32 else [])
-    ptrs = (ctypes.c_void_p * (len(tensors) + 7 + len(gemm_part)))(
+    # One more entry: the f32 mode's stage-A GEMM scratch; the bf16 mode's
+    # staging rows (nh, 192, D) past one stage-A block of source rows (null
+    # within one).
+    if dt == torch.float32:
+        stage = torch.empty((decode_ops_mod.f32_gemm_plan(bn, d, d, nh)["part"],),
+                            dtype=torch.float32, device=dev)
+    elif bn > MAX_SRC_ROWS:
+        stage = torch.empty((nh, MAX_SRC_ROWS, d), dtype=dt, device=dev)
+    else:
+        stage = None
+    ptrs = (ctypes.c_void_p * (len(tensors) + 8))(
         *[t.data_ptr() for t in tensors], *scales, *ts_ptrs,
-        *[t.data_ptr() for t in gemm_part])
+        None if stage is None else stage.data_ptr())
     start, factor = decay if decay is not None else (0, 1.0)
     ints = (ctypes.c_int * 14)(bn, d, v, nh, int(identity0), begin_index, eos_id,
                                int(decay is not None), int(start), *ts_ints)
