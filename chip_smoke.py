@@ -227,12 +227,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      Medusa-Linear recipe and one full fine-tune step, with their K9 launch
      counts (2, 2 and 96 per step), frozen weights bit-identical and peak
      memory; and the training CLI at whisper tiny, whose saved model
-     answers a generate.
+     answers a generate;
+  8. data- and tensor-parallel serving and training: two ranks
+     (``chip_smoke.py --parallel-rank``, gloo: NCCL refuses two ranks on
+     one card) each rebuild the large-v2 bf16 model of phase 4 (checksum
+     held) and run (a) ``shard(dp=2)`` on the B=8 batch, 4 + 4 examples,
+     its tokens on the single-process encoder rows held to the
+     single-process B=8 decode on both ranks (K2, head_rows, K5 and K3
+     launched on each), the end-to-end tokens and encoder rows printed,
+     the wall beside the single-process call's; (b) ``shard(tp=2)``, one
+     B=1 Medusa request (K2 at 0 launches; K1, K10, K11 on each rank's
+     heads), its token share and one per-op step's hidden cosine against
+     the single-process ones printed; (c) one DDP=2 Medusa-Linear recipe
+     step (base_head + all_but_last, B=2, T=224, Adafactor), the loss
+     within PAR_TRAIN_LOSS_RTOL and the heads' gradient within
+     PAR_GRAD_RTOL of the single-process step's; then (d) the native audio
+     reader against the plain readers on a WAV and a FLAC written here.
+     ``chip_smoke.py --parallel-only`` runs this phase alone.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -5480,6 +5497,536 @@ def phase_tiny_w8a32(g, kernels, feat, feats8):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: data- and tensor-parallel serving and training on two ranks
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 2
+PAR_TP_NEW_TOKENS = 32
+PAR_TIMEOUT_S = 600
+PAR_TRAIN_LOSS_RTOL = 1e-3       # the DDP step's loss against the single-process step's
+# The DDP step's gradient of each head leaf against the single-process
+# step's, ||g_ddp - g_one|| / ||g_one||: one bf16 ulp, relative.  A bf16
+# leaf's gradient is one rounding of an f32 sum in one process and the f32
+# sum of the ranks' two rounded halves under DDP.  The updated weights are
+# printed, not held: an element near zero, summed from nearly cancelling
+# halves, moves by many of its own ulps, and most bias updates are below
+# half a bf16 ulp of the bias, so which of them round up is not stable
+# under a change of that size.
+PAR_GRAD_RTOL = 2.0 ** -7
+# The DDP step's update of each head leaf (new - old) against the
+# single-process step's, ||u_ddp - u_one|| / ||u_one||, held below this.
+# Sound readings and the reading of a fault (the update of rank 0's row
+# alone, what a step that never reduced its gradients would apply) are in
+# PERF.md; the limit lies between them.
+PAR_UPDATE_RTOL = 0.05
+# One TP=2 per-op step's hidden rows (the kernels on this rank's shards)
+# against the same step on the same shards with every kernel's plain
+# version in its place: cosine at least this (readings in PERF.md).
+PAR_TP_PLAIN_COS = 0.9998
+# Launch counters a rank reads around each of its runs (module, attribute).
+PAR_COUNTERS = {"attention": ("attention", "launches"), "megastep": ("megastep", "launches"),
+                "logits": ("logits", "launches"), "head_rows": ("verify", "head_launches"),
+                "verify_hidden": ("verify", "launches"),
+                "verify_rows": ("verify", "rows_launches"),
+                "self_decode": ("decode_ops", "self_launches"),
+                "cross_decode": ("decode_ops", "cross_launches"),
+                "ffn_decode": ("decode_ops", "ffn_launches")}
+
+
+def _par_counts(reset=False):
+    import importlib
+
+    out = {}
+    for name, (mod, attr) in PAR_COUNTERS.items():
+        m = importlib.import_module(f"whisper_medusa_tpu_torch.ops.{mod}")
+        out[name] = getattr(m, attr)
+        if reset:
+            setattr(m, attr, 0)
+    return out
+
+
+def _par_model():
+    """main()'s large-v2 bf16 model: the Whisper weights from SEED, the
+    heads drawn from a generator of their own (SEED + 1)."""
+    from whisper_medusa_tpu_torch.config import WHISPER_PRESETS, MedusaConfig, ModelConfig
+    from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+
+    cfg = ModelConfig(dims=WHISPER_PRESETS["large-v2"], medusa=MedusaConfig(),
+                      param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = WhisperMedusaModel.from_random(cfg, seed=SEED)
+    hg = torch.Generator(device="cuda")
+    hg.manual_seed(SEED + 1)
+    model.params["medusa"]["heads"]["w"].normal_(0.0, 0.02, generator=hg)
+    return model
+
+
+def _par_checksum(model):
+    p = model.params
+    return [float(t.double().sum()) for t in (
+        p["whisper"]["decoder"]["embed_tokens"], p["whisper"]["decoder"]["layers"]["fc1_w"],
+        p["whisper"]["encoder"]["layers"]["self"]["q_w"], p["medusa"]["heads"]["w"])]
+
+
+def _per_op_hidden(params, dims, tokens, enc):
+    """One per-op decoder step (``decoder_layers_ops``) over ``tokens`` at
+    offset 0 on a fresh cache of ``enc``: the hidden rows."""
+    from whisper_medusa_tpu_torch.models import whisper as W
+
+    dec = params["whisper"]["decoder"]
+    cache = W.init_cache(params["whisper"], dims, enc, 64)
+    t = tokens.shape[1]
+    x = W.embed_lookup(dec["embed_tokens"], tokens) + dec["pos_embed"][None, :t]
+    offsets = torch.zeros((tokens.shape[0],), dtype=torch.int32, device=tokens.device)
+    _, hidden, _ = W.decoder_layers_ops(
+        dec["layers"], dec["ln_post"], x, cache.self_k, cache.self_v, cache.cross_k,
+        cache.cross_v, offsets, None, cross_len=enc.shape[1],
+        num_heads=dims.decoder_attention_heads)
+    return hidden
+
+
+def _bf16_ulps(a, b):
+    """|a - b| in bf16 ulps of the larger magnitude (elementwise, float)."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs())
+    ulp = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7),
+                      torch.full_like(mag, 2.0 ** -133))
+    return (a - b).abs() / ulp
+
+
+def _leaf_ulps(a, b):
+    """max |a - b| in bf16 ulps of the leaf ``b``'s largest magnitude (an
+    element near zero, summed from nearly cancelling partial gradients, may
+    change sign when the sum runs in another order: no elementwise ulp
+    bound holds there)."""
+    top = float(b.float().abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 2.0 ** -133
+    return float((a.float() - b.float()).abs().max()) / ulp
+
+
+def _bits_mask(bits, t):
+    """The (T, T) chunk mask that :func:`decode_ops.chunk_bits` packed."""
+    j = torch.arange(t, device=bits.device)
+    return ((bits[:, j // 32] >> (j % 32)) & 1).bool()
+
+
+@contextlib.contextmanager
+def _plain_per_op():
+    """The per-op step with K10 (both modes) and K11 replaced by their plain
+    versions on the same CUDA tensors (the projections are cuBLAS in both)."""
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    saved = (DO.cross_attention_decode, DO.self_attention_decode_kernel, DO.ffn_decode)
+    DO.cross_attention_decode = DO.cross_attention_decode_plain
+    DO.self_attention_decode_kernel = lambda q, k, v, off, bits: (
+        DO.self_attention_decode_plain(q, k, v, off, _bits_mask(bits, q.shape[1])))
+    DO.ffn_decode = DO.ffn_decode_plain
+    try:
+        yield
+    finally:
+        DO.cross_attention_decode, DO.self_attention_decode_kernel, DO.ffn_decode = saved
+
+
+def _digests(tree):
+    """sha256 of each leaf's bytes, by its flat name."""
+    import hashlib
+
+    from whisper_medusa_tpu_torch.models import bridge
+
+    return {k: hashlib.sha256(v.detach().cpu().contiguous().view(torch.uint8).numpy()
+                              .tobytes()).hexdigest()
+            for k, v in bridge.flatten(tree).items()}
+
+
+def parallel_rank_main():
+    """One rank of phase 8 (``chip_smoke.py --parallel-rank``, launched by
+    :func:`phase_parallel` with torchrun's variables): (a) DP=2 serving,
+    (b) TP=2 serving, (c) a DDP=2 training step, each against the
+    single-process call on the same card; results to WM_PAR_DIR/rank<r>.json."""
+    from whisper_medusa_tpu_torch.models import bridge
+    from whisper_medusa_tpu_torch.models import whisper as W
+    from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+    from whisper_medusa_tpu_torch.parallel import distributed
+    from whisper_medusa_tpu_torch.parallel import mesh as mesh_mod
+    from whisper_medusa_tpu_torch.training import train as TT
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(backend="gloo", timeout_s=PAR_TIMEOUT_S)
+    rank = distributed.process_index()
+    d = os.environ["WM_PAR_DIR"]
+    pay = torch.load(os.path.join(d, "payload.pt"), weights_only=False)
+    res = {"rank": rank}
+    t0 = time.perf_counter()
+    model = _par_model()
+    dims = model.config.dims
+    require(_par_checksum(model) == pay["checksum"], "the rank's weights are main()'s")
+    res["model_s"] = time.perf_counter() - t0
+    feats8, enc8, feat1 = (pay[k].cuda() for k in ("feats8", "enc8", "feat1"))
+    kw = dict(language="en", max_new_tokens=MAX_NEW_TOKENS)
+
+    # (a) DP=2: the single-process B=8 call (rank 0, for its wall), then the
+    # sharded call end to end, then the sharded decode on the
+    # single-process encoder rows, held to the single-process B=8 decode.
+    if rank == 0:
+        model.generate(feats8, language="en", max_new_tokens=8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single8 = model.generate(feats8, **kw)
+        torch.cuda.synchronize()
+        res["single_b8_wall_s"] = time.perf_counter() - t0
+        res["single_b8_equals_parent"] = bool(np.array_equal(single8.sequences, pay["seq8"]))
+    distributed.sync()
+    model.shard(dp=PAR_RANKS, tp=1)
+    model.generate(feats8, language="en", max_new_tokens=8)
+    _par_counts(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp_out = model.generate(feats8, **kw)
+    torch.cuda.synchronize()
+    res["dp_b8_wall_s"] = time.perf_counter() - t0
+    res["dp_counts"] = _par_counts()
+    res["dp_e2e_tokens_equal"] = bool(np.array_equal(dp_out.sequences, pay["seq8"]))
+    enc_dp = model.encode(feats8)
+    per = enc8.shape[0] // PAR_RANKS
+    res["dp_encoder_rows_bitwise"] = [bool(torch.equal(enc_dp[r * per:(r + 1) * per],
+                                                       enc8[r * per:(r + 1) * per]))
+                                      for r in range(PAR_RANKS)]
+    mine = enc8[rank * per:(rank + 1) * per].contiguous()
+    real_encode = W.encode
+    W.encode = lambda params, dims_, mel, remat=False: mine
+    try:
+        _par_counts(reset=True)
+        held = model.generate(feats8, **kw)
+        res["held_counts"] = _par_counts()
+    finally:
+        W.encode = real_encode
+    res["held_tokens_equal"] = bool(np.array_equal(held.sequences, pay["seq8"])
+                                    and np.array_equal(held.lengths, pay["len8"]))
+    log(f"rank {rank} (a): {res}")
+    require(res["held_tokens_equal"], f"rank {rank}: the DP=2 decode on the single-process "
+            "encoder rows differs from the single-process B=8 decode")
+    require(res["dp_counts"]["attention"] > 0, f"rank {rank}: K1 never launched under DP=2")
+    for k in ("megastep", "head_rows", "verify_rows", "logits"):
+        require(res["held_counts"][k] > 0, f"rank {rank}: {k} never launched under DP=2")
+
+    # (b) TP=2: a B=1 request on each rank's heads and FFN columns (the
+    # per-op step, K2 never), beside the single-process request, and one
+    # per-op step's hidden rows beside the single-process per-op step's.
+    one = WhisperMedusaModel(model.config, model.params)
+    for r in range(PAR_RANKS):
+        if r == rank:
+            one.generate(feat1, language="en", max_new_tokens=4)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            single1 = one.generate(feat1, language="en", max_new_tokens=PAR_TP_NEW_TOKENS)
+            torch.cuda.synchronize()
+            res["single_b1_wall_s"] = time.perf_counter() - t0
+        distributed.sync()
+    tpm = WhisperMedusaModel(model.config, model.params).shard(dp=1, tp=PAR_RANKS)
+    tpm.generate(feat1, language="en", max_new_tokens=4)
+    _par_counts(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tp_out = tpm.generate(feat1, language="en", max_new_tokens=PAR_TP_NEW_TOKENS)
+    torch.cuda.synchronize()
+    res["tp_b1_wall_s"] = time.perf_counter() - t0
+    res["tp_counts"] = _par_counts()
+    for k in ("attention", "self_decode", "cross_decode", "ffn_decode", "logits"):
+        require(res["tp_counts"][k] > 0, f"rank {rank}: {k} never launched under TP=2")
+    require(res["tp_counts"]["megastep"] == 0, f"rank {rank}: K2 launched under TP=2")
+    n = min(int(tp_out.lengths[0]), int(single1.lengths[0]))
+    res["tp_token_share"] = float((tp_out.sequences[0, PROMPT_LEN:n]
+                                   == single1.sequences[0, PROMPT_LEN:n]).mean())
+    res["tp_new_tokens"] = int(tp_out.lengths[0]) - PROMPT_LEN
+    toks = torch.as_tensor(single1.sequences[:, :PROMPT_LEN + 11], device="cuda")
+    enc1 = enc8[:1].contiguous()
+    with torch.no_grad():
+        h_one = _per_op_hidden(model.params, dims, toks, enc1)
+        with mesh_mod.use_mesh(tpm.mesh):
+            h_tp = _per_op_hidden(tpm.params, dims, toks, enc1)
+        with _plain_per_op():
+            h_one_plain = _per_op_hidden(model.params, dims, toks, enc1)
+            with mesh_mod.use_mesh(tpm.mesh):
+                h_tp_plain = _per_op_hidden(tpm.params, dims, toks, enc1)
+    res["tp_hidden_cosine"] = cosine(h_tp, h_one)
+    res["tp_plain_cosine"] = cosine(h_tp, h_tp_plain)
+    res["tp_plain_rel_err"] = rel_err(h_tp, h_tp_plain)
+    res["one_plain_cosine"] = cosine(h_one, h_one_plain)
+    res["one_plain_rel_err"] = rel_err(h_one, h_one_plain)
+    log(f"rank {rank} (b): {res}")
+    require(res["tp_plain_cosine"] >= PAR_TP_PLAIN_COS,
+            f"rank {rank}: the TP=2 per-op step's hidden rows vs the plain versions on the "
+            f"same shards: cosine {res['tp_plain_cosine']}")
+    del tpm, model, one, enc_dp
+    torch.cuda.empty_cache()
+
+    # (c) DDP=2: one Medusa-Linear recipe step (base_head + all_but_last,
+    # Adafactor at lr 1e-3) at the global batch of TRAIN_B, each rank on
+    # its row, against the single-process step on both rows.
+    cfg_t = _train_config("base_head", "bfloat16")
+    feats2, labels = _train_batch(pay["feats8"][:TRAIN_B].cuda(), SEED + 7)
+    params = bridge.from_random(cfg_t, seed=SEED, device="cuda")
+    opt = TT.make_optimizer("adafactor", lr=1e-3, warmup_steps=0, schedule="constant")
+    heads0 = {k: v.clone() for k, v in bridge.flatten(params["medusa"]).items()}
+    labels_t = torch.as_tensor(labels)
+    heads_of = lambda grads: {k[len("medusa/"):]: v for k, v in grads.items()
+                              if k.startswith("medusa/")}
+    if rank == 0:
+        p1 = bridge._unflatten({k: v.clone() for k, v in bridge.flatten(params).items()})
+        g1 = heads_of(TT.masked_grads(p1, cfg_t, feats2, labels_t, "all_but_last",
+                                      remat=False)[1])
+        state1 = TT.init_train_state(p1, opt)
+        step1 = TT.make_train_step(cfg_t, opt, "all_but_last", remat=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m1 = step1(state1, feats2, labels)
+        torch.cuda.synchronize()
+        res["single_step_s"] = time.perf_counter() - t0
+        single_loss = float(m1["loss"])
+        heads1 = {k: v.clone() for k, v in bridge.flatten(p1["medusa"]).items()}
+        del state1, p1
+        # A fault's reading: the update from rank 0's row alone.
+        p0 = bridge._unflatten({k: v.clone() for k, v in bridge.flatten(params).items()})
+        _, m0 = step1(TT.init_train_state(p0, opt), feats2[:1], labels[:1])
+        heads_row0 = {k: v.clone() for k, v in bridge.flatten(p0["medusa"]).items()}
+        del p0
+    distributed.sync()
+    mesh = mesh_mod.make_mesh(PAR_RANKS, dp=PAR_RANKS, tp=1)
+    state = TT.init_train_state(params, opt)
+    step = TT.make_train_step(cfg_t, opt, "all_but_last", remat=False, mesh=mesh)
+    rows = lambda x: distributed.local_rows(x, mesh.data_index, mesh.dp)
+    gd = heads_of(TT.masked_grads(params, cfg_t, rows(feats2), rows(labels_t), "all_but_last",
+                                  remat=False, mesh=mesh)[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = step(state, rows(feats2), rows(labels_t))
+    torch.cuda.synchronize()
+    res["ddp_step_s"] = time.perf_counter() - t0
+    res["ddp_loss"] = float(m["loss"])
+    digests = distributed.all_gather_objects(_digests(params["medusa"]), mesh.data_group)
+    res["heads_equal_across_ranks"] = all(x == digests[0] for x in digests)
+    require(res["heads_equal_across_ranks"], f"rank {rank}: the updated heads differ "
+            "between the ranks")
+    if rank == 0:
+        res["single_loss"] = single_loss
+        res["loss_rel_err"] = abs(res["ddp_loss"] - single_loss) / abs(single_loss)
+        heads = bridge.flatten(params["medusa"])
+        res["head_grad_rel_err"] = {k: rel_err(gd[k], g1[k]) for k in g1}
+        res["head_elem_ulps"] = {k: float(_bf16_ulps(v, heads1[k]).max())
+                                 for k, v in heads.items()}
+        res["head_elem_over_1ulp"] = {k: int((_bf16_ulps(v, heads1[k]) > 1).sum())
+                                      for k, v in heads.items()}
+        res["head_leaf_ulps"] = {k: float(_leaf_ulps(v, heads1[k])) for k, v in heads.items()}
+        res["head_update_rel_err"] = {k: rel_err(v.float() - heads0[k].float(),
+                                                 heads1[k].float() - heads0[k].float())
+                                      for k, v in heads.items()}
+        res["head_update_rel_err_fault"] = {
+            k: rel_err(heads_row0[k].float() - heads0[k].float(),
+                       heads1[k].float() - heads0[k].float()) for k in heads}
+        res["heads_moved"] = {k: int((v != heads0[k]).sum()) for k, v in heads.items()}
+        log(f"rank 0 (c): loss {res['ddp_loss']} vs {single_loss}; {res}")
+        require(res["loss_rel_err"] <= PAR_TRAIN_LOSS_RTOL,
+                f"DDP loss {res['ddp_loss']} vs single {single_loss}")
+        require(max(res["head_grad_rel_err"].values()) <= PAR_GRAD_RTOL,
+                f"DDP head gradients vs single step: {res['head_grad_rel_err']}")
+        require(max(res["head_update_rel_err"].values()) <= PAR_UPDATE_RTOL,
+                f"DDP heads' update vs single step: {res['head_update_rel_err']}")
+    distributed.sync()
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    distributed.shutdown()
+
+
+def check_native_audio():
+    """(d) The native reader (``data/native.py``, g++ onto native/audio_io.cpp)
+    against the plain readers on a WAV and a FLAC written here."""
+    import tempfile
+    import wave
+
+    from tests.flac_encoder import encode_flac
+    from whisper_medusa_tpu_torch.data import audio, native
+
+    x = np.clip(np.cumsum(np.random.default_rng(SEED).integers(-300, 301, 48000)),
+                -30000, 30000).astype(np.int64)
+    with tempfile.TemporaryDirectory() as d:
+        wav, flac = os.path.join(d, "a.wav"), os.path.join(d, "a.flac")
+        with wave.open(wav, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(x.astype(np.int16).tobytes())
+        with open(flac, "wb") as f:
+            f.write(encode_flac(x, 16000, block_size=4096, mode="lpc"))
+        t0 = time.perf_counter()
+        got = [native.load_audio(p) for p in (wav, flac)]
+        native_s = time.perf_counter() - t0
+        plain = [audio.load_audio_plain(p) for p in (wav, flac)]
+    errs = [float(np.abs(a - b).max()) for (a, _), (b, _) in zip(got, plain)]
+    log(f"(d) native reader: WAV and FLAC ({len(x)} samples) max |native - plain| "
+        f"{errs[0]:.3e}, {errs[1]:.3e}; {native_s * 1e3:.1f} ms for both (and the library's "
+        "build where no earlier phase read audio)")
+    require(all(len(a) == len(b) == len(x) and sa == sb == 16000 and e <= 1e-7
+                for (a, sa), (b, sb), e in zip(got, plain, errs)), "native reader")
+
+
+# The chunks the TP=2 request of phase 8 (b) gives K10 and K11 at B=1: the
+# prompt at offset 0, the Medusa chain (11 rows) and one row, later on.
+TP_SHARD_STEPS = ((PROMPT_LEN, 0), (11, 40), (1, 52))
+
+
+def check_tp_shard_kernels():
+    """K10 (cross and mask modes) and K11 against their plain versions at
+    the shapes of one TP=2 rank of large-v2: 10 of the 20 heads (cross K/V
+    of 1500 keys, self slabs of SELF_MAX_LEN rows), fc1 / fc2 over 2560 of
+    the 5120 FFN columns with a zero fc2 bias (the bias is added once,
+    after the all-reduce), at TP_SHARD_STEPS; elementwise within the
+    tolerances of check_cross_decode / check_self_decode (1e-2 + 1e-2 |x|)
+    and check_ffn_decode (2e-2 + 2e-2 |x|)."""
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 11)
+    h, d, f = 20 // PAR_RANKS, 1280, 5120 // PAR_RANKS
+    rnd = lambda *shape, scale=1.0: (torch.randn(shape, generator=g, device="cuda")
+                                     * scale).to(torch.bfloat16)
+    w1, b1, w2 = rnd(d, f, scale=0.02), rnd(f, scale=0.02), rnd(f, d, scale=0.02)
+    b2 = torch.zeros((d,), dtype=torch.bfloat16, device="cuda")
+    errs = []
+    for t, off in TP_SHARD_STEPS:
+        q, k, v, _, _ = _cross_inputs(g, 1, t, 1500, False, h=h)
+        got = DO.cross_attention_decode_kernel(q, k, v, 1500)
+        ref = DO.cross_attention_decode_plain(q, k, v, 1500)
+        require(got.shape == ref.shape and close(got, ref, 1e-2),
+                f"K10 cross (1,{h},{t},64) x 1500: err {max_err(got, ref)}")
+        errs.append(("cross", t, max_err(got, ref)))
+        q = rnd(1, t, h, 64, scale=0.125)
+        k, v = rnd(1, SELF_MAX_LEN, h * 64), rnd(1, SELF_MAX_LEN, h * 64)
+        offs = torch.tensor([off], dtype=torch.int32, device="cuda")
+        got = DO.self_attention_decode_kernel(q, k, v, offs, DO.chunk_bits(None, t, "cuda"))
+        ref = DO.self_attention_decode_plain(q, k, v, offs)
+        require(got.shape == ref.shape and close(got, ref, 1e-2),
+                f"K10 mask mode (1,{t},{h},64) offset {off}: err {max_err(got, ref)}")
+        errs.append(("mask", t, max_err(got, ref)))
+        x = rnd(t, d)
+        got = DO.ffn_decode_kernel(x, w1, b1, w2, b2)
+        ref = DO.ffn_decode_plain(x, w1, b1, w2, b2)
+        require(got.shape == ref.shape and close(got, ref, 2e-2),
+                f"K11 M={t} D={d} F={f}, zero fc2 bias: err {max_err(got, ref)}")
+        errs.append(("ffn", t, max_err(got, ref)))
+    log(f"(8) the TP=2 shard shapes (H={h}, F={f}, zero fc2 bias), max_abs_err against the "
+        f"plain versions: " + ", ".join(f"{n} T={t} {e:.3e}" for n, t, e in errs))
+
+
+def phase_parallel(ref):
+    """Phase 8: two ranks on the one card under gloo (NCCL refuses two ranks
+    on a device), each a fresh process running :func:`parallel_rank_main`;
+    then (d) the native reader here.  First, here, K10 and K11 at the shapes
+    of a TP=2 rank (:func:`check_tp_shard_kernels`).  ``ref``: main()'s B=8
+    features, its encoder rows, its B=8 decode and a checksum of its
+    weights."""
+    import shutil
+    import socket
+    import tempfile
+
+    check_tp_shard_kernels()
+    d = tempfile.mkdtemp(prefix="wm_par_")
+    torch.save(ref, os.path.join(d, "payload.pt"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(PAR_RANKS):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(PAR_RANKS), RANK=str(r), LOCAL_RANK="0", WM_PAR_DIR=d)
+        with open(os.path.join(d, f"log{r}.txt"), "w") as logf:
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                           "--parallel-rank"], env=env, stdout=logf,
+                                          stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=max(PAR_TIMEOUT_S - (time.perf_counter() - t0), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(d, f"log{r}.txt")) as f:
+                log(f"--- rank {r} (exit {p.returncode}) ---\n{f.read()[-6000:]}")
+    require(all(p.returncode == 0 for p in procs), "a phase-8 rank failed")
+    res = []
+    for r in range(PAR_RANKS):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    shutil.rmtree(d)
+    r0 = res[0]
+    log(f"(8) two ranks on one card, gloo: {wall:.1f} s of phase wall, model build "
+        f"{r0['model_s']:.1f} s a rank; {SMI}")
+    log(f"(a) DP=2 B={BATCH} (4 + 4 examples): wall per rank "
+        f"{[round(x['dp_b8_wall_s'] * 1e3, 1) for x in res]} ms against "
+        f"the single-process B={BATCH} call's {r0['single_b8_wall_s'] * 1e3:.1f} ms on rank 0 "
+        f"(single-process tokens equal main()'s: {r0['single_b8_equals_parent']}); end-to-end "
+        f"tokens equal the single-process decode: {r0['dp_e2e_tokens_equal']} (printed: each "
+        f"rank's encoder rows bitwise the single-process rows: "
+        f"{r0['dp_encoder_rows_bitwise']}); decode on the single-process encoder rows equal "
+        f"to the single-process B={BATCH} decode on every rank: "
+        f"{[x['held_tokens_equal'] for x in res]} (held); launches per rank "
+        f"{[x['held_counts'] for x in res]}; {SMI}")
+    log(f"(b) TP=2 B=1 request, {r0['tp_new_tokens']} new tokens: wall per rank "
+        f"{[round(x['tp_b1_wall_s'] * 1e3, 1) for x in res]} ms against the single-process "
+        f"B=1 request's {[round(x['single_b1_wall_s'] * 1e3, 1) for x in res]} ms (each rank "
+        f"alone on the card); token share against the single-process request "
+        f"{r0['tp_token_share']:.3f}, one per-op step's hidden cosine against the "
+        f"single-process per-op step {r0['tp_hidden_cosine']:.6f} (printed, not held); the "
+        f"same step against the plain versions on the same shards: cosine per rank "
+        f"{[x['tp_plain_cosine'] for x in res]} (held >= {PAR_TP_PLAIN_COS}), rel err "
+        f"{[x['tp_plain_rel_err'] for x in res]}; single-process kernels against plain "
+        f"cosine {r0['one_plain_cosine']}, rel err {r0['one_plain_rel_err']}; "
+        f"launches per rank {[x['tp_counts'] for x in res]}; {SMI}")
+    log(f"(c) DDP=2 Medusa-Linear recipe step (base_head + all_but_last, B={TRAIN_B}, "
+        f"T={TRAIN_T}, Adafactor): loss {r0['ddp_loss']:.6f} against the single-process "
+        f"{r0['single_loss']:.6f} (rel err {r0['loss_rel_err']:.2e}, held <= "
+        f"{PAR_TRAIN_LOSS_RTOL}); heads' gradient rel err {r0['head_grad_rel_err']} (held <= "
+        f"{PAR_GRAD_RTOL}); the heads' update rel err {r0['head_update_rel_err']} (held <= "
+        f"{PAR_UPDATE_RTOL}; rank 0's row alone, a step that never reduced its gradients: "
+        f"{r0['head_update_rel_err_fault']}); updated heads bitwise equal across the ranks: "
+        f"{[x['heads_equal_across_ranks'] for x in res]} (held); printed: "
+        f"largest weight distance {r0['head_leaf_ulps']} bf16 ulps of the leaf's "
+        f"largest magnitude, elementwise {r0['head_elem_ulps']} ulps "
+        f"({r0['head_elem_over_1ulp']} elements past one); moved: {r0['heads_moved']}; "
+        f"step per rank {[round(x['ddp_step_s'] * 1e3, 1) for x in res]} ms against the "
+        f"single-process "
+        f"{r0['single_step_s'] * 1e3:.1f} ms; {SMI}")
+    check_native_audio()
+
+
+def main_parallel_only():
+    """``chip_smoke.py --parallel-only``: phase 8 alone, on main()'s model,
+    features and B=8 decode rebuilt here (about two minutes)."""
+    phase_env()
+    phase_build()
+    from whisper_medusa_tpu_torch.data.tokenizer import CharTokenizer
+    from whisper_medusa_tpu_torch.processor import WhisperMedusaProcessor
+
+    model = _par_model()
+    proc = WhisperMedusaProcessor(tokenizer=CharTokenizer())
+    feat1 = proc(waveforms((8.0,))[0])
+    feats8 = proc(waveforms(tuple(float(s) for s in np.linspace(4.0, 30.0, BATCH))))
+    enc8 = model.encode(feats8)
+    out8 = model.generate(feats8, language="en", max_new_tokens=MAX_NEW_TOKENS)
+    ref = {"feats8": feats8.cpu(), "feat1": feat1.cpu(), "enc8": enc8.cpu(),
+           "seq8": out8.sequences, "len8": out8.lengths, "checksum": _par_checksum(model)}
+    del model, enc8
+    torch.cuda.empty_cache()
+    phase_parallel(ref)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main():
     smi = phase_env()
     phase_build()
@@ -5685,6 +6232,9 @@ def main():
 
     # ---- phase 6b: f32 serving, its model alone on the card
     check_grad_guard(model.params)
+    par_ref = {"feats8": feats8.cpu(), "feat1": feats[0].cpu(), "enc8": enc8.cpu(),
+               "seq8": outs[f"medusa B={BATCH}"].sequences,
+               "len8": outs[f"medusa B={BATCH}"].lengths, "checksum": _par_checksum(model)}
     del model, qmodel, bmodel, bqmodel, outs, qouts, bouts, bqouts, outs16, enc1, enc8, enc16
     torch.cuda.empty_cache()
     phase_f32(g, kernels, feats, feats8)
@@ -5702,6 +6252,9 @@ def main():
     check_remat_dots(kernels, feats8[:TRAIN_B])
     torch.cuda.empty_cache()
     check_cli()
+    t0 = time.perf_counter()
+    phase_parallel(par_ref)
+    log(f"parallel phase: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         if k["name"].startswith("attention"):
             log(f"launches {k['name']} (all main paths, training included): {k['launches']}")
@@ -5724,4 +6277,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--parallel-rank"]:
+        parallel_rank_main()
+    elif sys.argv[1:] == ["--parallel-only"]:
+        main_parallel_only()
+    else:
+        main()

@@ -62,6 +62,70 @@ def test_port_imports_no_jax():
     assert res.stdout.startswith("ok")
 
 
+def test_parallel_worker_helper_imports_no_jax():
+    """The gloo ranks of tests/test_torch_parallel_*.py run this module as
+    fresh interpreters: it, parallel/ and data/native.py load without JAX."""
+    mods = ["tests.torch_parallel_worker", "whisper_medusa_tpu_torch.parallel.mesh",
+            "whisper_medusa_tpu_torch.parallel.distributed",
+            "whisper_medusa_tpu_torch.data.native", "whisper_medusa_tpu_torch.cli.evaluate"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'optax', 'whisper_medusa_tpu'))\n"
+            "assert not bad, bad\n"
+            "print('ok')")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_shard_in_a_world_of_one_raises():
+    """shard(dp=2) without a second process raises; it never serves
+    unsharded in its place."""
+    from whisper_medusa_tpu_torch.parallel import distributed
+
+    assert distributed.process_count() == 1
+    model = WhisperMedusaModel.from_random(tiny_test_config(), device="cpu")
+    for kw in (dict(dp=2), dict(tp=2), dict(dp=2, tp=2)):
+        with pytest.raises(ValueError, match="the world has 1"):
+            model.shard(**kw)
+    assert model.mesh is None
+
+
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"],
+                                   ["--coordinator-address", "127.0.0.1:1"]])
+def test_refuse_unported_takes_mesh_flags_and_refuses_wandb(flags):
+    """The mesh and multi-process flags are ported (parallel/); only
+    --wandb-logging is refused."""
+    import argparse
+
+    from whisper_medusa_tpu_torch.cli import args as cargs
+
+    p = argparse.ArgumentParser()
+    cargs.add_model_args(p)
+    cargs.add_training_args(p)
+    base = ["--train-data-path", "a", "--validation-data-path", "b", "--output-path", "c"]
+    cargs.refuse_unported(p.parse_args(base + flags))
+    with pytest.raises(NotImplementedError, match="--wandb-logging is not ported"):
+        cargs.refuse_unported(p.parse_args(base + flags + ["--wandb-logging", "true"]))
+
+
+def test_initialize_never_guesses_a_backend(monkeypatch):
+    """A multi-process start names its backend; none is picked for it."""
+    from whisper_medusa_tpu_torch.parallel import distributed
+
+    for var in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    distributed.initialize()
+    assert not distributed.is_initialized()
+    with pytest.raises(ValueError, match="pass 'nccl' when each rank has a card"):
+        distributed.initialize("127.0.0.1:1", 2, 0)
+    with pytest.raises(ValueError, match="pass 'nccl'"):
+        distributed.initialize("127.0.0.1:1", 2, 0, backend="mpi")
+    assert not distributed.is_initialized()
+
+
 def test_cuda_request_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the request is legitimate here")

@@ -1,7 +1,7 @@
 """The port's training CLI on the CPU: ``cli.train.main`` on a CSV of WAV and
 FLAC files writes ``model_components/``, which the JAX package's
-``from_pretrained`` loads with equal parameters (and the port's too); the
-flags without a port raise."""
+``from_pretrained`` loads with equal parameters (and the port's too); a mesh wider than the world and
+the wandb flag raise."""
 
 import dataclasses
 import os
@@ -45,7 +45,7 @@ def test_cli_checkpoint_loads_in_jax(data_csv, tmp_path):
     assert not np.array_equal(got["medusa/heads/b"].numpy(), before["medusa/heads/b"].numpy())
     np.testing.assert_array_equal(got["whisper/decoder/embed_tokens"].numpy(),
                                   before["whisper/decoder/embed_tokens"].numpy())
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="needs that many processes and the world has 1"):
         cli.main(["--train-data-path", data_csv, "--validation-data-path", data_csv,
                   "--output-path", out, "--dp", "2", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="--wandb-logging is not ported"):

@@ -1,8 +1,10 @@
 """The CLIs' flags — the port's copy of whisper_medusa_tpu/cli/args.py
 (``add_model_args``, ``add_training_args``, ``add_eval_args``: the same flags
-and defaults), plus ``--device``.  The distributed and mesh flags are
-accepted and refused when set (``refuse_unported``), as is
-``--wandb-logging``."""
+and defaults), plus ``--device`` and ``--dist-backend``.  The mesh flags
+(``--dp/--tp``) and the multi-process flags (``--coordinator-address``,
+``--num-processes``, ``--process-id``; or torchrun's variables) run the CLIs
+over ``torch.distributed`` (``parallel/``); ``--wandb-logging`` is refused
+(``refuse_unported``)."""
 
 from __future__ import annotations
 
@@ -44,21 +46,49 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
 
 
 def add_mesh_args(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--dp", type=int, default=0)
-    p.add_argument("--tp", type=int, default=0)
-    p.add_argument("--coordinator-address", default=None)
-    p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--process-id", type=int, default=None)
+    """The (data, model) mesh flags and the multi-process bootstrap (the JAX
+    CLI's), plus ``--dist-backend``."""
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel mesh size (0 = one process)")
+    p.add_argument("--tp", type=int, default=0,
+                   help="tensor-parallel mesh size (0 = one process)")
+    p.add_argument("--coordinator-address", default=None,
+                   help="host:port of process 0 (or torchrun's MASTER_ADDR / MASTER_PORT)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="total process count (or WORLD_SIZE)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (or RANK)")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="nccl: a card per rank; gloo: CPU ranks, or ranks sharing one card")
+
+
+def maybe_init_distributed(args) -> None:
+    """Join ``torch.distributed`` when the multi-process flags or torchrun's
+    variables are present (``parallel.distributed.initialize``)."""
+    import os
+
+    from whisper_medusa_tpu_torch.parallel import distributed
+
+    if (args.coordinator_address or args.num_processes
+            or os.environ.get("MASTER_ADDR")):
+        distributed.initialize(coordinator_address=args.coordinator_address,
+                               num_processes=args.num_processes,
+                               process_id=args.process_id, backend=args.dist_backend)
+
+
+def make_mesh_from_args(args):
+    """The (dp, tp) mesh that --dp/--tp ask for, or None when unset.  It
+    must span the world; a mesh wider than the world raises."""
+    dp, tp = args.dp or 0, args.tp or 0
+    if dp <= 0 and tp <= 0:
+        return None
+    from whisper_medusa_tpu_torch.parallel import mesh as mesh_mod
+
+    return mesh_mod.make_mesh((dp or 1) * (tp or 1), dp=dp or 1, tp=tp or 1)
 
 
 def refuse_unported(args) -> None:
-    """The JAX CLI's distributed/mesh and wandb flags have no port yet."""
-    if (args.dp or args.tp or args.coordinator_address or args.num_processes
-            or args.process_id is not None):
-        raise NotImplementedError(
-            "--dp/--tp/--coordinator-address/--num-processes/--process-id are not "
-            "ported to whisper_medusa_tpu_torch yet (ROADMAP queue 1, item 17: "
-            "DP/DDP training)")
+    """The JAX CLI's wandb flag has no port."""
     if getattr(args, "wandb_logging", False):
         from whisper_medusa_tpu_torch.utils.logging_utils import make_wandb_logger
 

@@ -12,6 +12,10 @@ kHz), features by the port's processor, text by the checkpoint's tokenizer
 or, without one, the ``CharTokenizer`` stand-in.  ``--device cuda`` (the
 default) serves on the card; ``--int8`` serves ``model.quantize()``,
 ``--disable-medusa`` the vanilla greedy loop, ``--num-beams k`` beam search.
+``--dp/--tp`` serve on a mesh (``model.shard``) of that many processes, one
+per rank (torchrun, or the multi-process flags, with ``--dist-backend``);
+every rank decodes its examples of each batch and the primary process
+writes the CSV.
 """
 
 from __future__ import annotations
@@ -21,10 +25,12 @@ import csv
 import logging
 import time
 
-from whisper_medusa_tpu_torch.cli.args import add_eval_args, refuse_unported
+from whisper_medusa_tpu_torch.cli.args import (add_eval_args, make_mesh_from_args,
+                                               maybe_init_distributed, refuse_unported)
 from whisper_medusa_tpu_torch.data.audio import load_audio, resample
 from whisper_medusa_tpu_torch.data.tokenizer import CharTokenizer, load_tokenizer
 from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+from whisper_medusa_tpu_torch.parallel import distributed
 from whisper_medusa_tpu_torch.processor import WhisperMedusaProcessor
 from whisper_medusa_tpu_torch.utils import metrics
 from whisper_medusa_tpu_torch.utils.logging_utils import set_logger
@@ -52,6 +58,10 @@ def evaluate_model(args) -> dict:
     if args.int8:
         model = model.quantize()
         logger.info("int8 weight-only serving mode")
+    mesh = make_mesh_from_args(args)
+    if mesh is not None:
+        model.shard(mesh)
+        logger.info("sharded over mesh (dp=%d, tp=%d)", mesh.dp, mesh.tp)
     try:
         tokenizer = load_tokenizer(args.tokenizer_path or args.model_name,
                                    language=args.language)
@@ -92,10 +102,12 @@ def evaluate_model(args) -> dict:
     cer, cers = metrics.compute_cer(preds, refs)
     for row, w, c in zip(rows, wers, cers):
         row["wer"], row["cer"] = w, c
-    with open(args.out_file_path, "w", newline="") as f:
-        writer = csv.DictWriter(f, fieldnames=OUT_FIELDS)
-        writer.writeheader()
-        writer.writerows(rows)
+    if distributed.is_primary():
+        with open(args.out_file_path, "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=OUT_FIELDS)
+            writer.writeheader()
+            writer.writerows(rows)
+    distributed.sync()
     summary = {
         "wer": wer,
         "cer": cer,
@@ -112,6 +124,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     add_eval_args(parser)
     args = parser.parse_args(argv)
+    maybe_init_distributed(args)
     set_logger()
     return evaluate_model(args)
 

@@ -9,7 +9,10 @@ otherwise the model is drawn at random from ``--seed`` at ``--whisper-size``.
 The run writes ``<output-path>/model_components/`` through
 ``save_pretrained`` (the JAX package's checkpoint format).  ``--device
 cuda`` (the default) trains at either ``--param-dtype``: float32 (the
-default) or bfloat16.
+default) or bfloat16.  ``--dp/--tp`` train on a mesh of that many
+processes, one per rank (``torchrun --nproc-per-node N -m
+whisper_medusa_tpu_torch.cli.train ... --dp N --dist-backend nccl``; gloo
+for CPU ranks or ranks that share a card); the primary process writes.
 """
 
 from __future__ import annotations
@@ -19,11 +22,13 @@ import logging
 import os
 
 from whisper_medusa_tpu_torch.cli.args import (add_model_args, add_training_args,
+                                               make_mesh_from_args, maybe_init_distributed,
                                                refuse_unported)
 from whisper_medusa_tpu_torch.config import WHISPER_PRESETS, MedusaConfig, ModelConfig
 from whisper_medusa_tpu_torch.data import dataset as ds_mod
 from whisper_medusa_tpu_torch.data.tokenizer import CharTokenizer, load_tokenizer
 from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+from whisper_medusa_tpu_torch.parallel import distributed
 from whisper_medusa_tpu_torch.training.trainer import MedusaTrainer, TrainingArgs
 from whisper_medusa_tpu_torch.utils.logging_utils import set_logger, set_seed
 
@@ -58,9 +63,11 @@ def main(argv=None):
     add_training_args(parser)
     args = parser.parse_args(argv)
     refuse_unported(args)
+    maybe_init_distributed(args)
     set_logger()
     set_seed(args.seed)
     model = get_model(args)
+    mesh = make_mesh_from_args(args)
 
     try:
         tokenizer = load_tokenizer(args.tokenizer_path or args.whisper_model_name,
@@ -88,12 +95,14 @@ def main(argv=None):
         optim=args.optim, lr_scheduler_type=args.lr_scheduler_type,
         parts_to_freeze=None if args.parts_to_freeze == "none" else args.parts_to_freeze)
     trainer = MedusaTrainer(model.config, model.params, targs, train_iter,
-                            eval_iter_fn=eval_iter)
+                            eval_iter_fn=eval_iter, mesh=mesh)
     summary = trainer.train(resume_from_checkpoint=args.resume_from_checkpoint)
 
     # The trainer updated model.params in place.
     out_dir = os.path.join(args.output_path, "model_components")
-    model.save_pretrained(out_dir)
+    if distributed.is_primary():
+        model.save_pretrained(out_dir)
+    distributed.sync()
     logger.info("training done: %s; saved to %s", summary, out_dir)
 
     if args.test_data_path:

@@ -1,8 +1,10 @@
 """Host-side audio IO — counterpart of the loading and resampling in
-whisper_medusa_tpu/data/dataset.py: WAV through the stdlib ``wave`` module,
-FLAC through the port's pure-Python decoder (``data/flac_py.py``), chosen by
-the file's magic bytes.  The JAX package's native C++ decoder
-(``data/native.py``) is not ported yet."""
+whisper_medusa_tpu/data/dataset.py.  :func:`load_audio` reads WAV and FLAC
+through the native C++ reader (``data/native.py``); a failed build or decode
+raises.  :func:`load_audio_plain` is its plain version, the one the tests
+hold it against: WAV through the stdlib ``wave`` module, FLAC through the
+port's pure-Python decoder (``data/flac_py.py``), chosen by the file's magic
+bytes."""
 
 from __future__ import annotations
 
@@ -13,7 +15,15 @@ import numpy as np
 
 
 def load_audio(path: str) -> tuple[np.ndarray, int]:
-    """Read a WAV or FLAC file to float32 mono; (samples, sample rate)."""
+    """Read a WAV or FLAC file to float32 mono through the native reader;
+    (samples, sample rate)."""
+    from whisper_medusa_tpu_torch.data import native
+
+    return native.load_audio(path)
+
+
+def load_audio_plain(path: str) -> tuple[np.ndarray, int]:
+    """:func:`load_audio` in pure Python."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:4] == b"fLaC":

@@ -105,7 +105,7 @@ def is_ln_gemm(name: str) -> bool:
 
 MARK = "spin_kernel"      # torch.cuda._sleep's kernel: the marker around each run
 MARK_CYCLES = 1000        # its spin
-LEAD = 32                 # markers before the first run
+LEAD = 1024               # markers before the first run (see _device_runs)
 PAD_S = 0.02              # host wait after the profiler starts and before it stops
 TRIES = 3                 # each retake waits 4x longer
 
@@ -147,7 +147,10 @@ def _device_runs(fn, reps: int = 1, tries: int = TRIES):
     trace lost its first event three times in a row, whatever the host
     waited, a lone kernel's trace lost everything, and in runs of
     chip_smoke.py traces lost up to 6 of 8, or up to 8 of 32, leading
-    markers; once it dropped a trace's tail.  A trace is whole when it
+    markers; once it dropped a trace's tail.  With 32 leading markers, 20
+    runs of K2's W8A32 step (641 launches each) lost all 32 and ~650 more
+    events, three traces in a row (a whole smoke's other traces lost 1-29
+    of their 32), so ``LEAD`` is 1024.  A trace is whole when it
     starts with one or more markers (the leading ones may be lost, not all),
     ends with one, and holds one more marker for each run (a run puts at
     least one event on the card); else it is taken again with 4x the host's

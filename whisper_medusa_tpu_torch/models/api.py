@@ -24,11 +24,23 @@ post-hoc teacher-forced pass, ``decoding/scores.py`` and
 the int8 serving copy (W8A16 decoder, embedding, heads and Medusa-Block
 layer; int8 caches).  Everything runs on the card unless the model was made
 with ``device="cpu"``.
+
+``shard(dp=, tp=)`` serves over a (data, model) mesh of ``torch.distributed``
+ranks (``parallel/mesh.py``): ``encode``, ``detect_language`` and
+``generate`` split a batch that divides by dp into each data rank's
+examples, run them there (K2, the heads and the verify kernels as a
+single-process call would, each rank's decode loop on its own: no
+collective inside it) and all-gather the outputs in example order, so every
+rank returns the whole result; a batch that does not divide is served whole
+on every rank, as the JAX package replicates it.  Over the model axis every
+layer runs on this rank's heads and FFN columns (``models/whisper.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import inspect
 import logging
 import zlib
 from typing import Callable, List, Optional, Sequence, Tuple, Union
@@ -45,6 +57,11 @@ from whisper_medusa_tpu_torch.decoding.buffers import generate_medusa_buffers
 from whisper_medusa_tpu_torch.decoding.processors import ProcessorConfig
 from whisper_medusa_tpu_torch.decoding.speculative import speculative_generate
 from whisper_medusa_tpu_torch.models import bridge, whisper
+from whisper_medusa_tpu_torch.parallel import distributed
+from whisper_medusa_tpu_torch.parallel import mesh as mesh_mod
+
+# ROADMAP queue 1 item of a tp that splits an attention head.
+_HEAD_SPLIT_ITEM = "ROADMAP queue 1, item 24"
 
 
 @dataclasses.dataclass
@@ -87,6 +104,122 @@ class GenerateOutput:
     # ``cross_attentions``.
 
 
+_BATCH_AXIS1 = ("cross_attentions", "decoder_attentions", "decoder_hidden_states")
+
+
+def _merge_outputs(parts: List[GenerateOutput], pad_id: int, longform: bool) -> GenerateOutput:
+    """The data ranks' GenerateOutputs, in rank order, as one: per-example
+    fields concatenated (the capture maps on their batch axis 1; rows padded
+    to the widest rank's, sequences with ``pad_id``, scores and log-probs
+    with 0, as a longform batch pads them), lists joined, ``steps`` the
+    largest rank's loop count, ``mean_accept_length`` re-formed from the
+    per-example terms (longform: the summed accepts over ``steps``)."""
+    out = {}
+    for f in dataclasses.fields(GenerateOutput):
+        vals = [getattr(p, f.name) for p in parts]
+        if vals[0] is None or f.name == "mean_accept_length":
+            out[f.name] = None
+        elif f.name == "steps":
+            out[f.name] = max(vals)
+        elif isinstance(vals[0], list):
+            out[f.name] = [x for v in vals for x in v]
+        elif f.name in _BATCH_AXIS1:
+            out[f.name] = np.concatenate(vals, axis=1)
+        elif f.name == "accepted" and longform:
+            out[f.name] = np.asarray([int(sum(int(np.sum(v)) for v in vals))])
+        else:
+            width = max(v.shape[1] for v in vals) if vals[0].ndim > 1 else None
+            fill = pad_id if f.name == "sequences" else 0
+            padded = [v if width is None or v.shape[1] == width else np.concatenate(
+                [v, np.full((v.shape[0], width - v.shape[1]) + v.shape[2:], fill, v.dtype)],
+                axis=1) for v in vals]
+            out[f.name] = np.concatenate(padded, axis=0)
+    if longform:
+        out["mean_accept_length"] = int(out["accepted"][0]) / max(out["steps"], 1)
+    else:
+        out["mean_accept_length"] = float(sum(p.mean_accept_length for p in parts))
+    return GenerateOutput(**out)
+
+
+def _batch_size(x) -> Optional[int]:
+    shape = getattr(x, "shape", None)
+    if shape is None:
+        shape = np.shape(x)
+    return int(shape[0]) if len(shape) == 3 else None
+
+
+def _data_parallel(gather):
+    """Serve a batch method over the mesh's data axis.  The method's first
+    argument is the (B, ...) batch; where dp divides B, each data rank runs
+    the method on its examples (with ``attention_mask`` and a per-example
+    ``language`` list cut alike) and ``gather(self, mesh, out, batch)``
+    assembles every rank's result; else every rank runs the whole batch.
+    Nested calls (``generate`` calls ``encode``) run as they are, inside the
+    outer call's split.  Everything runs under the mesh (its model axis)."""
+    def wrap(fn):
+        sig = inspect.signature(fn)
+        first = list(sig.parameters)[1]
+
+        @functools.wraps(fn)
+        def run(self, *args, **kwargs):
+            mesh = self.mesh
+            if mesh is None or self._local:
+                return fn(self, *args, **kwargs)
+            bound = sig.bind(self, *args, **kwargs)
+            batch = bound.arguments[first]
+            b = _batch_size(batch)
+            with mesh_mod.use_mesh(mesh):
+                self._local = True
+                try:
+                    if mesh.dp == 1 or b is None or b % mesh.dp:
+                        return fn(self, *args, **kwargs)
+                    cut = lambda x: distributed.local_rows(x, mesh.data_index, mesh.dp)
+                    bound.arguments[first] = cut(batch)
+                    if bound.arguments.get("attention_mask") is not None:
+                        bound.arguments["attention_mask"] = cut(
+                            np.asarray(bound.arguments["attention_mask"]).reshape(b, -1))
+                    lang = bound.arguments.get("language")
+                    if isinstance(lang, (list, tuple)) and len(lang) == b:
+                        bound.arguments["language"] = list(cut(np.asarray(lang, object)))
+                    out = fn(*bound.args, **bound.kwargs)
+                finally:
+                    self._local = False
+                return gather(self, mesh, out, batch)
+        return run
+    return wrap
+
+
+def _on_mesh(fn):
+    """Run a method (or iterate a generator method) under the model's mesh,
+    the batch whole on every rank."""
+    if inspect.isgeneratorfunction(fn):
+        @functools.wraps(fn)
+        def gen(self, *args, **kwargs):
+            with mesh_mod.use_mesh(self.mesh):
+                yield from fn(self, *args, **kwargs)
+        return gen
+
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        with mesh_mod.use_mesh(self.mesh):
+            return fn(self, *args, **kwargs)
+    return run
+
+
+def _gather_rows(self, mesh, out: torch.Tensor, batch) -> torch.Tensor:
+    return distributed.all_gather(out, mesh.data_group, dim=0)
+
+
+def _gather_array(self, mesh, out: np.ndarray, batch) -> np.ndarray:
+    return np.concatenate(distributed.all_gather_objects(out, mesh.data_group), axis=0)
+
+
+def _gather_generate(self, mesh, out: GenerateOutput, batch) -> GenerateOutput:
+    longform = np.shape(batch)[-1] > self.config.dims.num_frames
+    return _merge_outputs(distributed.all_gather_objects(out, mesh.data_group),
+                          self.generation_config.pad_token_id, longform)
+
+
 class WhisperMedusaModel:
     def __init__(self, config: ModelConfig, params, device="cuda",
                  generation_config: Optional[GenerationConfig] = None,
@@ -103,6 +236,45 @@ class WhisperMedusaModel:
             suppress_tokens=default_suppress_tokens(self.special),
             begin_suppress_tokens=default_begin_suppress_tokens(self.special),
         )
+        self.mesh = None               # set by shard(); None = one process
+        self._local = False            # inside a data-parallel call's split
+
+    # --------------------------------------------------------------- sharding
+    def shard(self, mesh=None, dp: Optional[int] = None,
+              tp: Optional[int] = None) -> "WhisperMedusaModel":
+        """Serve over a (data, model) mesh of ``torch.distributed`` ranks
+        (JAX ``shard``): every rank calls it after
+        ``parallel.distributed.initialize``.  The weights become this rank's
+        shard (``parallel/mesh.py::shard_params``), except the tied
+        embedding, which is all-gathered back whole once here: the vocab
+        side (K3, K4, K5 and the embedding lookup) runs on every model rank
+        on the all-reduced rows.  ``tp`` must divide d_model and both FFN
+        widths (ValueError, JAX's check) and both head counts
+        (NotImplementedError: the per-op attention does not split a head).
+        A mesh wider than the world raises; nothing serves unsharded in
+        its place."""
+        if mesh is None:
+            mesh = mesh_mod.make_mesh((dp or 1) * (tp or 1) if dp and tp else None,
+                                      dp=dp, tp=tp)
+        d = self.config.dims
+        for name, v in (("d_model", d.d_model), ("encoder_ffn_dim", d.encoder_ffn_dim),
+                        ("decoder_ffn_dim", d.decoder_ffn_dim)):
+            if v % mesh.tp != 0:
+                raise ValueError(f"tensor-parallel size {mesh.tp} does not divide {name}={v}")
+        for name, v in (("encoder_attention_heads", d.encoder_attention_heads),
+                        ("decoder_attention_heads", d.decoder_attention_heads)):
+            if v % mesh.tp != 0:
+                raise NotImplementedError(
+                    f"tensor-parallel size {mesh.tp} does not divide {name}={v}: a head "
+                    f"split across ranks is not ported ({_HEAD_SPLIT_ITEM})")
+        specs = mesh_mod.param_specs(self.params, mesh.tp)
+        params = mesh_mod.shard_params(self.params, mesh)
+        params["whisper"]["decoder"]["embed_tokens"] = mesh_mod.gather_params(
+            params["whisper"]["decoder"]["embed_tokens"],
+            specs["whisper"]["decoder"]["embed_tokens"], mesh)
+        self.params = params
+        self.mesh = mesh
+        return self
 
     # ------------------------------------------------------------------ loading
     @classmethod
@@ -136,6 +308,9 @@ class WhisperMedusaModel:
         cross and self caches."""
         from whisper_medusa_tpu_torch.ops.qmm import quantize_decoder
 
+        if self.mesh is not None:
+            raise ValueError("quantize() before shard(): a shard's row-parallel weights "
+                             "would take per-shard scales")
         wp, mp = quantize_decoder(self.params["whisper"], self.params.get("medusa"))
         return WhisperMedusaModel(self.config, {"whisper": wp, "medusa": mp},
                                   device=self.device,
@@ -153,6 +328,8 @@ class WhisperMedusaModel:
 
         from safetensors.torch import save_file
 
+        if self.mesh is not None:
+            raise ValueError("save_pretrained saves a whole model, not a rank's shard")
         flat = bridge.flatten(self.params)
         if any(k.endswith(("/q", "/s")) for k in flat):
             raise ValueError("save_pretrained saves bf16/f32 weights, not the int8 "
@@ -167,11 +344,13 @@ class WhisperMedusaModel:
                   os.path.join(path, "params.safetensors"))
 
     # ----------------------------------------------------------------- encoding
+    @_data_parallel(_gather_rows)
     def encode(self, input_features) -> torch.Tensor:
         feats = torch.as_tensor(input_features, dtype=torch.float32,
                                 device=self.device)
         return whisper.encode(self.params["whisper"], self.config.dims, feats)
 
+    @_data_parallel(_gather_array)
     def detect_language(self, enc_out: torch.Tensor) -> np.ndarray:
         """One decoder step from <|sot|>, argmax over the language tokens."""
         p = self.params["whisper"]
@@ -187,6 +366,7 @@ class WhisperMedusaModel:
         return (torch.argmax(logits[:, lo:hi], dim=-1) + lo).cpu().numpy()
 
     # ----------------------------------------------------------------- generate
+    @_data_parallel(_gather_generate)
     def generate(
         self,
         input_features,
@@ -876,6 +1056,7 @@ class WhisperMedusaModel:
             all_tt_rows=all_tt_rows if captures["return_token_timestamps"] else None,
             all_caps=all_caps if want_caps else None)
 
+    @_on_mesh
     def score_sequences(self, enc_out, sequences: np.ndarray, lengths: np.ndarray,
                         prompt_len: int) -> np.ndarray:
         """Mean log-probability of each example's generated tokens (positions
@@ -886,6 +1067,7 @@ class WhisperMedusaModel:
         return _avg_logprobs(self.params["whisper"], enc, sequences, lengths, prompt_len,
                              self.config.dims)
 
+    @_on_mesh
     def generate_stream(self, input_features, language: Optional[str] = None,
                         task: str = "transcribe", max_length: Optional[int] = None,
                         chunk_tokens: int = 16, disable_medusa: bool = False):

@@ -28,6 +28,15 @@ encoder on cuBLAS f32 (full f32: PyTorch's default leaves TF32 off) and K1's
 f32 mode; :func:`layer_norm`, :func:`embed_lookup` and the caches take the
 weights' dtype.
 
+Tensor parallelism (``model.shard(tp=)``, ``parallel/mesh.py``): under an
+ambient mesh whose model axis is split, a layer's q/k/v and fc1 weights
+hold this rank's output columns and o / fc2 its input rows, so every
+attention runs on this rank's heads (:func:`_local_heads`, read from the
+weights' shapes) and the caches hold them; the row-parallel outputs are
+summed over the model group with the bias added once after the sum
+(:func:`_row_out`), and K2 is never taken (the per-op step runs, as JAX's
+scan path under a model axis).  The tied embedding is whole on every rank.
+
 int8 serving (``ops/qmm.py::quantize_decoder``): a weight may be the dict
 ``{"q": int8, "s": float32}``; :func:`dense` then runs ``qmm`` (K6), the
 embedding gathers dequantized rows and :func:`project_logits` runs
@@ -54,6 +63,7 @@ from whisper_medusa_tpu_torch.ops import decode_ops
 from whisper_medusa_tpu_torch.ops import gelu as gelu_mod
 from whisper_medusa_tpu_torch.ops import logits as logits_mod
 from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
+from whisper_medusa_tpu_torch.parallel import mesh as mesh_mod
 
 Params = Dict[str, Any]
 
@@ -147,6 +157,26 @@ def embed_lookup(embed, tokens: torch.Tensor) -> torch.Tensor:
     return embed[tokens]
 
 
+def _local_heads(w, num_heads: int) -> int:
+    """The heads that a (..., D, cols) q/k/v weight's output columns hold:
+    ``num_heads``, or num_heads / tp on a tensor-parallel shard."""
+    a = w["q"] if qmm_mod.is_quantized(w) else w
+    return num_heads * a.shape[-1] // a.shape[-2]
+
+
+def _row_out(fn, b: Optional[torch.Tensor]) -> torch.Tensor:
+    """A row-parallel projection's output ``fn(b)``; under tensor
+    parallelism this rank's partial ``fn(None)`` summed over the model group
+    in f32, the bias added once after the sum, in the partial's dtype."""
+    if mesh_mod.model_parallel() is None:
+        return fn(b)
+    y = fn(None)
+    r = mesh_mod.reduce_from_model(y.float())
+    if b is not None:
+        r = r + b.float()
+    return r.to(y.dtype)
+
+
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], num_heads, x.shape[-1] // num_heads)
 
@@ -185,7 +215,7 @@ def _proj_bhsd(x: torch.Tensor, w, b, num_heads: int) -> torch.Tensor:
 def _out_proj_bhsd(out: torch.Tensor, w, b, num_heads: int) -> torch.Tensor:
     """(B, H, S, Dh) @ o_w -> (B, S, D)."""
     flat = _merge_heads(out.permute(0, 2, 1, 3))
-    return dense(flat, w, b)
+    return _row_out(lambda bias: dense(flat, w, bias), b)
 
 
 def _attn_full(lp: Params, x: torch.Tensor, kv_src: torch.Tensor, num_heads: int,
@@ -199,8 +229,13 @@ def _attn_full(lp: Params, x: torch.Tensor, kv_src: torch.Tensor, num_heads: int
     output.  int8 weights (the decoder of ``quantize()``, whose keys are
     never padded): JAX's int8 branch, :func:`dense` (K6) projections and the
     plain :func:`attention_with_probs`, whose probabilities are the ones
-    applied."""
+    applied.  Under tensor parallelism this rank's heads, the
+    probabilities gathered over the model group."""
     head_dim = x.shape[-1] // num_heads
+    num_heads = _local_heads(lp["q_w"], num_heads)
+    same = kv_src is x
+    x = mesh_mod.copy_to_model(x)
+    kv_src = x if same else mesh_mod.copy_to_model(kv_src)
     if qmm_mod.is_quantized(lp["q_w"]):
         q = _split_heads(dense(x, lp["q_w"], lp["q_b"]), num_heads) * (head_dim ** -0.5)
         k = _split_heads(dense(kv_src, lp["k_w"]), num_heads)
@@ -209,8 +244,9 @@ def _attn_full(lp: Params, x: torch.Tensor, kv_src: torch.Tensor, num_heads: int
         mask = (torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))[None, None]
                 if causal else None)
         out, probs = attention_with_probs(q, k, v, mask)
-        out = dense(_merge_heads(out), lp["o_w"], lp["o_b"])
-        return (out, probs) if with_probs else out
+        flat = _merge_heads(out)
+        out = _row_out(lambda bias: dense(flat, lp["o_w"], bias), lp["o_b"])
+        return (out, mesh_mod.gather_heads(probs, 1)) if with_probs else out
     kv_len = kv_src.shape[1] if kv_len is None else kv_len
     q = _proj_bhsd(x, lp["q_w"], lp["q_b"], num_heads) * (head_dim ** -0.5)
     k = _proj_bhsd(kv_src, lp["k_w"], None, num_heads)
@@ -219,7 +255,7 @@ def _attn_full(lp: Params, x: torch.Tensor, kv_src: torch.Tensor, num_heads: int
                          lp["o_w"], lp["o_b"], num_heads)
     if not with_probs:
         return out
-    return out, attn_mod.attention_probs(q, k, kv_len, causal)
+    return out, mesh_mod.gather_heads(attn_mod.attention_probs(q, k, kv_len, causal), 1)
 
 
 def self_attn_full(lp: Params, x: torch.Tensor, num_heads: int, causal: bool,
@@ -253,8 +289,8 @@ def cross_attn_probs(lp: Params, x: torch.Tensor, enc: torch.Tensor, num_heads: 
 
 
 def ffn(lp: Params, x: torch.Tensor) -> torch.Tensor:
-    h = gelu_mod.gelu(dense(x, lp["fc1_w"], lp["fc1_b"]))
-    return dense(h, lp["fc2_w"], lp["fc2_b"])
+    h = gelu_mod.gelu(dense(mesh_mod.copy_to_model(x), lp["fc1_w"], lp["fc1_b"]))
+    return _row_out(lambda bias: dense(h, lp["fc2_w"], bias), lp["fc2_b"])
 
 
 def layer_params(stacked: Params, index: int) -> Params:
@@ -399,6 +435,7 @@ def _cross_kv(cross: Params, enc_out: torch.Tensor, num_heads: int):
     round differently, for another row count).  int8 projections give int8
     K/V with f32 (B, H, S) scales, quantized per (head, position) over the
     head dim; else the scales are None."""
+    num_heads = _local_heads(cross["k_w"], num_heads)
     k = torch.cat([dense(e[None], cross["k_w"]) for e in enc_out])
     k = _split_heads(k, num_heads).permute(0, 2, 3, 1)
     v = torch.cat([dense(e[None], cross["v_w"], cross["v_b"]) for e in enc_out])
@@ -424,12 +461,16 @@ def init_cache(params: Params, dims: WhisperDims, enc_out: torch.Tensor,
     With int8 cross projections (int8 serving) the cross K/V are quantized
     per (head, position) over the head dim and the self slabs are int8 with
     a bf16 scale slab of ones."""
-    b, s, d = enc_out.shape
-    nh = dims.decoder_attention_heads
+    b = enc_out.shape[0]
     nl = dims.decoder_layers
+    self_w = params["decoder"]["layers"]["self"]["k_w"]
+    # This rank's heads (and their width) under tensor parallelism.
+    nh = _local_heads(self_w, dims.decoder_attention_heads)
+    d = (self_w["q"] if qmm_mod.is_quantized(self_w) else self_w).shape[-1]
     layers = params["decoder"]["layers"]["cross"]
     quant = qmm_mod.is_quantized(layers["k_w"])
-    per_layer = [_cross_kv(layer_params(layers, i), enc_out, nh) for i in range(nl)]
+    per_layer = [_cross_kv(layer_params(layers, i), enc_out, dims.decoder_attention_heads)
+                 for i in range(nl)]
     per_layer += [tuple(None if a is None else torch.zeros_like(a) for a in per_layer[0])
                   ] * extra_layers
     ks, vs, kss, vss = zip(*per_layer)
@@ -523,8 +564,11 @@ def _layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.T
     ``cross_beam`` K > 1 (beam search): h holds B * K rows, beam-major per
     example, and the cross K/V B rows; each example's K beams' queries are
     folded into one (B, K * T) query block for the cross-attention and
-    unfolded after it, so the shared cross K/V are read once per example."""
+    unfolded after it, so the shared cross K/V are read once per example.
+    Under tensor parallelism: this rank's heads, the o projections summed
+    over the model group (:func:`_row_out`)."""
     head_dim = h.shape[-1] // num_heads
+    num_heads = _local_heads(lp["self"]["q_w"], num_heads)
     sx = layer_norm(h, lp["self_ln"]["scale"], lp["self_ln"]["bias"])
     q = _split_heads(proj(sx, lp["self"]["q_w"], lp["self"]["q_b"]), num_heads)
     q = q * (head_dim ** -0.5)
@@ -544,8 +588,8 @@ def _layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.T
         v_att = dequant_self(v_buf, self_s[..., num_heads:], num_heads)
         write_rows(k_att, k_new.to(torch.bfloat16), offsets)
         write_rows(v_att, v_new.to(torch.bfloat16), offsets)
-    out = attend(q, k_att, v_att, self_mask)
-    h = h + proj(_merge_heads(out), lp["self"]["o_w"], lp["self"]["o_b"])
+    out = _merge_heads(attend(q, k_att, v_att, self_mask))
+    h = h + _row_out(lambda bias: proj(out, lp["self"]["o_w"], bias), lp["self"]["o_b"])
     cx = layer_norm(h, lp["cross_ln"]["scale"], lp["cross_ln"]["bias"])
     cq = _split_heads(proj(cx, lp["cross"]["q_w"], lp["cross"]["q_b"]), num_heads)
     cq = cq * (head_dim ** -0.5)
@@ -553,8 +597,8 @@ def _layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.T
     cq = cq.reshape(bk // cross_beam, cross_beam * t, *cq.shape[2:])
     co = cross_fn(cq.transpose(1, 2), cross_k, cross_v, cross_len, cross_k_s,
                   cross_v_s).transpose(1, 2)                    # (B, K * T, H, Dh)
-    h = h + proj(_merge_heads(co.reshape(bk, t, *co.shape[2:])), lp["cross"]["o_w"],
-                 lp["cross"]["o_b"])
+    co = _merge_heads(co.reshape(bk, t, *co.shape[2:]))
+    h = h + _row_out(lambda bias: proj(co, lp["cross"]["o_w"], bias), lp["cross"]["o_b"])
     fx = layer_norm(h, lp["ffn_ln"]["scale"], lp["ffn_ln"]["bias"])
     return h + ffn_fn(lp, fx)
 
@@ -599,10 +643,14 @@ def _ffn_plain(lp: Params, x: torch.Tensor) -> torch.Tensor:
 def _ffn_ops(lp: Params, x: torch.Tensor) -> torch.Tensor:
     """The per-op step's FFN, as the JAX scan path (whisper.py:1036-1041):
     int8 weights through :func:`ffn` (K6), bf16 and f32 through
-    ``ffn_decode`` (K11 and its f32 mode)."""
+    ``ffn_decode`` (K11 and its f32 mode; under tensor parallelism on this
+    rank's columns with a zero fc2 bias, :func:`_row_out` adding it once)."""
     if qmm_mod.is_quantized(lp["fc1_w"]):
         return ffn(lp, x)
-    return decode_ops.ffn_decode(x, lp["fc1_w"], lp["fc1_b"], lp["fc2_w"], lp["fc2_b"])
+    b2 = lp["fc2_b"]
+    return _row_out(lambda bias: decode_ops.ffn_decode(
+        x, lp["fc1_w"], lp["fc1_b"], lp["fc2_w"], torch.zeros_like(b2) if bias is None
+        else bias), b2)
 
 
 def decoder_layer_step(lp: Params, h: torch.Tensor, k_buf: torch.Tensor,
@@ -732,7 +780,8 @@ def decode_step(params: Params, dims: WhisperDims, tokens: torch.Tensor,
     Dispatch, as the JAX package's: K2 (``fused_decoder_layers``) where
     ``megastep.fits`` the call, else the per-op step
     (:func:`decoder_layers_ops`): B > 8, T > 16, widths off K2's scope,
-    beams."""
+    beams, and every call under tensor parallelism (JAX's gate takes its
+    scan path under a model axis)."""
     from whisper_medusa_tpu_torch.ops import megastep
 
     dec = params["decoder"]
@@ -743,7 +792,8 @@ def decode_step(params: Params, dims: WhisperDims, tokens: torch.Tensor,
     abs_pos = (offsets[:, None] + rel_positions[None, :]).clamp(
         0, dims.max_target_positions - 1)
     x = embed_lookup(dec["embed_tokens"], tokens) + dec["pos_embed"][abs_pos]
-    fused = megastep.fits(dec["layers"], x, cache.self_k, cache.cross_k, nh, cross_beam)
+    fused = (mesh_mod.model_parallel() is None
+             and megastep.fits(dec["layers"], x, cache.self_k, cache.cross_k, nh, cross_beam))
     fn = (megastep.fused_decoder_layers if fused
           else functools.partial(decoder_layers_ops, cross_beam=cross_beam))
     pre_norm, hidden, block_hidden = fn(

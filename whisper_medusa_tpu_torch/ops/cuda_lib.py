@@ -14,13 +14,15 @@ refuses (an address or stride not 16-byte aligned) makes the entry return
 
 The library goes to ``build/whisper_medusa_tpu_torch/`` under the checkout,
 named by a hash of the sources and flags, so an edited source rebuilds and a
-second process reuses the first one's build.  There is no fallback: without
+second process reuses the first one's build; the build holds a file lock,
+so ranks that start together (``parallel/``) run nvcc once.  There is no fallback: without
 nvcc, or when the build fails, :func:`lib` raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -125,6 +127,14 @@ def _build() -> str:
     if os.path.isfile(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "libwm_kernels.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.isfile(out):
+            _compile(nvcc, out)
+    return out
+
+
+def _compile(nvcc: str, out: str) -> None:
     tmp = f"{out}.{os.getpid()}.tmp"
     cus = [p for p in _sources() if p.endswith(".cu")]
     objs = [f"{tmp}.{os.path.basename(cu)}.o" for cu in cus]
@@ -146,7 +156,6 @@ def _build() -> str:
         raise RuntimeError(f"nvcc failed building {out}:\n" + "\n".join(
             f"{os.path.basename(what)} ({rc}):\n{so}{se}" for what, rc, so, se in failed))
     os.replace(tmp, out)
-    return out
 
 
 def lib() -> ctypes.CDLL:

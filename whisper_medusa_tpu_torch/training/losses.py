@@ -79,6 +79,7 @@ def medusa_losses_streaming(
     teacher_hidden: Optional[torch.Tensor] = None,   # (B, T, D): KL when given
     kl_lamda: float = 0.0,
     chunk: int = 64,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Per-head shifted CE (and KL) without the (H', B, T, V) logits stack.
 
@@ -89,6 +90,13 @@ def medusa_losses_streaming(
     and detached after the projection, so the projection weight gets no
     teacher-branch gradient.  Same reduction as :func:`medusa_cross_entropy`
     and :func:`medusa_kl` up to the order of the sums.
+
+    ``reduce`` (data parallelism: a sum over the data ranks, no gradient)
+    makes the terms this rank's share of the global batch's: its NLL sums
+    over the global supervised-token counts, its KL sums over the global
+    batch size, so the ranks' losses add up to the single-process loss on
+    the whole batch (JAX's one loss over the global batch), whatever the
+    ranks' ``-100`` padding.
 
     Returns (per_head_ce (H',), valid (H',), per_head_kl (H',) or None)."""
     nh, b, t, _ = head_stack.shape
@@ -135,6 +143,9 @@ def medusa_losses_streaming(
         nll_sum = nll_sum + nll_c
         kl_sum = kl_sum + kl_c
         cnt_sum = cnt_sum + torch.stack([m.sum() for m in masks])
+    if reduce is not None:
+        cnt_sum = reduce(cnt_sum)
+        b = int(reduce(torch.tensor([b], device=cnt_sum.device))[0])
     valid = cnt_sum > 0
     per_head_ce = nll_sum / cnt_sum.clamp(min=1)
     per_head_kl = kl_sum / b * kl_lamda if teacher_hidden is not None else None

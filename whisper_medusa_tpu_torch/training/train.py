@@ -13,6 +13,16 @@ Training on the card takes all-bf16 or all-f32 parameters (``param_dtype``
 have both modes, and an f32 step's projections are full-f32 cuBLAS
 products, so f32 training refuses ``torch.backends.cuda.matmul.allow_tf32``.
 On the CPU either dtype trains, through the plain versions of the kernels.
+
+On a mesh (``parallel/mesh.py``; ``MedusaTrainer(mesh=)``) every rank holds
+the whole parameters and optimizer state, alike on every rank.  A step's
+forward runs on this rank's examples (the data axis) and, with tp > 1, on
+its shard of the weights (the model axis; the tied embedding whole), cut
+differentiably from the whole leaves; each rank's loss is its share of the
+global batch's (``losses.medusa_losses_streaming(reduce=)``), and the
+gradients are summed over the model group (the sharded leaves' slices)
+and over the data group (every leaf) in one f32 buffer, so every rank
+takes the single-process step on the global batch.
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ from whisper_medusa_tpu_torch.config import ModelConfig
 from whisper_medusa_tpu_torch.models import whisper
 from whisper_medusa_tpu_torch.models.bridge import flatten
 from whisper_medusa_tpu_torch.models.medusa import apply_heads_train
+from whisper_medusa_tpu_torch.parallel import distributed
+from whisper_medusa_tpu_torch.parallel import mesh as mesh_mod
 from whisper_medusa_tpu_torch.training import losses as losses_mod
 from whisper_medusa_tpu_torch.training.optim import OptimizerSpec, warmup_schedule
 
@@ -66,14 +78,15 @@ def medusa_train_forward(params: Params, config: ModelConfig, input_features: to
                          labels: torch.Tensor,
                          decoder_input_ids: Optional[torch.Tensor] = None,
                          freeze_policy: Optional[str] = None, remat: Any = True,
-                         decoder_remat: Any = None) -> TrainForwardOut:
+                         decoder_remat: Any = None, data_group=None) -> TrainForwardOut:
     """Teacher-forced forward with per-head losses (JAX ``medusa_train_forward``).
 
     ``freeze_policy`` prunes the graph to the trainable set (see the module
     docstring); ``None`` is a full fine-tune, with ``remat`` (and
     ``decoder_remat`` for the decoder, when given) choosing the backbone's
     recompute policy.  Losses stream through T-chunked vocab projections
-    (``losses.medusa_losses_streaming``)."""
+    (``losses.medusa_losses_streaming``); with ``data_group`` the loss is
+    this data rank's share of the global batch's."""
     dims, med = config.dims, config.medusa
     wp, mp = params["whisper"], params["medusa"]
     _check_policy(freeze_policy)
@@ -118,7 +131,9 @@ def medusa_train_forward(params: Params, config: ModelConfig, input_features: to
     per_head_ce, valid, per_head_kl = losses_mod.medusa_losses_streaming(
         lambda h: whisper.project_logits_train(wp_proj, h), ce_rows,
         labels.to(head_stack.device), med.medusa_loss_on_original,
-        teacher_hidden=teacher_hidden, kl_lamda=med.medusa_kl_weight)
+        teacher_hidden=teacher_hidden, kl_lamda=med.medusa_kl_weight,
+        reduce=None if data_group is None
+        else (lambda t: distributed.all_reduce(t, data_group)))
     loss = torch.where(valid, per_head_ce, 0.0).sum() / valid.sum().clamp(min=1)
     if per_head_kl is not None:
         loss = loss + per_head_kl.mean()
@@ -238,13 +253,66 @@ def require_trainable_dtype(params: Params) -> None:
             "decimal digits); set it to False")
 
 
+def _forward_params(params: Params, mesh) -> Params:
+    """The parameters a step's forward reads: ``params``, or on a mesh with
+    tp > 1 this rank's shard of them, cut differentiably, with the tied
+    embedding whole (the vocab side runs on every model rank)."""
+    if mesh is None or mesh.tp == 1:
+        return params
+    shard = mesh_mod.shard_params(params, mesh)
+    shard["whisper"]["decoder"]["embed_tokens"] = params["whisper"]["decoder"]["embed_tokens"]
+    return shard
+
+
+def _reduce_grads(grads: Dict[str, Any], mask: Dict[str, Any], params: Params,
+                  mesh) -> Dict[str, Any]:
+    """Sum each gradient over the model group (the leaves cut over the model
+    axis, each rank's slice; the whole embedding is replicated) and every
+    gradient over the data group, in one f32 buffer per group.  A leaf
+    that no rank's loss reached stays None; one that some rank's reached is
+    summed with zeros from the others.  A leaf masked to some layers (the
+    ``all_but_last`` policy) is reduced over those layers only."""
+    keys = list(grads)
+    dev = leaves(params)[0].device
+    has = torch.tensor([g is not None for g in grads.values()], dtype=torch.int32, device=dev)
+    for group in (mesh.model_group, mesh.data_group):
+        has = distributed.all_reduce(has, group)
+    flat = flatten(params)
+    rows = {}
+    for k in keys:
+        m = mask[k]
+        rows[k] = (torch.nonzero(m.flatten()).flatten() if torch.is_tensor(m)
+                   else slice(None))
+    grads = {k: (g if g is not None else torch.zeros_like(flat[k])) if n else None
+             for (k, g), n in zip(grads.items(), has.tolist())}
+    embed = "whisper/decoder/embed_tokens"
+    tp_keys = set(mesh_mod.sharded_leaves(params, mesh.tp)) - {embed, embed + "/q",
+                                                               embed + "/s"}
+    for group, sel in ((mesh.model_group, [k for k in keys if k in tp_keys]),
+                       (mesh.data_group, keys)):
+        sel = [k for k in sel if grads[k] is not None]
+        if group is None or not sel:
+            continue
+        parts = [grads[k][rows[k]] for k in sel]
+        buf = distributed.all_reduce(torch.cat([p.float().flatten() for p in parts]), group)
+        at = 0
+        for k, p in zip(sel, parts):
+            g = torch.zeros_like(grads[k]) if torch.is_tensor(mask[k]) else grads[k]
+            g[rows[k]] = buf[at:at + p.numel()].view(p.shape).to(g.dtype)
+            grads[k] = g
+            at += p.numel()
+    return grads
+
+
 def masked_grads(params: Params, config: ModelConfig, input_features, labels,
                  freeze_policy: Optional[str], remat: Any = "attn",
-                 decoder_remat: Any = None) -> Tuple[TrainForwardOut, Dict[str, Any]]:
+                 decoder_remat: Any = None, mesh=None) -> Tuple[TrainForwardOut, Dict[str, Any]]:
     """(forward out, {checkpoint key: gradient * mask}) of the leaves
     ``freeze_policy`` trains (None for a leaf the loss does not reach).  It
     turns on ``requires_grad`` for those leaves for the length of the call
-    and off again, so the params serve unchanged afterwards."""
+    and off again, so the params serve unchanged afterwards.  On a ``mesh``
+    the inputs are this data rank's rows, ``out``'s terms this rank's share
+    and the gradients the global batch's (:func:`_reduce_grads`)."""
     require_trainable_dtype(params)
     mask = flatten(trainable_mask(params, freeze_policy))
     flat = flatten(params)
@@ -255,39 +323,53 @@ def masked_grads(params: Params, config: ModelConfig, input_features, labels,
     for k in live:
         flat[k].requires_grad_(True)
     try:
-        with torch.enable_grad():
-            out = medusa_train_forward(params, config, feats, labels,
+        with torch.enable_grad(), mesh_mod.use_mesh(mesh):
+            out = medusa_train_forward(_forward_params(params, mesh), config, feats, labels,
                                        freeze_policy=freeze_policy, remat=remat,
-                                       decoder_remat=decoder_remat)
+                                       decoder_remat=decoder_remat,
+                                       data_group=None if mesh is None else mesh.data_group)
             grads = torch.autograd.grad(out.loss, [flat[k] for k in live],
                                         allow_unused=True)
     finally:
         for k in live:
             flat[k].requires_grad_(False)
-    return out, apply_mask(dict(zip(live, grads)), mask)
+    grads = dict(zip(live, grads))
+    if mesh is not None:
+        grads = _reduce_grads(grads, mask, params, mesh)
+    return out, apply_mask(grads, mask)
+
+
+def _global_metrics(out: TrainForwardOut, data_group) -> Dict[str, Any]:
+    """The step's loss and per-head terms over the global batch (the data
+    ranks' shares summed over ``data_group``)."""
+    total = lambda t: distributed.all_reduce(t.detach(), data_group)
+    metrics = {"loss": total(out.loss), "per_head_ce": total(out.per_head_ce),
+               "valid_heads": out.valid_heads}
+    if out.per_head_kl is not None:
+        metrics["per_head_kl"] = total(out.per_head_kl)
+    return metrics
 
 
 def make_train_step(config: ModelConfig, optimizer: OptimizerSpec,
                     freeze_policy: Optional[str], remat: Any = "attn",
-                    decoder_remat: Any = None):
+                    decoder_remat: Any = None, mesh=None):
     """The train step: ``step(state, input_features, labels) -> (state,
     metrics)``: :func:`masked_grads`, then the optimizer in place.
-    ``optimizer`` must be the spec the state's optimizer was made from."""
+    ``optimizer`` must be the spec the state's optimizer was made from.
+    On a ``mesh`` the step takes this data rank's rows and its metrics are
+    the global batch's."""
     _check_policy(freeze_policy)
 
     def train_step(state: TrainState, input_features, labels):
         out, grads = masked_grads(state.params, config, input_features, labels,
-                                  freeze_policy, remat, decoder_remat)
+                                  freeze_policy, remat, decoder_remat, mesh=mesh)
         flat = flatten(state.params)
         for k, g in grads.items():
             flat[k].grad = g
         state.opt_state.step()
         for k in grads:
             flat[k].grad = None
-        metrics = {"loss": out.loss.detach(), "per_head_ce": out.per_head_ce.detach(),
-                   "valid_heads": out.valid_heads}
-        if out.per_head_kl is not None:
-            metrics["per_head_kl"] = out.per_head_kl.detach()
+        metrics = _global_metrics(out, None if mesh is None else mesh.data_group)
         state.step += 1
         return state, metrics
 
@@ -295,11 +377,17 @@ def make_train_step(config: ModelConfig, optimizer: OptimizerSpec,
 
 
 def eval_loss(config: ModelConfig, params: Params, input_features,
-              labels) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(loss, per_head_ce) of the full forward, without a graph."""
+              labels, mesh=None, whole_batch: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, per_head_ce) of the full forward, without a graph; on a
+    ``mesh`` from this data rank's rows, the global batch's values, or with
+    ``whole_batch`` from the whole batch on every rank (one that dp does
+    not divide)."""
     dev = leaves(params)[0].device
-    with torch.no_grad():
+    group = None if mesh is None or whole_batch else mesh.data_group
+    with torch.no_grad(), mesh_mod.use_mesh(mesh):
         out = medusa_train_forward(
-            params, config, torch.as_tensor(input_features, dtype=torch.float32, device=dev),
-            torch.as_tensor(labels, device=dev).long())
-    return out.loss, out.per_head_ce
+            _forward_params(params, mesh), config,
+            torch.as_tensor(input_features, dtype=torch.float32, device=dev),
+            torch.as_tensor(labels, device=dev).long(), data_group=group)
+    m = _global_metrics(out, group)
+    return m["loss"], m["per_head_ce"]

@@ -9,6 +9,12 @@ is the JAX package's format) and keeps the newest ``save_total_limit``, with
 ``trainer_state.json`` beside them as in the JAX package.
 ``resume_from_checkpoint`` restores the newest checkpoint;
 ``load_best_model_at_end`` restores the best one when it was kept.
+
+``mesh=`` (``parallel/mesh.py``, JAX's ``mesh=``) trains data- and
+tensor-parallel: every rank draws the same global batch from its iterator
+and takes its data rank's rows, the step's gradients are the global
+batch's (``train.masked_grads``), so parameters and optimizer state stay
+alike on every rank, and only the primary process writes checkpoints.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 
 from whisper_medusa_tpu_torch.config import ModelConfig
 from whisper_medusa_tpu_torch.models.bridge import flatten
+from whisper_medusa_tpu_torch.parallel import distributed
 from whisper_medusa_tpu_torch.training import train as train_mod
 
 logger = logging.getLogger("whisper_medusa_tpu_torch")
@@ -59,11 +66,10 @@ class MedusaTrainer:
                  eval_iter_fn: Optional[Callable[[], Iterator[Dict[str, np.ndarray]]]] = None,
                  log_fn: Optional[Callable[[Dict[str, float], int], None]] = None,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (DP/TP training) is not ported to whisper_medusa_tpu_torch "
-                "yet (ROADMAP queue 1, item 17: DP/DDP training)")
+        if mesh is not None and args.batch_size % mesh.dp != 0:
+            raise ValueError(f"batch_size {args.batch_size} must divide by dp={mesh.dp}")
         train_mod.require_trainable_dtype(params)
+        self.mesh = mesh
         self.config = config
         self.args = args
         self.train_iter = train_iter
@@ -73,7 +79,8 @@ class MedusaTrainer:
             args.optim, args.lr, args.warmup_steps, args.max_steps,
             args.lr_scheduler_type, args.gradient_accumulation_steps)
         self.state = train_mod.init_train_state(params, self.optimizer)
-        self._step_fn = train_mod.make_train_step(config, self.optimizer, args.parts_to_freeze)
+        self._step_fn = train_mod.make_train_step(config, self.optimizer, args.parts_to_freeze,
+                                                  mesh=mesh)
         self._ckpt_dir = os.path.abspath(os.path.join(args.output_dir, "checkpoints"))
         self.best_eval_loss = float("inf")
         self.best_step = -1
@@ -85,7 +92,20 @@ class MedusaTrainer:
             return []
         return sorted(int(n) for n in os.listdir(self._ckpt_dir) if n.isdigit())
 
+    def _rows(self, x):
+        """This data rank's rows of a global batch array."""
+        if self.mesh is None:
+            return x
+        return distributed.local_rows(x, self.mesh.data_index, self.mesh.dp)
+
     def save_checkpoint(self, step: int) -> None:
+        """Written by the primary process alone (every rank holds the same
+        state); the others wait for it."""
+        if distributed.is_primary():
+            self._write_checkpoint(step)
+        distributed.sync()
+
+    def _write_checkpoint(self, step: int) -> None:
         path = os.path.join(self._ckpt_dir, str(step))
         os.makedirs(path, exist_ok=True)
         torch.save({"params": {k: v.detach().cpu() for k, v in flatten(self.state.params).items()},
@@ -129,8 +149,14 @@ class MedusaTrainer:
                 batch = next(it)
             except StopIteration:
                 break
-            loss, _ = train_mod.eval_loss(self.config, self.state.params,
-                                          batch["input_features"], batch["labels"])
+            feats, labels = batch["input_features"], batch["labels"]
+            # A last batch that dp does not divide runs whole on every rank
+            # (the JAX trainer leaves it unsharded).
+            whole = self.mesh is not None and feats.shape[0] % self.mesh.dp != 0
+            if not whole:
+                feats, labels = self._rows(feats), self._rows(labels)
+            loss, _ = train_mod.eval_loss(self.config, self.state.params, feats, labels,
+                                          mesh=self.mesh, whole_batch=whole)
             losses.append(float(loss))
         return float(np.mean(losses)) if losses else float("nan")
 
@@ -142,8 +168,8 @@ class MedusaTrainer:
         start = int(self.state.step)
         for step in range(start, args.max_steps):
             batch = next(self.train_iter)
-            self.state, metrics = self._step_fn(self.state, batch["input_features"],
-                                                batch["labels"])
+            self.state, metrics = self._step_fn(self.state, self._rows(batch["input_features"]),
+                                                self._rows(batch["labels"]))
             if (step + 1) % args.logging_steps == 0:
                 scalars = {"loss": float(metrics["loss"]),
                            "step_time": (time.time() - t0) / max(step - start + 1, 1)}
