@@ -251,6 +251,7 @@ The line before the last is {"kernels": [...]}; the last line is
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -3906,13 +3907,19 @@ def check_f32_attention(g):
 
 
 def check_f32_logits(g, embed):
-    """K3's f32 mode against project_plain at M = 1, 10, 80, 121, 300; the
-    first 10 rows of the M=80 call bitwise an M=10 call; timed at M = 10
-    (the B=1 drafts) beside x @ E.T, M = 80 printed."""
+    """K3's f32 mode against project_plain at M = 1, 10, 80, 121, 300 (the
+    stream's plan printed for each); the first 10 rows of the M=80 call
+    bitwise an M=10 call; timed at M = 10 (the B=1 drafts) beside x @ E.T,
+    M = 80 printed."""
     from whisper_medusa_tpu_torch.ops import logits as LG
 
     worst, xs = 0.0, {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for m in (1, 10, 80, 121, 300):
+        plan = LG.f32_stream_plan(m, embed.shape[0], embed.shape[1], sms)
+        log(f"K3 f32 M={m}: {plan['passes']} pass(es) of {plan['rows']} rows (TR "
+            f"{plan['tr']}), {plan['items']} items over {plan['grid']} CTAs, "
+            f"{plan['stages']} ring stages of {plan['stage']} bytes")
         x = _f32(g, m, embed.shape[1])
         worst = max(worst, _f32_ok(f"K3 f32 M={m}", LG.project_kernel(x, embed),
                                    LG.project_plain(x, embed)))
@@ -4809,7 +4816,9 @@ def check_attention_bwd_f32(g):
     three shapes, f32 throughout.  dQ, dK and dV each within K9_F32_TOL
     relative (Frobenius) of attention_bwd_plain and attention_bwd_lse_plain
     on the same f32 inputs, the dK / dV rows of keys past kv_len exactly 0;
-    each main-path shape twice on the same inputs, bitwise equal.  Timed
+    each main-path shape twice on the same inputs, bitwise equal, and
+    example 0 of its B=2 call bitwise a B=1 call (the dQ partials' scratch
+    printed).  Timed
     against the plain version and PyTorch's f32 SDPA backward (the
     efficient-attention backend: flash takes no f32), the one backward call
     through autograd on a graph kept from one forward, held to the plain
@@ -4851,10 +4860,18 @@ def check_attention_bwd_f32(g):
         same = all(torch.equal(a, c) for a, c in zip(again, got))
         log(f"{what}: a second run on the same inputs: dQ, dK and dV bitwise equal {same}")
         require(same, f"{what}: dQ / dK / dV changed between two runs")
+        one = A.attention_bwd_kernel(*(t[:1].contiguous() for t in (q, k, v, do)), kv_len,
+                                     causal, o=o[:1].contiguous(), lse=lse[:1].contiguous())
+        b_inv = all(torch.equal(a[:1], c) for a, c in zip(got, one))
+        scratch = math.prod(A.bwd_scratch_shape(b, h, sq, skv)) * 4
+        log(f"{what}: example 0 of the B={b} call bitwise a B=1 call (dQ, dK, dV): {b_inv}; "
+            f"dQ partials scratch {scratch / 1e6:.1f} MB ({scratch} bytes)")
+        require(b_inv, f"{what}: example 0's dQ / dK / dV depend on B")
         kern = lambda: A.attention_bwd_kernel(q, k, v, do, kv_len, causal, o=o, lse=lse)
         ms = cuda_ms(kern)
         dsum = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
-        bufs = [torch.empty_like(t) for t in (q, k, v)] + [dsum]
+        bufs = [torch.empty_like(t) for t in (q, k, v)] + [dsum] + [
+            torch.empty(A.bwd_scratch_shape(b, h, sq, skv), dtype=torch.float32, device="cuda")]
         entry_ms = cuda_ms(lambda: cuda_lib.launch(
             "wm_attention_bwd_f32", q.device, *(t.data_ptr() for t in (q, k, v, o, lse, do)),
             *(t.data_ptr() for t in bufs), b, h, sq, skv, 64, kv_len, int(causal)))
@@ -5079,8 +5096,13 @@ def check_remat_dots(kernels, feats2):
         require(loss == ref[0] and len(same) == len(grads),
                 f"remat {remat!r}: loss {loss} vs {ref[0]}, gradient error {worst}")
         del grads
+    from whisper_medusa_tpu_torch.ops import attention as A
+
+    scratch = max(math.prod(A.bwd_scratch_shape(TRAIN_B, 20, sq, skv)) * 4
+                  for sq, skv, _ in K9_SHAPES)
     log(f"peak memory of one f32 full fine-tune pass above the weights (GiB): "
-        + ", ".join(f"remat {r!r} {p:.2f}" for r, p in peaks.items()) + f"; {SMI}")
+        + ", ".join(f"remat {r!r} {p:.2f}" for r, p in peaks.items())
+        + f"; K9 f32's largest dQ partials scratch {scratch / 2**30:.3f} GiB; {SMI}")
     require(peaks["dots"] < peaks[False], "remat 'dots' did not lower the peak memory")
     del params, ref
 

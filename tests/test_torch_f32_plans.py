@@ -12,7 +12,13 @@ kernels' split arithmetic emulated against the plain versions.
   combined in slice order (rescaled to the global max, slices with no
   visible key skipped, then divided by the sum) against the plain cross-
   and self-attention at 1e-5; in the mask mode keys at or past off + TC are
-  not read.
+  not read;
+* K3's f32 stream (``csrc/ffma_stream.cuh``): its constants are the
+  wrapper's, its persistent walk takes every (vocab tile, pass) item once
+  and its passes every row once, and its ring fits an SM at two CTAs;
+* K9's f32 mode: dQ as one partial per 128-key block (dS K over the block's
+  keys), the partials of the blocks that reach a row added in key-block
+  order, against attention_bwd_lse_plain at 1e-6.
 """
 
 import os
@@ -22,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from whisper_medusa_tpu_torch.ops import attention as A
 from whisper_medusa_tpu_torch.ops import decode_ops as DO
 from whisper_medusa_tpu_torch.ops import logits as LG
 
@@ -162,3 +169,79 @@ def test_self_split_combine_matches_plain(chunk):
     torch.testing.assert_close(got.transpose(1, 2), ref, rtol=1e-5, atol=1e-5)
     c, sc = DO.cluster_split(s)
     assert c == 3 and all(int(off[0]) + t <= r * sc for r in (1, 2))     # skipped slices
+
+
+def test_stream_constants_are_the_source():
+    for name, value in (("FS_VT", LG.STREAM_TILE), ("FS_KC", LG.STREAM_KC),
+                        ("FS_MAX_TR", LG.STREAM_MAX_TR), ("FS_THREADS", LG.STREAM_THREADS),
+                        ("FS_CTAS", LG.STREAM_CTAS), ("FS_RING", LG.STREAM_RING),
+                        ("FS_MAX_STAGES", LG.STREAM_MAX_STAGES)):
+        assert _const(name, "ffma_stream.cuh") == value, name
+    assert '#include "ffma_stream.cuh"' in open(os.path.join(CSRC, "logits.cu")).read()
+    # The consumers' 4 warps x (4 entries x 8 row groups) cover a 64-entry tile.
+    assert (LG.STREAM_THREADS - 32) // 32 * 4 * 8 * 4 == LG.STREAM_TILE * 8
+
+
+@pytest.mark.parametrize("v", [51865, 51864])
+@pytest.mark.parametrize("m", [1, 10, 11, 64, 65, 80, 121, 300])
+def test_stream_walk_covers_each_tile_once(m, v):
+    plan = LG.f32_stream_plan(m, v)
+    assert plan["tiles"] == 811 and plan["items"] == 811 * plan["passes"]
+    items = sorted(i for mine in plan["walk"] for i in mine)
+    assert items == list(range(plan["items"]))                   # every item once
+    assert plan["grid"] == min(plan["items"], 2 * 132)
+    # item -> (tile item // passes, pass item % passes): each tile's passes once
+    pairs = {(i // plan["passes"], i % plan["passes"]) for i in items}
+    assert pairs == {(t, p) for t in range(811) for p in range(plan["passes"])}
+    # the passes take every row once, 8 TR rows each, TR the least that holds them
+    rows = [p * plan["rows"] + r for p in range(plan["passes"]) for r in range(plan["rows"])]
+    assert [r for r in rows if r < m] == list(range(m)) and plan["rows"] <= 64
+    assert plan["tr"] == 1 or 8 * (plan["tr"] - 1) * plan["passes"] < m
+    # the last tile's rows past V are the TMA's zero fill
+    assert (plan["tiles"] - 1) * LG.STREAM_TILE < v <= plan["tiles"] * LG.STREAM_TILE
+
+
+@pytest.mark.parametrize("tr", range(1, 9))
+def test_stream_ring_fits_two_ctas(tr):
+    plan = LG.f32_stream_plan(8 * tr, 51865)
+    assert plan["tr"] == tr and plan["stage"] % 1024 == 0      # swizzled tiles 1024-aligned
+    assert plan["smem"] <= 232448                                # a CTA's most
+    assert LG.STREAM_CTAS * (plan["smem"] + 1024) <= 233472      # an SM's 228 KB
+    assert LG.STREAM_CTAS * plan["stages"] * plan["stage"] >= 32 * 1024 * 4   # in flight
+
+
+@pytest.mark.parametrize("b,h,sq,skv,kv_len,causal", [
+    (1, 2, 77, 300, 299, False), (1, 2, 300, 300, 257, True), (2, 1, 130, 129, 129, True),
+    (1, 1, 200, 260, 131, False)])
+def test_bwd_f32_dq_partials_match_plain(b, h, sq, skv, kv_len, causal):
+    rng = np.random.default_rng(sq + skv)
+    q, do = (torch.from_numpy(rng.standard_normal((b, h, sq, 64)).astype(np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, h, skv, 64)).astype(np.float32))
+            for _ in range(2))
+    q = q * 0.25
+    o = A.attention_plain(q, k, v, kv_len, causal)
+    lse = A.attention_lse_plain(q, k, kv_len, causal)
+    ref = A.attention_bwd_lse_plain(q, k, v, o, lse, do, kv_len, causal)
+    # The kernel's P and dS, then one dQ partial per 128-key block.
+    mask = A._scores_mask(q, k, kv_len, causal)
+    p = torch.where(mask, torch.exp(torch.einsum("bhqd,bhkd->bhqk", q, k) - lse[..., None]),
+                    torch.zeros(()))
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
+    ds = p * (dp - (do * o).sum(-1, keepdim=True))
+    nkb, kb = A.bwd_scratch_shape(b, h, sq, skv)[0], A.BWD_KEYS
+    assert nkb == -(-skv // 128)
+    parts = [ds[..., i * kb:(i + 1) * kb] @ k[:, :, i * kb:(i + 1) * kb] for i in range(nkb)]
+    # The sum pass: blocks below kv_len, and at or below the row when causal.
+    qi = torch.arange(sq)
+    nb = torch.full((sq,), -(-kv_len // kb))
+    if causal:
+        nb = torch.minimum(nb, qi // kb + 1)
+    dq = parts[0].clone()
+    for i in range(1, nkb):
+        dq = dq + torch.where((i < nb)[:, None], parts[i], torch.zeros(()))
+    for i in range(nkb):             # a block the sum skips contributes nothing
+        skipped = (i >= nb)[:, None].expand(sq, 64)
+        assert not parts[i][..., skipped].any()
+    rel = float((dq - ref[0]).norm() / ref[0].norm())
+    assert rel <= 1e-6, rel

@@ -45,9 +45,11 @@ def test_argument_count_matches_signature(entry):
 
 # Entries whose argument lists changed: K10's mask mode takes the chunk's
 # width beside a block's rows; K9's dQ scratch is now one partial per
-# 128-key block (same count, larger buffer); K2 keeps its table and ints;
-# K7 keeps (x, e, s, y, m, v, d, stream).
+# 128-key block (same count, larger buffer), and its f32 mode takes the
+# same scratch; K2 keeps its table and ints; K7 keeps (x, e, s, y, m, v, d,
+# stream).
 @pytest.mark.parametrize("entry,count", [("wm_self_decode", 12), ("wm_attention_bwd", 19),
+                                         ("wm_attention_bwd_f32", 19),
                                          ("wm_megastep_step", 3), ("wm_qmm_nt", 8)])
 def test_changed_entries_keep_their_counts(entry, count):
     assert _entries()[entry] == count

@@ -876,92 +876,92 @@ extern "C" int wm_attention_fwd_f32(const void* q, const void* k, const void* v,
 // kernel rounds dS and P to the operands' dtype, f32 here).  FFMA on the
 // CUDA cores, as K1's f32 mode: the tensor cores take f32 only as TF32.
 //
+// Bound on H100: operations at the CUDA cores' 67 TFLOP/s; the encoder's
+// (2, 20, 1500^2) is 57.6 GFLOP of the five products, 0.86 ms.  The design
+// takes dQ the way the bf16 mode does, so that each product is computed
+// once:
+//
 //  (a) bwd_rows_f32_kernel: Dsum = sum_d dO * O per row (16 lanes a row);
-//  (b) attention_bwd_kv_f32_kernel: one CTA (256 threads) per (batch, head,
-//      64-key block), K^T and V^T staged once, then the visible 64-query
-//      tiles in order (from the block's first key when causal): S^T and dP^T
-//      as 4 x 4 register tiles a thread (keys 4 (t / 16) .., queries 4 (t %
-//      16) ..), P and dS through shared memory query-major, then dV += P^T dO
-//      and dK += dS^T Q as 4 x 4 tiles (keys x head columns) over the tile's
-//      64 queries in order; dK and dV written once, exact zeros for keys
-//      past kv_len (and for a causal block no query sees);
-//  (c) attention_bwd_q_f32_kernel: one CTA per (batch, head, 64-query
-//      block), q^T and dO^T staged once, then the visible 64-key tiles in
-//      order: S and dP again (the same fmaf chains as (b) and K1 f32, so the
-//      same P), dS^T through shared memory, dQ += dS K over the tile's keys
-//      in order.
-// (c) recomputes two of (b)'s products instead of keeping per-key-block dQ
-// partials (the bf16 mode's route): 7 products where 5 would do, but no
-// scratch (the partials would be 184 MB at (2, 20, 1500^2) with 128-key
-// blocks) and no second pass.  Every sum is one chain in a fixed order, no
-// atomics: dQ, dK and dV are bitwise the same from run to run, and a (b,
-// h) block's bits do not depend on B.  Bound on H100: operations at the
-// CUDA cores' 67 TFLOP/s; the encoder's (2, 20, 1500^2) is 57.6 GFLOP of
-// the five products, 0.86 ms.
+//  (b) attention_bwd_f32_kernel: one CTA (8 warps, one an SM: 209 KB of
+//      shared memory) per (batch, head, 128-key block).  K and V of the
+//      block are staged once; the visible 64-query tiles (from the block's
+//      first key when causal) stream through a two-stage cp.async ring of
+//      Q, dO, LSE and Dsum, the next tile's copy in flight during this
+//      tile's products.  Every tile is held in one layout, row-major with a
+//      pitch of 68 floats (P and dS key-major, pitch 72), which the float4
+//      reads of each product below take without bank conflicts.  Per tile:
+//        A. S^T and dP^T, 8 keys x 4 queries of each a thread, 4-deep
+//           steps over the head dimension (12 float4 reads per 128 FFMA);
+//           P = exp(S - LSE) masked to 0 and dS = P (dP - Dsum) to shared
+//           memory;
+//        B. warps 0-3 dV += P^T dO, warps 4-7 dK += dS^T Q, 8 keys x 8 head
+//           columns a thread (16 float4 reads per 256 FFMA), in registers
+//           for the whole walk;
+//        C. this key block's dQ partial = dS K over its 128 keys in order,
+//           4 queries x 4 head columns a thread, stored once to the
+//           (ceil(Skv / 128), B, H, Sq, 64) f32 scratch (184 MB at the
+//           encoder's shape, as the bf16 mode's);
+//      dK and dV are written once, exact zeros for keys past kv_len (and
+//      for a causal block no query sees);
+//  (c) bwd_sum_f32_kernel: dQ = the partials of the key blocks that reach
+//      the row (below kv_len, and at or below the row when causal) added in
+//      key-block order.
+//
+// S and dP are each one fmaf chain over the head dimension in order, dK and
+// dV one chain over the queries in order (a query a causal block does not
+// see adds an exact 0), so P, dS, dK and dV do not depend on the key block's
+// size.  Every sum is one chain in a fixed order and there are no atomics:
+// dQ, dK and dV are bitwise the same from run to run, and a (b, h) block's
+// bits do not depend on B.
 namespace wm {
 namespace {
 
-constexpr int BF_T = 64;                    // keys of (b), queries of (c), rows a tile
+constexpr int BF_KB = 128;                  // keys a CTA: one dQ partial each
+constexpr int BF_QT = 64;                   // queries a tile
 constexpr int BF_DH = 64;
 constexpr int BF_THREADS = 256;
-constexpr int BF_PP = BF_T + 4;             // pitch of the P / dS tiles
-constexpr int BF_TILE = BF_DH * BF_T;       // floats of one staged 64 x 64 tile
-// (b): K^T, V^T; Q^T, dO^T, Q, dO; P, dS (query-major); the tile's LSE, Dsum.
-constexpr int BKV_SMEM = (6 * BF_TILE + 2 * BF_T * BF_PP + 2 * BF_T) * 4;
-// (c): q^T, dO^T; K^T, V^T, K; dS^T (key-major).
-constexpr int BQ_SMEM = (5 * BF_TILE + BF_T * BF_PP) * 4;
+constexpr int BF_LD = BF_DH + 4;            // pitch of the K, V, Q and dO tiles
+constexpr int BF_PL = BF_QT + 8;            // pitch of the P and dS tiles (key-major)
+constexpr int BF_STAGE = 2 * BF_QT * BF_LD + 2 * BF_QT;   // Q, dO, LSE, Dsum
+// K, V; two stages; P, dS.
+constexpr int BF_SMEM = (2 * BF_KB * BF_LD + 2 * BF_STAGE + 2 * BF_KB * BF_PL) * 4;
 
-// Rows r0 .. r0 + 63 of an (n, 64) f32 matrix (rows >= n as zeros),
-// transposed: t[d][r].
-__device__ __forceinline__ void bf_stage_t(float* t, const float* __restrict__ src, int r0,
-                                           int n) {
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+// Rows r0 .. r0 + N - 1 of an (n, 64) f32 matrix into a pitch-BF_LD tile by
+// cp.async, rows at or past n zero-filled.
+template <int N>
+__device__ __forceinline__ void bf_stage(float* dst, const float* __restrict__ src, int r0,
+                                         int n) {
 #pragma unroll
-  for (int h = 0; h < 4; ++h) {
-    const int idx = threadIdx.x + h * BF_THREADS, r = idx & 63, d4 = (idx >> 6) * 4;
-    const float4 x = r0 + r < n ? af_ld4(src + (size_t)(r0 + r) * BF_DH + d4) : zero;
-    t[(d4 + 0) * BF_T + r] = x.x;
-    t[(d4 + 1) * BF_T + r] = x.y;
-    t[(d4 + 2) * BF_T + r] = x.z;
-    t[(d4 + 3) * BF_T + r] = x.w;
+  for (int h = 0; h < N * 16 / BF_THREADS; ++h) {
+    const int idx = threadIdx.x + h * BF_THREADS, r = idx >> 4, c = (idx & 15) * 4;
+    const bool in = r0 + r < n;
+    cp_async16(dst + r * BF_LD + c, src + (size_t)(in ? r0 + r : 0) * BF_DH + c, in);
   }
 }
 
-// The same rows row-major: s[r][d].
-__device__ __forceinline__ void bf_stage_r(float* s, const float* __restrict__ src, int r0,
-                                           int n) {
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+// a[i][j] = sum_d x[16 i][d] * y[16 j][d] over d = 0 .. 63 in order, x and
+// y rows of pitch-BF_LD tiles.
+template <int NI, int NJ>
+__device__ __forceinline__ void bf_dots(float (&a)[NI][NJ], const float* x, const float* y) {
 #pragma unroll
-  for (int h = 0; h < 4; ++h) {
-    const int idx = threadIdx.x + h * BF_THREADS, r = idx >> 4, d4 = (idx & 15) * 4;
-    *reinterpret_cast<float4*>(s + r * BF_DH + d4) =
-        r0 + r < n ? af_ld4(src + (size_t)(r0 + r) * BF_DH + d4) : zero;
-  }
-}
-
-// a[i][j] = sum_d x[d][4 xi + i] * y[d][4 yj + j] and b[i][j] = the same of
-// (u, w), over d = 0 .. 63 in order (x, y, u, w transposed 64 x 64 tiles).
-__device__ __forceinline__ void bf_two_dots(float (&a)[4][4], float (&b)[4][4],
-                                            const float* x, const float* y, const float* u,
-                                            const float* w, int xi, int yj) {
+  for (int i = 0; i < NI; ++i)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NJ; ++j) a[i][j] = 0.0f;
+#pragma unroll 2
+  for (int d = 0; d < BF_DH; d += 4) {
+    float4 xv[NI], yv[NJ];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) a[i][j] = b[i][j] = 0.0f;
-#pragma unroll 8
-  for (int d = 0; d < BF_DH; ++d) {
-    const float4 xa = *reinterpret_cast<const float4*>(x + d * BF_T + 4 * xi);
-    const float4 ya = *reinterpret_cast<const float4*>(y + d * BF_T + 4 * yj);
-    const float4 ua = *reinterpret_cast<const float4*>(u + d * BF_T + 4 * xi);
-    const float4 wa = *reinterpret_cast<const float4*>(w + d * BF_T + 4 * yj);
-    const float xv[4] = {xa.x, xa.y, xa.z, xa.w}, yv[4] = {ya.x, ya.y, ya.z, ya.w};
-    const float uv[4] = {ua.x, ua.y, ua.z, ua.w}, wv[4] = {wa.x, wa.y, wa.z, wa.w};
+    for (int i = 0; i < NI; ++i) xv[i] = *reinterpret_cast<const float4*>(x + 16 * i * BF_LD + d);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NJ; ++j) yv[j] = *reinterpret_cast<const float4*>(y + 16 * j * BF_LD + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        a[i][j] = fmaf(xv[i], yv[j], a[i][j]);
-        b[i][j] = fmaf(uv[i], wv[j], b[i][j]);
+    for (int i = 0; i < NI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        a[i][j] = fmaf(xv[i].x, yv[j].x, a[i][j]);
+        a[i][j] = fmaf(xv[i].y, yv[j].y, a[i][j]);
+        a[i][j] = fmaf(xv[i].z, yv[j].z, a[i][j]);
+        a[i][j] = fmaf(xv[i].w, yv[j].w, a[i][j]);
       }
   }
 }
@@ -981,171 +981,170 @@ bwd_rows_f32_kernel(const float* __restrict__ o, const float* __restrict__ g,
   if (row < rows && part == 0) dsum[row] = s;
 }
 
-__global__ void __launch_bounds__(BF_THREADS)
-attention_bwd_kv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const float* __restrict__ g,
-                            const float* __restrict__ lse, const float* __restrict__ dsum,
-                            float* __restrict__ dk, float* __restrict__ dv, int sq, int skv,
-                            int kv_len, int causal) {
+__global__ void __launch_bounds__(BF_THREADS, 1)
+attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ g,
+                         const float* __restrict__ lse, const float* __restrict__ dsum,
+                         float* __restrict__ dq_part, float* __restrict__ dk,
+                         float* __restrict__ dv, int sq, int skv, int kv_len, int causal) {
   extern __shared__ __align__(16) float bf_smem[];
-  float* kt = bf_smem;                  // [d][key]
-  float* vt = kt + BF_TILE;             // [d][key]
-  float* qt = vt + BF_TILE;             // [d][query]
-  float* gt = qt + BF_TILE;             // [d][query]
-  float* qs = gt + BF_TILE;             // [query][d]
-  float* gs = qs + BF_TILE;             // [query][d]
-  float* pq = gs + BF_TILE;             // P [query][key], pitch BF_PP
-  float* dsq = pq + BF_T * BF_PP;       // dS [query][key], pitch BF_PP
-  float* ls = dsq + BF_T * BF_PP;       // the tile's LSE
-  float* dl = ls + BF_T;                // the tile's Dsum
-  const int k0 = blockIdx.x * BF_T;
+  float* ks = bf_smem;                        // K [key][d]
+  float* vs = ks + BF_KB * BF_LD;             // V [key][d]
+  float* stages = vs + BF_KB * BF_LD;         // 2 x (Q, dO [query][d]; LSE; Dsum)
+  float* ps = stages + 2 * BF_STAGE;          // P [key][query]
+  float* dss = ps + BF_KB * BF_PL;            // dS [key][query]
+  const int k0 = blockIdx.x * BF_KB;
+  const int bhs = gridDim.y * gridDim.z;
   const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
   const float* qh = q + bh * sq * BF_DH;
   const float* gh = g + bh * sq * BF_DH;
-  const int t = threadIdx.x, tr = t >> 4, tc = t & 15;   // keys 4 tr .., queries / d 4 tc ..
-  float adk[4][4], adv[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) adk[i][j] = adv[i][j] = 0.0f;
+  const int t = threadIdx.x, w = t >> 5, l = t & 31;
   const int q_begin = causal ? k0 : 0;
-  const int ntiles = k0 < kv_len && q_begin < sq ? (sq - q_begin + BF_T - 1) / BF_T : 0;
-  if (ntiles > 0) {         // block-uniform; keys >= kv_len get exact zeros
-    bf_stage_t(kt, k + bh * skv * BF_DH, k0, skv);
-    bf_stage_t(vt, v + bh * skv * BF_DH, k0, skv);
+  const int ntiles = k0 < kv_len && q_begin < sq ? (sq - q_begin + BF_QT - 1) / BF_QT : 0;
+  auto stage = [&](int it) {
+    const int q0 = q_begin + it * BF_QT;
+    float* s = stages + (it & 1) * BF_STAGE;
+    bf_stage<BF_QT>(s, qh, q0, sq);
+    bf_stage<BF_QT>(s + BF_QT * BF_LD, gh, q0, sq);
+    if (t < 2 * BF_QT) {
+      const int r = t & (BF_QT - 1);
+      const bool in = q0 + r < sq;
+      cp_async4(s + 2 * BF_QT * BF_LD + t, (t < BF_QT ? lse : dsum) + bh * sq + (in ? q0 + r : 0),
+                in);
+    }
+    cp_async_commit();
+  };
+  // A: keys ka + 16 i, queries qa + 16 j.  B: keys kb + 16 i, head columns
+  // 4 db .. + 3 and 32 + 4 db .. + 3; warps 0-3 dV, 4-7 dK.  C: queries
+  // 4 qc .. + 3, head columns 4 dc .. + 3.
+  const int ka = 4 * (w & 3) + (l >> 3), qa = 8 * (w >> 2) + (l & 7);
+  const int kb = ka, db = l & 7, role = w >> 2;
+  const int qc = ka, dc = qa;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  if (ntiles > 0) {         // block-uniform
+    bf_stage<BF_KB>(ks, k + bh * skv * BF_DH, k0, skv);
+    bf_stage<BF_KB>(vs, v + bh * skv * BF_DH, k0, skv);
+    stage(0);
   }
   for (int it = 0; it < ntiles; ++it) {
-    const int q0 = q_begin + it * BF_T;
-    __syncthreads();        // the previous tile's products are done with its stages
-    bf_stage_t(qt, qh, q0, sq);
-    bf_stage_t(gt, gh, q0, sq);
-    bf_stage_r(qs, qh, q0, sq);
-    bf_stage_r(gs, gh, q0, sq);
-    if (t < BF_T) {
-      ls[t] = q0 + t < sq ? lse[bh * sq + q0 + t] : 0.0f;
-      dl[t] = q0 + t < sq ? dsum[bh * sq + q0 + t] : 0.0f;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    bf_two_dots(s, dp, kt, qt, vt, gt, tr, tc);        // S^T, dP^T: keys x queries
+    const int q0 = q_begin + it * BF_QT;
+    const float* qt = stages + (it & 1) * BF_STAGE;
+    const float* gt = qt + BF_QT * BF_LD;
+    const float* lt = gt + BF_QT * BF_LD;
+    const float* dt = lt + BF_QT;
+    cp_async_wait<0>();
+    __syncthreads();        // this tile has landed; the last tile's B and C are done
+    if (it + 1 < ntiles) stage(it + 1);
+    {                       // A
+      float p[8][4], dp[8][4];
+      bf_dots<8, 4>(p, ks + ka * BF_LD, qt + qa * BF_LD);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = 4 * tc + j, qi = q0 + c;
-      float p[4], d[4];
+      for (int j = 0; j < 4; ++j) {
+        const int c = qa + 16 * j, qi = q0 + c;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + 4 * tr + i;
-        const bool ok = qi < sq && key < kv_len && (!causal || key <= qi);
-        p[i] = ok ? expf(s[i][j] - ls[c]) : 0.0f;
-        d[i] = p[i] * (dp[i][j] - dl[c]);
+        for (int i = 0; i < 8; ++i) {
+          const int key = k0 + ka + 16 * i;
+          const bool ok = qi < sq && key < kv_len && (!causal || key <= qi);
+          p[i][j] = ok ? expf(p[i][j] - lt[c]) : 0.0f;
+        }
       }
-      *reinterpret_cast<float4*>(pq + c * BF_PP + 4 * tr) =
-          make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(dsq + c * BF_PP + 4 * tr) =
-          make_float4(d[0], d[1], d[2], d[3]);
+      bf_dots<8, 4>(dp, vs + ka * BF_LD, gt + qa * BF_LD);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int at = (ka + 16 * i) * BF_PL + qa + 16 * j;
+          ps[at] = p[i][j];
+          dss[at] = p[i][j] * (dp[i][j] - dt[qa + 16 * j]);
+        }
     }
     __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < BF_T; ++c) {
-      const float4 pa = *reinterpret_cast<const float4*>(pq + c * BF_PP + 4 * tr);
-      const float4 da = *reinterpret_cast<const float4*>(dsq + c * BF_PP + 4 * tr);
-      const float4 ga = *reinterpret_cast<const float4*>(gs + c * BF_DH + 4 * tc);
-      const float4 qa = *reinterpret_cast<const float4*>(qs + c * BF_DH + 4 * tc);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w}, dv4[4] = {da.x, da.y, da.z, da.w};
-      const float gv[4] = {ga.x, ga.y, ga.z, ga.w}, qv[4] = {qa.x, qa.y, qa.z, qa.w};
+    {                       // B: dV += P^T dO (role 0), dK += dS^T Q (role 1)
+      const float* pa = (role ? dss : ps) + kb * BF_PL;
+      const float* pb = (role ? qt : gt) + 4 * db;
+#pragma unroll 2
+      for (int c = 0; c < BF_QT; c += 4) {
+        float4 a[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          a[i] = *reinterpret_cast<const float4*>(pa + 16 * i * BF_PL + c);
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const float4 b0 = *reinterpret_cast<const float4*>(pb + (c + cc) * BF_LD);
+          const float4 b1 = *reinterpret_cast<const float4*>(pb + (c + cc) * BF_LD + 32);
+          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float av = cc == 0 ? a[i].x : cc == 1 ? a[i].y : cc == 2 ? a[i].z : a[i].w;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+          }
+        }
+      }
+    }
+    {                       // C: this block's dQ partial = dS K over its keys in order
+      float d4[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          adv[i][j] = fmaf(pv[i], gv[j], adv[i][j]);
-          adk[i][j] = fmaf(dv4[i], qv[j], adk[i][j]);
-        }
+        for (int j = 0; j < 4; ++j) d4[i][j] = 0.0f;
+#pragma unroll 8
+      for (int key = 0; key < BF_KB; ++key) {
+        const float4 a = *reinterpret_cast<const float4*>(dss + key * BF_PL + 4 * qc);
+        const float4 b = *reinterpret_cast<const float4*>(ks + key * BF_LD + 4 * dc);
+        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) d4[i][j] = fmaf(av[i], bv[j], d4[i][j]);
+      }
+      float* part = dq_part + ((size_t)blockIdx.x * bhs + bh) * sq * BF_DH;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + 4 * qc + i;
+        if (row < sq)
+          *reinterpret_cast<float4*>(part + (size_t)row * BF_DH + 4 * dc) =
+              make_float4(d4[i][0], d4[i][1], d4[i][2], d4[i][3]);
+      }
     }
   }
+  float* out = (role ? dk : dv) + bh * skv * BF_DH;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * tr + i;
+  for (int i = 0; i < 8; ++i) {
+    const int key = k0 + kb + 16 * i;
     if (key < skv) {
-      const size_t at = (bh * skv + key) * BF_DH + 4 * tc;
-      *reinterpret_cast<float4*>(dk + at) =
-          make_float4(adk[i][0], adk[i][1], adk[i][2], adk[i][3]);
-      *reinterpret_cast<float4*>(dv + at) =
-          make_float4(adv[i][0], adv[i][1], adv[i][2], adv[i][3]);
+      *reinterpret_cast<float4*>(out + (size_t)key * BF_DH + 4 * db) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(out + (size_t)key * BF_DH + 32 + 4 * db) =
+          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
     }
   }
 }
 
-__global__ void __launch_bounds__(BF_THREADS)
-attention_bwd_q_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const float* __restrict__ g,
-                           const float* __restrict__ lse, const float* __restrict__ dsum,
-                           float* __restrict__ dq, int sq, int skv, int kv_len, int causal) {
-  extern __shared__ __align__(16) float bf_smem[];
-  float* qt = bf_smem;                  // [d][query]
-  float* gt = qt + BF_TILE;             // [d][query]
-  float* kt = gt + BF_TILE;             // [d][key]
-  float* vt = kt + BF_TILE;             // [d][key]
-  float* ks = vt + BF_TILE;             // [key][d]
-  float* st = ks + BF_TILE;             // dS^T [key][query], pitch BF_PP
-  const int q0 = blockIdx.x * BF_T;
-  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
-  const float* kh = k + bh * skv * BF_DH;
-  const float* vh = v + bh * skv * BF_DH;
-  const int t = threadIdx.x, tq = t >> 4, tk = t & 15;   // queries 4 tq .., keys / d 4 tk ..
-  bf_stage_t(qt, q + bh * sq * BF_DH, q0, sq);
-  bf_stage_t(gt, g + bh * sq * BF_DH, q0, sq);
-  float lr[4], dr[4], acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * tq + i;
-    lr[i] = row < sq ? lse[bh * sq + row] : 0.0f;
-    dr[i] = row < sq ? dsum[bh * sq + row] : 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  }
-  const int kend = causal ? min(kv_len, q0 + BF_T) : kv_len;
-  const int ntiles = (kend + BF_T - 1) / BF_T;
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int k0 = tile * BF_T;
-    __syncthreads();        // the previous tile's products are done with its stages
-    bf_stage_t(kt, kh, k0, skv);
-    bf_stage_t(vt, vh, k0, skv);
-    bf_stage_r(ks, kh, k0, skv);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    bf_two_dots(s, dp, qt, kt, gt, vt, tq, tk);        // S, dP: queries x keys
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = k0 + 4 * tk + j;
-      float d[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + 4 * tq + i;
-        const bool ok = row < sq && key < kv_len && (!causal || key <= row);
-        const float p = ok ? expf(s[i][j] - lr[i]) : 0.0f;
-        d[i] = p * (dp[i][j] - dr[i]);
-      }
-      *reinterpret_cast<float4*>(st + (4 * tk + j) * BF_PP + 4 * tq) =
-          make_float4(d[0], d[1], d[2], d[3]);
+// dq = the dQ partials of the key blocks below kv_len (and at or below the
+// row when causal), added in key-block order; n4 = B H Sq 16.
+__global__ void __launch_bounds__(256)
+bwd_sum_f32_kernel(const float* __restrict__ part, float* __restrict__ dq, int n4, int sq,
+                   int kv_len, int causal) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i < n4) {
+    const int qi = (i / (BF_DH / 4)) % sq;
+    int nb = (kv_len + BF_KB - 1) / BF_KB;
+    if (causal) nb = min(nb, qi / BF_KB + 1);
+    const float4* p = reinterpret_cast<const float4*>(part);
+    float4 x = p[i];
+    for (int b = 1; b < nb; ++b) {
+      const float4 y = p[(size_t)b * n4 + i];
+      x.x += y.x;
+      x.y += y.y;
+      x.z += y.z;
+      x.w += y.w;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < BF_T; ++c) {
-      const float4 da = *reinterpret_cast<const float4*>(st + c * BF_PP + 4 * tq);
-      const float4 ka = *reinterpret_cast<const float4*>(ks + c * BF_DH + 4 * tk);
-      const float dv4[4] = {da.x, da.y, da.z, da.w}, kv[4] = {ka.x, ka.y, ka.z, ka.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(dv4[i], kv[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * tq + i;
-    if (row < sq)
-      *reinterpret_cast<float4*>(dq + (bh * sq + row) * BF_DH + 4 * tk) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    reinterpret_cast<float4*>(dq)[i] = x;
   }
 }
 
@@ -1153,11 +1152,13 @@ attention_bwd_q_f32_kernel(const float* __restrict__ q, const float* __restrict_
 }  // namespace wm
 
 // q, g, o, dq (B, H, Sq, 64) and k, v, dk, dv (B, H, Skv, 64) f32, 16-byte
-// aligned; lse (B, H, Sq) f32 from K1's f32 mode; scratch dsum (B, H, Sq) f32.
+// aligned; lse (B, H, Sq) f32 from K1's f32 mode; scratch dsum (B, H, Sq)
+// and dq_part (ceil(Skv / 128), B, H, Sq, 64) f32.
 extern "C" int wm_attention_bwd_f32(const void* q, const void* k, const void* v,
                                     const void* o, const void* lse, const void* g, void* dq,
-                                    void* dk, void* dv, void* dsum, int b, int h, int sq,
-                                    int skv, int dh, int kv_len, int causal, void* stream) {
+                                    void* dk, void* dv, void* dsum, void* dq_part, int b, int h,
+                                    int sq, int skv, int dh, int kv_len, int causal,
+                                    void* stream) {
   using namespace wm;
   if (dh != BF_DH || b < 1 || h < 1 || sq < 1 || kv_len < 1 || kv_len > skv)
     return (int)cudaErrorInvalidValue;
@@ -1168,24 +1169,19 @@ extern "C" int wm_attention_bwd_f32(const void* q, const void* k, const void* v,
                                                        static_cast<float*>(dsum), rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const float* fq = static_cast<const float*>(q);
-  const float* fk = static_cast<const float*>(k);
-  const float* fv = static_cast<const float*>(v);
-  const float* fg = static_cast<const float*>(g);
-  const float* fl = static_cast<const float*>(lse);
-  const float* fd = static_cast<const float*>(dsum);
   // Per launch: the attribute belongs to the current device's context.
-  cudaFuncSetAttribute(attention_bwd_kv_f32_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, BKV_SMEM);
-  attention_bwd_kv_f32_kernel<<<dim3((skv + BF_T - 1) / BF_T, h, b), BF_THREADS, BKV_SMEM,
-                                st>>>(fq, fk, fv, fg, fl, fd, static_cast<float*>(dk),
-                                      static_cast<float*>(dv), sq, skv, kv_len, causal);
+  cudaFuncSetAttribute(attention_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       BF_SMEM);
+  attention_bwd_f32_kernel<<<dim3((skv + BF_KB - 1) / BF_KB, h, b), BF_THREADS, BF_SMEM, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(dsum), static_cast<float*>(dq_part), static_cast<float*>(dk),
+      static_cast<float*>(dv), sq, skv, kv_len, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  cudaFuncSetAttribute(attention_bwd_q_f32_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, BQ_SMEM);
-  attention_bwd_q_f32_kernel<<<dim3((sq + BF_T - 1) / BF_T, h, b), BF_THREADS, BQ_SMEM,
-                               st>>>(fq, fk, fv, fg, fl, fd, static_cast<float*>(dq), sq, skv,
-                                     kv_len, causal);
+  const int n4 = rows * (BF_DH / 4);
+  bwd_sum_f32_kernel<<<(n4 + 255) / 256, 256, 0, st>>>(static_cast<const float*>(dq_part),
+                                                      static_cast<float*>(dq), n4, sq, kv_len,
+                                                      causal);
   return (int)cudaGetLastError();
 }

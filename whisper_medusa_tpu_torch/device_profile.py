@@ -524,11 +524,11 @@ def profile_per_op_step(model, mode):
         del cache
 
 
-# K9's kernels behind its one entry, by mode: the row pass, then the main
-# pass and the cast (bf16), or the dK / dV and the dQ kernels (f32).
+# K9's kernels behind its one entry, by mode: the row pass, the main pass
+# and the pass that adds the dQ partials (a cast to bf16 in the bf16 mode).
 K9_KERNELS = {"bfloat16": ("bwd_rows_kernel", "bwd_main_kernel", "bwd_cast_kernel"),
-              "float32": ("bwd_rows_f32_kernel", "attention_bwd_kv_f32_kernel",
-                          "attention_bwd_q_f32_kernel")}
+              "float32": ("bwd_rows_f32_kernel", "attention_bwd_f32_kernel",
+                          "bwd_sum_f32_kernel")}
 
 
 def profile_training(b=2, t=224):

@@ -1,6 +1,6 @@
-"""Time this checkout's K1, K6, K8, K10, K7, K3, K2, K11, K5, K4 and
-``wm_head_rows`` against another checkout's build of them, on one CUDA
-card, in turns.
+"""Time this checkout's K1, K6, K8, K10, K7, K3, K2, K11, K5, K4,
+``wm_head_rows``, K3's f32 mode and K9's f32 mode against another
+checkout's build of them, on one CUDA card, in turns.
 
     python -m whisper_medusa_tpu_torch.kernel_ab --other DIR [--only K4K5,head_rows]
 
@@ -19,7 +19,10 @@ combines, the cluster attention body of K2 and K10
 tied-embedding stream of K3 and K7 (``nt_stream_kernel<MT, W8>``) — is
 compared between the builds (``cuobjdump -sass``), instruction for
 instruction, and whether it is the same is printed (the f32 and W8A32
-modes are kernels of their own beside them).  Then:
+modes are kernels of their own beside them); then every other function of
+the library outside K3's and K9's f32 kernels (the f32 and W8A32 GEMMs and
+combines, ``ffma_tile``'s other users, K4 / K5's f32 stream, the f32 and
+W8A32 attention kernels) is compared by name the same way.  Then:
 
   * K1, ``wm_attention_fwd``, at (1, 20, 1500, 64) and (8, 20, 1500, 64),
     the encoder's self-attention at B=1 and B=8;
@@ -69,7 +72,15 @@ modes are kernels of their own beside them).  Then:
     ``ops/verify.py`` loaded from that checkout, calling that checkout's
     library), so a build's row blocking and staging copies count, and the C
     entry's host time (summed over its calls in one wrapper call) is printed
-    beside the events and device times.
+    beside the events and device times;
+  * K3's f32 mode, ``wm_logits_f32``, at M = 1, 10, 80, 121 and 300 rows
+    against a seeded f32 embedding at (51865, 1280), with ``x @ E.T`` timed
+    beside it (the builds' outputs bitwise equal or not, printed);
+  * K9's f32 mode, ``wm_attention_bwd_f32``, at the training paths' (2, 20,
+    224^2) causal, (2, 20, 224 x 1500) and (2, 20, 1500^2) and the smoke's
+    three off-path cases, from K1 f32's output and log-sum-exp, beside the
+    SDPA f32 backward (dK and dV bitwise equal between the builds or not,
+    printed; a build whose entry takes the dQ partials gets the scratch).
 
 Each shape runs in the order other, this, this, other; each turn prints the
 median of 20 calls between CUDA events (``device_profile._cuda_ms``) and the
@@ -109,6 +120,12 @@ K6_SHAPES = ((1500, 1280, 1280), (176, 1280, 5120), (176, 5120, 1280), (176, 128
              (16, 1280, 1280), (11, 384, 1536))
 K7_ROWS = (10, 80)
 K3_ROWS = (10, 80)
+K3F32_ROWS = (1, 10, 80, 121, 300)
+# K9 f32: the training paths' self (causal), cross and encoder shapes at
+# B = 2, then the smoke's off-path cases (ragged, kv_len < Skv).
+K9F32_CASES = (((2, 20, 224, 224), 224, True), ((2, 20, 224, 1500), 1500, False),
+               ((2, 20, 1500, 1500), 1500, False), ((1, 4, 300, 300), 257, True),
+               ((1, 3, 77, 300), 299, False), ((1, 2, 130, 64), 64, True))
 K2_ROWS = ((1, 11), (8, 11), (8, 1))
 K11_SHAPES = ((1280, 5120, (16, 88, 176)), (384, 1536, (11, 88)))
 K5_ROWS = (8, 88, 176, 1024)
@@ -179,25 +196,18 @@ _HELD = (("wgemm_kernel<MT, W8, LN, HEADS>",
           lambda key: False))
 
 
-def _sass_functions(so_path):
-    """{(family, key): sorted SASS bodies} of the held instantiations in a
-    built library, each body its instructions without addresses or
-    encodings."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True, text=True,
-                          check=True).stdout
-    out = collections.defaultdict(list)
-    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
-        name, _, body = chunk.partition("\n")
+def _sass_functions(funcs):
+    """{(family, key): sorted SASS bodies} of the held instantiations among
+    a build's functions (``_all_sass``)."""
+    out = {}
+    for name, bodies in funcs.items():
         for family, pattern, skip in _HELD:
             m = pattern.search(name)
             if m is None or skip(m.groups()):
                 continue
-            ins = [re.sub(r"/\*[^*]*\*/", "", line).strip() for line in body.splitlines()
-                   if re.match(r"\s*/\*[0-9a-f]+\*/", line)]
             key = tuple(x for x in m.groups() if x is not None)
-            out[(family, key)].append(_relabel("\n".join(ins)))
-    return {k: sorted(v) for k, v in out.items()}
+            out[(family, key)] = sorted(out.get((family, key), []) + bodies)
+    return out
 
 
 def _relabel(body):
@@ -209,10 +219,10 @@ def _relabel(body):
                   body)
 
 
-def _sass_same(libs):
+def _sass_same(all_funcs):
     """Print, per family of _HELD, whether its instantiations are
     instruction for instruction the same in both builds."""
-    funcs = {who: _sass_functions(mod.lib()._name) for who, mod in libs.items()}
+    funcs = {who: _sass_functions(f) for who, f in all_funcs.items()}
     for family, _, _ in _HELD:
         mine = {k: v for k, v in funcs["this"].items() if k[0] == family}
         theirs = {k: v for k, v in funcs["other"].items() if k[0] == family}
@@ -229,6 +239,60 @@ def _sass_same(libs):
               f"{len(keys) - len(differ)} of {len(keys)} instantiations the same "
               f"instruction for instruction" + (f"; differ: {differ}" if differ else ""),
               flush=True)
+
+
+# The kernels a build may change, by name: K3's f32 mode (ffma_stream.cuh's
+# stream, and the NT-tile kernel it replaced) and K9's f32 mode (its
+# kernels before and after the one-pass redesign).  Every other function of
+# the library is held to the other build's SASS by _sass_rest.
+_CHANGED = re.compile(r"ffma_stream_kernel|logits_f32_kernel|attention_bwd_f32_kernel|"
+                      r"attention_bwd_kv_f32_kernel|attention_bwd_q_f32_kernel|"
+                      r"bwd_sum_f32_kernel")
+
+
+def _all_sass(so_path):
+    """{mangled name: sorted SASS bodies} of every function in a built
+    library (a kernel with internal linkage appears once per source that
+    instantiates it)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True, text=True,
+                          check=True).stdout
+    out = collections.defaultdict(list)
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        name, _, body = chunk.partition("\n")
+        ins = [re.sub(r"/\*[^*]*\*/", "", line).strip() for line in body.splitlines()
+               if re.match(r"\s*/\*[0-9a-f]+\*/", line)]
+        # An internal-linkage name carries a hash of its source's path
+        # (_GLOBAL__N__<hash>_<n>_<file>_cu_<hash>), which differs between
+        # checkouts: drop the first hash.
+        name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", name.strip())
+        out[name].append(_relabel("\n".join(ins)))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def _sass_rest(funcs):
+    """Print whether every function of the library outside _CHANGED (the
+    f32 GEMMs and their combines, ffma_tile's other users, the W8A32 and
+    f32 attention kernels, and the families of _HELD) that both builds have
+    is instruction for instruction the same, the names only one build has
+    (a source that stopped including a header loses the unused kernels it
+    instantiated), and the changed kernels each build has."""
+    held = {who: {n for n in f if not _CHANGED.search(n)} for who, f in funcs.items()}
+    both = sorted(held["this"] & held["other"])
+    differ = [n for n in both if funcs["this"][n] != funcs["other"][n]]
+    for n in differ[:5]:
+        print(f"  differs: {n}", flush=True)
+    print(f"SASS of every function outside K3 f32 and K9 f32 in both builds: "
+          f"{len(both) - len(differ)} of {len(both)} names the same instruction for "
+          f"instruction ({sum(len(funcs['this'][n]) for n in both)} functions here)"
+          + (f"; {len(differ)} differ" if differ else ""), flush=True)
+    for who, other in (("this", "other"), ("other", "this")):
+        only = sorted(held[who] - held[other])
+        if only:
+            print(f"  only in the {who} build: {len(only)}: {only}", flush=True)
+    for who in ("this", "other"):
+        mine = [n for n in funcs[who] if _CHANGED.search(n)]
+        print(f"K3 f32 / K9 f32 kernels in the {who} build: {mine}", flush=True)
 
 
 def _other_ops(root: str, name: str, lib):
@@ -285,7 +349,9 @@ def main(argv=None):
     libs = {"other": _other_lib(root), "this": cuda_lib}
     for mod in libs.values():
         mod.lib()
-    _sass_same(libs)
+    funcs = {who: _all_sass(mod.lib()._name) for who, mod in libs.items()}
+    _sass_same(funcs)
+    _sass_rest(funcs)
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
     for section in only:
@@ -604,6 +670,85 @@ def _k3(libs, g):
                f"this {errs['this']:.3e} other {errs['other']:.3e}", calls)
 
 
+def _k3f32(libs, g):
+    """K3's f32 mode, ``wm_logits_f32``, on a seeded f32 embedding at
+    large-v2's (51865, 1280), M = 1, 10, 80, 121 and 300, beside ``x @ E.T``
+    (device ms); the builds' outputs bitwise equal or not (printed), each
+    within 1e-4 + 1e-4 |y| of the plain version."""
+    from whisper_medusa_tpu_torch.ops import logits as LG
+
+    v, d = 51865, 1280
+    e = torch.randn((v, d), generator=g, device="cuda") * 0.05
+    for m in K3F32_ROWS:
+        x = torch.randn((m, d), generator=g, device="cuda")
+        ys = {who: torch.empty((m, v), device="cuda") for who in libs}
+        calls = {who: (lambda mod=mod, y=ys[who]: mod.launch(
+            "wm_logits_f32", x.device, x.data_ptr(), e.data_ptr(), y.data_ptr(), m, v, d))
+            for who, mod in libs.items()}
+        for fn in calls.values():
+            fn()
+        ref = LG.project_plain(x, e)
+        errs = {who: float((y - ref).abs().max()) for who, y in ys.items()}
+        if any(not bool(((y - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+               for y in ys.values()):
+            raise AssertionError(f"K3 f32 M={m}: a build is off the plain version: {errs}")
+        same = torch.equal(ys["this"], ys["other"])
+        lib = sum(us for us, _ in _by_kernel(lambda: x @ e.T, 20).values()) / 1e3
+        _turns(f"K3 f32 logits M={m} x ({v},{d}) (x @ E.T: device {lib:.4f} ms), max error "
+               f"this {errs['this']:.3e} other {errs['other']:.3e}, builds bitwise equal "
+               f"{same}", calls)
+        del ys, ref
+
+
+def _k9f32(root, libs, g):
+    """K9's f32 mode, ``wm_attention_bwd_f32``, at the training paths' three
+    shapes and the smoke's three off-path cases, from this build's K1 f32
+    output and log-sum-exp; a build whose entry takes the dQ partials gets
+    ``ops/attention.py::bwd_scratch_shape``'s scratch.  dK / dV bitwise
+    equal between the builds or not (printed), dQ's relative difference,
+    each build within 1e-5 relative of attention_bwd_lse_plain; beside it
+    the SDPA f32 backward (efficient-attention) device time."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from whisper_medusa_tpu_torch.ops import attention as A
+
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
+    for (b, h, sq, skv), kv_len, causal in K9F32_CASES:
+        rnd = lambda s, scale=1.0: torch.randn((b, h, s, 64), generator=g, device="cuda") * scale
+        q, k, v, do = rnd(sq, 0.25), rnd(skv), rnd(skv), rnd(sq)
+        o, lse = A.attention_kernel(q, k, v, kv_len, causal, return_lse=True)
+        outs, calls = {}, {}
+        for who, mod in libs.items():
+            grads = [torch.empty_like(t) for t in (q, k, v)]
+            bufs = [torch.empty((b, h, sq), device="cuda")]
+            if len(mod._SIGNATURES["wm_attention_bwd_f32"]) == 19:
+                bufs.append(torch.empty(A.bwd_scratch_shape(b, h, sq, skv), device="cuda"))
+            outs[who] = grads
+            calls[who] = (lambda mod=mod, ptrs=[t.data_ptr() for t in (
+                q, k, v, o, lse, do, *grads, *bufs)]: mod.launch(
+                "wm_attention_bwd_f32", q.device, *ptrs, b, h, sq, skv, 64, kv_len, int(causal)))
+        for fn in calls.values():
+            fn()
+        ref = A.attention_bwd_lse_plain(q, k, v, o, lse, do, kv_len, causal)
+        errs = {who: max(rel(a, c) for a, c in zip(got, ref)) for who, got in outs.items()}
+        if max(errs.values()) > 1e-5:
+            raise AssertionError(f"K9 f32 ({b},{h},{sq}x{skv}): a build is off the plain "
+                                 f"version: {errs}")
+        same = [torch.equal(outs["this"][i], outs["other"][i]) for i in (1, 2)]
+        dq_diff = rel(outs["this"][0], outs["other"][0])
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=1.0,
+                                                                   is_causal=causal)
+        lib = sum(us for us, _ in _by_kernel(
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 20).values()) / 1e3
+        _turns(f"K9 f32 attention_bwd ({b},{h},{sq}x{skv},64) kv_len {kv_len} causal {causal} "
+               f"(SDPA f32 backward: device {lib:.4f} ms), relative error this {errs['this']:.2e}"
+               f" other {errs['other']:.2e}, dK / dV bitwise the other build's {same}, dQ's "
+               f"relative difference {dq_diff:.2e}", calls)
+        del outs, calls, out, leaves
+
+
 def _random_layers(g, nl, d=1280, f=5120):
     """A seeded (nl, ...) stack of decoder layers at large-v2's widths."""
     rnd = lambda *shape, scale=0.02: (torch.randn(shape, generator=g, device="cuda")
@@ -702,7 +847,8 @@ def _k2(root, libs, g):
 # the one seeded generator, so a run of a subset gets other (seeded) inputs.
 SECTIONS = {"K1": _k1, "K6": _k6, "K8": _k8, "K10": _k10,
             "K7": lambda root, libs, g: _k7(libs, g), "K3": lambda root, libs, g: _k3(libs, g),
-            "K2": _k2, "K11": _k11, "K4K5": _verify, "head_rows": _head_rows}
+            "K2": _k2, "K11": _k11, "K4K5": _verify, "head_rows": _head_rows,
+            "K3f32": lambda root, libs, g: _k3f32(libs, g), "K9f32": _k9f32}
 
 if __name__ == "__main__":
     main()

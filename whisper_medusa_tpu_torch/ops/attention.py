@@ -47,12 +47,14 @@ TFLOP/s at the encoder's shapes.
 K9's f32 mode (``wm_attention_bwd_f32``) trains f32 weights: the TPU
 kernel's backward on f32 operands, dS and P never rounded, every product in
 FFMA on the CUDA cores.  The same row pass gives Dsum = dO . O; one kernel
-per (batch, head, 64-key block) recomputes P from K1 f32's log-sum-exp and
-writes dK and dV once; a second kernel per (batch, head, 64-query block)
-recomputes S and dP and writes dQ as one sum over the keys in order, with
-no scratch (two products more than the bf16 mode's partials, which would
-take 184 MB at the encoder's shapes).  No atomics: all three are bitwise
-the same from run to run.
+per (batch, head, 128-key block) stages K and V once, streams the 64-query
+tiles through a two-stage ``cp.async`` ring, recomputes P from K1 f32's
+log-sum-exp and runs each of the five products once on register tiles (8 x
+4 of S and dP, 8 x 8 of dV or dK, 4 x 4 of dQ a thread), keeping dK and dV
+in registers and storing each key block's f32 dQ partial to the same
+(ceil(Skv / 128), B, H, Sq, 64) scratch as the bf16 mode; a pass adds the
+partials in key-block order.  No atomics: all three are bitwise the same
+from run to run, and dK and dV are each one chain over the queries in order.
 
 :class:`AttentionFn` ties the two together for autograd: on CUDA
 its forward saves O and the log-sum-exp for the backward; serving never
@@ -70,7 +72,7 @@ from whisper_medusa_tpu_torch.ops import cuda_lib
 
 NEG_BIG = -0.7 * torch.finfo(torch.float32).max
 
-BWD_KEYS = 128   # keys of one K9 CTA (csrc/attention.cu BKB): one dQ partial each
+BWD_KEYS = 128   # keys of one K9 CTA (csrc/attention.cu BKB, BF_KB): one dQ partial each
 
 launches = 0     # K1 launches (not plain-version calls)
 f32_launches = 0   # K1's f32 mode
@@ -165,6 +167,12 @@ def _check_shapes(name, q, k, v, kv_len):
     return b, h, sq, skv, dh
 
 
+def bwd_scratch_shape(b: int, h: int, sq: int, skv: int):
+    """K9's dQ partials, both modes: one (B, H, Sq, 64) f32 slot per 128-key
+    block."""
+    return (-(-skv // BWD_KEYS), b, h, sq, 64)
+
+
 def attention_kernel(q, k, v, kv_len: int, causal: bool, return_lse: bool = False):
     """Launch K1.  q: (B, H, Sq, 64), k/v: (B, H, Skv, 64), bf16 (K1) or f32
     (its f32 mode), contiguous.  Returns the output, or (output, log-sum-exp
@@ -212,21 +220,15 @@ def attention_bwd_kernel(q, k, v, g, kv_len: int, causal: bool, o=None, lse=None
         raise ValueError(f"attention_bwd: O {tuple(o.shape)} and LSE {tuple(lse.shape)} "
                          f"do not match q {tuple(q.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # Scratch: Dsum = dO . O per row; the bf16 mode also keeps one f32 dQ
-    # partial per 128-key block (csrc/attention.cu BKB), added in key-block
-    # order by the cast pass.
+    # Scratch: Dsum = dO . O per row, and one f32 dQ partial per 128-key
+    # block (csrc/attention.cu BKB, BF_KB), added in key-block order.
     dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    ptrs = [t.data_ptr() for t in (q, k, v, o, lse, g, dq, dk, dv, dsum)]
-    if f32:
-        cuda_lib.launch("wm_attention_bwd_f32", q.device, *ptrs, b, h, sq, skv, dh, kv_len,
-                        int(causal))
-        f32_launches_bwd[(sq, skv, bool(causal))] += 1
-        return dq, dk, dv
-    dq_part = torch.empty((-(-skv // BWD_KEYS), b, h, sq, dh), dtype=torch.float32,
+    dq_part = torch.empty(bwd_scratch_shape(b, h, sq, skv), dtype=torch.float32,
                           device=q.device)
-    cuda_lib.launch("wm_attention_bwd", q.device, *ptrs, dq_part.data_ptr(), b, h, sq, skv,
-                    dh, kv_len, int(causal))
-    launches_bwd[(sq, skv, bool(causal))] += 1
+    cuda_lib.launch("wm_attention_bwd_f32" if f32 else "wm_attention_bwd", q.device,
+                    *(t.data_ptr() for t in (q, k, v, o, lse, g, dq, dk, dv, dsum, dq_part)),
+                    b, h, sq, skv, dh, kv_len, int(causal))
+    (f32_launches_bwd if f32 else launches_bwd)[(sq, skv, bool(causal))] += 1
     return dq, dk, dv
 
 

@@ -67,7 +67,7 @@ _SIGNATURES = {
     "wm_ffn_decode": [_vp] * 7 + [_ci] * 3 + [_vp],
     # The f32 modes (FFMA on the CUDA cores).
     "wm_attention_fwd_f32": [_vp] * 5 + [_ci] * 7 + [_vp],
-    "wm_attention_bwd_f32": [_vp] * 10 + [_ci] * 7 + [_vp],
+    "wm_attention_bwd_f32": [_vp] * 11 + [_ci] * 7 + [_vp],
     "wm_logits_f32": [_vp] * 3 + [_ci] * 3 + [_vp],
     "wm_verify_hidden_f32": [_ptrs, _ints, ctypes.c_float, _vp],
     "wm_verify_rows_f32": [_ptrs, _ints, ctypes.c_float, _vp],

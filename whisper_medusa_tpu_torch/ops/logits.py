@@ -19,11 +19,14 @@ wrapper sends more in blocks of 192 (pass B's drafts at B >= 20).
 
 K3's f32 mode (``wm_logits_f32``, ``csrc/logits.cu``) takes an f32 tied
 embedding, the JAX package's default dtype: f32 products and sums in FFMA
-on the CUDA cores (the tensor cores take f32 only as TF32), a CTA per
-(64-entry vocab tile, pass of up to 128 rows, :func:`f32_plan`), each
-logit one chain over D in order, so a row's logits do not depend on M;
-any M in one launch.  Bound by the 265 MB f32 embedding stream at the
-drafts' rows, by the CUDA cores' 67 TFLOP/s past ~160 rows.
+on the CUDA cores (the tensor cores take f32 only as TF32), on the f32
+weight stream of ``csrc/ffma_stream.cuh`` (:func:`f32_stream_plan`): a
+persistent grid of two CTAs an SM walks the (64-entry vocab tile, pass of
+up to 64 rows) items, a producer warp keeps a TMA ring of 32-float E chunks
+and the pass's rows in flight, four consumer warps hold 4 entries x TR rows
+a thread.  Each logit is one chain over D in order, so a row's logits do
+not depend on M; any M in one launch.  Bound by the 265 MB f32 embedding
+stream at the drafts' rows, by the CUDA cores' 67 TFLOP/s past ~160 rows.
 """
 
 from __future__ import annotations
@@ -48,11 +51,41 @@ def f32_row_tiles(m: int) -> int:
     return next(mt for mt in (1, 2, 4, 8) if mt >= need)
 
 
+# csrc/ffma_stream.cuh, K3's f32 stream.
+STREAM_TILE = 64         # FS_VT: vocab entries an item
+STREAM_KC = 32           # FS_KC: floats of D a ring stage holds
+STREAM_MAX_TR = 8        # FS_MAX_TR: rows a thread, passes of up to 64 rows
+STREAM_THREADS = 160     # FS_THREADS: 4 consumer warps + the producer warp
+STREAM_CTAS = 2          # FS_CTAS: CTAs an SM
+STREAM_RING = 98304      # FS_RING: ring bytes a CTA
+STREAM_MAX_STAGES = 10   # FS_MAX_STAGES
+H100_SMS = 132
+
+
+def f32_stream_plan(m: int, v: int, d: int = 1280, sms: int = H100_SMS):
+    """K3 f32's launch (csrc/ffma_stream.cuh ``fs_launch``) over M rows, V
+    vocab entries and D: the passes (ceil(M / 64)) and TR, the rows a thread
+    takes in each (passes of 8 TR rows); the (tile, pass) items, a tile's
+    passes adjacent; the persistent grid (two CTAs an SM) and the items each
+    CTA walks; the ring's stages and the CTA's dynamic shared memory."""
+    passes = -(-m // (8 * STREAM_MAX_TR))
+    tr = -(-(-(-m // passes)) // 8)
+    tiles = -(-v // STREAM_TILE)
+    items = tiles * passes
+    stage = STREAM_TILE * STREAM_KC * 4 + 8 * tr * STREAM_KC * 4
+    stages = min(STREAM_MAX_STAGES, STREAM_RING // stage)
+    grid = min(items, STREAM_CTAS * sms)
+    walk = [list(range(b, items, grid)) for b in range(grid)]
+    return dict(passes=passes, tr=tr, rows=8 * tr, tiles=tiles, items=items, grid=grid,
+                walk=walk, stage=stage, stages=stages, chunks=d // STREAM_KC,
+                smem=1024 + stages * stage + 16 * stages)
+
+
 def f32_plan(m: int, v: int):
-    """The f32 NT stream's launch over M rows and V vocab entries (K3's f32
-    mode, K4's stage B and K5's f32 mode): the 16-row groups MT of a pass,
-    the passes, the 64-entry tiles and the grid (tiles x passes CTAs, a
-    tile's passes adjacent).  A row's sums come from D alone."""
+    """The f32 NT stream's launch over M rows and V vocab entries (K4's stage
+    B and K5's f32 mode): the 16-row groups MT of a pass, the passes, the
+    64-entry tiles and the grid (tiles x passes CTAs, a tile's passes
+    adjacent).  A row's sums come from D alone."""
     mt = f32_row_tiles(m)
     passes = -(-m // (16 * mt))
     tiles = -(-v // F32_TILE)
@@ -77,8 +110,8 @@ def project_kernel(x2: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"logits kernel: x {tuple(x2.shape)} and embed "
                          f"{tuple(embed.shape)} differ in D")
     if dt == torch.float32:
-        if d % 16:
-            raise ValueError(f"logits kernel's f32 mode takes D % 16 == 0, got D={d}")
+        if d % STREAM_KC:
+            raise ValueError(f"logits kernel's f32 mode takes D % {STREAM_KC} == 0, got D={d}")
         out = torch.empty((m, v), dtype=torch.float32, device=x2.device)
         cuda_lib.launch("wm_logits_f32", x2.device, x2.data_ptr(), embed.data_ptr(),
                         out.data_ptr(), m, v, d)
