@@ -3832,7 +3832,8 @@ def check_corruption(mode, model, feat, clean, new_tokens=MAX_NEW_TOKENS):
 F32_TOL = 1e-4
 F32_NEW_TOKENS = 48
 F32_ROWS = ("attention f32", "logits f32", "verify_hidden f32", "head_rows f32",
-            "verify_rows f32", "cross_decode f32", "self_decode f32", "ffn_decode f32")
+            "verify_rows f32", "cross_decode f32", "self_decode f32", "ffn_decode f32",
+            "gemm f32")
 # K1's f32 mode at the paths' shapes: the encoder at B=1 and B=8, the
 # capture pass's T = 67 causal and T x 1500, training's 224^2 causal, and off
 # the paths a ragged kv_len.
@@ -3902,6 +3903,18 @@ def check_f32_attention(g):
     bd = bound(2 * nb, ops, F32_FLOPS)
     log(f"K1 f32 ({b},{h},{sq},{kv}): device {device_ms(kern):.4f} ms; SDPA f32 device "
         f"{device_ms(sdpa):.4f} ms; {SMI}")
+    # The yardstick's backend, read from its kernels' names, and its error:
+    # an f32 SDPA within F32_TOL of the plain version ran in f32, not TF32.
+    names = sorted(_kernel_ms(sdpa, 1))
+    backend = ("efficient attention (CUTLASS fmha)" if any("fmha" in n for n in names) else
+               "flash attention" if any("flash" in n for n in names) else "math (aten ops)")
+    sdpa_err = max_err(sdpa(), A.attention_plain(q, k, v, kv, causal))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    log(f"K1 f32 yardstick: SDPA f32 served by {backend} ({', '.join(names)}), max_abs_err "
+        f"{sdpa_err:.3e} against attention_plain (TF32 matmul {tf32[0]}, cuDNN TF32 "
+        f"{tf32[1]})")
+    require(close(sdpa(), A.attention_plain(q, k, v, kv, causal), F32_TOL),
+            f"K1 f32 yardstick: SDPA off the plain version by {sdpa_err}")
     return kernel_record("attention f32", K1_SOURCE, K1_REPLACES, (A, "f32_launches"), worst,
                          ms, plain_ms, bd, lib_ms)
 
@@ -4236,7 +4249,54 @@ def check_f32_ffn_decode(g, d=1280, f=5120):
                                F32_FLOPS), None)
 
 
-STEP_F32 = ("self_decode f32", "cross_decode f32", "ffn_decode f32")
+# The f32 GEMM alone at the per-op step's shapes: (M, K, N), M the step's
+# rows at B = 1 vanilla and Medusa, B = 8 and B = 16, the bias on.
+GEMM_F32_ROWS = (1, 11, 88, 176)
+GEMM_F32_SHAPES = ((1280, 1280), (1280, 5120), (5120, 1280))
+GEMM_F32_SOURCE = "whisper_medusa_tpu_torch/csrc/ffma_gemm.cuh"
+
+
+def check_f32_gemm(g):
+    """The f32 GEMM alone (``decode_ops.gemm_f32``, the per-op step's f32
+    projections; also K11's and the head rows' f32 products) against
+    ``whisper.dense``'s plain f32 product (cuBLAS f32, TF32 off) within
+    F32_TOL + F32_TOL |x| at GEMM_F32_ROWS x GEMM_F32_SHAPES; the first 11
+    rows of each M=176 call bitwise an M=11 call; each shape's device time
+    beside ``torch.addmm`` in f32.  Its kernels row is timed at M = 11
+    through 1280 x 1280 (a decode step's projection at B = 1)."""
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "the f32 GEMM's yardstick in f32")
+    worst, timed = 0.0, None
+    for k, n in GEMM_F32_SHAPES:
+        w, b = _f32(g, k, n, scale=0.02), _f32(g, n, scale=0.02)
+        xs = {}
+        for m in GEMM_F32_ROWS:
+            x = _f32(g, m, k)
+            y = DO.gemm_f32(x, w, b)
+            worst = max(worst, _f32_ok(f"gemm f32 M={m} {k}x{n}", y, whisper.dense(x, w, b)))
+            xs[m] = (x, y)
+            kern = lambda: DO.gemm_f32(x, w, b)
+            lib = lambda: torch.addmm(b, x, w)
+            bd = bound(nbytes(x, w, b, y), 2 * m * k * n, F32_FLOPS)
+            log(f"gemm f32 M={m} {k}x{n}: device {device_ms(kern):.4f} ms, addmm f32 device "
+                f"{device_ms(lib):.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}); {SMI}")
+            if (m, k, n) == (11, 1280, 1280):
+                timed = (x, w, b, y)
+        same = torch.equal(xs[176][1][:11], DO.gemm_f32(xs[176][0][:11].contiguous(), w, b))
+        log(f"gemm f32 {k}x{n}: the first 11 rows of the M=176 call bitwise an M=11 call: "
+            f"{same}")
+        require(same, f"gemm f32 {k}x{n}: M=176 rows differ from an M=11 call")
+    x, w, b, y = timed
+    return kernel_record("gemm f32", GEMM_F32_SOURCE, "tools/decode_kernels_experiment.py:110",
+                         (DO, "f32_gemm_launches"), worst, cuda_ms(lambda: DO.gemm_f32(x, w, b)),
+                         cuda_ms(lambda: whisper.dense(x, w, b)),
+                         bound(nbytes(x, w, b, y), 2 * 11 * 1280 * 1280, F32_FLOPS),
+                         cuda_ms(lambda: torch.addmm(b, x, w)))
+
+
+STEP_F32 = ("self_decode f32", "cross_decode f32", "ffn_decode f32", "gemm f32")
 NEEDS_F32 = {
     "medusa B=1": ("attention f32", "logits f32", "head_rows f32", "verify_hidden f32")
     + STEP_F32,
@@ -4680,7 +4740,8 @@ def phase_f32(g, kernels, feats, feats8):
     embed = model.params["whisper"]["decoder"]["embed_tokens"]
     rows = [check_f32_attention(g), check_f32_logits(g, embed), check_f32_verify(g, model),
             check_f32_head_rows(g, model), check_f32_verify_rows(g, model),
-            check_f32_cross_decode(g), check_f32_self_decode(g), check_f32_ffn_decode(g)]
+            check_f32_cross_decode(g), check_f32_self_decode(g), check_f32_ffn_decode(g),
+            check_f32_gemm(g)]
     kernels += rows + [check_verify_wide(g, model, "f32")]
     enc8 = model.encode(feats8)
     check_step_invariance(model, enc8, "large-v2 f32")

@@ -1,10 +1,16 @@
 """The f32 modes' tile plans, computed from shapes (no card), and the f32
 kernels' split arithmetic emulated against the plain versions.
 
-* ``csrc/ffma.cuh``'s constants are the wrappers' (parsed from the source);
+* ``csrc/ffma.cuh``'s and ``csrc/ffma_gemm.cuh``'s constants are the
+  wrappers' (parsed from the sources);
 * the f32 GEMM (K11's f32 mode, the f32 head rows, the per-op step's f32
-  projections): K slices from (K, N) alone, multiples of 16 that cover K
-  once; passes of 16 MT rows with MT in {1, 2, 4, 8} that cover M once;
+  projections; ``csrc/ffma_gemm.cuh``): K slices from (K, N) alone, one
+  cluster of at most 4 that covers K's 32-deep chunks once; passes of up to
+  32 rows and groups of up to 4 passes that cover M once; a CTA's shared
+  memory leaves room for two an SM; its order (eight k groups, each a chain
+  over its k of the slice's chunks, added in a fixed tree, the slices in
+  rank order) emulated against the plain version, the same bits for a row
+  at any M; the W8A32 GEMM (``ffma.cuh``) keeps its slices of 16;
 * the f32 NT stream (K3, K4's stage B and K5 in f32): a CTA per (64-entry
   tile, pass), each warpgroup scoring half of a pass's rows as tile_stats'
   pass 2 pass + wg of 8 MT rows: every row once;
@@ -18,16 +24,22 @@ kernels' split arithmetic emulated against the plain versions.
   and its passes every row once, and its ring fits an SM at two CTAs;
 * K9's f32 mode: dQ as one partial per 128-key block (dS K over the block's
   keys), the partials of the blocks that reach a row added in key-block
-  order, against attention_bwd_lse_plain at 1e-6.
+  order, against attention_bwd_lse_plain at 1e-6;
+* K1's f32 mode: the online softmax over 64-key tiles in the log2 domain
+  (p = 2^(s log2 e - m log2 e), alpha = 1 where a row's max did not move),
+  its output and log-sum-exp against attention_plain / attention_lse_plain
+  and the JAX package's XLA f32 attention at 1e-5.
 """
 
 import os
 import re
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import whisper_medusa_tpu.ops.attention as jattn
 from whisper_medusa_tpu_torch.ops import attention as A
 from whisper_medusa_tpu_torch.ops import decode_ops as DO
 from whisper_medusa_tpu_torch.ops import logits as LG
@@ -45,6 +57,22 @@ def test_constants_are_the_sources():
     assert _const("FF_KC", "ffma.cuh") == DO.F32_KC
     assert _const("FF_WAVE", "ffma.cuh") == DO.F32_WAVE
     assert _const("FF_MAX_MT", "ffma.cuh") == LG.F32_MAX_MT
+    for name, value in (("FG_COLS", DO.GEMM32_COLS), ("FG_KC", DO.GEMM32_KC),
+                        ("FG_KG", DO.GEMM32_KG), ("FG_MAX_RQ", DO.GEMM32_MAX_RQ),
+                        ("FG_MAX_PG", DO.GEMM32_MAX_PG), ("FG_CTAS", DO.GEMM32_CTAS),
+                        ("FG_WAVE", DO.GEMM32_WAVE), ("FG_MAX_SLICES", DO.GEMM32_MAX_SLICES),
+                        ("FG_RING", DO.GEMM32_RING), ("FG_PRODUCER_RQ", DO.GEMM32_PRODUCER_RQ)):
+        assert _const(name, "ffma_gemm.cuh") == value, name
+    gemm = open(os.path.join(CSRC, "ffma_gemm.cuh")).read()
+    assert "constexpr int FG_RP = FG_COLS + 4;" in gemm and DO.GEMM32_RP == DO.GEMM32_COLS + 4
+    assert DO.GEMM32_KG * 4 == DO.GEMM32_KC                     # 4 k of a chunk a group
+    # The f32 GEMM and its combine kernel are gone from ffma.cuh; every f32
+    # product of K11, the head rows, K4's stage A and the step is fg_launch.
+    ffma = open(os.path.join(CSRC, "ffma.cuh")).read()
+    assert "ffma_combine_kernel(" not in ffma and "ff_gemm(" not in ffma
+    for source, calls in (("decode_ops.cu", 3), ("verify.cu", 1)):
+        text = open(os.path.join(CSRC, source)).read()
+        assert text.count("fg_launch(") == calls and "ff_gemm(" not in text, source
     assert "constexpr int DF_ROW = CD_DH + 2;" in open(os.path.join(CSRC, "ffma_attn.cuh")).read()
     assert DO.F32_PART_ROW == DO.HEAD_DIM + 2
     common = open(os.path.join(CSRC, "common.cuh")).read()
@@ -52,21 +80,59 @@ def test_constants_are_the_sources():
         assert int(re.search(rf"{name} = (\d+),", common).group(1)) == getattr(DO, name)
 
 
-@pytest.mark.parametrize("k,n,piece,slices", [
-    (1280, 5120, 320, 4), (5120, 1280, 368, 14), (1280, 1280, 96, 14),
-    (384, 1536, 48, 8), (1536, 384, 48, 32), (384, 384, 16, 24)],
+@pytest.mark.parametrize("k,n,slices,piece,w8_slices", [
+    (1280, 5120, 2, 320, 4), (5120, 1280, 4, 368, 14), (1280, 1280, 4, 96, 14),
+    (384, 1536, 4, 48, 8), (1536, 384, 4, 48, 32), (384, 384, 4, 16, 24)],
     ids=["fc1", "fc2", "proj", "tiny-fc1", "tiny-fc2", "tiny-heads"])
-def test_gemm_slices_come_from_k_and_n(k, n, piece, slices):
+def test_gemm_slices_come_from_k_and_n(k, n, slices, piece, w8_slices):
     plans = [DO.f32_gemm_plan(m, k, n, nh) for m in (1, 11, 88, 121, 176, 300)
              for nh in (1, 10, 11)]
-    assert {(p["slice"], p["slices"]) for p in plans} == {(piece, slices)}
-    assert piece % DO.F32_KC == 0 and (slices - 1) * piece < k <= slices * piece
-    tiles = n // DO.F32_COLS
+    assert {(p["slices"], tuple(p["ranges"])) for p in plans} == {
+        (slices, tuple(plans[0]["ranges"]))}
+    tiles, chunks = n // DO.GEMM32_COLS, k // DO.GEMM32_KC
+    assert slices == max(1, min(-(-DO.GEMM32_CTAS // tiles), DO.GEMM32_MAX_SLICES, chunks))
+    ranges = plans[0]["ranges"]                     # contiguous, in rank order, cover K
+    assert ranges[0][0] == 0 and ranges[-1][1] == chunks
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert max(e - b for b, e in ranges) - min(e - b for b, e in ranges) <= 1
+    p = DO.f32_gemm_plan(176, k, n, 11)
+    assert p["grid"] == (slices, tiles * p["groups"], 11)      # one cluster a column tile
+    # The W8A32 GEMM (ffma.cuh's ff_gemm8) keeps its 16-deep slices.
+    w8 = [DO.w8a32_gemm_plan(m, k, n, nh) for m in (1, 11, 88, 121, 176, 300)
+          for nh in (1, 10, 11)]
+    assert {(q["slice"], q["slices"]) for q in w8} == {(piece, w8_slices)}
+    assert piece % DO.F32_KC == 0 and (w8_slices - 1) * piece < k <= w8_slices * piece
     want = -(-DO.F32_WAVE // tiles)                 # slices for two CTAs an SM
     assert piece == min(k, -(-(-(-k // want)) // DO.F32_KC) * DO.F32_KC)
-    p = DO.f32_gemm_plan(176, k, n, 11)
-    assert p["grid"] == (tiles * p["passes"], slices, 11)
-    assert p["part"] == 11 * slices * 176 * n
+    q = DO.w8a32_gemm_plan(176, k, n, 11)
+    assert q["grid"] == (tiles * q["passes"], w8_slices, 11)
+    assert q["part"] == 11 * w8_slices * 176 * n
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 11, 16, 17, 31, 33, 64, 88, 121, 128, 129, 176, 300,
+                               968, 1024])
+def test_gemm_passes_and_groups_cover_m(m):
+    """Passes of up to 32 rows (R a multiple of 4, the least that holds
+    them), up to 4 of them a CTA, fewer where that brings the launch
+    towards 264 CTAs: every row of M once, no group empty; a CTA's shared
+    memory leaves room for two an SM; a producer warp up to 16 rows a
+    pass."""
+    for k, n, nh in ((1280, 1280, 1), (1280, 5120, 1), (5120, 1280, 1), (1280, 1280, 11),
+                     (384, 384, 1)):
+        p = DO.f32_gemm_plan(m, k, n, nh)
+        r, passes, groups, pg = p["rows"], p["passes"], p["groups"], p["pg"]
+        assert r % 4 == 0 and 4 <= r <= 32 and (r == 4 or r - 4 < -(-m // passes))
+        assert passes == -(-m // 32) and (passes - 1) * r < m <= passes * r
+        assert pg <= 4 and (groups - 1) * pg < passes <= groups * pg   # no empty group
+        one = p["grid"][0] * p["grid"][1] // groups * nh          # CTAs of one group
+        want = max(-(-passes // 4), min(passes, -(-264 // one)))
+        assert -(-passes // want) == pg                           # the passes a CTA takes
+        rows = [(g * pg + q) * r + i for g in range(groups)
+                for q in range(min(pg, passes - g * pg)) for i in range(r)]
+        assert [x for x in rows if x < m] == list(range(m))      # every row once, in order
+        assert p["stage"] % 1024 == 0 and p["stages"] == DO.GEMM32_RING // p["stage"] >= 4
+        assert 2 * (p["smem"] + 1024) <= 233472                  # two CTAs an SM
+        assert p["threads"] == (288 if r <= 16 else 256)         # a producer warp to 16 rows
 
 
 @pytest.mark.parametrize("m", list(range(1, 300, 7)) + [128, 129, 256])
@@ -84,24 +150,50 @@ def test_row_passes_cover_m(m):
     assert rows == list(range(m))
 
 
+def _gemm_order(x, w, plan):
+    """The f32 GEMM's order in numpy float32: per slice (rank order) and k
+    group kg, a chain over k = 32 c + 4 kg .. + 3 of the slice's chunks c in
+    order from 0 (x * w, then the add), the groups added as ((g0 + g1) +
+    (g2 + g3)) + ((g4 + g5) + (g6 + g7)), the slices in rank order.  Each
+    operation is elementwise over the rows."""
+    kc, kg = DO.GEMM32_KC, DO.GEMM32_KG
+    total = None
+    for b, e in plan["ranges"]:
+        groups = []
+        for g in range(kg):
+            acc = np.zeros((x.shape[0], w.shape[1]), np.float32)
+            for c in range(b, e):
+                for j in range(4):
+                    kk = c * kc + 4 * g + j
+                    acc = acc + x[:, kk:kk + 1] * w[kk:kk + 1]
+            groups.append(acc)
+        sl = ((groups[0] + groups[1]) + (groups[2] + groups[3])) + (
+            (groups[4] + groups[5]) + (groups[6] + groups[7]))
+        total = sl if total is None else total + sl
+    return total
+
+
 def test_gemm_emulation_matches_plain():
-    """The f32 GEMM's order: each slice's partial, the slices added in
-    order, then the bias and the epilogue."""
+    """The f32 GEMM's order (``_gemm_order``), then the bias and the
+    epilogue: K11's fc1 (GELU) and fc2 against ffn_decode_plain; the slices
+    and their order come from (K, N) alone (the same plan at M = 11 and
+    176, clusters of at most 8), so an M=176 call's first 11 rows are an
+    M=11 call's bits."""
     rng = np.random.default_rng(0)
-    m, k, n = 11, 384, 1536
-    x, w = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in ((m, k), (k, n)))
-    b1 = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
-    plan = DO.f32_gemm_plan(m, k, n)
-    parts = [x[:, s * plan["slice"]:(s + 1) * plan["slice"]]
-             @ w[s * plan["slice"]:(s + 1) * plan["slice"]] for s in range(plan["slices"])]
-    y = parts[0]
-    for p in parts[1:]:
-        y = y + p
-    h = 0.5 * (y + b1) * (1 + torch.erf((y + b1) / np.sqrt(2.0)))
+    m, k, n = 176, 384, 1536
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    b1 = rng.standard_normal(n).astype(np.float32)
+    plan, small = DO.f32_gemm_plan(m, k, n), DO.f32_gemm_plan(11, k, n)
+    assert plan["ranges"] == small["ranges"] and plan["slices"] <= DO.GEMM32_MAX_SLICES
+    y = _gemm_order(x, w, plan)
+    assert np.array_equal(y[:11], _gemm_order(x[:11], w, small))
+    h = DO.gelu_mod.gelu(torch.from_numpy(y + b1))          # the plain version's GELU
     w2 = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)) * 0.02
     b2 = torch.zeros(k)
-    ref = DO.ffn_decode_plain(x, w, b1, w2, b2)
-    torch.testing.assert_close(h @ w2 + b2, ref, rtol=1e-4, atol=1e-4)
+    ref = DO.ffn_decode_plain(*(torch.from_numpy(a) for a in (x, w, b1)), w2, b2)
+    y2 = _gemm_order(h.numpy(), w2.numpy(), DO.f32_gemm_plan(m, n, k)) + b2.numpy()
+    torch.testing.assert_close(torch.from_numpy(y2), ref, rtol=1e-4, atol=1e-4)
 
 
 def _slices_then_combine(q, k, v, visible):
@@ -245,3 +337,70 @@ def test_bwd_f32_dq_partials_match_plain(b, h, sq, skv, kv_len, causal):
         assert not parts[i][..., skipped].any()
     rel = float((dq - ref[0]).norm() / ref[0].norm())
     assert rel <= 1e-6, rel
+
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _k1_f32_order(q, k, v, kv_len, causal, tile=64):
+    """K1 f32's arithmetic over 64-key tiles: masked scores, the row max m,
+    base = m log2(e), p = 2^(s log2(e) - base), alpha = 2^(m_old log2(e) -
+    base) (1 where the max did not move), l = l alpha + sum p, O = O alpha
+    + P V; then O / l and the log-sum-exp m + log(l)."""
+    b, h, sq, _ = q.shape
+    skv = k.shape[2]
+    m = torch.full((b, h, sq), -float("inf"))
+    l = torch.zeros((b, h, sq))
+    acc = torch.zeros_like(q)
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, kv_len if not causal else min(kv_len, sq), tile):
+        keys = torch.arange(k0, min(k0 + tile, skv))
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, keys])
+        vis = keys[None, :] < kv_len
+        if causal:
+            vis = vis & (keys[None, :] <= rows)
+        s = torch.where(vis, s, torch.tensor(-float("inf")))
+        mn = torch.maximum(m, s.amax(-1))
+        base = torch.where(torch.isinf(mn), torch.zeros(()), mn * LOG2E)
+        alpha = torch.where(mn == m, torch.ones(()), torch.exp2(m * LOG2E - base))
+        p = torch.exp2(s * LOG2E - base[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + p @ v[:, :, keys]
+        m = mn
+    return acc / l[..., None], m + torch.log(l)
+
+
+@pytest.mark.parametrize("b,h,sq,skv,kv_len,causal", [
+    (1, 2, 300, 300, 300, False), (1, 2, 300, 300, 257, True), (2, 1, 67, 67, 67, True),
+    (1, 2, 67, 300, 300, False), (1, 1, 130, 200, 131, False)])
+def test_k1_f32_tile_order_matches_plain_and_xla(b, h, sq, skv, kv_len, causal):
+    rng = np.random.default_rng(sq + skv + kv_len)
+    q = (rng.standard_normal((b, h, sq, 64)) * 0.125).astype(np.float32)
+    k, v = (rng.standard_normal((b, h, skv, 64)).astype(np.float32) for _ in range(2))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got, lse = _k1_f32_order(tq, tk, tv, kv_len, causal)
+    torch.testing.assert_close(got, A.attention_plain(tq, tk, tv, kv_len, causal),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, A.attention_lse_plain(tq, tk, kv_len, causal),
+                               rtol=1e-5, atol=1e-5)
+    ref = np.asarray(jattn._attention_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          kv_len, causal))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_k1_f32_blocks_and_smem():
+    """The source's query blocks (32 RT rows: RT = 8 past Sq 512, else 2
+    where that gives 132 CTAs, else 1) and its shared memory (q, the
+    two-stage (K, V) ring, P) fit a CTA; the rows a thread takes (qg + 32
+    i) cover a block once."""
+    text = open(os.path.join(CSRC, "attention.cu")).read()
+    assert ("const int rt = sq > AF_BIG ? 8 : ((sq + 63) / 64 * b * h >= AF_FILL ? 2 : 1);"
+            in text)
+    assert _const("AF_BIG", "attention.cu") == 512 and _const("AF_K", "attention.cu") == 64
+    assert _const("AF_STAGES", "attention.cu") == 2 and _const("AF_FILL", "attention.cu") == 132
+    for rt in (1, 2, 8):
+        rows = 32 * rt
+        smem = 1024 + 2 * rows * 64 * 4 + 2 * 2 * 64 * 64 * 4 + 8 * 5
+        assert smem <= 232448 and (rt == 8 or 2 * (smem + 1024) <= 233472)
+        got = sorted(qq + 4 * w + 32 * i for w in range(8) for qq in range(4) for i in range(rt))
+        assert got == list(range(rows))

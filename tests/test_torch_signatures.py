@@ -47,10 +47,12 @@ def test_argument_count_matches_signature(entry):
 # width beside a block's rows; K9's dQ scratch is now one partial per
 # 128-key block (same count, larger buffer), and its f32 mode takes the
 # same scratch; K2 keeps its table and ints; K7 keeps (x, e, s, y, m, v, d,
-# stream).
+# stream); the f32 GEMM and K11's f32 mode no longer take a partials
+# scratch (one launch a product, the slices added in a cluster).
 @pytest.mark.parametrize("entry,count", [("wm_self_decode", 12), ("wm_attention_bwd", 19),
                                          ("wm_attention_bwd_f32", 19),
-                                         ("wm_megastep_step", 3), ("wm_qmm_nt", 8)])
+                                         ("wm_megastep_step", 3), ("wm_qmm_nt", 8),
+                                         ("wm_gemm_f32", 11), ("wm_ffn_decode_f32", 11)])
 def test_changed_entries_keep_their_counts(entry, count):
     assert _entries()[entry] == count
     assert len(cuda_lib._SIGNATURES[entry]) == count

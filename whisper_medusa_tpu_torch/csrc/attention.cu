@@ -688,183 +688,304 @@ extern "C" int wm_attention_fwd(const void* q, const void* k, const void* v,
 // JAX package's default dtype): f32 scores, the online softmax in f32, P not
 // rounded (the TPU kernel rounds P to the value dtype, f32 here), f32 PV,
 // the f32 output and, where lse is not null, each row's f32 log-sum-exp
-// m + log(l).  The products and sums are FFMA on the CUDA cores: the tensor
-// cores take f32 only as TF32, which keeps about three decimal digits.
+// m + log(l), which K9's f32 mode reads.  The products and sums are FFMA on
+// the CUDA cores: the tensor cores take f32 only as TF32, which keeps about
+// three decimal digits.
 //
-//  * one CTA (256 threads) per (batch, head, 64-query block); the block's q
-//    staged once, transposed (d-major), then 64-key tiles of K (transposed)
-//    and V (row-major) staged in shared memory one at a time (16 KB each),
-//    keys past Skv zero-filled, tiles past the last visible key (kv_len,
-//    and the block's last query when causal) not loaded;
-//  * thread t holds a 4 x 4 register tile of scores, queries 4 (t / 16) ..
-//    + 3 and keys 4 (t % 16) .. + 3 (two float4 reads of shared memory per
-//    16 FFMA, a dot of 64 in order), and the same queries' output columns
-//    4 (t % 16) .. + 3; a query row's 16 threads are one half-warp, so its
-//    max and sum take four shuffles;
-//  * P goes through shared memory transposed (pitch 68), and O += P V is
-//    the same 4 x 4 register tile over the 64 keys in order.
-// Masks: key < kv_len, and key <= query when causal.  No split over keys
-// and no atomics: a (b, h, query block) computes the same bits whatever B
-// is.  Bound on H100: operations; the encoder's (1, 20, 1500^2) is 11.5
-// GFLOP a layer, 0.17 ms at the CUDA cores' 67 TFLOP/s.
+// Bound on H100: operations; the encoder's (1, 20, 1500^2) is 11.5 GFLOP a
+// layer, 0.17 ms at the CUDA cores' 67 TFLOP/s.  A shared-memory float4 read
+// costs a warp up to four wavefronts whatever its lanes share, so a thread's
+// register tile has to hold 8 x 8 sums for the products, not the reads, to
+// bound it.  What the design does about it:
+//
+//  * one CTA of eight warps per (batch, head, block of 32 RT queries), no
+//    split over keys; RT = 8 (256 queries) where Sq > 512, else RT = 2 (64
+//    queries) where that gives a CTA an SM, else RT = 1 (32 queries): the
+//    capture pass's and training's short Sq get more, shorter CTAs;
+//  * thread 0 loads the block's q once and then 64-key tiles of K and V
+//    through a two-stage ring of mbarriers by TMA (warp 0 refilling a stage
+//    once the eight warps have released it), from 3-D tensor maps over (B*H,
+//    S, 64), so rows past S read as zeros and never as the next head's rows;
+//    every tile row-major (d contiguous) in two 32-float halves with the
+//    128-byte swizzle; tiles past the last visible key (kv_len, and the
+//    block's last query when causal) are not loaded;
+//  * thread (w, lane) holds queries qg + 32 i (qg = lane / 8 + 4 w, i < RT)
+//    and keys kg + 8 j of a tile (kg = lane % 8, j < 8): S = q K^T has K3
+//    f32's NT form, a 4-deep step reading RT + 8 float4 for 32 RT FFMA,
+//    conflict-free (the swizzle puts the rows' quads in distinct banks), no
+//    transpose; a score is one dot of 64 in order;
+//  * the online softmax in the log2 domain: p = 2^(s log2(e) - m log2(e))
+//    as one FFMA and one ex2.approx (the bf16 mode's exponent), alpha = 1
+//    where a row's max did not move (a warp rescales only when one of its
+//    rows' did); a row's max takes three shuffles over the 8 lanes of its
+//    keys, its sum stays per lane until the end; masks only on the tiles
+//    that hold a masked key;
+//  * P goes through the warp's own rows of a (32 RT x 64) tile in shared
+//    memory (chunk c of row r at c ^ 2 (r % 4): the stores and the float4
+//    reads conflict-free), so the warps never wait for each other; O += P V
+//    on RT queries x 8 columns a thread (d = 4 kg .. + 3 and 32 + 4 kg ..),
+//    RT + 8 float4 a 4-key step for 32 RT FFMA, over the keys in order.
+// Masks: key < kv_len, and key <= query when causal.  A row's arithmetic
+// does not depend on RT or on the rows beside it, so a (b, h) row has the
+// same bits whatever B and Sq's block are, and two runs the same bits.
 namespace wm {
 namespace {
 
-constexpr int AF_Q = 64;                    // queries a CTA
 constexpr int AF_K = 64;                    // keys a tile
 constexpr int AF_DH = 64;
-constexpr int AF_THREADS = 256;
-constexpr int AF_PP = AF_Q + 4;             // pitch of the transposed P tile
-constexpr int AF_SMEM = (AF_DH * AF_Q + 2 * AF_DH * AF_K + AF_K * AF_PP) * 4;
+constexpr int AF_HALF = 32;                 // d of one swizzled 128-byte row
+constexpr int AF_WARPS = 8;
+constexpr int AF_THREADS = 32 * AF_WARPS;   // thread 0 also issues the loads
+constexpr int AF_STAGES = 2;                // K/V ring depth
+constexpr int AF_KB = AF_K * AF_DH * 4;     // one K or V tile, bytes (two halves)
+constexpr int AF_BIG = 512;                 // Sq above which a CTA takes 256 queries
+constexpr int AF_FILL = 132;                // CTAs of 64 queries that fill the card
+
+// Queries a CTA, and its dynamic shared memory: 1024 bytes of alignment
+// slack, q, the ring of (K, V) stages, P and the barriers.
+__host__ __device__ constexpr int af_rows(int rt) { return 32 * rt; }
+__host__ __device__ constexpr int af_smem(int rt) {
+  return 1024 + 2 * af_rows(rt) * AF_DH * 4 + AF_STAGES * 2 * AF_KB + 8 * (2 * AF_STAGES + 1);
+}
 
 __device__ __forceinline__ float4 af_ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-__global__ void __launch_bounds__(AF_THREADS)
-attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int sq, int skv, int kv_len, int causal) {
-  extern __shared__ __align__(16) float af_smem[];
-  float* qt = af_smem;                        // [d][query]
-  float* kt = qt + AF_DH * AF_Q;              // [d][key]
-  float* vs = kt + AF_DH * AF_K;              // [key][d]
-  float* pt = vs + AF_K * AF_DH;              // [key][query], pitch AF_PP
-  const int q0 = blockIdx.x * AF_Q;
-  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
-  const float* qh = q + bh * sq * AF_DH;
-  const float* kh = k + bh * skv * AF_DH;
-  const float* vh = v + bh * skv * AF_DH;
-  const int t = threadIdx.x, tq = t >> 4, tk = t & 15;
-  const int kend = causal ? min(kv_len, q0 + AF_Q) : kv_len;
+template <int RT>
+__global__ void __launch_bounds__(AF_THREADS, 1)
+attention_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv, float* __restrict__ o,
+                     float* __restrict__ lse, int sq, int kv_len, int causal) {
+  constexpr int AQ = af_rows(RT);
+  constexpr int QB = AQ * AF_DH * 4;        // q, bytes (two halves)
+  extern __shared__ char af_raw[];
+  char* smem = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(af_raw) + 1023) & ~uintptr_t(1023));
+  const float* qs = reinterpret_cast<const float*>(smem);          // [half][query][32]
+  char* ring = smem + QB;                                           // stages x (K, V)
+  float* ps = reinterpret_cast<float*>(ring + AF_STAGES * 2 * AF_KB);   // [query][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ps + AQ * AF_K);
+  uint64_t* empty = full + AF_STAGES;
+  uint64_t* qbar = empty + AF_STAGES;
+  const int q0 = blockIdx.x * AQ;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  const int kend = causal ? min(kv_len, q0 + AQ) : kv_len;
   const int ntiles = (kend + AF_K - 1) / AF_K;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int h = 0; h < 4; ++h) {
-    const int idx = t + h * AF_THREADS, r = idx & 63, d4 = (idx >> 6) * 4;
-    const float4 x = q0 + r < sq ? af_ld4(qh + (size_t)(q0 + r) * AF_DH + d4) : zero;
-    qt[(d4 + 0) * AF_Q + r] = x.x;
-    qt[(d4 + 1) * AF_Q + r] = x.y;
-    qt[(d4 + 2) * AF_Q + r] = x.z;
-    qt[(d4 + 3) * AF_Q + r] = x.w;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < AF_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], AF_WARPS);
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
   }
-  float acc[4][4], m[4], l[4];
+  __syncthreads();
+
+  // Tile t of K and V into stage t % AF_STAGES: K's two halves, then V's.
+  auto load_tile = [&](int t) {
+    const int st = t % AF_STAGES;
+    mbar_arrive_tx(&full[st], 2 * AF_KB);
+    char* dst = ring + st * 2 * AF_KB;
+    for (int hf = 0; hf < 2; ++hf) {
+      tma_load_3d(dst + hf * (AF_KB / 2), &mk, &full[st], hf * AF_HALF, t * AF_K, bh);
+      tma_load_3d(dst + AF_KB + hf * (AF_KB / 2), &mv, &full[st], hf * AF_HALF, t * AF_K, bh);
+    }
+  };
+  if (threadIdx.x == 0) {   // q, and the first tiles: every stage is free
+    mbar_arrive_tx(qbar, QB);
+    for (int hf = 0; hf < 2; ++hf)
+      tma_load_3d(smem + hf * (QB / 2), &mq, qbar, hf * AF_HALF, q0, bh);
+    for (int t = 0; t < AF_STAGES && t < ntiles; ++t) load_tile(t);
+  }
+
+  // Queries qg + 32 i (row % 8 == qg % 8, row % 4 == qq), keys kg + 8 j.
+  const int kg = lane & 7, qq = lane >> 3, qg = qq + 4 * warp;
+  float acc[RT][8], m[RT], l[RT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RT; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
   }
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int k0 = tile * AF_K;
-    __syncthreads();              // the previous tile's products have read kt, vs, pt
+  float* prow = ps + qg * AF_K;   // this thread's P rows: + 32 i AF_K
+  const float* qrow = qs + qg * AF_HALF;
+  mbar_wait(qbar, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t % AF_STAGES, k0 = t * AF_K;
+    mbar_wait(&full[st], (t / AF_STAGES) & 1);
+    const float* ks = reinterpret_cast<const float*>(ring + st * 2 * AF_KB);
+    const float* vs = ks + AF_KB / 4;
+    float s[RT][8];
 #pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      const int idx = t + h * AF_THREADS;
-      {
-        const int j = idx & 63, d4 = (idx >> 6) * 4, key = k0 + j;
-        const float4 x = key < skv ? af_ld4(kh + (size_t)key * AF_DH + d4) : zero;
-        kt[(d4 + 0) * AF_K + j] = x.x;
-        kt[(d4 + 1) * AF_K + j] = x.y;
-        kt[(d4 + 2) * AF_K + j] = x.z;
-        kt[(d4 + 3) * AF_K + j] = x.w;
-      }
-      {
-        const int j = idx >> 4, d4 = (idx & 15) * 4, key = k0 + j;
-        *reinterpret_cast<float4*>(vs + j * AF_DH + d4) =
-            key < skv ? af_ld4(vh + (size_t)key * AF_DH + d4) : zero;
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+#pragma unroll 2
+    for (int kc = 0; kc < AF_DH / 4; ++kc) {
+      const int hf = kc >> 3, c = kc & 7;
+      float4 kv[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + hf * (AF_K * AF_HALF) +
+                                                 (kg + 8 * j) * AF_HALF + ((c ^ kg) << 2));
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(
+            qrow + hf * (AQ * AF_HALF) + 32 * i * AF_HALF + ((c ^ (qg & 7)) << 2));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+        }
       }
     }
-    __syncthreads();
-    float s[4][4];
+    // A tile with a key past kv_len, or past a query of the block when
+    // causal, takes the masks; the others have every key visible to every row.
+    if (k0 + AF_K > kv_len || (causal && k0 + AF_K - 1 > q0)) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i) {
+        const int row = q0 + qg + 32 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 16
-    for (int d = 0; d < AF_DH; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(qt + d * AF_Q + 4 * tq);
-      const float4 ka = *reinterpret_cast<const float4*>(kt + d * AF_K + 4 * tk);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w}, kv[4] = {ka.x, ka.y, ka.z, ka.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < 8; ++j) {
+          const int key = k0 + kg + 8 * j;
+          if (key >= kv_len || (causal && key > row)) s[i][j] = -INFINITY;
+        }
+      }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * tq + i;
-      float mx = -INFINITY;
+    for (int i = 0; i < RT; ++i) {
+      float mx = s[i][0];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + 4 * tk + j;
-        if (key >= kv_len || (causal && key > row)) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
+      for (int j = 1; j < 8; ++j) mx = fmaxf(mx, s[i][j]);
 #pragma unroll
-      for (int sh = 1; sh < 16; sh <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
+      for (int sh = 1; sh < 8; sh <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
       const float mn = fmaxf(m[i], mx);
       // A row with no visible key yet keeps m = -inf, p = 0 and alpha = 1.
-      const float base = mn == -INFINITY ? 0.0f : mn;
-      const float alpha = mn == -INFINITY ? 1.0f : expf(m[i] - mn);
+      const float base = mn == -INFINITY ? 0.0f : mn * LOG2E;
+      const float alpha = mn == m[i] ? 1.0f : ex2(fmaf(m[i], LOG2E, -base));
       m[i] = mn;
-      float ps = 0.0f;
+      float psum = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - base);
-        ps += p;
-        pt[(4 * tk + j) * AF_PP + 4 * tq + i] = p;
+      for (int j = 0; j < 8; ++j) {
+        const float p = ex2(fmaf(s[i][j], LOG2E, -base));
+        psum += p;
+        const int key = kg + 8 * j;
+        prow[32 * i * AF_K + (((key >> 2) ^ (2 * qq)) << 2) + (key & 3)] = p;
       }
-      l[i] = l[i] * alpha + ps;
+      l[i] = l[i] * alpha + psum;
+      if (__any_sync(0xffffffffu, alpha != 1.0f)) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+        for (int j = 0; j < 8; ++j) acc[i][j] *= alpha;
+      }
     }
-    __syncthreads();
-#pragma unroll 16
-    for (int j = 0; j < AF_K; ++j) {
-      const float4 pa = *reinterpret_cast<const float4*>(pt + j * AF_PP + 4 * tq);
-      const float4 va = *reinterpret_cast<const float4*>(vs + j * AF_DH + 4 * tk);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w}, vv[4] = {va.x, va.y, va.z, va.w};
+    __syncwarp();   // this tile's P rows are written
+#pragma unroll 4
+    for (int kc = 0; kc < AF_K / 4; ++kc) {
+      float4 pv[RT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(prow + 32 * i * AF_K + ((kc ^ (2 * qq)) << 2));
 #pragma unroll
-        for (int dd = 0; dd < 4; ++dd) acc[i][dd] = fmaf(pv[i], vv[dd], acc[i][dd]);
+      for (int jj = 0; jj < 4; ++jj) {
+        const int key = 4 * kc + jj;
+        const float4 v0 = *reinterpret_cast<const float4*>(
+            vs + key * AF_HALF + ((kg ^ (key & 7)) << 2));
+        const float4 v1 = *reinterpret_cast<const float4*>(
+            vs + AF_K * AF_HALF + key * AF_HALF + ((kg ^ (key & 7)) << 2));
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const float p = jj == 0 ? pv[i].x : (jj == 1 ? pv[i].y : (jj == 2 ? pv[i].z : pv[i].w));
+          acc[i][0] = fmaf(p, v0.x, acc[i][0]);
+          acc[i][1] = fmaf(p, v0.y, acc[i][1]);
+          acc[i][2] = fmaf(p, v0.z, acc[i][2]);
+          acc[i][3] = fmaf(p, v0.w, acc[i][3]);
+          acc[i][4] = fmaf(p, v1.x, acc[i][4]);
+          acc[i][5] = fmaf(p, v1.y, acc[i][5]);
+          acc[i][6] = fmaf(p, v1.z, acc[i][6]);
+          acc[i][7] = fmaf(p, v1.w, acc[i][7]);
+        }
+      }
+    }
+    __syncwarp();   // every lane has read the stage and this tile's P
+    if (lane == 0) mbar_arrive(&empty[st]);
+    // Warp 0 refills the stage with tile t + AF_STAGES once every warp is
+    // done with it (the warps run close together: the other stage keeps
+    // them fed meanwhile).
+    if (warp == 0 && t + AF_STAGES < ntiles) {
+      mbar_wait(&empty[st], (t / AF_STAGES) & 1);
+      if (lane == 0) load_tile(t + AF_STAGES);
+      __syncwarp();
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RT; ++i) {
 #pragma unroll
-    for (int sh = 1; sh < 16; sh <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], sh);
-    const int row = q0 + 4 * tq + i;
+    for (int sh = 1; sh < 8; sh <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], sh);
+    const int row = q0 + qg + 32 * i;
     if (row < sq) {
       const float inv = l[i] > 0.0f ? 1.0f / l[i] : 0.0f;
-      *reinterpret_cast<float4*>(o + (bh * sq + row) * AF_DH + 4 * tk) =
+      float* orow = o + ((size_t)bh * sq + row) * AF_DH + 4 * kg;
+      *reinterpret_cast<float4*>(orow) =
           make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
-      if (lse != nullptr && tk == 0) lse[bh * sq + row] = m[i] + logf(l[i]);
+      *reinterpret_cast<float4*>(orow + AF_HALF) =
+          make_float4(acc[i][4] * inv, acc[i][5] * inv, acc[i][6] * inv, acc[i][7] * inv);
+      if (lse != nullptr && kg == 0) lse[(size_t)bh * sq + row] = m[i] + logf(l[i]);
     }
   }
+}
+
+template <int RT>
+int af_launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, float* o,
+              float* lse, int b, int h, int sq, int kv_len, int causal, cudaStream_t st) {
+  // Per launch: the attribute belongs to the current device's context.
+  cudaFuncSetAttribute(attention_f32_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       af_smem(RT));
+  attention_f32_kernel<RT><<<dim3((sq + af_rows(RT) - 1) / af_rows(RT), h, b), AF_THREADS,
+                             af_smem(RT), st>>>(mq, mk, mv, o, lse, sq, kv_len, causal);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace wm
 
 // lse: (B, H, Sq) f32, or null.  q (B, H, Sq, 64), k and v (B, H, Skv, 64)
-// f32, 16-byte aligned; o (B, H, Sq, 64) f32.
+// f32, each 16-byte aligned (the tensor-map encoder refuses another
+// address: the entry then returns TENSOR_MAP_ERROR + its error); o (B, H,
+// Sq, 64) f32.
 extern "C" int wm_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
                                     void* lse, int b, int h, int sq, int skv, int dh,
                                     int kv_len, int causal, void* stream) {
   using namespace wm;
   if (dh != AF_DH || b < 1 || h < 1 || sq < 1 || kv_len < 1 || kv_len > skv)
     return (int)cudaErrorInvalidValue;
-  // Per launch: the attribute belongs to the current device's context.
-  cudaFuncSetAttribute(attention_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       AF_SMEM);
-  attention_f32_kernel<<<dim3((sq + AF_Q - 1) / AF_Q, h, b), AF_THREADS, AF_SMEM,
-                         (cudaStream_t)stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), sq, skv, kv_len, causal);
-  return (int)cudaGetLastError();
+  const int rt = sq > AF_BIG ? 8 : ((sq + 63) / 64 * b * h >= AF_FILL ? 2 : 1);
+  const cuuint64_t row = AF_DH * sizeof(float);
+  const cuuint64_t qdims[3] = {(cuuint64_t)AF_DH, (cuuint64_t)sq, (cuuint64_t)b * h};
+  const cuuint64_t kdims[3] = {(cuuint64_t)AF_DH, (cuuint64_t)skv, (cuuint64_t)b * h};
+  const cuuint64_t qstrides[2] = {row, row * sq}, kstrides[2] = {row, row * skv};
+  const cuuint32_t qbox[3] = {AF_HALF, (cuuint32_t)af_rows(rt), 1}, kbox[3] = {AF_HALF, AF_K, 1};
+  CUtensorMap mq, mk, mv;
+  int err = encode_map(&mq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, q, qdims, qstrides, qbox,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = encode_map(&mk, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, k, kdims, kstrides, kbox,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = encode_map(&mv, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, v, kdims, kstrides, kbox,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  float* of = static_cast<float*>(o);
+  float* lf = static_cast<float*>(lse);
+  cudaStream_t st = (cudaStream_t)stream;
+  return rt == 8   ? af_launch<8>(mq, mk, mv, of, lf, b, h, sq, kv_len, causal, st)
+         : rt == 2 ? af_launch<2>(mq, mk, mv, of, lf, b, h, sq, kv_len, causal, st)
+                   : af_launch<1>(mq, mk, mv, of, lf, b, h, sq, kv_len, causal, st);
 }
 
 // ---------------------------------------------------------------------------

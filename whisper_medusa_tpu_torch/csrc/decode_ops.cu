@@ -89,6 +89,7 @@
 #include "common.cuh"
 #include "ffma.cuh"
 #include "ffma_attn.cuh"
+#include "ffma_gemm.cuh"
 #include "wgemm.cuh"
 
 namespace wm {
@@ -243,9 +244,12 @@ extern "C" int wm_ffn_decode(const void* x, const void* w1, const void* b1, cons
 // f32 K and V per (example, head) at S = 1500.
 //
 // K11's f32 mode, wm_ffn_decode_f32: fc1 with the exact-erf GELU, then fc2
-// with its bias, each on ffma.cuh's f32 GEMM (K slices from (K, N) alone,
-// added in slice order by its combine kernel), h (M, F) f32 between them.
-// Bound by bytes at the decode step's M: 52.4 MB of f32 weights at large-v2.
+// with its bias, each one launch of ffma_gemm.cuh's f32 weight stream (K
+// slices from (K, N) alone, added in rank order across a cluster, the
+// epilogue in the same kernel), fc2 under programmatic dependent launch
+// behind fc1 (its first W stages stream while fc1 finishes), h (M, F) f32
+// between them.  Bound by bytes at the decode step's M: 52.4 MB of f32
+// weights at large-v2.
 //
 // wm_gemm_f32 is that GEMM alone: out (nh, M, N) = epi(x @ w + b), the
 // Medusa heads' rows of the f32 two-pass verification (EPI_SILU_RESID) and
@@ -315,36 +319,32 @@ extern "C" int wm_self_decode_f32(const void* q, const void* k, const void* v,
 }
 
 // x (M, D), w1 (D, F), b1 (F,), w2 (F, D), b2 (D,) f32; h (M, F) f32
-// scratch; part the GEMM's f32 scratch (ops/decode_ops.py::f32_ffn_plan);
-// y (M, D) f32 out.  D, F multiples of 64; x, w1, w2 16-byte aligned.
+// scratch; y (M, D) f32 out.  D multiple of 64, F of 64 and 32; x, w1, w2,
+// the biases, h and y 16-byte aligned.
 extern "C" int wm_ffn_decode_f32(const void* x, const void* w1, const void* b1,
-                                 const void* w2, const void* b2, void* h, void* y, void* part,
-                                 int M, int D, int F, void* stream) {
+                                 const void* w2, const void* b2, void* h, void* y, int M,
+                                 int D, int F, void* stream) {
   using namespace wm;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = ff_gemm(static_cast<const float*>(x), static_cast<const float*>(w1),
-                    static_cast<const float*>(b1), nullptr, static_cast<float*>(h),
-                    static_cast<float*>(part), M, D, F, 1, EPI_BIAS_GELU, st);
+  int err = fg_launch(static_cast<const float*>(x), static_cast<const float*>(w1),
+                      static_cast<const float*>(b1), nullptr, static_cast<float*>(h), M, D, F,
+                      1, EPI_BIAS_GELU, st);
   if (err == 0)
-    err = ff_gemm(static_cast<const float*>(h), static_cast<const float*>(w2),
-                  static_cast<const float*>(b2), nullptr, static_cast<float*>(y),
-                  static_cast<float*>(part), M, F, D, 1, EPI_BIAS, st);
+    err = fg_launch(static_cast<const float*>(h), static_cast<const float*>(w2),
+                    static_cast<const float*>(b2), nullptr, static_cast<float*>(y), M, F, D, 1,
+                    EPI_BIAS, st);
   return err;
 }
 
 // out (NH, M, N) = epi(x (M, K) @ w (NH, K, N) + b (NH, N)) in f32; b may
-// be null; resid (M, N) for EPI_SILU_RESID; part the (NH, slices, M, N)
-// scratch.  K % 16 == 0, N % 64 == 0, x and w 16-byte aligned.
+// be null; resid (M, N) for EPI_SILU_RESID.  K % 32 == 0, N % 64 == 0,
+// every operand 16-byte aligned.
 extern "C" int wm_gemm_f32(const void* x, const void* w, const void* b, const void* resid,
-                           void* out, void* part, int M, int K, int N, int NH, int epi,
-                           void* stream) {
+                           void* out, int M, int K, int N, int NH, int epi, void* stream) {
   using namespace wm;
-  if (epi != EPI_BIAS && epi != EPI_BIAS_GELU && epi != EPI_SILU_RESID)
-    return (int)cudaErrorInvalidValue;
-  return ff_gemm(static_cast<const float*>(x), static_cast<const float*>(w),
-                 static_cast<const float*>(b), static_cast<const float*>(resid),
-                 static_cast<float*>(out), static_cast<float*>(part), M, K, N, NH, epi,
-                 (cudaStream_t)stream);
+  return fg_launch(static_cast<const float*>(x), static_cast<const float*>(w),
+                   static_cast<const float*>(b), static_cast<const float*>(resid),
+                   static_cast<float*>(out), M, K, N, NH, epi, (cudaStream_t)stream);
 }
 
 // K10's W8A32 mode: q (B, H, T, 64) f32; k (B, H, 64, S), v (B, S, H * 64)

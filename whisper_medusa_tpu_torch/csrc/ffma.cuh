@@ -14,28 +14,24 @@
 // on the other rows, on M or on MT.  NT = false: W is (K, N) row-major (the
 // weights' (in, out) layout), the CTA's 64 columns a slice of each row.
 // NT = true: W is E (V, D) row-major, the CTA's columns 64 vocab entries
-// (rows of E), those past `cols` read as zero.
-//
-// ffma_gemm_kernel<MT> is the weight-streaming GEMM of the f32 modes (K11's
-// fc1 and fc2, the Medusa heads' rows of K4's stage A and wm_head_rows, the
-// per-op step's f32 projections): a CTA per (64 columns, K slice, head,
-// row pass), its partial sums to an (nh, slices, M, N) f32 scratch, then
-// ffma_combine_kernel adds the slices in slice order, adds the bias and
-// applies the epilogue.  The K slices come from (K, N) alone
-// (ff_gemm_slice, mirrored by ops/decode_ops.py::f32_gemm_plan), so a
-// row's result does not depend on M or on the heads of the launch.
-//
-// Bound on H100: bytes at the decode step's M (large-v2's fc2, 26.2 MB of
-// f32 weights, 7.8 us at 3.35 TB/s), operations at the 67 TFLOP/s of the
-// CUDA cores past M ~ 64 rows.
+// (rows of E), those past `cols` read as zero.  K4 / K5's f32 vocab stream
+// (verify.cu) runs on the NT tile.  The f32 GEMM (K11's f32 mode, the f32
+// head rows, the per-op step's f32 projections) is ffma_gemm.cuh's weight
+// stream.
 //
 // W8A32 (the int8 copy of an f32 model): ffma_tile<MT, NT, int8_t> reads an
 // int8 W (or E) and converts each value exactly to f32 as it is fetched,
 // the rest of the tile unchanged; ffma_gemm8_kernel + ffma_combine8_kernel
 // are the GEMM over int8 weights, up to three jobs on one X (K2's q / k /
-// v) or a stack of heads, the column's f32 scale applied to the slices'
-// sum before the bias and the epilogue (the JAX kernels' ``mm``: the sum
-// times the scale, then the bias).
+// v) or a stack of heads: a CTA per (64 columns, K slice, output, row
+// pass), its partial sums to an (nz, slices, M, N) f32 scratch, then the
+// combine adds the slices in slice order and applies the column's f32
+// scale to their sum before the bias and the epilogue (the JAX kernels'
+// ``mm``: the sum times the scale, then the bias).  The K slices come from
+// (K, N) alone (ff_gemm_slice, mirrored by ops/decode_ops.py::
+// w8a32_gemm_plan), so a row's result does not depend on M.  Bound on H100:
+// bytes at the decode step's M (large-v2's int8 fc2, 6.6 MB, 2.0 us at
+// 3.35 TB/s), operations at the 67 TFLOP/s of the CUDA cores past M ~ 16.
 #pragma once
 
 #include <type_traits>
@@ -189,97 +185,6 @@ __device__ __forceinline__ void ffma_tile(float (&acc)[MT][4], const float* __re
   }
 }
 
-// The f32 GEMM's operands: out[z] = epi(sum_s part[z][s] + b[z]) of
-// x (M, K) @ w[z] (K, N); resid (M, N) for EPI_SILU_RESID.
-struct FfGemm {
-  const float* x;
-  const float* w;       // (nh, K, N)
-  float* part;          // (nh, slices, M, N) f32 scratch
-  int m, k, n, slice, slices, passes;
-};
-
-// Grid (N / 64 * passes, slices, nh): column tile x / passes, row pass x %
-// passes (a tile's passes adjacent, so its W slice comes from L2 after the
-// first), K slice y, head z.
-template <int MT>
-__global__ void __launch_bounds__(FF_THREADS) ffma_gemm_kernel(const FfGemm g) {
-  __shared__ __align__(16) float sm[2 * ff_stage_floats<MT>()];
-  const int tile = blockIdx.x / g.passes, pass = blockIdx.x % g.passes;
-  const int s = blockIdx.y, z = blockIdx.z;
-  const int n0 = tile * FF_COLS, r0 = pass * 16 * MT;
-  const int k0 = s * g.slice, k1 = min(g.k, k0 + g.slice);
-  const int rows = min(16 * MT, g.m - r0);
-  float acc[MT][4];
-  ffma_tile<MT, false>(acc, g.x + (size_t)r0 * g.k, g.k, rows,
-                       g.w + (size_t)z * g.k * g.n + n0, g.n, FF_COLS, k0, k1, sm);
-  const int tc = threadIdx.x & 15, tr = threadIdx.x >> 4;
-  float* p = g.part + ((size_t)z * g.slices + s) * g.m * g.n + n0 + 4 * tc;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int r = tr * MT + i;
-    if (r < rows)
-      *reinterpret_cast<float4*>(p + (size_t)(r0 + r) * g.n) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
-}
-
-// out[z][r][c] = epi(part[z][0][r][c] + ... + part[z][S-1][r][c] + b[z][c]),
-// the slices added in order; EPI_BIAS, EPI_BIAS_GELU (exact erf) or
-// EPI_SILU_RESID (resid[r][c] + silu(.)).  b may be null.
-__global__ void __launch_bounds__(256)
-ffma_combine_kernel(const float* __restrict__ part, int slices, int m, int n, int nh,
-                    const float* __restrict__ b, const float* __restrict__ resid, int epi,
-                    float* __restrict__ out) {
-  const size_t mn = (size_t)m * n;
-  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
-  if (i >= (size_t)nh * mn) return;
-  const size_t z = i / mn, rc = i % mn;
-  const float* p = part + z * slices * mn + rc;
-  float y = p[0];
-  for (int s = 1; s < slices; ++s) y += p[s * mn];
-  if (b != nullptr) y += b[z * n + rc % n];
-  if (epi == EPI_BIAS_GELU) y = gelu_erf(y);
-  else if (epi == EPI_SILU_RESID) y = resid[rc] + y / (1.0f + expf(-y));
-  out[i] = y;
-}
-
-template <int MT = 1>
-int ff_gemm_launch(int mt, const FfGemm& g, int nh, cudaStream_t st) {
-  if (mt == MT) {
-    ffma_gemm_kernel<MT><<<dim3(g.n / FF_COLS * g.passes, g.slices, nh), FF_THREADS, 0, st>>>(g);
-    return (int)cudaGetLastError();
-  }
-  if constexpr (MT < FF_MAX_MT) return ff_gemm_launch<MT * 2>(mt, g, nh, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// out (nh, M, N) = epi(x (M, K) @ w (nh, K, N) + b (nh, N)); part: the
-// (nh, slices, M, N) scratch (ops/decode_ops.py::f32_gemm_plan sizes it).
-// K % 16 == 0, N % 64 == 0, x and w 16-byte aligned.
-inline int ff_gemm(const float* x, const float* w, const float* b, const float* resid,
-                   float* out, float* part, int m, int k, int n, int nh, int epi,
-                   cudaStream_t st) {
-  if (m < 1 || k < FF_KC || k % FF_KC || n < FF_COLS || n % FF_COLS || nh < 1)
-    return (int)cudaErrorInvalidValue;
-  FfGemm g;
-  g.x = x;
-  g.w = w;
-  g.part = part;
-  g.m = m;
-  g.k = k;
-  g.n = n;
-  g.slice = ff_gemm_slice(k, n);
-  g.slices = (k + g.slice - 1) / g.slice;
-  const int mt = ff_mt(m);
-  g.passes = (m + 16 * mt - 1) / (16 * mt);
-  int err = ff_gemm_launch(mt, g, nh, st);
-  if (err != 0) return err;
-  const size_t total = (size_t)nh * m * n;
-  ffma_combine_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, g.slices, m, n, nh,
-                                                                       b, resid, epi, out);
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // The W8A32 GEMM: out = epi(x (M, K) @ (q (K, N) * s) + b) in f32.
 
@@ -375,7 +280,7 @@ int ff_gemm8_launch(int mt, const FfGemm8& g, int nz, cudaStream_t st) {
 }
 
 // nz outputs of x (M, K) through the njobs jobs (njobs <= 3, nz >= njobs);
-// part: the (nz, slices, M, N) scratch (ops/decode_ops.py::f32_gemm_plan
+// part: the (nz, slices, M, N) scratch (ops/decode_ops.py::w8a32_gemm_plan
 // with nh = nz sizes it).  K % 16 == 0, N % 64 == 0, x 16-byte and w
 // 4-byte aligned.
 inline int ff_gemm8(const float* x, const Ff8Job* jobs, int njobs, int nz, float* part, int m,

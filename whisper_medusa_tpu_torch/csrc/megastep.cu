@@ -596,7 +596,7 @@ enum MegastepW8A32Ptr {
   A_Q, A_K, A_V,  // (M, D) f32 scratch: projections
   A_ATTN,         // (M, D) f32 scratch: attention output
   A_H,            // (M, F) f32 scratch: fc1 output
-  A_PART,         // f32 scratch: the GEMM's slices (decode_ops.f32_gemm_plan)
+  A_PART,         // f32 scratch: the GEMM's slices (decode_ops.w8a32_gemm_plan)
   A_APART,        // f32 scratch: the attention's slices (B, H, C, 16, 66)
   A_SELF_K, A_SELF_V,        // (L', B, S, D) int8 slabs, updated in place
   A_SELF_S,                  // (L', B, S, 2H) bf16 scales, updated in place

@@ -106,6 +106,7 @@
 
 #include "common.cuh"
 #include "ffma.cuh"
+#include "ffma_gemm.cuh"
 #include "hopper.cuh"
 #include "wgemm.cuh"
 
@@ -823,10 +824,10 @@ extern "C" int wm_head_rows(const void* src, const void* w, const void* b, void*
 // shared memory, and each warpgroup runs the same tile_stats<false, TS> as
 // the bf16 stream on half of the pass's rows: the processors, the timestamp
 // rules and the straddling tile's split are the same code.  Stage C is the
-// same combine kernels.  Stage A (K4) is ffma.cuh's f32 GEMM over the heads
-// (EPI_SILU_RESID, K slices from (D, D) alone), the same launch as
-// wm_gemm_f32's for the two-pass loop's head rows, so a head row has the
-// same bits in both.  Bound on H100: the 212 MB f32 embedding stream (63 us
+// same combine kernels.  Stage A (K4) is ffma_gemm.cuh's f32 weight stream
+// over the heads (EPI_SILU_RESID, K slices from (D, D) alone, one launch),
+// the same launch as wm_gemm_f32's for the two-pass loop's head rows, so a
+// head row has the same bits in both.  Bound on H100: the 212 MB f32 embedding stream (63 us
 // at 3.35 TB/s) up to R ~ 160 rows, then the 2 R V D products at the CUDA
 // cores' 67 TFLOP/s (R = 121: 16 GFLOP, 0.24 ms).
 //
@@ -947,7 +948,8 @@ inline int score_rows_f32(const float* rows, int n_rows, const void* e, const fl
 // K4's f32 mode: wm_verify_hidden's pointer table and ints, every float
 // operand f32 (the rows scratch (R, D) f32; W8A32: an int8 embedding and /
 // or int8 heads with their f32 scales), and one more pointer at V_COUNT:
-// stage A's (nh, slices, BN, D) f32 GEMM scratch.
+// with int8 heads, stage A's (nh, slices, BN, D) f32 scratch of the W8A32
+// GEMM (unread with f32 heads: the f32 GEMM needs none).
 extern "C" int wm_verify_hidden_f32(void** p, const int* ints, float log_factor,
                                     void* stream) {
   using namespace wm;
@@ -969,9 +971,9 @@ extern "C" int wm_verify_hidden_f32(void** p, const int* ints, float log_factor,
                       EPI_SILU_RESID};
     err = ff_gemm8(src, &j, 1, NH, static_cast<float*>(p[V_COUNT]), BN, D, D, st);
   } else {
-    err = ff_gemm(src, static_cast<const float*>(p[V_HEADS_W]),
-                  static_cast<const float*>(p[V_HEADS_B]), src, hrows,
-                  static_cast<float*>(p[V_COUNT]), BN, D, D, NH, EPI_SILU_RESID, st);
+    err = fg_launch(src, static_cast<const float*>(p[V_HEADS_W]),
+                    static_cast<const float*>(p[V_HEADS_B]), src, hrows, BN, D, D, NH,
+                    EPI_SILU_RESID, st);
   }
   if (err != 0) return err;
   return score_rows_f32(rows, R, p[V_EMBED], static_cast<const float*>(p[V_EMBED_S]), V, D,

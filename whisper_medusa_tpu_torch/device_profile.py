@@ -1,12 +1,13 @@
 """Where the device time goes, on one CUDA card.
 
-    python -m whisper_medusa_tpu_torch.device_profile [--part serving|heads|per_op|step|train|all]
+    python -m whisper_medusa_tpu_torch.device_profile \
+        [--part serving|heads|per_op|step|train|f32|all]
 
-Six parts, all at full whisper-large-v2 width with bf16 weights drawn from
+Seven parts, all at full whisper-large-v2 width with bf16 weights drawn from
 a seed, and the same again on ``model.quantize()`` (int8 serving) for parts
 2, 3, 4 and 6 (``--part serving`` runs parts 1-4 and 6, ``--part heads``
 part 3, ``--part per_op`` part 6, ``--part step`` part 6's per-op steps
-alone, ``--part train`` part 5).
+alone, ``--part train`` part 5, ``--part f32`` part 7 alone).
 Run with another checkout's package first on ``PYTHONPATH`` (``PYTHONPATH=DIR
 python path/to/this/device_profile.py ...``), it profiles that checkout's
 code the same way:
@@ -54,7 +55,14 @@ code the same way:
      synchronize, the device time by kernel, the idle share and the
      launches per layer —
      and whole requests at B=16 as in part 4 (Medusa and vanilla bf16,
-     Medusa int8, Medusa-Block bf16).
+     Medusa int8, Medusa-Block bf16);
+  7. f32 weights (ModelConfig's default dtype, every decode step on the
+     per-op step): whole requests as in part 4, Medusa and vanilla at B=1
+     and Medusa at B=8; the per-op step at (1, 11), (8, 11) and (16, 1)
+     with its launches a layer; one f32 full fine-tune step of base_head as
+     in part 5.  The f32 GEMM (``ffma_gemm_kernel``, and in older builds its
+     ``ffma_combine_kernel``) and K1's f32 mode (``attention_f32_kernel``)
+     are rows of each table.
 
 Kernels are listed by name without their template arguments, so PyTorch's
 elementwise kernels of one kind share a line.  A kernel's device time is
@@ -488,21 +496,23 @@ def profile_ts_requests(model, mode):
         print(f"  device idle share {1 - total / 1e3 / wall_ms:.3f}")
 
 
-def profile_per_op_step(model, mode):
-    """Part 6: one per-op decoder step over all layers at (8, 11), (16, 1)
-    and (16, 11), from seeded encoder states and inputs, offsets 20."""
+def profile_per_op_step(model, mode, shapes=((8, 11), (16, 1), (16, 11))):
+    """Part 6: one per-op decoder step over all layers at ``shapes`` (B, T),
+    from seeded encoder states and inputs in the model's compute dtype,
+    offsets 20."""
     from whisper_medusa_tpu_torch.models import whisper
 
     p, dims = model.params["whisper"], model.config.dims
     dec = p["decoder"]
+    dt = getattr(torch, model.config.compute_dtype)
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
-    for b, t in ((8, 11), (16, 1), (16, 11)):
+    for b, t in shapes:
         enc = torch.randn((b, dims.max_source_positions, dims.d_model), generator=g,
-                          device="cuda").to(torch.bfloat16)
+                          device="cuda").to(dt)
         cache = whisper.init_cache(p, dims, enc, dims.max_target_positions + 12)
         offsets = torch.full((b,), 20, dtype=torch.int32, device="cuda")
-        x = torch.randn((b, t, dims.d_model), generator=g, device="cuda").to(torch.bfloat16)
+        x = torch.randn((b, t, dims.d_model), generator=g, device="cuda").to(dt)
         run = lambda: whisper.decoder_layers_ops(
             dec["layers"], dec["ln_post"], x, cache.self_k, cache.self_v, cache.cross_k,
             cache.cross_v, offsets, None, dims.max_source_positions,
@@ -531,7 +541,11 @@ K9_KERNELS = {"bfloat16": ("bwd_rows_kernel", "bwd_main_kernel", "bwd_cast_kerne
                           "bwd_sum_f32_kernel")}
 
 
-def profile_training(b=2, t=224):
+TRAIN_RECIPES = (("Medusa-Block recipe", "medusa_block", "whisper"),
+                 ("full fine-tune", "base_head", None))
+
+
+def profile_training(b=2, t=224, dtypes=tuple(K9_KERNELS), recipes=TRAIN_RECIPES):
     """Part 5: one Medusa-Block recipe step (parts_to_freeze="whisper") and
     one full fine-tune step of base_head, bf16 then f32 weights, each timed
     and profiled after a warm-up step on the same batch."""
@@ -544,9 +558,7 @@ def profile_training(b=2, t=224):
     feats = torch.from_numpy(rng.standard_normal(
         (b, dims.num_mel_bins, dims.num_frames)).astype(np.float32)).cuda()
     labels = rng.integers(0, 50257, size=(b, t))
-    for dtype, (name, variant, policy) in itertools.product(
-            K9_KERNELS, (("Medusa-Block recipe", "medusa_block", "whisper"),
-                         ("full fine-tune", "base_head", None))):
+    for dtype, (name, variant, policy) in itertools.product(dtypes, recipes):
         cfg = ModelConfig(dims=dims, medusa=MedusaConfig(medusa_heads_type=variant),
                           param_dtype=dtype, compute_dtype=dtype)
         params = bridge.from_random(cfg, seed=SEED, device="cuda")
@@ -572,6 +584,29 @@ def profile_training(b=2, t=224):
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del params, state, step, run
         torch.cuda.empty_cache()
+
+
+def profile_f32():
+    """Part 7: an f32 large-v2 model (ModelConfig's default dtype, 10
+    base_head heads N(0, 0.02) from a generator of their own, as
+    chip_smoke.py draws them): Medusa and vanilla requests at B=1, Medusa at
+    B=8, the per-op step at (1, 11), (8, 11) and (16, 1); then one f32 full
+    fine-tune step."""
+    from whisper_medusa_tpu_torch.config import WHISPER_PRESETS, MedusaConfig, ModelConfig
+    from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+
+    dims = WHISPER_PRESETS["large-v2"]
+    cfg = ModelConfig(dims=dims, medusa=MedusaConfig(medusa_hidden_size=dims.d_model))
+    model = WhisperMedusaModel.from_random(cfg, seed=SEED)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 1)
+    model.params["medusa"]["heads"]["w"].normal_(0.0, 0.02, generator=g)
+    profile_requests(model, cfg.compute_dtype, batches=(1,))
+    profile_requests(model, cfg.compute_dtype, (("medusa", {}),), batches=(8,))
+    profile_per_op_step(model, cfg.compute_dtype, ((1, 11), (8, 11), (16, 1)))
+    del model
+    torch.cuda.empty_cache()
+    profile_training(dtypes=("float32",), recipes=TRAIN_RECIPES[1:])
 
 
 def profile_heads(model, qmodel):
@@ -604,8 +639,8 @@ def main(argv=None):
     from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--part", choices=("all", "serving", "heads", "per_op", "step", "train"),
-                        default="all")
+    parser.add_argument("--part", choices=("all", "serving", "heads", "per_op", "step", "train",
+                                           "f32"), default="all")
     part = parser.parse_args(argv).part
     if not torch.cuda.is_available():
         raise SystemExit("device_profile needs a CUDA card")
@@ -614,6 +649,9 @@ def main(argv=None):
     print(f"gpu: {smi.stdout.strip()}; torch {torch.__version__}")
     if part == "train":
         profile_training()
+        return
+    if part == "f32":
+        profile_f32()
         return
     cfg = ModelConfig(dims=WHISPER_PRESETS["large-v2"], medusa=MedusaConfig(),
                       param_dtype="bfloat16", compute_dtype="bfloat16")

@@ -1,6 +1,7 @@
 """Time this checkout's K1, K6, K8, K10, K7, K3, K2, K11, K5, K4,
-``wm_head_rows``, K3's f32 mode and K9's f32 mode against another
-checkout's build of them, on one CUDA card, in turns.
+``wm_head_rows``, K3's and K9's f32 modes, K1's f32 mode and the f32 GEMM
+(alone, and inside K11, ``wm_head_rows`` and K4's stage A at f32) against
+another checkout's build of them, on one CUDA card, in turns.
 
     python -m whisper_medusa_tpu_torch.kernel_ab --other DIR [--only K4K5,head_rows]
 
@@ -20,9 +21,11 @@ tied-embedding stream of K3 and K7 (``nt_stream_kernel<MT, W8>``) — is
 compared between the builds (``cuobjdump -sass``), instruction for
 instruction, and whether it is the same is printed (the f32 and W8A32
 modes are kernels of their own beside them); then every other function of
-the library outside K3's and K9's f32 kernels (the f32 and W8A32 GEMMs and
-combines, ``ffma_tile``'s other users, K4 / K5's f32 stream, the f32 and
-W8A32 attention kernels) is compared by name the same way.  Then:
+the library outside the kernels a build may change (``_CHANGED``: K1's f32
+kernel and the f32 GEMM, with the kernels they replaced; K3's and K9's f32
+kernels, the W8A32 GEMM and its combine, ``ffma_tile``'s other users, K4 /
+K5's f32 stream and the W8A32 attention kernels stay held) is compared by
+name the same way.  Then:
 
   * K1, ``wm_attention_fwd``, at (1, 20, 1500, 64) and (8, 20, 1500, 64),
     the encoder's self-attention at B=1 and B=8;
@@ -80,7 +83,22 @@ W8A32 attention kernels) is compared by name the same way.  Then:
     224^2) causal, (2, 20, 224 x 1500) and (2, 20, 1500^2) and the smoke's
     three off-path cases, from K1 f32's output and log-sum-exp, beside the
     SDPA f32 backward (dK and dV bitwise equal between the builds or not,
-    printed; a build whose entry takes the dQ partials gets the scratch).
+    printed; a build whose entry takes the dQ partials gets the scratch);
+  * K1's f32 mode, ``wm_attention_fwd_f32``, at the smoke's six ``K1_F32``
+    shapes (the encoder at B=1 and B=8, the capture pass's T = 67 causal and
+    T x 1500, training's 224^2 causal, a ragged kv_len), each build within
+    1e-4 + 1e-4 |y| of attention_plain and its log-sum-exp within 1e-3,
+    beside SDPA in f32 (TF32 off; device ms);
+  * the f32 GEMM, ``gemm_f32``, at M = 1, 11, 88 and 176 through 1280 x
+    1280, 1280 x 5120 and 5120 x 1280 with a bias, each build within 1e-4 +
+    1e-4 |y| of ``torch.addmm`` in f32 (TF32 off), beside addmm's device
+    time; K11's f32 mode at M = 11, 88 and 176 (1280, 5120); the f32 head
+    rows (``head_rows_kernel`` on f32 heads: head 0 x 88, 10 heads x 8,
+    11 x 11, the L2 flushed) and K4's f32 mode at R = 121 with its stage A
+    (``ffma_gemm_kernel`` and, in older builds, ``ffma_combine_kernel``) by
+    name.  Each through its checkout's own ``ops/decode_ops.py`` /
+    ``ops/verify.py`` (the verify module's GEMM wrapper its own checkout's),
+    so a build's scratch allocations count.
 
 Each shape runs in the order other, this, this, other; each turn prints the
 median of 20 calls between CUDA events (``device_profile._cuda_ms``) and the
@@ -127,6 +145,18 @@ K9F32_CASES = (((2, 20, 224, 224), 224, True), ((2, 20, 224, 1500), 1500, False)
                ((2, 20, 1500, 1500), 1500, False), ((1, 4, 300, 300), 257, True),
                ((1, 3, 77, 300), 299, False), ((1, 2, 130, 64), 64, True))
 K2_ROWS = ((1, 11), (8, 11), (8, 1))
+# K1 f32: the smoke's K1_F32 shapes ((B, H, Sq, Skv), kv_len, causal).
+K1F32_CASES = (((1, 20, 1500, 1500), 1500, False), ((8, 20, 1500, 1500), 1500, False),
+               ((1, 20, 67, 67), 67, True), ((1, 20, 67, 1500), 1500, False),
+               ((2, 20, 224, 224), 224, True), ((1, 4, 300, 300), 257, False))
+# The f32 GEMM: the per-op step's rows (B=1 vanilla and Medusa, B=8, B=16)
+# through its three weight shapes; K11 f32's rows; the f32 head rows' (first
+# head, last head + 1, M) and K4 f32's heads x nodes.
+GEMM32_ROWS = (1, 11, 88, 176)
+GEMM32_SHAPES = ((1280, 1280), (1280, 5120), (5120, 1280))
+K11F32_ROWS = (11, 88, 176)
+HEAD32_SHAPES = ((0, 1, 88), (1, 11, 8), (0, 11, 11))
+GEMM32_KERNELS = ("ffma_gemm_kernel", "ffma_combine_kernel")
 K11_SHAPES = ((1280, 5120, (16, 88, 176)), (384, 1536, (11, 88)))
 K5_ROWS = (8, 88, 176, 1024)
 
@@ -241,13 +271,12 @@ def _sass_same(all_funcs):
               flush=True)
 
 
-# The kernels a build may change, by name: K3's f32 mode (ffma_stream.cuh's
-# stream, and the NT-tile kernel it replaced) and K9's f32 mode (its
-# kernels before and after the one-pass redesign).  Every other function of
-# the library is held to the other build's SASS by _sass_rest.
-_CHANGED = re.compile(r"ffma_stream_kernel|logits_f32_kernel|attention_bwd_f32_kernel|"
-                      r"attention_bwd_kv_f32_kernel|attention_bwd_q_f32_kernel|"
-                      r"bwd_sum_f32_kernel")
+# The kernels a build may change, by name: K1's f32 mode and the f32 GEMM
+# (ffma_gemm.cuh's weight stream, and the GEMM + combine pair it replaced;
+# the W8A32 GEMM, ffma_gemm8_kernel, and its combine stay held).  Every
+# other function of the library (K3's and K9's f32 kernels among them) is
+# held to the other build's SASS by _sass_rest.
+_CHANGED = re.compile(r"attention_f32_kernel|ffma_gemm_kernel|ffma_combine_kernel")
 
 
 def _all_sass(so_path):
@@ -271,18 +300,19 @@ def _all_sass(so_path):
 
 
 def _sass_rest(funcs):
-    """Print whether every function of the library outside _CHANGED (the
-    f32 GEMMs and their combines, ffma_tile's other users, the W8A32 and
-    f32 attention kernels, and the families of _HELD) that both builds have
-    is instruction for instruction the same, the names only one build has
-    (a source that stopped including a header loses the unused kernels it
-    instantiated), and the changed kernels each build has."""
+    """Print whether every function of the library outside _CHANGED (K3's
+    and K9's f32 kernels, the W8A32 GEMM and its combine, ffma_tile's other
+    users, the W8A32 attention kernels, and the families of _HELD) that
+    both builds have is instruction for instruction the same, the names
+    only one build has (a source that stopped including a header loses the
+    unused kernels it instantiated), and the changed kernels each build
+    has."""
     held = {who: {n for n in f if not _CHANGED.search(n)} for who, f in funcs.items()}
     both = sorted(held["this"] & held["other"])
     differ = [n for n in both if funcs["this"][n] != funcs["other"][n]]
     for n in differ[:5]:
         print(f"  differs: {n}", flush=True)
-    print(f"SASS of every function outside K3 f32 and K9 f32 in both builds: "
+    print(f"SASS of every function outside the changed kernels in both builds: "
           f"{len(both) - len(differ)} of {len(both)} names the same instruction for "
           f"instruction ({sum(len(funcs['this'][n]) for n in both)} functions here)"
           + (f"; {len(differ)} differ" if differ else ""), flush=True)
@@ -292,7 +322,7 @@ def _sass_rest(funcs):
             print(f"  only in the {who} build: {len(only)}: {only}", flush=True)
     for who in ("this", "other"):
         mine = [n for n in funcs[who] if _CHANGED.search(n)]
-        print(f"K3 f32 / K9 f32 kernels in the {who} build: {mine}", flush=True)
+        print(f"changed kernels in the {who} build: {mine}", flush=True)
 
 
 def _other_ops(root: str, name: str, lib):
@@ -843,12 +873,155 @@ def _k2(root, libs, g):
 
 
 
+def _close32(y, ref):
+    return bool(((y - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+
+
+def _k1f32(libs, g):
+    """K1's f32 mode, ``wm_attention_fwd_f32``, at K1F32_CASES through each
+    build's C entry on the same inputs and output buffers, beside SDPA in
+    f32 (TF32 off).  Each build within 1e-4 + 1e-4 |y| of attention_plain,
+    its log-sum-exp within 1e-3 of attention_lse_plain; whether the builds'
+    outputs are bitwise equal is printed."""
+    from whisper_medusa_tpu_torch.ops import attention as A
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for (b, h, sq, skv), kv_len, causal in K1F32_CASES:
+        q = torch.randn((b, h, sq, 64), generator=g, device="cuda") * 0.125
+        k, v = (torch.randn((b, h, skv, 64), generator=g, device="cuda") for _ in range(2))
+        outs = {who: (torch.empty_like(q), torch.empty((b, h, sq), device="cuda"))
+                for who in libs}
+        calls = {who: (lambda mod=mod, o=outs[who]: mod.launch(
+            "wm_attention_fwd_f32", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o[0].data_ptr(), o[1].data_ptr(), b, h, sq, skv, 64, kv_len, int(causal)))
+            for who, mod in libs.items()}
+        for fn in calls.values():
+            fn()
+        ref, lref = A.attention_plain(q, k, v, kv_len, causal), A.attention_lse_plain(
+            q, k, kv_len, causal)
+        errs = {who: (float((o - ref).abs().max()), float((lse - lref).abs().max()))
+                for who, (o, lse) in outs.items()}
+        if any(not _close32(o, ref) or e[1] > 1e-3 for (o, _), e in zip(outs.values(),
+                                                                         errs.values())):
+            raise AssertionError(f"K1 f32 ({b},{h},{sq},{skv}): a build is off the plain "
+                                 f"version: {errs}")
+        same = torch.equal(outs["this"][0], outs["other"][0])
+        lib = "none"
+        if kv_len == skv and (not causal or sq == skv):
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, scale=1.0, is_causal=causal)
+            lib = f"{sum(us for us, _ in _by_kernel(sdpa, 20).values()) / 1e3:.4f} ms"
+        _turns(f"K1 f32 attention ({b},{h},{sq}x{skv},64) kv_len {kv_len} causal {causal} (SDPA "
+               f"f32: device {lib}), max error this {errs['this'][0]:.2e} (lse "
+               f"{errs['this'][1]:.2e}) other {errs['other'][0]:.2e} (lse "
+               f"{errs['other'][1]:.2e}), builds bitwise equal {same}", calls)
+        del outs, calls
+
+
+def _f32_mods(root, libs):
+    """Each build's ``ops/decode_ops.py`` and ``ops/verify.py`` (the other
+    checkout's verify module calling the other checkout's decode_ops, so
+    that its f32 head rows and its K4 scratch are its own)."""
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    odo = _other_ops(root, "decode_ops", libs["other"])
+    ovf = _other_ops(root, "verify", libs["other"])
+    ovf.decode_ops_mod = odo
+    return {"other": (odo, ovf), "this": (DO, VF)}
+
+
+def _gemm32(root, libs, g):
+    """The f32 GEMM through each build's ``decode_ops.gemm_f32`` at
+    GEMM32_ROWS x GEMM32_SHAPES (seeded N(0, 0.02) weights and bias, N(0, 1)
+    rows), beside ``torch.addmm`` in f32, TF32 off (device ms), each build
+    within 1e-4 + 1e-4 |y| of addmm; then K11's f32 mode through each
+    build's ``ffn_decode_kernel`` at K11F32_ROWS, each within 1e-4 + 1e-4
+    |y| of ffn_decode_plain."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mods = _f32_mods(root, libs)
+    for k, n in GEMM32_SHAPES:
+        w = torch.randn((k, n), generator=g, device="cuda") * 0.02
+        bias = torch.randn((n,), generator=g, device="cuda") * 0.02
+        for m in GEMM32_ROWS:
+            x = torch.randn((m, k), generator=g, device="cuda")
+            calls = {who: (lambda do=do: do.gemm_f32(x, w, bias))
+                     for who, (do, _) in mods.items()}
+            ref = torch.addmm(bias, x, w)
+            ys = {who: fn() for who, fn in calls.items()}
+            if any(not _close32(y, ref) for y in ys.values()):
+                raise AssertionError(f"f32 GEMM M={m} {k}x{n}: a build is off addmm")
+            diff = float((ys["this"] - ys["other"]).abs().max())
+            lib = sum(us for us, _ in _by_kernel(lambda: torch.addmm(bias, x, w), 20).values())
+            _turns(f"f32 GEMM gemm_f32 M={m} {k}x{n} (addmm f32: device {lib / 1e3:.4f} ms), "
+                   f"builds differ by {diff:.2e}", calls, part=GEMM32_KERNELS)
+    d, f = 1280, 5120
+    w1, b1, w2, b2 = (torch.randn(s, generator=g, device="cuda") * 0.02
+                      for s in ((d, f), (f,), (f, d), (d,)))
+    for m in K11F32_ROWS:
+        x = torch.randn((m, d), generator=g, device="cuda")
+        calls = {who: (lambda do=do: do.ffn_decode_kernel(x, w1, b1, w2, b2))
+                 for who, (do, _) in mods.items()}
+        ref = mods["this"][0].ffn_decode_plain(x, w1, b1, w2, b2)
+        ys = {who: fn() for who, fn in calls.items()}
+        if any(not _close32(y, ref) for y in ys.values()):
+            raise AssertionError(f"K11 f32 M={m}: a build is off ffn_decode_plain")
+        _turns(f"K11 f32 ffn_decode M={m} D={d} F={f}, builds differ by "
+               f"{float((ys['this'] - ys['other']).abs().max()):.2e}", calls,
+               part=GEMM32_KERNELS)
+
+
+def _heads32(root, libs, g):
+    """The f32 head rows (``wm_head_rows``' f32 mode) through each build's
+    ``verify.head_rows_kernel`` at HEAD32_SHAPES on 11 seeded f32 heads (N(0,
+    0.02)), the L2 flushed before each call, beside the baddbmm / silu / add
+    yardstick; then K4's f32 mode at R = 121 (11 heads x 11 nodes, f32
+    embedding N(0, 0.05) at large-v2's (51865, 1280)) with its stage A's
+    kernels by name.  Rows within 1e-4 + 1e-4 |y| of head_rows_plain; K4's
+    statistics as _agree holds them."""
+    mods = _f32_mods(root, libs)
+    v, d, eos = 51865, 1280, 50257
+    hw = torch.randn((11, d, d), generator=g, device="cuda") * 0.02
+    hb = torch.randn((11, d), generator=g, device="cuda") * 0.02
+    for lo, hi, m in HEAD32_SHAPES:
+        src = torch.randn((m, d), generator=g, device="cuda")
+        w, b = hw[lo:hi], hb[lo:hi]
+        calls = {who: (lambda vf=vf: vf.head_rows_kernel(src, w, b))
+                 for who, (_, vf) in mods.items()}
+        ref = mods["this"][1].head_rows_plain(src, w, b)
+        ys = {who: fn() for who, fn in calls.items()}
+        if any(not _close32(y, ref) for y in ys.values()):
+            raise AssertionError(f"f32 head rows heads {lo}..{hi - 1} M={m}: a build is off")
+        yard = lambda: src[None] + torch.nn.functional.silu(
+            torch.baddbmm(b[:, None, :], src[None].expand(b.shape[0], -1, -1), w))
+        _turns(f"head_rows f32 heads {lo}..{hi - 1} M={m} (baddbmm / silu / add: device "
+               f"{_cold_ms(yard):.4f} ms, L2 flushed), builds differ by "
+               f"{float((ys['this'] - ys['other']).abs().max()):.2e}", calls,
+               part=GEMM32_KERNELS, cold=True)
+    emb = torch.randn((v, d), generator=g, device="cuda") * 0.05
+    masks = torch.zeros((2, v), dtype=torch.int8, device="cuda")
+    n = 11
+    hid = torch.randn((1, n, d), generator=g, device="cuda")
+    pos = (5 + torch.arange(n, device="cuda")[None, :]
+           + torch.arange(11, device="cuda")[:, None]).reshape(-1).to(torch.int32)
+    gcol = torch.randint(0, v, (11 * n,), generator=g, device="cuda").to(torch.int32)
+    kw = dict(identity0=False, begin_index=4, eos_id=eos, decay=(9, 1.2))
+    calls = {who: (lambda vf=vf: vf.verify_hidden_kernel(hid, hid, hw, hb, emb, pos, gcol,
+                                                         masks, **kw))
+             for who, (_, vf) in mods.items()}
+    note = _agree("K4 f32 R=121", calls["this"](), calls["other"]())
+    _turns(f"K4 f32 verify_hidden R=121 (stage A: the f32 GEMM), {note}", calls,
+           part=GEMM32_KERNELS)
+
+
 # The sections main runs, in its default order; each draws its inputs from
 # the one seeded generator, so a run of a subset gets other (seeded) inputs.
 SECTIONS = {"K1": _k1, "K6": _k6, "K8": _k8, "K10": _k10,
             "K7": lambda root, libs, g: _k7(libs, g), "K3": lambda root, libs, g: _k3(libs, g),
             "K2": _k2, "K11": _k11, "K4K5": _verify, "head_rows": _head_rows,
-            "K3f32": lambda root, libs, g: _k3f32(libs, g), "K9f32": _k9f32}
+            "K3f32": lambda root, libs, g: _k3f32(libs, g), "K9f32": _k9f32,
+            "K1f32": lambda root, libs, g: _k1f32(libs, g), "GEMMf32": _gemm32,
+            "heads32": _heads32}
 
 if __name__ == "__main__":
     main()

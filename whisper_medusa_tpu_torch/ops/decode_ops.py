@@ -76,19 +76,23 @@ computes its slice's scores, max, sum of exp and unnormalised PV, and a
 combine kernel rescales the slices to the global max and adds them in
 slice order (P is not rounded, as the TPU kernel's P at f32).  K11's f32
 mode (``wm_ffn_decode_f32``) and the f32 head rows and projections
-(``wm_gemm_f32``, :func:`gemm_f32`) run ``csrc/ffma.cuh``'s f32 GEMM: a
-CTA per (64 columns, K slice, head, pass of up to 128 rows), the slices
-from (K, N) alone (:func:`f32_gemm_plan`) added in slice order with the
-bias and the epilogue by a second kernel, so a row's bits do not depend on
-M.  The f32 wrappers take any M in one call.
+(``wm_gemm_f32``, :func:`gemm_f32`) run ``csrc/ffma_gemm.cuh``'s f32
+weight stream, one launch a product: a CTA per (64 columns, K slice, head,
+group of up to 4 passes of up to 32 rows), the slices from (K, N) alone
+(:func:`f32_gemm_plan`) one thread-block cluster, added in rank order
+through distributed shared memory with the bias and the epilogue in the
+same kernel (no scratch), so a row's bits do not depend on M.  The f32
+wrappers take any M in one call.
 
 W8A32 (the int8 copy of an f32 model, whose per-op step is JAX's scan at
 f32 rows): K10's W8A32 mode (``wm_cross_decode_w8a32``) is the f32 body
 (``csrc/ffma_attn.cuh``) on int8 cross K/V, each value converted exactly,
 a score times its key's scale before the mask and a probability times its
 value's scale before the PV product, as :func:`cross_attention_decode_plain`
-(counted in ``w8a32_cross_launches``); :func:`gemm_w8a32_launch` is the
-f32 GEMM on int8 weights (the W8A32 head rows).  The step's projections
+(counted in ``w8a32_cross_launches``); :func:`gemm_w8a32_launch` is
+``csrc/ffma.cuh``'s GEMM on int8 weights (the W8A32 head rows), a CTA per
+(64 columns, K slice, head, pass of up to 128 rows) into a partials
+scratch and a combine kernel (:func:`w8a32_gemm_plan`).  The step's projections
 and FFN stay on K6 (JAX's ``qmm`` rounds the rows to bf16), and its
 self-attention reads the bf16-dequantized slab widened to f32 through
 K10's f32 mask mode (``models/whisper.py::_attend_ops``).
@@ -133,6 +137,17 @@ w8a32_cross_launches = 0  # K10's W8A32 mode (f32 queries, int8 K/V)
 F32_COLS = 64            # csrc/ffma.cuh FF_COLS: output columns a CTA
 F32_KC = 16              # csrc/ffma.cuh FF_KC: K a staged chunk holds
 F32_WAVE = 264           # csrc/ffma.cuh FF_WAVE: CTAs the K slices aim at
+GEMM32_COLS = 64         # csrc/ffma_gemm.cuh FG_COLS: W columns a CTA
+GEMM32_KC = 32           # csrc/ffma_gemm.cuh FG_KC: K a stage holds
+GEMM32_KG = 8            # csrc/ffma_gemm.cuh FG_KG: k groups (4 k of a chunk each)
+GEMM32_MAX_RQ = 8        # csrc/ffma_gemm.cuh FG_MAX_RQ: 4-row groups a pass (32 rows)
+GEMM32_MAX_PG = 4        # csrc/ffma_gemm.cuh FG_MAX_PG: passes a CTA takes
+GEMM32_CTAS = 132        # csrc/ffma_gemm.cuh FG_CTAS: CTAs the K slices aim for
+GEMM32_WAVE = 264        # csrc/ffma_gemm.cuh FG_WAVE: CTAs the pass groups aim for
+GEMM32_MAX_SLICES = 4    # csrc/ffma_gemm.cuh FG_MAX_SLICES: the CTAs of one cluster
+GEMM32_RING = 61440      # csrc/ffma_gemm.cuh FG_RING: ring bytes a CTA
+GEMM32_PRODUCER_RQ = 4   # csrc/ffma_gemm.cuh FG_PRODUCER_RQ: a producer warp to 16 rows
+GEMM32_RP = 68           # csrc/ffma_gemm.cuh FG_RP: f32 pitch of the sums' rows
 F32_PART_ROW = HEAD_DIM + 2   # csrc/decode_ops.cu DF_ROW: a K10 f32 slice's (O, max, sum)
 EPI_BIAS, EPI_SILU_RESID = 0, 4   # csrc/common.cuh Epi: the f32 GEMM's epilogues here
 
@@ -413,12 +428,44 @@ def ffn_plan(m: int, d: int, f: int):
 
 
 def f32_gemm_plan(m: int, k: int, n: int, nh: int = 1):
-    """The f32 GEMM's launch (csrc/ffma.cuh ``ff_gemm``) over M rows through
-    (nh, K, N) weights: the K slice (``ff_gemm_slice``: enough slices for
-    264 CTAs over the N / 64 column tiles, a multiple of 16 deep) and the
-    slices, from (K, N) alone; the pass's 16-row groups and the passes
-    (``logits.f32_row_tiles``), the grid, and the floats of the (nh,
-    slices, M, N) partials scratch."""
+    """The f32 GEMM's launch (csrc/ffma_gemm.cuh ``fg_launch``) over M rows
+    through (nh, K, N) weights: the K slices (``fg_slices``: enough for 132
+    CTAs over the N / 64 column tiles, at most 4, one cluster) and their
+    32-deep chunk ranges (wgemm.cuh's ``gemm_slice_begin`` cut, as
+    ``megastep._slice_ranges``), from (K, N) alone; the passes of up to 32
+    rows and the rows R of each (``fg_passes``, ``fg_rq``), from M alone;
+    the passes a CTA takes, at most 4 and fewer where that brings the
+    launch towards 264 CTAs (``fg_pg``), and the groups of them
+    (``fg_groups``); the ring's stages, a CTA's threads (a producer warp
+    beside the eight product warps up to 16 rows a pass, ``fg_threads``),
+    its shared memory and the grid.  Only the slices and their chunks enter
+    a row's arithmetic; the passes and groups do not."""
+    chunks, tiles = k // GEMM32_KC, n // GEMM32_COLS
+    slices = max(1, min(-(-GEMM32_CTAS // tiles), GEMM32_MAX_SLICES, chunks))
+    passes = -(-m // (4 * GEMM32_MAX_RQ))
+    rq = -(-(-(-m // passes)) // 4)
+    groups = -(-passes // GEMM32_MAX_PG)
+    fill = -(-GEMM32_WAVE // (tiles * slices * nh))
+    if groups < fill:
+        groups = min(fill, passes)
+    pg = -(-passes // groups)
+    groups = -(-passes // pg)
+    stage = GEMM32_KC * GEMM32_COLS * 4 + -(-4 * rq // 8) * 8 * GEMM32_KC * 4
+    stages = GEMM32_RING // stage
+    threads = 32 * (8 + (rq <= GEMM32_PRODUCER_RQ))
+    smem = 1024 + stages * stage + (1 + pg) * 4 * rq * GEMM32_RP * 4 + 16 * stages
+    return dict(slices=slices, ranges=megastep_mod._slice_ranges(chunks, slices),
+                passes=passes, rows=4 * rq, groups=groups, pg=pg, stage=stage,
+                stages=stages, threads=threads, smem=smem, grid=(slices, tiles * groups, nh))
+
+
+def w8a32_gemm_plan(m: int, k: int, n: int, nh: int = 1):
+    """The W8A32 GEMM's launch (csrc/ffma.cuh ``ff_gemm8``) over M rows
+    through nh int8 (K, N) weights: the K slice (``ff_gemm_slice``: enough
+    slices for 264 CTAs over the N / 64 column tiles, a multiple of 16
+    deep) and the slices, from (K, N) alone; the pass's 16-row groups and
+    the passes (``logits.f32_row_tiles``), the grid, and the floats of the
+    (nh, slices, M, N) partials scratch."""
     from whisper_medusa_tpu_torch.ops import logits as logits_mod
 
     tiles = n // F32_COLS
@@ -432,38 +479,29 @@ def f32_gemm_plan(m: int, k: int, n: int, nh: int = 1):
                 grid=(tiles * passes, slices, nh), part=nh * slices * m * n)
 
 
-def f32_ffn_plan(m: int, d: int, f: int):
-    """K11's f32 mode at M rows through (D, F) and (F, D) weights: fc1's and
-    fc2's :func:`f32_gemm_plan` and the floats of the partials scratch the
-    two share."""
-    fc1, fc2 = f32_gemm_plan(m, d, f), f32_gemm_plan(m, f, d)
-    return dict(fc1=fc1, fc2=fc2, part=max(fc1["part"], fc2["part"]))
-
-
 def gemm_f32_launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], epi: int,
                     resid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch ``wm_gemm_f32``: x (M, K) f32, w (nh, K, N) f32, b (nh, N) f32
     or None; resid (M, N) for EPI_SILU_RESID -> (nh, M, N) f32
-    ``epi(x @ w + b)``.  The caller counts the launch."""
+    ``epi(x @ w + b)``, one launch and no scratch.  The caller counts the
+    launch."""
     cuda_lib.require_cuda("gemm_f32", x, w, dtype=torch.float32)
     extra = [t for t in (b, resid) if t is not None]
     if extra:
         cuda_lib.require_cuda("gemm_f32", *extra, dtype=torch.float32, device=x.device)
     m, k = x.shape
     nh, _, n = w.shape
-    if (k % F32_KC or n % F32_COLS or w.shape[1] != k
+    if (k % GEMM32_KC or n % GEMM32_COLS or w.shape[1] != k
             or (b is not None and b.shape != (nh, n))
             or (resid is not None and resid.shape != (m, n))):
-        raise ValueError(f"gemm_f32 takes K % {F32_KC} == 0, N % {F32_COLS} == 0, bias "
+        raise ValueError(f"gemm_f32 takes K % {GEMM32_KC} == 0, N % {GEMM32_COLS} == 0, bias "
                          f"(nh, N) and resid (M, N); got x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}")
-    plan = f32_gemm_plan(m, k, n, nh)
     out = torch.empty((nh, m, n), dtype=torch.float32, device=x.device)
-    part = torch.empty((plan["part"],), dtype=torch.float32, device=x.device)
     cuda_lib.launch("wm_gemm_f32", x.device, x.data_ptr(), w.data_ptr(),
                     None if b is None else b.data_ptr(),
-                    None if resid is None else resid.data_ptr(), out.data_ptr(),
-                    part.data_ptr(), m, k, n, nh, epi)
+                    None if resid is None else resid.data_ptr(), out.data_ptr(), m, k, n, nh,
+                    epi)
     return out
 
 
@@ -487,7 +525,7 @@ def gemm_w8a32_launch(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
         raise ValueError(f"gemm_w8a32 takes K % {F32_KC} == 0, N % {F32_COLS} == 0, scales "
                          f"and bias (nh, N), resid (M, N); got x {tuple(x.shape)}, w "
                          f"{tuple(wq.shape)}")
-    plan = f32_gemm_plan(m, k, n, nh)
+    plan = w8a32_gemm_plan(m, k, n, nh)
     out = torch.empty((nh, m, n), dtype=torch.float32, device=x.device)
     part = torch.empty((plan["part"],), dtype=torch.float32, device=x.device)
     cuda_lib.launch("wm_gemm_w8a32", x.device, x.data_ptr(), wq.data_ptr(), ws.data_ptr(),
@@ -558,17 +596,14 @@ def ffn_decode_kernel(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 def _ffn_decode_f32(x, w1, b1, w2, b2) -> torch.Tensor:
     """K11's f32 mode over all M rows in one call: fc1 + GELU into an (M, F)
-    f32 scratch, then fc2 + bias, each on the f32 GEMM."""
+    f32 scratch, then fc2 + bias, each one launch of the f32 GEMM."""
     global f32_ffn_launches
     m, d = x.shape
     f = w1.shape[1]
-    plan = f32_ffn_plan(m, d, f)
     h = torch.empty((m, f), dtype=torch.float32, device=x.device)
-    part = torch.empty((plan["part"],), dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     cuda_lib.launch("wm_ffn_decode_f32", x.device, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                    w2.data_ptr(), b2.data_ptr(), h.data_ptr(), y.data_ptr(), part.data_ptr(),
-                    m, d, f)
+                    w2.data_ptr(), b2.data_ptr(), h.data_ptr(), y.data_ptr(), m, d, f)
     f32_ffn_launches += 1
     return y
 

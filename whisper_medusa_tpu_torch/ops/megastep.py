@@ -448,7 +448,7 @@ def _launch_w8a32(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross_
                   self_s, block, scales, block_scales):
     """Launch K2's W8A32 mode (``wm_megastep_w8a32``) on operands
     :func:`megastep_kernel` checked: its f32 scratch (the GEMM's partials,
-    the largest ``decode_ops.f32_gemm_plan`` of its projections, q/k/v as 3
+    the largest ``decode_ops.w8a32_gemm_plan`` of its projections, q/k/v as 3
     jobs; the attention's (B, H, C, 16, 66) slices, C the larger of the self
     and cross splits) and the chunk bits; (pre_norm, hidden, block_hidden or
     None), each (B, T, D) f32."""
@@ -461,7 +461,7 @@ def _launch_w8a32(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross_
     f = dec_layers["fc1_b"].shape[-1]
     dev = x.device
     m = b * t
-    part = max(decode_ops.f32_gemm_plan(m, k, n, nz)["part"]
+    part = max(decode_ops.w8a32_gemm_plan(m, k, n, nz)["part"]
                for k, n, nz in ((d, d, 3), (d, d, 1), (d, f, 1), (f, d, 1)))
     c = max(decode_ops.cluster_split(s_len)[0], decode_ops.cluster_split(s_enc)[0])
     f32 = dict(dtype=torch.float32, device=dev)

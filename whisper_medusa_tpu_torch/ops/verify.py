@@ -69,9 +69,9 @@ f32 only as TF32).  Stage B is ``verify.cu::vocab_stream_f32_kernel``, a
 CTA per (64-entry vocab tile, pass of up to 128 rows) whose sums feed the
 same ``tile_stats`` epilogue (processors, timestamp rules, the straddling
 tile's split) and the same combine kernels as the bf16 stream; stage A and
-``head_rows`` are ``csrc/ffma.cuh``'s f32 GEMM over the heads, K slices
-from (D, D) alone (``decode_ops.f32_gemm_plan``), so a head row has the
-same bits in K4 and in the two-pass loop, at any M.  W8A32 (the int8 copy
+``head_rows`` are ``csrc/ffma_gemm.cuh``'s f32 weight stream over the
+heads, one launch, K slices from (D, D) alone (``decode_ops.f32_gemm_plan``),
+so a head row has the same bits in K4 and in the two-pass loop, at any M.  W8A32 (the int8 copy
 of an f32 model) rides the same f32 entries: an int8 embedding streams
 through the FFMA tile's W8 operand (each value converted exactly to f32,
 ``s[v]`` on column v's sum before the processors) and int8 heads run stage
@@ -540,12 +540,14 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
                part_f, part_a, mx, lse, am, gth]
     scales = [None if a is None else a.data_ptr() for a in (escale, hscale)]
     ts_ptrs, ts_ints, _split = _ts_tail(ts, 0, r, dev)
-    # One more entry: the f32 mode's stage-A GEMM scratch; the bf16 mode's
-    # staging rows (nh, 192, D) past one stage-A block of source rows (null
-    # within one).
-    if dt == torch.float32:
-        stage = torch.empty((decode_ops_mod.f32_gemm_plan(bn, d, d, nh)["part"],),
+    # One more entry: stage A's partials scratch on int8 heads with f32 rows
+    # (the W8A32 GEMM; f32 heads need none); the bf16 mode's staging rows
+    # (nh, 192, D) past one stage-A block of source rows (null within one).
+    if dt == torch.float32 and hscale is not None:
+        stage = torch.empty((decode_ops_mod.w8a32_gemm_plan(bn, d, d, nh)["part"],),
                             dtype=torch.float32, device=dev)
+    elif dt == torch.float32:
+        stage = None
     elif bn > MAX_SRC_ROWS:
         stage = torch.empty((nh, MAX_SRC_ROWS, d), dtype=dt, device=dev)
     else:
