@@ -190,7 +190,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      against its plain version on the card at the paths' shapes, within
      1e-4 + 1e-4 |x| (K4 / K5: argmax on the rows whose top-2 gap exceeds
      1e-4, the timestamp mode too), every example of a B=8 (K1) or B=16
-     (K10) call bitwise its B=1 call, an M=176 / M=88 call's first rows
+     (K10, at T = 11 and 1, each timed) call bitwise its B=1 call, an M=176 / M=88 call's first rows
      bitwise a small call's (K3, head_rows, K11), K4's statistics bitwise
      K5's over head_rows' rows; P3 on the f32 per-op step (its projections
      on the f32 GEMM); f32 large-v2 requests (Medusa B=1 and B=8, vanilla
@@ -206,9 +206,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (8, 1) with offsets and in block mode, within 1e-4 + 1e-4 |x| of its
      plain version (the written self rows within one int8 step, B=8
      bitwise B=1), 32 layers at cosine >= W8A32_COS_FLOOR with its device
-     time by kernel; K4, head_rows and K5 on the int8 embedding and heads
-     at the f32 checks' sizes, K10's W8A32 mode at (16, 20, 11, 64) x 1500
-     (B=16 bitwise B=1, timed beside f32 SDPA on the dequantized K/V); P3
+     time by kernel and 11 launches a layer (W8A32_PER_LAYER: three norms,
+     six GEMMs, two attentions, no combine); K4, head_rows and K5 on the
+     int8 embedding and heads at the f32 checks' sizes, K10's W8A32 mode at
+     (16, 20, 11, 64) and (16, 20, 1, 64) x 1500 (B=16 bitwise B=1, timed
+     beside f32 SDPA on the dequantized K/V, T = 1 too); the W8A32 GEMM
+     alone at M = 1, 11, 88 through 1280 x 1280, 1280 x 5120 and 5120 x
+     1280 against ``megastep.mm_w8`` (rows bitwise across M, timed beside
+     ``addmm`` on the dequantized copy and the f32 GEMM); P3
      on the per-op step at B=8 and B=16; requests (Medusa and vanilla B=1,
      Medusa B=8, B=16 on the per-op step, Medusa-Block B=1, timestamps B=1)
      with only the W8A32 rows, K1 f32, K10's f32 mask mode and K6 / K7
@@ -249,10 +254,12 @@ The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import collections
 import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -4141,14 +4148,19 @@ def check_f32_cross_decode(g, int8=False):
         got = DO.cross_attention_decode_kernel(q, k, v, kv, *sc)
         what = f"K10 {mode} ({b},20,{t},64) x {s} kv_len {kv}"
         worst = max(worst, _f32_ok(what, got, DO.cross_attention_decode_plain(q, k, v, kv, *sc)))
-        if (b, t) == (16, 11):
+        if b == 16:
             one = lambda a, i: a[i:i + 1].contiguous()
             same = [torch.equal(got[i:i + 1], DO.cross_attention_decode_kernel(
                 one(q, i), one(k, i), one(v, i), kv, *(one(a, i) for a in sc)))
                 for i in range(b)]
             log(f"{what}: each example bitwise its B=1 output: {sum(same)}/{b}")
             require(all(same), f"{what}: a B=1 call differs from its row of the B={b} call")
-            timed = (q, k, v, sc)
+            if t == 11:
+                timed = (q, k, v, sc)
+            else:
+                one_row = lambda: DO.cross_attention_decode_kernel(q, k, v, kv, *sc)
+                log(f"K10 {mode} (16,20,1,64) x 1500 (T = 1: one query row computed): device "
+                    f"{device_ms(one_row):.4f} ms; {SMI}")
     q, k, v, sc = timed
     b, h, t, _ = q.shape
     kern = lambda: DO.cross_attention_decode_kernel(q, k, v, 1500, *sc)
@@ -4192,6 +4204,10 @@ def check_f32_self_decode(g):
             one(q, i), one(k, i), one(v, i), one(off, i), bits)) for i in range(b)]
         log(f"{what}: each example bitwise its B=1 output: {sum(same)}/{b}")
         require(all(same), f"{what}: a B=1 call differs from its row of the B={b} call")
+        if name == "large-v2 vanilla":
+            one_row = lambda: DO.self_attention_decode_kernel(q, k, v, off, bits)
+            log(f"{what} (T = 1: one query row computed): device {device_ms(one_row):.4f} ms; "
+                f"{SMI}")
         if name != "large-v2":
             continue
         kern = lambda: DO.self_attention_decode_kernel(q, k, v, off, bits)
@@ -4421,7 +4437,11 @@ def check_f32_tiny_against_cpu(feat):
 # their bf16 scales within one bf16 ulp (2**-7 relative: a value on a
 # rounding boundary may round to the neighbouring step).
 W8A32_ROWS = ("megastep w8a32", "megastep_block w8a32", "verify_hidden w8a32",
-              "head_rows w8a32", "verify_rows w8a32", "cross_decode w8a32")
+              "head_rows w8a32", "verify_rows w8a32", "cross_decode w8a32", "gemm w8a32")
+# K2 W8A32's launches a layer: three ln_rows_f32_kernel, six GEMMs
+# (ffma_gemm_kernel's int8-weight mode, one launch each) and two attentions
+# (decode_attn_f32_kernel, one cluster launch each); then ln_post.
+W8A32_PER_LAYER = {"ln_rows_f32_kernel": 3, "ffma_gemm_kernel": 6, "decode_attn_f32_kernel": 2}
 W8A32_STEPS = ((11, [7]), (11, [7, 0, 120, 33, 448, 5, 260, 90]),
                (1, [0, 17, 100, 5, 300, 440, 2, 63]))
 # K2 W8A32's 32-layer cosine against its plain step (pre_norm, hidden and
@@ -4603,6 +4623,7 @@ def check_w8a32_megastep_full(model, enc1, enc8, block=None, suffix=""):
                     + ", ".join(f"{k} {ms:.4f}" for k, ms in by_kernel.items())
                     + f"), plain {timed[1]:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}; "
                     f"{cost[0] / 1e9:.3f} GB, {cost[1] / 1e9:.1f} GFLOP); {SMI}")
+                w8a32_launches_per_layer(name, run, cache.self_k.shape[0])
             for k in ("self_k", "self_v", "self_s"):      # continue from the plain cache
                 getattr(cache, k).copy_(ref[k])
         del cache
@@ -4610,6 +4631,81 @@ def check_w8a32_megastep_full(model, enc1, enc8, block=None, suffix=""):
     return kernel_record(name, "whisper_medusa_tpu_torch/csrc/megastep.cu",
                          "whisper_medusa_tpu/ops/megastep.py:342", (MS, counter), None,
                          *timed, None), worst
+
+
+def w8a32_launches_per_layer(name, run, layers):
+    """K2 W8A32's launches in one call of ``run`` over ``layers`` layers:
+    W8A32_PER_LAYER a layer and one more ln_rows_f32_kernel (ln_post), no
+    other kernel of the port (no combine kernel; the wrapper's row buffers
+    are PyTorch's)."""
+    from whisper_medusa_tpu_torch.device_profile import _by_kernel
+
+    count = collections.Counter()
+    for k, (_, n) in _by_kernel(run, 2).items():
+        if k.startswith(("ffma_", "decode_", "ln_rows")):
+            count[re.split(r"<", k)[0]] += n
+    want = {k: n * layers + (k == "ln_rows_f32_kernel") for k, n in W8A32_PER_LAYER.items()}
+    per_layer = (sum(count.values()) - 1) / layers
+    log(f"K2 {name}: {dict(count)} launches a call over {layers} layers: {per_layer:g} a layer "
+        f"(held at {sum(W8A32_PER_LAYER.values())}, every GEMM and attention under "
+        f"programmatic dependent launch)")
+    require(dict(count) == want, f"K2 {name}: launches {dict(count)}, want {want}")
+
+
+# The W8A32 GEMM alone at K2 W8A32's projection shapes: M = B T at (1, 1),
+# (1, 11) and (8, 11), through 1280 x 1280, 1280 x 5120 and 5120 x 1280.
+GEMM_W8_ROWS = (1, 11, 88)
+
+
+def check_w8a32_gemm(g):
+    """The W8A32 GEMM alone (``decode_ops.gemm_w8a32_launch``: the int8 head
+    rows' GEMM, K2 W8A32's projections and K4 W8A32's stage A) against
+    ``megastep.mm_w8`` (the column's scale on the sum, then the bias) within
+    F32_TOL + F32_TOL |x| at GEMM_W8_ROWS x GEMM_F32_SHAPES (seeded N(0,
+    0.02) weights quantized as ``qmm.quantize_array`` does); the first 1
+    and 11 rows of each M=88 call bitwise M=1 and M=11 calls; each shape's
+    device time beside ``torch.addmm`` in f32 on the dequantized copy (TF32
+    off) and the f32 GEMM on it.  Its kernels row is timed at M = 11
+    through 1280 x 1280 (a decode step's projection at B = 1)."""
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+    from whisper_medusa_tpu_torch.ops import megastep as MS
+    from whisper_medusa_tpu_torch.ops import qmm as QM
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "the W8A32 GEMM's yardstick in f32")
+    worst, timed = 0.0, None
+    for k, n in GEMM_F32_SHAPES:
+        wq, ws = QM.quantize_array(_f32(g, k, n, scale=0.02))
+        wd = wq.float() * ws
+        b = _f32(g, n, scale=0.02)
+        w = {"q": wq, "s": ws}
+        gemm = lambda x: DO.gemm_w8a32_launch(x, wq[None], ws[None], b[None], DO.EPI_BIAS)[0]
+        ys = {}
+        for m in GEMM_W8_ROWS:
+            x = _f32(g, m, k)
+            y = gemm(x)
+            worst = max(worst, _f32_ok(f"gemm w8a32 M={m} {k}x{n}", y, MS.mm_w8(x, w, b)))
+            ys[m] = (x, y)
+            kern, lib = lambda: gemm(x), lambda: torch.addmm(b, x, wd)
+            bd = bound(nbytes(x, wq, ws, b, y), 2 * m * k * n, F32_FLOPS)
+            log(f"gemm w8a32 M={m} {k}x{n}: device {device_ms(kern):.4f} ms, addmm f32 on the "
+                f"dequantized copy device {device_ms(lib):.4f} ms, the f32 GEMM on it "
+                f"{device_ms(lambda: DO.gemm_f32(x, wd, b)):.4f} ms, bound {bd[0]:.4f} ms "
+                f"({bd[1]}); {SMI}")
+            if (m, k, n) == (11, 1280, 1280):
+                timed = (x, w, b, y, wd)
+        for m in GEMM_W8_ROWS[:-1]:
+            same = torch.equal(ys[88][1][:m], gemm(ys[88][0][:m].contiguous()))
+            log(f"gemm w8a32 {k}x{n}: the first {m} rows of the M=88 call bitwise an M={m} "
+                f"call: {same}")
+            require(same, f"gemm w8a32 {k}x{n}: M=88 rows differ from an M={m} call")
+    x, w, b, y, wd = timed
+    return kernel_record("gemm w8a32", GEMM_F32_SOURCE, "whisper_medusa_tpu/ops/megastep.py:342",
+                         (DO, "w8a32_gemm_launches"), worst,
+                         cuda_ms(lambda: DO.gemm_w8a32_launch(x, w["q"][None], w["s"][None],
+                                                              b[None], DO.EPI_BIAS)),
+                         cuda_ms(lambda: MS.mm_w8(x, w, b)),
+                         bound(nbytes(x, w["q"], w["s"], b, y), 2 * 11 * 1280 * 1280, F32_FLOPS),
+                         cuda_ms(lambda: torch.addmm(b, x, wd)))
 
 
 W8A32_NEW_TOKENS = 48
@@ -4621,9 +4717,9 @@ NEEDS_W8A32 = {
     "medusa B=1": ("attention f32", "megastep w8a32", "verify_hidden w8a32"),
     "vanilla B=1": ("attention f32", "megastep w8a32", "verify_rows w8a32"),
     f"medusa B={BATCH}": ("attention f32", "megastep w8a32", "head_rows w8a32",
-                          "verify_rows w8a32"),
+                          "verify_rows w8a32", "gemm w8a32"),
     f"medusa B={BATCH16}": ("attention f32", "self_decode f32", "cross_decode w8a32",
-                            "head_rows w8a32", "verify_rows w8a32"),
+                            "head_rows w8a32", "verify_rows w8a32", "gemm w8a32"),
     "medusa_block B=1": ("attention f32", "megastep_block w8a32", "verify_hidden w8a32"),
 }
 
@@ -4703,7 +4799,8 @@ def phase_w8a32(g, kernels, model, feats, feats8):
     log(f"K2 W8A32 32-layer worst cosine against its plain step: {cos:.9f}, block mode "
         f"{cos_b:.9f} (held >= {W8A32_COS_FLOOR})")
     rows = [k2, k2b, check_f32_verify(g, qmodel), check_f32_head_rows(g, qmodel),
-            check_f32_verify_rows(g, qmodel), check_f32_cross_decode(g, int8=True)]
+            check_f32_verify_rows(g, qmodel), check_f32_cross_decode(g, int8=True),
+            check_w8a32_gemm(g)]
     require(tuple(k["name"] for k in rows) == W8A32_ROWS, "W8A32 rows")
     kernels += rows + [check_verify_wide(g, qmodel, "w8a32")]
     enc16 = torch.cat([enc8, enc8.flip(0)])

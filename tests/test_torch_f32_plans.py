@@ -1,8 +1,9 @@
 """The f32 modes' tile plans, computed from shapes (no card), and the f32
 kernels' split arithmetic emulated against the plain versions.
 
-* ``csrc/ffma.cuh``'s and ``csrc/ffma_gemm.cuh``'s constants are the
-  wrappers' (parsed from the sources);
+* ``csrc/ffma.cuh``'s, ``csrc/ffma_gemm.cuh``'s and ``csrc/ffma_attn.cuh``'s
+  constants are the wrappers' (parsed from the sources), and the partials
+  scratches and combine kernels they replaced are gone;
 * the f32 GEMM (K11's f32 mode, the f32 head rows, the per-op step's f32
   projections; ``csrc/ffma_gemm.cuh``): K slices from (K, N) alone, one
   cluster of at most 4 that covers K's 32-deep chunks once; passes of up to
@@ -10,15 +11,18 @@ kernels' split arithmetic emulated against the plain versions.
   memory leaves room for two an SM; its order (eight k groups, each a chain
   over its k of the slice's chunks, added in a fixed tree, the slices in
   rank order) emulated against the plain version, the same bits for a row
-  at any M; the W8A32 GEMM (``ffma.cuh``) keeps its slices of 16;
+  at any M; its int8-weight mode (the W8A32 GEMM: K2 W8A32, the int8 head
+  rows, K4 W8A32's stage A) on the same slices, emulated against
+  ``megastep.mm_w8`` (the column's scale on the sum, then the bias);
 * the f32 NT stream (K3, K4's stage B and K5 in f32): a CTA per (64-entry
   tile, pass), each warpgroup scoring half of a pass's rows as tile_stats'
   pass 2 pass + wg of 8 MT rows: every row once;
-* K10's f32 mode: cluster_split's slices, each slice's (O, max, sum)
-  combined in slice order (rescaled to the global max, slices with no
-  visible key skipped, then divided by the sum) against the plain cross-
-  and self-attention at 1e-5; in the mask mode keys at or past off + TC are
-  not read;
+* K10's f32 modes (``csrc/ffma_attn.cuh``, one cluster per (head,
+  example)): cluster_split's slices, the row maxima merged, p = exp(s -
+  max), each rank's row sums and PV partials added in rank order, then
+  divided by the sum, against the plain cross- and self-attention at 1e-5
+  (T = 11 and T = 1, which computes one row); in the mask mode keys at or
+  past off + TC are not read; the plan's shared memory fits a CTA;
 * K3's f32 stream (``csrc/ffma_stream.cuh``): its constants are the
   wrapper's, its persistent walk takes every (vocab tile, pass) item once
   and its passes every row once, and its ring fits an SM at two CTAs;
@@ -55,38 +59,44 @@ def _const(name, source):
 def test_constants_are_the_sources():
     assert _const("FF_COLS", "ffma.cuh") == DO.F32_COLS == LG.F32_TILE == 64
     assert _const("FF_KC", "ffma.cuh") == DO.F32_KC
-    assert _const("FF_WAVE", "ffma.cuh") == DO.F32_WAVE
     assert _const("FF_MAX_MT", "ffma.cuh") == LG.F32_MAX_MT
     for name, value in (("FG_COLS", DO.GEMM32_COLS), ("FG_KC", DO.GEMM32_KC),
                         ("FG_KG", DO.GEMM32_KG), ("FG_MAX_RQ", DO.GEMM32_MAX_RQ),
                         ("FG_MAX_PG", DO.GEMM32_MAX_PG), ("FG_CTAS", DO.GEMM32_CTAS),
                         ("FG_WAVE", DO.GEMM32_WAVE), ("FG_MAX_SLICES", DO.GEMM32_MAX_SLICES),
-                        ("FG_RING", DO.GEMM32_RING), ("FG_PRODUCER_RQ", DO.GEMM32_PRODUCER_RQ)):
+                        ("FG_RING", DO.GEMM32_RING), ("FG_PRODUCER_RQ", DO.GEMM32_PRODUCER_RQ),
+                        ("FG_MAX_JOBS", DO.GEMM32_MAX_JOBS)):
         assert _const(name, "ffma_gemm.cuh") == value, name
     gemm = open(os.path.join(CSRC, "ffma_gemm.cuh")).read()
     assert "constexpr int FG_RP = FG_COLS + 4;" in gemm and DO.GEMM32_RP == DO.GEMM32_COLS + 4
     assert DO.GEMM32_KG * 4 == DO.GEMM32_KC                     # 4 k of a chunk a group
-    # The f32 GEMM and its combine kernel are gone from ffma.cuh; every f32
-    # product of K11, the head rows, K4's stage A and the step is fg_launch.
-    ffma = open(os.path.join(CSRC, "ffma.cuh")).read()
-    assert "ffma_combine_kernel(" not in ffma and "ff_gemm(" not in ffma
-    for source, calls in (("decode_ops.cu", 3), ("verify.cu", 1)):
-        text = open(os.path.join(CSRC, source)).read()
-        assert text.count("fg_launch(") == calls and "ff_gemm(" not in text, source
-    assert "constexpr int DF_ROW = CD_DH + 2;" in open(os.path.join(CSRC, "ffma_attn.cuh")).read()
-    assert DO.F32_PART_ROW == DO.HEAD_DIM + 2
+    assert _const("DA_THREADS", "ffma_attn.cuh") == DO.ATTN32_THREADS
+    attn = open(os.path.join(CSRC, "ffma_attn.cuh")).read()
+    assert "constexpr int DA_KP = CD_DH + 4;" in attn and DO.ATTN32_KP == DO.HEAD_DIM + 4
+    # The f32 GEMM and the W8A32 GEMM are one launch of ffma_gemm.cuh (no
+    # partials scratch, no combine kernel), and so is K10's f32 attention:
+    # every f32 and W8A32 product of K11, the head rows, K4's stage A and
+    # the per-op step is fg_launch (K2 W8A32 launches on its maps).
+    sources = {name: open(os.path.join(CSRC, name)).read() for name in os.listdir(CSRC)}
+    for gone in ("ff_gemm(", "ff_gemm8(", "ffma_gemm8_kernel", "ffma_combine_kernel",
+                 "ffma_combine8_kernel", "decode_combine_f32_kernel", "DF_ROW", "A_APART",
+                 "A_PART"):
+        assert not any(gone in text for text in sources.values()), gone
+    for source, calls in (("decode_ops.cu", 4), ("verify.cu", 1), ("megastep.cu", 0)):
+        assert sources[source].count("fg_launch(") == calls, source
+    assert sources["megastep.cu"].count("gemm32(c, ") == 6            # six GEMMs a layer
+    assert sources["megastep.cu"].count("da_launch<") == 2            # two attentions
     common = open(os.path.join(CSRC, "common.cuh")).read()
     for name in ("EPI_BIAS", "EPI_SILU_RESID"):
         assert int(re.search(rf"{name} = (\d+),", common).group(1)) == getattr(DO, name)
 
 
-@pytest.mark.parametrize("k,n,slices,piece,w8_slices", [
-    (1280, 5120, 2, 320, 4), (5120, 1280, 4, 368, 14), (1280, 1280, 4, 96, 14),
-    (384, 1536, 4, 48, 8), (1536, 384, 4, 48, 32), (384, 384, 4, 16, 24)],
-    ids=["fc1", "fc2", "proj", "tiny-fc1", "tiny-fc2", "tiny-heads"])
-def test_gemm_slices_come_from_k_and_n(k, n, slices, piece, w8_slices):
-    plans = [DO.f32_gemm_plan(m, k, n, nh) for m in (1, 11, 88, 121, 176, 300)
-             for nh in (1, 10, 11)]
+@pytest.mark.parametrize("k,n,slices", [
+    (1280, 5120, 2), (5120, 1280, 4), (1280, 1280, 4), (384, 1536, 4), (1536, 384, 4),
+    (384, 384, 4)], ids=["fc1", "fc2", "proj", "tiny-fc1", "tiny-fc2", "tiny-heads"])
+def test_gemm_slices_come_from_k_and_n(k, n, slices):
+    plans = [DO.f32_gemm_plan(m, k, n, nh, w8) for m in (1, 11, 88, 121, 176, 300)
+             for nh in (1, 3, 10, 11) for w8 in (False, True)]
     assert {(p["slices"], tuple(p["ranges"])) for p in plans} == {
         (slices, tuple(plans[0]["ranges"]))}
     tiles, chunks = n // DO.GEMM32_COLS, k // DO.GEMM32_KC
@@ -97,16 +107,16 @@ def test_gemm_slices_come_from_k_and_n(k, n, slices, piece, w8_slices):
     assert max(e - b for b, e in ranges) - min(e - b for b, e in ranges) <= 1
     p = DO.f32_gemm_plan(176, k, n, 11)
     assert p["grid"] == (slices, tiles * p["groups"], 11)      # one cluster a column tile
-    # The W8A32 GEMM (ffma.cuh's ff_gemm8) keeps its 16-deep slices.
-    w8 = [DO.w8a32_gemm_plan(m, k, n, nh) for m in (1, 11, 88, 121, 176, 300)
-          for nh in (1, 10, 11)]
-    assert {(q["slice"], q["slices"]) for q in w8} == {(piece, w8_slices)}
-    assert piece % DO.F32_KC == 0 and (w8_slices - 1) * piece < k <= w8_slices * piece
-    want = -(-DO.F32_WAVE // tiles)                 # slices for two CTAs an SM
-    assert piece == min(k, -(-(-(-k // want)) // DO.F32_KC) * DO.F32_KC)
-    q = DO.w8a32_gemm_plan(176, k, n, 11)
-    assert q["grid"] == (tiles * q["passes"], w8_slices, 11)
-    assert q["part"] == 11 * w8_slices * 176 * n
+    # The W8A32 GEMM: the f32 plan with a 2 KB int8 W chunk (a quarter of the
+    # f32 chunk) a stage; its passes, groups and grid the f32 plan's (K2's
+    # q / k / v as three outputs of one launch).
+    for m, nh in ((1, 3), (11, 3), (11, 1), (88, 1), (176, 11)):
+        f, q = DO.f32_gemm_plan(m, k, n, nh), DO.f32_gemm_plan(m, k, n, nh, w8=True)
+        assert {x: q[x] for x in ("passes", "rows", "groups", "pg", "threads", "grid")} == {
+            x: f[x] for x in ("passes", "rows", "groups", "pg", "threads", "grid")}
+        assert q["stage"] == f["stage"] - DO.GEMM32_KC * DO.GEMM32_COLS * 3
+        assert q["stage"] % 1024 == 0 and q["stages"] == DO.GEMM32_RING // q["stage"]
+        assert q["stages"] >= f["stages"] and 2 * (q["smem"] + 1024) <= 233472
 
 
 @pytest.mark.parametrize("m", [1, 4, 5, 11, 16, 17, 31, 33, 64, 88, 121, 128, 129, 176, 300,
@@ -196,50 +206,81 @@ def test_gemm_emulation_matches_plain():
     torch.testing.assert_close(torch.from_numpy(y2), ref, rtol=1e-4, atol=1e-4)
 
 
+def test_w8a32_gemm_emulation_matches_mm_w8():
+    """The W8A32 GEMM's order: each int8 value exactly f32, the f32 GEMM's
+    sums (``_gemm_order``), then the column's scale on the sum and the bias,
+    against ``megastep.mm_w8`` at 1e-5; the plan's slices come from (K, N)
+    alone, so an M=176 call's first 11 rows are an M=11 call's bits."""
+    from whisper_medusa_tpu_torch.ops import megastep as MS
+
+    rng = np.random.default_rng(1)
+    m, k, n = 176, 384, 256
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (0.02 * rng.standard_normal((k, n))).astype(np.float32)   # quantize_array's copy
+    sc = (np.abs(w).max(0) / 127).astype(np.float32)
+    q = np.clip(np.round(w / sc), -127, 127).astype(np.int8)
+    b = (0.02 * rng.standard_normal(n)).astype(np.float32)
+    plan, small = DO.f32_gemm_plan(m, k, n, w8=True), DO.f32_gemm_plan(11, k, n, w8=True)
+    assert plan["ranges"] == small["ranges"]
+    y = _gemm_order(x, q.astype(np.float32), plan) * sc + b
+    y11 = _gemm_order(x[:11], q.astype(np.float32), small) * sc + b
+    assert np.array_equal(y[:11], y11)
+    ref = MS.mm_w8(torch.from_numpy(x), {"q": torch.from_numpy(q), "s": torch.from_numpy(sc)},
+                   torch.from_numpy(b))
+    torch.testing.assert_close(torch.from_numpy(y), ref, rtol=1e-5, atol=1e-5)
+
+
 def _slices_then_combine(q, k, v, visible):
-    """K10's f32 arithmetic: q (B, H, T, 64), k (B, H, S, 64), v (B, H, S,
-    64), visible (B, 1, T, S) or (B, H, T, S) bool; per cluster_split slice
-    the max, sum of exp and unnormalised PV over its visible keys, then the
-    combine."""
+    """K10 f32's cluster arithmetic: q (B, H, T, 64), k (B, H, S, 64), v (B,
+    H, S, 64), visible (B, 1, T, S) or (B, H, T, S) bool; per cluster_split
+    slice (rank) the masked scores and their max, the ranks' maxima merged;
+    then each rank's p = exp(s - max) over its visible keys, its row sum and
+    its unnormalised PV; the ranks' sums and PV partials added in rank
+    order and divided by the sum (P not rounded)."""
     s_len = k.shape[2]
     c, sc = DO.cluster_split(s_len)
-    scores = torch.einsum("bhtd,bhsd->bhts", q, k)
-    stats = []
-    for r in range(c):
-        sl = slice(r * sc, min(s_len, (r + 1) * sc))
-        sv = torch.where(visible[..., sl], scores[..., sl], torch.tensor(-float("inf")))
-        m = sv.amax(-1)
-        p = torch.where(torch.isinf(m)[..., None], torch.zeros_like(sv),
-                        torch.exp(sv - m[..., None]))
-        stats.append((m, p.sum(-1), torch.einsum("bhts,bhsd->bhtd", p, v[:, :, sl])))
-    big = torch.stack([m for m, _, _ in stats]).amax(0)
-    num = torch.zeros_like(q)
-    den = torch.zeros(q.shape[:-1])
-    for m, l, o in stats:
-        w = torch.where(torch.isinf(m), torch.zeros_like(m), torch.exp(m - big))
-        den = den + l * w
-        num = num + o * w[..., None]
+    scores = torch.where(visible, torch.einsum("bhtd,bhsd->bhts", q, k),
+                         torch.tensor(-float("inf")))
+    slices = [slice(r * sc, min(s_len, (r + 1) * sc)) for r in range(c)]
+    big = torch.stack([scores[..., sl].amax(-1) for sl in slices]).amax(0)
+    num, den = None, None
+    for sl in slices:
+        p = torch.where(torch.isinf(scores[..., sl]), torch.zeros(()),
+                        torch.exp(scores[..., sl] - big[..., None]))
+        o, l = torch.einsum("bhts,bhsd->bhtd", p, v[:, :, sl]), p.sum(-1)
+        num, den = (o, l) if num is None else (num + o, den + l)
     return num / den[..., None]
 
 
 @pytest.mark.parametrize("s,kv_len", [(1500, 1500), (1500, 1003), (640, 200)])
 def test_cross_split_combine_matches_plain(s, kv_len):
     rng = np.random.default_rng(s + kv_len)
-    b, h, t = 2, 3, 11
-    q = torch.from_numpy(rng.standard_normal((b, h, t, 64)).astype(np.float32)) * 0.125
+    b, h = 2, 3
     k = torch.from_numpy(rng.standard_normal((b, h, 64, s)).astype(np.float32))
     v = torch.from_numpy(rng.standard_normal((b, s, h * 64)).astype(np.float32))
-    vis = (torch.arange(s) < kv_len)[None, None, None, :].expand(b, 1, t, s)
-    got = _slices_then_combine(q, k.transpose(2, 3), v.reshape(b, s, h, 64).transpose(1, 2),
-                               vis)
-    ref = DO.cross_attention_decode_plain(q, k, v, kv_len)
-    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    for t in (11, 1):                       # T = 1: one query row computed
+        q = torch.from_numpy(rng.standard_normal((b, h, t, 64)).astype(np.float32)) * 0.125
+        vis = (torch.arange(s) < kv_len)[None, None, None, :].expand(b, 1, t, s)
+        got = _slices_then_combine(q, k.transpose(2, 3),
+                                   v.reshape(b, s, h, 64).transpose(1, 2), vis)
+        ref = DO.cross_attention_decode_plain(q, k, v, kv_len)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    plan = DO.f32_attention_plan(s, 1, self_mode=False)
+    assert plan["nr"] == 1 and DO.f32_rows(11) == 16 and DO.f32_rows(4) == 4
+    assert plan["smem"] <= DO.ATTN32_MAX_SMEM and plan["c"] * plan["sc"] >= s
+    assert plan["sc"] % plan["key_box"] == 0
+    # Two f32 CTAs (and five int8 ones) an SM at the decode step's 1500 keys.
+    for int8, ctas in ((False, 2), (True, 5)):
+        smem = DO.f32_attention_plan(1500, 11, self_mode=False, int8=int8)["smem"]
+        assert ctas * (smem + 1024) <= 233472
 
 
 @pytest.mark.parametrize("chunk", ["causal", "tree"])
 def test_self_split_combine_matches_plain(chunk):
     """The mask mode: keys j < off, or chunk keys whose bit is set; a slice
-    past off + TC has no visible key (its statistics are skipped)."""
+    past off + TC has no visible key (its rank adds a zero sum and a zero
+    partial); K2's int8 mask mode stages one item at a time, the f32 mode
+    two where they fit."""
     rng = np.random.default_rng(3)
     b, t, h, s = 3, 11, 2, 460
     q = torch.from_numpy(rng.standard_normal((b, t, h, 64)).astype(np.float32)) * 0.125
@@ -260,7 +301,10 @@ def test_self_split_combine_matches_plain(chunk):
     ref = DO.self_attention_block_plain(q, k, v, off, bits, t)
     torch.testing.assert_close(got.transpose(1, 2), ref, rtol=1e-5, atol=1e-5)
     c, sc = DO.cluster_split(s)
-    assert c == 3 and all(int(off[0]) + t <= r * sc for r in (1, 2))     # skipped slices
+    assert c == 3 and all(int(off[0]) + t <= r * sc for r in (1, 2))     # empty slices
+    plan = DO.f32_attention_plan(s, t, self_mode=True)
+    assert plan["sc"] == sc == 160 and plan["nr"] == 16 and plan["own"] == 6
+    assert plan["smem"] <= DO.ATTN32_MAX_SMEM
 
 
 def test_stream_constants_are_the_source():

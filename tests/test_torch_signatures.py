@@ -48,11 +48,16 @@ def test_argument_count_matches_signature(entry):
 # 128-key block (same count, larger buffer), and its f32 mode takes the
 # same scratch; K2 keeps its table and ints; K7 keeps (x, e, s, y, m, v, d,
 # stream); the f32 GEMM and K11's f32 mode no longer take a partials
-# scratch (one launch a product, the slices added in a cluster).
+# scratch (one launch a product, the slices added in a cluster), nor do the
+# W8A32 GEMM and K10's f32, f32 mask and W8A32 modes (one cluster launch a
+# call, the slices merged through distributed shared memory).
 @pytest.mark.parametrize("entry,count", [("wm_self_decode", 12), ("wm_attention_bwd", 19),
                                          ("wm_attention_bwd_f32", 19),
                                          ("wm_megastep_step", 3), ("wm_qmm_nt", 8),
-                                         ("wm_gemm_f32", 11), ("wm_ffn_decode_f32", 11)])
+                                         ("wm_gemm_f32", 11), ("wm_ffn_decode_f32", 11),
+                                         ("wm_gemm_w8a32", 12), ("wm_cross_decode_f32", 10),
+                                         ("wm_self_decode_f32", 12),
+                                         ("wm_cross_decode_w8a32", 12)])
 def test_changed_entries_keep_their_counts(entry, count):
     assert _entries()[entry] == count
     assert len(cuda_lib._SIGNATURES[entry]) == count

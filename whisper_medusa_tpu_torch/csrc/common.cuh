@@ -57,6 +57,19 @@ __device__ __forceinline__ uint4 i8x8_to_bf16(uint2 w) {
   return make_uint4(lo.x, lo.y, hi.x, hi.y);
 }
 
+// Four int8 (little-endian in w) as f32, exactly and off the I2F pipe:
+// byte b ^ 0x80 = b + 128 becomes the low mantissa byte of 2^23 + (b + 128)
+// (__byte_perm with the exponent bytes 0x4B00_00), and subtracting 2^23 +
+// 128 leaves b (an integer of at most 8 bits: every step exact).
+__device__ __forceinline__ float4 i8x4_to_f32(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float c = 8388736.0f;   // 2^23 + 128
+  return make_float4(__fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)), c),
+                     __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)), c),
+                     __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)), c),
+                     __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)), c));
+}
+
 // The epilogue of a GEMM output (wgemm.cuh), applied to acc = the f32 sum
 // (times the column's scale for an int8 weight).
 enum Epi : int {

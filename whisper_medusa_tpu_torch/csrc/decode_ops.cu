@@ -87,7 +87,6 @@
 //     encoded per call.
 #include "cluster_attn.cuh"
 #include "common.cuh"
-#include "ffma.cuh"
 #include "ffma_attn.cuh"
 #include "ffma_gemm.cuh"
 #include "wgemm.cuh"
@@ -224,24 +223,19 @@ extern "C" int wm_ffn_decode(const void* x, const void* w1, const void* b1, cons
 // and V (P not rounded: the TPU kernel rounds it to the value dtype, f32
 // here), and in the mask mode the same visibility as wm_self_decode (keys at
 // or past off + TC neither read nor counted).  The body lives in
-// ffma_attn.cuh (shared with K2's W8A32 mode).  The keys are cut into the
-// slices of cd_split (from S alone, as the bf16 mode: large-v2's 1500 cross
-// keys 8 x 192, a 460-row self slab 3 x 160); one CTA (8 warps) per (slice,
-// head, example):
-//   1. q (T <= 16 rows) staged in shared memory; thread j takes key j of the
-//      slice and computes its 16 scores, a dot of 64 in order (cross K
-//      head-major: a d-row of 192 consecutive keys is one coalesced read;
-//      self K a 256-byte row read as float4), masked keys -inf;
-//   2. warp w takes rows w and w + 8: the slice's max, p = exp(s - max) in
-//      place, the sum of p (lane-strided, then a butterfly);
-//   3. O = P V: thread (d, g) sums keys g, g + 4, ... of column d (V rows
-//      read 256 bytes at a time), the four groups added in order;
-// and writes (O, max, sum) of its slice to an f32 scratch (B, H, C, 16,
-// 66); a combine kernel per (head, example) rescales the C slices to the
-// global max and adds them in slice order, then divides by the sum.  Each
-// (example, head)'s arithmetic and its order of sums depend on S only, so
-// an example's bits do not depend on the batch.  Bound by bytes: 768 KB of
-// f32 K and V per (example, head) at S = 1500.
+// ffma_attn.cuh (shared with K2's W8A32 mode) and follows the bf16 mode's:
+// one thread-block cluster of C CTAs per (head, example) over the key
+// slices of cd_split (from S alone: large-v2's 1500 cross keys 8 x 192, a
+// 460-row self slab 3 x 160), each CTA staging its K and V slice (cross:
+// one TMA box each; mask mode: cp.async of the rows read), FFMA scores from
+// shared memory in register tiles over (keys x
+// query rows), NR = 1, 4, 8 or 16 rows from T (a T = 1 step computes one),
+// the row maxima and then the row sums merged through distributed shared
+// memory, the PV partials added in rank order by each row's owner rank:
+// one launch a call, no scratch.  Each (example, head)'s arithmetic and its
+// order of sums depend on S and T only, so an example's bits do not depend
+// on the batch.  Bound by bytes: 768 KB of f32 K and V per (example, head)
+// at S = 1500.
 //
 // K11's f32 mode, wm_ffn_decode_f32: fc1 with the exact-erf GELU, then fc2
 // with its bias, each one launch of ffma_gemm.cuh's f32 weight stream (K
@@ -257,27 +251,26 @@ extern "C" int wm_ffn_decode(const void* x, const void* w1, const void* b1, cons
 //
 // W8A32 (the int8 copy of an f32 model): wm_cross_decode_w8a32 is K10's f32
 // mode on int8 K/V with f32 (B, H, S) scales (the per-op step's cross-
-// attention; decode_attn_f32_kernel<false, Q8 = true>: a score times its
-// key's scale before the mask, a probability times its value's scale
-// before the PV product), bound by the 384 KB of int8 K and V per
-// (example, head) at S = 1500; wm_gemm_w8a32 is wm_gemm_f32 on int8 (nh,
-// K, N) weights with f32 (nh, N) scales (ffma.cuh's W8 operand: the
-// two-pass loop's head rows on int8 heads), the scale on the sum before the
-// bias.
+// attention; decode_attn_f32_kernel<NR, false, Q8 = true>: the slices staged
+// as int8, each value converted exactly, a score times its key's scale
+// before the mask, a probability times its value's scale before the PV
+// product), bound by the 384 KB of int8 K and V per (example, head) at S =
+// 1500; wm_gemm_w8a32 is wm_gemm_f32 on int8 (nh, K, N) weights with f32
+// (nh, N) scales (ffma_gemm.cuh's int8-weight mode: the two-pass loop's
+// head rows on int8 heads), the scale on the sum before the bias, one
+// launch and no scratch.
 
-// q (B, H, T, 64) f32; k (B, H, 64, S), v (B, S, H * 64) f32; part the
-// (B, H, C, 16, 66) f32 scratch (C from cd_split(S)); out (B, H, T, 64) f32.
-extern "C" int wm_cross_decode_f32(const void* q, const void* k, const void* v, void* part,
-                                   void* out, int B, int H, int T, int S, int kv_len,
-                                   void* stream) {
+// q (B, H, T, 64) f32; k (B, H, 64, S), v (B, S, H * 64) f32, S % 4 == 0;
+// out (B, H, T, 64) f32.
+extern "C" int wm_cross_decode_f32(const void* q, const void* k, const void* v, void* out,
+                                   int B, int H, int T, int S, int kv_len, void* stream) {
   using namespace wm;
-  if (B < 1 || H < 1 || T < 1 || T > CD_MAXT || kv_len < 1 || kv_len > S)
+  if (B < 1 || H < 1 || T < 1 || T > CD_MAXT || S % 4 || kv_len < 1 || kv_len > S)
     return (int)cudaErrorInvalidValue;
   DfArgs a = {};
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
   a.v = static_cast<const float*>(v);
-  a.part = static_cast<float*>(part);
   a.out = static_cast<float*>(out);
   a.q_b = (long long)H * T * CD_DH;
   a.q_h = (long long)T * CD_DH;
@@ -291,11 +284,10 @@ extern "C" int wm_cross_decode_f32(const void* q, const void* k, const void* v, 
 }
 
 // K10's f32 mask mode: q and out (B, T, H, 64) f32; k, v (B, S, H * 64) f32
-// self slabs; offsets (B,) and chunk bits (T, ceil(TC / 32)) int32; part as
-// wm_cross_decode_f32's.
+// self slabs; offsets (B,) and chunk bits (T, ceil(TC / 32)) int32.
 extern "C" int wm_self_decode_f32(const void* q, const void* k, const void* v,
-                                  const void* offsets, const void* chunk_bits, void* part,
-                                  void* out, int B, int H, int T, int S, int TC, void* stream) {
+                                  const void* offsets, const void* chunk_bits, void* out, int B,
+                                  int H, int T, int S, int TC, void* stream) {
   using namespace wm;
   if (B < 1 || H < 1 || T < 1 || T > CD_MAXT || TC < T || S < TC)
     return (int)cudaErrorInvalidValue;
@@ -305,7 +297,6 @@ extern "C" int wm_self_decode_f32(const void* q, const void* k, const void* v,
   a.v = static_cast<const float*>(v);
   a.off = static_cast<const int*>(offsets);
   a.bits = static_cast<const int*>(chunk_bits);
-  a.part = static_cast<float*>(part);
   a.out = static_cast<float*>(out);
   a.q_b = (long long)T * H * CD_DH;
   a.q_h = CD_DH;
@@ -326,13 +317,11 @@ extern "C" int wm_ffn_decode_f32(const void* x, const void* w1, const void* b1,
                                  int D, int F, void* stream) {
   using namespace wm;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = fg_launch(static_cast<const float*>(x), static_cast<const float*>(w1),
-                      static_cast<const float*>(b1), nullptr, static_cast<float*>(h), M, D, F,
-                      1, EPI_BIAS_GELU, st);
+  int err = fg_launch(static_cast<const float*>(x), w1, nullptr, static_cast<const float*>(b1),
+                      nullptr, static_cast<float*>(h), M, D, F, 1, EPI_BIAS_GELU, st);
   if (err == 0)
-    err = fg_launch(static_cast<const float*>(h), static_cast<const float*>(w2),
-                    static_cast<const float*>(b2), nullptr, static_cast<float*>(y), M, F, D, 1,
-                    EPI_BIAS, st);
+    err = fg_launch(static_cast<const float*>(h), w2, nullptr, static_cast<const float*>(b2),
+                    nullptr, static_cast<float*>(y), M, F, D, 1, EPI_BIAS, st);
   return err;
 }
 
@@ -342,18 +331,19 @@ extern "C" int wm_ffn_decode_f32(const void* x, const void* w1, const void* b1,
 extern "C" int wm_gemm_f32(const void* x, const void* w, const void* b, const void* resid,
                            void* out, int M, int K, int N, int NH, int epi, void* stream) {
   using namespace wm;
-  return fg_launch(static_cast<const float*>(x), static_cast<const float*>(w),
-                   static_cast<const float*>(b), static_cast<const float*>(resid),
-                   static_cast<float*>(out), M, K, N, NH, epi, (cudaStream_t)stream);
+  return fg_launch(static_cast<const float*>(x), w, nullptr, static_cast<const float*>(b),
+                   static_cast<const float*>(resid), static_cast<float*>(out), M, K, N, NH, epi,
+                   (cudaStream_t)stream);
 }
 
 // K10's W8A32 mode: q (B, H, T, 64) f32; k (B, H, 64, S), v (B, S, H * 64)
-// int8 with ks, vs (B, H, S) f32; part and out as wm_cross_decode_f32's.
+// int8 with ks, vs (B, H, S) f32, S % 4 == 0; out as wm_cross_decode_f32's.
 extern "C" int wm_cross_decode_w8a32(const void* q, const void* k, const void* v,
-                                     const void* ks, const void* vs, void* part, void* out,
-                                     int B, int H, int T, int S, int kv_len, void* stream) {
+                                     const void* ks, const void* vs, void* out, int B, int H,
+                                     int T, int S, int kv_len, void* stream) {
   using namespace wm;
-  if (B < 1 || H < 1 || T < 1 || T > CD_MAXT || kv_len < 1 || kv_len > S || !ks || !vs)
+  if (B < 1 || H < 1 || T < 1 || T > CD_MAXT || S % 4 || kv_len < 1 || kv_len > S || !ks ||
+      !vs)
     return (int)cudaErrorInvalidValue;
   DfArgs a = {};
   a.q = static_cast<const float*>(q);
@@ -361,7 +351,6 @@ extern "C" int wm_cross_decode_w8a32(const void* q, const void* k, const void* v
   a.v8 = static_cast<int8_t*>(const_cast<void*>(v));
   a.ks = static_cast<const float*>(ks);
   a.vs = static_cast<const float*>(vs);
-  a.part = static_cast<float*>(part);
   a.out = static_cast<float*>(out);
   a.q_b = (long long)H * T * CD_DH;
   a.q_h = (long long)T * CD_DH;
@@ -375,17 +364,15 @@ extern "C" int wm_cross_decode_w8a32(const void* q, const void* k, const void* v
 }
 
 // out (NH, M, N) = epi(x (M, K) @ (wq (NH, K, N) * s (NH, N)) + b (NH, N))
-// in f32; b may be null; resid (M, N) for EPI_SILU_RESID / EPI_BIAS_RESID;
-// part the (NH, slices, M, N) scratch.  K % 16 == 0, N % 64 == 0.
+// in f32, the scale on the sum before the bias; b may be null; resid (M, N)
+// for EPI_SILU_RESID.  K % 32 == 0, N % 64 == 0, every operand 16-byte
+// aligned.
 extern "C" int wm_gemm_w8a32(const void* x, const void* wq, const void* s, const void* b,
-                             const void* resid, void* out, void* part, int M, int K, int N,
-                             int NH, int epi, void* stream) {
+                             const void* resid, void* out, int M, int K, int N, int NH, int epi,
+                             void* stream) {
   using namespace wm;
-  if ((epi != EPI_BIAS && epi != EPI_BIAS_GELU && epi != EPI_SILU_RESID) || !s)
-    return (int)cudaErrorInvalidValue;
-  Ff8Job j = {static_cast<const int8_t*>(wq), static_cast<const float*>(s),
-              static_cast<const float*>(b), static_cast<const float*>(resid),
-              static_cast<float*>(out), 1.0f, epi};
-  return ff_gemm8(static_cast<const float*>(x), &j, 1, NH, static_cast<float*>(part), M, K, N,
-                  (cudaStream_t)stream);
+  if (!s) return (int)cudaErrorInvalidValue;
+  return fg_launch(static_cast<const float*>(x), wq, static_cast<const float*>(s),
+                   static_cast<const float*>(b), static_cast<const float*>(resid),
+                   static_cast<float*>(out), M, K, N, NH, epi, (cudaStream_t)stream);
 }

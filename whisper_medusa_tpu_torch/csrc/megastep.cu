@@ -114,31 +114,40 @@
 // own: f32 residual stream, int8 streamed weights with f32 column scales,
 // every other leaf f32, int8 self slabs with bf16 scales, int8 cross K/V
 // with f32 scales.  The tensor cores take f32 only as TF32, so every
-// product is FFMA on the CUDA cores (ffma.cuh, ffma_attn.cuh).  A layer is
-// ten launches of six kinds:
+// product is FFMA on the CUDA cores (ffma_gemm.cuh, ffma_attn.cuh).  A
+// layer is eleven launches:
 //
-//   ln_rows_f32 -> q/k/v (one W8A32 GEMM, 3 jobs, + combine) -> self-
-//   attention with the commit (+ combine) -> o + residual (GEMM + combine)
-//   -> ln -> cross q -> cross-attention -> cross o + residual -> ln -> fc1
-//   + GELU -> fc2 + residual
+//   ln_rows_f32 -> q/k/v (one GEMM, 3 jobs) -> self-attention with the
+//   commit -> o + residual -> ln -> cross q -> cross-attention -> cross o +
+//   residual -> ln -> fc1 + GELU -> fc2 + residual
 //
-// (20 kernels a layer with the combines), then ln_post into hidden (and the
-// block's stream, whose layer runs on slot L as in the bf16 mode).  The
-// GEMM (ffma_gemm8_kernel) converts each int8 weight exactly to f32 as it
-// loads it and multiplies the slices' sum by the column's scale before the
-// bias, K slices from (K, N) alone (ff_gemm_slice); the attention is the
-// Q8 body of ffma_attn.cuh (history from the int8 slab times its bf16
-// scales, the chunk's keys from the fresh f32 rows, the commit in slice 0's
+// then ln_post into hidden (and the block's stream, whose layer runs on
+// slot L as in the bf16 mode).  The six GEMMs are ffma_gemm.cuh's int8-
+// weight mode (one launch each, no scratch: a TMA ring of 32 K x 64 int8 W
+// chunks, each value converted exactly to f32 as a product warp reads it,
+// the slices' sums added in rank order across a cluster, then the column's
+// scale, the bias and the epilogue in the same kernel; K slices from (K, N)
+// alone; the weights' maps over their (L, K, N) stacks, the layer a row
+// offset; the plans, maps and shared memory set once a step).  The two
+// attentions are ffma_attn.cuh's cluster body, decode_attn_f32_kernel<NR,
+// SELF, Q8 = true, K2 = true> (one cluster per (head, example), slices from
+// S alone, NR query rows from T; history from the int8 slab times its bf16
+// scales, the chunk's keys from the fresh f32 rows, the commit in rank 0's
 // CTA; cross scores times the key scale, probabilities times the value
-// scale).  The arithmetic follows ops/megastep.py::w8a32_layer_step, the
-// JAX kernel's line by line (megastep.py:589-720, :759-905, :1005-1160).
-// Bound on H100: bytes, 0.73 GB of int8 weights and B x 123 MB of int8
-// cross K/V a step at large-v2 (counted from the shapes), 0.26 ms at 3.35
-// TB/s for B = 1.
+// scale).  The GEMMs and the attentions are launched with programmatic
+// dependent launch: a GEMM issues its first weight stages before its
+// griddepcontrol.wait, the cross-attention its K / V loads and scales, the
+// self-attention nothing (it waits first); ln_rows_f32_kernel is launched
+// in stream order, after the kernel before it has finished (launched under
+// programmatic dependent launch it made the step slower).  The
+// arithmetic follows ops/megastep.py::w8a32_layer_step, the JAX kernel's
+// line by line (megastep.py:589-720, :759-905, :1005-1160).  Bound on H100:
+// bytes, 0.73 GB of int8 weights and B x 123 MB of int8 cross K/V a step at
+// large-v2 (counted from the shapes), 0.26 ms at 3.35 TB/s for B = 1.
 #include "cluster_attn.cuh"
 #include "common.cuh"
-#include "ffma.cuh"
 #include "ffma_attn.cuh"
+#include "ffma_gemm.cuh"
 #include "hopper.cuh"
 #include "wgemm.cuh"
 
@@ -458,51 +467,78 @@ ln_rows_f32_kernel(const float* __restrict__ x, float* __restrict__ y, float* __
 }
 
 // One W8A32 layer's weights at layer l of (L, ...) stacks (a single layer,
-// the block: l = 0): the 21 tensors of ops/megastep.py _WEIGHTS from slot w0
-// (int8 values for the 8 streamed weights, f32 for the rest) and the 8 f32
-// scales of _QUANT from slot s0.
+// the block: l = 0): the f32 tensors of ops/megastep.py _WEIGHTS from slot
+// w0 (the 8 streamed int8 weights are read through ``maps`` at W row l K)
+// and the 8 f32 scales of _QUANT from slot s0.
 struct LayerW32 {
   const float *self_ln_s, *self_ln_b, *q_b, *v_b, *o_b, *cross_ln_s, *cross_ln_b, *cq_b,
       *co_b, *ffn_ln_s, *ffn_ln_b, *fc1_b, *fc2_b;
-  const int8_t *q_w, *k_w, *v_w, *o_w, *cq_w, *co_w, *fc1_w, *fc2_w;
   const float *q_s, *k_s, *v_s, *o_s, *cq_s, *co_s, *fc1_s, *fc2_s;
+  const LayerMaps* maps;   // the 8 streamed weights' (L K, N) int8 maps
+  int l;
 };
 
-LayerW32 layer_weights_w8a32(void* const* p, int w0, int s0, size_t l, int D, int F) {
-  const size_t lD = l * D, lF = l * F, DD = (size_t)D * D, DF = (size_t)D * F;
+LayerW32 layer_weights_w8a32(void* const* p, int w0, int s0, size_t l, int D, int F,
+                             const LayerMaps* maps) {
+  const size_t lD = l * D, lF = l * F;
   auto F32 = [&](int i, size_t off) { return static_cast<const float*>(p[w0 + i]) + off; };
-  auto I8 = [&](int i, size_t off) { return static_cast<const int8_t*>(p[w0 + i]) + off; };
   auto S = [&](int i, size_t off) { return static_cast<const float*>(p[s0 + i]) + off; };
   LayerW32 w;
   w.self_ln_s = F32(0, lD);  w.self_ln_b = F32(1, lD);
-  w.q_w = I8(2, l * DD);     w.q_b = F32(3, lD);
-  w.k_w = I8(4, l * DD);     w.v_w = I8(5, l * DD);     w.v_b = F32(6, lD);
-  w.o_w = I8(7, l * DD);     w.o_b = F32(8, lD);
+  w.q_b = F32(3, lD);        w.v_b = F32(6, lD);        w.o_b = F32(8, lD);
   w.cross_ln_s = F32(9, lD); w.cross_ln_b = F32(10, lD);
-  w.cq_w = I8(11, l * DD);   w.cq_b = F32(12, lD);
-  w.co_w = I8(13, l * DD);   w.co_b = F32(14, lD);
+  w.cq_b = F32(12, lD);      w.co_b = F32(14, lD);
   w.ffn_ln_s = F32(15, lD);  w.ffn_ln_b = F32(16, lD);
-  w.fc1_w = I8(17, l * DF);  w.fc1_b = F32(18, lF);
-  w.fc2_w = I8(19, l * DF);  w.fc2_b = F32(20, lD);
+  w.fc1_b = F32(18, lF);     w.fc2_b = F32(20, lD);
   w.q_s = S(0, lD);  w.k_s = S(1, lD);  w.v_s = S(2, lD);  w.o_s = S(3, lD);
   w.cq_s = S(4, lD); w.co_s = S(5, lD); w.fc1_s = S(6, lF); w.fc2_s = S(7, lD);
+  w.maps = maps;
+  w.l = (int)l;
   return w;
 }
 
-// The buffers, caches and shapes one W8A32 step shares across its layers.
+// The int8 maps of the eight streamed weights of the table at slot w0 over
+// their (L, K, N) stacks (ffma_gemm.cuh's fg_w_map: L K rows; kept).
+int encode_layer_maps_w8(LayerMaps* m, void* const* p, int w0, int L, int D, int F) {
+  struct { CUtensorMap* map; int slot, k, n; } w[8] = {
+      {&m->q, 2, D, D},   {&m->k, 4, D, D},   {&m->v, 5, D, D},    {&m->o, 7, D, D},
+      {&m->cq, 11, D, D}, {&m->co, 13, D, D}, {&m->fc1, 17, D, F}, {&m->fc2, 19, F, D}};
+  for (auto& x : w) {
+    const int err = fg_w_map(x.map, p[w0 + x.slot], L * x.k, x.n, true);
+    if (err) return err;
+  }
+  return 0;
+}
+
+// The buffers, caches, maps and plans one W8A32 step shares across its
+// layers.
 struct StepCtx32 {
   int B, T, D, H, F, S, SE, cross_len, M;
-  float *ln, *qb, *kb, *vb, *attn, *hb, *part, *apart;
+  float *ln, *qb, *kb, *vb, *attn, *hb;
   int8_t *self_k, *self_v, *cross_k, *cross_v;
   const float *cross_k_s, *cross_v_s;
   bf16* self_s;
   const int *offsets, *bits;
+  CUtensorMap x_ln, x_attn, x_h;     // the GEMMs' X operands (M rows)
+  FgPlan g_dd3, g_dd, g_df, g_fd;    // q/k/v (3 jobs), D x D, fc1, fc2
+  DaPlan self_plan, cross_plan;      // the attention's splits (S, SE) and rows (T)
+  CUtensorMap cross_mk, cross_mv;    // the cross V's map over every slot (K: int8, cp.async)
   cudaStream_t st;
 };
 
-Ff8Job job8(const int8_t* w, const float* s, const float* b, float* out, int epi,
+FgJob job32(const float* s, const float* b, float* out, int epi, int wrow,
             const float* resid = nullptr, float post = 1.0f) {
-  return Ff8Job{w, s, b, resid, out, post, epi};
+  return FgJob{b, s, resid, out, post, epi, wrow};
+}
+
+// One W8A32 GEMM of the step: Y = epi(X @ W + b) for ``njobs`` jobs sharing
+// X (maps of W in ``mw``), on the plan for (K, N).
+int gemm32(const StepCtx32& c, const CUtensorMap& mx, const CUtensorMap* mw, int njobs,
+           const FgJob* jobs, const FgPlan& p, int k, int n) {
+  FgArgs a = {};
+  for (int i = 0; i < njobs; ++i) a.j[i] = jobs[i];
+  a.njobs = njobs;
+  return fg_launch_maps(mx, mw, njobs, a, p, c.M, k, n, njobs, true, c.st);
 }
 
 // The attention's arguments over the chunk's (M, D) rows, (B, T, H, 64).
@@ -510,7 +546,6 @@ DfArgs attn_args32(const StepCtx32& c) {
   DfArgs a = {};
   a.q = c.qb;
   a.out = c.attn;
-  a.part = c.apart;
   a.q_b = (long long)c.T * c.D;
   a.q_h = CD_DH;
   a.q_t = c.D;
@@ -533,16 +568,21 @@ int launch_ln32(const float* x, float* y, float* y2, const float* s, const float
 }
 
 // One W8A32 decoder layer over the chunk's rows in x (f32 residual stream,
-// updated in place) on cache slot `slot`.
+// updated in place) on cache slot `slot`: eleven launches, the six GEMMs
+// and the two attentions under programmatic dependent launch (the norms in
+// stream order).
 int layer_step_w8a32(const LayerW32& w, float* x, size_t slot, const StepCtx32& c) {
   const int D = c.D, F = c.F, M = c.M;
+  const int rd = w.l * D, rf = w.l * F;   // the layer's first W row: (L, D, .) or (L, F, D)
+  const LayerMaps& mp = *w.maps;
   const float scale = 0.125f;   // head dim ** -0.5
   // --- self-attention
   WM_TRY32(launch_ln32(x, c.ln, nullptr, w.self_ln_s, w.self_ln_b, M, D, c.st));
-  const Ff8Job qkv[3] = {job8(w.q_w, w.q_s, w.q_b, c.qb, EPI_BIAS_SCALE, nullptr, scale),
-                         job8(w.k_w, w.k_s, nullptr, c.kb, EPI_BIAS),
-                         job8(w.v_w, w.v_s, w.v_b, c.vb, EPI_BIAS)};
-  WM_TRY32(ff_gemm8(c.ln, qkv, 3, 3, c.part, M, D, D, c.st));
+  const CUtensorMap qkv_maps[3] = {mp.q, mp.k, mp.v};
+  const FgJob qkv[3] = {job32(w.q_s, w.q_b, c.qb, EPI_BIAS_SCALE, rd, nullptr, scale),
+                        job32(w.k_s, nullptr, c.kb, EPI_BIAS, rd),
+                        job32(w.v_s, w.v_b, c.vb, EPI_BIAS, rd)};
+  WM_TRY32(gemm32(c, c.x_ln, qkv_maps, 3, qkv, c.g_dd3, D, D));
   {
     DfArgs a = attn_args32(c);
     const size_t slab = slot * c.B * c.S * D;
@@ -555,14 +595,14 @@ int layer_step_w8a32(const LayerW32& w, float* x, size_t slot, const StepCtx32& 
     a.vn = c.vb;
     a.s_len = c.S;
     a.kv_len = c.S;
-    WM_TRY32((k10_f32_launch<true, true>(a, c.B, c.st)));
+    WM_TRY32((da_launch<true, true, true>(c.cross_mk, c.cross_mv, a, c.self_plan, c.B, c.st)));
   }
-  const Ff8Job o = job8(w.o_w, w.o_s, w.o_b, x, EPI_BIAS_RESID, x);
-  WM_TRY32(ff_gemm8(c.attn, &o, 1, 1, c.part, M, D, D, c.st));
+  const FgJob o = job32(w.o_s, w.o_b, x, EPI_BIAS_RESID, rd, x);
+  WM_TRY32(gemm32(c, c.x_attn, &mp.o, 1, &o, c.g_dd, D, D));
   // --- cross-attention
   WM_TRY32(launch_ln32(x, c.ln, nullptr, w.cross_ln_s, w.cross_ln_b, M, D, c.st));
-  const Ff8Job cq = job8(w.cq_w, w.cq_s, w.cq_b, c.qb, EPI_BIAS_SCALE, nullptr, scale);
-  WM_TRY32(ff_gemm8(c.ln, &cq, 1, 1, c.part, M, D, D, c.st));
+  const FgJob cq = job32(w.cq_s, w.cq_b, c.qb, EPI_BIAS_SCALE, rd, nullptr, scale);
+  WM_TRY32(gemm32(c, c.x_ln, &mp.cq, 1, &cq, c.g_dd, D, D));
   {
     DfArgs a = attn_args32(c);
     const size_t ck = slot * c.B * c.H * CD_DH * c.SE, cv = slot * c.B * c.SE * D;
@@ -573,16 +613,17 @@ int layer_step_w8a32(const LayerW32& w, float* x, size_t slot, const StepCtx32& 
     a.vs = c.cross_v_s + cs;
     a.s_len = c.SE;
     a.kv_len = c.cross_len;
-    WM_TRY32((k10_f32_launch<false, true>(a, c.B, c.st)));
+    a.vz = (int)(slot * c.B);
+    WM_TRY32((da_launch<false, true, true>(c.cross_mk, c.cross_mv, a, c.cross_plan, c.B, c.st)));
   }
-  const Ff8Job co = job8(w.co_w, w.co_s, w.co_b, x, EPI_BIAS_RESID, x);
-  WM_TRY32(ff_gemm8(c.attn, &co, 1, 1, c.part, M, D, D, c.st));
+  const FgJob co = job32(w.co_s, w.co_b, x, EPI_BIAS_RESID, rd, x);
+  WM_TRY32(gemm32(c, c.x_attn, &mp.co, 1, &co, c.g_dd, D, D));
   // --- FFN
   WM_TRY32(launch_ln32(x, c.ln, nullptr, w.ffn_ln_s, w.ffn_ln_b, M, D, c.st));
-  const Ff8Job f1 = job8(w.fc1_w, w.fc1_s, w.fc1_b, c.hb, EPI_BIAS_GELU);
-  WM_TRY32(ff_gemm8(c.ln, &f1, 1, 1, c.part, M, D, F, c.st));
-  const Ff8Job f2 = job8(w.fc2_w, w.fc2_s, w.fc2_b, x, EPI_BIAS_RESID, x);
-  WM_TRY32(ff_gemm8(c.hb, &f2, 1, 1, c.part, M, F, D, c.st));
+  const FgJob f1 = job32(w.fc1_s, w.fc1_b, c.hb, EPI_BIAS_GELU, rd);
+  WM_TRY32(gemm32(c, c.x_ln, &mp.fc1, 1, &f1, c.g_df, D, F));
+  const FgJob f2 = job32(w.fc2_s, w.fc2_b, x, EPI_BIAS_RESID, rf, x);
+  WM_TRY32(gemm32(c, c.x_h, &mp.fc2, 1, &f2, c.g_fd, F, D));
   return 0;
 }
 
@@ -596,8 +637,6 @@ enum MegastepW8A32Ptr {
   A_Q, A_K, A_V,  // (M, D) f32 scratch: projections
   A_ATTN,         // (M, D) f32 scratch: attention output
   A_H,            // (M, F) f32 scratch: fc1 output
-  A_PART,         // f32 scratch: the GEMM's slices (decode_ops.w8a32_gemm_plan)
-  A_APART,        // f32 scratch: the attention's slices (B, H, C, 16, 66)
   A_SELF_K, A_SELF_V,        // (L', B, S, D) int8 slabs, updated in place
   A_SELF_S,                  // (L', B, S, 2H) bf16 scales, updated in place
   A_CROSS_K,                 // (L', B, H, 64, Se) int8
@@ -616,13 +655,14 @@ enum MegastepW8A32Ptr {
 };
 
 // ints: L, B, T, D, H, F, S (self slab rows), Se (cross rows), cross_len;
-// L' = L slab slots, or L + 1 with the block (slot L is the block's).
+// L' = L slab slots, or L + 1 with the block (slot L is the block's).  D and
+// F multiples of 64 (and of 32: the GEMM's K chunk), Se % 4 == 0.
 extern "C" int wm_megastep_w8a32(void** p, const int* ints, void* stream) {
   using namespace wm;
   const int L = ints[0], B = ints[1], T = ints[2], D = ints[3], H = ints[4];
   const int F = ints[5], S = ints[6], SE = ints[7], cross_len = ints[8];
-  if (T < 1 || T > CD_MAXT || B < 1 || B > 8 || D != H * CD_DH || D % FF_COLS ||
-      F % FF_COLS || cross_len < 1 || cross_len > SE || S < T)
+  if (T < 1 || T > CD_MAXT || B < 1 || B > 8 || D != H * CD_DH || D % FG_COLS ||
+      F % FG_COLS || SE % 4 || cross_len < 1 || cross_len > SE || S < T)
     return (int)cudaErrorInvalidValue;
   const bool block = p[A_BLOCK_HIDDEN] != nullptr;
   for (int i = 0; i <= A_HIDDEN; ++i)
@@ -635,7 +675,7 @@ extern "C" int wm_megastep_w8a32(void** p, const int* ints, void* stream) {
   auto P = [&](int i) { return static_cast<float*>(p[i]); };
   float* x = P(A_X);
   c.ln = P(A_LN); c.qb = P(A_Q); c.kb = P(A_K); c.vb = P(A_V);
-  c.attn = P(A_ATTN); c.hb = P(A_H); c.part = P(A_PART); c.apart = P(A_APART);
+  c.attn = P(A_ATTN); c.hb = P(A_H);
   c.self_k = static_cast<int8_t*>(p[A_SELF_K]);
   c.self_v = static_cast<int8_t*>(p[A_SELF_V]);
   c.self_s = static_cast<bf16*>(p[A_SELF_S]);
@@ -646,12 +686,37 @@ extern "C" int wm_megastep_w8a32(void** p, const int* ints, void* stream) {
   c.offsets = static_cast<const int*>(p[A_OFFSETS]);
   c.bits = static_cast<const int*>(p[A_BITS]);
   c.st = (cudaStream_t)stream;
+  // The GEMMs' plans (K slices from (K, N) alone, passes from M) and their
+  // shared memory; the X maps; the streamed weights' maps; the attention's
+  // plans and shared memory: once a step.
+  const int M = c.M;
+  c.g_dd3 = fg_plan(M, D, D, 3, true);
+  c.g_dd = fg_plan(M, D, D, 1, true);
+  c.g_df = fg_plan(M, D, F, 1, true);
+  c.g_fd = fg_plan(M, F, D, 1, true);
+  int smem = 0;
+  for (const FgPlan* g : {&c.g_dd3, &c.g_dd, &c.g_df, &c.g_fd})
+    smem = g->smem > smem ? g->smem : smem;
+  WM_TRY32(fg_set_smem(c.g_dd.rq, true, smem));
+  WM_TRY32(fg_x_map(&c.x_ln, c.ln, M, D, c.g_dd.rq));
+  WM_TRY32(fg_x_map(&c.x_attn, c.attn, M, D, c.g_dd.rq));
+  WM_TRY32(fg_x_map(&c.x_h, c.hb, M, F, c.g_dd.rq));
+  LayerMaps stack_maps, block_maps;
+  WM_TRY32(encode_layer_maps_w8(&stack_maps, p, A_W0, L, D, F));
+  if (block) WM_TRY32(encode_layer_maps_w8(&block_maps, p, A_B_W0, 1, D, F));
+  WM_TRY32((da_plan<true, true, true>(S, T, &c.self_plan)));
+  WM_TRY32((da_plan<false, true, true>(SE, T, &c.cross_plan)));
+  const int slots = L + (block ? 1 : 0);
+  WM_TRY32(da_maps(&c.cross_mk, &c.cross_mv, c.cross_k, c.cross_v, true, SE, H,
+                   slots * B * H * CD_DH, slots * B, da_kbox(c.cross_plan.slice)));
   for (int l = 0; l < L; ++l)
-    WM_TRY32(layer_step_w8a32(layer_weights_w8a32(p, A_W0, A_S0, l, D, F), x, l, c));
+    WM_TRY32(layer_step_w8a32(
+        layer_weights_w8a32(p, A_W0, A_S0, l, D, F, &stack_maps), x, l, c));
   float* bx = block ? P(A_BLOCK_HIDDEN) : nullptr;
   WM_TRY32(launch_ln32(x, P(A_HIDDEN), bx, P(A_LN_POST_S), P(A_LN_POST_B), c.M, D, c.st));
   if (block)
-    WM_TRY32(layer_step_w8a32(layer_weights_w8a32(p, A_B_W0, A_B_S0, 0, D, F), bx, L, c));
+    WM_TRY32(layer_step_w8a32(layer_weights_w8a32(p, A_B_W0, A_B_S0, 0, D, F, &block_maps), bx,
+                              L, c));
   return (int)cudaGetLastError();
 }
 

@@ -837,8 +837,8 @@ extern "C" int wm_head_rows(const void* src, const void* w, const void* b, void*
 // instead of 212 MB) and column v's f32 sum is multiplied by s[v] before
 // the processors (tile_stats<Q = true, TS>), in every mode of the f32 form
 // (ts_cfg, identity0); int8 heads (V_HEADS_S given) run stage A on the
-// W8A32 GEMM (ffma_gemm8_kernel: the heads as a stack, the column's scale
-// on the sum before the bias, EPI_SILU_RESID).  The JAX kernels score the
+// int8-weight mode of ffma_gemm.cuh (the heads as a stack, the column's
+// scale on the sum before the bias, EPI_SILU_RESID, one launch).  The JAX kernels score the
 // f32 rows against the embedding cast to f32 (verify.py:208, :365) and cast
 // int8 heads to the rows' dtype (:345-354).
 namespace wm {
@@ -947,9 +947,9 @@ inline int score_rows_f32(const float* rows, int n_rows, const void* e, const fl
 
 // K4's f32 mode: wm_verify_hidden's pointer table and ints, every float
 // operand f32 (the rows scratch (R, D) f32; W8A32: an int8 embedding and /
-// or int8 heads with their f32 scales), and one more pointer at V_COUNT:
-// with int8 heads, stage A's (nh, slices, BN, D) f32 scratch of the W8A32
-// GEMM (unread with f32 heads: the f32 GEMM needs none).
+// or int8 heads with their f32 scales); the pointer at V_COUNT (the bf16
+// mode's staging rows) is not read: stage A is one launch of ffma_gemm.cuh
+// (f32 or int8 heads) and needs no scratch.
 extern "C" int wm_verify_hidden_f32(void** p, const int* ints, float log_factor,
                                     void* stream) {
   using namespace wm;
@@ -963,18 +963,10 @@ extern "C" int wm_verify_hidden_f32(void** p, const int* ints, float log_factor,
                     st);
   const float* src = static_cast<const float*>(p[V_HSRC]);
   float* hrows = rows + (size_t)id0 * BN * D;
-  int err;
-  if (p[V_HEADS_S] != nullptr) {
-    const Ff8Job j = {static_cast<const int8_t*>(p[V_HEADS_W]),
-                      static_cast<const float*>(p[V_HEADS_S]),
-                      static_cast<const float*>(p[V_HEADS_B]), src, hrows, 1.0f,
-                      EPI_SILU_RESID};
-    err = ff_gemm8(src, &j, 1, NH, static_cast<float*>(p[V_COUNT]), BN, D, D, st);
-  } else {
-    err = fg_launch(src, static_cast<const float*>(p[V_HEADS_W]),
-                    static_cast<const float*>(p[V_HEADS_B]), src, hrows, BN, D, D, NH,
-                    EPI_SILU_RESID, st);
-  }
+  // Stage A: f32 heads, or int8 heads with their scales (the W8A32 GEMM).
+  const int err = fg_launch(src, p[V_HEADS_W], static_cast<const float*>(p[V_HEADS_S]),
+                            static_cast<const float*>(p[V_HEADS_B]), src, hrows, BN, D, D, NH,
+                            EPI_SILU_RESID, st);
   if (err != 0) return err;
   return score_rows_f32(rows, R, p[V_EMBED], static_cast<const float*>(p[V_EMBED_S]), V, D,
                         static_cast<const int*>(p[V_POS]), static_cast<const int*>(p[V_GCOL]),

@@ -1,13 +1,14 @@
 """Where the device time goes, on one CUDA card.
 
     python -m whisper_medusa_tpu_torch.device_profile \
-        [--part serving|heads|per_op|step|train|f32|all]
+        [--part serving|heads|per_op|step|train|f32|w8a32|all]
 
-Seven parts, all at full whisper-large-v2 width with bf16 weights drawn from
+Eight parts, all at full whisper-large-v2 width with bf16 weights drawn from
 a seed, and the same again on ``model.quantize()`` (int8 serving) for parts
 2, 3, 4 and 6 (``--part serving`` runs parts 1-4 and 6, ``--part heads``
 part 3, ``--part per_op`` part 6, ``--part step`` part 6's per-op steps
-alone, ``--part train`` part 5, ``--part f32`` part 7 alone).
+alone, ``--part train`` part 5, ``--part f32`` part 7 alone, ``--part
+w8a32`` part 8 alone).
 Run with another checkout's package first on ``PYTHONPATH`` (``PYTHONPATH=DIR
 python path/to/this/device_profile.py ...``), it profiles that checkout's
 code the same way:
@@ -62,7 +63,12 @@ code the same way:
      with its launches a layer; one f32 full fine-tune step of base_head as
      in part 5.  The f32 GEMM (``ffma_gemm_kernel``, and in older builds its
      ``ffma_combine_kernel``) and K1's f32 mode (``attention_f32_kernel``)
-     are rows of each table.
+     are rows of each table;
+  8. W8A32 (``model.quantize()`` of part 7's f32 model: int8 decoder
+     weights, embedding and heads, f32 activations): Medusa and vanilla
+     requests at B=1 as in part 4, each step on K2's W8A32 mode (its GEMM
+     ``ffma_gemm_kernel<RQ, true>`` and its attention
+     ``decode_attn_f32_kernel``, rows of each table).
 
 Kernels are listed by name without their template arguments, so PyTorch's
 elementwise kernels of one kind share a line.  A kernel's device time is
@@ -609,6 +615,24 @@ def profile_f32():
     profile_training(dtypes=("float32",), recipes=TRAIN_RECIPES[1:])
 
 
+def profile_w8a32():
+    """Part 8: the int8 copy of part 7's f32 model: Medusa and vanilla
+    requests at B=1."""
+    from whisper_medusa_tpu_torch.config import WHISPER_PRESETS, MedusaConfig, ModelConfig
+    from whisper_medusa_tpu_torch.models.api import WhisperMedusaModel
+
+    dims = WHISPER_PRESETS["large-v2"]
+    cfg = ModelConfig(dims=dims, medusa=MedusaConfig(medusa_hidden_size=dims.d_model))
+    model = WhisperMedusaModel.from_random(cfg, seed=SEED)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 1)
+    model.params["medusa"]["heads"]["w"].normal_(0.0, 0.02, generator=g)
+    qmodel = model.quantize()
+    del model
+    torch.cuda.empty_cache()
+    profile_requests(qmodel, "w8a32", batches=(1,))
+
+
 def profile_heads(model, qmodel):
     """Part 3."""
     for m, mode in ((model, "bf16"), (qmodel, "int8")):
@@ -640,7 +664,7 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--part", choices=("all", "serving", "heads", "per_op", "step", "train",
-                                           "f32"), default="all")
+                                           "f32", "w8a32"), default="all")
     part = parser.parse_args(argv).part
     if not torch.cuda.is_available():
         raise SystemExit("device_profile needs a CUDA card")
@@ -652,6 +676,9 @@ def main(argv=None):
         return
     if part == "f32":
         profile_f32()
+        return
+    if part == "w8a32":
+        profile_w8a32()
         return
     cfg = ModelConfig(dims=WHISPER_PRESETS["large-v2"], medusa=MedusaConfig(),
                       param_dtype="bfloat16", compute_dtype="bfloat16")

@@ -1,7 +1,9 @@
 """Time this checkout's K1, K6, K8, K10, K7, K3, K2, K11, K5, K4,
-``wm_head_rows``, K3's and K9's f32 modes, K1's f32 mode and the f32 GEMM
-(alone, and inside K11, ``wm_head_rows`` and K4's stage A at f32) against
-another checkout's build of them, on one CUDA card, in turns.
+``wm_head_rows``, K3's and K9's f32 modes, K1's f32 mode, the f32 GEMM
+(alone, and inside K11, ``wm_head_rows`` and K4's stage A at f32), K10's
+f32, mask and W8A32 modes, the W8A32 GEMM (alone, in ``wm_head_rows`` and
+K4's stage A on int8 heads) and K2's W8A32 mode against another
+checkout's build of them, on one CUDA card, in turns.
 
     python -m whisper_medusa_tpu_torch.kernel_ab --other DIR [--only K4K5,head_rows]
 
@@ -21,11 +23,11 @@ tied-embedding stream of K3 and K7 (``nt_stream_kernel<MT, W8>``) — is
 compared between the builds (``cuobjdump -sass``), instruction for
 instruction, and whether it is the same is printed (the f32 and W8A32
 modes are kernels of their own beside them); then every other function of
-the library outside the kernels a build may change (``_CHANGED``: K1's f32
-kernel and the f32 GEMM, with the kernels they replaced; K3's and K9's f32
-kernels, the W8A32 GEMM and its combine, ``ffma_tile``'s other users, K4 /
-K5's f32 stream and the W8A32 attention kernels stay held) is compared by
-name the same way.  Then:
+the library outside the kernels a build may change (``_CHANGED``: the f32
+GEMM with its int8-weight mode and the f32 decode attention, with the
+kernels they replaced; K1's, K3's and K9's f32 kernels, ``ffma_tile``'s
+users, K4 / K5's f32 stream and ``ln_rows_f32_kernel`` stay held) is
+compared by name the same way.  Then:
 
   * K1, ``wm_attention_fwd``, at (1, 20, 1500, 64) and (8, 20, 1500, 64),
     the encoder's self-attention at B=1 and B=8;
@@ -98,7 +100,17 @@ name the same way.  Then:
     (``ffma_gemm_kernel`` and, in older builds, ``ffma_combine_kernel``) by
     name.  Each through its checkout's own ``ops/decode_ops.py`` /
     ``ops/verify.py`` (the verify module's GEMM wrapper its own checkout's),
-    so a build's scratch allocations count.
+    so a build's scratch allocations count;
+  * K10's f32, W8A32 and f32 mask modes through each build's
+    ``ops/decode_ops.py`` at (B, 20, T, 64) x 1500 and (B, T, 20 heads) x
+    460, B = 16, 8, 1, T = 11 and 1, beside f32 SDPA (``K10f32``); the
+    W8A32 GEMM alone (``gemm_w8a32_launch``) at M = 1, 11, 88 through the
+    three weight shapes beside ``addmm`` on the dequantized copy and this
+    build's f32 GEMM on it (``GEMMw8a32``); the int8 head rows at
+    HEAD32_SHAPES and K4 at R = 121 on int8 heads and embedding
+    (``heads_w8a32``); K2's W8A32 mode over 32 seeded layers at K2_ROWS and
+    its block mode at (1, 11), its GEMM, attention and norms by kernel with
+    their launches a layer (``K2w8a32``).
 
 Each shape runs in the order other, this, this, other; each turn prints the
 median of 20 calls between CUDA events (``device_profile._cuda_ms``) and the
@@ -118,11 +130,13 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import importlib.util
 import os
 import re
 import shutil
 import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -158,6 +172,15 @@ K11F32_ROWS = (11, 88, 176)
 HEAD32_SHAPES = ((0, 1, 88), (1, 11, 8), (0, 11, 11))
 GEMM32_KERNELS = ("ffma_gemm_kernel", "ffma_combine_kernel")
 K11_SHAPES = ((1280, 5120, (16, 88, 176)), (384, 1536, (11, 88)))
+# The W8A32 GEMM alone (K2 W8A32's projections: M = B T at (1, 1), (1, 11),
+# (8, 11)) and its kernels in either build; K10's f32 modes at T = 11 and 1
+# and their kernels; K2 W8A32's kernels by family.
+W8_ROWS = (1, 11, 88)
+K10F32_BATCH = (16, 8, 1)     # the per-op step's B=16 row, and the f32 requests' B=8 and B=1
+W8_KERNELS = ("ffma_gemm", "ffma_combine8_kernel")
+ATTN32_KERNELS = ("decode_attn_f32_kernel", "decode_combine_f32_kernel")
+K2W8_FAMILIES = (("GEMM", W8_KERNELS), ("attention", ATTN32_KERNELS),
+                 ("norms", ("ln_rows_f32_kernel",)))
 K5_ROWS = (8, 88, 176, 1024)
 
 
@@ -271,12 +294,15 @@ def _sass_same(all_funcs):
               flush=True)
 
 
-# The kernels a build may change, by name: K1's f32 mode and the f32 GEMM
-# (ffma_gemm.cuh's weight stream, and the GEMM + combine pair it replaced;
-# the W8A32 GEMM, ffma_gemm8_kernel, and its combine stay held).  Every
-# other function of the library (K3's and K9's f32 kernels among them) is
-# held to the other build's SASS by _sass_rest.
-_CHANGED = re.compile(r"attention_f32_kernel|ffma_gemm_kernel|ffma_combine_kernel")
+# The kernels a build may change, by name: the f32 GEMM and its int8-weight
+# mode (ffma_gemm.cuh's weight stream; the W8A32 GEMM + combine pair it
+# replaced) and the f32 decode attention (ffma_attn.cuh's cluster body; the
+# slice kernel + combine pair it replaced).  Every other function of the
+# library (K1's, K3's and K9's f32 kernels, the f32 vocab stream and
+# ln_rows_f32_kernel among them) is held to the other build's SASS by
+# _sass_rest.
+_CHANGED = re.compile(r"ffma_gemm_kernel|ffma_gemm8_kernel|ffma_combine8_kernel|"
+                      r"decode_attn_f32_kernel|decode_combine_f32_kernel")
 
 
 def _all_sass(so_path):
@@ -300,9 +326,9 @@ def _all_sass(so_path):
 
 
 def _sass_rest(funcs):
-    """Print whether every function of the library outside _CHANGED (K3's
-    and K9's f32 kernels, the W8A32 GEMM and its combine, ffma_tile's other
-    users, the W8A32 attention kernels, and the families of _HELD) that
+    """Print whether every function of the library outside _CHANGED (K1's,
+    K3's and K9's f32 kernels, ffma_tile's users, ln_rows_f32_kernel, and
+    the families of _HELD) that
     both builds have is instruction for instruction the same, the names
     only one build has (a source that stopped including a header loses the
     unused kernels it instantiated), and the changed kernels each build
@@ -1014,6 +1040,242 @@ def _heads32(root, libs, g):
            part=GEMM32_KERNELS)
 
 
+@contextlib.contextmanager
+def _ops_as(name, mod):
+    """``whisper_medusa_tpu_torch.ops.<name>`` is ``mod`` for the block: the
+    other checkout's modules import their siblings inside functions."""
+    import whisper_medusa_tpu_torch.ops as pkg
+
+    key = f"whisper_medusa_tpu_torch.ops.{name}"
+    old_mod, old_attr = sys.modules[key], getattr(pkg, name)
+    sys.modules[key] = mod
+    setattr(pkg, name, mod)
+    try:
+        yield
+    finally:
+        sys.modules[key] = old_mod
+        setattr(pkg, name, old_attr)
+
+
+def _k10f32(root, libs, g):
+    """K10's f32 modes through each build's ``ops/decode_ops.py`` at T = 11
+    and T = 1 and B in K10F32_BATCH: the f32 cross mode and the W8A32 mode
+    at (B, 20, T, 64) x 1500 (int8 K/V with f32 scales as chip_smoke.py
+    draws them), the f32 mask mode at (B, T, 20 heads) x 460, offsets
+    3-400; each build within
+    1e-4 + 1e-4 |y| of the plain version, whether their outputs are bitwise
+    equal printed, f32 SDPA (on the dequantized, head-major K / V; with the
+    step's mask) beside, TF32 off; the kernels by name."""
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mods = {"other": _other_ops(root, "decode_ops", libs["other"]), "this": DO}
+    for b in K10F32_BATCH:
+        _k10f32_batch(mods, g, b)
+
+
+def _k10f32_batch(mods, g, b):
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    h, s_len, s_self = 20, 1500, 460
+    rnd = lambda *shape, scale=1.0: torch.randn(shape, generator=g, device="cuda") * scale
+    i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                      dtype=torch.int8)
+    scl = lambda: 0.004 + 0.012 * torch.rand((b, h, s_len), generator=g, device="cuda")
+    k, v = rnd(b, h, 64, s_len), rnd(b, s_len, h * 64)
+    k8, v8, sc = i8(b, h, 64, s_len), i8(b, s_len, h * 64), (scl(), scl())
+    ks, vs = rnd(b, s_self, h * 64), rnd(b, s_self, h * 64)
+    offs = torch.linspace(3, 400, b, device="cuda").round().to(torch.int32)
+    for t in (11, 1):
+        q = rnd(b, h, t, 64, scale=0.125)
+        qs = rnd(b, t, h, 64, scale=0.125)
+        bits = DO.chunk_bits(None, t, "cuda")
+        kd = (k8.float() * sc[0][:, :, None, :]).transpose(2, 3).contiguous()
+        vd = (v8.float().reshape(b, s_len, h, 64).transpose(1, 2) * sc[1][..., None]).contiguous()
+        kh = k.transpose(2, 3).contiguous()
+        vh = v.reshape(b, s_len, h, 64).transpose(1, 2).contiguous()
+        mask = whisper.make_step_mask(offs, t, s_self, None)
+        qsh = qs.transpose(1, 2).contiguous()
+        ksh, vsh = (a.reshape(b, s_self, h, 64).transpose(1, 2).contiguous() for a in (ks, vs))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        cases = (
+            ("f32", lambda do: do.cross_attention_decode_kernel(q, k, v, s_len),
+             DO.cross_attention_decode_plain(q, k, v, s_len),
+             lambda: sdpa(q, kh, vh, scale=1.0)),
+            ("w8a32", lambda do: do.cross_attention_decode_kernel(q, k8, v8, s_len, *sc),
+             DO.cross_attention_decode_plain(q, k8, v8, s_len, *sc),
+             lambda: sdpa(q, kd, vd, scale=1.0)),
+            ("f32 mask", lambda do: do.self_attention_decode_kernel(qs, ks, vs, offs, bits),
+             DO.self_attention_decode_plain(qs, ks, vs, offs, None),
+             lambda: sdpa(qsh, ksh, vsh, attn_mask=mask, scale=1.0)))
+        for mode, fn, ref, lib in cases:
+            calls = {who: (lambda do=do: fn(do)) for who, do in mods.items()}
+            ys = {who: c() for who, c in calls.items()}
+            if any(not _close32(y, ref) for y in ys.values()):
+                errs = {who: float((y - ref).abs().max()) for who, y in ys.items()}
+                raise AssertionError(f"K10 {mode} T={t}: a build is off the plain version: "
+                                     f"{errs}")
+            lib_ms = sum(us for us, _ in _by_kernel(lib, 20).values()) / 1e3
+            shape = (f"({b}, T={t}, 20 heads) x {s_self}" if mode == "f32 mask" else
+                     f"({b},20,{t},64) x {s_len}")
+            _turns(f"K10 {mode} {shape} (SDPA f32: device {lib_ms:.4f} ms), builds bitwise "
+                   f"equal {torch.equal(ys['this'], ys['other'])}", calls, part=ATTN32_KERNELS)
+
+
+def _w8_weight(g, k, n, nh=None):
+    """A seeded N(0, 0.02) f32 weight, (k, n) or (nh, k, n), as int8 values
+    and f32 column scales (``qmm.quantize_array``), and its dequantized f32
+    copy."""
+    w = torch.randn(((nh,) if nh else ()) + (k, n), generator=g, device="cuda") * 0.02
+    q, s = QM.quantize_array(w)
+    return q.contiguous(), s.contiguous(), (q.float() * s.unsqueeze(-2)).contiguous()
+
+
+def _gemm_w8(root, libs, g):
+    """The W8A32 GEMM alone through each build's
+    ``decode_ops.gemm_w8a32_launch`` at W8_ROWS x GEMM32_SHAPES (a bias on),
+    each build within 1e-4 + 1e-4 |y| of ``torch.addmm`` in f32 on the
+    dequantized copy (TF32 off), whose device time is printed beside with
+    this build's f32 GEMM on the same copy (``gemm_f32``)."""
+    from whisper_medusa_tpu_torch.ops import decode_ops as DO
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mods = {"other": _other_ops(root, "decode_ops", libs["other"]), "this": DO}
+    for k, n in GEMM32_SHAPES:
+        q, s, wd = _w8_weight(g, k, n)
+        bias = torch.randn((1, n), generator=g, device="cuda") * 0.02
+        for m in W8_ROWS:
+            x = torch.randn((m, k), generator=g, device="cuda")
+            calls = {who: (lambda do=do: do.gemm_w8a32_launch(x, q[None], s[None], bias,
+                                                               DO.EPI_BIAS))
+                     for who, do in mods.items()}
+            ref = torch.addmm(bias[0], x, wd)
+            ys = {who: fn()[0] for who, fn in calls.items()}
+            if any(not _close32(y, ref) for y in ys.values()):
+                raise AssertionError(f"W8A32 GEMM M={m} {k}x{n}: a build is off addmm")
+            lib = sum(us for us, _ in _by_kernel(lambda: torch.addmm(bias[0], x, wd), 20)
+                      .values()) / 1e3
+            f32 = sum(us for us, _ in _by_kernel(lambda: DO.gemm_f32(x, wd, bias[0]), 20)
+                      .values()) / 1e3
+            _turns(f"W8A32 GEMM M={m} {k}x{n} (addmm f32 on the dequantized copy: device "
+                   f"{lib:.4f} ms; this build's f32 GEMM on it: {f32:.4f} ms), builds bitwise "
+                   f"equal {torch.equal(ys['this'], ys['other'])}", calls, part=W8_KERNELS)
+
+
+def _heads_w8(root, libs, g):
+    """The int8 head rows (``wm_head_rows``' W8A32 mode, row 4aq32) through
+    each build's ``verify.head_rows_kernel`` at HEAD32_SHAPES on 11 seeded
+    int8 heads (N(0, 0.02) quantized), the L2 flushed before each call,
+    beside the baddbmm / silu / add yardstick on the dequantized heads; then
+    K4 at R = 121 on int8 heads and an int8 embedding (row 4q32) with its
+    stage A's kernels by name."""
+    mods = _f32_mods(root, libs)
+    v, d, eos = 51865, 1280, 50257
+    hq, hs, hd = _w8_weight(g, d, d, 11)
+    hb = torch.randn((11, d), generator=g, device="cuda") * 0.02
+    heads = {"q": hq, "s": hs}
+    for lo, hi, m in HEAD32_SHAPES:
+        src = torch.randn((m, d), generator=g, device="cuda")
+        w = {"q": hq[lo:hi].contiguous(), "s": hs[lo:hi].contiguous()}
+        b = hb[lo:hi]
+        calls = {who: (lambda vf=vf: vf.head_rows_kernel(src, w, b))
+                 for who, (_, vf) in mods.items()}
+        ref = mods["this"][1].head_rows_plain(src, w, b)
+        ys = {who: fn() for who, fn in calls.items()}
+        if any(not _close32(y, ref) for y in ys.values()):
+            raise AssertionError(f"int8 head rows heads {lo}..{hi - 1} M={m}: a build is off")
+        yard = lambda: src[None] + torch.nn.functional.silu(
+            torch.baddbmm(b[:, None, :], src[None].expand(b.shape[0], -1, -1), hd[lo:hi]))
+        _turns(f"head_rows w8a32 heads {lo}..{hi - 1} M={m} (baddbmm / silu / add on the "
+               f"dequantized heads: device {_cold_ms(yard):.4f} ms, L2 flushed), builds bitwise "
+               f"equal {torch.equal(ys['this'], ys['other'])}", calls, part=W8_KERNELS,
+               cold=True)
+    eq, es = QM.quantize_array(torch.randn((v, d), generator=g, device="cuda") * 0.05, axis=-1)
+    emb = {"q": eq.contiguous(), "s": es.contiguous()}
+    masks = torch.zeros((2, v), dtype=torch.int8, device="cuda")
+    n = 11
+    hid = torch.randn((1, n, d), generator=g, device="cuda")
+    pos = (5 + torch.arange(n, device="cuda")[None, :]
+           + torch.arange(11, device="cuda")[:, None]).reshape(-1).to(torch.int32)
+    gcol = torch.randint(0, v, (11 * n,), generator=g, device="cuda").to(torch.int32)
+    kw = dict(identity0=False, begin_index=4, eos_id=eos, decay=(9, 1.2))
+    calls = {who: (lambda vf=vf: vf.verify_hidden_kernel(hid, hid, heads, hb, emb, pos, gcol,
+                                                         masks, **kw))
+             for who, (_, vf) in mods.items()}
+    note = _agree("K4 W8A32 R=121", calls["this"](), calls["other"]())
+    _turns(f"K4 W8A32 verify_hidden R=121 (stage A: the W8A32 GEMM), {note}", calls,
+           part=W8_KERNELS)
+
+
+def _k2w8(root, libs, g):
+    """K2's W8A32 mode, ``wm_megastep_w8a32``, through each checkout's own
+    ``ops/megastep.py::megastep_kernel`` (its decode_ops the checkout's
+    own) on the same inputs: 32 seeded large-v2 layers as the int8 copy of
+    an f32 model (f32 norms and biases, int8 streamed weights), int8 caches
+    as chip_smoke.py draws them, at (B, T) in K2_ROWS, then the block mode
+    at (1, 11); offsets 20 on a 460-row cache.  Each turn prints events /
+    device / C-entry host ms, then the device ms a step of the GEMM, the
+    attention and the norms with their launches a layer.  The builds'
+    hidden states must agree at cosine >= 0.999999."""
+    from whisper_medusa_tpu_torch.device_profile import _entry_host_ms
+    from whisper_medusa_tpu_torch.models import whisper
+    from whisper_medusa_tpu_torch.ops import megastep as MS
+
+    odo = _other_ops(root, "decode_ops", libs["other"])
+    mods = {"other": _other_ops(root, "megastep", libs["other"]), "this": MS}
+    nl, h, s_enc, s_len, d = 32, 20, 1500, 460, 1280
+    f32 = lambda t: {k: f32(v) if isinstance(v, dict) else v.float() for k, v in t.items()}
+    layers, ln_post = _random_layers(g, nl)
+    layers, ln_post = QM.quantize_layers(f32(layers)), f32(ln_post)
+    block = QM.quantize_layers(f32(whisper.layer_params(_random_layers(g, 1)[0], 0)))
+    i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                      dtype=torch.int8)
+    scl = lambda *shape: 0.004 + 0.012 * torch.rand(shape, generator=g, device="cuda")
+    for (b, t), blk in [(bt, None) for bt in K2_ROWS] + [((1, 11), block)]:
+        n = nl + (blk is not None)
+        c = dict(self_k=i8(n, b, s_len, d), self_v=i8(n, b, s_len, d),
+                 cross_k=i8(n, b, h, 64, s_enc), cross_v=i8(n, b, s_enc, d))
+        kw = dict(self_s=scl(n, b, s_len, 2 * h).to(torch.bfloat16),
+                  cross_k_s=scl(n, b, h, s_enc), cross_v_s=scl(n, b, h, s_enc))
+        x = torch.randn((b, t, d), generator=g, device="cuda")
+        offs = torch.full((b,), 20, dtype=torch.int32, device="cuda")
+        outs, cells, parts = {}, [], []
+        for who in ("other", "this", "this", "other"):
+            mod = mods[who]
+
+            def run(mod=mod, who=who):
+                with _ops_as("decode_ops", odo if who == "other" else
+                             sys.modules["whisper_medusa_tpu_torch.ops.decode_ops"]):
+                    return mod.megastep_kernel(layers, ln_post, x, c["self_k"], c["self_v"],
+                                               c["cross_k"], c["cross_v"], offs, None, s_enc,
+                                               h, block=blk, **kw)
+            outs.setdefault(who, run()[1].float())
+            ev = _cuda_ms(run)
+            rows = _by_kernel(run, 5)
+            dev = sum(us for us, _ in rows.values()) / 1e3
+            host = _entry_host_ms(run, "wm_megastep_w8a32", lib=libs[who])
+            cells.append(f"{who} {ev:.4f} / {dev:.4f} / {host:.4f}")
+            fam = []
+            for name, prefixes in K2W8_FAMILIES:
+                sel = [(us, cnt) for k, (us, cnt) in rows.items() if k.startswith(prefixes)]
+                fam.append(f"{name} {sum(u for u, _ in sel) / 1e3:.4f} "
+                           f"({sum(cn for _, cn in sel) / n:.0f} a layer)")
+            parts.append(f"{who} " + ", ".join(fam))
+        cos = float(torch.nn.functional.cosine_similarity(
+            outs["this"].reshape(1, -1), outs["other"].reshape(1, -1)))
+        if cos < 0.999999:
+            raise AssertionError(f"K2 W8A32 ({b},{t}): the builds' hidden states at cosine {cos}")
+        mode = "W8A32" + (" block" if blk is not None else "")
+        print(f"K2 megastep {mode} (B, T) = ({b}, {t}), {n} slots, builds at cosine {cos:.9f}, "
+              f"bitwise equal {torch.equal(outs['this'], outs['other'])}: events / device / "
+              "C-entry host ms: " + ", ".join(cells), flush=True)
+        print(f"K2 megastep {mode} (B, T) = ({b}, {t}): device ms a step (launches a layer): "
+              + "; ".join(parts), flush=True)
+        del c, kw
+
+
 # The sections main runs, in its default order; each draws its inputs from
 # the one seeded generator, so a run of a subset gets other (seeded) inputs.
 SECTIONS = {"K1": _k1, "K6": _k6, "K8": _k8, "K10": _k10,
@@ -1021,7 +1283,8 @@ SECTIONS = {"K1": _k1, "K6": _k6, "K8": _k8, "K10": _k10,
             "K2": _k2, "K11": _k11, "K4K5": _verify, "head_rows": _head_rows,
             "K3f32": lambda root, libs, g: _k3f32(libs, g), "K9f32": _k9f32,
             "K1f32": lambda root, libs, g: _k1f32(libs, g), "GEMMf32": _gemm32,
-            "heads32": _heads32}
+            "heads32": _heads32, "K10f32": _k10f32, "GEMMw8a32": _gemm_w8,
+            "heads_w8a32": _heads_w8, "K2w8a32": _k2w8}
 
 if __name__ == "__main__":
     main()

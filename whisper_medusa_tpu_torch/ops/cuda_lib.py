@@ -71,14 +71,14 @@ _SIGNATURES = {
     "wm_logits_f32": [_vp] * 3 + [_ci] * 3 + [_vp],
     "wm_verify_hidden_f32": [_ptrs, _ints, ctypes.c_float, _vp],
     "wm_verify_rows_f32": [_ptrs, _ints, ctypes.c_float, _vp],
-    "wm_cross_decode_f32": [_vp] * 5 + [_ci] * 5 + [_vp],
-    "wm_self_decode_f32": [_vp] * 7 + [_ci] * 5 + [_vp],
+    "wm_cross_decode_f32": [_vp] * 4 + [_ci] * 5 + [_vp],
+    "wm_self_decode_f32": [_vp] * 6 + [_ci] * 5 + [_vp],
     "wm_ffn_decode_f32": [_vp] * 7 + [_ci] * 3 + [_vp],
     "wm_gemm_f32": [_vp] * 5 + [_ci] * 5 + [_vp],
     # The W8A32 modes (f32 rows, int8 weights and caches: FFMA, int8 -> f32).
     "wm_megastep_w8a32": [_ptrs, _ints, _vp],
-    "wm_cross_decode_w8a32": [_vp] * 7 + [_ci] * 5 + [_vp],
-    "wm_gemm_w8a32": [_vp] * 7 + [_ci] * 5 + [_vp],
+    "wm_cross_decode_w8a32": [_vp] * 6 + [_ci] * 5 + [_vp],
+    "wm_gemm_w8a32": [_vp] * 6 + [_ci] * 5 + [_vp],
 }
 
 

@@ -71,11 +71,16 @@ The f32 modes serve f32 weights, the JAX package's default dtype (whose
 f32 decoder step is its scan, K2 refusing f32): f32 products and sums in
 FFMA on the CUDA cores, since the tensor cores take f32 only as TF32.
 K10's f32 mode (``wm_cross_decode_f32``, ``wm_self_decode_f32``) cuts the
-keys by the same :func:`cluster_split`; a CTA per (slice, head, example)
-computes its slice's scores, max, sum of exp and unnormalised PV, and a
-combine kernel rescales the slices to the global max and adds them in
-slice order (P is not rounded, as the TPU kernel's P at f32).  K11's f32
-mode (``wm_ffn_decode_f32``) and the f32 head rows and projections
+keys by the same :func:`cluster_split` and, like the bf16 mode, runs one
+thread-block cluster per (example, head) (``csrc/ffma_attn.cuh``): each CTA
+stages its K and V slice (the cross modes' by TMA, one box each, the mask
+mode's rows by ``cp.async``; :func:`f32_attention_plan`), computes FFMA
+scores in register tiles over (keys x query rows) for 1, 4, 8 or 16 rows (:func:`f32_rows`,
+from T: a T = 1 step computes one row), the row maxima and then the row
+sums are merged through distributed shared memory, and each row's owner
+rank adds the PV partials in rank order and divides by the sum: one launch
+a call, no scratch (P is not rounded, as the TPU kernel's P at f32).  K11's
+f32 mode (``wm_ffn_decode_f32``) and the f32 head rows and projections
 (``wm_gemm_f32``, :func:`gemm_f32`) run ``csrc/ffma_gemm.cuh``'s f32
 weight stream, one launch a product: a CTA per (64 columns, K slice, head,
 group of up to 4 passes of up to 32 rows), the slices from (K, N) alone
@@ -86,13 +91,16 @@ wrappers take any M in one call.
 
 W8A32 (the int8 copy of an f32 model, whose per-op step is JAX's scan at
 f32 rows): K10's W8A32 mode (``wm_cross_decode_w8a32``) is the f32 body
-(``csrc/ffma_attn.cuh``) on int8 cross K/V, each value converted exactly,
-a score times its key's scale before the mask and a probability times its
-value's scale before the PV product, as :func:`cross_attention_decode_plain`
-(counted in ``w8a32_cross_launches``); :func:`gemm_w8a32_launch` is
-``csrc/ffma.cuh``'s GEMM on int8 weights (the W8A32 head rows), a CTA per
-(64 columns, K slice, head, pass of up to 128 rows) into a partials
-scratch and a combine kernel (:func:`w8a32_gemm_plan`).  The step's projections
+(``csrc/ffma_attn.cuh``) on int8 cross K/V staged as int8, each value
+converted exactly, a score times its key's scale before the mask and a
+probability times its value's scale before the PV product, as
+:func:`cross_attention_decode_plain` (counted in ``w8a32_cross_launches``);
+:func:`gemm_w8a32_launch` is ``csrc/ffma_gemm.cuh``'s weight stream in its
+int8-weight mode (the W8A32 head rows; K2's W8A32 projections and K4
+W8A32's stage A run it too): the same plan as the f32 GEMM
+(:func:`f32_gemm_plan` with ``w8``), 2 KB int8 W chunks converted exactly
+to f32 as they are read, the column's scale on the slices' sum before the
+bias, one launch and no scratch.  The step's projections
 and FFN stay on K6 (JAX's ``qmm`` rounds the rows to bf16), and its
 self-attention reads the bf16-dequantized slab widened to f32 through
 K10's f32 mask mode (``models/whisper.py::_attend_ops``).
@@ -134,9 +142,9 @@ f32_self_launches = 0    # its f32 mask mode
 f32_ffn_launches = 0     # K11's f32 mode
 f32_gemm_launches = 0    # the f32 GEMM alone (wm_gemm_f32): the per-op step's projections
 w8a32_cross_launches = 0  # K10's W8A32 mode (f32 queries, int8 K/V)
+w8a32_gemm_launches = 0  # the W8A32 GEMM alone (wm_gemm_w8a32): the int8 head rows
 F32_COLS = 64            # csrc/ffma.cuh FF_COLS: output columns a CTA
 F32_KC = 16              # csrc/ffma.cuh FF_KC: K a staged chunk holds
-F32_WAVE = 264           # csrc/ffma.cuh FF_WAVE: CTAs the K slices aim at
 GEMM32_COLS = 64         # csrc/ffma_gemm.cuh FG_COLS: W columns a CTA
 GEMM32_KC = 32           # csrc/ffma_gemm.cuh FG_KC: K a stage holds
 GEMM32_KG = 8            # csrc/ffma_gemm.cuh FG_KG: k groups (4 k of a chunk each)
@@ -148,7 +156,10 @@ GEMM32_MAX_SLICES = 4    # csrc/ffma_gemm.cuh FG_MAX_SLICES: the CTAs of one clu
 GEMM32_RING = 61440      # csrc/ffma_gemm.cuh FG_RING: ring bytes a CTA
 GEMM32_PRODUCER_RQ = 4   # csrc/ffma_gemm.cuh FG_PRODUCER_RQ: a producer warp to 16 rows
 GEMM32_RP = 68           # csrc/ffma_gemm.cuh FG_RP: f32 pitch of the sums' rows
-F32_PART_ROW = HEAD_DIM + 2   # csrc/decode_ops.cu DF_ROW: a K10 f32 slice's (O, max, sum)
+GEMM32_MAX_JOBS = 3      # csrc/ffma_gemm.cuh FG_MAX_JOBS: K2's q / k / v on one X
+ATTN32_THREADS = 256     # csrc/ffma_attn.cuh DA_THREADS: a CTA of the f32 attention
+ATTN32_KP = 68           # csrc/ffma_attn.cuh DA_KP: f32 pitch of a mask-mode K row
+ATTN32_MAX_SMEM = 232448  # a CTA's shared memory on the H100 (227 KB)
 EPI_BIAS, EPI_SILU_RESID = 0, 4   # csrc/common.cuh Epi: the f32 GEMM's epilogues here
 
 
@@ -289,11 +300,38 @@ def chunk_bits(chunk_mask: Optional[torch.Tensor], t: int, device,
     return _as_int32_bits(rows).to(device).contiguous()
 
 
-def _f32_part(b: int, h: int, s: int, device) -> torch.Tensor:
-    """K10's f32 scratch: each (example, head, key slice)'s (16 rows of O,
-    max and sum), (B, H, C, 16, 66) f32, C from :func:`cluster_split`."""
-    return torch.empty((b, h, cluster_split(s)[0], MAX_T, F32_PART_ROW),
-                       dtype=torch.float32, device=device)
+def f32_rows(t: int) -> int:
+    """The query rows one launch of K10's f32 modes computes for T <= 16
+    rows (csrc/ffma_attn.cuh ``da_rows``): 1, 4, 8 or 16."""
+    return 1 if t <= 1 else 4 if t <= 4 else 8 if t <= 8 else 16
+
+
+def f32_attention_plan(s: int, t: int, self_mode: bool, int8: bool = False):
+    """The launch of K10's f32 modes and of K2 W8A32's attention over S
+    keys and T <= 16 query rows (csrc/ffma_attn.cuh ``da_plan``): the
+    cluster of C CTAs and each rank's SC keys (:func:`cluster_split`, from S
+    alone), the NR query rows (:func:`f32_rows`), the keys of a K / V box
+    (the slice, or half of it past 256 keys: one TMA load each), the PV key groups (16 d
+    quads x NR / RR row groups x KG = 256 threads, RR = 4 rows a tile, 1 at
+    NR = 1), the rows each rank owns in the merge, and the shared memory of
+    a CTA (``da_smem``: region A, which holds the K slice, then the scores
+    and p, then the PV key groups' partials; V; q transposed; the int8
+    modes' scales; the PV rows pushed by the other ranks; their maxima and
+    sums; two mbarriers; 128-byte aligned)."""
+    c, sc = cluster_split(s)
+    nr = f32_rows(t)
+    rr = 4 if nr >= 4 else 1
+    es = 1 if int8 and not self_mode else 4
+    r128 = lambda x: -(-x // 128) * 128
+    kb = sc * ATTN32_KP * 4 if self_mode else HEAD_DIM * sc * es
+    region_a = max(kb, nr * (sc + 4) * 4, 16 * rr * HEAD_DIM * 4)
+    own = -(-nr // c)
+    qp = 1 if nr == 1 else nr + 4
+    smem = (128 + r128(region_a) + r128(sc * HEAD_DIM * es) + r128(HEAD_DIM * qp * 4)
+            + r128(2 * sc * 4) + r128(c * own * HEAD_DIM * 4)
+            + r128(2 * MAX_CLUSTER * MAX_T * 4) + 16)
+    return dict(c=c, sc=sc, nr=nr, rr=rr, key_box=sc if sc <= 256 else sc // 2,
+                key_groups=16 // (nr // rr), own=own, smem=smem, region_a=region_a)
 
 
 def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -318,18 +356,6 @@ def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
                               device=q.device)
         if k_s.shape != (b, h, s) or v_s.shape != (b, h, s):
             raise ValueError("cross_attention_decode kernel: scales must be (B, H, S)")
-        if f32:
-            def launch_w8a32(qb):
-                global w8a32_cross_launches
-                out = torch.empty_like(qb)
-                part = _f32_part(b, h, s, q.device)
-                cuda_lib.launch("wm_cross_decode_w8a32", q.device, qb.data_ptr(),
-                                k.data_ptr(), v.data_ptr(), k_s.data_ptr(), v_s.data_ptr(),
-                                part.data_ptr(), out.data_ptr(), b, h, qb.shape[2], s, kv_len)
-                w8a32_cross_launches += 1
-                return out
-
-            return cross_attention_blocked(q, launch_w8a32)
     if (dh != HEAD_DIM or t < 1 or k.shape != (b, h, dh, s)
             or v.shape != (b, s, h * dh) or s % 4 or not 1 <= kv_len <= s
             or cluster_split(s)[1] > MAX_SLICE):
@@ -339,14 +365,23 @@ def cross_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
             f"S <= {MAX_CLUSTER * MAX_SLICE}, 1 <= kv_len <= S; got q {tuple(q.shape)}, "
             f"k {tuple(k.shape)}, v {tuple(v.shape)}, kv_len {kv_len}")
 
+    if f32 and quant:
+        def launch_w8a32(qb):
+            global w8a32_cross_launches
+            out = torch.empty_like(qb)
+            cuda_lib.launch("wm_cross_decode_w8a32", q.device, qb.data_ptr(), k.data_ptr(),
+                            v.data_ptr(), k_s.data_ptr(), v_s.data_ptr(), out.data_ptr(), b, h,
+                            qb.shape[2], s, kv_len)
+            w8a32_cross_launches += 1
+            return out
+
+        return cross_attention_blocked(q, launch_w8a32)
     if f32:
         def launch_f32(qb):
             global f32_cross_launches
             out = torch.empty_like(qb)
-            part = _f32_part(b, h, s, q.device)
             cuda_lib.launch("wm_cross_decode_f32", q.device, qb.data_ptr(), k.data_ptr(),
-                            v.data_ptr(), part.data_ptr(), out.data_ptr(), b, h, qb.shape[2],
-                            s, kv_len)
+                            v.data_ptr(), out.data_ptr(), b, h, qb.shape[2], s, kv_len)
             f32_cross_launches += 1
             return out
 
@@ -396,10 +431,9 @@ def self_attention_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
         global self_launches, self_wide_launches, f32_self_launches
         out = torch.empty_like(qb)
         if f32:
-            part = _f32_part(b, h, s, q.device)
             cuda_lib.launch("wm_self_decode_f32", q.device, qb.data_ptr(), k.data_ptr(),
-                            v.data_ptr(), offsets.data_ptr(), bb.data_ptr(), part.data_ptr(),
-                            out.data_ptr(), b, h, qb.shape[1], s, t_chunk)
+                            v.data_ptr(), offsets.data_ptr(), bb.data_ptr(), out.data_ptr(), b,
+                            h, qb.shape[1], s, t_chunk)
             f32_self_launches += 1
             return out
         cuda_lib.launch("wm_self_decode", q.device, qb.data_ptr(), k.data_ptr(),
@@ -427,19 +461,22 @@ def ffn_plan(m: int, d: int, f: int):
     return dict(blocks=row_blocks_of(m, FFN_ROWS), fc1=gemm(d, f), fc2=gemm(f, d))
 
 
-def f32_gemm_plan(m: int, k: int, n: int, nh: int = 1):
-    """The f32 GEMM's launch (csrc/ffma_gemm.cuh ``fg_launch``) over M rows
-    through (nh, K, N) weights: the K slices (``fg_slices``: enough for 132
-    CTAs over the N / 64 column tiles, at most 4, one cluster) and their
-    32-deep chunk ranges (wgemm.cuh's ``gemm_slice_begin`` cut, as
-    ``megastep._slice_ranges``), from (K, N) alone; the passes of up to 32
-    rows and the rows R of each (``fg_passes``, ``fg_rq``), from M alone;
-    the passes a CTA takes, at most 4 and fewer where that brings the
-    launch towards 264 CTAs (``fg_pg``), and the groups of them
-    (``fg_groups``); the ring's stages, a CTA's threads (a producer warp
-    beside the eight product warps up to 16 rows a pass, ``fg_threads``),
-    its shared memory and the grid.  Only the slices and their chunks enter
-    a row's arithmetic; the passes and groups do not."""
+def f32_gemm_plan(m: int, k: int, n: int, nh: int = 1, w8: bool = False):
+    """The f32 GEMM's launch (csrc/ffma_gemm.cuh ``fg_plan``) over M rows
+    through (nh, K, N) weights, f32 or (``w8``, the W8A32 GEMM) int8: the K
+    slices (``fg_slices``: enough for 132 CTAs over the N / 64 column
+    tiles, at most 4, one cluster) and their 32-deep chunk ranges
+    (wgemm.cuh's ``gemm_slice_begin`` cut, as ``megastep._slice_ranges``),
+    from (K, N) alone; the passes of up to 32 rows and the rows R of each
+    (``fg_passes``, ``fg_rq``), from M alone; the passes a CTA takes, at
+    most 4 and fewer where that brings the launch towards 264 CTAs
+    (``fg_pg``; nh counts the outputs: K2's q / k / v are 3), and the
+    groups of them (``fg_groups``); the ring's stages (a W chunk of 32 K x
+    64 columns, 8 KB in f32, 2 KB in int8, then the pass's X rows), a CTA's
+    threads (a producer warp beside the eight product warps up to 16 rows a
+    pass, ``fg_threads``), its shared memory and the grid.  Only the slices
+    and their chunks enter a row's arithmetic; the passes, groups and
+    stages do not."""
     chunks, tiles = k // GEMM32_KC, n // GEMM32_COLS
     slices = max(1, min(-(-GEMM32_CTAS // tiles), GEMM32_MAX_SLICES, chunks))
     passes = -(-m // (4 * GEMM32_MAX_RQ))
@@ -450,33 +487,13 @@ def f32_gemm_plan(m: int, k: int, n: int, nh: int = 1):
         groups = min(fill, passes)
     pg = -(-passes // groups)
     groups = -(-passes // pg)
-    stage = GEMM32_KC * GEMM32_COLS * 4 + -(-4 * rq // 8) * 8 * GEMM32_KC * 4
+    stage = GEMM32_KC * GEMM32_COLS * (1 if w8 else 4) + -(-4 * rq // 8) * 8 * GEMM32_KC * 4
     stages = GEMM32_RING // stage
     threads = 32 * (8 + (rq <= GEMM32_PRODUCER_RQ))
     smem = 1024 + stages * stage + (1 + pg) * 4 * rq * GEMM32_RP * 4 + 16 * stages
     return dict(slices=slices, ranges=megastep_mod._slice_ranges(chunks, slices),
                 passes=passes, rows=4 * rq, groups=groups, pg=pg, stage=stage,
                 stages=stages, threads=threads, smem=smem, grid=(slices, tiles * groups, nh))
-
-
-def w8a32_gemm_plan(m: int, k: int, n: int, nh: int = 1):
-    """The W8A32 GEMM's launch (csrc/ffma.cuh ``ff_gemm8``) over M rows
-    through nh int8 (K, N) weights: the K slice (``ff_gemm_slice``: enough
-    slices for 264 CTAs over the N / 64 column tiles, a multiple of 16
-    deep) and the slices, from (K, N) alone; the pass's 16-row groups and
-    the passes (``logits.f32_row_tiles``), the grid, and the floats of the
-    (nh, slices, M, N) partials scratch."""
-    from whisper_medusa_tpu_torch.ops import logits as logits_mod
-
-    tiles = n // F32_COLS
-    want = -(-F32_WAVE // tiles)
-    length = -(-(-(-k // want)) // F32_KC) * F32_KC
-    piece = min(length, k)
-    slices = -(-k // piece)
-    mt = logits_mod.f32_row_tiles(m)
-    passes = -(-m // (16 * mt))
-    return dict(slice=piece, slices=slices, mt=mt, passes=passes,
-                grid=(tiles * passes, slices, nh), part=nh * slices * m * n)
 
 
 def gemm_f32_launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], epi: int,
@@ -511,27 +528,29 @@ def gemm_w8a32_launch(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
     """Launch ``wm_gemm_w8a32``: x (M, K) f32 through int8 weights wq (nh,
     K, N) with f32 scales ws (nh, N), b (nh, N) f32 or None; resid (M, N)
     for EPI_SILU_RESID -> (nh, M, N) f32 ``epi(x @ (wq * ws) + b)``, the
-    scale on the sum before the bias.  The caller counts the launch."""
+    scale on the sum before the bias, one launch and no scratch
+    (:func:`f32_gemm_plan` with ``w8``), counted in ``w8a32_gemm_launches``
+    (the caller counts it too, as its own function's launch)."""
+    global w8a32_gemm_launches
     cuda_lib.require_cuda("gemm_w8a32", x, ws, dtype=torch.float32)
-    cuda_lib.require_cuda("gemm_w8a32", wq, dtype=torch.int8, device=x.device, aligned=False)
+    cuda_lib.require_cuda("gemm_w8a32", wq, dtype=torch.int8, device=x.device)
     extra = [t for t in (b, resid) if t is not None]
     if extra:
         cuda_lib.require_cuda("gemm_w8a32", *extra, dtype=torch.float32, device=x.device)
     m, k = x.shape
     nh, _, n = wq.shape
-    if (k % F32_KC or n % F32_COLS or wq.shape[1] != k or ws.shape != (nh, n)
+    if (k % GEMM32_KC or n % GEMM32_COLS or wq.shape[1] != k or ws.shape != (nh, n)
             or (b is not None and b.shape != (nh, n))
             or (resid is not None and resid.shape != (m, n))):
-        raise ValueError(f"gemm_w8a32 takes K % {F32_KC} == 0, N % {F32_COLS} == 0, scales "
-                         f"and bias (nh, N), resid (M, N); got x {tuple(x.shape)}, w "
+        raise ValueError(f"gemm_w8a32 takes K % {GEMM32_KC} == 0, N % {GEMM32_COLS} == 0, "
+                         f"scales and bias (nh, N), resid (M, N); got x {tuple(x.shape)}, w "
                          f"{tuple(wq.shape)}")
-    plan = w8a32_gemm_plan(m, k, n, nh)
     out = torch.empty((nh, m, n), dtype=torch.float32, device=x.device)
-    part = torch.empty((plan["part"],), dtype=torch.float32, device=x.device)
     cuda_lib.launch("wm_gemm_w8a32", x.device, x.data_ptr(), wq.data_ptr(), ws.data_ptr(),
                     None if b is None else b.data_ptr(),
-                    None if resid is None else resid.data_ptr(), out.data_ptr(),
-                    part.data_ptr(), m, k, n, nh, epi)
+                    None if resid is None else resid.data_ptr(), out.data_ptr(), m, k, n, nh,
+                    epi)
+    w8a32_gemm_launches += 1
     return out
 
 

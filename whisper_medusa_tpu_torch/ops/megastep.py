@@ -447,11 +447,10 @@ def _launch_w8a32(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross_
                   offsets, chunk_mask, cross_len: int, num_heads: int, cross_k_s, cross_v_s,
                   self_s, block, scales, block_scales):
     """Launch K2's W8A32 mode (``wm_megastep_w8a32``) on operands
-    :func:`megastep_kernel` checked: its f32 scratch (the GEMM's partials,
-    the largest ``decode_ops.w8a32_gemm_plan`` of its projections, q/k/v as 3
-    jobs; the attention's (B, H, C, 16, 66) slices, C the larger of the self
-    and cross splits) and the chunk bits; (pre_norm, hidden, block_hidden or
-    None), each (B, T, D) f32."""
+    :func:`megastep_kernel` checked: its f32 row buffers (no partials
+    scratch: each GEMM and each attention is one launch that merges its
+    slices inside a thread-block cluster) and the chunk bits; (pre_norm,
+    hidden, block_hidden or None), each (B, T, D) f32."""
     global w8a32_launches, w8a32_block_launches
     from whisper_medusa_tpu_torch.ops import decode_ops
 
@@ -461,15 +460,10 @@ def _launch_w8a32(dec_layers: Params, ln_post: Params, x, self_k, self_v, cross_
     f = dec_layers["fc1_b"].shape[-1]
     dev = x.device
     m = b * t
-    part = max(decode_ops.w8a32_gemm_plan(m, k, n, nz)["part"]
-               for k, n, nz in ((d, d, 3), (d, d, 1), (d, f, 1), (f, d, 1)))
-    c = max(decode_ops.cluster_split(s_len)[0], decode_ops.cluster_split(s_enc)[0])
     f32 = dict(dtype=torch.float32, device=dev)
     xbuf = x.reshape(m, d).clone()
     scratch = [torch.empty((m, d), **f32) for _ in range(5)]   # ln, q, k, v, attention
-    buffers = [torch.empty((m, f), **f32), torch.empty((part,), **f32),
-               torch.empty((b * num_heads * c * decode_ops.MAX_T * decode_ops.F32_PART_ROW,),
-                           **f32)]
+    buffers = [torch.empty((m, f), **f32)]
     hidden = torch.empty((m, d), **f32)
     bbuf = None if block is None else torch.empty((m, d), **f32)
     block_tensors = ([None] * (len(_WEIGHTS) + len(_QUANT)) if block is None

@@ -75,8 +75,9 @@ so a head row has the same bits in K4 and in the two-pass loop, at any M.  W8A32
 of an f32 model) rides the same f32 entries: an int8 embedding streams
 through the FFMA tile's W8 operand (each value converted exactly to f32,
 ``s[v]`` on column v's sum before the processors) and int8 heads run stage
-A and ``head_rows`` on the W8A32 GEMM (``wm_gemm_w8a32``, the scale on the
-sum before the bias); counted in ``w8a32_launches``,
+A and ``head_rows`` on the W8A32 GEMM (``wm_gemm_w8a32``: the same weight
+stream in its int8-weight mode, one launch, the scale on the sum before the
+bias, ``decode_ops.f32_gemm_plan`` with ``w8``); counted in ``w8a32_launches``,
 ``w8a32_rows_launches`` and ``w8a32_head_launches``.
 
 The fused timestamp rules (``ts_cfg``, the JAX kernels' ts mode) are a mode
@@ -540,13 +541,10 @@ def verify_hidden_kernel(hver, hsrc, heads_w, heads_b, embed, pos, gcol, sup_mas
                part_f, part_a, mx, lse, am, gth]
     scales = [None if a is None else a.data_ptr() for a in (escale, hscale)]
     ts_ptrs, ts_ints, _split = _ts_tail(ts, 0, r, dev)
-    # One more entry: stage A's partials scratch on int8 heads with f32 rows
-    # (the W8A32 GEMM; f32 heads need none); the bf16 mode's staging rows
-    # (nh, 192, D) past one stage-A block of source rows (null within one).
-    if dt == torch.float32 and hscale is not None:
-        stage = torch.empty((decode_ops_mod.w8a32_gemm_plan(bn, d, d, nh)["part"],),
-                            dtype=torch.float32, device=dev)
-    elif dt == torch.float32:
+    # One more entry: the bf16 mode's staging rows (nh, 192, D) past one
+    # stage-A block of source rows (null within one; the f32 and W8A32
+    # modes' stage A is one launch of the f32 GEMM and needs none).
+    if dt == torch.float32:
         stage = None
     elif bn > MAX_SRC_ROWS:
         stage = torch.empty((nh, MAX_SRC_ROWS, d), dtype=dt, device=dev)
