@@ -4096,7 +4096,11 @@ def check_f32_head_rows(g, model):
 def check_f32_verify_rows(g, model, sizes=(1, 8, 88, 176, 1024)):
     """K5's f32 mode (W8A32 on the int8 copy: an int8 embedding) at R in
     ``sizes`` against verify_rows_plain, and in the timestamp mode at R = 88
-    (n_verif 88); timed at R = 88 (B=8's pass A)."""
+    (n_verif 88); a row's statistics independent of R (R = 88's first 8
+    rows bitwise R = 8's, R = 1024's first 88 bitwise R = 88's); timed at
+    R = 88 (B=8's pass A) beside the product's yardsticks on the same rows,
+    K3 f32 and f32 x @ E.T (on the dequantized copy at W8A32)."""
+    from whisper_medusa_tpu_torch.ops import logits as LG
     from whisper_medusa_tpu_torch.ops import verify as VF
 
     mode, prefix = _f32_mode(model)
@@ -4113,12 +4117,25 @@ def check_f32_verify_rows(g, model, sizes=(1, 8, 88, 176, 1024)):
             worst = max(worst, _f32_stats_ok(what, hs, embed, pos, masks, kw, got, ref, ts))
         if r == 88:
             timed = (hs, embed, pos, gcol, masks, kw)
+    embed, masks, pos, gcol, kw = _verify_inputs(g, model, 1024)
+    hs = _f32(g, 1024, d)
+    stats = {n: VF.verify_rows(hs[:n], embed, pos[:n], gcol[:n], masks, **kw)
+             for n in (1024, 88, 8)}
+    for n, big in ((8, 88), (88, 1024)):
+        same = all(torch.equal(a, b[:n]) for a, b in zip(stats[n], stats[big]))
+        log(f"K5 {mode}: the first {n} rows of an R={big} call bitwise an R={n} call: {same}")
+        require(same, f"K5 {mode}: a row's statistics depend on R ({n} of {big})")
     hs, embed, pos, gcol, masks, kw = timed
     kern = lambda: VF.verify_rows_kernel(hs, embed, pos, gcol, masks, **kw)
     r = hs.shape[0]
     bd = bound(nbytes(hs, *_tensors(embed), pos, gcol, masks) + 4 * r * 4, 2 * r * v * d,
                F32_FLOPS)
-    log(f"K5 {mode} R={r}: device {device_ms(kern):.4f} ms; {SMI}")
+    e32 = embed["q"].float() * embed["s"][:, None] if isinstance(embed, dict) else embed
+    log(f"K5 {mode} R={r}: device {device_ms(kern):.4f} ms; the product's yardsticks on "
+        f"the same rows: K3 f32 {device_ms(lambda: LG.project_kernel(hs, e32)):.4f} ms, f32 "
+        f"x @ E.T {device_ms(lambda: hs @ e32.T):.4f} ms (TF32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}); bound {bd[0]:.4f} ms ({bd[1]}); {SMI}")
+    del e32
     return kernel_record(f"verify_rows {mode}", "whisper_medusa_tpu_torch/csrc/verify.cu",
                          "whisper_medusa_tpu/ops/verify.py:183", (VF, f"{prefix}rows_launches"),
                          worst, cuda_ms(kern),

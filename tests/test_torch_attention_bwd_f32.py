@@ -14,6 +14,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 import whisper_medusa_tpu.ops.attention as JA
 from whisper_medusa_tpu_torch.ops import attention as A
 

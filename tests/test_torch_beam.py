@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.config import GenerationConfig, WhisperDims, tiny_test_config
 from whisper_medusa_tpu.decoding.beam import beam_search as jbeam
 from whisper_medusa_tpu.decoding.processors import ProcessorConfig as JProc

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_generate import _feats, models  # noqa: F401
 from tests.test_torch_longform import _same as _same_long
 from tests.test_torch_longform import long_models  # noqa: F401

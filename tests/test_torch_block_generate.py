@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_generate import _assert_same, _feats, _leaves
 from whisper_medusa_tpu.config import tiny_test_config
 from whisper_medusa_tpu.models.api import WhisperMedusaModel as JModel

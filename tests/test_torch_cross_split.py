@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.models import whisper as jw
 from whisper_medusa_tpu_torch.models import whisper as tw
 from whisper_medusa_tpu_torch.ops import decode_ops as tdo

@@ -7,6 +7,7 @@ they need no card."""
 
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu_torch import device_profile as D
 
 M = ("at::cuda::(anonymous namespace)::spin_kernel(long)", 0.0, 1.0)

@@ -19,6 +19,7 @@ import wave
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_convert import _write, reference_state_dict
 from whisper_medusa_tpu.cli import args as jargs
 from whisper_medusa_tpu.cli import evaluate as jeval

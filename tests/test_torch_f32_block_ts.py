@@ -10,6 +10,7 @@ route: ``megastep.fits`` refuses f32 weights, as the JAX gate does.
 
 import numpy as np
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_block_generate import block_models  # noqa: F401
 from tests.test_torch_f32_generate import routes  # noqa: F401
 from tests.test_torch_generate import _assert_same, _feats, models  # noqa: F401

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_generate import _assert_same, _feats, models  # noqa: F401
 from whisper_medusa_tpu_torch.models import whisper as tw
 from whisper_medusa_tpu_torch.ops import megastep as tmegastep

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 import whisper_medusa_tpu.ops.attention as jattn
 from whisper_medusa_tpu.decoding import processors as jproc
 from whisper_medusa_tpu.ops import verify as jverify

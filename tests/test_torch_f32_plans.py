@@ -1,9 +1,10 @@
 """The f32 modes' tile plans, computed from shapes (no card), and the f32
 kernels' split arithmetic emulated against the plain versions.
 
-* ``csrc/ffma.cuh``'s, ``csrc/ffma_gemm.cuh``'s and ``csrc/ffma_attn.cuh``'s
-  constants are the wrappers' (parsed from the sources), and the partials
-  scratches and combine kernels they replaced are gone;
+* ``csrc/ffma_gemm.cuh``'s, ``csrc/ffma_attn.cuh``'s and the f32 vocab
+  stream's constants are the wrappers' (parsed from the sources), and the
+  partials scratches, combine kernels and first-cut FFMA tile they replaced
+  are gone;
 * the f32 GEMM (K11's f32 mode, the f32 head rows, the per-op step's f32
   projections; ``csrc/ffma_gemm.cuh``): K slices from (K, N) alone, one
   cluster of at most 4 that covers K's 32-deep chunks once; passes of up to
@@ -14,9 +15,11 @@ kernels' split arithmetic emulated against the plain versions.
   at any M; its int8-weight mode (the W8A32 GEMM: K2 W8A32, the int8 head
   rows, K4 W8A32's stage A) on the same slices, emulated against
   ``megastep.mm_w8`` (the column's scale on the sum, then the bias);
-* the f32 NT stream (K3, K4's stage B and K5 in f32): a CTA per (64-entry
-  tile, pass), each warpgroup scoring half of a pass's rows as tile_stats'
-  pass 2 pass + wg of 8 MT rows: every row once;
+* the f32 vocab stream (K4's stage B and K5 in f32 and W8A32: K3 f32's
+  stream with a scoring epilogue, ``verify.f32_vocab_plan``): its
+  persistent walk takes every (vocab tile, pass) item once, its passes and
+  tile_stats' pass rows every row once, in order, and its ring, staged sums
+  and barriers leave room for two CTAs an SM at every TR;
 * K10's f32 modes (``csrc/ffma_attn.cuh``, one cluster per (head,
   example)): cluster_split's slices, the row maxima merged, p = exp(s -
   max), each rank's row sums and PV partials added in rank order, then
@@ -43,10 +46,12 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 import whisper_medusa_tpu.ops.attention as jattn
 from whisper_medusa_tpu_torch.ops import attention as A
 from whisper_medusa_tpu_torch.ops import decode_ops as DO
 from whisper_medusa_tpu_torch.ops import logits as LG
+from whisper_medusa_tpu_torch.ops import verify as VF
 
 CSRC = os.path.join(os.path.dirname(DO.__file__), "..", "csrc")
 
@@ -57,9 +62,16 @@ def _const(name, source):
 
 
 def test_constants_are_the_sources():
-    assert _const("FF_COLS", "ffma.cuh") == DO.F32_COLS == LG.F32_TILE == 64
-    assert _const("FF_KC", "ffma.cuh") == DO.F32_KC
-    assert _const("FF_MAX_MT", "ffma.cuh") == LG.F32_MAX_MT
+    # K4 / K5's f32 and W8A32 stage B: K3 f32's stream (ffma_stream.cuh)
+    # with verify.cu's scoring epilogue; the first-cut FFMA tile is gone.
+    for name, value in (("FS_QKC", LG.STREAM_QKC), ("FS_SM_SMEM", LG.STREAM_SM_SMEM)):
+        assert _const(name, "ffma_stream.cuh") == value, name
+    verify_cu = open(os.path.join(CSRC, "verify.cu")).read()
+    assert "constexpr int VS_LDC = VS_VT + 4;" in verify_cu and VF.STAGED_LDC == VF.TILE + 4
+    assert _const("VS_VT", "verify.cu") == LG.STREAM_TILE == VF.TILE
+    assert '#include "ffma_stream.cuh"' in verify_cu and "FsScore" in verify_cu
+    assert verify_cu.count("fs_launch<Q>(") == 1
+    assert not os.path.exists(os.path.join(CSRC, "ffma.cuh"))
     for name, value in (("FG_COLS", DO.GEMM32_COLS), ("FG_KC", DO.GEMM32_KC),
                         ("FG_KG", DO.GEMM32_KG), ("FG_MAX_RQ", DO.GEMM32_MAX_RQ),
                         ("FG_MAX_PG", DO.GEMM32_MAX_PG), ("FG_CTAS", DO.GEMM32_CTAS),
@@ -80,7 +92,7 @@ def test_constants_are_the_sources():
     sources = {name: open(os.path.join(CSRC, name)).read() for name in os.listdir(CSRC)}
     for gone in ("ff_gemm(", "ff_gemm8(", "ffma_gemm8_kernel", "ffma_combine_kernel",
                  "ffma_combine8_kernel", "decode_combine_f32_kernel", "DF_ROW", "A_APART",
-                 "A_PART"):
+                 "A_PART", "ffma.cuh", "ffma_tile", "vocab_stream_f32_kernel", "vs_f32_launch"):
         assert not any(gone in text for text in sources.values()), gone
     for source, calls in (("decode_ops.cu", 4), ("verify.cu", 1), ("megastep.cu", 0)):
         assert sources[source].count("fg_launch(") == calls, source
@@ -147,17 +159,45 @@ def test_gemm_passes_and_groups_cover_m(m):
 
 @pytest.mark.parametrize("m", list(range(1, 300, 7)) + [128, 129, 256])
 def test_row_passes_cover_m(m):
-    mt = LG.f32_row_tiles(m)
-    assert mt in (1, 2, 4, 8) and 16 * mt >= min(m, 128)
-    assert mt == 1 or 16 * (mt // 2) < min(m, 128)           # the least that holds them
-    plan = LG.f32_plan(m, 51865)
-    assert plan["mt"] == mt and plan["tiles"] == 811
-    assert (plan["passes"] - 1) * 16 * mt < m <= plan["passes"] * 16 * mt
-    assert plan["grid"] == 811 * plan["passes"]
-    # tile_stats' halves: warpgroup wg of pass p scores rows [(2p + wg) 8 MT, + 8 MT).
-    rows = [r for p in range(plan["passes"]) for wg in (0, 1)
-            for r in range((2 * p + wg) * 8 * mt, min((2 * p + wg + 1) * 8 * mt, m))]
+    """K4 / K5's f32 vocab stream over R = m rows: the persistent grid walks
+    every (tile, pass) item once, a tile's passes adjacent; the passes
+    (ceil(R / 64) of 8 TR rows, TR the least that holds them) take every row
+    once, in order; tile_stats' rows of pass p, [8 TR p, 8 TR (p + 1)) below
+    R, cover R once.  The plan comes from R alone, f32 or int8 E alike."""
+    plan = VF.f32_vocab_plan(m, 51865)
+    assert plan["tiles"] == 811 and plan["items"] == 811 * plan["passes"]
+    assert plan["grid"] == min(plan["items"], LG.STREAM_CTAS * LG.H100_SMS)
+    items = sorted(i for mine in plan["walk"] for i in mine)
+    assert items == list(range(plan["items"]))                     # every item once
+    pairs = [(i // plan["passes"], i % plan["passes"]) for i in items]
+    assert pairs == [(t, p) for t in range(811) for p in range(plan["passes"])]
+    tr, passes = plan["tr"], plan["passes"]
+    assert passes == -(-m // 64) and 1 <= tr <= 8 and plan["rows"] == 8 * tr
+    assert tr == 1 or 8 * (tr - 1) * passes < m <= 8 * tr * passes
+    rows = [r for p in range(passes) for r in range(8 * tr * p, min(8 * tr * (p + 1), m))]
     assert rows == list(range(m))
+    q = VF.f32_vocab_plan(m, 51865, w8=True)
+    assert {k: q[k] for k in ("passes", "tr", "items", "grid")} == {
+        k: plan[k] for k in ("passes", "tr", "items", "grid")}
+    assert plan["chunks"] == 1280 // LG.STREAM_KC and q["chunks"] == 1280 // LG.STREAM_QKC
+
+
+@pytest.mark.parametrize("tr", range(1, 9))
+def test_vocab_stream_fits_two_ctas(tr):
+    """The scoring stream's CTA at TR (f32 and int8 E): ring, staged sums
+    (8 TR rows at pitch VS_LDC), 1 KB alignment slack and barriers leave
+    room for two CTAs an SM (233472 bytes, the system's 1 KB a CTA counted);
+    every stage 1024-byte aligned (the 128-byte swizzle), at least four
+    stages, the ring no larger than K3 f32's."""
+    for w8 in (False, True):
+        plan = VF.f32_vocab_plan(8 * tr, 51865, w8=w8)
+        assert plan["tr"] == tr and plan["stage"] % 1024 == 0
+        assert plan["staged"] == 8 * tr * VF.STAGED_LDC * 4
+        ring = plan["stages"] * plan["stage"]
+        assert ring <= LG.stream_ring(plan["staged"]) <= LG.STREAM_RING and plan["stages"] >= 4
+        assert plan["smem"] == (1024 + plan["stages"] * plan["stage"] + plan["staged"]
+                                + 16 * plan["stages"])
+        assert LG.STREAM_CTAS * (plan["smem"] + 1024) <= 233472
 
 
 def _gemm_order(x, w, plan):

@@ -18,6 +18,7 @@ deterministic ladder, and with a sampled rung).
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_generate import _assert_same, _feats, models  # noqa: F401
 from whisper_medusa_tpu.models import api as japi
 from whisper_medusa_tpu_torch.models import api as tapi

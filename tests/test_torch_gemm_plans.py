@@ -18,6 +18,7 @@ import re
 
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu_torch.ops import cuda_lib
 from whisper_medusa_tpu_torch.ops import megastep as MS
 from whisper_medusa_tpu_torch.ops import qmm as QM

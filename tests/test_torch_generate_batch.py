@@ -11,6 +11,7 @@ drafts, steps and mean_accept_length are equal; token log-probs within 1e-4.
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_generate import _assert_same, _feats, models  # noqa: F401
 
 

@@ -15,6 +15,7 @@ model give the same tokens under the timestamp rules.
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_block_generate import block_models  # noqa: F401
 from tests.test_torch_generate import _feats, models  # noqa: F401
 

@@ -11,6 +11,7 @@ import sys
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 import whisper_medusa_tpu_torch
 from whisper_medusa_tpu_torch.config import tiny_test_config
 from whisper_medusa_tpu_torch.models import bridge

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.ops import verify as jverify
 from whisper_medusa_tpu_torch.ops import cuda_lib
 from whisper_medusa_tpu_torch.ops import megastep as MS

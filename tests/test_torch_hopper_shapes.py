@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 import whisper_medusa_tpu.ops.attention as jattn
 from whisper_medusa_tpu.ops import qmm as jqmm
 from whisper_medusa_tpu_torch.ops import attention as tattn

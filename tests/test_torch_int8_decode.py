@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_megastep import MAX_LEN, _dims, _np, _t
 from whisper_medusa_tpu.models import whisper as jw
 from whisper_medusa_tpu.ops import megastep as jmegastep

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_generate import _feats, models  # noqa: F401
 from whisper_medusa_tpu_torch import config as tconfig
 from whisper_medusa_tpu_torch.decoding import speculative as tspec

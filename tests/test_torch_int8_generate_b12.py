@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_generate import _feats, models  # noqa: F401
 from tests.test_torch_int8_generate import qmodels  # noqa: F401
 

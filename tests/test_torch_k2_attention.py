@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.models import whisper as jw
 from whisper_medusa_tpu_torch.config import WHISPER_PRESETS, tiny_test_config
 from whisper_medusa_tpu_torch.models import whisper as tw

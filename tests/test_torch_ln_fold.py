@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.ops import megastep as jmegastep
 from whisper_medusa_tpu_torch.config import WhisperDims
 from whisper_medusa_tpu_torch.ops import cuda_lib

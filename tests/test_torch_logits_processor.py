@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_block_generate import block_models  # noqa: F401
 from tests.test_torch_generate import _assert_same, _feats, models  # noqa: F401
 from tests.test_torch_generate_timestamps import _same as _same_ts

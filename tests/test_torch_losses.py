@@ -13,6 +13,7 @@ import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.training import losses as JL
 from whisper_medusa_tpu_torch.training import losses as TL
 

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_megastep import _dims, _run_both
 from whisper_medusa_tpu.models import whisper as jw
 from whisper_medusa_tpu.ops import megastep as jmegastep

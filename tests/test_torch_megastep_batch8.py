@@ -5,6 +5,7 @@ interpret mode (3e-2)."""
 
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_megastep_batch import DTYPES, check_batched_step, interpret_mode  # noqa: F401
 
 

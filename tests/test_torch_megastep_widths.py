@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.config import WhisperDims
 from whisper_medusa_tpu.models import whisper as jw
 from whisper_medusa_tpu.ops import megastep as jmegastep

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.data.dataset import resample as jresample
 from whisper_medusa_tpu.ops import mel as jmel
 from whisper_medusa_tpu.ops.mel_pallas import log_mel_spectrogram_pallas

@@ -7,6 +7,7 @@ aggregation, bitwise."""
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.utils import metrics as jm
 from whisper_medusa_tpu_torch.utils import metrics as tm
 

@@ -21,6 +21,7 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from flac_encoder import encode_flac  # noqa: E402
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.data import native as jnative  # noqa: E402
 from whisper_medusa_tpu_torch.data import audio, native  # noqa: E402
 

@@ -12,6 +12,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.training import train as JT
 from whisper_medusa_tpu_torch.training import optim as TO
 from whisper_medusa_tpu_torch.training import train as TT

@@ -12,6 +12,7 @@ single-process CSV cell for cell, and every rank returns the same summary
 
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_evaluate import data  # noqa: F401  (the fixture)
 from tests.test_torch_parallel_serve import LazyWorld
 from tests.torch_parallel_worker import start_world

@@ -12,6 +12,7 @@ import jax
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_parallel_serve import (CFG, KW, LazyWorld, feats, flat_numpy,
                                              jax_model)
 from tests.test_torch_parallel_train import BATCHES

@@ -11,6 +11,7 @@ int8 tolerance against JAX's jitted int8 generate
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_parallel_serve import (CFG, KW, LazyWorld, feats, flat_numpy,
                                              jax_model)
 from tests.torch_parallel_worker import start_world

@@ -9,6 +9,7 @@ test_torch_parallel_int8.py).
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_parallel_serve import (CFG, KW, LazyWorld, assert_same_as_jax, feats,
                                              flat_numpy, jax_model)
 from tests.torch_parallel_worker import start_world

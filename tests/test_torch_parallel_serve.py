@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.torch_parallel_worker import start_world
 from whisper_medusa_tpu.config import tiny_test_config
 from whisper_medusa_tpu.models.api import WhisperMedusaModel as JModel

@@ -18,6 +18,7 @@ import pytest
 import torch
 from jax.sharding import NamedSharding
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.config import tiny_test_config
 from whisper_medusa_tpu.models.api import WhisperMedusaModel as JModel
 from whisper_medusa_tpu.parallel import mesh as jmesh

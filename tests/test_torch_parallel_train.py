@@ -17,6 +17,7 @@ import os
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_parallel_serve import CFG, LazyWorld, flat_numpy, jax_model
 from tests.torch_parallel_worker import start_world
 from whisper_medusa_tpu.parallel import mesh as jmesh

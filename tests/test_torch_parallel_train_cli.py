@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_parallel_serve import LazyWorld
 from tests.test_torch_trainer import _small_config, data_csv  # noqa: F401  (the fixture)
 from tests.torch_parallel_worker import start_world

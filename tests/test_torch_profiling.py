@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.utils import logging_utils as jlog
 from whisper_medusa_tpu.utils import profiling as jprof
 from whisper_medusa_tpu_torch.config import WhisperDims

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.config import tiny_test_config
 from whisper_medusa_tpu.models import medusa as jmedusa
 from whisper_medusa_tpu.models import whisper as jw

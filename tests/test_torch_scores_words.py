@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_generate import models  # noqa: F401
 from whisper_medusa_tpu.data import bpe as jbpe
 from whisper_medusa_tpu.decoding import processors as jproc

@@ -13,6 +13,7 @@ import re
 
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu_torch.ops import cuda_lib
 
 _ENTRY = re.compile(r'extern\s+"C"\s+int\s+(wm_\w+)\s*\(([^)]*)\)', re.S)

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.decoding import processors as jproc
 from whisper_medusa_tpu.ops import qmm as jqmm
 from whisper_medusa_tpu.ops import verify as jverify

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.config import WHISPER_PRESETS, MedusaConfig, ModelConfig
 from whisper_medusa_tpu.models.api import WhisperMedusaModel as JModel
 from whisper_medusa_tpu_torch import config as tconfig

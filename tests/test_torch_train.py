@@ -14,6 +14,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.config import tiny_test_config as jax_tiny_config
 from whisper_medusa_tpu.models import medusa as JM
 from whisper_medusa_tpu.models import whisper as JW

@@ -9,6 +9,7 @@ import os
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_train import flat_np
 from tests.test_torch_trainer import _small_config, data_csv  # noqa: F401  (the fixture)
 from whisper_medusa_tpu.models.api import WhisperMedusaModel as JaxModel

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_train import KL, batch, check_against_jax, configs, param_tree, torch_grads
 from whisper_medusa_tpu_torch.models import bridge
 from whisper_medusa_tpu_torch.models import whisper as W

@@ -17,6 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from whisper_medusa_tpu.data import dataset as JD
 from whisper_medusa_tpu.training import train as JT
 from whisper_medusa_tpu_torch.config import MedusaConfig, ModelConfig, WhisperDims

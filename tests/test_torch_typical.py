@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_generate import _feats, models  # noqa: F401
 from whisper_medusa_tpu.config import GenerationConfig as JGen
 from whisper_medusa_tpu.decoding import speculative as jspec

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_timestamps import (BEGIN, EOS, NO_TS, TS_BEGIN, V, _check, _heads,
                                          _history, _pcfg, _q, _rows)
 from whisper_medusa_tpu.decoding import processors as jproc

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_int8_decode import _port_cache, _quantized
 from tests.test_torch_megastep import MAX_LEN, _np
 from tests.test_torch_w8a32_megastep import (TOL, _check_rows, _port_step, _scan_history,

@@ -9,6 +9,7 @@ steps equal, token log-probs within 2e-3.
 
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_generate import _feats
 from tests.test_torch_w8a32_generate import check_same, kernels, w8a32_models  # noqa: F401
 

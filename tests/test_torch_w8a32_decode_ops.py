@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_int8_decode import _quantized
 from whisper_medusa_tpu.ops import decode_ops as jdo
 from whisper_medusa_tpu_torch.ops import decode_ops as tdo

@@ -10,6 +10,7 @@ decoded alone.
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_generate import _feats
 from tests.test_torch_w8a32_generate import check_same, kernels, w8a32_pair  # noqa: F401
 

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_int8_decode import _port_cache, _quantized
 from tests.test_torch_megastep import MAX_LEN, _np, _t
 from whisper_medusa_tpu.models import whisper as jw

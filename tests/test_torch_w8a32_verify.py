@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a worker)
 from tests.test_torch_int8_verify import _check, _int8
 from tests.test_torch_verify import _pcfg
 from whisper_medusa_tpu.decoding import processors as jproc

@@ -32,13 +32,14 @@ extern "C" int wm_logits(const void* x, const void* e, void* y, int m, int v, in
 // entries x TR rows a thread.  Each logit is one chain over D in order, so
 // a row's logits do not depend on M.  Any M a launch.  Bound on H100: the
 // 265 MB f32 embedding stream (79 us at 3.35 TB/s) at the drafts' M, the
-// 2 M V D products at the CUDA cores' 67 TFLOP/s past M ~ 160 rows.
+// 2 M V D products at the CUDA cores' 67 TFLOP/s past M ~ 40 rows.
 #include "ffma_stream.cuh"
 
 // x (M, D), e (V, D), y (M, V), all f32; D % 32 == 0; x and e 16-byte
 // aligned.
 extern "C" int wm_logits_f32(const void* x, const void* e, void* y, int m, int v, int d,
                              void* stream) {
-  return wm::fs_launch(static_cast<const float*>(x), static_cast<const float*>(e),
-                       static_cast<float*>(y), m, v, d, (cudaStream_t)stream);
+  return wm::fs_launch<false>(static_cast<const float*>(x), e,
+                              wm::FsStore{static_cast<float*>(y), m, v}, m, v, d,
+                              (cudaStream_t)stream);
 }

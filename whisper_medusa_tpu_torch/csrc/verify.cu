@@ -105,8 +105,8 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "ffma.cuh"
 #include "ffma_gemm.cuh"
+#include "ffma_stream.cuh"
 #include "hopper.cuh"
 #include "wgemm.cuh"
 
@@ -816,74 +816,65 @@ extern "C" int wm_head_rows(const void* src, const void* w, const void* b, void*
 // against an f32 tied embedding, FFMA on the CUDA cores (the tensor cores
 // take f32 only as TF32).
 //
-// Stage B is vocab_stream_f32_kernel: a CTA (256 threads) per (64-entry
-// vocab tile, pass of up to 128 rows), a tile's passes adjacent in the grid
-// so that its E rows come from L2 after the first; ffma.cuh's NT tile
-// computes the (rows x 64) f32 sums (each a chain over D in order, so a
-// row's sums do not depend on R or on the rows beside it) and stages them in
-// shared memory, and each warpgroup runs the same tile_stats<false, TS> as
-// the bf16 stream on half of the pass's rows: the processors, the timestamp
-// rules and the straddling tile's split are the same code.  Stage C is the
-// same combine kernels.  Stage A (K4) is ffma_gemm.cuh's f32 weight stream
-// over the heads (EPI_SILU_RESID, K slices from (D, D) alone, one launch),
-// the same launch as wm_gemm_f32's for the two-pass loop's head rows, so a
-// head row has the same bits in both.  Bound on H100: the 212 MB f32 embedding stream (63 us
-// at 3.35 TB/s) up to R ~ 160 rows, then the 2 R V D products at the CUDA
-// cores' 67 TFLOP/s (R = 121: 16 GFLOP, 0.24 ms).
+// Stage B is ffma_stream.cuh's f32 weight stream, K3 f32's, with FsScore as
+// its epilogue: a persistent grid of two CTAs an SM over (64-entry vocab
+// tile, pass of up to 64 rows) items, a producer warp's TMA ring (80-96 KB) of
+// E chunks and the pass's rows, four consumer warps of 4 entries x TR rows
+// a thread, each sum one fmaf chain over D in order from 0 (so a row's sums
+// do not depend on R, on its pass or on the grid).  At an item's last chunk
+// the consumers stage the (8 TR x 64) sums in shared memory of their own
+// (pitch VS_LDC) and run the bf16 stream's tile_stats<Q, TS> on them: the
+// processors, the timestamp rules and the straddling tile's split are the
+// same code, the partials the same (3, R, tiles) + (R, tiles) layout.
+// Stage C is the same combine kernels.  Stage A (K4) is ffma_gemm.cuh's f32
+// weight stream over the heads (EPI_SILU_RESID, K slices from (D, D) alone,
+// one launch), the same launch as wm_gemm_f32's for the two-pass loop's head
+// rows, so a head row has the same bits in both.  Bound on H100: the 265.6
+// MB f32 embedding stream (79 us at 3.35 TB/s) up to R ~ 40 rows, then the
+// 2 R V D products at the CUDA cores' 67 TFLOP/s (R = 121: 16.1 GFLOP,
+// 0.24 ms).
 //
 // W8A32 (the int8 copy of an f32 model) rides the same two entries: an int8
-// embedding (V_EMBED_S / VR_EMBED_S given) streams through ffma.cuh's W8
-// operand (each int8 value converted exactly to f32 as it is fetched, 66 MB
-// instead of 212 MB) and column v's f32 sum is multiplied by s[v] before
-// the processors (tile_stats<Q = true, TS>), in every mode of the f32 form
-// (ts_cfg, identity0); int8 heads (V_HEADS_S given) run stage A on the
-// int8-weight mode of ffma_gemm.cuh (the heads as a stack, the column's
-// scale on the sum before the bias, EPI_SILU_RESID, one launch).  The JAX kernels score the
-// f32 rows against the embedding cast to f32 (verify.py:208, :365) and cast
-// int8 heads to the rows' dtype (:345-354).
+// embedding (V_EMBED_S / VR_EMBED_S given) streams as int8 chunks on the
+// same ring (64-byte rows, converted exactly to f32 as the consumers read
+// them, 66.4 MB instead of 265.6 MB) and column v's f32 sum is multiplied by
+// s[v] before the processors (tile_stats<Q = true, TS>), in every mode of
+// the f32 form (ts_cfg, identity0); int8 heads (V_HEADS_S given) run stage
+// A on the int8-weight mode of ffma_gemm.cuh (the heads as a stack, the
+// column's scale on the sum before the bias, EPI_SILU_RESID, one launch).
+// The JAX kernels score the f32 rows against the embedding cast to f32
+// (verify.py:208, :365) and cast int8 heads to the rows' dtype (:345-354).
 namespace wm {
 namespace {
 
-template <int MT, bool Q, bool TS>
-__global__ void __launch_bounds__(FF_THREADS)
-vocab_stream_f32_kernel(const float* __restrict__ rows,
-                        const std::conditional_t<Q, int8_t, float>* __restrict__ e, int d_dim,
-                        const std::conditional_t<TS, VsTsArgs, VsArgs> a) {
-  constexpr int PR = 16 * MT;
-  constexpr int STAGE_F = 2 * ff_stage_floats<MT>();
-  constexpr int CS_F = PR * VS_LDC;
-  __shared__ __align__(16) float sm[STAGE_F > CS_F ? STAGE_F : CS_F];
-  const int tile = blockIdx.x / a.passes, pass = blockIdx.x % a.passes;
-  const int v0 = tile * VS_VT, r0 = pass * PR;
-  float acc[MT][4];
-  ffma_tile<MT, true>(acc, rows + (size_t)r0 * d_dim, d_dim, min(PR, a.n_rows - r0),
-                      e + (size_t)v0 * d_dim, d_dim, min(VS_VT, a.v_dim - v0), 0, d_dim, sm);
-  // ffma_tile ends on a barrier: the staging buffers are free for the sums.
-  const int tc = threadIdx.x & 15, tr = threadIdx.x >> 4;
+// The f32 stream's scoring epilogue: the item's sums staged at pitch
+// VS_LDC (row r of the pass at r * VS_LDC), then tile_stats over the pass's
+// 8 TR rows.  The 128 consumer threads meet at named barrier 1 (the
+// producer warp has returned): before the sums are written (the previous
+// item's statistics have read them) and after.  tile_stats' warp index
+// (threadIdx.x >> 5) & 3 is the consumer warp's own.
+template <bool Q, bool TS>
+struct FsScore {
+  std::conditional_t<TS, VsTsArgs, VsArgs> a;
+  __host__ __device__ static constexpr int staged(int tr) { return 8 * tr * VS_LDC * 4; }
+  template <int TR>
+  __device__ __forceinline__ void item(const float (&acc)[4][TR], int tile, int pass,
+                                       float* cs, int we, int eg, int rg) const {
+    named_sync(1, 128);
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-    *reinterpret_cast<float4*>(sm + (tr * MT + i) * VS_LDC + 4 * tc) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  __syncthreads();
-  const int wg = threadIdx.x >> 7;
-  tile_stats<Q, TS>(sm + wg * (PR / 2) * VS_LDC, a, tile, 2 * pass + wg, PR / 2);
-}
-
-template <bool TS, typename ET, int MT = 1>
-int vs_f32_launch(int mt, const float* rows, const ET* e, int d_dim, const VsTsArgs& a,
-                  cudaStream_t st) {
-  constexpr bool Q = std::is_same_v<ET, int8_t>;
-  if (mt == MT) {
-    const dim3 grid(a.tiles * a.passes);
-    if constexpr (TS)
-      vocab_stream_f32_kernel<MT, Q, TS><<<grid, FF_THREADS, 0, st>>>(rows, e, d_dim, a);
-    else
-      vocab_stream_f32_kernel<MT, Q, TS><<<grid, FF_THREADS, 0, st>>>(
-          rows, e, d_dim, static_cast<const VsArgs&>(a));
-    return (int)cudaGetLastError();
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cs[(rg + 8 * i) * VS_LDC + 32 * we + eg + 8 * e] = acc[e][i];
+    named_sync(1, 128);
+    tile_stats<Q, TS>(cs, a, tile, pass, 8 * TR);
   }
-  if constexpr (MT < FF_MAX_MT) return vs_f32_launch<TS, ET, MT * 2>(mt, rows, e, d_dim, a, st);
-  return (int)cudaErrorInvalidValue;
+};
+
+template <bool Q, bool TS>
+int fs_score(const float* rows, const void* e, const VsTsArgs& a, int d_dim, cudaStream_t st) {
+  FsScore<Q, TS> epi;
+  epi.a = a;   // TS = false: the VsArgs part
+  return fs_launch<Q>(rows, e, epi, a.n_rows, a.v_dim, d_dim, st);
 }
 
 // Stages B and C over f32 rows (n_rows, D) and an f32 embedding e (V, D),
@@ -895,8 +886,7 @@ inline int score_rows_f32(const float* rows, int n_rows, const void* e, const fl
                           float* part_f, int* part_a, float* o_max, float* o_lse, int* o_arg,
                           float* o_gth, void* const* ts, const int* ts_ints, cudaStream_t st) {
   const int tiles = (v_dim + VS_VT - 1) / VS_VT;
-  const int mt = ff_mt(n_rows);
-  VsTsArgs a;
+  VsTsArgs a{};   // chunks, groups, passes: the bf16 stream's, not read here
   a.escale = escale;
   a.pos = pos;
   a.gcol = gcol;
@@ -905,10 +895,7 @@ inline int score_rows_f32(const float* rows, int n_rows, const void* e, const fl
   a.part_a = part_a;
   a.v_dim = v_dim;
   a.n_rows = n_rows;
-  a.chunks = d_dim / FF_KC;
   a.tiles = tiles;
-  a.groups = tiles;
-  a.passes = (n_rows + 16 * mt - 1) / (16 * mt);
   a.begin_index = begin_index;
   a.eos_id = eos_id;
   a.has_decay = has_decay;
@@ -926,12 +913,10 @@ inline int score_rows_f32(const float* rows, int n_rows, const void* e, const fl
   a.ts_cap = ts_ints[4];
   if (ts_on && (!a.last || !a.penult || !a.maxts || !a.ts_f || !a.ts_a))
     return (int)cudaErrorInvalidValue;
-  const float* ef = static_cast<const float*>(e);
-  const int8_t* eq = static_cast<const int8_t*>(e);
-  int err = escale ? (ts_on ? vs_f32_launch<true>(mt, rows, eq, d_dim, a, st)
-                            : vs_f32_launch<false>(mt, rows, eq, d_dim, a, st))
-                   : (ts_on ? vs_f32_launch<true>(mt, rows, ef, d_dim, a, st)
-                            : vs_f32_launch<false>(mt, rows, ef, d_dim, a, st));
+  int err = escale ? (ts_on ? fs_score<true, true>(rows, e, a, d_dim, st)
+                            : fs_score<true, false>(rows, e, a, d_dim, st))
+                   : (ts_on ? fs_score<false, true>(rows, e, a, d_dim, st)
+                            : fs_score<false, false>(rows, e, a, d_dim, st));
   if (err != 0) return err;
   if (ts_on)
     verify_combine_ts_kernel<<<(n_rows + 7) / 8, 256, 0, st>>>(part_f, part_a, tiles, n_rows,
@@ -979,7 +964,7 @@ extern "C" int wm_verify_hidden_f32(void** p, const int* ints, float log_factor,
 
 // K5's f32 mode: wm_verify_rows' pointer table and ints, f32 rows and an
 // f32 embedding (VR_EMBED_S null) or, W8A32, an int8 one with its f32
-// scales at VR_EMBED_S.  Any R <= 1024 (passes of up to 128 rows).
+// scales at VR_EMBED_S.  Any R <= 1024 (passes of up to 64 rows).
 extern "C" int wm_verify_rows_f32(void** p, const int* ints, float log_factor, void* stream) {
   using namespace wm;
   const int R = ints[0], D = ints[1], V = ints[2];

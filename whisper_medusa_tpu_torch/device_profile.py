@@ -100,10 +100,19 @@ MAX_NEW_TOKENS = 128
 def _short(name: str) -> str:
     """A kernel's name without its argument list and template arguments (the
     port's kernels keep theirs: row tiles and int8 form, e.g.
-    wgemm_kernel<6, true>, cross_decode_kernel<signed char, false, true>)."""
-    m = re.search(r"wm::\(anonymous namespace\)::(\w+(?:<[^>]*>)?)\(", name)
+    wgemm_kernel<6, true>, cross_decode_kernel<signed char, false, true>,
+    ffma_stream_kernel<8, false, FsScore<false, false> >, the port's
+    namespace dropped from a nested argument)."""
+    ns = "wm::(anonymous namespace)::"
+    m = re.search(re.escape(ns) + r"(\w+)", name)
     if m:
-        return m.group(1)
+        rest, depth = name[m.end():], 0
+        for i, ch in enumerate(rest):
+            depth += (ch == "<") - (ch == ">")
+            if depth <= 0:
+                break
+        args = rest[:i + 1] if rest.startswith("<") else ""
+        return m.group(1) + args.replace(ns, "")
     if "Memcpy" in name or "Memset" in name:
         return "memcpy / memset"
     return re.split(r"[<(]", name.removeprefix("void "), maxsplit=1)[0][:70]

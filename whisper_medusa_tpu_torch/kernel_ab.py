@@ -2,8 +2,9 @@
 ``wm_head_rows``, K3's and K9's f32 modes, K1's f32 mode, the f32 GEMM
 (alone, and inside K11, ``wm_head_rows`` and K4's stage A at f32), K10's
 f32, mask and W8A32 modes, the W8A32 GEMM (alone, in ``wm_head_rows`` and
-K4's stage A on int8 heads) and K2's W8A32 mode against another
-checkout's build of them, on one CUDA card, in turns.
+K4's stage A on int8 heads), K2's W8A32 mode and K4 / K5's f32 and W8A32
+modes against another checkout's build of them, on one CUDA card, in
+turns.
 
     python -m whisper_medusa_tpu_torch.kernel_ab --other DIR [--only K4K5,head_rows]
 
@@ -24,10 +25,10 @@ compared between the builds (``cuobjdump -sass``), instruction for
 instruction, and whether it is the same is printed (the f32 and W8A32
 modes are kernels of their own beside them); then every other function of
 the library outside the kernels a build may change (``_CHANGED``: the f32
-GEMM with its int8-weight mode and the f32 decode attention, with the
-kernels they replaced; K1's, K3's and K9's f32 kernels, ``ffma_tile``'s
-users, K4 / K5's f32 stream and ``ln_rows_f32_kernel`` stay held) is
-compared by name the same way.  Then:
+weight stream of K3 f32 and K4 / K5's f32 and W8A32 modes, with the f32
+vocab stream it replaced; K1's and K9's f32 kernels, the f32 GEMM, the
+f32 decode attention and ``ln_rows_f32_kernel`` stay held) is compared by
+name the same way.  Then:
 
   * K1, ``wm_attention_fwd``, at (1, 20, 1500, 64) and (8, 20, 1500, 64),
     the encoder's self-attention at B=1 and B=8;
@@ -110,7 +111,12 @@ compared by name the same way.  Then:
     HEAD32_SHAPES and K4 at R = 121 on int8 heads and embedding
     (``heads_w8a32``); K2's W8A32 mode over 32 seeded layers at K2_ROWS and
     its block mode at (1, 11), its GEMM, attention and norms by kernel with
-    their launches a layer (``K2w8a32``).
+    their launches a layer (``K2w8a32``);
+  * K4 / K5's f32 and W8A32 modes (``K4K5f32``): K5 at R = 1, 8, 88, 176
+    and 1024 (the timestamp mode too at 88) beside this build's K3 f32 and
+    f32 ``x @ E.T`` on the same rows, K4 at R = 121 plain, with
+    ``identity0`` and in the timestamp mode, and at R = 1024, the vocab
+    stream's kernel by name; the builds' statistics bitwise equal.
 
 Each shape runs in the order other, this, this, other; each turn prints the
 median of 20 calls between CUDA events (``device_profile._cuda_ms``) and the
@@ -176,6 +182,15 @@ K11_SHAPES = ((1280, 5120, (16, 88, 176)), (384, 1536, (11, 88)))
 # (8, 11)) and its kernels in either build; K10's f32 modes at T = 11 and 1
 # and their kernels; K2 W8A32's kernels by family.
 W8_ROWS = (1, 11, 88)
+# K4 / K5's f32 and W8A32 modes: K5's rows (vanilla B=1 and B=8, B=8's pass
+# A, B=16's, the most a launch takes) and the f32 vocab stream's kernel in
+# either build (a build before this stream named it vocab_stream_f32...).
+K4K5F32_ROWS = (1, 8, 88, 176, 1024)
+# K4's: (heads, nodes, identity0, timestamp mode): R = 121 three ways, and
+# one head over 1024 source rows (R = 1024, the most a launch takes).
+K4F32_CASES = ((11, 11, False, False), (10, 11, True, False), (11, 11, False, True),
+               (1, 1024, False, False))
+STREAM32 = ("ffma_stream_kernel", "vocab_stream_f32")
 K10F32_BATCH = (16, 8, 1)     # the per-op step's B=16 row, and the f32 requests' B=8 and B=1
 W8_KERNELS = ("ffma_gemm", "ffma_combine8_kernel")
 ATTN32_KERNELS = ("decode_attn_f32_kernel", "decode_combine_f32_kernel")
@@ -294,15 +309,14 @@ def _sass_same(all_funcs):
               flush=True)
 
 
-# The kernels a build may change, by name: the f32 GEMM and its int8-weight
-# mode (ffma_gemm.cuh's weight stream; the W8A32 GEMM + combine pair it
-# replaced) and the f32 decode attention (ffma_attn.cuh's cluster body; the
-# slice kernel + combine pair it replaced).  Every other function of the
-# library (K1's, K3's and K9's f32 kernels, the f32 vocab stream and
-# ln_rows_f32_kernel among them) is held to the other build's SASS by
-# _sass_rest.
-_CHANGED = re.compile(r"ffma_gemm_kernel|ffma_gemm8_kernel|ffma_combine8_kernel|"
-                      r"decode_attn_f32_kernel|decode_combine_f32_kernel")
+# The kernels a build may change, by name: the f32 weight stream of K3 f32
+# and of K4 / K5's f32 and W8A32 modes (ffma_stream.cuh's ffma_stream_kernel,
+# one product loop under two epilogues; the first-cut f32 vocab stream it
+# replaced, vocab_stream_f32...).
+# Every other function of the library (K1's and K9's f32 kernels, the f32
+# GEMM, the f32 decode attention and ln_rows_f32_kernel among them) is held
+# to the other build's SASS by _sass_rest.
+_CHANGED = re.compile(r"ffma_stream_kernel|vocab_stream_f32")
 
 
 def _all_sass(so_path):
@@ -326,9 +340,9 @@ def _all_sass(so_path):
 
 
 def _sass_rest(funcs):
-    """Print whether every function of the library outside _CHANGED (K1's,
-    K3's and K9's f32 kernels, ffma_tile's users, ln_rows_f32_kernel, and
-    the families of _HELD) that
+    """Print whether every function of the library outside _CHANGED (K1's
+    and K9's f32 kernels, the f32 GEMM, the f32 decode attention,
+    ln_rows_f32_kernel, and the families of _HELD) that
     both builds have is instruction for instruction the same, the names
     only one build has (a source that stopped including a header loses the
     unused kernels it instantiated), and the changed kernels each build
@@ -729,7 +743,7 @@ def _k3(libs, g):
 def _k3f32(libs, g):
     """K3's f32 mode, ``wm_logits_f32``, on a seeded f32 embedding at
     large-v2's (51865, 1280), M = 1, 10, 80, 121 and 300, beside ``x @ E.T``
-    (device ms); the builds' outputs bitwise equal or not (printed), each
+    (device ms); the builds' outputs bitwise equal (or it raises), each
     within 1e-4 + 1e-4 |y| of the plain version."""
     from whisper_medusa_tpu_torch.ops import logits as LG
 
@@ -749,6 +763,8 @@ def _k3f32(libs, g):
                for y in ys.values()):
             raise AssertionError(f"K3 f32 M={m}: a build is off the plain version: {errs}")
         same = torch.equal(ys["this"], ys["other"])
+        if not same:
+            raise AssertionError(f"K3 f32 M={m}: the builds' logits are not bitwise equal")
         lib = sum(us for us, _ in _by_kernel(lambda: x @ e.T, 20).values()) / 1e3
         _turns(f"K3 f32 logits M={m} x ({v},{d}) (x @ E.T: device {lib:.4f} ms), max error "
                f"this {errs['this']:.3e} other {errs['other']:.3e}, builds bitwise equal "
@@ -1040,6 +1056,100 @@ def _heads32(root, libs, g):
            part=GEMM32_KERNELS)
 
 
+def _bitwise(what, got, ref):
+    """K4 / K5 outputs of the two builds (argmax, max, lse, gathered)
+    bitwise equal, their bit patterns compared (a NaN equals the same
+    NaN), or raise."""
+    names = ("argmax", "max", "lse", "gathered")
+    bits = lambda t: t.view(torch.int32)
+    differ = [n for n, a, b in zip(names, got, ref) if not torch.equal(bits(a), bits(b))]
+    if differ:
+        raise AssertionError(f"{what}: the builds' {differ} are not bitwise equal")
+    return "statistics bitwise the other build's"
+
+
+def _k4k5f32(root, libs, g):
+    """K5's f32 and W8A32 modes through each build's ``verify_rows_kernel``
+    at K4K5F32_ROWS, and K4's at K4F32_CASES (R = 121: 11 heads x 11
+    nodes, with ``identity0`` (10 heads + the hidden rows) and in the
+    timestamp mode; R = 1024: one head x 1024 rows),
+    on a seeded f32 embedding N(0, 0.05) at large-v2's (51865, 1280) and its
+    int8 copy, f32 heads N(0, 0.02) (int8 at W8A32), suppress /
+    begin-suppress masks and the EOS decay on, the timestamp rules' rows
+    from seeded text and timestamp tokens.  The builds' statistics must be
+    bitwise equal.  Each turn also prints the vocab stream's device time by
+    kernel name (K4: the rest is stage A and the combine); beside K5, this
+    build's K3 f32 and ``x @ E.T`` (TF32 off) on the same rows and the same
+    f32 embedding (the dequantized copy at W8A32), the product's
+    yardsticks: no one call computes the statistics."""
+    from whisper_medusa_tpu_torch.ops import logits as LG
+    from whisper_medusa_tpu_torch.ops import verify as VF
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mods = _f32_mods(root, libs)
+    v, d, eos, tb, no_ts = 51865, 1280, 50257, 50364, 50363
+    emb = torch.randn((v, d), generator=g, device="cuda") * 0.05
+    q, s = QM.quantize_array(emb, axis=-1)
+    embeds = {"f32": (emb, emb), "W8A32": ({"q": q.contiguous(), "s": s.contiguous()},
+                                           q.float() * s[:, None])}
+    masks = torch.zeros((2, v), dtype=torch.int8, device="cuda")
+    masks[0, torch.randint(0, v, (300,), generator=g, device="cuda")] = 1
+    masks[1, torch.randint(0, v, (40,), generator=g, device="cuda")] = 1
+    kw = dict(begin_index=4, eos_id=eos, decay=(9, 1.2))
+    gcols = lambda r: torch.randint(0, v, (r,), generator=g, device="cuda").to(torch.int32)
+
+    def tokens(r, none=False):
+        text = torch.randint(0, eos, (r,), generator=g, device="cuda")
+        stamp = tb + torch.randint(0, 1500, (r,), generator=g, device="cuda")
+        pick = torch.rand((r,), generator=g, device="cuda") < 0.5
+        return torch.where(pick, torch.zeros_like(text) if none else text, stamp).to(torch.int32)
+
+    def ts_args(r, n_verif):
+        return VF._ts_args((tb, no_ts, 50), n_verif, tokens(r), tokens(r), tokens(r, True), r,
+                           torch.device("cuda"))
+
+    for mode, (e, e32) in embeds.items():
+        for r in K4K5F32_ROWS:
+            hs = torch.randn((r, d), generator=g, device="cuda")
+            pos = (3 + torch.arange(r, device="cuda") % 12).to(torch.int32)
+            gcol = gcols(r)
+            for ts in (None, ts_args(r, r)) if r == 88 else (None,):
+                calls = {who: (lambda vf=vf: vf.verify_rows_kernel(hs, e, pos, gcol, masks,
+                                                                   ts=ts, **kw))
+                         for who, (_, vf) in mods.items()}
+                what = f"K5 {mode} R={r}" + (" timestamp mode" if ts else "")
+                note = _bitwise(what, calls["this"](), calls["other"]())
+                k3 = sum(us for us, _ in _by_kernel(lambda: LG.project_kernel(hs, e32),
+                                                    20).values()) / 1e3
+                mm = sum(us for us, _ in _by_kernel(lambda: hs @ e32.T, 20).values()) / 1e3
+                _turns(f"{what} (K3 f32: device {k3:.4f} ms, x @ E.T f32: device {mm:.4f} "
+                       f"ms), {note}", calls, "wm_verify_rows_f32", libs, part=STREAM32)
+            del hs
+        for nh, n, id0, ts_on in K4F32_CASES:
+            hw = torch.randn((nh, d, d), generator=g, device="cuda") * 0.02
+            hb = torch.randn((nh, d), generator=g, device="cuda") * 0.02
+            if mode == "W8A32":
+                hq, hsc = QM.quantize_array(hw, axis=-2)
+                hw = {"q": hq.contiguous(), "s": hsc.contiguous()}
+            hid = torch.randn((1, n, d), generator=g, device="cuda")
+            src = torch.randn((1, n, d), generator=g, device="cuda") if id0 else hid
+            r = (nh + id0) * n
+            # Positions within a decode window's (node % 12): past ~480 the
+            # EOS decay's factor 1.2^(p - 9) overflows to inf.
+            pos = (5 + torch.arange(n, device="cuda")[None, :] % 12
+                   + torch.arange(nh + id0, device="cuda")[:, None]).reshape(-1).to(torch.int32)
+            gcol = gcols(r)
+            ts = ts_args(r, n) if ts_on else None
+            calls = {who: (lambda vf=vf: vf.verify_hidden_kernel(
+                hid, src, hw, hb, e, pos, gcol, masks, identity0=id0, ts=ts, **kw))
+                for who, (_, vf) in mods.items()}
+            what = (f"K4 {mode} R={r}" + (" identity0" if id0 else "")
+                    + (" timestamp mode" if ts_on else ""))
+            note = _bitwise(what, calls["this"](), calls["other"]())
+            _turns(f"{what}, {note}", calls, "wm_verify_hidden_f32", libs, part=STREAM32)
+            del hw
+
+
 @contextlib.contextmanager
 def _ops_as(name, mod):
     """``whisper_medusa_tpu_torch.ops.<name>`` is ``mod`` for the block: the
@@ -1284,7 +1394,7 @@ SECTIONS = {"K1": _k1, "K6": _k6, "K8": _k8, "K10": _k10,
             "K3f32": lambda root, libs, g: _k3f32(libs, g), "K9f32": _k9f32,
             "K1f32": lambda root, libs, g: _k1f32(libs, g), "GEMMf32": _gemm32,
             "heads32": _heads32, "K10f32": _k10f32, "GEMMw8a32": _gemm_w8,
-            "heads_w8a32": _heads_w8, "K2w8a32": _k2w8}
+            "heads_w8a32": _heads_w8, "K2w8a32": _k2w8, "K4K5f32": _k4k5f32}
 
 if __name__ == "__main__":
     main()

@@ -143,8 +143,6 @@ f32_ffn_launches = 0     # K11's f32 mode
 f32_gemm_launches = 0    # the f32 GEMM alone (wm_gemm_f32): the per-op step's projections
 w8a32_cross_launches = 0  # K10's W8A32 mode (f32 queries, int8 K/V)
 w8a32_gemm_launches = 0  # the W8A32 GEMM alone (wm_gemm_w8a32): the int8 head rows
-F32_COLS = 64            # csrc/ffma.cuh FF_COLS: output columns a CTA
-F32_KC = 16              # csrc/ffma.cuh FF_KC: K a staged chunk holds
 GEMM32_COLS = 64         # csrc/ffma_gemm.cuh FG_COLS: W columns a CTA
 GEMM32_KC = 32           # csrc/ffma_gemm.cuh FG_KC: K a stage holds
 GEMM32_KG = 8            # csrc/ffma_gemm.cuh FG_KG: k groups (4 k of a chunk each)

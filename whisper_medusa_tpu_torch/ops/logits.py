@@ -26,7 +26,7 @@ up to 64 rows) items, a producer warp keeps a TMA ring of 32-float E chunks
 and the pass's rows in flight, four consumer warps hold 4 entries x TR rows
 a thread.  Each logit is one chain over D in order, so a row's logits do
 not depend on M; any M in one launch.  Bound by the 265 MB f32 embedding
-stream at the drafts' rows, by the CUDA cores' 67 TFLOP/s past ~160 rows.
+stream at the drafts' rows, by the CUDA cores' 67 TFLOP/s past ~40 rows.
 """
 
 from __future__ import annotations
@@ -40,26 +40,27 @@ MAX_M = qmm_mod.MAX_NT_ROWS
 
 launches = 0
 f32_launches = 0         # K3's f32 mode
-F32_TILE = 64            # csrc/ffma.cuh FF_COLS: vocab entries a CTA
-F32_MAX_MT = 8           # csrc/ffma.cuh FF_MAX_MT: 16-row groups a pass (128 rows)
 
-
-def f32_row_tiles(m: int) -> int:
-    """The 16-row groups of an f32 pass over M rows (csrc/ffma.cuh
-    ``ff_mt``): 1, 2, 4 or 8, the least that holds min(M, 128) rows."""
-    need = -(-min(m, 16 * F32_MAX_MT) // 16)
-    return next(mt for mt in (1, 2, 4, 8) if mt >= need)
-
-
-# csrc/ffma_stream.cuh, K3's f32 stream.
+# csrc/ffma_stream.cuh, the f32 stream of K3 f32 and of K4 / K5's f32 and
+# W8A32 modes (ops/verify.py::f32_vocab_plan).
 STREAM_TILE = 64         # FS_VT: vocab entries an item
-STREAM_KC = 32           # FS_KC: floats of D a ring stage holds
+STREAM_KC = 32           # FS_KC: floats of D an f32 ring stage holds
+STREAM_QKC = 64          # FS_QKC: int8 values of D an int8 ring stage holds
 STREAM_MAX_TR = 8        # FS_MAX_TR: rows a thread, passes of up to 64 rows
 STREAM_THREADS = 160     # FS_THREADS: 4 consumer warps + the producer warp
 STREAM_CTAS = 2          # FS_CTAS: CTAs an SM
-STREAM_RING = 98304      # FS_RING: ring bytes a CTA
+STREAM_RING = 98304      # FS_RING: ring bytes a CTA at most
 STREAM_MAX_STAGES = 10   # FS_MAX_STAGES
+STREAM_SM_SMEM = 233472  # FS_SM_SMEM: shared memory of an SM (H100)
 H100_SMS = 132
+
+
+def stream_ring(staged: int = 0) -> int:
+    """csrc/ffma_stream.cuh ``fs_ring``: the ring bytes a CTA beside
+    ``staged`` bytes of its epilogue's, FS_RING or what two CTAs an SM
+    leave (1 KB reserved and 1 KB of slack a CTA, the barriers)."""
+    return min(STREAM_RING, STREAM_SM_SMEM // STREAM_CTAS - 2048 - staged
+               - 16 * STREAM_MAX_STAGES)
 
 
 def f32_stream_plan(m: int, v: int, d: int = 1280, sms: int = H100_SMS):
@@ -73,23 +74,12 @@ def f32_stream_plan(m: int, v: int, d: int = 1280, sms: int = H100_SMS):
     tiles = -(-v // STREAM_TILE)
     items = tiles * passes
     stage = STREAM_TILE * STREAM_KC * 4 + 8 * tr * STREAM_KC * 4
-    stages = min(STREAM_MAX_STAGES, STREAM_RING // stage)
+    stages = min(STREAM_MAX_STAGES, stream_ring() // stage)
     grid = min(items, STREAM_CTAS * sms)
     walk = [list(range(b, items, grid)) for b in range(grid)]
     return dict(passes=passes, tr=tr, rows=8 * tr, tiles=tiles, items=items, grid=grid,
                 walk=walk, stage=stage, stages=stages, chunks=d // STREAM_KC,
                 smem=1024 + stages * stage + 16 * stages)
-
-
-def f32_plan(m: int, v: int):
-    """The f32 NT stream's launch over M rows and V vocab entries (K4's stage
-    B and K5's f32 mode): the 16-row groups MT of a pass, the passes, the
-    64-entry tiles and the grid (tiles x passes CTAs, a tile's passes
-    adjacent).  A row's sums come from D alone."""
-    mt = f32_row_tiles(m)
-    passes = -(-m // (16 * mt))
-    tiles = -(-v // F32_TILE)
-    return dict(mt=mt, passes=passes, tiles=tiles, grid=tiles * passes)
 
 
 def project_plain(x2: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:

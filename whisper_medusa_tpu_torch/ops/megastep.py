@@ -71,15 +71,15 @@ C entry of its own, ``wm_megastep_w8a32``: f32 residual stream, norms and
 biases, the eight streamed weights int8 with f32 column scales, int8 self
 slabs with bf16 scales and int8 cross K/V with f32 scales, every product
 FFMA on the CUDA cores (the tensor cores take f32 only as TF32).  Per
-layer: an f32 layer norm, the W8A32 GEMM (``csrc/ffma.cuh``: each int8
-weight converted exactly to f32 as it loads, the column's scale on the
-slices' sum before the bias; q/k/v one launch of 3 jobs), the f32
-attention body of ``csrc/ffma_attn.cuh`` (self: history rows from the int8
-slab, score times the key's bf16 scale and probability times the value's,
-the chunk's keys from the fresh f32 rows, the commit quantizing each
-(position, head) row as ``quantize_self_rows``; cross: int8 K/V, scores
-times the key scale, probabilities times the value scale), ten kernels of
-six kinds and their combines, twenty launches a layer.  Its plain version
+layer: three f32 layer norms, six W8A32 GEMMs (the int8-weight mode of
+``csrc/ffma_gemm.cuh``: each int8 weight converted exactly to f32 as a
+warp reads it, the column's scale on the slices' sum before the bias;
+q/k/v one launch of 3 jobs) and two attentions on the f32 attention body
+of ``csrc/ffma_attn.cuh`` (self: history rows from the int8 slab, score
+times the key's bf16 scale and probability times the value's, the chunk's
+keys from the fresh f32 rows, the commit quantizing each (position, head)
+row as ``quantize_self_rows``; cross: int8 K/V, scores times the key
+scale, probabilities times the value scale), eleven launches a layer.  Its plain version
 is :func:`w8a32_layer_step`, the JAX kernel's arithmetic line by line
 (not the JAX scan's, whose ``qmm`` rounds the rows to bf16); its count is
 ``w8a32_launches`` (``w8a32_block_launches`` with the block).  At

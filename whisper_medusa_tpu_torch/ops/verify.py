@@ -65,19 +65,25 @@ f32 serving (the JAX package's default dtype) is a mode of the same three
 wrappers with C entries of their own (``wm_verify_hidden_f32``,
 ``wm_verify_rows_f32``; head rows through ``wm_gemm_f32``): f32 rows
 against an f32 embedding in FFMA on the CUDA cores (the tensor cores take
-f32 only as TF32).  Stage B is ``verify.cu::vocab_stream_f32_kernel``, a
-CTA per (64-entry vocab tile, pass of up to 128 rows) whose sums feed the
-same ``tile_stats`` epilogue (processors, timestamp rules, the straddling
-tile's split) and the same combine kernels as the bf16 stream; stage A and
-``head_rows`` are ``csrc/ffma_gemm.cuh``'s f32 weight stream over the
-heads, one launch, K slices from (D, D) alone (``decode_ops.f32_gemm_plan``),
-so a head row has the same bits in K4 and in the two-pass loop, at any M.  W8A32 (the int8 copy
-of an f32 model) rides the same f32 entries: an int8 embedding streams
-through the FFMA tile's W8 operand (each value converted exactly to f32,
-``s[v]`` on column v's sum before the processors) and int8 heads run stage
-A and ``head_rows`` on the W8A32 GEMM (``wm_gemm_w8a32``: the same weight
-stream in its int8-weight mode, one launch, the scale on the sum before the
-bias, ``decode_ops.f32_gemm_plan`` with ``w8``); counted in ``w8a32_launches``,
+f32 only as TF32).  Stage B is K3 f32's weight stream
+(``csrc/ffma_stream.cuh``) with a scoring epilogue (``verify.cu::
+FsScore``, :func:`f32_vocab_plan`): a persistent grid of two CTAs an SM
+over (64-entry vocab tile, pass of up to 64 rows) items, a producer warp's
+TMA ring of E chunks and the pass's rows, four consumer warps of 4 entries
+x TR rows a thread, each sum one chain over D in order; at an item's last
+chunk the consumers stage its sums in shared memory and run the bf16
+stream's ``tile_stats`` epilogue (processors, timestamp rules, the
+straddling tile's split) on them, into the same partials and combine
+kernels.  Stage A and ``head_rows`` are ``csrc/ffma_gemm.cuh``'s f32
+weight stream over the heads, one launch, K slices from (D, D) alone
+(``decode_ops.f32_gemm_plan``), so a head row has the same bits in K4 and
+in the two-pass loop, at any M.  W8A32 (the int8 copy of an f32 model)
+rides the same f32 entries: an int8 embedding streams as int8 chunks on
+the same ring (each value converted exactly to f32 as it is read, ``s[v]``
+on column v's sum before the processors) and int8 heads run stage A and
+``head_rows`` on the W8A32 GEMM (``wm_gemm_w8a32``: the same weight stream
+in its int8-weight mode, one launch, the scale on the sum before the bias,
+``decode_ops.f32_gemm_plan`` with ``w8``); counted in ``w8a32_launches``,
 ``w8a32_rows_launches`` and ``w8a32_head_launches``.
 
 The fused timestamp rules (``ts_cfg``, the JAX kernels' ts mode) are a mode
@@ -103,6 +109,7 @@ import torch
 
 from whisper_medusa_tpu_torch.ops import cuda_lib
 from whisper_medusa_tpu_torch.ops import decode_ops as decode_ops_mod
+from whisper_medusa_tpu_torch.ops import logits as logits_mod
 from whisper_medusa_tpu_torch.ops import megastep as megastep_mod
 from whisper_medusa_tpu_torch.ops import qmm as qmm_mod
 
@@ -114,6 +121,7 @@ MAX_SRC_ROWS = 192       # rows per head_rows launch (csrc/wgemm.cuh G_MAX_MT * 
 HEAD_STAGES = 2          # csrc/wgemm.cuh H_STAGES: ring stages of the heads mode
 TILE = 64                # csrc/verify.cu VS_VT: vocab entries a tile (partials' columns)
 PASS_ROWS = 192          # csrc/verify.cu VS_MAX_MT * 16: rows the vocab stream takes a pass
+STAGED_LDC = 68          # csrc/verify.cu VS_LDC: f32 pitch of a tile's staged sums
 
 launches = 0             # K4 (verify_hidden) kernel launches, bf16 embedding
 rows_launches = 0        # K5 (verify_rows) kernel launches, bf16 embedding
@@ -136,6 +144,33 @@ w8a32_launches = 0       # W8A32 (f32 rows, int8 embedding and heads): K4 in eve
 w8a32_rows_launches = 0  # mode (base_head, identity0, ts), K5 (ts too) and
 w8a32_head_launches = 0  # wm_head_rows on int8 heads
 w8a32_ts_launches = 0    # those of the W8A32 K4 / K5 launches in the timestamp mode
+
+
+def f32_vocab_plan(r: int, v: int, d: int = 1280, w8: bool = False,
+                   sms: int = logits_mod.H100_SMS):
+    """Stage B of K4 / K5's f32 and W8A32 modes (csrc/ffma_stream.cuh
+    ``fs_launch`` with verify.cu's ``FsScore``) over R rows, V vocab entries
+    and D: K3 f32's passes, TR, items, persistent grid and walk
+    (:func:`logits.f32_stream_plan`); the staged sums (8 TR rows at pitch
+    VS_LDC); a ring of :func:`logits.stream_ring` bytes beside them (96 KB,
+    or what two CTAs an SM leave) whose stage is the E chunk (f32: 64 x 32
+    floats; int8: 64 x 64 values) and the pass's 8 TR rows over the same D
+    (one 32-float box, two at int8); a CTA's dynamic shared memory (1 KB
+    alignment slack, ring, staged sums, barriers).  ``tile_stats``
+    scores pass p's rows [8 TR p, 8 TR (p + 1)) below R."""
+    LG = logits_mod
+    plan = LG.f32_stream_plan(r, v, d, sms)
+    tr = plan["tr"]
+    if w8:
+        stage = LG.STREAM_TILE * LG.STREAM_QKC + 2 * 8 * tr * LG.STREAM_KC * 4
+        chunks = d // LG.STREAM_QKC
+    else:
+        stage, chunks = plan["stage"], plan["chunks"]
+    staged = 8 * tr * STAGED_LDC * 4
+    stages = min(LG.STREAM_MAX_STAGES, LG.stream_ring(staged) // stage)
+    plan.update(stage=stage, stages=stages, chunks=chunks, staged=staged,
+                smem=1024 + stages * stage + staged + 16 * stages)
+    return plan
 
 
 def masks_for(pcfg, device="cpu") -> torch.Tensor:
